@@ -1,0 +1,447 @@
+"""Host-side numpy builders for the port's device heads.
+
+Byte-for-byte copies of the pure-numpy builders that the JAX package keeps
+in modules which import ``jax`` at load time (``imagekit_tpu/ops/resize.py``
+and ``imagekit_tpu/ops/dct.py``). Copying them, rather than importing, keeps
+the port free of ``jax``; ``tests/test_torch_weights.py`` pins every builder
+here ``np.array_equal`` to its original, so both packages feed their heads
+the same weight stacks.
+
+- filter kernels, :func:`resample_weights`, :func:`padded_weights`,
+  :func:`fit_within`, :func:`target_dimensions` (``ops/resize.py:43-215,275``);
+- :func:`idct_basis`, :func:`idct_basis_k`, :func:`quality_tables`, the
+  truncated-path weights and their folding (``ops/dct.py:39-178,371-463``),
+  ``LOWFREQ_ESC_Y/C`` (``ops/dct.py:612``);
+- :func:`host_encode_rgb_to_coefficients` (``ops/dct.py:1864``), which makes
+  JPEG coefficient planes from RGB without Pillow.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from imagekit_tpu.utils.sized_cache import SizedArrayCache
+
+# ---------------------------------------------------------------------------
+# Filter kernels (ops/resize.py:43-98)
+# ---------------------------------------------------------------------------
+
+
+def _sinc(x: np.ndarray) -> np.ndarray:
+    a = (x * np.float32(np.pi)).astype(np.float32)
+    out = np.ones_like(x, dtype=np.float32)
+    nz = x != 0
+    out[nz] = (np.sin(a[nz]) / a[nz]).astype(np.float32)
+    return out
+
+
+def _lanczos3(x: np.ndarray) -> np.ndarray:
+    t = np.float32(3.0)
+    out = np.zeros_like(x, dtype=np.float32)
+    m = np.abs(x) < t
+    out[m] = (_sinc(x[m]) * _sinc(x[m] / t)).astype(np.float32)
+    return out
+
+
+def _triangle(x: np.ndarray) -> np.ndarray:
+    ax = np.abs(x).astype(np.float32)
+    return np.where(ax < 1.0, np.float32(1.0) - ax, np.float32(0.0)).astype(
+        np.float32
+    )
+
+
+def _catmull_rom(x: np.ndarray) -> np.ndarray:
+    a = np.abs(x).astype(np.float32)
+    a2 = a * a
+    a3 = a2 * a
+    out = np.zeros_like(a)
+    m1 = a < 1.0
+    m2 = (a >= 1.0) & (a < 2.0)
+    out[m1] = (1.5 * a3 - 2.5 * a2 + 1.0)[m1]
+    out[m2] = (-0.5 * a3 + 2.5 * a2 - 4.0 * a + 2.0)[m2]
+    return out.astype(np.float32)
+
+
+def _gaussian(x: np.ndarray) -> np.ndarray:
+    r = np.float32(0.5)
+    return (
+        np.exp(-(x.astype(np.float32) ** 2) / (2.0 * r * r))
+        / np.float32(np.sqrt(2.0 * np.pi) * r)
+    ).astype(np.float32)
+
+
+def _box(x: np.ndarray) -> np.ndarray:
+    return (np.abs(x) <= 0.5).astype(np.float32)
+
+
+# name -> (support, kernel). "lanczos3" is what the reference always uses.
+FILTERS: Dict[str, Tuple[float, Callable[[np.ndarray], np.ndarray]]] = {
+    "lanczos3": (3.0, _lanczos3),
+    "triangle": (1.0, _triangle),
+    "bilinear": (1.0, _triangle),
+    "catmullrom": (2.0, _catmull_rom),
+    "gaussian": (3.0, _gaussian),
+    "nearest": (0.0, _box),
+}
+
+# ---------------------------------------------------------------------------
+# Weight matrices (ops/resize.py:106-164, 275-298)
+# ---------------------------------------------------------------------------
+
+_WEIGHTS_CACHE = SizedArrayCache(64 * 1024 * 1024)
+
+
+def resample_weights(true_in, true_out, filter_name="lanczos3"):
+    """Cached (byte-budgeted) resample weight matrix; see the impl below."""
+    key = ("rw", true_in, true_out, filter_name)
+    return _WEIGHTS_CACHE.get_or_build(
+        key, lambda: _resample_weights_impl(true_in, true_out, filter_name)
+    )
+
+
+def _resample_weights_impl(
+    in_size: int, out_size: int, filter_name: str = "lanczos3"
+) -> np.ndarray:
+    """Dense (out_size, in_size) f32 weight matrix for one axis.
+
+    Per output pixel: window centre ``(o + 0.5) * ratio`` in source space,
+    support scaled by ``max(ratio, 1)``, window ``[floor(c - s), ceil(c + s))``
+    clamped to the image, kernel evaluated at ``(i - (c - 0.5)) / sratio``,
+    weights normalised to sum 1.
+    """
+    if filter_name not in FILTERS:
+        raise ValueError(f"unknown filter: {filter_name}")
+    if filter_name == "nearest":
+        return _nearest_weights(in_size, out_size)
+
+    support, kernel = FILTERS[filter_name]
+    ratio = np.float32(in_size) / np.float32(out_size)
+    sratio = ratio if ratio >= 1.0 else np.float32(1.0)
+    src_support = np.float32(support) * sratio
+
+    W = np.zeros((out_size, in_size), dtype=np.float32)
+    for o in range(out_size):
+        center = np.float32(np.float32(o) + np.float32(0.5)) * ratio
+        left = int(np.floor(np.float32(center - src_support)))
+        left = min(max(left, 0), in_size - 1)
+        right = int(np.ceil(np.float32(center + src_support)))
+        right = min(max(right, left + 1), in_size)
+        c = np.float32(center - np.float32(0.5))
+        idx = np.arange(left, right, dtype=np.float32)
+        w = kernel(((idx - c) / sratio).astype(np.float32))
+        s = w.sum(dtype=np.float32)
+        if s != 0:
+            w = (w / s).astype(np.float32)
+        W[o, left:right] = w
+    return W
+
+
+def _nearest_weights(in_size: int, out_size: int) -> np.ndarray:
+    """Nearest-neighbour as a 0/1 selection matrix."""
+    W = np.zeros((out_size, in_size), dtype=np.float32)
+    ratio = in_size / out_size
+    for o in range(out_size):
+        src = min(int((o + 0.5) * ratio), in_size - 1)
+        W[o, src] = 1.0
+    return W
+
+
+def padded_weights(
+    true_in: int,
+    true_out: int,
+    bucket_in: int,
+    bucket_out: int,
+    filter_name: str = "lanczos3",
+) -> np.ndarray:
+    """Weight matrix for a (true_in -> true_out) resample embedded in a
+    (bucket_out, bucket_in) zero matrix: padded input rows contribute
+    nothing and output rows beyond ``true_out`` come out zero."""
+    if true_in > bucket_in or true_out > bucket_out:
+        raise ValueError("true size exceeds bucket")
+    w = resample_weights(true_in, true_out, filter_name)
+    out = np.zeros((bucket_out, bucket_in), dtype=np.float32)
+    out[:true_out, :true_in] = w
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Output-dimension math (ops/resize.py:172-209)
+# ---------------------------------------------------------------------------
+
+
+def _round_f32_half_away(x: np.float32) -> int:
+    """Rust f32::round — round half away from zero (positive inputs here)."""
+    return int(np.floor(np.float32(x) + np.float32(0.5)))
+
+
+def _round_f64_half_away(x: float) -> int:
+    return int(np.floor(x + 0.5))
+
+
+def fit_within(
+    orig_w: int, orig_h: int, box_w: int, box_h: int
+) -> Tuple[int, int]:
+    """Aspect-preserving fit inside a bounding box, f64 math with
+    round-half-away-from-zero and a floor of 1 px."""
+    wratio = box_w / orig_w
+    hratio = box_h / orig_h
+    ratio = min(wratio, hratio)
+    nw = max(_round_f64_half_away(orig_w * ratio), 1)
+    nh = max(_round_f64_half_away(orig_h * ratio), 1)
+    return nw, nh
+
+
+def target_dimensions(
+    orig_w: int, orig_h: int, w: Optional[int], h: Optional[int]
+) -> Tuple[int, int]:
+    """Fill in the missing dimension with f32 ratio math, clamp to >= 1,
+    then fit-within. Returns the original size when both are None."""
+    if w is None and h is None:
+        return orig_w, orig_h
+    if w is None:
+        ratio = np.float32(h) / np.float32(orig_h)
+        w = _round_f32_half_away(np.float32(orig_w) * ratio)
+    if h is None:
+        ratio = np.float32(w) / np.float32(orig_w)
+        h = _round_f32_half_away(np.float32(orig_h) * ratio)
+    return fit_within(orig_w, orig_h, max(int(w), 1), max(int(h), 1))
+
+
+# ---------------------------------------------------------------------------
+# Bases and quantisation tables (ops/dct.py:38-87)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=1)
+def idct_basis() -> np.ndarray:
+    """A[u, x]: contribution of frequency u to pixel x (1-D, 8-point).
+    pixels = A^T @ coeffs @ A for a 2-D block."""
+    A = np.zeros((8, 8), np.float32)
+    for u in range(8):
+        cu = np.sqrt(0.25) if u else np.sqrt(0.125)
+        for x in range(8):
+            A[u, x] = cu * np.cos((2 * x + 1) * u * np.pi / 16)
+    return A
+
+
+# Annex K base quantisation tables (natural order).
+QTAB_LUMA_BASE = np.array(
+    [
+        16, 11, 10, 16, 24, 40, 51, 61,
+        12, 12, 14, 19, 26, 58, 60, 55,
+        14, 13, 16, 24, 40, 57, 69, 56,
+        14, 17, 22, 29, 51, 87, 80, 62,
+        18, 22, 37, 56, 68, 109, 103, 77,
+        24, 35, 55, 64, 81, 104, 113, 92,
+        49, 64, 78, 87, 103, 121, 120, 101,
+        72, 92, 95, 98, 112, 100, 103, 99,
+    ],
+    np.int32,
+)
+QTAB_CHROMA_BASE = np.array(
+    [
+        17, 18, 24, 47, 99, 99, 99, 99,
+        18, 21, 26, 66, 99, 99, 99, 99,
+        24, 26, 56, 99, 99, 99, 99, 99,
+        47, 66, 99, 99, 99, 99, 99, 99,
+        99, 99, 99, 99, 99, 99, 99, 99,
+        99, 99, 99, 99, 99, 99, 99, 99,
+        99, 99, 99, 99, 99, 99, 99, 99,
+        99, 99, 99, 99, 99, 99, 99, 99,
+    ],
+    np.int32,
+)
+
+
+def quality_tables(quality: int) -> Tuple[np.ndarray, np.ndarray]:
+    """libjpeg quality->quantiser scaling, quality clamped to 1-100."""
+    q = min(max(int(quality), 1), 100)
+    scale = 5000 // q if q < 50 else 200 - 2 * q
+    def scaled(base):
+        t = (base * scale + 50) // 100
+        return np.clip(t, 1, 255).astype(np.uint16)
+    return scaled(QTAB_LUMA_BASE), scaled(QTAB_CHROMA_BASE)
+
+
+# ---------------------------------------------------------------------------
+# Truncated-path (k/8-scale) weights (ops/dct.py:94-172, 370-463)
+# ---------------------------------------------------------------------------
+
+# Chroma/upsample weight matrices run 0.1-7 MB each and are keyed by true
+# dims — byte-budgeted LRU instead of entry caps.
+_CHROMA_WEIGHTS = SizedArrayCache(64 * 1024 * 1024)
+
+
+def _chroma_cached(key, build):
+    return _CHROMA_WEIGHTS.get_or_build(key, build)
+
+
+def _upsample_weights_impl(half: int, full: int) -> np.ndarray:
+    """(full, half) matrix for libjpeg-style 'fancy' (triangle) 2x chroma
+    upsampling along one axis: output 2i   = (3*c[i] + c[i-1]) / 4,
+    output 2i+1 = (3*c[i] + c[i+1]) / 4, edges clamped. A non-subsampled
+    axis is the identity."""
+    if half == full:
+        return np.eye(full, dtype=np.float32)
+    U = np.zeros((full, half), np.float32)
+    for o in range(full):
+        i = o // 2
+        if o % 2 == 0:
+            j = max(i - 1, 0)
+            U[o, i] += 0.75
+            U[o, j] += 0.25
+        else:
+            j = min(i + 1, half - 1)
+            U[o, i] += 0.75
+            U[o, j] += 0.25
+    return U
+
+
+def upsample_weights(half, full):
+    return _chroma_cached(("up", half, full), lambda: _upsample_weights_impl(half, full))
+
+
+def lowfreq_chroma_half_weights(chroma_true, full_true, out_true,
+                                chroma_inter_bucket, out_half_bucket, k):
+    key = ("lch", chroma_true, full_true, out_true, chroma_inter_bucket,
+           out_half_bucket, k)
+    return _chroma_cached(key, lambda: _lowfreq_chroma_half_weights_impl(
+        chroma_true, full_true, out_true, chroma_inter_bucket,
+        out_half_bucket, k))
+
+
+@functools.lru_cache(maxsize=8)
+def idct_basis_k(k: int) -> np.ndarray:
+    """Orthonormal k-point IDCT basis A_k[u, x]."""
+    A = np.zeros((k, k), np.float32)
+    for u in range(k):
+        cu = np.sqrt(2.0 / k) if u else np.sqrt(1.0 / k)
+        for x in range(k):
+            A[u, x] = cu * np.cos((2 * x + 1) * u * np.pi / (2 * k))
+    return A
+
+
+def intermediate_dim(true_full: int, k: int) -> int:
+    """True sample extent of the k/8-scale intermediate plane."""
+    return (true_full * k + 7) // 8
+
+
+def lowfreq_luma_weights(
+    true_full: int, out_true: int, k: int, inter_bucket: int, out_bucket: int
+) -> np.ndarray:
+    """(out_bucket, inter_bucket) Lanczos weights resampling the k/8-scale
+    intermediate plane to the target."""
+    inter_true = intermediate_dim(true_full, k)
+    W = resample_weights(inter_true, out_true)
+    out = np.zeros((out_bucket, inter_bucket), np.float32)
+    out[:out_true, :inter_true] = W
+    return out
+
+
+def _lowfreq_chroma_half_weights_impl(
+    chroma_true: int,
+    full_true: int,
+    out_true: int,
+    chroma_inter_bucket: int,
+    out_half_bucket: int,
+    k: int,
+) -> np.ndarray:
+    """Truncated-path chroma weights: 2x box-subsample ∘ resize ∘ 2x
+    upsample on the k/8-scale grids, one matrix per axis."""
+    ci = intermediate_dim(chroma_true, k)
+    fi = intermediate_dim(full_true, k)
+    W = resample_weights(fi, out_true)  # (out, inter-luma)
+    U = upsample_weights(ci, fi)  # (inter-luma, inter-chroma)
+    half = (out_true + 1) // 2
+    S = np.zeros((half, out_true), np.float32)
+    for i in range(half):
+        S[i, 2 * i] += 0.5
+        S[i, min(2 * i + 1, out_true - 1)] += 0.5
+    C = (S @ W @ U).astype(np.float32)
+    out = np.zeros((out_half_bucket, chroma_inter_bucket), np.float32)
+    out[:half, :ci] = C
+    return out
+
+
+def pad128(n: int) -> int:
+    return (n + 127) // 128 * 128
+
+
+def lowfreq_ac_width(nblk: int, k: int) -> int:
+    """Minor dim of the PLANAR split-int8 AC batch layout: k*k-1 coefficient
+    planes, each 128-aligned, so plane j of block column b sits at
+    ``j * pad128(nblk) + b``."""
+    return (k * k - 1) * pad128(nblk)
+
+
+def fold_lowfreq_weights(W: np.ndarray, k: int) -> np.ndarray:
+    """Fold the k-point IDCT basis into a truncated-path resize weight
+    stack: (U, O, nblk*k) -> (U, k, O, nblk).
+
+    Column ``k*i + x`` of W addresses phase x of block i on the k/8-scale
+    intermediate plane; both the per-block IDCT and the resize are linear,
+    so ``out[:, u] = W @ E_u`` with ``E_u[k*i + x, i] = A_k[u, x]``."""
+    A = idct_basis_k(k)
+    U, O, L = W.shape
+    nblk = L // k
+    Wb = W.reshape(U, O, nblk, k)
+    return np.ascontiguousarray(
+        np.einsum("zoix,ux->zuoi", Wb, A).astype(np.float32)
+    )
+
+
+# natural-order indices of the KxK low-frequency coefficients
+@functools.lru_cache(maxsize=8)
+def _lowfreq_indices(k: int) -> np.ndarray:
+    return np.array([u * 8 + v for u in range(k) for v in range(k)], np.int32)
+
+
+#: static escape capacities of the split-int8 batch head: one luma and one
+#: per-chroma-plane scatter list per batch (ops/dct.py:612).
+LOWFREQ_ESC_Y = 4096
+LOWFREQ_ESC_C = 1024
+
+
+# ---------------------------------------------------------------------------
+# Encode direction, host mirror (ops/dct.py:1864)
+# ---------------------------------------------------------------------------
+
+
+def host_encode_rgb_to_coefficients(
+    img: np.ndarray, quality: int
+) -> Tuple[List[np.ndarray], Tuple[np.ndarray, np.ndarray]]:
+    """RGB -> BT.601 YCbCr, 4:2:0 box subsample, 8x8 fDCT and quantise:
+    coefficient planes [(byY,bxY,64), (byC,bxC,64), ...] i16 and the quant
+    tables, ready for ``loader.encode_jpeg``."""
+    h, w = img.shape[:2]
+    ph = (h + 15) // 16 * 16
+    pw = (w + 15) // 16 * 16
+    x = np.pad(
+        img[:, :, :3], ((0, ph - h), (0, pw - w), (0, 0)), mode="edge"
+    ).astype(np.float32)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b - 128.0
+    cb = -0.168735892 * r - 0.331264108 * g + 0.5 * b
+    cr = 0.5 * r - 0.418687589 * g - 0.081312411 * b
+    cb_d = cb.reshape(ph // 2, 2, pw // 2, 2).mean(axis=(1, 3))
+    cr_d = cr.reshape(ph // 2, 2, pw // 2, 2).mean(axis=(1, 3))
+    A = idct_basis()
+    qy, qc = quality_tables(quality)
+
+    def fdct_quant(plane, q):
+        hh, ww = plane.shape
+        blocks = np.ascontiguousarray(
+            plane.reshape(hh // 8, 8, ww // 8, 8).transpose(0, 2, 1, 3)
+        ).reshape(-1, 8, 8)
+        # c[u,v] = A @ p @ A^T per block, as broadcast BLAS matmuls
+        c = A[None] @ blocks @ A.T[None]
+        c = c.reshape(hh // 8, ww // 8, 64) / q.astype(np.float32)[None, None]
+        return (np.sign(c) * np.floor(np.abs(c) + 0.5)).astype(np.int16)
+
+    return (
+        [fdct_quant(y, qy), fdct_quant(cb_d, qc), fdct_quant(cr_d, qc)],
+        (qy, qc),
+    )
