@@ -6,21 +6,34 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``imagekit_tpu_torch/csrc`` and
-drives the port's main path, a 1920x1080 JPEG resized to fit 400 px and
-encoded as WebP q80, through ``BatchedEngine.transform`` on the card:
+drives the port's two paths through ``BatchedEngine.transform`` on the
+card: a 1920x1080 JPEG resized to fit 400 px and encoded as WebP q80 (K1),
+and a 1920x1080 RGB PNG resized to fit 400 px and encoded as WebP q80 or
+JPEG q80 (K2):
 
 1. environment: the card (``nvidia-smi``), torch and CUDA versions;
-2. build: the K1 kernel library and the host codecs;
+2. build: the kernel library (one nvcc per source, started together), the
+   host codecs, 16 synthesized 1080p JPEGs and the same 16 images as PNGs
+   (written with ``zlib`` and ``struct``: no Pillow);
 3. K1 against its plain PyTorch version on the card, at B in {1, 32},
    k in {2, 4}, luma and chroma, both epilogues, on coefficients decoded
    from synthesized 1080p JPEGs (escapes included) and real folded Lanczos
    stacks; the median of 20 CUDA-event timings of each at B=32, k=2;
-4. the engine slice: >=32 concurrent requests over 16 distinct JPEGs,
-   outputs checked, K1's launch count checked against the batch count,
-   one batch's planes checked against the plain head, requests/s and
-   p50/p99 latency;
-5. HTTP ``/sign`` -> ``/img`` through the port's app, where aiohttp is
-   installed.
+4. K2 against its plain PyTorch version on the card: the three channels
+   of an interleaved 1088x1920 batch -> 240x400 at B in {1, 32} with
+   vidx != hidx (default epilogue), and a 544x960 -> 120x200 plane with the
+   yuvjpg luma and chroma remaps (affine + centred epilogues); the median
+   of 20 CUDA-event timings of each at B=32;
+5. the JPEG engine slice: >=32 concurrent requests over 16 distinct
+   JPEGs, outputs checked, K1's launch count checked against the batch
+   count, one batch's planes checked against the plain head, requests/s
+   and p50/p99 latency;
+6. the PNG engine slice: 64 WebP and 64 JPEG requests at once over the 16
+   PNGs, outputs decoded to their size, K2's launch count checked against
+   the batch count, one batch's planes and one batch's levels checked
+   against the plain heads, requests/s, p50/p99 and the host stages;
+7. HTTP ``/sign`` -> ``/img`` for JPEG and PNG sources and a PNG
+   ``/upload`` through the port's app, where aiohttp is installed.
 
 Any failed phase raises, and the script exits non-zero. The last lines are
 the card's name and power limit, one JSON line describing each kernel, and
@@ -34,10 +47,12 @@ import asyncio
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import time
 import traceback
+import zlib
 
 import numpy as np
 import torch
@@ -98,6 +113,20 @@ def make_jpeg(seed: int, quality: int) -> bytes:
     return loader.encode_jpeg(planes, qt, img.shape[1], img.shape[0])
 
 
+def make_png(img: np.ndarray) -> bytes:
+    """RGB PNG without Pillow: filter 0 on every row, zlib level 1."""
+    h, w = img.shape[:2]
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+
+    def chunk(tag, body):
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body)))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
 def native_codecs() -> str:
     """Load the host codec library through the reference's loader; when
     that fails, show the compiler's error and, if only zlib is missing,
@@ -134,12 +163,13 @@ def native_codecs() -> str:
 
 
 class Recorder:
-    """Wraps the engine's head call and keeps the device inputs and the
-    planes of every batch."""
+    """Wraps one of the engine's head calls and keeps the device inputs and
+    the outputs of every batch."""
 
-    def __init__(self, module):
+    def __init__(self, module, name: str = "decode_resize_yuv_lowfreq_i8_batch"):
         self.module = module
-        self.fn = module.decode_resize_yuv_lowfreq_i8_batch
+        self.name = name
+        self.fn = getattr(module, name)
         self.calls = []
 
     def __enter__(self):
@@ -148,11 +178,11 @@ class Recorder:
             self.calls.append((args, kw, out))
             return out
 
-        self.module.decode_resize_yuv_lowfreq_i8_batch = wrapped
+        setattr(self.module, self.name, wrapped)
         return self
 
     def __exit__(self, *exc):
-        self.module.decode_resize_yuv_lowfreq_i8_batch = self.fn
+        setattr(self.module, self.name, self.fn)
 
 
 def capture_batch(jpegs, width: int, batch: int):
@@ -225,6 +255,13 @@ def cuda_ms(fn, reps: int = 20) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def latency(res):
+    """p50 and p99 in ms of the (output, seconds) results of a round."""
+    lat = sorted(t for _, t in res)
+    return (lat[len(lat) // 2] * 1e3,
+            lat[min(len(lat) - 1, int(round(0.99 * (len(lat) - 1))))] * 1e3)
 
 
 def phase_kernel(jpegs, jpegs_hq) -> dict:
@@ -310,7 +347,119 @@ def check_head(args, planes):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the engine slice
+# phase 4: K2 against its plain version
+# ---------------------------------------------------------------------------
+
+# four (true input, true output) slots per axis in the slice's bucket pair;
+# image b takes vertical slot b % 4 and horizontal slot (b + 1) % 4
+SLICE_V = ((1080, 225), (1072, 223), (1064, 222), (1056, 220))
+SLICE_H = ((1920, 400), (1904, 397), (1888, 393), (1872, 390))
+CHROMA_V = ((540, 113), (536, 112), (532, 111), (528, 110))
+CHROMA_H = ((960, 200), (952, 198), (944, 197), (936, 195))
+
+
+def k2_stacks(key, v_slots, h_slots):
+    """Weight stacks and band tables on the card, built by the engine's own
+    builder (edge rows replicated as the engine replicates them)."""
+    from imagekit_tpu.serving.metrics import Metrics
+    from imagekit_tpu_torch.serving.batcher import BatchedEngine
+
+    engine = BatchedEngine(metrics=Metrics(), device="cuda")
+    try:
+        return engine._rgb_weights(
+            key, {k: i for i, k in enumerate(v_slots)},
+            {k: i for i, k in enumerate(h_slots)})
+    finally:
+        asyncio.run(engine.close())
+
+
+def k2_index(batch: int):
+    vidx = torch.arange(batch, dtype=torch.int32, device="cuda") % 4
+    return vidx, (vidx + 1) % 4
+
+
+def phase_k2(images) -> dict:
+    """``images``: the 16 synthesized 1920x1080 RGB images of the PNGs."""
+    from imagekit_tpu_torch.ops import color, resize_strip
+
+    result = {"max_abs_err": 0}
+
+    def check(what, got, ref):
+        mx, share1, over = compare(got, ref)
+        log(f"  K2 vs plain {what} shape={tuple(got.shape)} "
+            f"dtype={got.dtype}: max|d|={mx} share(|d|=1)={share1:.3e}")
+        if mx > MAX_ABS or share1 > MAX_SHARE or over:
+            raise RuntimeError("K2 disagrees with its plain version")
+        result["max_abs_err"] = max(result["max_abs_err"], mx)
+
+    wv, wh, bv, bh = k2_stacks((1088, 1920, 240, 400, 3, "yuv"),
+                               SLICE_V, SLICE_H)
+    host = np.zeros((32, 1088, 1920 * 3), np.uint8)
+    for i in range(32):
+        host[i, :1080] = images[i % len(images)].reshape(1080, -1)
+    full = torch.from_numpy(host).cuda().reshape(32, 1088, 1920, 3)
+    for batch in (1, 32):
+        x = full[:batch]
+        vidx, hidx = k2_index(batch)
+        for c in range(3):
+            got = resize_strip.plane_resize(x[..., c], wv, wh, vidx, hidx,
+                                            bands=(bv, bh))
+            ref = resize_strip.plane_resize_plain(x[..., c], wv, wh, vidx,
+                                                  hidx)
+            torch.cuda.synchronize()
+            check(f"B={batch} channel {'RGB'[c]} (u8)", got, ref)
+    vidx, hidx = k2_index(32)
+
+    def three(fn):
+        return lambda: [fn(full[..., c], wv, wh, vidx, hidx, bands=(bv, bh))
+                        for c in range(3)]
+
+    ms = cuda_ms(three(resize_strip.plane_resize))
+    plain_ms = cuda_ms(three(resize_strip.plane_resize_plain))
+    flat = full.reshape(32, 1088, -1)
+    head_ms = cuda_ms(lambda: color.rgb_yuv_head(flat, wv, wh, vidx, hidx,
+                                                 (bv, bh)))
+    head_plain_ms = cuda_ms(lambda: color.rgb_yuv_head(
+        flat, wv, wh, vidx, hidx, (bv, bh),
+        resize=resize_strip.plane_resize_plain))
+    log(f"  timing B=32 1088x1920 -> 240x400, 3 channels (median of 20, CUDA "
+        f"events): K2 {ms:.4f} ms, plain {plain_ms:.4f} ms; whole rgbyuv "
+        f"head (3 resizes + mix + box + pack): K2 route {head_ms:.4f} ms, "
+        f"plain {head_plain_ms:.4f} ms")
+    result.update(ms=ms, plain_ms=plain_ms, head_ms=head_ms,
+                  head_plain_ms=head_plain_ms)
+    del full, flat, x
+
+    wv, wh, bv, bh = k2_stacks((544, 960, 120, 200, 1, "yuv"),
+                               CHROMA_V, CHROMA_H)
+    planes = np.zeros((32, 544, 960), np.uint8)
+    for i in range(32):
+        planes[i, :540] = images[i % len(images)][::2, ::2, i % 3]
+    planes = torch.from_numpy(planes).cuda()
+    epilogues = (("luma remap", dict(scale=255.0 / 219.0, pre=-16.0,
+                                     centered=True)),
+                 ("chroma remap", dict(scale=255.0 / 224.0, pre=-128.0,
+                                       post=128.0, centered=True)))
+    for name, kw in epilogues:
+        for batch in (1, 32):
+            vidx, hidx = k2_index(batch)
+            got = resize_strip.plane_resize(planes[:batch], wv, wh, vidx,
+                                            hidx, bands=(bv, bh), **kw)
+            ref = resize_strip.plane_resize_plain(planes[:batch], wv, wh,
+                                                  vidx, hidx, **kw)
+            torch.cuda.synchronize()
+            check(f"B={batch} 544x960 {name} (centred i8)", got, ref)
+        t_k = cuda_ms(lambda: resize_strip.plane_resize(
+            planes, wv, wh, vidx, hidx, bands=(bv, bh), **kw))
+        t_p = cuda_ms(lambda: resize_strip.plane_resize_plain(
+            planes, wv, wh, vidx, hidx, **kw))
+        log(f"  timing B=32 544x960 -> 120x200 {name}: K2 {t_k:.4f} ms, "
+            f"plain {t_p:.4f} ms")
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the JPEG engine slice
 # ---------------------------------------------------------------------------
 
 
@@ -366,9 +515,7 @@ def phase_engine(jpegs, card: str) -> dict:
             f"K1 launches {launches} != 3 x {batches} batches on the engine path")
     args, _, planes = rec.calls[-1]
     mx, share1 = check_head(args, planes)
-    lat = sorted(t for _, t in res)
-    p50 = lat[len(lat) // 2] * 1e3
-    p99 = lat[min(len(lat) - 1, int(round(0.99 * (len(lat) - 1))))] * 1e3
+    p50, p99 = latency(res)
     rps = n_req / wall
     log(f"  engine: {n_req} concurrent requests in {wall:.4f} s -> "
         f"{rps:.2f} req/s, p50 {p50:.2f} ms, p99 {p99:.2f} ms, "
@@ -379,11 +526,111 @@ def phase_engine(jpegs, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: HTTP
+# phase 6: the PNG engine slice
 # ---------------------------------------------------------------------------
 
 
-def phase_http(jpegs) -> str:
+def phase_png_engine(pngs, card: str) -> dict:
+    from imagekit_tpu.codecs import vp8
+    from imagekit_tpu.codecs.native import jpeg_abi, loader
+    from imagekit_tpu.config import ImageFormat, ImageKitConfig
+    from imagekit_tpu.serving.metrics import Metrics
+    from imagekit_tpu_torch.ops import color, dct, resize_strip
+    from imagekit_tpu_torch.serving import engine_rgb
+    from imagekit_tpu_torch.serving.batcher import BatchedEngine
+
+    n_each = 64
+    reqs = [(pngs[i % len(pngs)], fmt) for i in range(n_each)
+            for fmt in (ImageFormat.webp, ImageFormat.jpeg)]
+    metrics = Metrics()
+    engine = BatchedEngine(ImageKitConfig(secret=SECRET), metrics=metrics,
+                           device="cuda")
+    stages = ("decode_png", "batch_build", "device_resize", "encode")
+
+    async def one(data, fmt):
+        t0 = time.perf_counter()
+        out = await engine.transform(data, 400, None, fmt, 80)
+        return out, time.perf_counter() - t0
+
+    async def drive():
+        try:
+            await engine.warmup()
+            await asyncio.gather(*(one(d, f) for d, f in reqs[:32]))
+            batches0 = metrics.batches
+            stage0 = {k: metrics.stage_seconds[k] for k in stages}
+            resize_strip.LAUNCHES = 0  # count only the measured run
+            t0 = time.perf_counter()
+            res = await asyncio.gather(*(one(d, f) for d, f in reqs))
+            wall = time.perf_counter() - t0
+            launches = resize_strip.LAUNCHES
+            spent = {k: metrics.stage_seconds[k] - stage0[k] for k in stages}
+            return res, wall, launches, metrics.batches - batches0, spent
+        finally:
+            await engine.close()
+
+    with Recorder(engine_rgb, "resample_rgb_yuv_batch") as rec_y, \
+            Recorder(engine_rgb, "resample_rgb_jpeg_batch") as rec_j:
+        res, wall, launches, batches, spent = asyncio.run(drive())
+    lib = loader.load()
+    for (out, _), (_, fmt) in zip(res, reqs):
+        if fmt == ImageFormat.webp:
+            dims = vp8.dimensions(out) if out[8:12] == b"WEBP" else None
+        else:
+            hdr = jpeg_abi.parse(lib, out)
+            dims = (hdr.width, hdr.height)
+        if dims != (400, 225):
+            raise RuntimeError(f"{fmt.value} output is {dims}, not 400x225")
+    if batches <= 0 or launches != 3 * batches:
+        raise RuntimeError(
+            f"K2 launches {launches} != 3 x {batches} batches on the PNG path")
+
+    args, kw, planes = rec_y.calls[-1]
+    x, (wv, wh), vidx, hidx = args[:4]
+    plain = color.rgb_yuv_head(x, wv, wh, vidx, hidx, kw["bands"],
+                               resize=resize_strip.plane_resize_plain)
+    got = torch.cat([torch.from_numpy(p.reshape(p.shape[0], -1))
+                     for p in planes], dim=1).to(plain.device)
+    mx_y, share_y, over = compare(got, plain)
+    if mx_y > MAX_ABS or share_y > MAX_SHARE or over:
+        raise RuntimeError("rgbyuv head (K2) disagrees with the plain head")
+    args, kw, levels = rec_j.calls[-1]
+    x, (wv, wh), vidx, hidx, qto = args[:5]
+    plain = dct.rgb_jpeg_head(x, wv, wh, vidx, hidx, qto, kw["bands"],
+                              resize=resize_strip.plane_resize_plain)
+    got = torch.cat([torch.from_numpy(lv.reshape(lv.shape[0], -1))
+                     for lv in levels], dim=1).to(plain.device)
+    mx_j, share_j, over = compare(got, plain)
+    n_diff = int((got != plain).sum())
+    if mx_j > MAX_ABS or share_j > MAX_SHARE or over:
+        raise RuntimeError("rgbjpg head (K2) disagrees with the plain head")
+
+    n_req = len(reqs)
+    rps = n_req / wall
+    p50, p99 = latency(res)
+    by_fmt = {f: latency([r for r, (_, g) in zip(res, reqs) if g == f])
+              for f in (ImageFormat.webp, ImageFormat.jpeg)}
+    log(f"  PNG engine: {n_req} concurrent requests ({n_each} WebP + {n_each} "
+        f"JPEG) in {wall:.4f} s -> {rps:.2f} req/s, p50 {p50:.2f} ms, p99 "
+        f"{p99:.2f} ms (WebP p50/p99 {by_fmt[ImageFormat.webp][0]:.2f}/"
+        f"{by_fmt[ImageFormat.webp][1]:.2f} ms, JPEG "
+        f"{by_fmt[ImageFormat.jpeg][0]:.2f}/{by_fmt[ImageFormat.jpeg][1]:.2f}"
+        f" ms), {batches} batches, {launches} K2 launches [{card}]")
+    log(f"  last WebP batch vs plain head: max|d|={mx_y} share(|d|=1)="
+        f"{share_y:.3e}; last JPEG batch levels vs plain head: max|d|={mx_j}"
+        f" share(|d|=1)={share_j:.3e} ({n_diff} levels differ)")
+    log("  host seconds in the measured round: " + ", ".join(
+        f"{k} {v:.4f} s ({v / n_req * 1e3:.2f} ms/request)"
+        for k, v in spent.items()))
+    return {"launches": launches, "batches": batches, "rps": rps,
+            "p50_ms": p50, "p99_ms": p99}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: HTTP
+# ---------------------------------------------------------------------------
+
+
+def phase_http(jpegs, png_bytes: bytes) -> str:
     try:
         import aiohttp
         from aiohttp import web
@@ -392,6 +639,7 @@ def phase_http(jpegs) -> str:
 
     import shutil
 
+    from imagekit_tpu.codecs import vp8
     from imagekit_tpu.config import ImageKitConfig
     from imagekit_tpu.fetch import Fetcher
     from imagekit_tpu.serving.metrics import Metrics
@@ -408,7 +656,11 @@ def phase_http(jpegs) -> str:
             i = int(request.match_info["i"])
             return web.Response(body=jpegs[i], content_type="image/jpeg")
 
+        async def serve_png(request):
+            return web.Response(body=png_bytes, content_type="image/png")
+
         src.router.add_get("/src{i}.jpg", serve)
+        src.router.add_get("/src.png", serve_png)
         src_runner = web.AppRunner(src)
         await src_runner.setup()
         src_site = web.TCPSite(src_runner, "127.0.0.1", 0)
@@ -426,8 +678,9 @@ def phase_http(jpegs) -> str:
         base = f"http://127.0.0.1:{port}"
         try:
             async with aiohttp.ClientSession() as s:
-                for i in range(4):
-                    url = f"http://127.0.0.1:{src_port}/src{i}.jpg"
+                urls = [f"http://127.0.0.1:{src_port}/src{i}.jpg"
+                        for i in range(4)]
+                for url in urls + [f"http://127.0.0.1:{src_port}/src.png"]:
                     async with s.get(f"{base}/sign", params={
                             "url": url, "w": "400", "f": "webp", "q": "80"}) as r:
                         signed = (await r.json())["signed_url"]
@@ -440,14 +693,25 @@ def phase_http(jpegs) -> str:
                                     or body[8:12] != b"WEBP"):
                                 raise RuntimeError(
                                     f"/img answered {r.status} {dict(r.headers)}")
-            if metrics.cache_hits != 4 or metrics.cache_misses != 4:
+                form = aiohttp.FormData()
+                form.add_field("file", png_bytes, filename="src.png")
+                form.add_field("w", "400")
+                async with s.post(base + "/upload", data=form) as r:
+                    body = await r.read()
+                    if (r.status != 200
+                            or r.headers["Content-Type"] != "image/webp"
+                            or vp8.dimensions(body) != (400, 225)):
+                        raise RuntimeError(f"PNG /upload answered {r.status}")
+            if metrics.cache_hits != 5 or metrics.cache_misses != 5:
                 raise RuntimeError(
                     f"cache hits {metrics.cache_hits}, misses "
-                    f"{metrics.cache_misses}; expected 4 and 4")
+                    f"{metrics.cache_misses}; expected 5 and 5")
         finally:
             await runner.cleanup()
             await src_runner.cleanup()
-        return "passed: 4 x (/sign -> /img 200 image/webp with ETag, then a cache HIT)"
+        return ("passed: 4 JPEG and 1 PNG x (/sign -> /img 200 image/webp "
+                "with ETag, then a cache HIT); PNG /upload 200 image/webp "
+                "400x225")
 
     return asyncio.run(run())
 
@@ -474,7 +738,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.load()
-    log(f"[2] K1 built by nvcc in {time.perf_counter() - t0:.2f} s")
+    log(f"[2] K1 and K2 built by nvcc in {time.perf_counter() - t0:.2f} s")
     for line in _build.build_log().splitlines():
         if "registers" in line or "bytes stack" in line or "smem" in line:
             log("    ptxas: " + line.strip())
@@ -487,15 +751,28 @@ def main() -> int:
     jpegs_hq = [make_jpeg(100 + seed, 95) for seed in range(2)]
     log(f"    made {len(jpegs)} q80 and {len(jpegs_hq)} q95 1920x1080 JPEGs "
         f"in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    images = [synth_image(seed) for seed in range(16)]
+    pngs = [make_png(img) for img in images]
+    log(f"    made {len(pngs)} 1920x1080 RGB PNGs (zlib level 1, "
+        f"{sum(map(len, pngs)) / len(pngs) / 1e6:.2f} MB each) in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     log("[3] K1 against its plain PyTorch version on the card")
     kern = phase_kernel(jpegs, jpegs_hq)
 
-    log("[4] engine slice: BatchedEngine(device='cuda').transform, "
+    log("[4] K2 against its plain PyTorch version on the card")
+    k2 = phase_k2(images)
+
+    log("[5] JPEG engine slice: BatchedEngine(device='cuda').transform, "
         "1920x1080 JPEG -> w=400 WebP q80")
     eng = phase_engine(jpegs, card)
 
-    log(f"[5] HTTP: {phase_http(jpegs)}")
+    log("[6] PNG engine slice: BatchedEngine(device='cuda').transform, "
+        "1920x1080 RGB PNG -> w=400 WebP q80 and JPEG q80")
+    png_eng = phase_png_engine(pngs, card)
+
+    log(f"[7] HTTP: {phase_http(jpegs, pngs[0])}")
     log(f"    total {time.perf_counter() - t_start:.2f} s")
 
     log(card)
@@ -508,6 +785,15 @@ def main() -> int:
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],
+    }, {
+        "name": "resize_strip_plane (K2)",
+        "route": "cuda",
+        "source": "imagekit_tpu_torch/csrc/resize_strip.cu",
+        "replaces": "imagekit_tpu/ops/pallas_resize.py:155",
+        "launches": png_eng["launches"],
+        "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

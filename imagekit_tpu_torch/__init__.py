@@ -9,6 +9,8 @@ metrics, rate limiting) and ports the device plane slice by slice:
 - :mod:`imagekit_tpu_torch.ops`     — numpy weight builders, the plain
   PyTorch heads and the hand-written CUDA kernels (``csrc/``);
 - :mod:`imagekit_tpu_torch.serving` — the batched engine and the HTTP app;
+- :mod:`imagekit_tpu_torch.codecs`  — the PNG decode without Pillow;
+- :mod:`imagekit_tpu_torch.fetch`   — the header-only source validation;
 - :mod:`imagekit_tpu_torch.device`  — explicit device selection.
 
 Requests outside the ported slice raise :class:`NotPortedError` (HTTP 501).

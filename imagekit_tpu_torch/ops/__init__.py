@@ -1,3 +1,4 @@
 """Device plane of the port: numpy weight builders (:mod:`.weights`), the
-plain PyTorch heads (:mod:`.dct`) and the CUDA kernels (:mod:`.jpeg8`,
-built by :mod:`._build` from ``imagekit_tpu_torch/csrc``)."""
+heads (:mod:`.dct`, :mod:`.color`) and the CUDA kernels with their plain
+PyTorch versions (:mod:`.jpeg8` for K1, :mod:`.resize_strip` for K2, built
+by :mod:`._build` from ``imagekit_tpu_torch/csrc``)."""

@@ -1,9 +1,10 @@
 """Build and bind the port's CUDA kernels.
 
-Every ``imagekit_tpu_torch/csrc/*.cu`` is compiled at first use, with
-``nvcc`` into one shared library with a plain C interface
+Every ``imagekit_tpu_torch/csrc/*.cu`` is compiled at first use, one
+``nvcc`` per source, all started together, and linked into one shared
+library with a plain C interface
 (``build/imagekit_tpu_torch/libik_torch_kernels.so`` under the checkout,
-a directory ``.gitignore`` lists), and bound with ctypes. The library is
+a directory ``.gitignore`` lists), bound with ctypes. The library is
 rebuilt when a source is newer than it. Nothing here runs at import time:
 the CPU tests import every module on a machine with no ``nvcc``.
 
@@ -54,31 +55,42 @@ def _stale() -> bool:
     return any(s.stat().st_mtime > built for s in _sources())
 
 
+def _run(cmds):
+    """Run the commands concurrently; raise with the output of the first
+    that fails. Every command's output goes to the build log."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    with _LOG.open("a") as log:
+        for c, o in zip(cmds, outs):
+            log.write(" ".join(c) + "\n" + o)
+    for p, o in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{o[-8000:]}")
+
+
 def _compile() -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = _LIB.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [
-        _nvcc(),
-        "-gencode=arch=compute_90a,code=sm_90a",
-        "-std=c++17",
-        "-O3",
-        "-shared",
-        "-Xcompiler",
-        "-fPIC",
-        "-Xptxas",
-        "-v",
-        "-o",
-        str(tmp),
-        *[str(s) for s in sorted(_CSRC.glob("*.cu"))],
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    _LOG.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    _LOG.write_text("")
+    nvcc = _nvcc()
+    arch = "-gencode=arch=compute_90a,code=sm_90a"
+    tag = f"{os.getpid()}.tmp"
+    objs = []
+    cmds = []
+    for src in sorted(_CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        objs.append(obj)
+        cmds.append([nvcc, arch, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                     "-Xptxas", "-v", "-c", str(src), "-o", str(obj)])
+    tmp = _LIB.with_suffix(f".{tag}.so")
+    try:
+        _run(cmds)
+        _run([[nvcc, arch, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, _LIB)  # atomic: a concurrent loader sees old or new
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}"
-        )
-    os.replace(tmp, _LIB)  # atomic: a concurrent loader sees old or new
+        for obj in objs:
+            obj.unlink(missing_ok=True)
 
 
 def _configure(lib: ctypes.CDLL) -> None:
@@ -86,6 +98,12 @@ def _configure(lib: ctypes.CDLL) -> None:
     ci = ctypes.c_int
     lib.ik_jpeg8_folded_plane.argtypes = [vp] * 7 + [ci] * 11 + [vp]
     lib.ik_jpeg8_folded_plane.restype = ci
+    cll = ctypes.c_longlong
+    cf = ctypes.c_float
+    lib.ik_resize_strip_plane.argtypes = (
+        [vp] * 8 + [ci] * 7 + [cll] * 3 + [cf] * 3 + [ci] * 2 + [vp]
+    )
+    lib.ik_resize_strip_plane.restype = ci
 
 
 def load() -> ctypes.CDLL:

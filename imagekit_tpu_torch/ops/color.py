@@ -1,0 +1,100 @@
+"""The rgbyuv head: RGB-source batches -> resized studio-range YUV 4:2:0.
+
+Counterpart of ``imagekit_tpu/ops/color.py:72-149`` and of its Pallas
+front ``imagekit_tpu/ops/pallas_resize.py:229-266``. One K2 launch per
+channel reads the interleaved (B, H, W*3) u8 batch in place and rounds the
+resized channel to u8 (the einsum head's hand-off point, which both JAX
+heads share); the studio-range BT.601 mix, the 2x2 chroma box and the u8
+pack follow as torch ops on the small output grid. On CPU tensors the
+resize is K2's plain version (:func:`resize_strip.plane_resize_plain`).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from imagekit_tpu_torch.ops.resize_strip import plane_resize
+
+
+def rgb_planes(imgs, wv, wh, vidx, hidx, bands=None, resize=plane_resize):
+    """(B, H, W*3) u8 -> the resized R, G and B planes, rounded to u8 and
+    widened to f32: one ``resize`` call per channel on a strided view."""
+    B, H, WC = imgs.shape
+    x = imgs.reshape(B, H, WC // 3, 3)
+    return [resize(x[..., c], wv, wh, vidx, hidx, bands=bands).float()
+            for c in range(3)]
+
+
+def box2(p: torch.Tensor) -> torch.Tensor:
+    """2x2 box average of (B, OH, OW) (bucket dims are even)."""
+    B, oh, ow = p.shape
+    return p.reshape(B, oh // 2, 2, ow // 2, 2).mean(dim=(2, 4))
+
+
+def q8(p: torch.Tensor) -> torch.Tensor:
+    """Round half up, clip and pack to flat (B, -1) u8."""
+    return (torch.clamp(torch.floor(p + 0.5), 0.0, 255.0)
+            .to(torch.uint8).reshape(p.shape[0], -1))
+
+
+def rgb_yuv_head(imgs, wv, wh, vidx, hidx, bands=None, resize=plane_resize):
+    """(B, H, W*3) u8 -> flat (B, OH*OW + 2*(OH/2*OW/2)) u8, Y then U then
+    V, in the reference's float order (``color.py:93-110``)."""
+    r, g, b = rgb_planes(imgs, wv, wh, vidx, hidx, bands, resize)
+    y = 0.25678824 * r + 0.50412941 * g + 0.09790588 * b + 16.0
+    u = -0.14822290 * r - 0.29099279 * g + 0.43921569 * b + 128.0
+    v = 0.43921569 * r - 0.36778831 * g - 0.07142737 * b + 128.0
+    return torch.cat([q8(y), q8(box2(u)), q8(box2(v))], dim=1)
+
+
+def on_device(arrays, device):
+    """numpy arrays or tensors -> tensors on ``device`` (numpy weights, and
+    no device named, mean the CPU)."""
+    return [torch.as_tensor(a, device=device) for a in arrays]
+
+
+def resolve(device, wv) -> torch.device:
+    if device is None:
+        device = wv.device if isinstance(wv, torch.Tensor) else "cpu"
+    return torch.device(device)
+
+
+def to_host(flat: torch.Tensor, device: torch.device):
+    """Wait for the head's kernels on this stream, then copy out to numpy."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+    return flat.cpu().numpy()
+
+
+def split_yuv(flat, obh: int, obw: int, block: int = 1):
+    """Flat (B, Y then U then V) -> the full-size plane and the two
+    half-size ones, each (B, h, w); with ``block`` 8, int16 levels
+    (B, h/8, w/8, 64) of 8x8 blocks instead."""
+    B = flat.shape[0]
+    ny = obh * obw
+    nc = (obh // 2) * (obw // 2)
+
+    def shaped(p, h, w):
+        if block == 1:
+            return p.reshape(B, h, w)
+        return p.reshape(B, h // block, w // block, block * block)
+
+    return (shaped(flat[:, :ny], obh, obw),
+            shaped(flat[:, ny:ny + nc], obh // 2, obw // 2),
+            shaped(flat[:, ny + nc:], obh // 2, obw // 2))
+
+
+def resample_rgb_yuv_batch(imgs_flat, weights, vidx, hidx, out_shape,
+                           bands=None, device: Optional[torch.device] = None):
+    """Run the rgbyuv head; returns (Y, U, V) u8 numpy planes of shapes
+    (B, OHb, OWb) and (B, OHb/2, OWb/2) x2 (cropped by the caller)."""
+    wv, wh = weights
+    obh, obw = out_shape
+    device = resolve(device, wv)
+    x, wv, wh, vidx, hidx = on_device((imgs_flat, wv, wh, vidx, hidx), device)
+    if bands is not None:
+        bands = tuple(on_device(bands, device))
+    flat = to_host(rgb_yuv_head(x, wv, wh, vidx, hidx, bands), device)
+    return split_yuv(flat, obh, obw)

@@ -9,6 +9,12 @@ pack. :func:`decode_resize_yuv_lowfreq_i8_batch` keeps the reference's
 numpy-in / planes-out signature and picks the head by device: CUDA tensors
 go to K1 (:func:`imagekit_tpu_torch.ops.jpeg8.decode_resize_i8`), CPU
 tensors to the plain head.
+
+The rgbjpg head, :func:`resample_rgb_jpeg_batch` (``dct.py:961-1032`` and
+its Pallas front ``pallas_resize.py:378-411``), serves JPEG outputs from
+RGB sources: K2 once per channel to the rounded u8 grid, then the JFIF
+BT.601 mix, the 4:2:0 box and the 8x8 fDCT + quantise tail
+:func:`_fdct_quant_flat` (``dct.py:776-787``) as torch ops.
 """
 
 from __future__ import annotations
@@ -18,6 +24,17 @@ from typing import Optional
 import torch
 
 from imagekit_tpu_torch.ops import jpeg8
+from imagekit_tpu_torch.ops.color import (
+    box2,
+    on_device,
+    q8,
+    resolve,
+    rgb_planes,
+    split_yuv,
+    to_host,
+)
+from imagekit_tpu_torch.ops.resize_strip import plane_resize
+from imagekit_tpu_torch.ops.weights import idct_basis
 
 
 def _folded_lowfreq_plane(getC, qt4, wv_f, wh_f, vidx, k):
@@ -64,15 +81,6 @@ def _yuv_range_pack(y, cb, cr):
     c_off = 128.0 * (1.0 - 224.0 / 255.0)
     cb = cb * (224.0 / 255.0) + c_off
     cr = cr * (224.0 / 255.0) + c_off
-
-    def q8(p):
-        B = p.shape[0]
-        return (
-            torch.clamp(torch.floor(p + 0.5), 0.0, 255.0)
-            .to(torch.uint8)
-            .reshape(B, -1)
-        )
-
     return torch.cat([q8(y), q8(cb), q8(cr)], dim=1)
 
 
@@ -120,32 +128,64 @@ def decode_resize_yuv_lowfreq_i8_batch(
     by_b, bx_b, cy_b, cx_b = block_dims
     obh, obw = out_shape
     (ey_idx, ey_val), (eb_idx, eb_val), (er_idx, er_val) = escapes
-    if device is None:
-        device = wv_y.device if isinstance(wv_y, torch.Tensor) else "cpu"
-    device = torch.device(device)
-
-    def t(x):
-        return torch.as_tensor(x, device=device)
-
-    args = [t(x) for x in (
+    device = resolve(device, wv_y)
+    args = on_device((
         dc_arrays[0], ac_arrays[0], dc_arrays[1], ac_arrays[1],
         dc_arrays[2], ac_arrays[2], ey_idx, ey_val, eb_idx, eb_val,
         er_idx, er_val, qtabs, wv_y, wh_y, wv_c, wh_c, vidx,
-    )]
+    ), device)
     if device.type == "cuda":
         flat = jpeg8.decode_resize_i8(*args, k=k)
-        torch.cuda.current_stream(device).synchronize()
     elif device.type == "cpu":
         flat = decode_resize_yuv_lowfreq_i8(
             *args, by_b=by_b, bx_b=bx_b, cy_b=cy_b, cx_b=cx_b, k=k
         )
     else:
         raise ValueError(f"no jpeg8 head for device {device}")
-    flat = flat.cpu().numpy()
-    B = flat.shape[0]
-    ny = obh * obw
-    nc = (obh // 2) * (obw // 2)
-    y = flat[:, :ny].reshape(B, obh, obw)
-    cb = flat[:, ny:ny + nc].reshape(B, obh // 2, obw // 2)
-    cr = flat[:, ny + nc:].reshape(B, obh // 2, obw // 2)
-    return y, cb, cr
+    return split_yuv(to_host(flat, device), obh, obw)
+
+
+def _fdct_quant_flat(plane: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """(B, ph, pw) centred samples -> 8x8 fDCT -> quantise, rounding half
+    away from zero (the JPEG convention) -> flat (B, ph/8 * pw/8 * 64)
+    int16 levels in natural order."""
+    A8 = torch.as_tensor(idct_basis(), device=plane.device)
+    B, ph, pw = plane.shape
+    blocks = plane.reshape(B, ph // 8, 8, pw // 8, 8).permute(0, 1, 3, 2, 4)
+    c = torch.matmul(torch.matmul(A8, blocks), A8.T)  # A @ block @ A^T
+    c = c.reshape(B, ph // 8, pw // 8, 64) / q[:, None, None, :]
+    lv = torch.sign(c) * torch.floor(torch.abs(c) + 0.5)
+    return lv.to(torch.int16).reshape(B, -1)
+
+
+def rgb_jpeg_head(imgs, wv, wh, vidx, hidx, qt_out, bands=None,
+                  resize=plane_resize):
+    """(B, H, W*3) u8 -> flat int16 levels, Y then Cb then Cr, in the
+    reference's float order (``dct.py:968-993``)."""
+    r, g, b = rgb_planes(imgs, wv, wh, vidx, hidx, bands, resize)
+    y = 0.299 * r + 0.587 * g + 0.114 * b - 128.0
+    cb = box2(-0.168735892 * r - 0.331264108 * g + 0.5 * b)
+    cr = box2(0.5 * r - 0.418687589 * g - 0.081312411 * b)
+    return torch.cat([
+        _fdct_quant_flat(y, qt_out[:, :64]),
+        _fdct_quant_flat(cb, qt_out[:, 64:]),
+        _fdct_quant_flat(cr, qt_out[:, 64:]),
+    ], dim=1)
+
+
+def resample_rgb_jpeg_batch(imgs_flat, weights, vidx, hidx, qt_out,
+                            out_shape, bands=None,
+                            device: Optional[torch.device] = None):
+    """Run the rgbjpg head; returns (y, cb, cr) int16 numpy levels of
+    shapes (B, OHb/8, OWb/8, 64) and (B, OHb/16, OWb/16, 64) x2, natural
+    order, for the host Huffman encoder."""
+    wv, wh = weights
+    obh, obw = out_shape
+    device = resolve(device, wv)
+    x, wv, wh, vidx, hidx, qt_out = on_device(
+        (imgs_flat, wv, wh, vidx, hidx, qt_out), device)
+    if bands is not None:
+        bands = tuple(on_device(bands, device))
+    flat = to_host(rgb_jpeg_head(x, wv, wh, vidx, hidx, qt_out, bands),
+                   device)
+    return split_yuv(flat, obh, obw, block=8)

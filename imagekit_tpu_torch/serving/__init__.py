@@ -4,6 +4,7 @@
   (the reference's HTTP contract, on the port's engine);
 - :mod:`imagekit_tpu_torch.serving.batcher`     — the batched engine core;
 - :mod:`imagekit_tpu_torch.serving.engine_jpeg` — the JPEG -> WebP head;
+- :mod:`imagekit_tpu_torch.serving.engine_rgb`  — the RGB-source (PNG) head;
 - :mod:`imagekit_tpu_torch.serving.engine`      — the engine interface.
 
 Metrics and rate limiting are the reference's own

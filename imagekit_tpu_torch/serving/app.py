@@ -10,7 +10,11 @@ HTTP contract holds by construction. What differs:
 - ``/debug/trace`` records a ``torch.profiler`` trace instead of a
   ``jax.profiler`` one;
 - :class:`~imagekit_tpu_torch.errors.NotPortedError` (a request outside the
-  ported slice) answers 501.
+  ported slice) answers 501;
+- the fetched source is validated by its header only
+  (:func:`imagekit_tpu_torch.fetch.fetch_source`) and always reaches the
+  engine as bytes: the reference decodes a PNG in the fetch stage through
+  a decoder that imports Pillow.
 """
 
 from __future__ import annotations
@@ -34,11 +38,12 @@ from imagekit_tpu.config import (
     ImageKitConfig,
 )
 from imagekit_tpu.errors import EngineOverloaded, ImageKitError
-from imagekit_tpu.fetch import Fetcher, fetch_source
+from imagekit_tpu.fetch import Fetcher
 from imagekit_tpu.serving.metrics import METRICS, Metrics
 from imagekit_tpu.serving.ratelimit import GcraLimiter
 from imagekit_tpu_torch import __version__
 from imagekit_tpu_torch.errors import NotPortedError
+from imagekit_tpu_torch.fetch import fetch_source
 from imagekit_tpu_torch.serving.engine import TransformEngine
 
 logger = logging.getLogger("imagekit")
@@ -257,12 +262,11 @@ async def img_handler(request: web.Request) -> web.Response:
     state.metrics.inc("cache_misses")
     state.metrics.inc("transforms")
     try:
-        data, _ct, img = await fetch_source(
-            params["url"],
-            state.config.max_input_size,
-            state.config.allowed_formats,
-            fetcher=state.fetcher,
+        data, _ct = await fetch_source(
+            params["url"], state.config.max_input_size, fetcher=state.fetcher
         )
+    except NotPortedError as e:
+        return _not_ported_response(e)
     except ImageKitError as e:
         state.metrics.inc("errors")
         return web.Response(status=400, text=str(e))
@@ -272,14 +276,7 @@ async def img_handler(request: web.Request) -> web.Response:
     quality = int(params["q"]) if "q" in params else DEFAULT_QUALITY
 
     try:
-        if img is None:
-            encoded = await state.engine.transform(
-                data, w, h, target_format, quality
-            )
-        else:
-            encoded = await state.engine.resize_encode(
-                img, w, h, target_format, quality
-            )
+        encoded = await state.engine.transform(data, w, h, target_format, quality)
     except EngineOverloaded as e:
         return _overloaded_response(e)
     except NotPortedError as e:

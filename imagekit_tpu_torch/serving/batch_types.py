@@ -6,6 +6,7 @@ from __future__ import annotations
 import asyncio
 import time
 from dataclasses import dataclass, field
+from typing import Tuple
 
 import numpy as np
 
@@ -25,6 +26,11 @@ class _Item:
     enqueued: float = field(default_factory=time.perf_counter)
 
 
+#: queue key of the RGB-source heads: (bh, bw, obh, obw, channels, okind),
+#: okind "yuv" (WebP output) or "jpg" (JPEG output)
+_BucketKey = Tuple[int, int, int, int, int, str]
+
+
 class _NativeUnsupported(Exception):
     """The JPEG cannot take the native coefficient path."""
 
@@ -42,3 +48,16 @@ def _cached_weights(
     return _HOST_WEIGHTS.get_or_build(
         key, lambda: padded_weights(true_in, true_out, bucket_in, bucket_out)
     )
+
+
+async def _settle(it, encode) -> None:
+    """Await an item's encode and hand its waiter the result or the
+    error."""
+    try:
+        encoded = await encode
+    except Exception as e:  # noqa: BLE001 - the waiter gets every error
+        if not it.future.done():
+            it.future.set_exception(e)
+        return
+    if not it.future.done():
+        it.future.set_result(encoded)

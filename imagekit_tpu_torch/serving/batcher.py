@@ -1,11 +1,14 @@
 """Dynamic bucketed batching engine on PyTorch.
 
-Counterpart of the core of ``imagekit_tpu/serving/batcher.py`` (:57-232,
-:282-351, :364-500, :699-704): concurrent requests queue by (source bucket,
-target bucket, head); a queue flushes when it reaches ``max_batch`` or its
-oldest item has waited ``max_delay_ms``, and each flush is ONE device call
-while the host codec stages run on a thread pool. Admission control, the
+Counterpart of the core of ``imagekit_tpu/serving/batcher.py`` (:57-351,
+:364-500, :699-704): concurrent requests queue by (source bucket, target
+bucket, head); a queue flushes when it reaches ``max_batch`` or its oldest
+item has waited ``max_delay_ms``, and each flush is ONE device call while
+the host codec stages run on a thread pool. Admission control, the
 split-by-geometry rule and the depth-aware soft flush are the reference's.
+Two heads are served: JPEG sources on their coefficients
+(:mod:`.engine_jpeg`, ``_jqueues``) and 3-channel PNG sources on their
+decoded pixels (:mod:`.engine_rgb`, ``_queues``).
 
 What differs is device placement. The engine holds an explicit
 ``torch.device``: ``"cuda"`` (the default, which raises without a card) or
@@ -26,7 +29,7 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -35,14 +38,19 @@ from imagekit_tpu.codecs import SourceFormat, guess_format
 from imagekit_tpu.config import ImageFormat, ImageKitConfig
 from imagekit_tpu.errors import EngineOverloaded, TransformError
 from imagekit_tpu.serving.metrics import METRICS, Metrics
+from imagekit_tpu.utils.bucketing import bucket_for
 from imagekit_tpu.utils.sized_cache import SizedArrayCache
+from imagekit_tpu_torch.codecs import png
 from imagekit_tpu_torch.device import resolve_device
 from imagekit_tpu_torch.errors import NotPortedError
+from imagekit_tpu_torch.ops.weights import target_dimensions
+from imagekit_tpu_torch.serving.batch_types import _BucketKey, _Item
 from imagekit_tpu_torch.serving.engine import TransformEngine
 from imagekit_tpu_torch.serving.engine_jpeg import JpegPathMixin
+from imagekit_tpu_torch.serving.engine_rgb import RgbPathMixin
 
 
-class BatchedEngine(JpegPathMixin, TransformEngine):
+class BatchedEngine(RgbPathMixin, JpegPathMixin, TransformEngine):
     MAX_UNIQUE = 4  # fixed unique-geometry slots per device call
 
     def __init__(
@@ -74,6 +82,7 @@ class BatchedEngine(JpegPathMixin, TransformEngine):
             max_workers=2, thread_name_prefix="ik-device"
         )
         self._tls = threading.local()
+        self._queues: Dict[_BucketKey, List[_Item]] = {}
         self._jqueues: Dict[tuple, list] = {}
         # folded weight stacks are identical batch to batch for steady
         # traffic: keep them on the device (byte-budgeted; tensors report
@@ -113,10 +122,14 @@ class BatchedEngine(JpegPathMixin, TransformEngine):
     # -- decode ------------------------------------------------------------
 
     async def decode(self, data: bytes) -> np.ndarray:
-        """The port decodes no source to pixels yet. A JPEG's header is
+        """PNG sources decode to pixels on the codec pool, without Pillow.
+        The port decodes no other source to pixels yet; a JPEG's header is
         still checked, so that a caller can tell a bad source
         (TransformError) from a path not ported (NotPortedError)."""
-        if guess_format(data) == SourceFormat.jpeg:
+        src = guess_format(data)  # TransformError on undetectable bytes
+        if src == SourceFormat.png:
+            return await self._pool_run("decode_png", png.decode, data)
+        if src == SourceFormat.jpeg:
             from imagekit_tpu.codecs.native import jpeg_abi, loader
 
             lib = loader.load()
@@ -126,7 +139,7 @@ class BatchedEngine(JpegPathMixin, TransformEngine):
                 except jpeg_abi.NativeJpegError as e:
                     raise TransformError(f"JPEG decode failed: {e}") from e
             raise NotPortedError("JPEG pixel decode", "queue 1 item 10")
-        raise NotPortedError("pixel decode", "queue 1 item 9")
+        raise _source_not_ported(src)
 
     # -- admission control (engine-level load shedding) --------------------
 
@@ -191,7 +204,60 @@ class BatchedEngine(JpegPathMixin, TransformEngine):
         fmt: ImageFormat,
         quality: int,
     ) -> bytes:
-        raise NotPortedError("resizing decoded RGB pixels", "queue 1 item 9")
+        with self._admission():
+            return await self._resize_encode(img, w, h, fmt, quality)
+
+    async def _resize_encode(
+        self,
+        img: np.ndarray,
+        w: Optional[int],
+        h: Optional[int],
+        fmt: ImageFormat,
+        quality: int,
+    ) -> bytes:
+        """Queue decoded pixels for the RGB head. Only the two fused
+        output kinds of 3-channel sources are ported: WebP (``"yuv"``) and
+        JPEG (``"jpg"``)."""
+        loop = asyncio.get_running_loop()
+        self._ensure_flusher(loop)
+        if img.ndim == 2:
+            img = np.repeat(img[:, :, None], 3, axis=2)
+        ih, iw, ch = img.shape
+        if w is None and h is None:
+            raise NotPortedError("a request with no resize", "queue 1 item 10")
+        out_w, out_h = target_dimensions(iw, ih, w, h)
+        try:
+            bh, bw = bucket_for(ih), bucket_for(iw)
+            obh, obw = bucket_for(out_h), bucket_for(out_w)
+        except ValueError:
+            raise NotPortedError(
+                "an image beyond the bucket ladder", "queue 1 item 11"
+            ) from None
+        from imagekit_tpu.codecs import vp8 as vp8_native
+        from imagekit_tpu.codecs.native import loader
+
+        if ch == 3 and fmt == ImageFormat.webp and vp8_native.available():
+            okind = "yuv"
+        elif ch == 3 and fmt == ImageFormat.jpeg and loader.load() is not None:
+            okind = "jpg"
+        elif ch != 3:
+            raise NotPortedError(
+                f"a {ch}-channel source (the plain rgb head)", "queue 1 item 9"
+            )
+        else:
+            raise NotPortedError(
+                f"{fmt.value} output from an RGB source", "queue 1 item 9"
+            )
+        fut: asyncio.Future = loop.create_future()
+        item = _Item(img, out_h, out_w, fmt, quality, fut)
+        key = (bh, bw, obh, obw, ch, okind)
+        queue = self._queues.setdefault(key, [])
+        queue.append(item)
+        self.metrics.queue_depth = self._total_queued()
+        if len(queue) >= self.max_batch:
+            self._queues[key] = []
+            asyncio.ensure_future(self._flush(key, queue))
+        return await fut
 
     async def transform(
         self,
@@ -217,14 +283,19 @@ class BatchedEngine(JpegPathMixin, TransformEngine):
             if w is None and h is None:
                 raise NotPortedError("a request with no resize", "queue 1 item 10")
             return await self._transform_jpeg_native(data, w, h, fmt, quality)
-        if src in (SourceFormat.webp, SourceFormat.avif):
-            raise NotPortedError(f"{src.value} sources", "queue 1 item 8")
-        raise NotPortedError(f"{src.value} sources", "queue 1 item 9")
+        if src == SourceFormat.png:
+            img = await self.decode(data)
+            return await self._resize_encode(img, w, h, fmt, quality)
+        raise _source_not_ported(src)
 
     # -- batching ----------------------------------------------------------
 
     def _total_queued(self) -> int:
-        return sum(len(q) for q in self._jqueues.values())
+        return sum(
+            len(q)
+            for queues in (self._queues, self._jqueues)
+            for q in queues.values()
+        )
 
     @staticmethod
     def _split_by_geometry(items, key_fn, max_unique):
@@ -285,24 +356,27 @@ class BatchedEngine(JpegPathMixin, TransformEngine):
             while not self._closed:
                 await asyncio.sleep(self.max_delay / 2)
                 now = time.perf_counter()
-                queues = self._jqueues
-                for key in sorted(
-                    list(queues), key=lambda k: -len(queues.get(k) or [])
+                for queues, flush in (
+                    (self._queues, self._flush),
+                    (self._jqueues, self._flush_jpeg),
                 ):
-                    queue = queues.get(key) or []
-                    if not queue:
-                        continue
-                    age = now - queue[0].enqueued
-                    if age >= self.hard_delay:
-                        pass  # hard deadline: always flush
-                    elif self._inflight == 0 and age >= self.max_delay:
-                        if self._hold_for_depth(queue, now):
-                            self.metrics.inc("flush_holds")
+                    for key in sorted(
+                        list(queues), key=lambda k: -len(queues.get(k) or [])
+                    ):
+                        queue = queues.get(key) or []
+                        if not queue:
                             continue
-                    else:
-                        continue
-                    queues[key] = []
-                    asyncio.ensure_future(self._flush_jpeg(key, queue))
+                        age = now - queue[0].enqueued
+                        if age >= self.hard_delay:
+                            pass  # hard deadline: always flush
+                        elif self._inflight == 0 and age >= self.max_delay:
+                            if self._hold_for_depth(queue, now):
+                                self.metrics.inc("flush_holds")
+                                continue
+                        else:
+                            continue
+                        queues[key] = []
+                        asyncio.ensure_future(flush(key, queue))
         except asyncio.CancelledError:
             pass
 
@@ -322,3 +396,9 @@ class BatchedEngine(JpegPathMixin, TransformEngine):
             self._flusher.cancel()
         self._codec_pool.shutdown(wait=False, cancel_futures=True)
         self._device_pool.shutdown(wait=False, cancel_futures=True)
+
+
+def _source_not_ported(src: SourceFormat) -> NotPortedError:
+    if src in (SourceFormat.webp, SourceFormat.avif):
+        return NotPortedError(f"{src.value} sources", "queue 1 item 8")
+    return NotPortedError(f"{src.value} sources", "queue 1 item 9")

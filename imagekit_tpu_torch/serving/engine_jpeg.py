@@ -36,6 +36,7 @@ from imagekit_tpu_torch.ops.weights import (
     target_dimensions,
 )
 from imagekit_tpu_torch.serving import jpeg_transport as _jt
+from imagekit_tpu_torch.serving.batch_types import _settle
 from imagekit_tpu_torch.serving.jpeg_transport import (
     _esc_batch_rows,
     _GrayAs420,
@@ -280,19 +281,12 @@ class JpegPathMixin:
             async def finish(i: int, it) -> None:
                 ch = (it.out_h + 1) // 2
                 cw = (it.out_w + 1) // 2
-                try:
-                    encoded = await self._encode_yuv(
-                        yb[i, : it.out_h, : it.out_w],
-                        cbb[i, :ch, :cw],
-                        crb[i, :ch, :cw],
-                        it.quality,
-                    )
-                except Exception as e:  # noqa: BLE001
-                    if not it.future.done():
-                        it.future.set_exception(e)
-                    return
-                if not it.future.done():
-                    it.future.set_result(encoded)
+                await _settle(it, self._encode_yuv(
+                    yb[i, : it.out_h, : it.out_w],
+                    cbb[i, :ch, :cw],
+                    crb[i, :ch, :cw],
+                    it.quality,
+                ))
 
             await asyncio.gather(*(finish(i, it) for i, it in enumerate(items)))
         except Exception as e:  # noqa: BLE001 - every waiter gets the error

@@ -1,0 +1,163 @@
+"""RGB-source head: decoded pixels -> K2 on the card -> WebP or JPEG.
+
+Counterpart of ``imagekit_tpu/serving/engine_rgb.py:23-229`` for the two
+fused output kinds of 3-channel sources: ``"yuv"`` (resample + studio YUV
+4:2:0, WebP output) and ``"jpg"`` (resample + YCbCr + fDCT/quantise, JPEG
+output). A batch is the reference's flat (B, H, W*3) u8 layout; the
+weight stacks are keyed per axis (``v_keys`` / ``h_keys``), edge-replicated
+past the true output and kept on the device with their band tables; one
+call of :func:`imagekit_tpu_torch.ops.color.resample_rgb_yuv_batch` or
+:func:`imagekit_tpu_torch.ops.dct.resample_rgb_jpeg_batch` (three K2
+launches on CUDA) produces what the host VP8 or JPEG encoder takes. There
+is no compile set and no cold-shape host fallback.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import time
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from imagekit_tpu.utils.bucketing import batch_bucket
+from imagekit_tpu_torch.ops.color import resample_rgb_yuv_batch
+from imagekit_tpu_torch.ops.dct import resample_rgb_jpeg_batch
+from imagekit_tpu_torch.ops.resize_strip import band_table
+from imagekit_tpu_torch.ops.weights import quality_tables
+from imagekit_tpu_torch.serving.batch_types import (
+    _BucketKey,
+    _cached_weights,
+    _Item,
+    _settle,
+)
+
+
+class RgbPathMixin:
+    async def _flush(self, key: _BucketKey, items: List[_Item]) -> None:
+        groups = self._split_by_geometry(
+            items,
+            lambda it: (it.img.shape[0], it.img.shape[1], it.out_h, it.out_w),
+            self.MAX_UNIQUE,
+        )
+        await asyncio.gather(*(self._flush_group(key, g) for g in groups))
+
+    async def _flush_group(self, key: _BucketKey, items: List[_Item]) -> None:
+        loop = asyncio.get_running_loop()
+        bh, bw, obh, obw, ch, okind = key
+        wy = okind == "yuv"
+        try:
+            t0 = time.perf_counter()
+            nb = batch_bucket(len(items), self.max_batch)
+            # flat (B, H, W*C) u8: pad entries stay zero and cost nothing
+            batch = np.zeros((nb, bh, bw * ch), dtype=np.uint8)
+            # canonical (sorted) per-axis indexing: groups holding the same
+            # SETS of geometries share one device-resident weight stack
+            v_keys: Dict[Tuple[int, int], int] = {
+                k: i for i, k in enumerate(
+                    sorted({(it.img.shape[0], it.out_h) for it in items}))
+            }
+            h_keys: Dict[Tuple[int, int], int] = {
+                k: i for i, k in enumerate(
+                    sorted({(it.img.shape[1], it.out_w) for it in items}))
+            }
+            vidx = np.zeros(nb, np.int32)
+            hidx = np.zeros(nb, np.int32)
+            qto = None if wy else np.zeros((nb, 128), np.float32)
+            for i, it in enumerate(items):
+                h_i, w_i = it.img.shape[:2]
+                batch[i, :h_i, : w_i * ch] = it.img.reshape(h_i, w_i * ch)
+                vidx[i] = v_keys[(h_i, it.out_h)]
+                hidx[i] = h_keys[(w_i, it.out_w)]
+                if not wy:
+                    qto[i, :64], qto[i, 64:] = quality_tables(it.quality)
+            wv, wh, band_v, band_h = self._rgb_weights(key, v_keys, h_keys)
+            t1 = time.perf_counter()
+
+            def device_step():
+                with self._placement() as put:
+                    if wy:
+                        return resample_rgb_yuv_batch(
+                            put(batch), (wv, wh), put(vidx), put(hidx),
+                            (obh, obw), bands=(band_v, band_h),
+                            device=self.device,
+                        )
+                    return resample_rgb_jpeg_batch(
+                        put(batch), (wv, wh), put(vidx), put(hidx), put(qto),
+                        (obh, obw), bands=(band_v, band_h), device=self.device,
+                    )
+
+            self._inflight += 1
+            try:
+                out = await loop.run_in_executor(self._device_pool, device_step)
+            finally:
+                self._inflight -= 1
+            t2 = time.perf_counter()
+            self.metrics.add_stage_time("batch_build", t1 - t0)
+            self.metrics.add_stage_time("device_resize", t2 - t1)
+            self.metrics.record_batch(len(items))
+            finish = self._finish_yuv if wy else self._finish_jpg
+            await asyncio.gather(
+                *(finish(out, i, it) for i, it in enumerate(items)))
+        except Exception as e:  # noqa: BLE001 - every waiter gets the error
+            for it in items:
+                if not it.future.done():
+                    it.future.set_exception(e)
+        finally:
+            self.metrics.queue_depth = self._total_queued()
+
+    async def _finish_yuv(self, out, i: int, it: _Item) -> None:
+        yb, ub, vb = out
+        ch2 = (it.out_h + 1) // 2
+        cw2 = (it.out_w + 1) // 2
+        await _settle(it, self._encode_yuv(
+            yb[i, : it.out_h, : it.out_w], ub[i, :ch2, :cw2],
+            vb[i, :ch2, :cw2], it.quality))
+
+    async def _finish_jpg(self, out, i: int, it: _Item) -> None:
+        from imagekit_tpu.codecs.native import loader
+
+        ylv, cblv, crlv = out
+        mby = (it.out_h + 15) // 16 * 2
+        mbx = (it.out_w + 15) // 16 * 2
+
+        def run():
+            planes = [ylv[i, :mby, :mbx], cblv[i, : mby // 2, : mbx // 2],
+                      crlv[i, : mby // 2, : mbx // 2]]
+            return loader.encode_jpeg(planes, quality_tables(it.quality),
+                                      it.out_w, it.out_h)
+
+        await _settle(it, self._pool_run("encode", run))
+
+    def _rgb_weights(self, key: _BucketKey, v_keys, h_keys):
+        """The (U, obh, bh) / (U, obw, bw) stacks and their band tables for
+        this set of geometries, kept on the engine's device across
+        batches. Rows past the true output replicate the last true row
+        (the staged paths' ``np.pad(mode="edge")``): to even for the 2x2
+        chroma box of WebP, to the MCU grid for JPEG."""
+        bh, bw, obh, obw, _ch, okind = key
+        wkey = (key, tuple(sorted(v_keys)), tuple(sorted(h_keys)))
+        cached = self._dweights.get(wkey)
+        if cached is not None:
+            return cached
+        if okind == "yuv":
+            def rep_to(to):
+                return to + (to & 1)
+        else:
+            def rep_to(to):
+                return (to + 15) // 16 * 16
+        wv = np.zeros((self.MAX_UNIQUE, obh, bh), dtype=np.float32)
+        wh = np.zeros((self.MAX_UNIQUE, obw, bw), dtype=np.float32)
+        for (ti, to), u in v_keys.items():
+            wv[u] = _cached_weights(ti, to, bh, obh)
+            wv[u, to: min(rep_to(to), obh)] = wv[u, to - 1]
+        for (ti, to), u in h_keys.items():
+            wh[u] = _cached_weights(ti, to, bw, obw)
+            wh[u, to: min(rep_to(to), obw)] = wh[u, to - 1]
+        stacks = [torch.from_numpy(w_) for w_ in (wv, wh)]
+        cached = tuple(t.to(self.device) for t in
+                       stacks + [band_table(s) for s in stacks])
+        self._dweights.put(wkey, cached)
+        return cached
+

@@ -1,6 +1,6 @@
-"""Tests of the port that need an NVIDIA GPU: K1 (a CUDA kernel, with no
-CPU mode) against its plain PyTorch version, and the engine on the card
-against the engine on the CPU.
+"""Tests of the port that need an NVIDIA GPU: K1 and K2 (CUDA kernels, with
+no CPU mode) against their plain PyTorch versions, and the engine on the
+card against the engine on the CPU, for JPEG and PNG sources.
 
 Each test skips where ``torch.cuda.is_available()`` is false; the
 condition is a string, evaluated when the test runs, never at import.
@@ -13,12 +13,14 @@ fp32 sums taken in another order than the plain version's.
 """
 
 import asyncio
+import struct
+import zlib
 
 import numpy as np
 import pytest
 import torch
 
-from imagekit_tpu_torch.ops import dct, jpeg8
+from imagekit_tpu_torch.ops import dct, jpeg8, resize_strip
 from imagekit_tpu_torch.ops.weights import (
     LOWFREQ_ESC_C,
     LOWFREQ_ESC_Y,
@@ -160,4 +162,129 @@ def test_engine_on_card_matches_engine_on_cpu(monkeypatch):
         assert jpeg8.LAUNCHES - before == (3 if device == "cuda" else 0)
     assert vp8.dimensions(outs[0]) == vp8.dimensions(outs[1]) == (256, 144)
     for a, b in zip(*planes):
+        assert_band(torch.from_numpy(a), torch.from_numpy(b))
+
+
+def zlib_png(img: np.ndarray) -> bytes:
+    """RGB PNG with the standard library only: filter 0 on every row, zlib
+    level 1."""
+    h, w = img.shape[:2]
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+
+    def chunk(tag, body):
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body)))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def _k2_inputs(B=5, bh=272, bw=480, obh=96, obw=144, U=4, seed=0):
+    """An interleaved (B, bh, bw*3) batch with smooth content, and per-axis
+    Lanczos stacks of U geometries (edge row replicated)."""
+    from imagekit_tpu_torch.ops.weights import padded_weights
+
+    rng = np.random.default_rng(seed)
+    x = np.linspace(0, 255, bw, dtype=np.float32)[None, :, None]
+    y = np.linspace(0, 255, bh, dtype=np.float32)[:, None, None]
+    img = 0.5 * (x + y) + rng.normal(0, 25, (B, bh, bw, 3))
+    imgs = np.clip(img, 0, 255).astype(np.uint8).reshape(B, bh, bw * 3)
+    wv = np.zeros((U, obh, bh), np.float32)
+    wh = np.zeros((U, obw, bw), np.float32)
+    for u in range(U):
+        to_h, to_w = obh - 2 * u - 1, obw - 3 * u - 1
+        wv[u] = padded_weights(bh - 5 * u, to_h, bh, obh)
+        wh[u] = padded_weights(bw - 7 * u, to_w, bw, obw)
+        wv[u, to_h] = wv[u, to_h - 1]
+        wh[u, to_w] = wh[u, to_w - 1]
+    vidx = (np.arange(B) % U).astype(np.int32)
+    hidx = ((vidx + 1) % U).astype(np.int32)  # the axes keyed separately
+    return to_port([imgs, wv, wh, vidx, hidx], "cuda")
+
+
+K2_EPILOGUES = {
+    "u8": dict(),
+    "luma_jfif": dict(scale=255.0 / 219.0, pre=-16.0, centered=True),
+    "chroma_jfif": dict(scale=255.0 / 224.0, pre=-128.0, post=128.0,
+                        centered=True),
+}
+
+
+@needs_card
+@pytest.mark.parametrize("epilogue", sorted(K2_EPILOGUES))
+def test_k2_matches_plain(epilogue):
+    kw = K2_EPILOGUES[epilogue]
+    imgs, wv, wh, vidx, hidx = _k2_inputs(seed=len(epilogue))
+    B, bh, bw3 = imgs.shape
+    x = imgs.reshape(B, bh, bw3 // 3, 3)
+    for c in range(3):
+        before = resize_strip.LAUNCHES
+        got = resize_strip.plane_resize(x[..., c], wv, wh, vidx, hidx, **kw)
+        torch.cuda.synchronize()
+        assert resize_strip.LAUNCHES == before + 1
+        want = resize_strip.plane_resize_plain(x[..., c], wv, wh, vidx, hidx,
+                                               **kw)
+        assert got.dtype == want.dtype and got.shape == (B, 96, 144)
+        assert_band(got, want)
+
+
+@needs_card
+def test_k2_reads_a_channel_in_place():
+    """The strided channel view and its contiguous copy give the same bits
+    (the kernel's pixel stride and channel offset)."""
+    imgs, wv, wh, vidx, hidx = _k2_inputs(seed=3)
+    B, bh, bw3 = imgs.shape
+    view = imgs.reshape(B, bh, bw3 // 3, 3)[..., 2]
+    a = resize_strip.plane_resize(view, wv, wh, vidx, hidx)
+    b = resize_strip.plane_resize(view.contiguous(), wv, wh, vidx, hidx)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@needs_card
+@pytest.mark.parametrize("fmt", ["webp", "jpeg"])
+def test_png_engine_on_card_matches_engine_on_cpu(monkeypatch, fmt):
+    """One 960x540 PNG -> w=200 through BatchedEngine on the card and on the
+    CPU: what the host encoder gets agrees within the band, and the card's
+    run launched K2 three times."""
+    from imagekit_tpu.codecs import vp8
+    from imagekit_tpu.codecs.native import loader
+    from imagekit_tpu.config import ImageFormat, ImageKitConfig
+    from imagekit_tpu.serving.metrics import Metrics
+    from imagekit_tpu_torch.ops.weights import target_dimensions
+    from imagekit_tpu_torch.serving.batcher import BatchedEngine
+
+    imgs, *_ = _k2_inputs(B=1, bh=540, bw=960)
+    data = zlib_png(imgs[0].cpu().numpy().reshape(540, 960, 3))
+    seen = []
+    real_vp8, real_jpeg = vp8.encode_yuv420, loader.encode_jpeg
+
+    def rec_vp8(yp, u, v, q):
+        seen.append((yp.copy(), u.copy(), v.copy()))
+        return real_vp8(yp, u, v, q)
+
+    def rec_jpeg(planes, qtabs, width, height):
+        seen.append(tuple(np.array(p) for p in planes))
+        return real_jpeg(planes, qtabs, width, height)
+
+    monkeypatch.setattr(vp8, "encode_yuv420", rec_vp8)
+    monkeypatch.setattr(loader, "encode_jpeg", rec_jpeg)
+    for device in ("cuda", "cpu"):
+        engine = BatchedEngine(ImageKitConfig(secret="s"), metrics=Metrics(),
+                               device=device)
+
+        async def run():
+            try:
+                return await engine.transform(data, 200, None,
+                                              ImageFormat(fmt), 80)
+            finally:
+                await engine.close()
+
+        before = resize_strip.LAUNCHES
+        out = asyncio.run(run())
+        assert resize_strip.LAUNCHES - before == (3 if device == "cuda" else 0)
+        if fmt == "webp":
+            assert vp8.dimensions(out) == target_dimensions(960, 540, 200, None)
+    for a, b in zip(*seen):
         assert_band(torch.from_numpy(a), torch.from_numpy(b))

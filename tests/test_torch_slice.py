@@ -1,5 +1,6 @@
 """The port's JPEG -> WebP slice end to end on the CPU, against the JAX
-package.
+package, and the HTTP contract of the port's app (the RGB PNG slice is held
+against the JAX engine in ``test_torch_rgb_slice.py``).
 
 - The port's ``BatchedEngine(device="cpu")`` against the JAX
   ``BatchedEngine`` warmed for the same shape: the studio-range YUV planes
@@ -7,7 +8,8 @@ package.
   on at most 0.1% of pixels; expected exact, since both heads sum fp32 in
   almost the same order) and the WebP dimensions are equal.
 - The port's HTTP app: ``/sign`` -> ``/img`` -> 200 ``image/webp`` with the
-  reference's cache headers, and 501 for requests outside the slice.
+  reference's cache headers for JPEG and PNG sources, and 501 for requests
+  outside the ported slices.
 
 The 1080p flagship geometry runs on the card in ``chip_smoke.py``; its
 weight stacks are pinned here in ``test_torch_weights.py``.
@@ -143,12 +145,16 @@ def test_cuda_device_is_never_implicit():
 
 
 @pytest.mark.parametrize("case", ["png", "jpeg_out", "avif_out", "no_resize",
-                                  "upscale_k8", "webp_src"])
+                                  "upscale_k8", "webp_src", "rgba_png"])
 def test_off_slice_requests_raise_not_ported(case):
+    """Each request outside the ported slices raises NotPortedError naming
+    its ROADMAP item; an RGB PNG, once off the slice, is now served."""
     img = make_test_image(320, 240)
     data, fmt, w = encode_jpeg_pil(img), ImageFormat.webp, 64
     if case == "png":
         data = encode_png(img)
+    elif case == "rgba_png":
+        data = encode_png(np.dstack([img, img[:, :, :1]]))
     elif case == "jpeg_out":
         fmt = ImageFormat.jpeg
     elif case == "avif_out":
@@ -167,6 +173,9 @@ def test_off_slice_requests_raise_not_ported(case):
         finally:
             await engine.close()
 
+    if case == "png":
+        assert vp8.dimensions(asyncio.run(run())) == (64, 48)
+        return
     with pytest.raises(NotPortedError, match="ROADMAP"):
         asyncio.run(run())
 
@@ -203,6 +212,17 @@ class _OfflineFetcher(Fetcher):
 SECRET = "test-secret-key"
 JPG = "https://example.com/a.jpg"
 PNG = "https://example.com/a.png"
+BMP = "https://example.com/a.bmp"
+
+
+def _encode_bmp(img):
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "BMP")
+    return buf.getvalue()
 
 
 def _http(tmp_path, fn):
@@ -210,6 +230,7 @@ def _http(tmp_path, fn):
     fetcher = _OfflineFetcher({
         JPG: ("image/jpeg", encode_jpeg_pil(img, 88)),
         PNG: ("image/png", encode_png(make_test_image(320, 240))),
+        BMP: ("image/bmp", _encode_bmp(make_test_image(320, 240))),
     })
     metrics = Metrics()
 
@@ -254,10 +275,11 @@ def test_http_sign_then_img_serves_webp_then_hits_cache(tmp_path):
 
 
 @pytest.mark.parametrize("params,status", [
-    ({"url": PNG, "w": "64"}, 501),          # PNG source: not ported
+    ({"url": BMP, "w": "64"}, 501),          # BMP source: not ported
     ({"url": JPG, "w": "256", "f": "jpeg"}, 501),  # JPEG output: not ported
     ({"url": JPG}, 501),                      # no resize: not ported
     ({"url": JPG, "w": "256", "q": "0"}, 400),  # the reference's own 400
+    ({"url": PNG, "w": "64"}, 200),          # RGB PNG source: served
 ])
 def test_http_off_slice_answers_501(tmp_path, params, status):
     async def fn(client, metrics):
@@ -266,20 +288,24 @@ def test_http_off_slice_answers_501(tmp_path, params, status):
         assert r.status == status, await r.text()
         if status == 501:
             assert "ROADMAP" in await r.text()
+        if status == 200:
+            assert r.headers["Content-Type"] == "image/webp"
+            assert vp8.dimensions(await r.read()) == (64, 48)
         bad = await client.get("/img", params={**params, "sig": "0" * 64})
         assert bad.status == 401
 
     _http(tmp_path, fn)
 
 
-@pytest.mark.parametrize("kind,status", [("jpeg", 200), ("png", 501),
-                                         ("garbage", 400)])
+@pytest.mark.parametrize("kind,status", [("jpeg", 200), ("png", 200),
+                                         ("garbage", 400), ("rgba_png", 501)])
 def test_http_upload(tmp_path, kind, status):
     from aiohttp import FormData
 
     img = make_test_image(640, 480)
     body = {"jpeg": encode_jpeg_pil(img, 90), "png": encode_png(img),
-            "garbage": b"not an image"}[kind]
+            "garbage": b"not an image",
+            "rgba_png": encode_png(np.dstack([img, img[:, :, :1]]))}[kind]
 
     async def fn(client, metrics):
         form = FormData()
@@ -297,6 +323,8 @@ def test_http_upload(tmp_path, kind, status):
             assert vp8.dimensions(text) == (256, 192)
         elif status == 400:
             assert text.startswith(b"Decode error")
+        else:
+            assert b"ROADMAP" in text
 
     _http(tmp_path, fn)
 
