@@ -6,10 +6,11 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``imagekit_tpu_torch/csrc`` and
-drives the port's two paths through ``BatchedEngine.transform`` on the
-card: a 1920x1080 JPEG resized to fit 400 px and encoded as WebP q80 (K1),
-and a 1920x1080 RGB PNG resized to fit 400 px and encoded as WebP q80 or
-JPEG q80 (K2):
+drives the port's three paths through ``BatchedEngine.transform`` on the
+card: a 1920x1080 JPEG resized to fit 400 px and encoded as WebP q80 (K1);
+a 1920x1080 RGB PNG resized to fit 400 px and encoded as WebP q80 or JPEG
+q80 (K2); and a 1920x1080 JPEG resized and re-encoded as JPEG q80 (the jxc
+transcode on K1, and its escape-dense demotion through the RGB head on K3):
 
 1. environment: the card (``nvidia-smi``), torch and CUDA versions;
 2. build: the kernel library (one nvcc per source, started together), the
@@ -24,16 +25,30 @@ JPEG q80 (K2):
    vidx != hidx (default epilogue), and a 544x960 -> 120x200 plane with the
    yuvjpg luma and chroma remaps (affine + centred epilogues); the median
    of 20 CUDA-event timings of each at B=32;
-5. the JPEG engine slice: >=32 concurrent requests over 16 distinct
+5. K3 and K4 against their plain PyTorch versions on the card: luma
+   1088x1920 -> 240x400 and chroma 544x960 -> 240x400 planes (the demoted
+   RGB head's shapes) at B in {1, 32} with four vidx slots, u8 (K3) and
+   f32 (K4); the median of 20 CUDA-event timings of each at B=32, and the
+   H2D of one B=32 int16 batch of the demoted head;
+6. the JPEG engine slice: >=32 concurrent requests over 16 distinct
    JPEGs, outputs checked, K1's launch count checked against the batch
    count, one batch's planes checked against the plain head, requests/s
    and p50/p99 latency;
-6. the PNG engine slice: 64 WebP and 64 JPEG requests at once over the 16
+7. the PNG engine slice: 64 WebP and 64 JPEG requests at once over the 16
    PNGs, outputs decoded to their size, K2's launch count checked against
    the batch count, one batch's planes and one batch's levels checked
    against the plain heads, requests/s, p50/p99 and the host stages;
-7. HTTP ``/sign`` -> ``/img`` for JPEG and PNG sources and a PNG
-   ``/upload`` through the port's app, where aiohttp is installed.
+8. the JPEG -> JPEG engine slice, three rounds, counts reset before each:
+   64 concurrent w=400 requests over the 16 q80 JPEGs (jxc, k=2, K1
+   launches checked against the batch count, one batch's levels against
+   the plain head with the differing levels counted); 16 w=1280 requests
+   (k=8); 16 requests over 4 escape-dense q100 JPEGs, which must demote to
+   the RGB head (K3 launches checked against three per demoted batch, one
+   batch's RGB against the plain head). Outputs parsed to their size
+   (400x225, 1280x720), requests/s, p50/p99 and the host stages;
+9. HTTP ``/sign`` -> ``/img`` for JPEG and PNG sources to WebP, a JPEG to
+   JPEG, and a PNG ``/upload`` through the port's app, where aiohttp is
+   installed.
 
 Any failed phase raises, and the script exits non-zero. The last lines are
 the card's name and power limit, one JSON line describing each kernel, and
@@ -102,15 +117,31 @@ def synth_image(seed: int, w: int = 1920, h: int = 1080) -> np.ndarray:
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def make_jpeg(seed: int, quality: int) -> bytes:
+def make_jpeg(seed: int, quality: int, image=synth_image) -> bytes:
     """JPEG without Pillow: the port's numpy fDCT + the native Huffman
     encoder."""
     from imagekit_tpu.codecs.native import loader
     from imagekit_tpu_torch.ops.weights import host_encode_rgb_to_coefficients
 
-    img = synth_image(seed)
+    img = image(seed)
     planes, qt = host_encode_rgb_to_coefficients(img, quality)
     return loader.encode_jpeg(planes, qt, img.shape[1], img.shape[0])
+
+
+def dense_image(seed: int, w: int = 1920, h: int = 1080) -> np.ndarray:
+    """Seeded escape-dense RGB image: each 8x8 block holds a hard edge
+    between two random colours, so at q100 its lowest AC levels pass int8
+    in every plane and the split transport overflows."""
+    rng = np.random.default_rng(seed)
+    by, bx = h // 8, w // 8
+    a = rng.integers(0, 256, (by, bx, 1, 1, 3))
+    b = rng.integers(0, 256, (by, bx, 1, 1, 3))
+    left = (np.arange(8) < 4)[None, None, None, :, None]
+    blk = np.broadcast_to(np.where(left, a, b), (by, bx, 8, 8, 3)).copy()
+    flip = rng.random((by, bx)) < 0.5
+    blk[flip] = blk[flip].transpose(0, 2, 1, 3)
+    img = blk.transpose(0, 2, 1, 3, 4).reshape(h, w, 3)
+    return np.clip(img + rng.normal(0.0, 8.0, img.shape), 0, 255).astype(np.uint8)
 
 
 def make_png(img: np.ndarray) -> bytes:
@@ -459,7 +490,117 @@ def phase_k2(images) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the JPEG engine slice
+# phase 5: K3 and K4 against their plain versions
+# ---------------------------------------------------------------------------
+
+# four (source w, h, target w, h) slots of the slice's bucket pair
+K3_GEOMS = ((1920, 1080, 400, 225), (1904, 1072, 397, 223),
+            (1888, 1064, 393, 222), (1872, 1056, 390, 220))
+
+
+def k3_stacks(plane: str):
+    """The demoted RGB head's stacks on the card, from the builders the
+    engine uses for kind "rgb": luma 1088x1920 -> 240x400, chroma 544x960
+    -> FULL output resolution; with their band tables."""
+    from imagekit_tpu_torch.ops.resize_strip import band_table
+    from imagekit_tpu_torch.ops.weights import (
+        combined_chroma_weights,
+        padded_weights,
+    )
+
+    ih, iw = (1088, 1920) if plane == "luma" else (544, 960)
+    wv = np.zeros((4, 240, ih), np.float32)
+    wh = np.zeros((4, 400, iw), np.float32)
+    for u, (sw, sh, ow, oh) in enumerate(K3_GEOMS):
+        if plane == "luma":
+            wv[u] = padded_weights(sh, oh, ih, 240)
+            wh[u] = padded_weights(sw, ow, iw, 400)
+        else:
+            wv[u] = combined_chroma_weights((sh + 1) // 2, sh, oh, ih, 240)
+            wh[u] = combined_chroma_weights((sw + 1) // 2, sw, ow, iw, 400)
+    wv, wh = (torch.from_numpy(w_).cuda() for w_ in (wv, wh))
+    return wv, wh, (band_table(wv), band_table(wh))
+
+
+def phase_k3(images) -> dict:
+    """``images``: the 16 synthesized 1920x1080 RGB images."""
+    from imagekit_tpu_torch.ops import resize_planes as rp
+
+    result = {"max_abs_err": 0, "max_abs_err_f32": 0.0, "ms": 0.0,
+              "plain_ms": 0.0, "ms_f32": 0.0, "plain_ms_f32": 0.0}
+    luma = np.zeros((32, 1088, 1920), np.uint8)
+    chroma = np.zeros((32, 544, 960), np.uint8)
+    for i in range(32):
+        img = images[i % len(images)]
+        luma[i, :1080] = img[..., 0]
+        chroma[i, :540] = img[::2, ::2, 1 + i % 2]
+    timed = []
+    result["k4_launches"] = 0  # K4 has no path: the launches of this phase
+    for plane, host, n in (("luma", luma, 1), ("chroma", chroma, 2)):
+        wv, wh, bands = k3_stacks(plane)
+        x8 = torch.from_numpy(host).cuda()
+        xf = x8.float() + 0.25  # off the integer grid
+        k4_before = rp.LAUNCHES_F32
+        for batch in (1, 32):
+            vidx = torch.arange(batch, dtype=torch.int32, device="cuda") % 4
+            got = rp.resize_planes(x8[:batch], wv, wh, vidx, bands=bands)
+            ref = rp.resize_planes_plain(x8[:batch], wv, wh, vidx)
+            got_f = rp.resize_planes_f32(xf[:batch], wv, wh, vidx, bands=bands)
+            ref_f = rp.resize_planes_f32_plain(xf[:batch], wv, wh, vidx)
+            torch.cuda.synchronize()
+            mx, share1, over = compare(got, ref)
+            err_f = float((got_f - ref_f).abs().max())
+            log(f"  K3 vs plain B={batch} {plane} {tuple(x8.shape[1:])} -> "
+                f"{tuple(got.shape[1:])}: max|d|={mx} share(|d|=1)="
+                f"{share1:.3e}; K4 (f32) max|d|={err_f:.3e}")
+            if mx > MAX_ABS or share1 > MAX_SHARE or over:
+                raise RuntimeError("K3 disagrees with its plain version")
+            # K4: fp32 sums of ~1000 terms in another order
+            torch.testing.assert_close(got_f, ref_f, rtol=1e-5, atol=255e-5)
+            result["max_abs_err"] = max(result["max_abs_err"], mx)
+            result["max_abs_err_f32"] = max(result["max_abs_err_f32"], err_f)
+        result["k4_launches"] += rp.LAUNCHES_F32 - k4_before
+        # B=32 timings; the head runs one luma and two chroma planes
+        ts = [cuda_ms(lambda: rp.resize_planes(x8, wv, wh, vidx, bands=bands)),
+              cuda_ms(lambda: rp.resize_planes_plain(x8, wv, wh, vidx)),
+              cuda_ms(lambda: rp.resize_planes_f32(xf, wv, wh, vidx,
+                                                   bands=bands)),
+              cuda_ms(lambda: rp.resize_planes_f32_plain(xf, wv, wh, vidx))]
+        timed.append(f"{plane} K3 {ts[0]:.4f} / plain {ts[1]:.4f}, K4 "
+                     f"{ts[2]:.4f} / plain {ts[3]:.4f}")
+        for key, t in zip(("ms", "plain_ms", "ms_f32", "plain_ms_f32"), ts):
+            result[key] += n * t
+        del x8, xf
+    log("  timing B=32 per plane (median of 20, CUDA events, ms): "
+        + "; ".join(timed))
+    log(f"  the head's three planes (luma + 2 chroma): K3 {result['ms']:.4f} "
+        f"ms vs plain {result['plain_ms']:.4f} ms; K4 {result['ms_f32']:.4f}"
+        f" ms vs plain {result['plain_ms_f32']:.4f} ms")
+    # the demoted head's upload: one B=32 int16 batch, (32, 136, 240*64)
+    # luma and 2 x (32, 68, 120*64) chroma, as the engine's _placement
+    # copies it (pin, then a non-blocking copy)
+    arrays = [np.ones((32, 136, 240 * 64), np.int16)] + [
+        np.ones((32, 68, 120 * 64), np.int16) for _ in range(2)]
+    mb = sum(a.nbytes for a in arrays) / 1e6
+    host_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        _ = [torch.from_numpy(a).pin_memory().to("cuda", non_blocking=True)
+             for a in arrays]
+        torch.cuda.synchronize()
+        host_s.append(time.perf_counter() - t0)
+    pinned = [torch.from_numpy(a).pin_memory() for a in arrays]
+    dma = cuda_ms(lambda: [p.to("cuda", non_blocking=True) for p in pinned],
+                  reps=5)
+    log(f"  demoted head's H2D, one B=32 int16 batch ({mb:.1f} MB): pin + "
+        f"copy {statistics.median(host_s) * 1e3:.2f} ms (host clock, median "
+        f"of 3), DMA of pinned memory {dma:.4f} ms (CUDA events, median of 5)")
+    result.update(h2d_ms=dma, pin_h2d_ms=statistics.median(host_s) * 1e3)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the JPEG engine slice
 # ---------------------------------------------------------------------------
 
 
@@ -526,7 +667,7 @@ def phase_engine(jpegs, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the PNG engine slice
+# phase 7: the PNG engine slice
 # ---------------------------------------------------------------------------
 
 
@@ -626,7 +767,160 @@ def phase_png_engine(pngs, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: HTTP
+# phase 8: the JPEG -> JPEG engine slice
+# ---------------------------------------------------------------------------
+
+
+def check_jxc_batch(call) -> tuple:
+    """A recorded k=2 jxc batch's levels (K1 route) against the plain head
+    on the same inputs: (max |d|, share(|d|=1), levels that differ)."""
+    from imagekit_tpu_torch.ops import dct, jpeg8
+
+    args, _, levels = call
+    dcs, acs, escs, qt, qto, w, vidx, block_dims, _, k = args
+    flat = (dcs[0], acs[0], dcs[1], acs[1], dcs[2], acs[2],
+            *escs[0], *escs[1], *escs[2], qt, qto, *w, vidx)
+    plain = dct.transcode_i8(*flat, *block_dims, k=k,
+                             fold=jpeg8.folded_plane_plain)
+    got = torch.cat([torch.from_numpy(lv.reshape(lv.shape[0], -1))
+                     for lv in levels], dim=1).to(plain.device)
+    mx, share1, over = compare(got, plain)
+    if mx > MAX_ABS or share1 > MAX_SHARE or over:
+        raise RuntimeError(f"jxc head (K1) disagrees with the plain head: "
+                           f"max|d|={mx}, share(|d|=1)={share1:.3e}")
+    return mx, share1, int((got != plain).sum())
+
+
+def check_rgb_batch(call) -> tuple:
+    """A recorded demoted batch's RGB (K3 route) against the plain head on
+    the same inputs. Band: |d| <= 2 on at most 0.1% of values: K3's +-1 on
+    a resized chroma plane is scaled by up to 1.772 by the YCbCr -> RGB
+    matrix."""
+    from imagekit_tpu_torch.ops import dct
+    from imagekit_tpu_torch.ops import resize_planes as rp
+
+    args, kw, rgb = call
+    y, cb, cr, qt, w, vidx, block_dims, _ = args
+    plain = dct.decode_resize_rgb(y, cb, cr, qt, *w, vidx, *block_dims,
+                                  bands=kw["bands"],
+                                  resize=rp.resize_planes_plain)
+    got = torch.from_numpy(rgb.reshape(rgb.shape[0], -1)).to(plain.device)
+    d = (got.to(torch.int32) - plain.to(torch.int32)).abs()
+    mx, share = int(d.max()), float((d > 0).float().mean())
+    if mx > 2 or share > MAX_SHARE:
+        raise RuntimeError(f"RGB head (K3) disagrees with the plain head: "
+                           f"max|d|={mx}, share(|d|>0)={share:.3e}")
+    return mx, share
+
+
+def phase_jxc_engine(jpegs, dense, card: str) -> dict:
+    from imagekit_tpu.codecs.native import jpeg_abi, loader
+    from imagekit_tpu.config import BatchConfig, ImageFormat, ImageKitConfig
+    from imagekit_tpu.serving.metrics import Metrics
+    from imagekit_tpu_torch.ops import jpeg8
+    from imagekit_tpu_torch.ops import resize_planes as rp
+    from imagekit_tpu_torch.serving import engine_jpeg
+    from imagekit_tpu_torch.serving.batcher import BatchedEngine
+
+    rounds = (
+        ("w=400, q80 sources (jxc k=2)",
+         [(jpegs[i % len(jpegs)], 400) for i in range(64)], (400, 225)),
+        ("w=1280, q80 sources (jxc k=8)",
+         [(jpegs[i % len(jpegs)], 1280) for i in range(16)], (1280, 720)),
+        ("w=400, escape-dense q100 sources (demoted to the RGB head)",
+         [(dense[i % len(dense)], 400) for i in range(16)], (400, 225)),
+    )
+    metrics = Metrics()
+    # no load shedding: every request of a round is served and measured
+    engine = BatchedEngine(
+        ImageKitConfig(secret=SECRET,
+                       batch=BatchConfig(max_queue_latency_s=0.0)),
+        metrics=metrics, device="cuda")
+    stages = ("entropy_decode", "batch_build", "device_decode_resize",
+              "encode")
+
+    async def one(data, w):
+        t0 = time.perf_counter()
+        out = await engine.transform(data, w, None, ImageFormat.jpeg, 80)
+        return out, time.perf_counter() - t0
+
+    async def drive(rec_rgb):
+        try:
+            await engine.warmup()
+            for _, reqs, _ in rounds:  # weights, allocator, native codecs
+                await asyncio.gather(*(one(d, w) for d, w in reqs[:4]))
+            runs = []
+            for _, reqs, _ in rounds:
+                batches0 = metrics.batches
+                stage0 = {k: metrics.stage_seconds[k] for k in stages}
+                rgb0 = len(rec_rgb.calls)
+                jpeg8.LAUNCHES = 0  # count only the measured round
+                rp.LAUNCHES = 0
+                t0 = time.perf_counter()
+                res = await asyncio.gather(*(one(d, w) for d, w in reqs))
+                wall = time.perf_counter() - t0
+                runs.append({
+                    "res": res, "wall": wall, "k1": jpeg8.LAUNCHES,
+                    "k3": rp.LAUNCHES, "batches": metrics.batches - batches0,
+                    "rgb_batches": len(rec_rgb.calls) - rgb0,
+                    "spent": {k: metrics.stage_seconds[k] - stage0[k]
+                              for k in stages}})
+            return runs
+        finally:
+            await engine.close()
+
+    with Recorder(engine_jpeg, "transcode_i8_batch") as rec_x, \
+            Recorder(engine_jpeg, "decode_resize_rgb_batch") as rec_rgb:
+        runs = asyncio.run(drive(rec_rgb))
+    lib = loader.load()
+    for (name, reqs, size), run in zip(rounds, runs):
+        for out, _ in run["res"]:
+            hdr = jpeg_abi.parse(lib, out)
+            if (hdr.width, hdr.height) != size:
+                raise RuntimeError(f"{name}: JPEG is {hdr.width}x{hdr.height}"
+                                   f", not {size[0]}x{size[1]}")
+        n = len(reqs)
+        p50, p99 = latency(run["res"])
+        run.update(rps=n / run["wall"], p50_ms=p50, p99_ms=p99)
+        log(f"  {name}: {n} concurrent requests in {run['wall']:.4f} s -> "
+            f"{run['rps']:.2f} req/s, p50 {p50:.2f} ms, p99 {p99:.2f} ms, "
+            f"{run['batches']} batches ({run['rgb_batches']} demoted), "
+            f"{run['k1']} K1 launches, {run['k3']} K3 launches [{card}]")
+        log("    host seconds: " + ", ".join(
+            f"{k} {v:.4f} s ({v / n * 1e3:.2f} ms/request)"
+            for k, v in run["spent"].items()))
+    k2_run, k8_run, dense_run = runs
+    if k2_run["batches"] <= 0 or k2_run["k1"] != 3 * k2_run["batches"] \
+            or k2_run["rgb_batches"] or k2_run["k3"]:
+        raise RuntimeError("the w=400 round did not run K1 three times a "
+                           "batch, or demoted")
+    if k8_run["k1"] or k8_run["k3"] or k8_run["rgb_batches"]:
+        raise RuntimeError("the k=8 round launched K1 or K3, or demoted")
+    if (dense_run["rgb_batches"] <= 0
+            or dense_run["rgb_batches"] != dense_run["batches"]
+            or dense_run["k3"] != 3 * dense_run["rgb_batches"]
+            or dense_run["k1"]):
+        raise RuntimeError(
+            f"escape-dense round: {dense_run['rgb_batches']} demoted of "
+            f"{dense_run['batches']} batches, {dense_run['k3']} K3 launches")
+    k2_calls = [c for c in rec_x.calls if c[0][9] == 2]
+    mx, share1, n_diff = check_jxc_batch(k2_calls[-1])
+    n_lv = sum(lv.size for lv in k2_calls[-1][2])
+    log(f"  last k=2 jxc batch vs plain head: max|d|={mx} share(|d|=1)="
+        f"{share1:.3e}, {n_diff} of {n_lv} levels differ (K1's fp32 sums in "
+        f"another order than cuBLAS's)")
+    mx_rgb, share_rgb = check_rgb_batch(rec_rgb.calls[-1])
+    log(f"  last demoted batch's RGB vs plain head: max|d|={mx_rgb} "
+        f"share(|d|>0)={share_rgb:.3e}")
+    return {"k1_launches": k2_run["k1"], "k3_launches": dense_run["k3"],
+            "demoted_batches": dense_run["rgb_batches"],
+            "levels_differ": n_diff,
+            "rounds": [{k: r[k] for k in ("rps", "p50_ms", "p99_ms",
+                                           "batches")} for r in runs]}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: HTTP
 # ---------------------------------------------------------------------------
 
 
@@ -640,6 +934,7 @@ def phase_http(jpegs, png_bytes: bytes) -> str:
     import shutil
 
     from imagekit_tpu.codecs import vp8
+    from imagekit_tpu.codecs.native import jpeg_abi, loader
     from imagekit_tpu.config import ImageKitConfig
     from imagekit_tpu.fetch import Fetcher
     from imagekit_tpu.serving.metrics import Metrics
@@ -648,6 +943,10 @@ def phase_http(jpegs, png_bytes: bytes) -> str:
 
     cache_dir = BUILD_DIR / "smoke_cache"
     shutil.rmtree(cache_dir, ignore_errors=True)
+
+    def jpeg_size(body: bytes):
+        hdr = jpeg_abi.parse(loader.load(), body)
+        return hdr.width, hdr.height
 
     async def run():
         src = web.Application()
@@ -693,6 +992,19 @@ def phase_http(jpegs, png_bytes: bytes) -> str:
                                     or body[8:12] != b"WEBP"):
                                 raise RuntimeError(
                                     f"/img answered {r.status} {dict(r.headers)}")
+                async with s.get(f"{base}/sign", params={
+                        "url": urls[0], "w": "400", "f": "jpeg",
+                        "q": "80"}) as r:
+                    signed = (await r.json())["signed_url"]
+                for attempt in range(2):
+                    async with s.get(base + signed) as r:
+                        body = await r.read()
+                        if (r.status != 200
+                                or r.headers["Content-Type"] != "image/jpeg"
+                                or jpeg_size(body) != (400, 225)):
+                            raise RuntimeError(
+                                f"/img f=jpeg answered {r.status} "
+                                f"{dict(r.headers)}")
                 form = aiohttp.FormData()
                 form.add_field("file", png_bytes, filename="src.png")
                 form.add_field("w", "400")
@@ -702,16 +1014,17 @@ def phase_http(jpegs, png_bytes: bytes) -> str:
                             or r.headers["Content-Type"] != "image/webp"
                             or vp8.dimensions(body) != (400, 225)):
                         raise RuntimeError(f"PNG /upload answered {r.status}")
-            if metrics.cache_hits != 5 or metrics.cache_misses != 5:
+            if metrics.cache_hits != 6 or metrics.cache_misses != 6:
                 raise RuntimeError(
                     f"cache hits {metrics.cache_hits}, misses "
-                    f"{metrics.cache_misses}; expected 5 and 5")
+                    f"{metrics.cache_misses}; expected 6 and 6")
         finally:
             await runner.cleanup()
             await src_runner.cleanup()
         return ("passed: 4 JPEG and 1 PNG x (/sign -> /img 200 image/webp "
-                "with ETag, then a cache HIT); PNG /upload 200 image/webp "
-                "400x225")
+                "with ETag, then a cache HIT); 1 JPEG /sign -> /img f=jpeg "
+                "200 image/jpeg 400x225, then a cache HIT; PNG /upload 200 "
+                "image/webp 400x225")
 
     return asyncio.run(run())
 
@@ -738,7 +1051,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.load()
-    log(f"[2] K1 and K2 built by nvcc in {time.perf_counter() - t0:.2f} s")
+    log(f"[2] K1, K2, K3 and K4 built by nvcc in "
+        f"{time.perf_counter() - t0:.2f} s")
     for line in _build.build_log().splitlines():
         if "registers" in line or "bytes stack" in line or "smem" in line:
             log("    ptxas: " + line.strip())
@@ -749,8 +1063,10 @@ def main() -> int:
     t0 = time.perf_counter()
     jpegs = [make_jpeg(seed, 80) for seed in range(16)]
     jpegs_hq = [make_jpeg(100 + seed, 95) for seed in range(2)]
-    log(f"    made {len(jpegs)} q80 and {len(jpegs_hq)} q95 1920x1080 JPEGs "
-        f"in {time.perf_counter() - t0:.2f} s")
+    dense = [make_jpeg(200 + seed, 100, dense_image) for seed in range(4)]
+    log(f"    made {len(jpegs)} q80, {len(jpegs_hq)} q95 and {len(dense)} "
+        f"escape-dense q100 1920x1080 JPEGs in {time.perf_counter() - t0:.2f}"
+        f" s")
     t0 = time.perf_counter()
     images = [synth_image(seed) for seed in range(16)]
     pngs = [make_png(img) for img in images]
@@ -764,15 +1080,22 @@ def main() -> int:
     log("[4] K2 against its plain PyTorch version on the card")
     k2 = phase_k2(images)
 
-    log("[5] JPEG engine slice: BatchedEngine(device='cuda').transform, "
+    log("[5] K3 and K4 against their plain PyTorch versions on the card")
+    k3 = phase_k3(images)
+
+    log("[6] JPEG engine slice: BatchedEngine(device='cuda').transform, "
         "1920x1080 JPEG -> w=400 WebP q80")
     eng = phase_engine(jpegs, card)
 
-    log("[6] PNG engine slice: BatchedEngine(device='cuda').transform, "
+    log("[7] PNG engine slice: BatchedEngine(device='cuda').transform, "
         "1920x1080 RGB PNG -> w=400 WebP q80 and JPEG q80")
     png_eng = phase_png_engine(pngs, card)
 
-    log(f"[7] HTTP: {phase_http(jpegs, pngs[0])}")
+    log("[8] JPEG -> JPEG engine slice: BatchedEngine(device='cuda')"
+        ".transform, 1920x1080 JPEG -> JPEG q80")
+    jxc = phase_jxc_engine(jpegs, dense, card)
+
+    log(f"[9] HTTP: {phase_http(jpegs, pngs[0])}")
     log(f"    total {time.perf_counter() - t_start:.2f} s")
 
     log(card)
@@ -794,6 +1117,24 @@ def main() -> int:
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
+    }, {
+        "name": "resize_planes_u8 (K3)",
+        "route": "cuda",
+        "source": "imagekit_tpu_torch/csrc/resize_planes.cu",
+        "replaces": "imagekit_tpu/ops/pallas/resize_kernel.py:157",
+        "launches": jxc["k3_launches"],
+        "max_abs_err": k3["max_abs_err"],
+        "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"],
+    }, {
+        "name": "resize_planes_f32 (K4)",
+        "route": "cuda",
+        "source": "imagekit_tpu_torch/csrc/resize_planes.cu",
+        "replaces": "imagekit_tpu/ops/pallas/resize_kernel.py:235",
+        "launches": k3["k4_launches"],
+        "max_abs_err": k3["max_abs_err_f32"],
+        "ms": k3["ms_f32"],
+        "plain_ms": k3["plain_ms_f32"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

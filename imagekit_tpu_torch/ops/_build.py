@@ -104,6 +104,9 @@ def _configure(lib: ctypes.CDLL) -> None:
         [vp] * 8 + [ci] * 7 + [cll] * 3 + [cf] * 3 + [ci] * 2 + [vp]
     )
     lib.ik_resize_strip_plane.restype = ci
+    for fn in (lib.ik_resize_planes_u8, lib.ik_resize_planes_f32):
+        fn.argtypes = [vp] * 7 + [ci] * 6 + [vp]
+        fn.restype = ci
 
 
 def load() -> ctypes.CDLL:

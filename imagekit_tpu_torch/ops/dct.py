@@ -15,6 +15,17 @@ its Pallas front ``pallas_resize.py:378-411``), serves JPEG outputs from
 RGB sources: K2 once per channel to the rounded u8 grid, then the JFIF
 BT.601 mix, the 4:2:0 box and the 8x8 fDCT + quantise tail
 :func:`_fdct_quant_flat` (``dct.py:776-787``) as torch ops.
+
+The jxc transcode, :func:`transcode_i8_batch` (``dct.py:884-957,1036`` and
+its Pallas front ``pallas_jpeg8.py:224-267``), serves JPEG outputs from
+JPEG sources in one device round trip: for k < 8 the i16 widen + escape
+scatter and K1 with its centred epilogue on the three planes; for k = 8 the
+split front (:func:`_widen_split_levels`, :func:`_blocks_to_plane`) and a
+plain two-``bmm`` resize; then :func:`_fdct_quant_flat`. A JPEG whose
+escapes overflow the split transport is demoted to the RGB-output head,
+:func:`decode_resize_rgb_batch` (``dct.py:206-268,1717``): 8x8 IDCT of the
+int16 levels to u8 planes, then K3 on Y, Cb and Cr (:func:`_rgb_tail`) and
+the JFIF YCbCr -> RGB matrix.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ from imagekit_tpu_torch.ops.color import (
     split_yuv,
     to_host,
 )
+from imagekit_tpu_torch.ops.resize_planes import resize_planes
 from imagekit_tpu_torch.ops.resize_strip import plane_resize
 from imagekit_tpu_torch.ops.weights import idct_basis
 
@@ -145,14 +157,34 @@ def decode_resize_yuv_lowfreq_i8_batch(
     return split_yuv(to_host(flat, device), obh, obw)
 
 
+def _dot8(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """f32 ``x (..., 8) @ m (8, n)``, summed in one fixed order: four FMA
+    lanes (term k into lane k mod 4), then ``(l0 + l1) + (l2 + l3)``, the
+    order XLA's CPU dot sums an 8-term contraction in. Each FMA is one f32
+    rounding of the float64 ``a * b + acc`` (the product is exact in
+    float64). The 8x8 DCTs need it: their inputs are integers, so exact
+    ties at the quantiser's and the u8 grid's half steps are common, and a
+    tie's side depends on the summation order. With it the levels are the
+    JAX package's, and the same on every device."""
+    x64, m64 = x.double(), m.double()
+    lanes = []
+    for lane in range(4):
+        acc = (x64[..., lane, None] * m64[lane]).float()
+        lanes.append((x64[..., lane + 4, None] * m64[lane + 4]
+                      + acc.double()).float())
+    return (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
+
+
 def _fdct_quant_flat(plane: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """(B, ph, pw) centred samples -> 8x8 fDCT -> quantise, rounding half
     away from zero (the JPEG convention) -> flat (B, ph/8 * pw/8 * 64)
-    int16 levels in natural order."""
+    int16 levels in natural order. The fDCT sums over x, then y, in
+    :func:`_dot8`'s order, as the reference's einsum does."""
     A8 = torch.as_tensor(idct_basis(), device=plane.device)
     B, ph, pw = plane.shape
     blocks = plane.reshape(B, ph // 8, 8, pw // 8, 8).permute(0, 1, 3, 2, 4)
-    c = torch.matmul(torch.matmul(A8, blocks), A8.T)  # A @ block @ A^T
+    t = _dot8(blocks.transpose(-1, -2), A8.T)  # [y, u] = sum_x b[x, y] A[u, x]
+    c = _dot8(t.transpose(-1, -2), A8.T)  # [u, v] = sum_y t[y, u] A[v, y]
     c = c.reshape(B, ph // 8, pw // 8, 64) / q[:, None, None, :]
     lv = torch.sign(c) * torch.floor(torch.abs(c) + 0.5)
     return lv.to(torch.int16).reshape(B, -1)
@@ -171,6 +203,155 @@ def rgb_jpeg_head(imgs, wv, wh, vidx, hidx, qt_out, bands=None,
         _fdct_quant_flat(cb, qt_out[:, 64:]),
         _fdct_quant_flat(cr, qt_out[:, 64:]),
     ], dim=1)
+
+
+def _widen_split_lowfreq(dc, ac, eidx, evals, by: int, bx: int, na: int):
+    """Split int8 transport -> (B, by, bx, na+1) i32 levels: widen the AC
+    planes, scatter-ADD the escape residuals (padding rows add 0 at
+    (0,0,0), so a plain put would overwrite the real level there), prepend
+    the int16 DC lane (``dct.py:790``)."""
+    B = dc.shape[0]
+    a = ac.to(torch.int32)
+    i = eidx.long()
+    a.index_put_((i[:, 0], i[:, 1], i[:, 2]), evals.to(torch.int32),
+                 accumulate=True)
+    a = a[:, :, : bx * na].reshape(B, by, bx, na)
+    d = dc[:, :, :bx].to(torch.int32)
+    return torch.cat([d[..., None], a], dim=-1)
+
+
+def _widen_split_levels(dc, ac, eidx, evals, by: int, bx: int):
+    """k=8 variant, flattened to the (B, by, bx*64) natural-order layout
+    :func:`_blocks_to_plane` takes (``dct.py:802``)."""
+    lev = _widen_split_lowfreq(dc, ac, eidx, evals, by, bx, 63)
+    return lev.reshape(dc.shape[0], by, bx * 64)
+
+
+def _blocks_to_plane(coef_flat, by: int, bx: int, qtab) -> torch.Tensor:
+    """(B, by, bx*64) levels + (B, 64) table -> dequantise -> 8x8 IDCT ->
+    +128 -> round half up and clip to the u8 grid, as a host decoder emits
+    samples (``dct.py:180``). Returned as u8, the type K3 takes; the
+    values are the reference's f32 ones. The IDCT sums over u, then v, in
+    :func:`_dot8`'s order, as the reference's einsum does."""
+    A = torch.as_tensor(idct_basis(), device=coef_flat.device)
+    B = coef_flat.shape[0]
+    c = coef_flat.reshape(B, by, bx, 64).float() * qtab[:, None, None, :]
+    c = c.reshape(B, by, bx, 8, 8)
+    t = _dot8(c.transpose(-1, -2), A)  # [v, x] = sum_u c[u, v] A[u, x]
+    p = _dot8(t.transpose(-1, -2), A) + 128.0  # [x, y] = sum_v t[v, x] A[v, y]
+    p = p.permute(0, 1, 3, 2, 4).reshape(B, by * 8, bx * 8)
+    return torch.clamp(torch.floor(p + 0.5), 0.0, 255.0).to(torch.uint8)
+
+
+def _rgb_tail(Y, Cb, Cr, wv_y, wh_y, wv_c, wh_c, vidx, bands=None,
+              resize=resize_planes):
+    """Resize the three u8 planes with K3 and convert BT.601 full-range
+    YCbCr -> RGB -> flat (B, OH*OW*3) u8 (``dct.py:228``). K3 rounds each
+    resized plane to u8 at every shape, as the reference's TPU head did
+    where K3 fits VMEM (the 1080p bucket does); its CPU branch skips that
+    rounding. ``bands`` is the four stacks' band tables, or None."""
+    luma_b, chroma_b = (bands[:2], bands[2:]) if bands else (None, None)
+    y = resize(Y, wv_y, wh_y, vidx, bands=luma_b).float()
+    cb = resize(Cb, wv_c, wh_c, vidx, bands=chroma_b).float() - 128.0
+    cr = resize(Cr, wv_c, wh_c, vidx, bands=chroma_b).float() - 128.0
+    r = y + 1.402 * cr
+    g = y - 0.344136286 * cb - 0.714136286 * cr
+    b = y + 1.772 * cb
+    rgb = torch.stack([r, g, b], dim=-1)
+    rgb = torch.clamp(torch.floor(rgb + 0.5), 0.0, 255.0).to(torch.uint8)
+    return rgb.reshape(rgb.shape[0], -1)
+
+
+def decode_resize_rgb(y_flat, cb_flat, cr_flat, qtabs, wv_y, wh_y, wv_c,
+                      wh_c, vidx, by_y: int, bx_y: int, by_c: int, bx_c: int,
+                      bands=None, resize=resize_planes) -> torch.Tensor:
+    """The RGB-output head on int16 levels (``_decode_resize_kernel``,
+    ``dct.py:206``): flat (B, OH*OW*3) u8."""
+    Y = _blocks_to_plane(y_flat, by_y, bx_y, qtabs[:, :64])
+    Cb = _blocks_to_plane(cb_flat, by_c, bx_c, qtabs[:, 64:])
+    Cr = _blocks_to_plane(cr_flat, by_c, bx_c, qtabs[:, 64:])
+    return _rgb_tail(Y, Cb, Cr, wv_y, wh_y, wv_c, wh_c, vidx, bands, resize)
+
+
+def decode_resize_rgb_batch(y_flat, cb_flat, cr_flat, qtabs, weights, vidx,
+                            block_dims, out_shape, bands=None,
+                            device: Optional[torch.device] = None):
+    """Run the RGB-output head (``dct.py:1717``); returns (B, OHb, OWb, 3)
+    u8 numpy (crop on the host). Three K3 launches on CUDA, K3's plain
+    version on the CPU."""
+    wv_y, wh_y, wv_c, wh_c = weights
+    obh, obw = out_shape
+    device = resolve(device, wv_y)
+    args = on_device((y_flat, cb_flat, cr_flat, qtabs, wv_y, wh_y, wv_c,
+                      wh_c, vidx), device)
+    if bands is not None:
+        bands = tuple(on_device(bands, device))
+    flat = to_host(decode_resize_rgb(*args, *block_dims, bands=bands), device)
+    return flat.reshape(flat.shape[0], obh, obw, 3)
+
+
+def transcode_i8(y_dc, y_ac, cb_dc, cb_ac, cr_dc, cr_ac,
+                 ey_idx, ey_val, eb_idx, eb_val, er_idx, er_val,
+                 qt_in, qt_out, wv_y, wh_y, wv_c, wh_c, vidx,
+                 by_b: int, bx_b: int, cy_b: int, cx_b: int,
+                 k: int, fold=jpeg8.folded_plane) -> torch.Tensor:
+    """The jxc transcode: split-int8 levels in -> flat int16 target levels,
+    Y then Cb then Cr. k < 8 is ``_transcode_i8_pallas``
+    (``pallas_jpeg8.py:224``): i16 widen + escape scatter, ``fold`` (K1
+    with the centred epilogue; its plain version on the CPU), f32. k = 8 is
+    ``_transcode_i8_kernel``'s split front (``dct.py:918-936``): widen,
+    8x8 IDCT to the u8 grid, the resize as a plain product, ``u8c``."""
+    if k == 8:
+        u = vidx.long()
+
+        def front(dc, ac, ei, ev, by, bx, qt, wv, wh):
+            P = _blocks_to_plane(_widen_split_levels(dc, ac, ei, ev, by, bx),
+                                 by, bx, qt)
+            x = torch.bmm(torch.bmm(wv[u], P.float()), wh[u].transpose(1, 2))
+            # u8c: round to the u8 grid, centre for the fDCT
+            return torch.clamp(torch.floor(x + 0.5), 0.0, 255.0) - 128.0
+
+        y = front(y_dc, y_ac, ey_idx, ey_val, by_b, bx_b, qt_in[:, :64],
+                  wv_y, wh_y)
+        cb = front(cb_dc, cb_ac, eb_idx, eb_val, cy_b, cx_b, qt_in[:, 64:],
+                   wv_c, wh_c)
+        cr = front(cr_dc, cr_ac, er_idx, er_val, cy_b, cx_b, qt_in[:, 64:],
+                   wv_c, wh_c)
+    else:
+        qt_l, qt_c = (q.contiguous() for q in jpeg8.qt_lowfreq(qt_in, k))
+
+        def front(dc, ac, ei, ev, qt, wv, wh):
+            return fold(dc, jpeg8.widen_scatter(ac, ei, ev), qt, wv, wh,
+                        vidx, k, luma=True, centered=True).float()
+
+        y = front(y_dc, y_ac, ey_idx, ey_val, qt_l, wv_y, wh_y)
+        cb = front(cb_dc, cb_ac, eb_idx, eb_val, qt_c, wv_c, wh_c)
+        cr = front(cr_dc, cr_ac, er_idx, er_val, qt_c, wv_c, wh_c)
+    return torch.cat([
+        _fdct_quant_flat(y, qt_out[:, :64]),
+        _fdct_quant_flat(cb, qt_out[:, 64:]),
+        _fdct_quant_flat(cr, qt_out[:, 64:]),
+    ], dim=1)
+
+
+def transcode_i8_batch(dc_arrays, ac_arrays, escapes, qt_in, qt_out,
+                       weights, vidx, block_dims, out_shape, k: int,
+                       device: Optional[torch.device] = None):
+    """Run the jxc transcode (``dct.py:1036``); returns (y, cb, cr) int16
+    numpy levels of shapes (B, OHb/8, OWb/8, 64) and (B, OHb/16, OWb/16,
+    64) x2, natural order: slice to the true MCU grid and hand them to the
+    host Huffman encoder."""
+    wv_y, wh_y, wv_c, wh_c = weights
+    obh, obw = out_shape
+    (ey_idx, ey_val), (eb_idx, eb_val), (er_idx, er_val) = escapes
+    device = resolve(device, wv_y)
+    args = on_device((
+        dc_arrays[0], ac_arrays[0], dc_arrays[1], ac_arrays[1],
+        dc_arrays[2], ac_arrays[2], ey_idx, ey_val, eb_idx, eb_val,
+        er_idx, er_val, qt_in, qt_out, wv_y, wh_y, wv_c, wh_c, vidx,
+    ), device)
+    flat = to_host(transcode_i8(*args, *block_dims, k=k), device)
+    return split_yuv(flat, obh, obw, block=8)
 
 
 def resample_rgb_jpeg_batch(imgs_flat, weights, vidx, hidx, qt_out,

@@ -10,6 +10,8 @@ the same weight stacks.
 - filter kernels, :func:`resample_weights`, :func:`padded_weights`,
   :func:`fit_within`, :func:`target_dimensions` (``ops/resize.py:43-215,275``);
 - :func:`idct_basis`, :func:`idct_basis_k`, :func:`quality_tables`, the
+  full-path chroma weights :func:`combined_chroma_weights` /
+  :func:`combined_chroma_half_weights` (``ops/dct.py:125-163,271``), the
   truncated-path weights and their folding (``ops/dct.py:39-178,371-463``),
   ``LOWFREQ_ESC_Y/C`` (``ops/dct.py:612``);
 - :func:`host_encode_rgb_to_coefficients` (``ops/dct.py:1864``), which makes
@@ -302,6 +304,71 @@ def _upsample_weights_impl(half: int, full: int) -> np.ndarray:
 
 def upsample_weights(half, full):
     return _chroma_cached(("up", half, full), lambda: _upsample_weights_impl(half, full))
+
+
+def _combined_chroma_weights_impl(
+    chroma_true: int,
+    full_true: int,
+    out_true: int,
+    chroma_bucket: int,
+    out_bucket: int,
+    filter_name: str = "lanczos3",
+) -> np.ndarray:
+    """One (out_bucket, chroma_bucket) matrix = resize(full->out) ∘
+    upsample(chroma->full), zero-padded to bucket shape
+    (``ops/dct.py:125``)."""
+    W = resample_weights(full_true, out_true, filter_name)  # (out, full)
+    U = upsample_weights(chroma_true, full_true)  # (full, chroma)
+    C = (W @ U).astype(np.float32)  # (out, chroma)
+    out = np.zeros((out_bucket, chroma_bucket), np.float32)
+    out[:out_true, :chroma_true] = C
+    return out
+
+
+def combined_chroma_weights(chroma_true, full_true, out_true, chroma_bucket,
+                            out_bucket, filter_name="lanczos3"):
+    """Chroma to FULL output resolution, for the RGB-output head
+    (``ops/dct.py:149``)."""
+    key = ("cc", chroma_true, full_true, out_true, chroma_bucket, out_bucket, filter_name)
+    return _chroma_cached(key, lambda: _combined_chroma_weights_impl(
+        chroma_true, full_true, out_true, chroma_bucket, out_bucket, filter_name))
+
+
+def _combined_chroma_half_weights_impl(
+    chroma_true: int,
+    full_true: int,
+    out_true: int,
+    chroma_bucket: int,
+    out_half_bucket: int,
+    filter_name: str = "lanczos3",
+) -> np.ndarray:
+    """One (out_half_bucket, chroma_bucket) matrix = 2x box-subsample ∘
+    resize(full->out) ∘ upsample(chroma->full): source half resolution
+    straight to target half resolution; an odd target dimension pairs the
+    final row with itself (``ops/dct.py:271``)."""
+    W = resample_weights(full_true, out_true, filter_name)  # (out, full)
+    U = upsample_weights(chroma_true, full_true)  # (full, chroma)
+    half = (out_true + 1) // 2
+    S = np.zeros((half, out_true), np.float32)
+    for i in range(half):
+        S[i, 2 * i] += 0.5
+        S[i, min(2 * i + 1, out_true - 1)] += 0.5
+    C = (S @ W @ U).astype(np.float32)  # (half, chroma)
+    out = np.zeros((out_half_bucket, chroma_bucket), np.float32)
+    out[:half, :chroma_true] = C
+    return out
+
+
+def combined_chroma_half_weights(chroma_true, full_true, out_true,
+                                 chroma_bucket, out_half_bucket,
+                                 filter_name="lanczos3"):
+    """Chroma to HALF output resolution, for the k=8 YUV/jxc fronts
+    (``ops/dct.py:156``)."""
+    key = ("cch", chroma_true, full_true, out_true, chroma_bucket,
+           out_half_bucket, filter_name)
+    return _chroma_cached(key, lambda: _combined_chroma_half_weights_impl(
+        chroma_true, full_true, out_true, chroma_bucket, out_half_bucket,
+        filter_name))
 
 
 def lowfreq_chroma_half_weights(chroma_true, full_true, out_true,

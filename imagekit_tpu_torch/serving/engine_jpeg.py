@@ -1,14 +1,25 @@
-"""JPEG-coefficient head: host entropy decode -> K1 on the card -> VP8.
+"""JPEG-coefficient head: host entropy decode -> the card -> host encode.
 
 Counterpart of ``imagekit_tpu/serving/engine_jpeg.py:39-195,217-612`` for
-the slice the port serves: a 4:2:0 (or grayscale) JPEG source, a resize,
-WebP output, a truncated decode (k = 2 or 4) on the split-int8 transport.
-The C++ Huffman decoder keeps each block's k×k low-frequency levels, the
-batch arrays are packed exactly as the reference packs them, the folded
-weight stacks live on the device, and one call of
-:func:`imagekit_tpu_torch.ops.dct.decode_resize_yuv_lowfreq_i8_batch`
-(three K1 launches on CUDA) produces the packed studio-range planes that
-the host VP8 encoder takes. Every other request raises
+the kinds the port serves, from a 4:2:0 (or grayscale) JPEG source with a
+resize:
+
+- ``"yuv"``, WebP output, truncated decode (k = 2 or 4) on the split-int8
+  transport: one call of
+  :func:`imagekit_tpu_torch.ops.dct.decode_resize_yuv_lowfreq_i8_batch`
+  (three K1 launches on CUDA) -> studio-range planes -> host VP8 encode;
+- ``"jxc"``, JPEG output (the JPEG -> JPEG transcode), k = 2, 4 or 8 on the
+  split-int8 transport: one call of
+  :func:`imagekit_tpu_torch.ops.dct.transcode_i8_batch` (three K1 launches
+  with the centred epilogue for k < 8) -> int16 target levels -> host
+  Huffman encode;
+- ``"rgb"``, a jxc item whose escapes overflow the split transport: it is
+  decoded again in full int16 and demoted to the RGB-output head,
+  :func:`imagekit_tpu_torch.ops.dct.decode_resize_rgb_batch` (three K3
+  launches on CUDA) -> RGB -> host JPEG encode.
+
+The C++ Huffman decoder and the batch layouts are the reference's, and the
+weight stacks live on the device. Every other request raises
 :class:`~imagekit_tpu_torch.errors.NotPortedError`.
 """
 
@@ -25,23 +36,29 @@ from imagekit_tpu.config import ImageFormat
 from imagekit_tpu.errors import TransformError
 from imagekit_tpu.utils.bucketing import batch_bucket, bucket_for
 from imagekit_tpu_torch.errors import NotPortedError
-from imagekit_tpu_torch.ops.dct import decode_resize_yuv_lowfreq_i8_batch
+from imagekit_tpu_torch.ops.dct import (
+    decode_resize_rgb_batch,
+    decode_resize_yuv_lowfreq_i8_batch,
+    transcode_i8_batch,
+)
+from imagekit_tpu_torch.ops.resize_strip import band_table
 from imagekit_tpu_torch.ops.weights import (
-    LOWFREQ_ESC_C,
-    LOWFREQ_ESC_Y,
+    combined_chroma_half_weights,
+    combined_chroma_weights,
     fold_lowfreq_weights,
+    host_encode_rgb_to_coefficients,
     lowfreq_chroma_half_weights,
     lowfreq_luma_weights,
-    pad128,
+    quality_tables,
     target_dimensions,
 )
 from imagekit_tpu_torch.serving import jpeg_transport as _jt
-from imagekit_tpu_torch.serving.batch_types import _settle
+from imagekit_tpu_torch.serving.batch_types import _cached_weights, _settle
 from imagekit_tpu_torch.serving.jpeg_transport import (
-    _esc_batch_rows,
     _GrayAs420,
     _JpegItem,
-    _pad_esc,
+    _pack_int16,
+    _pack_split,
 )
 
 
@@ -56,7 +73,11 @@ class JpegPathMixin:
     ) -> bytes:
         from imagekit_tpu.codecs.native import jpeg_abi, loader
 
-        if fmt != ImageFormat.webp:
+        if fmt == ImageFormat.webp:
+            kind = "yuv"
+        elif fmt == ImageFormat.jpeg:
+            kind = "jxc"
+        else:
             raise NotPortedError(
                 f"JPEG -> {fmt.value} output", "queue 1 item 7"
             )
@@ -88,9 +109,9 @@ class JpegPathMixin:
             raise NotPortedError(
                 "an image beyond the bucket ladder", "queue 1 item 11"
             ) from None
-        if k == 8:
+        if k == 8 and kind == "yuv":
             raise NotPortedError(
-                "a downscale under 2x (the k=8 head)", "queue 1 item 7"
+                "a downscale under 2x to WebP (the k=8 head)", "queue 1 item 7"
             )
 
         def entropy_decode():
@@ -98,27 +119,39 @@ class JpegPathMixin:
                 hdr2, dc, ac, esc, qt, ovf = jpeg_abi.decode_lowfreq_i8(
                     lib, data, k, pre_hdr
                 )
+                if not ovf and _jt._esc_within_image_budget(esc):
+                    return hdr2, None, (dc, ac, esc), qt
+                if kind != "jxc":
+                    raise NotPortedError(
+                        "a WebP output over the escape budget (the int16 "
+                        "lowfreq head)", "queue 1 item 7",
+                    )
+                # the transcode is split-only: a demoted jxc item needs the
+                # full int16 decode for the RGB head
+                h3, ck, qt = jpeg_abi.decode(lib, data)
+                return h3, ck, None, qt
             except jpeg_abi.NativeJpegError as e:
                 raise _decode_error(e) from e
-            if ovf or not _jt._esc_within_image_budget(esc):
-                raise NotPortedError(
-                    "an image over the escape budget (the int16 head)",
-                    "queue 1 item 7",
-                )
-            return hdr2, (dc, ac, esc), qt
 
-        hdr, split, qtabs = await self._pool_run(
+        hdr, coeffs, split, qtabs = await self._pool_run(
             "entropy_decode", entropy_decode
         )
+        if kind == "jxc" and split is None:
+            kind, k = "rgb", 8
         if hdr.ncomp == 1:
             # grayscale: zero chroma planes at 4:2:0 geometry; zero blocks
             # dequantise to zero under any table, so the chroma slot reuses
             # the luma's table
-            dc, ac, esc = split
-            by, bx = dc[0].shape
-            dz = np.zeros(((by + 1) // 2, (bx + 1) // 2), np.int16)
-            az = np.zeros(((by + 1) // 2, (bx + 1) // 2, k * k - 1), np.int8)
-            split = ([dc[0], dz, dz], [ac[0], az, az], esc)
+            by, bx = (coeffs[0] if split is None else split[0][0]).shape[:2]
+            cy, cx = (by + 1) // 2, (bx + 1) // 2
+            if split is not None:
+                dc, ac, esc = split
+                dz = np.zeros((cy, cx), np.int16)
+                az = np.zeros((cy, cx, k * k - 1), np.int8)
+                split = ([dc[0], dz, dz], [ac[0], az, az], esc)
+            else:
+                cz = np.zeros((cy, cx, 64), np.int16)
+                coeffs = [coeffs[0], cz, cz]
             qtabs = np.stack([qtabs[hdr.comp_tq[0]], qtabs[hdr.comp_tq[0]]])
             hdr = _GrayAs420(hdr)
         elif (
@@ -136,7 +169,7 @@ class JpegPathMixin:
             qtabs = np.stack([qtabs[hdr.comp_tq[0]], qtabs[hdr.comp_tq[1]]])
 
         out_w, out_h = target_dimensions(hdr.width, hdr.height, w, h)
-        by_y, bx_y = split[0][0].shape
+        by_y, bx_y = (coeffs if split is None else split[0])[0].shape[:2]
         try:
             yb_h, yb_w = bucket_for(by_y * 8), bucket_for(bx_y * 8)
             obh, obw = bucket_for(out_h), bucket_for(out_w)
@@ -151,9 +184,12 @@ class JpegPathMixin:
 
         fut: asyncio.Future = loop.create_future()
         item = _JpegItem(
-            hdr, qtabs, out_h, out_w, fmt, quality, fut, k=k, split=split
+            hdr, qtabs, out_h, out_w, fmt, quality, fut, k=k, split=split,
+            coeffs=coeffs,
         )
-        key = (yb_h, yb_w, obh, obw, "yuv", k, True)
+        # the transport tag keeps split and int16 items in separate queues,
+        # so that every flushed batch is homogeneous
+        key = (yb_h, yb_w, obh, obw, kind, k, split is not None)
         queue = self._jqueues.setdefault(key, [])
         queue.append(item)
         self.metrics.queue_depth = self._total_queued()
@@ -183,13 +219,11 @@ class JpegPathMixin:
 
     async def _flush_jpeg_group(self, key, items) -> None:
         loop = asyncio.get_running_loop()
-        yb_h, yb_w, obh, obw, _kind, k, _t8 = key
-        by_b, bx_b = yb_h // 8, yb_w // 8
-        cy_b, cx_b = yb_h // 16, yb_w // 16
-        na = k * k - 1
+        yb_h, yb_w, obh, obw, kind, k, t8 = key
+        block_dims = (yb_h // 8, yb_w // 8, yb_h // 16, yb_w // 16)
         try:
             t0 = time.perf_counter()
-            if not _jt._esc_within_batch_budget(items):
+            if t8 and not _jt._esc_within_batch_budget(items):
                 # combined escapes exceed the head's static caps; each item
                 # fits alone (enqueue gate), so split until every part fits
                 mid = len(items) // 2
@@ -199,18 +233,13 @@ class JpegPathMixin:
                 )
                 return
             nb = batch_bucket(len(items), self.max_batch)
-            # split transport, PLANAR AC layout (weights.lowfreq_ac_width):
-            # one 128-aligned slice per coefficient plane
-            pads = (pad128(bx_b), pad128(cx_b))
-            y_dc = np.zeros((nb, by_b, pads[0]), np.int16)
-            cb_dc = np.zeros((nb, cy_b, pads[1]), np.int16)
-            y_ac = np.zeros((nb, by_b, na * pads[0]), np.int8)
-            cb_ac = np.zeros((nb, cy_b, na * pads[1]), np.int8)
-            cr_dc = np.zeros_like(cb_dc)
-            cr_ac = np.zeros_like(cb_ac)
-            esc_idx: list = [[], [], []]
-            esc_val: list = [[], [], []]
+            if t8:
+                dcs, acs, escs = _pack_split(items, nb, *block_dims, k)
+            else:
+                planes = _pack_int16(items, nb, *block_dims)
             qt = np.zeros((nb, 128), np.float32)
+            # transcode batches also carry per-image OUTPUT quant tables
+            qto = np.zeros((nb, 128), np.float32) if kind == "jxc" else None
             # canonical (sorted) unique-geometry indexing: groups holding the
             # same SET of geometries share one device-resident weight stack
             u_keys: Dict[Tuple[int, int, int, int], int] = {
@@ -226,78 +255,94 @@ class JpegPathMixin:
             }
             vidx = np.zeros(nb, np.int32)
             for i, it in enumerate(items):
-                dc, ac, esc = it.split
-                byi, bxi = dc[0].shape
-                cyi, cxi = dc[1].shape
-                y_dc[i, :byi, :bxi] = dc[0]
-                cb_dc[i, :cyi, :cxi] = dc[1]
-                cr_dc[i, :cyi, :cxi] = dc[2]
-                for j in range(na):
-                    y_ac[i, :byi, j * pads[0] : j * pads[0] + bxi] = ac[0][:, :, j]
-                    cb_ac[i, :cyi, j * pads[1] : j * pads[1] + cxi] = ac[1][:, :, j]
-                    cr_ac[i, :cyi, j * pads[1] : j * pads[1] + cxi] = ac[2][:, :, j]
-                if len(esc):
-                    for c, (ei, ev) in enumerate(
-                        _esc_batch_rows(esc, i, bxi, cxi, na, pads)
-                    ):
-                        esc_idx[c].append(ei)
-                        esc_val[c].append(ev)
                 qt[i, :64] = it.qtabs[0]
                 qt[i, 64:] = it.qtabs[1]
+                if kind == "jxc":
+                    qto[i, :64], qto[i, 64:] = quality_tables(it.quality)
                 vidx[i] = u_keys[(it.hdr.width, it.hdr.height, it.out_w, it.out_h)]
-            weights = self._folded_weights(key, items, u_keys)
-            ey = _pad_esc(esc_idx[0], esc_val[0], LOWFREQ_ESC_Y)
-            eb = _pad_esc(esc_idx[1], esc_val[1], LOWFREQ_ESC_C)
-            er = _pad_esc(esc_idx[2], esc_val[2], LOWFREQ_ESC_C)
+            weights, bands = self._jpeg_weights(key, items, u_keys)
             t1 = time.perf_counter()
 
             def device_step():
                 with self._placement() as put:
-                    return decode_resize_yuv_lowfreq_i8_batch(
-                        (put(y_dc), put(cb_dc), put(cr_dc)),
-                        (put(y_ac), put(cb_ac), put(cr_ac)),
-                        tuple((put(i_), put(v_)) for i_, v_ in (ey, eb, er)),
+                    if kind == "rgb":
+                        return decode_resize_rgb_batch(
+                            *(put(p) for p in planes), put(qt), weights,
+                            put(vidx), block_dims, (obh, obw), bands=bands,
+                            device=self.device,
+                        )
+                    split = (
+                        tuple(put(a) for a in dcs),
+                        tuple(put(a) for a in acs),
+                        tuple((put(i_), put(v_)) for i_, v_ in escs),
                         put(qt),
-                        weights,
-                        put(vidx),
-                        (by_b, bx_b, cy_b, cx_b),
-                        (obh, obw),
-                        k,
-                        device=self.device,
+                    )
+                    if kind == "jxc":
+                        return transcode_i8_batch(
+                            *split, put(qto), weights, put(vidx),
+                            block_dims, (obh, obw), k, device=self.device,
+                        )
+                    return decode_resize_yuv_lowfreq_i8_batch(
+                        *split, weights, put(vidx), block_dims, (obh, obw),
+                        k, device=self.device,
                     )
 
             self._inflight += 1
             try:
-                yb, cbb, crb = await loop.run_in_executor(
-                    self._device_pool, device_step
-                )
+                out = await loop.run_in_executor(self._device_pool, device_step)
             finally:
                 self._inflight -= 1
             t2 = time.perf_counter()
             self.metrics.add_stage_time("batch_build", t1 - t0)
             self.metrics.add_stage_time("device_decode_resize", t2 - t1)
             self.metrics.record_batch(len(items))
-
-            async def finish(i: int, it) -> None:
-                ch = (it.out_h + 1) // 2
-                cw = (it.out_w + 1) // 2
-                await _settle(it, self._encode_yuv(
-                    yb[i, : it.out_h, : it.out_w],
-                    cbb[i, :ch, :cw],
-                    crb[i, :ch, :cw],
-                    it.quality,
-                ))
-
-            await asyncio.gather(*(finish(i, it) for i, it in enumerate(items)))
+            finish = {"yuv": self._finish_jpeg_yuv, "jxc": self._finish_jpg,
+                      "rgb": self._finish_rgb_jpeg}[kind]
+            await asyncio.gather(
+                *(finish(out, i, it) for i, it in enumerate(items)))
         except Exception as e:  # noqa: BLE001 - every waiter gets the error
             for it in items:
                 if not it.future.done():
                     it.future.set_exception(e)
 
-    def _folded_weights(self, key, items, u_keys):
-        """The (U, k, O, nblk) folded weight stacks for this set of
-        geometries, kept on the engine's device across batches."""
-        yb_h, yb_w, obh, obw, _kind, k, _t8 = key
+    async def _finish_jpeg_yuv(self, out, i: int, it) -> None:
+        yb, cbb, crb = out
+        ch = (it.out_h + 1) // 2
+        cw = (it.out_w + 1) // 2
+        await _settle(it, self._encode_yuv(
+            yb[i, : it.out_h, : it.out_w], cbb[i, :ch, :cw], crb[i, :ch, :cw],
+            it.quality,
+        ))
+
+    async def _finish_rgb_jpeg(self, out, i: int, it) -> None:
+        """Crop the RGB head's output and encode it as JPEG: the reference's
+        ``encode_bytes`` JPEG arm (``codecs/__init__.py:204-219``, quality
+        clamped to [1, 100]) through ``codecs/jpeg.py:53-63``, with the
+        numpy fDCT mirror it uses for cold shapes (``dct.py:1824``)."""
+        from imagekit_tpu.codecs.native import loader
+
+        img = np.ascontiguousarray(out[i, : it.out_h, : it.out_w])
+        q = int(min(max(it.quality, 1), 100))
+
+        def run():
+            planes, qtabs = host_encode_rgb_to_coefficients(img, q)
+            return loader.encode_jpeg(planes, qtabs, img.shape[1], img.shape[0])
+
+        await _settle(it, self._pool_run("encode", run))
+
+    def _jpeg_weights(self, key, items, u_keys):
+        """The weight stacks for this set of geometries, kept on the
+        engine's device across batches (``engine_jpeg.py:366-452``), and
+        for the RGB head their band tables (else None):
+
+        - k < 8: (U, k, O, nblk) folded lowfreq stacks;
+        - k = 8: full-resolution luma stacks, and chroma to HALF output
+          resolution (``"jxc"``) or to FULL output resolution (``"rgb"``).
+
+        For ``"jxc"`` the rows past the true output replicate the last true
+        row up to the MCU grid (the staged encoder's ``np.pad(mode="edge")``),
+        before folding."""
+        yb_h, yb_w, obh, obw, kind, k, _t8 = key
         nu = self.MAX_UNIQUE
         wkey = (key, nu, tuple(sorted(u_keys)))
         cached = self._dweights.get(wkey)
@@ -309,25 +354,60 @@ class JpegPathMixin:
             chroma_dims.setdefault(
                 ukey, (it.hdr.comp_height[1], it.hdr.comp_width[1])
             )
-        ly, lx = yb_h * k // 8, yb_w * k // 8
-        wv_y = np.zeros((nu, obh, ly), np.float32)
-        wh_y = np.zeros((nu, obw, lx), np.float32)
-        wv_c = np.zeros((nu, obh // 2, ly // 2), np.float32)
-        wh_c = np.zeros((nu, obw // 2, lx // 2), np.float32)
+        if k < 8:
+            ly, lx = yb_h * k // 8, yb_w * k // 8
+            dims = ((obh, ly), (obw, lx), (obh // 2, ly // 2),
+                    (obw // 2, lx // 2))
+        else:
+            c_obh = obh if kind == "rgb" else obh // 2
+            c_obw = obw if kind == "rgb" else obw // 2
+            dims = ((obh, yb_h), (obw, yb_w), (c_obh, yb_h // 2),
+                    (c_obw, yb_w // 2))
+        wv_y, wh_y, wv_c, wh_c = (np.zeros((nu,) + d, np.float32)
+                                  for d in dims)
         for (iw, ih, ow_, oh_), u in u_keys.items():
             c_h, c_w = chroma_dims[(iw, ih, ow_, oh_)]
-            wv_y[u] = lowfreq_luma_weights(ih, oh_, k, yb_h * k // 8, obh)
-            wh_y[u] = lowfreq_luma_weights(iw, ow_, k, yb_w * k // 8, obw)
-            wv_c[u] = lowfreq_chroma_half_weights(
-                c_h, ih, oh_, yb_h * k // 16, obh // 2, k
-            )
-            wh_c[u] = lowfreq_chroma_half_weights(
-                c_w, iw, ow_, yb_w * k // 16, obw // 2, k
-            )
-        cached = tuple(
-            torch.from_numpy(fold_lowfreq_weights(w_, k)).to(self.device)
-            for w_ in (wv_y, wh_y, wv_c, wh_c)
-        )
+            if k < 8:
+                wv_y[u] = lowfreq_luma_weights(ih, oh_, k, yb_h * k // 8, obh)
+                wh_y[u] = lowfreq_luma_weights(iw, ow_, k, yb_w * k // 8, obw)
+                wv_c[u] = lowfreq_chroma_half_weights(
+                    c_h, ih, oh_, yb_h * k // 16, obh // 2, k
+                )
+                wh_c[u] = lowfreq_chroma_half_weights(
+                    c_w, iw, ow_, yb_w * k // 16, obw // 2, k
+                )
+                continue
+            wv_y[u] = _cached_weights(ih, oh_, yb_h, obh)
+            wh_y[u] = _cached_weights(iw, ow_, yb_w, obw)
+            if kind == "rgb":
+                wv_c[u] = combined_chroma_weights(c_h, ih, oh_, yb_h // 2, obh)
+                wh_c[u] = combined_chroma_weights(c_w, iw, ow_, yb_w // 2, obw)
+            else:
+                wv_c[u] = combined_chroma_half_weights(
+                    c_h, ih, oh_, yb_h // 2, obh // 2
+                )
+                wh_c[u] = combined_chroma_half_weights(
+                    c_w, iw, ow_, yb_w // 2, obw // 2
+                )
+        if kind == "jxc":
+            for (iw, ih, ow_, oh_), u in u_keys.items():
+                m_h = min((oh_ + 15) // 16 * 16, obh)
+                m_w = min((ow_ + 15) // 16 * 16, obw)
+                wv_y[u, oh_:m_h] = wv_y[u, oh_ - 1]
+                wh_y[u, ow_:m_w] = wh_y[u, ow_ - 1]
+                ch_t = (oh_ + 1) // 2
+                cw_t = (ow_ + 1) // 2
+                wv_c[u, ch_t: m_h // 2] = wv_c[u, ch_t - 1]
+                wh_c[u, cw_t: m_w // 2] = wh_c[u, cw_t - 1]
+        stacks = [wv_y, wh_y, wv_c, wh_c]
+        if k < 8:
+            # folding acts on the column axis only, so the replicated
+            # OUTPUT rows stay valid
+            stacks = [fold_lowfreq_weights(w_, k) for w_ in stacks]
+        stacks = [torch.from_numpy(w_) for w_ in stacks]
+        bands = (tuple(band_table(s).to(self.device) for s in stacks)
+                 if kind == "rgb" else None)
+        cached = (tuple(s.to(self.device) for s in stacks), bands)
         self._dweights.put(wkey, cached)
         return cached
 

@@ -1,9 +1,12 @@
 """JPEG coefficient-transport packing (split-int8 escape budgeting).
 
 Counterpart of ``imagekit_tpu/serving/jpeg_transport.py``: the JPEG queue
-item, the escape budgets of the split-int8 head, and the scatter-row
-layout. The int16 demotion (``_widen_items``) is not ported: a batch over
-the escape caps is split in halves instead (``engine_jpeg``).
+item, the escape budgets of the split-int8 head, the scatter-row layout,
+and the batch packing of both transports (``engine_jpeg.py:285-358``). The
+batch-level int16 widening (``_widen_items``) is not ported: a batch over
+the escape caps is split in halves instead (``engine_jpeg``). An ITEM over
+the budget of a jxc request rides the int16 transport to the RGB head, as
+the reference's does.
 """
 
 from __future__ import annotations
@@ -11,12 +14,12 @@ from __future__ import annotations
 import asyncio
 import time
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 from imagekit_tpu.config import ImageFormat
-from imagekit_tpu_torch.ops.weights import LOWFREQ_ESC_C, LOWFREQ_ESC_Y
+from imagekit_tpu_torch.ops.weights import LOWFREQ_ESC_C, LOWFREQ_ESC_Y, pad128
 
 
 class _GrayAs420:
@@ -53,8 +56,11 @@ class _JpegItem:
     future: asyncio.Future
     k: int
     # split int8 transport: (dc_planes, ac_planes, esc) per
-    # jpeg_abi.decode_lowfreq_i8
-    split: tuple
+    # jpeg_abi.decode_lowfreq_i8; None for an item on the int16 transport
+    split: Optional[tuple]
+    # int16 transport: the (blocks_h, blocks_w, 64) level planes of a
+    # demoted item per jpeg_abi.decode; None on the split transport
+    coeffs: Optional[List[np.ndarray]] = None
     enqueued: float = field(default_factory=time.perf_counter)
 
 
@@ -124,3 +130,68 @@ def _pad_esc(idx_parts, val_parts, cap: int):
         ei[: len(idx)] = idx
         ev[: len(val)] = val
     return ei, ev
+
+
+def _pack_split(items, nb: int, by_b: int, bx_b: int, cy_b: int, cx_b: int,
+                k: int):
+    """Split-int8 batch arrays: ((y, cb, cr) i16 DC, (y, cb, cr) i8 AC,
+    three padded escape lists). The AC layout is PLANAR for k < 8 (one
+    128-aligned slice per coefficient plane) and block-grouped for k = 8
+    (``engine_jpeg.py:285-352``)."""
+    na = k * k - 1
+    pads = (pad128(bx_b), pad128(cx_b)) if k < 8 else None
+    y_dc = np.zeros((nb, by_b, pad128(bx_b)), np.int16)
+    cb_dc = np.zeros((nb, cy_b, pad128(cx_b)), np.int16)
+    if k < 8:
+        y_ac = np.zeros((nb, by_b, na * pads[0]), np.int8)
+        cb_ac = np.zeros((nb, cy_b, na * pads[1]), np.int8)
+    else:
+        y_ac = np.zeros((nb, by_b, pad128(bx_b * na)), np.int8)
+        cb_ac = np.zeros((nb, cy_b, pad128(cx_b * na)), np.int8)
+    cr_dc = np.zeros_like(cb_dc)
+    cr_ac = np.zeros_like(cb_ac)
+    esc_idx: list = [[], [], []]
+    esc_val: list = [[], [], []]
+    for i, it in enumerate(items):
+        dc, ac, esc = it.split
+        byi, bxi = dc[0].shape
+        cyi, cxi = dc[1].shape
+        y_dc[i, :byi, :bxi] = dc[0]
+        cb_dc[i, :cyi, :cxi] = dc[1]
+        cr_dc[i, :cyi, :cxi] = dc[2]
+        if k < 8:
+            for j in range(na):
+                y_ac[i, :byi, j * pads[0]: j * pads[0] + bxi] = ac[0][:, :, j]
+                cb_ac[i, :cyi, j * pads[1]: j * pads[1] + cxi] = ac[1][:, :, j]
+                cr_ac[i, :cyi, j * pads[1]: j * pads[1] + cxi] = ac[2][:, :, j]
+        else:
+            y_ac[i, :byi, : bxi * na] = ac[0].reshape(byi, -1)
+            cb_ac[i, :cyi, : cxi * na] = ac[1].reshape(cyi, -1)
+            cr_ac[i, :cyi, : cxi * na] = ac[2].reshape(cyi, -1)
+        if len(esc):
+            for c, (ei, ev) in enumerate(
+                _esc_batch_rows(esc, i, bxi, cxi, na, pads)
+            ):
+                esc_idx[c].append(ei)
+                esc_val[c].append(ev)
+    escs = (
+        _pad_esc(esc_idx[0], esc_val[0], LOWFREQ_ESC_Y),
+        _pad_esc(esc_idx[1], esc_val[1], LOWFREQ_ESC_C),
+        _pad_esc(esc_idx[2], esc_val[2], LOWFREQ_ESC_C),
+    )
+    return (y_dc, cb_dc, cr_dc), (y_ac, cb_ac, cr_ac), escs
+
+
+def _pack_int16(items, nb: int, by_b: int, bx_b: int, cy_b: int, cx_b: int):
+    """int16 batch arrays of demoted k=8 items, block-grouped (B, by,
+    bx*64) (``engine_jpeg.py:300-304,353-358``)."""
+    y = np.zeros((nb, by_b, bx_b * 64), np.int16)
+    cb = np.zeros((nb, cy_b, cx_b * 64), np.int16)
+    cr = np.zeros((nb, cy_b, cx_b * 64), np.int16)
+    for i, it in enumerate(items):
+        byi, bxi = it.coeffs[0].shape[:2]
+        cyi, cxi = it.coeffs[1].shape[:2]
+        y[i, :byi, : bxi * 64] = it.coeffs[0].reshape(byi, -1)
+        cb[i, :cyi, : cxi * 64] = it.coeffs[1].reshape(cyi, -1)
+        cr[i, :cyi, : cxi * 64] = it.coeffs[2].reshape(cyi, -1)
+    return y, cb, cr

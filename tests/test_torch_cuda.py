@@ -288,3 +288,156 @@ def test_png_engine_on_card_matches_engine_on_cpu(monkeypatch, fmt):
             assert vp8.dimensions(out) == target_dimensions(960, 540, 200, None)
     for a, b in zip(*seen):
         assert_band(torch.from_numpy(a), torch.from_numpy(b))
+
+
+# -- K3 and K4 ---------------------------------------------------------------------
+
+# four (source w, h, target w, h) slots of the slice's bucket pair,
+# 1088x1920 -> 240x400: the RGB head's luma stacks and its chroma stacks to
+# FULL output resolution (544x960 -> 240x400)
+K3_GEOMS = [(1920, 1080, 400, 225), (1904, 1072, 397, 223),
+            (1888, 1064, 393, 222), (1872, 1056, 390, 220)]
+
+
+def _k3_stacks(plane: str):
+    from imagekit_tpu_torch.ops.weights import (
+        combined_chroma_weights,
+        padded_weights,
+    )
+
+    ih, iw = (1088, 1920) if plane == "luma" else (544, 960)
+    wv = np.zeros((4, 240, ih), np.float32)
+    wh = np.zeros((4, 400, iw), np.float32)
+    for u, (sw, sh, ow, oh) in enumerate(K3_GEOMS):
+        if plane == "luma":
+            wv[u] = padded_weights(sh, oh, ih, 240)
+            wh[u] = padded_weights(sw, ow, iw, 400)
+        else:
+            wv[u] = combined_chroma_weights((sh + 1) // 2, sh, oh, ih, 240)
+            wh[u] = combined_chroma_weights((sw + 1) // 2, sw, ow, iw, 400)
+    return wv, wh
+
+
+def _k3_planes(batch: int, ih: int, iw: int, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    x = np.linspace(0, 255, iw, dtype=np.float32)[None, None, :]
+    y = np.linspace(0, 255, ih, dtype=np.float32)[None, :, None]
+    img = 0.5 * (x + y) + rng.normal(0, 25, (batch, ih, iw))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+@needs_card
+@pytest.mark.parametrize("f32", [False, True], ids=["K3", "K4"])
+@pytest.mark.parametrize("plane", ["luma", "chroma"])
+@pytest.mark.parametrize("batch", [1, 32])
+def test_k3_k4_match_plain(batch, plane, f32):
+    """K3 (u8) and K4 (f32) against their plain versions at the demoted
+    head's shapes, four vidx slots."""
+    from imagekit_tpu_torch.ops import resize_planes as rp
+
+    wv, wh = _k3_stacks(plane)
+    planes = _k3_planes(batch, wv.shape[2], wh.shape[2], seed=batch)
+    x, wv, wh = to_port([planes, wv, wh], "cuda")
+    if f32:
+        x = x.float() + 0.25
+    vidx = torch.arange(batch, dtype=torch.int32, device="cuda") % 4
+    fn, plain = ((rp.resize_planes_f32, rp.resize_planes_f32_plain) if f32
+                 else (rp.resize_planes, rp.resize_planes_plain))
+    counter = "LAUNCHES_F32" if f32 else "LAUNCHES"
+    before = getattr(rp, counter)
+    got = fn(x, wv, wh, vidx)
+    torch.cuda.synchronize()
+    assert getattr(rp, counter) == before + 1
+    want = plain(x, wv, wh, vidx)
+    assert got.dtype == want.dtype and got.shape == (batch, 240, 400)
+    if f32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=255e-5)
+    else:
+        assert_band(got, want)
+        assert 0.2 < float(((got > 0) & (got < 255)).float().mean())
+
+
+def block_edge_image(seed: int, w: int, h: int) -> np.ndarray:
+    """Escape-dense content: each 8x8 block holds a hard edge between two
+    random colours, so its lowest AC levels pass int8 at q100."""
+    rng = np.random.default_rng(seed)
+    by, bx = h // 8, w // 8
+    a = rng.integers(0, 256, (by, bx, 1, 1, 3))
+    b = rng.integers(0, 256, (by, bx, 1, 1, 3))
+    left = (np.arange(8) < 4)[None, None, None, :, None]
+    blk = np.broadcast_to(np.where(left, a, b), (by, bx, 8, 8, 3)).copy()
+    flip = rng.random((by, bx)) < 0.5
+    blk[flip] = blk[flip].transpose(0, 2, 1, 3)
+    img = blk.transpose(0, 2, 1, 3, 4).reshape(h, w, 3)
+    return np.clip(img + rng.normal(0, 8, img.shape), 0, 255).astype(np.uint8)
+
+
+def native_jpeg(img: np.ndarray, quality: int) -> bytes:
+    """A JPEG without Pillow: the port's numpy fDCT + the native encoder."""
+    from imagekit_tpu.codecs.native import loader
+    from imagekit_tpu_torch.ops.weights import host_encode_rgb_to_coefficients
+
+    planes, qt = host_encode_rgb_to_coefficients(img, quality)
+    return loader.encode_jpeg(planes, qt, img.shape[1], img.shape[0])
+
+
+@needs_card
+@pytest.mark.parametrize("case", ["jxc_k2", "jxc_k8", "demoted"])
+def test_jpeg_to_jpeg_engine_on_card_matches_engine_on_cpu(monkeypatch, case):
+    """One JPEG -> JPEG batch through BatchedEngine on the card and on the
+    CPU: a jxc batch (K1, centred epilogue, three launches at k=2), a k=8
+    one, and an escape-dense source demoted to the RGB head (three K3
+    launches). Levels handed to the encoder within the band; the demoted
+    RGB within +-2 (a chroma step times the 1.772 of the matrix)."""
+    from imagekit_tpu.codecs.native import jpeg_abi, loader
+    from imagekit_tpu.config import ImageFormat, ImageKitConfig
+    from imagekit_tpu.serving.metrics import Metrics
+    from imagekit_tpu_torch.ops import resize_planes as rp
+    from imagekit_tpu_torch.serving import engine_jpeg
+    from imagekit_tpu_torch.serving.batcher import BatchedEngine
+
+    if case == "demoted":
+        data, w, size = native_jpeg(block_edge_image(1, 640, 480), 100), 240, (240, 180)
+    else:
+        x = np.linspace(0, 255, 1280, dtype=np.float32)[None, :, None]
+        y = np.linspace(0, 255, 720, dtype=np.float32)[:, None, None]
+        rng = np.random.default_rng(4)
+        img = np.clip(0.5 * (x + y) + rng.normal(0, 10, (720, 1280, 3)), 0, 255)
+        w = 256 if case == "jxc_k2" else 960
+        data, size = native_jpeg(img.astype(np.uint8), 85), (w, w * 9 // 16)
+    levels, rgb = [], []
+    real_jpeg, real_rgb = loader.encode_jpeg, engine_jpeg.decode_resize_rgb_batch
+
+    def rec_jpeg(planes, qtabs, width, height):
+        levels.append(tuple(np.array(p) for p in planes))
+        return real_jpeg(planes, qtabs, width, height)
+
+    def rec_rgb(*args, **kw):
+        rgb.append(real_rgb(*args, **kw))
+        return rgb[-1]
+
+    monkeypatch.setattr(loader, "encode_jpeg", rec_jpeg)
+    monkeypatch.setattr(engine_jpeg, "decode_resize_rgb_batch", rec_rgb)
+    for device in ("cuda", "cpu"):
+        engine = BatchedEngine(ImageKitConfig(secret="s"), metrics=Metrics(),
+                               device=device)
+
+        async def run():
+            try:
+                return await engine.transform(data, w, None, ImageFormat.jpeg, 80)
+            finally:
+                await engine.close()
+
+        k1, k3 = jpeg8.LAUNCHES, rp.LAUNCHES
+        out = asyncio.run(run())
+        on_card = device == "cuda"
+        assert jpeg8.LAUNCHES - k1 == (3 if on_card and case == "jxc_k2" else 0)
+        assert rp.LAUNCHES - k3 == (3 if on_card and case == "demoted" else 0)
+        hdr = jpeg_abi.parse(loader.load(), out)
+        assert (hdr.width, hdr.height) == size
+    assert len(rgb) == (2 if case == "demoted" else 0)
+    if rgb:
+        d = np.abs(rgb[0].astype(np.int32) - rgb[1].astype(np.int32))
+        assert d.max() <= 2 and (d > 0).mean() <= MAX_SHARE
+    for a, b in zip(*levels):
+        assert_band(torch.from_numpy(a), torch.from_numpy(b))

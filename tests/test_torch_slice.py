@@ -24,6 +24,7 @@ from aiohttp.test_utils import TestClient, TestServer
 
 from imagekit_tpu.cache import cloudflare_cache_headers
 from imagekit_tpu.codecs import vp8
+from imagekit_tpu.codecs.native import jpeg_abi, loader
 from imagekit_tpu.config import BatchConfig, ImageFormat, ImageKitConfig
 from imagekit_tpu.fetch import Fetcher, _BodyStream
 from imagekit_tpu.serving.metrics import Metrics
@@ -148,7 +149,8 @@ def test_cuda_device_is_never_implicit():
                                   "upscale_k8", "webp_src", "rgba_png"])
 def test_off_slice_requests_raise_not_ported(case):
     """Each request outside the ported slices raises NotPortedError naming
-    its ROADMAP item; an RGB PNG, once off the slice, is now served."""
+    its ROADMAP item; an RGB PNG and a JPEG to JPEG, once off the slice,
+    are now served."""
     img = make_test_image(320, 240)
     data, fmt, w = encode_jpeg_pil(img), ImageFormat.webp, 64
     if case == "png":
@@ -175,6 +177,10 @@ def test_off_slice_requests_raise_not_ported(case):
 
     if case == "png":
         assert vp8.dimensions(asyncio.run(run())) == (64, 48)
+        return
+    if case == "jpeg_out":
+        hdr = jpeg_abi.parse(loader.load(), asyncio.run(run()))
+        assert (hdr.width, hdr.height) == (64, 48)
         return
     with pytest.raises(NotPortedError, match="ROADMAP"):
         asyncio.run(run())
@@ -276,7 +282,7 @@ def test_http_sign_then_img_serves_webp_then_hits_cache(tmp_path):
 
 @pytest.mark.parametrize("params,status", [
     ({"url": BMP, "w": "64"}, 501),          # BMP source: not ported
-    ({"url": JPG, "w": "256", "f": "jpeg"}, 501),  # JPEG output: not ported
+    ({"url": JPG, "w": "256", "f": "jpeg"}, 200),  # JPEG -> JPEG: served
     ({"url": JPG}, 501),                      # no resize: not ported
     ({"url": JPG, "w": "256", "q": "0"}, 400),  # the reference's own 400
     ({"url": PNG, "w": "64"}, 200),          # RGB PNG source: served
@@ -288,7 +294,11 @@ def test_http_off_slice_answers_501(tmp_path, params, status):
         assert r.status == status, await r.text()
         if status == 501:
             assert "ROADMAP" in await r.text()
-        if status == 200:
+        if status == 200 and params.get("f") == "jpeg":
+            assert r.headers["Content-Type"] == "image/jpeg"
+            hdr = jpeg_abi.parse(loader.load(), await r.read())
+            assert (hdr.width, hdr.height) == (256, 144)
+        elif status == 200:
             assert r.headers["Content-Type"] == "image/webp"
             assert vp8.dimensions(await r.read()) == (64, 48)
         bad = await client.get("/img", params={**params, "sig": "0" * 64})

@@ -144,6 +144,7 @@ def test_port_imports_no_jax_and_no_reference_device_modules():
         import imagekit_tpu_torch.ops.dct
         import imagekit_tpu_torch.ops.jpeg8
         import imagekit_tpu_torch.ops.resize_strip
+        import imagekit_tpu_torch.ops.resize_planes
         import imagekit_tpu_torch.ops.color
         import imagekit_tpu_torch.ops._build
         import imagekit_tpu_torch.codecs.png
