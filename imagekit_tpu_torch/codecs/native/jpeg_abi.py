@@ -1,0 +1,332 @@
+"""ctypes ABI for the native JPEG entropy codec (jpeg_entropy.cpp)."""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import List, Tuple
+
+import numpy as np
+
+
+class IkJpegInfo(ctypes.Structure):
+    _fields_ = [
+        ("width", ctypes.c_int32),
+        ("height", ctypes.c_int32),
+        ("ncomp", ctypes.c_int32),
+        ("hmax", ctypes.c_int32),
+        ("vmax", ctypes.c_int32),
+        ("comp_h", ctypes.c_int32 * 4),
+        ("comp_v", ctypes.c_int32 * 4),
+        ("comp_width", ctypes.c_int32 * 4),
+        ("comp_height", ctypes.c_int32 * 4),
+        ("blocks_w", ctypes.c_int32 * 4),
+        ("blocks_h", ctypes.c_int32 * 4),
+        ("comp_tq", ctypes.c_int32 * 4),
+        ("progressive", ctypes.c_int32),
+    ]
+
+
+ERRORS = {
+    -1: "truncated",
+    -2: "bad marker",
+    -3: "unsupported (progressive/arithmetic/12-bit)",
+    -4: "bad huffman data",
+    -5: "bad dimensions",
+    -6: "internal error",
+    -7: "buffer too small",
+}
+
+
+class NativeJpegError(Exception):
+    def __init__(self, code: int):
+        super().__init__(ERRORS.get(code, f"error {code}"))
+        self.code = code
+
+
+def configure(lib: ctypes.CDLL) -> None:
+    lib.ik_jpeg_parse.argtypes = [
+        ctypes.c_char_p,
+        ctypes.c_size_t,
+        ctypes.POINTER(IkJpegInfo),
+    ]
+    lib.ik_jpeg_parse.restype = ctypes.c_int
+    lib.ik_jpeg_decode_planes.argtypes = [
+        ctypes.c_char_p,
+        ctypes.c_size_t,
+        ctypes.POINTER(ctypes.c_void_p),
+    ]
+    lib.ik_jpeg_decode_planes.restype = ctypes.c_int
+    lib.ik_jpeg_decode_coeffs.argtypes = [
+        ctypes.c_char_p,
+        ctypes.c_size_t,
+        ctypes.POINTER(ctypes.c_void_p),
+        ctypes.c_void_p,
+    ]
+    lib.ik_jpeg_decode_coeffs.restype = ctypes.c_int
+    if hasattr(lib, "ik_jpeg_decode_coeffs_lowfreq"):
+        lib.ik_jpeg_decode_coeffs_lowfreq.argtypes = [
+            ctypes.c_char_p,
+            ctypes.c_size_t,
+            ctypes.c_int,
+            ctypes.POINTER(ctypes.c_void_p),
+            ctypes.c_void_p,
+        ]
+        lib.ik_jpeg_decode_coeffs_lowfreq.restype = ctypes.c_int
+    if hasattr(lib, "ik_jpeg_decode_coeffs_lowfreq_i8"):
+        lib.ik_jpeg_decode_coeffs_lowfreq_i8.argtypes = [
+            ctypes.c_char_p,
+            ctypes.c_size_t,
+            ctypes.c_int,
+            ctypes.POINTER(ctypes.c_void_p),  # dc planes (i16*)
+            ctypes.POINTER(ctypes.c_void_p),  # ac planes (i8*)
+            ctypes.c_void_p,                  # esc (i32*, cap x 3)
+            ctypes.c_int32,                   # esc_cap
+            ctypes.c_void_p,                  # esc_count (i32*)
+            ctypes.c_void_p,                  # qtabs_out
+        ]
+        lib.ik_jpeg_decode_coeffs_lowfreq_i8.restype = ctypes.c_int
+    lib.ik_jpeg_encode.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p),  # coeff planes
+        ctypes.c_int,                      # ncomp
+        ctypes.c_int,                      # width
+        ctypes.c_int,                      # height
+        ctypes.c_void_p,                   # samp_h (i32*)
+        ctypes.c_void_p,                   # samp_v (i32*)
+        ctypes.c_void_p,                   # qtab_luma (u16*)
+        ctypes.c_void_p,                   # qtab_chroma (u16*)
+        ctypes.c_void_p,                   # out
+        ctypes.c_size_t,                   # out_cap
+    ]
+    lib.ik_jpeg_encode.restype = ctypes.c_int64
+    lib.ik_native_version.restype = ctypes.c_int
+
+
+@dataclass
+class JpegHeader:
+    width: int
+    height: int
+    ncomp: int
+    hmax: int
+    vmax: int
+    comp_h: Tuple[int, ...]
+    comp_v: Tuple[int, ...]
+    comp_width: Tuple[int, ...]
+    comp_height: Tuple[int, ...]
+    blocks_w: Tuple[int, ...]
+    blocks_h: Tuple[int, ...]
+    comp_tq: Tuple[int, ...]
+    progressive: bool
+
+
+def parse(lib: ctypes.CDLL, data: bytes) -> JpegHeader:
+    info = IkJpegInfo()
+    rc = lib.ik_jpeg_parse(data, len(data), ctypes.byref(info))
+    hdr = JpegHeader(
+        width=info.width,
+        height=info.height,
+        ncomp=info.ncomp,
+        hmax=info.hmax,
+        vmax=info.vmax,
+        comp_h=tuple(info.comp_h[: info.ncomp]),
+        comp_v=tuple(info.comp_v[: info.ncomp]),
+        comp_width=tuple(info.comp_width[: info.ncomp]),
+        comp_height=tuple(info.comp_height[: info.ncomp]),
+        blocks_w=tuple(info.blocks_w[: info.ncomp]),
+        blocks_h=tuple(info.blocks_h[: info.ncomp]),
+        comp_tq=tuple(info.comp_tq[: info.ncomp]),
+        progressive=bool(info.progressive),
+    )
+    if rc != 0:
+        raise NativeJpegError(rc)
+    return hdr
+
+
+def decode_planes(
+    lib: ctypes.CDLL, data: bytes
+) -> Tuple[JpegHeader, List[np.ndarray]]:
+    """Huffman decode + host IDCT into padded component sample planes.
+    Plane c has shape (blocks_h*8, blocks_w*8); the true samples occupy
+    [:comp_height, :comp_width]."""
+    hdr = parse(lib, data)
+    planes = [
+        np.empty((hdr.blocks_h[c] * 8, hdr.blocks_w[c] * 8), np.uint8)
+        for c in range(hdr.ncomp)
+    ]
+    # always 4 slots: the C side indexes store[0..3] (nullptr-padded)
+    ptrs = (ctypes.c_void_p * 4)(
+        *[p.ctypes.data_as(ctypes.c_void_p).value for p in planes]
+    )
+    rc = lib.ik_jpeg_decode_planes(data, len(data), ptrs)
+    if rc != 0:
+        raise NativeJpegError(rc)
+    return hdr, planes
+
+
+def decode(
+    lib: ctypes.CDLL, data: bytes
+) -> Tuple[JpegHeader, List[np.ndarray], np.ndarray]:
+    """Huffman decode to quantised coefficient planes (device does the
+    rest). Plane c has shape (blocks_h, blocks_w, 64) i16, natural order;
+    also returns the 4x64 quant-table array (natural order). Handles both
+    baseline and progressive scans (zero-initialised planes accumulate
+    progressive refinement passes)."""
+    hdr = parse(lib, data)
+    coeffs = [
+        np.zeros((hdr.blocks_h[c], hdr.blocks_w[c], 64), np.int16)
+        for c in range(hdr.ncomp)
+    ]
+    qtabs = np.empty((4, 64), np.uint16)
+    # always 4 slots: ik_jpeg_decode_coeffs populates store[0..3] before
+    # Parse() establishes ncomp, so a shorter array would be over-read
+    ptrs = (ctypes.c_void_p * 4)(
+        *[p.ctypes.data_as(ctypes.c_void_p).value for p in coeffs]
+    )
+    rc = lib.ik_jpeg_decode_coeffs(
+        data, len(data), ptrs, qtabs.ctypes.data_as(ctypes.c_void_p)
+    )
+    if rc != 0:
+        raise NativeJpegError(rc)
+    return hdr, coeffs, qtabs
+
+
+def decode_lowfreq(
+    lib: ctypes.CDLL, data: bytes, k: int, hdr: JpegHeader = None
+) -> Tuple[JpegHeader, List[np.ndarray], np.ndarray]:
+    """Entropy decode keeping only each block's KxK low-frequency
+    coefficients (scaled-IDCT thumbnail path): plane c is
+    (blocks_h, blocks_w, k*k) i16 natural order."""
+    if hdr is None:
+        hdr = parse(lib, data)
+    coeffs = [
+        np.zeros((hdr.blocks_h[c], hdr.blocks_w[c], k * k), np.int16)
+        for c in range(hdr.ncomp)
+    ]
+    qtabs = np.empty((4, 64), np.uint16)
+    ptrs = (ctypes.c_void_p * 4)(
+        *[p.ctypes.data_as(ctypes.c_void_p).value for p in coeffs]
+    )
+    rc = lib.ik_jpeg_decode_coeffs_lowfreq(
+        data, len(data), k, ptrs, qtabs.ctypes.data_as(ctypes.c_void_p)
+    )
+    if rc != 0:
+        raise NativeJpegError(rc)
+    return hdr, coeffs, qtabs
+
+
+#: per-image escape budget for the int8 transport (48 KB of scratch); an
+#: image exceeding it (pathological low-quantiser content) rides the int16
+#: transport instead — exactness is never at stake, only wire bytes.
+ESC_CAP = 4096
+
+
+def decode_lowfreq_i8(
+    lib: ctypes.CDLL,
+    data: bytes,
+    k: int,
+    hdr: JpegHeader = None,
+    esc_cap: int = ESC_CAP,
+):
+    """Entropy decode with the split int8 transport (wire-size lever for
+    bandwidth-limited host<->device links): per plane c,
+
+    - ``dc[c]``: (blocks_h, blocks_w) i16 DC levels
+    - ``ac[c]``: (blocks_h, blocks_w, k*k-1) i8 clamped AC levels in
+      natural KxK order minus (0,0)
+    - ``esc``: (n, 3) i32 rows (comp, flat_ac_index, residual); the device
+      reconstructs exact levels by widening + scatter-adding residuals.
+
+    Returns (hdr, dc, ac, esc, qtabs, overflow); ``overflow`` means the
+    escape list was truncated and the caller must use the int16 transport.
+    """
+    if hdr is None:
+        hdr = parse(lib, data)
+    dc = [
+        np.zeros((hdr.blocks_h[c], hdr.blocks_w[c]), np.int16)
+        for c in range(hdr.ncomp)
+    ]
+    ac = [
+        np.zeros((hdr.blocks_h[c], hdr.blocks_w[c], k * k - 1), np.int8)
+        for c in range(hdr.ncomp)
+    ]
+    esc = np.zeros((esc_cap, 3), np.int32)
+    count = ctypes.c_int32(0)
+    qtabs = np.empty((4, 64), np.uint16)
+    dptrs = (ctypes.c_void_p * 4)(
+        *[p.ctypes.data_as(ctypes.c_void_p).value for p in dc]
+    )
+    aptrs = (ctypes.c_void_p * 4)(
+        *[p.ctypes.data_as(ctypes.c_void_p).value for p in ac]
+    )
+    rc = lib.ik_jpeg_decode_coeffs_lowfreq_i8(
+        data,
+        len(data),
+        k,
+        dptrs,
+        aptrs,
+        esc.ctypes.data_as(ctypes.c_void_p),
+        esc_cap,
+        ctypes.byref(count),
+        qtabs.ctypes.data_as(ctypes.c_void_p),
+    )
+    if rc != 0:
+        raise NativeJpegError(rc)
+    n = int(count.value)
+    overflow = n > esc_cap
+    return hdr, dc, ac, esc[: min(n, esc_cap)], qtabs, overflow
+
+
+def reconstruct_lowfreq_levels(dc, ac, esc, k: int):
+    """Rebuild the int16 (blocks_h, blocks_w, k*k) level planes from the
+    split transport — the host-side mirror of the device reconstruction,
+    used by fallback paths and parity tests."""
+    out = []
+    for c in range(len(dc)):
+        bh, bw = dc[c].shape
+        lev = np.empty((bh, bw, k * k), np.int16)
+        lev[:, :, 0] = dc[c]
+        lev[:, :, 1:] = ac[c].astype(np.int16)
+        out.append(lev)
+    for comp, flat, resid in np.asarray(esc, np.int64):
+        bh, bw = dc[comp].shape
+        bi, pos = divmod(flat, k * k - 1)
+        out[comp][bi // bw, bi % bw, 1 + pos] += resid
+    return out
+
+
+def encode(
+    lib: ctypes.CDLL,
+    coeff_planes: List[np.ndarray],
+    qtabs: Tuple[np.ndarray, np.ndarray],
+    width: int,
+    height: int,
+    samp: Tuple[Tuple[int, int], ...] = ((2, 2), (1, 1), (1, 1)),
+) -> bytes:
+    """Entropy-encode quantised coefficient planes into a baseline JFIF
+    stream. coeff_planes[c]: (blocks_h, blocks_w, 64) i16 natural order."""
+    ncomp = len(coeff_planes)
+    planes = [np.ascontiguousarray(p, np.int16) for p in coeff_planes]
+    ptrs = (ctypes.c_void_p * ncomp)(
+        *[p.ctypes.data_as(ctypes.c_void_p).value for p in planes]
+    )
+    samp_h = np.array([s[0] for s in samp[:ncomp]], np.int32)
+    samp_v = np.array([s[1] for s in samp[:ncomp]], np.int32)
+    ql = np.ascontiguousarray(qtabs[0], np.uint16)
+    qc = np.ascontiguousarray(qtabs[1], np.uint16)
+    cap = sum(p.nbytes for p in planes) + 65536
+    out = np.empty(cap, np.uint8)
+    n = lib.ik_jpeg_encode(
+        ptrs,
+        ncomp,
+        width,
+        height,
+        samp_h.ctypes.data_as(ctypes.c_void_p),
+        samp_v.ctypes.data_as(ctypes.c_void_p),
+        ql.ctypes.data_as(ctypes.c_void_p),
+        qc.ctypes.data_as(ctypes.c_void_p),
+        out.ctypes.data_as(ctypes.c_void_p),
+        cap,
+    )
+    if n < 0:
+        raise NativeJpegError(int(n))
+    return out[:n].tobytes()

@@ -1,0 +1,96 @@
+"""Builder and loader of the port's native codec library (ctypes).
+
+The port's copies of the reference's C++ codecs (``jpeg_entropy.cpp``,
+``vp8_encode.cpp``, ``png_decode.cpp``, beside this file) are compiled at
+first use:
+
+    g++ -O3 -march=native -shared -fPIC <sources> -o libik_native.so -lz
+
+into ``build/imagekit_tpu_torch/`` under the checkout (a directory
+``.gitignore`` lists), never into the package, and rebuilt when a source
+is newer than the library. Concurrent processes serialise on a lock file
+there, so one builds and the others load its result. Where the library
+cannot be built or loaded, :func:`load` raises with the compiler's
+message: the port has no host-library codec to fall back to.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+_HERE = Path(__file__).resolve().parent
+_SOURCES = ("jpeg_entropy.cpp", "vp8_encode.cpp", "png_decode.cpp")
+_HEADERS = ("vp8_common.h", "vp8_tables.h")
+BUILD_DIR = _HERE.parents[2] / "build" / "imagekit_tpu_torch"
+_LIB = BUILD_DIR / "libik_native.so"
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _stale() -> bool:
+    if not _LIB.exists():
+        return True
+    built = _LIB.stat().st_mtime
+    return any((_HERE / s).stat().st_mtime > built
+               for s in _SOURCES + _HEADERS)
+
+
+def _build() -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "libik_native.lock", "w") as lockf:
+        fcntl.flock(lockf, fcntl.LOCK_EX)  # released when the file closes
+        if not _stale():
+            return  # another process built it while this one waited
+        tmp = _LIB.with_suffix(f".{os.getpid()}.tmp.so")
+        cmd = ["g++", "-O3", "-march=native", "-funroll-loops", "-std=c++17",
+               "-shared", "-fPIC", "-fvisibility=hidden",
+               *[str(_HERE / s) for s in _SOURCES], "-o", str(tmp),
+               "-lz"]  # png_decode.cpp inflates IDAT via zlib
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=300, cwd=_HERE)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"native codec build failed ({proc.returncode}): "
+                    f"{' '.join(cmd)}\n{proc.stderr[-8000:]}")
+            os.replace(tmp, _LIB)  # atomic: a loader sees old or new
+        finally:
+            tmp.unlink(missing_ok=True)
+
+
+def load() -> ctypes.CDLL:
+    """Build (if stale) and load the codec library; raises on failure."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            if _stale():
+                _build()
+            lib = ctypes.CDLL(str(_LIB))
+            _configure(lib)
+            _lib = lib
+        return _lib
+
+
+def _configure(lib: ctypes.CDLL) -> None:
+    from imagekit_tpu_torch.codecs.native import jpeg_abi
+
+    jpeg_abi.configure(lib)
+
+
+def decode_jpeg(data: bytes):
+    from imagekit_tpu_torch.codecs.native import jpeg_abi
+
+    return jpeg_abi.decode(load(), data)
+
+
+def encode_jpeg(planes, qtabs, width: int, height: int) -> bytes:
+    from imagekit_tpu_torch.codecs.native import jpeg_abi
+
+    return jpeg_abi.encode(load(), planes, qtabs, width, height)

@@ -1,19 +1,19 @@
-"""PNG decode without Pillow, over the reference's native ABI.
+"""PNG decode without Pillow, over the port's native library.
 
 Counterpart of ``imagekit_tpu/codecs/png.py:73-106``: the C++ decoder
-(``ik_png_parse`` / ``ik_png_decode`` in the reference's native library,
-bound by ``imagekit_tpu.codecs.png._lib``) inflates IDAT, unfilters the
-scanlines and expands grayscale and palette images to RGB, alpha to RGBA.
-What differs from the reference:
+(``ik_png_parse`` / ``ik_png_decode`` of ``native/png_decode.cpp``, a copy
+of the reference's, bound here as the reference's ``_lib`` binds it)
+inflates IDAT, unfilters the scanlines and expands grayscale and palette
+images to RGB, alpha to RGBA. What differs from the reference:
 
 - the decompression-bomb ceiling is a constant (:data:`MAX_PIXELS`, the
   reference's default), so Pillow is never imported;
 - where the reference hands a PNG to Pillow (a PNG the native decoder
-  does not take, or no native library), this raises
+  does not take), this raises
   :class:`~imagekit_tpu_torch.errors.NotPortedError`.
 
-A corrupt PNG raises :class:`~imagekit_tpu.errors.TransformError` with the
-reference's message.
+A corrupt PNG raises :class:`~imagekit_tpu_torch.errors.TransformError`
+with the reference's message.
 """
 
 from __future__ import annotations
@@ -23,9 +23,7 @@ from typing import Tuple
 
 import numpy as np
 
-from imagekit_tpu.codecs import png as _native
-from imagekit_tpu.errors import TransformError
-from imagekit_tpu_torch.errors import NotPortedError
+from imagekit_tpu_torch.errors import NotPortedError, TransformError
 
 #: twice PIL's default ``MAX_IMAGE_PIXELS`` (89,478,485), where PIL and the
 #: reference's native decode refuse an image
@@ -40,10 +38,40 @@ def _not_ported(what: str) -> NotPortedError:
                           "queue 1 item 9")
 
 
+class _IkPngInfo(ctypes.Structure):
+    _fields_ = [
+        ("width", ctypes.c_int32),
+        ("height", ctypes.c_int32),
+        ("channels", ctypes.c_int32),
+        ("color_type", ctypes.c_int32),
+        ("bit_depth", ctypes.c_int32),
+        ("interlaced", ctypes.c_int32),
+    ]
+
+
+_configured = False
+
+
 def _lib() -> ctypes.CDLL:
-    lib = _native._lib()
-    if lib is None:
-        raise _not_ported("a PNG decode with no native codec library")
+    global _configured
+    from imagekit_tpu_torch.codecs.native import loader
+
+    lib = loader.load()
+    if not _configured:
+        lib.ik_png_parse.argtypes = [
+            ctypes.c_char_p,
+            ctypes.c_size_t,
+            ctypes.POINTER(_IkPngInfo),
+        ]
+        lib.ik_png_parse.restype = ctypes.c_int
+        lib.ik_png_decode.argtypes = [
+            ctypes.c_char_p,
+            ctypes.c_size_t,
+            ctypes.c_void_p,
+            ctypes.c_size_t,
+        ]
+        lib.ik_png_decode.restype = ctypes.c_int
+        _configured = True
     return lib
 
 
@@ -57,7 +85,7 @@ def _check(rc: int) -> None:
 def parse(data: bytes) -> Tuple[int, int, int]:
     """Header only: (width, height, channels) of the decoded image, after
     the pixel ceiling."""
-    info = _native._IkPngInfo()
+    info = _IkPngInfo()
     _check(_lib().ik_png_parse(data, len(data), ctypes.byref(info)))
     if info.width * info.height > MAX_PIXELS:
         raise TransformError(

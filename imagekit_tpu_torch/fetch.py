@@ -1,9 +1,10 @@
 """Remote source fetch for the port's ``/img``.
 
 Counterpart of ``imagekit_tpu/fetch.py:92-194`` (``fetch_source``), with
-the reference's :class:`~imagekit_tpu.fetch.Fetcher` and its stages 1-4
-as they are: status, ``image/*`` content type when parseable, the
-content-length preflight and the streamed byte count. Stage 5 differs: the
+a copy of the reference's :class:`Fetcher` (one shared aiohttp session; a
+test substitutes an offline one) and its stages 1-4 as they are: status,
+``image/*`` content type when parseable, the content-length preflight and
+the streamed byte count. Stage 5 differs: the
 reference decodes a PNG in full to validate it, through a decoder that
 imports Pillow; here every source is validated by its header only, and
 the engine decodes it once, on its codec pool. A source the header check
@@ -15,11 +16,74 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-from imagekit_tpu.codecs import SourceFormat, guess_format
-from imagekit_tpu.codecs.native import jpeg_abi, loader
-from imagekit_tpu.errors import InvalidArgumentError, NetworkError, TransformError
-from imagekit_tpu.fetch import Fetcher, _default_fetcher
-from imagekit_tpu_torch.codecs import png
+from imagekit_tpu_torch.codecs import SourceFormat, guess_format, png
+from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
+from imagekit_tpu_torch.errors import (
+    InvalidArgumentError,
+    NetworkError,
+    TransformError,
+)
+
+
+class Fetcher:
+    """Shared-session remote fetcher. Subclass / substitute in tests for an
+    offline backend (the reference's tests never reach the network;
+    SURVEY.md §4)."""
+
+    def __init__(self) -> None:
+        self._session = None
+
+    async def _get_session(self):
+        import aiohttp
+
+        if self._session is None or self._session.closed:
+            self._session = aiohttp.ClientSession(
+                timeout=aiohttp.ClientTimeout(total=30)
+            )
+        return self._session
+
+    async def close(self) -> None:
+        if self._session is not None and not self._session.closed:
+            await self._session.close()
+
+    async def fetch(self, url: str) -> Tuple[int, str, "_BodyStream"]:
+        """Return (status, content_type, body stream). NetworkError on
+        transport failure."""
+        import aiohttp
+
+        session = await self._get_session()
+        try:
+            resp = await session.get(url)
+        except aiohttp.ClientError as e:
+            raise NetworkError(str(e)) from e
+        ct = resp.headers.get("Content-Type", "")
+        return resp.status, ct, _AiohttpBody(resp)
+
+
+class _BodyStream:
+    async def content_length(self) -> Optional[int]:
+        raise NotImplementedError
+
+    async def chunks(self):
+        raise NotImplementedError
+
+    async def release(self) -> None:
+        pass
+
+
+class _AiohttpBody(_BodyStream):
+    def __init__(self, resp) -> None:
+        self._resp = resp
+
+    async def content_length(self) -> Optional[int]:
+        return self._resp.content_length
+
+    async def chunks(self):
+        async for chunk in self._resp.content.iter_chunked(64 * 1024):
+            yield chunk
+
+    async def release(self) -> None:
+        self._resp.release()
 
 
 async def fetch_source(
@@ -51,9 +115,9 @@ async def fetch_source(
         src = guess_format(data)
         if src == SourceFormat.png:
             w, h, _ = png.parse(data)
-        elif src == SourceFormat.jpeg and (lib := loader.load()) is not None:
+        elif src == SourceFormat.jpeg:
             try:
-                hdr = jpeg_abi.parse(lib, data)
+                hdr = jpeg_abi.parse(loader.load(), data)
             except jpeg_abi.NativeJpegError:
                 return data, ct  # the engine classifies it
             w, h = hdr.width, hdr.height
@@ -64,3 +128,13 @@ async def fetch_source(
     if w <= 0 or h <= 0:
         raise InvalidArgumentError("Invalid image dimensions")
     return data, ct
+
+
+_GLOBAL_FETCHER: Optional[Fetcher] = None
+
+
+def _default_fetcher() -> Fetcher:
+    global _GLOBAL_FETCHER
+    if _GLOBAL_FETCHER is None:
+        _GLOBAL_FETCHER = Fetcher()
+    return _GLOBAL_FETCHER

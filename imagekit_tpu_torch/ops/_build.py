@@ -96,8 +96,11 @@ def _compile() -> None:
 def _configure(lib: ctypes.CDLL) -> None:
     vp = ctypes.c_void_p
     ci = ctypes.c_int
-    lib.ik_jpeg8_folded_plane.argtypes = [vp] * 7 + [ci] * 11 + [vp]
-    lib.ik_jpeg8_folded_plane.restype = ci
+    lib.ik_jpeg8_folded_planes.argtypes = [
+        ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_longlong), vp, vp,
+        ci, ci, ci, ci, vp,
+    ]
+    lib.ik_jpeg8_folded_planes.restype = ci
     cll = ctypes.c_longlong
     cf = ctypes.c_float
     lib.ik_resize_strip_plane.argtypes = (

@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from imagekit_tpu_torch.device import resolve_device
 from imagekit_tpu_torch.ops.resize_strip import plane_resize
 
 
@@ -50,15 +51,14 @@ def rgb_yuv_head(imgs, wv, wh, vidx, hidx, bands=None, resize=plane_resize):
 
 
 def on_device(arrays, device):
-    """numpy arrays or tensors -> tensors on ``device`` (numpy weights, and
-    no device named, mean the CPU)."""
+    """numpy arrays or tensors -> tensors on ``device``."""
     return [torch.as_tensor(a, device=device) for a in arrays]
 
 
-def resolve(device, wv) -> torch.device:
-    if device is None:
-        device = wv.device if isinstance(wv, torch.Tensor) else "cpu"
-    return torch.device(device)
+def resolve(device) -> torch.device:
+    """The device a ``*_batch`` head runs on: the card unless the caller
+    names another, whatever the type of its inputs (raises without one)."""
+    return resolve_device("cuda" if device is None else device)
 
 
 def to_host(flat: torch.Tensor, device: torch.device):
@@ -92,7 +92,7 @@ def resample_rgb_yuv_batch(imgs_flat, weights, vidx, hidx, out_shape,
     (B, OHb, OWb) and (B, OHb/2, OWb/2) x2 (cropped by the caller)."""
     wv, wh = weights
     obh, obw = out_shape
-    device = resolve(device, wv)
+    device = resolve(device)
     x, wv, wh, vidx, hidx = on_device((imgs_flat, wv, wh, vidx, hidx), device)
     if bands is not None:
         bands = tuple(on_device(bands, device))

@@ -1,14 +1,13 @@
-"""The flagship JPEG head: split-int8 coefficients -> resized 4:2:0 planes.
+"""The JPEG heads: split-int8 or int16 coefficients -> resized planes.
 
-Counterpart of ``imagekit_tpu/ops/dct.py:466-551,619-666,711-760``. The
-plain PyTorch head :func:`decode_resize_yuv_lowfreq_i8` follows the JAX
-einsum head ``_decode_resize_yuv_lowfreq_i8_kernel`` op for op: f32 widen
-of the planar AC levels, scatter-add of the escape residuals, the folded
-dequant + k-point IDCT + resize contraction, studio-range remap and u8
-pack. :func:`decode_resize_yuv_lowfreq_i8_batch` keeps the reference's
-numpy-in / planes-out signature and picks the head by device: CUDA tensors
-go to K1 (:func:`imagekit_tpu_torch.ops.jpeg8.decode_resize_i8`), CPU
-tensors to the plain head.
+Counterpart of ``imagekit_tpu/ops/dct.py:619-666,711-760``. The flagship
+head, :func:`decode_resize_yuv_lowfreq_i8_batch`, keeps the reference's
+numpy-in / planes-out signature and makes one call of
+:func:`imagekit_tpu_torch.ops.jpeg8.folded_planes_i8`: on CUDA one K1
+launch for Y, Cb and Cr (widen, escapes, the folded dequant + k-point
+IDCT + resize, studio-range remap and u8 pack), on the CPU K1's plain
+version. Every ``*_batch`` head runs on the card unless the caller names
+another device.
 
 The rgbjpg head, :func:`resample_rgb_jpeg_batch` (``dct.py:961-1032`` and
 its Pallas front ``pallas_resize.py:378-411``), serves JPEG outputs from
@@ -18,8 +17,8 @@ BT.601 mix, the 4:2:0 box and the 8x8 fDCT + quantise tail
 
 The jxc transcode, :func:`transcode_i8_batch` (``dct.py:884-957,1036`` and
 its Pallas front ``pallas_jpeg8.py:224-267``), serves JPEG outputs from
-JPEG sources in one device round trip: for k < 8 the i16 widen + escape
-scatter and K1 with its centred epilogue on the three planes; for k = 8 the
+JPEG sources in one device round trip: for k < 8 one K1 launch with its
+centred epilogue on the three planes; for k = 8 the
 split front (:func:`_widen_split_levels`, :func:`_blocks_to_plane`) and a
 plain two-``bmm`` resize; then :func:`_fdct_quant_flat`. A JPEG whose
 escapes overflow the split transport is demoted to the RGB-output head,
@@ -38,7 +37,6 @@ from imagekit_tpu_torch.ops import jpeg8
 from imagekit_tpu_torch.ops.color import (
     box2,
     on_device,
-    q8,
     resolve,
     rgb_planes,
     split_yuv,
@@ -47,75 +45,6 @@ from imagekit_tpu_torch.ops.color import (
 from imagekit_tpu_torch.ops.resize_planes import resize_planes
 from imagekit_tpu_torch.ops.resize_strip import plane_resize
 from imagekit_tpu_torch.ops.weights import idct_basis
-
-
-def _folded_lowfreq_plane(getC, qt4, wv_f, wh_f, vidx, k):
-    """out = sum_{u,v} (Wv@E_u) @ (q_uv * C_uv) @ (Wh@E_v)^T + 128, with
-    C_uv = ``getC(u*k+v)`` (B, rows, nblk) and the folded stacks of
-    :func:`weights.fold_lowfreq_weights`. The k/8-scale intermediate plane
-    is never materialised, and so never clipped (``dct.py:466``)."""
-    wv = wv_f[vidx.long()]  # (B, k, O, rows)
-    wh = wh_f[vidx.long()]  # (B, k, P, nblk)
-    out = None
-    for v in range(k):
-        Pv = None
-        for u in range(k):
-            C = getC(u * k + v) * qt4[:, u * k + v][:, None, None]
-            t = torch.bmm(wv[:, u], C)
-            Pv = t if Pv is None else Pv + t
-        t2 = torch.bmm(Pv, wh[:, v].transpose(1, 2))
-        out = t2 if out is None else out + t2
-    return out + 128.0
-
-
-def _folded_plane_i8(dc, ac, eidx, evals, nblk, qt4, wv_f, wh_f, vidx, k):
-    """Widen the PLANAR i8 AC layout to f32, scatter-ADD the escape
-    residuals (padding rows add 0 at (0,0,0)), then one contiguous slice
-    per coefficient plane. All values are exact integers in f32."""
-    p = ac.shape[2] // (k * k - 1)
-    a = ac.float()
-    i = eidx.long()
-    a.index_put_((i[:, 0], i[:, 1], i[:, 2]), evals.float(), accumulate=True)
-
-    def getC(lin):
-        if lin == 0:
-            return dc[:, :, :nblk].float()
-        j = lin - 1
-        return a[:, :, j * p:j * p + nblk]
-
-    return _folded_lowfreq_plane(getC, qt4, wv_f, wh_f, vidx, k)
-
-
-def _yuv_range_pack(y, cb, cr):
-    """Full-range resized planes -> studio-range remap -> packed
-    (B, obh*obw + 2*(obh//2*obw//2)) u8."""
-    y = y * (219.0 / 255.0) + 16.0
-    c_off = 128.0 * (1.0 - 224.0 / 255.0)
-    cb = cb * (224.0 / 255.0) + c_off
-    cr = cr * (224.0 / 255.0) + c_off
-    return torch.cat([q8(y), q8(cb), q8(cr)], dim=1)
-
-
-def decode_resize_yuv_lowfreq_i8(
-    y_dc, y_ac, cb_dc, cb_ac, cr_dc, cr_ac,
-    ey_idx, ey_val, eb_idx, eb_val, er_idx, er_val,
-    qtabs, wv_y_f, wh_y_f, wv_c_f, wh_c_f, vidx,
-    by_b: int, bx_b: int, cy_b: int, cx_b: int, k: int,
-) -> torch.Tensor:
-    """Plain head with the arguments and flat u8 output of
-    ``_decode_resize_yuv_lowfreq_i8_kernel`` (``dct.py:619``)."""
-    del by_b, cy_b  # fixed by the array shapes, as in the reference
-    qt_l, qt_c = jpeg8.qt_lowfreq(qtabs, k)
-    Y = _folded_plane_i8(
-        y_dc, y_ac, ey_idx, ey_val, bx_b, qt_l, wv_y_f, wh_y_f, vidx, k
-    )
-    Cb = _folded_plane_i8(
-        cb_dc, cb_ac, eb_idx, eb_val, cx_b, qt_c, wv_c_f, wh_c_f, vidx, k
-    )
-    Cr = _folded_plane_i8(
-        cr_dc, cr_ac, er_idx, er_val, cx_b, qt_c, wv_c_f, wh_c_f, vidx, k
-    )
-    return _yuv_range_pack(Y, Cb, Cr)
 
 
 def decode_resize_yuv_lowfreq_i8_batch(
@@ -128,33 +57,36 @@ def decode_resize_yuv_lowfreq_i8_batch(
     block_dims,
     out_shape,
     k: int,
+    bands=None,
     device: Optional[torch.device] = None,
 ):
-    """Run the split-int8 truncated head; returns (Y, Cb, Cr) u8 numpy
-    planes of shapes (B, obh, obw) and (B, obh/2, obw/2) x2.
+    """Run the split-int8 truncated head (``dct.py:711``); returns (Y, Cb,
+    Cr) u8 numpy planes of shapes (B, obh, obw) and (B, obh/2, obw/2) x2.
 
-    Inputs are numpy arrays or tensors. They are moved to ``device`` (by
-    default the device of the weight stacks; numpy weights mean the CPU).
-    On CUDA the head is K1; on the CPU it is the plain head."""
-    wv_y, wh_y, wv_c, wh_c = weights
-    by_b, bx_b, cy_b, cx_b = block_dims
+    Inputs are numpy arrays or tensors; they are moved to ``device``, the
+    card unless the caller names another. One K1 launch on CUDA, its plain
+    version on the CPU. ``bands`` is the four stacks' band tables, or None.
+    ``block_dims`` is fixed by the array shapes, as in the reference."""
+    del block_dims
     obh, obw = out_shape
-    (ey_idx, ey_val), (eb_idx, eb_val), (er_idx, er_val) = escapes
-    device = resolve(device, wv_y)
-    args = on_device((
-        dc_arrays[0], ac_arrays[0], dc_arrays[1], ac_arrays[1],
-        dc_arrays[2], ac_arrays[2], ey_idx, ey_val, eb_idx, eb_val,
-        er_idx, er_val, qtabs, wv_y, wh_y, wv_c, wh_c, vidx,
-    ), device)
-    if device.type == "cuda":
-        flat = jpeg8.decode_resize_i8(*args, k=k)
-    elif device.type == "cpu":
-        flat = decode_resize_yuv_lowfreq_i8(
-            *args, by_b=by_b, bx_b=bx_b, cy_b=cy_b, cx_b=cx_b, k=k
-        )
-    else:
-        raise ValueError(f"no jpeg8 head for device {device}")
+    device = resolve(device)
+    dcs, acs, escs, qt, stacks, vidx = _split_on_device(
+        dc_arrays, ac_arrays, escapes, qtabs, weights, vidx, device)
+    if bands is not None:
+        bands = tuple(on_device(bands, device))
+    flat = jpeg8.folded_planes_i8(dcs, acs, escs, qt, stacks, bands, vidx, k)
     return split_yuv(to_host(flat, device), obh, obw)
+
+
+def _split_on_device(dc_arrays, ac_arrays, escapes, qtabs, weights, vidx,
+                     device):
+    """The split-int8 batch as tensors on ``device``: (dcs, acs, escs, qt,
+    stacks, vidx)."""
+    dcs = tuple(on_device(dc_arrays, device))
+    acs = tuple(on_device(ac_arrays, device))
+    escs = tuple(tuple(on_device(e, device)) for e in escapes)
+    qt, vidx = on_device((qtabs, vidx), device)
+    return dcs, acs, escs, qt, tuple(on_device(weights, device)), vidx
 
 
 def _dot8(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -281,7 +213,7 @@ def decode_resize_rgb_batch(y_flat, cb_flat, cr_flat, qtabs, weights, vidx,
     version on the CPU."""
     wv_y, wh_y, wv_c, wh_c = weights
     obh, obw = out_shape
-    device = resolve(device, wv_y)
+    device = resolve(device)
     args = on_device((y_flat, cb_flat, cr_flat, qtabs, wv_y, wh_y, wv_c,
                       wh_c, vidx), device)
     if bands is not None:
@@ -290,43 +222,34 @@ def decode_resize_rgb_batch(y_flat, cb_flat, cr_flat, qtabs, weights, vidx,
     return flat.reshape(flat.shape[0], obh, obw, 3)
 
 
-def transcode_i8(y_dc, y_ac, cb_dc, cb_ac, cr_dc, cr_ac,
-                 ey_idx, ey_val, eb_idx, eb_val, er_idx, er_val,
-                 qt_in, qt_out, wv_y, wh_y, wv_c, wh_c, vidx,
-                 by_b: int, bx_b: int, cy_b: int, cx_b: int,
-                 k: int, fold=jpeg8.folded_plane) -> torch.Tensor:
+def transcode_i8(dcs, acs, escs, qt_in, qt_out, stacks, vidx, block_dims,
+                 k: int, bands=None,
+                 planes=jpeg8.folded_planes_i8) -> torch.Tensor:
     """The jxc transcode: split-int8 levels in -> flat int16 target levels,
     Y then Cb then Cr. k < 8 is ``_transcode_i8_pallas``
-    (``pallas_jpeg8.py:224``): i16 widen + escape scatter, ``fold`` (K1
-    with the centred epilogue; its plain version on the CPU), f32. k = 8 is
-    ``_transcode_i8_kernel``'s split front (``dct.py:918-936``): widen,
-    8x8 IDCT to the u8 grid, the resize as a plain product, ``u8c``."""
+    (``pallas_jpeg8.py:224``): ``planes`` (K1 with the centred epilogue,
+    one launch for the three planes; its plain version on the CPU), f32.
+    k = 8 is ``_transcode_i8_kernel``'s split front (``dct.py:918-936``):
+    widen, 8x8 IDCT to the u8 grid, the resize as a plain product,
+    ``u8c``."""
     if k == 8:
         u = vidx.long()
+        by_b, bx_b, cy_b, cx_b = block_dims
 
-        def front(dc, ac, ei, ev, by, bx, qt, wv, wh):
-            P = _blocks_to_plane(_widen_split_levels(dc, ac, ei, ev, by, bx),
-                                 by, bx, qt)
+        def front(p, by, bx, qt, wv, wh):
+            lv = _widen_split_levels(dcs[p], acs[p], *escs[p], by, bx)
+            P = _blocks_to_plane(lv, by, bx, qt)
             x = torch.bmm(torch.bmm(wv[u], P.float()), wh[u].transpose(1, 2))
             # u8c: round to the u8 grid, centre for the fDCT
             return torch.clamp(torch.floor(x + 0.5), 0.0, 255.0) - 128.0
 
-        y = front(y_dc, y_ac, ey_idx, ey_val, by_b, bx_b, qt_in[:, :64],
-                  wv_y, wh_y)
-        cb = front(cb_dc, cb_ac, eb_idx, eb_val, cy_b, cx_b, qt_in[:, 64:],
-                   wv_c, wh_c)
-        cr = front(cr_dc, cr_ac, er_idx, er_val, cy_b, cx_b, qt_in[:, 64:],
-                   wv_c, wh_c)
+        wv_y, wh_y, wv_c, wh_c = stacks
+        y = front(0, by_b, bx_b, qt_in[:, :64], wv_y, wh_y)
+        cb = front(1, cy_b, cx_b, qt_in[:, 64:], wv_c, wh_c)
+        cr = front(2, cy_b, cx_b, qt_in[:, 64:], wv_c, wh_c)
     else:
-        qt_l, qt_c = (q.contiguous() for q in jpeg8.qt_lowfreq(qt_in, k))
-
-        def front(dc, ac, ei, ev, qt, wv, wh):
-            return fold(dc, jpeg8.widen_scatter(ac, ei, ev), qt, wv, wh,
-                        vidx, k, luma=True, centered=True).float()
-
-        y = front(y_dc, y_ac, ey_idx, ey_val, qt_l, wv_y, wh_y)
-        cb = front(cb_dc, cb_ac, eb_idx, eb_val, qt_c, wv_c, wh_c)
-        cr = front(cr_dc, cr_ac, er_idx, er_val, qt_c, wv_c, wh_c)
+        y, cb, cr = (pl.float() for pl in planes(
+            dcs, acs, escs, qt_in, stacks, bands, vidx, k, centered=True))
     return torch.cat([
         _fdct_quant_flat(y, qt_out[:, :64]),
         _fdct_quant_flat(cb, qt_out[:, 64:]),
@@ -336,22 +259,22 @@ def transcode_i8(y_dc, y_ac, cb_dc, cb_ac, cr_dc, cr_ac,
 
 def transcode_i8_batch(dc_arrays, ac_arrays, escapes, qt_in, qt_out,
                        weights, vidx, block_dims, out_shape, k: int,
-                       device: Optional[torch.device] = None):
+                       bands=None, device: Optional[torch.device] = None):
     """Run the jxc transcode (``dct.py:1036``); returns (y, cb, cr) int16
     numpy levels of shapes (B, OHb/8, OWb/8, 64) and (B, OHb/16, OWb/16,
     64) x2, natural order: slice to the true MCU grid and hand them to the
-    host Huffman encoder."""
-    wv_y, wh_y, wv_c, wh_c = weights
+    host Huffman encoder. ``bands`` is the folded stacks' band tables for
+    k < 8, or None."""
     obh, obw = out_shape
-    (ey_idx, ey_val), (eb_idx, eb_val), (er_idx, er_val) = escapes
-    device = resolve(device, wv_y)
-    args = on_device((
-        dc_arrays[0], ac_arrays[0], dc_arrays[1], ac_arrays[1],
-        dc_arrays[2], ac_arrays[2], ey_idx, ey_val, eb_idx, eb_val,
-        er_idx, er_val, qt_in, qt_out, wv_y, wh_y, wv_c, wh_c, vidx,
-    ), device)
-    flat = to_host(transcode_i8(*args, *block_dims, k=k), device)
-    return split_yuv(flat, obh, obw, block=8)
+    device = resolve(device)
+    dcs, acs, escs, qt, stacks, vidx = _split_on_device(
+        dc_arrays, ac_arrays, escapes, qt_in, weights, vidx, device)
+    (qt_out,) = on_device((qt_out,), device)
+    if bands is not None:
+        bands = tuple(on_device(bands, device))
+    flat = transcode_i8(dcs, acs, escs, qt, qt_out, stacks, vidx, block_dims,
+                        k, bands)
+    return split_yuv(to_host(flat, device), obh, obw, block=8)
 
 
 def resample_rgb_jpeg_batch(imgs_flat, weights, vidx, hidx, qt_out,
@@ -362,7 +285,7 @@ def resample_rgb_jpeg_batch(imgs_flat, weights, vidx, hidx, qt_out,
     order, for the host Huffman encoder."""
     wv, wh = weights
     obh, obw = out_shape
-    device = resolve(device, wv)
+    device = resolve(device)
     x, wv, wh, vidx, hidx, qt_out = on_device(
         (imgs_flat, wv, wh, vidx, hidx, qt_out), device)
     if bands is not None:

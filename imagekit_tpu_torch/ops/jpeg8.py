@@ -1,27 +1,39 @@
-"""K1: the folded jpeg8 plane head, as a hand-written CUDA kernel.
+"""K1: the folded jpeg8 head, three planes in one hand-written CUDA launch.
 
-Counterpart of ``imagekit_tpu/ops/pallas_jpeg8.py:81-217``. One call runs
-one plane of a batch: i16 DC and planar i16 AC levels (escapes already
-added) -> dequantise -> k-point IDCT folded into the resize weights ->
-+128 -> studio-range remap -> u8 (or the ``centered`` i8 epilogue of the
-JPEG->JPEG transcode front). The kernel is ``csrc/jpeg8_folded.cu``; its
-plain PyTorch version, :func:`folded_plane_plain`, sits beside it.
+Counterpart of ``imagekit_tpu/ops/pallas_jpeg8.py:81-267`` (the plane body
+launched by ``_folded_plane_pallas``, and its two fronts
+``_decode_resize_i8_pallas`` and ``_transcode_i8_pallas``). One call takes
+a batch in the split-int8 transport as the engine uploads it (i16 DC
+planes, planar i8 AC planes, escape lists of (img, row, planar col) and
+i32 residuals) and, for Y, Cb and Cr: widen, add the escapes, dequantise,
+run the k-point IDCT folded into the resize weights, +128, then either
+the studio-range remap to u8, packed as ``split_yuv`` reads it (decode),
+or the centred i8 planes of the JPEG -> JPEG transcode (``centered``).
 
-:func:`folded_plane` launches the kernel for CUDA tensors and raises on
-anything the kernel does not take. It takes the plain version only for
+:func:`folded_planes_i8` launches the kernel (``csrc/jpeg8_folded.cu``)
+for CUDA tensors and raises on anything the kernel does not take. It takes
+the plain version, :func:`folded_planes_i8_plain` (an i16 widen and
+escape scatter, then :func:`folded_plane_plain` per plane), only for
 tensors that lie on the CPU.
+
+The folded stacks are banded (Lanczos taps times the IDCT basis): each
+stack has a :func:`folded_bands` table of every output row's nonzero run,
+the union over the IDCT index, and the kernel loops over it only. The
+skipped terms are exact zeros, so the banded sums are the dense ones.
 """
 
 from __future__ import annotations
 
+import ctypes
 import threading
 
 import torch
 
+from imagekit_tpu_torch.ops.resize_strip import band_table
 from imagekit_tpu_torch.ops.weights import _lowfreq_indices
 
-#: kernel launches made by :func:`folded_plane` (read and reset by callers
-#: that must show the main path went through the kernel)
+#: kernel launches made by :func:`folded_planes_i8` (read and reset by
+#: callers that must show the main path went through the kernel)
 LAUNCHES = 0
 _launch_lock = threading.Lock()
 
@@ -29,67 +41,116 @@ _LUMA = (219.0 / 255.0, 16.0)
 _CHROMA = (224.0 / 255.0, 128.0 * (1.0 - 224.0 / 255.0))
 
 
-def _check(dc16, ac16, qt, wv_f, wh_f, vidx, k):
-    tensors = {"dc16": dc16, "ac16": ac16, "qt": qt, "wv_f": wv_f,
-               "wh_f": wh_f, "vidx": vidx}
-    dtypes = {"dc16": torch.int16, "ac16": torch.int16, "qt": torch.float32,
-              "wv_f": torch.float32, "wh_f": torch.float32,
-              "vidx": torch.int32}
-    dev = dc16.device
-    for name, t in tensors.items():
+def folded_bands(w: torch.Tensor) -> torch.Tensor:
+    """(U, k, O, n) folded stack -> (U, O, 2) int32 ``[first, last)`` of
+    each output row's nonzero run, the union over the stack's second
+    index (u for ``Wv_f``, v for ``Wh_f``)."""
+    return band_table((w != 0).any(dim=1))
+
+
+def _check(dcs, acs, escs, qtabs, stacks, bands, vidx, k):
+    """Raise on what the kernel does not take; return each plane's
+    (rows, pw, acw, nblk, O, P)."""
+    dev = dcs[0].device
+    named = {"qtabs": (qtabs, torch.float32), "vidx": (vidx, torch.int32)}
+    for p, name in enumerate(("y", "cb", "cr")):
+        named[f"{name}_dc"] = (dcs[p], torch.int16)
+        named[f"{name}_ac"] = (acs[p], torch.int8)
+        named[f"{name}_esc_idx"] = (escs[p][0], torch.int32)
+        named[f"{name}_esc_val"] = (escs[p][1], torch.int32)
+    for i, name in enumerate(("wv_y", "wh_y", "wv_c", "wh_c")):
+        named[name] = (stacks[i], torch.float32)
+        named[f"band_{name}"] = (bands[i], torch.int32)
+    for name, (t, dtype) in named.items():
         if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, dc16 on {dev}")
-        if t.dtype != dtypes[name]:
-            raise TypeError(f"{name} must be {dtypes[name]}, got {t.dtype}")
+            raise ValueError(f"{name} is on {t.device}, y_dc on {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if k < 2 or k > 7:
         raise ValueError(f"k={k}: the folded head serves 2 <= k < 8")
-    B, rows, pw = dc16.shape
-    U, kk, O, wrows = wv_f.shape
-    U2, kk2, P, nblk = wh_f.shape
+    B = dcs[0].shape[0]
+    if tuple(qtabs.shape) != (B, 128) or tuple(vidx.shape) != (B,):
+        raise ValueError(f"qtabs {tuple(qtabs.shape)} / vidx "
+                         f"{tuple(vidx.shape)} do not fit B={B}")
+    if any(s.dim() != 4 for s in stacks):
+        raise ValueError("the folded stacks must be (U, k, O, n)")
+    U = stacks[0].shape[0]
     na = k * k - 1
-    if kk != k or kk2 != k or U2 != U or wrows != rows:
-        raise ValueError(
-            f"weight stacks {tuple(wv_f.shape)} / {tuple(wh_f.shape)} do not "
-            f"fit k={k}, rows={rows}"
-        )
-    if ac16.shape[0] != B or ac16.shape[1] != rows or ac16.shape[2] % na:
-        raise ValueError(f"ac16 {tuple(ac16.shape)} is not planar for k={k}")
-    if nblk > pw or nblk > ac16.shape[2] // na:
-        raise ValueError(f"nblk={nblk} exceeds the coefficient planes")
-    if tuple(qt.shape) != (B, k * k) or tuple(vidx.shape) != (B,):
-        raise ValueError(f"qt {tuple(qt.shape)} / vidx {tuple(vidx.shape)}")
-    return B, rows, pw, U, O, P, nblk
+    dims = []
+    for p in range(3):
+        wv, wh = stacks[:2] if p == 0 else stacks[2:]
+        bv, bh = bands[:2] if p == 0 else bands[2:]
+        dc, ac, (ei, ev) = dcs[p], acs[p], escs[p]
+        if dc.dim() != 3 or ac.dim() != 3 or dc.shape[0] != B:
+            raise ValueError(f"plane {p}: dc {tuple(dc.shape)} / ac "
+                             f"{tuple(ac.shape)} are not (B, rows, n)")
+        _, rows, pw = dc.shape
+        Uv, kv, O, wrows = wv.shape
+        Uh, kh, P, nblk = wh.shape
+        if (Uv, Uh) != (U, U) or (kv, kh) != (k, k) or wrows != rows:
+            raise ValueError(f"plane {p}: stacks {tuple(wv.shape)} / "
+                             f"{tuple(wh.shape)} do not fit k={k}, U={U}, "
+                             f"rows={rows}")
+        if tuple(ac.shape[:2]) != (B, rows) or ac.shape[2] % na:
+            raise ValueError(f"plane {p}: ac {tuple(ac.shape)} is not "
+                             f"planar for k={k}")
+        if nblk > pw or nblk > ac.shape[2] // na:
+            raise ValueError(f"plane {p}: nblk={nblk} exceeds the "
+                             f"coefficient planes")
+        # the kernel reads four levels at a time: rows and planes start on
+        # 4-level boundaries (the engine pads them to 128)
+        if (pw % 4 or (ac.shape[2] // na) % 4 or dc.data_ptr() % 8
+                or ac.data_ptr() % 4):
+            raise ValueError(f"plane {p}: dc/ac rows and planes must start "
+                             f"on 4-level boundaries")
+        if (ei.dim() != 2 or ei.shape[1] != 3
+                or tuple(ev.shape) != (ei.shape[0],)):
+            raise ValueError(f"plane {p}: escapes {tuple(ei.shape)} / "
+                             f"{tuple(ev.shape)} are not (E, 3) / (E,)")
+        # the kernel clamps each run to its stack, so a table of the right
+        # shape is memory-safe; folded_bands makes one that is exact
+        if tuple(bv.shape) != (U, O, 2) or tuple(bh.shape) != (U, P, 2):
+            raise ValueError(f"plane {p}: band tables {tuple(bv.shape)} / "
+                             f"{tuple(bh.shape)} do not fit the stacks")
+        dims.append((rows, pw, ac.shape[2], nblk, O, P))
+    if dims[1] != dims[2]:
+        raise ValueError(f"Cb {dims[1]} and Cr {dims[2]} shapes differ")
+    return B, U, dims
 
 
-def folded_plane(dc16, ac16, qt, wv_f, wh_f, vidx, k: int, luma: bool,
-                 centered: bool = False) -> torch.Tensor:
-    """dc16 (B, rows, pad128(nblk)) i16, ac16 (B, rows, (k²-1)·pad128(nblk))
-    i16 with escapes added, qt (B, k²) f32 dequant scales, wv_f
-    (U, k, O, rows) / wh_f (U, k, P, nblk) folded f32 stacks, vidx (B,) i32
-    -> (B, O, P) u8 studio-range plane, or i8 centred full-range plane when
-    ``centered``."""
+def folded_planes_i8(dcs, acs, escs, qtabs, stacks, bands, vidx, k: int,
+                     centered: bool = False):
+    """The three planes of a split-int8 batch in one K1 launch.
+
+    ``dcs`` (y, cb, cr) i16 (B, rows, pad128(nblk)); ``acs`` the planar i8
+    AC planes (B, rows, (k²-1)·pad128(nblk)); ``escs`` three (idx (E, 3)
+    i32 (img, row, planar col), val (E,) i32) escape lists; ``qtabs`` (B,
+    128) f32 natural-order tables, luma then chroma; ``stacks`` (wv_y,
+    wh_y, wv_c, wh_c) folded f32 stacks (U, k, O, rows) / (U, k, P, nblk);
+    ``bands`` their :func:`folded_bands` tables (computed here when None;
+    the engine caches them beside its stacks); ``vidx`` (B,) i32.
+
+    Returns the packed (B, O·P + 2·Oc·Pc) u8 studio-range planes, or with
+    ``centered`` the three (B, O, P) i8 centred full-range planes."""
     global LAUNCHES
-    B, rows, pw, U, O, P, nblk = _check(dc16, ac16, qt, wv_f, wh_f, vidx, k)
-    if dc16.device.type == "cpu":
-        return folded_plane_plain(dc16, ac16, qt, wv_f, wh_f, vidx, k, luma,
-                                  centered)
-    if dc16.device.type != "cuda":
-        raise ValueError(f"no K1 kernel for device {dc16.device}")
+    if bands is None:
+        bands = tuple(folded_bands(s) for s in stacks)
+    B, U, dims = _check(dcs, acs, escs, qtabs, stacks, bands, vidx, k)
+    dev = dcs[0].device
+    if dev.type == "cpu":
+        return folded_planes_i8_plain(dcs, acs, escs, qtabs, stacks, bands,
+                                      vidx, k, centered)
+    if dev.type != "cuda":
+        raise ValueError(f"no K1 kernel for device {dev}")
     from imagekit_tpu_torch.ops import _build
 
     lib = _build.load()
-    out = torch.empty((B, O, P), dtype=torch.int8 if centered else torch.uint8,
-                      device=dc16.device)
-    with torch.cuda.device(dc16.device):
-        stream = torch.cuda.current_stream(dc16.device).cuda_stream
-        rc = lib.ik_jpeg8_folded_plane(
-            dc16.data_ptr(), ac16.data_ptr(), qt.data_ptr(), wv_f.data_ptr(),
-            wh_f.data_ptr(), vidx.data_ptr(), out.data_ptr(),
-            B, rows, pw, ac16.shape[2], nblk, O, P, U, k, int(luma),
-            int(centered), stream,
-        )
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        out, rc = _launch(lib, stream, dcs, acs, escs, qtabs, stacks, bands,
+                          vidx, k, centered, B, U, dims)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError_t {rc}")
     with _launch_lock:
@@ -97,14 +158,71 @@ def folded_plane(dc16, ac16, qt, wv_f, wh_f, vidx, k: int, luma: bool,
     return out
 
 
+def _launch(lib, stream, dcs, acs, escs, qtabs, stacks, bands, vidx, k,
+            centered, B, U, dims):
+    """Allocate the outputs and call the C entry point; returns (outputs,
+    cudaError_t)."""
+    dev = dcs[0].device
+    sizes = [O * P for (_, _, _, _, O, P) in dims]
+    if centered:
+        out = tuple(torch.empty((B, O, P), dtype=torch.int8, device=dev)
+                    for (_, _, _, _, O, P) in dims)
+        out_ptrs = [o.data_ptr() for o in out]
+        strides = sizes
+    else:
+        out = torch.empty((B, sum(sizes)), dtype=torch.uint8, device=dev)
+        base = out.data_ptr()
+        out_ptrs = [base, base + sizes[0], base + sizes[0] + sizes[1]]
+        strides = [sum(sizes)] * 3
+    ptrs, ints = [], []
+    for p in range(3):
+        wv, wh = stacks[:2] if p == 0 else stacks[2:]
+        bv, bh = bands[:2] if p == 0 else bands[2:]
+        ei, ev = escs[p]
+        ptrs += [dcs[p].data_ptr(), acs[p].data_ptr(), ei.data_ptr(),
+                 ev.data_ptr(), wv.data_ptr(), wh.data_ptr(), bv.data_ptr(),
+                 bh.data_ptr(), out_ptrs[p]]
+        ints += [*dims[p], ei.shape[0], int(p == 0), strides[p]]
+    rc = lib.ik_jpeg8_folded_planes(
+        (ctypes.c_void_p * len(ptrs))(*ptrs),
+        (ctypes.c_longlong * len(ints))(*ints),
+        qtabs.data_ptr(), vidx.data_ptr(), B, U, k, int(centered), stream,
+    )
+    return out, rc
+
+
+def folded_planes_i8_plain(dcs, acs, escs, qtabs, stacks, bands, vidx,
+                           k: int, centered: bool = False):
+    """Plain PyTorch version of the kernel: :func:`widen_scatter` and
+    :func:`folded_plane_plain` per plane, then the u8 pack. ``bands`` is
+    accepted and unused: the dense product is the banded one."""
+    del bands
+    qt_l, qt_c = qt_lowfreq(qtabs, k)
+    planes = []
+    for p in range(3):
+        luma = p == 0
+        wv, wh = stacks[:2] if luma else stacks[2:]
+        ac16 = widen_scatter(acs[p], *escs[p])
+        planes.append(folded_plane_plain(dcs[p], ac16, qt_l if luma else qt_c,
+                                         wv, wh, vidx, k, luma, centered))
+    if centered:
+        return tuple(planes)
+    B = dcs[0].shape[0]
+    return torch.cat([pl.reshape(B, -1) for pl in planes], dim=1)
+
+
 def folded_plane_plain(dc16, ac16, qt, wv_f, wh_f, vidx, k: int, luma: bool,
                        centered: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, in the reference's float order
-    (``pallas_jpeg8.py:89-123``)."""
+    """One plane: dc16 (B, rows, pw) i16, ac16 (B, rows, (k²-1)·p) i16 with
+    escapes added, qt (B, k²) dequant scales -> (B, O, P) u8 (i8 when
+    ``centered``), in the reference's float order
+    (``pallas_jpeg8.py:89-123``). An index outside the stacks is clamped,
+    as a JAX gather clamps it."""
     nblk = wh_f.shape[3]
     p = ac16.shape[2] // (k * k - 1)
-    wv = wv_f[vidx.long()]  # (B, k, O, rows)
-    wh = wh_f[vidx.long()]  # (B, k, P, nblk)
+    ui = vidx.long().clamp(0, wv_f.shape[0] - 1)
+    wv = wv_f[ui]  # (B, k, O, rows)
+    wh = wh_f[ui]  # (B, k, P, nblk)
     out = None
     for v in range(k):
         Pv = None
@@ -146,24 +264,3 @@ def qt_lowfreq(qtabs: torch.Tensor, k: int):
     idx = torch.as_tensor(_lowfreq_indices(k), device=qtabs.device).long()
     return (qtabs[:, :64][:, idx] * (k / 8.0),
             qtabs[:, 64:][:, idx] * (k / 8.0))
-
-
-def decode_resize_i8(y_dc, y_ac, cb_dc, cb_ac, cr_dc, cr_ac,
-                     ey_idx, ey_val, eb_idx, eb_val, er_idx, er_val,
-                     qtabs, wv_y_f, wh_y_f, wv_c_f, wh_c_f, vidx,
-                     k: int) -> torch.Tensor:
-    """Counterpart of ``_decode_resize_i8_pallas`` (``pallas_jpeg8.py:180``):
-    the i16 widen and escape scatter as torch ops, then K1 once per plane,
-    then the packed (B, O·P + 2·Oc·Pc) u8 output."""
-    qt_l, qt_c = qt_lowfreq(qtabs, k)
-    qt_l, qt_c = qt_l.contiguous(), qt_c.contiguous()
-    planes = [
-        folded_plane(y_dc, widen_scatter(y_ac, ey_idx, ey_val), qt_l,
-                     wv_y_f, wh_y_f, vidx, k, luma=True),
-        folded_plane(cb_dc, widen_scatter(cb_ac, eb_idx, eb_val), qt_c,
-                     wv_c_f, wh_c_f, vidx, k, luma=False),
-        folded_plane(cr_dc, widen_scatter(cr_ac, er_idx, er_val), qt_c,
-                     wv_c_f, wh_c_f, vidx, k, luma=False),
-    ]
-    B = y_dc.shape[0]
-    return torch.cat([pl.reshape(B, -1) for pl in planes], dim=1)

@@ -25,7 +25,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from imagekit_tpu.utils.sized_cache import SizedArrayCache
+from imagekit_tpu_torch.utils.sized_cache import SizedArrayCache
 
 # ---------------------------------------------------------------------------
 # Filter kernels (ops/resize.py:43-98)

@@ -5,8 +5,7 @@
 - :mod:`imagekit_tpu_torch.serving.batcher`     — the batched engine core;
 - :mod:`imagekit_tpu_torch.serving.engine_jpeg` — the JPEG -> WebP head;
 - :mod:`imagekit_tpu_torch.serving.engine_rgb`  — the RGB-source (PNG) head;
-- :mod:`imagekit_tpu_torch.serving.engine`      — the engine interface.
-
-Metrics and rate limiting are the reference's own
-(:mod:`imagekit_tpu.serving.metrics`, :mod:`imagekit_tpu.serving.ratelimit`).
+- :mod:`imagekit_tpu_torch.serving.engine`      — the engine interface;
+- :mod:`imagekit_tpu_torch.serving.metrics`,
+  :mod:`imagekit_tpu_torch.serving.ratelimit`    — copies of the reference's.
 """

@@ -29,22 +29,29 @@ from typing import Mapping, Optional, Tuple
 
 from aiohttp import web
 
-from imagekit_tpu.cache import Cache, DiskCache, KVCache, cloudflare_cache_headers
-from imagekit_tpu.config import (
+from imagekit_tpu_torch import __version__
+from imagekit_tpu_torch.cache import (
+    Cache,
+    DiskCache,
+    KVCache,
+    cloudflare_cache_headers,
+)
+from imagekit_tpu_torch.config import (
     DEFAULT_CACHE_CONTROL,
     DEFAULT_QUALITY,
     NO_CACHE_CONTROL,
     ImageFormat,
     ImageKitConfig,
 )
-from imagekit_tpu.errors import EngineOverloaded, ImageKitError
-from imagekit_tpu.fetch import Fetcher
-from imagekit_tpu.serving.metrics import METRICS, Metrics
-from imagekit_tpu.serving.ratelimit import GcraLimiter
-from imagekit_tpu_torch import __version__
-from imagekit_tpu_torch.errors import NotPortedError
-from imagekit_tpu_torch.fetch import fetch_source
+from imagekit_tpu_torch.errors import (
+    EngineOverloaded,
+    ImageKitError,
+    NotPortedError,
+)
+from imagekit_tpu_torch.fetch import Fetcher, fetch_source
 from imagekit_tpu_torch.serving.engine import TransformEngine
+from imagekit_tpu_torch.serving.metrics import METRICS, Metrics
+from imagekit_tpu_torch.serving.ratelimit import GcraLimiter
 
 logger = logging.getLogger("imagekit")
 
@@ -208,7 +215,11 @@ async def img_handler(request: web.Request) -> web.Response:
     except QueryError as e:
         return web.Response(status=400, text=f"Failed to deserialize query string: {e}")
 
-    from imagekit_tpu.signature import SignatureError, error_to_http, verify_signature
+    from imagekit_tpu_torch.signature import (
+        SignatureError,
+        error_to_http,
+        verify_signature,
+    )
 
     try:
         verify_signature(params, sig, state.config.secret)
@@ -310,7 +321,7 @@ async def sign_handler(request: web.Request) -> web.Response:
     except QueryError as e:
         return web.Response(status=400, text=f"Failed to deserialize query string: {e}")
 
-    from imagekit_tpu.signature import canonical_string, sign
+    from imagekit_tpu_torch.signature import canonical_string, sign
 
     canonical = canonical_string(params)
     sig = sign(params, state.config.secret)
@@ -461,7 +472,7 @@ async def debug_trace_handler(request: web.Request) -> web.Response:
 async def pipelines_handler(request: web.Request) -> web.Response:
     """``GET /stats/pipelines``: the declarative stage split per output
     family."""
-    from imagekit_tpu.models.pipelines import describe
+    from imagekit_tpu_torch.models.pipelines import describe
 
     return web.json_response(describe())
 
@@ -613,7 +624,7 @@ def create_app(
 
         async def trim_loop():
             # return freed arena memory to the OS periodically
-            from imagekit_tpu.utils import malloc_trim
+            from imagekit_tpu_torch.utils import malloc_trim
 
             while True:
                 await asyncio.sleep(30.0)
@@ -640,7 +651,7 @@ def run(port: Optional[int] = None, device: str = "cuda") -> None:
         level=os.environ.get("IMAGEKIT_LOG", "INFO").upper(),
         format="%(asctime)s %(levelname)s %(name)s %(message)s",
     )
-    from imagekit_tpu.utils import limit_malloc_arenas
+    from imagekit_tpu_torch.utils import limit_malloc_arenas
 
     limit_malloc_arenas()  # before any thread pool spawns
     config = ImageKitConfig.from_env()

@@ -10,9 +10,9 @@ from typing import Tuple
 
 import numpy as np
 
-from imagekit_tpu.config import ImageFormat
-from imagekit_tpu.utils.sized_cache import SizedArrayCache
+from imagekit_tpu_torch.config import ImageFormat
 from imagekit_tpu_torch.ops.weights import padded_weights
+from imagekit_tpu_torch.utils.sized_cache import SizedArrayCache
 
 
 @dataclass

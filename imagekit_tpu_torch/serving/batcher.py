@@ -34,20 +34,22 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from imagekit_tpu.codecs import SourceFormat, guess_format
-from imagekit_tpu.config import ImageFormat, ImageKitConfig
-from imagekit_tpu.errors import EngineOverloaded, TransformError
-from imagekit_tpu.serving.metrics import METRICS, Metrics
-from imagekit_tpu.utils.bucketing import bucket_for
-from imagekit_tpu.utils.sized_cache import SizedArrayCache
-from imagekit_tpu_torch.codecs import png
+from imagekit_tpu_torch.codecs import SourceFormat, guess_format, png
+from imagekit_tpu_torch.config import ImageFormat, ImageKitConfig
 from imagekit_tpu_torch.device import resolve_device
-from imagekit_tpu_torch.errors import NotPortedError
+from imagekit_tpu_torch.errors import (
+    EngineOverloaded,
+    NotPortedError,
+    TransformError,
+)
 from imagekit_tpu_torch.ops.weights import target_dimensions
 from imagekit_tpu_torch.serving.batch_types import _BucketKey, _Item
 from imagekit_tpu_torch.serving.engine import TransformEngine
 from imagekit_tpu_torch.serving.engine_jpeg import JpegPathMixin
 from imagekit_tpu_torch.serving.engine_rgb import RgbPathMixin
+from imagekit_tpu_torch.serving.metrics import METRICS, Metrics
+from imagekit_tpu_torch.utils.bucketing import bucket_for
+from imagekit_tpu_torch.utils.sized_cache import SizedArrayCache
 
 
 class BatchedEngine(RgbPathMixin, JpegPathMixin, TransformEngine):
@@ -130,14 +132,12 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, TransformEngine):
         if src == SourceFormat.png:
             return await self._pool_run("decode_png", png.decode, data)
         if src == SourceFormat.jpeg:
-            from imagekit_tpu.codecs.native import jpeg_abi, loader
+            from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
 
-            lib = loader.load()
-            if lib is not None:
-                try:
-                    jpeg_abi.parse(lib, data)
-                except jpeg_abi.NativeJpegError as e:
-                    raise TransformError(f"JPEG decode failed: {e}") from e
+            try:
+                jpeg_abi.parse(loader.load(), data)
+            except jpeg_abi.NativeJpegError as e:
+                raise TransformError(f"JPEG decode failed: {e}") from e
             raise NotPortedError("JPEG pixel decode", "queue 1 item 10")
         raise _source_not_ported(src)
 
@@ -233,12 +233,11 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, TransformEngine):
             raise NotPortedError(
                 "an image beyond the bucket ladder", "queue 1 item 11"
             ) from None
-        from imagekit_tpu.codecs import vp8 as vp8_native
-        from imagekit_tpu.codecs.native import loader
+        from imagekit_tpu_torch.codecs import vp8 as vp8_native
 
         if ch == 3 and fmt == ImageFormat.webp and vp8_native.available():
             okind = "yuv"
-        elif ch == 3 and fmt == ImageFormat.jpeg and loader.load() is not None:
+        elif ch == 3 and fmt == ImageFormat.jpeg:
             okind = "jpg"
         elif ch != 3:
             raise NotPortedError(
@@ -327,7 +326,7 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, TransformEngine):
         n = len(queue)
         if n < 2:
             return False
-        from imagekit_tpu.utils.bucketing import BATCH_SIZES
+        from imagekit_tpu_torch.utils.bucketing import BATCH_SIZES
 
         steps = sorted(
             {b for b in BATCH_SIZES if b < self.max_batch} | {self.max_batch}

@@ -12,7 +12,7 @@ from typing import Optional
 
 import numpy as np
 
-from imagekit_tpu.config import ImageFormat
+from imagekit_tpu_torch.config import ImageFormat
 
 
 class TransformEngine:

@@ -7,10 +7,10 @@ resize:
 - ``"yuv"``, WebP output, truncated decode (k = 2 or 4) on the split-int8
   transport: one call of
   :func:`imagekit_tpu_torch.ops.dct.decode_resize_yuv_lowfreq_i8_batch`
-  (three K1 launches on CUDA) -> studio-range planes -> host VP8 encode;
+  (one K1 launch on CUDA) -> studio-range planes -> host VP8 encode;
 - ``"jxc"``, JPEG output (the JPEG -> JPEG transcode), k = 2, 4 or 8 on the
   split-int8 transport: one call of
-  :func:`imagekit_tpu_torch.ops.dct.transcode_i8_batch` (three K1 launches
+  :func:`imagekit_tpu_torch.ops.dct.transcode_i8_batch` (one K1 launch
   with the centred epilogue for k < 8) -> int16 target levels -> host
   Huffman encode;
 - ``"rgb"``, a jxc item whose escapes overflow the split transport: it is
@@ -32,15 +32,14 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from imagekit_tpu.config import ImageFormat
-from imagekit_tpu.errors import TransformError
-from imagekit_tpu.utils.bucketing import batch_bucket, bucket_for
-from imagekit_tpu_torch.errors import NotPortedError
+from imagekit_tpu_torch.config import ImageFormat
+from imagekit_tpu_torch.errors import NotPortedError, TransformError
 from imagekit_tpu_torch.ops.dct import (
     decode_resize_rgb_batch,
     decode_resize_yuv_lowfreq_i8_batch,
     transcode_i8_batch,
 )
+from imagekit_tpu_torch.ops.jpeg8 import folded_bands
 from imagekit_tpu_torch.ops.resize_strip import band_table
 from imagekit_tpu_torch.ops.weights import (
     combined_chroma_half_weights,
@@ -60,6 +59,7 @@ from imagekit_tpu_torch.serving.jpeg_transport import (
     _pack_int16,
     _pack_split,
 )
+from imagekit_tpu_torch.utils.bucketing import batch_bucket, bucket_for
 
 
 class JpegPathMixin:
@@ -71,7 +71,7 @@ class JpegPathMixin:
         fmt: ImageFormat,
         quality: int,
     ) -> bytes:
-        from imagekit_tpu.codecs.native import jpeg_abi, loader
+        from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
 
         if fmt == ImageFormat.webp:
             kind = "yuv"
@@ -82,8 +82,6 @@ class JpegPathMixin:
                 f"JPEG -> {fmt.value} output", "queue 1 item 7"
             )
         lib = loader.load()
-        if lib is None:
-            raise TransformError("native JPEG codec library unavailable")
         loop = asyncio.get_running_loop()
         self._ensure_flusher(loop)
 
@@ -280,11 +278,12 @@ class JpegPathMixin:
                     if kind == "jxc":
                         return transcode_i8_batch(
                             *split, put(qto), weights, put(vidx),
-                            block_dims, (obh, obw), k, device=self.device,
+                            block_dims, (obh, obw), k, bands=bands,
+                            device=self.device,
                         )
                     return decode_resize_yuv_lowfreq_i8_batch(
                         *split, weights, put(vidx), block_dims, (obh, obw),
-                        k, device=self.device,
+                        k, bands=bands, device=self.device,
                     )
 
             self._inflight += 1
@@ -319,7 +318,7 @@ class JpegPathMixin:
         ``encode_bytes`` JPEG arm (``codecs/__init__.py:204-219``, quality
         clamped to [1, 100]) through ``codecs/jpeg.py:53-63``, with the
         numpy fDCT mirror it uses for cold shapes (``dct.py:1824``)."""
-        from imagekit_tpu.codecs.native import loader
+        from imagekit_tpu_torch.codecs.native import loader
 
         img = np.ascontiguousarray(out[i, : it.out_h, : it.out_w])
         q = int(min(max(it.quality, 1), 100))
@@ -332,8 +331,9 @@ class JpegPathMixin:
 
     def _jpeg_weights(self, key, items, u_keys):
         """The weight stacks for this set of geometries, kept on the
-        engine's device across batches (``engine_jpeg.py:366-452``), and
-        for the RGB head their band tables (else None):
+        engine's device across batches (``engine_jpeg.py:366-452``), with
+        their band tables for K1 (k < 8, :func:`jpeg8.folded_bands`) and
+        for the RGB head's K3 (else None):
 
         - k < 8: (U, k, O, nblk) folded lowfreq stacks;
         - k = 8: full-resolution luma stacks, and chroma to HALF output
@@ -405,8 +405,10 @@ class JpegPathMixin:
             # OUTPUT rows stay valid
             stacks = [fold_lowfreq_weights(w_, k) for w_ in stacks]
         stacks = [torch.from_numpy(w_) for w_ in stacks]
-        bands = (tuple(band_table(s).to(self.device) for s in stacks)
-                 if kind == "rgb" else None)
+        band_of = (folded_bands if k < 8
+                   else band_table if kind == "rgb" else None)
+        bands = (tuple(band_of(s).to(self.device) for s in stacks)
+                 if band_of else None)
         cached = (tuple(s.to(self.device) for s in stacks), bands)
         self._dweights.put(wkey, cached)
         return cached
@@ -414,7 +416,7 @@ class JpegPathMixin:
     async def _encode_yuv(self, y, cb, cr, q: int) -> bytes:
         """WebP encode from device-produced studio-range 4:2:0 planes:
         only the VP8 bitstream runs on the host."""
-        from imagekit_tpu.codecs import vp8 as vp8_native
+        from imagekit_tpu_torch.codecs import vp8 as vp8_native
 
         return await self._pool_run(
             "encode", vp8_native.encode_yuv420, y, cb, cr, q

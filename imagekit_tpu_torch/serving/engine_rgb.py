@@ -21,7 +21,6 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from imagekit_tpu.utils.bucketing import batch_bucket
 from imagekit_tpu_torch.ops.color import resample_rgb_yuv_batch
 from imagekit_tpu_torch.ops.dct import resample_rgb_jpeg_batch
 from imagekit_tpu_torch.ops.resize_strip import band_table
@@ -32,6 +31,7 @@ from imagekit_tpu_torch.serving.batch_types import (
     _Item,
     _settle,
 )
+from imagekit_tpu_torch.utils.bucketing import batch_bucket
 
 
 class RgbPathMixin:
@@ -116,7 +116,7 @@ class RgbPathMixin:
             vb[i, :ch2, :cw2], it.quality))
 
     async def _finish_jpg(self, out, i: int, it: _Item) -> None:
-        from imagekit_tpu.codecs.native import loader
+        from imagekit_tpu_torch.codecs.native import loader
 
         ylv, cblv, crlv = out
         mby = (it.out_h + 15) // 16 * 2

@@ -18,7 +18,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from imagekit_tpu.config import ImageFormat
+from imagekit_tpu_torch.config import ImageFormat
 from imagekit_tpu_torch.ops.weights import LOWFREQ_ESC_C, LOWFREQ_ESC_Y, pad128
 
 

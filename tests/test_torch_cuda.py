@@ -1,6 +1,6 @@
-"""Tests of the port that need an NVIDIA GPU: K1 and K2 (CUDA kernels, with
-no CPU mode) against their plain PyTorch versions, and the engine on the
-card against the engine on the CPU, for JPEG and PNG sources.
+"""Tests of the port that need an NVIDIA GPU: K1, K2, K3 and K4 (CUDA
+kernels, with no CPU mode) against their plain PyTorch versions, and the
+engine on the card against the engine on the CPU, for JPEG and PNG sources.
 
 Each test skips where ``torch.cuda.is_available()`` is false; the
 condition is a string, evaluated when the test runs, never at import.
@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from imagekit_tpu_torch.ops import dct, jpeg8, resize_strip
+from imagekit_tpu_torch.ops import jpeg8, resize_strip
 from imagekit_tpu_torch.ops.weights import (
     LOWFREQ_ESC_C,
     LOWFREQ_ESC_Y,
@@ -75,61 +75,155 @@ def _inputs(k, B=3, U=4, by=16, bx=32, cy=8, cx=16, obh=64, obw=128, seed=0):
             w(obh // 2, cy), w(obw // 2, cx), vidx], (by, bx, cy, cx)
 
 
-@needs_card
-@pytest.mark.parametrize("k", [2, 4])
-def test_kernel_head_matches_plain_head(k):
-    arrays, (by, bx, cy, cx) = _inputs(k, seed=k)
-    flat = to_port(arrays, "cuda")
-    before = jpeg8.LAUNCHES
-    got = jpeg8.decode_resize_i8(*flat, k=k)
-    torch.cuda.synchronize()
-    assert jpeg8.LAUNCHES == before + 3
-    want = dct.decode_resize_yuv_lowfreq_i8(
-        *flat, by_b=by, bx_b=bx, cy_b=cy, cx_b=cx, k=k)
-    assert got.dtype == torch.uint8 and got.shape == want.shape
-    assert_band(got, want)
-    assert 0.2 < float(((got > 0) & (got < 255)).float().mean())  # unclipped
+def _grouped(arrays, device="cuda"):
+    """``_inputs``' flat arrays as ``folded_planes_i8`` takes them:
+    (dcs, acs, escs, qtabs, stacks, vidx), on ``device``."""
+    f = to_port(arrays, device)
+    return ((f[0], f[2], f[4]), (f[1], f[3], f[5]),
+            ((f[6], f[7]), (f[8], f[9]), (f[10], f[11])), f[12],
+            tuple(f[13:17]), f[17])
+
+
+def _flagship(k, B, seed):
+    """The flagship bucket's real folded stacks (1088x1920 -> 240x400, four
+    geometries, built as the engine builds them) and seeded levels."""
+    from imagekit_tpu_torch.ops.weights import (
+        lowfreq_chroma_half_weights,
+        lowfreq_luma_weights,
+    )
+
+    rng = np.random.default_rng(seed)
+    geoms = [(1920, 1080, 400, 225), (1904, 1072, 397, 223),
+             (1888, 1064, 393, 222), (1872, 1056, 390, 220)]
+    raw = [np.zeros((4, 240, 272 * k // 2), np.float32),
+           np.zeros((4, 400, 480 * k // 2), np.float32),
+           np.zeros((4, 120, 136 * k // 2), np.float32),
+           np.zeros((4, 200, 240 * k // 2), np.float32)]
+    for u, (iw, ih, ow, oh) in enumerate(geoms):
+        raw[0][u] = lowfreq_luma_weights(ih, oh, k, 1088 * k // 8, 240)
+        raw[1][u] = lowfreq_luma_weights(iw, ow, k, 1920 * k // 8, 400)
+        raw[2][u] = lowfreq_chroma_half_weights((ih + 1) // 2, ih, oh,
+                                                1088 * k // 16, 120, k)
+        raw[3][u] = lowfreq_chroma_half_weights((iw + 1) // 2, iw, ow,
+                                                1920 * k // 16, 200, k)
+    stacks = [fold_lowfreq_weights(w, k) for w in raw]
+    by, bx, cy, cx = 136, 240, 68, 120
+    arrays = [rng.integers(-600, 600, (B, by, pad128(bx))).astype(np.int16),
+              rng.integers(-40, 40, (B, by, lowfreq_ac_width(bx, k))).astype(np.int8)]
+    for _ in range(2):
+        arrays += [rng.integers(-300, 300, (B, cy, pad128(cx))).astype(np.int16),
+                   rng.integers(-30, 30, (B, cy, lowfreq_ac_width(cx, k))).astype(np.int8)]
+    for cap in (LOWFREQ_ESC_Y, LOWFREQ_ESC_C, LOWFREQ_ESC_C):
+        arrays += [np.zeros((cap, 3), np.int32), np.zeros(cap, np.int32)]
+    arrays += [(rng.random((B, 128)) * 8 + 1).astype(np.float32), *stacks,
+               (np.arange(B) % 4).astype(np.int32)]
+    return arrays, (by, bx, cy, cx)
+
+
+def _fill_escapes(arrays, dims, k, case, seed=0):
+    """Escape lists for the card-only cases: ``full`` fills every list to
+    capacity at random sites; ``one_row`` puts all 4096 luma escapes in one
+    image's one row (shared-memory atomic contention); ``band_edge`` puts
+    them on the first and last rows of some output rows' bands."""
+    rng = np.random.default_rng(seed)
+    B = arrays[0].shape[0]
+    na = k * k - 1
+    by, bx, cy, cx = dims
+    planes = ((6, by, bx), (8, cy, cx), (10, cy, cx))
+    for i, (at, rows, nblk) in enumerate(planes):
+        idx, val = arrays[at], arrays[at + 1]
+        n = len(val)
+        if case == "full" or (case != "none" and i > 0):
+            idx[:, 0] = rng.integers(0, B, n)
+            idx[:, 1] = rng.integers(0, rows, n)
+        elif case == "one_row":
+            idx[:, 0] = B - 1
+            idx[:, 1] = rows // 2
+        elif case == "band_edge":
+            band = jpeg8.folded_bands(torch.from_numpy(arrays[13]))[0]
+            edges = torch.cat([band[:, 0], band[:, 1] - 1]).clamp(0, rows - 1)
+            idx[:, 0] = rng.integers(0, B, n)
+            idx[:, 1] = edges.numpy()[rng.integers(0, len(edges), n)]
+        if case == "none":
+            continue
+        # distinct (plane, column) sites per row keep the i16 plain scatter
+        # in range; several per site where the list is longer than the row
+        site = rng.permutation(n) if case != "one_row" else np.arange(n)
+        idx[:, 2] = (site % na) * pad128(nblk) + (site // na) % nblk
+        val[:] = rng.integers(-200, 200, n)
 
 
 @needs_card
 @pytest.mark.parametrize("centered", [False, True])
-@pytest.mark.parametrize("luma", [True, False])
+@pytest.mark.parametrize("batch", [1, 32])
 @pytest.mark.parametrize("k", [2, 4])
-def test_kernel_plane_matches_plain_plane(k, luma, centered):
-    arrays, _ = _inputs(k, seed=10 + k)
-    f = to_port(arrays, "cuda")
-    dc, ac, (ei, ev) = (f[0], f[1], f[6:8]) if luma else (f[2], f[3], f[8:10])
-    qt = jpeg8.qt_lowfreq(f[12], k)[0 if luma else 1].contiguous()
-    wv, wh = (f[13], f[14]) if luma else (f[15], f[16])
-    args = (dc, jpeg8.widen_scatter(ac, ei, ev), qt, wv, wh, f[17])
-    got = jpeg8.folded_plane(*args, k, luma, centered)
-    want = jpeg8.folded_plane_plain(*args, k, luma, centered)
-    assert got.dtype == (torch.int8 if centered else torch.uint8)
-    assert_band(got, want)
+def test_kernel_head_matches_plain_head(k, batch, centered):
+    """One K1 launch for the three planes against the plain version, at
+    the flagship's real banded stacks, escapes live, both epilogues."""
+    arrays, dims = _flagship(k, batch, seed=k + batch)
+    _fill_escapes(arrays, dims, k, "full", seed=k)
+    g = _grouped(arrays)
+    before = jpeg8.LAUNCHES
+    got = jpeg8.folded_planes_i8(*g[:5], None, g[5], k, centered=centered)
+    torch.cuda.synchronize()
+    assert jpeg8.LAUNCHES == before + 1
+    want = jpeg8.folded_planes_i8_plain(*g[:5], None, g[5], k, centered)
+    pairs = zip(got, want) if centered else [(got, want)]
+    for a, b in pairs:
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert_band(a, b)
+        if not centered:
+            assert 0.2 < float(((a > 0) & (a < 255)).float().mean())
+
+
+@needs_card
+@pytest.mark.parametrize("centered", [False, True])
+@pytest.mark.parametrize("case", ["full", "one_row", "band_edge", "vidx_oob",
+                                  "dense_small"])
+def test_kernel_plane_matches_plain_plane(case, centered):
+    """The escape and index corner cases: lists filled to capacity, all
+    4096 luma escapes in one row, escapes on band-edge rows, ``vidx``
+    outside the stacks (clamped by both), and dense (unbanded) stacks at
+    small shapes; k=2 at B=32, and k=4 for the dense case."""
+    if case == "dense_small":
+        arrays, dims = _inputs(4, B=32, seed=7)
+        k = 4
+    else:
+        k = 2
+        arrays, dims = _flagship(k, 32, seed=3)
+        if case == "vidx_oob":
+            arrays[17] = np.array([-5, 0, 3, 4, 99] * 6 + [1, 2], np.int32)
+    _fill_escapes(arrays, dims, k, "full" if case in ("vidx_oob", "dense_small")
+                  else case, seed=11)
+    g = _grouped(arrays)
+    got = jpeg8.folded_planes_i8(*g[:5], None, g[5], k, centered=centered)
+    want = jpeg8.folded_planes_i8_plain(*g[:5], None, g[5], k, centered)
+    torch.cuda.synchronize()
+    for a, b in (zip(got, want) if centered else [(got, want)]):
+        assert_band(a, b)
 
 
 @needs_card
 def test_kernel_refuses_non_contiguous_input():
     arrays, _ = _inputs(2)
-    f = to_port(arrays, "cuda")
-    ac16 = jpeg8.widen_scatter(f[1], f[6], f[7])
-    wide = torch.cat([ac16, ac16], dim=2)[:, :, : ac16.shape[2]]
+    dcs, acs, escs, qt, stacks, vidx = _grouped(arrays)
+    wide = torch.cat([acs[0], acs[0]], dim=2)[:, :, : acs[0].shape[2]]
     with pytest.raises(ValueError, match="contiguous"):
-        jpeg8.folded_plane(f[0], wide, jpeg8.qt_lowfreq(f[12], 2)[0].contiguous(),
-                           f[13], f[14], f[17], 2, True)
+        jpeg8.folded_planes_i8(dcs, (wide, *acs[1:]), escs, qt, stacks, None,
+                               vidx, 2)
 
 
 @needs_card
 def test_engine_on_card_matches_engine_on_cpu(monkeypatch):
     """One 1280x720 JPEG -> w=256 WebP through BatchedEngine on the card and
     on the CPU: the planes handed to the VP8 encoder agree within the band
-    and the card's run launched K1 three times."""
-    from imagekit_tpu.codecs import vp8
-    from imagekit_tpu.codecs.native import loader
-    from imagekit_tpu.config import ImageFormat, ImageKitConfig
-    from imagekit_tpu.serving.metrics import Metrics
+    and the card's run launched K1 once."""
+    from imagekit_tpu_torch.codecs import vp8
+    from imagekit_tpu_torch.codecs.native import loader
+    from imagekit_tpu_torch.config import ImageFormat, ImageKitConfig
     from imagekit_tpu_torch.ops.weights import host_encode_rgb_to_coefficients
     from imagekit_tpu_torch.serving.batcher import BatchedEngine
+    from imagekit_tpu_torch.serving.metrics import Metrics
 
     rng = np.random.default_rng(3)
     x = np.linspace(0, 255, 1280, dtype=np.float32)[None, :, None]
@@ -159,7 +253,7 @@ def test_engine_on_card_matches_engine_on_cpu(monkeypatch):
 
         before = jpeg8.LAUNCHES
         outs.append(asyncio.run(run()))
-        assert jpeg8.LAUNCHES - before == (3 if device == "cuda" else 0)
+        assert jpeg8.LAUNCHES - before == (1 if device == "cuda" else 0)
     assert vp8.dimensions(outs[0]) == vp8.dimensions(outs[1]) == (256, 144)
     for a, b in zip(*planes):
         assert_band(torch.from_numpy(a), torch.from_numpy(b))
@@ -248,12 +342,12 @@ def test_png_engine_on_card_matches_engine_on_cpu(monkeypatch, fmt):
     """One 960x540 PNG -> w=200 through BatchedEngine on the card and on the
     CPU: what the host encoder gets agrees within the band, and the card's
     run launched K2 three times."""
-    from imagekit_tpu.codecs import vp8
-    from imagekit_tpu.codecs.native import loader
-    from imagekit_tpu.config import ImageFormat, ImageKitConfig
-    from imagekit_tpu.serving.metrics import Metrics
+    from imagekit_tpu_torch.codecs import vp8
+    from imagekit_tpu_torch.codecs.native import loader
+    from imagekit_tpu_torch.config import ImageFormat, ImageKitConfig
     from imagekit_tpu_torch.ops.weights import target_dimensions
     from imagekit_tpu_torch.serving.batcher import BatchedEngine
+    from imagekit_tpu_torch.serving.metrics import Metrics
 
     imgs, *_ = _k2_inputs(B=1, bh=540, bw=960)
     data = zlib_png(imgs[0].cpu().numpy().reshape(540, 960, 3))
@@ -374,7 +468,7 @@ def block_edge_image(seed: int, w: int, h: int) -> np.ndarray:
 
 def native_jpeg(img: np.ndarray, quality: int) -> bytes:
     """A JPEG without Pillow: the port's numpy fDCT + the native encoder."""
-    from imagekit_tpu.codecs.native import loader
+    from imagekit_tpu_torch.codecs.native import loader
     from imagekit_tpu_torch.ops.weights import host_encode_rgb_to_coefficients
 
     planes, qt = host_encode_rgb_to_coefficients(img, quality)
@@ -385,16 +479,16 @@ def native_jpeg(img: np.ndarray, quality: int) -> bytes:
 @pytest.mark.parametrize("case", ["jxc_k2", "jxc_k8", "demoted"])
 def test_jpeg_to_jpeg_engine_on_card_matches_engine_on_cpu(monkeypatch, case):
     """One JPEG -> JPEG batch through BatchedEngine on the card and on the
-    CPU: a jxc batch (K1, centred epilogue, three launches at k=2), a k=8
+    CPU: a jxc batch (K1, centred epilogue, one launch at k=2), a k=8
     one, and an escape-dense source demoted to the RGB head (three K3
     launches). Levels handed to the encoder within the band; the demoted
     RGB within +-2 (a chroma step times the 1.772 of the matrix)."""
-    from imagekit_tpu.codecs.native import jpeg_abi, loader
-    from imagekit_tpu.config import ImageFormat, ImageKitConfig
-    from imagekit_tpu.serving.metrics import Metrics
+    from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
+    from imagekit_tpu_torch.config import ImageFormat, ImageKitConfig
     from imagekit_tpu_torch.ops import resize_planes as rp
     from imagekit_tpu_torch.serving import engine_jpeg
     from imagekit_tpu_torch.serving.batcher import BatchedEngine
+    from imagekit_tpu_torch.serving.metrics import Metrics
 
     if case == "demoted":
         data, w, size = native_jpeg(block_edge_image(1, 640, 480), 100), 240, (240, 180)
@@ -431,7 +525,7 @@ def test_jpeg_to_jpeg_engine_on_card_matches_engine_on_cpu(monkeypatch, case):
         k1, k3 = jpeg8.LAUNCHES, rp.LAUNCHES
         out = asyncio.run(run())
         on_card = device == "cuda"
-        assert jpeg8.LAUNCHES - k1 == (3 if on_card and case == "jxc_k2" else 0)
+        assert jpeg8.LAUNCHES - k1 == (1 if on_card and case == "jxc_k2" else 0)
         assert rp.LAUNCHES - k3 == (3 if on_card and case == "demoted" else 0)
         hdr = jpeg_abi.parse(loader.load(), out)
         assert (hdr.width, hdr.height) == size

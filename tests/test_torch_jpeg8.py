@@ -1,9 +1,15 @@
-"""The port's jpeg8 head against the JAX package's, on identical inputs.
+"""The port's jpeg8 head (K1's plain version) against the JAX package's, on
+identical inputs.
 
-The plain PyTorch head (``imagekit_tpu_torch.ops.dct``) and the plain
-version of K1 (``ops.jpeg8.folded_plane_plain``, which ``folded_plane``
-takes for CPU tensors) are held against ``decode_resize_yuv_lowfreq_i8_batch``
-with the einsum head and with the Pallas K1 in interpret mode.
+``ops.jpeg8.folded_planes_i8`` takes its plain version for CPU tensors (an
+i16 widen and escape scatter, then ``folded_plane_plain`` per plane, then
+the u8 pack or the three centred planes). It is held against the JAX
+einsum head ``_decode_resize_yuv_lowfreq_i8_kernel`` and against the
+Pallas K1 in interpret mode, on ``_mk``'s seeded inputs with escapes live
+and on batches packed from real JPEGs; its centred planes against the
+JAX jxc transcode's levels (exact at k = 2 and 4). The band tables the
+kernel loops over are checked to cover every nonzero of the folded stacks
+over the bucket ladder.
 
 Tolerance: u8 planes within max |d| <= 1 on at most 0.1% of pixels — the
 reference's own band (tests/test_pallas_jpeg8.py:72). On the CPU the two
@@ -20,9 +26,13 @@ import pytest
 import torch
 
 from imagekit_tpu.ops import pallas_jpeg8
+from imagekit_tpu.ops.dct import _decode_resize_yuv_lowfreq_i8_kernel
 from imagekit_tpu.ops.dct import decode_resize_yuv_lowfreq_i8_batch as ref_batch
+from imagekit_tpu.ops.dct import transcode_i8_batch as ref_transcode
 from imagekit_tpu_torch.ops import dct as port_dct
 from imagekit_tpu_torch.ops import jpeg8
+from imagekit_tpu_torch.ops import weights as port_w
+from imagekit_tpu_torch.utils.bucketing import bucket_for, bucket_ladder
 from imagekit_tpu_torch.weights_io import to_port
 from tests.test_pallas_jpeg8 import _mk
 
@@ -44,55 +54,76 @@ def _ref(monkeypatch, mode, args):
     return ref_batch(*args)
 
 
+def _grouped(args):
+    """``_mk``'s arrays as the port's tensors, grouped as
+    ``folded_planes_i8`` takes them: (dcs, acs, escs, qtabs, stacks,
+    vidx)."""
+    dc, ac, esc, qt, w, vidx = args[:6]
+    t = lambda xs: tuple(to_port(list(xs)))  # noqa: E731
+    return (t(dc), t(ac), tuple(t(e) for e in esc), to_port([qt])[0], t(w),
+            to_port([vidx])[0])
+
+
 @pytest.mark.parametrize("mode", ["", "interpret"])
 @pytest.mark.parametrize("k", [2, 4])
 def test_plain_head_matches_reference_on_mk(monkeypatch, k, mode):
     args = _mk(k, seed=k)
     want = _ref(monkeypatch, mode, args)
-    got = port_dct.decode_resize_yuv_lowfreq_i8_batch(*args)
+    got = port_dct.decode_resize_yuv_lowfreq_i8_batch(*args, device="cpu")
     for name, g, w in zip(("y", "cb", "cr"), got, want):
         assert_band(g, w, name)
 
 
 @pytest.mark.parametrize("k", [2, 4])
 def test_kernel_route_matches_plain_head_on_cpu(k):
-    """decode_resize_i8 (i16 widen + scatter, three folded_plane calls)
-    on CPU tensors equals the plain head (f32 widen, einsum order)."""
-    dc, ac, esc, qt, w, vidx, bd, os_, kk = _mk(k, seed=10 + k)
-    flat_args = to_port([dc[0], ac[0], dc[1], ac[1], dc[2], ac[2],
-                         esc[0][0], esc[0][1], esc[1][0], esc[1][1],
-                         esc[2][0], esc[2][1], qt, *w, vidx])
-    got = jpeg8.decode_resize_i8(*flat_args, k=k)
-    want = port_dct.decode_resize_yuv_lowfreq_i8(
-        *flat_args, by_b=bd[0], bx_b=bd[1], cy_b=bd[2], cx_b=bd[3], k=k)
+    """folded_planes_i8 on CPU tensors (one call for the three planes, the
+    packed u8 layout) against the JAX einsum kernel's flat output."""
+    args = _mk(k, seed=10 + k)
+    dc, ac, esc, qt, w, vidx, (by, bx, cy, cx), os_, kk = args
+    want = np.asarray(_decode_resize_yuv_lowfreq_i8_kernel(
+        *map(jnp.asarray, (dc[0], ac[0], dc[1], ac[1], dc[2], ac[2],
+                           esc[0][0], esc[0][1], esc[1][0], esc[1][1],
+                           esc[2][0], esc[2][1], qt, *w, vidx)),
+        by_b=by, bx_b=bx, cy_b=cy, cx_b=cx, k=k))
+    g = _grouped(args)
+    before = jpeg8.LAUNCHES
+    got = jpeg8.folded_planes_i8(*g[:5], None, g[5], k)
+    assert jpeg8.LAUNCHES == before  # the CPU takes the plain version
     assert got.dtype == torch.uint8
-    assert_band(got.numpy(), want.numpy())
+    assert_band(got.numpy(), want)
 
 
 @pytest.mark.parametrize("centered", [False, True])
 @pytest.mark.parametrize("luma", [True, False])
 @pytest.mark.parametrize("k", [2, 4])
 def test_folded_plane_matches_pallas_interpret(k, luma, centered):
-    """One plane, both epilogues: the port's folded_plane (plain version on
-    CPU) against the Pallas K1 body in interpret mode. The centred case is
-    the front of ``_transcode_i8_pallas``."""
-    dc, ac, esc, qt, w, vidx, bd, os_, kk = _mk(k, seed=20 + k)
+    """Each plane of folded_planes_i8 (plain version on the CPU), both
+    epilogues, against the Pallas K1 body in interpret mode fed the
+    reference's own i16 widen + scatter. The centred case is the front of
+    ``_transcode_i8_pallas``."""
+    args = _mk(k, seed=20 + k)
+    dc, ac, esc, qt, w, vidx, bd, os_, kk = args
     p = 0 if luma else 1
     eidx, evals = esc[p]
-    ac16 = np.array(
-        jnp.asarray(ac[p]).astype(jnp.int16)
-        .at[eidx[:, 0], eidx[:, 1], eidx[:, 2]].add(evals.astype(np.int16)))
+    ac16 = jnp.asarray(ac[p]).astype(jnp.int16).at[
+        eidx[:, 0], eidx[:, 1], eidx[:, 2]].add(evals.astype(np.int16))
     from imagekit_tpu.ops.dct import _lowfreq_indices
 
     idx = _lowfreq_indices(k)
     qt4 = (qt[:, :64] if luma else qt[:, 64:])[:, idx] * np.float32(k / 8.0)
     wv, wh = (w[0], w[1]) if luma else (w[2], w[3])
     want = np.asarray(pallas_jpeg8._folded_plane_pallas(
-        jnp.asarray(dc[p]), jnp.asarray(ac16), jnp.asarray(qt4),
-        jnp.asarray(wv), jnp.asarray(wh), jnp.asarray(vidx), k, luma=luma,
-        interpret=True, centered=centered))
-    t = to_port([dc[p], ac16, np.ascontiguousarray(qt4), wv, wh, vidx])
-    got = jpeg8.folded_plane(*t, k, luma, centered).numpy()
+        jnp.asarray(dc[p]), ac16, jnp.asarray(qt4), jnp.asarray(wv),
+        jnp.asarray(wh), jnp.asarray(vidx), k, luma=luma, interpret=True,
+        centered=centered))
+    g = _grouped(args)
+    out = jpeg8.folded_planes_i8(*g[:5], None, g[5], k, centered=centered)
+    if centered:
+        got = out[p].numpy()
+    else:
+        B, O, P = want.shape
+        start = 0 if luma else os_[0] * os_[1]
+        got = out[:, start:start + O * P].reshape(B, O, P).numpy()
     assert got.dtype == (np.int8 if centered else np.uint8)
     assert_band(got, want)
 
@@ -109,20 +140,39 @@ def test_widen_scatter_accumulates_and_zeroed_escapes_change_output():
     assert out.tolist() == [[[305, -3, -193]]]
 
     args = _mk(2, seed=9)
-    with_esc = port_dct.decode_resize_yuv_lowfreq_i8_batch(*args)
+    with_esc = port_dct.decode_resize_yuv_lowfreq_i8_batch(*args, device="cpu")
     no_esc = list(args)
     no_esc[2] = tuple((np.zeros_like(i), np.zeros_like(v)) for i, v in args[2])
-    without = port_dct.decode_resize_yuv_lowfreq_i8_batch(*no_esc)
+    without = port_dct.decode_resize_yuv_lowfreq_i8_batch(*no_esc, device="cpu")
     assert any((a != b).any() for a, b in zip(with_esc, without))
+
+
+@pytest.mark.parametrize("mode", ["", "interpret"])
+@pytest.mark.parametrize("k", [2, 4])
+def test_centred_planes_give_the_jax_jxc_levels(monkeypatch, k, mode):
+    """The centred epilogue, through the transcode's fDCT tail: the port's
+    int16 levels equal the JAX transcode's, einsum and Pallas fronts, on
+    ``_mk``'s inputs with escapes live."""
+    dc, ac, esc, qt, w, vidx, bd, os_, kk = _mk(k, seed=40 + k)
+    qt_out = (np.random.default_rng(k).random((3, 128)) * 20 + 1
+              ).astype(np.float32)
+    args = (dc, ac, esc, qt, qt_out, w, vidx, bd, os_, k)
+    monkeypatch.setenv("IMAGEKIT_PALLAS_JXC", mode)
+    assert pallas_jpeg8.jxc_enabled() == (mode == "interpret")
+    want = ref_transcode(*args)
+    got = port_dct.transcode_i8_batch(*args, device="cpu")
+    for name, g, w_ in zip(("y", "cb", "cr"), got, want):
+        assert g.dtype == np.int16 and g.shape == w_.shape, name
+        assert np.array_equal(g, w_), name
 
 
 def _real_batch(width, quality=95, n=2):
     """Batch arrays packed by the port's engine from real JPEGs (native
     i8 decode), captured at the head call."""
-    from imagekit_tpu.config import BatchConfig, ImageFormat, ImageKitConfig
-    from imagekit_tpu.serving.metrics import Metrics
+    from imagekit_tpu_torch.config import BatchConfig, ImageFormat, ImageKitConfig
     from imagekit_tpu_torch.serving import engine_jpeg
     from imagekit_tpu_torch.serving.batcher import BatchedEngine
+    from imagekit_tpu_torch.serving.metrics import Metrics
     from tests.conftest import encode_jpeg_pil, make_test_image
 
     img = make_test_image(640, 480)
@@ -171,33 +221,84 @@ def test_plain_head_matches_reference_on_real_jpegs(monkeypatch, width, k, mode)
     assert int((args[2][0][1] != 0).sum()) > 0  # luma escapes are present
     assert int((args[2][1][1] != 0).sum()) > 0  # and Cb escapes
     want = _ref(monkeypatch, mode, args)
-    got = port_dct.decode_resize_yuv_lowfreq_i8_batch(*args)
+    got = port_dct.decode_resize_yuv_lowfreq_i8_batch(*args, device="cpu")
     for name, g, w in zip(("y", "cb", "cr"), got, want):
         assert_band(g, w, name)
         assert 0 < (g > 20).mean() and (g < 250).mean() > 0.5  # not clipped
 
 
 def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
-    """folded_plane on a non-CPU tensor goes to the kernel or raises; it
+    """folded_planes_i8 on a non-CPU tensor goes to the kernel or raises; it
     never falls back to the plain version."""
-    monkeypatch.setattr(jpeg8, "folded_plane_plain",
+    monkeypatch.setattr(jpeg8, "folded_planes_i8_plain",
                         lambda *a, **k: pytest.fail("plain version taken"))
-    dc, ac, esc, qt, w, vidx, bd, os_, kk = _mk(2, seed=1)
-    t = to_port([dc[0], ac[0].astype(np.int16), qt[:, :4].copy(), w[0], w[1], vidx])
-    t = [x.to("meta") for x in t]
+    g = _grouped(_mk(2, seed=1))
+    meta = lambda xs: tuple(x.to("meta") for x in xs)  # noqa: E731
+    bands = tuple(jpeg8.folded_bands(s).to("meta") for s in g[4])
     with pytest.raises(ValueError, match="no K1 kernel"):
-        jpeg8.folded_plane(*t, 2, True)
+        jpeg8.folded_planes_i8(meta(g[0]), meta(g[1]),
+                               tuple(meta(e) for e in g[2]), g[3].to("meta"),
+                               meta(g[4]), bands, g[5].to("meta"), 2)
 
 
-@pytest.mark.parametrize("bad", ["dtype", "shape", "device"])
+@pytest.mark.parametrize("bad", ["dtype", "shape", "device", "band_shape",
+                                 "escape_shape", "k"])
 def test_folded_plane_rejects_what_the_kernel_does_not_take(bad):
-    dc, ac, esc, qt, w, vidx, bd, os_, kk = _mk(2, seed=2)
-    t = to_port([dc[0], ac[0].astype(np.int16), qt[:, :4].copy(), w[0], w[1], vidx])
+    dcs, acs, escs, qt, w, vidx = (list(x) if isinstance(x, tuple) else x
+                                   for x in _grouped(_mk(2, seed=2)))
+    bands = [jpeg8.folded_bands(s) for s in w]
+    k = 2
     if bad == "dtype":
-        t[1] = t[1].to(torch.int32)
+        acs[0] = acs[0].to(torch.int16)
     elif bad == "shape":
-        t[2] = t[2][:, :3].contiguous()
+        qt = qt[:, :64].contiguous()
+    elif bad == "device":
+        w[1] = w[1].to("meta")
+    elif bad == "band_shape":
+        bands[3] = bands[3][:, :-1].contiguous()
+    elif bad == "escape_shape":
+        escs[1] = (escs[1][0][:, :2].contiguous(), escs[1][1])
     else:
-        t[3] = t[3].to("meta")
+        k = 8
     with pytest.raises((TypeError, ValueError)):
-        jpeg8.folded_plane(*t, 2, True)
+        jpeg8.folded_planes_i8(dcs, acs, escs, qt, w, bands, vidx, k)
+
+
+# (source w, h, target w): bucket pairs of the ladder at k = 2 and 4, from
+# thumbnails of 4K sources to the flagship and its k=4 neighbour
+BAND_GEOMS = [(1920, 1080, 400), (1920, 1080, 800), (3840, 2160, 100),
+              (1280, 720, 256), (640, 480, 256), (4000, 3000, 640),
+              (1000, 700, 333), (64, 48, 16)]
+
+
+@pytest.mark.parametrize("geom", BAND_GEOMS)
+def test_folded_bands_cover_every_nonzero(geom):
+    """Each band table holds every nonzero of its folded stack (so the
+    banded loops are the dense sums), and is tight: its ends are nonzero."""
+    iw, ih, tw = geom
+    ow, oh = port_w.target_dimensions(iw, ih, tw, None)
+    yb_h = bucket_for((ih + 15) // 16 * 16)
+    yb_w = bucket_for((iw + 15) // 16 * 16)
+    obh, obw = bucket_for(oh), bucket_for(ow)
+    assert yb_h in bucket_ladder() and obw in bucket_ladder()
+    k = 2 if yb_h * 2 // 8 >= obh and yb_w * 2 // 8 >= obw else 4
+    raw = (port_w.lowfreq_luma_weights(ih, oh, k, yb_h * k // 8, obh),
+           port_w.lowfreq_luma_weights(iw, ow, k, yb_w * k // 8, obw),
+           port_w.lowfreq_chroma_half_weights((ih + 1) // 2, ih, oh,
+                                              yb_h * k // 16, obh // 2, k),
+           port_w.lowfreq_chroma_half_weights((iw + 1) // 2, iw, ow,
+                                              yb_w * k // 16, obw // 2, k))
+    for w in raw:
+        f = torch.from_numpy(port_w.fold_lowfreq_weights(w[None], k))
+        band = jpeg8.folded_bands(f)
+        assert band.dtype == torch.int32 and band.shape == (1, w.shape[0], 2)
+        nz = (f != 0).any(dim=1)[0]  # (O, n)
+        cols = torch.arange(nz.shape[1])
+        first, last = band[0, :, 0, None], band[0, :, 1, None]
+        inside = (cols >= first) & (cols < last)
+        assert not (nz & ~inside).any()  # every nonzero lies in its run
+        rows = nz.any(dim=1)
+        assert (band[0, ~rows] == 0).all()  # empty rows get (0, 0)
+        o = torch.nonzero(rows).flatten()
+        assert nz[o, band[0, o, 0].long()].all()
+        assert nz[o, band[0, o, 1].long() - 1].all()

@@ -35,18 +35,22 @@ import asyncio
 import numpy as np
 import pytest
 
-from imagekit_tpu.codecs.native import jpeg_abi, loader
-from imagekit_tpu.config import BatchConfig, ImageFormat, ImageKitConfig
+from imagekit_tpu import config as ref_config
+from imagekit_tpu.codecs.native import loader as ref_loader
 from imagekit_tpu.ops import dct as ref_dct
 from imagekit_tpu.serving.batch_types import _cached_weights
-from imagekit_tpu.serving.metrics import Metrics
-from imagekit_tpu.utils.bucketing import batch_bucket, bucket_for
+from imagekit_tpu.serving.metrics import Metrics as RefMetrics
+from imagekit_tpu_torch import config as port_config
+from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
+from imagekit_tpu_torch.config import ImageFormat
 from imagekit_tpu_torch.errors import NotPortedError
 from imagekit_tpu_torch.ops import dct, jpeg8, resize_planes
 from imagekit_tpu_torch.ops import weights as port_w
 from imagekit_tpu_torch.ops.weights import pad128
 from imagekit_tpu_torch.serving import engine_jpeg
 from imagekit_tpu_torch.serving.batcher import BatchedEngine as PortEngine
+from imagekit_tpu_torch.serving.metrics import Metrics
+from imagekit_tpu_torch.utils.bucketing import batch_bucket, bucket_for
 from tests.conftest import encode_jpeg_pil, make_test_image
 from tests.test_batcher import _noisy_jpeg
 from tests.test_torch_cuda import _inputs as _lowfreq_inputs
@@ -134,7 +138,7 @@ def test_transcode_levels_exact_against_jax(monkeypatch, k):
     args = _transcode_args(k, seed=20 + k)
     want = ref_dct.transcode_i8_batch(*args)
     before = jpeg8.LAUNCHES
-    got = dct.transcode_i8_batch(*args)
+    got = dct.transcode_i8_batch(*args, device="cpu")
     assert jpeg8.LAUNCHES == before  # the CPU takes K1's plain version
     for name, g, w in zip(("y", "cb", "cr"), got, want):
         assert g.dtype == np.int16 and g.shape == w.shape, name
@@ -142,7 +146,7 @@ def test_transcode_levels_exact_against_jax(monkeypatch, k):
             g.astype(int) - w.astype(int)).max()))
     # the escape residuals are live: without them the levels change
     args[2] = tuple((np.zeros_like(i), np.zeros_like(v)) for i, v in args[2])
-    without = dct.transcode_i8_batch(*args)
+    without = dct.transcode_i8_batch(*args, device="cpu")
     assert any((a != b).any() for a, b in zip(got, without))
     assert (got[0][..., 1:] != 0).mean() > 0.02  # AC levels, not only DC
 
@@ -197,7 +201,7 @@ def test_decode_resize_rgb_matches_jax_under_k3(k3_semantics):
             (by, bx, cy, cx), (obh, obw))
     want = ref_dct.decode_resize_rgb_batch(*args)
     before = resize_planes.LAUNCHES
-    got = dct.decode_resize_rgb_batch(*args)
+    got = dct.decode_resize_rgb_batch(*args, device="cpu")
     assert resize_planes.LAUNCHES == before  # the CPU takes K3's plain version
     assert got.dtype == np.uint8 and got.shape == want.shape == (2, obh, obw, 3)
     assert_rgb_band(got, want)
@@ -207,8 +211,10 @@ def test_decode_resize_rgb_matches_jax_under_k3(k3_semantics):
 # -- the engine ---------------------------------------------------------------------------
 
 
-def _cfg(n):
-    return ImageKitConfig(secret="s", batch=BatchConfig(
+def _cfg(n, mod=port_config):
+    """A config that flushes only full batches of ``n``, built from the
+    port's config module (or the reference's, for the JAX engine)."""
+    return mod.ImageKitConfig(secret="s", batch=mod.BatchConfig(
         max_batch=n, max_delay_ms=60_000.0, hard_delay_ms=60_000.0))
 
 
@@ -244,9 +250,10 @@ def _run_both(monkeypatch, datas, widths, sig_kind, k, src_hw):
     calls (levels in, width, height) in order, and the outputs."""
     from imagekit_tpu.serving.batcher import BatchedEngine as RefEngine
 
-    enc = _capture(monkeypatch, loader, "encode_jpeg")
+    ref_enc = _capture(monkeypatch, ref_loader, "encode_jpeg")
+    port_enc = _capture(monkeypatch, loader, "encode_jpeg")
     n = len(datas)
-    ref = RefEngine(_cfg(n), metrics=Metrics())
+    ref = RefEngine(_cfg(n, ref_config), metrics=RefMetrics())
     ih, iw = src_hw
     ow, oh = port_w.target_dimensions(iw, ih, widths[0], None)
     nb = batch_bucket(n, n)
@@ -257,11 +264,11 @@ def _run_both(monkeypatch, datas, widths, sig_kind, k, src_hw):
                            bucket_for(oh), bucket_for(ow)))
     ref_out = _drive(ref, datas, widths)
     assert ref.metrics.host_fallbacks == 0 and ref.metrics.batches == 1
-    n_ref = len(enc)
+    assert not port_enc
     port = PortEngine(_cfg(n), metrics=Metrics(), device="cpu")
     port_out = _drive(port, datas, widths)
     assert port.metrics.batches == 1
-    return enc[:n_ref], enc[n_ref:], ref_out, port_out
+    return ref_enc, port_enc, ref_out, port_out
 
 
 def _by_size(calls):
@@ -366,7 +373,7 @@ def test_jpeg_requests_outside_the_slice_are_not_ported(case):
 def test_http_img_and_upload_serve_jpeg_to_jpeg(tmp_path):
     from aiohttp import FormData
 
-    from imagekit_tpu.signature import sign
+    from imagekit_tpu_torch.signature import sign
     from tests.test_torch_slice import JPG, SECRET, _http
 
     upload = encode_jpeg_pil(make_test_image(640, 480), 90)

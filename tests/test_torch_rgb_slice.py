@@ -8,8 +8,8 @@
   same PNGs (RGB, grayscale, palette), in one batch of two geometries with
   odd output sizes: the planes handed to the VP8 encoder and the levels
   handed to the JPEG encoder.
-- The port's PNG decoder against the reference's, and that it never
-  imports Pillow.
+- The port's PNG decoder (its own copy of the native decoder) against the
+  reference's, and that it never imports Pillow.
 
 Tolerance: u8 planes and int16 levels within max |d| <= 1 on at most 0.1%
 of elements, the reference's band (tests/test_pallas_jpeg8.py:72). Seen on
@@ -26,20 +26,23 @@ import zlib
 import numpy as np
 import pytest
 
+from imagekit_tpu import config as ref_config
 from imagekit_tpu.codecs import png as ref_png
-from imagekit_tpu.codecs import vp8
-from imagekit_tpu.codecs.native import jpeg_abi, loader
-from imagekit_tpu.config import BatchConfig, ImageFormat, ImageKitConfig
-from imagekit_tpu.errors import TransformError
+from imagekit_tpu.codecs import vp8 as ref_vp8
+from imagekit_tpu.codecs.native import loader as ref_loader
 from imagekit_tpu.ops import color as ref_color
 from imagekit_tpu.ops import dct as ref_dct
 from imagekit_tpu.ops import pallas_resize
-from imagekit_tpu.serving.metrics import Metrics
-from imagekit_tpu.utils.bucketing import bucket_for
-from imagekit_tpu_torch.codecs import png
-from imagekit_tpu_torch.errors import NotPortedError
+from imagekit_tpu.serving.metrics import Metrics as RefMetrics
+from imagekit_tpu_torch import config as port_config
+from imagekit_tpu_torch.codecs import png, vp8
+from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
+from imagekit_tpu_torch.config import ImageFormat
+from imagekit_tpu_torch.errors import NotPortedError, TransformError
 from imagekit_tpu_torch.ops import color, dct, resize_strip
 from imagekit_tpu_torch.serving.batcher import BatchedEngine as PortEngine
+from imagekit_tpu_torch.serving.metrics import Metrics
+from imagekit_tpu_torch.utils.bucketing import bucket_for
 from tests.conftest import make_test_image
 from tests.test_torch_cuda import zlib_png
 from tests.test_torch_resize import _inputs, assert_band
@@ -52,7 +55,8 @@ def test_rgbyuv_head_matches_jax(monkeypatch, pallas):
     assert pallas_resize.rgb_enabled() == bool(pallas)
     want = ref_color.resample_rgb_yuv_batch(imgs, (wv, wh), vidx, hidx,
                                             (32, 128))
-    got = color.resample_rgb_yuv_batch(imgs, (wv, wh), vidx, hidx, (32, 128))
+    got = color.resample_rgb_yuv_batch(imgs, (wv, wh), vidx, hidx, (32, 128),
+                                       device="cpu")
     for name, g, w in zip("yuv", got, want):
         assert g.dtype == np.uint8
         assert_band(g, w, name)
@@ -66,7 +70,7 @@ def test_rgbjpg_head_matches_jax(monkeypatch, pallas):
     assert pallas_resize.rgbjpg_enabled() == bool(pallas)
     args = (imgs, (wv, wh), vidx, hidx, qt, (32, 128))
     want = ref_dct.resample_rgb_jpeg_batch(*args)
-    got = dct.resample_rgb_jpeg_batch(*args)
+    got = dct.resample_rgb_jpeg_batch(*args, device="cpu")
     for name, g, w in zip(("y", "cb", "cr"), got, want):
         assert g.dtype == np.int16 and g.shape == w.shape
         assert_band(g, w, name)
@@ -90,7 +94,8 @@ def test_fdct_quant_matches_jax():
 def test_heads_on_cpu_launch_no_kernel():
     imgs, wv, wh, vidx, hidx = _inputs(seed=7)
     before = resize_strip.LAUNCHES
-    color.resample_rgb_yuv_batch(imgs, (wv, wh), vidx, hidx, (32, 128))
+    color.resample_rgb_yuv_batch(imgs, (wv, wh), vidx, hidx, (32, 128),
+                                 device="cpu")
     assert resize_strip.LAUNCHES == before
 
 
@@ -119,22 +124,25 @@ GEOMS = [((321, 241), 99), ((301, 251), 97)]
 
 
 def _capture(monkeypatch):
-    """Record what each engine hands the host encoders, keyed by the output
-    size (the encodes of one batch finish in any order)."""
+    """Record what each engine hands the host encoders (the reference's
+    and the port's copies of them), keyed by the output size (the encodes
+    of one batch finish in any order)."""
     got = {}
-    real_vp8, real_jpeg = vp8.encode_yuv420, loader.encode_jpeg
 
-    def rec_vp8(y, u, v, q):
-        got.setdefault(y.shape, []).append((y.copy(), u.copy(), v.copy()))
-        return real_vp8(y, u, v, q)
+    for vp8_mod, loader_mod in ((ref_vp8, ref_loader), (vp8, loader)):
+        real_vp8, real_jpeg = vp8_mod.encode_yuv420, loader_mod.encode_jpeg
 
-    def rec_jpeg(planes, qtabs, width, height):
-        got.setdefault((height, width), []).append(
-            tuple(np.array(p) for p in planes))
-        return real_jpeg(planes, qtabs, width, height)
+        def rec_vp8(y, u, v, q, real_vp8=real_vp8):
+            got.setdefault(y.shape, []).append((y.copy(), u.copy(), v.copy()))
+            return real_vp8(y, u, v, q)
 
-    monkeypatch.setattr(vp8, "encode_yuv420", rec_vp8)
-    monkeypatch.setattr(loader, "encode_jpeg", rec_jpeg)
+        def rec_jpeg(planes, qtabs, width, height, real_jpeg=real_jpeg):
+            got.setdefault((height, width), []).append(
+                tuple(np.array(p) for p in planes))
+            return real_jpeg(planes, qtabs, width, height)
+
+        monkeypatch.setattr(vp8_mod, "encode_yuv420", rec_vp8)
+        monkeypatch.setattr(loader_mod, "encode_jpeg", rec_jpeg)
     return got
 
 
@@ -150,8 +158,8 @@ def _drive(engine, datas, fmt):
     return asyncio.run(run())
 
 
-def _cfg():
-    return ImageKitConfig(secret="s", batch=BatchConfig(
+def _cfg(mod=port_config):
+    return mod.ImageKitConfig(secret="s", batch=mod.BatchConfig(
         max_batch=2, max_delay_ms=60_000.0, hard_delay_ms=60_000.0))
 
 
@@ -163,7 +171,7 @@ def test_port_engine_matches_jax_engine_on_pngs(monkeypatch, mode, fmt):
     datas = [_png(make_test_image(w, h), mode) for (w, h), _ in GEOMS]
     got = _capture(monkeypatch)
 
-    ref = RefEngine(_cfg(), metrics=Metrics())
+    ref = RefEngine(_cfg(ref_config), metrics=RefMetrics())
     (bw, bh), (obw, obh) = (bucket_for(321), bucket_for(241)), (128, 96)
     head = "rgbyuv" if fmt == ImageFormat.webp else "rgbjpg"
     # mark the batch's signature compiled, so the JAX engine runs its device
@@ -240,12 +248,27 @@ def test_png_decoder_never_imports_pil():
 
 @pytest.mark.parametrize("case", ["unsupported", "no_library"])
 def test_unsupported_png_is_not_ported(monkeypatch, case):
-    """Where the reference falls back to Pillow, the port answers 501."""
-    class _Lib:
-        def ik_png_parse(self, data, n, info):
-            return -3
+    """Where the reference falls back to Pillow on a PNG its decoder does
+    not take, the port answers 501; where the native library cannot be
+    built, the port's loader raises with the compiler's message (the
+    reference's returned None and fell back to Pillow)."""
+    data = zlib_png(np.zeros((2, 2, 3), np.uint8))
+    if case == "unsupported":
+        class _Lib:
+            def ik_png_parse(self, data, n, info):
+                return -3
 
-    lib = _Lib() if case == "unsupported" else None
-    monkeypatch.setattr(ref_png, "_lib", lambda: lib)
-    with pytest.raises(NotPortedError, match="queue 1 item 9"):
-        png.decode(zlib_png(np.zeros((2, 2, 3), np.uint8)))
+        monkeypatch.setattr(png, "_lib", lambda: _Lib())
+        with pytest.raises(NotPortedError, match="queue 1 item 9"):
+            png.decode(data)
+        return
+
+    def failed_build():
+        raise RuntimeError("native codec build failed (1): g++ ...\n"
+                           "fatal error: zlib.h: No such file or directory")
+
+    monkeypatch.setattr(loader, "_lib", None)
+    monkeypatch.setattr(loader, "_stale", lambda: True)
+    monkeypatch.setattr(loader, "_build", failed_build)
+    with pytest.raises(RuntimeError, match="zlib.h"):
+        png.decode(data)

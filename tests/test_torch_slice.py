@@ -22,18 +22,21 @@ import numpy as np
 import pytest
 from aiohttp.test_utils import TestClient, TestServer
 
-from imagekit_tpu.cache import cloudflare_cache_headers
-from imagekit_tpu.codecs import vp8
-from imagekit_tpu.codecs.native import jpeg_abi, loader
-from imagekit_tpu.config import BatchConfig, ImageFormat, ImageKitConfig
-from imagekit_tpu.fetch import Fetcher, _BodyStream
-from imagekit_tpu.serving.metrics import Metrics
-from imagekit_tpu.signature import sign
-from imagekit_tpu.utils.bucketing import bucket_for
+from imagekit_tpu import config as ref_config
+from imagekit_tpu.codecs import vp8 as ref_vp8
+from imagekit_tpu.serving.metrics import Metrics as RefMetrics
+from imagekit_tpu_torch.cache import cloudflare_cache_headers
+from imagekit_tpu_torch.codecs import vp8
+from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
+from imagekit_tpu_torch.config import BatchConfig, ImageFormat, ImageKitConfig
 from imagekit_tpu_torch.errors import NotPortedError
+from imagekit_tpu_torch.fetch import Fetcher, _BodyStream
+from imagekit_tpu_torch.serving import jpeg_transport
 from imagekit_tpu_torch.serving.app import create_app
 from imagekit_tpu_torch.serving.batcher import BatchedEngine as PortEngine
-from imagekit_tpu_torch.serving import jpeg_transport
+from imagekit_tpu_torch.serving.metrics import Metrics
+from imagekit_tpu_torch.signature import sign
+from imagekit_tpu_torch.utils.bucketing import bucket_for
 from tests.conftest import encode_jpeg_pil, encode_png, make_test_image
 
 MAX_SHARE = 1e-3
@@ -47,22 +50,26 @@ def _cfg(max_batch=8, delay_ms=5.0):
 
 @pytest.fixture
 def captured_planes(monkeypatch):
-    """Record the (Y, Cb, Cr) planes each engine hands the VP8 encoder."""
+    """Record the (Y, Cb, Cr) planes each engine hands the VP8 encoder
+    (the reference's, or the port's copy of it)."""
     planes = []
-    real = vp8.encode_yuv420
+    for mod in (ref_vp8, vp8):
+        real = mod.encode_yuv420
 
-    def rec(y, u, v, q):
-        planes.append((y.copy(), u.copy(), v.copy()))
-        return real(y, u, v, q)
+        def rec(y, u, v, q, real=real):
+            planes.append((y.copy(), u.copy(), v.copy()))
+            return real(y, u, v, q)
 
-    monkeypatch.setattr(vp8, "encode_yuv420", rec)
+        monkeypatch.setattr(mod, "encode_yuv420", rec)
     return planes
 
 
 def _run_ref(data, w, shape):
     from imagekit_tpu.serving.batcher import BatchedEngine as RefEngine
 
-    engine = RefEngine(_cfg(), metrics=Metrics())
+    engine = RefEngine(ref_config.ImageKitConfig(
+        secret="s", batch=ref_config.BatchConfig(max_batch=8, max_delay_ms=5.0)),
+        metrics=RefMetrics())
 
     async def run():
         try:
@@ -122,8 +129,6 @@ def test_batch_over_escape_caps_splits_in_halves(captured_planes, monkeypatch):
     img[300:380, 400:520] = 0
     data = encode_jpeg_pil(img, 95)
     (alone,), _ = _run_port([data], 256)
-    from imagekit_tpu.codecs.native import jpeg_abi, loader
-
     esc = jpeg_abi.decode_lowfreq_i8(loader.load(), data, 4)[3]
     n_y = int((esc[:, 0] == 0).sum())
     assert n_y > 0
@@ -166,7 +171,7 @@ def test_off_slice_requests_raise_not_ported(case):
     elif case == "upscale_k8":
         w = 300
     elif case == "webp_src":
-        data = vp8.encode_rgb(img, 80)
+        data = ref_vp8.encode_rgb(img, 80)
     engine = PortEngine(_cfg(), metrics=Metrics(), device="cpu")
 
     async def run():
