@@ -24,13 +24,14 @@ transcode on K1, and its escape-dense demotion through the RGB head on K3):
    of the kernel, of its plain version and of a ``torch.einsum``
    yardstick, and the bound computed from the batch;
 4. K2 against its plain PyTorch version on the card: the three channels
-   of an interleaved 1088x1920 batch -> 240x400 at B in {1, 32} with
-   vidx != hidx (default epilogue), and a 544x960 -> 120x200 plane with the
-   yuvjpg luma and chroma remaps (affine + centred epilogues); the device
-   time of each at B=32, an einsum yardstick and the bound;
-5. K3 and K4 against their plain PyTorch versions on the card: luma
-   1088x1920 -> 240x400 and chroma 544x960 -> 240x400 planes (the demoted
-   RGB head's shapes) at B in {1, 32} with four vidx slots, u8 (K3) and
+   of an interleaved 1088x1920 batch -> 240x400 in one launch at B in
+   {1, 32} with vidx != hidx (default epilogue), the rgbyuv and rgbjpg
+   heads on it, and a 544x960 -> 120x200 plane with the yuvjpg luma and
+   chroma remaps (affine + centred epilogues); the device time of each at
+   B=32, an einsum yardstick and the bound;
+5. K3 and K4 against their plain PyTorch versions on the card: the
+   demoted RGB head's luma 1088x1920 and two chroma 544x960 planes ->
+   240x400 in one launch at B in {1, 32} with four vidx slots, u8 (K3) and
    f32 (K4); the device time of each at B=32, an einsum yardstick and the
    bound, and the H2D of one B=32 int16 batch of the demoted head;
 6. the JPEG engine slice: >=32 concurrent requests over 16 distinct
@@ -39,14 +40,15 @@ transcode on K1, and its escape-dense demotion through the RGB head on K3):
    plain head, requests/s and p50/p99 latency;
 7. the PNG engine slice: 64 WebP and 64 JPEG requests at once over the 16
    PNGs, outputs decoded to their size, K2's launch count checked against
-   the batch count, one batch's planes and one batch's levels checked
-   against the plain heads, requests/s, p50/p99 and the host stages;
+   the batch count (one launch per batch), one batch's planes and one
+   batch's levels checked against the plain heads, requests/s, p50/p99
+   and the host stages;
 8. the JPEG -> JPEG engine slice, three rounds, counts reset before each:
    64 concurrent w=400 requests over the 16 q80 JPEGs (jxc, k=2, one K1
    launch per batch, one batch's levels against
    the plain head with the differing levels counted); 16 w=1280 requests
    (k=8); 16 requests over 4 escape-dense q100 JPEGs, which must demote to
-   the RGB head (K3 launches checked against three per demoted batch, one
+   the RGB head (K3 launches checked against one per demoted batch, one
    batch's RGB against the plain head). Outputs parsed to their size
    (400x225, 1280x720), requests/s, p50/p99 and the host stages;
 9. HTTP ``/sign`` -> ``/img`` for JPEG and PNG sources to WebP, a JPEG to
@@ -492,8 +494,9 @@ CHROMA_H = ((960, 200), (952, 198), (944, 197), (936, 195))
 
 
 def k2_stacks(key, v_slots, h_slots):
-    """Weight stacks and band tables on the card, built by the engine's own
-    builder (edge rows replicated as the engine replicates them)."""
+    """Weight stacks and their tables (band tables and compact ``Wh``) on
+    the card, built by the engine's own builder (edge rows replicated as
+    the engine replicates them): (wv, wh, tables)."""
     from imagekit_tpu_torch.serving.batcher import BatchedEngine
     from imagekit_tpu_torch.serving.metrics import Metrics
 
@@ -513,72 +516,88 @@ def k2_index(batch: int):
 
 def phase_k2(images) -> dict:
     """``images``: the 16 synthesized 1920x1080 RGB images of the PNGs."""
-    from imagekit_tpu_torch.ops import color, resize_strip
+    from imagekit_tpu_torch.ops import color, dct, resize_strip
+    from imagekit_tpu_torch.ops.resize_strip import band_table
 
     result = {"max_abs_err": 0}
 
-    def check(what, got, ref):
+    def check(what, got, ref, band=True):
         mx, share1, over = compare(got, ref)
+        n_diff = int((got != ref).sum())
         log(f"  K2 vs plain {what} shape={tuple(got.shape)} "
-            f"dtype={got.dtype}: max|d|={mx} share(|d|=1)={share1:.3e}")
+            f"dtype={got.dtype}: max|d|={mx} share(|d|=1)={share1:.3e} "
+            f"({n_diff} of {got.numel()} differ)")
         if mx > MAX_ABS or share1 > MAX_SHARE or over:
             raise RuntimeError("K2 disagrees with its plain version")
-        result["max_abs_err"] = max(result["max_abs_err"], mx)
+        if band:
+            result["max_abs_err"] = max(result["max_abs_err"], mx)
 
-    wv, wh, bv, bh = k2_stacks((1088, 1920, 240, 400, 3, "yuv"),
-                               SLICE_V, SLICE_H)
+    wv, wh, tabs = k2_stacks((1088, 1920, 240, 400, 3, "yuv"), SLICE_V,
+                             SLICE_H)
     host = np.zeros((32, 1088, 1920 * 3), np.uint8)
     for i in range(32):
         host[i, :1080] = images[i % len(images)].reshape(1080, -1)
-    full = torch.from_numpy(host).cuda().reshape(32, 1088, 1920, 3)
+    flat = torch.from_numpy(host).cuda()
+    from imagekit_tpu_torch.ops.weights import quality_tables
+
+    qt = torch.from_numpy(np.concatenate(quality_tables(80)).astype(
+        np.float32)).cuda()
     for batch in (1, 32):
-        x = full[:batch]
+        x = flat[:batch]
         vidx, hidx = k2_index(batch)
+        before = resize_strip.LAUNCHES
+        got = resize_strip.rgb_resize(x, wv, wh, vidx, hidx, bands=tabs)
+        torch.cuda.synchronize()
+        if resize_strip.LAUNCHES != before + 1:
+            raise RuntimeError("rgb_resize did not launch K2 once")
+        ref = resize_strip.rgb_resize_plain(x, wv, wh, vidx, hidx)
         for c in range(3):
-            got = resize_strip.plane_resize(x[..., c], wv, wh, vidx, hidx,
-                                            bands=(bv, bh))
-            ref = resize_strip.plane_resize_plain(x[..., c], wv, wh, vidx,
-                                                  hidx)
-            torch.cuda.synchronize()
-            check(f"B={batch} channel {'RGB'[c]} (u8)", got, ref)
+            check(f"B={batch} channel {'RGB'[c]} (u8, one launch)", got[:, c],
+                  ref[:, c])
+        check(f"B={batch} rgbyuv head", color.rgb_yuv_head(
+            x, wv, wh, vidx, hidx, tabs), color.rgb_yuv_head(
+            x, wv, wh, vidx, hidx, tabs, resize=resize_strip.rgb_resize_plain),
+            band=False)
+        qto = qt.expand(batch, 128).contiguous()
+        check(f"B={batch} rgbjpg head levels", dct.rgb_jpeg_head(
+            x, wv, wh, vidx, hidx, qto, tabs), dct.rgb_jpeg_head(
+            x, wv, wh, vidx, hidx, qto, tabs,
+            resize=resize_strip.rgb_resize_plain), band=False)
     vidx, hidx = k2_index(32)
-
-    def three(fn):
-        return lambda: [fn(full[..., c], wv, wh, vidx, hidx, bands=(bv, bh))
-                        for c in range(3)]
-
-    ms = device_ms(three(resize_strip.plane_resize))
-    plain_ms = device_ms(three(resize_strip.plane_resize_plain))
+    ms = device_ms(lambda: resize_strip.rgb_resize(flat, wv, wh, vidx, hidx,
+                                                   bands=tabs))
+    plain_ms = device_ms(lambda: resize_strip.rgb_resize_plain(
+        flat, wv, wh, vidx, hidx))
     # yardstick: one fp32 einsum per channel over the gathered stacks and
     # the channel widened to f32 beforehand (untimed), no epilogue
     wv_g, wh_g = wv[vidx.long()], wh[hidx.long()]
+    full = flat.reshape(32, 1088, 1920, 3)
     chans = [full[..., c].float() for c in range(3)]
     library_ms = device_ms(lambda: [torch.einsum("boh,bhw,bpw->bop", wv_g, x_,
                                                wh_g) for x_ in chans])
     del chans, wv_g, wh_g
-    nbytes, flops = resize_bound(full.numel(), 3 * 32 * 240 * 400, wv, bv,
-                                 bh, vidx, hidx, 1920)
+    nbytes, flops = resize_bound(flat.numel(), 3 * 32 * 240 * 400, wv,
+                                 tabs.band_v, band_table(wh), vidx, hidx,
+                                 1920)
     bound_ms, bound_by = bound(nbytes, 3 * flops)
-    log(f"  K2 3 channels: library (3 fp32 einsums, no epilogue) "
-        f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), K2 at "
-        f"{bound_ms / ms:.1%} of it")
-    flat = full.reshape(32, 1088, -1)
     head_ms = device_ms(lambda: color.rgb_yuv_head(flat, wv, wh, vidx, hidx,
-                                                 (bv, bh)))
+                                                 tabs))
     head_plain_ms = device_ms(lambda: color.rgb_yuv_head(
-        flat, wv, wh, vidx, hidx, (bv, bh),
-        resize=resize_strip.plane_resize_plain))
-    log(f"  timing B=32 1088x1920 -> 240x400, 3 channels (device time per "
-        f"call, torch.profiler over 20): K2 {ms:.4f} ms, plain {plain_ms:.4f} ms; whole rgbyuv "
-        f"head (3 resizes + mix + box + pack): K2 route {head_ms:.4f} ms, "
-        f"plain {head_plain_ms:.4f} ms")
+        flat, wv, wh, vidx, hidx, tabs,
+        resize=resize_strip.rgb_resize_plain))
+    log(f"  timing B=32 1088x1920 -> 240x400, 3 channels in one launch "
+        f"(device time per call, torch.profiler over 20): K2 {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, library (3 fp32 einsums, no epilogue) "
+        f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), K2 at "
+        f"{bound_ms / ms:.1%} of it; whole rgbyuv head (resize + mix + box "
+        f"+ pack): K2 route {head_ms:.4f} ms, plain {head_plain_ms:.4f} ms")
     result.update(ms=ms, plain_ms=plain_ms, head_ms=head_ms,
                   head_plain_ms=head_plain_ms, library_ms=library_ms,
                   bound_ms=bound_ms, bound_by=bound_by)
     del full, flat, x
 
-    wv, wh, bv, bh = k2_stacks((544, 960, 120, 200, 1, "yuv"),
-                               CHROMA_V, CHROMA_H)
+    wv, wh, tabs = k2_stacks((544, 960, 120, 200, 1, "yuv"), CHROMA_V,
+                             CHROMA_H)
     planes = np.zeros((32, 544, 960), np.uint8)
     for i in range(32):
         planes[i, :540] = images[i % len(images)][::2, ::2, i % 3]
@@ -591,13 +610,13 @@ def phase_k2(images) -> dict:
         for batch in (1, 32):
             vidx, hidx = k2_index(batch)
             got = resize_strip.plane_resize(planes[:batch], wv, wh, vidx,
-                                            hidx, bands=(bv, bh), **kw)
+                                            hidx, bands=tabs, **kw)
             ref = resize_strip.plane_resize_plain(planes[:batch], wv, wh,
                                                   vidx, hidx, **kw)
             torch.cuda.synchronize()
             check(f"B={batch} 544x960 {name} (centred i8)", got, ref)
         t_k = device_ms(lambda: resize_strip.plane_resize(
-            planes, wv, wh, vidx, hidx, bands=(bv, bh), **kw))
+            planes, wv, wh, vidx, hidx, bands=tabs, **kw))
         t_p = device_ms(lambda: resize_strip.plane_resize_plain(
             planes, wv, wh, vidx, hidx, **kw))
         log(f"  timing B=32 544x960 -> 120x200 {name}: K2 {t_k:.4f} ms, "
@@ -614,111 +633,118 @@ K3_GEOMS = ((1920, 1080, 400, 225), (1904, 1072, 397, 223),
             (1888, 1064, 393, 222), (1872, 1056, 390, 220))
 
 
-def k3_stacks(plane: str):
+def k3_stacks():
     """The demoted RGB head's stacks on the card, from the builders the
     engine uses for kind "rgb": luma 1088x1920 -> 240x400, chroma 544x960
-    -> FULL output resolution; with their band tables."""
-    from imagekit_tpu_torch.ops.resize_strip import band_table
+    -> FULL output resolution; (wv_y, wh_y, wv_c, wh_c) and the (luma,
+    chroma) tables."""
+    from imagekit_tpu_torch.ops.resize_strip import resize_tables
     from imagekit_tpu_torch.ops.weights import (
         combined_chroma_weights,
         padded_weights,
     )
 
-    ih, iw = (1088, 1920) if plane == "luma" else (544, 960)
-    wv = np.zeros((4, 240, ih), np.float32)
-    wh = np.zeros((4, 400, iw), np.float32)
-    for u, (sw, sh, ow, oh) in enumerate(K3_GEOMS):
-        if plane == "luma":
-            wv[u] = padded_weights(sh, oh, ih, 240)
-            wh[u] = padded_weights(sw, ow, iw, 400)
-        else:
-            wv[u] = combined_chroma_weights((sh + 1) // 2, sh, oh, ih, 240)
-            wh[u] = combined_chroma_weights((sw + 1) // 2, sw, ow, iw, 400)
-    wv, wh = (torch.from_numpy(w_).cuda() for w_ in (wv, wh))
-    return wv, wh, (band_table(wv), band_table(wh))
+    stacks = []
+    for ih, iw in ((1088, 1920), (544, 960)):
+        wv = np.zeros((4, 240, ih), np.float32)
+        wh = np.zeros((4, 400, iw), np.float32)
+        for u, (sw, sh, ow, oh) in enumerate(K3_GEOMS):
+            if ih == 1088:
+                wv[u] = padded_weights(sh, oh, ih, 240)
+                wh[u] = padded_weights(sw, ow, iw, 400)
+            else:
+                wv[u] = combined_chroma_weights((sh + 1) // 2, sh, oh, ih, 240)
+                wh[u] = combined_chroma_weights((sw + 1) // 2, sw, ow, iw, 400)
+        stacks += [torch.from_numpy(w_).cuda() for w_ in (wv, wh)]
+    return stacks, (resize_tables(*stacks[:2]), resize_tables(*stacks[2:]))
 
 
 def phase_k3(images) -> dict:
     """``images``: the 16 synthesized 1920x1080 RGB images."""
     from imagekit_tpu_torch.ops import resize_planes as rp
+    from imagekit_tpu_torch.ops.resize_strip import band_table
 
-    result = {"max_abs_err": 0, "max_abs_err_f32": 0.0, "ms": 0.0,
-              "plain_ms": 0.0, "ms_f32": 0.0, "plain_ms_f32": 0.0,
-              "library_ms": 0.0, "library_ms_f32": 0.0}
-    work = {"u8": [0.0, 0.0], "f32": [0.0, 0.0]}  # bytes, flops
+    result = {"max_abs_err": 0, "max_abs_err_f32": 0.0}
     luma = np.zeros((32, 1088, 1920), np.uint8)
-    chroma = np.zeros((32, 544, 960), np.uint8)
+    chroma = [np.zeros((32, 544, 960), np.uint8) for _ in range(2)]
     for i in range(32):
         img = images[i % len(images)]
         luma[i, :1080] = img[..., 0]
-        chroma[i, :540] = img[::2, ::2, 1 + i % 2]
-    timed = []
+        for c in range(2):
+            chroma[c][i, :540] = img[::2, ::2, 1 + c]
+    stacks, tabs = k3_stacks()
+    x8 = [torch.from_numpy(p).cuda() for p in [luma] + chroma]
+    xf = [p.float() + 0.25 for p in x8]  # off the integer grid
     result["k4_launches"] = 0  # K4 has no path: the launches of this phase
-    for plane, host, n in (("luma", luma, 1), ("chroma", chroma, 2)):
-        wv, wh, bands = k3_stacks(plane)
-        x8 = torch.from_numpy(host).cuda()
-        xf = x8.float() + 0.25  # off the integer grid
-        k4_before = rp.LAUNCHES_F32
-        for batch in (1, 32):
-            vidx = torch.arange(batch, dtype=torch.int32, device="cuda") % 4
-            got = rp.resize_planes(x8[:batch], wv, wh, vidx, bands=bands)
-            ref = rp.resize_planes_plain(x8[:batch], wv, wh, vidx)
-            got_f = rp.resize_planes_f32(xf[:batch], wv, wh, vidx, bands=bands)
-            ref_f = rp.resize_planes_f32_plain(xf[:batch], wv, wh, vidx)
-            torch.cuda.synchronize()
-            mx, share1, over = compare(got, ref)
-            err_f = float((got_f - ref_f).abs().max())
-            log(f"  K3 vs plain B={batch} {plane} {tuple(x8.shape[1:])} -> "
-                f"{tuple(got.shape[1:])}: max|d|={mx} share(|d|=1)="
-                f"{share1:.3e}; K4 (f32) max|d|={err_f:.3e}")
+    for batch in (1, 32):
+        vidx = torch.arange(batch, dtype=torch.int32, device="cuda") % 4
+        k3_0, k4_0 = rp.LAUNCHES, rp.LAUNCHES_F32
+        got = rp.resize_planes3([p[:batch] for p in x8], stacks, vidx,
+                                bands=tabs)
+        got_f = rp.resize_planes3_f32([p[:batch] for p in xf], stacks, vidx,
+                                      bands=tabs)
+        torch.cuda.synchronize()
+        if rp.LAUNCHES != k3_0 + 1 or rp.LAUNCHES_F32 != k4_0 + 1:
+            raise RuntimeError("the three planes did not take one launch")
+        result["k4_launches"] += 1
+        ref = rp.resize_planes3_plain([p[:batch] for p in x8], stacks, vidx)
+        ref_f = rp.resize_planes3_f32_plain([p[:batch] for p in xf], stacks,
+                                            vidx)
+        for name, a, b, af, bf in zip(("Y", "Cb", "Cr"), got, ref, got_f,
+                                      ref_f):
+            mx, share1, over = compare(a, b)
+            err_f = float((af - bf).abs().max())
+            log(f"  K3 vs plain B={batch} {name} -> {tuple(a.shape[1:])}: "
+                f"max|d|={mx} share(|d|=1)={share1:.3e} ({int((a != b).sum())}"
+                f" of {a.numel()} differ); K4 (f32) max|d|={err_f:.3e}")
             if mx > MAX_ABS or share1 > MAX_SHARE or over:
                 raise RuntimeError("K3 disagrees with its plain version")
             # K4: fp32 sums of ~1000 terms in another order
-            torch.testing.assert_close(got_f, ref_f, rtol=1e-5, atol=255e-5)
+            torch.testing.assert_close(af, bf, rtol=1e-5, atol=255e-5)
             result["max_abs_err"] = max(result["max_abs_err"], mx)
             result["max_abs_err_f32"] = max(result["max_abs_err_f32"], err_f)
-        result["k4_launches"] += rp.LAUNCHES_F32 - k4_before
-        # B=32 timings; the head runs one luma and two chroma planes
-        # yardstick: one fp32 einsum over the gathered stacks and the plane
-        # (widened to f32 beforehand for K3, untimed), no epilogue
-        wv_g, wh_g = wv[vidx.long()], wh[vidx.long()]
-        x8f = x8.float()
-        ts = [device_ms(lambda: rp.resize_planes(x8, wv, wh, vidx, bands=bands)),
-              device_ms(lambda: rp.resize_planes_plain(x8, wv, wh, vidx)),
-              device_ms(lambda: rp.resize_planes_f32(xf, wv, wh, vidx,
-                                                   bands=bands)),
-              device_ms(lambda: rp.resize_planes_f32_plain(xf, wv, wh, vidx)),
-              device_ms(lambda: torch.einsum("boh,bhw,bpw->bop", wv_g, x8f,
-                                           wh_g)),
-              device_ms(lambda: torch.einsum("boh,bhw,bpw->bop", wv_g, xf,
-                                           wh_g))]
-        timed.append(f"{plane} K3 {ts[0]:.4f} / plain {ts[1]:.4f} / einsum "
-                     f"{ts[4]:.4f}, K4 {ts[2]:.4f} / plain {ts[3]:.4f} / "
-                     f"einsum {ts[5]:.4f}")
-        for key, t in zip(("ms", "plain_ms", "ms_f32", "plain_ms_f32",
-                           "library_ms", "library_ms_f32"), ts):
-            result[key] += n * t
-        out_px = 32 * 240 * 400
-        for kind, elem in (("u8", 1), ("f32", 4)):
-            nbytes, flops = resize_bound(x8.numel() * elem, out_px * elem, wv,
-                                         bands[0], bands[1], vidx, vidx,
-                                         x8.shape[2])
-            work[kind][0] += n * nbytes
-            work[kind][1] += n * flops
-        del x8, xf, x8f, wv_g, wh_g
-    log("  timing B=32 per plane (device time per call, torch.profiler over "
-        "20, ms): "
-        + "; ".join(timed))
-    for kind, suffix in (("u8", ""), ("f32", "_f32")):
-        bms, by = bound(*work[kind])
-        result["bound_ms" + suffix], result["bound_by" + suffix] = bms, by
-    log(f"  the head's three planes (luma + 2 chroma): K3 {result['ms']:.4f} "
-        f"ms vs plain {result['plain_ms']:.4f} ms vs einsum "
-        f"{result['library_ms']:.4f} ms, bound {result['bound_ms']:.4f} ms "
-        f"({result['bound_by']}); K4 {result['ms_f32']:.4f} ms vs plain "
-        f"{result['plain_ms_f32']:.4f} ms vs einsum "
-        f"{result['library_ms_f32']:.4f} ms, bound "
-        f"{result['bound_ms_f32']:.4f} ms ({result['bound_by_f32']})")
+    # B=32 timings of the three planes; yardstick: one fp32 einsum per
+    # plane over the gathered stacks and the plane (widened to f32
+    # beforehand for K3, untimed), no epilogue
+    u = vidx.long()
+    pairs = [(stacks[0][u], stacks[1][u])] + [(stacks[2][u], stacks[3][u])] * 2
+    x8f = [p.float() for p in x8]
+
+    def einsums(xs):
+        return lambda: [torch.einsum("boh,bhw,bpw->bop", wv_g, x_, wh_g)
+                        for (wv_g, wh_g), x_ in zip(pairs, xs)]
+
+    ts = [device_ms(lambda: rp.resize_planes3(x8, stacks, vidx, bands=tabs)),
+          device_ms(lambda: rp.resize_planes3_plain(x8, stacks, vidx)),
+          device_ms(lambda: rp.resize_planes3_f32(xf, stacks, vidx,
+                                                  bands=tabs)),
+          device_ms(lambda: rp.resize_planes3_f32_plain(xf, stacks, vidx)),
+          device_ms(einsums(x8f)), device_ms(einsums(xf))]
+    for key, t in zip(("ms", "plain_ms", "ms_f32", "plain_ms_f32",
+                       "library_ms", "library_ms_f32"), ts):
+        result[key] = t
+    out_px = 32 * 240 * 400
+    for kind, elem, suffix in (("u8", 1, ""), ("f32", 4, "_f32")):
+        nbytes = flops = 0.0
+        for p, (wv, wh), t in zip(x8, (stacks[:2], stacks[2:], stacks[2:]),
+                                  (tabs[0], tabs[1], tabs[1])):
+            nb, fl = resize_bound(p.numel() * elem, out_px * elem, wv,
+                                  t.band_v, band_table(wh), vidx, vidx,
+                                  p.shape[2])
+            nbytes += nb
+            flops += fl
+        result["bound_ms" + suffix], result["bound_by" + suffix] = bound(
+            nbytes, flops)
+    log(f"  timing B=32, Y + Cb + Cr in one launch (device time per call, "
+        f"torch.profiler over 20): K3 {result['ms']:.4f} ms vs plain "
+        f"{result['plain_ms']:.4f} ms vs einsum {result['library_ms']:.4f} "
+        f"ms, bound {result['bound_ms']:.4f} ms ({result['bound_by']}), K3 "
+        f"at {result['bound_ms'] / result['ms']:.1%} of it; K4 "
+        f"{result['ms_f32']:.4f} ms vs plain {result['plain_ms_f32']:.4f} ms "
+        f"vs einsum {result['library_ms_f32']:.4f} ms, bound "
+        f"{result['bound_ms_f32']:.4f} ms ({result['bound_by_f32']}), K4 at "
+        f"{result['bound_ms_f32'] / result['ms_f32']:.1%} of it")
+    del x8, xf, x8f, pairs
     # the demoted head's upload: one B=32 int16 batch, (32, 136, 240*64)
     # luma and 2 x (32, 68, 120*64) chroma, as the engine's _placement
     # copies it (pin, then a non-blocking copy)
@@ -870,14 +896,14 @@ def phase_png_engine(pngs, card: str) -> dict:
             dims = (hdr.width, hdr.height)
         if dims != (400, 225):
             raise RuntimeError(f"{fmt.value} output is {dims}, not 400x225")
-    if batches <= 0 or launches != 3 * batches:
+    if batches <= 0 or launches != batches:
         raise RuntimeError(
-            f"K2 launches {launches} != 3 x {batches} batches on the PNG path")
+            f"K2 launches {launches} != {batches} batches on the PNG path")
 
     args, kw, planes = rec_y.calls[-1]
     x, (wv, wh), vidx, hidx = args[:4]
     plain = color.rgb_yuv_head(x, wv, wh, vidx, hidx, kw["bands"],
-                               resize=resize_strip.plane_resize_plain)
+                               resize=resize_strip.rgb_resize_plain)
     got = torch.cat([torch.from_numpy(p.reshape(p.shape[0], -1))
                      for p in planes], dim=1).to(plain.device)
     mx_y, share_y, over = compare(got, plain)
@@ -886,7 +912,7 @@ def phase_png_engine(pngs, card: str) -> dict:
     args, kw, levels = rec_j.calls[-1]
     x, (wv, wh), vidx, hidx, qto = args[:5]
     plain = dct.rgb_jpeg_head(x, wv, wh, vidx, hidx, qto, kw["bands"],
-                              resize=resize_strip.plane_resize_plain)
+                              resize=resize_strip.rgb_resize_plain)
     got = torch.cat([torch.from_numpy(lv.reshape(lv.shape[0], -1))
                      for lv in levels], dim=1).to(plain.device)
     mx_j, share_j, over = compare(got, plain)
@@ -904,7 +930,8 @@ def phase_png_engine(pngs, card: str) -> dict:
         f"{p99:.2f} ms (WebP p50/p99 {by_fmt[ImageFormat.webp][0]:.2f}/"
         f"{by_fmt[ImageFormat.webp][1]:.2f} ms, JPEG "
         f"{by_fmt[ImageFormat.jpeg][0]:.2f}/{by_fmt[ImageFormat.jpeg][1]:.2f}"
-        f" ms), {batches} batches, {launches} K2 launches [{card}]")
+        f" ms), {batches} batches, {launches} K2 launches "
+        f"({launches / batches:.2f} per batch) [{card}]")
     log(f"  last WebP batch vs plain head: max|d|={mx_y} share(|d|=1)="
         f"{share_y:.3e}; last JPEG batch levels vs plain head: max|d|={mx_j}"
         f" share(|d|=1)={share_j:.3e} ({n_diff} levels differ)")
@@ -950,7 +977,7 @@ def check_rgb_batch(call) -> tuple:
     y, cb, cr, qt, w, vidx, block_dims, _ = args
     plain = dct.decode_resize_rgb(y, cb, cr, qt, *w, vidx, *block_dims,
                                   bands=kw["bands"],
-                                  resize=rp.resize_planes_plain)
+                                  resize=rp.resize_planes3_plain)
     got = torch.from_numpy(rgb.reshape(rgb.shape[0], -1)).to(plain.device)
     d = (got.to(torch.int32) - plain.to(torch.int32)).abs()
     mx, share = int(d.max()), float((d > 0).float().mean())
@@ -1033,6 +1060,9 @@ def phase_jxc_engine(jpegs, dense, card: str) -> dict:
             f"{run['rps']:.2f} req/s, p50 {p50:.2f} ms, p99 {p99:.2f} ms, "
             f"{run['batches']} batches ({run['rgb_batches']} demoted), "
             f"{run['k1']} K1 launches, {run['k3']} K3 launches [{card}]")
+        if run["rgb_batches"]:
+            log(f"    K3 launches per demoted batch: "
+                f"{run['k3'] / run['rgb_batches']:.2f}")
         log("    host seconds: " + ", ".join(
             f"{k} {v:.4f} s ({v / n * 1e3:.2f} ms/request)"
             for k, v in run["spent"].items()))
@@ -1045,7 +1075,7 @@ def phase_jxc_engine(jpegs, dense, card: str) -> dict:
         raise RuntimeError("the k=8 round launched K1 or K3, or demoted")
     if (dense_run["rgb_batches"] <= 0
             or dense_run["rgb_batches"] != dense_run["batches"]
-            or dense_run["k3"] != 3 * dense_run["rgb_batches"]
+            or dense_run["k3"] != dense_run["rgb_batches"]
             or dense_run["k1"]):
         raise RuntimeError(
             f"escape-dense round: {dense_run['rgb_batches']} demoted of "
@@ -1259,7 +1289,7 @@ def main() -> int:
         "bound_by": kern["bound_by"],
         "library_ms": kern["library_ms"],
     }, {
-        "name": "resize_strip_plane (K2)",
+        "name": "rgb_resize (K2, 3 channels in one launch)",
         "route": "cuda",
         "source": "imagekit_tpu_torch/csrc/resize_strip.cu",
         "replaces": "imagekit_tpu/ops/pallas_resize.py:155",
@@ -1271,7 +1301,7 @@ def main() -> int:
         "bound_by": k2["bound_by"],
         "library_ms": k2["library_ms"],
     }, {
-        "name": "resize_planes_u8 (K3)",
+        "name": "resize_planes3 (K3, Y + Cb + Cr in one launch)",
         "route": "cuda",
         "source": "imagekit_tpu_torch/csrc/resize_planes.cu",
         "replaces": "imagekit_tpu/ops/pallas/resize_kernel.py:157",
@@ -1283,7 +1313,7 @@ def main() -> int:
         "bound_by": k3["bound_by"],
         "library_ms": k3["library_ms"],
     }, {
-        "name": "resize_planes_f32 (K4)",
+        "name": "resize_planes3_f32 (K4, Y + Cb + Cr in one launch)",
         "route": "cuda",
         "source": "imagekit_tpu_torch/csrc/resize_planes.cu",
         "replaces": "imagekit_tpu/ops/pallas/resize_kernel.py:235",

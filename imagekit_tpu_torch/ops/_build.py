@@ -93,6 +93,30 @@ def _compile() -> None:
             obj.unlink(missing_ok=True)
 
 
+class IkPlane(ctypes.Structure):
+    """One plane of a K2/K3/K4 launch: ``IkPlane`` in
+    ``csrc/resize_band.cuh``, field for field. Pointers are device
+    addresses (``data_ptr()``); strides are in elements."""
+
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in ("x", "wv", "band_v", "start_h",
+                                         "taps_h", "vidx", "hidx", "out")]
+        + [(n, ctypes.c_longlong) for n in ("sb", "sh", "osb", "osc")]
+        + [(n, ctypes.c_int) for n in ("IH", "IW", "OH", "OW", "U", "U2",
+                                        "T", "C")]
+    )
+
+
+def launch_band(fn, planes, B: int, *args) -> None:
+    """Call a K2/K3/K4 entry with ``planes`` (a list of :class:`IkPlane`)
+    and its trailing arguments (the stream last); raise on a refused
+    launch."""
+    arr = (IkPlane * len(planes))(*planes)
+    rc = fn(ctypes.addressof(arr), len(planes), B, *args)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: cudaError_t {rc}")
+
+
 def _configure(lib: ctypes.CDLL) -> None:
     vp = ctypes.c_void_p
     ci = ctypes.c_int
@@ -101,14 +125,19 @@ def _configure(lib: ctypes.CDLL) -> None:
         ci, ci, ci, ci, vp,
     ]
     lib.ik_jpeg8_folded_planes.restype = ci
-    cll = ctypes.c_longlong
+    configure_band(lib)
+
+
+def configure_band(lib: ctypes.CDLL) -> None:
+    """argtypes of the K2/K3/K4 entries (also used by the CPU build of
+    their source in the tests)."""
+    vp = ctypes.c_void_p
+    ci = ctypes.c_int
     cf = ctypes.c_float
-    lib.ik_resize_strip_plane.argtypes = (
-        [vp] * 8 + [ci] * 7 + [cll] * 3 + [cf] * 3 + [ci] * 2 + [vp]
-    )
-    lib.ik_resize_strip_plane.restype = ci
+    lib.ik_resize_strip.argtypes = [vp, ci, ci, cf, cf, cf, ci, ci, vp]
+    lib.ik_resize_strip.restype = ci
     for fn in (lib.ik_resize_planes_u8, lib.ik_resize_planes_f32):
-        fn.argtypes = [vp] * 7 + [ci] * 6 + [vp]
+        fn.argtypes = [vp, ci, ci, vp]
         fn.restype = ci
 
 

@@ -1,12 +1,13 @@
 """The rgbyuv head: RGB-source batches -> resized studio-range YUV 4:2:0.
 
 Counterpart of ``imagekit_tpu/ops/color.py:72-149`` and of its Pallas
-front ``imagekit_tpu/ops/pallas_resize.py:229-266``. One K2 launch per
-channel reads the interleaved (B, H, W*3) u8 batch in place and rounds the
-resized channel to u8 (the einsum head's hand-off point, which both JAX
-heads share); the studio-range BT.601 mix, the 2x2 chroma box and the u8
-pack follow as torch ops on the small output grid. On CPU tensors the
-resize is K2's plain version (:func:`resize_strip.plane_resize_plain`).
+front ``imagekit_tpu/ops/pallas_resize.py:229-266``. One K2 launch reads
+the interleaved (B, H, W*3) u8 batch in place, once for the three
+channels, and rounds each resized channel to u8 (the einsum head's
+hand-off point, which both JAX heads share); the studio-range BT.601 mix,
+the 2x2 chroma box and the u8 pack follow as torch ops on the small output
+grid. On CPU tensors the resize is K2's plain version
+(:func:`resize_strip.rgb_resize_plain`).
 """
 
 from __future__ import annotations
@@ -16,16 +17,13 @@ from typing import Optional
 import torch
 
 from imagekit_tpu_torch.device import resolve_device
-from imagekit_tpu_torch.ops.resize_strip import plane_resize
+from imagekit_tpu_torch.ops.resize_strip import ResizeTables, rgb_resize
 
 
-def rgb_planes(imgs, wv, wh, vidx, hidx, bands=None, resize=plane_resize):
+def rgb_planes(imgs, wv, wh, vidx, hidx, bands=None, resize=rgb_resize):
     """(B, H, W*3) u8 -> the resized R, G and B planes, rounded to u8 and
-    widened to f32: one ``resize`` call per channel on a strided view."""
-    B, H, WC = imgs.shape
-    x = imgs.reshape(B, H, WC // 3, 3)
-    return [resize(x[..., c], wv, wh, vidx, hidx, bands=bands).float()
-            for c in range(3)]
+    widened to f32: one ``resize`` call for the three channels."""
+    return resize(imgs, wv, wh, vidx, hidx, bands=bands).float().unbind(1)
 
 
 def box2(p: torch.Tensor) -> torch.Tensor:
@@ -40,7 +38,7 @@ def q8(p: torch.Tensor) -> torch.Tensor:
             .to(torch.uint8).reshape(p.shape[0], -1))
 
 
-def rgb_yuv_head(imgs, wv, wh, vidx, hidx, bands=None, resize=plane_resize):
+def rgb_yuv_head(imgs, wv, wh, vidx, hidx, bands=None, resize=rgb_resize):
     """(B, H, W*3) u8 -> flat (B, OH*OW + 2*(OH/2*OW/2)) u8, Y then U then
     V, in the reference's float order (``color.py:93-110``)."""
     r, g, b = rgb_planes(imgs, wv, wh, vidx, hidx, bands, resize)
@@ -53,6 +51,16 @@ def rgb_yuv_head(imgs, wv, wh, vidx, hidx, bands=None, resize=plane_resize):
 def on_device(arrays, device):
     """numpy arrays or tensors -> tensors on ``device``."""
     return [torch.as_tensor(a, device=device) for a in arrays]
+
+
+def tables_on(bands, device):
+    """A head's ``bands`` (:class:`ResizeTables`, or a tuple of them) on
+    ``device``; None stays None."""
+    if bands is None:
+        return None
+    if isinstance(bands[0], (tuple, list)):
+        return tuple(tables_on(b, device) for b in bands)
+    return ResizeTables(*on_device(bands, device))
 
 
 def resolve(device) -> torch.device:
@@ -94,7 +102,6 @@ def resample_rgb_yuv_batch(imgs_flat, weights, vidx, hidx, out_shape,
     obh, obw = out_shape
     device = resolve(device)
     x, wv, wh, vidx, hidx = on_device((imgs_flat, wv, wh, vidx, hidx), device)
-    if bands is not None:
-        bands = tuple(on_device(bands, device))
-    flat = to_host(rgb_yuv_head(x, wv, wh, vidx, hidx, bands), device)
+    flat = to_host(rgb_yuv_head(x, wv, wh, vidx, hidx,
+                                tables_on(bands, device)), device)
     return split_yuv(flat, obh, obw)

@@ -11,9 +11,9 @@ another device.
 
 The rgbjpg head, :func:`resample_rgb_jpeg_batch` (``dct.py:961-1032`` and
 its Pallas front ``pallas_resize.py:378-411``), serves JPEG outputs from
-RGB sources: K2 once per channel to the rounded u8 grid, then the JFIF
-BT.601 mix, the 4:2:0 box and the 8x8 fDCT + quantise tail
-:func:`_fdct_quant_flat` (``dct.py:776-787``) as torch ops.
+RGB sources: one K2 launch for the three channels to the rounded u8
+grid, then the JFIF BT.601 mix, the 4:2:0 box and the 8x8 fDCT +
+quantise tail :func:`_fdct_quant_flat` (``dct.py:776-787``) as torch ops.
 
 The jxc transcode, :func:`transcode_i8_batch` (``dct.py:884-957,1036`` and
 its Pallas front ``pallas_jpeg8.py:224-267``), serves JPEG outputs from
@@ -23,8 +23,8 @@ split front (:func:`_widen_split_levels`, :func:`_blocks_to_plane`) and a
 plain two-``bmm`` resize; then :func:`_fdct_quant_flat`. A JPEG whose
 escapes overflow the split transport is demoted to the RGB-output head,
 :func:`decode_resize_rgb_batch` (``dct.py:206-268,1717``): 8x8 IDCT of the
-int16 levels to u8 planes, then K3 on Y, Cb and Cr (:func:`_rgb_tail`) and
-the JFIF YCbCr -> RGB matrix.
+int16 levels to u8 planes, then one K3 launch for Y, Cb and Cr
+(:func:`_rgb_tail`) and the JFIF YCbCr -> RGB matrix.
 """
 
 from __future__ import annotations
@@ -40,10 +40,11 @@ from imagekit_tpu_torch.ops.color import (
     resolve,
     rgb_planes,
     split_yuv,
+    tables_on,
     to_host,
 )
-from imagekit_tpu_torch.ops.resize_planes import resize_planes
-from imagekit_tpu_torch.ops.resize_strip import plane_resize
+from imagekit_tpu_torch.ops.resize_planes import resize_planes3
+from imagekit_tpu_torch.ops.resize_strip import rgb_resize
 from imagekit_tpu_torch.ops.weights import idct_basis
 
 
@@ -123,7 +124,7 @@ def _fdct_quant_flat(plane: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 
 
 def rgb_jpeg_head(imgs, wv, wh, vidx, hidx, qt_out, bands=None,
-                  resize=plane_resize):
+                  resize=rgb_resize):
     """(B, H, W*3) u8 -> flat int16 levels, Y then Cb then Cr, in the
     reference's float order (``dct.py:968-993``)."""
     r, g, b = rgb_planes(imgs, wv, wh, vidx, hidx, bands, resize)
@@ -176,16 +177,17 @@ def _blocks_to_plane(coef_flat, by: int, bx: int, qtab) -> torch.Tensor:
 
 
 def _rgb_tail(Y, Cb, Cr, wv_y, wh_y, wv_c, wh_c, vidx, bands=None,
-              resize=resize_planes):
-    """Resize the three u8 planes with K3 and convert BT.601 full-range
-    YCbCr -> RGB -> flat (B, OH*OW*3) u8 (``dct.py:228``). K3 rounds each
-    resized plane to u8 at every shape, as the reference's TPU head did
-    where K3 fits VMEM (the 1080p bucket does); its CPU branch skips that
-    rounding. ``bands`` is the four stacks' band tables, or None."""
-    luma_b, chroma_b = (bands[:2], bands[2:]) if bands else (None, None)
-    y = resize(Y, wv_y, wh_y, vidx, bands=luma_b).float()
-    cb = resize(Cb, wv_c, wh_c, vidx, bands=chroma_b).float() - 128.0
-    cr = resize(Cr, wv_c, wh_c, vidx, bands=chroma_b).float() - 128.0
+              resize=resize_planes3):
+    """Resize the three u8 planes with K3 (one launch) and convert BT.601
+    full-range YCbCr -> RGB -> flat (B, OH*OW*3) u8 (``dct.py:228``). K3
+    rounds each resized plane to u8 at every shape, as the reference's TPU
+    head did where K3 fits VMEM (the 1080p bucket does); its CPU branch
+    skips that rounding. ``bands`` is the (luma, chroma) pair of the
+    stacks' tables (:class:`resize_strip.ResizeTables`), or None."""
+    y, cb, cr = (p.float() for p in resize(
+        (Y, Cb, Cr), (wv_y, wh_y, wv_c, wh_c), vidx, bands=bands))
+    cb = cb - 128.0
+    cr = cr - 128.0
     r = y + 1.402 * cr
     g = y - 0.344136286 * cb - 0.714136286 * cr
     b = y + 1.772 * cb
@@ -196,7 +198,7 @@ def _rgb_tail(Y, Cb, Cr, wv_y, wh_y, wv_c, wh_c, vidx, bands=None,
 
 def decode_resize_rgb(y_flat, cb_flat, cr_flat, qtabs, wv_y, wh_y, wv_c,
                       wh_c, vidx, by_y: int, bx_y: int, by_c: int, bx_c: int,
-                      bands=None, resize=resize_planes) -> torch.Tensor:
+                      bands=None, resize=resize_planes3) -> torch.Tensor:
     """The RGB-output head on int16 levels (``_decode_resize_kernel``,
     ``dct.py:206``): flat (B, OH*OW*3) u8."""
     Y = _blocks_to_plane(y_flat, by_y, bx_y, qtabs[:, :64])
@@ -209,16 +211,15 @@ def decode_resize_rgb_batch(y_flat, cb_flat, cr_flat, qtabs, weights, vidx,
                             block_dims, out_shape, bands=None,
                             device: Optional[torch.device] = None):
     """Run the RGB-output head (``dct.py:1717``); returns (B, OHb, OWb, 3)
-    u8 numpy (crop on the host). Three K3 launches on CUDA, K3's plain
+    u8 numpy (crop on the host). One K3 launch on CUDA, K3's plain
     version on the CPU."""
     wv_y, wh_y, wv_c, wh_c = weights
     obh, obw = out_shape
     device = resolve(device)
     args = on_device((y_flat, cb_flat, cr_flat, qtabs, wv_y, wh_y, wv_c,
                       wh_c, vidx), device)
-    if bands is not None:
-        bands = tuple(on_device(bands, device))
-    flat = to_host(decode_resize_rgb(*args, *block_dims, bands=bands), device)
+    flat = to_host(decode_resize_rgb(*args, *block_dims,
+                                     bands=tables_on(bands, device)), device)
     return flat.reshape(flat.shape[0], obh, obw, 3)
 
 
@@ -288,8 +289,6 @@ def resample_rgb_jpeg_batch(imgs_flat, weights, vidx, hidx, qt_out,
     device = resolve(device)
     x, wv, wh, vidx, hidx, qt_out = on_device(
         (imgs_flat, wv, wh, vidx, hidx, qt_out), device)
-    if bands is not None:
-        bands = tuple(on_device(bands, device))
-    flat = to_host(rgb_jpeg_head(x, wv, wh, vidx, hidx, qt_out, bands),
-                   device)
+    flat = to_host(rgb_jpeg_head(x, wv, wh, vidx, hidx, qt_out,
+                                 tables_on(bands, device)), device)
     return split_yuv(flat, obh, obw, block=8)

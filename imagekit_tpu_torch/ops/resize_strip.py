@@ -1,39 +1,62 @@
-"""K2: the strip resize of one u8 plane, as a hand-written CUDA kernel.
+"""K2: the strip resize of u8 planes, as a hand-written CUDA kernel.
 
 Counterpart of ``imagekit_tpu/ops/pallas_resize.py:82-168``
-(``_make_resize_kernel`` launched by ``_plane_resize``). Per image b:
+(``_make_resize_kernel`` launched by ``_plane_resize``). Per image b and
+channel:
 
     acc = Wv[vidx[b]] @ f32(x[b]) @ Wh[hidx[b]]^T
 
 then the optional affine remap ``(acc + pre) * scale + post``, round half
 up (``floor(v + 0.5)``), clip to [0, 255], and u8 out, or i8 after -128
-when ``centered``. The kernel is ``csrc/resize_strip.cu``; its plain
-PyTorch version, :func:`plane_resize_plain`, sits beside it.
+when ``centered``. The kernel is ``csrc/resize_strip.cu`` on the body it
+shares with K3 (``csrc/resize_band.cuh``); its plain PyTorch versions,
+:func:`plane_resize_plain` and :func:`rgb_resize_plain`, sit beside it.
+
+Two entries launch it:
+
+- :func:`rgb_resize`, the RGB heads' main path: the interleaved (B, H,
+  W*3) u8 batch -> the three rounded u8 planes (B, 3, OH, OW), one launch
+  that reads each pixel row once for the three channels;
+- :func:`plane_resize`, one contiguous (B, IH, IW) plane stack with any
+  of the three epilogues (a channel of an interleaved batch goes
+  through :func:`rgb_resize`, or as a contiguous copy).
 
 The Lanczos stacks are banded: a row of ``Wv`` has about 27 nonzero taps
 out of 1088 at the 1080p -> 240 bucket, a row of ``Wh`` about 29 out of
-1920. :func:`band_table` gives each row's ``[first, last)`` nonzero run,
-computed from the stack itself; the kernel bounds its loops with it. The
-skipped terms are exact zeros, so the result is the dense product's.
+1920. The kernel takes :class:`ResizeTables`: :func:`band_table` (each
+row's ``[first, last)`` nonzero run) for ``Wv``, and for ``Wh`` the
+compact table of :func:`compact_table`. The skipped terms are exact
+zeros, so the result is the dense product's. ``bands`` is None (computed
+here) or the :class:`ResizeTables` of :func:`resize_tables`, which the
+engines cache beside their stacks.
 
-:func:`plane_resize` launches the kernel for CUDA tensors and raises on
-anything the kernel does not take. It takes the plain version only for
-tensors that lie on the CPU. ``x`` may be a strided view, e.g. one channel
-``imgs.reshape(B, H, W, 3)[..., c]`` of an interleaved batch: the kernel
-reads it in place through its strides.
+Both entries launch the kernel for CUDA tensors and raise on anything the
+kernel does not take; they take the plain version only for tensors that
+lie on the CPU.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple
 
 import torch
 
-#: kernel launches made by :func:`plane_resize` (read and reset by callers
-#: that must show the main path went through the kernel)
+from imagekit_tpu_torch.ops import _build
+
+#: kernel launches made by :func:`rgb_resize` and :func:`plane_resize`
+#: (read and reset by callers that must show the main path went through
+#: the kernel)
 LAUNCHES = 0
 _launch_lock = threading.Lock()
+
+
+class ResizeTables(NamedTuple):
+    """What the banded kernels read beside a (Wv, Wh) stack pair."""
+
+    band_v: torch.Tensor   # (U, OH, 2) i32, band_table(wv)
+    start_h: torch.Tensor  # (U2, OW) i32, compact_table(wh)[0]
+    taps_h: torch.Tensor   # (U2, T/4, OW, 4) f32, compact_table(wh)[1]
 
 
 def band_table(w: torch.Tensor) -> torch.Tensor:
@@ -50,76 +73,187 @@ def band_table(w: torch.Tensor) -> torch.Tensor:
     ).to(torch.int32).contiguous()
 
 
-def _check(x, wv, wh, vidx, hidx, bands):
-    dev = x.device
+def compact_table(w: torch.Tensor, band=None):
+    """(U, O, I) stack -> ``(start, taps)``: (U, O) int32 and (U, T/4, O, 4)
+    f32 with ``taps[u, t // 4, o, t % 4] = w[u, o, start + t]`` (the four
+    taps of a step for neighbouring rows o side by side: one coalesced
+    float4 load per thread and step in the kernel). ``start`` is the band's
+    first column rounded down to a multiple of 4, and moved left where the
+    window would pass the row's end; T is the widest such window rounded
+    up to 4 (the kernel reads taps, and tile columns, four at a time). The
+    window's taps off the band are the stack's own zeros, and past the
+    row's end (a row shorter than T) exact zeros. So ``sum_t taps[t] *
+    x[start + t]`` in increasing t adds the band's terms in increasing
+    column order, after exact zeros: the dense product's sum."""
+    if band is None:
+        band = band_table(w)
+    n = w.shape[-1]
+    first = band[..., 0] // 4 * 4  # aligned: the kernel reads 4 taps at once
+    width = int((band[..., 1] - first).max()) if band.numel() else 0
+    T = max(4, (width + 3) // 4 * 4)
+    start = first.clamp(max=max((n + 3) // 4 * 4 - T, 0)).to(torch.int32)
+    cols = start.long()[..., None] + torch.arange(T, device=w.device)
+    taps = torch.gather(w, 2, cols.clamp(max=n - 1))
+    taps = torch.where(cols < n, taps, torch.zeros_like(taps))
+    U, O = start.shape
+    taps = taps.reshape(U, O, T // 4, 4).transpose(1, 2)
+    return start.contiguous(), taps.contiguous()
+
+
+def resize_tables(wv: torch.Tensor, wh: torch.Tensor) -> ResizeTables:
+    """The band table of Wv and the compact table of Wh."""
+    return ResizeTables(band_table(wv), *compact_table(wh))
+
+
+def tables(wv, wh, bands) -> ResizeTables:
+    """``bands`` as given to the entries -> :class:`ResizeTables`."""
+    return resize_tables(wv, wh) if bands is None else ResizeTables(*bands)
+
+
+def _check(x, wv, wh, vidx, hidx, tabs: ResizeTables):
     if x.dtype != torch.uint8 or x.dim() != 3:
         raise TypeError(f"x must be a (B, IH, IW) uint8 plane stack, got "
                         f"{x.dtype} {tuple(x.shape)}")
-    if any(s < 1 for s in x.stride()):
-        raise ValueError(f"x strides {x.stride()} must be positive")
+    if not x.is_contiguous():
+        raise ValueError(f"x (strides {x.stride()}) must be contiguous: a "
+                         f"channel of an interleaved batch goes through "
+                         f"rgb_resize, or as a contiguous copy")
+    return check_args(x.device, x.shape, wv, wh, vidx, hidx, tabs)
+
+
+def check_args(dev, shape, wv, wh, vidx, hidx, tabs: ResizeTables):
+    """The checks of everything but the planes, of shape (B, IH, IW) on
+    ``dev``; returns (B, IH, IW, U, OH, U2, OW)."""
     tensors = {"wv": wv, "wh": wh, "vidx": vidx, "hidx": hidx,
-               "band_v": bands[0], "band_h": bands[1]}
-    dtypes = {"wv": torch.float32, "wh": torch.float32, "vidx": torch.int32,
-              "hidx": torch.int32, "band_v": torch.int32,
-              "band_h": torch.int32}
+               **tabs._asdict()}
+    dtypes = {"wv": torch.float32, "wh": torch.float32, "taps_h": torch.float32}
     for name, t in tensors.items():
+        want = dtypes.get(name, torch.int32)
         if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, x on {dev}")
-        if t.dtype != dtypes[name]:
-            raise TypeError(f"{name} must be {dtypes[name]}, got {t.dtype}")
+            raise ValueError(f"{name} is on {t.device}, the planes on {dev}")
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    B, ih, iw = x.shape
+    B, ih, iw = shape
     if wv.dim() != 3 or wh.dim() != 3 or wv.shape[2] != ih or wh.shape[2] != iw:
         raise ValueError(f"weight stacks {tuple(wv.shape)} / {tuple(wh.shape)} "
                          f"do not fit the ({ih}, {iw}) planes")
     if tuple(vidx.shape) != (B,) or tuple(hidx.shape) != (B,):
         raise ValueError(f"vidx {tuple(vidx.shape)} / hidx {tuple(hidx.shape)}"
                          f" must be ({B},)")
-    if (tuple(bands[0].shape) != (*wv.shape[:2], 2)
-            or tuple(bands[1].shape) != (*wh.shape[:2], 2)):
+    if tuple(tabs.band_v.shape) != (*wv.shape[:2], 2):
         raise ValueError("band tables do not fit the weight stacks")
+    T = 4 * tabs.taps_h.shape[1] if tabs.taps_h.dim() == 4 else 0
+    if (tuple(tabs.start_h.shape) != tuple(wh.shape[:2])
+            or tuple(tabs.taps_h.shape) != (wh.shape[0], T // 4, wh.shape[1], 4)
+            or not 0 < T <= iw + 3):
+        raise ValueError("compact tables do not fit the weight stacks")
     return B, ih, iw, wv.shape[0], wv.shape[1], wh.shape[0], wh.shape[1]
+
+
+def plane_record(x_ptr: int, sb: int, sh: int, C: int, wv,
+                 tabs: ResizeTables, vidx, hidx, out, osb: int, osc: int,
+                 ih: int, iw: int) -> _build.IkPlane:
+    """One :class:`_build.IkPlane` of a launch: pixel rows of ``C``
+    elements at ``x_ptr`` (strides ``sb``, ``sh`` in elements), channel
+    ``ch`` written at ``out + b*osb + ch*osc``."""
+    U, oh = wv.shape[:2]
+    U2, ow = tabs.start_h.shape
+    T = 4 * tabs.taps_h.shape[1]
+    return _build.IkPlane(
+        x_ptr, wv.data_ptr(), tabs.band_v.data_ptr(),
+        tabs.start_h.data_ptr(), tabs.taps_h.data_ptr(), vidx.data_ptr(),
+        hidx.data_ptr(), out.data_ptr(), sb, sh, osb, osc,
+        ih, iw, oh, ow, U, U2, T, C)
+
+
+def check_rows(ptr: int, sb: int, sh: int, E: int, T: int, iw: int,
+               cpt: int, esize: int) -> None:
+    """Raise unless the kernel can read these pixel rows: whole loads of
+    ``cpt`` elements (row length, strides and address), and compact
+    windows no wider than the row."""
+    if E % cpt or sh % cpt or sb % cpt or ptr % (cpt * esize) or T > iw:
+        raise ValueError(
+            f"the kernel reads rows in whole loads of {cpt} elements: a row "
+            f"of {E} elements with strides ({sb}, {sh}) at {ptr:#x}, and "
+            f"{T} taps over {iw} columns, do not fit")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _count() -> None:
+    global LAUNCHES
+    with _launch_lock:
+        LAUNCHES += 1
+
+
+def on_device_with_kernel(x, what: str) -> None:
+    """Raise for a device with neither the kernel nor the plain version."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {what} kernel for device {x.device}")
 
 
 def plane_resize(x: torch.Tensor, wv: torch.Tensor, wh: torch.Tensor,
                  vidx: torch.Tensor, hidx: torch.Tensor, *,
                  scale: float = 1.0, pre: float = 0.0, post: float = 0.0,
-                 centered: bool = False,
-                 bands: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                 ) -> torch.Tensor:
-    """(B, IH, IW) u8 planes -> (B, OH, OW) u8 (i8 when ``centered``),
-    weights picked per image from the (U, OH, IH) / (U2, OW, IW) f32 stacks
-    by ``vidx`` and ``hidx``. ``bands`` are the stacks' :func:`band_table`
-    pair; they are computed here when not given (the engine caches them
-    beside its stacks)."""
-    global LAUNCHES
-    if bands is None:
-        bands = (band_table(wv), band_table(wh))
-    B, ih, iw, U, oh, U2, ow = _check(x, wv, wh, vidx, hidx, bands)
+                 centered: bool = False, bands=None) -> torch.Tensor:
+    """Contiguous (B, IH, IW) u8 planes -> (B, OH, OW) u8 (i8 when
+    ``centered``), weights picked per image from the (U, OH, IH) / (U2, OW, IW) f32 stacks
+    by ``vidx`` and ``hidx``. One K2 launch on CUDA."""
+    on_device_with_kernel(x, "K2")
+    tabs = tables(wv, wh, bands)
+    B, ih, iw, U, oh, U2, ow = _check(x, wv, wh, vidx, hidx, tabs)
     if x.device.type == "cpu":
         return plane_resize_plain(x, wv, wh, vidx, hidx, scale=scale,
                                   pre=pre, post=post, centered=centered)
-    if x.device.type != "cuda":
-        raise ValueError(f"no K2 kernel for device {x.device}")
-    from imagekit_tpu_torch.ops import _build
-
+    check_rows(x.data_ptr(), ih * iw, iw, iw, 4 * tabs.taps_h.shape[1], iw,
+               8, 1)
     lib = _build.load()
     out = torch.empty((B, oh, ow), device=x.device,
                       dtype=torch.int8 if centered else torch.uint8)
     affine = scale != 1.0 or pre != 0.0 or post != 0.0
+    rec = plane_record(x.data_ptr(), ih * iw, iw, 1, wv, tabs, vidx, hidx,
+                       out, oh * ow, 0, ih, iw)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.ik_resize_strip_plane(
-            x.data_ptr(), wv.data_ptr(), wh.data_ptr(), vidx.data_ptr(),
-            hidx.data_ptr(), bands[0].data_ptr(), bands[1].data_ptr(),
-            out.data_ptr(), B, ih, iw, oh, ow, U, U2, *x.stride(),
-            scale, pre, post, int(affine), int(centered), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"K2 launch failed: cudaError_t {rc}")
-    with _launch_lock:
-        LAUNCHES += 1
+        _build.launch_band(lib.ik_resize_strip, [rec], B, scale, pre, post,
+                           int(affine), int(centered), _stream(x.device))
+    _count()
+    return out
+
+
+def rgb_resize(imgs: torch.Tensor, wv: torch.Tensor, wh: torch.Tensor,
+               vidx: torch.Tensor, hidx: torch.Tensor, *,
+               bands=None) -> torch.Tensor:
+    """Contiguous (B, H, W*3) u8 interleaved RGB -> (B, 3, OH, OW) u8, the
+    three channels resized and rounded (K2's default epilogue). One K2
+    launch on CUDA reads each pixel row once for the three channels."""
+    if imgs.dim() != 3 or imgs.shape[2] % 3:
+        raise ValueError(f"imgs must be a (B, H, W*3) batch, got "
+                         f"{tuple(imgs.shape)}")
+    if not imgs.is_contiguous():
+        raise ValueError("imgs must be contiguous")
+    on_device_with_kernel(imgs, "K2")
+    if imgs.dtype != torch.uint8:
+        raise TypeError(f"imgs must be uint8, got {imgs.dtype}")
+    B, H, WC = imgs.shape
+    tabs = tables(wv, wh, bands)
+    _, ih, iw, U, oh, U2, ow = check_args(imgs.device, (B, H, WC // 3), wv,
+                                          wh, vidx, hidx, tabs)
+    if imgs.device.type == "cpu":
+        return rgb_resize_plain(imgs, wv, wh, vidx, hidx)
+    check_rows(imgs.data_ptr(), H * WC, WC, WC, 4 * tabs.taps_h.shape[1], iw,
+               8, 1)
+    lib = _build.load()
+    out = torch.empty((B, 3, oh, ow), device=imgs.device, dtype=torch.uint8)
+    rec = plane_record(imgs.data_ptr(), H * WC, WC, 3, wv, tabs, vidx, hidx,
+                       out, 3 * oh * ow, oh * ow, ih, iw)
+    with torch.cuda.device(imgs.device):
+        _build.launch_band(lib.ik_resize_strip, [rec], B, 1.0, 0.0, 0.0, 0,
+                           0, _stream(imgs.device))
+    _count()
     return out
 
 
@@ -138,3 +272,13 @@ def plane_resize_plain(x, wv, wh, vidx, hidx, *, scale: float = 1.0,
     if centered:
         return (v - 128.0).to(torch.int8)
     return v.to(torch.uint8)
+
+
+def rgb_resize_plain(imgs, wv, wh, vidx, hidx, bands=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`rgb_resize`: K2's plain version on
+    each channel, stacked to (B, 3, OH, OW)."""
+    B, H, WC = imgs.shape
+    x = imgs.reshape(B, H, WC // 3, 3)
+    return torch.stack([plane_resize_plain(x[..., c], wv, wh, vidx, hidx,
+                                           bands=bands) for c in range(3)],
+                       dim=1)

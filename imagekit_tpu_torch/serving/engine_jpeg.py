@@ -15,8 +15,8 @@ resize:
   Huffman encode;
 - ``"rgb"``, a jxc item whose escapes overflow the split transport: it is
   decoded again in full int16 and demoted to the RGB-output head,
-  :func:`imagekit_tpu_torch.ops.dct.decode_resize_rgb_batch` (three K3
-  launches on CUDA) -> RGB -> host JPEG encode.
+  :func:`imagekit_tpu_torch.ops.dct.decode_resize_rgb_batch` (one K3
+  launch on CUDA) -> RGB -> host JPEG encode.
 
 The C++ Huffman decoder and the batch layouts are the reference's, and the
 weight stacks live on the device. Every other request raises
@@ -40,7 +40,7 @@ from imagekit_tpu_torch.ops.dct import (
     transcode_i8_batch,
 )
 from imagekit_tpu_torch.ops.jpeg8 import folded_bands
-from imagekit_tpu_torch.ops.resize_strip import band_table
+from imagekit_tpu_torch.ops.resize_strip import ResizeTables, resize_tables
 from imagekit_tpu_torch.ops.weights import (
     combined_chroma_half_weights,
     combined_chroma_weights,
@@ -332,8 +332,9 @@ class JpegPathMixin:
     def _jpeg_weights(self, key, items, u_keys):
         """The weight stacks for this set of geometries, kept on the
         engine's device across batches (``engine_jpeg.py:366-452``), with
-        their band tables for K1 (k < 8, :func:`jpeg8.folded_bands`) and
-        for the RGB head's K3 (else None):
+        their band tables for K1 (k < 8, :func:`jpeg8.folded_bands`), the
+        (luma, chroma) :class:`ResizeTables` for the RGB head's K3 (band
+        tables and compact ``Wh``), else None:
 
         - k < 8: (U, k, O, nblk) folded lowfreq stacks;
         - k = 8: full-resolution luma stacks, and chroma to HALF output
@@ -405,10 +406,14 @@ class JpegPathMixin:
             # OUTPUT rows stay valid
             stacks = [fold_lowfreq_weights(w_, k) for w_ in stacks]
         stacks = [torch.from_numpy(w_) for w_ in stacks]
-        band_of = (folded_bands if k < 8
-                   else band_table if kind == "rgb" else None)
-        bands = (tuple(band_of(s).to(self.device) for s in stacks)
-                 if band_of else None)
+        if k < 8:
+            bands = tuple(folded_bands(s).to(self.device) for s in stacks)
+        elif kind == "rgb":
+            bands = tuple(ResizeTables(*(t.to(self.device)
+                                         for t in resize_tables(*pair)))
+                          for pair in (stacks[:2], stacks[2:]))
+        else:
+            bands = None
         cached = (tuple(s.to(self.device) for s in stacks), bands)
         self._dweights.put(wkey, cached)
         return cached

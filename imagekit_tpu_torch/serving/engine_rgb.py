@@ -5,10 +5,10 @@ fused output kinds of 3-channel sources: ``"yuv"`` (resample + studio YUV
 4:2:0, WebP output) and ``"jpg"`` (resample + YCbCr + fDCT/quantise, JPEG
 output). A batch is the reference's flat (B, H, W*3) u8 layout; the
 weight stacks are keyed per axis (``v_keys`` / ``h_keys``), edge-replicated
-past the true output and kept on the device with their band tables; one
-call of :func:`imagekit_tpu_torch.ops.color.resample_rgb_yuv_batch` or
-:func:`imagekit_tpu_torch.ops.dct.resample_rgb_jpeg_batch` (three K2
-launches on CUDA) produces what the host VP8 or JPEG encoder takes. There
+past the true output and kept on the device with their band and compact
+tables; one call of :func:`imagekit_tpu_torch.ops.color.resample_rgb_yuv_batch`
+or :func:`imagekit_tpu_torch.ops.dct.resample_rgb_jpeg_batch` (one K2
+launch on CUDA) produces what the host VP8 or JPEG encoder takes. There
 is no compile set and no cold-shape host fallback.
 """
 
@@ -23,7 +23,7 @@ import torch
 
 from imagekit_tpu_torch.ops.color import resample_rgb_yuv_batch
 from imagekit_tpu_torch.ops.dct import resample_rgb_jpeg_batch
-from imagekit_tpu_torch.ops.resize_strip import band_table
+from imagekit_tpu_torch.ops.resize_strip import ResizeTables, resize_tables
 from imagekit_tpu_torch.ops.weights import quality_tables
 from imagekit_tpu_torch.serving.batch_types import (
     _BucketKey,
@@ -72,7 +72,7 @@ class RgbPathMixin:
                 hidx[i] = h_keys[(w_i, it.out_w)]
                 if not wy:
                     qto[i, :64], qto[i, 64:] = quality_tables(it.quality)
-            wv, wh, band_v, band_h = self._rgb_weights(key, v_keys, h_keys)
+            wv, wh, tabs = self._rgb_weights(key, v_keys, h_keys)
             t1 = time.perf_counter()
 
             def device_step():
@@ -80,12 +80,11 @@ class RgbPathMixin:
                     if wy:
                         return resample_rgb_yuv_batch(
                             put(batch), (wv, wh), put(vidx), put(hidx),
-                            (obh, obw), bands=(band_v, band_h),
-                            device=self.device,
+                            (obh, obw), bands=tabs, device=self.device,
                         )
                     return resample_rgb_jpeg_batch(
                         put(batch), (wv, wh), put(vidx), put(hidx), put(qto),
-                        (obh, obw), bands=(band_v, band_h), device=self.device,
+                        (obh, obw), bands=tabs, device=self.device,
                     )
 
             self._inflight += 1
@@ -131,7 +130,8 @@ class RgbPathMixin:
         await _settle(it, self._pool_run("encode", run))
 
     def _rgb_weights(self, key: _BucketKey, v_keys, h_keys):
-        """The (U, obh, bh) / (U, obw, bw) stacks and their band tables for
+        """The (U, obh, bh) / (U, obw, bw) stacks and their
+        :class:`ResizeTables` (band tables and K2's compact ``Wh``) for
         this set of geometries, kept on the engine's device across
         batches. Rows past the true output replicate the last true row
         (the staged paths' ``np.pad(mode="edge")``): to even for the 2x2
@@ -156,8 +156,9 @@ class RgbPathMixin:
             wh[u] = _cached_weights(ti, to, bw, obw)
             wh[u, to: min(rep_to(to), obw)] = wh[u, to - 1]
         stacks = [torch.from_numpy(w_) for w_ in (wv, wh)]
-        cached = tuple(t.to(self.device) for t in
-                       stacks + [band_table(s) for s in stacks])
+        tabs = ResizeTables(*(t.to(self.device)
+                              for t in resize_tables(*stacks)))
+        cached = (*(t.to(self.device) for t in stacks), tabs)
         self._dweights.put(wkey, cached)
         return cached
 

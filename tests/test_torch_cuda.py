@@ -1,6 +1,9 @@
 """Tests of the port that need an NVIDIA GPU: K1, K2, K3 and K4 (CUDA
 kernels, with no CPU mode) against their plain PyTorch versions, and the
 engine on the card against the engine on the CPU, for JPEG and PNG sources.
+K2's one-launch RGB entry (``rgb_resize``) and K3/K4's three-plane entries
+(``resize_planes3``, ``resize_planes3_f32``) are asserted to launch once a
+call; the single-plane entries are held too.
 
 Each test skips where ``torch.cuda.is_available()`` is false; the
 condition is a string, evaluated when the test runs, never at import.
@@ -313,27 +316,98 @@ def test_k2_matches_plain(epilogue):
     B, bh, bw3 = imgs.shape
     x = imgs.reshape(B, bh, bw3 // 3, 3)
     for c in range(3):
+        plane = x[..., c].contiguous()
         before = resize_strip.LAUNCHES
-        got = resize_strip.plane_resize(x[..., c], wv, wh, vidx, hidx, **kw)
+        got = resize_strip.plane_resize(plane, wv, wh, vidx, hidx, **kw)
         torch.cuda.synchronize()
         assert resize_strip.LAUNCHES == before + 1
-        want = resize_strip.plane_resize_plain(x[..., c], wv, wh, vidx, hidx,
+        want = resize_strip.plane_resize_plain(plane, wv, wh, vidx, hidx,
                                                **kw)
         assert got.dtype == want.dtype and got.shape == (B, 96, 144)
         assert_band(got, want)
 
 
+def _flagship_rgb(batch: int):
+    """The flagship RGB bucket (1088x1920 -> 240x400) with four slots per
+    axis built as the engine builds them (edge rows replicated)."""
+    from imagekit_tpu_torch.ops.weights import padded_weights
+
+    geoms_v = ((1080, 225), (1072, 223), (1064, 222), (1056, 220))
+    geoms_h = ((1920, 400), (1904, 397), (1888, 393), (1872, 390))
+    wv = np.zeros((4, 240, 1088), np.float32)
+    wh = np.zeros((4, 400, 1920), np.float32)
+    for u, ((ti, to), (tj, tp)) in enumerate(zip(geoms_v, geoms_h)):
+        wv[u] = padded_weights(ti, to, 1088, 240)
+        wh[u] = padded_weights(tj, tp, 1920, 400)
+        wv[u, to] = wv[u, to - 1]
+        wh[u, tp:tp + 1] = wh[u, tp - 1]
+    rng = np.random.default_rng(batch)
+    x = np.linspace(0, 255, 1920 * 3, dtype=np.float32)[None, None, :]
+    y = np.linspace(0, 255, 1088, dtype=np.float32)[None, :, None]
+    imgs = np.clip(0.5 * (x + y) + rng.normal(0, 25, (batch, 1088, 1920 * 3)),
+                   0, 255).astype(np.uint8)
+    vidx = (np.arange(batch) % 4).astype(np.int32)
+    return to_port([imgs, wv, wh, vidx, (vidx + 1) % 4], "cuda")
+
+
 @needs_card
-def test_k2_reads_a_channel_in_place():
-    """The strided channel view and its contiguous copy give the same bits
-    (the kernel's pixel stride and channel offset)."""
+@pytest.mark.parametrize("shape", ["small_b5", "flagship_b1", "flagship_b32"])
+def test_k2_rgb_matches_plain(shape):
+    """One K2 launch for the three channels of an interleaved batch against
+    the plain version, per channel."""
+    if shape == "small_b5":
+        imgs, wv, wh, vidx, hidx = _k2_inputs(seed=5)
+    else:
+        imgs, wv, wh, vidx, hidx = _flagship_rgb(int(shape.split("_b")[1]))
+    bands = resize_strip.resize_tables(wv, wh)
+    before = resize_strip.LAUNCHES
+    got = resize_strip.rgb_resize(imgs, wv, wh, vidx, hidx, bands=bands)
+    torch.cuda.synchronize()
+    assert resize_strip.LAUNCHES == before + 1
+    want = resize_strip.rgb_resize_plain(imgs, wv, wh, vidx, hidx)
+    assert got.dtype == torch.uint8 and got.shape == want.shape
+    for c in range(3):
+        assert_band(got[:, c], want[:, c])
+    assert 0.2 < float(((got > 0) & (got < 255)).float().mean())
+
+
+@needs_card
+@pytest.mark.parametrize("epilogue", sorted(K2_EPILOGUES))
+def test_k2_plane_at_the_yuvjpg_chroma_shape(epilogue):
+    """A contiguous 544x960 plane -> 120x200, the yuvjpg chroma shape,
+    whose tile, weights and ring take exactly 48 KB of dynamic shared
+    memory (the launch must raise the limit for the static arrays)."""
+    from imagekit_tpu_torch.ops.weights import padded_weights
+
+    kw = K2_EPILOGUES[epilogue]
+    wv = np.zeros((2, 120, 544), np.float32)
+    wh = np.zeros((2, 200, 960), np.float32)
+    for u in range(2):
+        wv[u] = padded_weights(540 - 4 * u, 113 - u, 544, 120)
+        wh[u] = padded_weights(960 - 8 * u, 200 - 2 * u, 960, 200)
+    planes = _k3_planes(2, 544, 960, seed=6)
+    x, wv, wh = to_port([planes, wv, wh], "cuda")
+    vidx = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
+    before = resize_strip.LAUNCHES
+    got = resize_strip.plane_resize(x, wv, wh, vidx, 1 - vidx, **kw)
+    torch.cuda.synchronize()
+    assert resize_strip.LAUNCHES == before + 1
+    assert_band(got, resize_strip.plane_resize_plain(x, wv, wh, vidx,
+                                                     1 - vidx, **kw))
+
+
+@needs_card
+def test_k2_refuses_a_channel_view():
+    """``plane_resize`` reads contiguous planes: a channel view of an
+    interleaved batch on the card is refused before any launch (its three
+    channels go through ``rgb_resize``)."""
     imgs, wv, wh, vidx, hidx = _k2_inputs(seed=3)
     B, bh, bw3 = imgs.shape
     view = imgs.reshape(B, bh, bw3 // 3, 3)[..., 2]
-    a = resize_strip.plane_resize(view, wv, wh, vidx, hidx)
-    b = resize_strip.plane_resize(view.contiguous(), wv, wh, vidx, hidx)
-    torch.cuda.synchronize()
-    assert torch.equal(a, b)
+    before = resize_strip.LAUNCHES
+    with pytest.raises(ValueError, match="must be contiguous"):
+        resize_strip.plane_resize(view, wv, wh, vidx, hidx)
+    assert resize_strip.LAUNCHES == before
 
 
 @needs_card
@@ -341,7 +415,7 @@ def test_k2_reads_a_channel_in_place():
 def test_png_engine_on_card_matches_engine_on_cpu(monkeypatch, fmt):
     """One 960x540 PNG -> w=200 through BatchedEngine on the card and on the
     CPU: what the host encoder gets agrees within the band, and the card's
-    run launched K2 three times."""
+    run launched K2 once."""
     from imagekit_tpu_torch.codecs import vp8
     from imagekit_tpu_torch.codecs.native import loader
     from imagekit_tpu_torch.config import ImageFormat, ImageKitConfig
@@ -377,7 +451,7 @@ def test_png_engine_on_card_matches_engine_on_cpu(monkeypatch, fmt):
 
         before = resize_strip.LAUNCHES
         out = asyncio.run(run())
-        assert resize_strip.LAUNCHES - before == (3 if device == "cuda" else 0)
+        assert resize_strip.LAUNCHES - before == (1 if device == "cuda" else 0)
         if fmt == "webp":
             assert vp8.dimensions(out) == target_dimensions(960, 540, 200, None)
     for a, b in zip(*seen):
@@ -426,7 +500,8 @@ def _k3_planes(batch: int, ih: int, iw: int, seed: int = 0):
 @pytest.mark.parametrize("batch", [1, 32])
 def test_k3_k4_match_plain(batch, plane, f32):
     """K3 (u8) and K4 (f32) against their plain versions at the demoted
-    head's shapes, four vidx slots."""
+    head's shapes, four vidx slots: one plane shape, as all three planes of
+    one launch."""
     from imagekit_tpu_torch.ops import resize_planes as rp
 
     wv, wh = _k3_stacks(plane)
@@ -435,20 +510,55 @@ def test_k3_k4_match_plain(batch, plane, f32):
     if f32:
         x = x.float() + 0.25
     vidx = torch.arange(batch, dtype=torch.int32, device="cuda") % 4
-    fn, plain = ((rp.resize_planes_f32, rp.resize_planes_f32_plain) if f32
-                 else (rp.resize_planes, rp.resize_planes_plain))
+    fn, plain = ((rp.resize_planes3_f32, rp.resize_planes_f32_plain) if f32
+                 else (rp.resize_planes3, rp.resize_planes_plain))
     counter = "LAUNCHES_F32" if f32 else "LAUNCHES"
     before = getattr(rp, counter)
-    got = fn(x, wv, wh, vidx)
+    outs = fn((x, x, x), (wv, wh, wv, wh), vidx)
     torch.cuda.synchronize()
     assert getattr(rp, counter) == before + 1
     want = plain(x, wv, wh, vidx)
-    assert got.dtype == want.dtype and got.shape == (batch, 240, 400)
+    for got in outs:
+        assert got.dtype == want.dtype and got.shape == (batch, 240, 400)
+        if f32:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=255e-5)
+        else:
+            assert_band(got, want)
+            assert 0.2 < float(((got > 0) & (got < 255)).float().mean())
+
+
+@needs_card
+@pytest.mark.parametrize("f32", [False, True], ids=["K3", "K4"])
+@pytest.mark.parametrize("batch", [1, 32])
+def test_k3_k4_three_planes_match_plain(batch, f32):
+    """Y (1088x1920) and Cb, Cr (544x960) to 240x400 with their own stacks,
+    the demoted head's shapes: one launch of K3 (u8) or K4 (f32) against
+    the plain version, plane by plane."""
+    from imagekit_tpu_torch.ops import resize_planes as rp
+
+    luma, chroma = _k3_stacks("luma"), _k3_stacks("chroma")
+    stacks = to_port([*luma, *chroma], "cuda")
+    planes = to_port([_k3_planes(batch, 1088, 1920, seed=batch),
+                      _k3_planes(batch, 544, 960, seed=batch + 1),
+                      _k3_planes(batch, 544, 960, seed=batch + 2)], "cuda")
     if f32:
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=255e-5)
-    else:
-        assert_band(got, want)
-        assert 0.2 < float(((got > 0) & (got < 255)).float().mean())
+        planes = [p.float() + 0.25 for p in planes]
+    vidx = torch.arange(batch, dtype=torch.int32, device="cuda") % 4
+    bands = (resize_strip.resize_tables(*stacks[:2]),
+             resize_strip.resize_tables(*stacks[2:]))
+    fn, plain = ((rp.resize_planes3_f32, rp.resize_planes3_f32_plain) if f32
+                 else (rp.resize_planes3, rp.resize_planes3_plain))
+    counter = "LAUNCHES_F32" if f32 else "LAUNCHES"
+    before = getattr(rp, counter)
+    got = fn(planes, stacks, vidx, bands=bands)
+    torch.cuda.synchronize()
+    assert getattr(rp, counter) == before + 1
+    for a, b in zip(got, plain(planes, stacks, vidx)):
+        assert a.dtype == b.dtype and a.shape == (batch, 240, 400)
+        if f32:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=255e-5)
+        else:
+            assert_band(a, b)
 
 
 def block_edge_image(seed: int, w: int, h: int) -> np.ndarray:
@@ -480,8 +590,8 @@ def native_jpeg(img: np.ndarray, quality: int) -> bytes:
 def test_jpeg_to_jpeg_engine_on_card_matches_engine_on_cpu(monkeypatch, case):
     """One JPEG -> JPEG batch through BatchedEngine on the card and on the
     CPU: a jxc batch (K1, centred epilogue, one launch at k=2), a k=8
-    one, and an escape-dense source demoted to the RGB head (three K3
-    launches). Levels handed to the encoder within the band; the demoted
+    one, and an escape-dense source demoted to the RGB head (one K3
+    launch). Levels handed to the encoder within the band; the demoted
     RGB within +-2 (a chroma step times the 1.772 of the matrix)."""
     from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
     from imagekit_tpu_torch.config import ImageFormat, ImageKitConfig
@@ -526,7 +636,7 @@ def test_jpeg_to_jpeg_engine_on_card_matches_engine_on_cpu(monkeypatch, case):
         out = asyncio.run(run())
         on_card = device == "cuda"
         assert jpeg8.LAUNCHES - k1 == (1 if on_card and case == "jxc_k2" else 0)
-        assert rp.LAUNCHES - k3 == (3 if on_card and case == "demoted" else 0)
+        assert rp.LAUNCHES - k3 == (1 if on_card and case == "demoted" else 0)
         hdr = jpeg_abi.parse(loader.load(), out)
         assert (hdr.width, hdr.height) == size
     assert len(rgb) == (2 if case == "demoted" else 0)

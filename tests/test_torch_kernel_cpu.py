@@ -1,0 +1,351 @@
+"""K2's, K3's and K4's CUDA source, compiled for the CPU and held against
+the plain versions.
+
+The sources (``imagekit_tpu_torch/csrc/resize_strip.cu``,
+``resize_planes.cu`` and the body they share, ``resize_band.cuh``) are
+compiled by ``g++`` under a small shim that stands in for
+``cuda_runtime.h``: one thread per block, ``__shared__`` arrays static,
+``__syncthreads`` a no-op, ``IK_LAUNCH`` a loop over the grid's blocks,
+``IK_DYN_SMEM`` a buffer filled with NaN before each launch (a read of
+shared memory that no pass wrote would show), the ``cp.async`` staging
+(``IK_CP_ASYNC``) a plain copy, and the few intrinsics the
+body uses (``__ldg``, ``__byte_perm``, ``__fadd_rn``, ...) as plain C++.
+The launch records are built by the wrappers' own helpers
+(``resize_strip.plane_record``) on CPU tensors. This checks the indexing,
+the per-row band segments, the chunked weight staging, the ragged tiles
+and groups, the pixel-row reads of an interleaved batch and both passes'
+sums; it does not check races or anything of the card's compiler (those
+are ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` on a card).
+
+Tolerance: u8/i8 within max |d| <= 1 on at most 0.1% of elements of the
+plain version (fp32 sums in another order; the reference's own band,
+tests/test_pallas_jpeg8.py:72); f32 within rtol 1e-5 and 1e-5 of the
+0..255 range, as K4 on the card.
+"""
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from imagekit_tpu_torch.ops import _build, resize_planes as rp, resize_strip
+from imagekit_tpu_torch.ops.resize_strip import plane_record, resize_tables
+from imagekit_tpu_torch.ops.weights import combined_chroma_weights, padded_weights
+from tests.test_torch_resize import EPILOGUES, assert_band
+
+CSRC = Path(__file__).resolve().parents[1] / "imagekit_tpu_torch" / "csrc"
+
+SHIM = r"""
+#pragma once
+#include <math.h>
+#include <stdint.h>
+#include <string.h>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __grid_constant__
+#define __align__(n) alignas(n)
+#define __shared__ static
+
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+static dim3 threadIdx(0), blockIdx(0), blockDim(1), gridDim(1);
+struct alignas(8) uint2 { unsigned x, y; };
+struct alignas(16) float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
+typedef void* cudaStream_t;
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class F>
+inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline void __syncthreads() {}
+template <class T> inline T __ldg(const T* p) { return *p; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __uint_as_float(unsigned u) {
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const uint64_t v = (uint64_t)x | ((uint64_t)y << 32);
+  unsigned r = 0;
+  for (int n = 0; n < 4; ++n)
+    r |= (unsigned)((v >> (8 * ((s >> (4 * n)) & 7))) & 0xff) << (8 * n);
+  return r;
+}
+inline int min(int a, int b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
+
+namespace ik_shim {
+inline std::vector<float>& smem() {
+  static std::vector<float> buf;
+  return buf;
+}
+template <class K>
+struct Launcher {
+  K kernel;
+  dim3 grid;
+  size_t bytes;
+  template <class... A>
+  void operator()(const A&... args) {
+    for (unsigned bx = 0; bx < grid.x; ++bx) {
+      smem().assign(bytes / 4 + 4, NAN);
+      blockIdx = dim3(bx);
+      threadIdx = dim3(0);
+      blockDim = dim3(1);
+      gridDim = grid;
+      kernel(args...);
+    }
+  }
+};
+template <class K>
+Launcher<K> launcher(K k, dim3 g, size_t bytes) { return {k, g, bytes}; }
+}  // namespace ik_shim
+
+#define IK_LAUNCH(kernel, grid, block, smem, stream) \
+  ik_shim::launcher(kernel, grid, smem)
+#define IK_DYN_SMEM(type, name) \
+  type* name = reinterpret_cast<type*>(ik_shim::smem().data())
+#define IK_CP_ASYNC(dst, src, bytes) memcpy(dst, src, bytes)
+#define IK_CP_COMMIT()
+#define IK_CP_WAIT(n)
+"""
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    assert gxx, "g++ builds the port's native codecs too"
+    d = tmp_path_factory.mktemp("kernel_cpu")
+    (d / "cuda_runtime.h").write_text(SHIM)
+    so = d / "libik_band_cpu.so"
+    subprocess.run(
+        [gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+         "-I", str(d), "-x", "c++", str(CSRC / "resize_strip.cu"),
+         str(CSRC / "resize_planes.cu"), "-o", str(so)],
+        check=True, capture_output=True, text=True, timeout=300)
+    out = ctypes.CDLL(str(so))
+    _build.configure_band(out)
+    return out
+
+
+def _stack(ti, to, bi, bo, U, replicate=True, hole=None):
+    """(U, bo, bi) Lanczos slots of decreasing true sizes; the row after each
+    true output replicates the last (the engine's edge rows), the rest stay
+    zero (empty bands); ``hole`` zeroes one row inside the output."""
+    w = np.zeros((U, bo, bi), np.float32)
+    for u in range(U):
+        t_i, t_o = ti - 3 * u, to - u
+        w[u] = padded_weights(t_i, t_o, bi, bo)
+        if replicate and t_o < bo:
+            w[u, t_o] = w[u, t_o - 1]
+        if hole is not None:
+            w[u, hole] = 0.0
+    return w
+
+
+def _images(B, H, WC, seed):
+    rng = np.random.default_rng(seed)
+    x = np.linspace(0, 255, WC, dtype=np.float32)[None, None, :]
+    y = np.linspace(0, 255, H, dtype=np.float32)[None, :, None]
+    img = 0.5 * (x + y) + rng.normal(0, 40, (B, H, WC))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _strip_launch(lib, x, wv, wh, vidx, hidx, C, kw=None):
+    """K2's source on (B, H, W*C) pixel rows ``x`` -> (B, C, OH, OW)."""
+    kw = kw or {}
+    B, H, WC = x.shape
+    tabs = resize_tables(wv, wh)
+    oh, ow = wv.shape[1], wh.shape[1]
+    centered = kw.get("centered", False)
+    out = torch.empty((B, C, oh, ow),
+                      dtype=torch.int8 if centered else torch.uint8)
+    scale, pre, post = (kw.get(k, d) for k, d in
+                        (("scale", 1.0), ("pre", 0.0), ("post", 0.0)))
+    affine = scale != 1.0 or pre != 0.0 or post != 0.0
+    rec = plane_record(x.data_ptr(), H * WC, WC, C, wv, tabs, vidx, hidx,
+                       out, C * oh * ow, oh * ow, H, WC // C)
+    _build.launch_band(lib.ik_resize_strip, [rec], B, scale, pre, post,
+                       int(affine), int(centered), None)
+    return out
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+# (B, H, W, OH, OW, U, vidx, hidx, stack options): what each case holds
+K2_CASES = {
+    # one image, a tile count that does not divide OH
+    "b1": (1, 40, 64, 19, 24, 2, [1], [0], {}),
+    # mixed slots, an index outside the stack on each axis (clamped), the
+    # engine's replicated rows and empty pad rows, ragged last tiles
+    "b5_mixed": (5, 48, 80, 21, 30, 3, [2, 0, -1, 1, 7], [0, 2, 1, 9, -3], {}),
+    # an empty row inside the output: its tile row takes a neighbour's band
+    "hole": (3, 40, 64, 17, 26, 2, [0, 1, 1], [1, 0, 1], {"hole": 5}),
+    # bands taller than one staged chunk of 64 rows (a 12x downscale)
+    "tall_band": (2, 360, 24, 30, 8, 2, [0, 1], [1, 1], {}),
+    # an upscale: narrow bands, many tile rows per input row
+    "upscale": (2, 12, 16, 30, 37, 2, [1, 0], [0, 1], {}),
+    # rows wide enough that the tile takes 4 rows (and 2) of the kernel
+    "tr4": (1, 16, 1200, 7, 300, 1, [0], [0], {}),
+    "tr2": (1, 10, 4800, 3, 1200, 1, [0], [0], {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K2_CASES))
+def test_k2_rgb_source_matches_plain(lib, case):
+    """The one-launch RGB entry's source: three channels of an interleaved
+    batch against ``rgb_resize_plain``."""
+    B, H, W, OH, OW, U, vidx, hidx, opts = K2_CASES[case]
+    wv = _stack(H, OH - 1, H, OH, U, **opts)
+    wh = _stack(W, OW - 2, W, OW, U, **opts)
+    imgs = _images(B, H, W * 3, seed=len(case))
+    x, wv_t, wh_t, v, h = _t(imgs, wv, wh, np.int32(vidx), np.int32(hidx))
+    got = _strip_launch(lib, x, wv_t, wh_t, v, h, 3)
+    want = resize_strip.rgb_resize_plain(
+        x, wv_t, wh_t, v.clamp(0, U - 1), h.clamp(0, U - 1))
+    assert got.shape == want.shape == (B, 3, OH, OW)
+    assert_band(got.numpy(), want.numpy(), case)
+    assert 0.2 < float(((got > 0) & (got < 255)).float().mean())
+
+
+def test_k2_non_monotone_bands_take_the_union(lib):
+    """Rows of Wv in reversed order (their bands fall as the row index
+    grows): the tile runs one segment over the union, with zero weights."""
+    wv = _stack(40, 16, 40, 16, 2)[:, ::-1].copy()
+    wh = _stack(64, 24, 64, 24, 2)
+    imgs = _images(2, 40, 64 * 3, seed=9)
+    x, wv_t, wh_t, v, h = _t(imgs, wv, wh, np.int32([0, 1]), np.int32([1, 0]))
+    bands = resize_strip.band_table(wv_t)[0, :8, 0]
+    assert (bands[1:] < bands[:-1]).any()
+    got = _strip_launch(lib, x, wv_t, wh_t, v, h, 3)
+    assert_band(got.numpy(), resize_strip.rgb_resize_plain(
+        x, wv_t, wh_t, v, h).numpy())
+
+
+def test_k2_empty_stack_slot_gives_zeros(lib):
+    wv = _stack(40, 16, 40, 16, 2)
+    wh = _stack(64, 24, 64, 24, 2)
+    wv[1] = 0.0
+    x, wv_t, wh_t, v, h = _t(_images(2, 40, 192, seed=3), wv, wh,
+                              np.int32([1, 0]), np.int32([0, 0]))
+    got = _strip_launch(lib, x, wv_t, wh_t, v, h, 3)
+    assert not got[0].any() and got[1].any()
+    assert_band(got.numpy(), resize_strip.rgb_resize_plain(
+        x, wv_t, wh_t, v, h).numpy())
+
+
+@pytest.mark.parametrize("epilogue", sorted(EPILOGUES))
+@pytest.mark.parametrize("batch", [1, 5])
+def test_k2_plane_source_matches_plain(lib, epilogue, batch):
+    """``plane_resize``'s records: a contiguous plane (C=1), all three
+    epilogues, one image or five with mixed indices."""
+    kw = EPILOGUES[epilogue]
+    wv = _stack(48, 20, 48, 22, 3)
+    wh = _stack(72, 30, 72, 33, 3)
+    planes = _images(batch, 48, 72, seed=4 + batch)
+    x, wv_t, wh_t, v, h = _t(planes, wv, wh, np.int32([2, 0, 1, 1, 0][:batch]),
+                              np.int32([0, 1, 2, 0, 2][:batch]))
+    got = _strip_launch(lib, x, wv_t, wh_t, v, h, 1, kw)
+    want = resize_strip.plane_resize_plain(x, wv_t, wh_t, v, h, **kw)
+    assert got.dtype == want.dtype
+    assert_band(got[:, 0].numpy(), want.numpy(), epilogue)
+
+
+def _k3_stacks(U=3):
+    """Luma 48x64 -> 20x28 and chroma 24x32 -> the same 20x28 (the demoted
+    head's 2x upsample folded into the chroma stacks)."""
+    wv_y = np.zeros((U, 20, 48), np.float32)
+    wh_y = np.zeros((U, 28, 64), np.float32)
+    wv_c = np.zeros((U, 20, 24), np.float32)
+    wh_c = np.zeros((U, 28, 32), np.float32)
+    for u in range(U):
+        ih, iw, oh, ow = 48 - 4 * u, 64 - 8 * u, 20 - u, 28 - 2 * u
+        wv_y[u] = padded_weights(ih, oh, 48, 20)
+        wh_y[u] = padded_weights(iw, ow, 64, 28)
+        wv_c[u] = combined_chroma_weights((ih + 1) // 2, ih, oh, 24, 20)
+        wh_c[u] = combined_chroma_weights((iw + 1) // 2, iw, ow, 32, 28)
+    return wv_y, wh_y, wv_c, wh_c
+
+
+@pytest.mark.parametrize("f32", [False, True], ids=["K3", "K4"])
+@pytest.mark.parametrize("vidx", [[1], [0, 2, 1, -4, 6]], ids=["b1", "b5"])
+def test_k3_k4_three_planes_match_plain(lib, f32, vidx):
+    """Y and the two chroma planes, of another shape and with their own
+    stacks, in one launch of K3's (u8) or K4's (f32) source."""
+    B = len(vidx)
+    stacks = _t(*_k3_stacks())
+    v = torch.tensor(vidx, dtype=torch.int32)
+    planes = [torch.from_numpy(_images(B, h, w, seed=h + w))
+              for h, w in ((48, 64), (24, 32), (24, 32))]
+    if f32:
+        planes = [p.float() + 0.25 for p in planes]
+    pairs = (stacks[:2], stacks[2:], stacks[2:])
+    recs, outs, tabs = [], [], []
+    for p, (wv, wh) in zip(planes, pairs):
+        out = torch.empty((B, 20, 28), dtype=p.dtype)
+        tabs.append(resize_tables(wv, wh))  # alive until the launch
+        recs.append(plane_record(p.data_ptr(), p.shape[1] * p.shape[2],
+                                 p.shape[2], 1, wv, tabs[-1], v, v, out,
+                                 20 * 28, 0, *p.shape[1:]))
+        outs.append(out)
+    fn = lib.ik_resize_planes_f32 if f32 else lib.ik_resize_planes_u8
+    _build.launch_band(fn, recs, B, None)
+    plain = rp.resize_planes3_f32_plain if f32 else rp.resize_planes3_plain
+    wants = plain(planes, stacks, v.clamp(0, 2))
+    for got, want in zip(outs, wants):
+        if f32:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=255e-5)
+        else:
+            assert_band(got.numpy(), want.numpy())
+            assert 0.2 < float(((got > 0) & (got < 255)).float().mean())
+
+
+# (W, C of each plane): records the source refuses
+REFUSED = {
+    # a row pitch (60 bytes) that is not a whole number of 8-byte loads
+    "misaligned_rows": (20, (3,)),
+    # only pixels of 1 or 3 channels, every channel read
+    "two_channels": (24, (2,)),
+    # every plane of a launch has as many channels
+    "mixed_channels": (24, (3, 1)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_source_refuses_what_it_does_not_take(lib, case):
+    """What the source does not take is refused with
+    cudaErrorInvalidValue, before any block runs."""
+    W, chans = REFUSED[case]
+    wv, wh = _t(_stack(16, 8, 16, 8, 1), _stack(W, 8, W, 8, 1))
+    v = torch.zeros(1, dtype=torch.int32)
+    tabs = resize_tables(wv, wh)
+    keep, recs = [], []
+    for C in chans:
+        x = torch.zeros((1, 16, W * C), dtype=torch.uint8)
+        out = torch.empty((1, C, 8, 8), dtype=torch.uint8)
+        keep += [x, out]
+        recs.append(plane_record(x.data_ptr(), 16 * W * C, W * C, C, wv, tabs,
+                                 v, v, out, C * 64, 64, 16, W))
+    with pytest.raises(RuntimeError, match="cudaError_t 1"):
+        _build.launch_band(lib.ik_resize_strip, recs, 1, 1.0, 0.0, 0.0, 0,
+                           0, None)

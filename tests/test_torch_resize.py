@@ -5,9 +5,10 @@ version (``plane_resize_plain``) for CPU tensors. It is held against
 ``pallas_resize._plane_resize`` run by the Pallas interpreter and against
 the einsum form of the same resize, for all three epilogues (default u8,
 and the yuvjpg luma and chroma remaps with the centred i8 store), with
-``vidx != hidx`` and with one channel of an interleaved batch read in
-place. The CUDA kernel itself is held against the plain version on a card
-in ``test_torch_cuda.py`` and ``chip_smoke.py``.
+``vidx != hidx``, on a plane and on one channel of an interleaved batch
+(refused as a strided view, taken as a contiguous copy). The CUDA kernel
+itself is held against the plain version on a card in
+``test_torch_cuda.py`` and ``chip_smoke.py``.
 
 Tolerance: u8/i8 within max |d| <= 1 on at most 0.1% of elements, the
 reference's own band (tests/test_pallas_jpeg8.py:72); on the CPU the two
@@ -98,10 +99,15 @@ def test_plain_matches_pallas_k2_and_einsum(epilogue, layout):
     if layout == "plane":
         x_np = np.ascontiguousarray(imgs[:, :, : bw3 // 3])
         x_t = torch.from_numpy(x_np)
-    else:  # the green channel, read in place through its strides
+    else:  # the green channel: refused in place, taken as a copy
         x_np = imgs.reshape(B, bh, bw3 // 3, 3)[..., 1]
-        x_t = torch.from_numpy(imgs).reshape(B, bh, bw3 // 3, 3)[..., 1]
-        assert x_t.stride() == (bh * bw3, bw3, 3)
+        view = torch.from_numpy(imgs).reshape(B, bh, bw3 // 3, 3)[..., 1]
+        assert view.stride() == (bh * bw3, bw3, 3)
+        with pytest.raises(ValueError, match="must be contiguous"):
+            resize_strip.plane_resize(
+                view, torch.from_numpy(wv), torch.from_numpy(wh),
+                torch.from_numpy(vidx), torch.from_numpy(hidx), **kw)
+        x_t = view.contiguous()
     before = resize_strip.LAUNCHES
     got = resize_strip.plane_resize(
         x_t, torch.from_numpy(wv), torch.from_numpy(wh),
@@ -184,9 +190,12 @@ def test_banded_product_is_the_dense_product(seed):
 
 def test_plane_resize_refuses_what_the_kernel_does_not_take():
     imgs, wv, wh, vidx, hidx = _inputs(seed=2)
-    x = torch.from_numpy(imgs).reshape(3, 64, 256, 3)[..., 0]
+    view = torch.from_numpy(imgs).reshape(3, 64, 256, 3)[..., 0]
+    x = view.contiguous()
     wv_t, wh_t = torch.from_numpy(wv), torch.from_numpy(wh)
     v, h = torch.from_numpy(vidx), torch.from_numpy(hidx)
+    with pytest.raises(ValueError, match="must be contiguous"):
+        resize_strip.plane_resize(view, wv_t, wh_t, v, h)
     with pytest.raises(TypeError, match="uint8"):
         resize_strip.plane_resize(x.float(), wv_t, wh_t, v, h)
     with pytest.raises(TypeError, match="int32"):
@@ -195,12 +204,103 @@ def test_plane_resize_refuses_what_the_kernel_does_not_take():
         resize_strip.plane_resize(x, wv_t.transpose(1, 2).contiguous()
                                   .transpose(1, 2), wh_t, v, h)
     with pytest.raises(ValueError, match="do not fit"):
-        resize_strip.plane_resize(x[:, :32], wv_t, wh_t, v, h)
+        resize_strip.plane_resize(x[:, :32].contiguous(), wv_t, wh_t, v, h)
     with pytest.raises(ValueError, match="band tables"):
         resize_strip.plane_resize(x, wv_t, wh_t, v, h,
-                                  bands=(resize_strip.band_table(wh_t),) * 2)
+                                  bands=resize_strip.resize_tables(wh_t, wh_t))
     meta = [t.to("meta") for t in (x, wv_t, wh_t, v, h)]
     bands = tuple(torch.empty((4, n, 2), dtype=torch.int32, device="meta")
                   for n in (32, 128))
     with pytest.raises(ValueError, match="no K2 kernel"):
         resize_strip.plane_resize(*meta, bands=bands)
+
+
+# -- the one-launch RGB entry and the compact Wh table -------------------------
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_rgb_resize_is_three_plain_planes_and_pallas_k2(seed):
+    """``rgb_resize`` on CPU tensors (its plain version, no launch) equals
+    three ``plane_resize_plain`` calls bit for bit, and the planes of the
+    JAX package's ``_resample_rgb_yuv_pallas`` (``_plane_resize`` per
+    channel, interpret mode) within the band; the rgbyuv head on it equals
+    ``_resample_rgb_yuv_pallas`` itself within the band."""
+    from imagekit_tpu_torch.ops import color
+
+    imgs, wv, wh, vidx, hidx = _inputs(seed)
+    B, bh, bw3 = imgs.shape
+    args = [torch.from_numpy(a) for a in (wv, wh, vidx, hidx)]
+    before = resize_strip.LAUNCHES
+    got = resize_strip.rgb_resize(torch.from_numpy(imgs), *args).numpy()
+    assert resize_strip.LAUNCHES == before  # the CPU takes the plain version
+    assert got.dtype == np.uint8 and got.shape == (B, 3, 32, 128)
+    chans = imgs.reshape(B, bh, bw3 // 3, 3)
+    for c in range(3):
+        x = np.ascontiguousarray(chans[..., c])
+        plain = resize_strip.plane_resize_plain(torch.from_numpy(x), *args)
+        assert np.array_equal(got[:, c], plain.numpy())
+        pallas = np.asarray(pallas_resize._plane_resize(
+            jnp.asarray(x), jnp.asarray(wv), jnp.asarray(wh),
+            jnp.asarray(vidx), True, hidx=jnp.asarray(hidx)))
+        assert_band(got[:, c], pallas, f"channel {c}")
+    head = color.rgb_yuv_head(torch.from_numpy(imgs), *args).numpy()
+    want = np.asarray(pallas_resize._resample_rgb_yuv_pallas(
+        jnp.asarray(imgs), jnp.asarray(wv), jnp.asarray(wh),
+        jnp.asarray(vidx), jnp.asarray(hidx), interpret=True))
+    assert_band(head, want, "rgbyuv head")
+
+
+@pytest.mark.parametrize("geom", [
+    (1920, 400, 1920, 400),   # the slice's horizontal axis (T = 32)
+    (960, 200, 960, 200),     # the yuvjpg chroma axis
+    (60, 31, 64, 32),         # a small bucket
+    (40, 90, 64, 96),         # an upscale
+    (13, 13, 16, 16),         # an identity: one tap per row
+])
+def test_compact_table_reproduces_the_banded_product(geom):
+    """The compact Wh table (aligned start, T taps) summed in increasing t
+    equals the product summed over ``band_table``'s run in increasing j,
+    bit for bit, on every row, and its window stays inside the row."""
+    ti, to, bi, bo = geom
+    w = np.zeros((2, bo, bi), np.float32)
+    w[0] = padded_weights(ti, to, bi, bo)
+    w[0, to:to + 1] = w[0, to - 1]
+    w[1, : bo // 2] = padded_weights(ti // 2 + 1, bo // 2, bi, bo // 2)
+    band = resize_strip.band_table(torch.from_numpy(w)).numpy()
+    start, taps = (t.numpy() for t in resize_strip.compact_table(
+        torch.from_numpy(w)))
+    T = 4 * taps.shape[1]
+    assert taps.shape == (2, T // 4, bo, 4) and (start % 4 == 0).all()
+    assert (start >= 0).all() and (start + T <= (bi + 3) // 4 * 4).all()
+    rng = np.random.default_rng(bo)
+    x = rng.integers(0, 256, (bi, 7)).astype(np.float32)
+    for u in range(2):
+        banded = _sequential(w[u], x, band[u])
+        compact = np.zeros_like(banded)
+        for o in range(bo):
+            for t in range(T):
+                j = start[u, o] + t
+                if j < bi:
+                    compact[o] = compact[o] + taps[u, t // 4, o, t % 4] * x[j]
+                else:
+                    assert taps[u, t // 4, o, t % 4] == 0.0
+        assert np.array_equal(compact, banded), u
+
+
+def test_rgb_resize_refuses_what_the_kernel_does_not_take():
+    imgs, wv, wh, vidx, hidx = _inputs(seed=5)
+    x = torch.from_numpy(imgs)
+    args = [torch.from_numpy(a) for a in (wv, wh, vidx, hidx)]
+    with pytest.raises(ValueError, match="W\\*3"):
+        resize_strip.rgb_resize(x[:, :, :-1], *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        resize_strip.rgb_resize(x[:, ::2], *args)
+    with pytest.raises(TypeError, match="uint8"):
+        resize_strip.rgb_resize(x.float(), *args)
+    with pytest.raises(ValueError, match="compact tables"):
+        resize_strip.rgb_resize(x, *args, bands=(
+            *resize_strip.resize_tables(*args[:2])[:2],
+            torch.zeros((4, 2, 128, 3), dtype=torch.float32)))
+    meta = [t.to("meta") for t in (x, *args)]
+    with pytest.raises(ValueError, match="no K2 kernel"):
+        resize_strip.rgb_resize(*meta)

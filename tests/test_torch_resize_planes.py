@@ -1,10 +1,11 @@
 """K3's and K4's plain versions and their band tables against the JAX package.
 
-``imagekit_tpu_torch.ops.resize_planes.resize_planes`` (K3) and
-``resize_planes_f32`` (K4) take their plain versions for CPU tensors. K3's
-is held against ``imagekit_tpu.ops.pallas.resize_kernel._resize_planes_einsum``,
-K3's own plain reference (``resize_kernel.py:281``), on random u8 planes with
-real Lanczos stacks, B=3 and ``vidx != 0``; K4's against a float64 numpy
+``imagekit_tpu_torch.ops.resize_planes.resize_planes3`` (K3) and
+``resize_planes3_f32`` (K4) take their plain versions for CPU tensors, one
+plane at a time. K3's is held against
+``imagekit_tpu.ops.pallas.resize_kernel._resize_planes_einsum``, K3's own
+plain reference (``resize_kernel.py:281``), on random u8 planes with real
+Lanczos stacks, B=3 and ``vidx != 0``; K4's against a float64 numpy
 product. The CUDA kernels themselves are held against the plain versions on
 a card in ``test_torch_cuda.py`` and ``chip_smoke.py``.
 
@@ -24,7 +25,7 @@ import torch
 
 from imagekit_tpu.ops.pallas import resize_kernel
 from imagekit_tpu_torch.ops import resize_planes as rp
-from imagekit_tpu_torch.ops.resize_strip import band_table
+from imagekit_tpu_torch.ops.resize_strip import band_table, resize_tables
 from imagekit_tpu_torch.ops.weights import combined_chroma_weights, padded_weights
 from tests.test_torch_resize import assert_band
 
@@ -55,11 +56,27 @@ def _t(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
+def _on_one_plane(entry):
+    """A three-plane entry on one plane: the plane as Y, Cb and Cr with one
+    stack pair; returns the first output after checking that the three
+    agree."""
+    def call(planes, wv, wh, vidx, bands=None):
+        outs = entry((planes,) * 3, (wv, wh, wv, wh), vidx,
+                     bands=None if bands is None else (bands, bands))
+        assert all(torch.equal(outs[0], o) for o in outs[1:])
+        return outs[0]
+    return call
+
+
+K3_ONE = _on_one_plane(rp.resize_planes3)
+K4_ONE = _on_one_plane(rp.resize_planes3_f32)
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_k3_plain_matches_resize_planes_einsum(seed):
     planes, wv, wh, vidx = _inputs(seed)
     before = rp.LAUNCHES
-    got = rp.resize_planes(*_t(planes, wv, wh, vidx)).numpy()
+    got = K3_ONE(*_t(planes, wv, wh, vidx)).numpy()
     assert rp.LAUNCHES == before  # the CPU takes the plain version
     want = np.asarray(resize_kernel._resize_planes_einsum(
         jnp.asarray(planes), jnp.asarray(wv), jnp.asarray(wh),
@@ -79,7 +96,7 @@ def test_k4_plain_matches_float64_product(seed):
     planes = planes * np.float32(0.1) + np.float32(0.25)  # dark, off the grid
     planes[:, :, ::16] = 255.0  # bright bars: the negative lobes ring
     before = rp.LAUNCHES_F32
-    got = rp.resize_planes_f32(*_t(planes, wv, wh, vidx)).numpy()
+    got = K4_ONE(*_t(planes, wv, wh, vidx)).numpy()
     assert rp.LAUNCHES_F32 == before
     want = np.stack([
         wv[u].astype(np.float64) @ planes[b].astype(np.float64)
@@ -137,7 +154,7 @@ def test_k3_on_rgb_chroma_stacks_matches_einsum():
     rng = np.random.default_rng(8)
     planes = rng.integers(0, 256, (2, 544, 960)).astype(np.uint8)
     vidx = np.array([3, 1], np.int32)
-    got = rp.resize_planes(*_t(planes, wv, wh, vidx)).numpy()
+    got = K3_ONE(*_t(planes, wv, wh, vidx)).numpy()
     want = np.asarray(resize_kernel._resize_planes_einsum(
         jnp.asarray(planes), jnp.asarray(wv), jnp.asarray(wh),
         jnp.asarray(vidx)))
@@ -145,8 +162,8 @@ def test_k3_on_rgb_chroma_stacks_matches_einsum():
 
 
 @pytest.mark.parametrize("fn,dtype,name", [
-    (rp.resize_planes, torch.uint8, "K3"),
-    (rp.resize_planes_f32, torch.float32, "K4"),
+    (K3_ONE, torch.uint8, "K3"),
+    (K4_ONE, torch.float32, "K4"),
 ])
 def test_wrappers_refuse_what_the_kernels_do_not_take(fn, dtype, name):
     planes, wv, wh, vidx = _t(*_inputs(5))
@@ -163,9 +180,77 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(fn, dtype, name):
     with pytest.raises(ValueError, match="do not fit"):
         fn(planes[:, :32].contiguous(), wv, wh, vidx)
     with pytest.raises(ValueError, match="band tables"):
-        fn(planes, wv, wh, vidx, bands=(band_table(wh), band_table(wh)))
+        fn(planes, wv, wh, vidx, bands=resize_tables(wh, wh))
     meta = [t.to("meta") for t in (planes, wv, wh, vidx)]
     bands = tuple(torch.empty((4, n, 2), dtype=torch.int32, device="meta")
                   for n in (24, 48))
     with pytest.raises(ValueError, match=f"no {name} kernel"):
         fn(*meta, bands=bands)
+
+
+# -- the three-plane entries (one launch on a card) ---------------------------
+
+
+def _three_planes(seed, dtype=np.uint8, B=3):
+    """Y (64x128) with the luma stacks and Cb, Cr (32x64) with chroma
+    stacks that fold the 2x upsample in, all to 24x48 (the demoted head's
+    shape relation at a reduced size)."""
+    rng = np.random.default_rng(seed)
+    wv_y, wh_y = _stacks()
+    wv_c = np.zeros((4, 24, 32), np.float32)
+    wh_c = np.zeros((4, 48, 64), np.float32)
+    for u, ((ti, to), (tj, tp)) in enumerate(zip(V_SLOTS, H_SLOTS)):
+        wv_c[u] = combined_chroma_weights((ti + 1) // 2, ti, to, 32, 24)
+        wh_c[u] = combined_chroma_weights((tj + 1) // 2, tj, tp, 64, 48)
+    planes = [rng.integers(0, 256, (B, h, w)).astype(dtype)
+              for h, w in ((64, 128), (32, 64), (32, 64))]
+    return planes, (wv_y, wh_y, wv_c, wh_c), np.array([2, 0, 3], np.int32)[:B]
+
+
+@pytest.mark.parametrize("seed", [6, 7])
+def test_k3_three_planes_match_resize_planes_einsum(seed):
+    """``resize_planes3`` on CPU tensors (its plain version, no launch)
+    against the JAX package's ``_resize_planes_einsum`` (K3's reference
+    semantics, ``resize_kernel.py:282``) plane by plane, each plane with
+    its own stacks."""
+    planes, stacks, vidx = _three_planes(seed)
+    before = rp.LAUNCHES
+    got = rp.resize_planes3(_t(*planes), _t(*stacks), torch.from_numpy(vidx),
+                            bands=(None, None))
+    assert rp.LAUNCHES == before
+    pairs = (stacks[:2], stacks[2:], stacks[2:])
+    for g, p, (wv, wh) in zip(got, planes, pairs):
+        want = np.asarray(resize_kernel._resize_planes_einsum(
+            jnp.asarray(p), jnp.asarray(wv), jnp.asarray(wh),
+            jnp.asarray(vidx)))
+        assert g.dtype == torch.uint8 and g.shape == (3, 24, 48)
+        assert_band(g.numpy(), want, "K3 plane")
+        assert 0.2 < float(((g > 0) & (g < 255)).float().mean())
+
+
+def test_k4_three_planes_match_float64_product():
+    planes, stacks, vidx = _three_planes(8, np.float32)
+    planes = [p * np.float32(0.1) + np.float32(0.25) for p in planes]
+    before = rp.LAUNCHES_F32
+    got = rp.resize_planes3_f32(_t(*planes), _t(*stacks),
+                                torch.from_numpy(vidx))
+    assert rp.LAUNCHES_F32 == before
+    pairs = (stacks[:2], stacks[2:], stacks[2:])
+    for g, p, (wv, wh) in zip(got, planes, pairs):
+        want = np.stack([
+            wv[u].astype(np.float64) @ p[b].astype(np.float64)
+            @ wh[u].astype(np.float64).T for b, u in enumerate(vidx)])
+        np.testing.assert_allclose(g.numpy(), want, rtol=1e-5, atol=255e-5)
+
+
+def test_three_plane_entry_refuses_what_the_kernel_does_not_take():
+    planes, stacks, vidx = _three_planes(9)
+    p, s, v = _t(*planes), _t(*stacks), torch.from_numpy(vidx)
+    with pytest.raises(ValueError, match="do not fit"):
+        rp.resize_planes3([p[0], p[0], p[2]], s, v)  # Cb of luma's shape
+    with pytest.raises(TypeError, match="uint8"):
+        rp.resize_planes3([p[0], p[1].float(), p[2]], s, v)
+    with pytest.raises(ValueError, match="one index"):
+        rp.resize_planes3(p, (s[0], s[1], s[2][:2].contiguous(), s[3]), v)
+    with pytest.raises(ValueError, match="no K3 kernel"):
+        rp.resize_planes3([t.to("meta") for t in p], s, v)
