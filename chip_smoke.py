@@ -6,17 +6,21 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``imagekit_tpu_torch/csrc`` and
-drives the port's three paths through ``BatchedEngine.transform`` on the
-card: a 1920x1080 JPEG resized to fit 400 px and encoded as WebP q80 (K1);
-a 1920x1080 RGB PNG resized to fit 400 px and encoded as WebP q80 or JPEG
-q80 (K2); and a 1920x1080 JPEG resized and re-encoded as JPEG q80 (the jxc
-transcode on K1, and its escape-dense demotion through the RGB head on K3):
+drives the port's paths through ``BatchedEngine.transform`` on the card,
+from 1920x1080 sources: a JPEG resized to fit 400 px and encoded as WebP
+q80 (K1); an RGB PNG to WebP q80 or JPEG q80 (K2); a JPEG re-encoded as
+JPEG q80 (the jxc transcode on K1, and its escape-dense demotion through
+the RGB head on K3); a JPEG to a 1280 px WebP (the k=8 head on K4);
+escape-dense JPEGs to WebP on the int16 transport (K1's int16 entry at
+k<8, K4 at k=8); and a lossy WebP to WebP or JPEG (K2 on the decoded Y, Cb
+and Cr planes):
 
 1. environment: the card (``nvidia-smi``), torch and CUDA versions;
 2. build: the kernel library (one nvcc per source, started together), the
    port's host codecs (g++, into ``build/imagekit_tpu_torch``), 16
-   synthesized 1080p JPEGs and the same 16 images as PNGs (written with
-   ``zlib`` and ``struct``: no Pillow);
+   synthesized 1080p JPEGs, the same 16 images as PNGs (written with
+   ``zlib`` and ``struct``: no Pillow) and 8 of them as lossy WebPs (the
+   port's own VP8 encoder);
 3. K1 against its plain PyTorch version on the card: one launch for Y, Cb
    and Cr at B in {1, 32}, k in {2, 4}, both epilogues, on the split-int8
    batch the engine packs from synthesized 1080p JPEGs (escapes included)
@@ -51,9 +55,27 @@ transcode on K1, and its escape-dense demotion through the RGB head on K3):
    the RGB head (K3 launches checked against one per demoted batch, one
    batch's RGB against the plain head). Outputs parsed to their size
    (400x225, 1280x720), requests/s, p50/p99 and the host stages;
-9. HTTP ``/sign`` -> ``/img`` for JPEG and PNG sources to WebP, a JPEG to
-   JPEG, and a PNG ``/upload`` through the port's app, where aiohttp is
-   installed.
+9. K1's int16 entry against its plain version: the block-grouped int16
+   batches the engine packs from the escape-dense JPEGs at B in {1, 32},
+   k in {2, 4}, both epilogues; device times and the bound at B=32, k=2;
+10. K4 on u8 planes (u8 in, f32 out) against its plain version: the planes
+    the k=8 head's 8x8 IDCT makes of an engine batch, 1088x1920 -> 720x1280
+    and 2 x 544x960 -> 360x640 in one launch at B in {1, 32}; device
+    times and the bound at B=32;
+11. K2 on the Y, Cb and Cr views of the flat batch the engine packs from
+    decoded 1080p WebPs, one launch, rounded u8 (WebP output) and each
+    plane's own remap + centred i8 (JPEG output), at B in {1, 32}; device
+    times and the bound at B=32;
+12. the engine paths of this slice, five rounds of 32 requests, counts
+    reset before each: JPEG -> w=1280 WebP (one K4 launch per batch);
+    escape-dense JPEG -> w=400 WebP (one K1 launch per batch) and -> w=1280
+    WebP (K4); lossy WebP -> w=400 WebP and -> JPEG (one K2 launch per
+    batch). Outputs parsed to their size and format, the last batch of each
+    head against the plain head, requests/s, p50/p99, the host stages, and
+    the device's idle share from a second, traced round;
+13. HTTP ``/sign`` -> ``/img`` for JPEG, PNG and WebP sources to WebP, a
+    JPEG to a 1280 px WebP, a JPEG to JPEG, and a PNG ``/upload`` through
+    the port's app, where aiohttp is installed.
 
 Device times are the kernels' own, summed by ``torch.profiler`` over 20
 calls (the host's launch cost excluded); the bound is the larger of the
@@ -170,6 +192,28 @@ def make_png(img: np.ndarray) -> bytes:
             + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
 
 
+def make_webp(img: np.ndarray, quality: int) -> bytes:
+    """Lossy WebP without Pillow: BT.601 studio-range planes (a 2x2 box for
+    the chroma) through the port's own VP8 encoder."""
+    from imagekit_tpu_torch.codecs import vp8
+
+    rgb = img.astype(np.float32)
+    h, w = rgb.shape[:2]
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    y = 16.0 + (65.481 * r + 128.553 * g + 24.966 * b) / 255.0
+    cb = 128.0 + (-37.797 * r - 74.203 * g + 112.0 * b) / 255.0
+    cr = 128.0 + (112.0 * r - 93.786 * g - 18.214 * b) / 255.0
+
+    def half(c):
+        c = np.pad(c, ((0, h & 1), (0, w & 1)), mode="edge")
+        return c.reshape(c.shape[0] // 2, 2, c.shape[1] // 2, 2).mean((1, 3))
+
+    def q8(p):
+        return np.clip(np.floor(p + 0.5), 0, 255).astype(np.uint8)
+
+    return vp8.encode_yuv420(q8(y), q8(half(cb)), q8(half(cr)), quality)
+
+
 def native_codecs() -> str:
     """Build and load the port's host codec library
     (``imagekit_tpu_torch/codecs/native``, into ``build/imagekit_tpu_torch``);
@@ -181,7 +225,8 @@ def native_codecs() -> str:
     from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
 
     try:
-        return f"{loader.load()._name} (jpeg_entropy + vp8_encode + png_decode)"
+        return (f"{loader.load()._name} (jpeg_entropy + vp8_encode + vp8_decode "
+                f"+ vp8l_decode + png_decode)")
     except RuntimeError as e:
         log(f"native loader build failed:\n{str(e)[-4000:]}")
         if "zlib.h" not in str(e):
@@ -224,13 +269,18 @@ class Recorder:
         setattr(self.module, self.name, self.fn)
 
 
-def capture_batch(jpegs, width: int, batch: int):
-    """Drive ``batch`` requests through an engine that flushes only full
-    batches; return the recorded device inputs of that one batch."""
+def capture_batch(jpegs, width: int, batch: int,
+                  name: str = "decode_resize_yuv_lowfreq_i8_batch",
+                  module=None, fmt=None):
+    """Drive ``batch`` requests (to WebP, or ``fmt``) through an engine that
+    flushes only full batches; return the recorded device inputs of that one
+    batch, taken at the head ``name`` of ``module`` (``engine_jpeg``)."""
     from imagekit_tpu_torch.config import BatchConfig, ImageFormat, ImageKitConfig
     from imagekit_tpu_torch.serving import engine_jpeg
     from imagekit_tpu_torch.serving.batcher import BatchedEngine
     from imagekit_tpu_torch.serving.metrics import Metrics
+
+    fmt = fmt or ImageFormat.webp
 
     cfg = ImageKitConfig(secret=SECRET, batch=BatchConfig(
         max_batch=batch, max_delay_ms=60_000.0, hard_delay_ms=60_000.0))
@@ -239,14 +289,13 @@ def capture_batch(jpegs, width: int, batch: int):
     async def run():
         try:
             return await asyncio.gather(*(
-                engine.transform(jpegs[i % len(jpegs)], width, None,
-                                 ImageFormat.webp, 80)
+                engine.transform(jpegs[i % len(jpegs)], width, None, fmt, 80)
                 for i in range(batch)
             ))
         finally:
             await engine.close()
 
-    with Recorder(engine_jpeg) as rec:
+    with Recorder(module or engine_jpeg, name) as rec:
         asyncio.run(run())
     if len(rec.calls) != 1:
         raise RuntimeError(f"expected one batch, got {len(rec.calls)}")
@@ -337,7 +386,8 @@ def k1_bound(dcs, acs, escs, qt, stacks, bands, vidx, k):
     """K1's bound for one batch: the levels of the block columns in use,
     the escape lists, the stacks' bands of the slots in use and the packed
     output; pass 1 over each output row's band of block rows for the k²
-    coefficient planes, pass 2 over each column's band for the k planes."""
+    coefficient planes, pass 2 over each column's band for the k planes.
+    ``escs`` None is the int16 transport: every level two bytes, no lists."""
     used = torch.unique(vidx)
     nbytes = qt.numel() * 4 + vidx.numel() * 4
     flops = 0.0
@@ -346,8 +396,11 @@ def k1_bound(dcs, acs, escs, qt, stacks, bands, vidx, k):
         bv, bh = bands[:2] if p == 0 else bands[2:]
         B, rows, O, P, nblk = vidx.numel(), wv.shape[3], wv.shape[2], \
             wh.shape[2], wh.shape[3]
-        nbytes += B * rows * nblk * (2 + k * k - 1)  # i16 DC, i8 AC
-        nbytes += escs[p][0].numel() * 4 + escs[p][1].numel() * 4
+        if escs is None:
+            nbytes += B * rows * nblk * 2 * k * k
+        else:
+            nbytes += B * rows * nblk * (2 + k * k - 1)  # i16 DC, i8 AC
+            nbytes += escs[p][0].numel() * 4 + escs[p][1].numel() * 4
         nbytes += 4 * k * float(band_sum(bv, used).sum() + band_sum(bh, used).sum())
         nbytes += B * O * P
         flops += 2 * (k * k * nblk * float(band_sum(bv, vidx).sum())
@@ -675,7 +728,6 @@ def phase_k3(images) -> dict:
     stacks, tabs = k3_stacks()
     x8 = [torch.from_numpy(p).cuda() for p in [luma] + chroma]
     xf = [p.float() + 0.25 for p in x8]  # off the integer grid
-    result["k4_launches"] = 0  # K4 has no path: the launches of this phase
     for batch in (1, 32):
         vidx = torch.arange(batch, dtype=torch.int32, device="cuda") % 4
         k3_0, k4_0 = rp.LAUNCHES, rp.LAUNCHES_F32
@@ -686,7 +738,6 @@ def phase_k3(images) -> dict:
         torch.cuda.synchronize()
         if rp.LAUNCHES != k3_0 + 1 or rp.LAUNCHES_F32 != k4_0 + 1:
             raise RuntimeError("the three planes did not take one launch")
-        result["k4_launches"] += 1
         ref = rp.resize_planes3_plain([p[:batch] for p in x8], stacks, vidx)
         ref_f = rp.resize_planes3_f32_plain([p[:batch] for p in xf], stacks,
                                             vidx)
@@ -1097,11 +1148,453 @@ def phase_jxc_engine(jpegs, dense, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: HTTP
+# phases 9-11: K1's int16 entry, K4 on u8 planes and K2 on three YUV planes
+# against their plain versions, on batches the engine packs
 # ---------------------------------------------------------------------------
 
 
-def phase_http(jpegs, png_bytes: bytes) -> str:
+def flat_planes(planes, like):
+    """Host (Y, Cb, Cr) arrays of a head -> one flat tensor beside ``like``."""
+    return torch.cat([torch.from_numpy(p.reshape(p.shape[0], -1))
+                      for p in planes], dim=1).to(like.device)
+
+
+def check_band(what: str, got, ref) -> tuple:
+    mx, share1, over = compare(got, ref)
+    if mx > MAX_ABS or share1 > MAX_SHARE or over:
+        raise RuntimeError(f"{what} disagrees with its plain version: "
+                           f"max|d|={mx}, share(|d|=1)={share1:.3e}")
+    return mx, share1
+
+
+def k1_i16_inputs(call):
+    """A recorded ``decode_resize_yuv_lowfreq_batch`` call's K1 inputs, as
+    ``folded_planes_i16`` takes them: (flats, qtabs, stacks, bands, vidx),
+    and its k."""
+    args, kw, _ = call
+    y, cb, cr, qt, stacks, vidx = args[:6]
+    return ((y, cb, cr), qt, stacks, kw["bands"], vidx), args[8]
+
+
+def k1_i16_library(flats, qt, stacks, bands, vidx, k):
+    """Yardstick of the int16 entry: :func:`k1_library`'s einsum on the
+    block-grouped levels split by ``reshape`` and dequantised beforehand
+    (untimed). The port never calls it."""
+    from imagekit_tpu_torch.ops import jpeg8
+
+    qt_l, qt_c = jpeg8.qt_lowfreq(qt, k)
+    ui = vidx.long()
+    operands = []
+    for p in range(3):
+        wv, wh = stacks[:2] if p == 0 else stacks[2:]
+        nblk = wh.shape[3]
+        B, rows, _ = flats[p].shape
+        lev = flats[p][:, :, :nblk * k * k].reshape(B, rows, nblk, k, k)
+        q = (qt_l if p == 0 else qt_c).reshape(B, 1, 1, k, k)
+        C = (lev.float() * q).permute(0, 3, 4, 1, 2).contiguous()
+        operands.append((wv[ui], C, wh[ui]))
+    return lambda: [torch.einsum("buor,buvrc,bvpc->bop", *ops)
+                    for ops in operands]
+
+
+def phase_k1_i16(dense) -> dict:
+    """K1's int16 entry (block-grouped levels, no escapes) against its
+    plain version, on the batches the engine packs from escape-dense
+    JPEGs."""
+    from imagekit_tpu_torch.ops import jpeg8
+
+    result = {"max_abs_err": 0}
+    for k, width in ((2, 400), (4, 800)):
+        for batch in (1, 32):
+            call = capture_batch(dense, width, batch,
+                                 "decode_resize_yuv_lowfreq_batch")
+            inp, k_rec = k1_i16_inputs(call)
+            if k_rec != k:
+                raise RuntimeError(f"width {width}: engine chose k={k_rec}")
+            past_i8 = int((inp[0][0].abs() > 127).sum())
+            if not past_i8:
+                raise RuntimeError("the int16 batch holds no level past int8")
+            for centered in (False, True):
+                before = jpeg8.LAUNCHES
+                got = jpeg8.folded_planes_i16(*inp, k, centered=centered)
+                torch.cuda.synchronize()
+                if jpeg8.LAUNCHES != before + 1:
+                    raise RuntimeError("folded_planes_i16 did not launch once")
+                ref = jpeg8.folded_planes_i16_plain(*inp, k, centered)
+                for a, b in (zip(got, ref) if centered else [(got, ref)]):
+                    mx, share1 = check_band("K1 (int16 entry)", a, b)
+                    log(f"  K1 int16 vs plain B={batch} k={k} "
+                        f"{'centred i8' if centered else 'decode u8'} "
+                        f"shape={tuple(a.shape)} luma levels past int8="
+                        f"{past_i8}: max|d|={mx} share(|d|=1)={share1:.3e} "
+                        f"({int((a != b).sum())} of {a.numel()} differ)")
+                    result["max_abs_err"] = max(result["max_abs_err"], mx)
+            plain = jpeg8.folded_planes_i16_plain(*inp, k)
+            mx, share1 = check_band("int16 lowfreq head",
+                                    flat_planes(call[2], plain), plain)
+            log(f"  head (engine, K1 int16) vs plain head B={batch} k={k}: "
+                f"max|d|={mx} share(|d|=1)={share1:.3e}")
+            if batch == 32 and k == 2:
+                ms, plain_ms, library_ms = (device_ms(f) for f in (
+                    lambda: jpeg8.folded_planes_i16(*inp, k),
+                    lambda: jpeg8.folded_planes_i16_plain(*inp, k),
+                    k1_i16_library(*inp, k)))
+                flats, qt, stacks, bands, vidx = inp
+                bound_ms, bound_by = k1_bound(None, None, None, qt, stacks,
+                                              bands, vidx, k)
+                log(f"  timing B=32 k=2, 3 planes in one launch (device time "
+                    f"per call, torch.profiler over 20): K1 int16 {ms:.4f} "
+                    f"ms, plain {plain_ms:.4f} ms, library (3 fp32 einsums on "
+                    f"dequantised planes, no epilogue) {library_ms:.4f} ms; "
+                    f"bound {bound_ms:.4f} ms ({bound_by}), at "
+                    f"{bound_ms / ms:.1%} of it")
+                result.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                              bound_ms=bound_ms, bound_by=bound_by)
+    return result
+
+
+def k8_planes(call):
+    """A recorded k = 8 split batch's u8 planes, as the head hands them to
+    K4: widen + escapes, dequantise, 8x8 IDCT to the u8 grid. Returns
+    (planes, stacks, vidx, tables)."""
+    from imagekit_tpu_torch.ops import dct
+
+    args, kw, _ = call
+    dcs, acs, escs, qt, stacks, vidx, (by, bx, cy, cx) = args[:7]
+    dims = ((by, bx), (cy, cx), (cy, cx))
+    planes = []
+    for p in range(3):
+        lev = dct._widen_split_levels(dcs[p], acs[p], *escs[p], *dims[p])
+        planes.append(dct._blocks_to_plane(
+            lev, *dims[p], qt[:, :64] if p == 0 else qt[:, 64:]))
+        del lev
+    return planes, stacks, vidx, kw["bands"]
+
+
+def planes_bound(planes, out_elem, stacks, tabs, vidx):
+    """Bound of one three-plane launch: u8 planes in, ``out_elem`` bytes an
+    output pixel."""
+    from imagekit_tpu_torch.ops.resize_strip import band_table
+
+    nbytes = flops = 0.0
+    for x, (wv, wh), t in zip(planes, (stacks[:2], stacks[2:], stacks[2:]),
+                              (tabs[0], tabs[1], tabs[1])):
+        out_px = x.shape[0] * wv.shape[1] * wh.shape[1]
+        nb, fl = resize_bound(x.numel() * x.element_size(),
+                              out_px * out_elem, wv, t.band_v,
+                              band_table(wh), vidx, vidx, x.shape[2])
+        nbytes += nb
+        flops += fl
+    return bound(nbytes, flops)
+
+
+def planes_einsums(planes, stacks, vidx):
+    """Yardstick: one fp32 einsum per plane over the gathered stacks and
+    the plane widened to f32 beforehand (untimed), no epilogue."""
+    u = vidx.long()
+    pairs = [(stacks[0][u], stacks[1][u])] + [(stacks[2][u], stacks[3][u])] * 2
+    xs = [p.float() for p in planes]
+    return lambda: [torch.einsum("boh,bhw,bpw->bop", wv_g, x_, wh_g)
+                    for (wv_g, wh_g), x_ in zip(pairs, xs)]
+
+
+def phase_k4_u8(jpegs) -> dict:
+    """K4's u8-in / f32-out instantiation against its plain version, on
+    the planes of the k = 8 JPEG -> WebP head: 1088x1920 luma -> 720x1280
+    and 544x960 chroma -> 360x640 (half output resolution)."""
+    from imagekit_tpu_torch.ops import resize_planes as rp
+
+    result = {"max_abs_err": 0.0}
+    for batch in (1, 32):
+        call = capture_batch(jpegs, 1280, batch, "decode_resize_yuv_i8_batch")
+        planes, stacks, vidx, tabs = k8_planes(call)
+        if any(p.dtype != torch.uint8 for p in planes):
+            raise RuntimeError("the IDCT's planes are not u8")
+        before = rp.LAUNCHES_F32
+        got = rp.resize_planes3_f32(planes, stacks, vidx, bands=tabs)
+        torch.cuda.synchronize()
+        if rp.LAUNCHES_F32 != before + 1:
+            raise RuntimeError("the three planes did not take one K4 launch")
+        ref = rp.resize_planes3_f32_plain(planes, stacks, vidx)
+        for name, a, b in zip(("Y", "Cb", "Cr"), got, ref):
+            err = float((a - b).abs().max())
+            src = planes[0 if name == "Y" else 1]
+            log(f"  K4 (u8 in, f32 out) vs plain B={batch} {name} "
+                f"{tuple(src.shape[1:])} -> {tuple(a.shape[1:])}: "
+                f"max|d|={err:.3e}")
+            # fp32 sums of ~1000 terms in another order
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=255e-5)
+            result["max_abs_err"] = max(result["max_abs_err"], err)
+        del got, ref
+    ms = device_ms(lambda: rp.resize_planes3_f32(planes, stacks, vidx,
+                                                 bands=tabs))
+    plain_ms = device_ms(lambda: rp.resize_planes3_f32_plain(planes, stacks,
+                                                             vidx), reps=5)
+    library_ms = device_ms(planes_einsums(planes, stacks, vidx), reps=5)
+    bound_ms, bound_by = planes_bound(planes, 4, stacks, tabs, vidx)
+    log(f"  timing B=32 1088x1920 -> 720x1280 (+ 2 x 544x960 -> 360x640), u8 "
+        f"planes in, f32 out, one launch (device time per call): K4 {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, library (3 fp32 einsums on widened "
+        f"planes) {library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
+        f"K4 at {bound_ms / ms:.1%} of it")
+    result.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                  bound_ms=bound_ms, bound_by=bound_by)
+    return result
+
+
+def phase_k2_yuv(webps) -> dict:
+    """K2 on the Y, Cb and Cr views of a YUV-source batch, one launch, with
+    the plain (WebP output) and the per-plane remap + centred (JPEG output)
+    epilogues, against the plain version, on the batches the engine packs
+    from decoded 1080p WebPs."""
+    from imagekit_tpu_torch.config import ImageFormat
+    from imagekit_tpu_torch.ops import dct, resize_strip
+    from imagekit_tpu_torch.serving import engine_yuv
+
+    result = {"max_abs_err": 0}
+    timed = {}
+    for jpeg in (False, True):
+        what = "remap + centred i8" if jpeg else "rounded u8"
+        for batch in (1, 32):
+            call = capture_batch(
+                webps, 400, batch,
+                "resize_yuv_jpeg_batch" if jpeg else "resize_yuv420_batch",
+                module=engine_yuv,
+                fmt=ImageFormat.jpeg if jpeg else ImageFormat.webp)
+            args, kw, _ = call
+            flat, stacks, vidx = args[0], args[1], args[3 if jpeg else 2]
+            in_shape = args[4 if jpeg else 3]
+            planes = dct.yuv_planes(flat, *in_shape)
+            before = resize_strip.LAUNCHES
+            got = resize_strip.yuv_resize(planes, stacks, vidx, jpeg=jpeg,
+                                          bands=kw["bands"])
+            torch.cuda.synchronize()
+            if resize_strip.LAUNCHES != before + 1:
+                raise RuntimeError("yuv_resize did not launch K2 once")
+            ref = resize_strip.yuv_resize_plain(planes, stacks, vidx,
+                                                jpeg=jpeg)
+            for name, a, b in zip(("Y", "Cb", "Cr"), got, ref):
+                mx, share1 = check_band("K2 (three YUV planes)", a, b)
+                log(f"  K2 vs plain B={batch} {name} {what} -> "
+                    f"{tuple(a.shape[1:])} {a.dtype}: max|d|={mx} "
+                    f"share(|d|=1)={share1:.3e} ({int((a != b).sum())} of "
+                    f"{a.numel()} differ)")
+                result["max_abs_err"] = max(result["max_abs_err"], mx)
+        t_k = device_ms(lambda: resize_strip.yuv_resize(
+            planes, stacks, vidx, jpeg=jpeg, bands=kw["bands"]))
+        t_p = device_ms(lambda: resize_strip.yuv_resize_plain(
+            planes, stacks, vidx, jpeg=jpeg))
+        timed[jpeg] = (t_k, t_p)
+        if not jpeg:
+            library_ms = device_ms(planes_einsums(planes, stacks, vidx))
+            bound_ms, bound_by = planes_bound(planes, 1, stacks, kw["bands"],
+                                              vidx)
+    (ms, plain_ms), (ms_j, plain_j) = timed[False], timed[True]
+    log(f"  timing B=32 1088x1920 -> 240x400 (+ 2 x 544x960 -> 120x200), "
+        f"three planes of the flat batch in one launch (device time per "
+        f"call): K2 {ms:.4f} ms, plain {plain_ms:.4f} ms, library (3 fp32 "
+        f"einsums on widened planes, no epilogue) {library_ms:.4f} ms; bound "
+        f"{bound_ms:.4f} ms ({bound_by}), K2 at {bound_ms / ms:.1%} of it; "
+        f"with the per-plane remap + centred epilogue: K2 {ms_j:.4f} ms, "
+        f"plain {plain_j:.4f} ms")
+    result.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                  bound_ms=bound_ms, bound_by=bound_by, ms_jpeg=ms_j,
+                  plain_ms_jpeg=plain_j)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the engine paths of JPEG -> WebP at every downscale and of lossy
+# WebP sources
+# ---------------------------------------------------------------------------
+
+
+def device_busy_s(prof) -> float:
+    """Seconds in which the card ran at least one kernel or copy: the union
+    of the device activities' intervals of a ``torch.profiler`` trace."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        raise RuntimeError("the profiler saw no device activity")
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return (busy + hi - lo) / 1e6
+
+
+def check_path_batch(head: str, call) -> tuple:
+    """A recorded batch of one of the new heads against the plain head on
+    the same inputs: (max |d|, share(|d|=1))."""
+    from imagekit_tpu_torch.ops import dct, jpeg8, resize_strip
+    from imagekit_tpu_torch.ops import resize_planes as rp
+
+    args, kw, out = call
+    bands = kw["bands"]
+    if head == "decode_resize_yuv_i8_batch":
+        dcs, acs, escs, qt, stacks, vidx, block_dims = args[:7]
+        plain = dct.decode_resize_yuv_i8(
+            dcs, acs, escs, qt, stacks, vidx, block_dims, bands,
+            resize=rp.resize_planes3_f32_plain)
+    elif head == "decode_resize_yuv_batch":
+        y, cb, cr, qt, stacks, vidx, block_dims = args[:7]
+        plain = dct.decode_resize_yuv(y, cb, cr, qt, stacks, vidx, block_dims,
+                                      bands, resize=rp.resize_planes3_f32_plain)
+    elif head == "decode_resize_yuv_lowfreq_batch":
+        inp, k = k1_i16_inputs(call)
+        plain = jpeg8.folded_planes_i16_plain(*inp, k)
+    elif head == "resize_yuv420_batch":
+        flat, stacks, vidx, in_shape = args[:4]
+        plain = dct.resize_yuv420(flat, stacks, vidx, in_shape, bands,
+                                  resize=resize_strip.yuv_resize_plain)
+    else:
+        flat, stacks, qto, vidx, in_shape = args[:5]
+        plain = dct.resize_yuv_jpeg(flat, stacks, qto, vidx, in_shape, bands,
+                                    resize=resize_strip.yuv_resize_plain)
+    return check_band(f"the head {head}", flat_planes(out, plain), plain)
+
+
+def phase_new_paths(jpegs, dense, webps, card: str) -> dict:
+    """Five rounds of 32 concurrent requests through one engine, the launch
+    counts set to 0 before each and read after it: 1080p JPEG -> w=1280 WebP
+    (k = 8, K4); escape-dense JPEG -> w=400 WebP (int16 transport, K1) and
+    -> w=1280 WebP (int16, K4); 1080p lossy WebP -> w=400 WebP and -> JPEG
+    (K2). Each round runs twice: timed, then under ``torch.profiler`` for
+    the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from imagekit_tpu_torch.codecs import vp8
+    from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
+    from imagekit_tpu_torch.config import BatchConfig, ImageFormat, ImageKitConfig
+    from imagekit_tpu_torch.ops import jpeg8, resize_strip
+    from imagekit_tpu_torch.ops import resize_planes as rp
+    from imagekit_tpu_torch.serving import engine_jpeg, engine_yuv
+    from imagekit_tpu_torch.serving.batcher import BatchedEngine
+    from imagekit_tpu_torch.serving.metrics import Metrics
+
+    W, J = ImageFormat.webp, ImageFormat.jpeg
+    # (name, sources, width, format, output size, head, the kernel it launches)
+    rounds = (
+        ("1080p JPEG -> w=1280 WebP (k=8, split int8)", jpegs, 1280, W,
+         (1280, 720), "decode_resize_yuv_i8_batch", "k4"),
+        ("escape-dense JPEG -> w=400 WebP (k=2, int16)", dense, 400, W,
+         (400, 225), "decode_resize_yuv_lowfreq_batch", "k1"),
+        ("escape-dense JPEG -> w=1280 WebP (k=8, int16)", dense, 1280, W,
+         (1280, 720), "decode_resize_yuv_batch", "k4"),
+        ("1080p lossy WebP -> w=400 WebP", webps, 400, W, (400, 225),
+         "resize_yuv420_batch", "k2"),
+        ("1080p lossy WebP -> w=400 JPEG", webps, 400, J, (400, 225),
+         "resize_yuv_jpeg_batch", "k2"),
+    )
+    n_req = 32
+    metrics = Metrics()
+    # no load shedding: every request of a round is served and measured
+    engine = BatchedEngine(
+        ImageKitConfig(secret=SECRET,
+                       batch=BatchConfig(max_queue_latency_s=0.0)),
+        metrics=metrics, device="cuda")
+    stages = ("entropy_decode", "vp8_decode", "batch_build",
+              "device_decode_resize", "device_resize", "encode")
+
+    def counts():
+        return {"k1": jpeg8.LAUNCHES, "k2": resize_strip.LAUNCHES,
+                "k3": rp.LAUNCHES, "k4": rp.LAUNCHES_F32}
+
+    async def one(data, w, fmt):
+        t0 = time.perf_counter()
+        out = await engine.transform(data, w, None, fmt, 80)
+        return out, time.perf_counter() - t0
+
+    async def drive():
+        try:
+            await engine.warmup()
+            runs = []
+            for _, srcs, w, fmt, *_ in rounds:
+                reqs = [(srcs[i % len(srcs)], w, fmt) for i in range(n_req)]
+                await asyncio.gather(*(one(*r) for r in reqs[:4]))  # warm
+                batches0 = metrics.batches
+                stage0 = {k: metrics.stage_seconds[k] for k in stages}
+                jpeg8.LAUNCHES = resize_strip.LAUNCHES = 0
+                rp.LAUNCHES = rp.LAUNCHES_F32 = 0
+                t0 = time.perf_counter()
+                res = await asyncio.gather(*(one(*r) for r in reqs))
+                wall = time.perf_counter() - t0
+                run = {"res": res, "wall": wall, **counts(),
+                       "batches": metrics.batches - batches0,
+                       "spent": {k: metrics.stage_seconds[k] - stage0[k]
+                                 for k in stages}}
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    await asyncio.gather(*(one(*r) for r in reqs))
+                    torch.cuda.synchronize()
+                    run["traced_wall"] = time.perf_counter() - t0
+                run["busy"] = device_busy_s(prof)
+                runs.append(run)
+            return runs
+        finally:
+            await engine.close()
+
+    heads = sorted({r[5] for r in rounds})
+    recs = {h: Recorder(engine_yuv if h.startswith("resize_yuv")
+                        else engine_jpeg, h) for h in heads}
+    for rec in recs.values():
+        rec.__enter__()
+    try:
+        runs = asyncio.run(drive())
+    finally:
+        for rec in recs.values():
+            rec.__exit__()
+    lib = loader.load()
+    summary = {}
+    for (name, _, _, fmt, size, head, kern), run in zip(rounds, runs):
+        for out, _ in run["res"]:
+            if fmt == W:
+                dims = vp8.dimensions(out) if out[8:12] == b"WEBP" else None
+            else:
+                hdr = jpeg_abi.parse(lib, out)
+                dims = (hdr.width, hdr.height)
+            if dims != size:
+                raise RuntimeError(f"{name}: {fmt.value} output is {dims}, "
+                                   f"not {size}")
+        p50, p99 = latency(run["res"])
+        rps = n_req / run["wall"]
+        idle = 1.0 - run["busy"] / run["traced_wall"]
+        launched = {k: run[k] for k in ("k1", "k2", "k3", "k4")}
+        log(f"  {name}: {n_req} concurrent requests in {run['wall']:.4f} s "
+            f"-> {rps:.2f} req/s, p50 {p50:.2f} ms, p99 {p99:.2f} ms, "
+            f"{run['batches']} batches, launches {launched} [{card}]")
+        log("    host seconds: " + ", ".join(
+            f"{k} {v:.4f} s ({v / n_req * 1e3:.2f} ms/request)"
+            for k, v in run["spent"].items() if v > 0))
+        log(f"    device idle share {idle:.1%} (busy {run['busy']:.4f} s of "
+            f"{run['traced_wall']:.4f} s in a second, traced round)")
+        others = [k for k in launched if k != kern and launched[k]]
+        if run["batches"] <= 0 or launched[kern] != run["batches"] or others:
+            raise RuntimeError(
+                f"{name}: {launched} launches for {run['batches']} batches; "
+                f"expected one {kern.upper()} launch per batch and no other")
+        calls = recs[head].calls
+        if not calls:
+            raise RuntimeError(f"{name}: the head {head} was not called")
+        mx, share1 = check_path_batch(head, calls[-1])
+        log(f"    last batch ({head}) vs plain head: max|d|={mx} "
+            f"share(|d|=1)={share1:.3e}")
+        summary[head] = {"launches": launched[kern], "batches": run["batches"],
+                         "rps": rps, "p50_ms": p50, "p99_ms": p99,
+                         "idle_share": idle}
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 13: HTTP
+# ---------------------------------------------------------------------------
+
+
+def phase_http(jpegs, png_bytes: bytes, webp_bytes: bytes) -> str:
     try:
         import aiohttp
         from aiohttp import web
@@ -1135,8 +1628,12 @@ def phase_http(jpegs, png_bytes: bytes) -> str:
         async def serve_png(request):
             return web.Response(body=png_bytes, content_type="image/png")
 
+        async def serve_webp(request):
+            return web.Response(body=webp_bytes, content_type="image/webp")
+
         src.router.add_get("/src{i}.jpg", serve)
         src.router.add_get("/src.png", serve_png)
+        src.router.add_get("/src.webp", serve_webp)
         src_runner = web.AppRunner(src)
         await src_runner.setup()
         src_site = web.TCPSite(src_runner, "127.0.0.1", 0)
@@ -1156,19 +1653,28 @@ def phase_http(jpegs, png_bytes: bytes) -> str:
             async with aiohttp.ClientSession() as s:
                 urls = [f"http://127.0.0.1:{src_port}/src{i}.jpg"
                         for i in range(4)]
-                for url in urls + [f"http://127.0.0.1:{src_port}/src.png"]:
+                local = f"http://127.0.0.1:{src_port}"
+                # (source, width): the JPEGs, the PNG and the WebP at
+                # w=400, and a JPEG at w=1280 (the k=8 head)
+                wanted = [(url, "400") for url in urls + [
+                    f"{local}/src.png", f"{local}/src.webp"]] + [
+                    (urls[1], "1280")]
+                for url, width in wanted:
                     async with s.get(f"{base}/sign", params={
-                            "url": url, "w": "400", "f": "webp", "q": "80"}) as r:
+                            "url": url, "w": width, "f": "webp", "q": "80"}) as r:
                         signed = (await r.json())["signed_url"]
                     for attempt in range(2):
                         async with s.get(base + signed) as r:
                             body = await r.read()
+                            size = (int(width), int(width) * 9 // 16)
                             if (r.status != 200
                                     or r.headers["Content-Type"] != "image/webp"
                                     or "ETag" not in r.headers
-                                    or body[8:12] != b"WEBP"):
+                                    or body[8:12] != b"WEBP"
+                                    or vp8.dimensions(body) != size):
                                 raise RuntimeError(
-                                    f"/img answered {r.status} {dict(r.headers)}")
+                                    f"/img {url} w={width} answered "
+                                    f"{r.status} {dict(r.headers)}")
                 async with s.get(f"{base}/sign", params={
                         "url": urls[0], "w": "400", "f": "jpeg",
                         "q": "80"}) as r:
@@ -1191,14 +1697,15 @@ def phase_http(jpegs, png_bytes: bytes) -> str:
                             or r.headers["Content-Type"] != "image/webp"
                             or vp8.dimensions(body) != (400, 225)):
                         raise RuntimeError(f"PNG /upload answered {r.status}")
-            if metrics.cache_hits != 6 or metrics.cache_misses != 6:
+            if metrics.cache_hits != 8 or metrics.cache_misses != 8:
                 raise RuntimeError(
                     f"cache hits {metrics.cache_hits}, misses "
-                    f"{metrics.cache_misses}; expected 6 and 6")
+                    f"{metrics.cache_misses}; expected 8 and 8")
         finally:
             await runner.cleanup()
             await src_runner.cleanup()
-        return ("passed: 4 JPEG and 1 PNG x (/sign -> /img 200 image/webp "
+        return ("passed: 4 JPEG, 1 PNG and 1 WebP at w=400 and 1 JPEG at "
+                "w=1280 x (/sign -> /img 200 image/webp of the right size "
                 "with ETag, then a cache HIT); 1 JPEG /sign -> /img f=jpeg "
                 "200 image/jpeg 400x225, then a cache HIT; PNG /upload 200 "
                 "image/webp 400x225")
@@ -1251,6 +1758,12 @@ def main() -> int:
         f"{sum(map(len, pngs)) / len(pngs) / 1e6:.2f} MB each) in "
         f"{time.perf_counter() - t0:.2f} s")
 
+    t0 = time.perf_counter()
+    webps = [make_webp(img, 80) for img in images[:8]]
+    log(f"    made {len(webps)} 1920x1080 lossy WebPs with the port's VP8 "
+        f"encoder ({sum(map(len, webps)) / len(webps) / 1e3:.0f} kB each) in "
+        f"{time.perf_counter() - t0:.2f} s")
+
     log("[3] K1 against its plain PyTorch version on the card")
     kern = phase_kernel(jpegs, jpegs_hq)
 
@@ -1272,11 +1785,25 @@ def main() -> int:
         ".transform, 1920x1080 JPEG -> JPEG q80")
     jxc = phase_jxc_engine(jpegs, dense, card)
 
-    log(f"[9] HTTP: {phase_http(jpegs, pngs[0])}")
+    log("[9] K1's int16 entry against its plain PyTorch version on the card")
+    k1_i16 = phase_k1_i16(dense)
+
+    log("[10] K4 on u8 planes (u8 in, f32 out) against its plain PyTorch "
+        "version on the card")
+    k4_u8 = phase_k4_u8(jpegs)
+
+    log("[11] K2 on the three planes of a YUV-source batch against its plain "
+        "PyTorch version on the card")
+    k2_yuv = phase_k2_yuv(webps)
+
+    log("[12] JPEG -> WebP at k=8 and from escape-dense sources, lossy WebP "
+        "-> WebP / JPEG: BatchedEngine(device='cuda').transform")
+    paths = phase_new_paths(jpegs, dense, webps, card)
+
+    log(f"[13] HTTP: {phase_http(jpegs, pngs[0], webps[0])}")
     log(f"    total {time.perf_counter() - t_start:.2f} s")
 
-    log(card)
-    log(json.dumps({"kernels": [{
+    kernels = [{
         "name": "jpeg8_folded_planes (K1)",
         "route": "cuda",
         "source": "imagekit_tpu_torch/csrc/jpeg8_folded.cu",
@@ -1313,18 +1840,48 @@ def main() -> int:
         "bound_by": k3["bound_by"],
         "library_ms": k3["library_ms"],
     }, {
-        "name": "resize_planes3_f32 (K4, Y + Cb + Cr in one launch)",
+        "name": "resize_planes3_f32 (K4, Y + Cb + Cr in one launch; u8 planes "
+                "in, f32 out on the k=8 JPEG -> WebP heads)",
         "route": "cuda",
         "source": "imagekit_tpu_torch/csrc/resize_planes.cu",
         "replaces": "imagekit_tpu/ops/pallas/resize_kernel.py:235",
-        "launches": k3["k4_launches"],
-        "max_abs_err": k3["max_abs_err_f32"],
-        "ms": k3["ms_f32"],
-        "plain_ms": k3["plain_ms_f32"],
-        "bound_ms": k3["bound_ms_f32"],
-        "bound_by": k3["bound_by_f32"],
-        "library_ms": k3["library_ms_f32"],
-    }]}))
+        "launches": (paths["decode_resize_yuv_i8_batch"]["launches"]
+                     + paths["decode_resize_yuv_batch"]["launches"]),
+        "max_abs_err": max(k4_u8["max_abs_err"], k3["max_abs_err_f32"]),
+        **{key: k4_u8[key] for key in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+        # the f32-in instantiation, which no engine path takes, at the
+        # demoted head's shapes (phase 5)
+        "f32_in": {"max_abs_err": k3["max_abs_err_f32"], "ms": k3["ms_f32"],
+                   "plain_ms": k3["plain_ms_f32"],
+                   "bound_ms": k3["bound_ms_f32"],
+                   "bound_by": k3["bound_by_f32"],
+                   "library_ms": k3["library_ms_f32"]},
+    }, {
+        "name": "folded_planes_i16 (K1, int16 entry: escape-dense JPEG -> "
+                "WebP at k<8)",
+        "route": "cuda",
+        "source": "imagekit_tpu_torch/csrc/jpeg8_folded.cu",
+        "replaces": "imagekit_tpu/ops/pallas_jpeg8.py:159",
+        "launches": paths["decode_resize_yuv_lowfreq_batch"]["launches"],
+        **{key: k1_i16[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms")},
+    }, {
+        "name": "yuv_resize (K2, Y + Cb + Cr of a YUV-source batch in one "
+                "launch, per-plane epilogue)",
+        "route": "cuda",
+        "source": "imagekit_tpu_torch/csrc/resize_strip.cu",
+        "replaces": "imagekit_tpu/ops/pallas_resize.py:155",
+        "launches": (paths["resize_yuv420_batch"]["launches"]
+                     + paths["resize_yuv_jpeg_batch"]["launches"]),
+        **{key: k2_yuv[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms")},
+    }]
+    idle = [k["name"] for k in kernels if k["launches"] <= 0]
+    if idle:
+        raise RuntimeError(f"no engine path launched {idle}")
+    log(card)
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

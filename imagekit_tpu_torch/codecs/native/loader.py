@@ -1,8 +1,8 @@
 """Builder and loader of the port's native codec library (ctypes).
 
 The port's copies of the reference's C++ codecs (``jpeg_entropy.cpp``,
-``vp8_encode.cpp``, ``png_decode.cpp``, beside this file) are compiled at
-first use:
+``vp8_encode.cpp``, ``vp8_decode.cpp``, ``vp8l_decode.cpp``,
+``png_decode.cpp``, beside this file) are compiled at first use:
 
     g++ -O3 -march=native -shared -fPIC <sources> -o libik_native.so -lz
 
@@ -25,7 +25,8 @@ from pathlib import Path
 from typing import Optional
 
 _HERE = Path(__file__).resolve().parent
-_SOURCES = ("jpeg_entropy.cpp", "vp8_encode.cpp", "png_decode.cpp")
+_SOURCES = ("jpeg_entropy.cpp", "vp8_encode.cpp", "vp8_decode.cpp",
+            "vp8l_decode.cpp", "png_decode.cpp")
 _HEADERS = ("vp8_common.h", "vp8_tables.h")
 BUILD_DIR = _HERE.parents[2] / "build" / "imagekit_tpu_torch"
 _LIB = BUILD_DIR / "libik_native.so"

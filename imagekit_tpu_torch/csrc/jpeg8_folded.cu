@@ -9,7 +9,11 @@
 //
 // with C_uv the (rows, nblk) plane of coefficient (u, v): the i16 DC plane
 // (u = v = 0) or plane u*k+v-1 of the planar i8 AC layout (column
-// (u*k+v-1)*p), plus the escape residuals that land there. Epilogues:
+// (u*k+v-1)*p), plus the escape residuals that land there. A second entry
+// takes the int16 transport of an escape-dense image instead
+// (imagekit_tpu/ops/dct.py::_folded_plane_i16): one (B, rows, pw) i16 array
+// per plane, block-grouped (level u*k+v of block column c at c*k*k + u*k+v),
+// no escapes; only the staging differs. Epilogues:
 //   decode   : floor((out + 128) * scale + offset + 0.5) clipped to u8
 //              (luma 219/255 and 16, chroma 224/255 and 128*(1-224/255)),
 //              written into the packed (B, O*P + 2*Oc*Pc) u8 batch;
@@ -42,9 +46,21 @@
 // no butterfly; the u8/i8 stores are coalesced.
 // All arithmetic is fp32 FMA; the epilogue keeps its additions and
 // products apart (no contraction) to follow the reference's order.
+//
+// The source also compiles as plain C++ under a small shim (one thread per
+// block) for the CPU tests: the launch goes through IK_LAUNCH and the
+// dynamic shared memory through IK_DYN_SMEM, as in resize_band.cuh.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#ifndef IK_DYN_SMEM
+#define IK_DYN_SMEM(type, name) extern __shared__ __align__(16) type name[]
+#endif
+#ifndef IK_LAUNCH
+#define IK_LAUNCH(kernel, grid, block, smem, stream) \
+  kernel<<<grid, block, smem, stream>>>
+#endif
 
 namespace {
 
@@ -60,7 +76,7 @@ __host__ __device__ inline size_t levels_len(int r, int k, int nblk) {
 }
 
 struct Plane {
-  const int16_t* dc;    // (B, rows, pw)
+  const int16_t* dc;    // (B, rows, pw); the block-grouped levels when grouped
   const int8_t* ac;     // (B, rows, acw), plane j at column j * p
   const int32_t* eidx;  // (ne, 3): image, row, planar column
   const int32_t* eval;  // (ne,) residuals
@@ -79,6 +95,7 @@ struct Args {
   const float* qt;      // (B, 128) natural order: luma at 0, chroma at 64
   const int32_t* vidx;  // (B,)
   int U, k, centered, R;
+  int grouped;  // the int16 transport: dc holds every level, block-grouped
 };
 
 size_t smem_bytes(int to, int r, int k, int nblk) {
@@ -192,7 +209,7 @@ __device__ __forceinline__ void fma_row(float (&acc)[TO], const float* p, int c,
 template <int TO>
 __global__ void __launch_bounds__(kThreads, 2)
 folded_planes_kernel(const Args a) {
-  extern __shared__ __align__(16) float smem[];
+  IK_DYN_SMEM(float, smem);
   __shared__ int band[2];
   __shared__ int n_esc;
   __shared__ int esc_pos[kEscCap];  // (row - lo) * acw + planar column
@@ -227,7 +244,8 @@ folded_planes_kernel(const Args a) {
   // the stripe's band: the union of its rows' runs, reduced in warp 0
   if (threadIdx.x < 32) {
     int lo = rows, hi = 0;
-    for (int o = threadIdx.x; o < TO && o0 + o < pl.O; o += 32) {
+    const int lanes = min(32, static_cast<int>(blockDim.x));
+    for (int o = threadIdx.x; o < TO && o0 + o < pl.O; o += lanes) {
       const int32_t* e = pl.bv + ((size_t)ui * pl.O + o0 + o) * 2;
       const int f = max(__ldg(e), 0);
       const int l = min(__ldg(e + 1), rows);
@@ -300,7 +318,19 @@ folded_planes_kernel(const Args a) {
     for (int r0 = lo; r0 < hi; r0 += R) {
       const int nr = min(R, hi - r0);
       // stage the levels of planes (u, v), v < k, rows r0 .. r0 + nr
-      const int ngroups = k * nr * nvec;
+      if (a.grouped) {
+        // int16 transport: block c's levels (u, 0..k-1) are neighbours
+        const int nk = k * k;
+        for (int i = threadIdx.x; i < nr * nblk * k; i += blockDim.x) {
+          const int v = i % k;
+          const int rc = i / k;
+          const int c = rc % nblk;
+          const int r = rc / nblk;
+          xs[(v * R + r) * nblk + c] =
+              __ldg(dc_b + (size_t)(r0 + r) * pl.pw + c * nk + u * k + v);
+        }
+      }
+      const int ngroups = a.grouped ? 0 : k * nr * nvec;
       const int dv = dt / nr;
       const int dr = dt - dv * nr;
       int v = t_first / nr;
@@ -500,8 +530,50 @@ cudaError_t launch(const Args& a, int B, size_t smem, cudaStream_t stream) {
     if (e != cudaSuccess) return e;
   }
   const dim3 grid(a.pl[0].stripes + a.pl[1].stripes + a.pl[2].stripes, B);
-  folded_planes_kernel<TO><<<grid, kThreads, smem, stream>>>(a);
+  IK_LAUNCH(folded_planes_kernel<TO>, grid, dim3(kThreads), smem, stream)(a);
   return cudaGetLastError();
+}
+
+// Picks the stripe height and the staging rows, and launches.
+cudaError_t launch_planes(Args& a, int B, int rows_max, int nblk_max,
+                          void* stream) {
+  const int k = a.k;
+  // The largest stripe whose staging rows fit two blocks per SM, with at
+  // least 8 rows (or all of them); else one output row per block and the
+  // whole of the shared memory.
+  const int r_min = rows_max < 8 ? rows_max : 8;
+  int to = 0, R = 0;
+  for (int cand = 16; cand >= 1 && to == 0; cand /= 2) {
+    const int fit = rows_that_fit(cand, k, nblk_max, kPreferredSmem);
+    if (fit >= r_min) {
+      to = cand;
+      R = fit < rows_max ? fit : rows_max;
+    }
+  }
+  if (to == 0) {
+    to = 1;
+    const int fit = rows_that_fit(1, k, nblk_max, kMaxSmem);
+    if (fit < 1) return cudaErrorInvalidValue;
+    R = fit < rows_max ? fit : rows_max;
+  }
+  a.R = R;
+  for (int i = 0; i < kPlanes; ++i) a.pl[i].stripes = (a.pl[i].O + to - 1) / to;
+  const size_t smem = smem_bytes(to, R, k, nblk_max);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (to) {
+    case 16: return launch<16>(a, B, smem, s);
+    case 8: return launch<8>(a, B, smem, s);
+    case 4: return launch<4>(a, B, smem, s);
+    case 2: return launch<2>(a, B, smem, s);
+    default: return launch<1>(a, B, smem, s);
+  }
+}
+
+void set_epilogue(Plane& pl, bool luma) {
+  pl.qoff = luma ? 0 : 64;
+  pl.scale = luma ? static_cast<float>(219.0 / 255.0)
+                  : static_cast<float>(224.0 / 255.0);
+  pl.offset = luma ? 16.0f : static_cast<float>(128.0 * (1.0 - 224.0 / 255.0));
 }
 
 }  // namespace
@@ -526,6 +598,7 @@ extern "C" int ik_jpeg8_folded_planes(const void* const* ptrs,
   a.U = U;
   a.k = k;
   a.centered = centered;
+  a.grouped = 0;
   const int na = k * k - 1;
   int rows_max = 0, nblk_max = 0;
   for (int i = 0; i < kPlanes; ++i) {
@@ -548,7 +621,6 @@ extern "C" int ik_jpeg8_folded_planes(const void* const* ptrs,
     pl.O = static_cast<int>(d[4]);
     pl.P = static_cast<int>(d[5]);
     pl.ne = static_cast<int>(d[6]);
-    const bool luma = d[7] != 0;
     pl.out_stride = d[8];
     if (pl.rows <= 0 || pl.nblk <= 0 || pl.O <= 0 || pl.P <= 0 || pl.ne < 0 ||
         pl.acw <= 0 || pl.acw % na != 0 || pl.nblk > pl.pw ||
@@ -556,42 +628,61 @@ extern "C" int ik_jpeg8_folded_planes(const void* const* ptrs,
         pl.out_stride < (long long)pl.O * pl.P)
       return static_cast<int>(cudaErrorInvalidValue);
     pl.p = pl.acw / na;
-    pl.qoff = luma ? 0 : 64;
-    pl.scale = luma ? static_cast<float>(219.0 / 255.0)
-                    : static_cast<float>(224.0 / 255.0);
-    pl.offset = luma ? 16.0f : static_cast<float>(128.0 * (1.0 - 224.0 / 255.0));
+    set_epilogue(pl, d[7] != 0);
     rows_max = pl.rows > rows_max ? pl.rows : rows_max;
     nblk_max = pl.nblk > nblk_max ? pl.nblk : nblk_max;
   }
-  // The largest stripe whose staging rows fit two blocks per SM, with at
-  // least 8 rows (or all of them); else one output row per block and the
-  // whole of the shared memory.
-  const int r_min = rows_max < 8 ? rows_max : 8;
-  int to = 0, R = 0;
-  for (int cand = 16; cand >= 1 && to == 0; cand /= 2) {
-    const int fit = rows_that_fit(cand, k, nblk_max, kPreferredSmem);
-    if (fit >= r_min) {
-      to = cand;
-      R = fit < rows_max ? fit : rows_max;
-    }
+  return static_cast<int>(launch_planes(a, B, rows_max, nblk_max, stream));
+}
+
+// The int16 transport. ptrs: per plane (Y, Cb, Cr) six device pointers:
+// levels (B, rows, pw) i16, block-grouped (level lin of block column c at
+// c*k*k + lin), wv, wh, the two band tables, out. dims: per plane seven
+// integers: rows, pw, nblk, O, P, luma, out_stride. The rest as above.
+extern "C" int ik_jpeg8_folded_planes_i16(const void* const* ptrs,
+                                          const long long* dims,
+                                          const void* qt, const void* vidx,
+                                          int B, int U, int k, int centered,
+                                          void* stream) {
+  if (B <= 0 || B > 65535 || U <= 0 || k < 2 || k > 7)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a;
+  a.qt = static_cast<const float*>(qt);
+  a.vidx = static_cast<const int32_t*>(vidx);
+  a.U = U;
+  a.k = k;
+  a.centered = centered;
+  a.grouped = 1;
+  int rows_max = 0, nblk_max = 0;
+  for (int i = 0; i < kPlanes; ++i) {
+    const void* const* pp = ptrs + 6 * i;
+    const long long* d = dims + 7 * i;
+    Plane& pl = a.pl[i];
+    pl.dc = static_cast<const int16_t*>(pp[0]);
+    pl.ac = nullptr;
+    pl.eidx = nullptr;
+    pl.eval = nullptr;
+    pl.wv = static_cast<const float*>(pp[1]);
+    pl.wh = static_cast<const float*>(pp[2]);
+    pl.bv = static_cast<const int32_t*>(pp[3]);
+    pl.bh = static_cast<const int32_t*>(pp[4]);
+    pl.out = static_cast<uint8_t*>(const_cast<void*>(pp[5]));
+    pl.rows = static_cast<int>(d[0]);
+    pl.pw = static_cast<int>(d[1]);
+    pl.nblk = static_cast<int>(d[2]);
+    pl.O = static_cast<int>(d[3]);
+    pl.P = static_cast<int>(d[4]);
+    pl.out_stride = d[6];
+    pl.acw = 0;
+    pl.p = 0;
+    pl.ne = 0;
+    if (pl.rows <= 0 || pl.nblk <= 0 || pl.O <= 0 || pl.P <= 0 ||
+        (long long)pl.nblk * k * k > pl.pw ||
+        pl.out_stride < (long long)pl.O * pl.P)
+      return static_cast<int>(cudaErrorInvalidValue);
+    set_epilogue(pl, d[5] != 0);
+    rows_max = pl.rows > rows_max ? pl.rows : rows_max;
+    nblk_max = pl.nblk > nblk_max ? pl.nblk : nblk_max;
   }
-  if (to == 0) {
-    to = 1;
-    const int fit = rows_that_fit(1, k, nblk_max, kMaxSmem);
-    if (fit < 1) return static_cast<int>(cudaErrorInvalidValue);
-    R = fit < rows_max ? fit : rows_max;
-  }
-  a.R = R;
-  for (int i = 0; i < kPlanes; ++i) a.pl[i].stripes = (a.pl[i].O + to - 1) / to;
-  const size_t smem = smem_bytes(to, R, k, nblk_max);
-  auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (to) {
-    case 16: e = launch<16>(a, B, smem, s); break;
-    case 8: e = launch<8>(a, B, smem, s); break;
-    case 4: e = launch<4>(a, B, smem, s); break;
-    case 2: e = launch<2>(a, B, smem, s); break;
-    default: e = launch<1>(a, B, smem, s); break;
-  }
-  return static_cast<int>(e);
+  return static_cast<int>(launch_planes(a, B, rows_max, nblk_max, stream));
 }

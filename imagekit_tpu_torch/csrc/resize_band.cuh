@@ -5,8 +5,11 @@
 //
 //   acc[ch] = Wv[vidx[b]] @ f32(x[b][:, :, ch]) @ Wh[hidx[b]]^T
 //
-// then the u8 epilogue (optional (acc + pre) * scale + post, floor(v + 0.5),
-// clip to [0, 255], u8, or i8 after -128 when centred) or the f32 store.
+// then the u8 epilogue (optional (acc + pre) * scale + post with the plane's
+// own constants, floor(v + 0.5), clip to [0, 255], u8, or i8 after -128 when
+// centred) or the f32 store. The input and output types are chosen apart:
+// u8 planes can be stored as unrounded f32 with no widened copy of them in
+// device memory.
 //
 // What bounds it on an H100: at the flagship bucket (1088x1920 -> 240x400)
 // a row of Wv has about 27 nonzero taps, a row of Wh about 29. Over the band
@@ -143,6 +146,10 @@ struct IkPlane {
   long long sb, sh, osb, osc;  // in elements
   int IH, IW, OH, OW, U, U2, T;
   int C;  // elements per pixel, all read (1, or 3 for an interleaved RGB row)
+  // the plane's own u8 epilogue: (acc + pre) * scale + post where affine is
+  // set (Y and chroma of one launch remap with different constants)
+  float scale, pre, post;
+  int affine;
 };
 
 struct IkBandLaunch {
@@ -150,8 +157,7 @@ struct IkBandLaunch {
   int block0[kBandPlanes + 1];  // first block of each plane; total last
   int tiles[kBandPlanes];       // row tiles per image
   int pitch[kBandPlanes];       // tile row pitch in floats
-  float scale, pre, post;
-  int affine, centered;
+  int centered;
 };
 
 template <typename T>
@@ -188,16 +194,16 @@ __device__ __forceinline__ void widen(const float4& v, float* f) {
 }
 
 __device__ __forceinline__ void store_out(uint8_t* p, float v,
-                                          const IkBandLaunch& L) {
-  if (L.affine) v = __fadd_rn(__fmul_rn(__fadd_rn(v, L.pre), L.scale), L.post);
+                                          const IkPlane& P, int centered) {
+  if (P.affine) v = __fadd_rn(__fmul_rn(__fadd_rn(v, P.pre), P.scale), P.post);
   v = floorf(__fadd_rn(v, 0.5f));
   v = fminf(fmaxf(v, 0.0f), 255.0f);
   const int q = static_cast<int>(v);
-  *p = static_cast<uint8_t>(L.centered ? q - 128 : q);
+  *p = static_cast<uint8_t>(centered ? q - 128 : q);
 }
 
-__device__ __forceinline__ void store_out(float* p, float v,
-                                          const IkBandLaunch&) {
+__device__ __forceinline__ void store_out(float* p, float v, const IkPlane&,
+                                          int) {
   *p = v;
 }
 
@@ -455,7 +461,7 @@ band_resize_kernel(const __grid_constant__ IkBandLaunch L) {
       Tout* o = out_b + (size_t)ch * P.osc + p;
 #pragma unroll
       for (int r = 0; r < TR; ++r)
-        if (r < nr) store_out(o + (size_t)r * P.OW, acc[ch][r], L);
+        if (r < nr) store_out(o + (size_t)r * P.OW, acc[ch][r], P, L.centered);
     }
   }
 }
@@ -487,8 +493,7 @@ int band_launch(IkBandLaunch& L, int nplanes, int B, size_t smem,
 
 // Checks the planes, picks TR and launches; returns a cudaError_t.
 template <typename Tin, typename Tout>
-int band_resize(const IkPlane* planes, int nplanes, int B, float scale,
-                float pre, float post, int affine, int centered,
+int band_resize(const IkPlane* planes, int nplanes, int B, int centered,
                 void* stream) {
   constexpr int kCpt = Vec<Tin>::kCpt;
   const int bad = static_cast<int>(cudaErrorInvalidValue);
@@ -511,10 +516,6 @@ int band_resize(const IkPlane* planes, int nplanes, int B, float scale,
     max_pitch = std::max(max_pitch, L.pitch[i]);
   }
   for (int i = nplanes; i < kBandPlanes; ++i) L.p[i] = L.p[0];
-  L.scale = scale;
-  L.pre = pre;
-  L.post = post;
-  L.affine = affine;
   L.centered = centered;
   // the tallest tile that leaves a full SM of threads, else the tallest
   // that fits at all
@@ -537,7 +538,8 @@ int band_resize(const IkPlane* planes, int nplanes, int B, float scale,
   const size_t smem = band_smem<Tin>(tr, max_pitch, threads);
   auto s = static_cast<cudaStream_t>(stream);
   if (nch == 3) {
-    if constexpr (sizeof(Tin) == 1) {
+    // interleaved RGB rows are u8 in and out only
+    if constexpr (sizeof(Tin) == 1 && sizeof(Tout) == 1) {
       if (tr == 8) return band_launch<Tin, Tout, 8, 3>(L, nplanes, B, smem, s);
       if (tr == 4) return band_launch<Tin, Tout, 4, 3>(L, nplanes, B, smem, s);
       return band_launch<Tin, Tout, 2, 3>(L, nplanes, B, smem, s);

@@ -9,7 +9,10 @@
 //
 // K3 (u8 in, u8 out): floor(clip(acc, 0, 255) + 0.5), which equals K2's
 // clip(floor(acc + 0.5)) for every f32 value, so K3 runs K2's epilogue
-// with no remap. K4 (f32 in, f32 out): acc as it is.
+// with no remap. K4 (f32 out): acc as it is, from f32 planes or, for the
+// k=8 JPEG -> WebP head, straight from the u8 planes the 8x8 IDCT rounds to
+// (the same sums as on those planes widened to f32, without the widened
+// copy: a B=32 1080p batch is about 100 MB of u8 planes, 400 MB as f32).
 //
 // The body is resize_band.cuh (its note says what bounds it and what the
 // design does), the same as K2's. What is K3's own: the demoted JPEG head's
@@ -24,17 +27,23 @@
 #include "resize_band.cuh"
 
 // planes: nplanes (1..3) IkPlane records (resize_band.cuh) with hidx ==
-// vidx; u8 (K3) or f32 (K4) in and out. Returns a cudaError_t: 0 when the
+// vidx and no affine epilogue; u8 in and out (K3), f32 in and out (K4), or
+// u8 in and f32 out (K4 on u8 planes). Returns a cudaError_t: 0 when the
 // launch was accepted.
 extern "C" int ik_resize_planes_u8(const void* planes, int nplanes, int B,
                                    void* stream) {
   return band_resize<uint8_t, uint8_t>(static_cast<const IkPlane*>(planes),
-                                       nplanes, B, 1.0f, 0.0f, 0.0f, 0, 0,
-                                       stream);
+                                       nplanes, B, 0, stream);
 }
 
 extern "C" int ik_resize_planes_f32(const void* planes, int nplanes, int B,
                                     void* stream) {
   return band_resize<float, float>(static_cast<const IkPlane*>(planes),
-                                   nplanes, B, 1.0f, 0.0f, 0.0f, 0, 0, stream);
+                                   nplanes, B, 0, stream);
+}
+
+extern "C" int ik_resize_planes_u8_f32(const void* planes, int nplanes, int B,
+                                       void* stream) {
+  return band_resize<uint8_t, float>(static_cast<const IkPlane*>(planes),
+                                     nplanes, B, 0, stream);
 }

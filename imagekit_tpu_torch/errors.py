@@ -43,6 +43,14 @@ class TransformError(ImageKitError):
     kind = "Transform"
 
 
+class SourceDecodeError(TransformError):
+    """A fetched source whose header parsed and whose data did not decode.
+    The reference decodes such a source (a PNG) in full at its fetch stage
+    and answers ``/img`` from there; the port decodes it once, in the
+    engine, and its ``/img`` handler answers this error with the fetch
+    stage's body."""
+
+
 class NetworkError(ImageKitError):
     kind = "Network"
 

@@ -6,8 +6,10 @@ test substitutes an offline one) and its stages 1-4 as they are: status,
 ``image/*`` content type when parseable, the content-length preflight and
 the streamed byte count. Stage 5 differs: the
 reference decodes a PNG in full to validate it, through a decoder that
-imports Pillow; here every source is validated by its header only, and
-the engine decodes it once, on its codec pool. A source the header check
+imports Pillow; here every source (PNG, JPEG, WebP) is validated by its
+header only, and the engine decodes it once, on its codec pool (a PNG
+whose data then fails to decode is answered by ``/img`` with this stage's
+body, :class:`~imagekit_tpu_torch.errors.SourceDecodeError`). A source the header check
 cannot place is left to the engine, which answers it with a
 :class:`~imagekit_tpu_torch.errors.NotPortedError` or a decode error.
 """
@@ -16,7 +18,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-from imagekit_tpu_torch.codecs import SourceFormat, guess_format, png
+from imagekit_tpu_torch.codecs import SourceFormat, guess_format, png, vp8
 from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
 from imagekit_tpu_torch.errors import (
     InvalidArgumentError,
@@ -121,6 +123,13 @@ async def fetch_source(
             except jpeg_abi.NativeJpegError:
                 return data, ct  # the engine classifies it
             w, h = hdr.width, hdr.height
+        elif src == SourceFormat.webp:
+            # header-only, as the reference's: the engine decodes once, on
+            # its YUV-domain path
+            dims = vp8.dimensions(data)
+            if dims is None:
+                return data, ct  # an exotic container: the engine's decode
+            w, h = dims
         else:
             return data, ct
     except TransformError:

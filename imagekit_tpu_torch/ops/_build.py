@@ -96,7 +96,9 @@ def _compile() -> None:
 class IkPlane(ctypes.Structure):
     """One plane of a K2/K3/K4 launch: ``IkPlane`` in
     ``csrc/resize_band.cuh``, field for field. Pointers are device
-    addresses (``data_ptr()``); strides are in elements."""
+    addresses (``data_ptr()``); strides are in elements. The last four
+    fields are the plane's own u8 epilogue, ``(acc + pre) * scale + post``
+    where ``affine`` is set."""
 
     _fields_ = (
         [(n, ctypes.c_void_p) for n in ("x", "wv", "band_v", "start_h",
@@ -104,6 +106,8 @@ class IkPlane(ctypes.Structure):
         + [(n, ctypes.c_longlong) for n in ("sb", "sh", "osb", "osc")]
         + [(n, ctypes.c_int) for n in ("IH", "IW", "OH", "OW", "U", "U2",
                                         "T", "C")]
+        + [(n, ctypes.c_float) for n in ("scale", "pre", "post")]
+        + [("affine", ctypes.c_int)]
     )
 
 
@@ -118,14 +122,21 @@ def launch_band(fn, planes, B: int, *args) -> None:
 
 
 def _configure(lib: ctypes.CDLL) -> None:
+    configure_folded(lib)
+    configure_band(lib)
+
+
+def configure_folded(lib: ctypes.CDLL) -> None:
+    """argtypes of K1's two entries (also used by the CPU build of its
+    source in the tests)."""
     vp = ctypes.c_void_p
     ci = ctypes.c_int
-    lib.ik_jpeg8_folded_planes.argtypes = [
-        ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_longlong), vp, vp,
-        ci, ci, ci, ci, vp,
-    ]
-    lib.ik_jpeg8_folded_planes.restype = ci
-    configure_band(lib)
+    for fn in (lib.ik_jpeg8_folded_planes, lib.ik_jpeg8_folded_planes_i16):
+        fn.argtypes = [
+            ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_longlong), vp, vp,
+            ci, ci, ci, ci, vp,
+        ]
+        fn.restype = ci
 
 
 def configure_band(lib: ctypes.CDLL) -> None:
@@ -133,10 +144,10 @@ def configure_band(lib: ctypes.CDLL) -> None:
     their source in the tests)."""
     vp = ctypes.c_void_p
     ci = ctypes.c_int
-    cf = ctypes.c_float
-    lib.ik_resize_strip.argtypes = [vp, ci, ci, cf, cf, cf, ci, ci, vp]
+    lib.ik_resize_strip.argtypes = [vp, ci, ci, ci, vp]
     lib.ik_resize_strip.restype = ci
-    for fn in (lib.ik_resize_planes_u8, lib.ik_resize_planes_f32):
+    for fn in (lib.ik_resize_planes_u8, lib.ik_resize_planes_f32,
+               lib.ik_resize_planes_u8_f32):
         fn.argtypes = [vp, ci, ci, vp]
         fn.restype = ci
 

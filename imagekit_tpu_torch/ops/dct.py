@@ -25,6 +25,25 @@ escapes overflow the split transport is demoted to the RGB-output head,
 :func:`decode_resize_rgb_batch` (``dct.py:206-268,1717``): 8x8 IDCT of the
 int16 levels to u8 planes, then one K3 launch for Y, Cb and Cr
 (:func:`_rgb_tail`) and the JFIF YCbCr -> RGB matrix.
+
+The other WebP outputs of JPEG sources. A downscale under 2x keeps every
+coefficient (k = 8): :func:`decode_resize_yuv_i8_batch` (``dct.py:1094``,
+split-int8 transport) and :func:`decode_resize_yuv_batch` (``dct.py:329``,
+int16 transport) run the 8x8 IDCT to the u8 grid, then :func:`_yuv_tail`
+(``dct.py:554``): ONE K4 launch resizes Y, Cb and Cr from those u8 planes
+to unrounded f32 (K3 would round before the studio-range remap and move
+the last bit of about half the pixels), then :func:`_yuv_range_pack`. An
+escape-dense image at k < 8 rides block-grouped int16 levels through
+:func:`decode_resize_yuv_lowfreq_batch` (``dct.py:669``): one K1 launch of
+its int16 entry.
+
+The YUV-source heads serve decoded lossy WebP sources, whose planes are
+studio range already: :func:`resize_yuv420_batch` (``dct.py:1436``, WebP
+out: no remap at either end) and :func:`resize_yuv_jpeg_batch`
+(``dct.py:1377``, JPEG out: remap to full range, centre, fDCT). Each is
+ONE K2 launch for the three planes
+(:func:`imagekit_tpu_torch.ops.resize_strip.yuv_resize`), read in place
+from the flat batch the engine uploads.
 """
 
 from __future__ import annotations
@@ -34,17 +53,22 @@ from typing import Optional
 import torch
 
 from imagekit_tpu_torch.ops import jpeg8
+from imagekit_tpu_torch.errors import NotPortedError
 from imagekit_tpu_torch.ops.color import (
     box2,
     on_device,
+    q8,
     resolve,
     rgb_planes,
     split_yuv,
     tables_on,
     to_host,
 )
-from imagekit_tpu_torch.ops.resize_planes import resize_planes3
-from imagekit_tpu_torch.ops.resize_strip import rgb_resize
+from imagekit_tpu_torch.ops.resize_planes import (
+    resize_planes3,
+    resize_planes3_f32,
+)
+from imagekit_tpu_torch.ops.resize_strip import rgb_resize, yuv_resize
 from imagekit_tpu_torch.ops.weights import idct_basis
 
 
@@ -292,3 +316,178 @@ def resample_rgb_jpeg_batch(imgs_flat, weights, vidx, hidx, qt_out,
     flat = to_host(rgb_jpeg_head(x, wv, wh, vidx, hidx, qt_out,
                                  tables_on(bands, device)), device)
     return split_yuv(flat, obh, obw, block=8)
+
+
+# -- JPEG -> WebP: the k = 8 heads and the int16 transport -------------------
+
+
+def _yuv_range_pack(y, cb, cr) -> torch.Tensor:
+    """Full-range resized f32 planes -> studio-range remap -> packed
+    (B, obh*obw + 2*(obh//2*obw//2)) u8, in the reference's float order
+    (``dct.py:533``)."""
+    y = y * (219.0 / 255.0) + 16.0
+    c_off = 128.0 * (1.0 - 224.0 / 255.0)
+    cb = cb * (224.0 / 255.0) + c_off
+    cr = cr * (224.0 / 255.0) + c_off
+    return torch.cat([q8(y), q8(cb), q8(cr)], dim=1)
+
+
+def _yuv_tail(Y, Cb, Cr, stacks, vidx, bands=None,
+              resize=resize_planes3_f32) -> torch.Tensor:
+    """Resize the three u8 planes to unrounded f32 (K4, one launch), remap
+    to studio range and pack u8 (``dct.py:554``). ``bands`` is the (luma,
+    chroma) pair of the stacks' tables, or None."""
+    return _yuv_range_pack(*resize((Y, Cb, Cr), stacks, vidx, bands=bands))
+
+
+def decode_resize_yuv(y_flat, cb_flat, cr_flat, qtabs, stacks, vidx,
+                      block_dims, bands=None,
+                      resize=resize_planes3_f32) -> torch.Tensor:
+    """The k = 8 YUV head on int16 levels (``_decode_resize_yuv_kernel``,
+    ``dct.py:300``): flat packed u8 planes."""
+    by_y, bx_y, by_c, bx_c = block_dims
+    Y = _blocks_to_plane(y_flat, by_y, bx_y, qtabs[:, :64])
+    Cb = _blocks_to_plane(cb_flat, by_c, bx_c, qtabs[:, 64:])
+    Cr = _blocks_to_plane(cr_flat, by_c, bx_c, qtabs[:, 64:])
+    return _yuv_tail(Y, Cb, Cr, stacks, vidx, bands, resize)
+
+
+def decode_resize_yuv_i8(dcs, acs, escs, qtabs, stacks, vidx, block_dims,
+                         bands=None, resize=resize_planes3_f32):
+    """The k = 8 YUV head on the split-int8 transport
+    (``_decode_resize_i8_kernel(rgb=False)``, ``dct.py:812``): widen, then
+    :func:`decode_resize_yuv`."""
+    by_y, bx_y, by_c, bx_c = block_dims
+    dims = ((by_y, bx_y), (by_c, bx_c), (by_c, bx_c))
+    levels = [_widen_split_levels(dcs[p], acs[p], *escs[p], *dims[p])
+              for p in range(3)]
+    return decode_resize_yuv(*levels, qtabs, stacks, vidx, block_dims, bands,
+                             resize)
+
+
+def decode_resize_yuv_i8_batch(dc_arrays, ac_arrays, escapes, qtabs, weights,
+                               vidx, block_dims, out_shape, bands=None,
+                               device: Optional[torch.device] = None):
+    """Run the k = 8 split-transport YUV head (``dct.py:1094``); returns
+    (Y, Cb, Cr) u8 numpy planes of shapes (B, obh, obw) and (B, obh/2,
+    obw/2) x2. One K4 launch on CUDA, K4's plain version on the CPU."""
+    obh, obw = out_shape
+    device = resolve(device)
+    dcs, acs, escs, qt, stacks, vidx = _split_on_device(
+        dc_arrays, ac_arrays, escapes, qtabs, weights, vidx, device)
+    flat = decode_resize_yuv_i8(dcs, acs, escs, qt, stacks, vidx, block_dims,
+                                tables_on(bands, device))
+    return split_yuv(to_host(flat, device), obh, obw)
+
+
+def decode_resize_yuv_batch(y_flat, cb_flat, cr_flat, qtabs, weights, vidx,
+                            block_dims, out_shape, bands=None,
+                            device: Optional[torch.device] = None):
+    """Run the k = 8 int16-transport YUV head (``dct.py:329``); returns
+    the planes as :func:`decode_resize_yuv_i8_batch`."""
+    obh, obw = out_shape
+    device = resolve(device)
+    y, cb, cr, qt, vidx = on_device((y_flat, cb_flat, cr_flat, qtabs, vidx),
+                                    device)
+    flat = decode_resize_yuv(y, cb, cr, qt, tuple(on_device(weights, device)),
+                             vidx, block_dims, tables_on(bands, device))
+    return split_yuv(to_host(flat, device), obh, obw)
+
+
+def decode_resize_yuv_lowfreq_batch(y_flat, cb_flat, cr_flat, qtabs, weights,
+                                    vidx, block_dims, out_shape, k: int,
+                                    bands=None,
+                                    device: Optional[torch.device] = None):
+    """Run the truncated head on the int16 transport (``dct.py:669``):
+    (B, by, pad128(bx*k*k)) block-grouped levels per plane -> (Y, Cb, Cr)
+    u8 numpy planes. One K1 launch (its int16 entry) on CUDA, its plain
+    version on the CPU. ``bands`` is the four folded stacks' band tables,
+    or None."""
+    del block_dims
+    obh, obw = out_shape
+    device = resolve(device)
+    flats = tuple(on_device((y_flat, cb_flat, cr_flat), device))
+    qt, vidx = on_device((qtabs, vidx), device)
+    if bands is not None:
+        bands = tuple(on_device(bands, device))
+    flat = jpeg8.folded_planes_i16(flats, qt,
+                                   tuple(on_device(weights, device)), bands,
+                                   vidx, k)
+    return split_yuv(to_host(flat, device), obh, obw)
+
+
+# -- the YUV-source heads (decoded lossy WebP) -------------------------------
+
+
+def yuv_planes(flat: torch.Tensor, bh: int, bw: int):
+    """The (B, bh, bw) Y and (B, bh/2, bw/2) Cb, Cr views of the engine's
+    flat 4:2:0 batch (``dct.py:1176-1184``): rows dense, images a padded
+    row of ``flat`` apart, no copy."""
+    B = flat.shape[0]
+    ny, nc = bh * bw, (bh // 2) * (bw // 2)
+    return (flat[:, :ny].view(B, bh, bw),
+            flat[:, ny:ny + nc].view(B, bh // 2, bw // 2),
+            flat[:, ny + nc:ny + 2 * nc].view(B, bh // 2, bw // 2))
+
+
+def resize_yuv420(flat, stacks, vidx, in_shape, bands=None,
+                  resize=yuv_resize) -> torch.Tensor:
+    """Studio-range 4:2:0 planes -> resized, rounded u8 planes, packed
+    flat (``_resize_yuv420_kernel``, ``dct.py:1150``; its Pallas front
+    ``pallas_resize.py:177``). No remap: both ends are studio range."""
+    B = flat.shape[0]
+    out = resize(yuv_planes(flat, *in_shape), stacks, vidx, bands=bands)
+    return torch.cat([p.reshape(B, -1) for p in out], dim=1)
+
+
+def resize_yuv_jpeg(flat, stacks, qt_out, vidx, in_shape, bands=None,
+                    resize=yuv_resize) -> torch.Tensor:
+    """Studio-range 4:2:0 planes -> resized, remapped to full range,
+    rounded and centred (K2's epilogues) -> fDCT + quantise -> flat int16
+    levels, Y then Cb then Cr (``_resize_yuv_jpeg_kernel``, ``dct.py:1280``;
+    its Pallas front ``pallas_resize.py:319``)."""
+    y, cb, cr = (p.float() for p in resize(
+        yuv_planes(flat, *in_shape), stacks, vidx, jpeg=True, bands=bands))
+    return torch.cat([
+        _fdct_quant_flat(y, qt_out[:, :64]),
+        _fdct_quant_flat(cb, qt_out[:, 64:]),
+        _fdct_quant_flat(cr, qt_out[:, 64:]),
+    ], dim=1)
+
+
+def _yuv_source_args(chroma_sub=(2, 2), mix=False, alpha=False) -> None:
+    """The variants that only AVIF sources need are not ported."""
+    if tuple(chroma_sub) != (2, 2) or mix or alpha:
+        raise NotPortedError(
+            "a YUV source that is not BT.601 4:2:0 without alpha (the "
+            "AVIF-source variants of the YUV heads)", "queue 1 item 8")
+
+
+def resize_yuv420_batch(flat, weights, vidx, in_shape, out_shape,
+                        chroma_sub=(2, 2), mix=False, alpha=False,
+                        bands=None, device: Optional[torch.device] = None):
+    """Run the YUV-domain resize (``dct.py:1436``): ``flat`` is the (B,
+    pad128(bh*bw*3/2)) u8 batch, Y then Cb then Cr; returns (Y, Cb, Cr) u8
+    numpy planes at bucket output shapes. One K2 launch on CUDA."""
+    _yuv_source_args(chroma_sub, mix, alpha)
+    obh, obw = out_shape
+    device = resolve(device)
+    flat, vidx = on_device((flat, vidx), device)
+    out = resize_yuv420(flat, tuple(on_device(weights[:4], device)), vidx,
+                        in_shape, tables_on(bands, device))
+    return split_yuv(to_host(out, device), obh, obw)
+
+
+def resize_yuv_jpeg_batch(flat, weights, qt_out, vidx, in_shape, out_shape,
+                          mix=False, bands=None,
+                          device: Optional[torch.device] = None):
+    """Run the YUV -> JPEG head (``dct.py:1377``); returns (y, cb, cr)
+    int16 numpy levels of shapes (B, OHb/8, OWb/8, 64) and (B, OHb/16,
+    OWb/16, 64) x2 for the host Huffman encoder. One K2 launch on CUDA."""
+    _yuv_source_args(mix=mix)
+    obh, obw = out_shape
+    device = resolve(device)
+    flat, qt_out, vidx = on_device((flat, qt_out, vidx), device)
+    out = resize_yuv_jpeg(flat, tuple(on_device(weights[:4], device)),
+                          qt_out, vidx, in_shape, tables_on(bands, device))
+    return split_yuv(to_host(out, device), obh, obw, block=8)

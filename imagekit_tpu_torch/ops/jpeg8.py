@@ -16,6 +16,14 @@ the plain version, :func:`folded_planes_i8_plain` (an i16 widen and
 escape scatter, then :func:`folded_plane_plain` per plane), only for
 tensors that lie on the CPU.
 
+:func:`folded_planes_i16` is the same head on the int16 transport of an
+escape-dense image (``dct.py:496-509,575-604``): one block-grouped i16
+array per plane (level u*k+v of block column c at c*k*k + u*k+v), no
+escapes. It launches the kernel's int16 entry, which differs in its
+staging only; its plain version, :func:`folded_planes_i16_plain`, splits
+the levels by ``reshape`` as the reference does and runs
+:func:`folded_plane_plain`.
+
 The folded stacks are banded (Lanczos taps times the IDCT basis): each
 stack has a :func:`folded_bands` table of every output row's nonzero run,
 the union over the IDCT index, and the kernel loops over it only. The
@@ -32,8 +40,9 @@ import torch
 from imagekit_tpu_torch.ops.resize_strip import band_table
 from imagekit_tpu_torch.ops.weights import _lowfreq_indices
 
-#: kernel launches made by :func:`folded_planes_i8` (read and reset by
-#: callers that must show the main path went through the kernel)
+#: kernel launches made by :func:`folded_planes_i8` and
+#: :func:`folded_planes_i16` (read and reset by callers that must show the
+#: main path went through the kernel)
 LAUNCHES = 0
 _launch_lock = threading.Lock()
 
@@ -48,35 +57,61 @@ def folded_bands(w: torch.Tensor) -> torch.Tensor:
     return band_table((w != 0).any(dim=1))
 
 
-def _check(dcs, acs, escs, qtabs, stacks, bands, vidx, k):
-    """Raise on what the kernel does not take; return each plane's
-    (rows, pw, acw, nblk, O, P)."""
-    dev = dcs[0].device
-    named = {"qtabs": (qtabs, torch.float32), "vidx": (vidx, torch.int32)}
-    for p, name in enumerate(("y", "cb", "cr")):
-        named[f"{name}_dc"] = (dcs[p], torch.int16)
-        named[f"{name}_ac"] = (acs[p], torch.int8)
-        named[f"{name}_esc_idx"] = (escs[p][0], torch.int32)
-        named[f"{name}_esc_val"] = (escs[p][1], torch.int32)
+def _check_common(levels, named, qtabs, stacks, bands, vidx, k):
+    """The checks both transports share: every tensor of ``named`` (and
+    the tables, stacks and index) on the first level array's device, of its
+    type and contiguous; k; the batch shapes. Returns (B, U)."""
+    dev = levels.device
+    named = {"qtabs": (qtabs, torch.float32), "vidx": (vidx, torch.int32),
+             **named}
     for i, name in enumerate(("wv_y", "wh_y", "wv_c", "wh_c")):
         named[name] = (stacks[i], torch.float32)
         named[f"band_{name}"] = (bands[i], torch.int32)
     for name, (t, dtype) in named.items():
         if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, y_dc on {dev}")
+            raise ValueError(f"{name} is on {t.device}, the levels on {dev}")
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if k < 2 or k > 7:
         raise ValueError(f"k={k}: the folded head serves 2 <= k < 8")
-    B = dcs[0].shape[0]
+    B = levels.shape[0]
     if tuple(qtabs.shape) != (B, 128) or tuple(vidx.shape) != (B,):
         raise ValueError(f"qtabs {tuple(qtabs.shape)} / vidx "
                          f"{tuple(vidx.shape)} do not fit B={B}")
     if any(s.dim() != 4 for s in stacks):
         raise ValueError("the folded stacks must be (U, k, O, n)")
-    U = stacks[0].shape[0]
+    return B, stacks[0].shape[0]
+
+
+def _check_stacks(p, rows, wv, wh, bv, bh, U, k):
+    """Plane ``p``'s stacks and band tables against its ``rows`` block
+    rows; returns (nblk, O, P)."""
+    Uv, kv, O, wrows = wv.shape
+    Uh, kh, P, nblk = wh.shape
+    if (Uv, Uh) != (U, U) or (kv, kh) != (k, k) or wrows != rows:
+        raise ValueError(f"plane {p}: stacks {tuple(wv.shape)} / "
+                         f"{tuple(wh.shape)} do not fit k={k}, U={U}, "
+                         f"rows={rows}")
+    # the kernel clamps each run to its stack, so a table of the right
+    # shape is memory-safe; folded_bands makes one that is exact
+    if tuple(bv.shape) != (U, O, 2) or tuple(bh.shape) != (U, P, 2):
+        raise ValueError(f"plane {p}: band tables {tuple(bv.shape)} / "
+                         f"{tuple(bh.shape)} do not fit the stacks")
+    return nblk, O, P
+
+
+def _check(dcs, acs, escs, qtabs, stacks, bands, vidx, k):
+    """Raise on what the kernel does not take; return each plane's
+    (rows, pw, acw, nblk, O, P)."""
+    named = {}
+    for p, name in enumerate(("y", "cb", "cr")):
+        named[f"{name}_dc"] = (dcs[p], torch.int16)
+        named[f"{name}_ac"] = (acs[p], torch.int8)
+        named[f"{name}_esc_idx"] = (escs[p][0], torch.int32)
+        named[f"{name}_esc_val"] = (escs[p][1], torch.int32)
+    B, U = _check_common(dcs[0], named, qtabs, stacks, bands, vidx, k)
     na = k * k - 1
     dims = []
     for p in range(3):
@@ -87,12 +122,7 @@ def _check(dcs, acs, escs, qtabs, stacks, bands, vidx, k):
             raise ValueError(f"plane {p}: dc {tuple(dc.shape)} / ac "
                              f"{tuple(ac.shape)} are not (B, rows, n)")
         _, rows, pw = dc.shape
-        Uv, kv, O, wrows = wv.shape
-        Uh, kh, P, nblk = wh.shape
-        if (Uv, Uh) != (U, U) or (kv, kh) != (k, k) or wrows != rows:
-            raise ValueError(f"plane {p}: stacks {tuple(wv.shape)} / "
-                             f"{tuple(wh.shape)} do not fit k={k}, U={U}, "
-                             f"rows={rows}")
+        nblk, O, P = _check_stacks(p, rows, wv, wh, bv, bh, U, k)
         if tuple(ac.shape[:2]) != (B, rows) or ac.shape[2] % na:
             raise ValueError(f"plane {p}: ac {tuple(ac.shape)} is not "
                              f"planar for k={k}")
@@ -109,11 +139,6 @@ def _check(dcs, acs, escs, qtabs, stacks, bands, vidx, k):
                 or tuple(ev.shape) != (ei.shape[0],)):
             raise ValueError(f"plane {p}: escapes {tuple(ei.shape)} / "
                              f"{tuple(ev.shape)} are not (E, 3) / (E,)")
-        # the kernel clamps each run to its stack, so a table of the right
-        # shape is memory-safe; folded_bands makes one that is exact
-        if tuple(bv.shape) != (U, O, 2) or tuple(bh.shape) != (U, P, 2):
-            raise ValueError(f"plane {p}: band tables {tuple(bv.shape)} / "
-                             f"{tuple(bh.shape)} do not fit the stacks")
         dims.append((rows, pw, ac.shape[2], nblk, O, P))
     if dims[1] != dims[2]:
         raise ValueError(f"Cb {dims[1]} and Cr {dims[2]} shapes differ")
@@ -158,22 +183,26 @@ def folded_planes_i8(dcs, acs, escs, qtabs, stacks, bands, vidx, k: int,
     return out
 
 
+def _outputs(dev, B, shapes, centered):
+    """The kernel's outputs for three (O, P) planes: (what the entry
+    returns, each plane's address, each plane's image stride)."""
+    sizes = [O * P for O, P in shapes]
+    if centered:
+        out = tuple(torch.empty((B, O, P), dtype=torch.int8, device=dev)
+                    for O, P in shapes)
+        return out, [o.data_ptr() for o in out], sizes
+    out = torch.empty((B, sum(sizes)), dtype=torch.uint8, device=dev)
+    base = out.data_ptr()
+    return (out, [base, base + sizes[0], base + sizes[0] + sizes[1]],
+            [sum(sizes)] * 3)
+
+
 def _launch(lib, stream, dcs, acs, escs, qtabs, stacks, bands, vidx, k,
             centered, B, U, dims):
     """Allocate the outputs and call the C entry point; returns (outputs,
     cudaError_t)."""
-    dev = dcs[0].device
-    sizes = [O * P for (_, _, _, _, O, P) in dims]
-    if centered:
-        out = tuple(torch.empty((B, O, P), dtype=torch.int8, device=dev)
-                    for (_, _, _, _, O, P) in dims)
-        out_ptrs = [o.data_ptr() for o in out]
-        strides = sizes
-    else:
-        out = torch.empty((B, sum(sizes)), dtype=torch.uint8, device=dev)
-        base = out.data_ptr()
-        out_ptrs = [base, base + sizes[0], base + sizes[0] + sizes[1]]
-        strides = [sum(sizes)] * 3
+    out, out_ptrs, strides = _outputs(
+        dcs[0].device, B, [(O, P) for (_, _, _, _, O, P) in dims], centered)
     ptrs, ints = [], []
     for p in range(3):
         wv, wh = stacks[:2] if p == 0 else stacks[2:]
@@ -189,6 +218,108 @@ def _launch(lib, stream, dcs, acs, escs, qtabs, stacks, bands, vidx, k,
         qtabs.data_ptr(), vidx.data_ptr(), B, U, k, int(centered), stream,
     )
     return out, rc
+
+
+def folded_planes_i16(flats, qtabs, stacks, bands, vidx, k: int,
+                      centered: bool = False):
+    """The three planes of an int16-transport batch in one K1 launch.
+
+    ``flats`` (y, cb, cr) i16 (B, rows, pw) block-grouped levels, pw >=
+    nblk·k² (the engine pads it to 128); the other arguments and the result
+    as :func:`folded_planes_i8`. There are no escapes: the levels are
+    whole."""
+    global LAUNCHES
+    if bands is None:
+        bands = tuple(folded_bands(s) for s in stacks)
+    B, U, dims = _check_i16(flats, qtabs, stacks, bands, vidx, k)
+    dev = flats[0].device
+    if dev.type == "cpu":
+        return folded_planes_i16_plain(flats, qtabs, stacks, bands, vidx, k,
+                                       centered)
+    if dev.type != "cuda":
+        raise ValueError(f"no K1 kernel for device {dev}")
+    from imagekit_tpu_torch.ops import _build
+
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        out, rc = _launch_i16(lib, stream, flats, qtabs, stacks, bands, vidx,
+                              k, centered, B, U, dims)
+    if rc != 0:
+        raise RuntimeError(f"K1 (int16) launch failed: cudaError_t {rc}")
+    with _launch_lock:
+        LAUNCHES += 1
+    return out
+
+
+def _check_i16(flats, qtabs, stacks, bands, vidx, k):
+    """Raise on what the int16 entry does not take; return each plane's
+    (rows, pw, nblk, O, P)."""
+    named = {f"{name}_levels": (flats[p], torch.int16)
+             for p, name in enumerate(("y", "cb", "cr"))}
+    B, U = _check_common(flats[0], named, qtabs, stacks, bands, vidx, k)
+    dims = []
+    for p in range(3):
+        wv, wh = stacks[:2] if p == 0 else stacks[2:]
+        bv, bh = bands[:2] if p == 0 else bands[2:]
+        if flats[p].dim() != 3 or flats[p].shape[0] != B:
+            raise ValueError(f"plane {p}: levels {tuple(flats[p].shape)} "
+                             f"are not (B, rows, n)")
+        _, rows, pw = flats[p].shape
+        nblk, O, P = _check_stacks(p, rows, wv, wh, bv, bh, U, k)
+        if nblk * k * k > pw:
+            raise ValueError(f"plane {p}: nblk={nblk} blocks of {k * k} "
+                             f"levels exceed the rows of {pw}")
+        dims.append((rows, pw, nblk, O, P))
+    if dims[1] != dims[2]:
+        raise ValueError(f"Cb {dims[1]} and Cr {dims[2]} shapes differ")
+    return B, U, dims
+
+
+def _launch_i16(lib, stream, flats, qtabs, stacks, bands, vidx, k, centered,
+                B, U, dims):
+    """:func:`_launch` for the int16 entry."""
+    out, out_ptrs, strides = _outputs(
+        flats[0].device, B, [(O, P) for (_, _, _, O, P) in dims], centered)
+    ptrs, ints = [], []
+    for p in range(3):
+        wv, wh = stacks[:2] if p == 0 else stacks[2:]
+        bv, bh = bands[:2] if p == 0 else bands[2:]
+        ptrs += [flats[p].data_ptr(), wv.data_ptr(), wh.data_ptr(),
+                 bv.data_ptr(), bh.data_ptr(), out_ptrs[p]]
+        ints += [*dims[p], int(p == 0), strides[p]]
+    rc = lib.ik_jpeg8_folded_planes_i16(
+        (ctypes.c_void_p * len(ptrs))(*ptrs),
+        (ctypes.c_longlong * len(ints))(*ints),
+        qtabs.data_ptr(), vidx.data_ptr(), B, U, k, int(centered), stream,
+    )
+    return out, rc
+
+
+def folded_planes_i16_plain(flats, qtabs, stacks, bands, vidx, k: int,
+                            centered: bool = False):
+    """Plain PyTorch version of the int16 entry: the block-grouped levels
+    split by ``reshape`` (``dct.py:502-506``), then
+    :func:`folded_plane_plain` per plane and the u8 pack."""
+    del bands
+    qt_l, qt_c = qt_lowfreq(qtabs, k)
+    nk = k * k
+    planes = []
+    for p in range(3):
+        luma = p == 0
+        wv, wh = stacks[:2] if luma else stacks[2:]
+        nblk = wh.shape[3]
+        B, rows, _ = flats[p].shape
+        lev = flats[p][:, :, : nblk * nk].reshape(B, rows, nblk, nk)
+        # planar AC, one nblk-wide slice per coefficient plane
+        ac16 = lev[..., 1:].permute(0, 1, 3, 2).reshape(B, rows, -1)
+        planes.append(folded_plane_plain(
+            lev[..., 0], ac16, qt_l if luma else qt_c, wv, wh, vidx, k, luma,
+            centered))
+    if centered:
+        return tuple(planes)
+    B = flats[0].shape[0]
+    return torch.cat([pl.reshape(B, -1) for pl in planes], dim=1)
 
 
 def folded_planes_i8_plain(dcs, acs, escs, qtabs, stacks, bands, vidx,

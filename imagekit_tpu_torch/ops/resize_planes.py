@@ -10,17 +10,19 @@ K4 (``_resize_plane_kernel_f32`` :169, launched by
     acc = Wv[u] @ f32(P[b]) @ Wh[u]^T
 
 K3 takes u8 planes and stores ``floor(clip(acc, 0, 255) + 0.5)`` as u8;
-K4 takes f32 planes and stores ``acc``. Both are instantiations of the
-body K2 uses too (``csrc/resize_band.cuh``), entered from
-``csrc/resize_planes.cu``; their plain PyTorch versions sit beside them.
+K4 stores ``acc`` as f32, from f32 planes or straight from u8 planes (the
+k=8 JPEG -> WebP head hands it the u8 planes its 8x8 IDCT rounds to: the
+same sums as on their f32 copies, which are never made). All are
+instantiations of the body K2 uses too (``csrc/resize_band.cuh``), entered
+from ``csrc/resize_planes.cu``; their plain PyTorch versions sit beside them.
 The stacks are banded like K2's, and the kernels take the same
 :class:`resize_strip.ResizeTables`.
 
-Entries: :func:`resize_planes3` (K3) and :func:`resize_planes3_f32` (K4)
-resize the three planes of a JPEG head, Y and the two chroma planes with
-their own stacks, in one launch. Each launches its kernel for CUDA tensors
-and raises on anything it does not take; it takes the plain version only
-for tensors that lie on the CPU. The reference pads H and W
+Entries: :func:`resize_planes3` (K3) and :func:`resize_planes3_f32` (K4,
+f32 or u8 planes in) resize the three planes of a JPEG head, Y and the
+two chroma planes with their own stacks, in one launch. Each launches its
+kernel for CUDA tensors and raises on anything it does not take; it takes
+the plain version only for tensors that lie on the CPU. The reference pads H and W
 to 128 for Mosaic; the zero rows and columns add nothing, so no padding
 is made here.
 """
@@ -62,9 +64,11 @@ def _check(planes, wv, wh, vidx, tabs, dtype):
 
 
 def _three(kernel: str, fn_name: str, plain, dtype, planes, stacks, vidx,
-           bands):
+           bands, out_dtype=None):
     """Check, then launch ``fn_name`` once for the three planes (CUDA
-    tensors) or take ``plain`` plane by plane (CPU tensors)."""
+    tensors) or take ``plain`` plane by plane (CPU tensors). The outputs
+    have ``out_dtype`` (the planes' ``dtype`` when None)."""
+    out_dtype = out_dtype or dtype
     wv_y, wh_y, wv_c, wh_c = stacks
     luma_b, chroma_b = bands if bands is not None else (None, None)
     planes = list(planes)
@@ -85,7 +89,7 @@ def _three(kernel: str, fn_name: str, plain, dtype, planes, stacks, vidx,
         check_rows(p.data_ptr(), h * w, w, w, 4 * t.taps_h.shape[1], w, cpt,
                    p.element_size())
         oh, ow = wv.shape[1], wh.shape[1]
-        out = torch.empty((B, oh, ow), device=p.device, dtype=dtype)
+        out = torch.empty((B, oh, ow), device=p.device, dtype=out_dtype)
         recs.append(plane_record(p.data_ptr(), h * w, w, 1, wv, t, vidx,
                                  vidx, out, oh * ow, 0, h, w))
         outs.append(out)
@@ -94,7 +98,7 @@ def _three(kernel: str, fn_name: str, plain, dtype, planes, stacks, vidx,
     with torch.cuda.device(dev):
         _build.launch_band(getattr(lib, fn_name), recs, planes[0].shape[0],
                            torch.cuda.current_stream(dev).cuda_stream)
-    _count(dtype == torch.float32)
+    _count(out_dtype == torch.float32)
     return tuple(outs)
 
 
@@ -119,8 +123,13 @@ def resize_planes3(planes, stacks, vidx: torch.Tensor, *, bands=None):
 
 
 def resize_planes3_f32(planes, stacks, vidx: torch.Tensor, *, bands=None):
-    """K4 on three f32 planes in one launch; as :func:`resize_planes3`,
-    with no clip or round."""
+    """K4 on three planes in one launch; as :func:`resize_planes3`, with
+    no clip or round and f32 out. The planes are all f32 or all u8 (read
+    in place, widened in the kernel)."""
+    if planes[0].dtype == torch.uint8:
+        return _three("K4", "ik_resize_planes_u8_f32",
+                      resize_planes_f32_plain, torch.uint8, planes, stacks,
+                      vidx, bands, out_dtype=torch.float32)
     return _three("K4", "ik_resize_planes_f32", resize_planes_f32_plain,
                   torch.float32, planes, stacks, vidx, bands)
 

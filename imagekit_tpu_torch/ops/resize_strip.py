@@ -12,14 +12,20 @@ when ``centered``. The kernel is ``csrc/resize_strip.cu`` on the body it
 shares with K3 (``csrc/resize_band.cuh``); its plain PyTorch versions,
 :func:`plane_resize_plain` and :func:`rgb_resize_plain`, sit beside it.
 
-Two entries launch it:
+Three entries launch it:
 
 - :func:`rgb_resize`, the RGB heads' main path: the interleaved (B, H,
   W*3) u8 batch -> the three rounded u8 planes (B, 3, OH, OW), one launch
   that reads each pixel row once for the three channels;
 - :func:`plane_resize`, one contiguous (B, IH, IW) plane stack with any
   of the three epilogues (a channel of an interleaved batch goes
-  through :func:`rgb_resize`, or as a contiguous copy).
+  through :func:`rgb_resize`, or as a contiguous copy);
+- :func:`yuv_resize`, the YUV-source heads' main path
+  (``pallas_resize.py:177-202,319-353``): the Y, Cb and Cr planes of a
+  decoded WebP batch, two shapes with their own stacks, in one launch, as
+  rounded u8 planes (WebP output) or, with ``jpeg=True``, remapped from
+  studio to full range (Y and chroma by their own constants,
+  :data:`JPEG_REMAP`) and centred to i8 for the fDCT.
 
 The Lanczos stacks are banded: a row of ``Wv`` has about 27 nonzero taps
 out of 1088 at the 1080p -> 240 bucket, a row of ``Wh`` about 29 out of
@@ -30,8 +36,8 @@ zeros, so the result is the dense product's. ``bands`` is None (computed
 here) or the :class:`ResizeTables` of :func:`resize_tables`, which the
 engines cache beside their stacks.
 
-Both entries launch the kernel for CUDA tensors and raise on anything the
-kernel does not take; they take the plain version only for tensors that
+Each entry launches the kernel for CUDA tensors and raises on anything the
+kernel does not take; it takes the plain version only for tensors that
 lie on the CPU.
 """
 
@@ -49,6 +55,11 @@ from imagekit_tpu_torch.ops import _build
 #: the kernel)
 LAUNCHES = 0
 _launch_lock = threading.Lock()
+
+#: the yuvjpg head's studio -> full-range remaps, ``(v + pre) * scale +
+#: post`` for luma and for chroma (``pallas_resize.py:338-345``)
+JPEG_REMAP = (dict(scale=255.0 / 219.0, pre=-16.0, post=0.0),
+              dict(scale=255.0 / 224.0, pre=-128.0, post=128.0))
 
 
 class ResizeTables(NamedTuple):
@@ -152,12 +163,18 @@ def check_args(dev, shape, wv, wh, vidx, hidx, tabs: ResizeTables):
     return B, ih, iw, wv.shape[0], wv.shape[1], wh.shape[0], wh.shape[1]
 
 
+def _affine(scale: float, pre: float, post: float) -> bool:
+    return scale != 1.0 or pre != 0.0 or post != 0.0
+
+
 def plane_record(x_ptr: int, sb: int, sh: int, C: int, wv,
                  tabs: ResizeTables, vidx, hidx, out, osb: int, osc: int,
-                 ih: int, iw: int) -> _build.IkPlane:
+                 ih: int, iw: int, scale: float = 1.0, pre: float = 0.0,
+                 post: float = 0.0) -> _build.IkPlane:
     """One :class:`_build.IkPlane` of a launch: pixel rows of ``C``
     elements at ``x_ptr`` (strides ``sb``, ``sh`` in elements), channel
-    ``ch`` written at ``out + b*osb + ch*osc``."""
+    ``ch`` written at ``out + b*osb + ch*osc``, with the plane's own
+    affine u8 epilogue."""
     U, oh = wv.shape[:2]
     U2, ow = tabs.start_h.shape
     T = 4 * tabs.taps_h.shape[1]
@@ -165,7 +182,8 @@ def plane_record(x_ptr: int, sb: int, sh: int, C: int, wv,
         x_ptr, wv.data_ptr(), tabs.band_v.data_ptr(),
         tabs.start_h.data_ptr(), tabs.taps_h.data_ptr(), vidx.data_ptr(),
         hidx.data_ptr(), out.data_ptr(), sb, sh, osb, osc,
-        ih, iw, oh, ow, U, U2, T, C)
+        ih, iw, oh, ow, U, U2, T, C, scale, pre, post,
+        int(_affine(scale, pre, post)))
 
 
 def check_rows(ptr: int, sb: int, sh: int, E: int, T: int, iw: int,
@@ -214,12 +232,11 @@ def plane_resize(x: torch.Tensor, wv: torch.Tensor, wh: torch.Tensor,
     lib = _build.load()
     out = torch.empty((B, oh, ow), device=x.device,
                       dtype=torch.int8 if centered else torch.uint8)
-    affine = scale != 1.0 or pre != 0.0 or post != 0.0
     rec = plane_record(x.data_ptr(), ih * iw, iw, 1, wv, tabs, vidx, hidx,
-                       out, oh * ow, 0, ih, iw)
+                       out, oh * ow, 0, ih, iw, scale, pre, post)
     with torch.cuda.device(x.device):
-        _build.launch_band(lib.ik_resize_strip, [rec], B, scale, pre, post,
-                           int(affine), int(centered), _stream(x.device))
+        _build.launch_band(lib.ik_resize_strip, [rec], B, int(centered),
+                           _stream(x.device))
     _count()
     return out
 
@@ -251,10 +268,64 @@ def rgb_resize(imgs: torch.Tensor, wv: torch.Tensor, wh: torch.Tensor,
     rec = plane_record(imgs.data_ptr(), H * WC, WC, 3, wv, tabs, vidx, hidx,
                        out, 3 * oh * ow, oh * ow, ih, iw)
     with torch.cuda.device(imgs.device):
-        _build.launch_band(lib.ik_resize_strip, [rec], B, 1.0, 0.0, 0.0, 0,
-                           0, _stream(imgs.device))
+        _build.launch_band(lib.ik_resize_strip, [rec], B, 0,
+                           _stream(imgs.device))
     _count()
     return out
+
+
+def _remaps(jpeg: bool):
+    """The (Y, Cb, Cr) epilogue constants of :func:`yuv_resize`."""
+    luma, chroma = JPEG_REMAP if jpeg else ({}, {})
+    return luma, chroma, chroma
+
+
+def yuv_resize(planes, stacks, vidx: torch.Tensor, *, jpeg: bool = False,
+               bands=None):
+    """The Y, Cb and Cr planes of a YUV-source batch in one K2 launch:
+    (B, IH, IW) u8 for Y and (B, IH/2, IW/2) x2 for chroma, each with dense
+    rows (a plane's images may lie a padded batch row apart: the views of
+    the engine's flat batch are read in place). Y is resized with
+    ``stacks[:2]`` and Cb, Cr with ``stacks[2:]`` ((wv, wh) each), all
+    picked by ``vidx``. Returns the three (B, OH, OW) planes: rounded u8, or
+    with ``jpeg`` remapped by :data:`JPEG_REMAP` (luma's constants for Y,
+    chroma's for Cb and Cr, each in its plane's record) and centred to i8.
+    ``bands`` is None or a (luma, chroma) pair of :class:`ResizeTables`."""
+    wv_y, wh_y, wv_c, wh_c = stacks
+    luma_b, chroma_b = bands if bands is not None else (None, None)
+    planes = list(planes)
+    pairs = [(wv_y, wh_y), (wv_c, wh_c), (wv_c, wh_c)]
+    tabs = [tables(wv, wh, b)
+            for (wv, wh), b in zip(pairs, (luma_b, chroma_b, chroma_b))]
+    for x, (wv, wh), t in zip(planes, pairs, tabs):
+        on_device_with_kernel(x, "K2")
+        if x.dtype != torch.uint8 or x.dim() != 3:
+            raise TypeError(f"planes must be (B, IH, IW) uint8 stacks, got "
+                            f"{x.dtype} {tuple(x.shape)}")
+        if x.stride(2) != 1 or x.stride(1) != x.shape[2]:
+            raise ValueError(f"a plane's rows (strides {x.stride()}) must "
+                             f"be dense; only its images may lie apart")
+        check_args(x.device, x.shape, wv, wh, vidx, vidx, t)
+    if planes[0].device.type == "cpu":
+        return yuv_resize_plain(planes, stacks, vidx, jpeg=jpeg)
+    recs, outs = [], []
+    for x, (wv, wh), t, kw in zip(planes, pairs, tabs, _remaps(jpeg)):
+        B, ih, iw = x.shape
+        sb = x.stride(0) if B > 1 else ih * iw
+        check_rows(x.data_ptr(), sb, iw, iw, 4 * t.taps_h.shape[1], iw, 8, 1)
+        oh, ow = wv.shape[1], wh.shape[1]
+        out = torch.empty((B, oh, ow), device=x.device,
+                          dtype=torch.int8 if jpeg else torch.uint8)
+        recs.append(plane_record(x.data_ptr(), sb, iw, 1, wv, t, vidx, vidx,
+                                 out, oh * ow, 0, ih, iw, **kw))
+        outs.append(out)
+    lib = _build.load()
+    dev = planes[0].device
+    with torch.cuda.device(dev):
+        _build.launch_band(lib.ik_resize_strip, recs, planes[0].shape[0],
+                           int(jpeg), _stream(dev))
+    _count()
+    return tuple(outs)
 
 
 def plane_resize_plain(x, wv, wh, vidx, hidx, *, scale: float = 1.0,
@@ -266,7 +337,7 @@ def plane_resize_plain(x, wv, wh, vidx, hidx, *, scale: float = 1.0,
     del bands
     acc = torch.bmm(torch.bmm(wv[vidx.long()], x.float()),
                     wh[hidx.long()].transpose(1, 2))
-    if scale != 1.0 or pre != 0.0 or post != 0.0:
+    if _affine(scale, pre, post):
         acc = (acc + pre) * scale + post
     v = torch.clamp(torch.floor(acc + 0.5), 0.0, 255.0)
     if centered:
@@ -282,3 +353,14 @@ def rgb_resize_plain(imgs, wv, wh, vidx, hidx, bands=None) -> torch.Tensor:
     return torch.stack([plane_resize_plain(x[..., c], wv, wh, vidx, hidx,
                                            bands=bands) for c in range(3)],
                        dim=1)
+
+
+def yuv_resize_plain(planes, stacks, vidx, *, jpeg: bool = False, bands=None):
+    """Plain PyTorch version of :func:`yuv_resize`: K2's plain version on
+    each plane, with the plane's remap."""
+    del bands
+    wv_y, wh_y, wv_c, wh_c = stacks
+    pairs = [(wv_y, wh_y), (wv_c, wh_c), (wv_c, wh_c)]
+    return tuple(
+        plane_resize_plain(x, wv, wh, vidx, vidx, centered=jpeg, **kw)
+        for x, (wv, wh), kw in zip(planes, pairs, _remaps(jpeg)))

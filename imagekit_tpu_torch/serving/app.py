@@ -46,7 +46,9 @@ from imagekit_tpu_torch.config import (
 from imagekit_tpu_torch.errors import (
     EngineOverloaded,
     ImageKitError,
+    InvalidArgumentError,
     NotPortedError,
+    SourceDecodeError,
 )
 from imagekit_tpu_torch.fetch import Fetcher, fetch_source
 from imagekit_tpu_torch.serving.engine import TransformEngine
@@ -292,6 +294,12 @@ async def img_handler(request: web.Request) -> web.Response:
         return _overloaded_response(e)
     except NotPortedError as e:
         return _not_ported_response(e)
+    except SourceDecodeError:
+        # the reference finds this at its fetch stage, which decodes such a
+        # source in full: the same status and body from here
+        state.metrics.inc("errors")
+        return web.Response(status=400, text=str(InvalidArgumentError(
+            "Unable to decode image for validation")))
     except ImageKitError as e:
         state.metrics.inc("errors")
         return web.Response(status=400, text=f"Transform error: {e}")

@@ -26,6 +26,23 @@ class _Item:
     enqueued: float = field(default_factory=time.perf_counter)
 
 
+@dataclass
+class _YuvItem:
+    """A decoded studio-range YUV 4:2:0 source (the native WebP decode)
+    bound for a WebP or JPEG output: resized entirely in YUV space, no RGB
+    anywhere (JPEG outputs ride the resize + remap + fDCT head)."""
+
+    y: np.ndarray
+    cb: np.ndarray
+    cr: np.ndarray
+    out_h: int
+    out_w: int
+    quality: int
+    future: asyncio.Future
+    fmt: ImageFormat = ImageFormat.webp
+    enqueued: float = field(default_factory=time.perf_counter)
+
+
 #: queue key of the RGB-source heads: (bh, bw, obh, obw, channels, okind),
 #: okind "yuv" (WebP output) or "jpg" (JPEG output)
 _BucketKey = Tuple[int, int, int, int, int, str]

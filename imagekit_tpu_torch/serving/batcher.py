@@ -6,9 +6,11 @@ bucket, head); a queue flushes when it reaches ``max_batch`` or its oldest
 item has waited ``max_delay_ms``, and each flush is ONE device call while
 the host codec stages run on a thread pool. Admission control, the
 split-by-geometry rule and the depth-aware soft flush are the reference's.
-Two heads are served: JPEG sources on their coefficients
-(:mod:`.engine_jpeg`, ``_jqueues``) and 3-channel PNG sources on their
-decoded pixels (:mod:`.engine_rgb`, ``_queues``).
+Three heads are served: JPEG sources on their coefficients
+(:mod:`.engine_jpeg`, ``_jqueues``), lossy WebP sources on their decoded
+YUV planes (:mod:`.engine_yuv`, ``_yqueues``), and sources decoded to 3
+channels of pixels, PNGs and the other WebPs (:mod:`.engine_rgb`,
+``_queues``).
 
 What differs is device placement. The engine holds an explicit
 ``torch.device``: ``"cuda"`` (the default, which raises without a card) or
@@ -40,19 +42,26 @@ from imagekit_tpu_torch.device import resolve_device
 from imagekit_tpu_torch.errors import (
     EngineOverloaded,
     NotPortedError,
+    SourceDecodeError,
     TransformError,
 )
 from imagekit_tpu_torch.ops.weights import target_dimensions
-from imagekit_tpu_torch.serving.batch_types import _BucketKey, _Item
+from imagekit_tpu_torch.serving.batch_types import (
+    _BucketKey,
+    _Item,
+    _NativeUnsupported,
+)
 from imagekit_tpu_torch.serving.engine import TransformEngine
 from imagekit_tpu_torch.serving.engine_jpeg import JpegPathMixin
 from imagekit_tpu_torch.serving.engine_rgb import RgbPathMixin
+from imagekit_tpu_torch.serving.engine_yuv import YuvPathMixin
 from imagekit_tpu_torch.serving.metrics import METRICS, Metrics
 from imagekit_tpu_torch.utils.bucketing import bucket_for
 from imagekit_tpu_torch.utils.sized_cache import SizedArrayCache
 
 
-class BatchedEngine(RgbPathMixin, JpegPathMixin, TransformEngine):
+class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
+                    TransformEngine):
     MAX_UNIQUE = 4  # fixed unique-geometry slots per device call
 
     def __init__(
@@ -86,6 +95,7 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, TransformEngine):
         self._tls = threading.local()
         self._queues: Dict[_BucketKey, List[_Item]] = {}
         self._jqueues: Dict[tuple, list] = {}
+        self._yqueues: Dict[tuple, list] = {}
         # folded weight stacks are identical batch to batch for steady
         # traffic: keep them on the device (byte-budgeted; tensors report
         # .nbytes like arrays)
@@ -124,13 +134,31 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, TransformEngine):
     # -- decode ------------------------------------------------------------
 
     async def decode(self, data: bytes) -> np.ndarray:
-        """PNG sources decode to pixels on the codec pool, without Pillow.
-        The port decodes no other source to pixels yet; a JPEG's header is
-        still checked, so that a caller can tell a bad source
+        """PNG and WebP sources decode to pixels on the codec pool, without
+        Pillow. The port decodes no other source to pixels yet; a JPEG's
+        header is still checked, so that a caller can tell a bad source
         (TransformError) from a path not ported (NotPortedError)."""
         src = guess_format(data)  # TransformError on undetectable bytes
         if src == SourceFormat.png:
-            return await self._pool_run("decode_png", png.decode, data)
+            try:
+                return await self._pool_run("decode_png", png.decode, data)
+            except TransformError as e:
+                raise SourceDecodeError(e.message) from e
+        if src == SourceFormat.webp:
+            from imagekit_tpu_torch.codecs import vp8 as vp8_native
+
+            def webp_decode():
+                try:
+                    return vp8_native.decode_rgb(data)
+                except ValueError as e:
+                    raise TransformError(str(e)) from e
+
+            img = await self._pool_run("decode", webp_decode)
+            if img is None:
+                raise NotPortedError(
+                    "a WebP the native decoders do not take (the "
+                    "host-library fallback)", "queue 1 item 9")
+            return img
         if src == SourceFormat.jpeg:
             from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
 
@@ -282,17 +310,29 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, TransformEngine):
             if w is None and h is None:
                 raise NotPortedError("a request with no resize", "queue 1 item 10")
             return await self._transform_jpeg_native(data, w, h, fmt, quality)
-        if src == SourceFormat.png:
-            img = await self.decode(data)
-            return await self._resize_encode(img, w, h, fmt, quality)
-        raise _source_not_ported(src)
+        if src == SourceFormat.webp:
+            if w is None and h is None:
+                raise NotPortedError("a request with no resize", "queue 1 item 10")
+            # the native VP8 decode feeds the YUV-domain batch: resize-only
+            # for WebP output, resize + remap + fDCT for JPEG output; a
+            # lossless or extended container decodes to pixels instead
+            try:
+                return await self._transform_webp_native(
+                    data, w, h, fmt, quality
+                )
+            except _NativeUnsupported:
+                pass
+        elif src != SourceFormat.png:
+            raise _source_not_ported(src)
+        img = await self.decode(data)
+        return await self._resize_encode(img, w, h, fmt, quality)
 
     # -- batching ----------------------------------------------------------
 
     def _total_queued(self) -> int:
         return sum(
             len(q)
-            for queues in (self._queues, self._jqueues)
+            for queues in (self._queues, self._jqueues, self._yqueues)
             for q in queues.values()
         )
 
@@ -358,6 +398,7 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, TransformEngine):
                 for queues, flush in (
                     (self._queues, self._flush),
                     (self._jqueues, self._flush_jpeg),
+                    (self._yqueues, self._flush_yuv),
                 ):
                     for key in sorted(
                         list(queues), key=lambda k: -len(queues.get(k) or [])
@@ -398,6 +439,6 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, TransformEngine):
 
 
 def _source_not_ported(src: SourceFormat) -> NotPortedError:
-    if src in (SourceFormat.webp, SourceFormat.avif):
+    if src == SourceFormat.avif:
         return NotPortedError(f"{src.value} sources", "queue 1 item 8")
     return NotPortedError(f"{src.value} sources", "queue 1 item 9")

@@ -4,10 +4,15 @@ Counterpart of ``imagekit_tpu/serving/engine_jpeg.py:39-195,217-612`` for
 the kinds the port serves, from a 4:2:0 (or grayscale) JPEG source with a
 resize:
 
-- ``"yuv"``, WebP output, truncated decode (k = 2 or 4) on the split-int8
-  transport: one call of
-  :func:`imagekit_tpu_torch.ops.dct.decode_resize_yuv_lowfreq_i8_batch`
-  (one K1 launch on CUDA) -> studio-range planes -> host VP8 encode;
+- ``"yuv"``, WebP output -> studio-range planes -> host VP8 encode. A
+  truncated decode (k = 2 or 4) is one K1 launch on CUDA:
+  :func:`imagekit_tpu_torch.ops.dct.decode_resize_yuv_lowfreq_i8_batch` on
+  the split-int8 transport, or, for an image whose escapes overflow it,
+  :func:`~imagekit_tpu_torch.ops.dct.decode_resize_yuv_lowfreq_batch` on
+  block-grouped int16 levels. A downscale under 2x (k = 8) is the 8x8
+  IDCT and one K4 launch:
+  :func:`~imagekit_tpu_torch.ops.dct.decode_resize_yuv_i8_batch` (split)
+  or :func:`~imagekit_tpu_torch.ops.dct.decode_resize_yuv_batch` (int16);
 - ``"jxc"``, JPEG output (the JPEG -> JPEG transcode), k = 2, 4 or 8 on the
   split-int8 transport: one call of
   :func:`imagekit_tpu_torch.ops.dct.transcode_i8_batch` (one K1 launch
@@ -36,6 +41,9 @@ from imagekit_tpu_torch.config import ImageFormat
 from imagekit_tpu_torch.errors import NotPortedError, TransformError
 from imagekit_tpu_torch.ops.dct import (
     decode_resize_rgb_batch,
+    decode_resize_yuv_batch,
+    decode_resize_yuv_i8_batch,
+    decode_resize_yuv_lowfreq_batch,
     decode_resize_yuv_lowfreq_i8_batch,
     transcode_i8_batch,
 )
@@ -107,10 +115,6 @@ class JpegPathMixin:
             raise NotPortedError(
                 "an image beyond the bucket ladder", "queue 1 item 11"
             ) from None
-        if k == 8 and kind == "yuv":
-            raise NotPortedError(
-                "a downscale under 2x to WebP (the k=8 head)", "queue 1 item 7"
-            )
 
         def entropy_decode():
             try:
@@ -119,14 +123,13 @@ class JpegPathMixin:
                 )
                 if not ovf and _jt._esc_within_image_budget(esc):
                     return hdr2, None, (dc, ac, esc), qt
-                if kind != "jxc":
-                    raise NotPortedError(
-                        "a WebP output over the escape budget (the int16 "
-                        "lowfreq head)", "queue 1 item 7",
-                    )
-                # the transcode is split-only: a demoted jxc item needs the
-                # full int16 decode for the RGB head
-                h3, ck, qt = jpeg_abi.decode(lib, data)
+                # over the escape budget: the int16 transport
+                if k < 8 and kind != "jxc":
+                    h3, ck, qt = jpeg_abi.decode_lowfreq(lib, data, k, pre_hdr)
+                else:
+                    # the transcode is split-only: a demoted jxc item needs
+                    # the full int16 decode for the RGB head
+                    h3, ck, qt = jpeg_abi.decode(lib, data)
                 return h3, ck, None, qt
             except jpeg_abi.NativeJpegError as e:
                 raise _decode_error(e) from e
@@ -148,7 +151,7 @@ class JpegPathMixin:
                 az = np.zeros((cy, cx, k * k - 1), np.int8)
                 split = ([dc[0], dz, dz], [ac[0], az, az], esc)
             else:
-                cz = np.zeros((cy, cx, 64), np.int16)
+                cz = np.zeros((cy, cx, k * k), np.int16)
                 coeffs = [coeffs[0], cz, cz]
             qtabs = np.stack([qtabs[hdr.comp_tq[0]], qtabs[hdr.comp_tq[0]]])
             hdr = _GrayAs420(hdr)
@@ -159,8 +162,8 @@ class JpegPathMixin:
             or hdr.comp_tq[1] != hdr.comp_tq[2]
         ):
             raise NotPortedError(
-                "a JPEG that is not 4:2:0 with shared Cb/Cr tables",
-                "queue 1 item 9",
+                "a JPEG that is not 4:2:0 with shared Cb/Cr tables (the "
+                "JPEG pixel decode)", "queue 1 item 10",
             )
         else:
             # index the 4x64 table array by the actual SOF selectors
@@ -234,7 +237,7 @@ class JpegPathMixin:
             if t8:
                 dcs, acs, escs = _pack_split(items, nb, *block_dims, k)
             else:
-                planes = _pack_int16(items, nb, *block_dims)
+                planes = _pack_int16(items, nb, *block_dims, k)
             qt = np.zeros((nb, 128), np.float32)
             # transcode batches also carry per-image OUTPUT quant tables
             qto = np.zeros((nb, 128), np.float32) if kind == "jxc" else None
@@ -263,12 +266,15 @@ class JpegPathMixin:
 
             def device_step():
                 with self._placement() as put:
-                    if kind == "rgb":
-                        return decode_resize_rgb_batch(
-                            *(put(p) for p in planes), put(qt), weights,
-                            put(vidx), block_dims, (obh, obw), bands=bands,
-                            device=self.device,
-                        )
+                    if not t8:
+                        args = (*(put(p) for p in planes), put(qt), weights,
+                                put(vidx), block_dims, (obh, obw))
+                        if kind == "yuv" and k < 8:
+                            return decode_resize_yuv_lowfreq_batch(
+                                *args, k, bands=bands, device=self.device)
+                        head = (decode_resize_rgb_batch if kind == "rgb"
+                                else decode_resize_yuv_batch)
+                        return head(*args, bands=bands, device=self.device)
                     split = (
                         tuple(put(a) for a in dcs),
                         tuple(put(a) for a in acs),
@@ -280,6 +286,11 @@ class JpegPathMixin:
                             *split, put(qto), weights, put(vidx),
                             block_dims, (obh, obw), k, bands=bands,
                             device=self.device,
+                        )
+                    if k == 8:
+                        return decode_resize_yuv_i8_batch(
+                            *split, weights, put(vidx), block_dims,
+                            (obh, obw), bands=bands, device=self.device,
                         )
                     return decode_resize_yuv_lowfreq_i8_batch(
                         *split, weights, put(vidx), block_dims, (obh, obw),
@@ -333,12 +344,13 @@ class JpegPathMixin:
         """The weight stacks for this set of geometries, kept on the
         engine's device across batches (``engine_jpeg.py:366-452``), with
         their band tables for K1 (k < 8, :func:`jpeg8.folded_bands`), the
-        (luma, chroma) :class:`ResizeTables` for the RGB head's K3 (band
-        tables and compact ``Wh``), else None:
+        (luma, chroma) :class:`ResizeTables` for the RGB head's K3 and the
+        k = 8 YUV head's K4 (band tables and compact ``Wh``), else None:
 
         - k < 8: (U, k, O, nblk) folded lowfreq stacks;
         - k = 8: full-resolution luma stacks, and chroma to HALF output
-          resolution (``"jxc"``) or to FULL output resolution (``"rgb"``).
+          resolution (``"jxc"``, ``"yuv"``) or to FULL output resolution
+          (``"rgb"``).
 
         For ``"jxc"`` the rows past the true output replicate the last true
         row up to the MCU grid (the staged encoder's ``np.pad(mode="edge")``),
@@ -408,7 +420,7 @@ class JpegPathMixin:
         stacks = [torch.from_numpy(w_) for w_ in stacks]
         if k < 8:
             bands = tuple(folded_bands(s).to(self.device) for s in stacks)
-        elif kind == "rgb":
+        elif kind in ("rgb", "yuv"):
             bands = tuple(ResizeTables(*(t.to(self.device)
                                          for t in resize_tables(*pair)))
                           for pair in (stacks[:2], stacks[2:]))

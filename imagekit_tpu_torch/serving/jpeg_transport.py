@@ -5,8 +5,9 @@ item, the escape budgets of the split-int8 head, the scatter-row layout,
 and the batch packing of both transports (``engine_jpeg.py:285-358``). The
 batch-level int16 widening (``_widen_items``) is not ported: a batch over
 the escape caps is split in halves instead (``engine_jpeg``). An ITEM over
-the budget of a jxc request rides the int16 transport to the RGB head, as
-the reference's does.
+the budget rides the int16 transport, as the reference's does: a jxc
+request to the RGB head, a WebP request to the int16 YUV heads
+(block-grouped k*k levels for k < 8, all 64 for k = 8).
 """
 
 from __future__ import annotations
@@ -58,8 +59,9 @@ class _JpegItem:
     # split int8 transport: (dc_planes, ac_planes, esc) per
     # jpeg_abi.decode_lowfreq_i8; None for an item on the int16 transport
     split: Optional[tuple]
-    # int16 transport: the (blocks_h, blocks_w, 64) level planes of a
-    # demoted item per jpeg_abi.decode; None on the split transport
+    # int16 transport: the (blocks_h, blocks_w, k*k) level planes of an
+    # item over the escape budget per jpeg_abi.decode_lowfreq (k < 8) or
+    # jpeg_abi.decode (64 levels); None on the split transport
     coeffs: Optional[List[np.ndarray]] = None
     enqueued: float = field(default_factory=time.perf_counter)
 
@@ -182,16 +184,22 @@ def _pack_split(items, nb: int, by_b: int, bx_b: int, cy_b: int, cx_b: int,
     return (y_dc, cb_dc, cr_dc), (y_ac, cb_ac, cr_ac), escs
 
 
-def _pack_int16(items, nb: int, by_b: int, bx_b: int, cy_b: int, cx_b: int):
-    """int16 batch arrays of demoted k=8 items, block-grouped (B, by,
-    bx*64) (``engine_jpeg.py:300-304,353-358``)."""
-    y = np.zeros((nb, by_b, bx_b * 64), np.int16)
-    cb = np.zeros((nb, cy_b, cx_b * 64), np.int16)
-    cr = np.zeros((nb, cy_b, cx_b * 64), np.int16)
+def _pack_int16(items, nb: int, by_b: int, bx_b: int, cy_b: int, cx_b: int,
+                k: int):
+    """int16 batch arrays of items over the escape budget, block-grouped,
+    the k*k levels of a block together: (B, by, pad128(bx*k*k)) for k < 8,
+    (B, by, bx*64) for k = 8 (``engine_jpeg.py:300-304,353-358``)."""
+    nk = k * k
+    ym, cm = bx_b * nk, cx_b * nk
+    if k < 8:
+        ym, cm = pad128(ym), pad128(cm)
+    y = np.zeros((nb, by_b, ym), np.int16)
+    cb = np.zeros((nb, cy_b, cm), np.int16)
+    cr = np.zeros((nb, cy_b, cm), np.int16)
     for i, it in enumerate(items):
         byi, bxi = it.coeffs[0].shape[:2]
         cyi, cxi = it.coeffs[1].shape[:2]
-        y[i, :byi, : bxi * 64] = it.coeffs[0].reshape(byi, -1)
-        cb[i, :cyi, : cxi * 64] = it.coeffs[1].reshape(cyi, -1)
-        cr[i, :cyi, : cxi * 64] = it.coeffs[2].reshape(cyi, -1)
+        y[i, :byi, : bxi * nk] = it.coeffs[0].reshape(byi, -1)
+        cb[i, :cyi, : cxi * nk] = it.coeffs[1].reshape(cyi, -1)
+        cr[i, :cyi, : cxi * nk] = it.coeffs[2].reshape(cyi, -1)
     return y, cb, cr

@@ -645,3 +645,238 @@ def test_jpeg_to_jpeg_engine_on_card_matches_engine_on_cpu(monkeypatch, case):
         assert d.max() <= 2 and (d > 0).mean() <= MAX_SHARE
     for a, b in zip(*levels):
         assert_band(torch.from_numpy(a), torch.from_numpy(b))
+
+
+# -- the int16 entry of K1, K4 on u8 planes, K2 on the three planes of a
+# YUV-source batch, and the engine paths that launch them ---------------------
+
+
+def _grouped_levels(arrays, dims, k):
+    """``_flagship``'s planar split arrays regrouped to the int16
+    transport: per plane (B, rows, pad128(nblk*k*k)) block-grouped levels
+    (level lin of block column c at c*k*k + lin), with levels past int8."""
+    by, bx, cy, cx = dims
+    nk, na = k * k, k * k - 1
+    flats = []
+    for dc, ac, rows, nblk in ((arrays[0], arrays[1], by, bx),
+                               (arrays[2], arrays[3], cy, cx),
+                               (arrays[4], arrays[5], cy, cx)):
+        B, p = dc.shape[0], pad128(nblk)
+        lev = np.zeros((B, rows, nblk, nk), np.int16)
+        lev[..., 0] = dc[:, :, :nblk]
+        for j in range(na):
+            lev[..., j + 1] = ac[:, :, j * p:j * p + nblk]
+        lev[..., 1] *= 9  # past int8: what this transport carries
+        flat = np.full((B, rows, pad128(nblk * nk)), 777, np.int16)
+        flat[:, :, : nblk * nk] = lev.reshape(B, rows, -1)
+        flats.append(flat)
+    return flats
+
+
+@needs_card
+@pytest.mark.parametrize("centered", [False, True])
+@pytest.mark.parametrize("batch", [1, 32])
+@pytest.mark.parametrize("k", [2, 4])
+def test_int16_entry_matches_plain(k, batch, centered):
+    """K1's int16 entry, one launch for the three planes, against its plain
+    version at the flagship's real banded stacks."""
+    arrays, dims = _flagship(k, batch, seed=k + batch)
+    flats = to_port(_grouped_levels(arrays, dims, k), "cuda")
+    qt, *stacks, vidx = to_port(arrays[12:], "cuda")
+    before = jpeg8.LAUNCHES
+    got = jpeg8.folded_planes_i16(flats, qt, stacks, None, vidx, k, centered)
+    torch.cuda.synchronize()
+    assert jpeg8.LAUNCHES == before + 1
+    want = jpeg8.folded_planes_i16_plain(flats, qt, stacks, None, vidx, k,
+                                         centered)
+    for a, b in (zip(got, want) if centered else [(got, want)]):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert_band(a, b)
+        if not centered:
+            assert 0.2 < float(((a > 0) & (a < 255)).float().mean())
+
+
+def _yuv_head_stacks(jq: bool):
+    """The k = 8 YUV head's and the YUV-source heads' stacks at the flagship
+    bucket pair: luma 1088x1920 -> 240x400, chroma 544x960 -> HALF output
+    resolution 120x200; for JPEG output the rows past the true output
+    replicate the last true row up to the MCU grid."""
+    from imagekit_tpu_torch.ops.weights import (
+        combined_chroma_half_weights,
+        padded_weights,
+    )
+
+    geoms = [(1920, 1080, 400, 225), (1904, 1072, 397, 223),
+             (1888, 1064, 393, 222), (1872, 1056, 390, 220)]
+    wv_y = np.zeros((4, 240, 1088), np.float32)
+    wh_y = np.zeros((4, 400, 1920), np.float32)
+    wv_c = np.zeros((4, 120, 544), np.float32)
+    wh_c = np.zeros((4, 200, 960), np.float32)
+    for u, (iw, ih, ow, oh) in enumerate(geoms):
+        wv_y[u] = padded_weights(ih, oh, 1088, 240)
+        wh_y[u] = padded_weights(iw, ow, 1920, 400)
+        wv_c[u] = combined_chroma_half_weights((ih + 1) // 2, ih, oh, 544, 120)
+        wh_c[u] = combined_chroma_half_weights((iw + 1) // 2, iw, ow, 960, 200)
+        if jq:
+            m_h, m_w = min((oh + 15) // 16 * 16, 240), min((ow + 15) // 16 * 16, 400)
+            wv_y[u, oh:m_h] = wv_y[u, oh - 1]
+            wh_y[u, ow:m_w] = wh_y[u, ow - 1]
+            wv_c[u, (oh + 1) // 2: m_h // 2] = wv_c[u, (oh + 1) // 2 - 1]
+            wh_c[u, (ow + 1) // 2: m_w // 2] = wh_c[u, (ow + 1) // 2 - 1]
+    return to_port([wv_y, wh_y, wv_c, wh_c], "cuda")
+
+
+@needs_card
+@pytest.mark.parametrize("batch", [1, 32])
+def test_k4_on_u8_planes_matches_plain(batch):
+    """K4's u8-in / f32-out instantiation (the k = 8 JPEG -> WebP head's):
+    Y and the two chroma planes in one launch, against the plain version and
+    against K4 on the planes widened to f32 (the same sums)."""
+    from imagekit_tpu_torch.ops import resize_planes as rp
+
+    stacks = _yuv_head_stacks(False)
+    planes = to_port([_k3_planes(batch, 1088, 1920, seed=batch),
+                      _k3_planes(batch, 544, 960, seed=batch + 1),
+                      _k3_planes(batch, 544, 960, seed=batch + 2)], "cuda")
+    vidx = torch.arange(batch, dtype=torch.int32, device="cuda") % 4
+    bands = (resize_strip.resize_tables(*stacks[:2]),
+             resize_strip.resize_tables(*stacks[2:]))
+    before = rp.LAUNCHES_F32
+    got = rp.resize_planes3_f32(planes, stacks, vidx, bands=bands)
+    wide = rp.resize_planes3_f32([p.float() for p in planes], stacks, vidx,
+                                 bands=bands)
+    torch.cuda.synchronize()
+    assert rp.LAUNCHES_F32 == before + 2
+    want = rp.resize_planes3_f32_plain(planes, stacks, vidx)
+    for a, b, c, shape in zip(got, want, wide, ((240, 400), (120, 200),
+                                                (120, 200))):
+        assert a.dtype == torch.float32 and a.shape == (batch, *shape)
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=255e-5)
+        assert torch.equal(a, c)
+
+
+@needs_card
+@pytest.mark.parametrize("jpeg", [False, True], ids=["webp_out", "jpeg_out"])
+@pytest.mark.parametrize("batch", [1, 32])
+def test_k2_three_yuv_planes_match_plain(batch, jpeg):
+    """The YUV-source heads' launch: the Y, Cb and Cr views of one flat
+    (B, pad128(1088*1920*3/2)) batch in ONE K2 launch, rounded u8 (WebP
+    output) or remapped by each plane's own constants and centred (JPEG
+    output), against the plain version; then the whole heads."""
+    from imagekit_tpu_torch.ops import dct
+
+    stacks = _yuv_head_stacks(jpeg)
+    ny, nc = 1088 * 1920, 544 * 960
+    rng = np.random.default_rng(batch)
+    host = np.zeros((batch, pad128(ny + 2 * nc)), np.uint8)
+    for at, (h, w) in ((0, (1088, 1920)), (ny, (544, 960)), (ny + nc, (544, 960))):
+        host[:, at:at + h * w] = _k3_planes(batch, h, w, seed=at % 7).reshape(
+            batch, -1)
+    host[:, ny + 2 * nc:] = rng.integers(0, 256, host.shape[1] - ny - 2 * nc)
+    flat = torch.from_numpy(host).cuda()
+    vidx = torch.arange(batch, dtype=torch.int32, device="cuda") % 4
+    bands = (resize_strip.resize_tables(*stacks[:2]),
+             resize_strip.resize_tables(*stacks[2:]))
+    planes = dct.yuv_planes(flat, 1088, 1920)
+    before = resize_strip.LAUNCHES
+    got = resize_strip.yuv_resize(planes, stacks, vidx, jpeg=jpeg, bands=bands)
+    torch.cuda.synchronize()
+    assert resize_strip.LAUNCHES == before + 1
+    want = resize_strip.yuv_resize_plain(planes, stacks, vidx, jpeg=jpeg)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == (torch.int8 if jpeg else torch.uint8)
+        assert_band(a, b)
+    lo, hi = (-128, 127) if jpeg else (0, 255)
+    assert 0.2 < float(((got[0] > lo) & (got[0] < hi)).float().mean())
+    if jpeg:
+        qt = torch.full((batch, 128), 8.0, device="cuda")
+        a = dct.resize_yuv_jpeg(flat, stacks, qt, vidx, (1088, 1920), bands)
+        b = dct.resize_yuv_jpeg(flat, stacks, qt, vidx, (1088, 1920), bands,
+                                resize=resize_strip.yuv_resize_plain)
+    else:
+        a = dct.resize_yuv420(flat, stacks, vidx, (1088, 1920), bands)
+        b = dct.resize_yuv420(flat, stacks, vidx, (1088, 1920), bands,
+                              resize=resize_strip.yuv_resize_plain)
+    assert_band(a, b)
+
+
+def native_webp(img: np.ndarray, quality: int) -> bytes:
+    """A lossy WebP without Pillow: BT.601 studio-range planes (a 2x2 box for
+    the chroma) through the port's VP8 encoder."""
+    from imagekit_tpu_torch.codecs import vp8
+
+    rgb = img.astype(np.float32)
+    h, w = rgb.shape[:2]
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    y = 16.0 + (65.481 * r + 128.553 * g + 24.966 * b) / 255.0
+    cb = 128.0 + (-37.797 * r - 74.203 * g + 112.0 * b) / 255.0
+    cr = 128.0 + (112.0 * r - 93.786 * g - 18.214 * b) / 255.0
+
+    def half(c):
+        c = np.pad(c, ((0, h & 1), (0, w & 1)), mode="edge")
+        return c.reshape(c.shape[0] // 2, 2, c.shape[1] // 2, 2).mean((1, 3))
+
+    q8 = lambda p: np.clip(np.floor(p + 0.5), 0, 255).astype(np.uint8)  # noqa: E731
+    return vp8.encode_yuv420(q8(y), q8(half(cb)), q8(half(cr)), quality)
+
+
+@needs_card
+@pytest.mark.parametrize("case", ["jpeg_k8", "dense_k2", "dense_k8",
+                                  "webp_webp", "webp_jpeg"])
+def test_new_paths_on_card_match_engine_on_cpu(monkeypatch, case):
+    """One batch of each request this slice added, through BatchedEngine on
+    the card and on the CPU: JPEG -> WebP at k = 8 (one K4 launch),
+    escape-dense JPEG -> WebP at k = 2 (one launch of K1's int16 entry) and
+    at k = 8 (K4), lossy WebP -> WebP and -> JPEG (one K2 launch each). What
+    the host encoders are handed agrees within the band."""
+    from imagekit_tpu_torch.codecs import vp8
+    from imagekit_tpu_torch.codecs.native import loader
+    from imagekit_tpu_torch.config import ImageFormat, ImageKitConfig
+    from imagekit_tpu_torch.ops import resize_planes as rp
+    from imagekit_tpu_torch.serving.batcher import BatchedEngine
+    from imagekit_tpu_torch.serving.metrics import Metrics
+
+    x = np.linspace(0, 255, 1280, dtype=np.float32)[None, :, None]
+    y = np.linspace(0, 255, 720, dtype=np.float32)[:, None, None]
+    img = np.clip(0.5 * (x + y) + np.random.default_rng(4).normal(
+        0, 10, (720, 1280, 3)), 0, 255).astype(np.uint8)
+    fmt = ImageFormat.jpeg if case == "webp_jpeg" else ImageFormat.webp
+    if case == "jpeg_k8":
+        data, w, want = native_jpeg(img, 85), 960, (0, 0, 1)
+    elif case.startswith("dense"):
+        data = native_jpeg(block_edge_image(1, 640, 480), 100)
+        w, want = (120, (1, 0, 0)) if case == "dense_k2" else (400, (0, 0, 1))
+    else:
+        data, w, want = native_webp(img, 80), 256, (0, 1, 0)
+    handed = []
+    real_vp8, real_jpeg = vp8.encode_yuv420, loader.encode_jpeg
+
+    def rec_vp8(yp, u, v, q):
+        handed.append((yp.copy(), u.copy(), v.copy()))
+        return real_vp8(yp, u, v, q)
+
+    def rec_jpeg(planes, qtabs, width, height):
+        handed.append(tuple(np.array(p) for p in planes))
+        return real_jpeg(planes, qtabs, width, height)
+
+    monkeypatch.setattr(vp8, "encode_yuv420", rec_vp8)
+    monkeypatch.setattr(loader, "encode_jpeg", rec_jpeg)
+    for device in ("cuda", "cpu"):
+        engine = BatchedEngine(ImageKitConfig(secret="s"), metrics=Metrics(),
+                               device=device)
+
+        async def run():
+            try:
+                return await engine.transform(data, w, None, fmt, 80)
+            finally:
+                await engine.close()
+
+        before = (jpeg8.LAUNCHES, resize_strip.LAUNCHES, rp.LAUNCHES_F32)
+        out = asyncio.run(run())
+        after = (jpeg8.LAUNCHES, resize_strip.LAUNCHES, rp.LAUNCHES_F32)
+        assert tuple(a - b for a, b in zip(after, before)) == (
+            want if device == "cuda" else (0, 0, 0))
+        assert (out[:4] == b"RIFF") == (fmt == ImageFormat.webp)
+    assert len(handed) == 2
+    for a, b in zip(*handed):
+        assert_band(torch.from_numpy(a), torch.from_numpy(b))

@@ -227,6 +227,64 @@ def test_plain_head_matches_reference_on_real_jpegs(monkeypatch, width, k, mode)
         assert 0 < (g > 20).mean() and (g < 250).mean() > 0.5  # not clipped
 
 
+@pytest.mark.parametrize("width,k", [(256, 4), (120, 2)])
+def test_int16_head_matches_reference_on_escape_dense_jpegs(width, k):
+    """An escape-dense JPEG overflows the split transport and rides
+    block-grouped int16 levels: the batch the port's engine packs, through
+    ``decode_resize_yuv_lowfreq_batch`` (K1's int16 entry, its plain
+    version here), against the JAX head on the same arrays."""
+    from imagekit_tpu.ops.dct import decode_resize_yuv_lowfreq_batch as ref16
+    from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
+    from imagekit_tpu_torch.config import BatchConfig, ImageFormat, ImageKitConfig
+    from imagekit_tpu_torch.serving import engine_jpeg
+    from imagekit_tpu_torch.serving.batcher import BatchedEngine
+    from imagekit_tpu_torch.serving.metrics import Metrics
+    from tests.test_batcher import _noisy_jpeg
+    from tests.test_torch_cuda import block_edge_image, native_jpeg
+
+    if k == 4:
+        datas = [_noisy_jpeg(640, 480, 100), _noisy_jpeg(640, 480, 100, seed=8)]
+    else:  # noise leaves too few levels at k=2 to overflow: hard edges do
+        datas = [native_jpeg(block_edge_image(s, 640, 480), 100) for s in (1, 2)]
+    assert all(jpeg_abi.decode_lowfreq_i8(loader.load(), d, k)[5] for d in datas)
+    calls = []
+    real = engine_jpeg.decode_resize_yuv_lowfreq_batch
+
+    def rec(*a, **kw):
+        calls.append(a)
+        return real(*a, **kw)
+
+    cfg = ImageKitConfig(secret="s", batch=BatchConfig(
+        max_batch=2, max_delay_ms=60_000.0, hard_delay_ms=60_000.0))
+    engine = BatchedEngine(cfg, metrics=Metrics(), device="cpu")
+
+    async def run():
+        try:
+            return await asyncio.gather(*(
+                engine.transform(d, width, None, ImageFormat.webp, 80)
+                for d in datas))
+        finally:
+            await engine.close()
+
+    engine_jpeg.decode_resize_yuv_lowfreq_batch = rec
+    try:
+        asyncio.run(run())
+    finally:
+        engine_jpeg.decode_resize_yuv_lowfreq_batch = real
+    assert len(calls) == 1
+    y, cb, cr, qt, w, vidx, bd, os_, kk = calls[0]
+    assert kk == k and y.dtype == torch.int16
+    assert y.shape[2] == port_w.pad128(bd[1] * k * k)
+    assert int(y.abs().max()) > 127  # levels past int8: why it rides int16
+    args = (y.numpy(), cb.numpy(), cr.numpy(), qt.numpy(),
+            tuple(x.cpu().numpy() for x in w), vidx.numpy(), bd, os_, k)
+    want = ref16(*args)
+    got = port_dct.decode_resize_yuv_lowfreq_batch(*args, device="cpu")
+    for name, g, w_ in zip(("y", "cb", "cr"), got, want):
+        assert_band(g, w_, name)
+        assert (g < 250).mean() > 0.5  # not clipped
+
+
 def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     """folded_planes_i8 on a non-CPU tensor goes to the kernel or raises; it
     never falls back to the plain version."""

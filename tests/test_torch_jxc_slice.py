@@ -14,12 +14,13 @@
   a chroma plane by up to 1.772: one such step is a 2 in B (seen: one
   value).
 - The port's ``BatchedEngine(device="cpu")`` against the JAX engine with
-  the same signature compiled (so that it runs its device head, not its
-  cold-shape host mirror): the levels handed to the JPEG encoder are EXACT
+  the batch's signature marked compiled (so that it runs its device head,
+  not its cold-shape host mirror): the levels handed to the JPEG encoder are EXACT
   at w=400 (k=2) and w=1280 (k=8) from 1080p sources, at k=4, and for a
   grayscale source; an escape-dense JPEG takes the RGB head, whose RGB is
   within the band of the JAX head under K3's semantics.
-- The JPEG requests still outside the slice answer NotPortedError.
+- The JPEG requests still outside the slice answer NotPortedError, naming
+  their ROADMAP item.
 
 K3's semantics: the reference's ``dct._rgb_tail`` takes K3 on its
 accelerator (which rounds each resized plane to u8) and an einsum without
@@ -244,30 +245,66 @@ def _capture(monkeypatch, target, name):
     return calls
 
 
-def _run_both(monkeypatch, datas, widths, sig_kind, k, src_hw):
-    """One batch of ``datas`` through the JAX engine (its device head
-    compiled first) and through the port; returns both engines' encoder
-    calls (levels in, width, height) in order, and the outputs."""
+def _ref_native_lib(monkeypatch):
+    """The reference's native codec library, loaded in this process. The
+    reference builds it in place at first use, with no lock: a process whose
+    first load meets another process's half-written build gets ``None``, once
+    and for good, and its engine then serves JPEG and WebP sources through
+    its generic decode and the host fallback without a word. Load again
+    (the loader's own retry switch) and fail with the reason if it stays
+    away."""
+    lib = ref_loader.load()
+    if lib is None:
+        monkeypatch.setenv("IMAGEKIT_NATIVE_RETRY", "1")
+        lib = ref_loader.load()
+    assert lib is not None, "the reference's native codec library is missing"
+    return lib
+
+
+def jpeg_sig(ref, nb, sig_kind, k, src_hw, width, split=True):
+    """The JAX engine's signature of a JPEG-source batch of ``nb`` images of
+    ``src_hw`` resized to ``width`` (``engine_jpeg.py:271-274``)."""
+    ih, iw = src_hw
+    ow, oh = port_w.target_dimensions(iw, ih, width, None)
+    return ("jpeg8" if split else "jpeg", sig_kind, k, ref._use_mesh(nb), nb,
+            bucket_for((ih + 15) // 16 * 16), bucket_for((iw + 15) // 16 * 16),
+            bucket_for(oh), bucket_for(ow))
+
+
+def run_engines(monkeypatch, datas, widths, fmt, sig):
+    """One full batch of ``datas`` through the JAX engine, then through the
+    port's on the CPU; returns both outputs. ``sig(ref, nb)`` is the batch's
+    signature in the JAX engine: it is marked compiled, so that engine runs
+    its device head (compiling it on the spot, in its own device thread)
+    and not its cold-shape host mirror. What the engine then did is
+    asserted with what it saw, so that a failure says why."""
     from imagekit_tpu.serving.batcher import BatchedEngine as RefEngine
 
-    ref_enc = _capture(monkeypatch, ref_loader, "encode_jpeg")
-    port_enc = _capture(monkeypatch, loader, "encode_jpeg")
+    _ref_native_lib(monkeypatch)
     n = len(datas)
     ref = RefEngine(_cfg(n, ref_config), metrics=RefMetrics())
-    ih, iw = src_hw
-    ow, oh = port_w.target_dimensions(iw, ih, widths[0], None)
-    nb = batch_bucket(n, n)
-    head = "jpeg8" if sig_kind == "jxc" else "jpeg"
-    ref._compile_jpeg_sig((head, sig_kind, k, ref._use_mesh(nb), nb,
-                           bucket_for((ih + 15) // 16 * 16),
-                           bucket_for((iw + 15) // 16 * 16),
-                           bucket_for(oh), bucket_for(ow)))
-    ref_out = _drive(ref, datas, widths)
-    assert ref.metrics.host_fallbacks == 0 and ref.metrics.batches == 1
-    assert not port_enc
+    marked = sig(ref, batch_bucket(n, n))
+    ref._compiled.add(marked)
+    ref_out = _drive(ref, datas, widths, fmt)
+    seen = (marked, sorted(ref._compiled - {marked}, key=repr),
+            sorted(ref._compiling, key=repr), ref.metrics.snapshot())
+    assert ref.metrics.host_fallbacks == 0 and ref.metrics.batches == 1, seen
     port = PortEngine(_cfg(n), metrics=Metrics(), device="cpu")
-    port_out = _drive(port, datas, widths)
-    assert port.metrics.batches == 1
+    port_out = _drive(port, datas, widths, fmt)
+    assert port.metrics.batches == 1, port.metrics.snapshot()
+    return ref_out, port_out
+
+
+def _run_both(monkeypatch, datas, widths, sig_kind, k, src_hw):
+    """One batch of ``datas`` through the JAX engine and through the port
+    (:func:`run_engines`), both to JPEG; returns both engines' encoder calls
+    (levels in, width, height) in order, and the outputs."""
+    ref_enc = _capture(monkeypatch, ref_loader, "encode_jpeg")
+    port_enc = _capture(monkeypatch, loader, "encode_jpeg")
+    ref_out, port_out = run_engines(
+        monkeypatch, datas, widths, ImageFormat.jpeg,
+        lambda ref, nb: jpeg_sig(ref, nb, sig_kind, k, src_hw, widths[0],
+                                 split=sig_kind == "jxc"))
     return ref_enc, port_enc, ref_out, port_out
 
 
@@ -338,9 +375,8 @@ def test_escape_dense_jpeg_takes_the_rgb_head(monkeypatch, k3_semantics):
     _, port_calls, ref_out, port_out = _run_both(
         monkeypatch, [data], [240], "rgb", 8, (480, 640))
     assert resize_planes.LAUNCHES == before
-    # the JAX engine's first call is the compile of its signature
-    assert len(ref_rgb) == 2 and len(port_rgb) == 1 and not jxc
-    want, got = ref_rgb[-1][1], port_rgb[0][1]
+    assert len(ref_rgb) == 1 and len(port_rgb) == 1 and not jxc
+    want, got = ref_rgb[0][1], port_rgb[0][1]
     assert got.shape == want.shape == (1, bucket_for(180), 240, 3)
     assert_rgb_band(got, want)
     hdr = jpeg_abi.parse(loader.load(), port_out[0])
@@ -348,23 +384,34 @@ def test_escape_dense_jpeg_takes_the_rgb_head(monkeypatch, k3_semantics):
     assert [(a[2], a[3]) for a, _ in port_calls] == [(240, 180)]
 
 
-@pytest.mark.parametrize("case", ["avif_out", "webp_k8", "webp_escape_dense"])
+@pytest.mark.parametrize("case", ["avif_out"])
 def test_jpeg_requests_outside_the_slice_are_not_ported(case):
-    fmt, w = ImageFormat.webp, 240
+    """AVIF output waits for its encoder library; a downscale under 2x and
+    an escape-dense source to WebP, once here, are served
+    (``test_torch_webp_slice.py``)."""
     data = encode_jpeg_pil(make_test_image(640, 480), 85)
-    if case == "avif_out":
-        fmt = ImageFormat.avif
-        match = "JPEG -> avif output"
-    elif case == "webp_k8":
-        w = 400
-        match = "k=8 head"
-    else:
-        data = _noisy_jpeg(640, 480, 100)
-        match = "int16 lowfreq head"
     engine = PortEngine(_cfg(1), metrics=Metrics(), device="cpu")
-    with pytest.raises(NotPortedError, match=match) as e:
-        _drive(engine, [data], [w], fmt)
+    with pytest.raises(NotPortedError, match="JPEG -> avif output") as e:
+        _drive(engine, [data], [240], ImageFormat.avif)
     assert e.value.roadmap_item == "queue 1 item 7"
+
+
+def test_jpeg_that_is_not_420_names_the_pixel_decode():
+    """A 4:4:4 JPEG needs the JPEG pixel decode, ROADMAP queue 1 item 10."""
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(make_test_image(320, 240)).save(buf, "JPEG", quality=85,
+                                                     subsampling=0)
+    hdr = jpeg_abi.parse(loader.load(), buf.getvalue())
+    assert tuple(hdr.comp_h) == (1, 1, 1)
+    engine = PortEngine(_cfg(1), metrics=Metrics(), device="cpu")
+    with pytest.raises(NotPortedError, match="not 4:2:0") as e:
+        _drive(engine, [buf.getvalue()], [64], ImageFormat.webp)
+    assert e.value.roadmap_item == "queue 1 item 10"
+    assert "item 10" in str(e.value)
 
 
 # -- HTTP ---------------------------------------------------------------------------------

@@ -1,17 +1,20 @@
-"""K2's, K3's and K4's CUDA source, compiled for the CPU and held against
-the plain versions.
+"""K1's, K2's, K3's and K4's CUDA source, compiled for the CPU and held
+against the plain versions.
 
-The sources (``imagekit_tpu_torch/csrc/resize_strip.cu``,
-``resize_planes.cu`` and the body they share, ``resize_band.cuh``) are
+The sources (``imagekit_tpu_torch/csrc/jpeg8_folded.cu``,
+``resize_strip.cu``, ``resize_planes.cu`` and the body these two share,
+``resize_band.cuh``) are
 compiled by ``g++`` under a small shim that stands in for
 ``cuda_runtime.h``: one thread per block, ``__shared__`` arrays static,
-``__syncthreads`` a no-op, ``IK_LAUNCH`` a loop over the grid's blocks,
+``__syncthreads`` a no-op, a warp shuffle the lane's own value, an atomic
+add a plain one, ``IK_LAUNCH`` a loop over the grid's blocks,
 ``IK_DYN_SMEM`` a buffer filled with NaN before each launch (a read of
 shared memory that no pass wrote would show), the ``cp.async`` staging
 (``IK_CP_ASYNC``) a plain copy, and the few intrinsics the
 body uses (``__ldg``, ``__byte_perm``, ``__fadd_rn``, ...) as plain C++.
 The launch records are built by the wrappers' own helpers
-(``resize_strip.plane_record``) on CPU tensors. This checks the indexing,
+(``resize_strip.plane_record``, ``jpeg8._launch`` and ``_launch_i16``) on
+CPU tensors. This checks the indexing,
 the per-row band segments, the chunked weight staging, the ragged tiles
 and groups, the pixel-row reads of an interleaved batch and both passes'
 sums; it does not check races or anything of the card's compiler (those
@@ -32,7 +35,7 @@ import numpy as np
 import pytest
 import torch
 
-from imagekit_tpu_torch.ops import _build, resize_planes as rp, resize_strip
+from imagekit_tpu_torch.ops import _build, jpeg8, resize_planes as rp, resize_strip
 from imagekit_tpu_torch.ops.resize_strip import plane_record, resize_tables
 from imagekit_tpu_torch.ops.weights import combined_chroma_weights, padded_weights
 from tests.test_torch_resize import EPILOGUES, assert_band
@@ -65,6 +68,16 @@ struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};
 }
+struct alignas(16) int4 { int x, y, z, w; };
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
+struct alignas(8) short4 { short x, y, z, w; };
+struct alignas(4) char4 { signed char x, y, z, w; };
+inline int atomicAdd(int* p, int v) {
+  const int old = *p;
+  *p += v;
+  return old;
+}
+inline int __shfl_xor_sync(unsigned, int v, int) { return v; }
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
@@ -105,14 +118,15 @@ struct Launcher {
   size_t bytes;
   template <class... A>
   void operator()(const A&... args) {
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
-      smem().assign(bytes / 4 + 4, NAN);
-      blockIdx = dim3(bx);
-      threadIdx = dim3(0);
-      blockDim = dim3(1);
-      gridDim = grid;
-      kernel(args...);
-    }
+    for (unsigned by = 0; by < grid.y; ++by)
+      for (unsigned bx = 0; bx < grid.x; ++bx) {
+        smem().assign(bytes / 4 + 4, NAN);
+        blockIdx = dim3(bx, by);
+        threadIdx = dim3(0);
+        blockDim = dim3(1);
+        gridDim = grid;
+        kernel(args...);
+      }
   }
 };
 template <class K>
@@ -139,10 +153,12 @@ def lib(tmp_path_factory):
     subprocess.run(
         [gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
          "-I", str(d), "-x", "c++", str(CSRC / "resize_strip.cu"),
-         str(CSRC / "resize_planes.cu"), "-o", str(so)],
+         str(CSRC / "resize_planes.cu"), str(CSRC / "jpeg8_folded.cu"),
+         "-o", str(so)],
         check=True, capture_output=True, text=True, timeout=300)
     out = ctypes.CDLL(str(so))
     _build.configure_band(out)
+    _build.configure_folded(out)
     return out
 
 
@@ -178,13 +194,10 @@ def _strip_launch(lib, x, wv, wh, vidx, hidx, C, kw=None):
     centered = kw.get("centered", False)
     out = torch.empty((B, C, oh, ow),
                       dtype=torch.int8 if centered else torch.uint8)
-    scale, pre, post = (kw.get(k, d) for k, d in
-                        (("scale", 1.0), ("pre", 0.0), ("post", 0.0)))
-    affine = scale != 1.0 or pre != 0.0 or post != 0.0
+    remap = {k: kw[k] for k in ("scale", "pre", "post") if k in kw}
     rec = plane_record(x.data_ptr(), H * WC, WC, C, wv, tabs, vidx, hidx,
-                       out, C * oh * ow, oh * ow, H, WC // C)
-    _build.launch_band(lib.ik_resize_strip, [rec], B, scale, pre, post,
-                       int(affine), int(centered), None)
+                       out, C * oh * ow, oh * ow, H, WC // C, **remap)
+    _build.launch_band(lib.ik_resize_strip, [rec], B, int(centered), None)
     return out
 
 
@@ -287,29 +300,39 @@ def _k3_stacks(U=3):
     return wv_y, wh_y, wv_c, wh_c
 
 
-@pytest.mark.parametrize("f32", [False, True], ids=["K3", "K4"])
+# (planes in, planes out, entry) of the K3/K4 source
+PLANE_ENTRIES = {
+    "K3": (torch.uint8, torch.uint8, "ik_resize_planes_u8"),
+    "K4": (torch.float32, torch.float32, "ik_resize_planes_f32"),
+    # K4 on the u8 planes of the k=8 JPEG -> WebP head, widened in the kernel
+    "K4_u8": (torch.uint8, torch.float32, "ik_resize_planes_u8_f32"),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(PLANE_ENTRIES))
 @pytest.mark.parametrize("vidx", [[1], [0, 2, 1, -4, 6]], ids=["b1", "b5"])
-def test_k3_k4_three_planes_match_plain(lib, f32, vidx):
+def test_k3_k4_three_planes_match_plain(lib, entry, vidx):
     """Y and the two chroma planes, of another shape and with their own
-    stacks, in one launch of K3's (u8) or K4's (f32) source."""
+    stacks, in one launch of K3's (u8) or K4's (f32 out) source."""
+    in_dtype, out_dtype, fn_name = PLANE_ENTRIES[entry]
+    f32 = out_dtype == torch.float32
     B = len(vidx)
     stacks = _t(*_k3_stacks())
     v = torch.tensor(vidx, dtype=torch.int32)
     planes = [torch.from_numpy(_images(B, h, w, seed=h + w))
               for h, w in ((48, 64), (24, 32), (24, 32))]
-    if f32:
+    if in_dtype == torch.float32:
         planes = [p.float() + 0.25 for p in planes]
     pairs = (stacks[:2], stacks[2:], stacks[2:])
     recs, outs, tabs = [], [], []
     for p, (wv, wh) in zip(planes, pairs):
-        out = torch.empty((B, 20, 28), dtype=p.dtype)
+        out = torch.empty((B, 20, 28), dtype=out_dtype)
         tabs.append(resize_tables(wv, wh))  # alive until the launch
         recs.append(plane_record(p.data_ptr(), p.shape[1] * p.shape[2],
                                  p.shape[2], 1, wv, tabs[-1], v, v, out,
                                  20 * 28, 0, *p.shape[1:]))
         outs.append(out)
-    fn = lib.ik_resize_planes_f32 if f32 else lib.ik_resize_planes_u8
-    _build.launch_band(fn, recs, B, None)
+    _build.launch_band(getattr(lib, fn_name), recs, B, None)
     plain = rp.resize_planes3_f32_plain if f32 else rp.resize_planes3_plain
     wants = plain(planes, stacks, v.clamp(0, 2))
     for got, want in zip(outs, wants):
@@ -318,6 +341,50 @@ def test_k3_k4_three_planes_match_plain(lib, f32, vidx):
         else:
             assert_band(got.numpy(), want.numpy())
             assert 0.2 < float(((got > 0) & (got < 255)).float().mean())
+
+
+@pytest.mark.parametrize("jpeg", [False, True], ids=["webp_out", "jpeg_out"])
+@pytest.mark.parametrize("vidx", [[1], [0, 2, 1, -4, 6]], ids=["b1", "b5"])
+def test_k2_three_yuv_planes_with_their_own_epilogues(lib, jpeg, vidx):
+    """The YUV-source heads' launch: Y, Cb and Cr as views of one flat
+    4:2:0 batch (images a padded row apart), with their own stacks, and for
+    JPEG output luma's remap in Y's record and chroma's in Cb's and Cr's,
+    against ``yuv_resize_plain``."""
+    B = len(vidx)
+    wv_y, wh_y, _, _ = _k3_stacks()
+    # chroma to HALF output resolution, as the YUV heads' stacks are
+    wv_c = _stack(24, 9, 24, 10, 3)
+    wh_c = _stack(32, 13, 32, 14, 3)
+    stacks = _t(wv_y, wh_y, wv_c, wh_c)
+    v = torch.tensor(vidx, dtype=torch.int32)
+    ny, nc = 48 * 64, 24 * 32
+    flat = torch.from_numpy(_images(B, 1, ny + 2 * nc + 128, seed=11)[:, 0])
+    planes = (flat[:, :ny].view(B, 48, 64),
+              flat[:, ny:ny + nc].view(B, 24, 32),
+              flat[:, ny + nc:ny + 2 * nc].view(B, 24, 32))
+    pairs = (stacks[:2], stacks[2:], stacks[2:])
+    recs, outs, tabs = [], [], []
+    for p, (wv, wh), kw in zip(planes, pairs, resize_strip._remaps(jpeg)):
+        oh, ow = wv.shape[1], wh.shape[1]
+        out = torch.empty((B, oh, ow),
+                          dtype=torch.int8 if jpeg else torch.uint8)
+        tabs.append(resize_tables(wv, wh))  # alive until the launch
+        recs.append(plane_record(p.data_ptr(), flat.shape[1], p.shape[2], 1,
+                                 wv, tabs[-1], v, v, out, oh * ow, 0,
+                                 *p.shape[1:], **kw))
+        outs.append(out)
+    assert all(bool(r.affine) == jpeg for r in recs)
+    assert not jpeg or (recs[0].pre, recs[1].pre) == (-16.0, -128.0)
+    _build.launch_band(lib.ik_resize_strip, recs, B, int(jpeg), None)
+    wants = resize_strip.yuv_resize_plain(planes, stacks, v.clamp(0, 2),
+                                          jpeg=jpeg)
+    # the wrapper on CPU tensors takes the same plain version, views and all
+    again = resize_strip.yuv_resize(planes, stacks, v.clamp(0, 2), jpeg=jpeg)
+    for got, want, w2 in zip(outs, wants, again):
+        assert got.dtype == want.dtype and torch.equal(want, w2)
+        assert_band(got.numpy(), want.numpy())
+    lo, hi = (-128, 127) if jpeg else (0, 255)  # mostly unclipped
+    assert 0.2 < float(((outs[0] > lo) & (outs[0] < hi)).float().mean())
 
 
 # (W, C of each plane): records the source refuses
@@ -347,5 +414,125 @@ def test_source_refuses_what_it_does_not_take(lib, case):
         recs.append(plane_record(x.data_ptr(), 16 * W * C, W * C, C, wv, tabs,
                                  v, v, out, C * 64, 64, 16, W))
     with pytest.raises(RuntimeError, match="cudaError_t 1"):
-        _build.launch_band(lib.ik_resize_strip, recs, 1, 1.0, 0.0, 0.0, 0,
-                           0, None)
+        _build.launch_band(lib.ik_resize_strip, recs, 1, 0, None)
+
+
+# -- K1 ----------------------------------------------------------------------
+
+
+def _k1_stacks(rng, k, U, rows, nblk, O, P):
+    """Folded (U, k, O, rows) / (U, k, P, nblk) stacks with a band of
+    nonzero block rows and columns about each output's centre (empty rows
+    past the slot's true output), rows summing to about 1 per plane."""
+    def stack(o_n, n):
+        w = np.zeros((U, k, o_n, n), np.float32)
+        for u in range(U):
+            true_o = o_n - 2 * u
+            for o in range(true_o):
+                c = int(o * n / true_o)
+                lo, hi = max(c - 2, 0), min(c + 3, n)
+                w[u, :, o, lo:hi] = rng.random((k, hi - lo)) / (hi - lo)
+        return torch.from_numpy(w)
+
+    return stack(O, rows), stack(P, nblk)
+
+
+def _k1_common(k, seed, B=3, U=3):
+    """Stacks for a luma plane of 18 x 35 blocks -> 21 x 50 and chroma
+    planes of 9 x 18 blocks -> 11 x 26 (ragged stripes and 4-level groups),
+    tables and an index with a slot out of range (clamped)."""
+    rng = np.random.default_rng(seed)
+    wv_y, wh_y = _k1_stacks(rng, k, U, 18, 35, 21, 50)
+    wv_c, wh_c = _k1_stacks(rng, k, U, 9, 18, 11, 26)
+    stacks = (wv_y, wh_y, wv_c, wh_c)
+    bands = tuple(jpeg8.folded_bands(s_) for s_ in stacks)
+    qt = torch.from_numpy((rng.random((B, 128)) * 6 + 1).astype(np.float32))
+    vidx = torch.tensor([1, U + 3, 0][:B], dtype=torch.int32)
+    return rng, stacks, bands, qt, vidx
+
+
+def _assert_k1(got, want, centered):
+    pairs = zip(got, want) if centered else [(got, want)]
+    for g, w in pairs:
+        assert g.dtype == w.dtype
+        assert_band(g.numpy(), w.numpy())
+        lo, hi = (-128, 127) if centered else (0, 255)  # mostly unclipped
+        assert 0.3 < float(((g > lo) & (g < hi)).float().mean())
+
+
+@pytest.mark.parametrize("centered", [False, True], ids=["decode", "centred"])
+@pytest.mark.parametrize("k", [2, 4])
+def test_k1_split_entry_matches_plain(lib, k, centered):
+    """K1's split-int8 entry: planar i8 AC, i16 DC and escape residuals in
+    every plane, against ``folded_planes_i8_plain``."""
+    B = 3
+    rng, stacks, bands, qt, vidx = _k1_common(k, seed=70 + k, B=B)
+    na = k * k - 1
+    dcs, acs, escs = [], [], []
+    for rows, nblk in ((18, 35), (9, 18), (9, 18)):
+        p = 128
+        dcs.append(torch.from_numpy(
+            rng.integers(-60, 60, (B, rows, p)).astype(np.int16)))
+        acs.append(torch.from_numpy(
+            rng.integers(-10, 10, (B, rows, na * p)).astype(np.int8)))
+        ei = np.zeros((16, 3), np.int32)  # the rest are padding rows
+        ev = np.zeros(16, np.int32)
+        for e in range(6):
+            ei[e] = (e % B, rng.integers(rows),
+                     rng.integers(na) * p + rng.integers(nblk))
+            ev[e] = rng.integers(-300, 300)
+        escs.append((torch.from_numpy(ei), torch.from_numpy(ev)))
+    Bc, U, dims = jpeg8._check(dcs, acs, escs, qt, stacks, bands, vidx, k)
+    got, rc = jpeg8._launch(lib, None, dcs, acs, escs, qt, stacks, bands,
+                            vidx, k, centered, Bc, U, dims)
+    assert rc == 0
+    want = jpeg8.folded_planes_i8_plain(dcs, acs, escs, qt, stacks, bands,
+                                        vidx, k, centered)
+    _assert_k1(got, want, centered)
+    without = jpeg8.folded_planes_i8_plain(
+        dcs, acs, [(i, torch.zeros_like(v)) for i, v in escs], qt, stacks,
+        bands, vidx, k, centered)
+    first = want[0] if centered else want
+    assert (first != (without[0] if centered else without)).any()
+
+
+@pytest.mark.parametrize("centered", [False, True], ids=["decode", "centred"])
+@pytest.mark.parametrize("k", [2, 4])
+def test_k1_int16_entry_matches_plain(lib, k, centered):
+    """K1's int16 entry: block-grouped levels (level u*k+v of block column
+    c at c*k*k + u*k+v), junk in the padding columns, no escapes, against
+    ``folded_planes_i16_plain``."""
+    B = 3
+    rng, stacks, bands, qt, vidx = _k1_common(k, seed=80 + k, B=B)
+    nk = k * k
+    flats = []
+    for rows, nblk in ((18, 35), (9, 18), (9, 18)):
+        pw = (nblk * nk + 127) // 128 * 128
+        flat = rng.integers(-999, 999, (B, rows, pw))
+        lev = rng.integers(-10, 10, (B, rows, nblk, nk))
+        lev[..., 0] = rng.integers(-60, 60, (B, rows, nblk))
+        lev[0, 0, 0, 1] = 700  # past int8: what this transport is for
+        flat[:, :, : nblk * nk] = lev.reshape(B, rows, -1)
+        flats.append(torch.from_numpy(flat.astype(np.int16)))
+    Bc, U, dims = jpeg8._check_i16(flats, qt, stacks, bands, vidx, k)
+    got, rc = jpeg8._launch_i16(lib, None, flats, qt, stacks, bands, vidx, k,
+                                centered, Bc, U, dims)
+    assert rc == 0
+    want = jpeg8.folded_planes_i16_plain(flats, qt, stacks, bands, vidx, k,
+                                         centered)
+    _assert_k1(got, want, centered)
+
+
+def test_k1_entries_refuse_what_they_do_not_take(lib):
+    _, stacks, bands, qt, vidx = _k1_common(2, seed=5)
+    flats = [torch.zeros((3, rows, 128), dtype=torch.int16)
+             for rows in (18, 9, 9)]  # 35 blocks of 4 levels need 140
+    dims = [(18, 128, 35, 21, 50), (9, 128, 18, 11, 26), (9, 128, 18, 11, 26)]
+    _, rc = jpeg8._launch_i16(lib, None, flats, qt, stacks, bands, vidx, 2,
+                              False, 3, 3, dims)
+    assert rc == 1  # cudaErrorInvalidValue
+    flats[0] = torch.zeros((3, 18, 256), dtype=torch.int16)
+    dims[0] = (18, 256, 35, 21, 50)
+    _, rc = jpeg8._launch_i16(lib, None, flats, qt, stacks, bands, vidx, 8,
+                              False, 3, 3, dims)
+    assert rc == 1  # k = 8 has no folded head

@@ -106,6 +106,28 @@ def test_k4_plain_matches_float64_product(seed):
     assert (got < 0).any()  # no clip: Lanczos' negative lobes show
 
 
+@pytest.mark.parametrize("seed", [5, 6])
+def test_k4_on_u8_planes_is_k4_on_their_f32_copies(seed):
+    """The k = 8 JPEG -> WebP head hands K4 the u8 planes of its IDCT: the
+    same unrounded f32 sums as on those planes widened, which is what the
+    JAX head's ``_yuv_tail`` resizes (an f32 einsum of the u8 grid)."""
+    planes, wv, wh, vidx = _inputs(seed)
+    before = rp.LAUNCHES_F32
+    got = K4_ONE(*_t(planes, wv, wh, vidx))
+    assert rp.LAUNCHES_F32 == before
+    assert got.dtype == torch.float32
+    widened = K4_ONE(*_t(planes.astype(np.float32), wv, wh, vidx))
+    assert torch.equal(got, widened)
+    u = jnp.asarray(vidx)
+    want = np.asarray(jnp.einsum(
+        "boh,bhw,bpw->bop", jnp.asarray(wv)[u],
+        jnp.asarray(planes, jnp.float32), jnp.asarray(wh)[u],
+        precision="highest"))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=255e-5)
+    frac = got.numpy() - np.floor(got.numpy())
+    assert ((frac > 0.01) & (frac < 0.99)).mean() > 0.5  # not rounded
+
+
 def test_k3_epilogue_is_k2s_rounding():
     """floor(clip(v) + 0.5) == clip(floor(v + 0.5)) on every f32 value of
     the edges: why K3 is K2's function with one index."""
@@ -168,7 +190,9 @@ def test_k3_on_rgb_chroma_stacks_matches_einsum():
 def test_wrappers_refuse_what_the_kernels_do_not_take(fn, dtype, name):
     planes, wv, wh, vidx = _t(*_inputs(5))
     planes = planes.to(dtype)
-    other = torch.float32 if dtype == torch.uint8 else torch.uint8
+    # K4 takes u8 planes too (the k=8 JPEG -> WebP head's): int16 is what
+    # neither of its instantiations reads
+    other = torch.float32 if dtype == torch.uint8 else torch.int16
     with pytest.raises(TypeError, match=str(dtype).split(".")[1]):
         fn(planes.to(other), wv, wh, vidx)
     with pytest.raises(TypeError, match="int32"):

@@ -167,7 +167,9 @@ def _cfg(mod=port_config):
 @pytest.mark.parametrize("mode", ["RGB", "L", "P"])
 def test_port_engine_matches_jax_engine_on_pngs(monkeypatch, mode, fmt):
     from imagekit_tpu.serving.batcher import BatchedEngine as RefEngine
+    from tests.test_torch_jxc_slice import _ref_native_lib
 
+    _ref_native_lib(monkeypatch)
     datas = [_png(make_test_image(w, h), mode) for (w, h), _ in GEOMS]
     got = _capture(monkeypatch)
 

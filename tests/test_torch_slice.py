@@ -64,9 +64,11 @@ def captured_planes(monkeypatch):
     return planes
 
 
-def _run_ref(data, w, shape):
+def _run_ref(monkeypatch, data, w, shape):
     from imagekit_tpu.serving.batcher import BatchedEngine as RefEngine
+    from tests.test_torch_jxc_slice import _ref_native_lib
 
+    _ref_native_lib(monkeypatch)  # else the JAX engine decodes by other means
     engine = RefEngine(ref_config.ImageKitConfig(
         secret="s", batch=ref_config.BatchConfig(max_batch=8, max_delay_ms=5.0)),
         metrics=RefMetrics())
@@ -98,7 +100,8 @@ def _run_port(datas, w, **cfg):
 
 @pytest.mark.parametrize("src,w,k", [((1280, 720), 256, 2), ((640, 480), 256, 4)])
 @pytest.mark.parametrize("gray", [False, True])
-def test_port_engine_matches_jax_engine(captured_planes, src, w, k, gray):
+def test_port_engine_matches_jax_engine(monkeypatch, captured_planes, src, w, k,
+                                        gray):
     sw, sh = src
     img = make_test_image(sw, sh)
     if gray:
@@ -109,7 +112,7 @@ def test_port_engine_matches_jax_engine(captured_planes, src, w, k, gray):
     assert PortEngine._choose_k(bucket_for(sh), bucket_for(sw),
                                 bucket_for(oh), bucket_for(ow)) == k
     shape = (1, bucket_for(sh), bucket_for(sw), bucket_for(oh), bucket_for(ow), 3)
-    ref_out = _run_ref(data, w, shape)
+    ref_out = _run_ref(monkeypatch, data, w, shape)
     (port_out,), engine = _run_port([data], w)
     assert engine.metrics.batches == 1
     assert len(captured_planes) == 2
@@ -154,8 +157,8 @@ def test_cuda_device_is_never_implicit():
                                   "upscale_k8", "webp_src", "rgba_png"])
 def test_off_slice_requests_raise_not_ported(case):
     """Each request outside the ported slices raises NotPortedError naming
-    its ROADMAP item; an RGB PNG and a JPEG to JPEG, once off the slice,
-    are now served."""
+    its ROADMAP item; an RGB PNG, a JPEG to JPEG, a downscale under 2x
+    (k=8) and a lossy WebP source, once off the slice, are now served."""
     img = make_test_image(320, 240)
     data, fmt, w = encode_jpeg_pil(img), ImageFormat.webp, 64
     if case == "png":
@@ -180,8 +183,10 @@ def test_off_slice_requests_raise_not_ported(case):
         finally:
             await engine.close()
 
-    if case == "png":
-        assert vp8.dimensions(asyncio.run(run())) == (64, 48)
+    if case in ("png", "upscale_k8", "webp_src"):
+        size = (300, 225) if case == "upscale_k8" else (64, 48)
+        assert vp8.dimensions(asyncio.run(run())) == size
+        assert engine.metrics.batches == 1
         return
     if case == "jpeg_out":
         hdr = jpeg_abi.parse(loader.load(), asyncio.run(run()))

@@ -1,14 +1,16 @@
 """The port stands alone from the JAX package.
 
 - A subprocess imports every module of ``imagekit_tpu_torch``, serves one
-  JPEG -> WebP, one PNG -> JPEG and one JPEG -> JPEG request through
-  ``BatchedEngine(device="cpu")`` (so that every lazy import runs), and
-  then holds no ``imagekit_tpu`` module, no ``jax`` and no ``PIL``.
+  JPEG -> WebP, one PNG -> JPEG and one JPEG -> JPEG request, then the
+  WebP it made as a source (lossy WebP -> WebP and -> JPEG, and its pixel
+  decode) through ``BatchedEngine(device="cpu")`` (so that every lazy
+  import runs), and then holds no ``imagekit_tpu`` module, no ``jax`` and
+  no ``PIL``.
 - The port's copies of the reference's host modules are pinned to the
   reference: the C++ codec sources byte for byte, and the signature, the
   cache key, the edge-cache headers, format detection and bucketing equal
   on the same inputs.
-- The five ``*_batch`` device heads run on the card unless the caller names
+- The ``*_batch`` device heads run on the card unless the caller names
   another device: without a card, naming none raises.
 """
 
@@ -65,20 +67,29 @@ def test_port_serves_three_kinds_without_the_reference():
 
         async def run():
             try:
-                return await asyncio.gather(
+                first = await asyncio.gather(
                     engine.transform(jpeg, 64, None, ImageFormat.webp, 80),
                     engine.transform(png, 64, None, ImageFormat.jpeg, 80),
                     engine.transform(jpeg, 64, None, ImageFormat.jpeg, 80))
+                # the WebP just made, as a source
+                second = await asyncio.gather(
+                    engine.transform(first[0], 32, None, ImageFormat.webp, 80),
+                    engine.transform(first[0], 32, None, ImageFormat.jpeg, 80))
+                return first + second
             finally:
                 await engine.close()
 
-        webp, png_jpeg, jpeg_jpeg = asyncio.run(run())
+        webp, png_jpeg, jpeg_jpeg, webp_webp, webp_jpeg = asyncio.run(run())
         lib = loader.load()
         print(json.dumps({
             "n_mods": len(mods),
             "webp": vp8.dimensions(webp),
             "jpegs": [[h.width, h.height] for h in (
                 jpeg_abi.parse(lib, png_jpeg), jpeg_abi.parse(lib, jpeg_jpeg))],
+            "from_webp": [vp8.dimensions(webp_webp),
+                          [getattr(jpeg_abi.parse(lib, webp_jpeg), a)
+                           for a in ("width", "height")],
+                          list(vp8.decode_rgb(webp).shape)],
             "batches": engine.metrics.batches,
             "mods": sorted(sys.modules)}))
     """)
@@ -88,7 +99,8 @@ def test_port_serves_three_kinds_without_the_reference():
     res = __import__("json").loads(proc.stdout.strip().splitlines()[-1])
     assert res["n_mods"] > 30
     assert res["webp"] == [64, 48] and res["jpegs"] == [[64, 48], [64, 48]]
-    assert res["batches"] == 3
+    assert res["from_webp"] == [[32, 24], [32, 24], [48, 64, 3]]
+    assert res["batches"] == 5
     mods = res["mods"]
     assert [m for m in mods if m == "imagekit_tpu"
             or m.startswith("imagekit_tpu.")] == []
@@ -99,8 +111,8 @@ def test_port_serves_three_kinds_without_the_reference():
 
 # -- the copies against the reference ------------------------------------------------
 
-NATIVE = ("jpeg_entropy.cpp", "vp8_encode.cpp", "vp8_common.h",
-          "vp8_tables.h", "png_decode.cpp")
+NATIVE = ("jpeg_entropy.cpp", "vp8_encode.cpp", "vp8_decode.cpp",
+          "vp8l_decode.cpp", "vp8_common.h", "vp8_tables.h", "png_decode.cpp")
 
 
 @pytest.mark.parametrize("name", NATIVE)
@@ -201,9 +213,16 @@ def test_bucketing_equal_over_the_ladder():
 def _heads():
     from imagekit_tpu_torch.ops import color, dct
     from tests.test_pallas_jpeg8 import _mk
+    from tests.test_torch_jxc_slice import _k8_inputs
     from tests.test_torch_resize import _inputs
+    from tests.test_torch_yuv_heads import BH, BW, OBH, OBW, _yuv_inputs
 
     mk = _mk(2, seed=1)
+    k8 = _k8_inputs(seed=1)
+    flat, yuv_w, yuv_v = _yuv_inputs(seed=1)
+    # block-grouped int16 levels of mk's geometry (16x32 and 8x16 blocks)
+    y2 = np.zeros((3, 16, 128), np.int16)
+    c2 = np.zeros((3, 8, 128), np.int16)
     qt_out = np.ones((3, 128), np.float32)
     imgs, wv, wh, vidx, hidx = _inputs(seed=1)
     y = np.zeros((1, 8, 16 * 64), np.int16)
@@ -224,6 +243,18 @@ def _heads():
             imgs, (wv, wh), vidx, hidx, qt_out, (32, 128), **kw),
         "resample_rgb_yuv_batch": lambda **kw: color.resample_rgb_yuv_batch(
             imgs, (wv, wh), vidx, hidx, (32, 128), **kw),
+        "decode_resize_yuv_i8_batch": lambda **kw:
+            dct.decode_resize_yuv_i8_batch(*k8, **kw),
+        "decode_resize_yuv_batch": lambda **kw: dct.decode_resize_yuv_batch(
+            y, c, c, np.ones((1, 128), np.float32),
+            (w[0], w[1], w[2][:, :8], w[3][:, :16]), np.zeros(1, np.int32),
+            (8, 16, 4, 8), (16, 32), **kw),
+        "decode_resize_yuv_lowfreq_batch": lambda **kw:
+            dct.decode_resize_yuv_lowfreq_batch(y2, c2, c2, *mk[3:], **kw),
+        "resize_yuv420_batch": lambda **kw: dct.resize_yuv420_batch(
+            flat, yuv_w, yuv_v, (BH, BW), (OBH, OBW), **kw),
+        "resize_yuv_jpeg_batch": lambda **kw: dct.resize_yuv_jpeg_batch(
+            flat, yuv_w, qt_out, yuv_v, (BH, BW), (OBH, OBW), **kw),
     }
 
 
