@@ -12,8 +12,11 @@ q80 (K1); an RGB PNG to WebP q80 or JPEG q80 (K2); a JPEG re-encoded as
 JPEG q80 (the jxc transcode on K1, and its escape-dense demotion through
 the RGB head on K3); a JPEG to a 1280 px WebP (the k=8 head on K4);
 escape-dense JPEGs to WebP on the int16 transport (K1's int16 entry at
-k<8, K4 at k=8); and a lossy WebP to WebP or JPEG (K2 on the decoded Y, Cb
-and Cr planes):
+k<8, K4 at k=8); a lossy WebP to WebP or JPEG (K2 on the decoded Y, Cb
+and Cr planes); an RGBA PNG to WebP or JPEG (the plain RGB head on K2's
+four-channel entry); BMP, TIFF and GIF sources; and requests with no
+resize (one image's decode and encode: from a JPEG, the pixel decode on
+K3):
 
 1. environment: the card (``nvidia-smi``), torch and CUDA versions;
 2. build: the kernel library (one nvcc per source, started together), the
@@ -73,9 +76,23 @@ and Cr planes):
     batch). Outputs parsed to their size and format, the last batch of each
     head against the plain head, requests/s, p50/p99, the host stages, and
     the device's idle share from a second, traced round;
-13. HTTP ``/sign`` -> ``/img`` for JPEG, PNG and WebP sources to WebP, a
-    JPEG to a 1280 px WebP, a JPEG to JPEG, and a PNG ``/upload`` through
-    the port's app, where aiohttp is installed.
+13. K2's four-channel entry against its plain version: an interleaved
+    RGBA batch 1088x1920 -> 240x400 at B in {1, 32}, vidx != hidx, stored
+    interleaved; device times, an einsum yardstick, the bound and the H2D
+    of the batch at B=32;
+14. the engine paths of sources with alpha, of BMP, TIFF and GIF sources
+    and of requests with no resize, counts reset before each round: 32
+    RGBA PNGs -> w=400 WebP and -> JPEG (one launch of K2's four-channel
+    entry per batch, the last batch against the plain head); 4 BMPs, 4
+    TIFFs and 4 GIFs -> w=400 WebP (K2, three channels); 16 requests with
+    no resize each from a JPEG (one K3 launch per request: the JPEG pixel
+    decode), a PNG and a WebP, to WebP and to JPEG. Outputs parsed to
+    their size and format, requests/s, p50/p99, the host stages and the
+    device's idle share from a second, traced round;
+15. HTTP ``/sign`` -> ``/img`` for JPEG, PNG and WebP sources to WebP, a
+    JPEG to a 1280 px WebP, a JPEG to JPEG, a JPEG with no sizes, a PNG
+    ``/upload`` and an RGBA PNG ``/upload`` with no sizes through the
+    port's app, where aiohttp is installed.
 
 Device times are the kernels' own, summed by ``torch.profiler`` over 20
 calls (the host's launch cost excluded); the bound is the larger of the
@@ -179,7 +196,8 @@ def dense_image(seed: int, w: int = 1920, h: int = 1080) -> np.ndarray:
 
 
 def make_png(img: np.ndarray) -> bytes:
-    """RGB PNG without Pillow: filter 0 on every row, zlib level 1."""
+    """RGB or RGBA PNG (colour type 2 or 6, by the channel count) without
+    Pillow: filter 0 on every row, zlib level 1."""
     h, w = img.shape[:2]
     raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
 
@@ -187,9 +205,77 @@ def make_png(img: np.ndarray) -> bytes:
         return (struct.pack(">I", len(body)) + tag + body
                 + struct.pack(">I", zlib.crc32(tag + body)))
 
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 6 if img.shape[2] == 4 else 2,
+                       0, 0, 0)
     return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
             + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def with_alpha(img: np.ndarray, seed: int) -> np.ndarray:
+    """``img`` with a seeded alpha channel: a diagonal ramp under two
+    opaque rectangles, as a logo or a screenshot has."""
+    rng = np.random.default_rng(1000 + seed)
+    h, w = img.shape[:2]
+    ramp = (np.add.outer(np.arange(h), np.arange(w)) * 255 // (h + w - 2))
+    alpha = ramp.astype(np.uint8)
+    for _ in range(2):
+        x0, y0 = rng.integers(0, w - 400), rng.integers(0, h - 300)
+        alpha[y0:y0 + 300, x0:x0 + 400] = 255
+    return np.dstack([img, alpha])
+
+
+def make_bmp(img: np.ndarray) -> bytes:
+    """24 bpp bottom-up BI_RGB BMP, written with ``struct``."""
+    h, w = img.shape[:2]
+    pad = (-3 * w) % 4
+    rows = np.zeros((h, 3 * w + pad), np.uint8)
+    rows[:, :3 * w] = img[::-1, :, ::-1].reshape(h, 3 * w)
+    body = rows.tobytes()
+    return (b"BM" + struct.pack("<IHHI", 54 + len(body), 0, 0, 54)
+            + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, len(body), 2835,
+                          2835, 0, 0) + body)
+
+
+def make_tiff(img: np.ndarray) -> bytes:
+    """Uncompressed little-endian RGB TIFF, one strip, written with
+    ``struct``."""
+    h, w = img.shape[:2]
+    body = img.tobytes()
+    bits_off = 8 + len(body)
+    ifd_off = bits_off + 6
+    entries = [(256, 3, 1, w), (257, 3, 1, h), (258, 3, 3, bits_off),
+               (259, 3, 1, 1), (262, 3, 1, 2), (273, 4, 1, 8), (277, 3, 1, 3),
+               (278, 3, 1, h), (279, 4, 1, len(body)), (284, 3, 1, 1)]
+    ifd = struct.pack("<H", len(entries)) + b"".join(
+        struct.pack("<HHII", *e) for e in entries) + struct.pack("<I", 0)
+    return (b"II*\x00" + struct.pack("<I", ifd_off) + body
+            + struct.pack("<HHH", 8, 8, 8) + ifd)
+
+
+def make_gif(img: np.ndarray) -> bytes:
+    """GIF87a without Pillow: a 3-3-2 bit RGB palette and LZW with a clear
+    code before the table can grow (every code stays 9 bits wide, so the
+    stream packs with numpy)."""
+    h, w = img.shape[:2]
+    idx = ((img[..., 0] >> 5) << 5 | (img[..., 1] >> 5) << 2
+           | img[..., 2] >> 6).astype(np.uint16).ravel()
+    pal = np.array([[(i >> 5) * 255 // 7, ((i >> 2) & 7) * 255 // 7,
+                     (i & 3) * 255 // 3] for i in range(256)], np.uint8)
+    run = 250  # data codes between clear codes: 258 + run < 512
+    n = len(idx)
+    groups = -(-n // run)
+    codes = np.full((groups, run + 1), 256, np.uint16)  # 256: clear
+    padded = np.full(groups * run, 257, np.uint16)
+    padded[:n] = idx
+    codes[:, 1:] = padded.reshape(groups, run)
+    codes = np.concatenate([codes.ravel()[: groups + n], [257]])  # 257: end
+    bits = ((codes[:, None] >> np.arange(9)) & 1).astype(np.uint8).ravel()
+    data = np.packbits(bits, bitorder="little").tobytes()
+    blocks = b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                      for i in range(0, len(data), 255))
+    return (b"GIF87a" + struct.pack("<HHBBB", w, h, 0xF7, 0, 0) + pal.tobytes()
+            + b"," + struct.pack("<HHHHB", 0, 0, w, h, 0) + b"\x08" + blocks
+            + b"\x00;")
 
 
 def make_webp(img: np.ndarray, quality: int) -> bytes:
@@ -226,7 +312,7 @@ def native_codecs() -> str:
 
     try:
         return (f"{loader.load()._name} (jpeg_entropy + vp8_encode + vp8_decode "
-                f"+ vp8l_decode + png_decode)")
+                f"+ vp8l_decode + png_decode + misc_decode + tiff_decode)")
     except RuntimeError as e:
         log(f"native loader build failed:\n{str(e)[-4000:]}")
         if "zlib.h" not in str(e):
@@ -334,23 +420,30 @@ def cuda_ms(fn, reps: int = 20) -> float:
 def device_ms(fn, reps: int = 20) -> float:
     """Device time of one call of ``fn``: the kernels it launches, summed
     by ``torch.profiler`` (CUPTI) over ``reps`` calls after a warm-up, so
-    that the host's time to launch them is not counted."""
+    that the host's time to launch them is not counted. CUPTI now and then
+    hands back a trace with no device record in it: the trace is then taken
+    once more, and after a second empty one the calls are timed with CUDA
+    events instead (which count the gaps between a call's kernels too)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    # the device's own activities (kernels, copies, fills); an operator's
-    # device time repeats its kernels' and is not counted again
-    total = sum(e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    if total <= 0:
-        raise RuntimeError("the profiler saw no device time")
-    return total / reps / 1e3
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        # the device's own activities (kernels, copies, fills); an
+        # operator's device time repeats its kernels' and is not counted again
+        total = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / reps / 1e3
+    ms = cuda_ms(fn, reps)
+    log(f"    (the profiler saw no device time in two traces: {ms:.4f} ms is "
+        f"the median of {reps} CUDA-event timings)")
+    return ms
 
 
 def latency(res):
@@ -1024,10 +1117,15 @@ def check_rgb_batch(call) -> tuple:
     from imagekit_tpu_torch.ops import dct
     from imagekit_tpu_torch.ops import resize_planes as rp
 
+    from imagekit_tpu_torch.ops.color import on_device
+
     args, kw, rgb = call
     y, cb, cr, qt, w, vidx, block_dims, _ = args
+    # a single image's call (the JPEG pixel decode) hands the head numpy
+    y, cb, cr, qt, vidx, *w = on_device((y, cb, cr, qt, vidx, *w),
+                                        device="cuda")
     plain = dct.decode_resize_rgb(y, cb, cr, qt, *w, vidx, *block_dims,
-                                  bands=kw["bands"],
+                                  bands=kw.get("bands"),
                                   resize=rp.resize_planes3_plain)
     got = torch.from_numpy(rgb.reshape(rgb.shape[0], -1)).to(plain.device)
     d = (got.to(torch.int32) - plain.to(torch.int32)).abs()
@@ -1409,14 +1507,15 @@ def phase_k2_yuv(webps) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def device_busy_s(prof) -> float:
+def device_busy_s(prof):
     """Seconds in which the card ran at least one kernel or copy: the union
-    of the device activities' intervals of a ``torch.profiler`` trace."""
+    of the device activities' intervals of a ``torch.profiler`` trace. None
+    where the trace holds no device record."""
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
-        raise RuntimeError("the profiler saw no device activity")
+        return None
     busy, (lo, hi) = 0.0, spans[0]
     for a, b in spans[1:]:
         if a > hi:
@@ -1425,6 +1524,21 @@ def device_busy_s(prof) -> float:
         else:
             hi = max(hi, b)
     return (busy + hi - lo) / 1e6
+
+
+def idle_share(run, on_card: bool = True):
+    """(the device's idle share in a round's traced run, its log line).
+    ``on_card``: whether the round's requests use the card at all; a round
+    that does not is idle throughout. A round that does and whose trace
+    holds no device record (CUPTI now and then returns such a trace) has no
+    idle share: the launch counts, not the trace, prove its kernels ran."""
+    busy = run["busy"] if on_card else (run["busy"] or 0.0)
+    if busy is None:
+        return None, ("    device idle share not measured (the traced round's "
+                      "trace holds no device record)")
+    idle = 1.0 - busy / run["traced_wall"]
+    return idle, (f"    device idle share {idle:.1%} (busy {busy:.4f} s of "
+                  f"{run['traced_wall']:.4f} s in a second, traced round)")
 
 
 def check_path_batch(head: str, call) -> tuple:
@@ -1562,7 +1676,7 @@ def phase_new_paths(jpegs, dense, webps, card: str) -> dict:
                                    f"not {size}")
         p50, p99 = latency(run["res"])
         rps = n_req / run["wall"]
-        idle = 1.0 - run["busy"] / run["traced_wall"]
+        idle, idle_line = idle_share(run)
         launched = {k: run[k] for k in ("k1", "k2", "k3", "k4")}
         log(f"  {name}: {n_req} concurrent requests in {run['wall']:.4f} s "
             f"-> {rps:.2f} req/s, p50 {p50:.2f} ms, p99 {p99:.2f} ms, "
@@ -1570,8 +1684,7 @@ def phase_new_paths(jpegs, dense, webps, card: str) -> dict:
         log("    host seconds: " + ", ".join(
             f"{k} {v:.4f} s ({v / n_req * 1e3:.2f} ms/request)"
             for k, v in run["spent"].items() if v > 0))
-        log(f"    device idle share {idle:.1%} (busy {run['busy']:.4f} s of "
-            f"{run['traced_wall']:.4f} s in a second, traced round)")
+        log(idle_line)
         others = [k for k in launched if k != kern and launched[k]]
         if run["batches"] <= 0 or launched[kern] != run["batches"] or others:
             raise RuntimeError(
@@ -1590,11 +1703,253 @@ def phase_new_paths(jpegs, dense, webps, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 13: HTTP
+# phase 13: K2's four-channel entry against its plain version
 # ---------------------------------------------------------------------------
 
 
-def phase_http(jpegs, png_bytes: bytes, webp_bytes: bytes) -> str:
+def phase_k2_rgba(rgba_images) -> dict:
+    """``rgba_images``: synthesized 1920x1080 RGBA images."""
+    from imagekit_tpu_torch.ops import resize, resize_strip
+    from imagekit_tpu_torch.ops.resize_strip import band_table
+
+    result = {"max_abs_err": 0}
+    wv, wh, tabs = k2_stacks((1088, 1920, 240, 400, 4, ""), SLICE_V, SLICE_H)
+    host = np.zeros((32, 1088, 1920 * 4), np.uint8)
+    for i in range(32):
+        host[i, :1080] = rgba_images[i % len(rgba_images)].reshape(1080, -1)
+    flat = torch.from_numpy(host).cuda()
+    for batch in (1, 32):
+        x = flat[:batch]
+        vidx, hidx = k2_index(batch)
+        before = resize_strip.LAUNCHES_RGBA
+        got = resize_strip.rgba_resize(x, wv, wh, vidx, hidx, bands=tabs)
+        torch.cuda.synchronize()
+        if resize_strip.LAUNCHES_RGBA != before + 1:
+            raise RuntimeError("rgba_resize did not launch K2 once")
+        ref = resize_strip.rgba_resize_plain(x, wv, wh, vidx, hidx)
+        mx, share1 = check_band("K2 (four channels)", got, ref)
+        log(f"  K2 (4 channels) vs plain B={batch} -> {tuple(got.shape)} "
+            f"{got.dtype}, interleaved: max|d|={mx} share(|d|=1)={share1:.3e}"
+            f" ({int((got != ref).sum())} of {got.numel()} differ)")
+        result["max_abs_err"] = max(result["max_abs_err"], mx)
+        head = resize.resample_flat(x, wv, wh, vidx, hidx, 4, tabs)
+        if not torch.equal(head, got.reshape(batch, -1)):
+            raise RuntimeError("the plain RGB head is not K2's output")
+    vidx, hidx = k2_index(32)
+    ms = device_ms(lambda: resize_strip.rgba_resize(flat, wv, wh, vidx, hidx,
+                                                    bands=tabs))
+    plain_ms = device_ms(lambda: resize_strip.rgba_resize_plain(
+        flat, wv, wh, vidx, hidx), reps=5)
+    # yardstick: one fp32 einsum per channel over the gathered stacks and
+    # the channel widened to f32 beforehand (untimed), no epilogue
+    wv_g, wh_g = wv[vidx.long()], wh[hidx.long()]
+    full = flat.reshape(32, 1088, 1920, 4)
+    chans = [full[..., c].float() for c in range(4)]
+    library_ms = device_ms(lambda: [torch.einsum("boh,bhw,bpw->bop", wv_g, x_,
+                                               wh_g) for x_ in chans], reps=5)
+    del chans, wv_g, wh_g, full
+    nbytes, flops = resize_bound(flat.numel(), 4 * 32 * 240 * 400, wv,
+                                 tabs.band_v, band_table(wh), vidx, hidx,
+                                 1920)
+    bound_ms, bound_by = bound(nbytes, 4 * flops)
+    # the batch's upload, as the engine's _placement copies it
+    host_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        _ = torch.from_numpy(host).pin_memory().to("cuda", non_blocking=True)
+        torch.cuda.synchronize()
+        host_s.append(time.perf_counter() - t0)
+    pinned = torch.from_numpy(host).pin_memory()
+    dma = cuda_ms(lambda: pinned.to("cuda", non_blocking=True), reps=5)
+    log(f"  timing B=32 1088x1920x4 -> 240x400x4, one launch (device time "
+        f"per call, torch.profiler over 20): K2 {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library (4 fp32 einsums, no epilogue) "
+        f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), K2 at "
+        f"{bound_ms / ms:.1%} of it; H2D of the {host.nbytes / 1e6:.1f} MB "
+        f"batch: pin + copy {statistics.median(host_s) * 1e3:.2f} ms (host "
+        f"clock, median of 3), DMA of pinned memory {dma:.4f} ms")
+    result.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                  bound_ms=bound_ms, bound_by=bound_by, h2d_ms=dma,
+                  pin_h2d_ms=statistics.median(host_s) * 1e3)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 14: sources with alpha, BMP / TIFF / GIF sources, no-resize requests
+# ---------------------------------------------------------------------------
+
+
+def out_dims(out: bytes):
+    """(format, width, height) of an encoded output."""
+    from imagekit_tpu_torch.codecs import vp8
+    from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
+
+    if out[:4] == b"RIFF" and out[8:12] == b"WEBP":
+        return ("webp", *vp8.dimensions(out))
+    hdr = jpeg_abi.parse(loader.load(), out)
+    return ("jpeg", hdr.width, hdr.height)
+
+
+def phase_alpha_and_single(rgba_pngs, others, jpegs, pngs, webps,
+                           card: str) -> dict:
+    """Rounds through one engine, the launch counts set to 0 before each and
+    read after it; each round runs twice, timed and then traced.
+    ``others``: BMP, TIFF and GIF sources of 1920x1080."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from imagekit_tpu_torch.codecs import jpeg
+    from imagekit_tpu_torch.config import BatchConfig, ImageFormat, ImageKitConfig
+    from imagekit_tpu_torch.ops import dct, jpeg8, resize, resize_strip
+    from imagekit_tpu_torch.ops import resize_planes as rp
+    from imagekit_tpu_torch.serving import engine_rgb
+    from imagekit_tpu_torch.serving.batcher import BatchedEngine
+    from imagekit_tpu_torch.serving.metrics import Metrics
+
+    W, J = ImageFormat.webp, ImageFormat.jpeg
+    full = (1920, 1080)
+    # (name, sources, requests, width, format, output size, the kernel it
+    # launches, launches expected: "batch" one a batch, "request" one a
+    # request, None none)
+    rounds = [
+        ("1080p RGBA PNG -> w=400 WebP (plain RGB head)", rgba_pngs, 32, 400,
+         W, (400, 225), "k2_rgba", "batch"),
+        ("1080p RGBA PNG -> w=400 JPEG (plain RGB head)", rgba_pngs, 32, 400,
+         J, (400, 225), "k2_rgba", "batch"),
+        ("1080p BMP, TIFF and GIF -> w=400 WebP (rgbyuv head)", others, 12,
+         400, W, (400, 225), "k2", "batch"),
+    ]
+    for src_name, srcs in (("JPEG", jpegs), ("PNG", pngs), ("WebP", webps)):
+        for fmt in (W, J):
+            rounds.append((
+                f"1080p {src_name} -> {fmt.value}, no resize", srcs, 16, None,
+                fmt, full, "k3" if src_name == "JPEG" else None,
+                "request" if src_name == "JPEG" else None))
+    metrics = Metrics()
+    engine = BatchedEngine(
+        ImageKitConfig(secret=SECRET,
+                       batch=BatchConfig(max_queue_latency_s=0.0)),
+        metrics=metrics, device="cuda")
+    stages = ("decode_png", "decode", "entropy_decode", "device_decode",
+              "batch_build", "device_resize", "device_encode", "encode")
+
+    def counts():
+        return {"k1": jpeg8.LAUNCHES, "k2": resize_strip.LAUNCHES,
+                "k2_rgba": resize_strip.LAUNCHES_RGBA, "k3": rp.LAUNCHES,
+                "k4": rp.LAUNCHES_F32}
+
+    async def one(data, w, fmt):
+        t0 = time.perf_counter()
+        out = await engine.transform(data, w, None, fmt, 80)
+        return out, time.perf_counter() - t0
+
+    async def drive():
+        try:
+            await engine.warmup()
+            runs = []
+            for _, srcs, n_req, w, fmt, *_ in rounds:
+                reqs = [(srcs[i % len(srcs)], w, fmt) for i in range(n_req)]
+                await asyncio.gather(*(one(*r) for r in reqs[:4]))  # warm
+                batches0 = metrics.batches
+                stage0 = {k: metrics.stage_seconds[k] for k in stages}
+                jpeg8.LAUNCHES = resize_strip.LAUNCHES = 0
+                resize_strip.LAUNCHES_RGBA = 0
+                rp.LAUNCHES = rp.LAUNCHES_F32 = 0
+                t0 = time.perf_counter()
+                res = await asyncio.gather(*(one(*r) for r in reqs))
+                wall = time.perf_counter() - t0
+                run = {"res": res, "wall": wall, **counts(),
+                       "batches": metrics.batches - batches0,
+                       "spent": {k: metrics.stage_seconds[k] - stage0[k]
+                                 for k in stages}}
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    await asyncio.gather(*(one(*r) for r in reqs))
+                    torch.cuda.synchronize()
+                    run["traced_wall"] = time.perf_counter() - t0
+                # None for a WebP from a PNG or a WebP with no resize,
+                # which never touches the card
+                run["busy"] = device_busy_s(prof)
+                runs.append(run)
+            return runs
+        finally:
+            await engine.close()
+
+    with Recorder(engine_rgb, "resample_bucketed_flat") as rec_flat, \
+            Recorder(engine_rgb, "resample_rgb_yuv_batch") as rec_yuv, \
+            Recorder(dct, "decode_resize_rgb_batch") as rec_rgb:
+        runs = asyncio.run(drive())
+    summary = {}
+    for (name, _, n_req, _, fmt, size, kern, per), run in zip(rounds, runs):
+        for out, _ in run["res"]:
+            if out_dims(out) != (fmt.value, *size):
+                raise RuntimeError(f"{name}: output is {out_dims(out)}, not "
+                                   f"{fmt.value} {size}")
+        p50, p99 = latency(run["res"])
+        rps = n_req / run["wall"]
+        idle, idle_line = idle_share(run, bool(kern) or any(
+            v > 0 for k, v in run["spent"].items() if k.startswith("device")))
+        launched = {k: run[k] for k in ("k1", "k2", "k2_rgba", "k3", "k4")}
+        log(f"  {name}: {n_req} concurrent requests in {run['wall']:.4f} s "
+            f"-> {rps:.2f} req/s, p50 {p50:.2f} ms, p99 {p99:.2f} ms, "
+            f"{run['batches']} batches, launches {launched} [{card}]")
+        log("    host seconds: " + ", ".join(
+            f"{k} {v:.4f} s ({v / n_req * 1e3:.2f} ms/request)"
+            for k, v in run["spent"].items() if v > 0))
+        log(idle_line)
+        want = {"batch": run["batches"], "request": n_req, None: 0}[per]
+        others_launched = [k for k in launched if k != kern and launched[k]]
+        if (per == "batch" and run["batches"] <= 0) or others_launched or (
+                kern and launched[kern] != want) or (
+                per != "batch" and run["batches"]):
+            raise RuntimeError(
+                f"{name}: {launched} launches and {run['batches']} batches; "
+                f"expected {want} of {kern} and no other")
+        summary[name] = {"launches": launched[kern] if kern else 0,
+                         "batches": run["batches"], "rps": rps,
+                         "p50_ms": p50, "p99_ms": p99, "idle_share": idle}
+
+    # the last RGBA batch against the plain head on the same inputs
+    args, kw, out = rec_flat.calls[-1]
+    x, wv, wh, vidx, hidx, ch = args
+    plain = resize.resample_flat(x, wv, wh, vidx, hidx, ch, kw["bands"],
+                                 resize=resize_strip.rgba_resize_plain)
+    mx, share1 = check_band(
+        "the plain RGB head",
+        torch.from_numpy(out.reshape(out.shape[0], -1)).to(plain.device),
+        plain)
+    log(f"  last RGBA batch (resample_bucketed_flat, {ch} channels) vs plain "
+        f"head: max|d|={mx} share(|d|=1)={share1:.3e}")
+    if not rec_yuv.calls:
+        raise RuntimeError("the BMP / TIFF / GIF round did not reach the "
+                           "rgbyuv head")
+    # the last JPEG pixel decode (K3) against the plain head, and one
+    # no-resize JPEG -> JPEG output against its source
+    mx_rgb, share_rgb = check_rgb_batch(rec_rgb.calls[-1])
+    src_px = jpeg.decode_rgb(jpegs[0], device="cuda")
+    j_round = runs[[r[0] for r in rounds].index(
+        "1080p JPEG -> jpeg, no resize")]
+    out_px = jpeg.decode_rgb(j_round["res"][0][0], device="cuda")
+    err = src_px.astype(np.float64) - out_px.astype(np.float64)
+    psnr = 10 * np.log10(255.0 ** 2 / max(float((err ** 2).mean()), 1e-12))
+    log(f"  last JPEG pixel decode (K3) vs plain head: max|d|={mx_rgb} "
+        f"share(|d|>0)={share_rgb:.3e}; no-resize JPEG -> JPEG q80 against "
+        f"its source: PSNR {psnr:.2f} dB")
+    if src_px.shape != (1080, 1920, 3) or psnr < 30.0:
+        raise RuntimeError("the no-resize JPEG output is not its source")
+    summary["rgba_launches"] = sum(
+        summary[r[0]]["launches"] for r in rounds if r[6] == "k2_rgba")
+    summary["pixel_decode_launches"] = sum(
+        summary[r[0]]["launches"] for r in rounds if r[6] == "k3")
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 15: HTTP
+# ---------------------------------------------------------------------------
+
+
+def phase_http(jpegs, png_bytes: bytes, webp_bytes: bytes,
+               rgba_png: bytes) -> str:
     try:
         import aiohttp
         from aiohttp import web
@@ -1697,10 +2052,34 @@ def phase_http(jpegs, png_bytes: bytes, webp_bytes: bytes) -> str:
                             or r.headers["Content-Type"] != "image/webp"
                             or vp8.dimensions(body) != (400, 225)):
                         raise RuntimeError(f"PNG /upload answered {r.status}")
-            if metrics.cache_hits != 8 or metrics.cache_misses != 8:
+                # no sizes: a JPEG through /img (the pixel decode on K3),
+                # an RGBA PNG through /upload
+                async with s.get(f"{base}/sign",
+                                 params={"url": urls[2]}) as r:
+                    signed = (await r.json())["signed_url"]
+                for attempt in range(2):
+                    async with s.get(base + signed) as r:
+                        body = await r.read()
+                        if (r.status != 200
+                                or r.headers["Content-Type"] != "image/webp"
+                                or vp8.dimensions(body) != (1920, 1080)):
+                            raise RuntimeError(
+                                f"/img with no sizes answered {r.status} "
+                                f"{body[:200]!r}")
+                form = aiohttp.FormData()
+                form.add_field("file", rgba_png, filename="logo.png")
+                async with s.post(base + "/upload", data=form) as r:
+                    body = await r.read()
+                    if (r.status != 200
+                            or r.headers["Content-Type"] != "image/webp"
+                            or vp8.dimensions(body) != (1920, 1080)):
+                        raise RuntimeError(
+                            f"RGBA PNG /upload with no sizes answered "
+                            f"{r.status} {body[:200]!r}")
+            if metrics.cache_hits != 9 or metrics.cache_misses != 9:
                 raise RuntimeError(
                     f"cache hits {metrics.cache_hits}, misses "
-                    f"{metrics.cache_misses}; expected 8 and 8")
+                    f"{metrics.cache_misses}; expected 9 and 9")
         finally:
             await runner.cleanup()
             await src_runner.cleanup()
@@ -1708,7 +2087,9 @@ def phase_http(jpegs, png_bytes: bytes, webp_bytes: bytes) -> str:
                 "w=1280 x (/sign -> /img 200 image/webp of the right size "
                 "with ETag, then a cache HIT); 1 JPEG /sign -> /img f=jpeg "
                 "200 image/jpeg 400x225, then a cache HIT; PNG /upload 200 "
-                "image/webp 400x225")
+                "image/webp 400x225; 1 JPEG /img with no sizes 200 image/webp "
+                "1920x1080, then a cache HIT; RGBA PNG /upload with no sizes "
+                "200 image/webp 1920x1080")
 
     return asyncio.run(run())
 
@@ -1735,7 +2116,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.load()
-    log(f"[2] K1, K2, K3 and K4 built by nvcc in "
+    log(f"[2] K1, K2 (1, 3 and 4 channels), K3 and K4 built by nvcc in "
         f"{time.perf_counter() - t0:.2f} s")
     for line in _build.build_log().splitlines():
         if "registers" in line or "bytes stack" in line or "smem" in line:
@@ -1800,7 +2181,26 @@ def main() -> int:
         "-> WebP / JPEG: BatchedEngine(device='cuda').transform")
     paths = phase_new_paths(jpegs, dense, webps, card)
 
-    log(f"[13] HTTP: {phase_http(jpegs, pngs[0], webps[0])}")
+    t0 = time.perf_counter()
+    rgba_images = [with_alpha(img, i) for i, img in enumerate(images[:8])]
+    rgba_pngs = [make_png(img) for img in rgba_images]
+    others = [make(img) for make in (make_bmp, make_tiff, make_gif)
+              for img in images[:4]]
+    log(f"    made {len(rgba_pngs)} 1920x1080 RGBA PNGs "
+        f"({sum(map(len, rgba_pngs)) / len(rgba_pngs) / 1e6:.2f} MB each), 4 "
+        f"BMPs, 4 uncompressed TIFFs and 4 GIFs in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    log("[13] K2's four-channel entry against its plain PyTorch version on "
+        "the card")
+    k2_rgba = phase_k2_rgba(rgba_images)
+
+    log("[14] sources with alpha, BMP / TIFF / GIF sources and requests with "
+        "no resize: BatchedEngine(device='cuda').transform")
+    alpha = phase_alpha_and_single(rgba_pngs, others, jpegs, pngs, webps,
+                                   card)
+
+    log(f"[15] HTTP: {phase_http(jpegs, pngs[0], webps[0], rgba_pngs[0])}")
     log(f"    total {time.perf_counter() - t_start:.2f} s")
 
     kernels = [{
@@ -1876,7 +2276,19 @@ def main() -> int:
                      + paths["resize_yuv_jpeg_batch"]["launches"]),
         **{key: k2_yuv[key] for key in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by", "library_ms")},
+    }, {
+        "name": "rgba_resize (K2, 4 channels in one launch, interleaved out: "
+                "the plain RGB head of sources with alpha)",
+        "route": "cuda",
+        "source": "imagekit_tpu_torch/csrc/resize_strip.cu",
+        "replaces": "imagekit_tpu/ops/pallas_resize.py:155",
+        "launches": alpha["rgba_launches"],
+        **{key: k2_rgba[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by", "library_ms")},
     }]
+    # K3 also ran once per JPEG request with no resize (the pixel decode)
+    if alpha["pixel_decode_launches"] <= 0:
+        raise RuntimeError("no JPEG pixel decode launched K3")
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:
         raise RuntimeError(f"no engine path launched {idle}")

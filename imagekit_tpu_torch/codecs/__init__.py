@@ -3,17 +3,29 @@
 :class:`SourceFormat` and :func:`guess_format` are copies of
 ``imagekit_tpu/codecs/__init__.py`` (magic-byte detection, the analogue of
 ``image::guess_format`` at ``src/transform.rs:28`` and ``src/fetch.rs:104``).
-The port decodes and encodes through :mod:`.native` (JPEG entropy, VP8
-encode, PNG decode) only; there is no host-library fallback.
+
+:func:`decode_bytes` and :func:`encode_bytes` are the reference's
+dispatchers (``:115-239``) over the port's decoders and encoders, all on
+:mod:`.native` with no Pillow: PNG (:mod:`.png`), WebP lossy, lossless and
+extended (:mod:`.vp8`), GIF and BMP (:mod:`.misc`), TIFF (:mod:`.tiff`),
+Radiance HDR and farbfeld (:mod:`.longtail`), baseline 4:2:0 JPEG pixels
+(:mod:`.jpeg`, whose DCT and colour stages run on the device: the
+reference's serving path decodes JPEG pixels with Pillow); JPEG and WebP
+out. There is no host-library fallback: where the reference falls to
+Pillow (ICO, QOI, PNM and DDS sources, a variant a native decoder does not
+take, AVIF in or out) the port raises
+:class:`~imagekit_tpu_torch.errors.NotPortedError`.
 """
 
 from __future__ import annotations
 
 import enum
-from typing import Optional
+from typing import Optional, Tuple
+
+import numpy as np
 
 from imagekit_tpu_torch.config import ImageFormat
-from imagekit_tpu_torch.errors import TransformError
+from imagekit_tpu_torch.errors import NotPortedError, TransformError
 
 
 class SourceFormat(str, enum.Enum):
@@ -94,3 +106,80 @@ def guess_format(data: bytes) -> SourceFormat:
     if len(data) >= 8 and data[:8] == b"farbfeld":
         return SourceFormat.farbfeld
     raise TransformError("unsupported or undetectable image format")
+
+
+def decode_bytes(data: bytes, device=None) -> Tuple[np.ndarray, SourceFormat]:
+    """Decode to an HWC uint8 array (RGB, or RGBA when the source carries
+    alpha). Raises TransformError on malformed input and NotPortedError for
+    a source the port has no decoder for. ``device`` (the card unless the
+    caller names another) runs the DCT and colour stages of a JPEG."""
+    fmt = guess_format(data)
+    if fmt == SourceFormat.png:
+        from imagekit_tpu_torch.codecs import png
+
+        return png.decode(data), fmt
+    if fmt == SourceFormat.webp:
+        from imagekit_tpu_torch.codecs import vp8
+
+        try:
+            arr = vp8.decode_rgb(data)
+        except ValueError as e:
+            raise TransformError(str(e)) from e
+        if arr is None:
+            raise NotPortedError(
+                "a WebP the native decoders do not take (the host-library "
+                "fallback)", "queue 1 item 9")
+        return arr, fmt
+    if fmt in (SourceFormat.gif, SourceFormat.bmp):
+        from imagekit_tpu_torch.codecs import misc
+
+        return (misc.decode_gif(data) if fmt == SourceFormat.gif
+                else misc.decode_bmp(data)), fmt
+    if fmt == SourceFormat.tiff:
+        from imagekit_tpu_torch.codecs import tiff
+
+        return tiff.decode(data), fmt
+    if fmt in (SourceFormat.hdr, SourceFormat.farbfeld):
+        from imagekit_tpu_torch.codecs import longtail
+
+        return (longtail.decode_hdr(data) if fmt == SourceFormat.hdr
+                else longtail.decode_farbfeld(data)), fmt
+    if fmt == SourceFormat.jpeg:
+        from imagekit_tpu_torch.codecs import jpeg
+
+        return jpeg.decode_rgb(data, device=device), fmt
+    if fmt == SourceFormat.exr:
+        # detected so the error names the format; the reference rejects
+        # EXR too
+        raise TransformError("EXR input is not supported")
+    if fmt == SourceFormat.avif:
+        raise NotPortedError("avif sources", "queue 1 item 8")
+    raise NotPortedError(
+        f"{fmt.value} sources (the host-library decoders)", "queue 1 item 9")
+
+
+def encode_bytes(img: np.ndarray, fmt: ImageFormat, quality: int,
+                 device=None) -> bytes:
+    """Encode an HWC uint8 array (RGB or RGBA; alpha is dropped). Quality
+    is clamped to [1, 100] like every encoder arm of the upstream service
+    (``src/transform.rs:122-139``). JPEG: the fDCT on ``device`` (the card
+    unless named), Huffman on the host. WebP: host colour conversion and
+    the host VP8 encoder."""
+    q = int(min(max(quality, 1), 100))
+    if fmt == ImageFormat.jpeg:
+        from imagekit_tpu_torch.codecs import jpeg
+
+        return jpeg.encode_rgb(_to_rgb(img), q, device=device)
+    if fmt == ImageFormat.webp:
+        from imagekit_tpu_torch.codecs import vp8
+
+        return vp8.encode_rgb(_to_rgb(img), q)
+    raise NotPortedError(f"{fmt.value} output from pixels", "queue 1 item 9")
+
+
+def _to_rgb(img: np.ndarray) -> np.ndarray:
+    if img.ndim == 2:
+        return np.repeat(img[:, :, None], 3, axis=2)
+    if img.shape[2] == 4:
+        return img[:, :, :3]
+    return img

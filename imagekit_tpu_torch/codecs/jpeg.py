@@ -1,0 +1,91 @@
+"""JPEG codec glue of the port: host entropy coding, device DCT and colour.
+
+Counterpart of ``imagekit_tpu/codecs/jpeg.py``: the serial entropy stages
+run on the host in native C++ (Huffman decode of scans into quantised DCT
+coefficient planes, Huffman encode of quantised levels into a baseline
+JPEG), the parallel math on the device
+(:func:`imagekit_tpu_torch.ops.dct.decode_components_to_rgb`, one K3 launch
+on CUDA, and :func:`~imagekit_tpu_torch.ops.dct.encode_rgb_to_coefficients`).
+``device`` is the card unless the caller names another.
+
+The reference's serving path decodes JPEG pixels with Pillow; the port has
+none, so :func:`decode_rgb` is its JPEG pixel decode: baseline 4:2:0 JPEGs
+with shared Cb/Cr tables. Everything else raises
+:class:`~imagekit_tpu_torch.errors.NotPortedError`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from imagekit_tpu_torch.errors import NotPortedError, TransformError
+
+
+def decode_error(e) -> Exception:
+    """Native decoder failure -> the port's error: an unsupported coding
+    (progressive, arithmetic, 12-bit) is a path not ported yet; anything
+    else is a bad source (400, as the reference's decode would give)."""
+    if getattr(e, "code", None) == -3:
+        return NotPortedError(
+            f"a JPEG the native decoder does not take ({e})", "queue 1 item 10"
+        )
+    return TransformError(f"JPEG decode failed: {e}")
+
+
+def decode_to_coefficients(data: bytes):
+    """Host C++: entropy-decode a baseline JPEG into per-component quantised
+    coefficient planes + quant tables + sampling factors."""
+    from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
+
+    try:
+        return loader.decode_jpeg(data)
+    except jpeg_abi.NativeJpegError as e:
+        raise decode_error(e) from e
+
+
+def components_to_rgb(comps, device: Optional[torch.device] = None
+                      ) -> np.ndarray:
+    """The device half of :func:`decode_rgb`: dequant + IDCT + chroma
+    upsample + YCbCr -> RGB of :func:`decode_to_coefficients`' output."""
+    from imagekit_tpu_torch.ops import dct as dct_ops
+
+    try:
+        return dct_ops.decode_components_to_rgb(comps, device=device)
+    except ValueError:
+        raise NotPortedError(
+            "a JPEG that is not 4:2:0 with shared Cb/Cr tables (the JPEG "
+            "pixel decode)", "queue 1 item 10") from None
+
+
+def decode_rgb(data: bytes, device: Optional[torch.device] = None
+               ) -> np.ndarray:
+    """Host entropy decode -> device dequant + IDCT + chroma upsample +
+    YCbCr -> RGB: (H, W, 3) u8."""
+    return components_to_rgb(decode_to_coefficients(data), device=device)
+
+
+def encode_levels(img: np.ndarray, quality: int,
+                  device: Optional[torch.device] = None):
+    """The device half of :func:`encode_rgb`: RGB -> YCbCr + 4:2:0
+    subsample + fDCT + quantise; (coefficient planes, quant tables). An
+    image beyond the encode ladder is a path not ported (the reference
+    hands it to Pillow)."""
+    from imagekit_tpu_torch.ops import dct as dct_ops
+
+    try:
+        return dct_ops.encode_rgb_to_coefficients(img, quality, device=device)
+    except ValueError as e:
+        raise NotPortedError(str(e), "queue 1 item 11") from None
+
+
+def encode_rgb(img: np.ndarray, quality: int,
+               device: Optional[torch.device] = None) -> bytes:
+    """Device colour, subsample and fDCT (:func:`encode_levels`) -> host
+    C++ Huffman bitstream."""
+    from imagekit_tpu_torch.codecs.native import loader
+
+    planes, qtabs = encode_levels(img, quality, device=device)
+    return loader.encode_jpeg(planes, qtabs, img.shape[1], img.shape[0])

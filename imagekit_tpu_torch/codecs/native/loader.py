@@ -2,7 +2,8 @@
 
 The port's copies of the reference's C++ codecs (``jpeg_entropy.cpp``,
 ``vp8_encode.cpp``, ``vp8_decode.cpp``, ``vp8l_decode.cpp``,
-``png_decode.cpp``, beside this file) are compiled at first use:
+``png_decode.cpp``, ``misc_decode.cpp``, ``tiff_decode.cpp``, beside this
+file) are compiled at first use:
 
     g++ -O3 -march=native -shared -fPIC <sources> -o libik_native.so -lz
 
@@ -26,7 +27,8 @@ from typing import Optional
 
 _HERE = Path(__file__).resolve().parent
 _SOURCES = ("jpeg_entropy.cpp", "vp8_encode.cpp", "vp8_decode.cpp",
-            "vp8l_decode.cpp", "png_decode.cpp")
+            "vp8l_decode.cpp", "png_decode.cpp", "misc_decode.cpp",
+            "tiff_decode.cpp")
 _HEADERS = ("vp8_common.h", "vp8_tables.h")
 BUILD_DIR = _HERE.parents[2] / "build" / "imagekit_tpu_torch"
 _LIB = BUILD_DIR / "libik_native.so"
@@ -53,7 +55,7 @@ def _build() -> None:
         cmd = ["g++", "-O3", "-march=native", "-funroll-loops", "-std=c++17",
                "-shared", "-fPIC", "-fvisibility=hidden",
                *[str(_HERE / s) for s in _SOURCES], "-o", str(tmp),
-               "-lz"]  # png_decode.cpp inflates IDAT via zlib
+               "-lz"]  # png_decode.cpp and tiff_decode.cpp inflate via zlib
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True,
                                   timeout=300, cwd=_HERE)

@@ -1,8 +1,9 @@
 """WebP (VP8, VP8L) encode and decode glue of the port.
 
-A copy of ``imagekit_tpu/codecs/vp8.py`` without its ``encode_rgb`` (host
-colour conversion through the reference's jax module). Encode: the device
-heads make studio-range YUV 4:2:0 planes, and the host C++ encoder
+A copy of ``imagekit_tpu/codecs/vp8.py``. Encode: the device heads make
+studio-range YUV 4:2:0 planes (a single image's come from
+:func:`encode_rgb`, by the host colour conversion unless the caller
+prefers the device's), and the host C++ encoder
 (``native/vp8_encode.cpp``: intra prediction, 4x4 fDCT/WHT, quantisation,
 boolean arithmetic coding, RIFF container) turns them into a WebP file.
 Quality maps to the quantiser as libwebp's does (sns_strength=0).
@@ -95,6 +96,24 @@ def encode_yuv420(
     if n < 0:
         raise TransformError(f"VP8 encode failed ({n})")
     return out[:n].tobytes()
+
+
+def encode_rgb(img: np.ndarray, quality: int, *, prefer_device: bool = False,
+               device=None) -> bytes:
+    """RGB (or RGBA: alpha is dropped) -> WebP via the native VP8 encoder.
+
+    Colour conversion runs on the host by default, as the reference's does
+    (a single image's conversion is a few numpy passes, and the batched
+    heads produce YUV planes directly); ``prefer_device`` takes
+    :func:`imagekit_tpu_torch.ops.color.rgb_to_yuv420` on ``device`` (the
+    card unless named) instead."""
+    from imagekit_tpu_torch.ops import color
+
+    if prefer_device:
+        y, u, v = color.rgb_to_yuv420(img, device=device)
+    else:
+        y, u, v = color.rgb_to_yuv420_host(img)
+    return encode_yuv420(y, u, v, quality)
 
 
 def dimensions(data: bytes):

@@ -1,7 +1,7 @@
 // The banded two-pass resize body that K2 (resize_strip.cu) and K3/K4
 // (resize_planes.cu) share: up to three planes of a batch in one launch,
-// each a plane of pixel rows of C elements (C = 1, or 3 for an interleaved
-// RGB batch, every channel read), per image b and channel ch
+// each a plane of pixel rows of C elements (C = 1, 3 for an interleaved RGB
+// batch or 4 for an RGBA one, every channel read), per image b and channel ch
 //
 //   acc[ch] = Wv[vidx[b]] @ f32(x[b][:, :, ch]) @ Wh[hidx[b]]^T
 //
@@ -9,7 +9,10 @@
 // own constants, floor(v + 0.5), clip to [0, 255], u8, or i8 after -128 when
 // centred) or the f32 store. The input and output types are chosen apart:
 // u8 planes can be stored as unrounded f32 with no widened copy of them in
-// device memory.
+// device memory. Pixels of one or three channels leave as planes (channel ch
+// of image b at out + b*osb + ch*osc); pixels of four leave as they came,
+// interleaved (B, OH, OW, 4), one 32-bit store a pixel: the plain RGB head's
+// host encoders take pixels, and its readback is one contiguous copy.
 //
 // What bounds it on an H100: at the flagship bucket (1088x1920 -> 240x400)
 // a row of Wv has about 27 nonzero taps, a row of Wh about 29. Over the band
@@ -55,7 +58,11 @@
 //   a whole 5760-float RGB row of f32 is 23 KB, and two blocks an SM leave
 //   room for 4 of them. Column strips (a tile of some 960 columns plus a
 //   ~32-column halo) would allow 8-16 rows in the same shared memory; they
-//   are the next step for this body, to be measured against it.
+//   are the next step for this body, to be measured against it. An RGBA
+//   row of 1920 pixels is 30 KB of f32: two blocks an SM leave room for 2 of
+//   them (TR 2, 77 KB a block), so each input row is widened for about 16
+//   rows' worth of tiles where RGB's TR 4 widens it for about 10; four rows
+//   need 137 KB, one block an SM (PERF.md, section 6, has both measured).
 // - Pass 2 (horizontal) reads Wh through a compact table: output column p
 //   takes Wh[p][start_p : start_p + T], start_p the band's first
 //   column rounded down to a multiple of 4, T the widest such window
@@ -145,7 +152,8 @@ struct IkPlane {
   void* out;               // out + b*osb + ch*osc + o*OW + p
   long long sb, sh, osb, osc;  // in elements
   int IH, IW, OH, OW, U, U2, T;
-  int C;  // elements per pixel, all read (1, or 3 for an interleaved RGB row)
+  int C;  // elements per pixel, all read (1, 3 for an interleaved RGB row,
+          // 4 for an RGBA row, whose output is interleaved too)
   // the plane's own u8 epilogue: (acc + pre) * scale + post where affine is
   // set (Y and chroma of one launch remap with different constants)
   float scale, pre, post;
@@ -193,13 +201,19 @@ __device__ __forceinline__ void widen(const float4& v, float* f) {
   f[3] = v.w;
 }
 
-__device__ __forceinline__ void store_out(uint8_t* p, float v,
-                                          const IkPlane& P, int centered) {
+// the u8 epilogue: the byte stored for v (two's complement when centred)
+__device__ __forceinline__ uint8_t quant_u8(float v, const IkPlane& P,
+                                            int centered) {
   if (P.affine) v = __fadd_rn(__fmul_rn(__fadd_rn(v, P.pre), P.scale), P.post);
   v = floorf(__fadd_rn(v, 0.5f));
   v = fminf(fmaxf(v, 0.0f), 255.0f);
   const int q = static_cast<int>(v);
-  *p = static_cast<uint8_t>(centered ? q - 128 : q);
+  return static_cast<uint8_t>(centered ? q - 128 : q);
+}
+
+__device__ __forceinline__ void store_out(uint8_t* p, float v,
+                                          const IkPlane& P, int centered) {
+  *p = quant_u8(v, P, centered);
 }
 
 __device__ __forceinline__ void store_out(float* p, float v, const IkPlane&,
@@ -307,7 +321,9 @@ __global__ void __launch_bounds__(band_threads<Tin, NCH>(),
                                   512 / band_threads<Tin, NCH>())
 band_resize_kernel(const __grid_constant__ IkBandLaunch L) {
   static_assert(TR >= 1 && TR <= 8, "TR rows of accumulators");
-  static_assert(NCH == 1 || NCH == 3, "one channel, or the three of RGB");
+  static_assert(NCH == 1 || NCH == 3 || NCH == 4,
+                "one channel, the three of RGB or the four of RGBA");
+  static_assert(NCH != 4 || sizeof(Tout) == 1, "RGBA pixels leave as u8");
   // NCH is every plane's C (band_resize checks it)
   constexpr int kCpt = Vec<Tin>::kCpt;
   IK_DYN_SMEM(float, smem);
@@ -456,12 +472,29 @@ band_resize_kernel(const __grid_constant__ IkBandLaunch L) {
       }
     };
     for (int t = 0; t < P.T; t += 4) step(__ldg(w4 + (size_t)(t / 4) * P.OW), t);
-#pragma unroll
-    for (int ch = 0; ch < NCH; ++ch) {
-      Tout* o = out_b + (size_t)ch * P.osc + p;
+    if constexpr (NCH == 4) {
+      // the pixel's four bytes in one store: out is (B, OH, OW, 4), osb a
+      // multiple of 4 (band_resize checks both)
+      uint32_t* o = reinterpret_cast<uint32_t*>(static_cast<uint8_t*>(P.out) +
+                                                (size_t)b * P.osb) +
+                    (size_t)o0 * P.OW + p;
 #pragma unroll
       for (int r = 0; r < TR; ++r)
-        if (r < nr) store_out(o + (size_t)r * P.OW, acc[ch][r], P, L.centered);
+        if (r < nr) {
+          uint32_t px = 0;
+#pragma unroll
+          for (int ch = 0; ch < NCH; ++ch)
+            px |= (uint32_t)quant_u8(acc[ch][r], P, L.centered) << (8 * ch);
+          o[(size_t)r * P.OW] = px;
+        }
+    } else {
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch) {
+        Tout* o = out_b + (size_t)ch * P.osc + p;
+#pragma unroll
+        for (int r = 0; r < TR; ++r)
+          if (r < nr) store_out(o + (size_t)r * P.OW, acc[ch][r], P, L.centered);
+      }
     }
   }
 }
@@ -505,7 +538,9 @@ int band_resize(const IkPlane* planes, int nplanes, int B, int centered,
     const IkPlane& P = planes[i];
     if (P.IH <= 0 || P.IW <= 0 || P.OH <= 0 || P.OW <= 0 || P.U <= 0 ||
         P.U2 <= 0 || P.T <= 0 || P.T % 4 != 0 || P.T > P.IW ||
-        P.C != nch || (nch != 1 && nch != 3) ||
+        P.C != nch || (nch != 1 && nch != 3 && nch != 4) ||
+        (nch == 4 && (P.osb % 4 != 0 ||
+                      reinterpret_cast<uintptr_t>(P.out) % 4 != 0)) ||
         P.sb < 0 || P.sh < (long long)P.IW * P.C || P.sb % kCpt != 0 ||
         P.sh % kCpt != 0 || P.IW * P.C % kCpt != 0 ||
         reinterpret_cast<uintptr_t>(P.x) % (kCpt * sizeof(Tin)) != 0 ||
@@ -520,7 +555,7 @@ int band_resize(const IkPlane* planes, int nplanes, int B, int centered,
   // the tallest tile that leaves a full SM of threads, else the tallest
   // that fits at all
   const int threads =
-      nch == 3 ? band_threads<Tin, 3>() : band_threads<Tin, 1>();
+      nch == 1 ? band_threads<Tin, 1>() : band_threads<Tin, 3>();
   int tr = 0;
   for (int cand = 8; cand >= 2 && !tr; cand /= 2)
     if (band_smem<Tin>(cand, max_pitch, threads) <=
@@ -537,9 +572,14 @@ int band_resize(const IkPlane* planes, int nplanes, int B, int centered,
   if (blocks > 0x7fffffffLL) return bad;
   const size_t smem = band_smem<Tin>(tr, max_pitch, threads);
   auto s = static_cast<cudaStream_t>(stream);
-  if (nch == 3) {
-    // interleaved RGB rows are u8 in and out only
+  if (nch != 1) {
+    // interleaved RGB and RGBA rows are u8 in and out only
     if constexpr (sizeof(Tin) == 1 && sizeof(Tout) == 1) {
+      if (nch == 4) {
+        if (tr == 8) return band_launch<Tin, Tout, 8, 4>(L, nplanes, B, smem, s);
+        if (tr == 4) return band_launch<Tin, Tout, 4, 4>(L, nplanes, B, smem, s);
+        return band_launch<Tin, Tout, 2, 4>(L, nplanes, B, smem, s);
+      }
       if (tr == 8) return band_launch<Tin, Tout, 8, 3>(L, nplanes, B, smem, s);
       if (tr == 4) return band_launch<Tin, Tout, 4, 3>(L, nplanes, B, smem, s);
       return band_launch<Tin, Tout, 2, 3>(L, nplanes, B, smem, s);

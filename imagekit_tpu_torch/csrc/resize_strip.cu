@@ -1,5 +1,5 @@
 // K2 on Hopper: the strip resize, the three channels of an interleaved RGB
-// batch in one launch (or one plane).
+// batch in one launch, the four of an RGBA batch, or up to three planes.
 //
 // Replaces imagekit_tpu/ops/pallas_resize.py::_make_resize_kernel (the body
 // launched by _plane_resize through pl.pallas_call, once per channel by
@@ -21,7 +21,11 @@
 // (imagekit_tpu/ops/pallas_resize.py::_resize_yuv420_pallas and
 // ::_resize_yuv_jpeg_pallas ran _plane_resize once per plane): the studio to
 // full-range remap of the JPEG output differs between Y and chroma, so its
-// constants ride in each plane's record.
+// constants ride in each plane's record. With four elements a pixel it is
+// the plain RGB head of sources with alpha
+// (imagekit_tpu/ops/resize.py::_resample_flat_kernel, two XLA einsums and a
+// rounding pass in the reference): the (B, H, W*4) batch in, the rounded
+// (B, OH, OW, 4) pixels out, interleaved for the host encoders.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -29,7 +33,8 @@
 #include "resize_band.cuh"
 
 // planes: nplanes (1..3) IkPlane records (resize_band.cuh), u8 in and out,
-// each with its own affine epilogue. Returns a cudaError_t: 0 when the
+// each with its own affine epilogue; C = 1, 3 or 4 elements a pixel, the
+// same in every plane. Returns a cudaError_t: 0 when the
 // launch was accepted.
 extern "C" int ik_resize_strip(const void* planes, int nplanes, int B,
                                int centered, void* stream) {

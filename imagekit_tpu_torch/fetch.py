@@ -5,12 +5,13 @@ a copy of the reference's :class:`Fetcher` (one shared aiohttp session; a
 test substitutes an offline one) and its stages 1-4 as they are: status,
 ``image/*`` content type when parseable, the content-length preflight and
 the streamed byte count. Stage 5 differs: the
-reference decodes a PNG in full to validate it, through a decoder that
-imports Pillow; here every source (PNG, JPEG, WebP) is validated by its
-header only, and the engine decodes it once, on its codec pool (a PNG
-whose data then fails to decode is answered by ``/img`` with this stage's
-body, :class:`~imagekit_tpu_torch.errors.SourceDecodeError`). A source the header check
-cannot place is left to the engine, which answers it with a
+reference decodes a PNG, GIF, BMP or TIFF in full to validate it, through
+decoders that import Pillow; here every such source, like a JPEG or a
+WebP, is validated by its header only (the native ``ik_*_parse`` calls),
+and the engine decodes it once, on its codec pool (a source whose data
+then fails to decode is answered by ``/img`` with this stage's body,
+:class:`~imagekit_tpu_torch.errors.SourceDecodeError`). A source the
+header check cannot place is left to the engine, which answers it with a
 :class:`~imagekit_tpu_torch.errors.NotPortedError` or a decode error.
 """
 
@@ -18,13 +19,29 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-from imagekit_tpu_torch.codecs import SourceFormat, guess_format, png, vp8
+from imagekit_tpu_torch.codecs import (
+    SourceFormat,
+    guess_format,
+    misc,
+    png,
+    tiff,
+    vp8,
+)
 from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
 from imagekit_tpu_torch.errors import (
     InvalidArgumentError,
     NetworkError,
+    NotPortedError,
     TransformError,
 )
+
+# header-only parsers of the sources that have one beside their decoder
+_PARSERS = {
+    SourceFormat.png: png.parse,
+    SourceFormat.gif: misc.parse_gif,
+    SourceFormat.bmp: misc.parse_bmp,
+    SourceFormat.tiff: tiff.parse,
+}
 
 
 class Fetcher:
@@ -115,8 +132,11 @@ async def fetch_source(
 
     try:
         src = guess_format(data)
-        if src == SourceFormat.png:
-            w, h, _ = png.parse(data)
+        if src in _PARSERS:
+            try:
+                w, h, _ = _PARSERS[src](data)
+            except NotPortedError:
+                return data, ct  # the engine answers it
         elif src == SourceFormat.jpeg:
             try:
                 hdr = jpeg_abi.parse(loader.load(), data)

@@ -8,12 +8,19 @@ hand-off point, which both JAX heads share); the studio-range BT.601 mix,
 the 2x2 chroma box and the u8 pack follow as torch ops on the small output
 grid. On CPU tensors the resize is K2's plain version
 (:func:`resize_strip.rgb_resize_plain`).
+
+The single-image conversion of the WebP encode (``color.py:35-69,152-171``)
+sits here too: :func:`rgb_to_yuv420` on the device (torch ops, no kernel:
+the reference has none either) and its numpy mirror
+:func:`rgb_to_yuv420_host`, which :func:`imagekit_tpu_torch.codecs.vp8.
+encode_rgb` takes by default, as the reference's does.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from imagekit_tpu_torch.device import resolve_device
@@ -41,11 +48,59 @@ def q8(p: torch.Tensor) -> torch.Tensor:
 def rgb_yuv_head(imgs, wv, wh, vidx, hidx, bands=None, resize=rgb_resize):
     """(B, H, W*3) u8 -> flat (B, OH*OW + 2*(OH/2*OW/2)) u8, Y then U then
     V, in the reference's float order (``color.py:93-110``)."""
-    r, g, b = rgb_planes(imgs, wv, wh, vidx, hidx, bands, resize)
+    y, u, v = _studio_yuv(*rgb_planes(imgs, wv, wh, vidx, hidx, bands, resize))
+    return torch.cat([q8(y), q8(box2(u)), q8(box2(v))], dim=1)
+
+
+def _studio_yuv(r, g, b):
+    """BT.601 studio-range mix (libwebp's), in the reference's float order;
+    numpy arrays or tensors."""
     y = 0.25678824 * r + 0.50412941 * g + 0.09790588 * b + 16.0
     u = -0.14822290 * r - 0.29099279 * g + 0.43921569 * b + 128.0
     v = 0.43921569 * r - 0.36778831 * g - 0.07142737 * b + 128.0
-    return torch.cat([q8(y), q8(box2(u)), q8(box2(v))], dim=1)
+    return y, u, v
+
+
+def _even_padded(img: np.ndarray) -> np.ndarray:
+    """The RGB channels, edge-padded to even dimensions (libwebp's
+    convention)."""
+    h, w = img.shape[:2]
+    rgb = img[:, :, :3]
+    if (h & 1) or (w & 1):
+        rgb = np.pad(rgb, ((0, h & 1), (0, w & 1), (0, 0)), mode="edge")
+    return rgb
+
+
+def rgb_to_yuv420(img: np.ndarray, device: Optional[torch.device] = None
+                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Single image HWC u8 RGB -> (Y, U, V) u8 planes at 4:2:0 geometry,
+    studio range, converted on ``device`` (the card unless the caller
+    names another). Odd dimensions are edge-padded to even."""
+    device = resolve(device)
+    h, w = img.shape[:2]
+    (x,) = on_device((np.ascontiguousarray(_even_padded(img)),), device)
+    y, u, v = _studio_yuv(*x.float().unbind(-1))
+    ph, pw = y.shape
+    flat = torch.cat([q8(p[None]) for p in (y, box2(u[None]), box2(v[None]))],
+                     dim=1)
+    yq, uq, vq = split_yuv(to_host(flat, device), ph, pw)
+    return yq[0, :h, :w], uq[0], vq[0]
+
+
+def rgb_to_yuv420_host(img: np.ndarray
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Numpy mirror of :func:`rgb_to_yuv420` (same math)."""
+    h, w = img.shape[:2]
+    rgb = _even_padded(img).astype(np.float32)
+    ph, pw = rgb.shape[:2]
+    y, u, v = _studio_yuv(rgb[..., 0], rgb[..., 1], rgb[..., 2])
+
+    def sub(p):
+        q = p.reshape(ph // 2, 2, pw // 2, 2).mean(axis=(1, 3))
+        return np.clip(np.floor(q + 0.5), 0, 255).astype(np.uint8)
+
+    yq = np.clip(np.floor(y + 0.5), 0, 255).astype(np.uint8)
+    return yq[:h, :w], sub(u), sub(v)
 
 
 def on_device(arrays, device):

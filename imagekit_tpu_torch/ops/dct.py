@@ -44,12 +44,21 @@ out: no remap at either end) and :func:`resize_yuv_jpeg_batch`
 ONE K2 launch for the three planes
 (:func:`imagekit_tpu_torch.ops.resize_strip.yuv_resize`), read in place
 from the flat batch the engine uploads.
+
+The single-image entries of the JPEG codec (``codecs/jpeg.py``):
+:func:`encode_rgb_to_coefficients` (``dct.py:1793``, ``_encode_kernel``
+:1758: the JFIF mix, the 4:2:0 box and :func:`_fdct_quant_flat` on one
+image, for requests with no resize and for the plain RGB head's JPEG
+outputs) and :func:`decode_components_to_rgb` (``dct.py:1938``: the JPEG
+pixel decode, :func:`decode_resize_rgb_batch` with identity luma stacks
+and the 2x triangle upsample as chroma stacks, so ONE K3 launch on CUDA).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from imagekit_tpu_torch.ops import jpeg8
@@ -69,7 +78,13 @@ from imagekit_tpu_torch.ops.resize_planes import (
     resize_planes3_f32,
 )
 from imagekit_tpu_torch.ops.resize_strip import rgb_resize, yuv_resize
-from imagekit_tpu_torch.ops.weights import idct_basis
+from imagekit_tpu_torch.ops.weights import (
+    idct_basis,
+    padded_weights,
+    quality_tables,
+    upsample_weights,
+)
+from imagekit_tpu_torch.utils.bucketing import bucket_for
 
 
 def decode_resize_yuv_lowfreq_i8_batch(
@@ -151,7 +166,14 @@ def rgb_jpeg_head(imgs, wv, wh, vidx, hidx, qt_out, bands=None,
                   resize=rgb_resize):
     """(B, H, W*3) u8 -> flat int16 levels, Y then Cb then Cr, in the
     reference's float order (``dct.py:968-993``)."""
-    r, g, b = rgb_planes(imgs, wv, wh, vidx, hidx, bands, resize)
+    return _ycc_levels(*rgb_planes(imgs, wv, wh, vidx, hidx, bands, resize),
+                       qt_out)
+
+
+def _ycc_levels(r, g, b, qt_out) -> torch.Tensor:
+    """(B, h, w) f32 R, G, B on the u8 grid (h, w multiples of 16) -> JFIF
+    BT.601 YCbCr, centred luma, 2x2 box chroma, fDCT + quantise: flat int16
+    levels, Y then Cb then Cr (``dct.py:968-993`` and ``:1763-1790``)."""
     y = 0.299 * r + 0.587 * g + 0.114 * b - 128.0
     cb = box2(-0.168735892 * r - 0.331264108 * g + 0.5 * b)
     cr = box2(0.5 * r - 0.418687589 * g - 0.081312411 * b)
@@ -491,3 +513,85 @@ def resize_yuv_jpeg_batch(flat, weights, qt_out, vidx, in_shape, out_shape,
     out = resize_yuv_jpeg(flat, tuple(on_device(weights[:4], device)),
                           qt_out, vidx, in_shape, tables_on(bands, device))
     return split_yuv(to_host(out, device), obh, obw, block=8)
+
+
+# -- the single-image JPEG codec entries --------------------------------------
+
+
+def encode_rgb_to_coefficients(
+    img: np.ndarray, quality: int, device: Optional[torch.device] = None
+) -> Tuple[List[np.ndarray], Tuple[np.ndarray, np.ndarray]]:
+    """Colour + subsample + fDCT + quantise of one HWC u8 image on
+    ``device`` (the card unless the caller names another): coefficient
+    planes [(byY, bxY, 64), (byC, bxC, 64) x2] int16 and the quant tables,
+    for ``loader.encode_jpeg``.
+
+    The image is edge-padded to the MCU grid. The reference pads on to its
+    bucket, so that one compiled shape serves many sizes, and slices the
+    extra blocks off again; blocks are independent, so the levels of the
+    true grid are the same, and the port has no per-shape compile to
+    bound. A shape beyond the bucket ladder raises the reference's
+    ``ValueError``."""
+    h, w = img.shape[:2]
+    ph = (h + 15) // 16 * 16
+    pw = (w + 15) // 16 * 16
+    qy, qc = quality_tables(quality)
+    try:
+        bucket_for(ph), bucket_for(pw)
+    except ValueError:
+        raise ValueError(
+            f"image {w}x{h} exceeds the native encode ladder") from None
+    device = resolve(device)
+    padded = np.pad(img[:, :, :3], ((0, ph - h), (0, pw - w), (0, 0)),
+                    mode="edge")
+    x, qt = on_device((padded, np.concatenate([qy, qc]).astype(np.float32)),
+                      device)
+    r, g, b = x.float()[None].unbind(-1)
+    flat = to_host(_ycc_levels(r, g, b, qt[None]), device)
+    yq, cbq, crq = split_yuv(flat, ph, pw, block=8)
+    return [yq[0], cbq[0], crq[0]], (qy, qc)
+
+
+def decode_components_to_rgb(decoded, device: Optional[torch.device] = None
+                             ) -> np.ndarray:
+    """The JPEG pixel decode of one image: entropy output -> IDCT, chroma
+    upsample and colour on ``device`` -> (H, W, 3) u8 RGB at full
+    resolution. ``decoded`` is the (header, coeff_planes, qtabs) tuple of
+    ``jpeg_abi.decode``; 4:2:0 with shared chroma tables only, as the
+    reference's. The "resize" is the identity for luma and libjpeg's
+    triangle 2x upsample for chroma."""
+    hdr, coeffs, qtabs = decoded
+    if hdr.ncomp != 3 or tuple(hdr.comp_h) != (2, 1, 1) or tuple(
+        hdr.comp_v
+    ) != (2, 1, 1) or hdr.comp_tq[1] != hdr.comp_tq[2]:
+        raise ValueError("device decode path supports 4:2:0 3-component")
+    # select per-component tables by the actual SOF Tq indices
+    qtabs = np.stack([qtabs[hdr.comp_tq[0]], qtabs[hdr.comp_tq[1]]])
+    by_y, bx_y = coeffs[0].shape[:2]
+    by_c, bx_c = coeffs[1].shape[:2]
+    H, W = hdr.height, hdr.width
+    wv_y = padded_weights(by_y * 8, by_y * 8, by_y * 8, by_y * 8, "nearest")[
+        None
+    ]
+    wh_y = padded_weights(bx_y * 8, bx_y * 8, bx_y * 8, bx_y * 8, "nearest")[
+        None
+    ]
+    wv_c = np.zeros((1, by_y * 8, by_c * 8), np.float32)
+    wv_c[0, : by_y * 8, : by_c * 8] = upsample_weights(by_c * 8, by_y * 8)
+    wh_c = np.zeros((1, bx_y * 8, bx_c * 8), np.float32)
+    wh_c[0, : bx_y * 8, : bx_c * 8] = upsample_weights(bx_c * 8, bx_y * 8)
+    qt = np.concatenate(
+        [qtabs[0].astype(np.float32), qtabs[1].astype(np.float32)]
+    )[None]
+    out = decode_resize_rgb_batch(
+        coeffs[0].reshape(1, by_y, -1),
+        coeffs[1].reshape(1, by_c, -1),
+        coeffs[2].reshape(1, by_c, -1),
+        qt,
+        (wv_y, wh_y, wv_c, wh_c),
+        np.zeros(1, np.int32),
+        (by_y, bx_y, by_c, bx_c),
+        (by_y * 8, bx_y * 8),
+        device=device,
+    )
+    return out[0, :H, :W]

@@ -10,13 +10,19 @@ then the optional affine remap ``(acc + pre) * scale + post``, round half
 up (``floor(v + 0.5)``), clip to [0, 255], and u8 out, or i8 after -128
 when ``centered``. The kernel is ``csrc/resize_strip.cu`` on the body it
 shares with K3 (``csrc/resize_band.cuh``); its plain PyTorch versions,
-:func:`plane_resize_plain` and :func:`rgb_resize_plain`, sit beside it.
+:func:`plane_resize_plain`, :func:`rgb_resize_plain` and
+:func:`rgba_resize_plain`, sit beside it.
 
-Three entries launch it:
+Four entries launch it:
 
 - :func:`rgb_resize`, the RGB heads' main path: the interleaved (B, H,
   W*3) u8 batch -> the three rounded u8 planes (B, 3, OH, OW), one launch
   that reads each pixel row once for the three channels;
+- :func:`rgba_resize`, the plain RGB head's main path
+  (``imagekit_tpu/ops/resize.py::_resample_flat_kernel``, which the
+  reference leaves to XLA's einsums): an interleaved (B, H, W*4) u8 batch
+  of sources with alpha -> (B, OH, OW, 4) u8, rounded, interleaved as it
+  came, one launch and one 32-bit store a pixel;
 - :func:`plane_resize`, one contiguous (B, IH, IW) plane stack with any
   of the three epilogues (a channel of an interleaved batch goes
   through :func:`rgb_resize`, or as a contiguous copy);
@@ -50,10 +56,12 @@ import torch
 
 from imagekit_tpu_torch.ops import _build
 
-#: kernel launches made by :func:`rgb_resize` and :func:`plane_resize`
-#: (read and reset by callers that must show the main path went through
-#: the kernel)
+#: kernel launches made by :func:`rgb_resize`, :func:`plane_resize` and
+#: :func:`yuv_resize` (read and reset by callers that must show the main
+#: path went through the kernel)
 LAUNCHES = 0
+#: kernel launches made by :func:`rgba_resize`, counted apart
+LAUNCHES_RGBA = 0
 _launch_lock = threading.Lock()
 
 #: the yuvjpg head's studio -> full-range remaps, ``(v + pre) * scale +
@@ -241,14 +249,11 @@ def plane_resize(x: torch.Tensor, wv: torch.Tensor, wh: torch.Tensor,
     return out
 
 
-def rgb_resize(imgs: torch.Tensor, wv: torch.Tensor, wh: torch.Tensor,
-               vidx: torch.Tensor, hidx: torch.Tensor, *,
-               bands=None) -> torch.Tensor:
-    """Contiguous (B, H, W*3) u8 interleaved RGB -> (B, 3, OH, OW) u8, the
-    three channels resized and rounded (K2's default epilogue). One K2
-    launch on CUDA reads each pixel row once for the three channels."""
-    if imgs.dim() != 3 or imgs.shape[2] % 3:
-        raise ValueError(f"imgs must be a (B, H, W*3) batch, got "
+def _check_pixels(imgs, C: int, wv, wh, vidx, hidx, bands):
+    """The checks of an interleaved (B, H, W*C) u8 batch and its stacks;
+    returns (tables, iw, oh, ow)."""
+    if imgs.dim() != 3 or imgs.shape[2] % C:
+        raise ValueError(f"imgs must be a (B, H, W*{C}) batch, got "
                          f"{tuple(imgs.shape)}")
     if not imgs.is_contiguous():
         raise ValueError("imgs must be contiguous")
@@ -257,20 +262,60 @@ def rgb_resize(imgs: torch.Tensor, wv: torch.Tensor, wh: torch.Tensor,
         raise TypeError(f"imgs must be uint8, got {imgs.dtype}")
     B, H, WC = imgs.shape
     tabs = tables(wv, wh, bands)
-    _, ih, iw, U, oh, U2, ow = check_args(imgs.device, (B, H, WC // 3), wv,
-                                          wh, vidx, hidx, tabs)
-    if imgs.device.type == "cpu":
-        return rgb_resize_plain(imgs, wv, wh, vidx, hidx)
+    _, _, iw, _, oh, _, ow = check_args(imgs.device, (B, H, WC // C), wv, wh,
+                                        vidx, hidx, tabs)
+    return tabs, iw, oh, ow
+
+
+def _launch_pixels(imgs, C: int, wv, tabs, vidx, hidx, out, iw: int) -> None:
+    """One K2 launch on the pixel rows of ``imgs``: channel ch of image b
+    to ``out[b, ch]`` for C = 3, pixels to ``out[b]`` as they came for
+    C = 4."""
+    B, H, WC = imgs.shape
     check_rows(imgs.data_ptr(), H * WC, WC, WC, 4 * tabs.taps_h.shape[1], iw,
                8, 1)
     lib = _build.load()
-    out = torch.empty((B, 3, oh, ow), device=imgs.device, dtype=torch.uint8)
-    rec = plane_record(imgs.data_ptr(), H * WC, WC, 3, wv, tabs, vidx, hidx,
-                       out, 3 * oh * ow, oh * ow, ih, iw)
+    rec = plane_record(imgs.data_ptr(), H * WC, WC, C, wv, tabs, vidx, hidx,
+                       out, out.stride(0), out.stride(1) if C == 3 else 1,
+                       H, iw)
     with torch.cuda.device(imgs.device):
         _build.launch_band(lib.ik_resize_strip, [rec], B, 0,
                            _stream(imgs.device))
+
+
+def rgb_resize(imgs: torch.Tensor, wv: torch.Tensor, wh: torch.Tensor,
+               vidx: torch.Tensor, hidx: torch.Tensor, *,
+               bands=None) -> torch.Tensor:
+    """Contiguous (B, H, W*3) u8 interleaved RGB -> (B, 3, OH, OW) u8, the
+    three channels resized and rounded (K2's default epilogue). One K2
+    launch on CUDA reads each pixel row once for the three channels."""
+    tabs, iw, oh, ow = _check_pixels(imgs, 3, wv, wh, vidx, hidx, bands)
+    if imgs.device.type == "cpu":
+        return rgb_resize_plain(imgs, wv, wh, vidx, hidx)
+    out = torch.empty((imgs.shape[0], 3, oh, ow), device=imgs.device,
+                      dtype=torch.uint8)
+    _launch_pixels(imgs, 3, wv, tabs, vidx, hidx, out, iw)
     _count()
+    return out
+
+
+def rgba_resize(imgs: torch.Tensor, wv: torch.Tensor, wh: torch.Tensor,
+                vidx: torch.Tensor, hidx: torch.Tensor, *,
+                bands=None) -> torch.Tensor:
+    """Contiguous (B, H, W*4) u8 interleaved RGBA -> (B, OH, OW, 4) u8,
+    the four channels resized and rounded (K2's default epilogue), pixels
+    interleaved as they came. One K2 launch on CUDA reads each pixel row
+    once for the four channels and stores each output pixel as one 32-bit
+    word."""
+    global LAUNCHES_RGBA
+    tabs, iw, oh, ow = _check_pixels(imgs, 4, wv, wh, vidx, hidx, bands)
+    if imgs.device.type == "cpu":
+        return rgba_resize_plain(imgs, wv, wh, vidx, hidx)
+    out = torch.empty((imgs.shape[0], oh, ow, 4), device=imgs.device,
+                      dtype=torch.uint8)
+    _launch_pixels(imgs, 4, wv, tabs, vidx, hidx, out, iw)
+    with _launch_lock:
+        LAUNCHES_RGBA += 1
     return out
 
 
@@ -353,6 +398,16 @@ def rgb_resize_plain(imgs, wv, wh, vidx, hidx, bands=None) -> torch.Tensor:
     return torch.stack([plane_resize_plain(x[..., c], wv, wh, vidx, hidx,
                                            bands=bands) for c in range(3)],
                        dim=1)
+
+
+def rgba_resize_plain(imgs, wv, wh, vidx, hidx, bands=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`rgba_resize`: K2's plain version on
+    each of the four channels, interleaved to (B, OH, OW, 4)."""
+    B, H, WC = imgs.shape
+    x = imgs.reshape(B, H, WC // 4, 4)
+    return torch.stack([plane_resize_plain(x[..., c], wv, wh, vidx, hidx,
+                                           bands=bands) for c in range(4)],
+                       dim=-1)
 
 
 def yuv_resize_plain(planes, stacks, vidx, *, jpeg: bool = False, bands=None):

@@ -44,7 +44,8 @@ class _YuvItem:
 
 
 #: queue key of the RGB-source heads: (bh, bw, obh, obw, channels, okind),
-#: okind "yuv" (WebP output) or "jpg" (JPEG output)
+#: okind "yuv" (WebP output) or "jpg" (JPEG output) for 3 channels, "" (the
+#: plain head, any output) for 4
 _BucketKey = Tuple[int, int, int, int, int, str]
 
 

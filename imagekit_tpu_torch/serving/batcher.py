@@ -8,9 +8,11 @@ the host codec stages run on a thread pool. Admission control, the
 split-by-geometry rule and the depth-aware soft flush are the reference's.
 Three heads are served: JPEG sources on their coefficients
 (:mod:`.engine_jpeg`, ``_jqueues``), lossy WebP sources on their decoded
-YUV planes (:mod:`.engine_yuv`, ``_yqueues``), and sources decoded to 3
-channels of pixels, PNGs and the other WebPs (:mod:`.engine_rgb`,
-``_queues``).
+YUV planes (:mod:`.engine_yuv`, ``_yqueues``), and sources decoded to
+pixels (:mod:`.engine_rgb`, ``_queues``): PNGs, the other WebPs, GIF, BMP,
+TIFF, HDR and farbfeld, with 3 channels on the fused heads and with 4 on
+the plain RGB head. A request with no resize decodes and encodes one image
+(:mod:`imagekit_tpu_torch.transform`) without a batch.
 
 What differs is device placement. The engine holds an explicit
 ``torch.device``: ``"cuda"`` (the default, which raises without a card) or
@@ -18,8 +20,16 @@ What differs is device placement. The engine holds an explicit
 of the two dispatch threads owns a CUDA stream; a batch's arrays go through
 pinned host memory with a non-blocking copy on that stream, its kernels
 launch on it, and the stream is synchronised before the planes are read
-back. There is no mesh, no compile set and no cold-shape host fallback:
-a hand-written kernel has no per-shape compile.
+back. A single image's device steps (the JPEG pixel decode, the colour
+mix and fDCT of a JPEG encode) go to the same two dispatch threads, not to
+the codec-pool thread that holds the image as in the reference: each is
+some hundred small device operations issued from Python, and issued from
+many threads at once they slow each other down (32 thumbnail fDCTs take
+0.15 s from one thread and 0.85 s from sixteen on an H100,
+``tools/single_image_probe.py``). Their host halves, the entropy decode
+and the Huffman encode, stay on the codec pool. There is no mesh, no
+compile set and no cold-shape host fallback: a hand-written kernel has no
+per-shape compile.
 """
 
 from __future__ import annotations
@@ -36,7 +46,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from imagekit_tpu_torch.codecs import SourceFormat, guess_format, png
+from imagekit_tpu_torch.codecs import (
+    SourceFormat,
+    decode_bytes,
+    guess_format,
+    jpeg,
+)
+from imagekit_tpu_torch.codecs.native import loader
 from imagekit_tpu_torch.config import ImageFormat, ImageKitConfig
 from imagekit_tpu_torch.device import resolve_device
 from imagekit_tpu_torch.errors import (
@@ -46,6 +62,7 @@ from imagekit_tpu_torch.errors import (
     TransformError,
 )
 from imagekit_tpu_torch.ops.weights import target_dimensions
+from imagekit_tpu_torch.transform import encode_image
 from imagekit_tpu_torch.serving.batch_types import (
     _BucketKey,
     _Item,
@@ -134,40 +151,32 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
     # -- decode ------------------------------------------------------------
 
     async def decode(self, data: bytes) -> np.ndarray:
-        """PNG and WebP sources decode to pixels on the codec pool, without
-        Pillow. The port decodes no other source to pixels yet; a JPEG's
-        header is still checked, so that a caller can tell a bad source
-        (TransformError) from a path not ported (NotPortedError)."""
+        """Every source the port has a decoder for -> pixels, on the codec
+        pool, without Pillow (:func:`imagekit_tpu_torch.codecs.
+        decode_bytes`). A JPEG is entropy-decoded there, and its IDCT,
+        chroma upsample and colour stages run on the engine's device (one
+        K3 launch on CUDA) from a dispatch thread. A source that the
+        reference decodes in full at its fetch stage (everything but JPEG,
+        WebP and AVIF) and whose data does not decode raises
+        :class:`SourceDecodeError`."""
         src = guess_format(data)  # TransformError on undetectable bytes
-        if src == SourceFormat.png:
-            try:
-                return await self._pool_run("decode_png", png.decode, data)
-            except TransformError as e:
-                raise SourceDecodeError(e.message) from e
-        if src == SourceFormat.webp:
-            from imagekit_tpu_torch.codecs import vp8 as vp8_native
-
-            def webp_decode():
-                try:
-                    return vp8_native.decode_rgb(data)
-                except ValueError as e:
-                    raise TransformError(str(e)) from e
-
-            img = await self._pool_run("decode", webp_decode)
-            if img is None:
-                raise NotPortedError(
-                    "a WebP the native decoders do not take (the "
-                    "host-library fallback)", "queue 1 item 9")
-            return img
         if src == SourceFormat.jpeg:
-            from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
+            comps = await self._pool_run(
+                "entropy_decode", jpeg.decode_to_coefficients, data)
+            return await self._device_run(
+                "device_decode", jpeg.components_to_rgb, comps)
+        at_fetch = src not in (SourceFormat.webp, SourceFormat.avif)
 
+        def run():
             try:
-                jpeg_abi.parse(loader.load(), data)
-            except jpeg_abi.NativeJpegError as e:
-                raise TransformError(f"JPEG decode failed: {e}") from e
-            raise NotPortedError("JPEG pixel decode", "queue 1 item 10")
-        raise _source_not_ported(src)
+                return decode_bytes(data)[0]
+            except TransformError as e:
+                if at_fetch:
+                    raise SourceDecodeError(e.message) from e
+                raise
+
+        return await self._pool_run(
+            "decode_png" if src == SourceFormat.png else "decode", run)
 
     # -- admission control (engine-level load shedding) --------------------
 
@@ -222,6 +231,25 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
 
         return await loop.run_in_executor(self._codec_pool, timed)
 
+    async def _device_run(self, stage: str, fn, *args):
+        """Run a single image's device step, ``fn(*args, device=...)``, on
+        a dispatch thread and its stream; ``stage_seconds`` gets the time
+        inside the call."""
+        def timed():
+            t0 = time.perf_counter()
+            try:
+                with self._placement():
+                    return fn(*args, device=self.device)
+            finally:
+                self.metrics.add_stage_time(stage, time.perf_counter() - t0)
+
+        self._inflight += 1
+        try:
+            return await asyncio.get_running_loop().run_in_executor(
+                self._device_pool, timed)
+        finally:
+            self._inflight -= 1
+
     # -- entry points ------------------------------------------------------
 
     async def resize_encode(
@@ -243,16 +271,23 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
         fmt: ImageFormat,
         quality: int,
     ) -> bytes:
-        """Queue decoded pixels for the RGB head. Only the two fused
-        output kinds of 3-channel sources are ported: WebP (``"yuv"``) and
-        JPEG (``"jpg"``)."""
+        """Queue decoded pixels for the RGB head: the fused output kinds of
+        3-channel sources, WebP (``"yuv"``) and JPEG (``"jpg"``), or the
+        plain head (``""``) for sources with alpha, whose resized pixels go
+        through :func:`~imagekit_tpu_torch.transform.encode_image`. With no
+        resize the pixels go straight to that encode."""
         loop = asyncio.get_running_loop()
         self._ensure_flusher(loop)
         if img.ndim == 2:
             img = np.repeat(img[:, :, None], 3, axis=2)
         ih, iw, ch = img.shape
+        if fmt not in (ImageFormat.webp, ImageFormat.jpeg):
+            raise NotPortedError(
+                f"{fmt.value} output from an RGB source", "queue 1 item 9"
+            )
         if w is None and h is None:
-            raise NotPortedError("a request with no resize", "queue 1 item 10")
+            # no-op resize (src/transform.rs:67-69): straight to encode
+            return await self._encode(img, fmt, quality)
         out_w, out_h = target_dimensions(iw, ih, w, h)
         try:
             bh, bw = bucket_for(ih), bucket_for(iw)
@@ -267,14 +302,8 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
             okind = "yuv"
         elif ch == 3 and fmt == ImageFormat.jpeg:
             okind = "jpg"
-        elif ch != 3:
-            raise NotPortedError(
-                f"a {ch}-channel source (the plain rgb head)", "queue 1 item 9"
-            )
         else:
-            raise NotPortedError(
-                f"{fmt.value} output from an RGB source", "queue 1 item 9"
-            )
+            okind = ""  # 4 channels stay on the plain RGB head
         fut: asyncio.Future = loop.create_future()
         item = _Item(img, out_h, out_w, fmt, quality, fut)
         key = (bh, bw, obh, obw, ch, okind)
@@ -306,13 +335,10 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
         quality: int,
     ) -> bytes:
         src = guess_format(data)  # TransformError on undetectable bytes
-        if src == SourceFormat.jpeg:
-            if w is None and h is None:
-                raise NotPortedError("a request with no resize", "queue 1 item 10")
+        resize = w is not None or h is not None
+        if src == SourceFormat.jpeg and resize:
             return await self._transform_jpeg_native(data, w, h, fmt, quality)
-        if src == SourceFormat.webp:
-            if w is None and h is None:
-                raise NotPortedError("a request with no resize", "queue 1 item 10")
+        if src == SourceFormat.webp and resize:
             # the native VP8 decode feeds the YUV-domain batch: resize-only
             # for WebP output, resize + remap + fDCT for JPEG output; a
             # lossless or extended container decodes to pixels instead
@@ -322,8 +348,6 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
                 )
             except _NativeUnsupported:
                 pass
-        elif src != SourceFormat.png:
-            raise _source_not_ported(src)
         img = await self.decode(data)
         return await self._resize_encode(img, w, h, fmt, quality)
 
@@ -420,6 +444,20 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
         except asyncio.CancelledError:
             pass
 
+    async def _encode(self, img: np.ndarray, fmt: ImageFormat, q: int) -> bytes:
+        """One image's encode (:func:`~imagekit_tpu_torch.transform.
+        encode_image`, in its two halves for a JPEG): the colour mix and
+        fDCT on the engine's device from a dispatch thread, the Huffman or
+        VP8 coding on the codec pool."""
+        img = np.ascontiguousarray(img)
+        if fmt != ImageFormat.jpeg:  # a WebP has no device step
+            return await self._pool_run("encode", encode_image, img, fmt, q,
+                                        self.device)
+        planes, qtabs = await self._device_run(
+            "device_encode", jpeg.encode_levels, img, q)
+        return await self._pool_run("encode", loader.encode_jpeg, planes,
+                                    qtabs, img.shape[1], img.shape[0])
+
     async def warmup(self) -> None:
         """Build the CUDA kernels before the first request needs them (a
         hand-written kernel has no per-shape compile to warm)."""
@@ -437,8 +475,3 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
         self._codec_pool.shutdown(wait=False, cancel_futures=True)
         self._device_pool.shutdown(wait=False, cancel_futures=True)
 
-
-def _source_not_ported(src: SourceFormat) -> NotPortedError:
-    if src == SourceFormat.avif:
-        return NotPortedError(f"{src.value} sources", "queue 1 item 8")
-    return NotPortedError(f"{src.value} sources", "queue 1 item 9")

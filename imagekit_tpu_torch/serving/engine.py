@@ -2,8 +2,10 @@
 ``imagekit_tpu/serving/engine.py:28-58``).
 
 The port has one implementation, :class:`~imagekit_tpu_torch.serving.
-batcher.BatchedEngine`. The reference's ``ThreadedEngine`` runs the
-single-image RGB head and comes with that slice (ROADMAP item 10).
+batcher.BatchedEngine`, which also serves single images (requests with no
+resize) through :mod:`imagekit_tpu_torch.transform`; the reference's
+``ThreadedEngine``, a per-request engine over the same functions, has no
+counterpart.
 """
 
 from __future__ import annotations

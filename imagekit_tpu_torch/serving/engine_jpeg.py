@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from imagekit_tpu_torch.config import ImageFormat
-from imagekit_tpu_torch.errors import NotPortedError, TransformError
+from imagekit_tpu_torch.errors import NotPortedError
 from imagekit_tpu_torch.ops.dct import (
     decode_resize_rgb_batch,
     decode_resize_yuv_batch,
@@ -59,6 +59,7 @@ from imagekit_tpu_torch.ops.weights import (
     quality_tables,
     target_dimensions,
 )
+from imagekit_tpu_torch.codecs.jpeg import decode_error as _decode_error
 from imagekit_tpu_torch.serving import jpeg_transport as _jt
 from imagekit_tpu_torch.serving.batch_types import _cached_weights, _settle
 from imagekit_tpu_torch.serving.jpeg_transport import (
@@ -439,13 +440,3 @@ class JpegPathMixin:
             "encode", vp8_native.encode_yuv420, y, cb, cr, q
         )
 
-
-def _decode_error(e) -> Exception:
-    """Native decoder failure -> the port's error: an unsupported coding
-    (progressive, arithmetic, 12-bit) is a path not ported yet; anything
-    else is a bad source (400, as the reference's decode would give)."""
-    if getattr(e, "code", None) == -3:
-        return NotPortedError(
-            f"a JPEG the native decoder does not take ({e})", "queue 1 item 10"
-        )
-    return TransformError(f"JPEG decode failed: {e}")

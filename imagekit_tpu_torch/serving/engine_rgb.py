@@ -1,15 +1,20 @@
 """RGB-source head: decoded pixels -> K2 on the card -> WebP or JPEG.
 
-Counterpart of ``imagekit_tpu/serving/engine_rgb.py:23-229`` for the two
-fused output kinds of 3-channel sources: ``"yuv"`` (resample + studio YUV
+Counterpart of ``imagekit_tpu/serving/engine_rgb.py:23-229``: the two
+fused output kinds of 3-channel sources, ``"yuv"`` (resample + studio YUV
 4:2:0, WebP output) and ``"jpg"`` (resample + YCbCr + fDCT/quantise, JPEG
-output). A batch is the reference's flat (B, H, W*3) u8 layout; the
-weight stacks are keyed per axis (``v_keys`` / ``h_keys``), edge-replicated
-past the true output and kept on the device with their band and compact
-tables; one call of :func:`imagekit_tpu_torch.ops.color.resample_rgb_yuv_batch`
-or :func:`imagekit_tpu_torch.ops.dct.resample_rgb_jpeg_batch` (one K2
-launch on CUDA) produces what the host VP8 or JPEG encoder takes. There
-is no compile set and no cold-shape host fallback.
+output), and the plain kind ``""`` of sources with alpha (resample only;
+each resized image is cropped and encoded through
+:func:`imagekit_tpu_torch.transform.encode_image`, which drops the alpha).
+A batch is the reference's flat (B, H, W*C) u8 layout; the weight stacks
+are keyed per axis (``v_keys`` / ``h_keys``), edge-replicated past the true
+output for the fused kinds, and kept on the device with their band and
+compact tables; one call of
+:func:`imagekit_tpu_torch.ops.color.resample_rgb_yuv_batch`,
+:func:`imagekit_tpu_torch.ops.dct.resample_rgb_jpeg_batch` or
+:func:`imagekit_tpu_torch.ops.resize.resample_bucketed_flat` (one K2
+launch on CUDA) produces what the host encoders take. There is no compile
+set and no cold-shape host fallback.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 
 from imagekit_tpu_torch.ops.color import resample_rgb_yuv_batch
 from imagekit_tpu_torch.ops.dct import resample_rgb_jpeg_batch
+from imagekit_tpu_torch.ops.resize import resample_bucketed_flat
 from imagekit_tpu_torch.ops.resize_strip import ResizeTables, resize_tables
 from imagekit_tpu_torch.ops.weights import quality_tables
 from imagekit_tpu_torch.serving.batch_types import (
@@ -47,6 +53,7 @@ class RgbPathMixin:
         loop = asyncio.get_running_loop()
         bh, bw, obh, obw, ch, okind = key
         wy = okind == "yuv"
+        jq = okind == "jpg"
         try:
             t0 = time.perf_counter()
             nb = batch_bucket(len(items), self.max_batch)
@@ -64,13 +71,13 @@ class RgbPathMixin:
             }
             vidx = np.zeros(nb, np.int32)
             hidx = np.zeros(nb, np.int32)
-            qto = None if wy else np.zeros((nb, 128), np.float32)
+            qto = np.zeros((nb, 128), np.float32) if jq else None
             for i, it in enumerate(items):
                 h_i, w_i = it.img.shape[:2]
                 batch[i, :h_i, : w_i * ch] = it.img.reshape(h_i, w_i * ch)
                 vidx[i] = v_keys[(h_i, it.out_h)]
                 hidx[i] = h_keys[(w_i, it.out_w)]
-                if not wy:
+                if jq:
                     qto[i, :64], qto[i, 64:] = quality_tables(it.quality)
             wv, wh, tabs = self._rgb_weights(key, v_keys, h_keys)
             t1 = time.perf_counter()
@@ -82,10 +89,17 @@ class RgbPathMixin:
                             put(batch), (wv, wh), put(vidx), put(hidx),
                             (obh, obw), bands=tabs, device=self.device,
                         )
-                    return resample_rgb_jpeg_batch(
-                        put(batch), (wv, wh), put(vidx), put(hidx), put(qto),
-                        (obh, obw), bands=tabs, device=self.device,
+                    if jq:
+                        return resample_rgb_jpeg_batch(
+                            put(batch), (wv, wh), put(vidx), put(hidx),
+                            put(qto), (obh, obw), bands=tabs,
+                            device=self.device,
+                        )
+                    flat = resample_bucketed_flat(
+                        put(batch), wv, wh, put(vidx), put(hidx), ch,
+                        bands=tabs, device=self.device,
                     )
+                    return flat.reshape(nb, obh, obw, ch)
 
             self._inflight += 1
             try:
@@ -96,7 +110,8 @@ class RgbPathMixin:
             self.metrics.add_stage_time("batch_build", t1 - t0)
             self.metrics.add_stage_time("device_resize", t2 - t1)
             self.metrics.record_batch(len(items))
-            finish = self._finish_yuv if wy else self._finish_jpg
+            finish = (self._finish_yuv if wy else self._finish_jpg if jq
+                      else self._finish_pixels)
             await asyncio.gather(
                 *(finish(out, i, it) for i, it in enumerate(items)))
         except Exception as e:  # noqa: BLE001 - every waiter gets the error
@@ -129,13 +144,18 @@ class RgbPathMixin:
 
         await _settle(it, self._pool_run("encode", run))
 
+    async def _finish_pixels(self, out, i: int, it: _Item) -> None:
+        await _settle(it, self._encode(
+            out[i, : it.out_h, : it.out_w], it.fmt, it.quality))
+
     def _rgb_weights(self, key: _BucketKey, v_keys, h_keys):
         """The (U, obh, bh) / (U, obw, bw) stacks and their
         :class:`ResizeTables` (band tables and K2's compact ``Wh``) for
         this set of geometries, kept on the engine's device across
         batches. Rows past the true output replicate the last true row
         (the staged paths' ``np.pad(mode="edge")``): to even for the 2x2
-        chroma box of WebP, to the MCU grid for JPEG."""
+        chroma box of WebP, to the MCU grid for JPEG; the plain kind crops
+        at the true output and replicates nothing."""
         bh, bw, obh, obw, _ch, okind = key
         wkey = (key, tuple(sorted(v_keys)), tuple(sorted(h_keys)))
         cached = self._dweights.get(wkey)
@@ -144,9 +164,12 @@ class RgbPathMixin:
         if okind == "yuv":
             def rep_to(to):
                 return to + (to & 1)
-        else:
+        elif okind == "jpg":
             def rep_to(to):
                 return (to + 15) // 16 * 16
+        else:
+            def rep_to(to):
+                return to
         wv = np.zeros((self.MAX_UNIQUE, obh, bh), dtype=np.float32)
         wh = np.zeros((self.MAX_UNIQUE, obw, bw), dtype=np.float32)
         for (ti, to), u in v_keys.items():

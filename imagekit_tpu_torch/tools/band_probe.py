@@ -3,8 +3,9 @@
 Builds variants of ``csrc/resize_band.cuh``, each with one part of the
 kernel taken out or one choice changed, next to the committed body, and
 times K2's three channels of the flagship RGB batch (B=32, 1088x1920 ->
-240x400) and K3's three planes of the demoted head (Y 1088x1920, Cb and Cr
-544x960, all -> 240x400) through the port's own wrappers on each. A
+240x400), its four channels of the same batch as RGBA, and K3's three
+planes of the demoted head (Y 1088x1920, Cb and Cr 544x960, all ->
+240x400) through the port's own wrappers on each. A
 variant's outputs are wrong by design; only its time is read. The time a
 part costs is the committed body's time less the variant's, so what bounds
 the kernel shows without ``ncu``.
@@ -52,6 +53,11 @@ VARIANTS = {
         "8-row tiles at one block an SM (RGB rows; planes keep their TR)",
         [("return (threads == 256 ? 110 : 54) * 1024;",
           "return (threads == 256 ? 225 : 54) * 1024;")]),
+    "tr4_one_block_rgba": (
+        "4-row tiles at one block an SM for RGBA rows (137 KB; RGB rows "
+        "keep TR 4 at two blocks, planes their TR)",
+        [("return (threads == 256 ? 110 : 54) * 1024;",
+          "return (threads == 256 ? 140 : 54) * 1024;")]),
 }
 
 K2_V = ((1080, 225), (1072, 223), (1064, 222), (1056, 220))
@@ -136,9 +142,10 @@ def _stack(slots, bi, bo, weights, dev):
     return torch.from_numpy(w).to(dev)
 
 
-def k2_case(dev="cuda"):
-    """The flagship RGB batch and its stacks (edge rows replicated, as the
-    engine builds them); returns a call of ``rgb_resize``."""
+def k2_case(dev="cuda", channels: int = 3):
+    """The flagship RGB batch (or, with 4 ``channels``, the same batch as
+    RGBA) and its stacks (edge rows replicated, as the engine builds
+    them); returns a call of ``rgb_resize`` (``rgba_resize``)."""
     from imagekit_tpu_torch.ops import resize_strip
     from imagekit_tpu_torch.ops.weights import padded_weights
 
@@ -153,12 +160,14 @@ def k2_case(dev="cuda"):
     wh = _stack([(ti, to, 1920, 400) for ti, to in K2_H], 1920, 400, edge,
                 dev)
     g = torch.Generator(device=dev).manual_seed(0)
-    x = torch.randint(0, 256, (32, 1088, 5760), generator=g, device=dev,
-                      dtype=torch.uint8)
+    x = torch.randint(0, 256, (32, 1088, 1920 * channels), generator=g,
+                      device=dev, dtype=torch.uint8)
     vidx = torch.arange(32, dtype=torch.int32, device=dev) % 4
     hidx = (vidx + 1) % 4
     tabs = resize_strip.resize_tables(wv, wh)
-    return lambda: resize_strip.rgb_resize(x, wv, wh, vidx, hidx, bands=tabs)
+    resize = (resize_strip.rgba_resize if channels == 4
+              else resize_strip.rgb_resize)
+    return lambda: resize(x, wv, wh, vidx, hidx, bands=tabs)
 
 
 def k3_case(dev="cuda"):
@@ -214,7 +223,8 @@ def main(argv=None) -> int:
     names = args.variants.split(",")
     print(f"card: {card()}", flush=True)
     libs = build_variants(names)
-    cases = {"K2 rgb B=32": k2_case(), "K3 Y+Cb+Cr B=32": k3_case()}
+    cases = {"K2 rgb B=32": k2_case(), "K2 rgba B=32": k2_case(channels=4),
+             "K3 Y+Cb+Cr B=32": k3_case()}
     saved = _build._lib
     rows = []
     try:

@@ -1,0 +1,107 @@
+"""Where a single image's device steps should run: a probe on a card.
+
+A request with no resize, and every output of the plain RGB head, encodes
+one image at a time; a JPEG encode runs its colour mix and 8x8 fDCT on the
+device, and a JPEG source with no resize runs its pixel decode there (one
+K3 launch). Each is some hundred small device operations issued from
+Python. This times N such calls (a 400x225 encode, a 1920x1080 encode, a
+1920x1080 pixel decode) issued from 1, 2, 4 and 16 threads, each thread on
+a CUDA stream of its own, as the engine's pools would issue them: the wall
+time of the N calls and the median time of one.
+
+Run from the root of a checkout, on a machine with one card and nvcc:
+
+    python -m imagekit_tpu_torch.tools.single_image_probe [--out chiprun_out/single_image_probe.json]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+
+def _image(w: int, h: int, seed: int = 0) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    x = np.linspace(0, 255, w, dtype=np.float32)[None, :, None]
+    y = np.linspace(0, 255, h, dtype=np.float32)[:, None, None]
+    img = 0.5 * (x + y) + rng.normal(0, 20, (h, w, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def run(fn, n: int, threads: int) -> dict:
+    """``n`` calls of ``fn`` from ``threads`` threads, each on its own
+    stream: wall seconds and the median seconds of one call."""
+    tls = threading.local()
+    times = []
+
+    def call(_):
+        stream = getattr(tls, "stream", None)
+        if stream is None:
+            stream = tls.stream = torch.cuda.Stream()
+        t0 = time.perf_counter()
+        with torch.cuda.stream(stream):
+            fn()
+        times.append(time.perf_counter() - t0)
+
+    with ThreadPoolExecutor(threads) as pool:
+        list(pool.map(call, range(threads * 2)))  # streams, allocator
+        times.clear()
+        t0 = time.perf_counter()
+        list(pool.map(call, range(n)))
+        wall = time.perf_counter() - t0
+    return {"threads": threads, "wall_s": wall,
+            "median_call_ms": statistics.median(times) * 1e3}
+
+
+def main(argv=None) -> int:
+    from imagekit_tpu_torch.codecs import jpeg
+    from imagekit_tpu_torch.codecs.native import loader
+    from imagekit_tpu_torch.ops import _build, dct
+    from imagekit_tpu_torch.ops.weights import host_encode_rgb_to_coefficients
+    from imagekit_tpu_torch.tools.band_probe import card
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="chiprun_out/single_image_probe.json")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("single_image_probe: no CUDA device", file=sys.stderr)
+        return 2
+    _build.load()
+    small, large = _image(400, 225), _image(1920, 1080, 1)
+    planes, qt = host_encode_rgb_to_coefficients(large, 80)
+    source = loader.encode_jpeg(planes, qt, 1920, 1080)
+    decoded = loader.decode_jpeg(source)
+    cases = {
+        "fDCT of a 400x225 encode (encode_rgb_to_coefficients)":
+            lambda: dct.encode_rgb_to_coefficients(small, 80, device="cuda"),
+        "whole 400x225 JPEG encode (jpeg.encode_rgb)":
+            lambda: jpeg.encode_rgb(small, 80, device="cuda"),
+        "whole 1920x1080 JPEG encode (jpeg.encode_rgb)":
+            lambda: jpeg.encode_rgb(large, 80, device="cuda"),
+        "1920x1080 pixel decode, device part (decode_components_to_rgb)":
+            lambda: dct.decode_components_to_rgb(decoded, device="cuda"),
+    }
+    print(f"card: {card()}", flush=True)
+    rows = []
+    for name, fn in cases.items():
+        for threads in (1, 2, 4, 16):
+            row = {"case": name, "calls": 32, **run(fn, 32, threads)}
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps({"card": card(), "rows": rows}, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,7 +3,9 @@ kernels, with no CPU mode) against their plain PyTorch versions, and the
 engine on the card against the engine on the CPU, for JPEG and PNG sources.
 K2's one-launch RGB entry (``rgb_resize``) and K3/K4's three-plane entries
 (``resize_planes3``, ``resize_planes3_f32``) are asserted to launch once a
-call; the single-plane entries are held too.
+call; the single-plane entries are held too, and K2's four-channel entry
+(``rgba_resize``) with the engine paths that run it and the JPEG pixel
+decode.
 
 Each test skips where ``torch.cuda.is_available()`` is false; the
 condition is a string, evaluated when the test runs, never at import.
@@ -263,8 +265,8 @@ def test_engine_on_card_matches_engine_on_cpu(monkeypatch):
 
 
 def zlib_png(img: np.ndarray) -> bytes:
-    """RGB PNG with the standard library only: filter 0 on every row, zlib
-    level 1."""
+    """RGB (or, with four channels, RGBA) PNG with the standard library
+    only: filter 0 on every row, zlib level 1."""
     h, w = img.shape[:2]
     raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
 
@@ -272,7 +274,8 @@ def zlib_png(img: np.ndarray) -> bytes:
         return (struct.pack(">I", len(body)) + tag + body
                 + struct.pack(">I", zlib.crc32(tag + body)))
 
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 6 if img.shape[2] == 4 else 2,
+                       0, 0, 0)
     return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
             + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
 
@@ -880,3 +883,121 @@ def test_new_paths_on_card_match_engine_on_cpu(monkeypatch, case):
     assert len(handed) == 2
     for a, b in zip(*handed):
         assert_band(torch.from_numpy(a), torch.from_numpy(b))
+
+
+# -- K2 with four channels a pixel, and the single-image paths --------------------------
+
+
+def _rgba_inputs(shape: str):
+    """An interleaved RGBA batch with its stacks: a small mixed bucket
+    (B=5), or the flagship bucket at B=1 / B=32."""
+    if shape == "small_b5":
+        imgs, wv, wh, vidx, hidx = _k2_inputs(seed=7)
+    else:
+        imgs, wv, wh, vidx, hidx = _flagship_rgb(int(shape.split("_b")[1]))
+    B, H, WC = imgs.shape
+    px = imgs.reshape(B, H, WC // 3, 3)
+    alpha = px.flip(2)[..., :1]  # the image mirrored: varies in both axes
+    return torch.cat([px, alpha], dim=-1).reshape(B, H, -1), wv, wh, vidx, hidx
+
+
+@needs_card
+@pytest.mark.parametrize("shape", ["small_b5", "flagship_b1", "flagship_b32"])
+def test_k2_rgba_matches_plain(shape):
+    """One K2 launch for the four channels of an interleaved RGBA batch,
+    stored interleaved, against the plain version; the launch is counted
+    apart from the three-channel entry's."""
+    imgs, wv, wh, vidx, hidx = _rgba_inputs(shape)
+    bands = resize_strip.resize_tables(wv, wh)
+    before = (resize_strip.LAUNCHES, resize_strip.LAUNCHES_RGBA)
+    got = resize_strip.rgba_resize(imgs, wv, wh, vidx, hidx, bands=bands)
+    torch.cuda.synchronize()
+    assert (resize_strip.LAUNCHES, resize_strip.LAUNCHES_RGBA) == (
+        before[0], before[1] + 1)
+    want = resize_strip.rgba_resize_plain(imgs, wv, wh, vidx, hidx)
+    assert got.dtype == torch.uint8 and got.shape == want.shape
+    assert got.shape[-1] == 4 and got.is_contiguous()
+    assert_band(got, want)
+    # the RGB channels are the three-channel entry's, bit for bit: the same
+    # sums in the same order at another tile height
+    B, H, WC = imgs.shape
+    rgb = imgs.reshape(B, H, WC // 4, 4)[..., :3].reshape(B, H, -1).contiguous()
+    planes = resize_strip.rgb_resize(rgb, wv, wh, vidx, hidx, bands=bands)
+    assert torch.equal(got[..., :3], planes.permute(0, 2, 3, 1))
+    assert 0.2 < float(((got > 0) & (got < 255)).float().mean())
+
+
+@needs_card
+def test_k2_rgba_refuses_what_it_does_not_take():
+    imgs, wv, wh, vidx, hidx = _rgba_inputs("small_b5")
+    with pytest.raises(ValueError, match="contiguous"):
+        resize_strip.rgba_resize(imgs.transpose(0, 1).contiguous().transpose(0, 1),
+                                 wv, wh, vidx, hidx)
+    with pytest.raises(ValueError, match="is on"):
+        resize_strip.rgba_resize(imgs, wv.cpu(), wh, vidx, hidx)
+    before = resize_strip.LAUNCHES_RGBA
+    with pytest.raises(TypeError, match="int32"):
+        resize_strip.rgba_resize(imgs, wv, wh, vidx.long(), hidx)
+    assert resize_strip.LAUNCHES_RGBA == before
+
+
+@needs_card
+@pytest.mark.parametrize("case", ["rgba_webp", "rgba_jpeg", "jpeg_no_resize",
+                                  "png_no_resize_jpeg"])
+def test_alpha_and_single_image_paths_on_card_match_cpu(monkeypatch, case):
+    """An RGBA PNG -> w=200 (the plain RGB head: one launch of K2's
+    four-channel entry), and requests with no resize (from a JPEG: one K3
+    launch, the pixel decode), through the engine on the card and on the
+    CPU: what the host encoder gets agrees within the band."""
+    from imagekit_tpu_torch.codecs import vp8
+    from imagekit_tpu_torch.codecs.native import loader
+    from imagekit_tpu_torch.config import ImageFormat, ImageKitConfig
+    from imagekit_tpu_torch.ops import resize_planes
+    from imagekit_tpu_torch.serving.batcher import BatchedEngine
+    from imagekit_tpu_torch.serving.metrics import Metrics
+
+    imgs, *_ = _k2_inputs(B=1, bh=540, bw=960)
+    img = imgs[0].cpu().numpy().reshape(540, 960, 3)
+    if case.startswith("rgba"):
+        data = zlib_png(np.dstack([img, img[::-1, :, :1]]))
+        w, fmt = 200, ImageFormat(case.split("_")[1])
+    elif case == "jpeg_no_resize":
+        data, w, fmt = native_jpeg(img, 90), None, ImageFormat.webp
+    else:
+        data, w, fmt = zlib_png(img), None, ImageFormat.jpeg
+    seen = []
+    real_vp8, real_jpeg = vp8.encode_yuv420, loader.encode_jpeg
+
+    def rec_vp8(yp, u, v, q):
+        seen.append((yp.copy(), u.copy(), v.copy()))
+        return real_vp8(yp, u, v, q)
+
+    def rec_jpeg(planes, qtabs, width, height):
+        seen.append(tuple(np.array(p) for p in planes))
+        return real_jpeg(planes, qtabs, width, height)
+
+    monkeypatch.setattr(vp8, "encode_yuv420", rec_vp8)
+    monkeypatch.setattr(loader, "encode_jpeg", rec_jpeg)
+    for device in ("cuda", "cpu"):
+        engine = BatchedEngine(ImageKitConfig(secret="s"), metrics=Metrics(),
+                               device=device)
+
+        async def run():
+            try:
+                return await engine.transform(data, w, None, fmt, 80)
+            finally:
+                await engine.close()
+
+        before = (resize_strip.LAUNCHES_RGBA, resize_planes.LAUNCHES)
+        asyncio.run(run())
+        after = (resize_strip.LAUNCHES_RGBA, resize_planes.LAUNCHES)
+        on_card = device == "cuda"
+        assert after[0] - before[0] == int(on_card and case.startswith("rgba"))
+        assert after[1] - before[1] == int(on_card and case == "jpeg_no_resize")
+    assert len(seen) == 2
+    for a, b in zip(*seen):
+        d = (torch.from_numpy(a).int() - torch.from_numpy(b).int()).abs()
+        # the pixel decode's band: a chroma step times 1.772 (+-2 in RGB)
+        # reaches the encoder's planes as at most +-1 after the colour mix
+        assert int(d.max()) <= (2 if case == "jpeg_no_resize" else 1)
+        assert float((d > 0).float().mean()) <= MAX_SHARE

@@ -186,17 +186,19 @@ def _images(B, H, WC, seed):
 
 
 def _strip_launch(lib, x, wv, wh, vidx, hidx, C, kw=None):
-    """K2's source on (B, H, W*C) pixel rows ``x`` -> (B, C, OH, OW)."""
+    """K2's source on (B, H, W*C) pixel rows ``x`` -> (B, C, OH, OW), or
+    (B, OH, OW, 4) for C = 4, whose pixels leave interleaved."""
     kw = kw or {}
     B, H, WC = x.shape
     tabs = resize_tables(wv, wh)
     oh, ow = wv.shape[1], wh.shape[1]
     centered = kw.get("centered", False)
-    out = torch.empty((B, C, oh, ow),
+    out = torch.empty((B, oh, ow, 4) if C == 4 else (B, C, oh, ow),
                       dtype=torch.int8 if centered else torch.uint8)
     remap = {k: kw[k] for k in ("scale", "pre", "post") if k in kw}
     rec = plane_record(x.data_ptr(), H * WC, WC, C, wv, tabs, vidx, hidx,
-                       out, C * oh * ow, oh * ow, H, WC // C, **remap)
+                       out, C * oh * ow, 1 if C == 4 else oh * ow, H, WC // C,
+                       **remap)
     _build.launch_band(lib.ik_resize_strip, [rec], B, int(centered), None)
     return out
 
@@ -239,6 +241,44 @@ def test_k2_rgb_source_matches_plain(lib, case):
     assert got.shape == want.shape == (B, 3, OH, OW)
     assert_band(got.numpy(), want.numpy(), case)
     assert 0.2 < float(((got > 0) & (got < 255)).float().mean())
+
+
+@pytest.mark.parametrize("case", sorted(K2_CASES))
+def test_k2_rgba_source_matches_plain(lib, case):
+    """The four-channel entry's source: the pixels of an interleaved RGBA
+    batch, stored interleaved, against ``rgba_resize_plain`` (the band), and
+    exactly equal, channel by channel, to the same source's launch on a
+    contiguous copy of the channel: the same sums in the same order,
+    whatever tile height the row width gives each."""
+    B, H, W, OH, OW, U, vidx, hidx, opts = K2_CASES[case]
+    wv = _stack(H, OH - 1, H, OH, U, **opts)
+    wh = _stack(W, OW - 2, W, OW, U, **opts)
+    imgs = _images(B, H, W * 4, seed=40 + len(case))
+    x, wv_t, wh_t, v, h = _t(imgs, wv, wh, np.int32(vidx), np.int32(hidx))
+    got = _strip_launch(lib, x, wv_t, wh_t, v, h, 4)
+    vc, hc = v.clamp(0, U - 1), h.clamp(0, U - 1)
+    want = resize_strip.rgba_resize_plain(x, wv_t, wh_t, vc, hc)
+    assert got.shape == want.shape == (B, OH, OW, 4)
+    assert_band(got.numpy(), want.numpy(), case)
+    # the wrapper on CPU tensors takes the plain version
+    assert torch.equal(resize_strip.rgba_resize(x, wv_t, wh_t, vc, hc), want)
+    assert 0.2 < float(((got > 0) & (got < 255)).float().mean())
+    for c in range(4):
+        plane = x.reshape(B, H, W, 4)[..., c].contiguous()
+        alone = _strip_launch(lib, plane, wv_t, wh_t, v, h, 1)
+        assert torch.equal(got[..., c], alone[:, 0]), (case, c)
+
+
+def test_k2_rgba_source_centres_every_channel(lib):
+    """The centred epilogue through the packed store: each byte is the
+    two's-complement i8 of its channel."""
+    wv, wh = _stack(40, 16, 40, 18, 2), _stack(64, 24, 64, 26, 2)
+    x, wv_t, wh_t, v, h = _t(_images(2, 40, 256, seed=6), wv, wh,
+                              np.int32([0, 1]), np.int32([1, 0]))
+    got = _strip_launch(lib, x, wv_t, wh_t, v, h, 4, {"centered": True})
+    want = resize_strip.rgba_resize_plain(x, wv_t, wh_t, v, h)
+    assert got.dtype == torch.int8
+    assert_band(got.numpy().astype(int) + 128, want.numpy())
 
 
 def test_k2_non_monotone_bands_take_the_union(lib):
@@ -391,8 +431,10 @@ def test_k2_three_yuv_planes_with_their_own_epilogues(lib, jpeg, vidx):
 REFUSED = {
     # a row pitch (60 bytes) that is not a whole number of 8-byte loads
     "misaligned_rows": (20, (3,)),
-    # only pixels of 1 or 3 channels, every channel read
+    # only pixels of 1, 3 or 4 channels, every channel read
     "two_channels": (24, (2,)),
+    # four-channel pixels leave as 32-bit words: the output must be aligned
+    "rgba_out_unaligned": (24, (4,)),
     # every plane of a launch has as many channels
     "mixed_channels": (24, (3, 1)),
 }
@@ -410,6 +452,8 @@ def test_source_refuses_what_it_does_not_take(lib, case):
     for C in chans:
         x = torch.zeros((1, 16, W * C), dtype=torch.uint8)
         out = torch.empty((1, C, 8, 8), dtype=torch.uint8)
+        if case == "rgba_out_unaligned":
+            out = torch.empty(1 + C * 64, dtype=torch.uint8)[1:]
         keep += [x, out]
         recs.append(plane_record(x.data_ptr(), 16 * W * C, W * C, C, wv, tabs,
                                  v, v, out, C * 64, 64, 16, W))

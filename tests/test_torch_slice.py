@@ -157,8 +157,10 @@ def test_cuda_device_is_never_implicit():
                                   "upscale_k8", "webp_src", "rgba_png"])
 def test_off_slice_requests_raise_not_ported(case):
     """Each request outside the ported slices raises NotPortedError naming
-    its ROADMAP item; an RGB PNG, a JPEG to JPEG, a downscale under 2x
-    (k=8) and a lossy WebP source, once off the slice, are now served."""
+    its ROADMAP item (AVIF output is what is left here); an RGB PNG, a
+    JPEG to JPEG, a downscale under 2x (k=8), a lossy WebP source, an RGBA
+    PNG (the plain RGB head) and a request with no resize, once off the
+    slice, are now served."""
     img = make_test_image(320, 240)
     data, fmt, w = encode_jpeg_pil(img), ImageFormat.webp, 64
     if case == "png":
@@ -183,10 +185,12 @@ def test_off_slice_requests_raise_not_ported(case):
         finally:
             await engine.close()
 
-    if case in ("png", "upscale_k8", "webp_src"):
-        size = (300, 225) if case == "upscale_k8" else (64, 48)
+    if case in ("png", "upscale_k8", "webp_src", "rgba_png", "no_resize"):
+        size = {"upscale_k8": (300, 225), "no_resize": (320, 240)}.get(
+            case, (64, 48))
         assert vp8.dimensions(asyncio.run(run())) == size
-        assert engine.metrics.batches == 1
+        # a request with no resize is one image's decode and encode
+        assert engine.metrics.batches == (0 if case == "no_resize" else 1)
         return
     if case == "jpeg_out":
         hdr = jpeg_abi.parse(loader.load(), asyncio.run(run()))
@@ -291,9 +295,10 @@ def test_http_sign_then_img_serves_webp_then_hits_cache(tmp_path):
 
 
 @pytest.mark.parametrize("params,status", [
-    ({"url": BMP, "w": "64"}, 501),          # BMP source: not ported
+    ({"url": BMP, "w": "64"}, 200),          # BMP source: served
     ({"url": JPG, "w": "256", "f": "jpeg"}, 200),  # JPEG -> JPEG: served
-    ({"url": JPG}, 501),                      # no resize: not ported
+    ({"url": JPG}, 200),                      # no resize: served
+    ({"url": JPG, "w": "256", "f": "avif"}, 501),  # AVIF output: not ported
     ({"url": JPG, "w": "256", "q": "0"}, 400),  # the reference's own 400
     ({"url": PNG, "w": "64"}, 200),          # RGB PNG source: served
 ])
@@ -310,7 +315,8 @@ def test_http_off_slice_answers_501(tmp_path, params, status):
             assert (hdr.width, hdr.height) == (256, 144)
         elif status == 200:
             assert r.headers["Content-Type"] == "image/webp"
-            assert vp8.dimensions(await r.read()) == (64, 48)
+            assert vp8.dimensions(await r.read()) == (
+                (64, 48) if "w" in params else (1280, 720))
         bad = await client.get("/img", params={**params, "sig": "0" * 64})
         assert bad.status == 401
 
@@ -318,7 +324,7 @@ def test_http_off_slice_answers_501(tmp_path, params, status):
 
 
 @pytest.mark.parametrize("kind,status", [("jpeg", 200), ("png", 200),
-                                         ("garbage", 400), ("rgba_png", 501)])
+                                         ("garbage", 400), ("rgba_png", 200)])
 def test_http_upload(tmp_path, kind, status):
     from aiohttp import FormData
 

@@ -3,8 +3,10 @@
 - A subprocess imports every module of ``imagekit_tpu_torch``, serves one
   JPEG -> WebP, one PNG -> JPEG and one JPEG -> JPEG request, then the
   WebP it made as a source (lossy WebP -> WebP and -> JPEG, and its pixel
-  decode) through ``BatchedEngine(device="cpu")`` (so that every lazy
-  import runs), and then holds no ``imagekit_tpu`` module, no ``jax`` and
+  decode), then an RGBA PNG (the plain RGB head), a BMP, the JPEG with no
+  resize (the JPEG pixel decode and the single-image encode) and
+  ``transform_bytes`` through ``BatchedEngine(device="cpu")`` (so that every
+  lazy import runs), and then holds no ``imagekit_tpu`` module, no ``jax`` and
   no ``PIL``.
 - The port's copies of the reference's host modules are pinned to the
   reference: the C++ codec sources byte for byte, and the signature, the
@@ -62,6 +64,15 @@ def test_port_serves_three_kinds_without_the_reference():
         png = (b"\\x89PNG\\r\\n\\x1a\\n"
                + chunk(b"IHDR", struct.pack(">IIBBBBB", 320, 240, 8, 2, 0, 0, 0))
                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+        rgba = np.dstack([img, img[:, :, :1]])
+        raw4 = b"".join(b"\\x00" + rgba[r].tobytes() for r in range(240))
+        png4 = (b"\\x89PNG\\r\\n\\x1a\\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", 320, 240, 8, 6, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw4, 1)) + chunk(b"IEND", b""))
+        rows = img[::-1, :, ::-1].tobytes()  # 320 * 3 bytes a row: no padding
+        bmp = (b"BM" + struct.pack("<IHHI", 54 + len(rows), 0, 0, 54)
+               + struct.pack("<IiiHHIIiiII", 40, 320, 240, 1, 24, 0, len(rows),
+                             2835, 2835, 0, 0) + rows)
         engine = BatchedEngine(ImageKitConfig(secret="s", batch=BatchConfig(
             max_batch=1)), metrics=Metrics(), device="cpu")
 
@@ -75,12 +86,20 @@ def test_port_serves_three_kinds_without_the_reference():
                 second = await asyncio.gather(
                     engine.transform(first[0], 32, None, ImageFormat.webp, 80),
                     engine.transform(first[0], 32, None, ImageFormat.jpeg, 80))
-                return first + second
+                third = await asyncio.gather(
+                    engine.transform(png4, 64, None, ImageFormat.webp, 80),
+                    engine.transform(bmp, 64, None, ImageFormat.jpeg, 80),
+                    engine.transform(jpeg, None, None, ImageFormat.jpeg, 80))
+                return first + second + third
             finally:
                 await engine.close()
 
-        webp, png_jpeg, jpeg_jpeg, webp_webp, webp_jpeg = asyncio.run(run())
+        (webp, png_jpeg, jpeg_jpeg, webp_webp, webp_jpeg, rgba_webp, bmp_jpeg,
+         same_size) = asyncio.run(run())
         lib = loader.load()
+        from imagekit_tpu_torch.transform import transform_bytes
+        whole = transform_bytes(png4, 32, None, ImageFormat.jpeg, 80,
+                                device="cpu")
         print(json.dumps({
             "n_mods": len(mods),
             "webp": vp8.dimensions(webp),
@@ -90,6 +109,10 @@ def test_port_serves_three_kinds_without_the_reference():
                           [getattr(jpeg_abi.parse(lib, webp_jpeg), a)
                            for a in ("width", "height")],
                           list(vp8.decode_rgb(webp).shape)],
+            "new": [vp8.dimensions(rgba_webp)] + [
+                [h.width, h.height] for h in (
+                    jpeg_abi.parse(lib, bmp_jpeg), jpeg_abi.parse(lib, same_size),
+                    jpeg_abi.parse(lib, whole))],
             "batches": engine.metrics.batches,
             "mods": sorted(sys.modules)}))
     """)
@@ -100,7 +123,8 @@ def test_port_serves_three_kinds_without_the_reference():
     assert res["n_mods"] > 30
     assert res["webp"] == [64, 48] and res["jpegs"] == [[64, 48], [64, 48]]
     assert res["from_webp"] == [[32, 24], [32, 24], [48, 64, 3]]
-    assert res["batches"] == 5
+    assert res["new"] == [[64, 48], [64, 48], [320, 240], [32, 24]]
+    assert res["batches"] == 7  # the request with no resize is no batch
     mods = res["mods"]
     assert [m for m in mods if m == "imagekit_tpu"
             or m.startswith("imagekit_tpu.")] == []
@@ -112,7 +136,8 @@ def test_port_serves_three_kinds_without_the_reference():
 # -- the copies against the reference ------------------------------------------------
 
 NATIVE = ("jpeg_entropy.cpp", "vp8_encode.cpp", "vp8_decode.cpp",
-          "vp8l_decode.cpp", "vp8_common.h", "vp8_tables.h", "png_decode.cpp")
+          "vp8l_decode.cpp", "vp8_common.h", "vp8_tables.h", "png_decode.cpp",
+          "misc_decode.cpp", "tiff_decode.cpp")
 
 
 @pytest.mark.parametrize("name", NATIVE)
@@ -211,7 +236,7 @@ def test_bucketing_equal_over_the_ladder():
 
 
 def _heads():
-    from imagekit_tpu_torch.ops import color, dct
+    from imagekit_tpu_torch.ops import color, dct, resize
     from tests.test_pallas_jpeg8 import _mk
     from tests.test_torch_jxc_slice import _k8_inputs
     from tests.test_torch_resize import _inputs
@@ -251,6 +276,8 @@ def _heads():
             (8, 16, 4, 8), (16, 32), **kw),
         "decode_resize_yuv_lowfreq_batch": lambda **kw:
             dct.decode_resize_yuv_lowfreq_batch(y2, c2, c2, *mk[3:], **kw),
+        "resample_bucketed_flat": lambda **kw: resize.resample_bucketed_flat(
+            imgs, wv, wh, vidx, hidx, 3, **kw),
         "resize_yuv420_batch": lambda **kw: dct.resize_yuv420_batch(
             flat, yuv_w, yuv_v, (BH, BW), (OBH, OBW), **kw),
         "resize_yuv_jpeg_batch": lambda **kw: dct.resize_yuv_jpeg_batch(

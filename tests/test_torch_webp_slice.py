@@ -358,18 +358,25 @@ def test_yuv_batches_split_by_output_format():
 @pytest.mark.parametrize("case", ["rgba_lossless", "vp8x_alph", "avif_src",
                                   "avif_out", "no_resize"])
 def test_webp_requests_outside_the_slice_are_not_ported(case):
+    """AVIF in or out is what is left; WebPs with alpha (the plain RGB
+    head) and a request with no resize, once here, are served."""
     fmt, w, item = ImageFormat.webp, 32, "queue 1 item 9"
-    if case in EXTENDED:
-        data = EXTENDED[case]()  # 4 channels: the plain rgb head
-    elif case == "avif_src":
+    engine = PortEngine(_cfg(1), metrics=Metrics(), device="cpu")
+    if case in EXTENDED or case == "no_resize":
+        data = (EXTENDED[case]() if case in EXTENDED
+                else _libwebp(make_test_image(320, 240), 85))
+        w = None if case == "no_resize" else w
+        (out,) = _drive(engine, [data], [w], fmt)
+        iw, ih = vp8.dimensions(data)
+        assert vp8.dimensions(out) == ((iw, ih) if w is None else
+                                       target_dimensions(iw, ih, w, None))
+        assert engine.metrics.batches == (0 if w is None else 1)
+        return
+    if case == "avif_src":
         data, item = b"\x00\x00\x00\x1cftypavif" + b"\x00" * 64, "queue 1 item 8"
     else:
         data = _libwebp(make_test_image(320, 240), 85)
-        if case == "avif_out":
-            fmt, item = ImageFormat.avif, "queue 1 item 8"
-        else:
-            w, item = None, "queue 1 item 10"
-    engine = PortEngine(_cfg(1), metrics=Metrics(), device="cpu")
+        fmt, item = ImageFormat.avif, "queue 1 item 8"
     with pytest.raises(NotPortedError, match="ROADMAP") as e:
         _drive(engine, [data], [w], fmt)
     assert e.value.roadmap_item == item
