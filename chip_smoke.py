@@ -14,9 +14,10 @@ the RGB head on K3); a JPEG to a 1280 px WebP (the k=8 head on K4);
 escape-dense JPEGs to WebP on the int16 transport (K1's int16 entry at
 k<8, K4 at k=8); a lossy WebP to WebP or JPEG (K2 on the decoded Y, Cb
 and Cr planes); an RGBA PNG to WebP or JPEG (the plain RGB head on K2's
-four-channel entry); BMP, TIFF and GIF sources; and requests with no
+four-channel entry); BMP, TIFF and GIF sources; requests with no
 resize (one image's decode and encode: from a JPEG, the pixel decode on
-K3):
+K3); and AVIF output through every one of those heads (the first-party AV1
+intra encoder on the host):
 
 1. environment: the card (``nvidia-smi``), torch and CUDA versions;
 2. build: the kernel library (one nvcc per source, started together), the
@@ -89,10 +90,22 @@ K3):
     decode), a PNG and a WebP, to WebP and to JPEG. Outputs parsed to
     their size and format, requests/s, p50/p99, the host stages and the
     device's idle share from a second, traced round;
-15. HTTP ``/sign`` -> ``/img`` for JPEG, PNG and WebP sources to WebP, a
-    JPEG to a 1280 px WebP, a JPEG to JPEG, a JPEG with no sizes, a PNG
-    ``/upload`` and an RGBA PNG ``/upload`` with no sizes through the
-    port's app, where aiohttp is installed.
+15. AVIF output through the engine, one round a head, counts reset before
+    each: 4 JPEGs -> w=400 (K1), 2 escape-dense JPEGs -> w=400 (K1's int16
+    entry), a 640x360 JPEG -> w=480 (k=8, K4), 2 RGB PNGs -> w=400 (K2,
+    rgbyuv), 2 lossy WebPs -> w=400 (K2, ``yuv_resize``), 2 RGBA PNGs ->
+    w=400 with their alpha (K2, ``rgba_resize``) and a 320x240 JPEG with no
+    resize (K3). Each body's ftyp brand, ispe dims and alpha item checked,
+    each batch against the plain head, the AV1 encode seconds a picture,
+    the wait in the AVIF thread's queue and the device's idle share (each
+    round traced once); the encoder's C engine must have loaded. Then, at
+    the default latency budget, 32 JPEG -> w=400 WebP alone and with 2
+    AVIF among them (WebP p50/p99), and a burst of 4 AVIF that the AVIF
+    lane's admission bound must shed by its rule;
+16. HTTP ``/sign`` -> ``/img`` for JPEG, PNG and WebP sources to WebP, a
+    JPEG to a 1280 px WebP, a JPEG to JPEG, a JPEG to AVIF, a JPEG with no
+    sizes, a PNG ``/upload`` and an RGBA PNG ``/upload`` with no sizes
+    through the port's app, where aiohttp is installed.
 
 Device times are the kernels' own, summed by ``torch.profiler`` over 20
 calls (the host's launch cost excluded); the bound is the larger of the
@@ -101,8 +114,8 @@ TFLOP/s, counted from the batch's shapes and band tables.
 
 Any failed phase raises, and the script exits non-zero. Nothing of JAX or
 of the JAX package is imported. The last lines are the card's name and
-power limit, one JSON line describing each kernel (with its bound and its
-einsum yardstick's time), and
+power limit, one JSON line describing each kernel (with its bound, its
+einsum yardstick's time and its launches on the AVIF rounds), and
 ``{"ok": true, "device": {...}}``. Without a card (or outside a checkout)
 it exits non-zero and prints no result.
 """
@@ -312,7 +325,8 @@ def native_codecs() -> str:
 
     try:
         return (f"{loader.load()._name} (jpeg_entropy + vp8_encode + vp8_decode "
-                f"+ vp8l_decode + png_decode + misc_decode + tiff_decode)")
+                f"+ vp8l_decode + png_decode + misc_decode + tiff_decode + "
+                f"av1_enc)")
     except RuntimeError as e:
         log(f"native loader build failed:\n{str(e)[-4000:]}")
         if "zlib.h" not in str(e):
@@ -1526,7 +1540,7 @@ def device_busy_s(prof):
     return (busy + hi - lo) / 1e6
 
 
-def idle_share(run, on_card: bool = True):
+def idle_share(run, on_card: bool = True, traced: str = "a second, traced"):
     """(the device's idle share in a round's traced run, its log line).
     ``on_card``: whether the round's requests use the card at all; a round
     that does not is idle throughout. A round that does and whose trace
@@ -1538,18 +1552,31 @@ def idle_share(run, on_card: bool = True):
                       "trace holds no device record)")
     idle = 1.0 - busy / run["traced_wall"]
     return idle, (f"    device idle share {idle:.1%} (busy {busy:.4f} s of "
-                  f"{run['traced_wall']:.4f} s in a second, traced round)")
+                  f"{run['traced_wall']:.4f} s in {traced} round)")
 
 
 def check_path_batch(head: str, call) -> tuple:
     """A recorded batch of one of the new heads against the plain head on
     the same inputs: (max |d|, share(|d|=1))."""
-    from imagekit_tpu_torch.ops import dct, jpeg8, resize_strip
+    from imagekit_tpu_torch.ops import color, dct, jpeg8, resize, resize_strip
     from imagekit_tpu_torch.ops import resize_planes as rp
 
     args, kw, out = call
     bands = kw["bands"]
-    if head == "decode_resize_yuv_i8_batch":
+    if head == "decode_resize_yuv_lowfreq_i8_batch":
+        inp, k = k1_inputs(call)
+        plain = jpeg8.folded_planes_i8_plain(*inp, k)
+    elif head == "resample_rgb_yuv_batch":
+        x, (wv, wh), vidx, hidx = args[:4]
+        plain = color.rgb_yuv_head(x, wv, wh, vidx, hidx, bands,
+                                   resize=resize_strip.rgb_resize_plain)
+    elif head == "resample_bucketed_flat":
+        x, wv, wh, vidx, hidx, ch = args
+        plain = resize.resample_flat(x, wv, wh, vidx, hidx, ch, bands,
+                                     resize=resize_strip.rgba_resize_plain)
+        return check_band(f"the head {head}", torch.from_numpy(
+            out.reshape(out.shape[0], -1)).to(plain.device), plain)
+    elif head == "decode_resize_yuv_i8_batch":
         dcs, acs, escs, qt, stacks, vidx, block_dims = args[:7]
         plain = dct.decode_resize_yuv_i8(
             dcs, acs, escs, qt, stacks, vidx, block_dims, bands,
@@ -1944,7 +1971,263 @@ def phase_alpha_and_single(rgba_pngs, others, jpegs, pngs, webps,
 
 
 # ---------------------------------------------------------------------------
-# phase 15: HTTP
+# phase 15: AVIF output through every head
+# ---------------------------------------------------------------------------
+
+
+def avif_info(data: bytes):
+    """(major brand, [ispe (w, h)], alpha auxiliary item?) of an AVIF body,
+    from its ftyp and meta/iprp/ipco boxes."""
+    def boxes(start, end):
+        i = start
+        while i + 8 <= end:
+            size, typ = struct.unpack(">I4s", data[i:i + 8])
+            if not 8 <= size <= end - i:
+                raise RuntimeError(f"malformed AVIF box {typ!r}")
+            yield typ, i + 8, i + size
+            i += size
+
+    top = {t: (a, b) for t, a, b in boxes(0, len(data))}
+    if b"ftyp" not in top or b"meta" not in top:
+        raise RuntimeError(f"not an AVIF file: {data[:16]!r}")
+    brand = data[top[b"ftyp"][0]:top[b"ftyp"][0] + 4]
+    meta = {t: (a, b) for t, a, b in boxes(top[b"meta"][0] + 4,
+                                            top[b"meta"][1])}
+    iprp = {t: (a, b) for t, a, b in boxes(*meta[b"iprp"])}
+    ispe, alpha = [], False
+    for t, a, b in boxes(*iprp[b"ipco"]):
+        if t == b"ispe":
+            ispe.append(struct.unpack(">II", data[a + 4:a + 12]))
+        elif t == b"auxC":
+            alpha = b"auxiliary:alpha" in data[a:b]
+    return brand, ispe, alpha
+
+
+def phase_avif(jpegs, dense, pngs, webps, rgba_pngs, card: str) -> dict:
+    """One round a head through one engine, AVIF output, the launch counts
+    set to 0 before each round and read after it. Each round runs once,
+    under ``torch.profiler`` (CUDA activity only) for the device's idle
+    share: the first-party AV1 encoder on the host takes seconds a picture,
+    so a second, untraced round would double the phase for no new number."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from imagekit_tpu_torch.codecs import av1_image
+    from imagekit_tpu_torch.codecs.native import av1_abi
+    from imagekit_tpu_torch.config import BatchConfig, ImageFormat, ImageKitConfig
+    from imagekit_tpu_torch.ops import dct, jpeg8, resize_strip
+    from imagekit_tpu_torch.ops import resize_planes as rp
+    from imagekit_tpu_torch.serving import engine_jpeg, engine_rgb, engine_yuv
+    from imagekit_tpu_torch.serving.batcher import BatchedEngine
+    from imagekit_tpu_torch.serving.metrics import Metrics
+
+    # the encoder's C entropy engine and leaf evaluation (both raise where
+    # they cannot load); without them it would run ~40x slower in Python
+    if av1_abi.load() is None or av1_image._leaf_lib() is None:
+        raise RuntimeError("the AV1 encoder's C engine is not loaded")
+    small = make_jpeg(300, 80, lambda s: synth_image(s, 640, 360))
+    still = make_jpeg(301, 80, lambda s: synth_image(s, 320, 240))
+    # (name, sources, width, output size, head module and function, the
+    # kernel it launches, one launch a "batch" or a "request", alpha?)
+    rounds = (
+        ("1080p JPEG -> w=400 AVIF (k=2, split int8)", jpegs[:4], 400,
+         (400, 225), (engine_jpeg, "decode_resize_yuv_lowfreq_i8_batch"),
+         "k1", "batch", False),
+        ("escape-dense JPEG -> w=400 AVIF (k=2, int16)", dense[:2], 400,
+         (400, 225), (engine_jpeg, "decode_resize_yuv_lowfreq_batch"), "k1",
+         "batch", False),
+        ("640x360 JPEG -> w=480 AVIF (k=8)", [small], 480, (480, 270),
+         (engine_jpeg, "decode_resize_yuv_i8_batch"), "k4", "batch", False),
+        ("1080p RGB PNG -> w=400 AVIF (rgbyuv head)", pngs[:2], 400,
+         (400, 225), (engine_rgb, "resample_rgb_yuv_batch"), "k2", "batch",
+         False),
+        ("1080p lossy WebP -> w=400 AVIF (yuv_resize)", webps[:2], 400,
+         (400, 225), (engine_yuv, "resize_yuv420_batch"), "k2", "batch",
+         False),
+        ("1080p RGBA PNG -> w=400 AVIF with alpha (plain RGB head)",
+         rgba_pngs[:2], 400, (400, 225),
+         (engine_rgb, "resample_bucketed_flat"), "k2_rgba", "batch", True),
+        ("320x240 JPEG -> AVIF, no resize (the pixel decode)", [still], None,
+         (320, 240), (dct, "decode_resize_rgb_batch"), "k3", "request",
+         False),
+    )
+    metrics = Metrics()
+    engine = BatchedEngine(
+        ImageKitConfig(secret=SECRET,
+                       batch=BatchConfig(max_queue_latency_s=0.0)),
+        metrics=metrics, device="cuda")
+    stages = ("decode_png", "vp8_decode", "entropy_decode", "device_decode",
+              "batch_build", "device_decode_resize", "device_resize",
+              "encode")
+
+    def counts():
+        return {"k1": jpeg8.LAUNCHES, "k2": resize_strip.LAUNCHES,
+                "k2_rgba": resize_strip.LAUNCHES_RGBA, "k3": rp.LAUNCHES,
+                "k4": rp.LAUNCHES_F32}
+
+    async def one(data, w):
+        t0 = time.perf_counter()
+        out = await engine.transform(data, w, None, ImageFormat.avif, 80)
+        return out, time.perf_counter() - t0
+
+    async def drive():
+        try:
+            await engine.warmup()
+            runs = []
+            for _, srcs, w, *_ in rounds:
+                batches0 = metrics.batches
+                stage0 = {k: metrics.stage_seconds[k] for k in stages}
+                wait0 = metrics.stage_wait_seconds["encode"]
+                jpeg8.LAUNCHES = resize_strip.LAUNCHES = 0
+                resize_strip.LAUNCHES_RGBA = 0
+                rp.LAUNCHES = rp.LAUNCHES_F32 = 0
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    res = await asyncio.gather(*(one(d, w) for d in srcs))
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                runs.append({"res": res, "wall": wall, "traced_wall": wall,
+                             **counts(), "busy": device_busy_s(prof),
+                             "batches": metrics.batches - batches0,
+                             "encode_wait": metrics.stage_wait_seconds[
+                                 "encode"] - wait0,
+                             "spent": {k: metrics.stage_seconds[k] - stage0[k]
+                                       for k in stages}})
+            return runs
+        finally:
+            await engine.close()
+
+    recs = [Recorder(*r[4]) for r in rounds]
+    for rec in recs:
+        rec.__enter__()
+    try:
+        runs = asyncio.run(drive())
+    finally:
+        for rec in reversed(recs):
+            rec.__exit__()
+    summary = {}
+    for (name, srcs, _, size, (_, head), kern, per, alpha), run, rec in zip(
+            rounds, runs, recs):
+        n_req = len(srcs)
+        for out, _ in run["res"]:
+            info = avif_info(out)
+            if info != (b"avif", [size], alpha):
+                raise RuntimeError(f"{name}: (brand, ispe, alpha item) "
+                                   f"{info}, not (avif, {[size]}, {alpha})")
+        p50, p99 = latency(run["res"])
+        rps = n_req / run["wall"]
+        idle, idle_line = idle_share(run, traced="the")
+        launched = {k: run[k] for k in ("k1", "k2", "k2_rgba", "k3", "k4")}
+        want = run["batches"] if per == "batch" else n_req
+        others = [k for k in launched if k != kern and launched[k]]
+        if want <= 0 or launched[kern] != want or others or (
+                per == "request" and run["batches"]):
+            raise RuntimeError(
+                f"{name}: {launched} launches and {run['batches']} batches; "
+                f"expected one {kern} launch a {per} and no other")
+        if not rec.calls:
+            raise RuntimeError(f"{name}: the head {head} was not called")
+        if kern == "k3":
+            mx, share1 = check_rgb_batch(rec.calls[-1])
+        else:
+            mx, share1 = check_path_batch(head, rec.calls[-1])
+        enc, wait = run["spent"]["encode"], run["encode_wait"]
+        log(f"  {name}: AV1 encode {enc / n_req:.4f} s a picture, "
+            f"{wait / n_req:.4f} s a request in the AVIF thread's queue; "
+            f"{n_req} concurrent requests in {run['wall']:.4f} s, "
+            f"{run['batches']} batches, launches {launched} [{card}]")
+        log(f"    one encode a request on one thread, not a throughput: "
+            f"{rps:.2f} req/s, p50 {p50:.2f} ms, p99 {p99:.2f} ms (of "
+            f"{n_req}: the slowest)")
+        log("    host seconds: " + ", ".join(
+            f"{k} {v:.4f} s ({v / n_req * 1e3:.2f} ms/request)"
+            for k, v in run["spent"].items() if v > 0))
+        log(idle_line)
+        log(f"    last batch ({head}) vs plain head: max|d|={mx} "
+            f"share(|d|{'>0' if kern == 'k3' else '=1'})={share1:.3e}; "
+            f"{sum(len(o) for o, _ in run['res']) / n_req / 1e3:.1f} kB a "
+            f"body")
+        summary[head] = {
+            "launches": launched[kern], "batches": run["batches"],
+            "encode_s": enc / n_req, "encode_wait_s": wait / n_req,
+            "idle_share": idle}
+    return summary
+
+
+def phase_avif_mixed(jpegs, card: str) -> dict:
+    """WebP traffic with AVIF requests among it, through one engine at the
+    default latency budget (2 s): 32 JPEG -> w=400 WebP alone, then the
+    same 32 with 2 AVIF requests at once (what an AVIF backlog does to
+    WebP latency), then 4 AVIF requests at once, which the AVIF lane's
+    own admission bound must shed as its rule says: the k-th is admitted
+    while k AVIF requests ahead times the mean measured encode seconds
+    stay within the budget."""
+    from imagekit_tpu_torch.config import ImageFormat, ImageKitConfig
+    from imagekit_tpu_torch.errors import EngineOverloaded
+    from imagekit_tpu_torch.serving.batcher import BatchedEngine
+    from imagekit_tpu_torch.serving.metrics import Metrics
+
+    engine = BatchedEngine(ImageKitConfig(secret=SECRET), metrics=Metrics(),
+                           device="cuda")
+    webp = [(jpegs[i % len(jpegs)], ImageFormat.webp) for i in range(32)]
+    avif = [(jpegs[i], ImageFormat.avif) for i in range(4)]
+
+    async def one(data, fmt):
+        t0 = time.perf_counter()
+        try:
+            out = await engine.transform(data, 400, None, fmt, 80)
+        except EngineOverloaded:
+            out = None
+        return out, time.perf_counter() - t0, fmt
+
+    async def drive():
+        try:
+            await engine.warmup()
+            await asyncio.gather(*(one(d, f) for d, f in webp))  # warm
+            alone = await asyncio.gather(*(one(d, f) for d, f in webp))
+            mixed = await asyncio.gather(*(one(d, f)
+                                           for d, f in avif[:2] + webp))
+            secs = list(engine._avif_secs)
+            burst = await asyncio.gather(*(one(d, f) for d, f in avif))
+            return alone, mixed, secs, burst
+        finally:
+            await engine.close()
+
+    alone, mixed, secs, burst = asyncio.run(drive())
+    for out, _, fmt in alone + mixed + burst:
+        if out is None:
+            continue
+        want = (b"WEBP", b"avif")[fmt == ImageFormat.avif]
+        if want not in out[:16]:
+            raise RuntimeError(f"mixed round: a {fmt.value} body is "
+                               f"{out[:16]!r}")
+    if any(out is None for out, _, _ in alone + mixed):
+        raise RuntimeError("mixed round: a request was shed below the "
+                           "AVIF lane's bound")
+    est = sum(secs) / len(secs)
+    admit = sum(k * est <= engine.admit_budget_s for k in range(len(avif)))
+    served = [out is not None for out, _, _ in burst]
+    if served != [k < admit for k in range(len(avif))]:
+        raise RuntimeError(f"AVIF burst: served {served}, the bound admits "
+                           f"the first {admit} at {est:.4f} s an encode")
+    w_alone = latency([(o, t) for o, t, _ in alone])
+    w_mixed = latency([(o, t) for o, t, f in mixed
+                       if f == ImageFormat.webp])
+    a_mixed = [t for _, t, f in mixed if f == ImageFormat.avif]
+    log(f"  mixed: 32 JPEG -> w=400 WebP alone p50 {w_alone[0]:.2f} ms, "
+        f"p99 {w_alone[1]:.2f} ms; with 2 AVIF among them p50 "
+        f"{w_mixed[0]:.2f} ms, p99 {w_mixed[1]:.2f} ms (single rounds); "
+        f"the 2 AVIF in {', '.join(f'{t:.4f}' for t in a_mixed)} s [{card}]")
+    log(f"  AVIF burst of {len(avif)} at a {engine.admit_budget_s} s budget "
+        f"and {est:.4f} s an encode (mean of {len(secs)}): served "
+        f"{sum(served)}, shed {len(avif) - sum(served)} (429), as the "
+        f"AVIF lane's bound says")
+    return {"webp_alone_ms": w_alone, "webp_mixed_ms": w_mixed,
+            "avif_mixed_s": a_mixed, "encode_s": est,
+            "served": sum(served)}
+
+
+# ---------------------------------------------------------------------------
+# phase 16: HTTP
 # ---------------------------------------------------------------------------
 
 
@@ -2043,6 +2326,23 @@ def phase_http(jpegs, png_bytes: bytes, webp_bytes: bytes,
                             raise RuntimeError(
                                 f"/img f=jpeg answered {r.status} "
                                 f"{dict(r.headers)}")
+                async with s.get(f"{base}/sign", params={
+                        "url": urls[3], "w": "400", "f": "avif",
+                        "q": "80"}) as r:
+                    signed = (await r.json())["signed_url"]
+                for attempt in range(2):
+                    async with s.get(base + signed) as r:
+                        body = await r.read()
+                        if (r.status != 200
+                                or r.headers["Content-Type"] != "image/avif"
+                                or "ETag" not in r.headers
+                                or avif_info(body) != (b"avif", [(400, 225)],
+                                                       False)):
+                            raise RuntimeError(
+                                f"/img f=avif answered {r.status} "
+                                f"{dict(r.headers)} {body[:64]!r}")
+                if len(list(cache_dir.glob("*.avif"))) != 1:
+                    raise RuntimeError("no .avif entry in the disk cache")
                 form = aiohttp.FormData()
                 form.add_field("file", png_bytes, filename="src.png")
                 form.add_field("w", "400")
@@ -2076,17 +2376,19 @@ def phase_http(jpegs, png_bytes: bytes, webp_bytes: bytes,
                         raise RuntimeError(
                             f"RGBA PNG /upload with no sizes answered "
                             f"{r.status} {body[:200]!r}")
-            if metrics.cache_hits != 9 or metrics.cache_misses != 9:
+            if metrics.cache_hits != 10 or metrics.cache_misses != 10:
                 raise RuntimeError(
                     f"cache hits {metrics.cache_hits}, misses "
-                    f"{metrics.cache_misses}; expected 9 and 9")
+                    f"{metrics.cache_misses}; expected 10 and 10")
         finally:
             await runner.cleanup()
             await src_runner.cleanup()
         return ("passed: 4 JPEG, 1 PNG and 1 WebP at w=400 and 1 JPEG at "
                 "w=1280 x (/sign -> /img 200 image/webp of the right size "
                 "with ETag, then a cache HIT); 1 JPEG /sign -> /img f=jpeg "
-                "200 image/jpeg 400x225, then a cache HIT; PNG /upload 200 "
+                "200 image/jpeg 400x225, then a cache HIT; 1 JPEG /sign -> "
+                "/img f=avif 200 image/avif 400x225 with ETag and a .avif "
+                "disk-cache entry, then a cache HIT; PNG /upload 200 "
                 "image/webp 400x225; 1 JPEG /img with no sizes 200 image/webp "
                 "1920x1080, then a cache HIT; RGBA PNG /upload with no sizes "
                 "200 image/webp 1920x1080")
@@ -2200,15 +2502,22 @@ def main() -> int:
     alpha = phase_alpha_and_single(rgba_pngs, others, jpegs, pngs, webps,
                                    card)
 
-    log(f"[15] HTTP: {phase_http(jpegs, pngs[0], webps[0], rgba_pngs[0])}")
+    log("[15] AVIF output through every head: BatchedEngine(device='cuda')"
+        ".transform, the first-party AV1 encoder on the host")
+    avif = phase_avif(jpegs, dense, pngs, webps, rgba_pngs, card)
+    phase_avif_mixed(jpegs, card)
+
+    log(f"[16] HTTP: {phase_http(jpegs, pngs[0], webps[0], rgba_pngs[0])}")
     log(f"    total {time.perf_counter() - t_start:.2f} s")
 
+    avif_n = {head: r["launches"] for head, r in avif.items()}
     kernels = [{
         "name": "jpeg8_folded_planes (K1)",
         "route": "cuda",
         "source": "imagekit_tpu_torch/csrc/jpeg8_folded.cu",
         "replaces": "imagekit_tpu/ops/pallas_jpeg8.py:159",
         "launches": eng["launches"],
+        "avif_launches": avif_n["decode_resize_yuv_lowfreq_i8_batch"],
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],
@@ -2221,6 +2530,7 @@ def main() -> int:
         "source": "imagekit_tpu_torch/csrc/resize_strip.cu",
         "replaces": "imagekit_tpu/ops/pallas_resize.py:155",
         "launches": png_eng["launches"],
+        "avif_launches": avif_n["resample_rgb_yuv_batch"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
@@ -2233,6 +2543,7 @@ def main() -> int:
         "source": "imagekit_tpu_torch/csrc/resize_planes.cu",
         "replaces": "imagekit_tpu/ops/pallas/resize_kernel.py:157",
         "launches": jxc["k3_launches"],
+        "avif_launches": avif_n["decode_resize_rgb_batch"],
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"],
         "plain_ms": k3["plain_ms"],
@@ -2247,6 +2558,7 @@ def main() -> int:
         "replaces": "imagekit_tpu/ops/pallas/resize_kernel.py:235",
         "launches": (paths["decode_resize_yuv_i8_batch"]["launches"]
                      + paths["decode_resize_yuv_batch"]["launches"]),
+        "avif_launches": avif_n["decode_resize_yuv_i8_batch"],
         "max_abs_err": max(k4_u8["max_abs_err"], k3["max_abs_err_f32"]),
         **{key: k4_u8[key] for key in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")},
@@ -2264,6 +2576,7 @@ def main() -> int:
         "source": "imagekit_tpu_torch/csrc/jpeg8_folded.cu",
         "replaces": "imagekit_tpu/ops/pallas_jpeg8.py:159",
         "launches": paths["decode_resize_yuv_lowfreq_batch"]["launches"],
+        "avif_launches": avif_n["decode_resize_yuv_lowfreq_batch"],
         **{key: k1_i16[key] for key in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by", "library_ms")},
     }, {
@@ -2274,6 +2587,7 @@ def main() -> int:
         "replaces": "imagekit_tpu/ops/pallas_resize.py:155",
         "launches": (paths["resize_yuv420_batch"]["launches"]
                      + paths["resize_yuv_jpeg_batch"]["launches"]),
+        "avif_launches": avif_n["resize_yuv420_batch"],
         **{key: k2_yuv[key] for key in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by", "library_ms")},
     }, {
@@ -2283,15 +2597,18 @@ def main() -> int:
         "source": "imagekit_tpu_torch/csrc/resize_strip.cu",
         "replaces": "imagekit_tpu/ops/pallas_resize.py:155",
         "launches": alpha["rgba_launches"],
+        "avif_launches": avif_n["resample_bucketed_flat"],
         **{key: k2_rgba[key] for key in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by", "library_ms")},
     }]
     # K3 also ran once per JPEG request with no resize (the pixel decode)
     if alpha["pixel_decode_launches"] <= 0:
         raise RuntimeError("no JPEG pixel decode launched K3")
-    idle = [k["name"] for k in kernels if k["launches"] <= 0]
+    idle = [k["name"] for k in kernels
+            if k["launches"] <= 0 or k["avif_launches"] <= 0]
     if idle:
-        raise RuntimeError(f"no engine path launched {idle}")
+        raise RuntimeError(
+            f"no engine path (or no AVIF round) launched {idle}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

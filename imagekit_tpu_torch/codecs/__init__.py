@@ -10,10 +10,11 @@ dispatchers (``:115-239``) over the port's decoders and encoders, all on
 extended (:mod:`.vp8`), GIF and BMP (:mod:`.misc`), TIFF (:mod:`.tiff`),
 Radiance HDR and farbfeld (:mod:`.longtail`), baseline 4:2:0 JPEG pixels
 (:mod:`.jpeg`, whose DCT and colour stages run on the device: the
-reference's serving path decodes JPEG pixels with Pillow); JPEG and WebP
-out. There is no host-library fallback: where the reference falls to
-Pillow (ICO, QOI, PNM and DDS sources, a variant a native decoder does not
-take, AVIF in or out) the port raises
+reference's serving path decodes JPEG pixels with Pillow); JPEG, WebP and
+AVIF (the first-party encoder, :mod:`.avif_encode`) out. There is no
+host-library fallback: where the reference falls to Pillow or libdav1d
+(ICO, QOI, PNM and DDS sources, a variant a native decoder does not take,
+AVIF sources) the port raises
 :class:`~imagekit_tpu_torch.errors.NotPortedError`.
 """
 
@@ -160,11 +161,14 @@ def decode_bytes(data: bytes, device=None) -> Tuple[np.ndarray, SourceFormat]:
 
 def encode_bytes(img: np.ndarray, fmt: ImageFormat, quality: int,
                  device=None) -> bytes:
-    """Encode an HWC uint8 array (RGB or RGBA; alpha is dropped). Quality
-    is clamped to [1, 100] like every encoder arm of the upstream service
+    """Encode an HWC uint8 array (RGB or RGBA). Quality is clamped to
+    [1, 100] like every encoder arm of the upstream service
     (``src/transform.rs:122-139``). JPEG: the fDCT on ``device`` (the card
     unless named), Huffman on the host. WebP: host colour conversion and
-    the host VP8 encoder."""
+    the host VP8 encoder. JPEG and WebP drop alpha. AVIF: host colour
+    conversion and the first-party AV1 encoder (:mod:`.avif_encode`),
+    which keeps a real alpha plane and drops an all-255 one, as the
+    reference's ``pil_backend.encode`` does."""
     q = int(min(max(quality, 1), 100))
     if fmt == ImageFormat.jpeg:
         from imagekit_tpu_torch.codecs import jpeg
@@ -174,6 +178,12 @@ def encode_bytes(img: np.ndarray, fmt: ImageFormat, quality: int,
         from imagekit_tpu_torch.codecs import vp8
 
         return vp8.encode_rgb(_to_rgb(img), q)
+    if fmt == ImageFormat.avif:
+        from imagekit_tpu_torch.codecs import avif_encode
+
+        if img.ndim == 2:
+            img = _to_rgb(img)
+        return avif_encode.encode_rgb(img, q)
     raise NotPortedError(f"{fmt.value} output from pixels", "queue 1 item 9")
 
 

@@ -2,7 +2,8 @@
 
 The port's copies of the reference's C++ codecs (``jpeg_entropy.cpp``,
 ``vp8_encode.cpp``, ``vp8_decode.cpp``, ``vp8l_decode.cpp``,
-``png_decode.cpp``, ``misc_decode.cpp``, ``tiff_decode.cpp``, beside this
+``png_decode.cpp``, ``misc_decode.cpp``, ``tiff_decode.cpp`` and the AV1
+encoder's entropy engine and leaf evaluation ``av1_enc.cpp``, beside this
 file) are compiled at first use:
 
     g++ -O3 -march=native -shared -fPIC <sources> -o libik_native.so -lz
@@ -28,7 +29,7 @@ from typing import Optional
 _HERE = Path(__file__).resolve().parent
 _SOURCES = ("jpeg_entropy.cpp", "vp8_encode.cpp", "vp8_decode.cpp",
             "vp8l_decode.cpp", "png_decode.cpp", "misc_decode.cpp",
-            "tiff_decode.cpp")
+            "tiff_decode.cpp", "av1_enc.cpp")
 _HEADERS = ("vp8_common.h", "vp8_tables.h")
 BUILD_DIR = _HERE.parents[2] / "build" / "imagekit_tpu_torch"
 _LIB = BUILD_DIR / "libik_native.so"

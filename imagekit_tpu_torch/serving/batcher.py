@@ -104,6 +104,18 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
         self._codec_pool = ThreadPoolExecutor(
             max_workers=workers, thread_name_prefix="ik-codec"
         )
+        # The first-party AV1 encoder runs Python between short C calls:
+        # AVIF encodes get one thread of their own, so that a backlog of
+        # them neither thrashes the interpreter lock (several encodes in
+        # threads take several times their serial sum, tools/avif_probe.py)
+        # nor holds the codec threads.
+        self._avif_pool = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="ik-avif"
+        )
+        # the AVIF lane's own admission: its requests in the system and
+        # the seconds of its recent encodes (_avif_admission_check)
+        self._avif_insystem = 0
+        self._avif_secs: "deque[float]" = deque(maxlen=16)
         # Two dispatch threads, one CUDA stream each: batch N+1's
         # host->device copy overlaps batch N's kernels and readback.
         self._device_pool = ThreadPoolExecutor(
@@ -203,19 +215,41 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
             self.metrics.inc("shed")
             raise EngineOverloaded(max(1.0, wait - budget))
 
+    def _avif_admission_check(self) -> None:
+        """Refuse an AVIF request its one encode thread cannot reach within
+        the latency budget: drain time = AVIF requests in the system times
+        the mean of the recent encodes' seconds. The engine-wide check
+        reads a completion rate that faster formats dominate; an AVIF
+        encode takes seconds, so without this bound its queue would grow
+        unseen until every format is shed. No encode yet admits."""
+        budget = self.admit_budget_s
+        if budget <= 0 or not self._avif_secs:
+            return
+        wait = self._avif_insystem * (
+            sum(self._avif_secs) / len(self._avif_secs))
+        if wait > budget:
+            self.metrics.inc("shed")
+            raise EngineOverloaded(max(1.0, wait - budget))
+
     @contextlib.contextmanager
-    def _admission(self):
+    def _admission(self, fmt: ImageFormat):
+        avif = fmt == ImageFormat.avif
+        if avif:
+            self._avif_admission_check()
         self._admission_check()
         self._insystem += 1
+        self._avif_insystem += avif
         try:
             yield
             self._done_times.append(time.monotonic())
         finally:
             self._insystem -= 1
+            self._avif_insystem -= avif
 
-    async def _pool_run(self, stage: str, fn, *args):
-        """Run ``fn`` on the codec pool; ``stage_seconds`` gets the time
-        inside the call, ``stage_wait_seconds`` the pool-queue time."""
+    async def _pool_run(self, stage: str, fn, *args, pool=None):
+        """Run ``fn`` on the codec pool (or ``pool``); ``stage_seconds``
+        gets the time inside the call, ``stage_wait_seconds`` the
+        pool-queue time."""
         loop = asyncio.get_running_loop()
         t_submit = time.perf_counter()
 
@@ -225,11 +259,12 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
             try:
                 return fn(*args)
             finally:
-                self.metrics.add_stage_time(
-                    stage, time.perf_counter() - t_start
-                )
+                spent = time.perf_counter() - t_start
+                self.metrics.add_stage_time(stage, spent)
+                if pool is self._avif_pool:
+                    self._avif_secs.append(spent)
 
-        return await loop.run_in_executor(self._codec_pool, timed)
+        return await loop.run_in_executor(pool or self._codec_pool, timed)
 
     async def _device_run(self, stage: str, fn, *args):
         """Run a single image's device step, ``fn(*args, device=...)``, on
@@ -260,7 +295,7 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
         fmt: ImageFormat,
         quality: int,
     ) -> bytes:
-        with self._admission():
+        with self._admission(fmt):
             return await self._resize_encode(img, w, h, fmt, quality)
 
     async def _resize_encode(
@@ -272,19 +307,16 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
         quality: int,
     ) -> bytes:
         """Queue decoded pixels for the RGB head: the fused output kinds of
-        3-channel sources, WebP (``"yuv"``) and JPEG (``"jpg"``), or the
-        plain head (``""``) for sources with alpha, whose resized pixels go
-        through :func:`~imagekit_tpu_torch.transform.encode_image`. With no
-        resize the pixels go straight to that encode."""
+        3-channel sources, WebP or AVIF (``"yuv"``) and JPEG (``"jpg"``),
+        or the plain head (``""``) for sources with alpha, whose resized
+        pixels go through :func:`~imagekit_tpu_torch.transform.
+        encode_image`. With no resize the pixels go straight to that
+        encode."""
         loop = asyncio.get_running_loop()
         self._ensure_flusher(loop)
         if img.ndim == 2:
             img = np.repeat(img[:, :, None], 3, axis=2)
         ih, iw, ch = img.shape
-        if fmt not in (ImageFormat.webp, ImageFormat.jpeg):
-            raise NotPortedError(
-                f"{fmt.value} output from an RGB source", "queue 1 item 9"
-            )
         if w is None and h is None:
             # no-op resize (src/transform.rs:67-69): straight to encode
             return await self._encode(img, fmt, quality)
@@ -300,6 +332,8 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
 
         if ch == 3 and fmt == ImageFormat.webp and vp8_native.available():
             okind = "yuv"
+        elif ch == 3 and fmt == ImageFormat.avif:
+            okind = "yuv"  # the planes are the AV1 encoder's input too
         elif ch == 3 and fmt == ImageFormat.jpeg:
             okind = "jpg"
         else:
@@ -323,7 +357,7 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
         fmt: ImageFormat,
         quality: int,
     ) -> bytes:
-        with self._admission():
+        with self._admission(fmt):
             return await self._transform_inner(data, w, h, fmt, quality)
 
     async def _transform_inner(
@@ -448,11 +482,12 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
         """One image's encode (:func:`~imagekit_tpu_torch.transform.
         encode_image`, in its two halves for a JPEG): the colour mix and
         fDCT on the engine's device from a dispatch thread, the Huffman or
-        VP8 coding on the codec pool."""
+        VP8 coding on the codec pool, an AVIF on the AVIF thread."""
         img = np.ascontiguousarray(img)
-        if fmt != ImageFormat.jpeg:  # a WebP has no device step
-            return await self._pool_run("encode", encode_image, img, fmt, q,
-                                        self.device)
+        if fmt != ImageFormat.jpeg:  # WebP and AVIF have no device step
+            return await self._pool_run(
+                "encode", encode_image, img, fmt, q, self.device,
+                pool=self._avif_pool if fmt == ImageFormat.avif else None)
         planes, qtabs = await self._device_run(
             "device_encode", jpeg.encode_levels, img, q)
         return await self._pool_run("encode", loader.encode_jpeg, planes,
@@ -473,5 +508,6 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
         if self._flusher is not None:
             self._flusher.cancel()
         self._codec_pool.shutdown(wait=False, cancel_futures=True)
+        self._avif_pool.shutdown(wait=False, cancel_futures=True)
         self._device_pool.shutdown(wait=False, cancel_futures=True)
 

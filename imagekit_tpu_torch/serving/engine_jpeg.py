@@ -4,8 +4,9 @@ Counterpart of ``imagekit_tpu/serving/engine_jpeg.py:39-195,217-612`` for
 the kinds the port serves, from a 4:2:0 (or grayscale) JPEG source with a
 resize:
 
-- ``"yuv"``, WebP output -> studio-range planes -> host VP8 encode. A
-  truncated decode (k = 2 or 4) is one K1 launch on CUDA:
+- ``"yuv"``, WebP or AVIF output -> studio-range planes -> host VP8 or
+  first-party AV1 encode. A truncated decode (k = 2 or 4) is one K1 launch
+  on CUDA:
   :func:`imagekit_tpu_torch.ops.dct.decode_resize_yuv_lowfreq_i8_batch` on
   the split-int8 transport, or, for an image whose escapes overflow it,
   :func:`~imagekit_tpu_torch.ops.dct.decode_resize_yuv_lowfreq_batch` on
@@ -82,14 +83,8 @@ class JpegPathMixin:
     ) -> bytes:
         from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
 
-        if fmt == ImageFormat.webp:
-            kind = "yuv"
-        elif fmt == ImageFormat.jpeg:
-            kind = "jxc"
-        else:
-            raise NotPortedError(
-                f"JPEG -> {fmt.value} output", "queue 1 item 7"
-            )
+        # WebP and AVIF outputs both take the studio-range planes
+        kind = "jxc" if fmt == ImageFormat.jpeg else "yuv"
         lib = loader.load()
         loop = asyncio.get_running_loop()
         self._ensure_flusher(loop)
@@ -322,7 +317,7 @@ class JpegPathMixin:
         cw = (it.out_w + 1) // 2
         await _settle(it, self._encode_yuv(
             yb[i, : it.out_h, : it.out_w], cbb[i, :ch, :cw], crb[i, :ch, :cw],
-            it.quality,
+            it.quality, it.fmt,
         ))
 
     async def _finish_rgb_jpeg(self, out, i: int, it) -> None:
@@ -431,9 +426,17 @@ class JpegPathMixin:
         self._dweights.put(wkey, cached)
         return cached
 
-    async def _encode_yuv(self, y, cb, cr, q: int) -> bytes:
-        """WebP encode from device-produced studio-range 4:2:0 planes:
-        only the VP8 bitstream runs on the host."""
+    async def _encode_yuv(self, y, cb, cr, q: int, fmt: ImageFormat) -> bytes:
+        """WebP or AVIF encode from device-produced studio-range 4:2:0
+        planes: only the VP8 or AV1 bitstream runs on the host
+        (``imagekit_tpu/serving/engine_yuv.py:488-517``)."""
+        if fmt == ImageFormat.avif:
+            from imagekit_tpu_torch.codecs import avif_encode
+
+            return await self._pool_run(
+                "encode", avif_encode.encode_yuv420_studio, y, cb, cr, q,
+                pool=self._avif_pool,
+            )
         from imagekit_tpu_torch.codecs import vp8 as vp8_native
 
         return await self._pool_run(

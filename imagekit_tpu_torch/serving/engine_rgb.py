@@ -1,11 +1,12 @@
-"""RGB-source head: decoded pixels -> K2 on the card -> WebP or JPEG.
+"""RGB-source head: decoded pixels -> K2 on the card -> WebP, JPEG or AVIF.
 
 Counterpart of ``imagekit_tpu/serving/engine_rgb.py:23-229``: the two
 fused output kinds of 3-channel sources, ``"yuv"`` (resample + studio YUV
-4:2:0, WebP output) and ``"jpg"`` (resample + YCbCr + fDCT/quantise, JPEG
-output), and the plain kind ``""`` of sources with alpha (resample only;
-each resized image is cropped and encoded through
-:func:`imagekit_tpu_torch.transform.encode_image`, which drops the alpha).
+4:2:0, WebP or AVIF output) and ``"jpg"`` (resample + YCbCr + fDCT/quantise,
+JPEG output), and the plain kind ``""`` of sources with alpha (resample
+only; each resized image is cropped and encoded through
+:func:`imagekit_tpu_torch.transform.encode_image`, which drops the alpha
+for WebP and JPEG and keeps a real one for AVIF).
 A batch is the reference's flat (B, H, W*C) u8 layout; the weight stacks
 are keyed per axis (``v_keys`` / ``h_keys``), edge-replicated past the true
 output for the fused kinds, and kept on the device with their band and
@@ -127,7 +128,7 @@ class RgbPathMixin:
         cw2 = (it.out_w + 1) // 2
         await _settle(it, self._encode_yuv(
             yb[i, : it.out_h, : it.out_w], ub[i, :ch2, :cw2],
-            vb[i, :ch2, :cw2], it.quality))
+            vb[i, :ch2, :cw2], it.quality, it.fmt))
 
     async def _finish_jpg(self, out, i: int, it: _Item) -> None:
         from imagekit_tpu_torch.codecs.native import loader

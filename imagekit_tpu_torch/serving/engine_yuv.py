@@ -1,5 +1,5 @@
-"""YUV-source head: decoded lossy WebP planes -> K2 on the card -> WebP or
-JPEG.
+"""YUV-source head: decoded lossy WebP planes -> K2 on the card -> WebP,
+JPEG or AVIF.
 
 Counterpart of ``imagekit_tpu/serving/engine_yuv.py:32-58,111-372`` for
 lossy WebP sources (studio-range BT.601 4:2:0, no alpha plane): the native
@@ -7,9 +7,10 @@ VP8 decode hands its planes over on the codec pool, a batch is the
 reference's flat (B, pad128(bh*bw*3/2)) u8 layout (Y, then Cb, then Cr;
 every plane starts on a multiple of 64 bytes, so K2 reads the three in
 place), and one call of
-:func:`imagekit_tpu_torch.ops.dct.resize_yuv420_batch` (WebP output) or
+:func:`imagekit_tpu_torch.ops.dct.resize_yuv420_batch` (WebP, AVIF output) or
 :func:`imagekit_tpu_torch.ops.dct.resize_yuv_jpeg_batch` (JPEG output), one
-K2 launch on CUDA, produces what the host VP8 or Huffman encoder takes.
+K2 launch on CUDA, produces what the host VP8, first-party AV1 or Huffman
+encoder takes (WebP and AVIF items share a batch).
 No RGB anywhere. The weight stacks live on the device with their band and
 compact tables.
 
@@ -50,16 +51,12 @@ class YuvPathMixin:
     async def _transform_webp_native(
         self, data: bytes, w, h, fmt: ImageFormat, quality: int
     ) -> bytes:
-        """Lossy WebP -> WebP or JPEG through the YUV-domain batch. Raises
-        ``_NativeUnsupported`` for what the pixel decode takes instead: a
-        lossless or extended container, and a corrupt stream (whose error
-        that decode reports)."""
+        """Lossy WebP -> WebP, JPEG or AVIF through the YUV-domain batch.
+        Raises ``_NativeUnsupported`` for what the pixel decode takes
+        instead: a lossless or extended container, and a corrupt stream
+        (whose error that decode reports)."""
         from imagekit_tpu_torch.codecs import vp8 as vp8_native
 
-        if fmt not in (ImageFormat.webp, ImageFormat.jpeg):
-            raise NotPortedError(
-                f"WebP -> {fmt.value} output", "queue 1 item 8"
-            )
         loop = asyncio.get_running_loop()
         self._ensure_flusher(loop)
 
@@ -77,7 +74,8 @@ class YuvPathMixin:
     async def _enqueue_yuv(self, planes, w, h, quality: int, loop,
                            fmt: ImageFormat) -> bytes:
         """Queue decoded studio-range planes; the output-format tag keeps
-        resize-only (WebP) and resize + fDCT (JPEG) batches homogeneous."""
+        resize-only (WebP, AVIF) and resize + fDCT (JPEG) batches
+        homogeneous."""
         y, cb, cr = planes
         ih, iw = y.shape
         out_w, out_h = target_dimensions(iw, ih, w, h)

@@ -32,6 +32,7 @@ have been traced with the real branch by another test.
 """
 
 import asyncio
+import struct
 
 import numpy as np
 import pytest
@@ -386,14 +387,15 @@ def test_escape_dense_jpeg_takes_the_rgb_head(monkeypatch, k3_semantics):
 
 @pytest.mark.parametrize("case", ["avif_out"])
 def test_jpeg_requests_outside_the_slice_are_not_ported(case):
-    """AVIF output waits for its encoder library; a downscale under 2x and
-    an escape-dense source to WebP, once here, are served
-    (``test_torch_webp_slice.py``)."""
+    """AVIF output, once here, is served: the YUV head and the first-party
+    AV1 encoder (``test_torch_avif_engine.py``), as are a downscale under 2x
+    and an escape-dense source to WebP (``test_torch_webp_slice.py``)."""
     data = encode_jpeg_pil(make_test_image(640, 480), 85)
     engine = PortEngine(_cfg(1), metrics=Metrics(), device="cpu")
-    with pytest.raises(NotPortedError, match="JPEG -> avif output") as e:
-        _drive(engine, [data], [240], ImageFormat.avif)
-    assert e.value.roadmap_item == "queue 1 item 7"
+    (out,) = _drive(engine, [data], [240], ImageFormat.avif)
+    assert out[4:12] == b"ftypavif"
+    assert engine.metrics.batches == 1
+    assert struct.pack(">II", 240, 180) in out[:out.find(b"mdat")]  # ispe
 
 
 def test_jpeg_that_is_not_420_names_the_pixel_decode():

@@ -220,10 +220,20 @@ def test_encode_bytes_makes_the_reference_bytes(fmt, channels):
         ref_transform.encode_image(img, fmt, 80)
 
 
-def test_encode_bytes_avif_and_empty():
+def test_encode_bytes_avif_and_empty(monkeypatch):
+    """AVIF: the reference's bytes through its first-party arm (its own
+    switch), alpha kept where it is real and dropped at 255."""
+    monkeypatch.setenv("IMAGEKIT_AVIF_FIRSTPARTY", "1")
     img = make_test_image(16, 16)
-    with pytest.raises(NotPortedError, match="avif output"):
-        codecs.encode_bytes(img, ImageFormat.avif, 80, device="cpu")
+    for x in (img, np.dstack([img, img[:, :, :1]]),
+              np.dstack([img, np.full((16, 16, 1), 255, np.uint8)]),
+              img[:, :, 0]):
+        for q in (0, 80):
+            got = codecs.encode_bytes(x, ImageFormat.avif, q, device="cpu")
+            assert got == ref_codecs.encode_bytes(x, ImageFormat.avif, q)
+            assert got[4:12] == b"ftypavif"
+    assert transform.encode_image(img, ImageFormat.avif, 80, device="cpu") \
+        == ref_transform.encode_image(img, ImageFormat.avif, 80)
     with pytest.raises(TransformError, match="empty image"):
         transform.encode_image(img[:0], ImageFormat.webp, 80, device="cpu")
     with pytest.raises(TransformError, match="empty image"):

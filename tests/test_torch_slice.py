@@ -26,7 +26,7 @@ from imagekit_tpu import config as ref_config
 from imagekit_tpu.codecs import vp8 as ref_vp8
 from imagekit_tpu.serving.metrics import Metrics as RefMetrics
 from imagekit_tpu_torch.cache import cloudflare_cache_headers
-from imagekit_tpu_torch.codecs import vp8
+from imagekit_tpu_torch.codecs import avif_encode, vp8
 from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
 from imagekit_tpu_torch.config import BatchConfig, ImageFormat, ImageKitConfig
 from imagekit_tpu_torch.errors import NotPortedError
@@ -154,13 +154,14 @@ def test_cuda_device_is_never_implicit():
 
 
 @pytest.mark.parametrize("case", ["png", "jpeg_out", "avif_out", "no_resize",
-                                  "upscale_k8", "webp_src", "rgba_png"])
+                                  "upscale_k8", "webp_src", "rgba_png",
+                                  "avif_src"])
 def test_off_slice_requests_raise_not_ported(case):
     """Each request outside the ported slices raises NotPortedError naming
-    its ROADMAP item (AVIF output is what is left here); an RGB PNG, a
-    JPEG to JPEG, a downscale under 2x (k=8), a lossy WebP source, an RGBA
-    PNG (the plain RGB head) and a request with no resize, once off the
-    slice, are now served."""
+    its ROADMAP item (an AVIF source is what is left here); an RGB PNG, a
+    JPEG to JPEG, AVIF output, a downscale under 2x (k=8), a lossy WebP
+    source, an RGBA PNG (the plain RGB head) and a request with no resize,
+    once off the slice, are now served."""
     img = make_test_image(320, 240)
     data, fmt, w = encode_jpeg_pil(img), ImageFormat.webp, 64
     if case == "png":
@@ -177,6 +178,8 @@ def test_off_slice_requests_raise_not_ported(case):
         w = 300
     elif case == "webp_src":
         data = ref_vp8.encode_rgb(img, 80)
+    elif case == "avif_src":
+        data = avif_encode.encode_rgb(img[:48, :64], 80)
     engine = PortEngine(_cfg(), metrics=Metrics(), device="cpu")
 
     async def run():
@@ -196,8 +199,13 @@ def test_off_slice_requests_raise_not_ported(case):
         hdr = jpeg_abi.parse(loader.load(), asyncio.run(run()))
         assert (hdr.width, hdr.height) == (64, 48)
         return
-    with pytest.raises(NotPortedError, match="ROADMAP"):
+    if case == "avif_out":
+        out = asyncio.run(run())
+        assert out[4:12] == b"ftypavif" and engine.metrics.batches == 1
+        return
+    with pytest.raises(NotPortedError, match="ROADMAP") as e:
         asyncio.run(run())
+    assert e.value.roadmap_item == "queue 1 item 8"
 
 
 # -- HTTP --------------------------------------------------------------------
@@ -233,6 +241,7 @@ SECRET = "test-secret-key"
 JPG = "https://example.com/a.jpg"
 PNG = "https://example.com/a.png"
 BMP = "https://example.com/a.bmp"
+AVIF = "https://example.com/a.avif"
 
 
 def _encode_bmp(img):
@@ -251,6 +260,8 @@ def _http(tmp_path, fn):
         JPG: ("image/jpeg", encode_jpeg_pil(img, 88)),
         PNG: ("image/png", encode_png(make_test_image(320, 240))),
         BMP: ("image/bmp", _encode_bmp(make_test_image(320, 240))),
+        AVIF: ("image/avif", avif_encode.encode_rgb(make_test_image(64, 48),
+                                                    80)),
     })
     metrics = Metrics()
 
@@ -298,7 +309,7 @@ def test_http_sign_then_img_serves_webp_then_hits_cache(tmp_path):
     ({"url": BMP, "w": "64"}, 200),          # BMP source: served
     ({"url": JPG, "w": "256", "f": "jpeg"}, 200),  # JPEG -> JPEG: served
     ({"url": JPG}, 200),                      # no resize: served
-    ({"url": JPG, "w": "256", "f": "avif"}, 501),  # AVIF output: not ported
+    ({"url": AVIF, "w": "256"}, 501),        # AVIF source: not ported
     ({"url": JPG, "w": "256", "q": "0"}, 400),  # the reference's own 400
     ({"url": PNG, "w": "64"}, 200),          # RGB PNG source: served
 ])

@@ -4,7 +4,8 @@
   JPEG -> WebP, one PNG -> JPEG and one JPEG -> JPEG request, then the
   WebP it made as a source (lossy WebP -> WebP and -> JPEG, and its pixel
   decode), then an RGBA PNG (the plain RGB head), a BMP, the JPEG with no
-  resize (the JPEG pixel decode and the single-image encode) and
+  resize (the JPEG pixel decode and the single-image encode), the JPEG and
+  the RGBA PNG to AVIF (the first-party AV1 encoder) and
   ``transform_bytes`` through ``BatchedEngine(device="cpu")`` (so that every
   lazy import runs), and then holds no ``imagekit_tpu`` module, no ``jax`` and
   no ``PIL``.
@@ -90,12 +91,15 @@ def test_port_serves_three_kinds_without_the_reference():
                     engine.transform(png4, 64, None, ImageFormat.webp, 80),
                     engine.transform(bmp, 64, None, ImageFormat.jpeg, 80),
                     engine.transform(jpeg, None, None, ImageFormat.jpeg, 80))
-                return first + second + third
+                avif = await asyncio.gather(
+                    engine.transform(jpeg, 32, None, ImageFormat.avif, 80),
+                    engine.transform(png4, 32, None, ImageFormat.avif, 80))
+                return first + second + third + avif
             finally:
                 await engine.close()
 
         (webp, png_jpeg, jpeg_jpeg, webp_webp, webp_jpeg, rgba_webp, bmp_jpeg,
-         same_size) = asyncio.run(run())
+         same_size, jpeg_avif, rgba_avif) = asyncio.run(run())
         lib = loader.load()
         from imagekit_tpu_torch.transform import transform_bytes
         whole = transform_bytes(png4, 32, None, ImageFormat.jpeg, 80,
@@ -113,6 +117,8 @@ def test_port_serves_three_kinds_without_the_reference():
                 [h.width, h.height] for h in (
                     jpeg_abi.parse(lib, bmp_jpeg), jpeg_abi.parse(lib, same_size),
                     jpeg_abi.parse(lib, whole))],
+            "avif": [[o[4:12].decode(), b"auxC" in o, len(o) > 100]
+                     for o in (jpeg_avif, rgba_avif)],
             "batches": engine.metrics.batches,
             "mods": sorted(sys.modules)}))
     """)
@@ -124,7 +130,9 @@ def test_port_serves_three_kinds_without_the_reference():
     assert res["webp"] == [64, 48] and res["jpegs"] == [[64, 48], [64, 48]]
     assert res["from_webp"] == [[32, 24], [32, 24], [48, 64, 3]]
     assert res["new"] == [[64, 48], [64, 48], [320, 240], [32, 24]]
-    assert res["batches"] == 7  # the request with no resize is no batch
+    # the first-party AV1 encoder: alpha kept where the source has it
+    assert res["avif"] == [["ftypavif", False, True], ["ftypavif", True, True]]
+    assert res["batches"] == 9  # the request with no resize is no batch
     mods = res["mods"]
     assert [m for m in mods if m == "imagekit_tpu"
             or m.startswith("imagekit_tpu.")] == []
@@ -137,7 +145,7 @@ def test_port_serves_three_kinds_without_the_reference():
 
 NATIVE = ("jpeg_entropy.cpp", "vp8_encode.cpp", "vp8_decode.cpp",
           "vp8l_decode.cpp", "vp8_common.h", "vp8_tables.h", "png_decode.cpp",
-          "misc_decode.cpp", "tiff_decode.cpp")
+          "misc_decode.cpp", "tiff_decode.cpp", "av1_enc.cpp")
 
 
 @pytest.mark.parametrize("name", NATIVE)

@@ -358,8 +358,9 @@ def test_yuv_batches_split_by_output_format():
 @pytest.mark.parametrize("case", ["rgba_lossless", "vp8x_alph", "avif_src",
                                   "avif_out", "no_resize"])
 def test_webp_requests_outside_the_slice_are_not_ported(case):
-    """AVIF in or out is what is left; WebPs with alpha (the plain RGB
-    head) and a request with no resize, once here, are served."""
+    """An AVIF source is what is left; WebPs with alpha (the plain RGB
+    head), a request with no resize and AVIF output (the YUV head and the
+    first-party AV1 encoder), once here, are served."""
     fmt, w, item = ImageFormat.webp, 32, "queue 1 item 9"
     engine = PortEngine(_cfg(1), metrics=Metrics(), device="cpu")
     if case in EXTENDED or case == "no_resize":
@@ -372,11 +373,12 @@ def test_webp_requests_outside_the_slice_are_not_ported(case):
                                        target_dimensions(iw, ih, w, None))
         assert engine.metrics.batches == (0 if w is None else 1)
         return
-    if case == "avif_src":
-        data, item = b"\x00\x00\x00\x1cftypavif" + b"\x00" * 64, "queue 1 item 8"
-    else:
+    if case == "avif_out":
         data = _libwebp(make_test_image(320, 240), 85)
-        fmt, item = ImageFormat.avif, "queue 1 item 8"
+        (out,) = _drive(engine, [data], [w], ImageFormat.avif)
+        assert out[4:12] == b"ftypavif" and engine.metrics.batches == 1
+        return
+    data, item = b"\x00\x00\x00\x1cftypavif" + b"\x00" * 64, "queue 1 item 8"
     with pytest.raises(NotPortedError, match="ROADMAP") as e:
         _drive(engine, [data], [w], fmt)
     assert e.value.roadmap_item == item
