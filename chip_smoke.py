@@ -16,8 +16,10 @@ k<8, K4 at k=8); a lossy WebP to WebP or JPEG (K2 on the decoded Y, Cb
 and Cr planes); an RGBA PNG to WebP or JPEG (the plain RGB head on K2's
 four-channel entry); BMP, TIFF and GIF sources; requests with no
 resize (one image's decode and encode: from a JPEG, the pixel decode on
-K3); and AVIF output through every one of those heads (the first-party AV1
-intra encoder on the host):
+K3); AVIF output through every one of those heads (the first-party AV1
+intra encoder on the host); and images beyond the bucket ladder (their
+exact-shape path, K2 in column strips where a row is too wide for a tile of
+whole rows):
 
 1. environment: the card (``nvidia-smi``), torch and CUDA versions;
 2. build: the kernel library (one nvcc per source, started together), the
@@ -102,10 +104,27 @@ intra encoder on the host):
     the default latency budget, 32 JPEG -> w=400 WebP alone and with 2
     AVIF among them (WebP p50/p99), and a burst of 4 AVIF that the AVIF
     lane's admission bound must shed by its rule;
-16. HTTP ``/sign`` -> ``/img`` for JPEG, PNG and WebP sources to WebP, a
+16. images beyond the bucket ladder. K2's column strips first: at the
+    flagship shapes (B=32, RGB and RGBA 1088x1920 -> 240x400) in strips of
+    128 columns against the whole-row body (max |d| = 0) and the plain
+    version, timed; on the 28,800-element rows of a 9600x2400 RGB image ->
+    1280x320 (B=1, the exact stacks) and at the plain head's 8192 RGBA
+    bucket (B=4), where whole rows do not fit, against the plain version,
+    timed, with an einsum yardstick and the bound; the host build and
+    upload of the exact path's dense stacks. Then, counts reset before
+    each round: a 1440x12000 page PNG -> w=400 WebP and JPEG, a 9600x2400
+    q80 JPEG (made by the port's encoder past the encode ladder) -> w=1280
+    WebP (K3's pixel decode, K2 in strips), two 7200x1800 RGBA PNGs ->
+    w=400 WebP (the batched plain head, K2 in strips), a 1080p JPEG ->
+    w=9000 JPEG and the 9600x2400 JPEG -> JPEG with no resize; outputs
+    parsed to their size, launches checked (strips where the rows need
+    them, whole rows where they fit), each exact-shape resize and the RGBA
+    batch against the plain version, wall times and host stages;
+17. HTTP ``/sign`` -> ``/img`` for JPEG, PNG and WebP sources to WebP, a
     JPEG to a 1280 px WebP, a JPEG to JPEG, a JPEG to AVIF, a JPEG with no
-    sizes, a PNG ``/upload`` and an RGBA PNG ``/upload`` with no sizes
-    through the port's app, where aiohttp is installed.
+    sizes, the 1440x12000 page PNG at w=400, a PNG ``/upload`` and an RGBA
+    PNG ``/upload`` with no sizes through the port's app, where aiohttp is
+    installed.
 
 Device times are the kernels' own, summed by ``torch.profiler`` over 20
 calls (the host's launch cost excluded); the bound is the larger of the
@@ -435,8 +454,11 @@ def device_ms(fn, reps: int = 20) -> float:
     """Device time of one call of ``fn``: the kernels it launches, summed
     by ``torch.profiler`` (CUPTI) over ``reps`` calls after a warm-up, so
     that the host's time to launch them is not counted. CUPTI now and then
-    hands back a trace with no device record in it: the trace is then taken
-    once more, and after a second empty one the calls are timed with CUDA
+    hands back a trace with no device record in it, or with fewer records
+    than calls (every call launches at least one kernel; on an H100 80GB
+    HBM3 at 700 W such a trace once summed a kernel to 0.0125 ms, under its
+    0.0211 ms bound): the trace is then taken
+    once more, and after a second short one the calls are timed with CUDA
     events instead (which count the gaps between a call's kernels too)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -450,13 +472,14 @@ def device_ms(fn, reps: int = 20) -> float:
             torch.cuda.synchronize()
         # the device's own activities (kernels, copies, fills); an
         # operator's device time repeats its kernels' and is not counted again
-        total = sum(e.time_range.elapsed_us() for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-        if total > 0:
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        total = sum(e.time_range.elapsed_us() for e in events)
+        if total > 0 and len(events) >= reps:
             return total / reps / 1e3
     ms = cuda_ms(fn, reps)
-    log(f"    (the profiler saw no device time in two traces: {ms:.4f} ms is "
-        f"the median of {reps} CUDA-event timings)")
+    log(f"    (two traces held fewer device records than calls: {ms:.4f} ms "
+        f"is the median of {reps} CUDA-event timings)")
     return ms
 
 
@@ -2227,12 +2250,348 @@ def phase_avif_mixed(jpegs, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 16: HTTP
+# phase 16: images beyond the bucket ladder
+# ---------------------------------------------------------------------------
+
+# the shapes of the phase: a full-page screenshot, a panorama, an RGBA
+# banner at the plain head's 8192 bucket, a 1080p upscale past the ladder
+PAGE = (1440, 12000)     # w, h
+PANORAMA = (9600, 2400)
+BANNER = (7200, 1800)
+UPSCALE_W = 9000
+MAX_INPUT = 8 * 1024 * 1024  # the service's input cap (config.py)
+
+
+def page_image(w: int, h: int, seed: int, alpha: bool = False) -> np.ndarray:
+    """Seeded page-like image, as a full-page screenshot or a tall
+    infographic is: a near-white page, flat coloured panels and lines of
+    dark text-like glyph cells; with ``alpha`` a fourth channel, a ramp
+    under the opaque panels (a banner over a page). No noise: its PNG stays
+    under the service's 8 MB input cap."""
+    rng = np.random.default_rng(seed)
+    img = np.full((h, w, 3), 248, np.uint8)
+    alpha_ch = (np.add.outer(np.arange(h), np.arange(w)) * 200
+                // (h + w)).astype(np.uint8) + 40
+    for _ in range(max(12, h * w // 600_000)):
+        pw, ph = int(rng.integers(64, w // 2)), int(rng.integers(32, 600))
+        x0, y0 = int(rng.integers(0, w - pw)), int(rng.integers(0, h - ph))
+        img[y0:y0 + ph, x0:x0 + pw] = rng.integers(0, 256, 3)
+        alpha_ch[y0:y0 + ph, x0:x0 + pw] = 255
+    cells = (w + 5) // 6
+    for y in range(24, h - 16, 18):  # a text line every 18 rows
+        if rng.random() < 0.25:
+            continue  # paragraph gaps
+        glyphs = np.repeat(rng.random(cells) < 0.55, 6)[:w]
+        glyphs[: int(rng.integers(20, 80))] = False  # margins
+        glyphs[w - int(rng.integers(20, w // 3)):] = False
+        img[y:y + 11, glyphs] = rng.integers(0, 90, 3)
+    return np.dstack([img, alpha_ch]) if alpha else img
+
+
+def exact_plain(img: np.ndarray, out_h: int, out_w: int) -> torch.Tensor:
+    """K2's plain version at the exact shape on the card, from the stacks
+    the exact-shape path builds: (out_h, out_w, C) u8."""
+    from imagekit_tpu_torch.ops import resize_strip
+    from imagekit_tpu_torch.ops.weights import exact_stacks
+
+    h, w, ch = img.shape
+    wv, wh = (torch.from_numpy(a).cuda() for a in exact_stacks(h, w, out_h,
+                                                                out_w))
+    x = torch.zeros((1, h, wh.shape[2] * ch), dtype=torch.uint8,
+                    device="cuda")
+    x.view(1, h, -1, ch)[0, :, :w] = torch.from_numpy(img).cuda()
+    idx = torch.zeros(1, dtype=torch.int32, device="cuda")
+    if ch == 4:
+        return resize_strip.rgba_resize_plain(x, wv, wh, idx, idx)[0]
+    return resize_strip.rgb_resize_plain(x, wv, wh, idx, idx)[0].permute(
+        1, 2, 0)
+
+
+def strip_case(x, wv, wh, vidx, hidx, channels: int, strip: int = 0):
+    """One of the phase's K2 cases: checks, times and bounds the kernel
+    (column strips where ``strip`` asks or the rows need them) against its
+    plain version and one fp32 einsum per channel; returns its numbers."""
+    from imagekit_tpu_torch.ops import resize_strip
+    from imagekit_tpu_torch.ops.resize_strip import band_table, resize_tables
+
+    tabs = resize_tables(wv, wh)
+    entry = resize_strip.rgba_resize if channels == 4 else resize_strip.rgb_resize
+    plain = (resize_strip.rgba_resize_plain if channels == 4
+             else resize_strip.rgb_resize_plain)
+    before = resize_strip.LAUNCHES_STRIPS
+    got = entry(x, wv, wh, vidx, hidx, bands=tabs, strip=strip)
+    torch.cuda.synchronize()
+    if resize_strip.LAUNCHES_STRIPS != before + 1:
+        raise RuntimeError("K2 did not take its column strips")
+    ref = plain(x, wv, wh, vidx, hidx)
+    mx, share1 = check_band("K2 in column strips", got, ref)
+    B, H, WC = x.shape
+    W = WC // channels
+    oh, ow = wv.shape[1], wh.shape[1]
+    ms = device_ms(lambda: entry(x, wv, wh, vidx, hidx, bands=tabs,
+                                 strip=strip))
+    plain_ms = device_ms(lambda: plain(x, wv, wh, vidx, hidx), reps=5)
+    wv_g, wh_g = wv[vidx.long()], wh[hidx.long()]
+    chans = [x.reshape(B, H, W, channels)[..., c].float()
+             for c in range(channels)]
+    library_ms = device_ms(lambda: [torch.einsum("boh,bhw,bpw->bop", wv_g,
+                                                 x_, wh_g) for x_ in chans],
+                           reps=5)
+    del chans, wv_g, wh_g
+    nbytes, flops = resize_bound(x.numel(), channels * B * oh * ow, wv,
+                                 tabs.band_v, band_table(wh), vidx, hidx, W)
+    bound_ms, bound_by = bound(nbytes, channels * flops)
+    return {"got": got, "max_abs_err": mx, "share1": share1, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_oversized(images, rgba_images, jpeg_1080: bytes, k2: dict,
+                    k2_rgba: dict, card: str) -> dict:
+    """K2's column strips (against whole rows at the flagship shapes,
+    against the plain version at the wide shapes), then requests beyond the
+    bucket ladder through one engine, the launch counts set to 0 before
+    each round and read after it. Returns the strip entry's numbers and the
+    page PNG (for the HTTP phase)."""
+    from imagekit_tpu_torch.codecs import jpeg
+    from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
+    from imagekit_tpu_torch.config import BatchConfig, ImageFormat, ImageKitConfig
+    from imagekit_tpu_torch.ops import jpeg8, resize, resize_strip
+    from imagekit_tpu_torch.ops import resize_planes as rp
+    from imagekit_tpu_torch.ops import weights
+    from imagekit_tpu_torch.serving import batcher, engine_rgb
+    from imagekit_tpu_torch.serving.batcher import BatchedEngine
+    from imagekit_tpu_torch.serving.metrics import Metrics
+    from imagekit_tpu_torch.utils.bucketing import bucket_for
+
+    out = {}
+    # -- strips against whole rows at the flagship shapes (B=32)
+    for channels, imgs, whole in ((3, images, k2), (4, rgba_images, k2_rgba)):
+        key = (1088, 1920, 240, 400, channels, "yuv" if channels == 3 else "")
+        wv, wh, _ = k2_stacks(key, SLICE_V, SLICE_H)
+        host = np.zeros((32, 1088, 1920 * channels), np.uint8)
+        for i in range(32):
+            host[i, :1080] = imgs[i % len(imgs)].reshape(1080, -1)
+        x = torch.from_numpy(host).cuda()
+        vidx, hidx = k2_index(32)
+        tabs = resize_strip.resize_tables(wv, wh)
+        entry = (resize_strip.rgba_resize if channels == 4
+                 else resize_strip.rgb_resize)
+        rows = entry(x, wv, wh, vidx, hidx, bands=tabs)
+        case = strip_case(x, wv, wh, vidx, hidx, channels, strip=128)
+        d = int((case["got"].to(torch.int32) - rows.to(torch.int32)).abs().max())
+        log(f"  K2 in strips of 128 columns vs whole rows, B=32 1088x1920x"
+            f"{channels} -> 240x400: max|d|={d}; vs plain max|d|="
+            f"{case['max_abs_err']}; device ms per call (torch.profiler over "
+            f"20): strips {case['ms']:.4f}, whole rows {whole['ms']:.4f} "
+            f"(phase {4 if channels == 3 else 13}), plain {case['plain_ms']:.4f}"
+            f", library {case['library_ms']:.4f}; bound {case['bound_ms']:.4f}"
+            f" ms ({case['bound_by']}) [{card}]")
+        if d != 0:
+            raise RuntimeError("K2's column strips differ from its whole rows")
+        out[f"flagship_{channels}ch"] = {k: v for k, v in case.items()
+                                         if k != "got"}
+        del x, rows, case
+
+    # -- the wide RGB rows of the panorama (B=1) and the RGBA 8192 bucket
+    pano_px = synth_image(7, *PANORAMA)
+    pw, ph = PANORAMA
+    ow, oh = weights.target_dimensions(pw, ph, 1280, None)
+    wv, wh = (torch.from_numpy(a).cuda()
+              for a in weights.exact_stacks(ph, pw, oh, ow))
+    x = torch.from_numpy(pano_px.reshape(1, ph, -1)).cuda()
+    idx = torch.zeros(1, dtype=torch.int32, device="cuda")
+    wide = strip_case(x, wv, wh, idx, idx, 3)
+    log(f"  K2 on {pw}x{ph} RGB rows ({pw * 3} elements) -> {ow}x{oh}, B=1, "
+        f"exact stacks, column strips: max|d|={wide['max_abs_err']} "
+        f"share(|d|=1)={wide['share1']:.3e}; device ms {wide['ms']:.4f}, plain"
+        f" {wide['plain_ms']:.4f}, library {wide['library_ms']:.4f}, bound "
+        f"{wide['bound_ms']:.4f} ({wide['bound_by']}) [{card}]")
+    out["wide_rgb"] = {k: v for k, v in wide.items() if k != "got"}
+    bw_, bh_ = BANNER
+    bo_w, bo_h = weights.target_dimensions(bw_, bh_, 400, None)
+    key = (bucket_for(bh_), bucket_for(bw_), bucket_for(bo_h),
+           bucket_for(bo_w), 4, "")
+    wv, wh, _ = k2_stacks(key, ((bh_, bo_h),), ((bw_, bo_w),))
+    banner_px = page_image(bw_, bh_, 3, alpha=True)
+    B = 4
+    host = np.zeros((B, key[0], key[1] * 4), np.uint8)
+    host[:, :bh_, : bw_ * 4] = banner_px.reshape(bh_, -1)
+    x = torch.from_numpy(host).cuda()
+    idx = torch.zeros(B, dtype=torch.int32, device="cuda")
+    bucket = strip_case(x, wv, wh, idx, idx, 4)
+    log(f"  K2 (4 channels) at the {key[0]}x{key[1]} bucket -> {key[2]}x"
+        f"{key[3]}, B={B} ({key[1] * 4}-element rows), column strips: "
+        f"max|d|={bucket['max_abs_err']}; device ms {bucket['ms']:.4f}, plain "
+        f"{bucket['plain_ms']:.4f}, library {bucket['library_ms']:.4f}, bound"
+        f" {bucket['bound_ms']:.4f} ({bucket['bound_by']}) [{card}]")
+    out["rgba_8192"] = {k: v for k, v in bucket.items() if k != "got"}
+    del x, wv, wh, host, bucket, wide
+    out["max_abs_err"] = max(out["wide_rgb"]["max_abs_err"],
+                             out["rgba_8192"]["max_abs_err"])
+
+    # -- the dense stacks of the exact-shape path: host build, upload
+    page_w, page_h = PAGE
+    src = jpeg_abi.parse(loader.load(), jpeg_1080)
+    up_w, up_h = weights.target_dimensions(src.width, src.height, UPSCALE_W,
+                                           None)
+    stack_geoms = {
+        "page Wv": (page_h, weights.target_dimensions(page_w, page_h, 400,
+                                                      None)[1]),
+        "upscale Wh": (src.width, up_w),
+        "panorama pixel-decode Wh (identity)": (pw, pw),
+    }
+    for name, (n_in, n_out) in stack_geoms.items():
+        filt = "nearest" if "identity" in name else "lanczos3"
+        t0 = time.perf_counter()
+        w_np = weights._resample_weights_impl(n_in, n_out, filt)
+        t1 = time.perf_counter()
+        w_dev = torch.as_tensor(w_np, device="cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        log(f"    stack {name} ({n_out}x{n_in} f32, {w_np.nbytes / 1e6:.1f} "
+            f"MB): numpy build {t1 - t0:.4f} s, pageable upload "
+            f"{t2 - t1:.4f} s (host clock)")
+        del w_dev, w_np
+
+    # -- the requests
+    t0 = time.perf_counter()
+    page = make_png(page_image(page_w, page_h, 1))
+    banner = make_png(banner_px)
+    pano = jpeg.encode_rgb(pano_px, 80, device="cuda")
+    log(f"    made a {page_w}x{page_h} page PNG ({len(page) / 1e6:.2f} MB), a "
+        f"{bw_}x{bh_} RGBA banner PNG ({len(banner) / 1e6:.2f} MB) and a "
+        f"{pw}x{ph} q80 JPEG ({len(pano) / 1e6:.2f} MB, the port's encoder "
+        f"past the encode ladder) in {time.perf_counter() - t0:.2f} s")
+    if max(len(page), len(banner), len(pano)) > MAX_INPUT:
+        raise RuntimeError("a source passes the service's 8 MB input cap")
+    W, J = ImageFormat.webp, ImageFormat.jpeg
+    # (name, source, requests, width, format, output size, K2 launches in
+    # strips?, K3 launches?)
+    page_size = weights.target_dimensions(page_w, page_h, 400, None)
+    rounds = [
+        (f"{page_w}x{page_h} page PNG -> w=400 WebP", page, 1, 400, W,
+         page_size, False, False),
+        (f"{page_w}x{page_h} page PNG -> w=400 JPEG", page, 1, 400, J,
+         page_size, False, False),
+        (f"{pw}x{ph} JPEG -> w=1280 WebP", pano, 1, 1280, W, (ow, oh), True,
+         True),
+        (f"{bw_}x{bh_} RGBA PNG -> w=400 WebP (8192 bucket)", banner, 2, 400,
+         W, (bo_w, bo_h), True, False),
+        (f"{src.width}x{src.height} JPEG -> w={UPSCALE_W} JPEG", jpeg_1080, 1,
+         UPSCALE_W, J, (up_w, up_h), False, True),
+        (f"{pw}x{ph} JPEG -> JPEG, no resize", pano, 1, None, J, (pw, ph),
+         None, True),
+    ]
+    metrics = Metrics()
+    engine = BatchedEngine(
+        ImageKitConfig(secret=SECRET,
+                       batch=BatchConfig(max_queue_latency_s=0.0)),
+        metrics=metrics, device="cuda")
+    stages = ("decode_png", "entropy_decode", "device_decode", "exact_resize",
+              "batch_build", "device_resize", "device_encode", "encode")
+
+    def counts():
+        return {"k1": jpeg8.LAUNCHES, "k2": resize_strip.LAUNCHES,
+                "k2_rgba": resize_strip.LAUNCHES_RGBA,
+                "k2_strips": resize_strip.LAUNCHES_STRIPS, "k3": rp.LAUNCHES,
+                "k3_strips": rp.LAUNCHES_STRIPS, "k4": rp.LAUNCHES_F32}
+
+    async def one(data, w, fmt):
+        t0 = time.perf_counter()
+        body = await engine.transform(data, w, None, fmt, 80)
+        return body, time.perf_counter() - t0
+
+    async def drive():
+        try:
+            await engine.warmup()
+            runs = []
+            for _, data, n_req, w, fmt, *_ in rounds:
+                batches0 = metrics.batches
+                stage0 = {k: metrics.stage_seconds[k] for k in stages}
+                jpeg8.LAUNCHES = resize_strip.LAUNCHES = 0
+                resize_strip.LAUNCHES_RGBA = resize_strip.LAUNCHES_STRIPS = 0
+                rp.LAUNCHES = rp.LAUNCHES_F32 = rp.LAUNCHES_STRIPS = 0
+                t0 = time.perf_counter()
+                res = await asyncio.gather(*(one(data, w, fmt)
+                                             for _ in range(n_req)))
+                runs.append({"res": res, "wall": time.perf_counter() - t0,
+                             **counts(),
+                             "batches": metrics.batches - batches0,
+                             "spent": {k: metrics.stage_seconds[k] - stage0[k]
+                                       for k in stages}})
+            return runs
+        finally:
+            await engine.close()
+
+    with Recorder(batcher, "resize_oversized") as rec_exact, \
+            Recorder(engine_rgb, "resample_bucketed_flat") as rec_flat:
+        runs = asyncio.run(drive())
+    rounds_out = {}
+    for (name, _, n_req, _, fmt, size, strips, k3), run in zip(rounds, runs):
+        for body, _ in run["res"]:
+            if out_dims(body) != (fmt.value, *size):
+                raise RuntimeError(f"{name}: output is {out_dims(body)}, not "
+                                   f"{fmt.value} {size}")
+        k2_n = run["k2"] + run["k2_rgba"]
+        log(f"  {name}: {n_req} request(s) in {run['wall']:.4f} s, "
+            f"{run['batches']} batches, launches "
+            f"{ {k: v for k, v in run.items() if k in counts()} } [{card}]")
+        log("    host seconds: " + ", ".join(
+            f"{k} {v:.4f} s" for k, v in run["spent"].items() if v > 0))
+        if (strips is None and k2_n) or (strips is not None and k2_n <= 0) \
+                or (k3 and run["k3"] <= 0) or (not k3 and run["k3"]) \
+                or (strips and run["k2_strips"] <= 0) \
+                or (strips is False and run["k2_strips"]) or run["k1"] \
+                or run["k4"]:
+            raise RuntimeError(f"{name}: launches {run}")
+        rounds_out[name] = {"wall_s": run["wall"], "launches": k2_n,
+                            "strip_launches": run["k2_strips"],
+                            "k3_launches": run["k3"],
+                            "batches": run["batches"],
+                            "spent": run["spent"]}
+    # what each exact-shape path resized, and the RGBA batch, against the
+    # plain version on the card
+    worst = 0
+    for args, _, got in rec_exact.calls:
+        img, out_h, out_w = args
+        ref = exact_plain(img, out_h, out_w)
+        mx, share1 = check_band("the exact-shape path",
+                                torch.from_numpy(got).cuda(), ref)
+        worst = max(worst, mx)
+        log(f"  exact-shape path {img.shape[1]}x{img.shape[0]} -> "
+            f"{out_w}x{out_h} vs plain: max|d|={mx} share(|d|=1)="
+            f"{share1:.3e}")
+    args, kw, flat_out = rec_flat.calls[-1]
+    xb, wv, wh, vidx, hidx, ch = args
+    plain = resize.resample_flat(xb, wv, wh, vidx, hidx, ch, kw["bands"],
+                                 resize=resize_strip.rgba_resize_plain)
+    mx, share1 = check_band(
+        "the plain RGB head at the 8192 bucket",
+        torch.from_numpy(flat_out.reshape(flat_out.shape[0], -1)).to(
+            plain.device), plain)
+    log(f"  RGBA batch at the 8192 bucket (resample_bucketed_flat) vs plain "
+        f"head: max|d|={mx} share(|d|=1)={share1:.3e}")
+    worst = max(worst, mx)
+    if len(rec_exact.calls) != 4:
+        raise RuntimeError(f"{len(rec_exact.calls)} exact-shape resizes, "
+                           f"expected 4")
+    out.update(rounds=rounds_out, page=page,
+               launches=sum(r["launches"] for r in rounds_out.values()),
+               strip_launches=sum(r["strip_launches"]
+                                  for r in rounds_out.values()),
+               engine_max_abs_err=worst)
+    out["max_abs_err"] = max(out["max_abs_err"], worst)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 17: HTTP
 # ---------------------------------------------------------------------------
 
 
 def phase_http(jpegs, png_bytes: bytes, webp_bytes: bytes,
-               rgba_png: bytes) -> str:
+               rgba_png: bytes, page_png: bytes) -> str:
     try:
         import aiohttp
         from aiohttp import web
@@ -2246,6 +2605,7 @@ def phase_http(jpegs, png_bytes: bytes, webp_bytes: bytes,
     from imagekit_tpu_torch.config import ImageKitConfig
     from imagekit_tpu_torch.fetch import Fetcher
     from imagekit_tpu_torch.ops._build import BUILD_DIR
+    from imagekit_tpu_torch.ops.weights import target_dimensions
     from imagekit_tpu_torch.serving.app import create_app
     from imagekit_tpu_torch.serving.metrics import Metrics
 
@@ -2269,9 +2629,13 @@ def phase_http(jpegs, png_bytes: bytes, webp_bytes: bytes,
         async def serve_webp(request):
             return web.Response(body=webp_bytes, content_type="image/webp")
 
+        async def serve_page(request):
+            return web.Response(body=page_png, content_type="image/png")
+
         src.router.add_get("/src{i}.jpg", serve)
         src.router.add_get("/src.png", serve_png)
         src.router.add_get("/src.webp", serve_webp)
+        src.router.add_get("/page.png", serve_page)
         src_runner = web.AppRunner(src)
         await src_runner.setup()
         src_site = web.TCPSite(src_runner, "127.0.0.1", 0)
@@ -2366,6 +2730,20 @@ def phase_http(jpegs, png_bytes: bytes, webp_bytes: bytes,
                             raise RuntimeError(
                                 f"/img with no sizes answered {r.status} "
                                 f"{body[:200]!r}")
+                # an image beyond the bucket ladder: the exact-shape path
+                async with s.get(f"{base}/sign", params={
+                        "url": f"{local}/page.png", "w": "400"}) as r:
+                    signed = (await r.json())["signed_url"]
+                page_size = target_dimensions(*PAGE, 400, None)
+                for attempt in range(2):
+                    async with s.get(base + signed) as r:
+                        body = await r.read()
+                        if (r.status != 200
+                                or r.headers["Content-Type"] != "image/webp"
+                                or vp8.dimensions(body) != page_size):
+                            raise RuntimeError(
+                                f"/img of the {PAGE[0]}x{PAGE[1]} page "
+                                f"answered {r.status} {body[:200]!r}")
                 form = aiohttp.FormData()
                 form.add_field("file", rgba_png, filename="logo.png")
                 async with s.post(base + "/upload", data=form) as r:
@@ -2376,10 +2754,10 @@ def phase_http(jpegs, png_bytes: bytes, webp_bytes: bytes,
                         raise RuntimeError(
                             f"RGBA PNG /upload with no sizes answered "
                             f"{r.status} {body[:200]!r}")
-            if metrics.cache_hits != 10 or metrics.cache_misses != 10:
+            if metrics.cache_hits != 11 or metrics.cache_misses != 11:
                 raise RuntimeError(
                     f"cache hits {metrics.cache_hits}, misses "
-                    f"{metrics.cache_misses}; expected 10 and 10")
+                    f"{metrics.cache_misses}; expected 11 and 11")
         finally:
             await runner.cleanup()
             await src_runner.cleanup()
@@ -2390,8 +2768,10 @@ def phase_http(jpegs, png_bytes: bytes, webp_bytes: bytes,
                 "/img f=avif 200 image/avif 400x225 with ETag and a .avif "
                 "disk-cache entry, then a cache HIT; PNG /upload 200 "
                 "image/webp 400x225; 1 JPEG /img with no sizes 200 image/webp "
-                "1920x1080, then a cache HIT; RGBA PNG /upload with no sizes "
-                "200 image/webp 1920x1080")
+                "1920x1080, then a cache HIT; a 1440x12000 page PNG /img "
+                "w=400 200 image/webp 400x3333 (the exact-shape path), then "
+                "a cache HIT; RGBA PNG /upload with no sizes 200 image/webp "
+                "1920x1080")
 
     return asyncio.run(run())
 
@@ -2507,7 +2887,11 @@ def main() -> int:
     avif = phase_avif(jpegs, dense, pngs, webps, rgba_pngs, card)
     phase_avif_mixed(jpegs, card)
 
-    log(f"[16] HTTP: {phase_http(jpegs, pngs[0], webps[0], rgba_pngs[0])}")
+    log("[16] images beyond the bucket ladder: K2's column strips, then "
+        "BatchedEngine(device='cuda').transform at exact shapes")
+    over = phase_oversized(images, rgba_images, jpegs[0], k2, k2_rgba, card)
+
+    log(f"[17] HTTP: {phase_http(jpegs, pngs[0], webps[0], rgba_pngs[0], over['page'])}")
     log(f"    total {time.perf_counter() - t_start:.2f} s")
 
     avif_n = {head: r["launches"] for head, r in avif.items()}
@@ -2600,15 +2984,35 @@ def main() -> int:
         "avif_launches": avif_n["resample_bucketed_flat"],
         **{key: k2_rgba[key] for key in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by", "library_ms")},
+    }, {
+        "name": "rgb_resize / rgba_resize in column strips (K2's body on rows "
+                "too wide for a tile of whole rows: images beyond the bucket "
+                "ladder, RGBA at the 8192 bucket); numbers of the 9600x2400 "
+                "RGB rows -> 1280x320",
+        "route": "cuda",
+        "source": "imagekit_tpu_torch/csrc/resize_strip.cu",
+        "replaces": "imagekit_tpu/ops/pallas_resize.py:155",
+        "launches": over["strip_launches"],
+        "max_abs_err": over["max_abs_err"],
+        **{key: over["wide_rgb"][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "rgba_8192_bucket": {key: over["rgba_8192"][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+        "flagship_strips_of_128": {
+            f"{ch}ch": {key: over[f"flagship_{ch}ch"][key] for key in (
+                "ms", "bound_ms", "library_ms")} for ch in (3, 4)},
     }]
     # K3 also ran once per JPEG request with no resize (the pixel decode)
     if alpha["pixel_decode_launches"] <= 0:
         raise RuntimeError("no JPEG pixel decode launched K3")
     idle = [k["name"] for k in kernels
-            if k["launches"] <= 0 or k["avif_launches"] <= 0]
+            if k["launches"] <= 0 or k.get("avif_launches", 1) <= 0]
     if idle:
         raise RuntimeError(
             f"no engine path (or no AVIF round) launched {idle}")
+    if over["launches"] <= 0:
+        raise RuntimeError("no path beyond the bucket ladder launched K2")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

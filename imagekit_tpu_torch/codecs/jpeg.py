@@ -23,6 +23,9 @@ import torch
 
 from imagekit_tpu_torch.errors import NotPortedError, TransformError
 
+#: the largest side a baseline JPEG's frame header can state
+JPEG_MAX_SIDE = 65535
+
 
 def decode_error(e) -> Exception:
     """Native decoder failure -> the port's error: an unsupported coding
@@ -70,15 +73,17 @@ def decode_rgb(data: bytes, device: Optional[torch.device] = None
 def encode_levels(img: np.ndarray, quality: int,
                   device: Optional[torch.device] = None):
     """The device half of :func:`encode_rgb`: RGB -> YCbCr + 4:2:0
-    subsample + fDCT + quantise; (coefficient planes, quant tables). An
-    image beyond the encode ladder is a path not ported (the reference
-    hands it to Pillow)."""
+    subsample + fDCT + quantise; (coefficient planes, quant tables). Any
+    size up to the JPEG limit of 65535 a side: the reference hands an image
+    beyond its bucket ladder to Pillow, whose failures past that limit are
+    a ``TransformError``, as here."""
     from imagekit_tpu_torch.ops import dct as dct_ops
 
-    try:
-        return dct_ops.encode_rgb_to_coefficients(img, quality, device=device)
-    except ValueError as e:
-        raise NotPortedError(str(e), "queue 1 item 11") from None
+    h, w = img.shape[:2]
+    if max(h, w) > JPEG_MAX_SIDE:
+        raise TransformError(f"image {w}x{h} exceeds the JPEG limit of "
+                             f"{JPEG_MAX_SIDE} pixels a side")
+    return dct_ops.encode_rgb_to_coefficients(img, quality, device=device)
 
 
 def encode_rgb(img: np.ndarray, quality: int,

@@ -24,7 +24,8 @@
 //
 // Design, and what each point answers:
 // - One grid for every plane: blockIdx.x walks plane 0's (image, tile of
-//   TR output rows), then plane 1's, then plane 2's; each plane's pointers,
+//   TR output rows, strip of output columns), then plane 1's, then plane
+//   2's; each plane's pointers,
 //   strides and shapes come by value in the kernel's parameter block
 //   (__grid_constant__). A plane's tiles of one image are neighbours in the
 //   grid, so the rows two tiles share come from L2 the second time.
@@ -56,13 +57,30 @@
 //   groups, so a wider block would idle). So the tile is shorter than the
 //   earlier kernel's 8 rows, where taller tiles (16-32 rows) were the aim:
 //   a whole 5760-float RGB row of f32 is 23 KB, and two blocks an SM leave
-//   room for 4 of them. Column strips (a tile of some 960 columns plus a
-//   ~32-column halo) would allow 8-16 rows in the same shared memory; they
-//   are the next step for this body, to be measured against it. An RGBA
-//   row of 1920 pixels is 30 KB of f32: two blocks an SM leave room for 2 of
-//   them (TR 2, 77 KB a block), so each input row is widened for about 16
-//   rows' worth of tiles where RGB's TR 4 widens it for about 10; four rows
-//   need 137 KB, one block an SM (PERF.md, section 6, has both measured).
+//   room for 4 of them. An RGBA row of 1920 pixels is 30 KB of f32: two
+//   blocks an SM leave room for 2 of them (TR 2, 77 KB a block), so each
+//   input row is widened for about 16 rows' worth of tiles where RGB's TR 4
+//   widens it for about 10; four rows need 137 KB, one block an SM
+//   (PERF.md, section 6, has both measured).
+// - Column strips, where whole rows do not fit even at TR 2 in the largest
+//   budget (rows past about 26,700 elements: a 9600-px RGB row of an image
+//   beyond the bucket ladder, an RGBA row of the 8192 bucket; a row held
+//   whole would need shared memory growing with IW). A block then takes
+//   one strip of output columns [q, q_end), and pass 1 widens only the
+//   input elements that the strip's compact windows cover, [start_q
+//   rounded down to a whole load, start_{q_end-1} + T rounded up), into a
+//   tile whose pitch follows the strip's width and the horizontal scale,
+//   not IW (band_geometry picks the tallest TR and the widest strip that
+//   fit the preferred budget, strips no narrower than kMinStrip). Each
+//   output sums the same terms in the same order as with whole rows, so
+//   the bytes are the whole-row body's (held under the CPU shim and on the
+//   card). Starts that never fall are bounded by the window ends
+//   (compact_table gives pad columns a neighbour's start so that they do
+//   not fall); other stacks search their span column by column, more than
+//   one span a strip where the windows spread. Tile elements past the row
+//   (an upscale's last windows) are zeros. Launches with no plane in
+//   strips take an instantiation without them (kStrips), whose code is the
+//   whole-row body's alone.
 // - Pass 2 (horizontal) reads Wh through a compact table: output column p
 //   takes Wh[p][start_p : start_p + T], start_p the band's first
 //   column rounded down to a multiple of 4, T the widest such window
@@ -81,8 +99,9 @@
 // Tried and not kept: deeper or shallower rings, 16-byte u8 loads, 192 or
 // 384 threads, 8-row tiles at one block per SM, a runtime row predicate in
 // place of the compiled runs, batched tap loads in pass 2.
-// Not done: column strips (above), TMA, tensor cores (split-bf16 wgmma
-// would hold the band; TF32 would not).
+// Not done: column strips where whole rows fit (at the flagship slower
+// for RGB rows, about even for RGBA: PERF.md section 6), TMA, tensor cores
+// (split-bf16 wgmma would hold the band; TF32 would not).
 //
 // The body also compiles as plain C++ under a small shim (one thread per
 // block) for the CPU tests: launches go through IK_LAUNCH, dynamic shared
@@ -158,12 +177,20 @@ struct IkPlane {
   // set (Y and chroma of one launch remap with different constants)
   float scale, pre, post;
   int affine;
+  // output columns a block takes: 0 lets band_resize choose (whole rows
+  // where they fit, else strips); a caller may ask for strips of this
+  // width where whole rows would fit (to hold the two bodies against each
+  // other)
+  int strip;
 };
 
 struct IkBandLaunch {
   IkPlane p[kBandPlanes];
   int block0[kBandPlanes + 1];  // first block of each plane; total last
   int tiles[kBandPlanes];       // row tiles per image
+  int strips[kBandPlanes];      // column strips per row tile
+  int sw[kBandPlanes];          // output columns per strip
+  int spans[kBandPlanes];       // 0: whole rows; 1: strips, windows searched
   int pitch[kBandPlanes];       // tile row pitch in floats
   int centered;
 };
@@ -316,7 +343,55 @@ __device__ __forceinline__ void dispatch_run(int a, int b, Body& body, int i0,
   }
 }
 
-template <typename Tin, typename Tout, int TR, int NCH>
+// The span of a strip's output columns from q: the longest run [q, q1)
+// whose compact windows [start_p, start_p + T) fit a tile row of pitch
+// floats, and the input elements [e_lo, e_lo + e_n) they cover, both whole
+// loads, into span[] for every thread. Starts that never fall (the stacks
+// compact_table makes) are searched by halves, others column by column;
+// one column always fits (band_resize sizes the pitch so).
+template <int NCH, int kCpt>
+__device__ __forceinline__ void strip_span(const int32_t* st, int T, int q,
+                                           int q_end, int pitch, int* span) {
+  int falls = 0;
+  for (int p = q + threadIdx.x; p + 1 < q_end; p += blockDim.x)
+    falls |= st[p + 1] < st[p];
+  falls = __syncthreads_or(falls);
+  if (threadIdx.x == 0) {
+    auto e_floor = [](int col) { return col * NCH / kCpt * kCpt; };
+    auto e_ceil = [](int col) { return (col * NCH + kCpt - 1) / kCpt * kCpt; };
+    int lo = st[q], hi = st[q] + T, q1 = q + 1;
+    if (!falls) {
+      int a = q + 1, z = q_end;  // the last end that fits lies in [a, z]
+      while (a < z) {
+        const int m = (a + z + 1) / 2;
+        if (e_ceil(st[m - 1] + T) - e_floor(lo) <= pitch)
+          a = m;
+        else
+          z = m - 1;
+      }
+      q1 = a;
+      hi = st[q1 - 1] + T;
+    } else {
+      for (; q1 < q_end; ++q1) {
+        const int nlo = min(lo, st[q1]);
+        const int nhi = max(hi, st[q1] + T);
+        if (e_ceil(nhi) - e_floor(nlo) > pitch) break;
+        lo = nlo;
+        hi = nhi;
+      }
+    }
+    span[0] = e_floor(lo);
+    span[1] = e_ceil(hi) - span[0];
+    span[2] = q1;
+  }
+  __syncthreads();
+}
+
+// kStrips: the launch has a plane in column strips. A launch of whole
+// rows only takes the instantiation without them, whose code is the
+// whole-row body's alone (the strips' bookkeeping costs registers, and
+// spills where a tile row's accumulators already fill them).
+template <typename Tin, typename Tout, int TR, int NCH, bool kStrips>
 __global__ void __launch_bounds__(band_threads<Tin, NCH>(),
                                   512 / band_threads<Tin, NCH>())
 band_resize_kernel(const __grid_constant__ IkBandLaunch L) {
@@ -327,12 +402,14 @@ band_resize_kernel(const __grid_constant__ IkBandLaunch L) {
   // NCH is every plane's C (band_resize checks it)
   constexpr int kCpt = Vec<Tin>::kCpt;
   IK_DYN_SMEM(float, smem);
-  __shared__ int rows_f[TR], rows_l[TR], window[2];
+  __shared__ int rows_f[TR], rows_l[TR], window[2], span[3];
 
   int pi = 0;
   while (pi + 1 < kBandPlanes && (int)blockIdx.x >= L.block0[pi + 1]) ++pi;
   const IkPlane& P = L.p[pi];
-  const int rel = blockIdx.x - L.block0[pi];
+  const int nstrips = kStrips ? L.strips[pi] : 1;
+  const int rel = (blockIdx.x - L.block0[pi]) / nstrips;
+  const int strip = blockIdx.x - L.block0[pi] - rel * nstrips;
   const int b = rel / L.tiles[pi];
   const int o0 = (rel - b * L.tiles[pi]) * TR;
   const int pitch = L.pitch[pi];
@@ -385,118 +462,158 @@ band_resize_kernel(const __grid_constant__ IkBandLaunch L) {
   const int lo = window[0];
   const int hi = window[1];
 
-  // Pass 1: tile[r][e] = sum over i in row r's band of Wv[o0 + r][i] * x[i][e]
   const Tin* xb = static_cast<const Tin*>(P.x) + (size_t)b * P.sb;
-  const int ngroups = pitch / kCpt;
-  const int nchunks = max(1, (hi - lo + kBandChunk - 1) / kBandChunk);
-  for (int ci = 0; ci < nchunks; ++ci) {
-    const int c0 = lo + ci * kBandChunk;
-    const int c1 = min(hi, c0 + kBandChunk);
-    __syncthreads();  // the previous chunk's weights are no longer read
-    for (int k = threadIdx.x; k < (c1 - c0) * TR; k += blockDim.x) {
-      const int i = k / TR;
-      const int o = o0 + (k - i * TR);
-      w_s[k] = o < P.OH ? wv_b[(size_t)o * P.IH + c0 + i] : 0.0f;
-    }
-    __syncthreads();
-    for (int g = threadIdx.x; g < ngroups; g += blockDim.x) {
-      const int e0 = g * kCpt;
-      float acc[TR][kCpt];
-#pragma unroll
-      for (int r = 0; r < TR; ++r)
-#pragma unroll
-        for (int c = 0; c < kCpt; ++c)
-          acc[r][c] = ci == 0 ? 0.0f : tile[(size_t)r * pitch + e0 + c];
-      Pass1<Tin, TR> body{acc, ring + threadIdx.x, (int)blockDim.x,
-                          xb + (size_t)c0 * P.sh + e0, P.sh, w_s, c1 - c0};
-      body.start();
-      int i = c0, a = 0, nb = 0;
-      while (i < c1) {
-        while (nb < TR && rows_f[nb] <= i) ++nb;
-        while (a < TR && rows_l[a] <= i) ++a;
-        int nxt = c1;
-        if (nb < TR) nxt = min(nxt, rows_f[nb]);
-        if (a < TR) nxt = min(nxt, rows_l[a]);
-        if (a < nb)
-          dispatch_run<TR, 0, 1>(a, nb, body, i, nxt);
-        else
-          body.skip(i, nxt);  // a gap: no tile row reads these input rows
-        i = nxt;
-      }
-#pragma unroll
-      for (int r = 0; r < TR; ++r)
-#pragma unroll
-        for (int c = 0; c < kCpt; ++c) tile[(size_t)r * pitch + e0 + c] = acc[r][c];
-    }
-  }
-  __syncthreads();
 
-  // Pass 2: out[ch][o0 + r][p] = sum_t taps[p][t] * tile[r][(start_p + t)*C + ch]
-  // One thread per output column p takes every channel and every row of
-  // the tile, so each tap is loaded once for NCH * TR sums.
-  const int nr = min(TR, P.OH - o0);
-  const int32_t* st = P.start_h + (size_t)uh * P.OW;
-  const float4* taps = reinterpret_cast<const float4*>(P.taps_h) +
-                       (size_t)uh * (P.T / 4) * P.OW;
-  Tout* out_b = static_cast<Tout*>(P.out) + (size_t)b * P.osb + (size_t)o0 * P.OW;
-  for (int p = threadIdx.x; p < P.OW; p += blockDim.x) {
-    const float* t0 = tile + (size_t)st[p] * NCH;
-    const float4* w4 = taps + p;  // step s at w4[s * OW]
-    float acc[NCH][TR];
-#pragma unroll
-    for (int ch = 0; ch < NCH; ++ch)
-#pragma unroll
-      for (int r = 0; r < TR; ++r) acc[ch][r] = 0.0f;
-    // four taps from t on: start_p % 4 == 0 (compact_table), so they are
-    // NCH aligned float4s of each tile row
-    auto step = [&](const float4 w, int t) {
-      const float wt[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-      for (int r = 0; r < TR; ++r) {
-        float v[4 * NCH];
-        const float4* tv =
-            reinterpret_cast<const float4*>(t0 + (size_t)r * pitch + t * NCH);
-#pragma unroll
-        for (int q = 0; q < NCH; ++q) {
-          const float4 f = tv[q];
-          v[4 * q] = f.x;
-          v[4 * q + 1] = f.y;
-          v[4 * q + 2] = f.z;
-          v[4 * q + 3] = f.w;
-        }
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-#pragma unroll
-          for (int ch = 0; ch < NCH; ++ch)
-            acc[ch][r] = fmaf(wt[k], v[k * NCH + ch], acc[ch][r]);
+  // The block's output columns [q, q_end) go in spans, each a pass 1 over
+  // the input elements [e_lo, e_lo + e_n) that its compact windows cover
+  // and a pass 2 over its columns. Whole rows: one span, every element.
+  // A strip: as many columns a span as the tile's pitch holds (all of them
+  // where the strip's windows fit, as band_resize sized them).
+  // (Without strips nothing of this is live through pass 1: q and e_lo
+  // are 0, and pass 2 reads its end from P.)
+  int q = 0, q_end = 0;
+  if constexpr (kStrips) {
+    q = strip * L.sw[pi];
+    q_end = min(P.OW, q + L.sw[pi]);
+  }
+  do {
+    int e_lo = 0, e_n = pitch, q1 = q_end;
+    if (kStrips && L.spans[pi]) {
+      strip_span<NCH, kCpt>(P.start_h + (size_t)uh * P.OW, P.T, q, q_end,
+                            pitch, span);
+      e_lo = span[0];
+      e_n = span[1];
+      q1 = span[2];
+    }
+
+    // Pass 1: tile[r][e - e_lo] = sum over i in row r's band of
+    // Wv[o0 + r][i] * x[i][e]; elements past the row (a window's zero
+    // taps may reach there) are zeros
+    const int ngroups = e_n / kCpt;
+    const int nchunks = max(1, (hi - lo + kBandChunk - 1) / kBandChunk);
+    for (int ci = 0; ci < nchunks; ++ci) {
+      const int c0 = lo + ci * kBandChunk;
+      const int c1 = min(hi, c0 + kBandChunk);
+      __syncthreads();  // the previous chunk's weights are no longer read
+      for (int k = threadIdx.x; k < (c1 - c0) * TR; k += blockDim.x) {
+        const int i = k / TR;
+        const int o = o0 + (k - i * TR);
+        w_s[k] = o < P.OH ? wv_b[(size_t)o * P.IH + c0 + i] : 0.0f;
       }
-    };
-    for (int t = 0; t < P.T; t += 4) step(__ldg(w4 + (size_t)(t / 4) * P.OW), t);
-    if constexpr (NCH == 4) {
-      // the pixel's four bytes in one store: out is (B, OH, OW, 4), osb a
-      // multiple of 4 (band_resize checks both)
-      uint32_t* o = reinterpret_cast<uint32_t*>(static_cast<uint8_t*>(P.out) +
-                                                (size_t)b * P.osb) +
-                    (size_t)o0 * P.OW + p;
+      __syncthreads();
+      for (int g = threadIdx.x; g < ngroups; g += blockDim.x) {
+        const int t0 = g * kCpt;  // the group's first column of the tile
+        const int e0 = e_lo + t0;
+        if (kStrips && e0 >= P.IW * NCH) {
+          if (ci == 0)
 #pragma unroll
-      for (int r = 0; r < TR; ++r)
-        if (r < nr) {
-          uint32_t px = 0;
+            for (int r = 0; r < TR; ++r)
 #pragma unroll
-          for (int ch = 0; ch < NCH; ++ch)
-            px |= (uint32_t)quant_u8(acc[ch][r], P, L.centered) << (8 * ch);
-          o[(size_t)r * P.OW] = px;
+              for (int c = 0; c < kCpt; ++c) tile[(size_t)r * pitch + t0 + c] = 0.0f;
+          continue;
         }
-    } else {
-#pragma unroll
-      for (int ch = 0; ch < NCH; ++ch) {
-        Tout* o = out_b + (size_t)ch * P.osc + p;
+        float acc[TR][kCpt];
 #pragma unroll
         for (int r = 0; r < TR; ++r)
-          if (r < nr) store_out(o + (size_t)r * P.OW, acc[ch][r], P, L.centered);
+#pragma unroll
+          for (int c = 0; c < kCpt; ++c)
+            acc[r][c] = ci == 0 ? 0.0f : tile[(size_t)r * pitch + t0 + c];
+        Pass1<Tin, TR> body{acc, ring + threadIdx.x, (int)blockDim.x,
+                            xb + (size_t)c0 * P.sh + e0, P.sh, w_s, c1 - c0};
+        body.start();
+        int i = c0, a = 0, nb = 0;
+        while (i < c1) {
+          while (nb < TR && rows_f[nb] <= i) ++nb;
+          while (a < TR && rows_l[a] <= i) ++a;
+          int nxt = c1;
+          if (nb < TR) nxt = min(nxt, rows_f[nb]);
+          if (a < TR) nxt = min(nxt, rows_l[a]);
+          if (a < nb)
+            dispatch_run<TR, 0, 1>(a, nb, body, i, nxt);
+          else
+            body.skip(i, nxt);  // a gap: no tile row reads these input rows
+          i = nxt;
+        }
+#pragma unroll
+        for (int r = 0; r < TR; ++r)
+#pragma unroll
+          for (int c = 0; c < kCpt; ++c) tile[(size_t)r * pitch + t0 + c] = acc[r][c];
       }
     }
-  }
+    __syncthreads();
+
+    // Pass 2: out[ch][o0 + r][p] = sum_t taps[p][t] *
+    // tile[r][(start_p + t)*C + ch - e_lo]. One thread per output column p
+    // takes every channel and every row of the tile, so each tap is loaded
+    // once for NCH * TR sums. (Its pointers are made here, not before pass
+    // 1, where they would hold registers through its loops.)
+    const int32_t* st = P.start_h + (size_t)uh * P.OW;
+    const int nr = min(TR, P.OH - o0);
+    const float4* taps = reinterpret_cast<const float4*>(P.taps_h) +
+                         (size_t)uh * (P.T / 4) * P.OW;
+    Tout* out_b = static_cast<Tout*>(P.out) + (size_t)b * P.osb +
+                  (size_t)o0 * P.OW;
+    const int p_end = kStrips ? q1 : P.OW;
+    for (int p = q + threadIdx.x; p < p_end; p += blockDim.x) {
+      const float* t0 = tile + ((size_t)st[p] * NCH - e_lo);
+      const float4* w4 = taps + p;  // step s at w4[s * OW]
+      float acc[NCH][TR];
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+        for (int r = 0; r < TR; ++r) acc[ch][r] = 0.0f;
+      // four taps from t on: start_p % 4 == 0 (compact_table) and e_lo a
+      // whole load, so they are NCH aligned float4s of each tile row
+      auto step = [&](const float4 w, int t) {
+        const float wt[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int r = 0; r < TR; ++r) {
+          float v[4 * NCH];
+          const float4* tv =
+              reinterpret_cast<const float4*>(t0 + (size_t)r * pitch + t * NCH);
+#pragma unroll
+          for (int qq = 0; qq < NCH; ++qq) {
+            const float4 f = tv[qq];
+            v[4 * qq] = f.x;
+            v[4 * qq + 1] = f.y;
+            v[4 * qq + 2] = f.z;
+            v[4 * qq + 3] = f.w;
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+#pragma unroll
+            for (int ch = 0; ch < NCH; ++ch)
+              acc[ch][r] = fmaf(wt[k], v[k * NCH + ch], acc[ch][r]);
+        }
+      };
+      for (int t = 0; t < P.T; t += 4) step(__ldg(w4 + (size_t)(t / 4) * P.OW), t);
+      if constexpr (NCH == 4) {
+        // the pixel's four bytes in one store: out is (B, OH, OW, 4), osb a
+        // multiple of 4 (band_resize checks both)
+        uint32_t* o = reinterpret_cast<uint32_t*>(static_cast<uint8_t*>(P.out) +
+                                                  (size_t)b * P.osb) +
+                      (size_t)o0 * P.OW + p;
+#pragma unroll
+        for (int r = 0; r < TR; ++r)
+          if (r < nr) {
+            uint32_t px = 0;
+#pragma unroll
+            for (int ch = 0; ch < NCH; ++ch)
+              px |= (uint32_t)quant_u8(acc[ch][r], P, L.centered) << (8 * ch);
+            o[(size_t)r * P.OW] = px;
+          }
+      } else {
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch) {
+          Tout* o = out_b + (size_t)ch * P.osc + p;
+#pragma unroll
+          for (int r = 0; r < TR; ++r)
+            if (r < nr) store_out(o + (size_t)r * P.OW, acc[ch][r], P, L.centered);
+        }
+      }
+    }
+    q = q1;
+  } while (kStrips && q < q_end);
 }
 
 template <typename Tin>
@@ -505,14 +622,34 @@ size_t band_smem(int tr, int pitch, int threads) {
          sizeof(typename Vec<Tin>::type) * kSlots * threads;
 }
 
+// Input elements that the compact windows of sw neighbouring output
+// columns of plane P cover, rounded out to whole loads, for a stack whose
+// starts step by the plane's scale: the input columns an output column
+// advances (IW / OW, or (T - 8) / 6 where the windows say more: a Lanczos
+// window spans six of them), the window T, and slack for the rounding of
+// starts to 4 and of both ends to loads. A strip whose windows need more
+// (a stack of another kind) takes more spans (strip_span).
+template <typename Tin>
+int strip_pitch(const IkPlane& P, int sw) {
+  constexpr int kCpt = Vec<Tin>::kCpt;
+  const double step = std::max((double)P.IW / P.OW, (P.T - 8) / 6.0);
+  const double cols = (sw - 1) * step + P.T + 8;
+  const long long e = (long long)(cols * P.C + 0.999999);
+  return (int)std::min<long long>((e + kCpt - 1) / kCpt * kCpt + kCpt,
+                                   1 << 30);
+}
+
 template <typename Tin, typename Tout, int TR, int NCH>
 int band_launch(IkBandLaunch& L, int nplanes, int B, size_t smem,
                 cudaStream_t stream) {
+  bool strips = false;
   for (int i = 0; i < kBandPlanes; ++i) {
-    const int n = i < nplanes ? B * L.tiles[i] : 0;
+    const int n = i < nplanes ? B * L.tiles[i] * L.strips[i] : 0;
     L.block0[i + 1] = L.block0[i] + n;
+    strips |= i < nplanes && L.spans[i];
   }
-  auto* kernel = band_resize_kernel<Tin, Tout, TR, NCH>;
+  auto* kernel = strips ? band_resize_kernel<Tin, Tout, TR, NCH, true>
+                        : band_resize_kernel<Tin, Tout, TR, NCH, false>;
   // always: past 48 KB of dynamic plus static shared memory a launch needs
   // it, and the static arrays are not in smem
   cudaError_t e = cudaFuncSetAttribute(
@@ -524,21 +661,103 @@ int band_launch(IkBandLaunch& L, int nplanes, int B, size_t smem,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Checks the planes, picks TR and launches; returns a cudaError_t.
+// Picks the tile height and each plane's strips: whole rows where every
+// plane's rows fit (the tallest tile that leaves a full SM of threads,
+// else the tallest that fits at all), else column strips (a plane whose
+// rows fit stays whole): the tallest tile whose strips are at least
+// kMinStrip columns wide at the preferred budget, then at the largest.
+// A plane's `strip` asks for strips of that width. Returns the tile
+// height, 0 when nothing fits.
+constexpr int kMinStrip = 64;
+template <typename Tin>
+int band_geometry(IkBandLaunch& L, int nplanes, int threads) {
+  constexpr int kCpt = Vec<Tin>::kCpt;
+  bool asked = false;
+  int max_pitch = 0;
+  for (int i = 0; i < nplanes; ++i) {
+    asked |= L.p[i].strip > 0 && L.p[i].strip < L.p[i].OW;
+    max_pitch = std::max(max_pitch, L.p[i].IW * L.p[i].C);
+  }
+  auto whole = [&](int tr) {
+    for (int i = 0; i < nplanes; ++i) {
+      L.strips[i] = 1;
+      L.sw[i] = L.p[i].OW;
+      L.spans[i] = 0;
+      L.pitch[i] = L.p[i].IW * L.p[i].C;
+    }
+    return tr;
+  };
+  if (!asked) {
+    for (int tr = 8; tr >= 2; tr /= 2)
+      if (band_smem<Tin>(tr, max_pitch, threads) <= band_preferred_smem(threads))
+        return whole(tr);
+    for (int tr = 8; tr >= 2; tr /= 2)
+      if (band_smem<Tin>(tr, max_pitch, threads) <= kBandMaxSmem)
+        return whole(tr);
+  }
+  const size_t budgets[2] = {band_preferred_smem(threads), kBandMaxSmem};
+  for (int pass = 0; pass < 3; ++pass) {
+    const size_t budget = budgets[pass == 0 ? 0 : 1];
+    const int min_sw = pass < 2 ? kMinStrip : 1;
+    for (int tr = 8; tr >= 2; tr /= 2) {
+      const size_t fixed = band_smem<Tin>(tr, 0, threads);
+      if (fixed >= budget) continue;
+      const int cap = (int)((budget - fixed) / sizeof(float) / tr) / kCpt * kCpt;
+      bool ok = true;
+      for (int i = 0; i < nplanes && ok; ++i) {
+        const IkPlane& P = L.p[i];
+        int sw;
+        if (P.strip > 0) {
+          sw = std::min(P.strip, P.OW);
+          ok = strip_pitch<Tin>(P, sw) <= cap;
+        } else if (P.IW * P.C <= cap) {
+          L.strips[i] = 1;  // this plane's rows fit whole
+          L.sw[i] = P.OW;
+          L.spans[i] = 0;
+          L.pitch[i] = P.IW * P.C;
+          continue;
+        } else {
+          // the widest strip whose windows fit: by halves over [1, OW]
+          int a = 0, z = P.OW;
+          while (a < z) {
+            const int m = (a + z + 1) / 2;
+            if (strip_pitch<Tin>(P, m) <= cap)
+              a = m;
+            else
+              z = m - 1;
+          }
+          sw = a;
+          ok = sw >= std::min(min_sw, P.OW) && sw > 0;
+        }
+        if (!ok) break;
+        // equal strips: as many as sw needs, then as narrow as they allow
+        L.strips[i] = (P.OW + sw - 1) / sw;
+        L.sw[i] = (P.OW + L.strips[i] - 1) / L.strips[i];
+        L.spans[i] = 1;
+        L.pitch[i] = strip_pitch<Tin>(P, L.sw[i]);
+      }
+      if (ok) return tr;
+    }
+  }
+  return 0;
+}
+
+// Checks the planes, picks the tile height and the strips, and launches;
+// returns a cudaError_t. info, where given, gets the tile height and the
+// most strips a plane's row tile took (0: every plane in whole rows).
 template <typename Tin, typename Tout>
 int band_resize(const IkPlane* planes, int nplanes, int B, int centered,
-                void* stream) {
+                void* stream, int* info) {
   constexpr int kCpt = Vec<Tin>::kCpt;
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (nplanes < 1 || nplanes > kBandPlanes || B <= 0) return bad;
   IkBandLaunch L{};
-  int max_pitch = 0;
   const int nch = planes[0].C;  // every plane has as many channels
   for (int i = 0; i < nplanes; ++i) {
     const IkPlane& P = planes[i];
     if (P.IH <= 0 || P.IW <= 0 || P.OH <= 0 || P.OW <= 0 || P.U <= 0 ||
         P.U2 <= 0 || P.T <= 0 || P.T % 4 != 0 || P.T > P.IW ||
-        P.C != nch || (nch != 1 && nch != 3 && nch != 4) ||
+        P.strip < 0 || P.C != nch || (nch != 1 && nch != 3 && nch != 4) ||
         (nch == 4 && (P.osb % 4 != 0 ||
                       reinterpret_cast<uintptr_t>(P.out) % 4 != 0)) ||
         P.sb < 0 || P.sh < (long long)P.IW * P.C || P.sb % kCpt != 0 ||
@@ -547,29 +766,26 @@ int band_resize(const IkPlane* planes, int nplanes, int B, int centered,
         reinterpret_cast<uintptr_t>(P.taps_h) % 16 != 0)
       return bad;
     L.p[i] = P;
-    L.pitch[i] = P.IW * P.C;  // whole loads: checked above
-    max_pitch = std::max(max_pitch, L.pitch[i]);
   }
   for (int i = nplanes; i < kBandPlanes; ++i) L.p[i] = L.p[0];
   L.centered = centered;
-  // the tallest tile that leaves a full SM of threads, else the tallest
-  // that fits at all
   const int threads =
       nch == 1 ? band_threads<Tin, 1>() : band_threads<Tin, 3>();
-  int tr = 0;
-  for (int cand = 8; cand >= 2 && !tr; cand /= 2)
-    if (band_smem<Tin>(cand, max_pitch, threads) <=
-        band_preferred_smem(threads))
-      tr = cand;
-  for (int cand = 8; cand >= 2 && !tr; cand /= 2)
-    if (band_smem<Tin>(cand, max_pitch, threads) <= kBandMaxSmem) tr = cand;
+  const int tr = band_geometry<Tin>(L, nplanes, threads);
   if (!tr) return bad;
   long long blocks = 0;
+  int max_pitch = 0, most = 0;
   for (int i = 0; i < nplanes; ++i) {
     L.tiles[i] = (L.p[i].OH + tr - 1) / tr;
-    blocks += (long long)B * L.tiles[i];
+    blocks += (long long)B * L.tiles[i] * L.strips[i];
+    max_pitch = std::max(max_pitch, L.pitch[i]);
+    if (L.spans[i]) most = std::max(most, L.strips[i]);
   }
   if (blocks > 0x7fffffffLL) return bad;
+  if (info) {
+    info[0] = tr;
+    info[1] = most;
+  }
   const size_t smem = band_smem<Tin>(tr, max_pitch, threads);
   auto s = static_cast<cudaStream_t>(stream);
   if (nch != 1) {

@@ -29,21 +29,21 @@
 // planes: nplanes (1..3) IkPlane records (resize_band.cuh) with hidx ==
 // vidx and no affine epilogue; u8 in and out (K3), f32 in and out (K4), or
 // u8 in and f32 out (K4 on u8 planes). Returns a cudaError_t: 0 when the
-// launch was accepted.
+// launch was accepted; info as ik_resize_strip's.
 extern "C" int ik_resize_planes_u8(const void* planes, int nplanes, int B,
-                                   void* stream) {
+                                   void* stream, int* info) {
   return band_resize<uint8_t, uint8_t>(static_cast<const IkPlane*>(planes),
-                                       nplanes, B, 0, stream);
+                                       nplanes, B, 0, stream, info);
 }
 
 extern "C" int ik_resize_planes_f32(const void* planes, int nplanes, int B,
-                                    void* stream) {
+                                    void* stream, int* info) {
   return band_resize<float, float>(static_cast<const IkPlane*>(planes),
-                                   nplanes, B, 0, stream);
+                                   nplanes, B, 0, stream, info);
 }
 
 extern "C" int ik_resize_planes_u8_f32(const void* planes, int nplanes, int B,
-                                       void* stream) {
+                                       void* stream, int* info) {
   return band_resize<uint8_t, float>(static_cast<const IkPlane*>(planes),
-                                     nplanes, B, 0, stream);
+                                     nplanes, B, 0, stream, info);
 }

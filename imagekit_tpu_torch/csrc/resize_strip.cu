@@ -34,10 +34,11 @@
 
 // planes: nplanes (1..3) IkPlane records (resize_band.cuh), u8 in and out,
 // each with its own affine epilogue; C = 1, 3 or 4 elements a pixel, the
-// same in every plane. Returns a cudaError_t: 0 when the
-// launch was accepted.
+// same in every plane. Returns a cudaError_t: 0 when the launch was
+// accepted; info (two ints, or null) gets the tile height and the column
+// strips a row tile took (0: whole rows).
 extern "C" int ik_resize_strip(const void* planes, int nplanes, int B,
-                               int centered, void* stream) {
+                               int centered, void* stream, int* info) {
   return band_resize<uint8_t, uint8_t>(static_cast<const IkPlane*>(planes),
-                                       nplanes, B, centered, stream);
+                                       nplanes, B, centered, stream, info);
 }

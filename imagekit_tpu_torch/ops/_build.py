@@ -107,18 +107,27 @@ class IkPlane(ctypes.Structure):
         + [(n, ctypes.c_int) for n in ("IH", "IW", "OH", "OW", "U", "U2",
                                         "T", "C")]
         + [(n, ctypes.c_float) for n in ("scale", "pre", "post")]
-        + [("affine", ctypes.c_int)]
+        + [(n, ctypes.c_int) for n in ("affine", "strip")]
     )
 
 
-def launch_band(fn, planes, B: int, *args) -> None:
+class BandInfo(ctypes.Structure):
+    """What a K2/K3/K4 launch took: its tile height and the column strips
+    a row tile took (0: whole rows)."""
+
+    _fields_ = [("tr", ctypes.c_int), ("strips", ctypes.c_int)]
+
+
+def launch_band(fn, planes, B: int, *args) -> BandInfo:
     """Call a K2/K3/K4 entry with ``planes`` (a list of :class:`IkPlane`)
     and its trailing arguments (the stream last); raise on a refused
-    launch."""
+    launch, else return what it took."""
     arr = (IkPlane * len(planes))(*planes)
-    rc = fn(ctypes.addressof(arr), len(planes), B, *args)
+    info = BandInfo()
+    rc = fn(ctypes.addressof(arr), len(planes), B, *args, ctypes.byref(info))
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: cudaError_t {rc}")
+    return info
 
 
 def _configure(lib: ctypes.CDLL) -> None:
@@ -144,11 +153,12 @@ def configure_band(lib: ctypes.CDLL) -> None:
     their source in the tests)."""
     vp = ctypes.c_void_p
     ci = ctypes.c_int
-    lib.ik_resize_strip.argtypes = [vp, ci, ci, ci, vp]
+    info = ctypes.POINTER(BandInfo)
+    lib.ik_resize_strip.argtypes = [vp, ci, ci, ci, vp, info]
     lib.ik_resize_strip.restype = ci
     for fn in (lib.ik_resize_planes_u8, lib.ik_resize_planes_f32,
                lib.ik_resize_planes_u8_f32):
-        fn.argtypes = [vp, ci, ci, vp]
+        fn.argtypes = [vp, ci, ci, vp, info]
         fn.restype = ci
 
 

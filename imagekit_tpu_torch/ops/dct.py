@@ -84,7 +84,6 @@ from imagekit_tpu_torch.ops.weights import (
     quality_tables,
     upsample_weights,
 )
-from imagekit_tpu_torch.utils.bucketing import bucket_for
 
 
 def decode_resize_yuv_lowfreq_i8_batch(
@@ -530,17 +529,12 @@ def encode_rgb_to_coefficients(
     bucket, so that one compiled shape serves many sizes, and slices the
     extra blocks off again; blocks are independent, so the levels of the
     true grid are the same, and the port has no per-shape compile to
-    bound. A shape beyond the bucket ladder raises the reference's
-    ``ValueError``."""
+    bound. So it takes any size, where the reference raises ``ValueError``
+    beyond its bucket ladder and its caller hands the image to Pillow."""
     h, w = img.shape[:2]
     ph = (h + 15) // 16 * 16
     pw = (w + 15) // 16 * 16
     qy, qc = quality_tables(quality)
-    try:
-        bucket_for(ph), bucket_for(pw)
-    except ValueError:
-        raise ValueError(
-            f"image {w}x{h} exceeds the native encode ladder") from None
     device = resolve(device)
     padded = np.pad(img[:, :, :3], ((0, ph - h), (0, pw - w), (0, 0)),
                     mode="edge")

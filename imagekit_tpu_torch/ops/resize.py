@@ -14,10 +14,13 @@ resample is one K2 launch (:mod:`.resize_strip`), whose body is the same
   interleaved again on the device; single-channel planes take
   :func:`resize_strip.plane_resize`.
 - :func:`resize_batch` and :func:`resize_image_array` (``:234``, ``:252``):
-  exact shapes in. K2 reads rows in whole 8-byte loads, so the images are
-  padded into their bucket and the true geometry lives in
-  :func:`weights.padded_weights` stacks, as in the engine; the bucket
-  output is cropped.
+  any shape in, as the reference's. K2 reads rows in whole 8-byte loads, so
+  inside the bucket ladder the images are padded into their bucket and the
+  true geometry lives in :func:`weights.padded_weights` stacks, as in the
+  engine, and the bucket output is cropped; beyond it (a source or target
+  side past the ladder's top) the rows are padded to whole loads only and
+  the stacks are :func:`weights.exact_stacks`, whose wide rows K2 takes in
+  column strips.
 - :func:`resample_reference` (``:381``), the numpy golden model.
 
 The entries run on the card unless the caller names another device; on
@@ -31,7 +34,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from imagekit_tpu_torch.errors import NotPortedError
 from imagekit_tpu_torch.ops.color import on_device, resolve, tables_on, to_host
 from imagekit_tpu_torch.ops.resize_strip import (
     plane_resize,
@@ -39,6 +41,7 @@ from imagekit_tpu_torch.ops.resize_strip import (
     rgba_resize,
 )
 from imagekit_tpu_torch.ops.weights import (
+    exact_stacks,
     padded_weights,
     resample_weights,
     target_dimensions,
@@ -84,13 +87,13 @@ def resize_batch(imgs, out_h: int, out_w: int, filter_name: str = "lanczos3",
     try:
         bh, bw = bucket_for(h), bucket_for(w)
         obh, obw = bucket_for(out_h), bucket_for(out_w)
-    except ValueError:
-        raise NotPortedError("an image beyond the bucket ladder",
-                             "queue 1 item 11") from None
+        wv = padded_weights(h, out_h, bh, obh, filter_name)[None]
+        wh = padded_weights(w, out_w, bw, obw, filter_name)[None]
+    except ValueError:  # beyond the ladder: the exact shape
+        wv, wh = exact_stacks(h, w, out_h, out_w, filter_name)
+        (_, obh, bh), (_, obw, bw) = wv.shape, wh.shape
     batch = np.zeros((B, bh, bw * ch), np.uint8)
     batch[:, :h, : w * ch] = imgs.reshape(B, h, w * ch)
-    wv = padded_weights(h, out_h, bh, obh, filter_name)[None]
-    wh = padded_weights(w, out_w, bw, obw, filter_name)[None]
     idx = np.zeros(B, np.int32)
     flat = resample_bucketed_flat(batch, wv, wh, idx, idx, ch, device=device)
     return np.ascontiguousarray(

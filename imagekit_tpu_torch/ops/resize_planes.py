@@ -47,6 +47,8 @@ from imagekit_tpu_torch.ops.resize_strip import (
 #: the main path went through the kernel
 LAUNCHES = 0
 LAUNCHES_F32 = 0
+#: launches of either that took the body's column strips
+LAUNCHES_STRIPS = 0
 _launch_lock = threading.Lock()
 
 
@@ -96,19 +98,21 @@ def _three(kernel: str, fn_name: str, plain, dtype, planes, stacks, vidx,
     lib = _build.load()
     dev = planes[0].device
     with torch.cuda.device(dev):
-        _build.launch_band(getattr(lib, fn_name), recs, planes[0].shape[0],
-                           torch.cuda.current_stream(dev).cuda_stream)
-    _count(out_dtype == torch.float32)
+        info = _build.launch_band(getattr(lib, fn_name), recs,
+                                  planes[0].shape[0],
+                                  torch.cuda.current_stream(dev).cuda_stream)
+    _count(out_dtype == torch.float32, info)
     return tuple(outs)
 
 
-def _count(f32: bool) -> None:
-    global LAUNCHES, LAUNCHES_F32
+def _count(f32: bool, info: _build.BandInfo) -> None:
+    global LAUNCHES, LAUNCHES_F32, LAUNCHES_STRIPS
     with _launch_lock:
         if f32:
             LAUNCHES_F32 += 1
         else:
             LAUNCHES += 1
+        LAUNCHES_STRIPS += info.strips > 0
 
 
 def resize_planes3(planes, stacks, vidx: torch.Tensor, *, bands=None):

@@ -62,6 +62,9 @@ from imagekit_tpu_torch.ops import _build
 LAUNCHES = 0
 #: kernel launches made by :func:`rgba_resize`, counted apart
 LAUNCHES_RGBA = 0
+#: launches of any entry above that took the body's column strips (rows
+#: too wide for a tile of whole rows), counted besides their entry's count
+LAUNCHES_STRIPS = 0
 _launch_lock = threading.Lock()
 
 #: the yuvjpg head's studio -> full-range remaps, ``(v + pre) * scale +
@@ -103,12 +106,17 @@ def compact_table(w: torch.Tensor, band=None):
     window's taps off the band are the stack's own zeros, and past the
     row's end (a row shorter than T) exact zeros. So ``sum_t taps[t] *
     x[start + t]`` in increasing t adds the band's terms in increasing
-    column order, after exact zeros: the dense product's sum."""
+    column order, after exact zeros: the dense product's sum. An empty row
+    (a pad row) takes the start of the row before it (of the first
+    nonempty row where none is before): its taps are zeros wherever its
+    window lies, and so the starts of a monotone stack never fall, which
+    lets the kernel's column strips bound their windows by their ends."""
     if band is None:
         band = band_table(w)
     n = w.shape[-1]
     first = band[..., 0] // 4 * 4  # aligned: the kernel reads 4 taps at once
     width = int((band[..., 1] - first).max()) if band.numel() else 0
+    first = _from_nonempty(first, band[..., 1] > band[..., 0])
     T = max(4, (width + 3) // 4 * 4)
     start = first.clamp(max=max((n + 3) // 4 * 4 - T, 0)).to(torch.int32)
     cols = start.long()[..., None] + torch.arange(T, device=w.device)
@@ -117,6 +125,22 @@ def compact_table(w: torch.Tensor, band=None):
     U, O = start.shape
     taps = taps.reshape(U, O, T // 4, 4).transpose(1, 2)
     return start.contiguous(), taps.contiguous()
+
+
+def _from_nonempty(first: torch.Tensor, has: torch.Tensor) -> torch.Tensor:
+    """(U, O) ``first`` with each row where ``has`` is false taking the
+    value of the nearest row before it where it is true, else of the
+    first such row after it (0 where a slot has none)."""
+    O = first.shape[-1]
+    if O == 0:
+        return first
+    ar = torch.arange(O, device=first.device).expand_as(first)
+    before = torch.where(has, ar, torch.full_like(ar, -1)).cummax(-1).values
+    after = torch.where(has, ar, torch.full_like(ar, O)).min(
+        -1, keepdim=True).values.clamp(max=O - 1).expand_as(first)
+    src = torch.where(before >= 0, before, after)
+    return torch.where(has.any(-1, keepdim=True), first.gather(-1, src),
+                       torch.zeros_like(first))
 
 
 def resize_tables(wv: torch.Tensor, wh: torch.Tensor) -> ResizeTables:
@@ -178,11 +202,13 @@ def _affine(scale: float, pre: float, post: float) -> bool:
 def plane_record(x_ptr: int, sb: int, sh: int, C: int, wv,
                  tabs: ResizeTables, vidx, hidx, out, osb: int, osc: int,
                  ih: int, iw: int, scale: float = 1.0, pre: float = 0.0,
-                 post: float = 0.0) -> _build.IkPlane:
+                 post: float = 0.0, strip: int = 0) -> _build.IkPlane:
     """One :class:`_build.IkPlane` of a launch: pixel rows of ``C``
     elements at ``x_ptr`` (strides ``sb``, ``sh`` in elements), channel
     ``ch`` written at ``out + b*osb + ch*osc``, with the plane's own
-    affine u8 epilogue."""
+    affine u8 epilogue. ``strip``: output columns a block takes (0: the
+    kernel takes whole rows where they fit and column strips where they do
+    not; a width asks for strips where whole rows would fit too)."""
     U, oh = wv.shape[:2]
     U2, ow = tabs.start_h.shape
     T = 4 * tabs.taps_h.shape[1]
@@ -191,7 +217,7 @@ def plane_record(x_ptr: int, sb: int, sh: int, C: int, wv,
         tabs.start_h.data_ptr(), tabs.taps_h.data_ptr(), vidx.data_ptr(),
         hidx.data_ptr(), out.data_ptr(), sb, sh, osb, osc,
         ih, iw, oh, ow, U, U2, T, C, scale, pre, post,
-        int(_affine(scale, pre, post)))
+        int(_affine(scale, pre, post)), strip)
 
 
 def check_rows(ptr: int, sb: int, sh: int, E: int, T: int, iw: int,
@@ -210,10 +236,14 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _count() -> None:
-    global LAUNCHES
+def _count(info: _build.BandInfo, rgba: bool = False) -> None:
+    global LAUNCHES, LAUNCHES_RGBA, LAUNCHES_STRIPS
     with _launch_lock:
-        LAUNCHES += 1
+        if rgba:
+            LAUNCHES_RGBA += 1
+        else:
+            LAUNCHES += 1
+        LAUNCHES_STRIPS += info.strips > 0
 
 
 def on_device_with_kernel(x, what: str) -> None:
@@ -225,10 +255,12 @@ def on_device_with_kernel(x, what: str) -> None:
 def plane_resize(x: torch.Tensor, wv: torch.Tensor, wh: torch.Tensor,
                  vidx: torch.Tensor, hidx: torch.Tensor, *,
                  scale: float = 1.0, pre: float = 0.0, post: float = 0.0,
-                 centered: bool = False, bands=None) -> torch.Tensor:
+                 centered: bool = False, bands=None,
+                 strip: int = 0) -> torch.Tensor:
     """Contiguous (B, IH, IW) u8 planes -> (B, OH, OW) u8 (i8 when
     ``centered``), weights picked per image from the (U, OH, IH) / (U2, OW, IW) f32 stacks
-    by ``vidx`` and ``hidx``. One K2 launch on CUDA."""
+    by ``vidx`` and ``hidx``. One K2 launch on CUDA (``strip``: see
+    :func:`plane_record`)."""
     on_device_with_kernel(x, "K2")
     tabs = tables(wv, wh, bands)
     B, ih, iw, U, oh, U2, ow = _check(x, wv, wh, vidx, hidx, tabs)
@@ -241,11 +273,11 @@ def plane_resize(x: torch.Tensor, wv: torch.Tensor, wh: torch.Tensor,
     out = torch.empty((B, oh, ow), device=x.device,
                       dtype=torch.int8 if centered else torch.uint8)
     rec = plane_record(x.data_ptr(), ih * iw, iw, 1, wv, tabs, vidx, hidx,
-                       out, oh * ow, 0, ih, iw, scale, pre, post)
+                       out, oh * ow, 0, ih, iw, scale, pre, post, strip)
     with torch.cuda.device(x.device):
-        _build.launch_band(lib.ik_resize_strip, [rec], B, int(centered),
-                           _stream(x.device))
-    _count()
+        info = _build.launch_band(lib.ik_resize_strip, [rec], B,
+                                  int(centered), _stream(x.device))
+    _count(info)
     return out
 
 
@@ -267,55 +299,54 @@ def _check_pixels(imgs, C: int, wv, wh, vidx, hidx, bands):
     return tabs, iw, oh, ow
 
 
-def _launch_pixels(imgs, C: int, wv, tabs, vidx, hidx, out, iw: int) -> None:
+def _launch_pixels(imgs, C: int, wv, tabs, vidx, hidx, out, iw: int,
+                   strip: int) -> None:
     """One K2 launch on the pixel rows of ``imgs``: channel ch of image b
     to ``out[b, ch]`` for C = 3, pixels to ``out[b]`` as they came for
-    C = 4."""
+    C = 4; counted."""
     B, H, WC = imgs.shape
     check_rows(imgs.data_ptr(), H * WC, WC, WC, 4 * tabs.taps_h.shape[1], iw,
                8, 1)
     lib = _build.load()
     rec = plane_record(imgs.data_ptr(), H * WC, WC, C, wv, tabs, vidx, hidx,
                        out, out.stride(0), out.stride(1) if C == 3 else 1,
-                       H, iw)
+                       H, iw, strip=strip)
     with torch.cuda.device(imgs.device):
-        _build.launch_band(lib.ik_resize_strip, [rec], B, 0,
-                           _stream(imgs.device))
+        info = _build.launch_band(lib.ik_resize_strip, [rec], B, 0,
+                                  _stream(imgs.device))
+    _count(info, rgba=C == 4)
 
 
 def rgb_resize(imgs: torch.Tensor, wv: torch.Tensor, wh: torch.Tensor,
                vidx: torch.Tensor, hidx: torch.Tensor, *,
-               bands=None) -> torch.Tensor:
+               bands=None, strip: int = 0) -> torch.Tensor:
     """Contiguous (B, H, W*3) u8 interleaved RGB -> (B, 3, OH, OW) u8, the
     three channels resized and rounded (K2's default epilogue). One K2
-    launch on CUDA reads each pixel row once for the three channels."""
+    launch on CUDA reads each pixel row once for the three channels
+    (``strip``: see :func:`plane_record`)."""
     tabs, iw, oh, ow = _check_pixels(imgs, 3, wv, wh, vidx, hidx, bands)
     if imgs.device.type == "cpu":
         return rgb_resize_plain(imgs, wv, wh, vidx, hidx)
     out = torch.empty((imgs.shape[0], 3, oh, ow), device=imgs.device,
                       dtype=torch.uint8)
-    _launch_pixels(imgs, 3, wv, tabs, vidx, hidx, out, iw)
-    _count()
+    _launch_pixels(imgs, 3, wv, tabs, vidx, hidx, out, iw, strip)
     return out
 
 
 def rgba_resize(imgs: torch.Tensor, wv: torch.Tensor, wh: torch.Tensor,
                 vidx: torch.Tensor, hidx: torch.Tensor, *,
-                bands=None) -> torch.Tensor:
+                bands=None, strip: int = 0) -> torch.Tensor:
     """Contiguous (B, H, W*4) u8 interleaved RGBA -> (B, OH, OW, 4) u8,
     the four channels resized and rounded (K2's default epilogue), pixels
     interleaved as they came. One K2 launch on CUDA reads each pixel row
     once for the four channels and stores each output pixel as one 32-bit
-    word."""
-    global LAUNCHES_RGBA
+    word (``strip``: see :func:`plane_record`)."""
     tabs, iw, oh, ow = _check_pixels(imgs, 4, wv, wh, vidx, hidx, bands)
     if imgs.device.type == "cpu":
         return rgba_resize_plain(imgs, wv, wh, vidx, hidx)
     out = torch.empty((imgs.shape[0], oh, ow, 4), device=imgs.device,
                       dtype=torch.uint8)
-    _launch_pixels(imgs, 4, wv, tabs, vidx, hidx, out, iw)
-    with _launch_lock:
-        LAUNCHES_RGBA += 1
+    _launch_pixels(imgs, 4, wv, tabs, vidx, hidx, out, iw, strip)
     return out
 
 
@@ -367,9 +398,9 @@ def yuv_resize(planes, stacks, vidx: torch.Tensor, *, jpeg: bool = False,
     lib = _build.load()
     dev = planes[0].device
     with torch.cuda.device(dev):
-        _build.launch_band(lib.ik_resize_strip, recs, planes[0].shape[0],
-                           int(jpeg), _stream(dev))
-    _count()
+        info = _build.launch_band(lib.ik_resize_strip, recs,
+                                  planes[0].shape[0], int(jpeg), _stream(dev))
+    _count(info)
     return tuple(outs)
 
 

@@ -9,6 +9,8 @@ the same weight stacks.
 
 - filter kernels, :func:`resample_weights`, :func:`padded_weights`,
   :func:`fit_within`, :func:`target_dimensions` (``ops/resize.py:43-215,275``);
+  and the port's own :func:`exact_stacks` for images beyond the bucket
+  ladder, built from them;
 - :func:`idct_basis`, :func:`idct_basis_k`, :func:`quality_tables`, the
   full-path chroma weights :func:`combined_chroma_weights` /
   :func:`combined_chroma_half_weights` (``ops/dct.py:125-163,271``), the
@@ -167,6 +169,25 @@ def padded_weights(
     out = np.zeros((bucket_out, bucket_in), dtype=np.float32)
     out[:true_out, :true_in] = w
     return out
+
+
+def load_aligned(n: int) -> int:
+    """``n`` columns rounded up to a multiple of 8: a row of them is whole
+    8-byte loads of the kernels at any channel count, and no compact
+    window of its stack is wider than the row."""
+    return (n + 7) // 8 * 8
+
+
+def exact_stacks(h: int, w: int, out_h: int, out_w: int,
+                 filter_name: str = "lanczos3") -> Tuple[np.ndarray, np.ndarray]:
+    """The (1, out_h, h) and (1, out_w, load_aligned(w)) stacks of a resample
+    at its exact shape, for an image beyond the bucket ladder: Wv is
+    :func:`resample_weights` (h, out_h), Wh is (w, out_w) with zero
+    weights in the pad columns, which carry nothing (as
+    ``imagekit_tpu/parallel/tiling.py:49-56`` pads H for its shards)."""
+    wv = resample_weights(h, out_h, filter_name)[None]
+    wh = padded_weights(w, out_w, load_aligned(w), out_w, filter_name)[None]
+    return wv, wh
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,11 @@ YUV planes (:mod:`.engine_yuv`, ``_yqueues``), and sources decoded to
 pixels (:mod:`.engine_rgb`, ``_queues``): PNGs, the other WebPs, GIF, BMP,
 TIFF, HDR and farbfeld, with 3 channels on the fused heads and with 4 on
 the plain RGB head. A request with no resize decodes and encodes one image
-(:mod:`imagekit_tpu_torch.transform`) without a batch.
+(:mod:`imagekit_tpu_torch.transform`) without a batch, and so does one
+whose source or target passes the bucket ladder's top (``_exact_path``,
+the reference's :503-521): its native head turns it away, it decodes to
+pixels and is resized at its exact shape
+(:func:`imagekit_tpu_torch.parallel.tiling.resize_oversized`).
 
 What differs is device placement. The engine holds an explicit
 ``torch.device``: ``"cuda"`` (the default, which raises without a card) or
@@ -57,11 +61,11 @@ from imagekit_tpu_torch.config import ImageFormat, ImageKitConfig
 from imagekit_tpu_torch.device import resolve_device
 from imagekit_tpu_torch.errors import (
     EngineOverloaded,
-    NotPortedError,
     SourceDecodeError,
     TransformError,
 )
 from imagekit_tpu_torch.ops.weights import target_dimensions
+from imagekit_tpu_torch.parallel.tiling import resize_oversized
 from imagekit_tpu_torch.transform import encode_image
 from imagekit_tpu_torch.serving.batch_types import (
     _BucketKey,
@@ -311,7 +315,7 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
         or the plain head (``""``) for sources with alpha, whose resized
         pixels go through :func:`~imagekit_tpu_torch.transform.
         encode_image`. With no resize the pixels go straight to that
-        encode."""
+        encode; beyond the bucket ladder they take :meth:`_exact_path`."""
         loop = asyncio.get_running_loop()
         self._ensure_flusher(loop)
         if img.ndim == 2:
@@ -325,9 +329,8 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
             bh, bw = bucket_for(ih), bucket_for(iw)
             obh, obw = bucket_for(out_h), bucket_for(out_w)
         except ValueError:
-            raise NotPortedError(
-                "an image beyond the bucket ladder", "queue 1 item 11"
-            ) from None
+            # outside the ladder -> exact-shape path
+            return await self._exact_path(img, out_h, out_w, fmt, quality)
         from imagekit_tpu_torch.codecs import vp8 as vp8_native
 
         if ch == 3 and fmt == ImageFormat.webp and vp8_native.available():
@@ -370,8 +373,15 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
     ) -> bytes:
         src = guess_format(data)  # TransformError on undetectable bytes
         resize = w is not None or h is not None
+        # a native head turns away what its batch cannot take (a source or
+        # target beyond the bucket ladder): the request decodes to pixels
         if src == SourceFormat.jpeg and resize:
-            return await self._transform_jpeg_native(data, w, h, fmt, quality)
+            try:
+                return await self._transform_jpeg_native(
+                    data, w, h, fmt, quality
+                )
+            except _NativeUnsupported:
+                pass
         if src == SourceFormat.webp and resize:
             # the native VP8 decode feeds the YUV-domain batch: resize-only
             # for WebP output, resize + remap + fDCT for JPEG output; a
@@ -492,6 +502,15 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
             "device_encode", jpeg.encode_levels, img, q)
         return await self._pool_run("encode", loader.encode_jpeg, planes,
                                     qtabs, img.shape[1], img.shape[0])
+
+    async def _exact_path(self, img: np.ndarray, out_h: int, out_w: int,
+                          fmt: ImageFormat, quality: int) -> bytes:
+        """An image beyond the bucket ladder: resized at its exact shape
+        (one K2 launch on CUDA) on a dispatch thread, then encoded as one
+        image (:meth:`_encode`)."""
+        resized = await self._device_run(
+            "exact_resize", resize_oversized, img, out_h, out_w)
+        return await self._encode(resized, fmt, quality)
 
     async def warmup(self) -> None:
         """Build the CUDA kernels before the first request needs them (a

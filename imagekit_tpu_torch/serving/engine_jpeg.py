@@ -25,7 +25,10 @@ resize:
   launch on CUDA) -> RGB -> host JPEG encode.
 
 The C++ Huffman decoder and the batch layouts are the reference's, and the
-weight stacks live on the device. Every other request raises
+weight stacks live on the device. A source or target beyond the bucket
+ladder is turned away (``_NativeUnsupported``) to the pixel decode and the
+engine's exact-shape path, as the reference turns it away; every other
+request outside these kinds raises
 :class:`~imagekit_tpu_torch.errors.NotPortedError`.
 """
 
@@ -62,7 +65,11 @@ from imagekit_tpu_torch.ops.weights import (
 )
 from imagekit_tpu_torch.codecs.jpeg import decode_error as _decode_error
 from imagekit_tpu_torch.serving import jpeg_transport as _jt
-from imagekit_tpu_torch.serving.batch_types import _cached_weights, _settle
+from imagekit_tpu_torch.serving.batch_types import (
+    _cached_weights,
+    _NativeUnsupported,
+    _settle,
+)
 from imagekit_tpu_torch.serving.jpeg_transport import (
     _GrayAs420,
     _JpegItem,
@@ -108,9 +115,9 @@ class JpegPathMixin:
                 bucket_for(pre_out_w),
             )
         except ValueError:
-            raise NotPortedError(
-                "an image beyond the bucket ladder", "queue 1 item 11"
-            ) from None
+            # beyond the ladder: the pixel decode and the exact-shape path
+            # (the reference finds it out after its entropy decode)
+            raise _NativeUnsupported() from None
 
         def entropy_decode():
             try:
@@ -171,13 +178,9 @@ class JpegPathMixin:
             yb_h, yb_w = bucket_for(by_y * 8), bucket_for(bx_y * 8)
             obh, obw = bucket_for(out_h), bucket_for(out_w)
         except ValueError:
-            raise NotPortedError(
-                "an image beyond the bucket ladder", "queue 1 item 11"
-            ) from None
+            raise _NativeUnsupported() from None
         if yb_h % 16 or yb_w % 16:
-            raise NotPortedError(
-                "a bucket that is not 16-aligned", "queue 1 item 11"
-            )
+            raise _NativeUnsupported()
 
         fut: asyncio.Future = loop.create_future()
         item = _JpegItem(

@@ -12,7 +12,9 @@ place), and one call of
 K2 launch on CUDA, produces what the host VP8, first-party AV1 or Huffman
 encoder takes (WebP and AVIF items share a batch).
 No RGB anywhere. The weight stacks live on the device with their band and
-compact tables.
+compact tables. Planes beyond the bucket ladder are turned away
+(``_NativeUnsupported``) to the pixel decode and the engine's exact-shape
+path, as the reference turns them away.
 
 Not ported: AVIF sources (``_transform_avif_native``) with their BT.709,
 4:2:2 / 4:4:4 and alpha variants of the batch; and, by design, the compile
@@ -30,7 +32,6 @@ import numpy as np
 import torch
 
 from imagekit_tpu_torch.config import ImageFormat
-from imagekit_tpu_torch.errors import NotPortedError
 from imagekit_tpu_torch.ops.dct import resize_yuv420_batch, resize_yuv_jpeg_batch
 from imagekit_tpu_torch.ops.resize_strip import ResizeTables, resize_tables
 from imagekit_tpu_torch.ops.weights import (
@@ -83,13 +84,10 @@ class YuvPathMixin:
             bh, bw = bucket_for(ih), bucket_for(iw)
             obh, obw = bucket_for(out_h), bucket_for(out_w)
         except ValueError:
-            raise NotPortedError(
-                "an image beyond the bucket ladder", "queue 1 item 11"
-            ) from None
+            # beyond the ladder: the pixel decode and the exact-shape path
+            raise _NativeUnsupported() from None
         if bh % 16 or bw % 16:
-            raise NotPortedError(
-                "a bucket that is not 16-aligned", "queue 1 item 11"
-            )
+            raise _NativeUnsupported()
         fut: asyncio.Future = loop.create_future()
         item = _YuvItem(y, cb, cr, out_h, out_w, quality, fut, fmt=fmt)
         key = (bh, bw, obh, obw, fmt == ImageFormat.jpeg)

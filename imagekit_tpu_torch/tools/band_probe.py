@@ -5,7 +5,10 @@ kernel taken out or one choice changed, next to the committed body, and
 times K2's three channels of the flagship RGB batch (B=32, 1088x1920 ->
 240x400), its four channels of the same batch as RGBA, and K3's three
 planes of the demoted head (Y 1088x1920, Cb and Cr 544x960, all ->
-240x400) through the port's own wrappers on each. A
+240x400) through the port's own wrappers on each, with ``--strips``
+K2's RGB and RGBA batches in column strips of the widths named, and the
+rows too wide for whole rows that K2 always takes in strips (a 9600x2400
+RGB image at its exact shape, the RGBA 8192 bucket). A
 variant's outputs are wrong by design; only its time is read. The time a
 part costs is the committed body's time less the variant's, so what bounds
 the kernel shows without ``ncu``.
@@ -13,6 +16,7 @@ the kernel shows without ``ncu``.
 Run from the root of a checkout, on a machine with one card and nvcc:
 
     python -m imagekit_tpu_torch.tools.band_probe [--out chiprun_out/band_probe.json]
+        [--variants committed,...] [--strips 64,128,256] [--smooth]
 
 It prints one line per variant and writes the times, with the card's name
 and power limit, as JSON. The variants are textual patches of the body:
@@ -128,10 +132,12 @@ def device_ms(fn, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    if total <= 0:
-        raise RuntimeError("the profiler saw no device time")
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.time_range.elapsed_us() for e in events)
+    if total <= 0 or len(events) < reps:
+        raise RuntimeError("the profiler's trace holds fewer device records "
+                           "than calls")
     return total / reps / 1e3
 
 
@@ -142,10 +148,14 @@ def _stack(slots, bi, bo, weights, dev):
     return torch.from_numpy(w).to(dev)
 
 
-def k2_case(dev="cuda", channels: int = 3):
+def k2_case(dev="cuda", channels: int = 3, strip: int = 0,
+            smooth: bool = False):
     """The flagship RGB batch (or, with 4 ``channels``, the same batch as
     RGBA) and its stacks (edge rows replicated, as the engine builds
-    them); returns a call of ``rgb_resize`` (``rgba_resize``)."""
+    them); returns a call of ``rgb_resize`` (``rgba_resize``), in column
+    strips of ``strip`` output columns where that is not 0. Samples are
+    uniform random bytes, or with ``smooth`` a ramp with mild noise, as
+    photographs are."""
     from imagekit_tpu_torch.ops import resize_strip
     from imagekit_tpu_torch.ops.weights import padded_weights
 
@@ -160,14 +170,46 @@ def k2_case(dev="cuda", channels: int = 3):
     wh = _stack([(ti, to, 1920, 400) for ti, to in K2_H], 1920, 400, edge,
                 dev)
     g = torch.Generator(device=dev).manual_seed(0)
-    x = torch.randint(0, 256, (32, 1088, 1920 * channels), generator=g,
-                      device=dev, dtype=torch.uint8)
+    shape = (32, 1088, 1920 * channels)
+    if smooth:
+        ramp = torch.linspace(0, 200, shape[2], device=dev)
+        x = (ramp + 8 * torch.randn(shape, generator=g, device=dev)).clamp(
+            0, 255).to(torch.uint8)
+    else:
+        x = torch.randint(0, 256, shape, generator=g, device=dev,
+                          dtype=torch.uint8)
     vidx = torch.arange(32, dtype=torch.int32, device=dev) % 4
     hidx = (vidx + 1) % 4
     tabs = resize_strip.resize_tables(wv, wh)
     resize = (resize_strip.rgba_resize if channels == 4
               else resize_strip.rgb_resize)
-    return lambda: resize(x, wv, wh, vidx, hidx, bands=tabs)
+    return lambda: resize(x, wv, wh, vidx, hidx, bands=tabs, strip=strip)
+
+
+def wide_case(dev="cuda", channels: int = 3):
+    """Rows too wide for a tile of whole rows, which K2 takes in column
+    strips: a 9600x2400 RGB image -> 1280x320 at its exact shape (B=1,
+    28,800-element rows), or with 4 ``channels`` the plain head's 8192 RGBA
+    bucket, 7200x1800 images -> 400x100 in 1872x8192 -> 128x400 (B=4);
+    returns a call of ``rgb_resize`` (``rgba_resize``)."""
+    from imagekit_tpu_torch.ops import resize_strip
+    from imagekit_tpu_torch.ops.weights import exact_stacks, padded_weights
+
+    if channels == 3:
+        B, (wv, wh) = 1, exact_stacks(2400, 9600, 320, 1280)
+        resize = resize_strip.rgb_resize
+    else:
+        B = 4
+        wv = padded_weights(1800, 100, 1872, 128)[None]
+        wh = padded_weights(7200, 400, 8192, 400)[None]
+        resize = resize_strip.rgba_resize
+    wv, wh = (torch.from_numpy(w).to(dev) for w in (wv, wh))
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randint(0, 256, (B, wv.shape[2], wh.shape[2] * channels),
+                      generator=g, device=dev, dtype=torch.uint8)
+    idx = torch.zeros(B, dtype=torch.int32, device=dev)
+    tabs = resize_strip.resize_tables(wv, wh)
+    return lambda: resize(x, wv, wh, idx, idx, bands=tabs)
 
 
 def k3_case(dev="cuda"):
@@ -216,6 +258,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/band_probe.json")
     ap.add_argument("--variants", default=",".join(VARIANTS))
+    ap.add_argument("--strips", default="",
+                    help="output columns a block of K2's column strips "
+                         "takes, comma-separated: each adds the RGB and RGBA "
+                         "cases in strips of that width")
+    ap.add_argument("--smooth", action="store_true",
+                    help="K2's batches a ramp with mild noise, not uniform "
+                         "random bytes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("band_probe: no CUDA device", file=sys.stderr)
@@ -223,8 +272,17 @@ def main(argv=None) -> int:
     names = args.variants.split(",")
     print(f"card: {card()}", flush=True)
     libs = build_variants(names)
-    cases = {"K2 rgb B=32": k2_case(), "K2 rgba B=32": k2_case(channels=4),
+    smooth = args.smooth
+    cases = {"K2 rgb B=32": k2_case(smooth=smooth),
+             "K2 rgba B=32": k2_case(channels=4, smooth=smooth),
              "K3 Y+Cb+Cr B=32": k3_case()}
+    for sw in filter(None, args.strips.split(",")):
+        cases[f"K2 rgb B=32 strips of {sw}"] = k2_case(strip=int(sw),
+                                                       smooth=smooth)
+        cases[f"K2 rgba B=32 strips of {sw}"] = k2_case(
+            channels=4, strip=int(sw), smooth=smooth)
+    cases["K2 rgb 9600x2400 B=1 (strips)"] = wide_case()
+    cases["K2 rgba 8192 bucket B=4 (strips)"] = wide_case(channels=4)
     saved = _build._lib
     rows = []
     try:
@@ -241,6 +299,7 @@ def main(argv=None) -> int:
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({"card": card(), "timing": "device ms per "
                                "call, torch.profiler over 20 calls",
+                               "samples": "smooth" if smooth else "random",
                                "rows": rows}, indent=1))
     return 0
 

@@ -375,6 +375,52 @@ def test_k2_rgb_matches_plain(shape):
 
 
 @needs_card
+@pytest.mark.parametrize("channels", [3, 4])
+def test_k2_strips_equal_whole_rows_at_the_flagship(channels):
+    """K2's column strips asked for (128 output columns a block) where
+    whole rows fit: each output sums the same terms in the same order, so
+    the bytes are the whole-row body's."""
+    imgs, wv, wh, vidx, hidx = _flagship_rgb(8)
+    entry = resize_strip.rgb_resize
+    if channels == 4:
+        px = imgs.reshape(8, 1088, 1920, 3)
+        imgs = torch.cat([px, px[..., :1].flip(1)], -1).reshape(8, 1088, -1)
+        entry = resize_strip.rgba_resize
+    bands = resize_strip.resize_tables(wv, wh)
+    whole = entry(imgs, wv, wh, vidx, hidx, bands=bands)
+    before = resize_strip.LAUNCHES_STRIPS
+    got = entry(imgs, wv, wh, vidx, hidx, bands=bands, strip=128)
+    torch.cuda.synchronize()
+    assert resize_strip.LAUNCHES_STRIPS == before + 1
+    assert torch.equal(got, whole)
+
+
+@needs_card
+@pytest.mark.parametrize("channels,width", [(3, 9600), (4, 8192)])
+def test_k2_strips_on_rows_past_the_whole_row_ceiling(channels, width):
+    """Rows too wide for a tile of whole rows (9600 RGB pixels, an RGBA
+    row of the 8192 bucket) take the strips on their own, within the band
+    of the plain version."""
+    from imagekit_tpu_torch.ops.weights import exact_stacks
+
+    wv, wh = exact_stacks(96, width, 24, width // 16)
+    rng = np.random.default_rng(channels)
+    x = np.linspace(0, 255, width * channels, dtype=np.float32)[None, None]
+    imgs = np.clip(x + rng.normal(0, 25, (2, 96, width * channels)), 0,
+                   255).astype(np.uint8)
+    idx = np.zeros(2, np.int32)
+    imgs, wv, wh, vidx, hidx = to_port([imgs, wv, wh, idx, idx], "cuda")
+    entry, plain = ((resize_strip.rgb_resize, resize_strip.rgb_resize_plain)
+                    if channels == 3 else
+                    (resize_strip.rgba_resize, resize_strip.rgba_resize_plain))
+    before = resize_strip.LAUNCHES_STRIPS
+    got = entry(imgs, wv, wh, vidx, hidx)
+    torch.cuda.synchronize()
+    assert resize_strip.LAUNCHES_STRIPS == before + 1
+    assert_band(got, plain(imgs, wv, wh, vidx, hidx))
+
+
+@needs_card
 @pytest.mark.parametrize("epilogue", sorted(K2_EPILOGUES))
 def test_k2_plane_at_the_yuvjpg_chroma_shape(epilogue):
     """A contiguous 544x960 plane -> 120x200, the yuvjpg chroma shape,

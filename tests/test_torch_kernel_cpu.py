@@ -6,7 +6,8 @@ The sources (``imagekit_tpu_torch/csrc/jpeg8_folded.cu``,
 ``resize_band.cuh``) are
 compiled by ``g++`` under a small shim that stands in for
 ``cuda_runtime.h``: one thread per block, ``__shared__`` arrays static,
-``__syncthreads`` a no-op, a warp shuffle the lane's own value, an atomic
+``__syncthreads`` a no-op (``__syncthreads_or`` the thread's own
+value), a warp shuffle the lane's own value, an atomic
 add a plain one, ``IK_LAUNCH`` a loop over the grid's blocks,
 ``IK_DYN_SMEM`` a buffer filled with NaN before each launch (a read of
 shared memory that no pass wrote would show), the ``cp.async`` staging
@@ -87,6 +88,7 @@ inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline void __syncthreads() {}
+inline int __syncthreads_or(int p) { return p; }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
@@ -143,23 +145,45 @@ Launcher<K> launcher(K k, dim3 g, size_t bytes) { return {k, g, bytes}; }
 """
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def _build_cpu(d: Path, csrc: Path):
     gxx = shutil.which("g++")
     assert gxx, "g++ builds the port's native codecs too"
-    d = tmp_path_factory.mktemp("kernel_cpu")
     (d / "cuda_runtime.h").write_text(SHIM)
     so = d / "libik_band_cpu.so"
     subprocess.run(
         [gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-         "-I", str(d), "-x", "c++", str(CSRC / "resize_strip.cu"),
-         str(CSRC / "resize_planes.cu"), str(CSRC / "jpeg8_folded.cu"),
+         "-I", str(d), "-x", "c++", str(csrc / "resize_strip.cu"),
+         str(csrc / "resize_planes.cu"), str(csrc / "jpeg8_folded.cu"),
          "-o", str(so)],
         check=True, capture_output=True, text=True, timeout=300)
     out = ctypes.CDLL(str(so))
     _build.configure_band(out)
     _build.configure_folded(out)
     return out
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    return _build_cpu(tmp_path_factory.mktemp("kernel_cpu"), CSRC)
+
+
+#: the body's largest shared-memory budget a block, as committed
+MAX_SMEM = "constexpr size_t kBandMaxSmem = 225 * 1024;"
+
+
+@pytest.fixture(scope="module")
+def roomy_lib(tmp_path_factory):
+    """The same sources with the largest shared-memory budget raised to
+    64 MB: rows too wide for a tile of whole rows on a card take whole rows
+    here, the body the strips must equal bit for bit."""
+    d = tmp_path_factory.mktemp("kernel_cpu_roomy")
+    body = (CSRC / "resize_band.cuh").read_text()
+    assert body.count(MAX_SMEM) == 1
+    (d / "resize_band.cuh").write_text(body.replace(
+        MAX_SMEM, "constexpr size_t kBandMaxSmem = 64 << 20;"))
+    for name in ("resize_strip.cu", "resize_planes.cu", "jpeg8_folded.cu"):
+        shutil.copy(CSRC / name, d / name)
+    return _build_cpu(d, d)
 
 
 def _stack(ti, to, bi, bo, U, replicate=True, hole=None):
@@ -185,9 +209,12 @@ def _images(B, H, WC, seed):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def _strip_launch(lib, x, wv, wh, vidx, hidx, C, kw=None):
+def _strip_launch(lib, x, wv, wh, vidx, hidx, C, kw=None, strip=0,
+                  info=None):
     """K2's source on (B, H, W*C) pixel rows ``x`` -> (B, C, OH, OW), or
-    (B, OH, OW, 4) for C = 4, whose pixels leave interleaved."""
+    (B, OH, OW, 4) for C = 4, whose pixels leave interleaved; ``strip``
+    asks for column strips of that width, ``info`` (a list) gets what the
+    launch took."""
     kw = kw or {}
     B, H, WC = x.shape
     tabs = resize_tables(wv, wh)
@@ -198,8 +225,10 @@ def _strip_launch(lib, x, wv, wh, vidx, hidx, C, kw=None):
     remap = {k: kw[k] for k in ("scale", "pre", "post") if k in kw}
     rec = plane_record(x.data_ptr(), H * WC, WC, C, wv, tabs, vidx, hidx,
                        out, C * oh * ow, 1 if C == 4 else oh * ow, H, WC // C,
-                       **remap)
-    _build.launch_band(lib.ik_resize_strip, [rec], B, int(centered), None)
+                       **remap, strip=strip)
+    got = _build.launch_band(lib.ik_resize_strip, [rec], B, int(centered), None)
+    if info is not None:
+        info.append((got.tr, got.strips))
     return out
 
 
@@ -324,6 +353,86 @@ def test_k2_plane_source_matches_plain(lib, epilogue, batch):
     assert_band(got[:, 0].numpy(), want.numpy(), epilogue)
 
 
+# -- column strips ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("C", [1, 3, 4])
+@pytest.mark.parametrize("case", sorted(K2_CASES))
+def test_k2_strips_equal_whole_rows_on_narrow_rows(lib, case, C):
+    """Column strips asked for where whole rows fit: each output is the
+    same terms in the same order, so the bytes are the whole-row body's, at
+    strips of 5 columns (ragged, and windows that reach past the row's end
+    in the upscale) and of 16."""
+    B, H, W, OH, OW, U, vidx, hidx, opts = K2_CASES[case]
+    wv = _stack(H, OH - 1, H, OH, U, **opts)
+    wh = _stack(W, OW - 2, W, OW, U, **opts)
+    x, wv_t, wh_t, v, h = _t(_images(B, H, W * C, seed=60 + C), wv, wh,
+                              np.int32(vidx), np.int32(hidx))
+    info = []
+    whole = _strip_launch(lib, x, wv_t, wh_t, v, h, C, info=info)
+    for sw in (5, 16):
+        got = _strip_launch(lib, x, wv_t, wh_t, v, h, C, strip=sw, info=info)
+        assert torch.equal(got, whole), (case, C, sw)
+    assert [n > 0 for _, n in info] == [False, True, 16 < OW]
+
+
+def test_k2_strips_zero_the_window_past_the_row(lib):
+    """RGBA rows of 30 pixels: the last windows, 4-aligned, reach 2 pixels
+    past the row, where a strip's tile holds zeros for their zero taps (a
+    whole row's tile holds the next row's samples)."""
+    wv, wh = _stack(20, 9, 20, 10, 2), _stack(30, 11, 30, 12, 2)
+    x, wv_t, wh_t, v, h = _t(_images(2, 20, 30 * 4, seed=13), wv, wh,
+                              np.int32([0, 1]), np.int32([1, 1]))
+    start, taps = resize_strip.compact_table(wh_t)
+    assert int(start.max()) + 4 * taps.shape[1] > 30
+    whole = _strip_launch(lib, x, wv_t, wh_t, v, h, 4)
+    for sw in (1, 4):
+        assert torch.equal(_strip_launch(lib, x, wv_t, wh_t, v, h, 4,
+                                         strip=sw), whole)
+
+
+def test_k2_strips_take_falling_starts_column_by_column(lib):
+    """A Wh whose rows run backwards (the starts fall as the column grows):
+    a strip's span is searched column by column, with the same bytes."""
+    wv = _stack(40, 16, 40, 16, 2)
+    wh = _stack(64, 24, 64, 24, 2)[:, ::-1].copy()
+    x, wv_t, wh_t, v, h = _t(_images(2, 40, 64 * 3, seed=12), wv, wh,
+                              np.int32([0, 1]), np.int32([1, 0]))
+    start = resize_strip.compact_table(wh_t)[0]
+    assert (start[:, 1:] < start[:, :-1]).any()
+    whole = _strip_launch(lib, x, wv_t, wh_t, v, h, 3)
+    for sw in (3, 9):
+        assert torch.equal(_strip_launch(lib, x, wv_t, wh_t, v, h, 3,
+                                         strip=sw), whole)
+
+
+# (C, W, OW) of rows wider than a tile of whole rows takes on a card (the
+# body's largest budget holds 2 rows of some 26,700 floats beside its ring)
+WIDE = {"plane": (1, 28000, 300), "rgb": (3, 9000, 400), "rgba": (4, 6800, 300)}
+
+
+@pytest.mark.parametrize("kind", sorted(WIDE))
+def test_k2_strips_on_rows_past_the_whole_row_ceiling(lib, roomy_lib, kind):
+    """The source on a card's budget takes column strips for these rows;
+    the same sources with room for whole rows take whole rows: the bytes
+    are equal, and within the band of the plain version."""
+    C, W, OW = WIDE[kind]
+    B, H, OH = 2, 12, 5
+    wv = _stack(H, OH - 1, H, OH, 2)
+    wh = _stack(W, OW - 1, W, OW, 2)
+    x, wv_t, wh_t, v, h = _t(_images(B, H, W * C, seed=C), wv, wh,
+                              np.int32([0, 1]), np.int32([1, 0]))
+    info = []
+    got = _strip_launch(lib, x, wv_t, wh_t, v, h, C, info=info)
+    whole = _strip_launch(roomy_lib, x, wv_t, wh_t, v, h, C, info=info)
+    assert info[0][1] > 0 and info[1][1] == 0, info
+    assert torch.equal(got, whole)
+    plain = {1: resize_strip.plane_resize_plain, 3: resize_strip.rgb_resize_plain,
+             4: resize_strip.rgba_resize_plain}[C](x, wv_t, wh_t, v, h)
+    assert_band((got[:, 0] if C == 1 else got).numpy(), plain.numpy(), kind)
+    assert 0.2 < float(((got > 0) & (got < 255)).float().mean())
+
+
 def _k3_stacks(U=3):
     """Luma 48x64 -> 20x28 and chroma 24x32 -> the same 20x28 (the demoted
     head's 2x upsample folded into the chroma stacks)."""
@@ -349,30 +458,43 @@ PLANE_ENTRIES = {
 }
 
 
+def _planes_launch(lib, entry, planes, stacks, v, strips=(0, 0, 0)):
+    """The three planes in one launch of ``entry``'s source, each plane's
+    record asking for its own strips; returns the outputs and what the
+    launch took."""
+    _, out_dtype, fn_name = PLANE_ENTRIES[entry]
+    B = v.shape[0]
+    pairs = (stacks[:2], stacks[2:], stacks[2:])
+    recs, outs, tabs = [], [], []
+    for p, (wv, wh), sw in zip(planes, pairs, strips):
+        out = torch.empty((B, 20, 28), dtype=out_dtype)
+        tabs.append(resize_tables(wv, wh))  # alive until the launch
+        recs.append(plane_record(p.data_ptr(), p.shape[1] * p.shape[2],
+                                 p.shape[2], 1, wv, tabs[-1], v, v, out,
+                                 20 * 28, 0, *p.shape[1:], strip=sw))
+        outs.append(out)
+    info = _build.launch_band(getattr(lib, fn_name), recs, B, None)
+    return outs, info.strips
+
+
+def _k3_inputs(entry, vidx):
+    in_dtype = PLANE_ENTRIES[entry][0]
+    B = len(vidx)
+    planes = [torch.from_numpy(_images(B, h, w, seed=h + w))
+              for h, w in ((48, 64), (24, 32), (24, 32))]
+    if in_dtype == torch.float32:
+        planes = [p.float() + 0.25 for p in planes]
+    return planes, _t(*_k3_stacks()), torch.tensor(vidx, dtype=torch.int32)
+
+
 @pytest.mark.parametrize("entry", sorted(PLANE_ENTRIES))
 @pytest.mark.parametrize("vidx", [[1], [0, 2, 1, -4, 6]], ids=["b1", "b5"])
 def test_k3_k4_three_planes_match_plain(lib, entry, vidx):
     """Y and the two chroma planes, of another shape and with their own
     stacks, in one launch of K3's (u8) or K4's (f32 out) source."""
-    in_dtype, out_dtype, fn_name = PLANE_ENTRIES[entry]
-    f32 = out_dtype == torch.float32
-    B = len(vidx)
-    stacks = _t(*_k3_stacks())
-    v = torch.tensor(vidx, dtype=torch.int32)
-    planes = [torch.from_numpy(_images(B, h, w, seed=h + w))
-              for h, w in ((48, 64), (24, 32), (24, 32))]
-    if in_dtype == torch.float32:
-        planes = [p.float() + 0.25 for p in planes]
-    pairs = (stacks[:2], stacks[2:], stacks[2:])
-    recs, outs, tabs = [], [], []
-    for p, (wv, wh) in zip(planes, pairs):
-        out = torch.empty((B, 20, 28), dtype=out_dtype)
-        tabs.append(resize_tables(wv, wh))  # alive until the launch
-        recs.append(plane_record(p.data_ptr(), p.shape[1] * p.shape[2],
-                                 p.shape[2], 1, wv, tabs[-1], v, v, out,
-                                 20 * 28, 0, *p.shape[1:]))
-        outs.append(out)
-    _build.launch_band(getattr(lib, fn_name), recs, B, None)
+    f32 = PLANE_ENTRIES[entry][1] == torch.float32
+    planes, stacks, v = _k3_inputs(entry, vidx)
+    outs, _ = _planes_launch(lib, entry, planes, stacks, v)
     plain = rp.resize_planes3_f32_plain if f32 else rp.resize_planes3_plain
     wants = plain(planes, stacks, v.clamp(0, 2))
     for got, want in zip(outs, wants):
@@ -381,6 +503,21 @@ def test_k3_k4_three_planes_match_plain(lib, entry, vidx):
         else:
             assert_band(got.numpy(), want.numpy())
             assert 0.2 < float(((got > 0) & (got < 255)).float().mean())
+
+
+@pytest.mark.parametrize("entry", sorted(PLANE_ENTRIES))
+@pytest.mark.parametrize("strips", [(6, 0, 0), (0, 5, 11), (7, 7, 7)])
+def test_k3_k4_strips_equal_whole_rows(lib, entry, strips):
+    """K3's and K4's entries on the same body: column strips asked for in
+    some planes of a launch (the others stay whole) give the whole-row
+    body's values exactly."""
+    planes, stacks, v = _k3_inputs(entry, [0, 2, 1, -4, 6])
+    whole, n0 = _planes_launch(lib, entry, planes, stacks, v)
+    got, n = _planes_launch(lib, entry, planes, stacks, v, strips)
+    assert n0 == 0 and n == (28 + min(s_ for s_ in strips if s_) - 1) // min(
+        s_ for s_ in strips if s_)
+    for g, w in zip(got, whole):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("jpeg", [False, True], ids=["webp_out", "jpeg_out"])

@@ -119,13 +119,23 @@ def test_encode_rgb_to_coefficients_matches_reference(size, quality):
 
 
 def test_encode_beyond_the_ladder_raises_as_the_reference():
+    """The reference's encoder raises beyond its bucket ladder (its caller
+    hands the image to Pillow); the port's has no per-shape compile and
+    encodes it (its levels: ``tests/test_torch_oversized.py``), up to the
+    JPEG limit of 65535 a side (Pillow, the reference's arm there, stops at
+    65500); past it both raise a TransformError."""
     img = np.zeros((8, 9000, 3), np.uint8)
     with pytest.raises(ValueError, match="exceeds the native encode ladder"):
         ref_dct.encode_rgb_to_coefficients(img, 80)
-    with pytest.raises(ValueError, match="exceeds the native encode ladder"):
-        dct.encode_rgb_to_coefficients(img, 80, device="cpu")
-    with pytest.raises(NotPortedError, match="queue 1 item 11"):
-        codecs.encode_bytes(img, ImageFormat.jpeg, 80, device="cpu")
+    planes, _ = dct.encode_rgb_to_coefficients(img, 80, device="cpu")
+    assert [p.shape for p in planes] == [(2, 1126, 64), (1, 563, 64),
+                                         (1, 563, 64)]
+    body = codecs.encode_bytes(img, ImageFormat.jpeg, 80, device="cpu")
+    hdr = jpeg_abi.parse(loader.load(), body)
+    assert (hdr.width, hdr.height) == (9000, 8)
+    with pytest.raises(TransformError, match="65535"):
+        codecs.encode_bytes(np.zeros((1, 65536, 3), np.uint8),
+                            ImageFormat.jpeg, 80, device="cpu")
 
 
 # -- ops/dct.py: the JPEG pixel decode ----------------------------------------------------
