@@ -17,9 +17,10 @@ and Cr planes); an RGBA PNG to WebP or JPEG (the plain RGB head on K2's
 four-channel entry); BMP, TIFF and GIF sources; requests with no
 resize (one image's decode and encode: from a JPEG, the pixel decode on
 K3); AVIF output through every one of those heads (the first-party AV1
-intra encoder on the host); and images beyond the bucket ladder (their
+intra encoder on the host); images beyond the bucket ladder (their
 exact-shape path, K2 in column strips where a row is too wide for a tile of
-whole rows):
+whole rows); and JPEG sources beyond 4:2:0 (4:4:4, 4:2:2, 4:4:0,
+grayscale: the JPEG pixel decode on K3, then the RGB head on K2):
 
 1. environment: the card (``nvidia-smi``), torch and CUDA versions;
 2. build: the kernel library (one nvcc per source, started together), the
@@ -120,11 +121,23 @@ whole rows):
     parsed to their size, launches checked (strips where the rows need
     them, whole rows where they fit), each exact-shape resize and the RGBA
     batch against the plain version, wall times and host stages;
-17. HTTP ``/sign`` -> ``/img`` for JPEG, PNG and WebP sources to WebP, a
-    JPEG to a 1280 px WebP, a JPEG to JPEG, a JPEG to AVIF, a JPEG with no
-    sizes, the 1440x12000 page PNG at w=400, a PNG ``/upload`` and an RGBA
-    PNG ``/upload`` with no sizes through the port's app, where aiohttp is
-    installed.
+17. JPEG sources in every chroma layout, from 1080p q80 JPEGs made by the
+    port's encoder (``make_jpeg(samp=...)``), counts reset before each
+    round: 32 4:4:4 -> w=400 WebP and -> w=400 JPEG, 16 4:2:2 and 16 4:4:0
+    -> w=400 WebP (one K3 launch a request, the pixel decode; one K2 launch
+    a batch, the RGB head; no K1), 32 4:2:0 -> w=400 WebP in the same phase
+    (K1, the other route, for the cliff between them), 16 4:4:4 -> JPEG and
+    4 grayscale -> WebP with no resize (one K3 a request) and one 4:4:4 ->
+    w=400 AVIF. Outputs parsed to their size, requests/s, p50/p99, the host
+    stages and the idle share; each layout's pixel decode against the plain
+    head and against its source image; K3 on the planes of a 4:4:4 and of
+    a 4:2:2 pixel decode (B=1, 1080x1920 out) against its plain version,
+    timed, with an einsum yardstick and the bound;
+18. HTTP ``/sign`` -> ``/img`` for JPEG, PNG and WebP sources and a 4:4:4
+    JPEG to WebP, a JPEG to a 1280 px WebP, a JPEG to JPEG, a JPEG to
+    AVIF, a JPEG with no sizes, the 1440x12000 page PNG at w=400, a PNG
+    ``/upload`` and an RGBA PNG ``/upload`` with no sizes through the
+    port's app, where aiohttp is installed.
 
 Device times are the kernels' own, summed by ``torch.profiler`` over 20
 calls (the host's launch cost excluded); the bound is the larger of the
@@ -200,15 +213,19 @@ def synth_image(seed: int, w: int = 1920, h: int = 1080) -> np.ndarray:
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def make_jpeg(seed: int, quality: int, image=synth_image) -> bytes:
+def make_jpeg(seed: int, quality: int, image=synth_image, samp=(2, 2),
+              gray: bool = False) -> bytes:
     """JPEG without Pillow: the port's numpy fDCT + the native Huffman
-    encoder."""
+    encoder. ``samp`` is the luma's (h, v) sampling factors against the
+    chroma's 1: (2, 2) 4:2:0, (2, 1) 4:2:2, (1, 2) 4:4:0, (1, 1) 4:4:4;
+    ``gray`` writes the luma alone."""
     from imagekit_tpu_torch.codecs.native import loader
     from imagekit_tpu_torch.ops.weights import host_encode_rgb_to_coefficients
 
     img = image(seed)
-    planes, qt = host_encode_rgb_to_coefficients(img, quality)
-    return loader.encode_jpeg(planes, qt, img.shape[1], img.shape[0])
+    planes, qt = host_encode_rgb_to_coefficients(img, quality, samp)
+    return loader.encode_jpeg(planes[:1] if gray else planes, qt,
+                              img.shape[1], img.shape[0], samp)
 
 
 def dense_image(seed: int, w: int = 1920, h: int = 1080) -> np.ndarray:
@@ -450,6 +467,26 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def queued_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn`` from CUDA events around ``reps``
+    calls queued behind a spin kernel (``torch.cuda._sleep``, ≈ 25 ms on
+    an H100): the card waits while the host launches them, so their
+    kernels run back to back and the host's launch time, which exceeds a
+    small kernel's own, is not counted (a call that waits for the card
+    counts its gaps as plain CUDA events do)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def device_ms(fn, reps: int = 20) -> float:
     """Device time of one call of ``fn``: the kernels it launches, summed
     by ``torch.profiler`` (CUPTI) over ``reps`` calls after a warm-up, so
@@ -459,7 +496,8 @@ def device_ms(fn, reps: int = 20) -> float:
     HBM3 at 700 W such a trace once summed a kernel to 0.0125 ms, under its
     0.0211 ms bound): the trace is then taken
     once more, and after a second short one the calls are timed with CUDA
-    events instead (which count the gaps between a call's kernels too)."""
+    events instead, queued behind a spin kernel (:func:`queued_ms`; the
+    gaps between a call's own kernels count there)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -477,9 +515,10 @@ def device_ms(fn, reps: int = 20) -> float:
         total = sum(e.time_range.elapsed_us() for e in events)
         if total > 0 and len(events) >= reps:
             return total / reps / 1e3
-    ms = cuda_ms(fn, reps)
+    ms = queued_ms(fn, reps)
     log(f"    (two traces held fewer device records than calls: {ms:.4f} ms "
-        f"is the median of {reps} CUDA-event timings)")
+        f"is from CUDA events around {reps} calls queued behind a spin "
+        f"kernel)")
     return ms
 
 
@@ -2586,12 +2625,234 @@ def phase_oversized(images, rgba_images, jpeg_1080: bytes, k2: dict,
 
 
 # ---------------------------------------------------------------------------
-# phase 17: HTTP
+# phase 17: JPEG sources in every chroma layout
+# ---------------------------------------------------------------------------
+
+# (luma's sampling factors, chroma blocks of a 1080p source: rows, columns;
+# a luma MCU of 8 rows makes 135 block rows, one of 16 makes 136)
+LAYOUTS = {"4:4:4": ((1, 1), (135, 240)), "4:2:2": ((2, 1), (135, 120)),
+           "4:4:0": ((1, 2), (68, 240))}
+
+
+def k3_layout_case(call) -> dict:
+    """K3 on the three planes one recorded JPEG pixel decode hands it (B=1,
+    identity luma stacks, per-axis upsample or identity chroma stacks)
+    against its plain version, each plane compared; device ms of K3, of the
+    plain version and of one fp32 einsum a plane; the bound."""
+    from imagekit_tpu_torch.ops import dct
+    from imagekit_tpu_torch.ops import resize_planes as rp
+    from imagekit_tpu_torch.ops.color import on_device
+    from imagekit_tpu_torch.ops.resize_strip import resize_tables
+
+    args = call[0]
+    y, cb, cr, qt, w, vidx, (by, bx, cy, cx), _ = args
+    y, cb, cr, qt, vidx, *stacks = on_device((y, cb, cr, qt, vidx, *w),
+                                             device="cuda")
+    planes = [dct._blocks_to_plane(y, by, bx, qt[:, :64]),
+              dct._blocks_to_plane(cb, cy, cx, qt[:, 64:128]),
+              dct._blocks_to_plane(cr, cy, cx, qt[:, -64:])]
+    tabs = (resize_tables(*stacks[:2]), resize_tables(*stacks[2:]))
+    got = rp.resize_planes3(planes, stacks, vidx, bands=tabs)
+    ref = rp.resize_planes3_plain(planes, stacks, vidx)
+    case = {"max_abs_err": 0, "share_differ": 0.0,
+            "planes": [tuple(p.shape[1:]) for p in planes]}
+    for a, b in zip(got, ref):
+        mx, share1, over = compare(a, b)
+        if mx > MAX_ABS or share1 > MAX_SHARE or over:
+            raise RuntimeError(f"K3 at {case['planes']} disagrees with its "
+                               f"plain version: max|d|={mx}, "
+                               f"share(|d|=1)={share1:.3e}")
+        case["max_abs_err"] = max(case["max_abs_err"], mx)
+        case["share_differ"] = max(case["share_differ"],
+                                   float((a != b).float().mean()))
+    case["ms"] = device_ms(lambda: rp.resize_planes3(planes, stacks, vidx,
+                                                     bands=tabs))
+    case["plain_ms"] = device_ms(
+        lambda: rp.resize_planes3_plain(planes, stacks, vidx))
+    case["library_ms"] = device_ms(planes_einsums(planes, stacks, vidx))
+    case["bound_ms"], case["bound_by"] = planes_bound(planes, 1, stacks, tabs,
+                                                      vidx)
+    return case
+
+
+def phase_jpeg_layouts(layout_jpegs, gray_jpegs, jpegs, sources,
+                       card: str) -> dict:
+    """JPEG sources beyond 4:2:0 with shared tables through one engine: the
+    native heads turn them away, the JPEG pixel decode (one K3 launch a
+    request) and the batched RGB head (one K2 launch a batch) serve them.
+    ``layout_jpegs``: layout -> 1080p q80 JPEGs; ``sources``: the images
+    they were made from. Rounds, the launch counts set to 0 before each
+    and read after it, each run twice (timed, then traced): 32 4:4:4 ->
+    w=400 WebP and -> w=400 JPEG; 16 4:2:2 and 16 4:4:0 -> w=400 WebP; 32
+    4:2:0 -> w=400 WebP (K1, the route the others do not take); 16 4:4:4 ->
+    JPEG and 4 grayscale -> WebP with no resize; one 4:4:4 -> w=400 AVIF
+    (untraced: its encode takes seconds). Then K3 on the planes of a
+    4:4:4 and of a 4:2:2 pixel decode against its plain version, timed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from imagekit_tpu_torch.codecs import jpeg
+    from imagekit_tpu_torch.config import BatchConfig, ImageFormat, ImageKitConfig
+    from imagekit_tpu_torch.ops import dct, jpeg8, resize_strip
+    from imagekit_tpu_torch.ops import resize_planes as rp
+    from imagekit_tpu_torch.serving.batcher import BatchedEngine
+    from imagekit_tpu_torch.serving.metrics import Metrics
+
+    W, J, A = ImageFormat.webp, ImageFormat.jpeg, ImageFormat.avif
+    full, small = (1920, 1080), (400, 225)
+    s444, s422, s440 = (layout_jpegs[k] for k in ("4:4:4", "4:2:2", "4:4:0"))
+    # (name, sources, requests, width, format, output size, launches
+    # expected: kernel -> "request" (one a request) or "batch" (one a batch))
+    pixel_head = {"k3": "request", "k2": "batch"}
+    rounds = [
+        ("1080p 4:4:4 JPEG -> w=400 WebP", s444, 32, 400, W, small,
+         pixel_head),
+        ("1080p 4:4:4 JPEG -> w=400 JPEG", s444, 32, 400, J, small,
+         pixel_head),
+        ("1080p 4:2:2 JPEG -> w=400 WebP", s422, 16, 400, W, small,
+         pixel_head),
+        ("1080p 4:4:0 JPEG -> w=400 WebP", s440, 16, 400, W, small,
+         pixel_head),
+        ("1080p 4:2:0 JPEG -> w=400 WebP (the JPEG head)", jpegs, 32, 400, W,
+         small, {"k1": "batch"}),
+        ("1080p 4:4:4 JPEG -> JPEG, no resize", s444, 16, None, J, full,
+         {"k3": "request"}),
+        ("1080p grayscale JPEG -> WebP, no resize", gray_jpegs, 4, None, W,
+         full, {"k3": "request"}),
+        ("1080p 4:4:4 JPEG -> w=400 AVIF", s444, 1, 400, A, small,
+         pixel_head),
+    ]
+    metrics = Metrics()
+    engine = BatchedEngine(
+        ImageKitConfig(secret=SECRET,
+                       batch=BatchConfig(max_queue_latency_s=0.0)),
+        metrics=metrics, device="cuda")
+    stages = ("entropy_decode", "device_decode", "batch_build",
+              "device_resize", "device_decode_resize", "device_encode",
+              "encode")
+
+    def counts():
+        return {"k1": jpeg8.LAUNCHES, "k2": resize_strip.LAUNCHES,
+                "k2_rgba": resize_strip.LAUNCHES_RGBA, "k3": rp.LAUNCHES,
+                "k4": rp.LAUNCHES_F32}
+
+    async def one(data, w, fmt):
+        t0 = time.perf_counter()
+        out = await engine.transform(data, w, None, fmt, 80)
+        return out, time.perf_counter() - t0
+
+    async def drive():
+        try:
+            await engine.warmup()
+            runs = []
+            for _, srcs, n_req, w, fmt, *_ in rounds:
+                reqs = [(srcs[i % len(srcs)], w, fmt) for i in range(n_req)]
+                if fmt != A:
+                    await asyncio.gather(*(one(*r) for r in reqs[:4]))  # warm
+                batches0 = metrics.batches
+                stage0 = {k: metrics.stage_seconds[k] for k in stages}
+                jpeg8.LAUNCHES = resize_strip.LAUNCHES = 0
+                resize_strip.LAUNCHES_RGBA = 0
+                rp.LAUNCHES = rp.LAUNCHES_F32 = 0
+                t0 = time.perf_counter()
+                res = await asyncio.gather(*(one(*r) for r in reqs))
+                wall = time.perf_counter() - t0
+                run = {"res": res, "wall": wall, **counts(),
+                       "batches": metrics.batches - batches0,
+                       "spent": {k: metrics.stage_seconds[k] - stage0[k]
+                                 for k in stages}, "busy": None}
+                if fmt != A:
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        t0 = time.perf_counter()
+                        await asyncio.gather(*(one(*r) for r in reqs))
+                        torch.cuda.synchronize()
+                        run["traced_wall"] = time.perf_counter() - t0
+                    run["busy"] = device_busy_s(prof)
+                runs.append(run)
+            return runs
+        finally:
+            await engine.close()
+
+    with Recorder(dct, "decode_resize_rgb_batch") as rec_rgb:
+        runs = asyncio.run(drive())
+    summary = {"rounds": {}}
+    for (name, _, n_req, _, fmt, size, want), run in zip(rounds, runs):
+        for out, _ in run["res"]:
+            dims = ((avif_info(out)[0], avif_info(out)[1]) if fmt == A
+                    else out_dims(out))
+            if dims != ((b"avif", [size]) if fmt == A else (fmt.value, *size)):
+                raise RuntimeError(f"{name}: output is {dims}, not "
+                                   f"{fmt.value} {size}")
+        p50, p99 = latency(run["res"])
+        rps = n_req / run["wall"]
+        launched = {k: run[k] for k in ("k1", "k2", "k2_rgba", "k3", "k4")}
+        log(f"  {name}: {n_req} concurrent requests in {run['wall']:.4f} s "
+            f"-> {rps:.2f} req/s, p50 {p50:.2f} ms, p99 {p99:.2f} ms, "
+            f"{run['batches']} batches, launches {launched} [{card}]")
+        log("    host seconds: " + ", ".join(
+            f"{k} {v:.4f} s ({v / n_req * 1e3:.2f} ms/request)"
+            for k, v in run["spent"].items() if v > 0))
+        idle = None
+        if fmt != A:
+            idle, idle_line = idle_share(run)
+            log(idle_line)
+        expected = {k: {"request": n_req, "batch": run["batches"]}[per]
+                    for k, per in want.items()}
+        batched = "batch" in want.values()
+        if launched != {k: expected.get(k, 0) for k in launched} or (
+                batched != (run["batches"] > 0)):
+            raise RuntimeError(
+                f"{name}: {launched} launches and {run['batches']} batches; "
+                f"expected {expected} and no other")
+        summary["rounds"][name] = {
+            "launches": launched, "batches": run["batches"], "rps": rps,
+            "p50_ms": p50, "p99_ms": p99, "idle_share": idle,
+            "stage_s_per_request": {k: v / n_req
+                                    for k, v in run["spent"].items() if v}}
+    summary["k3_launches"] = sum(
+        r["launches"]["k3"] for r in summary["rounds"].values())
+    # every pixel decode's RGB (K3) against the plain head on the same
+    # inputs, one a layout; each layout's pixels against the image the JPEG
+    # was made from
+    by_dims = {}
+    for call in rec_rgb.calls:
+        by_dims.setdefault(tuple(call[0][6][2:]), call)
+    for layout, (_, grid) in LAYOUTS.items():
+        if grid not in by_dims:
+            raise RuntimeError(f"no {layout} pixel decode was recorded")
+        mx, share = check_rgb_batch(by_dims[grid])
+        px = jpeg.decode_rgb(layout_jpegs[layout][0], device="cuda")
+        err = px.astype(np.float64) - sources[0].astype(np.float64)
+        psnr = 10 * np.log10(255.0 ** 2 / max(float((err ** 2).mean()),
+                                               1e-12))
+        log(f"  {layout} pixel decode (K3) vs plain head: max|d|={mx} "
+            f"share(|d|>0)={share:.3e}; against the source image: PSNR "
+            f"{psnr:.2f} dB")
+        if px.shape != (1080, 1920, 3) or psnr < 30.0:
+            raise RuntimeError(f"the {layout} pixel decode is not its source")
+    gray = jpeg.decode_rgb(gray_jpegs[0], device="cuda")
+    if gray.shape != (1080, 1920, 3) or not (gray == gray[..., :1]).all():
+        raise RuntimeError("a grayscale pixel decode is not R = G = B")
+    # K3 at the two new geometries, on the planes of a recorded decode
+    for layout in ("4:4:4", "4:2:2"):
+        case = k3_layout_case(by_dims[LAYOUTS[layout][1]])
+        log(f"  K3 at the {layout} pixel decode ({case['planes']} -> "
+            f"1080x1920, B=1) vs plain: max|d|={case['max_abs_err']} "
+            f"share(differ)={case['share_differ']:.3e}; device time per call "
+            f"(torch.profiler over 20) K3 {case['ms']:.4f} ms vs plain "
+            f"{case['plain_ms']:.4f} ms vs einsum {case['library_ms']:.4f} "
+            f"ms, bound {case['bound_ms']:.4f} ms ({case['bound_by']}), K3 "
+            f"at {case['bound_ms'] / case['ms']:.1%} of it [{card}]")
+        summary[layout] = case
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 18: HTTP
 # ---------------------------------------------------------------------------
 
 
 def phase_http(jpegs, png_bytes: bytes, webp_bytes: bytes,
-               rgba_png: bytes, page_png: bytes) -> str:
+               rgba_png: bytes, page_png: bytes, jpeg_444: bytes) -> str:
     try:
         import aiohttp
         from aiohttp import web
@@ -2632,10 +2893,14 @@ def phase_http(jpegs, png_bytes: bytes, webp_bytes: bytes,
         async def serve_page(request):
             return web.Response(body=page_png, content_type="image/png")
 
+        async def serve_444(request):
+            return web.Response(body=jpeg_444, content_type="image/jpeg")
+
         src.router.add_get("/src{i}.jpg", serve)
         src.router.add_get("/src.png", serve_png)
         src.router.add_get("/src.webp", serve_webp)
         src.router.add_get("/page.png", serve_page)
+        src.router.add_get("/src444.jpg", serve_444)
         src_runner = web.AppRunner(src)
         await src_runner.setup()
         src_site = web.TCPSite(src_runner, "127.0.0.1", 0)
@@ -2656,11 +2921,12 @@ def phase_http(jpegs, png_bytes: bytes, webp_bytes: bytes,
                 urls = [f"http://127.0.0.1:{src_port}/src{i}.jpg"
                         for i in range(4)]
                 local = f"http://127.0.0.1:{src_port}"
-                # (source, width): the JPEGs, the PNG and the WebP at
-                # w=400, and a JPEG at w=1280 (the k=8 head)
+                # (source, width): the JPEGs, the PNG, the WebP and a 4:4:4
+                # JPEG (the pixel decode and the RGB head) at w=400, and a
+                # JPEG at w=1280 (the k=8 head)
                 wanted = [(url, "400") for url in urls + [
-                    f"{local}/src.png", f"{local}/src.webp"]] + [
-                    (urls[1], "1280")]
+                    f"{local}/src.png", f"{local}/src.webp",
+                    f"{local}/src444.jpg"]] + [(urls[1], "1280")]
                 for url, width in wanted:
                     async with s.get(f"{base}/sign", params={
                             "url": url, "w": width, "f": "webp", "q": "80"}) as r:
@@ -2754,15 +3020,15 @@ def phase_http(jpegs, png_bytes: bytes, webp_bytes: bytes,
                         raise RuntimeError(
                             f"RGBA PNG /upload with no sizes answered "
                             f"{r.status} {body[:200]!r}")
-            if metrics.cache_hits != 11 or metrics.cache_misses != 11:
+            if metrics.cache_hits != 12 or metrics.cache_misses != 12:
                 raise RuntimeError(
                     f"cache hits {metrics.cache_hits}, misses "
-                    f"{metrics.cache_misses}; expected 11 and 11")
+                    f"{metrics.cache_misses}; expected 12 and 12")
         finally:
             await runner.cleanup()
             await src_runner.cleanup()
-        return ("passed: 4 JPEG, 1 PNG and 1 WebP at w=400 and 1 JPEG at "
-                "w=1280 x (/sign -> /img 200 image/webp of the right size "
+        return ("passed: 4 JPEG, 1 PNG, 1 WebP and 1 4:4:4 JPEG at w=400 "
+                "and 1 JPEG at w=1280 x (/sign -> /img 200 image/webp of the right size "
                 "with ETag, then a cache HIT); 1 JPEG /sign -> /img f=jpeg "
                 "200 image/jpeg 400x225, then a cache HIT; 1 JPEG /sign -> "
                 "/img f=avif 200 image/avif 400x225 with ETag and a .avif "
@@ -2891,7 +3157,20 @@ def main() -> int:
         "BatchedEngine(device='cuda').transform at exact shapes")
     over = phase_oversized(images, rgba_images, jpegs[0], k2, k2_rgba, card)
 
-    log(f"[17] HTTP: {phase_http(jpegs, pngs[0], webps[0], rgba_pngs[0], over['page'])}")
+    t0 = time.perf_counter()
+    layout_jpegs = {name: [make_jpeg(300 + seed, 80, samp=samp)
+                           for seed in range(4)]
+                    for name, (samp, _) in LAYOUTS.items()}
+    gray_jpegs = [make_jpeg(400 + seed, 80, gray=True) for seed in range(2)]
+    log(f"    made 4 q80 1920x1080 JPEGs in each of "
+        f"{', '.join(LAYOUTS)} and 2 grayscale ones in "
+        f"{time.perf_counter() - t0:.2f} s")
+    log("[17] JPEG sources in every chroma layout: the JPEG pixel decode "
+        "(K3) and the RGB head (K2), BatchedEngine(device='cuda').transform")
+    layouts = phase_jpeg_layouts(layout_jpegs, gray_jpegs, jpegs,
+                                 [synth_image(300)], card)
+
+    log(f"[18] HTTP: {phase_http(jpegs, pngs[0], webps[0], rgba_pngs[0], over['page'], layout_jpegs['4:4:4'][0])}")
     log(f"    total {time.perf_counter() - t_start:.2f} s")
 
     avif_n = {head: r["launches"] for head, r in avif.items()}
@@ -2934,6 +3213,13 @@ def main() -> int:
         "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"],
         "library_ms": k3["library_ms"],
+        # the JPEG pixel decode beyond 4:2:0 (phase 17): launches on its
+        # rounds, and K3 at its two new geometries (B=1)
+        "layout_launches": layouts["k3_launches"],
+        **{f"pixel_decode_{name[0]}{name[2]}{name[4]}": {
+            key: layouts[name][key] for key in (
+                "max_abs_err", "share_differ", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")} for name in ("4:4:4", "4:2:2")},
     }, {
         "name": "resize_planes3_f32 (K4, Y + Cb + Cr in one launch; u8 planes "
                 "in, f32 out on the k=8 JPEG -> WebP heads)",
@@ -3013,6 +3299,8 @@ def main() -> int:
             f"no engine path (or no AVIF round) launched {idle}")
     if over["launches"] <= 0:
         raise RuntimeError("no path beyond the bucket ladder launched K2")
+    if layouts["k3_launches"] <= 0:
+        raise RuntimeError("no JPEG layout round launched K3")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -9,8 +9,11 @@ on CUDA, and :func:`~imagekit_tpu_torch.ops.dct.encode_rgb_to_coefficients`).
 ``device`` is the card unless the caller names another.
 
 The reference's serving path decodes JPEG pixels with Pillow; the port has
-none, so :func:`decode_rgb` is its JPEG pixel decode: baseline 4:2:0 JPEGs
-with shared Cb/Cr tables. Everything else raises
+none, so :func:`decode_rgb` is its JPEG pixel decode, baseline or
+progressive: 4:2:0, 4:2:2, 4:4:0 and 4:4:4 JPEGs, their Cb and Cr with
+shared or distinct tables, and grayscale JPEGs. CMYK and YCCK JPEGs,
+12-bit and arithmetic coding, Cb and Cr sampled differently and chroma
+ratios other than 1 or 2 raise
 :class:`~imagekit_tpu_torch.errors.NotPortedError`.
 """
 
@@ -52,21 +55,22 @@ def decode_to_coefficients(data: bytes):
 def components_to_rgb(comps, device: Optional[torch.device] = None
                       ) -> np.ndarray:
     """The device half of :func:`decode_rgb`: dequant + IDCT + chroma
-    upsample + YCbCr -> RGB of :func:`decode_to_coefficients`' output."""
+    upsample + YCbCr -> RGB of :func:`decode_to_coefficients`' output, for
+    the layouts of the module docstring."""
     from imagekit_tpu_torch.ops import dct as dct_ops
 
     try:
         return dct_ops.decode_components_to_rgb(comps, device=device)
-    except ValueError:
+    except ValueError as e:
         raise NotPortedError(
-            "a JPEG that is not 4:2:0 with shared Cb/Cr tables (the JPEG "
-            "pixel decode)", "queue 1 item 10") from None
+            f"a JPEG sampling the JPEG pixel decode does not take ({e})",
+            "queue 1 item 10") from None
 
 
 def decode_rgb(data: bytes, device: Optional[torch.device] = None
                ) -> np.ndarray:
     """Host entropy decode -> device dequant + IDCT + chroma upsample +
-    YCbCr -> RGB: (H, W, 3) u8."""
+    YCbCr -> RGB: (H, W, 3) u8, grayscale sources too (R = G = B)."""
     return components_to_rgb(decode_to_coefficients(data), device=device)
 
 

@@ -24,7 +24,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 _HERE = Path(__file__).resolve().parent
 _SOURCES = ("jpeg_entropy.cpp", "vp8_encode.cpp", "vp8_decode.cpp",
@@ -94,7 +94,11 @@ def decode_jpeg(data: bytes):
     return jpeg_abi.decode(load(), data)
 
 
-def encode_jpeg(planes, qtabs, width: int, height: int) -> bytes:
+def encode_jpeg(planes, qtabs, width: int, height: int,
+                samp: Tuple[int, int] = (2, 2)) -> bytes:
+    """Baseline JFIF of quantised planes; ``samp`` is the luma's (h, v)
+    sampling factors, the chroma's are 1 (4:2:0 by default)."""
     from imagekit_tpu_torch.codecs.native import jpeg_abi
 
-    return jpeg_abi.encode(load(), planes, qtabs, width, height)
+    return jpeg_abi.encode(load(), planes, qtabs, width, height,
+                           (samp, (1, 1), (1, 1)))

@@ -51,7 +51,9 @@ The single-image entries of the JPEG codec (``codecs/jpeg.py``):
 image, for requests with no resize and for the plain RGB head's JPEG
 outputs) and :func:`decode_components_to_rgb` (``dct.py:1938``: the JPEG
 pixel decode, :func:`decode_resize_rgb_batch` with identity luma stacks
-and the 2x triangle upsample as chroma stacks, so ONE K3 launch on CUDA).
+and, per axis, the 2x triangle upsample or the identity as chroma stacks,
+so ONE K3 launch on CUDA, for 4:2:0, 4:2:2, 4:4:0, 4:4:4 and grayscale
+JPEGs).
 """
 
 from __future__ import annotations
@@ -79,8 +81,8 @@ from imagekit_tpu_torch.ops.resize_planes import (
 )
 from imagekit_tpu_torch.ops.resize_strip import rgb_resize, yuv_resize
 from imagekit_tpu_torch.ops.weights import (
+    chroma_axis_weights,
     idct_basis,
-    padded_weights,
     quality_tables,
     upsample_weights,
 )
@@ -245,10 +247,12 @@ def decode_resize_rgb(y_flat, cb_flat, cr_flat, qtabs, wv_y, wh_y, wv_c,
                       wh_c, vidx, by_y: int, bx_y: int, by_c: int, bx_c: int,
                       bands=None, resize=resize_planes3) -> torch.Tensor:
     """The RGB-output head on int16 levels (``_decode_resize_kernel``,
-    ``dct.py:206``): flat (B, OH*OW*3) u8."""
+    ``dct.py:206``): flat (B, OH*OW*3) u8. ``qtabs`` is (B, 128), the luma
+    table and the one Cb and Cr share, as the batched head carries them, or
+    (B, 192), Y, Cb and Cr each with its own (the JPEG pixel decode)."""
     Y = _blocks_to_plane(y_flat, by_y, bx_y, qtabs[:, :64])
-    Cb = _blocks_to_plane(cb_flat, by_c, bx_c, qtabs[:, 64:])
-    Cr = _blocks_to_plane(cr_flat, by_c, bx_c, qtabs[:, 64:])
+    Cb = _blocks_to_plane(cb_flat, by_c, bx_c, qtabs[:, 64:128])
+    Cr = _blocks_to_plane(cr_flat, by_c, bx_c, qtabs[:, -64:])
     return _rgb_tail(Y, Cb, Cr, wv_y, wh_y, wv_c, wh_c, vidx, bands, resize)
 
 
@@ -546,37 +550,51 @@ def encode_rgb_to_coefficients(
     return [yq[0], cbq[0], crq[0]], (qy, qc)
 
 
+def gray_chroma(luma: np.ndarray) -> np.ndarray:
+    """The zero chroma plane a grayscale JPEG decodes with: the type and
+    trailing shape of ``luma``'s (by, bx, ...) levels on the 4:2:0 grid of
+    its blocks. Zero levels dequantise to 0 under any table, so the chroma
+    planes are exactly 128, R = G = B = Y, and the chroma slot may reuse
+    the luma's table."""
+    by, bx = luma.shape[:2]
+    return np.zeros(((by + 1) // 2, (bx + 1) // 2, *luma.shape[2:]),
+                    luma.dtype)
+
+
 def decode_components_to_rgb(decoded, device: Optional[torch.device] = None
                              ) -> np.ndarray:
     """The JPEG pixel decode of one image: entropy output -> IDCT, chroma
     upsample and colour on ``device`` -> (H, W, 3) u8 RGB at full
     resolution. ``decoded`` is the (header, coeff_planes, qtabs) tuple of
-    ``jpeg_abi.decode``; 4:2:0 with shared chroma tables only, as the
-    reference's. The "resize" is the identity for luma and libjpeg's
-    triangle 2x upsample for chroma."""
+    ``jpeg_abi.decode``. Three components whose Cb and Cr share one
+    sampling at most the luma's, 1x or 2x on each axis (4:2:0, 4:2:2,
+    4:4:0, 4:4:4), each with its own table; or grayscale, with
+    :func:`gray_chroma`'s planes. The "resize" is the identity for luma and,
+    per axis, libjpeg's triangle 2x upsample or the identity for chroma
+    (:func:`~imagekit_tpu_torch.ops.weights.chroma_axis_weights`): ONE K3
+    launch on CUDA. Anything else raises ValueError."""
     hdr, coeffs, qtabs = decoded
-    if hdr.ncomp != 3 or tuple(hdr.comp_h) != (2, 1, 1) or tuple(
-        hdr.comp_v
-    ) != (2, 1, 1) or hdr.comp_tq[1] != hdr.comp_tq[2]:
-        raise ValueError("device decode path supports 4:2:0 3-component")
-    # select per-component tables by the actual SOF Tq indices
-    qtabs = np.stack([qtabs[hdr.comp_tq[0]], qtabs[hdr.comp_tq[1]]])
+    if hdr.ncomp == 1:
+        cz = gray_chroma(coeffs[0])
+        coeffs, tq = [coeffs[0], cz, cz], (hdr.comp_tq[0],) * 3
+    elif hdr.ncomp == 3 and (hdr.comp_h[1], hdr.comp_v[1]) == (
+        hdr.comp_h[2], hdr.comp_v[2]
+    ) and hdr.comp_h[0] >= hdr.comp_h[1] and hdr.comp_v[0] >= hdr.comp_v[1]:
+        tq = tuple(hdr.comp_tq[:3])
+    else:
+        raise ValueError(
+            f"{hdr.ncomp} components sampled {tuple(hdr.comp_h)} x "
+            f"{tuple(hdr.comp_v)}: not grayscale, 4:4:4, 4:2:2, 4:4:0 or "
+            f"4:2:0")
     by_y, bx_y = coeffs[0].shape[:2]
     by_c, bx_c = coeffs[1].shape[:2]
-    H, W = hdr.height, hdr.width
-    wv_y = padded_weights(by_y * 8, by_y * 8, by_y * 8, by_y * 8, "nearest")[
-        None
-    ]
-    wh_y = padded_weights(bx_y * 8, bx_y * 8, bx_y * 8, bx_y * 8, "nearest")[
-        None
-    ]
-    wv_c = np.zeros((1, by_y * 8, by_c * 8), np.float32)
-    wv_c[0, : by_y * 8, : by_c * 8] = upsample_weights(by_c * 8, by_y * 8)
-    wh_c = np.zeros((1, bx_y * 8, bx_c * 8), np.float32)
-    wh_c[0, : bx_y * 8, : bx_c * 8] = upsample_weights(bx_c * 8, bx_y * 8)
-    qt = np.concatenate(
-        [qtabs[0].astype(np.float32), qtabs[1].astype(np.float32)]
-    )[None]
+    # the stacks: identity for luma, one axis of the upsample each for chroma
+    wv_c = chroma_axis_weights(by_y, by_c)[None]
+    wh_c = chroma_axis_weights(bx_y, bx_c)[None]
+    wv_y = upsample_weights(by_y * 8, by_y * 8)[None]
+    wh_y = upsample_weights(bx_y * 8, bx_y * 8)[None]
+    # Y, Cb, Cr tables by the SOF selectors: decode_resize_rgb's 192 wide
+    qt = np.concatenate([qtabs[t] for t in tq]).astype(np.float32)[None]
     out = decode_resize_rgb_batch(
         coeffs[0].reshape(1, by_y, -1),
         coeffs[1].reshape(1, by_c, -1),
@@ -588,4 +606,4 @@ def decode_components_to_rgb(decoded, device: Optional[torch.device] = None
         (by_y * 8, bx_y * 8),
         device=device,
     )
-    return out[0, :H, :W]
+    return out[0, :hdr.height, :hdr.width]

@@ -327,6 +327,22 @@ def upsample_weights(half, full):
     return _chroma_cached(("up", half, full), lambda: _upsample_weights_impl(half, full))
 
 
+def chroma_axis_weights(luma_blocks: int, chroma_blocks: int) -> np.ndarray:
+    """The (luma_blocks*8, chroma_blocks*8) chroma stack of one axis of the
+    JPEG pixel decode, from the components' block grids (which the MCU grid
+    makes exact ratios): libjpeg's triangle 2x upsample where the luma grid
+    is twice the chroma grid (Pillow's libjpeg-turbo applies it to h2v1,
+    h1v2 and h2v2), the identity where the grids are equal. A luma grid one
+    block short of twice is a grayscale source's zero chroma
+    (``ops/dct.py::gray_chroma``), whose upsample stops at the edge. Any
+    other ratio raises ValueError."""
+    if luma_blocks not in (chroma_blocks, 2 * chroma_blocks,
+                           2 * chroma_blocks - 1):
+        raise ValueError(f"chroma grid of {chroma_blocks} blocks against "
+                         f"{luma_blocks} luma blocks: not 1x or 2x")
+    return upsample_weights(chroma_blocks * 8, luma_blocks * 8)
+
+
 def _combined_chroma_weights_impl(
     chroma_true: int,
     full_true: int,
@@ -499,14 +515,18 @@ LOWFREQ_ESC_C = 1024
 
 
 def host_encode_rgb_to_coefficients(
-    img: np.ndarray, quality: int
+    img: np.ndarray, quality: int, samp: Tuple[int, int] = (2, 2)
 ) -> Tuple[List[np.ndarray], Tuple[np.ndarray, np.ndarray]]:
-    """RGB -> BT.601 YCbCr, 4:2:0 box subsample, 8x8 fDCT and quantise:
+    """RGB -> BT.601 YCbCr, chroma box subsample, 8x8 fDCT and quantise:
     coefficient planes [(byY,bxY,64), (byC,bxC,64), ...] i16 and the quant
-    tables, ready for ``loader.encode_jpeg``."""
+    tables, ready for ``loader.encode_jpeg``. ``samp`` is the luma's (h, v)
+    sampling factors against the chroma's 1: (2, 2) is 4:2:0, (2, 1) 4:2:2,
+    (1, 2) 4:4:0 and (1, 1) 4:4:4; ``loader.encode_jpeg`` takes the same
+    ``samp``."""
+    sh, sv = samp
     h, w = img.shape[:2]
-    ph = (h + 15) // 16 * 16
-    pw = (w + 15) // 16 * 16
+    ph = (h + 8 * sv - 1) // (8 * sv) * 8 * sv
+    pw = (w + 8 * sh - 1) // (8 * sh) * 8 * sh
     x = np.pad(
         img[:, :, :3], ((0, ph - h), (0, pw - w), (0, 0)), mode="edge"
     ).astype(np.float32)
@@ -514,8 +534,8 @@ def host_encode_rgb_to_coefficients(
     y = 0.299 * r + 0.587 * g + 0.114 * b - 128.0
     cb = -0.168735892 * r - 0.331264108 * g + 0.5 * b
     cr = 0.5 * r - 0.418687589 * g - 0.081312411 * b
-    cb_d = cb.reshape(ph // 2, 2, pw // 2, 2).mean(axis=(1, 3))
-    cr_d = cr.reshape(ph // 2, 2, pw // 2, 2).mean(axis=(1, 3))
+    cb_d = cb.reshape(ph // sv, sv, pw // sh, sh).mean(axis=(1, 3))
+    cr_d = cr.reshape(ph // sv, sv, pw // sh, sh).mean(axis=(1, 3))
     A = idct_basis()
     qy, qc = quality_tables(quality)
 

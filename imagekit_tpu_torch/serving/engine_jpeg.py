@@ -25,11 +25,11 @@ resize:
   launch on CUDA) -> RGB -> host JPEG encode.
 
 The C++ Huffman decoder and the batch layouts are the reference's, and the
-weight stacks live on the device. A source or target beyond the bucket
-ladder is turned away (``_NativeUnsupported``) to the pixel decode and the
-engine's exact-shape path, as the reference turns it away; every other
-request outside these kinds raises
-:class:`~imagekit_tpu_torch.errors.NotPortedError`.
+weight stacks live on the device. As the reference does, the head turns
+away (``_NativeUnsupported``) a source that is neither 4:2:0 with shared
+Cb/Cr tables nor grayscale (to the JPEG pixel decode and the batched RGB
+head) and a source or target beyond the bucket ladder (to the pixel decode
+and the engine's exact-shape path).
 """
 
 from __future__ import annotations
@@ -42,13 +42,13 @@ import numpy as np
 import torch
 
 from imagekit_tpu_torch.config import ImageFormat
-from imagekit_tpu_torch.errors import NotPortedError
 from imagekit_tpu_torch.ops.dct import (
     decode_resize_rgb_batch,
     decode_resize_yuv_batch,
     decode_resize_yuv_i8_batch,
     decode_resize_yuv_lowfreq_batch,
     decode_resize_yuv_lowfreq_i8_batch,
+    gray_chroma,
     transcode_i8_batch,
 )
 from imagekit_tpu_torch.ops.jpeg8 import folded_bands
@@ -100,6 +100,15 @@ class JpegPathMixin:
             pre_hdr = jpeg_abi.parse(lib, data)  # header-only, microseconds
         except jpeg_abi.NativeJpegError as e:
             raise _decode_error(e) from e
+        if pre_hdr.ncomp != 1 and (
+            tuple(pre_hdr.comp_h) != (2, 1, 1)
+            or tuple(pre_hdr.comp_v) != (2, 1, 1)
+            or pre_hdr.comp_tq[1] != pre_hdr.comp_tq[2]
+        ):
+            # the heads carry one luma and one chroma table at 4:2:0, as
+            # the reference's; the rest takes the pixel decode and the RGB
+            # head (the reference finds it out after its entropy decode)
+            raise _NativeUnsupported()
 
         # Truncated-coefficient path: keep each block's KxK low-frequency
         # coefficients, K chosen from the BUCKET geometry (not true dims),
@@ -143,31 +152,16 @@ class JpegPathMixin:
         if kind == "jxc" and split is None:
             kind, k = "rgb", 8
         if hdr.ncomp == 1:
-            # grayscale: zero chroma planes at 4:2:0 geometry; zero blocks
-            # dequantise to zero under any table, so the chroma slot reuses
-            # the luma's table
-            by, bx = (coeffs[0] if split is None else split[0][0]).shape[:2]
-            cy, cx = (by + 1) // 2, (bx + 1) // 2
+            # grayscale: zero chroma planes at 4:2:0 geometry
             if split is not None:
                 dc, ac, esc = split
-                dz = np.zeros((cy, cx), np.int16)
-                az = np.zeros((cy, cx, k * k - 1), np.int8)
+                dz, az = gray_chroma(dc[0]), gray_chroma(ac[0])
                 split = ([dc[0], dz, dz], [ac[0], az, az], esc)
             else:
-                cz = np.zeros((cy, cx, k * k), np.int16)
+                cz = gray_chroma(coeffs[0])
                 coeffs = [coeffs[0], cz, cz]
             qtabs = np.stack([qtabs[hdr.comp_tq[0]], qtabs[hdr.comp_tq[0]]])
             hdr = _GrayAs420(hdr)
-        elif (
-            hdr.ncomp != 3
-            or tuple(hdr.comp_h) != (2, 1, 1)
-            or tuple(hdr.comp_v) != (2, 1, 1)
-            or hdr.comp_tq[1] != hdr.comp_tq[2]
-        ):
-            raise NotPortedError(
-                "a JPEG that is not 4:2:0 with shared Cb/Cr tables (the "
-                "JPEG pixel decode)", "queue 1 item 10",
-            )
         else:
             # index the 4x64 table array by the actual SOF selectors
             qtabs = np.stack([qtabs[hdr.comp_tq[0]], qtabs[hdr.comp_tq[1]]])

@@ -610,6 +610,35 @@ def test_k3_k4_three_planes_match_plain(batch, f32):
             assert_band(a, b)
 
 
+@needs_card
+@pytest.mark.parametrize("layout", ["444", "422"])
+def test_k3_at_the_pixel_decode_geometries_beyond_420(layout):
+    """K3 as the JPEG pixel decode of a 1080p source beyond 4:2:0 (a luma
+    MCU of 8 rows: 135 block rows), one launch against the plain version:
+    4:4:4 (three 1080x1920 planes, identity stacks) and 4:2:2 (chroma
+    1080x960 -> 1080x1920, the upsample on the horizontal axis only)."""
+    from imagekit_tpu_torch.ops import resize_planes as rp
+    from imagekit_tpu_torch.ops.weights import chroma_axis_weights
+
+    cx = 240 if layout == "444" else 120  # chroma blocks a row
+    stacks = to_port([chroma_axis_weights(135, 135)[None],
+                      chroma_axis_weights(240, 240)[None],
+                      chroma_axis_weights(135, 135)[None],
+                      chroma_axis_weights(240, cx)[None]], "cuda")
+    planes = to_port([_k3_planes(1, 1080, 1920, seed=5),
+                      _k3_planes(1, 1080, cx * 8, seed=6),
+                      _k3_planes(1, 1080, cx * 8, seed=7)], "cuda")
+    vidx = torch.zeros(1, dtype=torch.int32, device="cuda")
+    before = rp.LAUNCHES
+    got = rp.resize_planes3(planes, stacks, vidx)
+    torch.cuda.synchronize()
+    assert rp.LAUNCHES == before + 1
+    for a, b in zip(got, rp.resize_planes3_plain(planes, stacks, vidx)):
+        assert a.dtype == b.dtype == torch.uint8 and a.shape == (1, 1080, 1920)
+        assert_band(a, b)
+    assert torch.equal(got[0], planes[0])  # the identity, exactly
+
+
 def block_edge_image(seed: int, w: int, h: int) -> np.ndarray:
     """Escape-dense content: each 8x8 block holds a hard edge between two
     random colours, so its lowest AC levels pass int8 at q100."""
@@ -625,13 +654,42 @@ def block_edge_image(seed: int, w: int, h: int) -> np.ndarray:
     return np.clip(img + rng.normal(0, 8, img.shape), 0, 255).astype(np.uint8)
 
 
-def native_jpeg(img: np.ndarray, quality: int) -> bytes:
-    """A JPEG without Pillow: the port's numpy fDCT + the native encoder."""
+def native_jpeg(img: np.ndarray, quality: int, samp=(2, 2)) -> bytes:
+    """A JPEG without Pillow: the port's numpy fDCT + the native encoder;
+    ``samp`` is the luma's sampling factors (4:2:0 by default)."""
     from imagekit_tpu_torch.codecs.native import loader
     from imagekit_tpu_torch.ops.weights import host_encode_rgb_to_coefficients
 
-    planes, qt = host_encode_rgb_to_coefficients(img, quality)
-    return loader.encode_jpeg(planes, qt, img.shape[1], img.shape[0])
+    planes, qt = host_encode_rgb_to_coefficients(img, quality, samp)
+    return loader.encode_jpeg(planes, qt, img.shape[1], img.shape[0], samp)
+
+
+@needs_card
+@pytest.mark.parametrize("samp", [(1, 1), (2, 1), (1, 2), "gray"],
+                         ids=["444", "422", "440", "gray"])
+def test_pixel_decode_layouts_on_card_match_cpu(samp):
+    """The JPEG pixel decode of a 4:4:4, 4:2:2, 4:4:0 and grayscale JPEG on
+    the card (one K3 launch) against the CPU (K3's plain version): RGB
+    within the pixel decode's band, +-2 on at most 0.1% of values."""
+    from imagekit_tpu_torch.codecs import jpeg
+    from imagekit_tpu_torch.codecs.native import loader
+    from imagekit_tpu_torch.ops import resize_planes
+    from imagekit_tpu_torch.ops.weights import host_encode_rgb_to_coefficients
+
+    imgs, *_ = _k2_inputs(B=1, bh=544, bw=960)
+    img = imgs[0].cpu().numpy().reshape(544, 960, 3)[:539, :957]
+    if samp == "gray":
+        planes, qt = host_encode_rgb_to_coefficients(img, 90, (1, 1))
+        data = loader.encode_jpeg(planes[:1], qt, 957, 539, (1, 1))
+    else:
+        data = native_jpeg(img, 90, samp)
+    before = resize_planes.LAUNCHES
+    got = jpeg.decode_rgb(data, device="cuda")
+    assert resize_planes.LAUNCHES == before + 1
+    want = jpeg.decode_rgb(data, device="cpu")
+    assert got.shape == want.shape == (539, 957, 3)
+    d = np.abs(got.astype(int) - want.astype(int))
+    assert d.max() <= 2 and (d > 0).mean() <= MAX_SHARE
 
 
 @needs_card

@@ -19,8 +19,8 @@
   at w=400 (k=2) and w=1280 (k=8) from 1080p sources, at k=4, and for a
   grayscale source; an escape-dense JPEG takes the RGB head, whose RGB is
   within the band of the JAX head under K3's semantics.
-- The JPEG requests still outside the slice answer NotPortedError, naming
-  their ROADMAP item.
+- A 4:4:4 JPEG leaves the JPEG heads for the JPEG pixel decode and the
+  RGB head, as the reference's leaves them for Pillow.
 
 K3's semantics: the reference's ``dct._rgb_tail`` takes K3 on its
 accelerator (which rounds each resized plane to u8) and an einsum without
@@ -43,9 +43,9 @@ from imagekit_tpu.ops import dct as ref_dct
 from imagekit_tpu.serving.batch_types import _cached_weights
 from imagekit_tpu.serving.metrics import Metrics as RefMetrics
 from imagekit_tpu_torch import config as port_config
+from imagekit_tpu_torch.codecs import vp8
 from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
 from imagekit_tpu_torch.config import ImageFormat
-from imagekit_tpu_torch.errors import NotPortedError
 from imagekit_tpu_torch.ops import dct, jpeg8, resize_planes
 from imagekit_tpu_torch.ops import weights as port_w
 from imagekit_tpu_torch.ops.weights import pad128
@@ -399,7 +399,8 @@ def test_jpeg_requests_outside_the_slice_are_not_ported(case):
 
 
 def test_jpeg_that_is_not_420_names_the_pixel_decode():
-    """A 4:4:4 JPEG needs the JPEG pixel decode, ROADMAP queue 1 item 10."""
+    """A 4:4:4 JPEG, turned away by the JPEG heads as the reference turns it
+    away, takes the JPEG pixel decode and then the RGB head's batch."""
     import io
 
     from PIL import Image
@@ -410,10 +411,12 @@ def test_jpeg_that_is_not_420_names_the_pixel_decode():
     hdr = jpeg_abi.parse(loader.load(), buf.getvalue())
     assert tuple(hdr.comp_h) == (1, 1, 1)
     engine = PortEngine(_cfg(1), metrics=Metrics(), device="cpu")
-    with pytest.raises(NotPortedError, match="not 4:2:0") as e:
-        _drive(engine, [buf.getvalue()], [64], ImageFormat.webp)
-    assert e.value.roadmap_item == "queue 1 item 10"
-    assert "item 10" in str(e.value)
+    (out,) = _drive(engine, [buf.getvalue()], [64], ImageFormat.webp)
+    assert vp8.dimensions(out) == (64, 48)
+    stages = engine.metrics.stage_seconds
+    assert stages["device_decode"] > 0 and stages["device_resize"] > 0
+    assert "device_decode_resize" not in stages
+    assert engine.metrics.batches == 1
 
 
 # -- HTTP ---------------------------------------------------------------------------------

@@ -15,7 +15,8 @@ requests with no resize, the JPEG pixel decode, ``transform.py``.
   rounds elsewhere, a PSNR of at least 40 dB and |d| <= 12.
 - ``codecs/__init__.py`` and ``transform.py``: ``encode_bytes``,
   ``decode_bytes`` and ``transform_bytes`` against the reference's.
-  4:4:4 and grayscale JPEGs stay 501; a progressive 4:2:0 one decodes.
+  4:4:4 and grayscale JPEGs decode (every layout:
+  ``tests/test_torch_jpeg_layouts.py``); a progressive 4:2:0 one decodes.
 - The engine: PNG, WebP and JPEG sources with no ``w`` and no ``h`` to WebP
   and to JPEG through both engines. From a PNG or a WebP every stage is
   exact and the outputs are byte-equal; from a JPEG the reference decodes
@@ -188,12 +189,16 @@ def _jpeg_gray():
 
 @pytest.mark.parametrize("make", [_jpeg_444, _jpeg_gray], ids=["444", "gray"])
 def test_jpeg_pixel_decode_outside_420_is_not_ported(make):
-    """The reference has no Pillow-free path for these either."""
-    with pytest.raises(NotPortedError, match="queue 1 item 10"):
-        jpeg.decode_rgb(make(), device="cpu")
+    """A 4:4:4 and a grayscale JPEG, which answered 501 before the pixel
+    decode took every chroma layout, decode to Pillow's pixels (>= 40 dB)
+    and go through the engine with no resize, the pixel decode first."""
+    data = make()
+    got = jpeg.decode_rgb(data, device="cpu")
+    assert got.shape == (48, 64, 3) and psnr(got, _pil_rgb(data)) >= 40.0
     engine = PortEngine(_cfg(port_config, 1), metrics=Metrics(), device="cpu")
-    with pytest.raises(NotPortedError, match="queue 1 item 10"):
-        _drive(engine, [make()], [None], ImageFormat.webp)
+    (out,) = _drive(engine, [data], [None], ImageFormat.webp)
+    assert vp8.dimensions(out) == (64, 48)
+    assert engine.metrics.stage_seconds["device_decode"] > 0
 
 
 def test_progressive_420_jpeg_decodes_to_pixels():
