@@ -23,8 +23,9 @@ whole rows); and JPEG sources beyond 4:2:0 (4:4:4, 4:2:2, 4:4:0,
 grayscale: the JPEG pixel decode on K3, then the RGB head on K2):
 
 1. environment: the card (``nvidia-smi``), torch and CUDA versions;
-2. build: the kernel library (one nvcc per source, started together), the
-   port's host codecs (g++, into ``build/imagekit_tpu_torch``), 16
+2. build: the kernel library (one nvcc per source, started together) and,
+   beside it, the port's host codecs (one g++ per source, into
+   ``build/imagekit_tpu_torch``), 16
    synthesized 1080p JPEGs, the same 16 images as PNGs (written with
    ``zlib`` and ``struct``: no Pillow) and 8 of them as lossy WebPs (the
    port's own VP8 encoder);
@@ -137,14 +138,31 @@ grayscale: the JPEG pixel decode on K3, then the RGB head on K2):
     JPEG to WebP, a JPEG to a 1280 px WebP, a JPEG to JPEG, a JPEG to
     AVIF, a JPEG with no sizes, the 1440x12000 page PNG at w=400, a PNG
     ``/upload`` and an RGBA PNG ``/upload`` with no sizes through the
-    port's app, where aiohttp is installed.
+    port's app, where aiohttp is installed;
+19. the sources the reference decodes with Pillow, made here without
+    Pillow (seeded P6, RGBA QOI of runs and RGB/RGBA chunks, DXT1 and DXT5
+    DDS from a numpy block encoder, ICOs of a 256x256 PNG entry and a
+    48x48 BMP entry) and read from the committed 1080p CMYK JPEG
+    (``tests/fixtures/cmyk_1080p_q80.jpg``; YCCK by its APP14 flag),
+    each decode checked against its source or its encoder's own plain
+    decode; counts reset before each round, each round run once, traced:
+    16 ICOs -> w=64 WebP and 16 RGBA QOIs -> w=400 WebP (K2's four-channel
+    entry a batch), 16 P6 -> w=400 WebP and JPEG (K2 a batch), 8 DXT1 + 8
+    DXT5 2048x2048 DDS -> w=400 WebP (K2 four-channel), 16 CMYK -> w=400
+    WebP and JPEG (two K3 launches a request, the four-component pixel
+    decode, and K2 a batch) and -> JPEG with no resize (K3 only), 4 YCCK
+    -> w=400 WebP: requests/s, p50/p99, host stages, idle share. K3 on the
+    four planes of a CMYK decode (C 1088x1920, M, Y, K 544x960 -> 1088x1920,
+    B=1) against its plain version, timed, with an einsum yardstick and
+    the bound.
 
 Device times are the kernels' own, summed by ``torch.profiler`` over 20
 calls (the host's launch cost excluded); the bound is the larger of the
 bytes the work must move over 3.35 TB/s and its fp32 FLOPs over 67
 TFLOP/s, counted from the batch's shapes and band tables.
 
-Any failed phase raises, and the script exits non-zero. Nothing of JAX or
+The seconds of each phase, heading to heading, are logged before the
+total. Any failed phase raises, and the script exits non-zero. Nothing of JAX or
 of the JAX package is imported. The last lines are the card's name and
 power limit, one JSON line describing each kernel (with its bound, its
 einsum yardstick's time and its launches on the AVIF rounds), and
@@ -155,6 +173,7 @@ it exits non-zero and prints no result.
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import json
 import os
 import statistics
@@ -180,6 +199,32 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+#: seconds from each phase's heading to the next heading (or to the end)
+PHASE_S: dict = {}
+_PHASE = {"name": None, "t0": 0.0}
+
+
+def begin(heading: str) -> None:
+    """Log a phase's heading ("[n] ...") and start its clock; the clock of
+    the phase before it stops here."""
+    end_phase()
+    log(heading)
+    _PHASE.update(name=heading[1:heading.index("]")], t0=time.perf_counter())
+
+
+def end_phase() -> None:
+    if _PHASE["name"] is not None:
+        PHASE_S[_PHASE["name"]] = time.perf_counter() - _PHASE["t0"]
+        _PHASE["name"] = None
+
+
+def timed(fn, *args):
+    """(fn(*args), its seconds)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -192,10 +237,11 @@ def nvidia_smi() -> str:
 # ---------------------------------------------------------------------------
 
 
-def synth_image(seed: int, w: int = 1920, h: int = 1080) -> np.ndarray:
+def synth_image(seed: int, w: int = 1920, h: int = 1080,
+                noise: bool = True) -> np.ndarray:
     """Seeded RGB image: a smooth gradient, hard-edged rectangles (their
     edges give low-frequency AC levels beyond int8 at high quality, i.e.
-    escapes) and mild noise."""
+    escapes) and, unless ``noise`` is False, mild noise."""
     rng = np.random.default_rng(seed)
     x = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :, None]
     y = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None, None]
@@ -209,7 +255,8 @@ def synth_image(seed: int, w: int = 1920, h: int = 1080) -> np.ndarray:
         x1 = x0 + rng.integers(32, 400)
         y1 = y0 + rng.integers(32, 300)
         img[y0:y1, x0:x1] = rng.integers(0, 256, 3)
-    img += rng.normal(0.0, 6.0, img.shape).astype(np.float32)
+    if noise:
+        img += rng.normal(0.0, 6.0, img.shape).astype(np.float32)
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
@@ -271,6 +318,13 @@ def with_alpha(img: np.ndarray, seed: int) -> np.ndarray:
         x0, y0 = rng.integers(0, w - 400), rng.integers(0, h - 300)
         alpha[y0:y0 + 300, x0:x0 + 400] = 255
     return np.dstack([img, alpha])
+
+
+def ramp_alpha(img: np.ndarray) -> np.ndarray:
+    """``img`` with a diagonal alpha ramp (an icon's soft edge)."""
+    h, w = img.shape[:2]
+    ramp = np.add.outer(np.arange(h), np.arange(w)) * 255 // (h + w - 2)
+    return np.dstack([img, ramp.astype(np.uint8)])
 
 
 def make_bmp(img: np.ndarray) -> bytes:
@@ -353,16 +407,16 @@ def native_codecs() -> str:
     """Build and load the port's host codec library
     (``imagekit_tpu_torch/codecs/native``, into ``build/imagekit_tpu_torch``);
     when that fails, show the compiler's error and, if only zlib is
-    missing, build the two codecs the JPEG paths need (JPEG entropy, VP8
-    encode) from the same sources."""
+    missing, build the codecs the JPEG paths need (JPEG entropy, the
+    four-component JPEG decode, VP8 encode, the QOI and BCn decodes) from
+    the same sources."""
     import ctypes
 
-    from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
+    from imagekit_tpu_torch.codecs.native import loader
 
     try:
-        return (f"{loader.load()._name} (jpeg_entropy + vp8_encode + vp8_decode "
-                f"+ vp8l_decode + png_decode + misc_decode + tiff_decode + "
-                f"av1_enc)")
+        return (f"{loader.load()._name} ("
+                + " + ".join(s[:-4] for s in loader._SOURCES) + ")")
     except RuntimeError as e:
         log(f"native loader build failed:\n{str(e)[-4000:]}")
         if "zlib.h" not in str(e):
@@ -372,14 +426,15 @@ def native_codecs() -> str:
     subprocess.run(
         ["g++", "-O3", "-march=native", "-funroll-loops", "-std=c++17",
          "-shared", "-fPIC", "-fvisibility=hidden",
-         os.path.join(src, "jpeg_entropy.cpp"),
-         os.path.join(src, "vp8_encode.cpp"), "-o", str(out)],
+         *(os.path.join(src, f) for f in (
+             "jpeg_entropy.cpp", "jpeg4_decode.cpp", "vp8_encode.cpp",
+             "raster_decode.cpp")), "-o", str(out)],
         check=True, capture_output=True, text=True, timeout=300,
     )
     lib = ctypes.CDLL(str(out))
-    jpeg_abi.configure(lib)
+    loader._configure(lib)
     loader._lib = lib  # the port's codecs resolve the library here
-    return f"{out} (jpeg_entropy + vp8_encode, no zlib)"
+    return f"{out} (jpeg_entropy + jpeg4_decode + vp8_encode + raster_decode, no zlib)"
 
 
 class Recorder:
@@ -1448,11 +1503,17 @@ def k8_planes(call):
 def planes_bound(planes, out_elem, stacks, tabs, vidx):
     """Bound of one three-plane launch: u8 planes in, ``out_elem`` bytes an
     output pixel."""
+    return plane_list_bound(planes, (stacks[:2], stacks[2:], stacks[2:]),
+                            (tabs[0], tabs[1], tabs[1]), vidx, out_elem)
+
+
+def plane_list_bound(planes, pairs, tabs, vidx, out_elem=1):
+    """Bound of resizing ``planes``, plane i with the (wv, wh) ``pairs[i]``
+    and the tables ``tabs[i]``, in one or more launches."""
     from imagekit_tpu_torch.ops.resize_strip import band_table
 
     nbytes = flops = 0.0
-    for x, (wv, wh), t in zip(planes, (stacks[:2], stacks[2:], stacks[2:]),
-                              (tabs[0], tabs[1], tabs[1])):
+    for x, (wv, wh), t in zip(planes, pairs, tabs):
         out_px = x.shape[0] * wv.shape[1] * wh.shape[1]
         nb, fl = resize_bound(x.numel() * x.element_size(),
                               out_px * out_elem, wv, t.band_v,
@@ -1465,8 +1526,13 @@ def planes_bound(planes, out_elem, stacks, tabs, vidx):
 def planes_einsums(planes, stacks, vidx):
     """Yardstick: one fp32 einsum per plane over the gathered stacks and
     the plane widened to f32 beforehand (untimed), no epilogue."""
+    return plane_list_einsums(planes, [stacks[:2]] + [stacks[2:]] * 2, vidx)
+
+
+def plane_list_einsums(planes, pairs, vidx):
+    """:func:`planes_einsums` with plane i's (wv, wh) ``pairs[i]``."""
     u = vidx.long()
-    pairs = [(stacks[0][u], stacks[1][u])] + [(stacks[2][u], stacks[3][u])] * 2
+    pairs = [(wv[u], wh[u]) for wv, wh in pairs]
     xs = [p.float() for p in planes]
     return lambda: [torch.einsum("boh,bhw,bpw->bop", wv_g, x_, wh_g)
                     for (wv_g, wh_g), x_ in zip(pairs, xs)]
@@ -3045,6 +3111,400 @@ def phase_http(jpegs, png_bytes: bytes, webp_bytes: bytes,
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the sources the reference decodes with Pillow
+# ---------------------------------------------------------------------------
+
+CMYK_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "cmyk_1080p_q80.jpg")
+CMYK_SEED = 500  # the fixture is synth_image(500, noise=False) in CMYK, q80
+
+
+def make_pnm(img: np.ndarray) -> bytes:
+    """Binary PPM (P6, maxval 255)."""
+    h, w = img.shape[:2]
+    return b"P6\n%d %d\n255\n" % (w, h) + img.tobytes()
+
+
+def make_qoi(img: np.ndarray) -> bytes:
+    """RGBA QOI without Pillow: a QOI_OP_RUN (62 pixels at most) for each
+    stretch of repeats, else QOI_OP_RGB where the alpha is the previous
+    pixel's and QOI_OP_RGBA where it is not, built with numpy."""
+    h, w = img.shape[:2]
+    px = np.ascontiguousarray(img).reshape(-1, 4)
+    prev = np.vstack([np.array([[0, 0, 0, 255]], np.uint8), px[:-1]])
+    same = (px == prev).all(axis=1)
+    edge = np.diff(np.concatenate([[0], same.astype(np.int8), [0]]))
+    starts, ends = np.flatnonzero(edge == 1), np.flatnonzero(edge == -1)
+    lens = ends - starts
+    k = (lens + 61) // 62
+    rid = np.repeat(np.arange(len(starts)), k)
+    j = np.arange(int(k.sum())) - np.repeat(np.cumsum(k) - k, k)
+    run_pos = starts[rid] + 62 * j
+    run_len = np.minimum(62, lens[rid] - 62 * j)
+    lit = np.flatnonzero(~same)
+    rgba = px[lit, 3] != prev[lit, 3]
+    rows = np.zeros((len(lit) + len(run_pos), 5), np.uint8)
+    size = np.ones(len(rows), np.int64)
+    rows[:len(lit), 0] = np.where(rgba, 0xFF, 0xFE)
+    rows[:len(lit), 1:] = px[lit]
+    size[:len(lit)] = np.where(rgba, 5, 4)
+    rows[len(lit):, 0] = 0xC0 | (run_len - 1)
+    order = np.argsort(np.concatenate([lit, run_pos]), kind="stable")
+    rows, size = rows[order], size[order]
+    body = rows[np.arange(5)[None, :] < size[:, None]].tobytes()
+    return (b"qoif" + struct.pack(">IIBB", w, h, 4, 0) + body
+            + b"\0" * 7 + b"\1")
+
+
+def _blocks4(img: np.ndarray) -> np.ndarray:
+    """(H, W, C) -> (H/4 * W/4, 16, C): 4x4 blocks, row-major."""
+    h, w, c = img.shape
+    return (img.reshape(h // 4, 4, w // 4, 4, c).transpose(0, 2, 1, 3, 4)
+            .reshape(-1, 16, c))
+
+
+def _unblocks4(blocks: np.ndarray, h: int, w: int) -> np.ndarray:
+    c = blocks.shape[-1]
+    return (blocks.reshape(h // 4, w // 4, 4, 4, c).transpose(0, 2, 1, 3, 4)
+            .reshape(h, w, c))
+
+
+def _bc1_colour(rgb: np.ndarray, four: bool):
+    """A numpy BC1 colour encoder: the block's channel-wise max and min as
+    565 endpoints, each texel the palette entry (bit-replicated 565, thirds
+    truncated toward zero, as a decoder makes them) nearest its projection
+    on the line between them. ``four`` is the block's mode: always four
+    colours in BC3; in BC1 where c0 > c1 (equal endpoints take index 0).
+    Returns (the 8-byte blocks, what a decoder gives: (N, 16, 3))."""
+    def to565(c):
+        c = c.astype(np.uint16)
+        return (c[..., 0] >> 3) << 11 | (c[..., 1] >> 2) << 5 | c[..., 2] >> 3
+
+    def from565(v):
+        v = v.astype(np.int32)
+        r, g, b = (v & 0xF800) >> 8, (v & 0x7E0) >> 3, (v & 0x1F) << 3
+        return np.stack([r | r >> 5, g | g >> 6, b | b >> 5], axis=-1)
+
+    a, b = to565(rgb.max(axis=1)), to565(rgb.min(axis=1))
+    c0, c1 = np.maximum(a, b), np.minimum(a, b)
+    e0, e1 = from565(c0), from565(c1)
+    pal = np.stack([e0, e1, (2 * e0 + e1) // 3, (e0 + 2 * e1) // 3], axis=1)
+    d = (e0 - e1).astype(np.float32)
+    t = ((rgb - e1[:, None]) * d[:, None]).sum(-1) / np.maximum(
+        (d * d).sum(-1), 1.0)[:, None]  # 0 at e1, 1 at e0
+    idx = np.array([1, 3, 2, 0])[np.clip(np.rint(3 * t), 0, 3).astype(int)]
+    if not four:
+        idx[c0 == c1] = 0
+    lut = (idx.astype(np.uint32) << (2 * np.arange(16, dtype=np.uint32))).sum(
+        axis=1, dtype=np.uint32)
+    out = np.zeros((len(rgb), 8), np.uint8)
+    out[:, 0:2] = c0.astype("<u2").view(np.uint8).reshape(-1, 2)
+    out[:, 2:4] = c1.astype("<u2").view(np.uint8).reshape(-1, 2)
+    out[:, 4:8] = lut.astype("<u4").view(np.uint8).reshape(-1, 4)
+    return out, np.take_along_axis(pal, idx[:, :, None], axis=1)
+
+
+def _bc3_alpha(alpha: np.ndarray):
+    """A numpy BC3 alpha encoder: max and min as endpoints, each texel the
+    nearest step of the eight-level ramp (index 0 where they are equal).
+    Returns (the 8-byte blocks, the decoded (N, 16) alpha)."""
+    a0 = alpha.max(axis=1).astype(np.int32)
+    a1 = alpha.min(axis=1).astype(np.int32)
+    i = np.arange(1, 7)
+    ramp = ((7 - i) * a0[:, None] + i * a1[:, None]) // 7
+    pal = np.concatenate([a0[:, None], a1[:, None], ramp], axis=1)
+    step = np.rint((a0[:, None] - alpha) * 7 / np.maximum(a0 - a1, 1)[:, None])
+    idx = np.array([0, 2, 3, 4, 5, 6, 7, 1])[np.clip(step, 0, 7).astype(int)]
+    idx[a0 == a1] = 0
+    bits = (idx.astype(np.uint64) << (3 * np.arange(16, dtype=np.uint64))).sum(
+        axis=1, dtype=np.uint64)
+    out = np.zeros((len(alpha), 8), np.uint8)
+    out[:, 0], out[:, 1] = a0, a1
+    out[:, 2:] = bits.astype("<u8").view(np.uint8).reshape(-1, 8)[:, :6]
+    return out, np.take_along_axis(pal, idx, axis=1)
+
+
+def make_dds(img: np.ndarray, fourcc: bytes):
+    """DXT1 or DXT5 DDS without Pillow (sides multiples of 4): the header
+    with ``struct``, the blocks from :func:`_bc1_colour` and
+    :func:`_bc3_alpha`. Returns (the file, the RGBA pixels a decoder must
+    give)."""
+    h, w = img.shape[:2]
+    blocks = _blocks4(img)
+    colour, rgb = _bc1_colour(blocks[..., :3], fourcc != b"DXT1")
+    if fourcc == b"DXT1":
+        data, alpha = colour, np.full(rgb.shape[:2], 255)
+    else:
+        abytes, alpha = _bc3_alpha(blocks[..., 3])
+        data = np.concatenate([abytes, colour], axis=1)
+    header = (b"DDS " + struct.pack("<7I", 124, 0x81007, h, w, data.nbytes,
+                                    0, 0) + bytes(44)
+              + struct.pack("<4I", 32, 0x4, struct.unpack("<I", fourcc)[0], 0)
+              + bytes(16) + struct.pack("<5I", 0x1000, 0, 0, 0, 0))
+    want = _unblocks4(np.concatenate([rgb, alpha[..., None]], axis=2), h, w)
+    return header + data.tobytes(), want.astype(np.uint8)
+
+
+def make_ico(big: np.ndarray, small: np.ndarray, with_big: bool = True):
+    """ICO without Pillow: a PNG entry of ``big`` (RGBA, 256x256) and a
+    32 bpp BMP entry of ``small`` (RGBA, 48x48: a DIB of twice the height,
+    BGRA rows bottom-up, then an all-clear AND mask)."""
+    h, w = small.shape[:2]
+    rows = small[::-1][:, :, [2, 1, 0, 3]].tobytes()
+    mask = bytes((w + 31) // 32 * 4 * h)
+    dib = struct.pack("<IiiHHIIiiII", 40, w, 2 * h, 1, 32, 0,
+                      len(rows) + len(mask), 0, 0, 0, 0) + rows + mask
+    images = ([(big.shape[1], big.shape[0], make_png(big))] if with_big
+              else []) + [(w, h, dib)]
+    out = b"\x00\x00\x01\x00" + struct.pack("<H", len(images))
+    offset = 6 + 16 * len(images)
+    body = b""
+    for iw, ih, data in images:
+        out += struct.pack("<BBBBHHII", iw % 256, ih % 256, 0, 0, 1, 32,
+                           len(data), offset + len(body))
+        body += data
+    return out + body
+
+
+def ycck_of(cmyk: bytes) -> bytes:
+    """The same JPEG read as YCCK: its Adobe APP14 transform flag set to 2."""
+    at = cmyk.index(b"Adobe") + 11
+    return cmyk[:at] + b"\x02" + cmyk[at + 1:]
+
+
+def k3_cmyk_case(data: bytes) -> dict:
+    """K3 on the four planes of one CMYK pixel decode (its two launches: C,
+    M and Y, then K) against its plain version, each plane compared;
+    device ms of the two launches, of the plain version and of one fp32
+    einsum a plane; the bound."""
+    from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
+    from imagekit_tpu_torch.ops import dct
+    from imagekit_tpu_torch.ops import resize_planes as rp
+
+    planes, stacks, tabs, vidx = dct.four_component_inputs(
+        jpeg_abi.decode4(loader.load(), data), torch.device("cuda"))
+
+    def kernel():
+        return (rp.resize_planes_u8(planes[:3], stacks[:3], vidx,
+                                    bands=tabs[:3])
+                + rp.resize_planes_u8(planes[3:], stacks[3:], vidx,
+                                      bands=tabs[3:]))
+
+    def plain():
+        return [rp.resize_planes_plain(p, wv, wh, vidx)
+                for p, (wv, wh) in zip(planes, stacks)]
+
+    case = {"max_abs_err": 0, "share_differ": 0.0,
+            "planes": [tuple(p.shape[1:]) for p in planes]}
+    for a, b in zip(kernel(), plain()):
+        mx, share1, over = compare(a, b)
+        if mx > MAX_ABS or share1 > MAX_SHARE or over:
+            raise RuntimeError(f"K3 at the CMYK planes {case['planes']} "
+                               f"disagrees with its plain version: "
+                               f"max|d|={mx}, share(|d|=1)={share1:.3e}")
+        case["max_abs_err"] = max(case["max_abs_err"], mx)
+        case["share_differ"] = max(case["share_differ"],
+                                   float((a != b).float().mean()))
+    case["ms"] = device_ms(kernel)
+    case["plain_ms"] = device_ms(plain)
+    case["library_ms"] = device_ms(plane_list_einsums(planes, stacks, vidx))
+    case["bound_ms"], case["bound_by"] = plane_list_bound(planes, stacks,
+                                                          tabs, vidx)
+    return case
+
+
+def phase_pillow_sources(card: str) -> dict:
+    """The sources the reference decodes with Pillow, through one engine:
+    ICO, P6, QOI and DDS decode on the codec pool and take the batched RGB
+    head (K2, three or four channels); CMYK and YCCK JPEGs take the
+    four-component pixel decode (two K3 launches a request) and the RGB
+    head. Sources are made here without Pillow, and each decode is checked
+    first: P6, QOI and the ICOs' PNG and BMP entries exactly against their
+    pixels, the DDS against the pixels their block encoder chose, CMYK and
+    YCCK against the plain decode on the host's CPU (and CMYK against the
+    image the fixture was made from). Rounds, the launch counts set to 0
+    before each and read after it, each run once, traced (warmed by 4
+    requests first). Then K3 at the CMYK geometry against its plain
+    version. The seconds of each step are logged."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from imagekit_tpu_torch.codecs import decode_bytes, jpeg
+    from imagekit_tpu_torch.config import BatchConfig, ImageFormat, ImageKitConfig
+    from imagekit_tpu_torch.ops import jpeg8, resize_strip
+    from imagekit_tpu_torch.ops import resize_planes as rp
+    from imagekit_tpu_torch.serving.batcher import BatchedEngine
+    from imagekit_tpu_torch.serving.metrics import Metrics
+
+    W, J = ImageFormat.webp, ImageFormat.jpeg
+    t0 = time.perf_counter()
+    images = [synth_image(600 + i, noise=False) for i in range(4)]
+    pnms = [make_pnm(img) for img in images]
+    qois = [make_qoi(with_alpha(img, i)) for i, img in enumerate(images)]
+    icons = [ramp_alpha(synth_image(620 + i, 256, 256)) for i in range(4)]
+    small = ramp_alpha(synth_image(630, 256, 256)[:48, :48])
+    icos = [make_ico(big, small) for big in icons]
+    dxt = [make_dds(with_alpha(synth_image(640 + i, 2048, 2048), i), cc)
+           for i, cc in enumerate((b"DXT1", b"DXT5"))]
+    cmyk = open(CMYK_FIXTURE, "rb").read()
+    ycck = ycck_of(cmyk)
+    log(f"    made 4 1920x1080 P6 and RGBA QOI ({len(qois[0]) / 1e6:.2f} MB), "
+        f"4 ICOs (256x256 PNG + 48x48 BMP), a DXT1 and a DXT5 2048x2048 "
+        f"DDS, read the {len(cmyk) / 1e3:.0f} kB CMYK fixture in "
+        f"{time.perf_counter() - t0:.2f} s")
+    steps = {"sources": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    # every decode against what it must give
+    for name, data, want in (
+            ("P6", pnms[0], images[0]), ("QOI", qois[1],
+                                         with_alpha(images[1], 1)),
+            ("ICO (PNG entry)", icos[2], icons[2]),
+            ("ICO (BMP entry)", make_ico(None, small, with_big=False), small),
+            ("DXT1", *dxt[0]), ("DXT5", *dxt[1])):
+        got = decode_bytes(data, device="cuda")[0]
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise RuntimeError(f"the {name} decode is not its source")
+    against_plain = []
+    for name, data in (("CMYK", cmyk), ("YCCK", ycck)):
+        card_rgb = jpeg.decode_rgb(data, device="cuda")
+        diff = np.abs(card_rgb.astype(int)
+                      - jpeg.decode_rgb(data, device="cpu").astype(int))
+        against_plain.append(f"{name} max|d|={diff.max()} on "
+                             f"{(diff > 0).mean():.3e} of values")
+        if card_rgb.shape != (1080, 1920, 3) or diff.max() > 2 or (
+                (diff > 0).mean() > MAX_SHARE):
+            raise RuntimeError(f"the {name} decode on the card is not the "
+                               f"plain one on the host's CPU")
+        if name == "CMYK":
+            err = card_rgb - synth_image(CMYK_SEED, noise=False).astype(float)
+            cmyk_psnr = 10 * np.log10(
+                255.0 ** 2 / max(float((err ** 2).mean()), 1e-12))
+    log(f"    P6, QOI, ICO (PNG, BMP), DXT1, DXT5 decodes equal their pixels;"
+        f" on the card against the host's plain decode: "
+        f"{'; '.join(against_plain)}; CMYK against its source image: PSNR "
+        f"{cmyk_psnr:.2f} dB")
+    if cmyk_psnr < 30.0:
+        raise RuntimeError("the CMYK decode is not its source image")
+    steps["decode checks"] = time.perf_counter() - t0
+
+    full, small_out = (1920, 1080), (400, 225)
+    rgb_head, rgba_head = {"k2": "batch"}, {"k2_rgba": "batch"}
+    cmyk_head = {"k3": 2, "k2": "batch"}
+    # (name, sources, requests, width, format, output size, launches: kernel
+    # -> "batch" (one a batch) or n (n a request))
+    rounds = [
+        ("256x256 ICO -> w=64 WebP", icos, 16, 64, W, (64, 64), rgba_head),
+        ("1080p P6 -> w=400 WebP", pnms, 16, 400, W, small_out, rgb_head),
+        ("1080p P6 -> w=400 JPEG", pnms, 16, 400, J, small_out, rgb_head),
+        ("1080p RGBA QOI -> w=400 WebP", qois, 16, 400, W, small_out,
+         rgba_head),
+        ("2048x2048 DXT1 + DXT5 DDS -> w=400 WebP",
+         [dxt[0][0], dxt[1][0]], 16, 400, W, (400, 400), rgba_head),
+        ("1080p CMYK JPEG -> w=400 WebP", [cmyk], 16, 400, W, small_out,
+         cmyk_head),
+        ("1080p CMYK JPEG -> w=400 JPEG", [cmyk], 16, 400, J, small_out,
+         cmyk_head),
+        ("1080p CMYK JPEG -> JPEG, no resize", [cmyk], 16, None, J, full,
+         {"k3": 2}),
+        ("1080p YCCK JPEG -> w=400 WebP", [ycck], 4, 400, W, small_out,
+         cmyk_head),
+    ]
+    metrics = Metrics()
+    engine = BatchedEngine(
+        ImageKitConfig(secret=SECRET,
+                       batch=BatchConfig(max_queue_latency_s=0.0)),
+        metrics=metrics, device="cuda")
+    stages = ("decode", "entropy_decode", "device_decode", "batch_build",
+              "device_resize", "device_encode", "encode")
+    kinds = ("k1", "k2", "k2_rgba", "k3", "k4")
+
+    def counts():
+        return dict(zip(kinds, (jpeg8.LAUNCHES, resize_strip.LAUNCHES,
+                                resize_strip.LAUNCHES_RGBA, rp.LAUNCHES,
+                                rp.LAUNCHES_F32)))
+
+    async def one(data, w, fmt):
+        t0 = time.perf_counter()
+        out = await engine.transform(data, w, None, fmt, 80)
+        return out, time.perf_counter() - t0
+
+    async def drive():
+        try:
+            await engine.warmup()
+            runs = []
+            for name, srcs, n_req, w, fmt, *_ in rounds:
+                t_round = time.perf_counter()
+                reqs = [(srcs[i % len(srcs)], w, fmt) for i in range(n_req)]
+                await asyncio.gather(*(one(*r) for r in reqs[:4]))  # warm
+                steps[f"warm: {name}"] = time.perf_counter() - t_round
+                batches0 = metrics.batches
+                stage0 = {k: metrics.stage_seconds[k] for k in stages}
+                jpeg8.LAUNCHES = resize_strip.LAUNCHES = 0
+                resize_strip.LAUNCHES_RGBA = 0
+                rp.LAUNCHES = rp.LAUNCHES_F32 = 0
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    res = await asyncio.gather(*(one(*r) for r in reqs))
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                runs.append({"res": res, "wall": wall, "traced_wall": wall,
+                             **counts(), "batches": metrics.batches - batches0,
+                             "spent": {k: metrics.stage_seconds[k] - stage0[k]
+                                       for k in stages},
+                             "busy": device_busy_s(prof)})
+                steps[name] = time.perf_counter() - t_round
+            return runs
+        finally:
+            await engine.close()
+
+    runs = asyncio.run(drive())
+    summary = {"rounds": {}}
+    for (name, _, n_req, _, fmt, size, want), run in zip(rounds, runs):
+        for out, _ in run["res"]:
+            if out_dims(out) != (fmt.value, *size):
+                raise RuntimeError(f"{name}: output is {out_dims(out)}, not "
+                                   f"{fmt.value} {size}")
+        p50, p99 = latency(run["res"])
+        rps = n_req / run["wall"]
+        launched = {k: run[k] for k in kinds}
+        log(f"  {name}: {n_req} concurrent requests in {run['wall']:.4f} s "
+            f"(traced) -> {rps:.2f} req/s, p50 {p50:.2f} ms, p99 {p99:.2f} "
+            f"ms, {run['batches']} batches, launches {launched} [{card}]")
+        log("    host seconds: " + ", ".join(
+            f"{k} {v:.4f} s ({v / n_req * 1e3:.2f} ms/request)"
+            for k, v in run["spent"].items() if v > 0))
+        idle, idle_line = idle_share(run, traced="this")
+        log(idle_line)
+        expected = {k: run["batches"] if per == "batch" else per * n_req
+                    for k, per in want.items()}
+        batched = "batch" in want.values()
+        if launched != {k: expected.get(k, 0) for k in kinds} or (
+                batched != (run["batches"] > 0)):
+            raise RuntimeError(
+                f"{name}: {launched} launches and {run['batches']} batches; "
+                f"expected {expected} and no other")
+        summary["rounds"][name] = {
+            "launches": launched, "batches": run["batches"], "rps": rps,
+            "p50_ms": p50, "p99_ms": p99, "idle_share": idle,
+            "stage_s_per_request": {k: v / n_req
+                                    for k, v in run["spent"].items() if v}}
+    for key in ("k2", "k2_rgba", "k3"):
+        summary[f"{key}_launches"] = sum(
+            r["launches"][key] for r in summary["rounds"].values())
+    case, steps["K3 at the CMYK planes"] = timed(k3_cmyk_case, cmyk)
+    log(f"  K3 at the CMYK pixel decode ({case['planes']} -> 1088x1920, B=1, "
+        f"two launches) vs plain: max|d|={case['max_abs_err']} "
+        f"share(differ)={case['share_differ']:.3e}; device time per call "
+        f"(torch.profiler over 20) K3 {case['ms']:.4f} ms vs plain "
+        f"{case['plain_ms']:.4f} ms vs einsum {case['library_ms']:.4f} ms, "
+        f"bound {case['bound_ms']:.4f} ms ({case['bound_by']}), K3 at "
+        f"{case['bound_ms'] / case['ms']:.1%} of it [{card}]")
+    summary["k3_cmyk"] = case
+    log("    seconds a step (a round's include its warm-up and trace): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in steps.items()))
+    summary["step_s"] = steps
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3063,15 +3523,19 @@ def main() -> int:
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
-    _build.load()
-    log(f"[2] K1, K2 (1, 3 and 4 channels), K3 and K4 built by nvcc in "
-        f"{time.perf_counter() - t0:.2f} s")
+    # the host codecs' g++ beside nvcc: the two builds share nothing
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        codecs = pool.submit(timed, native_codecs)
+        _build.load()
+        nvcc_s = time.perf_counter() - t0
+        codecs_name, codecs_s = codecs.result()
+    begin(f"[2] K1, K2 (1, 3 and 4 channels), K3 and K4 built by nvcc in "
+          f"{nvcc_s:.2f} s")
     for line in _build.build_log().splitlines():
         if "registers" in line or "bytes stack" in line or "smem" in line:
             log("    ptxas: " + line.strip())
-    t0 = time.perf_counter()
-    log(f"    host codecs: {native_codecs()} "
-        f"({time.perf_counter() - t0:.2f} s)")
+    log(f"    host codecs: {codecs_name} ({codecs_s:.2f} s, g++ beside nvcc;"
+        f" both built in {time.perf_counter() - t0:.2f} s)")
 
     t0 = time.perf_counter()
     jpegs = [make_jpeg(seed, 80) for seed in range(16)]
@@ -3093,40 +3557,41 @@ def main() -> int:
         f"encoder ({sum(map(len, webps)) / len(webps) / 1e3:.0f} kB each) in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    log("[3] K1 against its plain PyTorch version on the card")
+    begin("[3] K1 against its plain PyTorch version on the card")
     kern = phase_kernel(jpegs, jpegs_hq)
 
-    log("[4] K2 against its plain PyTorch version on the card")
+    begin("[4] K2 against its plain PyTorch version on the card")
     k2 = phase_k2(images)
 
-    log("[5] K3 and K4 against their plain PyTorch versions on the card")
+    begin("[5] K3 and K4 against their plain PyTorch versions on the card")
     k3 = phase_k3(images)
 
-    log("[6] JPEG engine slice: BatchedEngine(device='cuda').transform, "
-        "1920x1080 JPEG -> w=400 WebP q80")
+    begin("[6] JPEG engine slice: BatchedEngine(device='cuda').transform, "
+          "1920x1080 JPEG -> w=400 WebP q80")
     eng = phase_engine(jpegs, card)
 
-    log("[7] PNG engine slice: BatchedEngine(device='cuda').transform, "
-        "1920x1080 RGB PNG -> w=400 WebP q80 and JPEG q80")
+    begin("[7] PNG engine slice: BatchedEngine(device='cuda').transform, "
+          "1920x1080 RGB PNG -> w=400 WebP q80 and JPEG q80")
     png_eng = phase_png_engine(pngs, card)
 
-    log("[8] JPEG -> JPEG engine slice: BatchedEngine(device='cuda')"
-        ".transform, 1920x1080 JPEG -> JPEG q80")
+    begin("[8] JPEG -> JPEG engine slice: BatchedEngine(device='cuda')"
+          ".transform, 1920x1080 JPEG -> JPEG q80")
     jxc = phase_jxc_engine(jpegs, dense, card)
 
-    log("[9] K1's int16 entry against its plain PyTorch version on the card")
+    begin("[9] K1's int16 entry against its plain PyTorch version on the "
+          "card")
     k1_i16 = phase_k1_i16(dense)
 
-    log("[10] K4 on u8 planes (u8 in, f32 out) against its plain PyTorch "
-        "version on the card")
+    begin("[10] K4 on u8 planes (u8 in, f32 out) against its plain PyTorch "
+          "version on the card")
     k4_u8 = phase_k4_u8(jpegs)
 
-    log("[11] K2 on the three planes of a YUV-source batch against its plain "
-        "PyTorch version on the card")
+    begin("[11] K2 on the three planes of a YUV-source batch against its "
+          "plain PyTorch version on the card")
     k2_yuv = phase_k2_yuv(webps)
 
-    log("[12] JPEG -> WebP at k=8 and from escape-dense sources, lossy WebP "
-        "-> WebP / JPEG: BatchedEngine(device='cuda').transform")
+    begin("[12] JPEG -> WebP at k=8 and from escape-dense sources, lossy WebP "
+          "-> WebP / JPEG: BatchedEngine(device='cuda').transform")
     paths = phase_new_paths(jpegs, dense, webps, card)
 
     t0 = time.perf_counter()
@@ -3139,22 +3604,22 @@ def main() -> int:
         f"BMPs, 4 uncompressed TIFFs and 4 GIFs in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    log("[13] K2's four-channel entry against its plain PyTorch version on "
-        "the card")
+    begin("[13] K2's four-channel entry against its plain PyTorch version on "
+          "the card")
     k2_rgba = phase_k2_rgba(rgba_images)
 
-    log("[14] sources with alpha, BMP / TIFF / GIF sources and requests with "
-        "no resize: BatchedEngine(device='cuda').transform")
+    begin("[14] sources with alpha, BMP / TIFF / GIF sources and requests "
+          "with no resize: BatchedEngine(device='cuda').transform")
     alpha = phase_alpha_and_single(rgba_pngs, others, jpegs, pngs, webps,
                                    card)
 
-    log("[15] AVIF output through every head: BatchedEngine(device='cuda')"
-        ".transform, the first-party AV1 encoder on the host")
+    begin("[15] AVIF output through every head: BatchedEngine(device='cuda')"
+          ".transform, the first-party AV1 encoder on the host")
     avif = phase_avif(jpegs, dense, pngs, webps, rgba_pngs, card)
     phase_avif_mixed(jpegs, card)
 
-    log("[16] images beyond the bucket ladder: K2's column strips, then "
-        "BatchedEngine(device='cuda').transform at exact shapes")
+    begin("[16] images beyond the bucket ladder: K2's column strips, then "
+          "BatchedEngine(device='cuda').transform at exact shapes")
     over = phase_oversized(images, rgba_images, jpegs[0], k2, k2_rgba, card)
 
     t0 = time.perf_counter()
@@ -3165,12 +3630,21 @@ def main() -> int:
     log(f"    made 4 q80 1920x1080 JPEGs in each of "
         f"{', '.join(LAYOUTS)} and 2 grayscale ones in "
         f"{time.perf_counter() - t0:.2f} s")
-    log("[17] JPEG sources in every chroma layout: the JPEG pixel decode "
-        "(K3) and the RGB head (K2), BatchedEngine(device='cuda').transform")
+    begin("[17] JPEG sources in every chroma layout: the JPEG pixel decode "
+          "(K3) and the RGB head (K2), BatchedEngine(device='cuda').transform")
     layouts = phase_jpeg_layouts(layout_jpegs, gray_jpegs, jpegs,
                                  [synth_image(300)], card)
 
-    log(f"[18] HTTP: {phase_http(jpegs, pngs[0], webps[0], rgba_pngs[0], over['page'], layout_jpegs['4:4:4'][0])}")
+    begin("[18] HTTP")
+    log("    " + phase_http(jpegs, pngs[0], webps[0], rgba_pngs[0],
+                            over["page"], layout_jpegs["4:4:4"][0]))
+
+    begin("[19] the sources the reference decodes with Pillow: ICO, P6, QOI, "
+          "DDS, CMYK and YCCK JPEGs, BatchedEngine(device='cuda').transform")
+    pillow = phase_pillow_sources(card)
+    end_phase()
+    log("    seconds a phase (heading to heading): " + ", ".join(
+        f"[{k}] {v:.2f}" for k, v in PHASE_S.items()))
     log(f"    total {time.perf_counter() - t_start:.2f} s")
 
     avif_n = {head: r["launches"] for head, r in avif.items()}
@@ -3194,6 +3668,7 @@ def main() -> int:
         "replaces": "imagekit_tpu/ops/pallas_resize.py:155",
         "launches": png_eng["launches"],
         "avif_launches": avif_n["resample_rgb_yuv_batch"],
+        "pillow_source_launches": pillow["k2_launches"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
@@ -3220,6 +3695,12 @@ def main() -> int:
             key: layouts[name][key] for key in (
                 "max_abs_err", "share_differ", "ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms")} for name in ("4:4:4", "4:2:2")},
+        # the four-component pixel decode (phase 19): two launches a CMYK
+        # or YCCK request, and K3 at its planes (both launches timed)
+        "cmyk_launches": pillow["k3_launches"],
+        "pixel_decode_cmyk": {key: pillow["k3_cmyk"][key] for key in (
+            "max_abs_err", "share_differ", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
     }, {
         "name": "resize_planes3_f32 (K4, Y + Cb + Cr in one launch; u8 planes "
                 "in, f32 out on the k=8 JPEG -> WebP heads)",
@@ -3268,6 +3749,7 @@ def main() -> int:
         "replaces": "imagekit_tpu/ops/pallas_resize.py:155",
         "launches": alpha["rgba_launches"],
         "avif_launches": avif_n["resample_bucketed_flat"],
+        "pillow_source_launches": pillow["k2_rgba_launches"],
         **{key: k2_rgba[key] for key in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by", "library_ms")},
     }, {
@@ -3301,6 +3783,8 @@ def main() -> int:
         raise RuntimeError("no path beyond the bucket ladder launched K2")
     if layouts["k3_launches"] <= 0:
         raise RuntimeError("no JPEG layout round launched K3")
+    if min(pillow[f"{k}_launches"] for k in ("k2", "k2_rgba", "k3")) <= 0:
+        raise RuntimeError("a Pillow-source round launched no K2 or K3")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -8,13 +8,15 @@
 dispatchers (``:115-239``) over the port's decoders and encoders, all on
 :mod:`.native` with no Pillow: PNG (:mod:`.png`), WebP lossy, lossless and
 extended (:mod:`.vp8`), GIF and BMP (:mod:`.misc`), TIFF (:mod:`.tiff`),
-Radiance HDR and farbfeld (:mod:`.longtail`), baseline 4:2:0 JPEG pixels
-(:mod:`.jpeg`, whose DCT and colour stages run on the device: the
-reference's serving path decodes JPEG pixels with Pillow); JPEG, WebP and
-AVIF (the first-party encoder, :mod:`.avif_encode`) out. There is no
-host-library fallback: where the reference falls to Pillow or libdav1d
-(ICO, QOI, PNM and DDS sources, a variant a native decoder does not take,
-AVIF sources) the port raises
+Radiance HDR and farbfeld (:mod:`.longtail`), JPEG pixels in every layout
+the pixel decode takes, CMYK and YCCK included (:mod:`.jpeg`, whose DCT
+and colour stages run on the device: the reference's serving path decodes
+JPEG pixels with Pillow), and the sources the reference decodes only with
+Pillow: ICO (:mod:`.ico`), PNM (:mod:`.pnm`), QOI (:mod:`.qoi`) and DDS
+(:mod:`.dds`); JPEG, WebP and AVIF (the first-party encoder,
+:mod:`.avif_encode`) out. There is no host-library fallback: where the
+reference falls to Pillow or libdav1d for a variant a native decoder does
+not take, or for AVIF sources, the port raises
 :class:`~imagekit_tpu_torch.errors.NotPortedError`.
 """
 
@@ -149,14 +151,20 @@ def decode_bytes(data: bytes, device=None) -> Tuple[np.ndarray, SourceFormat]:
         from imagekit_tpu_torch.codecs import jpeg
 
         return jpeg.decode_rgb(data, device=device), fmt
+    if fmt in (SourceFormat.ico, SourceFormat.pnm, SourceFormat.qoi,
+               SourceFormat.dds):
+        from imagekit_tpu_torch.codecs import dds, ico, pnm, qoi
+
+        mod = {SourceFormat.ico: ico, SourceFormat.pnm: pnm,
+               SourceFormat.qoi: qoi, SourceFormat.dds: dds}[fmt]
+        return mod.decode(data), fmt
     if fmt == SourceFormat.exr:
         # detected so the error names the format; the reference rejects
         # EXR too
         raise TransformError("EXR input is not supported")
     if fmt == SourceFormat.avif:
         raise NotPortedError("avif sources", "queue 1 item 8")
-    raise NotPortedError(
-        f"{fmt.value} sources (the host-library decoders)", "queue 1 item 9")
+    raise TransformError(f"no decoder for {fmt.value} sources")
 
 
 def encode_bytes(img: np.ndarray, fmt: ImageFormat, quality: int,

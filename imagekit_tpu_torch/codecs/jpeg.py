@@ -11,10 +11,12 @@ on CUDA, and :func:`~imagekit_tpu_torch.ops.dct.encode_rgb_to_coefficients`).
 The reference's serving path decodes JPEG pixels with Pillow; the port has
 none, so :func:`decode_rgb` is its JPEG pixel decode, baseline or
 progressive: 4:2:0, 4:2:2, 4:4:0 and 4:4:4 JPEGs, their Cb and Cr with
-shared or distinct tables, and grayscale JPEGs. CMYK and YCCK JPEGs,
-12-bit and arithmetic coding, Cb and Cr sampled differently and chroma
-ratios other than 1 or 2 raise
-:class:`~imagekit_tpu_torch.errors.NotPortedError`.
+shared or distinct tables, and grayscale JPEGs; and baseline CMYK and
+YCCK JPEGs (four components, which the native decoder refuses with -3:
+the port's own entropy decode, ``jpeg_abi.decode4``, then the
+four-component branch of the device decode). Progressive CMYK, 12-bit and
+arithmetic coding, Cb and Cr sampled differently and sampling ratios other
+than 1 or 2 raise :class:`~imagekit_tpu_torch.errors.NotPortedError`.
 """
 
 from __future__ import annotations
@@ -24,7 +26,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from imagekit_tpu_torch.errors import NotPortedError, TransformError
+from imagekit_tpu_torch.errors import (
+    NotPortedError,
+    SourceDecodeError,
+    TransformError,
+)
 
 #: the largest side a baseline JPEG's frame header can state
 JPEG_MAX_SIDE = 65535
@@ -32,22 +38,29 @@ JPEG_MAX_SIDE = 65535
 
 def decode_error(e) -> Exception:
     """Native decoder failure -> the port's error: an unsupported coding
-    (progressive, arithmetic, 12-bit) is a path not ported yet; anything
-    else is a bad source (400, as the reference's decode would give)."""
+    (arithmetic, 12-bit, progressive CMYK) is a path not ported yet; a
+    CMYK or YCCK JPEG that fails is a
+    :class:`~imagekit_tpu_torch.errors.SourceDecodeError`, because the
+    reference decodes such a JPEG in full at its fetch stage; anything else
+    is a bad source (400, as the reference's decode would give)."""
     if getattr(e, "code", None) == -3:
         return NotPortedError(
             f"a JPEG the native decoder does not take ({e})", "queue 1 item 10"
         )
+    if getattr(e, "four_components", False):
+        return SourceDecodeError(f"JPEG decode failed: {e}")
     return TransformError(f"JPEG decode failed: {e}")
 
 
 def decode_to_coefficients(data: bytes):
-    """Host C++: entropy-decode a baseline JPEG into per-component quantised
-    coefficient planes + quant tables + sampling factors."""
+    """Host C++: entropy-decode a JPEG into per-component quantised
+    coefficient planes + quant tables + sampling factors; a four-component
+    frame, which the native decoder refuses with -3, through the port's own
+    (``jpeg_abi.decode_any``). Errors as :func:`decode_error` maps them."""
     from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
 
     try:
-        return loader.decode_jpeg(data)
+        return jpeg_abi.decode_any(loader.load(), data)
     except jpeg_abi.NativeJpegError as e:
         raise decode_error(e) from e
 
@@ -55,8 +68,9 @@ def decode_to_coefficients(data: bytes):
 def components_to_rgb(comps, device: Optional[torch.device] = None
                       ) -> np.ndarray:
     """The device half of :func:`decode_rgb`: dequant + IDCT + chroma
-    upsample + YCbCr -> RGB of :func:`decode_to_coefficients`' output, for
-    the layouts of the module docstring."""
+    upsample + YCbCr (or CMYK, YCCK) -> RGB of
+    :func:`decode_to_coefficients`' output, for the layouts of the module
+    docstring."""
     from imagekit_tpu_torch.ops import dct as dct_ops
 
     try:

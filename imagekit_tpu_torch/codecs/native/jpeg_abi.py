@@ -1,4 +1,8 @@
-"""ctypes ABI for the native JPEG entropy codec (jpeg_entropy.cpp)."""
+"""ctypes ABI for the native JPEG entropy codec (jpeg_entropy.cpp) and for
+the port's four-component decoder beside it (jpeg4_decode.cpp: CMYK and
+YCCK JPEGs, :func:`parse4` and :func:`decode4`). :func:`parse_any` and
+:func:`decode_any` try the first, then the second where it refuses the
+frame as unsupported."""
 
 from __future__ import annotations
 
@@ -39,9 +43,13 @@ ERRORS = {
 
 
 class NativeJpegError(Exception):
-    def __init__(self, code: int):
+    """``four_components``: raised by the four-component decoder, on a
+    frame that the pinned one refused as unsupported."""
+
+    def __init__(self, code: int, four_components: bool = False):
         super().__init__(ERRORS.get(code, f"error {code}"))
         self.code = code
+        self.four_components = four_components
 
 
 def configure(lib: ctypes.CDLL) -> None:
@@ -100,6 +108,20 @@ def configure(lib: ctypes.CDLL) -> None:
     ]
     lib.ik_jpeg_encode.restype = ctypes.c_int64
     lib.ik_native_version.restype = ctypes.c_int
+    lib.ik_jpeg4_parse.argtypes = [
+        ctypes.c_char_p,
+        ctypes.c_size_t,
+        ctypes.POINTER(IkJpegInfo),
+        ctypes.POINTER(ctypes.c_int32),  # the Adobe transform flag
+    ]
+    lib.ik_jpeg4_parse.restype = ctypes.c_int
+    lib.ik_jpeg4_decode_coeffs.argtypes = [
+        ctypes.c_char_p,
+        ctypes.c_size_t,
+        ctypes.POINTER(ctypes.c_void_p),
+        ctypes.c_void_p,
+    ]
+    lib.ik_jpeg4_decode_coeffs.restype = ctypes.c_int
 
 
 @dataclass
@@ -117,12 +139,13 @@ class JpegHeader:
     blocks_h: Tuple[int, ...]
     comp_tq: Tuple[int, ...]
     progressive: bool
+    #: an Adobe APP14 segment's transform flag (0 CMYK, else YCCK), -1
+    #: without one; read by :func:`parse4` only
+    adobe_transform: int = -1
 
 
-def parse(lib: ctypes.CDLL, data: bytes) -> JpegHeader:
-    info = IkJpegInfo()
-    rc = lib.ik_jpeg_parse(data, len(data), ctypes.byref(info))
-    hdr = JpegHeader(
+def _header(info: IkJpegInfo, **extra) -> JpegHeader:
+    return JpegHeader(
         width=info.width,
         height=info.height,
         ncomp=info.ncomp,
@@ -136,10 +159,47 @@ def parse(lib: ctypes.CDLL, data: bytes) -> JpegHeader:
         blocks_h=tuple(info.blocks_h[: info.ncomp]),
         comp_tq=tuple(info.comp_tq[: info.ncomp]),
         progressive=bool(info.progressive),
+        **extra,
     )
+
+
+def parse(lib: ctypes.CDLL, data: bytes) -> JpegHeader:
+    info = IkJpegInfo()
+    rc = lib.ik_jpeg_parse(data, len(data), ctypes.byref(info))
     if rc != 0:
         raise NativeJpegError(rc)
-    return hdr
+    return _header(info)
+
+
+def parse4(lib: ctypes.CDLL, data: bytes) -> JpegHeader:
+    """The header of a four-component (CMYK or YCCK) baseline JPEG, with its
+    Adobe transform flag; -3 for anything else the native decoder refuses
+    (progressive, arithmetic, 12-bit, other component counts)."""
+    info = IkJpegInfo()
+    flag = ctypes.c_int32(-1)
+    rc = lib.ik_jpeg4_parse(data, len(data), ctypes.byref(info),
+                            ctypes.byref(flag))
+    if rc != 0:
+        raise NativeJpegError(rc, four_components=True)
+    return _header(info, adobe_transform=int(flag.value))
+
+
+def parse_any(lib: ctypes.CDLL, data: bytes) -> JpegHeader:
+    """:func:`parse`'s header, or where it refuses the frame with -3,
+    :func:`parse4`'s (``ncomp`` 4). Raises the pinned parser's -3 when
+    neither takes the frame, else the failing parser's error."""
+    try:
+        return parse(lib, data)
+    except NativeJpegError as e:
+        if e.code != -3:
+            raise
+        refused = e
+    try:
+        return parse4(lib, data)
+    except NativeJpegError as e:
+        if e.code == -3:
+            raise refused from None
+        raise
 
 
 def decode_planes(
@@ -188,6 +248,34 @@ def decode(
     if rc != 0:
         raise NativeJpegError(rc)
     return hdr, coeffs, qtabs
+
+
+def decode4(
+    lib: ctypes.CDLL, data: bytes
+) -> Tuple[JpegHeader, List[np.ndarray], np.ndarray]:
+    """:func:`decode`'s output for a four-component baseline JPEG
+    (:func:`parse4`'s header)."""
+    hdr = parse4(lib, data)
+    coeffs = [np.zeros((hdr.blocks_h[c], hdr.blocks_w[c], 64), np.int16)
+              for c in range(4)]
+    qtabs = np.empty((4, 64), np.uint16)
+    ptrs = (ctypes.c_void_p * 4)(
+        *[p.ctypes.data_as(ctypes.c_void_p).value for p in coeffs])
+    rc = lib.ik_jpeg4_decode_coeffs(data, len(data), ptrs,
+                                    qtabs.ctypes.data_as(ctypes.c_void_p))
+    if rc != 0:
+        raise NativeJpegError(rc, four_components=True)
+    return hdr, coeffs, qtabs
+
+
+def decode_any(
+    lib: ctypes.CDLL, data: bytes
+) -> Tuple[JpegHeader, List[np.ndarray], np.ndarray]:
+    """:func:`decode` or :func:`decode4`, as :func:`parse_any` finds the
+    frame; its errors as there."""
+    if parse_any(lib, data).ncomp == 4:
+        return decode4(lib, data)
+    return decode(lib, data)
 
 
 def decode_lowfreq(

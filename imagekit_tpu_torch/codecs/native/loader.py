@@ -4,9 +4,13 @@ The port's copies of the reference's C++ codecs (``jpeg_entropy.cpp``,
 ``vp8_encode.cpp``, ``vp8_decode.cpp``, ``vp8l_decode.cpp``,
 ``png_decode.cpp``, ``misc_decode.cpp``, ``tiff_decode.cpp`` and the AV1
 encoder's entropy engine and leaf evaluation ``av1_enc.cpp``, beside this
-file) are compiled at first use:
+file) and its own decoders of what the reference hands to Pillow
+(``raster_decode.cpp``: QOI and BCn; ``jpeg4_decode.cpp``: CMYK and YCCK
+JPEGs) are compiled at first use, one ``g++ -c`` a source, all started
+together, then linked:
 
-    g++ -O3 -march=native -shared -fPIC <sources> -o libik_native.so -lz
+    g++ -O3 -march=native -fPIC -c <source> -o <source>.o   (each)
+    g++ -shared <objects> -o libik_native.so -lz
 
 into ``build/imagekit_tpu_torch/`` under the checkout (a directory
 ``.gitignore`` lists), never into the package, and rebuilt when a source
@@ -29,7 +33,8 @@ from typing import Optional, Tuple
 _HERE = Path(__file__).resolve().parent
 _SOURCES = ("jpeg_entropy.cpp", "vp8_encode.cpp", "vp8_decode.cpp",
             "vp8l_decode.cpp", "png_decode.cpp", "misc_decode.cpp",
-            "tiff_decode.cpp", "av1_enc.cpp")
+            "tiff_decode.cpp", "av1_enc.cpp", "raster_decode.cpp",
+            "jpeg4_decode.cpp")
 _HEADERS = ("vp8_common.h", "vp8_tables.h")
 BUILD_DIR = _HERE.parents[2] / "build" / "imagekit_tpu_torch"
 _LIB = BUILD_DIR / "libik_native.so"
@@ -52,21 +57,36 @@ def _build() -> None:
         fcntl.flock(lockf, fcntl.LOCK_EX)  # released when the file closes
         if not _stale():
             return  # another process built it while this one waited
-        tmp = _LIB.with_suffix(f".{os.getpid()}.tmp.so")
-        cmd = ["g++", "-O3", "-march=native", "-funroll-loops", "-std=c++17",
-               "-shared", "-fPIC", "-fvisibility=hidden",
-               *[str(_HERE / s) for s in _SOURCES], "-o", str(tmp),
-               "-lz"]  # png_decode.cpp and tiff_decode.cpp inflate via zlib
+        tag = f"{os.getpid()}.tmp"
+        tmp = _LIB.with_suffix(f".{tag}.so")
+        objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in _SOURCES]
+        flags = ["-O3", "-march=native", "-funroll-loops", "-std=c++17",
+                 "-fPIC", "-fvisibility=hidden"]
         try:
-            proc = subprocess.run(cmd, capture_output=True, text=True,
-                                  timeout=300, cwd=_HERE)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"native codec build failed ({proc.returncode}): "
-                    f"{' '.join(cmd)}\n{proc.stderr[-8000:]}")
+            _run([["g++", *flags, "-c", str(_HERE / s), "-o", str(o)]
+                  for s, o in zip(_SOURCES, objs)])
+            # png_decode.cpp and tiff_decode.cpp inflate via zlib
+            _run([["g++", "-shared", *map(str, objs), "-o", str(tmp),
+                   "-lz"]])
             os.replace(tmp, _LIB)  # atomic: a loader sees old or new
         finally:
             tmp.unlink(missing_ok=True)
+            for o in objs:
+                o.unlink(missing_ok=True)
+
+
+def _run(cmds) -> None:
+    """Run the commands concurrently; raise with the compiler's message of
+    the first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, cwd=_HERE)
+             for c in cmds]
+    outs = [p.communicate(timeout=300)[1] for p in procs]
+    for c, p, err in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"native codec build failed ({p.returncode}): "
+                f"{' '.join(c)}\n{err[-8000:]}")
 
 
 def load() -> ctypes.CDLL:
@@ -86,6 +106,11 @@ def _configure(lib: ctypes.CDLL) -> None:
     from imagekit_tpu_torch.codecs.native import jpeg_abi
 
     jpeg_abi.configure(lib)
+    # raster_decode.cpp: (data, len, w, h, channels | BCn kind, out)
+    for fn in (lib.ik_qoi_decode, lib.ik_bcn_decode):
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
 
 
 def decode_jpeg(data: bytes):

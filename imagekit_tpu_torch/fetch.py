@@ -5,14 +5,20 @@ a copy of the reference's :class:`Fetcher` (one shared aiohttp session; a
 test substitutes an offline one) and its stages 1-4 as they are: status,
 ``image/*`` content type when parseable, the content-length preflight and
 the streamed byte count. Stage 5 differs: the
-reference decodes a PNG, GIF, BMP or TIFF in full to validate it, through
+reference decodes a PNG, GIF, BMP, TIFF, ICO, PNM, QOI or DDS, or a JPEG
+whose header its native parser refuses, in full to validate it, through
 decoders that import Pillow; here every such source, like a JPEG or a
-WebP, is validated by its header only (the native ``ik_*_parse`` calls),
-and the engine decodes it once, on its codec pool (a source whose data
-then fails to decode is answered by ``/img`` with this stage's body,
-:class:`~imagekit_tpu_torch.errors.SourceDecodeError`). A source the
-header check cannot place is left to the engine, which answers it with a
-:class:`~imagekit_tpu_torch.errors.NotPortedError` or a decode error.
+WebP, is validated by its header only (the native ``ik_*_parse`` calls and
+the port's header parsers), and the engine decodes it once, on its codec
+pool (a source whose data then fails to decode is answered by ``/img`` with
+this stage's body, :class:`~imagekit_tpu_torch.errors.SourceDecodeError`).
+A JPEG whose header the native parser refuses answers here as the
+reference's Pillow decode does ("Unable to decode image for validation"),
+unless it refuses it as unsupported (-3): a CMYK or YCCK JPEG is then
+validated by the four-component parser, and another (12-bit, arithmetic,
+progressive CMYK) is left to the engine, which answers it with a
+:class:`~imagekit_tpu_torch.errors.NotPortedError`, as it does a variant a
+decoder does not take.
 """
 
 from __future__ import annotations
@@ -21,9 +27,13 @@ from typing import Optional, Tuple
 
 from imagekit_tpu_torch.codecs import (
     SourceFormat,
+    dds,
     guess_format,
+    ico,
     misc,
     png,
+    pnm,
+    qoi,
     tiff,
     vp8,
 )
@@ -41,6 +51,10 @@ _PARSERS = {
     SourceFormat.gif: misc.parse_gif,
     SourceFormat.bmp: misc.parse_bmp,
     SourceFormat.tiff: tiff.parse,
+    SourceFormat.ico: ico.parse,
+    SourceFormat.pnm: pnm.parse,
+    SourceFormat.qoi: qoi.parse,
+    SourceFormat.dds: dds.parse,
 }
 
 
@@ -138,10 +152,9 @@ async def fetch_source(
             except NotPortedError:
                 return data, ct  # the engine answers it
         elif src == SourceFormat.jpeg:
-            try:
-                hdr = jpeg_abi.parse(loader.load(), data)
-            except jpeg_abi.NativeJpegError:
-                return data, ct  # the engine classifies it
+            hdr = _jpeg_header(data)
+            if hdr is None:
+                return data, ct  # the engine answers it (501)
             w, h = hdr.width, hdr.height
         elif src == SourceFormat.webp:
             # header-only, as the reference's: the engine decodes once, on
@@ -157,6 +170,19 @@ async def fetch_source(
     if w <= 0 or h <= 0:
         raise InvalidArgumentError("Invalid image dimensions")
     return data, ct
+
+
+def _jpeg_header(data: bytes):
+    """The header of a JPEG the port decodes, None for one the native
+    parsers refuse as unsupported (-3); anything else they refuse is the
+    reference's validation failure."""
+    try:
+        return jpeg_abi.parse_any(loader.load(), data)
+    except jpeg_abi.NativeJpegError as e:
+        if e.code == -3:
+            return None
+        raise InvalidArgumentError(
+            "Unable to decode image for validation") from None
 
 
 _GLOBAL_FETCHER: Optional[Fetcher] = None

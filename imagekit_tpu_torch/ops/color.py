@@ -13,7 +13,9 @@ The single-image conversion of the WebP encode (``color.py:35-69,152-171``)
 sits here too: :func:`rgb_to_yuv420` on the device (torch ops, no kernel:
 the reference has none either) and its numpy mirror
 :func:`rgb_to_yuv420_host`, which :func:`imagekit_tpu_torch.codecs.vp8.
-encode_rgb` takes by default, as the reference's does.
+encode_rgb` takes by default, as the reference's does. So does the colour
+step of CMYK and YCCK JPEGs (:func:`cmyk_to_rgb`, integer torch ops on the
+device), which the reference leaves to libjpeg and Pillow.
 """
 
 from __future__ import annotations
@@ -160,3 +162,51 @@ def resample_rgb_yuv_batch(imgs_flat, weights, vidx, hidx, out_shape,
     flat = to_host(rgb_yuv_head(x, wv, wh, vidx, hidx,
                                 tables_on(bands, device)), device)
     return split_yuv(flat, obh, obw)
+
+
+# -- CMYK and YCCK JPEGs -> RGB (the four-component JPEG pixel decode) ---------
+
+
+def _fix16(x: float) -> int:
+    return int(x * 65536 + 0.5)
+
+
+# libjpeg's YCC -> RGB tables (jdcolor.c ``build_ycc_rgb_table``), 16-bit
+# fixed point, indexed by the u8 sample; the green ones keep their scale
+_X = np.arange(256, dtype=np.int64) - 128
+_CR_R = (_fix16(1.40200) * _X + (1 << 15)) >> 16
+_CB_B = (_fix16(1.77200) * _X + (1 << 15)) >> 16
+_CR_G = -_fix16(0.71414) * _X
+_CB_G = -_fix16(0.34414) * _X + (1 << 15)
+
+
+def ycck_to_cmyk(y, cb, cr):
+    """libjpeg's ``ycck_cmyk_convert`` on int64 tensors: the inverse of
+    the YCC -> RGB mix, subtracted from 255 and clipped: (C, M, Y); K
+    passes through."""
+    def tab(t):
+        return torch.as_tensor(t, device=y.device)
+
+    c = 255 - (y + tab(_CR_R)[cr])
+    m = 255 - (y + ((tab(_CB_G)[cb] + tab(_CR_G)[cr]) >> 16))
+    yy = 255 - (y + tab(_CB_B)[cb])
+    return tuple(torch.clamp(p, 0, 255) for p in (c, m, yy))
+
+
+def cmyk_to_rgb(c, m, y, k, ycck: bool = False) -> torch.Tensor:
+    """Four u8 planes as a CMYK or YCCK JPEG stores them -> (H, W, 3) u8
+    RGB, as Pillow serves such a JPEG: libjpeg's YCCK -> CMYK first where
+    ``ycck``; then the Adobe inversion (Pillow reads four-component JPEGs
+    with rawmode ``CMYK;I``) and ``convert("RGB")``'s ``cmyk2rgb``,
+    ``nk - MULDIV255(x, nk)`` with ``nk = 255 - k``, in integers."""
+    c, m, y, k = (p.to(torch.int64) for p in (c, m, y, k))
+    if ycck:
+        c, m, y = ycck_to_cmyk(c, m, y)
+    nk = k  # 255 - (255 - k): K after the inversion
+
+    def muldiv255(a, b):
+        t = a * b + 128
+        return ((t >> 8) + t) >> 8
+
+    rgb = torch.stack([nk - muldiv255(255 - p, nk) for p in (c, m, y)], -1)
+    return torch.clamp(rgb, 0, 255).to(torch.uint8)

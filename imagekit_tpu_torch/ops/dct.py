@@ -53,7 +53,10 @@ outputs) and :func:`decode_components_to_rgb` (``dct.py:1938``: the JPEG
 pixel decode, :func:`decode_resize_rgb_batch` with identity luma stacks
 and, per axis, the 2x triangle upsample or the identity as chroma stacks,
 so ONE K3 launch on CUDA, for 4:2:0, 4:2:2, 4:4:0, 4:4:4 and grayscale
-JPEGs).
+JPEGs; for CMYK and YCCK JPEGs, which the reference decodes with Pillow,
+:func:`decode_four_components`: the same IDCT and upsample stacks for four
+components, TWO K3 launches, then libjpeg's and Pillow's integer colour
+steps, :func:`~imagekit_tpu_torch.ops.color.cmyk_to_rgb`).
 """
 
 from __future__ import annotations
@@ -67,6 +70,7 @@ from imagekit_tpu_torch.ops import jpeg8
 from imagekit_tpu_torch.errors import NotPortedError
 from imagekit_tpu_torch.ops.color import (
     box2,
+    cmyk_to_rgb,
     on_device,
     q8,
     resolve,
@@ -78,8 +82,13 @@ from imagekit_tpu_torch.ops.color import (
 from imagekit_tpu_torch.ops.resize_planes import (
     resize_planes3,
     resize_planes3_f32,
+    resize_planes_u8,
 )
-from imagekit_tpu_torch.ops.resize_strip import rgb_resize, yuv_resize
+from imagekit_tpu_torch.ops.resize_strip import (
+    resize_tables,
+    rgb_resize,
+    yuv_resize,
+)
 from imagekit_tpu_torch.ops.weights import (
     chroma_axis_weights,
     idct_basis,
@@ -572,8 +581,11 @@ def decode_components_to_rgb(decoded, device: Optional[torch.device] = None
     :func:`gray_chroma`'s planes. The "resize" is the identity for luma and,
     per axis, libjpeg's triangle 2x upsample or the identity for chroma
     (:func:`~imagekit_tpu_torch.ops.weights.chroma_axis_weights`): ONE K3
-    launch on CUDA. Anything else raises ValueError."""
+    launch on CUDA. Four components (CMYK, YCCK) take
+    :func:`decode_four_components`. Anything else raises ValueError."""
     hdr, coeffs, qtabs = decoded
+    if hdr.ncomp == 4:
+        return decode_four_components(decoded, device=device)
     if hdr.ncomp == 1:
         cz = gray_chroma(coeffs[0])
         coeffs, tq = [coeffs[0], cz, cz], (hdr.comp_tq[0],) * 3
@@ -607,3 +619,56 @@ def decode_components_to_rgb(decoded, device: Optional[torch.device] = None
         device=device,
     )
     return out[0, :hdr.height, :hdr.width]
+
+
+def four_component_inputs(decoded, device: torch.device):
+    """K3's inputs in the four-component JPEG pixel decode, on ``device``:
+    the four u8 planes after dequantisation and the 8x8 IDCT
+    (:func:`_blocks_to_plane`), (1, by*8, bx*8) each at its own block grid;
+    each plane's (wv, wh) stacks, per axis the identity or libjpeg's
+    triangle 2x against the largest block grid, as 4:2:0 chroma takes them
+    (other ratios raise ValueError); each plane's band tables; the index.
+    Planes of one grid share their stacks and tables, made once."""
+    hdr, coeffs, qtabs = decoded
+    grids = [c.shape[:2] for c in coeffs]
+    by_f, bx_f = max(g[0] for g in grids), max(g[1] for g in grids)
+    per_grid = {}
+    for by, bx in dict.fromkeys(grids):
+        wv, wh = on_device((chroma_axis_weights(by_f, by)[None],
+                            chroma_axis_weights(bx_f, bx)[None]), device)
+        per_grid[by, bx] = (wv, wh), resize_tables(wv, wh)
+    qt = np.stack([qtabs[t] for t in hdr.comp_tq]).astype(np.float32)
+    qt, vidx, *levels = on_device(
+        (qt, np.zeros(1, np.int32),
+         *(c.reshape(1, by, -1) for c, (by, _) in zip(coeffs, grids))),
+        device)
+    planes = [_blocks_to_plane(lv, by, bx, qt[i:i + 1])
+              for i, (lv, (by, bx)) in enumerate(zip(levels, grids))]
+    return (planes, [per_grid[g][0] for g in grids],
+            [per_grid[g][1] for g in grids], vidx)
+
+
+def four_component_planes(decoded, device: torch.device):
+    """The four u8 planes of a CMYK or YCCK JPEG at the full grid, (1,
+    by*8, bx*8) each, uncropped: :func:`four_component_inputs`, then TWO K3
+    launches on CUDA (:func:`resize_planes_u8`: C, M and Y, then K)."""
+    planes, stacks, tabs, vidx = four_component_inputs(decoded, device)
+    return (resize_planes_u8(planes[:3], stacks[:3], vidx, bands=tabs[:3])
+            + resize_planes_u8(planes[3:], stacks[3:], vidx, bands=tabs[3:]))
+
+
+def decode_four_components(decoded, device: Optional[torch.device] = None
+                           ) -> np.ndarray:
+    """The JPEG pixel decode of a CMYK or YCCK JPEG: ``decoded`` is
+    ``jpeg_abi.decode4``'s (header, four coefficient planes, qtabs) ->
+    :func:`four_component_planes` (two K3 launches on CUDA) -> crop ->
+    :func:`~imagekit_tpu_torch.ops.color.cmyk_to_rgb` (YCCK where the Adobe
+    transform flag is not 0) -> (H, W, 3) u8 RGB, on ``device`` (the card
+    unless named)."""
+    hdr = decoded[0]
+    device = resolve(device)
+    planes = four_component_planes(decoded, device)
+    h, w = hdr.height, hdr.width
+    rgb = cmyk_to_rgb(*(p[0, :h, :w] for p in planes),
+                      ycck=hdr.adobe_transform > 0)
+    return to_host(rgb, device)

@@ -20,7 +20,9 @@ The stacks are banded like K2's, and the kernels take the same
 
 Entries: :func:`resize_planes3` (K3) and :func:`resize_planes3_f32` (K4,
 f32 or u8 planes in) resize the three planes of a JPEG head, Y and the
-two chroma planes with their own stacks, in one launch. Each launches its
+two chroma planes with their own stacks, in one launch;
+:func:`resize_planes_u8` (K3) one to three planes, each with its own
+stacks (the four-component JPEG pixel decode). Each launches its
 kernel for CUDA tensors and raises on anything it does not take; it takes
 the plain version only for tensors that lie on the CPU. The reference pads H and W
 to 128 for Mosaic; the zero rows and columns add nothing, so no padding
@@ -67,15 +69,23 @@ def _check(planes, wv, wh, vidx, tabs, dtype):
 
 def _three(kernel: str, fn_name: str, plain, dtype, planes, stacks, vidx,
            bands, out_dtype=None):
-    """Check, then launch ``fn_name`` once for the three planes (CUDA
-    tensors) or take ``plain`` plane by plane (CPU tensors). The outputs
-    have ``out_dtype`` (the planes' ``dtype`` when None)."""
-    out_dtype = out_dtype or dtype
+    """:func:`_launch` on a JPEG head's (Y, Cb, Cr): Y with the luma
+    stacks ``stacks[:2]`` and ``bands[0]``, Cb and Cr with the chroma ones."""
     wv_y, wh_y, wv_c, wh_c = stacks
     luma_b, chroma_b = bands if bands is not None else (None, None)
+    return _launch(kernel, fn_name, plain, dtype, planes,
+                   [(wv_y, wh_y), (wv_c, wh_c), (wv_c, wh_c)], vidx,
+                   [luma_b, chroma_b, chroma_b], out_dtype)
+
+
+def _launch(kernel: str, fn_name: str, plain, dtype, planes, stacks, vidx,
+            bands, out_dtype=None):
+    """Check, then launch ``fn_name`` once for the one to three planes
+    (CUDA tensors), plane i with ``stacks[i]`` (wv, wh) and ``bands[i]``,
+    or take ``plain`` plane by plane (CPU tensors). The outputs have
+    ``out_dtype`` (the planes' ``dtype`` when None)."""
+    out_dtype = out_dtype or dtype
     planes = list(planes)
-    stacks = [(wv_y, wh_y), (wv_c, wh_c), (wv_c, wh_c)]
-    bands = [luma_b, chroma_b, chroma_b]
     for p in planes:
         on_device_with_kernel(p, kernel)
     tabs = [tables(wv, wh, b) for (wv, wh), b in zip(stacks, bands)]
@@ -124,6 +134,19 @@ def resize_planes3(planes, stacks, vidx: torch.Tensor, *, bands=None):
     the engine caches :class:`resize_strip.ResizeTables`)."""
     return _three("K3", "ik_resize_planes_u8", resize_planes_plain,
                   torch.uint8, planes, stacks, vidx, bands)
+
+
+def resize_planes_u8(planes, stacks, vidx: torch.Tensor, *, bands=None):
+    """K3 on one to three u8 planes in one launch, each with its own
+    stacks: ``stacks[i]`` is plane i's (wv, wh) and ``bands`` None or one
+    ``bands`` value a plane. The four-component JPEG pixel decode takes two
+    launches: C, M and Y, then K."""
+    if not 1 <= len(planes) <= 3 or len(stacks) != len(planes):
+        raise ValueError(f"{len(planes)} planes and {len(stacks)} stacks: "
+                         f"K3 takes one to three planes with a stack each")
+    return _launch("K3", "ik_resize_planes_u8", resize_planes_plain,
+                   torch.uint8, planes, stacks, vidx,
+                   bands or [None] * len(planes))
 
 
 def resize_planes3_f32(planes, stacks, vidx: torch.Tensor, *, bands=None):

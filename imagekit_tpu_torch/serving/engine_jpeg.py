@@ -27,9 +27,9 @@ resize:
 The C++ Huffman decoder and the batch layouts are the reference's, and the
 weight stacks live on the device. As the reference does, the head turns
 away (``_NativeUnsupported``) a source that is neither 4:2:0 with shared
-Cb/Cr tables nor grayscale (to the JPEG pixel decode and the batched RGB
-head) and a source or target beyond the bucket ladder (to the pixel decode
-and the engine's exact-shape path).
+Cb/Cr tables nor grayscale, a CMYK or YCCK JPEG among them (to the JPEG
+pixel decode and the batched RGB head), and a source or target beyond the
+bucket ladder (to the pixel decode and the engine's exact-shape path).
 """
 
 from __future__ import annotations
@@ -97,9 +97,13 @@ class JpegPathMixin:
         self._ensure_flusher(loop)
 
         try:
-            pre_hdr = jpeg_abi.parse(lib, data)  # header-only, microseconds
+            pre_hdr = jpeg_abi.parse_any(lib, data)  # header-only, microseconds
         except jpeg_abi.NativeJpegError as e:
             raise _decode_error(e) from e
+        if pre_hdr.ncomp == 4:
+            # CMYK and YCCK: the four-component pixel decode and the RGB
+            # head (the reference decodes them with Pillow)
+            raise _NativeUnsupported()
         if pre_hdr.ncomp != 1 and (
             tuple(pre_hdr.comp_h) != (2, 1, 1)
             or tuple(pre_hdr.comp_v) != (2, 1, 1)

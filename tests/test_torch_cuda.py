@@ -1105,3 +1105,103 @@ def test_alpha_and_single_image_paths_on_card_match_cpu(monkeypatch, case):
         # reaches the encoder's planes as at most +-1 after the colour mix
         assert int(d.max()) <= (2 if case == "jpeg_no_resize" else 1)
         assert float((d > 0).float().mean()) <= MAX_SHARE
+
+
+@needs_card
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_k3_planes_with_their_own_stacks_match_plain(n):
+    """K3's entry for one to three planes, each with its own stacks (the
+    four-component pixel decode's): one launch a call, each plane within
+    the band of its plain version."""
+    from imagekit_tpu_torch.ops import resize_planes
+    from imagekit_tpu_torch.ops.weights import chroma_axis_weights
+
+    rng = np.random.default_rng(n)
+    grids = [(34, 60), (17, 30), (34, 30)][:n]
+    planes = [torch.from_numpy(rng.integers(0, 256, (1, by * 8, bx * 8),
+                                            np.uint8)).cuda()
+              for by, bx in grids]
+    stacks = [(torch.from_numpy(chroma_axis_weights(34, by)[None]).cuda(),
+               torch.from_numpy(chroma_axis_weights(60, bx)[None]).cuda())
+              for by, bx in grids]
+    vidx = torch.zeros(1, dtype=torch.int32, device="cuda")
+    before = resize_planes.LAUNCHES
+    got = resize_planes.resize_planes_u8(planes, stacks, vidx)
+    assert resize_planes.LAUNCHES == before + 1
+    for p, (wv, wh), g in zip(planes, stacks, got):
+        assert g.shape == (1, 272, 480)
+        assert_band(g, resize_planes.resize_planes_plain(p, wv, wh, vidx))
+
+
+@needs_card
+@pytest.mark.parametrize("ycck", [False, True], ids=["cmyk", "ycck"])
+def test_four_component_pixel_decode_on_card_matches_cpu(ycck):
+    """The committed 1080p CMYK JPEG (and the same bytes read as YCCK) on
+    the card: two K3 launches, and RGB within +-2 on at most 0.1% of the
+    CPU's plain decode."""
+    from pathlib import Path
+
+    from imagekit_tpu_torch.codecs import jpeg
+    from imagekit_tpu_torch.ops import resize_planes
+
+    data = (Path(__file__).parent / "fixtures" / "cmyk_1080p_q80.jpg"
+            ).read_bytes()
+    if ycck:
+        at = data.index(b"Adobe") + 11
+        data = data[:at] + b"\x02" + data[at + 1:]
+    before = resize_planes.LAUNCHES
+    got = jpeg.decode_rgb(data, device="cuda")
+    assert resize_planes.LAUNCHES == before + 2
+    want = jpeg.decode_rgb(data, device="cpu")
+    assert got.shape == want.shape == (1080, 1920, 3)
+    d = np.abs(got.astype(int) - want.astype(int))
+    assert d.max() <= 2 and (d > 0).mean() <= MAX_SHARE
+
+
+@needs_card
+@pytest.mark.parametrize("case", ["ppm", "qoi_rgba", "dxt5", "ico"])
+def test_pillow_sources_on_card_match_cpu(monkeypatch, case):
+    """P6, RGBA QOI, DXT5 DDS and ICO sources made without Pillow
+    (``chip_smoke.py``'s writers) -> w=200 WebP through the engine on the
+    card and on the CPU: one K2 launch (three or four channels) on the
+    card, and the planes handed to the VP8 encoder within the band."""
+    import chip_smoke
+    from imagekit_tpu_torch.codecs import vp8
+    from imagekit_tpu_torch.config import ImageFormat, ImageKitConfig
+    from imagekit_tpu_torch.serving.batcher import BatchedEngine
+    from imagekit_tpu_torch.serving.metrics import Metrics
+
+    img = chip_smoke.synth_image(7, 512, 256, noise=False)
+    rgba = chip_smoke.ramp_alpha(img)
+    data = {"ppm": lambda: chip_smoke.make_pnm(img),
+            "qoi_rgba": lambda: chip_smoke.make_qoi(rgba),
+            "dxt5": lambda: chip_smoke.make_dds(rgba, b"DXT5")[0],
+            "ico": lambda: chip_smoke.make_ico(rgba[:, :256], rgba[:48, :48]),
+            }[case]()
+    seen = []
+    real_vp8 = vp8.encode_yuv420
+
+    def rec_vp8(yp, u, v, q):
+        seen.append((yp.copy(), u.copy(), v.copy()))
+        return real_vp8(yp, u, v, q)
+
+    monkeypatch.setattr(vp8, "encode_yuv420", rec_vp8)
+    for device in ("cuda", "cpu"):
+        engine = BatchedEngine(ImageKitConfig(secret="s"), metrics=Metrics(),
+                               device=device)
+
+        async def run():
+            try:
+                return await engine.transform(data, 200, None,
+                                              ImageFormat.webp, 80)
+            finally:
+                await engine.close()
+
+        before = resize_strip.LAUNCHES + resize_strip.LAUNCHES_RGBA
+        asyncio.run(run())
+        after = resize_strip.LAUNCHES + resize_strip.LAUNCHES_RGBA
+        assert after - before == int(device == "cuda")
+    assert len(seen) == 2
+    for a, b in zip(*seen):
+        d = (torch.from_numpy(a).int() - torch.from_numpy(b).int()).abs()
+        assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= MAX_SHARE

@@ -7,13 +7,17 @@ JAX package, on the CPU.
   inputs here; the port's modules never import it (a subprocess checks).
 - Where the reference's native decoder returns None and falls to Pillow, the
   port raises ``NotPortedError``; corrupt data is a ``TransformError`` where
-  the reference raises ``ValueError``.
+  the reference raises ``ValueError``. ICO, QOI, PNM and DDS, which the
+  reference decodes only with Pillow, have decoders of the port's own
+  (``tests/test_torch_pillow_sources.py`` holds them to it); a file that is
+  no more than their magic is the reference's ``TransformError`` here too.
 - The slice: a GIF, a BMP and a TIFF through the JAX engine and the port's
   engine to WebP (3 channels: the fused head; a GIF with transparency: the
   plain head), the planes each hands its encoder compared within the band
   of ``tests/test_torch_rgba_slice.py``.
-- HTTP: a truncated GIF answers ``/img`` with the fetch stage's body in both
-  apps; ICO, QOI, PNM and DDS answer 501; EXR answers 400.
+- HTTP: a truncated GIF or TIFF, and a JPEG cut before its SOS marker,
+  answer ``/img`` with the fetch stage's body in both apps; an ICO is
+  served; 12-bit and arithmetic-coded JPEGs answer 501; EXR answers 400.
 """
 
 import io
@@ -223,21 +227,28 @@ def test_pixel_ceiling_is_the_constant(monkeypatch):
 
 
 @pytest.mark.parametrize("magic,status", [
-    (b"\x00\x00\x01\x00" + b"\0" * 32, 501), (b"qoif" + b"\0" * 32, 501),
-    (b"P6\n2 2\n255\n" + b"\0" * 12, 501), (b"DDS " + b"\0" * 128, 501),
+    (b"\x00\x00\x01\x00" + b"\0" * 32, 400), (b"qoif" + b"\0" * 32, 400),
+    (b"P6\n2 2\n255\n" + b"\0" * 12, 200), (b"DDS " + b"\0" * 128, 400),
     (b"\x76\x2f\x31\x01" + b"\0" * 32, 400),
 ], ids=["ico", "qoi", "pnm", "dds", "exr"])
 def test_pillow_only_formats_answer_as_decided(magic, status):
-    """ICO, QOI, PNM and DDS are Pillow's in the reference: 501 here. EXR is
-    a TransformError in both."""
-    if status == 501:
-        with pytest.raises(NotPortedError, match="queue 1 item 9"):
-            codecs.decode_bytes(magic, device="cpu")
-    else:
-        with pytest.raises(TransformError, match="EXR input is not supported"):
-            codecs.decode_bytes(magic, device="cpu")
-        with pytest.raises(ref_codecs.TransformError, match="EXR"):
-            ref_codecs.decode_bytes(magic)
+    """ICO, QOI, PNM and DDS are Pillow's in the reference and the port's
+    own decoders' here: a header with nothing behind it is the reference's
+    TransformError (an ICO of no entries, a QOI of width 0, a DDS header of
+    size 0), and the 2x2 PPM of zeros decodes to the reference's pixels.
+    EXR is a TransformError in both."""
+    if status == 200:
+        got, fmt = codecs.decode_bytes(magic, device="cpu")
+        want, ref_fmt = ref_codecs.decode_bytes(magic)
+        assert fmt.value == ref_fmt.value and np.array_equal(got, want)
+        return
+    with pytest.raises(ref_codecs.TransformError):
+        ref_codecs.decode_bytes(magic)
+    with pytest.raises(TransformError) as e:
+        codecs.decode_bytes(magic, device="cpu")
+    assert not isinstance(e.value, NotPortedError)
+    if magic.startswith(b"\x76"):
+        assert e.value.message == "EXR input is not supported"
 
 
 def test_format_modules_never_import_pil():
@@ -309,19 +320,36 @@ def test_engine_matches_jax_engine(monkeypatch, kind):
 
 SECRET = "test-secret-key"
 URLS = {name: f"https://example.com/{name}" for name in (
-    "ok.gif", "cut.gif", "cut.tiff", "ok.bmp", "ok.tiff", "x.ico")}
+    "ok.gif", "cut.gif", "cut.tiff", "ok.bmp", "ok.tiff", "x.ico",
+    "cut_sos.jpg", "12bit.jpg", "arithmetic.jpg")}
+
+
+def _cut_before_sos() -> bytes:
+    """A q80 JPEG cut 10 bytes before its SOS marker: its header does not
+    parse."""
+    data = _save(make_test_image(160, 120), "JPEG", quality=80)
+    return data[:data.index(b"\xff\xda") - 10]
 
 
 def _canned():
+    from tests.test_torch_jpeg_layouts import _sof_patched
+
     gif = _photo_like("gif")
     tif = _photo_like("tiff")
+    icon = Image.fromarray(np.dstack([make_test_image(96, 96),
+                                      _rgb(96, 96)[:, :, 0]]))
     return {
+        URLS["cut_sos.jpg"]: ("image/jpeg", _cut_before_sos()),
+        URLS["12bit.jpg"]: ("image/jpeg", _sof_patched(0, 12)),
+        URLS["arithmetic.jpg"]: ("image/jpeg",
+                                 _sof_patched(0, 0, marker=0xC9)),
         URLS["ok.gif"]: ("image/gif", gif),
         URLS["cut.gif"]: ("image/gif", gif[: len(gif) // 2]),
         URLS["cut.tiff"]: ("image/tiff", tif[: len(tif) // 2]),
         URLS["ok.bmp"]: ("image/bmp", _photo_like("bmp")),
         URLS["ok.tiff"]: ("image/tiff", tif),
-        URLS["x.ico"]: ("image/x-icon", b"\x00\x00\x01\x00" + b"\0" * 64),
+        URLS["x.ico"]: ("image/x-icon", _save(icon, "ICO",
+                                              sizes=[(32, 32), (96, 96)])),
     }
 
 
@@ -360,19 +388,38 @@ async def _img(client, **params):
     return r.status, r.headers.get("Content-Type"), await r.read()
 
 
-@pytest.mark.parametrize("name", ["cut.gif", "cut.tiff"])
+@pytest.mark.parametrize("name", ["cut.gif", "cut.tiff", "cut_sos.jpg"])
 def test_http_truncated_source_answers_as_the_reference(tmp_path, name):
     """The reference decodes such a source in full at its fetch stage; the
     port validates the header there, decodes once in the engine, and
-    answers with the fetch stage's body."""
+    answers with the fetch stage's body. A JPEG whose header does not parse
+    fails at the port's fetch stage itself (the reference's fetch falls
+    through to Pillow, which fails too), at w=64 and with no resize."""
+    widths = (64, None) if name.endswith(".jpg") else (32,)
+
     async def fn(client):
-        return await _img(client, url=URLS[name], w=32)
+        return [await _img(client, url=URLS[name], **(
+            {"w": w} if w else {})) for w in widths]
 
     ref = _serve(tmp_path, "ref", fn)
     port = _serve(tmp_path, "port", fn)
     assert port == ref
-    assert port[0] == 400
-    assert port[2] == b"Invalid argument: Unable to decode image for validation"
+    for status, _, body in port:
+        assert status == 400
+        assert body == b"Invalid argument: Unable to decode image for validation"
+
+
+@pytest.mark.parametrize("name", ["12bit.jpg", "arithmetic.jpg"])
+def test_http_unsupported_jpeg_coding_answers_501(tmp_path, name):
+    """12-bit and arithmetic-coded JPEGs (the native decoders' -3) pass the
+    fetch stage and answer 501 naming their queue item, with a resize and
+    without."""
+    async def fn(client):
+        return [await _img(client, url=URLS[name], **({"w": w} if w else {}))
+                for w in (64, None)]
+
+    for status, _, body in _serve(tmp_path, "port", fn):
+        assert status == 501 and b"ROADMAP queue 1 item 10" in body
 
 
 @pytest.mark.parametrize("name", ["ok.gif", "ok.bmp", "ok.tiff"])
@@ -387,11 +434,16 @@ def test_http_serves_gif_bmp_tiff(tmp_path, name):
 
 
 def test_http_pillow_only_source_answers_501(tmp_path):
+    """An ICO, which the reference decodes only with Pillow, is served by
+    the port's own decoder now (the name is kept from when it answered
+    501): its largest entry, 96x96, to a 64 px WebP in both apps."""
     async def fn(client):
         return await _img(client, url=URLS["x.ico"], w=64)
 
-    status, _, body = _serve(tmp_path, "port", fn)
-    assert status == 501 and b"ROADMAP queue 1 item 9" in body
+    for which in ("port", "ref"):
+        status, ct, body = _serve(tmp_path, which, fn)
+        assert (status, ct) == (200, "image/webp"), (which, body[:200])
+        assert vp8.dimensions(body) == (64, 64)
 
 
 def test_fetch_validates_by_header_and_engine_raises_source_decode_error():
@@ -406,10 +458,19 @@ def test_fetch_validates_by_header_and_engine_raises_source_decode_error():
         with pytest.raises(InvalidArgumentError, match="validation"):
             await fetch.fetch_source("bad", 1 << 24, fetcher=_CannedFetcher(
                 {"bad": ("image/gif", b"GIF89a\x00")}))
-        # a source the header check cannot place is left to the engine
+        # an ICO is validated by its header now, and one with no entries
+        # fails there; a source the header check cannot place (AVIF) is
+        # left to the engine
         ico = await fetch.fetch_source(URLS["x.ico"], 1 << 24,
                                        fetcher=_CannedFetcher(canned))
         assert ico[0].startswith(b"\x00\x00\x01\x00")
+        with pytest.raises(InvalidArgumentError, match="validation"):
+            await fetch.fetch_source("bad", 1 << 24, fetcher=_CannedFetcher(
+                {"bad": ("image/x-icon", b"\x00\x00\x01\x00" + b"\0" * 64)}))
+        avif = b"\0\0\0\x1cftypavif" + b"\0" * 64
+        left = await fetch.fetch_source("avif", 1 << 24, fetcher=_CannedFetcher(
+            {"avif": ("image/avif", avif)}))
+        assert left[0] == avif
         engine = PortEngine(metrics=Metrics(), device="cpu")
         try:
             with pytest.raises(SourceDecodeError):

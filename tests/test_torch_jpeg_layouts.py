@@ -23,10 +23,11 @@ K3's plain version here), and hands the pixels to the batched RGB head.
   (``device_decode``) and, with a resize, one batch of the RGB head
   (``device_resize``), never the JPEG heads (``device_decode_resize``).
   AVIF output, a source beyond the bucket ladder and HTTP answer too.
-- (d) What stays 501 (``NotPortedError``, queue 1 item 10): CMYK, 12-bit
-  and arithmetic-coded JPEGs (the native decoder's code -3), Cb and Cr
-  sampled differently, and a chroma ratio of 4 (4:1:1, a header made by
-  hand: no encoder here writes factors beyond 2).
+- (d) What stays 501 (``NotPortedError``, queue 1 item 10): progressive
+  CMYK, 12-bit and arithmetic-coded JPEGs (the native decoders' code -3),
+  Cb and Cr sampled differently, and a chroma ratio of 4 (4:1:1, a header
+  made by hand: no encoder here writes factors beyond 2). Baseline CMYK and
+  YCCK JPEGs are served (``tests/test_torch_pillow_sources.py``).
 
 4:4:0 sources come from the port's native encoder
 (``loader.encode_jpeg(samp=(1, 2))``), the others from Pillow.
@@ -389,9 +390,10 @@ def test_http_img_and_upload(tmp_path):
 # -- (d) what stays 501 ------------------------------------------------------------
 
 
-def _cmyk() -> bytes:
+def _cmyk_progressive() -> bytes:
     buf = io.BytesIO()
-    Image.fromarray(make_test_image(64, 48)).convert("CMYK").save(buf, "JPEG")
+    Image.fromarray(make_test_image(64, 48)).convert("CMYK").save(
+        buf, "JPEG", progressive=True)
     return buf.getvalue()
 
 
@@ -419,7 +421,7 @@ def _mixed_chroma() -> bytes:
 
 
 NOT_PORTED = {
-    "cmyk": _cmyk,
+    "cmyk_progressive": _cmyk_progressive,
     "12bit": lambda: _sof_patched(0, 12),
     "arithmetic": lambda: _sof_patched(0, 0, marker=0xC9),
     "mixed_chroma": _mixed_chroma,

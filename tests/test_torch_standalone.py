@@ -141,6 +141,73 @@ def test_port_serves_three_kinds_without_the_reference():
     assert not any(m.startswith("rust_image_transform_tpu") for m in mods)
 
 
+def test_port_serves_pillow_sources_without_pillow(tmp_path):
+    """ICO, PNM, QOI, DDS and CMYK / YCCK JPEG sources, written here by
+    Pillow, through ``BatchedEngine(device="cpu")`` in a subprocess that
+    then holds no Pillow, no ``jax`` and no ``imagekit_tpu`` module."""
+    import io
+    import json
+
+    from PIL import Image
+
+    from tests.conftest import make_test_image
+
+    img = Image.fromarray(make_test_image(96, 72))
+    rgba = img.convert("RGBA")
+    made = {}
+    for name, (im, fmt, kw) in {
+            "ico": (rgba.resize((96, 96)), "ICO", {"sizes": [(96, 96)]}),
+            "ppm": (img, "PPM", {}), "qoi": (rgba, "QOI", {}),
+            "dds": (rgba, "DDS", {"pixel_format": "DXT5"}),
+            "cmyk": (img.convert("CMYK"), "JPEG", {"subsampling": 2})}.items():
+        buf = io.BytesIO()
+        im.save(buf, fmt, **kw)
+        made[name] = buf.getvalue()
+    ycck = bytearray(made["cmyk"])
+    ycck[ycck.index(b"Adobe") + 11] = 2
+    made["ycck"] = bytes(ycck)
+    for name, data in made.items():
+        (tmp_path / name).write_bytes(data)
+    script = textwrap.dedent("""
+        import asyncio, json, sys
+        from pathlib import Path
+        from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
+        from imagekit_tpu_torch.codecs import vp8
+        from imagekit_tpu_torch.config import BatchConfig, ImageFormat, ImageKitConfig
+        from imagekit_tpu_torch.serving.batcher import BatchedEngine
+        from imagekit_tpu_torch.serving.metrics import Metrics
+
+        names = ["ico", "ppm", "qoi", "dds", "cmyk", "ycck"]
+        datas = [(Path(sys.argv[1]) / n).read_bytes() for n in names]
+        engine = BatchedEngine(ImageKitConfig(secret="s", batch=BatchConfig(
+            max_batch=1)), metrics=Metrics(), device="cpu")
+
+        async def run():
+            try:
+                return await asyncio.gather(*(
+                    engine.transform(d, 32, None, f, 80) for d in datas
+                    for f in (ImageFormat.webp, ImageFormat.jpeg)))
+            finally:
+                await engine.close()
+
+        outs = asyncio.run(run())
+        lib = loader.load()
+        print(json.dumps({
+            "sizes": [list(vp8.dimensions(o)) if o[:4] == b"RIFF" else
+                      [jpeg_abi.parse(lib, o).width,
+                       jpeg_abi.parse(lib, o).height] for o in outs],
+            "mods": sorted(m for m in sys.modules if m.split(".")[0] in (
+                "PIL", "jax", "imagekit_tpu"))}))
+    """)
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp_path)],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["sizes"] == [[32, 32]] * 2 + [[32, 24]] * 10
+    assert res["mods"] == []
+
+
 # -- the copies against the reference ------------------------------------------------
 
 NATIVE = ("jpeg_entropy.cpp", "vp8_encode.cpp", "vp8_decode.cpp",
@@ -153,6 +220,22 @@ def test_native_sources_byte_equal(name):
     ref = ROOT / "imagekit_tpu" / "codecs" / "native" / name
     port = ROOT / "imagekit_tpu_torch" / "codecs" / "native" / name
     assert port.read_bytes() == ref.read_bytes()
+
+
+def test_port_only_native_sources_are_built_and_not_copies():
+    """The port's own decoders of what the reference hands to Pillow are
+    linked into the library beside the pinned copies; they are no copy of a
+    reference source, so nothing pins them."""
+    from imagekit_tpu_torch.codecs.native import loader
+
+    own = ("raster_decode.cpp", "jpeg4_decode.cpp")
+    for name in own:
+        assert name in loader._SOURCES and name not in NATIVE
+        assert not (ROOT / "imagekit_tpu" / "codecs" / "native" / name).exists()
+    lib = loader.load()
+    for fn in ("ik_qoi_decode", "ik_bcn_decode", "ik_jpeg4_parse",
+               "ik_jpeg4_decode_coeffs"):
+        assert hasattr(lib, fn)
 
 
 def test_native_library_builds_in_the_port_build_dir():
