@@ -20,7 +20,10 @@ K3); AVIF output through every one of those heads (the first-party AV1
 intra encoder on the host); images beyond the bucket ladder (their
 exact-shape path, K2 in column strips where a row is too wide for a tile of
 whole rows); and JPEG sources beyond 4:2:0 (4:4:4, 4:2:2, 4:4:0,
-grayscale: the JPEG pixel decode on K3, then the RGB head on K2):
+grayscale: the JPEG pixel decode on K3, then the RGB head on K2); and
+the sources the reference decodes with Pillow (ICO, PNM, QOI, DDS, CMYK
+and YCCK JPEGs baseline and progressive, BMP and TIFF layouts its native
+decoders refuse):
 
 1. environment: the card (``nvidia-smi``), torch and CUDA versions;
 2. build: the kernel library (one nvcc per source, started together) and,
@@ -154,7 +157,25 @@ grayscale: the JPEG pixel decode on K3, then the RGB head on K2):
     -> w=400 WebP: requests/s, p50/p99, host stages, idle share. K3 on the
     four planes of a CMYK decode (C 1088x1920, M, Y, K 544x960 -> 1088x1920,
     B=1) against its plain version, timed, with an einsum yardstick and
-    the bound.
+    the bound;
+20. the BMP, TIFF and progressive CMYK sources the reference still hands
+    to Pillow: the committed Group 4 A4 page (2480x3508, 300 dpi,
+    ``tests/fixtures/g4_a4_300dpi.tif``) and the same page as an
+    uncompressed 1-bit TIFF, 1080p CMYK PackBits TIFFs, 32 bpp BGRA
+    BI_BITFIELDS (v5 header), 16 bpp 5-6-5 and BITMAPCOREHEADER 24 bpp
+    BMPs, all written here, and the committed progressive 1080p CMYK JPEG
+    (``tests/fixtures/cmyk_1080p_q80_progressive.jpg``; YCCK by its APP14
+    flag), each decode checked against its source (the progressive one's
+    coefficients against its baseline twin's, its pixels on the card
+    against the host's plain decode); counts reset before each round, each
+    round run once, traced: 16 G4 and 16 1-bit pages -> w=400 WebP, 16
+    CMYK TIFFs -> w=400 JPEG, 16 of each BMP -> w=400 WebP (K2 a batch,
+    four channels for BGRA), 16 progressive CMYK -> w=400 WebP and -> JPEG
+    with no resize, 4 progressive YCCK -> w=400 WebP (two K3 launches a
+    request): requests/s, p50/p99, host stages (the decode ms a request),
+    idle share. K3 on the four planes of the progressive CMYK decode
+    against its plain version (max |d| 0), timed, with an einsum
+    yardstick and the bound.
 
 Device times are the kernels' own, summed by ``torch.profiler`` over 20
 calls (the host's launch cost excluded); the bound is the larger of the
@@ -3313,101 +3334,24 @@ def k3_cmyk_case(data: bytes) -> dict:
     return case
 
 
-def phase_pillow_sources(card: str) -> dict:
-    """The sources the reference decodes with Pillow, through one engine:
-    ICO, P6, QOI and DDS decode on the codec pool and take the batched RGB
-    head (K2, three or four channels); CMYK and YCCK JPEGs take the
-    four-component pixel decode (two K3 launches a request) and the RGB
-    head. Sources are made here without Pillow, and each decode is checked
-    first: P6, QOI and the ICOs' PNG and BMP entries exactly against their
-    pixels, the DDS against the pixels their block encoder chose, CMYK and
-    YCCK against the plain decode on the host's CPU (and CMYK against the
-    image the fixture was made from). Rounds, the launch counts set to 0
-    before each and read after it, each run once, traced (warmed by 4
-    requests first). Then K3 at the CMYK geometry against its plain
-    version. The seconds of each step are logged."""
+def drive_rounds(rounds, card: str, steps: dict) -> dict:
+    """Rounds of requests through one ``BatchedEngine(device="cuda")``: each
+    warmed by 4 requests, then run once, traced, with every launch count set
+    to 0 just before it and read just after. A round is (name, sources,
+    requests, width, format, output size, launches: kernel -> "batch" (one
+    a batch) or n (n a request)); each output is parsed to its format and
+    size, and the launches must be those and no other. Logs requests/s,
+    p50/p99, the host stages and the idle share of each; returns them, with
+    the launches of K2 (three and four channels) and K3 summed over the
+    rounds. ``steps`` gets the seconds of each round."""
     from torch.profiler import ProfilerActivity, profile
 
-    from imagekit_tpu_torch.codecs import decode_bytes, jpeg
-    from imagekit_tpu_torch.config import BatchConfig, ImageFormat, ImageKitConfig
+    from imagekit_tpu_torch.config import BatchConfig, ImageKitConfig
     from imagekit_tpu_torch.ops import jpeg8, resize_strip
     from imagekit_tpu_torch.ops import resize_planes as rp
     from imagekit_tpu_torch.serving.batcher import BatchedEngine
     from imagekit_tpu_torch.serving.metrics import Metrics
 
-    W, J = ImageFormat.webp, ImageFormat.jpeg
-    t0 = time.perf_counter()
-    images = [synth_image(600 + i, noise=False) for i in range(4)]
-    pnms = [make_pnm(img) for img in images]
-    qois = [make_qoi(with_alpha(img, i)) for i, img in enumerate(images)]
-    icons = [ramp_alpha(synth_image(620 + i, 256, 256)) for i in range(4)]
-    small = ramp_alpha(synth_image(630, 256, 256)[:48, :48])
-    icos = [make_ico(big, small) for big in icons]
-    dxt = [make_dds(with_alpha(synth_image(640 + i, 2048, 2048), i), cc)
-           for i, cc in enumerate((b"DXT1", b"DXT5"))]
-    cmyk = open(CMYK_FIXTURE, "rb").read()
-    ycck = ycck_of(cmyk)
-    log(f"    made 4 1920x1080 P6 and RGBA QOI ({len(qois[0]) / 1e6:.2f} MB), "
-        f"4 ICOs (256x256 PNG + 48x48 BMP), a DXT1 and a DXT5 2048x2048 "
-        f"DDS, read the {len(cmyk) / 1e3:.0f} kB CMYK fixture in "
-        f"{time.perf_counter() - t0:.2f} s")
-    steps = {"sources": time.perf_counter() - t0}
-    t0 = time.perf_counter()
-    # every decode against what it must give
-    for name, data, want in (
-            ("P6", pnms[0], images[0]), ("QOI", qois[1],
-                                         with_alpha(images[1], 1)),
-            ("ICO (PNG entry)", icos[2], icons[2]),
-            ("ICO (BMP entry)", make_ico(None, small, with_big=False), small),
-            ("DXT1", *dxt[0]), ("DXT5", *dxt[1])):
-        got = decode_bytes(data, device="cuda")[0]
-        if got.shape != want.shape or not np.array_equal(got, want):
-            raise RuntimeError(f"the {name} decode is not its source")
-    against_plain = []
-    for name, data in (("CMYK", cmyk), ("YCCK", ycck)):
-        card_rgb = jpeg.decode_rgb(data, device="cuda")
-        diff = np.abs(card_rgb.astype(int)
-                      - jpeg.decode_rgb(data, device="cpu").astype(int))
-        against_plain.append(f"{name} max|d|={diff.max()} on "
-                             f"{(diff > 0).mean():.3e} of values")
-        if card_rgb.shape != (1080, 1920, 3) or diff.max() > 2 or (
-                (diff > 0).mean() > MAX_SHARE):
-            raise RuntimeError(f"the {name} decode on the card is not the "
-                               f"plain one on the host's CPU")
-        if name == "CMYK":
-            err = card_rgb - synth_image(CMYK_SEED, noise=False).astype(float)
-            cmyk_psnr = 10 * np.log10(
-                255.0 ** 2 / max(float((err ** 2).mean()), 1e-12))
-    log(f"    P6, QOI, ICO (PNG, BMP), DXT1, DXT5 decodes equal their pixels;"
-        f" on the card against the host's plain decode: "
-        f"{'; '.join(against_plain)}; CMYK against its source image: PSNR "
-        f"{cmyk_psnr:.2f} dB")
-    if cmyk_psnr < 30.0:
-        raise RuntimeError("the CMYK decode is not its source image")
-    steps["decode checks"] = time.perf_counter() - t0
-
-    full, small_out = (1920, 1080), (400, 225)
-    rgb_head, rgba_head = {"k2": "batch"}, {"k2_rgba": "batch"}
-    cmyk_head = {"k3": 2, "k2": "batch"}
-    # (name, sources, requests, width, format, output size, launches: kernel
-    # -> "batch" (one a batch) or n (n a request))
-    rounds = [
-        ("256x256 ICO -> w=64 WebP", icos, 16, 64, W, (64, 64), rgba_head),
-        ("1080p P6 -> w=400 WebP", pnms, 16, 400, W, small_out, rgb_head),
-        ("1080p P6 -> w=400 JPEG", pnms, 16, 400, J, small_out, rgb_head),
-        ("1080p RGBA QOI -> w=400 WebP", qois, 16, 400, W, small_out,
-         rgba_head),
-        ("2048x2048 DXT1 + DXT5 DDS -> w=400 WebP",
-         [dxt[0][0], dxt[1][0]], 16, 400, W, (400, 400), rgba_head),
-        ("1080p CMYK JPEG -> w=400 WebP", [cmyk], 16, 400, W, small_out,
-         cmyk_head),
-        ("1080p CMYK JPEG -> w=400 JPEG", [cmyk], 16, 400, J, small_out,
-         cmyk_head),
-        ("1080p CMYK JPEG -> JPEG, no resize", [cmyk], 16, None, J, full,
-         {"k3": 2}),
-        ("1080p YCCK JPEG -> w=400 WebP", [ycck], 4, 400, W, small_out,
-         cmyk_head),
-    ]
     metrics = Metrics()
     engine = BatchedEngine(
         ImageKitConfig(secret=SECRET,
@@ -3490,6 +3434,99 @@ def phase_pillow_sources(card: str) -> dict:
     for key in ("k2", "k2_rgba", "k3"):
         summary[f"{key}_launches"] = sum(
             r["launches"][key] for r in summary["rounds"].values())
+    return summary
+
+
+def phase_pillow_sources(card: str) -> dict:
+    """The sources the reference decodes with Pillow, through one engine:
+    ICO, P6, QOI and DDS decode on the codec pool and take the batched RGB
+    head (K2, three or four channels); CMYK and YCCK JPEGs take the
+    four-component pixel decode (two K3 launches a request) and the RGB
+    head. Sources are made here without Pillow, and each decode is checked
+    first: P6, QOI and the ICOs' PNG and BMP entries exactly against their
+    pixels, the DDS against the pixels their block encoder chose, CMYK and
+    YCCK against the plain decode on the host's CPU (and CMYK against the
+    image the fixture was made from). Rounds, the launch counts set to 0
+    before each and read after it, each run once, traced (warmed by 4
+    requests first). Then K3 at the CMYK geometry against its plain
+    version. The seconds of each step are logged."""
+    from imagekit_tpu_torch.codecs import decode_bytes, jpeg
+    from imagekit_tpu_torch.config import ImageFormat
+
+    W, J = ImageFormat.webp, ImageFormat.jpeg
+    t0 = time.perf_counter()
+    images = [synth_image(600 + i, noise=False) for i in range(4)]
+    pnms = [make_pnm(img) for img in images]
+    qois = [make_qoi(with_alpha(img, i)) for i, img in enumerate(images)]
+    icons = [ramp_alpha(synth_image(620 + i, 256, 256)) for i in range(4)]
+    small = ramp_alpha(synth_image(630, 256, 256)[:48, :48])
+    icos = [make_ico(big, small) for big in icons]
+    dxt = [make_dds(with_alpha(synth_image(640 + i, 2048, 2048), i), cc)
+           for i, cc in enumerate((b"DXT1", b"DXT5"))]
+    cmyk = open(CMYK_FIXTURE, "rb").read()
+    ycck = ycck_of(cmyk)
+    log(f"    made 4 1920x1080 P6 and RGBA QOI ({len(qois[0]) / 1e6:.2f} MB), "
+        f"4 ICOs (256x256 PNG + 48x48 BMP), a DXT1 and a DXT5 2048x2048 "
+        f"DDS, read the {len(cmyk) / 1e3:.0f} kB CMYK fixture in "
+        f"{time.perf_counter() - t0:.2f} s")
+    steps = {"sources": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    # every decode against what it must give
+    for name, data, want in (
+            ("P6", pnms[0], images[0]), ("QOI", qois[1],
+                                         with_alpha(images[1], 1)),
+            ("ICO (PNG entry)", icos[2], icons[2]),
+            ("ICO (BMP entry)", make_ico(None, small, with_big=False), small),
+            ("DXT1", *dxt[0]), ("DXT5", *dxt[1])):
+        got = decode_bytes(data, device="cuda")[0]
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise RuntimeError(f"the {name} decode is not its source")
+    against_plain = []
+    for name, data in (("CMYK", cmyk), ("YCCK", ycck)):
+        card_rgb = jpeg.decode_rgb(data, device="cuda")
+        diff = np.abs(card_rgb.astype(int)
+                      - jpeg.decode_rgb(data, device="cpu").astype(int))
+        against_plain.append(f"{name} max|d|={diff.max()} on "
+                             f"{(diff > 0).mean():.3e} of values")
+        if card_rgb.shape != (1080, 1920, 3) or diff.max() > 2 or (
+                (diff > 0).mean() > MAX_SHARE):
+            raise RuntimeError(f"the {name} decode on the card is not the "
+                               f"plain one on the host's CPU")
+        if name == "CMYK":
+            err = card_rgb - synth_image(CMYK_SEED, noise=False).astype(float)
+            cmyk_psnr = 10 * np.log10(
+                255.0 ** 2 / max(float((err ** 2).mean()), 1e-12))
+    log(f"    P6, QOI, ICO (PNG, BMP), DXT1, DXT5 decodes equal their pixels;"
+        f" on the card against the host's plain decode: "
+        f"{'; '.join(against_plain)}; CMYK against its source image: PSNR "
+        f"{cmyk_psnr:.2f} dB")
+    if cmyk_psnr < 30.0:
+        raise RuntimeError("the CMYK decode is not its source image")
+    steps["decode checks"] = time.perf_counter() - t0
+
+    full, small_out = (1920, 1080), (400, 225)
+    rgb_head, rgba_head = {"k2": "batch"}, {"k2_rgba": "batch"}
+    cmyk_head = {"k3": 2, "k2": "batch"}
+    # (name, sources, requests, width, format, output size, launches: kernel
+    # -> "batch" (one a batch) or n (n a request))
+    rounds = [
+        ("256x256 ICO -> w=64 WebP", icos, 16, 64, W, (64, 64), rgba_head),
+        ("1080p P6 -> w=400 WebP", pnms, 16, 400, W, small_out, rgb_head),
+        ("1080p P6 -> w=400 JPEG", pnms, 16, 400, J, small_out, rgb_head),
+        ("1080p RGBA QOI -> w=400 WebP", qois, 16, 400, W, small_out,
+         rgba_head),
+        ("2048x2048 DXT1 + DXT5 DDS -> w=400 WebP",
+         [dxt[0][0], dxt[1][0]], 16, 400, W, (400, 400), rgba_head),
+        ("1080p CMYK JPEG -> w=400 WebP", [cmyk], 16, 400, W, small_out,
+         cmyk_head),
+        ("1080p CMYK JPEG -> w=400 JPEG", [cmyk], 16, 400, J, small_out,
+         cmyk_head),
+        ("1080p CMYK JPEG -> JPEG, no resize", [cmyk], 16, None, J, full,
+         {"k3": 2}),
+        ("1080p YCCK JPEG -> w=400 WebP", [ycck], 4, 400, W, small_out,
+         cmyk_head),
+    ]
+    summary = drive_rounds(rounds, card, steps)
     case, steps["K3 at the CMYK planes"] = timed(k3_cmyk_case, cmyk)
     log(f"  K3 at the CMYK pixel decode ({case['planes']} -> 1088x1920, B=1, "
         f"two launches) vs plain: max|d|={case['max_abs_err']} "
@@ -3499,6 +3536,259 @@ def phase_pillow_sources(card: str) -> dict:
         f"bound {case['bound_ms']:.4f} ms ({case['bound_by']}), K3 at "
         f"{case['bound_ms'] / case['ms']:.1%} of it [{card}]")
     summary["k3_cmyk"] = case
+    log("    seconds a step (a round's include its warm-up and trace): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in steps.items()))
+    summary["step_s"] = steps
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the BMP, TIFF and progressive CMYK sources Pillow still decoded
+# ---------------------------------------------------------------------------
+
+G4_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "g4_a4_300dpi.tif")
+G4_SEED = 700  # the fixture is text_page(700), Group 4, written by Pillow
+PROGRESSIVE_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                                   "cmyk_1080p_q80_progressive.jpg")
+A4 = (2480, 3508)  # 300 dpi
+
+
+def text_page(seed: int, w: int = A4[0], h: int = A4[1]) -> np.ndarray:
+    """A seeded bilevel page of text-like strokes, True for white (Pillow's
+    mode "1"): lines of words of 20x28 glyphs of 2-4 bars 3 px thick, 50 px
+    apart, inside 236 px margins, some lines short or blank."""
+    rng = np.random.default_rng(seed)
+    bars = []
+    for x0, x1, y0, y1 in ((0, 3, 0, 28), (8, 11, 0, 28), (17, 20, 0, 28),
+                           (0, 20, 0, 3), (0, 20, 12, 15), (0, 20, 25, 28),
+                           (0, 3, 0, 14), (17, 20, 14, 28)):
+        bar = np.zeros((28, 20), bool)
+        bar[y0:y1, x0:x1] = True
+        bars.append(bar)
+    glyphs = [np.any([bars[i] for i in rng.choice(
+        len(bars), int(rng.integers(2, 5)), replace=False)], axis=0)
+        for _ in range(48)]
+    ink = np.zeros((h, w), bool)
+    margin = 236
+    for y in range(margin, h - margin - 28, 50):
+        if rng.random() < 0.08:
+            continue  # a blank line between paragraphs
+        end = w - margin - (int(rng.integers(0, 600))
+                            if rng.random() < 0.15 else 0)
+        x = margin
+        while x + 24 < end:
+            for g in rng.integers(0, len(glyphs), int(rng.integers(2, 11))):
+                if x + 24 >= end:
+                    break
+                ink[y:y + 28, x:x + 20] |= glyphs[g]
+                x += 24
+            x += 24  # a space
+    return ~ink
+
+
+def tiff_ifd(w: int, h: int, entries, body: bytes, tail: bytes = b"") -> bytes:
+    """A little-endian TIFF of one strip, ``body``, with the IFD entries
+    (tag, type, count, value) besides the size and strip tags, and ``tail``
+    after the IFD: a value of None is the offset of the tail."""
+    entries = sorted(entries + [
+        (256, 4, 1, w), (257, 4, 1, h), (273, 4, 1, 8), (278, 4, 1, h),
+        (279, 4, 1, len(body))])
+    ifd_off = 8 + len(body)
+    tail_off = ifd_off + 2 + 12 * len(entries) + 4
+    ifd = struct.pack("<H", len(entries)) + b"".join(
+        struct.pack("<HHII", t, k, n, tail_off if v is None else v)
+        for t, k, n, v in entries) + struct.pack("<I", 0)
+    return b"II*\x00" + struct.pack("<I", ifd_off) + body + ifd + tail
+
+
+def make_bilevel_tiff(page: np.ndarray) -> bytes:
+    """Uncompressed 1-bit TIFF (BlackIsZero, BitsPerSample 1), by numpy."""
+    h, w = page.shape
+    return tiff_ifd(w, h, [(258, 3, 1, 1), (259, 3, 1, 1), (262, 3, 1, 1),
+                           (277, 3, 1, 1)], np.packbits(page, axis=1).tobytes())
+
+
+def packbits(rows: np.ndarray) -> bytes:
+    """PackBits of each row of (h, n) u8, as literal packets of at most 128
+    bytes: a valid stream that decodes through the literal arm."""
+    h, n = rows.shape
+    out = []
+    for at in range(0, n, 128):
+        chunk = rows[:, at:at + 128]
+        head = np.full((h, 1), chunk.shape[1] - 1, np.uint8)
+        out.append(np.concatenate([head, chunk], axis=1))
+    return np.concatenate(out, axis=1).tobytes()
+
+
+def make_cmyk_tiff(img: np.ndarray) -> bytes:
+    """8-bit CMYK TIFF (photometric 5, chunky, PackBits) of an RGB image, as
+    Pillow converts RGB to CMYK (C, M, Y = 255 - R, G, B; K = 0), so that
+    the decode gives the image back exactly."""
+    h, w = img.shape[:2]
+    cmyk = np.concatenate([255 - img, np.zeros((h, w, 1), np.uint8)], 2)
+    return tiff_ifd(w, h, [(258, 3, 4, None), (259, 3, 1, 32773),
+                           (262, 3, 1, 5), (277, 3, 1, 4)],
+                    packbits(cmyk.reshape(h, 4 * w)),
+                    struct.pack("<HHHH", 8, 8, 8, 8))
+
+
+def make_bmp_fields(img: np.ndarray, kind: str) -> bytes:
+    """A BMP of an RGB or RGBA image, by ``struct`` and numpy: "v5_bgra" (32
+    bpp BI_BITFIELDS, BGRA masks in a 124-byte header), "565" (16 bpp
+    BI_BITFIELDS 5-6-5 after a 40-byte header) or "core24" (a 12-byte
+    BITMAPCOREHEADER, 24 bpp)."""
+    h, w = img.shape[:2]
+    if kind == "v5_bgra":
+        px = img[..., [2, 1, 0, 3]].reshape(h, 4 * w)
+        header = struct.pack("<IiiHHIIiiII", 124, w, h, 1, 32, 3, px.size,
+                             2835, 2835, 0, 0) + struct.pack(
+            "<IIII", 0xFF0000, 0xFF00, 0xFF, 0xFF000000) + bytes(68)
+    elif kind == "565":
+        v = ((img[..., 0].astype(np.uint16) >> 3) << 11
+             | (img[..., 1].astype(np.uint16) >> 2) << 5
+             | img[..., 2].astype(np.uint16) >> 3)
+        px = v.astype("<u2").view(np.uint8).reshape(h, 2 * w)
+        header = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 16, 3, 0, 2835,
+                             2835, 0, 0) + struct.pack(
+            "<III", 0xF800, 0x7E0, 0x1F)
+    else:
+        px = img[..., ::-1].reshape(h, 3 * w)
+        header = struct.pack("<IHHHH", 12, w, h, 1, 24)
+    pad = (-px.shape[1]) % 4
+    body = np.pad(px[::-1], ((0, 0), (0, pad))).tobytes()
+    off = 14 + len(header)
+    return b"BM" + struct.pack("<IHHI", off + len(body), 0, 0, off) + \
+        header + body
+
+
+def widened_565(img: np.ndarray) -> np.ndarray:
+    """What a 5-6-5 BMP of ``img`` decodes to: Pillow's v * 255 / 31 and
+    v * 255 / 63."""
+    r, g, b = (img[..., i].astype(np.int32) for i in range(3))
+    return np.stack([(r >> 3) * 255 // 31, (g >> 2) * 255 // 63,
+                     (b >> 3) * 255 // 31], -1).astype(np.uint8)
+
+
+def phase_pillow_fallbacks(card: str) -> dict:
+    """The BMP, TIFF and progressive CMYK sources the reference still hands
+    to Pillow, through one engine: BMP and TIFF decode on the codec pool
+    (the port's own decoders of what the pinned ones refuse) and take the
+    RGB head (K2, three or four channels); progressive CMYK and YCCK take
+    the four-component pixel decode (two K3 launches a request) and the RGB
+    head. The G4 page and the progressive CMYK JPEG are committed fixtures
+    (the card's machine has no Pillow); the rest is written here. Each
+    decode is checked first: the G4 and 1-bit pages against the page they
+    were made from, the BMPs and the CMYK TIFF against their pixels, the
+    progressive CMYK's coefficients against its baseline twin's and its
+    pixels on the card against the plain decode on the host's CPU. Then
+    the rounds (``drive_rounds``), and K3 at the progressive planes against
+    its plain version. The seconds of each step are logged."""
+    from imagekit_tpu_torch.codecs import decode_bytes, jpeg
+    from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
+    from imagekit_tpu_torch.config import ImageFormat
+    from imagekit_tpu_torch.utils.bucketing import bucket_for
+
+    W, J = ImageFormat.webp, ImageFormat.jpeg
+    t0 = time.perf_counter()
+    g4 = open(G4_FIXTURE, "rb").read()
+    page = text_page(G4_SEED)
+    pages = [make_bilevel_tiff(page)]
+    images = [synth_image(710 + i, noise=False) for i in range(4)]
+    cmyk_tiffs = [make_cmyk_tiff(img) for img in images]
+    bgra = [make_bmp_fields(with_alpha(img, i), "v5_bgra")
+            for i, img in enumerate(images)]
+    bmp565 = [make_bmp_fields(img, "565") for img in images]
+    core = [make_bmp_fields(img, "core24") for img in images]
+    prog = open(PROGRESSIVE_FIXTURE, "rb").read()
+    yprog = ycck_of(prog)
+    log(f"    read the {len(g4) / 1e3:.1f} kB G4 A4 page and the "
+        f"{len(prog) / 1e3:.0f} kB progressive CMYK fixture; made the page "
+        f"as an uncompressed 1-bit TIFF ({len(pages[0]) / 1e6:.2f} MB), 4 "
+        f"1080p CMYK PackBits TIFFs, 4 each of 32 bpp BGRA v5, 16 bpp 5-6-5 "
+        f"and BITMAPCOREHEADER 24 bpp BMPs in "
+        f"{time.perf_counter() - t0:.2f} s")
+    steps = {"sources": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    white = np.repeat(np.where(page, 255, 0).astype(np.uint8)[..., None], 3, 2)
+    for name, data, want in (
+            ("G4 page", g4, white), ("1-bit page", pages[0], white),
+            ("CMYK TIFF", cmyk_tiffs[0], images[0]),
+            ("BGRA v5 BMP", bgra[1], with_alpha(images[1], 1)),
+            ("5-6-5 BMP", bmp565[2], widened_565(images[2])),
+            ("core 24 bpp BMP", core[3], images[3])):
+        decode_bytes(data, device="cuda")  # a first call loads its modules
+        t1 = time.perf_counter()
+        got = decode_bytes(data, device="cuda")[0]
+        steps[f"decode {name}"] = time.perf_counter() - t1
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise RuntimeError(f"the {name} decode is not its source")
+    lib = loader.load()
+    base = open(CMYK_FIXTURE, "rb").read()
+    hb, cb, qb = jpeg_abi.decode_any(lib, base)
+    hp, cp, qp = jpeg_abi.decode_any(lib, prog)
+    if not (hp.progressive and not hb.progressive and np.array_equal(qb, qp)
+            and all(np.array_equal(a, b) for a, b in zip(cb, cp))):
+        raise RuntimeError("the progressive CMYK's coefficients are not its "
+                           "baseline twin's")
+    against_plain = []
+    for name, data in (("progressive CMYK", prog), ("progressive YCCK", yprog)):
+        card_rgb = jpeg.decode_rgb(data, device="cuda")
+        diff = np.abs(card_rgb.astype(int)
+                      - jpeg.decode_rgb(data, device="cpu").astype(int))
+        against_plain.append(f"{name} max|d|={diff.max()} on "
+                             f"{(diff > 0).mean():.3e} of values")
+        if card_rgb.shape != (1080, 1920, 3) or diff.max() > 2 or (
+                (diff > 0).mean() > MAX_SHARE):
+            raise RuntimeError(f"the {name} decode on the card is not the "
+                               f"plain one on the host's CPU")
+    log(f"    the G4 and 1-bit pages, the CMYK TIFF and the three BMP "
+        f"layouts decode to their pixels (host ms: " + ", ".join(
+            f"{k[7:]} {v * 1e3:.1f}" for k, v in steps.items()
+            if k.startswith("decode ")) + "); the progressive CMYK's "
+        f"coefficients equal its baseline twin's; on the card against the "
+        f"host's plain decode: {'; '.join(against_plain)}")
+    log(f"    a {A4[0]}x{A4[1]} page takes the ladder bucket "
+        f"{bucket_for(A4[1])}x{bucket_for(A4[0])} (not the exact-shape path:"
+        f" both sides are within the ladder's 8192)")
+    steps["decode checks"] = time.perf_counter() - t0
+
+    small_out, a4_out = (400, 225), (400, 566)
+    rgb_head, rgba_head = {"k2": "batch"}, {"k2_rgba": "batch"}
+    cmyk_head = {"k3": 2, "k2": "batch"}
+    rounds = [
+        ("A4 300 dpi G4 TIFF -> w=400 WebP", [g4], 16, 400, W, a4_out,
+         rgb_head),
+        ("A4 300 dpi 1-bit TIFF -> w=400 WebP", pages, 16, 400, W, a4_out,
+         rgb_head),
+        ("1080p CMYK PackBits TIFF -> w=400 JPEG", cmyk_tiffs, 16, 400, J,
+         small_out, rgb_head),
+        ("1080p 32 bpp BGRA v5 BMP -> w=400 WebP", bgra, 16, 400, W,
+         small_out, rgba_head),
+        ("1080p 16 bpp 5-6-5 BMP -> w=400 WebP", bmp565, 16, 400, W,
+         small_out, rgb_head),
+        ("1080p BITMAPCOREHEADER 24 bpp BMP -> w=400 WebP", core, 16, 400, W,
+         small_out, rgb_head),
+        ("1080p progressive CMYK JPEG -> w=400 WebP", [prog], 16, 400, W,
+         small_out, cmyk_head),
+        ("1080p progressive CMYK JPEG -> JPEG, no resize", [prog], 16, None,
+         J, (1920, 1080), {"k3": 2}),
+        ("1080p progressive YCCK JPEG -> w=400 WebP", [yprog], 4, 400, W,
+         small_out, cmyk_head),
+    ]
+    summary = drive_rounds(rounds, card, steps)
+    case, steps["K3 at the progressive CMYK planes"] = timed(k3_cmyk_case,
+                                                             prog)
+    log(f"  K3 at the progressive CMYK pixel decode ({case['planes']} -> "
+        f"1088x1920, B=1, two launches) vs plain: max|d|="
+        f"{case['max_abs_err']} share(differ)={case['share_differ']:.3e}; "
+        f"device time per call K3 {case['ms']:.4f} ms vs plain "
+        f"{case['plain_ms']:.4f} ms vs einsum {case['library_ms']:.4f} ms, "
+        f"bound {case['bound_ms']:.4f} ms ({case['bound_by']}), K3 at "
+        f"{case['bound_ms'] / case['ms']:.1%} of it [{card}]")
+    if case["max_abs_err"] != 0:
+        raise RuntimeError("K3 at the progressive CMYK planes is not its "
+                           "plain version exactly")
+    summary["k3_progressive"] = case
     log("    seconds a step (a round's include its warm-up and trace): "
         + ", ".join(f"{k} {v:.2f}" for k, v in steps.items()))
     summary["step_s"] = steps
@@ -3642,6 +3932,12 @@ def main() -> int:
     begin("[19] the sources the reference decodes with Pillow: ICO, P6, QOI, "
           "DDS, CMYK and YCCK JPEGs, BatchedEngine(device='cuda').transform")
     pillow = phase_pillow_sources(card)
+
+    begin("[20] the BMP, TIFF and progressive CMYK sources the reference "
+          "still hands to Pillow: G4 and 1-bit A4 pages, CMYK TIFFs, bit-field"
+          " and core-header BMPs, progressive CMYK and YCCK JPEGs, "
+          "BatchedEngine(device='cuda').transform")
+    fallbacks = phase_pillow_fallbacks(card)
     end_phase()
     log("    seconds a phase (heading to heading): " + ", ".join(
         f"[{k}] {v:.2f}" for k, v in PHASE_S.items()))
@@ -3669,6 +3965,7 @@ def main() -> int:
         "launches": png_eng["launches"],
         "avif_launches": avif_n["resample_rgb_yuv_batch"],
         "pillow_source_launches": pillow["k2_launches"],
+        "pillow_fallback_launches": fallbacks["k2_launches"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
@@ -3701,6 +3998,13 @@ def main() -> int:
         "pixel_decode_cmyk": {key: pillow["k3_cmyk"][key] for key in (
             "max_abs_err", "share_differ", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")},
+        # the progressive four-component decode (phase 20): two launches a
+        # progressive CMYK or YCCK request, and K3 at its planes
+        "progressive_cmyk_launches": fallbacks["k3_launches"],
+        "pixel_decode_progressive_cmyk": {
+            key: fallbacks["k3_progressive"][key] for key in (
+                "max_abs_err", "share_differ", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")},
     }, {
         "name": "resize_planes3_f32 (K4, Y + Cb + Cr in one launch; u8 planes "
                 "in, f32 out on the k=8 JPEG -> WebP heads)",
@@ -3750,6 +4054,7 @@ def main() -> int:
         "launches": alpha["rgba_launches"],
         "avif_launches": avif_n["resample_bucketed_flat"],
         "pillow_source_launches": pillow["k2_rgba_launches"],
+        "pillow_fallback_launches": fallbacks["k2_rgba_launches"],
         **{key: k2_rgba[key] for key in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by", "library_ms")},
     }, {
@@ -3785,6 +4090,9 @@ def main() -> int:
         raise RuntimeError("no JPEG layout round launched K3")
     if min(pillow[f"{k}_launches"] for k in ("k2", "k2_rgba", "k3")) <= 0:
         raise RuntimeError("a Pillow-source round launched no K2 or K3")
+    if min(fallbacks[f"{k}_launches"] for k in ("k2", "k2_rgba", "k3")) <= 0:
+        raise RuntimeError("a BMP, TIFF or progressive CMYK round launched "
+                           "no K2 or K3")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

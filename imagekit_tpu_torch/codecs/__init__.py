@@ -115,7 +115,8 @@ def decode_bytes(data: bytes, device=None) -> Tuple[np.ndarray, SourceFormat]:
     """Decode to an HWC uint8 array (RGB, or RGBA when the source carries
     alpha). Raises TransformError on malformed input and NotPortedError for
     a source the port has no decoder for. ``device`` (the card unless the
-    caller names another) runs the DCT and colour stages of a JPEG."""
+    caller names another) runs the DCT and colour stages of a JPEG and the
+    colour step of a CMYK TIFF."""
     fmt = guess_format(data)
     if fmt == SourceFormat.png:
         from imagekit_tpu_torch.codecs import png
@@ -141,7 +142,7 @@ def decode_bytes(data: bytes, device=None) -> Tuple[np.ndarray, SourceFormat]:
     if fmt == SourceFormat.tiff:
         from imagekit_tpu_torch.codecs import tiff
 
-        return tiff.decode(data), fmt
+        return tiff.decode(data, device=device), fmt
     if fmt in (SourceFormat.hdr, SourceFormat.farbfeld):
         from imagekit_tpu_torch.codecs import longtail
 

@@ -11,12 +11,12 @@ on CUDA, and :func:`~imagekit_tpu_torch.ops.dct.encode_rgb_to_coefficients`).
 The reference's serving path decodes JPEG pixels with Pillow; the port has
 none, so :func:`decode_rgb` is its JPEG pixel decode, baseline or
 progressive: 4:2:0, 4:2:2, 4:4:0 and 4:4:4 JPEGs, their Cb and Cr with
-shared or distinct tables, and grayscale JPEGs; and baseline CMYK and
-YCCK JPEGs (four components, which the native decoder refuses with -3:
-the port's own entropy decode, ``jpeg_abi.decode4``, then the
-four-component branch of the device decode). Progressive CMYK, 12-bit and
-arithmetic coding, Cb and Cr sampled differently and sampling ratios other
-than 1 or 2 raise :class:`~imagekit_tpu_torch.errors.NotPortedError`.
+shared or distinct tables, and grayscale JPEGs; and CMYK and YCCK JPEGs,
+baseline or progressive (four components, which the native decoder
+refuses with -3: the port's own entropy decode, ``jpeg_abi.decode4``, then
+the four-component branch of the device decode). 12-bit and arithmetic
+coding, Cb and Cr sampled differently and sampling ratios other than 1 or
+2 raise :class:`~imagekit_tpu_torch.errors.NotPortedError`.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ JPEG_MAX_SIDE = 65535
 
 def decode_error(e) -> Exception:
     """Native decoder failure -> the port's error: an unsupported coding
-    (arithmetic, 12-bit, progressive CMYK) is a path not ported yet; a
+    (arithmetic, 12-bit) is a path not ported yet; a
     CMYK or YCCK JPEG that fails is a
     :class:`~imagekit_tpu_torch.errors.SourceDecodeError`, because the
     reference decodes such a JPEG in full at its fetch stage; anything else

@@ -3,20 +3,25 @@
 Counterpart of ``imagekit_tpu/codecs/misc.py``: ``native/misc_decode.cpp``
 (a copy of the reference's) decodes a GIF's first frame (LZW, interlace,
 GCE transparency -> RGBA) and uncompressed 24/32 bpp or 8 bpp palette
-BMPs. What differs from the reference, as in :mod:`.png`: the
-decompression-bomb ceiling is the constant :data:`png.MAX_PIXELS`, so
-Pillow is never imported, and a variant the native decoder does not take
-(the reference hands it to Pillow) raises
+BMPs. A BMP it refuses as unsupported (-3), which the reference hands to
+Pillow, goes to the port's own ``native/bmp_ext_decode.cpp``
+(BITMAPCOREHEADER, 16 bpp, the bit-field layouts Pillow reads), as a TIFF
+goes from ``tiff_decode.cpp`` to ``tiff_ext_decode.cpp``
+(:mod:`.tiff`): :func:`parse` and :func:`decode` try a decoder's
+``ext`` stem only where its pinned one says -3. What differs from the
+reference, as in :mod:`.png`: the decompression-bomb ceiling is the
+constant :data:`png.MAX_PIXELS`, so Pillow is never imported, and a
+variant neither decoder takes raises
 :class:`~imagekit_tpu_torch.errors.NotPortedError`. Corrupt data raises
 :class:`~imagekit_tpu_torch.errors.TransformError` with the reference's
-message. :mod:`.tiff` binds its decoder through the same helpers: the three
-decoders share one info structure and one pair of signatures.
+message where the pinned decoder finds it. The decoders share one info
+structure and one pair of signatures.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -65,29 +70,42 @@ def _check(rc: int, what: str, corrupt: str) -> None:
         raise TransformError(f"corrupt {corrupt} ({rc})")
 
 
-def parse(data: bytes, stem: str, what: str,
-          corrupt: str = "image") -> Tuple[int, int, int]:
-    """Header only: (width, height, channels) of the decoded image, after
-    the pixel ceiling. ``stem`` names the decoder (``ik_<stem>_parse``)."""
+def header(data: bytes, stem: str, what: str, corrupt: str,
+           ext: Optional[str]) -> Tuple[int, int, int, str]:
+    """(width, height, channels, the stem that took the data)."""
     info = _IkInfo()
-    _check(_fn(f"ik_{stem}_parse", _IkInfo)(data, len(data),
-                                           ctypes.byref(info)), what, corrupt)
+    rc = _fn(f"ik_{stem}_parse", _IkInfo)(data, len(data), ctypes.byref(info))
+    if rc == _UNSUPPORTED and ext is not None:
+        stem = ext
+        rc = _fn(f"ik_{ext}_parse", _IkInfo)(data, len(data),
+                                             ctypes.byref(info))
+    _check(rc, what, corrupt)
     if info.width * info.height > MAX_PIXELS:
         raise TransformError(
             f"image is too large ({info.width}x{info.height} pixels)")
-    return info.width, info.height, info.channels
+    return info.width, info.height, info.channels, stem
 
 
-def decode(data: bytes, stem: str, what: str,
-           corrupt: str = "image") -> np.ndarray:
-    """``data`` -> (H, W, C) u8, C = 3 or 4 (alpha), through
-    ``ik_<stem>_parse`` and ``ik_<stem>_decode``."""
-    w, h, ch = parse(data, stem, what, corrupt)
+def parse(data: bytes, stem: str, what: str, corrupt: str = "image",
+          ext: Optional[str] = None) -> Tuple[int, int, int]:
+    """Header only: (width, height, channels) of what the decoder writes,
+    after the pixel ceiling. ``stem`` names the decoder
+    (``ik_<stem>_parse``), ``ext`` the port's own decoder tried where it
+    says -3."""
+    return header(data, stem, what, corrupt, ext)[:3]
+
+
+def decode(data: bytes, stem: str, what: str, corrupt: str = "image",
+           ext: Optional[str] = None) -> Tuple[np.ndarray, str]:
+    """``data`` -> ((H, W, C) u8, the stem that decoded it), through
+    ``ik_<stem>_parse`` and ``ik_<stem>_decode`` (or ``ext``'s); C = 3, or
+    4 for alpha (or for what the ``ext`` decoder says it writes)."""
+    w, h, ch, stem = header(data, stem, what, corrupt, ext)
     out = np.empty((h, w, ch), np.uint8)
     _check(_fn(f"ik_{stem}_decode", None)(
         data, len(data), out.ctypes.data_as(ctypes.c_void_p), out.nbytes),
         what, corrupt)
-    return out
+    return out, stem
 
 
 def parse_gif(data: bytes) -> Tuple[int, int, int]:
@@ -95,13 +113,15 @@ def parse_gif(data: bytes) -> Tuple[int, int, int]:
 
 
 def parse_bmp(data: bytes) -> Tuple[int, int, int]:
-    return parse(data, "bmp", "BMP")
+    return parse(data, "bmp", "BMP", ext="bmpx")
 
 
 def decode_gif(data: bytes) -> np.ndarray:
     """First frame of a GIF -> RGB, or RGBA with a transparent index."""
-    return decode(data, "gif", "GIF")
+    return decode(data, "gif", "GIF")[0]
 
 
 def decode_bmp(data: bytes) -> np.ndarray:
-    return decode(data, "bmp", "BMP")
+    """BMP -> RGB, or RGBA for the 32 bpp bit-field layouts Pillow reads
+    with alpha."""
+    return decode(data, "bmp", "BMP", ext="bmpx")[0]

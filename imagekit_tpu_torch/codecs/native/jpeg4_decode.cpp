@@ -1,12 +1,20 @@
-// Four-component (CMYK and YCCK) baseline JPEG entropy decode of the port.
+// Four-component (CMYK and YCCK) JPEG entropy decode of the port.
 //
 // The port's copy of the reference's decoder (jpeg_entropy.cpp, pinned
 // byte-equal to it) refuses a frame of four components with -3; the
 // reference then decodes such a JPEG with Pillow. This decoder is the
-// port's own, for that case only: a baseline or extended-Huffman frame
-// (SOF0/SOF1) of 8-bit precision and exactly four components in one
-// interleaved scan. Progressive, arithmetic-coded, 12-bit and lossless
-// frames, other component counts and non-interleaved scans return -3.
+// port's own, for that case only: a frame of 8-bit precision and exactly
+// four components, baseline or extended Huffman (SOF0/SOF1) in one
+// interleaved scan, or progressive Huffman (SOF2) in any sequence of scans:
+// DC first and refinement scans, interleaved or not, and AC first and
+// refinement scans of one component each, with EOB runs and restart
+// intervals (an EOB run past the scan's last block or across a restart
+// marker, which no encoder writes, is refused). The progressive scans
+// follow jpeg_entropy.cpp's (DecodeProgressiveScan, DecodeBlockProgressive,
+// FinalizeProgressive; T.81 G.1.2 and G.2), copied rather than linked:
+// blocks accumulate in zigzag order and are put in natural order once, at
+// the EOI. Arithmetic-coded, 12-bit and lossless frames, other component
+// counts and a baseline frame in non-interleaved scans return -3.
 // Its output matches jpeg_entropy.cpp's ik_jpeg_decode_coeffs: quantised
 // coefficient planes [by][bx][64] in natural order, MCU-padded, and the
 // four 64-entry quant tables; its header is the same IkJpegInfo, plus the
@@ -30,6 +38,7 @@ enum {
   kUnsupported = -3,
   kBadHuffman = -4,
   kBadDimensions = -5,
+  kEoi = 1,  // Next(): the EOI marker, after a progressive frame's scans
 };
 
 const uint8_t kZigzag[64] = {
@@ -147,6 +156,14 @@ struct Component {
   int width = 0, height = 0, blocks_w = 0, blocks_h = 0, pred = 0;
 };
 
+// One SOS: its components (frame indices) and spectral selection and
+// successive approximation.
+struct Scan {
+  int ns = 0;
+  int ci[4] = {0, 0, 0, 0};
+  int Ss = 0, Se = 63, Ah = 0, Al = 0;
+};
+
 struct Frame {
   const uint8_t* data;
   size_t len;
@@ -154,17 +171,28 @@ struct Frame {
   int restart_interval = 0;
   int adobe_transform = -1;
   bool have_frame = false;
+  bool progressive = false;
   uint16_t qtab[4][64] = {};
   Huffman dc[4], ac[4];
   Component comp[4];
+  Scan sos;
   const uint8_t* scan = nullptr;
+  const uint8_t* at = nullptr;  // where the marker walk stands
+  int scans = 0;                // scans decoded (progressive)
 
-  // Markers up to the first SOS; scan points at its entropy-coded data.
+  // SOI, then the markers up to the first SOS; scan points at its
+  // entropy-coded data.
   int Parse() {
-    const uint8_t* p = data;
+    if (len < 4 || data[0] != 0xFF || data[1] != 0xD8) return kBadMarker;
+    at = data + 2;
+    return Next();
+  }
+
+  // The markers from `at` up to the next SOS, or kEoi at the EOI of a
+  // progressive frame that has had a scan.
+  int Next() {
+    const uint8_t* p = at;
     const uint8_t* end = data + len;
-    if (len < 4 || p[0] != 0xFF || p[1] != 0xD8) return kBadMarker;
-    p += 2;
     while (true) {
       if (p + 2 > end) return kTruncated;
       if (p[0] != 0xFF) return kBadMarker;
@@ -175,7 +203,7 @@ struct Frame {
         continue;
       }
       if (m == 0xD8 || (m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
-      if (m == 0xD9) return kTruncated;  // EOI before a scan
+      if (m == 0xD9) return scans > 0 ? kEoi : kTruncated;
       if (p + 2 > end) return kTruncated;
       const int seglen = (p[0] << 8) | p[1];
       if (seglen < 2 || p + seglen > end) return kTruncated;
@@ -191,11 +219,14 @@ struct Frame {
           break;
         case 0xC0:
         case 0xC1:
+        case 0xC2:
+          if (have_frame) return kBadMarker;
+          progressive = m == 0xC2;
           rc = Sof(s, n);
           break;
-        case 0xC2: case 0xC3: case 0xC5: case 0xC6: case 0xC7: case 0xC9:
+        case 0xC3: case 0xC5: case 0xC6: case 0xC7: case 0xC9:
         case 0xCA: case 0xCB: case 0xCD: case 0xCE: case 0xCF:
-          return kUnsupported;  // progressive, lossless, arithmetic
+          return kUnsupported;  // lossless, hierarchical, arithmetic
         case 0xDD:
           if (n < 2) return kTruncated;
           restart_interval = (s[0] << 8) | s[1];
@@ -206,7 +237,7 @@ struct Frame {
           break;
         case 0xDA:
           rc = Sos(s, n);
-          if (rc == kOk) scan = p + seglen;
+          if (rc == kOk) at = scan = p + seglen;
           return rc;
         default:
           break;  // APPn, COM
@@ -285,8 +316,11 @@ struct Frame {
     if (!have_frame) return kBadMarker;
     if (n < 1) return kTruncated;
     const int ns = s[0];
+    if (ns < 1 || ns > 4) return kBadMarker;
     if (n < 1 + 2 * ns + 3) return kTruncated;
-    if (ns != ncomp) return kUnsupported;  // one interleaved scan only
+    // baseline: one interleaved scan only
+    if (!progressive && ns != ncomp) return kUnsupported;
+    sos.ns = ns;
     for (int i = 0; i < ns; ++i) {
       const int cid = s[1 + 2 * i], tabs = s[2 + 2 * i];
       if ((tabs >> 4) > 3 || (tabs & 15) > 3) return kBadMarker;
@@ -296,9 +330,21 @@ struct Frame {
       if (found < 0) return kBadMarker;
       comp[found].td = tabs >> 4;
       comp[found].ta = tabs & 15;
+      sos.ci[i] = found;
     }
     const uint8_t* sp = s + 1 + 2 * ns;
-    if (sp[0] != 0 || sp[1] != 63 || sp[2] != 0) return kUnsupported;
+    sos.Ss = sp[0];
+    sos.Se = sp[1];
+    sos.Ah = sp[2] >> 4;
+    sos.Al = sp[2] & 15;
+    if (!progressive)
+      return sos.Ss != 0 || sos.Se != 63 || sp[2] != 0 ? kUnsupported : kOk;
+    // T.81 G.1.1.1.1: a DC scan is 0..0, an AC scan one component's
+    // 1 <= Ss <= Se <= 63; refinement one bit at a time
+    if (sos.Se > 63 || sos.Ss > sos.Se || (sos.Ss == 0) != (sos.Se == 0) ||
+        (sos.Ss > 0 && ns != 1) || sos.Al > 13 ||
+        (sos.Ah != 0 && sos.Ah != sos.Al + 1))
+      return kBadMarker;
     return kOk;
   }
 
@@ -318,16 +364,8 @@ struct Frame {
     for (int my = 0; my < mcuy; ++my) {
       for (int mx = 0; mx < mcux; ++mx) {
         if (restart_interval && count == restart_interval) {
-          if (br.Overrun()) return kTruncated;
-          // the rest of the buffer is padding: the interval's bytes are
-          // all read, and the RSTn marker comes next
-          const uint8_t* q = br.p;
-          if (!(q + 1 < br.end && q[0] == 0xFF && q[1] >= 0xD0 && q[1] <= 0xD7))
-            return br.p >= br.end ? kTruncated : kBadHuffman;
-          br.p = q + 2;
-          br.buf = 0;
-          br.cnt = 0;
-          br.marker = false;
+          const int rc = Restart(br);
+          if (rc != kOk) return rc;
           for (int c = 0; c < ncomp; ++c) comp[c].pred = 0;
           count = 0;
         }
@@ -371,6 +409,222 @@ struct Frame {
     }
     return kOk;
   }
+
+  // At the end of a restart interval: its bytes are all read (the rest of
+  // the buffer is padding), and its RSTn marker comes next.
+  static int Restart(Bits& br) {
+    if (br.Overrun()) return kTruncated;
+    const uint8_t* q = br.p;
+    if (!(q + 1 < br.end && q[0] == 0xFF && q[1] >= 0xD0 && q[1] <= 0xD7))
+      return br.p >= br.end ? kTruncated : kBadHuffman;
+    br.p = q + 2;
+    br.buf = 0;
+    br.cnt = 0;
+    br.marker = false;
+    return kOk;
+  }
+
+  // -- progressive (SOF2) -------------------------------------------------
+
+  // Every scan from the first SOS to the EOI into coeffs[c] (zigzag order
+  // while the scans accumulate, natural order at the end).
+  int DecodeProgressive(int16_t** coeffs) {
+    const uint8_t* end = data + len;
+    while (true) {
+      Bits br;
+      br.p = scan;
+      br.end = end;
+      const int rc = DecodeScan(br, coeffs);
+      if (rc != kOk || br.Overrun()) return br.Overrun() ? kTruncated : rc;
+      ++scans;
+      // the next marker after the entropy-coded data (RSTn lie inside it)
+      const uint8_t* p = br.p;
+      while (p + 1 < end && !(p[0] == 0xFF && p[1] != 0x00 &&
+                              !(p[1] >= 0xD0 && p[1] <= 0xD7)))
+        ++p;
+      at = p;
+      const int next = Next();
+      if (next == kEoi) break;
+      if (next != kOk) return next;
+    }
+    int16_t tmp[64];
+    for (int c = 0; c < ncomp; ++c) {
+      const size_t nblk =
+          static_cast<size_t>(comp[c].blocks_w) * comp[c].blocks_h;
+      for (size_t b = 0; b < nblk; ++b) {
+        int16_t* blk = coeffs[c] + b * 64;
+        for (int k = 0; k < 64; ++k) tmp[kZigzag[k]] = blk[k];
+        std::memcpy(blk, tmp, sizeof(tmp));
+      }
+    }
+    return kOk;
+  }
+
+  // One scan (T.81 G.2): a DC scan interleaved over MCUs, or one
+  // component's blocks in its own geometry (every AC scan).
+  int DecodeScan(Bits& br, int16_t** coeffs) {
+    const Scan& si = sos;
+    for (int i = 0; i < si.ns; ++i) {
+      const Component& C = comp[si.ci[i]];
+      if (si.Ss == 0 ? si.Ah == 0 && !dc[C.td].present : !ac[C.ta].present)
+        return kBadHuffman;
+      comp[si.ci[i]].pred = 0;
+    }
+    int eobrun = 0, count = 0;
+    if (si.ns == 1) {
+      const int c = si.ci[0];
+      Component& C = comp[c];
+      const int bw = (C.width + 7) / 8;
+      const int total = bw * ((C.height + 7) / 8);
+      const bool ac_first = si.Ss != 0 && si.Ah == 0;
+      for (int i = 0; i < total;) {
+        if (restart_interval && count == restart_interval) {
+          if (eobrun > 0) return kBadHuffman;  // a run across the RSTn
+          const int rc = Restart(br);
+          if (rc != kOk) return rc;
+          count = 0;
+          C.pred = 0;
+        }
+        if (ac_first && eobrun > 0) {
+          // blocks inside an EOB run of a first AC scan stay as they are:
+          // skip the run whole, up to the scan's end or the interval's
+          int n = eobrun < total - i ? eobrun : total - i;
+          if (restart_interval && n > restart_interval - count)
+            n = restart_interval - count;
+          eobrun -= n;
+          count += n;
+          i += n;
+          continue;
+        }
+        int16_t* blk = coeffs[c] +
+            (static_cast<size_t>(i / bw) * C.blocks_w + i % bw) * 64;
+        const int rc = DecodeBlockP(br, si, C, blk, eobrun);
+        if (rc != kOk) return rc;
+        ++count;
+        ++i;
+      }
+      return eobrun > 0 ? kBadHuffman : kOk;  // a run past the scan's blocks
+    }
+    const int mcux = (width + 8 * hmax - 1) / (8 * hmax);
+    const int mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+    for (int my = 0; my < mcuy; ++my) {
+      for (int mx = 0; mx < mcux; ++mx) {
+        if (restart_interval && count == restart_interval) {
+          const int rc = Restart(br);
+          if (rc != kOk) return rc;
+          count = 0;
+          for (int i = 0; i < si.ns; ++i) comp[si.ci[i]].pred = 0;
+        }
+        for (int i = 0; i < si.ns; ++i) {
+          const int c = si.ci[i];
+          Component& C = comp[c];
+          for (int v = 0; v < C.v; ++v) {
+            for (int h = 0; h < C.h; ++h) {
+              int16_t* blk = coeffs[c] +
+                  (static_cast<size_t>(my * C.v + v) * C.blocks_w +
+                   mx * C.h + h) * 64;
+              const int rc = DecodeBlockP(br, si, C, blk, eobrun);
+              if (rc != kOk) return rc;
+            }
+          }
+        }
+        ++count;
+      }
+    }
+    return kOk;
+  }
+
+  // One block of one scan, in zigzag order: DC first / refinement, AC
+  // first (with EOB runs) / refinement (libjpeg's decode_mcu_AC_refine).
+  int DecodeBlockP(Bits& br, const Scan& si, Component& C, int16_t* blk,
+                   int& eobrun) {
+    if (si.Ss == 0) {
+      if (si.Ah == 0) {
+        const int t = DecodeSymbol(br, dc[C.td]);
+        if (t < 0 || t > 11) return kBadHuffman;
+        C.pred += Extend(br.Get(t), t);
+        blk[0] = static_cast<int16_t>(C.pred * (1 << si.Al));
+      } else {  // one more bit of the DC
+        br.Fill();
+        if (br.Get(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << si.Al));
+      }
+      return kOk;
+    }
+    const Huffman& act = ac[C.ta];
+    if (si.Ah == 0) {
+      if (eobrun > 0) {
+        --eobrun;
+        return kOk;
+      }
+      for (int k = si.Ss; k <= si.Se;) {
+        const int rs = DecodeSymbol(br, act);
+        if (rs < 0) return kBadHuffman;
+        const int r = rs >> 4, s = rs & 15;
+        if (s == 0) {
+          if (r == 15) {  // ZRL
+            k += 16;
+            continue;
+          }
+          eobrun = (1 << r) - 1;  // this block ends the run's first
+          if (r) eobrun += br.Get(r);
+          break;
+        }
+        k += r;
+        if (k > si.Se) return kBadHuffman;
+        blk[k] = static_cast<int16_t>(Extend(br.Get(s), s) * (1 << si.Al));
+        ++k;
+      }
+      return kOk;
+    }
+    // refinement: one bit more of each coefficient already nonzero, and
+    // new coefficients of +-1 << Al among the zero ones
+    const int p1 = 1 << si.Al, m1 = -p1;
+    auto correct = [&](int16_t* cp) {
+      br.Fill();
+      if (br.Get(1) && (*cp & p1) == 0)
+        *cp = static_cast<int16_t>(*cp + (*cp >= 0 ? p1 : m1));
+    };
+    int k = si.Ss;
+    if (eobrun == 0) {
+      while (k <= si.Se) {
+        const int rs = DecodeSymbol(br, act);
+        if (rs < 0) return kBadHuffman;
+        int r = rs >> 4;
+        const int s = rs & 15;
+        int newval = 0;
+        if (s == 0) {
+          if (r != 15) {  // EOBr: the rest of this block is in the run
+            eobrun = 1 << r;
+            if (r) eobrun += br.Get(r);
+            break;
+          }  // else ZRL: pass 16 zero coefficients
+        } else {
+          if (s != 1) return kBadHuffman;
+          newval = br.Get(1) ? p1 : m1;
+        }
+        while (k <= si.Se) {
+          int16_t* cp = blk + k;
+          if (*cp != 0) {
+            correct(cp);
+          } else {
+            if (r == 0) {
+              if (newval) *cp = static_cast<int16_t>(newval);
+              ++k;
+              break;
+            }
+            --r;
+          }
+          ++k;
+        }
+      }
+    }
+    if (eobrun > 0) {  // inside an EOB run: correction bits only
+      for (; k <= si.Se; ++k)
+        if (blk[k] != 0) correct(blk + k);
+      --eobrun;
+    }
+    return kOk;
+  }
 };
 
 struct Ik4Info {  // the layout of jpeg_entropy.cpp's IkJpegInfo
@@ -397,6 +651,7 @@ IK_EXPORT int ik_jpeg4_parse(const uint8_t* data, size_t len, Ik4Info* info,
   info->ncomp = f.ncomp;
   info->hmax = f.hmax;
   info->vmax = f.vmax;
+  info->progressive = f.progressive;
   for (int c = 0; c < f.ncomp; ++c) {
     info->comp_h[c] = f.comp[c].h;
     info->comp_v[c] = f.comp[c].v;
@@ -410,7 +665,7 @@ IK_EXPORT int ik_jpeg4_parse(const uint8_t* data, size_t len, Ik4Info* info,
   return kOk;
 }
 
-// The scan into coeffs[0..3] (zeroed by the caller, blocks_h*blocks_w*64
+// The scans into coeffs[0..3] (zeroed by the caller, blocks_h*blocks_w*64
 // int16 each) and qtabs_out (4 x 64, natural order).
 IK_EXPORT int ik_jpeg4_decode_coeffs(const uint8_t* data, size_t len,
                                      int16_t** coeffs, uint16_t* qtabs_out) {
@@ -419,6 +674,7 @@ IK_EXPORT int ik_jpeg4_decode_coeffs(const uint8_t* data, size_t len,
   f.len = len;
   int rc = f.Parse();
   if (rc != kOk) return rc;
-  std::memcpy(qtabs_out, f.qtab, sizeof(f.qtab));
-  return f.Decode(coeffs);
+  rc = f.progressive ? f.DecodeProgressive(coeffs) : f.Decode(coeffs);
+  std::memcpy(qtabs_out, f.qtab, sizeof(f.qtab));  // DQT may follow a scan
+  return rc;
 }

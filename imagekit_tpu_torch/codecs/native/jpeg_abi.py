@@ -172,9 +172,9 @@ def parse(lib: ctypes.CDLL, data: bytes) -> JpegHeader:
 
 
 def parse4(lib: ctypes.CDLL, data: bytes) -> JpegHeader:
-    """The header of a four-component (CMYK or YCCK) baseline JPEG, with its
-    Adobe transform flag; -3 for anything else the native decoder refuses
-    (progressive, arithmetic, 12-bit, other component counts)."""
+    """The header of a four-component (CMYK or YCCK) JPEG, baseline or
+    progressive, with its Adobe transform flag; -3 for anything else the
+    native decoder refuses (arithmetic, 12-bit, other component counts)."""
     info = IkJpegInfo()
     flag = ctypes.c_int32(-1)
     rc = lib.ik_jpeg4_parse(data, len(data), ctypes.byref(info),
@@ -253,8 +253,8 @@ def decode(
 def decode4(
     lib: ctypes.CDLL, data: bytes
 ) -> Tuple[JpegHeader, List[np.ndarray], np.ndarray]:
-    """:func:`decode`'s output for a four-component baseline JPEG
-    (:func:`parse4`'s header)."""
+    """:func:`decode`'s output for a four-component JPEG (:func:`parse4`'s
+    header): every scan of a progressive one accumulated."""
     hdr = parse4(lib, data)
     coeffs = [np.zeros((hdr.blocks_h[c], hdr.blocks_w[c], 64), np.int16)
               for c in range(4)]

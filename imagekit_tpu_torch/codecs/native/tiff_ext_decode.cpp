@@ -1,0 +1,799 @@
+// TIFF layouts of the port that the pinned decoder refuses, C ABI for ctypes.
+//
+// tiff_decode.cpp (a copy of the reference's, pinned byte-equal) decodes
+// 8- and 16-bit gray, palette and RGB(A) TIFFs in none, LZW, deflate and
+// PackBits; it refuses the rest with -3, and the reference then decodes the
+// file with Pillow (libtiff for every compressed layout). This decoder is
+// the port's own, for that case only, written to give Pillow 12's pixels:
+//
+//   - bilevel (photometric 0 WhiteIsZero, 1 BlackIsZero; 1 bit) in none,
+//     PackBits, LZW, deflate, CCITT modified Huffman (2), T.4 Group 3 1-D
+//     and 2-D (3, any T4Options fill) and T.6 Group 4 (4), FillOrder 1;
+//   - 2- and 4-bit gray (Pillow's L;2 x85, L;4 x17, inverted for
+//     WhiteIsZero) and 1-, 2- and 4-bit palette (the ColorMap's high
+//     bytes), in the four byte-oriented compressions;
+//   - CMYK (photometric 5, 8-bit, 4 samples, chunky or planar, strips or
+//     tiles, the pinned copy's compressions and predictor): written out as
+//     the four samples as stored; the caller turns them to RGB with
+//     Pillow's cmyk2rgb (ops/color.py::cmyk_to_rgb on inverted planes).
+//
+// Tags take Pillow's defaults where they are missing: BitsPerSample 1,
+// PhotometricInterpretation 0, SamplesPerPixel 1. Everything else (FillOrder
+// 2, JPEG and other compressions, YCbCr, CIELab, float or signed samples,
+// extra samples, 16-bit CMYK, Orientation 5-8) is -3. Corrupt data is an
+// error; so is a CCITT row whose runs overshoot its width, which libtiff
+// pads with a warning: every write is bounded by its row before it is made.
+//
+// The LZW, deflate and PackBits decoders are copies of tiff_decode.cpp's,
+// which keeps them in an anonymous namespace. The exported names are
+// ik_tiffx_*: the loader links every native source into one library.
+
+#include <cstdint>
+#include <cstring>
+#include <vector>
+
+#include <zlib.h>
+
+#define IK_EXPORT extern "C" __attribute__((visibility("default")))
+
+namespace {
+
+constexpr int kOk = 0;
+constexpr int kTruncated = -1;
+constexpr int kBadMagic = -2;
+constexpr int kUnsupported = -3;
+constexpr int kBadData = -4;
+constexpr int kBadDims = -5;
+constexpr int kBuffer = -7;
+
+struct Reader {
+  const uint8_t* d = nullptr;
+  size_t len = 0;
+  bool le = true;  // little-endian ("II")
+
+  uint16_t U16(size_t off) const {
+    if (off + 2 > len) return 0;
+    return le ? static_cast<uint16_t>(d[off] | (d[off + 1] << 8))
+              : static_cast<uint16_t>((d[off] << 8) | d[off + 1]);
+  }
+  uint32_t U32(size_t off) const {
+    if (off + 4 > len) return 0;
+    return le ? (d[off] | (d[off + 1] << 8) | (d[off + 2] << 16) |
+                 (static_cast<uint32_t>(d[off + 3]) << 24))
+              : ((static_cast<uint32_t>(d[off]) << 24) | (d[off + 1] << 16) |
+                 (d[off + 2] << 8) | d[off + 3]);
+  }
+};
+
+struct Entry {
+  uint16_t type = 0;
+  uint32_t count = 0;
+  size_t value_off = 0;
+};
+
+int TypeSize(uint16_t t) {
+  switch (t) {
+    case 1: case 2: case 6: case 7: return 1;
+    case 3: case 8: return 2;
+    case 4: case 9: case 11: return 4;
+    case 5: case 10: case 12: return 8;
+    default: return 0;
+  }
+}
+
+uint32_t EntryValue(const Reader& r, const Entry& e, uint32_t idx) {
+  const int sz = TypeSize(e.type);
+  const size_t off = e.value_off + static_cast<size_t>(idx) * sz;
+  if (sz == 1) return off < r.len ? r.d[off] : 0;
+  if (sz == 2) return r.U16(off);
+  return r.U32(off);
+}
+
+struct Tiff {
+  uint32_t width = 0, height = 0;
+  int compression = 1, photometric = 0, spp = 1, predictor = 1, planar = 1;
+  int bits = 1;
+  uint32_t t4 = 0;  // T4Options
+  std::vector<uint8_t> colormap;  // per R, then per G, then per B
+  uint32_t colors = 0;
+  std::vector<uint32_t> offsets, counts;
+  uint32_t rows_per_strip = 0;
+  uint32_t tile_w = 0, tile_h = 0;
+  bool tiled = false;
+};
+
+bool Ccitt(int c) { return c == 2 || c == 3 || c == 4; }
+
+int Parse(const uint8_t* data, size_t len, Tiff* t) {
+  Reader r{data, len, true};
+  if (len < 8) return kTruncated;
+  if (data[0] == 'I' && data[1] == 'I') {
+    r.le = true;
+  } else if (data[0] == 'M' && data[1] == 'M') {
+    r.le = false;
+  } else {
+    return kBadMagic;
+  }
+  if (r.U16(2) != 42) return kBadMagic;
+  const uint32_t ifd = r.U32(4);
+  if (static_cast<size_t>(ifd) + 2 > len) return kTruncated;
+  const uint16_t n = r.U16(ifd);
+  if (ifd + 2 + 12u * n > len) return kTruncated;
+
+  Entry off_e, cnt_e, bps_e, extra_e, fmt_e, cmap_e;
+  bool tiles = false;
+  for (uint16_t i = 0; i < n; ++i) {
+    const size_t e = ifd + 2 + 12u * i;
+    const uint16_t tag = r.U16(e);
+    Entry ent;
+    ent.type = r.U16(e + 2);
+    ent.count = r.U32(e + 4);
+    const int sz = TypeSize(ent.type);
+    if (sz == 0) continue;
+    const size_t total = static_cast<size_t>(sz) * ent.count;
+    ent.value_off = total <= 4 ? e + 8 : r.U32(e + 8);
+    if (ent.value_off + total > len) return kTruncated;
+    switch (tag) {
+      case 256: t->width = EntryValue(r, ent, 0); break;
+      case 257: t->height = EntryValue(r, ent, 0); break;
+      case 258: bps_e = ent; break;
+      case 259: t->compression = EntryValue(r, ent, 0); break;
+      case 262: t->photometric = EntryValue(r, ent, 0); break;
+      case 266:
+        if (EntryValue(r, ent, 0) != 1) return kUnsupported;  // FillOrder 2
+        break;
+      case 273: if (!tiles) off_e = ent; break;
+      case 274:  // Orientation: Pillow swaps the size of 5-8
+        if (EntryValue(r, ent, 0) >= 5) return kUnsupported;
+        break;
+      case 277: t->spp = EntryValue(r, ent, 0); break;
+      case 278: t->rows_per_strip = EntryValue(r, ent, 0); break;
+      case 279: if (!tiles) cnt_e = ent; break;
+      case 284: t->planar = EntryValue(r, ent, 0); break;
+      case 292: t->t4 = EntryValue(r, ent, 0); break;
+      case 293:  // T6Options: bit 1 is uncompressed mode
+        if (EntryValue(r, ent, 0) & 2) return kUnsupported;
+        break;
+      case 317: t->predictor = EntryValue(r, ent, 0); break;
+      case 320: cmap_e = ent; break;
+      case 322: t->tile_w = EntryValue(r, ent, 0); break;
+      case 323: t->tile_h = EntryValue(r, ent, 0); break;
+      case 324: off_e = ent; tiles = true; break;
+      case 325: cnt_e = ent; break;
+      case 338: extra_e = ent; break;
+      case 339: fmt_e = ent; break;
+      default: break;
+    }
+  }
+  if (t->width == 0 || t->height == 0) return kBadDims;
+  if (t->width > (1u << 24) || t->height > (1u << 24)) return kBadDims;
+  // the layouts of the header comment, else -3
+  for (uint32_t i = 0; i < fmt_e.count; ++i)
+    if (EntryValue(r, fmt_e, i) != 1) return kUnsupported;
+  if (extra_e.count > 0) return kUnsupported;
+  if (t->planar != 1 && t->planar != 2) return kUnsupported;
+  const int c = t->compression;
+  if (c != 1 && c != 5 && c != 8 && c != 32946 && c != 32773 && !Ccitt(c))
+    return kUnsupported;
+  if (t->predictor != 1 && t->predictor != 2) return kUnsupported;
+  if (Ccitt(c) && (t->t4 & 2)) return kUnsupported;  // uncompressed mode
+  // BitsPerSample as Pillow reads it: one value stands for every sample,
+  // extra values are dropped, a count short of the samples is refused
+  if (bps_e.count > 0) {
+    t->bits = static_cast<int>(EntryValue(r, bps_e, 0));
+    const uint32_t m = bps_e.count < static_cast<uint32_t>(t->spp)
+                           ? bps_e.count : static_cast<uint32_t>(t->spp);
+    if (bps_e.count > 1 && bps_e.count < static_cast<uint32_t>(t->spp))
+      return kBadData;  // "unknown data organization"
+    for (uint32_t i = 1; i < m; ++i)
+      if (static_cast<int>(EntryValue(r, bps_e, i)) != t->bits)
+        return kUnsupported;
+  }
+  const int p = t->photometric, b = t->bits;
+  if (p == 0 || p == 1) {
+    if (t->spp != 1) return kUnsupported;
+    if (Ccitt(c) && b != 1) return kBadData;  // libtiff: 1 bit for fax
+    if (b != 1 && b != 2 && b != 4) return kUnsupported;
+  } else if (p == 3) {
+    if (t->spp != 1 || Ccitt(c)) return kUnsupported;
+    if (b != 1 && b != 2 && b != 4) return kUnsupported;
+    if (cmap_e.count < 3) return kBadData;
+    t->colors = cmap_e.count / 3;
+    if (t->colors > 65536) return kBadData;
+    t->colormap.resize(3 * static_cast<size_t>(t->colors));
+    for (uint32_t j = 0; j < 3 * t->colors; ++j)
+      t->colormap[j] = static_cast<uint8_t>(EntryValue(r, cmap_e, j) >> 8);
+  } else if (p == 5) {
+    if (t->spp != 4 || b != 8 || Ccitt(c)) return kUnsupported;
+  } else {
+    return kUnsupported;
+  }
+  if (t->planar == 2 && t->spp == 1) t->planar = 1;  // the same layout
+  // libtiff's horizontal differencing takes 8 bits and more only
+  if (t->predictor == 2 && b < 8 && (c == 5 || c == 8 || c == 32946))
+    return kBadData;
+  const size_t planes = t->planar == 2 ? t->spp : 1;
+  size_t want;
+  if (tiles) {
+    if (t->tile_w == 0 || t->tile_h == 0 || (t->tile_w & 15) ||
+        (t->tile_h & 15))
+      return kBadData;
+    want = ((t->width + t->tile_w - 1) / t->tile_w) *
+           static_cast<size_t>((t->height + t->tile_h - 1) / t->tile_h) *
+           planes;
+  } else {
+    if (t->rows_per_strip == 0 || t->rows_per_strip > t->height)
+      t->rows_per_strip = t->height;
+    want = ((t->height + t->rows_per_strip - 1) / t->rows_per_strip) *
+           static_cast<size_t>(planes);
+  }
+  if (off_e.count == 0 || cnt_e.count != off_e.count || off_e.count != want)
+    return kBadData;
+  t->tiled = tiles;
+  t->offsets.resize(off_e.count);
+  t->counts.resize(off_e.count);
+  for (uint32_t i = 0; i < off_e.count; ++i) {
+    t->offsets[i] = EntryValue(r, off_e, i);
+    t->counts[i] = EntryValue(r, cnt_e, i);
+    if (static_cast<size_t>(t->offsets[i]) + t->counts[i] > len)
+      return kTruncated;
+  }
+  return kOk;
+}
+
+// -- the byte-oriented decompressors (copies of tiff_decode.cpp's) ---------
+
+// TIFF-variant LZW (MSB-first codes, early-change) -> exactly `want` bytes.
+int LzwDecode(const uint8_t* src, size_t n, uint8_t* dst, size_t want) {
+  constexpr int kClear = 256, kEoi = 257, kFirst = 258;
+  std::vector<int> prefix(4096, -1);
+  std::vector<uint8_t> suffix(4096, 0);
+  std::vector<uint8_t> stack(4096);
+  int next = kFirst, width = 9;
+  uint32_t acc = 0;
+  int nbits = 0;
+  size_t pos = 0, out = 0;
+  int prev = -1;
+
+  auto emit = [&](int code, int* first_byte) -> int {
+    size_t sp = 0;
+    while (code >= kFirst) {
+      if (sp >= stack.size() || prefix[code] < 0) return kBadData;
+      stack[sp++] = suffix[code];
+      code = prefix[code];
+    }
+    if (code >= 256) return kBadData;
+    *first_byte = code;
+    if (out + 1 + sp > want) return kBadData;
+    dst[out++] = static_cast<uint8_t>(code);
+    while (sp > 0) dst[out++] = stack[--sp];
+    return kOk;
+  };
+
+  while (out < want) {
+    while (nbits < width) {
+      if (pos >= n) return kTruncated;
+      acc = (acc << 8) | src[pos++];
+      nbits += 8;
+    }
+    const int code = static_cast<int>((acc >> (nbits - width)) &
+                                      ((1u << width) - 1));
+    nbits -= width;
+    if (code == kEoi) break;
+    if (code == kClear) {
+      next = kFirst;
+      width = 9;
+      prev = -1;
+      continue;
+    }
+    int first = 0;
+    if (prev < 0) {
+      if (code >= kFirst) return kBadData;
+      const int rc = emit(code, &first);
+      if (rc != kOk) return rc;
+    } else {
+      if (code < next) {
+        const int rc = emit(code, &first);
+        if (rc != kOk) return rc;
+        if (next < 4096) {
+          prefix[next] = prev;
+          suffix[next] = static_cast<uint8_t>(first);
+          ++next;
+        }
+      } else if (code == next && next < 4096) {  // KwKwK
+        int walk = prev;
+        while (walk >= kFirst) walk = prefix[walk];
+        prefix[next] = prev;
+        suffix[next] = static_cast<uint8_t>(walk);
+        ++next;
+        const int rc = emit(code, &first);
+        if (rc != kOk) return rc;
+      } else {
+        return kBadData;
+      }
+    }
+    prev = code;
+    if (next == (1 << width) - 1 && width < 12) ++width;
+  }
+  return out == want ? kOk : kTruncated;
+}
+
+int ZipDecode(const uint8_t* src, size_t n, uint8_t* dst, size_t want) {
+  z_stream zs;
+  std::memset(&zs, 0, sizeof(zs));
+  if (inflateInit(&zs) != Z_OK) return kBadData;
+  zs.next_in = const_cast<uint8_t*>(src);
+  zs.avail_in = static_cast<uInt>(n);
+  zs.next_out = dst;
+  zs.avail_out = static_cast<uInt>(want);
+  const int rc = inflate(&zs, Z_FINISH);
+  const size_t got = want - zs.avail_out;
+  inflateEnd(&zs);
+  if (got != want) return kTruncated;
+  if (rc != Z_STREAM_END && rc != Z_OK && rc != Z_BUF_ERROR) return kBadData;
+  return kOk;
+}
+
+int PackBitsDecode(const uint8_t* src, size_t n, uint8_t* dst, size_t want) {
+  size_t pos = 0, out = 0;
+  while (out < want) {
+    if (pos >= n) return kTruncated;
+    const int8_t ctl = static_cast<int8_t>(src[pos++]);
+    if (ctl >= 0) {
+      const size_t cnt = static_cast<size_t>(ctl) + 1;
+      if (pos + cnt > n || out + cnt > want) return kBadData;
+      std::memcpy(dst + out, src + pos, cnt);
+      pos += cnt;
+      out += cnt;
+    } else if (ctl != -128) {
+      const size_t cnt = static_cast<size_t>(-ctl) + 1;
+      if (out + cnt > want) return kBadData;
+      std::memset(dst + out, src[pos], cnt);
+      ++pos;
+      out += cnt;
+    }
+  }
+  return kOk;
+}
+
+// -- CCITT (T.4 / T.6) ------------------------------------------------------
+
+// (code, length, run) of the T.4 tables: terminating codes 0-63, make-up
+// codes 64-1728 of each colour, then the extended make-up codes 1792-2560
+// both colours share. A run of -1 is the EOL code (000000000001).
+struct Code {
+  uint16_t code;
+  uint8_t len;
+  int16_t run;
+};
+
+const Code kWhite[] = {
+    {0x35, 8, 0},    {0x7, 6, 1},     {0x7, 4, 2},     {0x8, 4, 3},
+    {0xB, 4, 4},     {0xC, 4, 5},     {0xE, 4, 6},     {0xF, 4, 7},
+    {0x13, 5, 8},    {0x14, 5, 9},    {0x7, 5, 10},    {0x8, 5, 11},
+    {0x8, 6, 12},    {0x3, 6, 13},    {0x34, 6, 14},   {0x35, 6, 15},
+    {0x2A, 6, 16},   {0x2B, 6, 17},   {0x27, 7, 18},   {0xC, 7, 19},
+    {0x8, 7, 20},    {0x17, 7, 21},   {0x3, 7, 22},    {0x4, 7, 23},
+    {0x28, 7, 24},   {0x2B, 7, 25},   {0x13, 7, 26},   {0x24, 7, 27},
+    {0x18, 7, 28},   {0x2, 8, 29},    {0x3, 8, 30},    {0x1A, 8, 31},
+    {0x1B, 8, 32},   {0x12, 8, 33},   {0x13, 8, 34},   {0x14, 8, 35},
+    {0x15, 8, 36},   {0x16, 8, 37},   {0x17, 8, 38},   {0x28, 8, 39},
+    {0x29, 8, 40},   {0x2A, 8, 41},   {0x2B, 8, 42},   {0x2C, 8, 43},
+    {0x2D, 8, 44},   {0x4, 8, 45},    {0x5, 8, 46},    {0xA, 8, 47},
+    {0xB, 8, 48},    {0x52, 8, 49},   {0x53, 8, 50},   {0x54, 8, 51},
+    {0x55, 8, 52},   {0x24, 8, 53},   {0x25, 8, 54},   {0x58, 8, 55},
+    {0x59, 8, 56},   {0x5A, 8, 57},   {0x5B, 8, 58},   {0x4A, 8, 59},
+    {0x4B, 8, 60},   {0x32, 8, 61},   {0x33, 8, 62},   {0x34, 8, 63},
+    {0x1B, 5, 64},   {0x12, 5, 128},  {0x17, 6, 192},  {0x37, 7, 256},
+    {0x36, 8, 320},  {0x37, 8, 384},  {0x64, 8, 448},  {0x65, 8, 512},
+    {0x68, 8, 576},  {0x67, 8, 640},  {0xCC, 9, 704},  {0xCD, 9, 768},
+    {0xD2, 9, 832},  {0xD3, 9, 896},  {0xD4, 9, 960},  {0xD5, 9, 1024},
+    {0xD6, 9, 1088}, {0xD7, 9, 1152}, {0xD8, 9, 1216}, {0xD9, 9, 1280},
+    {0xDA, 9, 1344}, {0xDB, 9, 1408}, {0x98, 9, 1472}, {0x99, 9, 1536},
+    {0x9A, 9, 1600}, {0x18, 6, 1664}, {0x9B, 9, 1728},
+};
+
+const Code kBlack[] = {
+    {0x37, 10, 0},   {0x2, 3, 1},     {0x3, 2, 2},     {0x2, 2, 3},
+    {0x3, 3, 4},     {0x3, 4, 5},     {0x2, 4, 6},     {0x3, 5, 7},
+    {0x5, 6, 8},     {0x4, 6, 9},     {0x4, 7, 10},    {0x5, 7, 11},
+    {0x7, 7, 12},    {0x4, 8, 13},    {0x7, 8, 14},    {0x18, 9, 15},
+    {0x17, 10, 16},  {0x18, 10, 17},  {0x8, 10, 18},   {0x67, 11, 19},
+    {0x68, 11, 20},  {0x6C, 11, 21},  {0x37, 11, 22},  {0x28, 11, 23},
+    {0x17, 11, 24},  {0x18, 11, 25},  {0xCA, 12, 26},  {0xCB, 12, 27},
+    {0xCC, 12, 28},  {0xCD, 12, 29},  {0x68, 12, 30},  {0x69, 12, 31},
+    {0x6A, 12, 32},  {0x6B, 12, 33},  {0xD2, 12, 34},  {0xD3, 12, 35},
+    {0xD4, 12, 36},  {0xD5, 12, 37},  {0xD6, 12, 38},  {0xD7, 12, 39},
+    {0x6C, 12, 40},  {0x6D, 12, 41},  {0xDA, 12, 42},  {0xDB, 12, 43},
+    {0x54, 12, 44},  {0x55, 12, 45},  {0x56, 12, 46},  {0x57, 12, 47},
+    {0x64, 12, 48},  {0x65, 12, 49},  {0x52, 12, 50},  {0x53, 12, 51},
+    {0x24, 12, 52},  {0x37, 12, 53},  {0x38, 12, 54},  {0x27, 12, 55},
+    {0x28, 12, 56},  {0x58, 12, 57},  {0x59, 12, 58},  {0x2B, 12, 59},
+    {0x2C, 12, 60},  {0x5A, 12, 61},  {0x66, 12, 62},  {0x67, 12, 63},
+    {0xF, 10, 64},   {0xC8, 12, 128}, {0xC9, 12, 192}, {0x5B, 12, 256},
+    {0x33, 12, 320}, {0x34, 12, 384}, {0x35, 12, 448}, {0x6C, 13, 512},
+    {0x6D, 13, 576}, {0x4A, 13, 640}, {0x4B, 13, 704}, {0x4C, 13, 768},
+    {0x4D, 13, 832}, {0x72, 13, 896}, {0x73, 13, 960}, {0x74, 13, 1024},
+    {0x75, 13, 1088}, {0x76, 13, 1152}, {0x77, 13, 1216}, {0x52, 13, 1280},
+    {0x53, 13, 1344}, {0x54, 13, 1408}, {0x55, 13, 1472}, {0x5A, 13, 1536},
+    {0x5B, 13, 1600}, {0x64, 13, 1664}, {0x65, 13, 1728},
+};
+
+const Code kShared[] = {
+    {0x8, 11, 1792},  {0xC, 11, 1856},  {0xD, 11, 1920},  {0x12, 12, 1984},
+    {0x13, 12, 2048}, {0x14, 12, 2112}, {0x15, 12, 2176}, {0x16, 12, 2240},
+    {0x17, 12, 2304}, {0x1C, 12, 2368}, {0x1D, 12, 2432}, {0x1E, 12, 2496},
+    {0x1F, 12, 2560}, {0x1, 12, -1},
+};
+
+constexpr int kPeek = 13;  // the longest code
+constexpr int kEol = -10;   // ReadRun's EOL code
+
+// A lookup of 13-bit windows: (length << 12 | run + 2), 0 for no code.
+struct RunTable {
+  uint16_t e[1 << kPeek];
+
+  template <size_t N>
+  void Add(const Code (&codes)[N]) {
+    for (const Code& c : codes) {
+      const int shift = kPeek - c.len;
+      for (int j = 0; j < (1 << shift); ++j)
+        e[(c.code << shift) | j] =
+            static_cast<uint16_t>((c.len << 12) | (c.run + 2));
+    }
+  }
+};
+
+struct Tables {
+  RunTable white, black;
+  Tables() {
+    std::memset(&white, 0, sizeof(white));
+    std::memset(&black, 0, sizeof(black));
+    white.Add(kWhite);
+    white.Add(kShared);
+    black.Add(kBlack);
+    black.Add(kShared);
+  }
+};
+
+const Tables& Fax() {
+  static const Tables t;
+  return t;
+}
+
+// MSB-first bits of one strip; zeros are read past its end, which is an
+// error once a code has used them.
+struct BitIn {
+  const uint8_t* p;
+  size_t n;
+  size_t pos = 0;  // in bits
+
+  uint32_t Peek(int k) const {  // k <= 24
+    const size_t byte = pos >> 3;
+    uint32_t w = 0;
+    for (size_t i = 0; i < 4; ++i)
+      w = (w << 8) | (byte + i < n ? p[byte + i] : 0u);
+    return (w << (pos & 7)) >> (32 - k);
+  }
+  void Skip(int k) { pos += k; }
+  bool Over() const { return pos > n * 8; }
+  void Align() { pos = (pos + 7) & ~size_t{7}; }
+};
+
+// One run of `black` (0 white): make-up codes then a terminating code.
+// Returns the run, or kEol / an error.
+int ReadRun(BitIn& in, bool black) {
+  const RunTable& t = black ? Fax().black : Fax().white;
+  int run = 0;
+  while (true) {
+    const uint16_t e = t.e[in.Peek(kPeek)];
+    if (e == 0) return kBadData;
+    in.Skip(e >> 12);
+    if (in.Over()) return kTruncated;
+    const int v = static_cast<int>(e & 0xfff) - 2;
+    if (v == -1) return run == 0 ? kEol : kBadData;  // the EOL code
+    run += v;
+    if (run > (1 << 24)) return kBadData;
+    if (v < 64) return run;
+  }
+}
+
+// libtiff's SYNC_EOL: skip to 11 zero bits, then the zeros of any fill, then
+// the EOL's 1 bit.
+int SyncEol(BitIn& in) {
+  while (in.Peek(11) != 0) {
+    in.Skip(1);
+    if (in.Over()) return kTruncated;
+  }
+  while (in.Peek(1) == 0) {
+    in.Skip(1);
+    if (in.Over()) return kTruncated;
+  }
+  in.Skip(1);
+  return in.Over() ? kTruncated : kOk;
+}
+
+// A row as its changing elements: x[0..n) alternate white->black,
+// black->white; three copies of the width follow them when the row is the
+// reference of the next. Push refuses past width + 3 elements (a valid row
+// has at most width + 2), which ends a stream of runs that do not advance.
+struct Row {
+  std::vector<int> x;  // width + 8 slots
+  int n = 0;
+
+  bool Push(int v) {
+    if (n + 5 >= static_cast<int>(x.size())) return false;
+    x[n++] = v;
+    return true;
+  }
+};
+
+// One 1-D coded row into `cur` (runs alternate from white).
+int Row1D(BitIn& in, int width, Row& cur) {
+  cur.n = 0;
+  int a0 = 0;
+  bool black = false;
+  while (a0 < width) {
+    const int run = ReadRun(in, black);
+    if (run < 0) return run == kEol ? kBadData : run;
+    a0 += run;
+    if (a0 > width) return kBadData;  // a run past the row
+    if (a0 < width && !cur.Push(a0)) return kBadData;
+    black = !black;
+  }
+  return kOk;
+}
+
+// One 2-D coded row against the reference row `ref` (its changing
+// elements, followed by at least two copies of the width).
+int Row2D(BitIn& in, int width, const Row& ref, Row& cur) {
+  cur.n = 0;
+  int a0 = -1, i = 0;
+  bool black = false;
+  while (a0 < width) {
+    // b1: the first change of the reference row right of a0 to the
+    // colour opposite a0's; b2 the change after it
+    while (i > 0 && ref.x[i - 1] > a0) --i;
+    while (ref.x[i] <= a0 && ref.x[i] < width) ++i;
+    if ((i & 1) != static_cast<int>(black)) ++i;  // i <= ref.n + 1
+    const int b1 = ref.x[i], b2 = ref.x[i + 1];
+    const uint32_t m = in.Peek(7);
+    int a1;
+    if (m >> 6) {  // 1: V0
+      in.Skip(1);
+      a1 = b1;
+    } else if ((m >> 4) == 0x3) {  // 011: VR1
+      in.Skip(3);
+      a1 = b1 + 1;
+    } else if ((m >> 4) == 0x2) {  // 010: VL1
+      in.Skip(3);
+      a1 = b1 - 1;
+    } else if ((m >> 4) == 0x1) {  // 001: horizontal
+      in.Skip(3);
+      const int start = a0 < 0 ? 0 : a0;
+      const int r1 = ReadRun(in, black);
+      if (r1 < 0) return r1 == kEol ? kBadData : r1;
+      const int r2 = ReadRun(in, !black);
+      if (r2 < 0) return r2 == kEol ? kBadData : r2;
+      const int a2 = start + r1 + r2;
+      if (start + r1 > width || a2 > width) return kBadData;
+      if (!cur.Push(start + r1) || !cur.Push(a2)) return kBadData;
+      a0 = a2;
+      if (in.Over()) return kTruncated;
+      continue;
+    } else if ((m >> 3) == 0x1) {  // 0001: pass
+      in.Skip(4);
+      if (in.Over()) return kTruncated;
+      if (b2 > width) return kBadData;
+      a0 = b2;
+      continue;
+    } else if ((m >> 1) == 0x3) {  // 000011: VR2
+      in.Skip(6);
+      a1 = b1 + 2;
+    } else if ((m >> 1) == 0x2) {  // 000010: VL2
+      in.Skip(6);
+      a1 = b1 - 2;
+    } else if (m == 0x3) {  // 0000011: VR3
+      in.Skip(7);
+      a1 = b1 + 3;
+    } else if (m == 0x2) {  // 0000010: VL3
+      in.Skip(7);
+      a1 = b1 - 3;
+    } else {  // extensions (uncompressed mode), an EOL, or no code
+      return kBadData;
+    }
+    if (in.Over()) return kTruncated;
+    if (a1 < (a0 < 0 ? 0 : a0) || a1 > width) return kBadData;
+    if (a1 < width && !cur.Push(a1)) return kBadData;
+    a0 = a1;
+    black = !black;
+  }
+  return kOk;
+}
+
+// Set the bits [s, e) of a row, whole bytes at once.
+void SetBits(uint8_t* row, int s, int e) {
+  if (s >= e) return;
+  const int b0 = s >> 3, b1 = (e - 1) >> 3;
+  const uint8_t head = 0xFF >> (s & 7), tail = 0xFF << (7 - ((e - 1) & 7));
+  if (b0 == b1) {
+    row[b0] |= head & tail;
+    return;
+  }
+  row[b0] |= head;
+  std::memset(row + b0 + 1, 0xFF, b1 - b0 - 1);
+  row[b1] |= tail;
+}
+
+// Set the black runs of a row of changing elements as 1 bits.
+void Paint(const Row& cur, int width, uint8_t* row) {
+  std::memset(row, 0, (width + 7) / 8);
+  for (int k = 0; k < cur.n; k += 2)
+    SetBits(row, cur.x[k], k + 1 < cur.n ? cur.x[k + 1] : width);
+}
+
+// `rows` rows of `width` 1-bit pixels of one strip or tile, each row
+// (width + 7) / 8 bytes, bits set for black (libtiff's sense: photometric
+// decides what black is).
+int FaxDecode(int compression, uint32_t t4, const uint8_t* src, size_t n,
+              uint8_t* dst, size_t rows, int width) {
+  BitIn in{src, n};
+  Row cur, ref;
+  cur.x.assign(width + 8, 0);
+  ref.x.assign(width + 8, 0);
+  ref.n = 0;  // the imaginary white row above the first
+  const size_t rb = (width + 7) / 8;
+  for (size_t y = 0; y < rows; ++y) {
+    for (int k = 0; k < 3; ++k) ref.x[ref.n + k] = width;  // sentinels
+    int rc;
+    if (compression == 2) {  // modified Huffman: byte-aligned 1-D rows
+      rc = Row1D(in, width, cur);
+      in.Align();
+    } else if (compression == 3) {
+      rc = SyncEol(in);
+      if (rc != kOk) return rc;
+      bool one_d = true;
+      if (t4 & 1) {  // 2-D: a tag bit after each EOL
+        one_d = in.Peek(1) != 0;
+        in.Skip(1);
+      }
+      rc = one_d ? Row1D(in, width, cur) : Row2D(in, width, ref, cur);
+    } else {
+      rc = Row2D(in, width, ref, cur);
+    }
+    if (rc != kOk) return rc;
+    if (in.Over()) return kTruncated;
+    Paint(cur, width, dst + y * rb);
+    std::swap(cur, ref);
+  }
+  return kOk;
+}
+
+int Decompress(const Tiff& t, const uint8_t* src, size_t n, uint8_t* dst,
+               size_t rows, size_t rowbytes, int width) {
+  const size_t want = rows * rowbytes;
+  switch (t.compression) {
+    case 1:
+      if (n < want) return kTruncated;
+      std::memcpy(dst, src, want);
+      return kOk;
+    case 2: case 3: case 4:
+      return FaxDecode(t.compression, t.t4, src, n, dst, rows, width);
+    case 5:
+      return LzwDecode(src, n, dst, want);
+    case 8: case 32946:
+      return ZipDecode(src, n, dst, want);
+    default:
+      return PackBitsDecode(src, n, dst, want);
+  }
+}
+
+// Samples of `count` at `bits` (1, 2, 4 or 8), MSB first, as bytes.
+void Unpack(const uint8_t* src, int bits, size_t count, uint8_t* dst) {
+  if (bits == 8) {
+    std::memcpy(dst, src, count);
+    return;
+  }
+  const int per = 8 / bits, mask = (1 << bits) - 1;
+  size_t i = 0;
+  for (; i + per <= count; i += per) {  // whole bytes
+    const int v = *src++;
+    for (int j = 0; j < per; ++j)
+      dst[i + j] = (v >> (8 - bits * (j + 1))) & mask;
+  }
+  for (int j = 0; i < count; ++i, ++j)  // the last, partial byte
+    dst[i] = (*src >> (8 - bits * (j + 1))) & mask;
+}
+
+int Decode(const uint8_t* data, const Tiff& t, uint8_t* out,
+           size_t out_cap) {
+  const size_t W = t.width, H = t.height, spp = t.spp;
+  const int oc = t.photometric == 5 ? 4 : 3;
+  if (out_cap < W * H * oc) return kBuffer;
+  // every sample as a byte, chunky: (H, W, spp)
+  std::vector<uint8_t> s(W * H * spp);
+  const size_t rw = t.tiled ? t.tile_w : W;          // region width
+  const size_t rh = t.tiled ? t.tile_h : t.rows_per_strip;
+  const size_t lanes = t.planar == 2 ? 1 : spp;      // samples a pixel
+  const size_t rowbytes = (rw * lanes * t.bits + 7) / 8;
+  const size_t per_plane = t.offsets.size() / (t.planar == 2 ? spp : 1);
+  const size_t across = t.tiled ? (W + rw - 1) / rw : 1;
+  std::vector<uint8_t> buf(rh * rowbytes), line(rw * lanes);
+  const bool unfilter = t.predictor == 2 &&
+      (t.compression == 5 || t.compression == 8 || t.compression == 32946);
+  for (size_t k = 0; k < t.offsets.size(); ++k) {
+    const size_t g = k % per_plane, comp = k / per_plane;
+    const size_t ox = (g % across) * rw, oy = (g / across) * rh;
+    if (oy >= H) return kBadData;
+    // a strip holds its rows only; a tile decodes whole and is clipped
+    const size_t rows = t.tiled ? rh : (H - oy < rh ? H - oy : rh);
+    const int rc = Decompress(t, data + t.offsets[k], t.counts[k], buf.data(),
+                              rows, rowbytes, static_cast<int>(rw));
+    if (rc != kOk) return rc;
+    if (unfilter)  // 8-bit samples only (Parse refuses fewer bits)
+      for (size_t y = 0; y < rows; ++y) {
+        uint8_t* r = buf.data() + y * rowbytes;
+        for (size_t i = lanes; i < rw * lanes; ++i) r[i] += r[i - lanes];
+      }
+    const size_t cols = rw < W - ox ? rw : W - ox;
+    const size_t keep = oy + rows <= H ? rows : H - oy;
+    for (size_t y = 0; y < keep; ++y) {
+      Unpack(buf.data() + y * rowbytes, t.bits, rw * lanes, line.data());
+      uint8_t* d = s.data() + ((oy + y) * W + ox) * spp;
+      if (t.planar == 2) {
+        for (size_t x = 0; x < cols; ++x) d[x * spp + comp] = line[x];
+      } else {
+        std::memcpy(d, line.data(), cols * spp);
+      }
+    }
+  }
+  const size_t npx = W * H;
+  if (t.photometric == 5) {
+    std::memcpy(out, s.data(), npx * 4);
+    return kOk;
+  }
+  if (t.photometric == 3) {
+    const size_t per = t.colors;
+    for (size_t i = 0; i < npx; ++i) {
+      const size_t v = s[i];
+      if (v >= per) return kBadData;  // an index past the ColorMap
+      out[3 * i] = t.colormap[v];
+      out[3 * i + 1] = t.colormap[per + v];
+      out[3 * i + 2] = t.colormap[2 * per + v];
+    }
+    return kOk;
+  }
+  const int scale = t.bits == 1 ? 255 : t.bits == 2 ? 85 : 17;
+  const int flip = t.photometric == 0 ? 255 : 0;
+  for (size_t i = 0; i < npx; ++i) {
+    const uint8_t g = static_cast<uint8_t>(flip ^ (s[i] * scale));
+    out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = g;
+  }
+  return kOk;
+}
+
+}  // namespace
+
+struct IkTiffxInfo {  // the layout of tiff_decode.cpp's IkTiffInfo
+  int32_t width, height, channels;
+};
+
+// channels: 3 (RGB), or 4 for CMYK, whose four samples the decode writes
+// as stored.
+IK_EXPORT int ik_tiffx_parse(const uint8_t* data, size_t len,
+                             IkTiffxInfo* out) {
+  Tiff t;
+  const int rc = Parse(data, len, &t);
+  out->width = static_cast<int32_t>(t.width);
+  out->height = static_cast<int32_t>(t.height);
+  out->channels = t.photometric == 5 ? 4 : 3;
+  return rc;
+}
+
+IK_EXPORT int ik_tiffx_decode(const uint8_t* data, size_t len, uint8_t* out,
+                              size_t out_cap) {
+  Tiff t;
+  const int rc = Parse(data, len, &t);
+  if (rc != kOk) return rc;
+  return Decode(data, t, out, out_cap);
+}

@@ -14,11 +14,14 @@ pool (a source whose data then fails to decode is answered by ``/img`` with
 this stage's body, :class:`~imagekit_tpu_torch.errors.SourceDecodeError`).
 A JPEG whose header the native parser refuses answers here as the
 reference's Pillow decode does ("Unable to decode image for validation"),
-unless it refuses it as unsupported (-3): a CMYK or YCCK JPEG is then
-validated by the four-component parser, and another (12-bit, arithmetic,
-progressive CMYK) is left to the engine, which answers it with a
-:class:`~imagekit_tpu_torch.errors.NotPortedError`, as it does a variant a
-decoder does not take.
+unless it refuses it as unsupported (-3): a CMYK or YCCK JPEG, baseline or
+progressive, is then validated by the four-component parser, and another
+(12-bit, arithmetic) is left to the engine, which answers it with a
+:class:`~imagekit_tpu_torch.errors.NotPortedError`, as it does a variant
+no decoder takes. A BMP or TIFF that the pinned parser refuses as
+unsupported is validated by the port's own parser of those layouts
+(``misc.parse_bmp``, ``tiff.parse``); what that one refuses as corrupt, as
+Pillow would, is this stage's 400.
 """
 
 from __future__ import annotations

@@ -55,6 +55,7 @@ from imagekit_tpu_torch.codecs import (
     decode_bytes,
     guess_format,
     jpeg,
+    tiff,
 )
 from imagekit_tpu_torch.codecs.native import loader
 from imagekit_tpu_torch.config import ImageFormat, ImageKitConfig
@@ -171,10 +172,10 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
         pool, without Pillow (:func:`imagekit_tpu_torch.codecs.
         decode_bytes`). A JPEG is entropy-decoded there, and its IDCT,
         chroma upsample and colour stages run on the engine's device (one
-        K3 launch on CUDA) from a dispatch thread. A source that the
-        reference decodes in full at its fetch stage (everything but JPEG,
-        WebP and AVIF) and whose data does not decode raises
-        :class:`SourceDecodeError`."""
+        K3 launch on CUDA) from a dispatch thread, as is a CMYK TIFF's
+        colour step. A source that the reference decodes in full at its
+        fetch stage (everything but JPEG, WebP and AVIF) and whose data does
+        not decode raises :class:`SourceDecodeError`."""
         src = guess_format(data)  # TransformError on undetectable bytes
         if src == SourceFormat.jpeg:
             comps = await self._pool_run(
@@ -183,14 +184,20 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
                 "device_decode", jpeg.components_to_rgb, comps)
         at_fetch = src not in (SourceFormat.webp, SourceFormat.avif)
 
-        def run():
+        def run(decode=lambda d: decode_bytes(d)[0]):
             try:
-                return decode_bytes(data)[0]
+                return decode(data)
             except TransformError as e:
                 if at_fetch:
                     raise SourceDecodeError(e.message) from e
                 raise
 
+        if src == SourceFormat.tiff:
+            img, cmyk = await self._pool_run("decode", run, tiff.decode_stored)
+            if cmyk:  # the colour step on the device, as a CMYK JPEG's
+                img = await self._device_run("device_decode",
+                                             tiff.cmyk_to_rgb, img)
+            return img
         return await self._pool_run(
             "decode_png" if src == SourceFormat.png else "decode", run)
 

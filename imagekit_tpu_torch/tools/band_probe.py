@@ -23,6 +23,14 @@ It prints one line per variant and writes the times, with the card's name
 and power limit, as JSON. The variants are textual patches of the body:
 a patch that no longer applies raises, so the probe follows the source or
 fails.
+
+With ``--sanitize`` it only runs the committed body once on small cases,
+for a run under ``compute-sanitizer`` (``--tool memcheck`` or
+``racecheck``): K2 with three and four channels at B=2, in whole rows and
+in column strips of 128, and K3's two launches of the four-component
+pixel decode of the committed progressive CMYK fixture:
+
+    compute-sanitizer --tool memcheck python -m imagekit_tpu_torch.tools.band_probe --sanitize
 """
 
 from __future__ import annotations
@@ -153,7 +161,7 @@ def _stack(slots, bi, bo, weights, dev):
 
 
 def k2_case(dev="cuda", channels: int = 3, strip: int = 0,
-            smooth: bool = False):
+            smooth: bool = False, batch: int = 32):
     """The flagship RGB batch (or, with 4 ``channels``, the same batch as
     RGBA) and its stacks (edge rows replicated, as the engine builds
     them); returns a call of ``rgb_resize`` (``rgba_resize``), in column
@@ -174,7 +182,7 @@ def k2_case(dev="cuda", channels: int = 3, strip: int = 0,
     wh = _stack([(ti, to, 1920, 400) for ti, to in K2_H], 1920, 400, edge,
                 dev)
     g = torch.Generator(device=dev).manual_seed(0)
-    shape = (32, 1088, 1920 * channels)
+    shape = (batch, 1088, 1920 * channels)
     if smooth:
         ramp = torch.linspace(0, 200, shape[2], device=dev)
         x = (ramp + 8 * torch.randn(shape, generator=g, device=dev)).clamp(
@@ -182,7 +190,7 @@ def k2_case(dev="cuda", channels: int = 3, strip: int = 0,
     else:
         x = torch.randint(0, 256, shape, generator=g, device=dev,
                           dtype=torch.uint8)
-    vidx = torch.arange(32, dtype=torch.int32, device=dev) % 4
+    vidx = torch.arange(batch, dtype=torch.int32, device=dev) % 4
     hidx = (vidx + 1) % 4
     tabs = resize_strip.resize_tables(wv, wh)
     resize = (resize_strip.rgba_resize if channels == 4
@@ -272,6 +280,34 @@ def pixel_decode_case(layout: str, dev="cuda"):
     return lambda: rp.resize_planes3(planes, stacks, vidx, bands=tabs)
 
 
+def cmyk_case(dev="cuda"):
+    """K3's two launches of the four-component pixel decode (C, M, Y, then
+    K) of the committed progressive 1080p CMYK fixture."""
+    from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
+    from imagekit_tpu_torch.ops import dct
+
+    data = (Path(__file__).resolve().parents[2] / "tests" / "fixtures"
+            / "cmyk_1080p_q80_progressive.jpg").read_bytes()
+    return lambda: dct.four_component_planes(
+        jpeg_abi.decode4(loader.load(), data), torch.device(dev))
+
+
+def sanitize_cases() -> int:
+    """Each small case once, synchronised (see the module docstring)."""
+    _build.load()
+    cases = {"K2 rgb B=2": k2_case(batch=2),
+             "K2 rgba B=2": k2_case(channels=4, batch=2),
+             "K2 rgb B=2 strips of 128": k2_case(strip=128, batch=2),
+             "K2 rgba B=2 strips of 128": k2_case(channels=4, strip=128,
+                                                  batch=2),
+             "K3 CMYK pixel decode (two launches)": cmyk_case()}
+    for name, fn in cases.items():
+        fn()
+        torch.cuda.synchronize()
+        print(f"ran {name}", flush=True)
+    return 0
+
+
 def card() -> str:
     try:
         return subprocess.run(
@@ -293,10 +329,15 @@ def main(argv=None) -> int:
     ap.add_argument("--smooth", action="store_true",
                     help="K2's batches a ramp with mild noise, not uniform "
                          "random bytes")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="run the committed body once on small cases only, "
+                         "for compute-sanitizer")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("band_probe: no CUDA device", file=sys.stderr)
         return 2
+    if args.sanitize:
+        return sanitize_cases()
     names = args.variants.split(",")
     print(f"card: {card()}", flush=True)
     libs = build_variants(names)

@@ -1205,3 +1205,97 @@ def test_pillow_sources_on_card_match_cpu(monkeypatch, case):
     for a, b in zip(*seen):
         d = (torch.from_numpy(a).int() - torch.from_numpy(b).int()).abs()
         assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= MAX_SHARE
+
+
+@needs_card
+@pytest.mark.parametrize("ycck", [False, True], ids=["cmyk", "ycck"])
+def test_progressive_four_component_decode_on_card_matches_cpu(ycck):
+    """The committed progressive 1080p CMYK JPEG (and the same bytes read as
+    YCCK) on the card: two K3 launches, and RGB within +-2 on at most 0.1%
+    of the CPU's plain decode."""
+    from pathlib import Path
+
+    from imagekit_tpu_torch.codecs import jpeg
+    from imagekit_tpu_torch.ops import resize_planes
+
+    data = (Path(__file__).parent / "fixtures"
+            / "cmyk_1080p_q80_progressive.jpg").read_bytes()
+    if ycck:
+        at = data.index(b"Adobe") + 11
+        data = data[:at] + b"\x02" + data[at + 1:]
+    before = resize_planes.LAUNCHES
+    got = jpeg.decode_rgb(data, device="cuda")
+    assert resize_planes.LAUNCHES == before + 2
+    want = jpeg.decode_rgb(data, device="cpu")
+    assert got.shape == want.shape == (1080, 1920, 3)
+    d = np.abs(got.astype(int) - want.astype(int))
+    assert d.max() <= 2 and (d > 0).mean() <= MAX_SHARE
+
+
+@needs_card
+@pytest.mark.parametrize("case", ["g4_page", "bilevel_page", "cmyk_tiff",
+                                  "bmp_bgra_v5", "bmp_565", "bmp_core24",
+                                  "progressive_cmyk"])
+def test_pillow_fallbacks_on_card_match_cpu(monkeypatch, case):
+    """Phase 20's sources (``chip_smoke.py``'s writers and the committed
+    fixtures) in one batch of two requests -> w=200 WebP through the engine
+    on the card and on the CPU: one K2 launch for the batch (four channels
+    for the BGRA BMP), two K3 launches a progressive CMYK request, and the
+    planes handed to the VP8 encoder within the band."""
+    from pathlib import Path
+
+    import chip_smoke
+    from imagekit_tpu_torch.codecs import vp8
+    from imagekit_tpu_torch.config import BatchConfig, ImageFormat, ImageKitConfig
+    from imagekit_tpu_torch.ops import resize_planes
+    from imagekit_tpu_torch.serving.batcher import BatchedEngine
+    from imagekit_tpu_torch.serving.metrics import Metrics
+
+    fixtures = Path(__file__).parent / "fixtures"
+    img = chip_smoke.synth_image(9, 640, 360, noise=False)
+    data = {
+        "g4_page": lambda: (fixtures / "g4_a4_300dpi.tif").read_bytes(),
+        "bilevel_page": lambda: chip_smoke.make_bilevel_tiff(
+            chip_smoke.text_page(chip_smoke.G4_SEED)),
+        "cmyk_tiff": lambda: chip_smoke.make_cmyk_tiff(img),
+        "bmp_bgra_v5": lambda: chip_smoke.make_bmp_fields(
+            chip_smoke.ramp_alpha(img), "v5_bgra"),
+        "bmp_565": lambda: chip_smoke.make_bmp_fields(img, "565"),
+        "bmp_core24": lambda: chip_smoke.make_bmp_fields(img, "core24"),
+        "progressive_cmyk": lambda: (
+            fixtures / "cmyk_1080p_q80_progressive.jpg").read_bytes(),
+    }[case]()
+    seen = []
+    real_vp8 = vp8.encode_yuv420
+
+    def rec_vp8(yp, u, v, q):
+        seen.append((yp.copy(), u.copy(), v.copy()))
+        return real_vp8(yp, u, v, q)
+
+    monkeypatch.setattr(vp8, "encode_yuv420", rec_vp8)
+    for device in ("cuda", "cpu"):
+        engine = BatchedEngine(ImageKitConfig(secret="s", batch=BatchConfig(
+            max_batch=2, max_delay_ms=60_000.0, hard_delay_ms=60_000.0)),
+            metrics=Metrics(), device=device)
+
+        async def run():
+            try:
+                return await asyncio.gather(*(engine.transform(
+                    data, 200, None, ImageFormat.webp, 80) for _ in range(2)))
+            finally:
+                await engine.close()
+
+        k2 = resize_strip.LAUNCHES + resize_strip.LAUNCHES_RGBA
+        k3 = resize_planes.LAUNCHES
+        asyncio.run(run())
+        on_card = int(device == "cuda")
+        assert engine.metrics.batches == 1
+        assert resize_strip.LAUNCHES + resize_strip.LAUNCHES_RGBA - k2 == on_card
+        assert resize_planes.LAUNCHES - k3 == on_card * (
+            4 if case == "progressive_cmyk" else 0)
+    assert len(seen) == 4
+    for a, b in zip(seen[:2], seen[2:]):  # the same source, card vs CPU
+        for p, q in zip(a, b):
+            d = (torch.from_numpy(p).int() - torch.from_numpy(q).int()).abs()
+            assert int(d.max()) <= 1
+            assert float((d > 0).float().mean()) <= MAX_SHARE

@@ -594,8 +594,13 @@ def test_committed_fixture_is_its_recipe():
 
 
 def test_progressive_cmyk_stays_not_ported():
+    """Progressive CMYK in Huffman coding decodes now
+    (``tests/test_torch_pillow_fallbacks.py``); in arithmetic coding (SOF10,
+    Pillow's file with its SOF2 marker changed) it stays 501."""
     data = _save(Image.fromarray(make_test_image(64, 48)).convert("CMYK"),
                  "JPEG", progressive=True)
+    at = data.index(b"\xff\xc2")
+    data = data[:at + 1] + b"\xca" + data[at + 2:]
     with pytest.raises(NotPortedError, match="queue 1 item 10"):
         jpeg.decode_rgb(data, device="cpu")
 

@@ -228,13 +228,15 @@ def test_port_only_native_sources_are_built_and_not_copies():
     reference source, so nothing pins them."""
     from imagekit_tpu_torch.codecs.native import loader
 
-    own = ("raster_decode.cpp", "jpeg4_decode.cpp")
+    own = ("raster_decode.cpp", "jpeg4_decode.cpp", "bmp_ext_decode.cpp",
+           "tiff_ext_decode.cpp")
     for name in own:
         assert name in loader._SOURCES and name not in NATIVE
         assert not (ROOT / "imagekit_tpu" / "codecs" / "native" / name).exists()
     lib = loader.load()
     for fn in ("ik_qoi_decode", "ik_bcn_decode", "ik_jpeg4_parse",
-               "ik_jpeg4_decode_coeffs"):
+               "ik_jpeg4_decode_coeffs", "ik_bmpx_parse", "ik_bmpx_decode",
+               "ik_tiffx_parse", "ik_tiffx_decode"):
         assert hasattr(lib, fn)
 
 

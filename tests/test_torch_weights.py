@@ -155,6 +155,8 @@ def test_port_imports_no_jax_and_no_reference_device_modules():
         import imagekit_tpu_torch.codecs.pnm
         import imagekit_tpu_torch.codecs.qoi
         import imagekit_tpu_torch.codecs.jpeg
+        import imagekit_tpu_torch.codecs.misc
+        import imagekit_tpu_torch.codecs.tiff
         import imagekit_tpu_torch.codecs.native.loader
         import imagekit_tpu_torch.cache
         import imagekit_tpu_torch.signature
