@@ -23,7 +23,7 @@ whole rows); and JPEG sources beyond 4:2:0 (4:4:4, 4:2:2, 4:4:0,
 grayscale: the JPEG pixel decode on K3, then the RGB head on K2); and
 the sources the reference decodes with Pillow (ICO, PNM, QOI, DDS, CMYK
 and YCCK JPEGs baseline and progressive, BMP and TIFF layouts its native
-decoders refuse):
+decoders refuse, JPEG-compressed TIFFs):
 
 1. environment: the card (``nvidia-smi``), torch and CUDA versions;
 2. build: the kernel library (one nvcc per source, started together) and,
@@ -175,6 +175,22 @@ decoders refuse):
     request): requests/s, p50/p99, host stages (the decode ms a request),
     idle share. K3 on the four planes of the progressive CMYK decode
     against its plain version (max |d| 0), timed, with an einsum
+    yardstick and the bound;
+21. JPEG-compressed TIFFs: the committed Pillow-written 1080p RGB (16-row
+    strips) and CMYK (8-row strips) files
+    (``tests/fixtures/tiff_jpeg_*_1080p_q80.tif``), and, written here
+    without Pillow (``make_jpeg_tiff``: the port's encoder a segment, the
+    DQT in ``JPEGTables``), a 1080p YCbCr 4:2:0 file in 16-row strips and
+    in 256x256 tiles, a gray one and an A4 300 dpi YCbCr page in 16-row
+    strips; each decode checked against its picture and, on the card,
+    against the host's plain decode; the A4 page's stack bytes and their
+    build + upload time; counts reset before each round, each round run
+    once, traced: RGB -> w=400 WebP, the strips -> w=400 JPEG and WebP, the
+    tiles -> WebP, CMYK -> WebP, gray -> JPEG with no resize, the A4 page
+    -> w=400 WebP (one K3 launch a page, two for CMYK, never one a strip;
+    one K2 launch a batch; K3's column strips counted): requests/s,
+    p50/p99, host stages, idle share. K3 on the 1080p strip page's
+    block-diagonal stacks against its plain version, timed, with an einsum
     yardstick and the bound.
 
 Device times are the kernels' own, summed by ``torch.profiler`` over 20
@@ -3293,23 +3309,16 @@ def ycck_of(cmyk: bytes) -> bytes:
     return cmyk[:at] + b"\x02" + cmyk[at + 1:]
 
 
-def k3_cmyk_case(data: bytes) -> dict:
-    """K3 on the four planes of one CMYK pixel decode (its two launches: C,
-    M and Y, then K) against its plain version, each plane compared;
-    device ms of the two launches, of the plain version and of one fp32
-    einsum a plane; the bound."""
-    from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
+def k3_planes_case(planes, stacks, tabs, vidx, what: str) -> dict:
+    """K3 on the planes of one pixel decode (``dct.resize_components``: one
+    launch a three planes) against its plain version, each plane compared;
+    device ms of the launches, of the plain version and of one fp32 einsum
+    a plane; the bound."""
     from imagekit_tpu_torch.ops import dct
     from imagekit_tpu_torch.ops import resize_planes as rp
 
-    planes, stacks, tabs, vidx = dct.four_component_inputs(
-        jpeg_abi.decode4(loader.load(), data), torch.device("cuda"))
-
     def kernel():
-        return (rp.resize_planes_u8(planes[:3], stacks[:3], vidx,
-                                    bands=tabs[:3])
-                + rp.resize_planes_u8(planes[3:], stacks[3:], vidx,
-                                      bands=tabs[3:]))
+        return dct.resize_components(planes, stacks, tabs, vidx)
 
     def plain():
         return [rp.resize_planes_plain(p, wv, wh, vidx)
@@ -3320,7 +3329,7 @@ def k3_cmyk_case(data: bytes) -> dict:
     for a, b in zip(kernel(), plain()):
         mx, share1, over = compare(a, b)
         if mx > MAX_ABS or share1 > MAX_SHARE or over:
-            raise RuntimeError(f"K3 at the CMYK planes {case['planes']} "
+            raise RuntimeError(f"K3 at the {what} planes {case['planes']} "
                                f"disagrees with its plain version: "
                                f"max|d|={mx}, share(|d|=1)={share1:.3e}")
         case["max_abs_err"] = max(case["max_abs_err"], mx)
@@ -3332,6 +3341,16 @@ def k3_cmyk_case(data: bytes) -> dict:
     case["bound_ms"], case["bound_by"] = plane_list_bound(planes, stacks,
                                                           tabs, vidx)
     return case
+
+
+def k3_cmyk_case(data: bytes) -> dict:
+    """:func:`k3_planes_case` at the four planes of one CMYK pixel decode
+    (its two launches: C, M and Y, then K)."""
+    from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
+    from imagekit_tpu_torch.ops import dct
+
+    return k3_planes_case(*dct.four_component_inputs(
+        jpeg_abi.decode4(loader.load(), data), torch.device("cuda")), "CMYK")
 
 
 def drive_rounds(rounds, card: str, steps: dict) -> dict:
@@ -3384,14 +3403,15 @@ def drive_rounds(rounds, card: str, steps: dict) -> dict:
                 stage0 = {k: metrics.stage_seconds[k] for k in stages}
                 jpeg8.LAUNCHES = resize_strip.LAUNCHES = 0
                 resize_strip.LAUNCHES_RGBA = 0
-                rp.LAUNCHES = rp.LAUNCHES_F32 = 0
+                rp.LAUNCHES = rp.LAUNCHES_F32 = rp.LAUNCHES_STRIPS = 0
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     t0 = time.perf_counter()
                     res = await asyncio.gather(*(one(*r) for r in reqs))
                     torch.cuda.synchronize()
                     wall = time.perf_counter() - t0
                 runs.append({"res": res, "wall": wall, "traced_wall": wall,
-                             **counts(), "batches": metrics.batches - batches0,
+                             **counts(), "k3_strips": rp.LAUNCHES_STRIPS,
+                             "batches": metrics.batches - batches0,
                              "spent": {k: metrics.stage_seconds[k] - stage0[k]
                                        for k in stages},
                              "busy": device_busy_s(prof)})
@@ -3427,7 +3447,8 @@ def drive_rounds(rounds, card: str, steps: dict) -> dict:
                 f"{name}: {launched} launches and {run['batches']} batches; "
                 f"expected {expected} and no other")
         summary["rounds"][name] = {
-            "launches": launched, "batches": run["batches"], "rps": rps,
+            "launches": launched, "k3_strips": run["k3_strips"],
+            "batches": run["batches"], "rps": rps,
             "p50_ms": p50, "p99_ms": p99, "idle_share": idle,
             "stage_s_per_request": {k: v / n_req
                                     for k, v in run["spent"].items() if v}}
@@ -3795,6 +3816,252 @@ def phase_pillow_fallbacks(card: str) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 21: JPEG-compressed TIFFs
+# ---------------------------------------------------------------------------
+
+TIFF_JPEG_RGB_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                                     "tiff_jpeg_rgb_1080p_q80.tif")
+TIFF_JPEG_CMYK_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                                      "tiff_jpeg_cmyk_1080p_q80.tif")
+TIFF_JPEG_SEED = 800  # the fixtures are synth_image(800, noise=False)
+
+
+def tiff_file(w: int, h: int, tags: dict, chunks, tile: int = 0) -> bytes:
+    """A little-endian TIFF of one IFD: ``chunks`` (strips, or ``tile``-px
+    square tiles row by row) after the header, then the IFD of ``tags``
+    {tag: (type, values)} (3 SHORT, 4 LONG, 7 UNDEFINED with the values as
+    bytes) with the size and chunk tags added, then the values that do not
+    fit in their entries."""
+    body, offs = b"", []
+    for c in chunks:
+        offs.append(8 + len(body))
+        body += c + b"\0" * (len(c) % 2)
+    lens = [len(c) for c in chunks]
+    tags = {256: (4, [w]), 257: (4, [h]), **tags}
+    if tile:
+        tags.update({322: (3, [tile]), 323: (3, [tile]), 324: (4, offs),
+                     325: (4, lens)})
+    else:
+        tags.update({273: (4, offs), 279: (4, lens)})
+    ifd_off = 8 + len(body)
+    tail_off = ifd_off + 2 + 12 * len(tags) + 4
+    ifd, tail = struct.pack("<H", len(tags)), b""
+    for t in sorted(tags):
+        typ, vals = tags[t]
+        raw = bytes(vals) if typ == 7 else b"".join(
+            struct.pack("<" + {3: "H", 4: "I"}[typ], v) for v in vals)
+        ifd += struct.pack("<HHI", t, typ, len(raw) if typ == 7 else len(vals))
+        if len(raw) <= 4:
+            ifd += raw.ljust(4, b"\0")
+        else:
+            ifd += struct.pack("<I", tail_off + len(tail))
+            tail += raw + b"\0" * (len(raw) % 2)
+    return (b"II*\x00" + struct.pack("<I", ifd_off) + body + ifd
+            + struct.pack("<I", 0) + tail)
+
+
+def split_jpeg(data: bytes, moved=(0xDB, 0xC4)):
+    """A whole baseline JPEG -> (tables, segment) as a JPEG TIFF holds them:
+    SOI, its segments of the ``moved`` markers (DQT and DHT), EOI
+    (``JPEGTables``); SOI, its other segments but the APPn ones, the scan,
+    EOI (a strip or a tile)."""
+    tables, rest, at = [], [], 2
+    while data[at + 1] != 0xDA:
+        n = struct.unpack(">H", data[at + 2:at + 4])[0]
+        seg = data[at:at + 2 + n]
+        if data[at + 1] in moved:
+            tables.append(seg)
+        elif not 0xE0 <= data[at + 1] <= 0xEF:
+            rest.append(seg)
+        at += 2 + n
+    return (b"\xff\xd8" + b"".join(tables) + b"\xff\xd9",
+            b"\xff\xd8" + b"".join(rest) + data[at:])
+
+
+def make_jpeg_tiff(img: np.ndarray, quality: int = 80, samp=(2, 2),
+                   rows: int = 16, tile: int = 0, gray: bool = False,
+                   tables: bool = True) -> bytes:
+    """A JPEG-compressed TIFF of an RGB image without Pillow: YCbCr
+    (photometric 6, ``samp`` the YCbCrSubSampling), or gray (photometric 1)
+    where ``gray``; in strips of ``rows`` rows (a multiple of the MCU
+    height), or in ``tile``-px square tiles, the edge tiles padded by
+    replicating the image's edge. The image is encoded once by the port's
+    encoder (``make_jpeg``'s); each strip or tile is then the JPEG of its
+    blocks (an MCU does not straddle a segment, so these are the segment's
+    own JPEG's coefficients), its DQT moved into ``JPEGTables`` (tag 347)
+    unless ``tables`` is False. The encoder's Huffman tables are optimised
+    for each segment, so each keeps its DHT."""
+    from imagekit_tpu_torch.codecs.native import loader
+    from imagekit_tpu_torch.ops.weights import host_encode_rgb_to_coefficients
+
+    h, w = img.shape[:2]
+    sh, sv = (1, 1) if gray else samp
+    if tile:
+        gh, gw = -(-h // tile), -(-w // tile)
+        img = np.pad(img, ((0, gh * tile - h), (0, gw * tile - w), (0, 0)),
+                     mode="edge")
+        seg_w, seg_h = tile, tile
+    else:
+        gh, gw, seg_w, seg_h = -(-h // rows), 1, w, rows
+    planes, qt = host_encode_rgb_to_coefficients(img, quality, (sh, sv))
+    factors = [(sh, sv), (1, 1), (1, 1)]
+    if gray:
+        planes, factors = planes[:1], factors[:1]
+    tab, segs = None, []
+    for i in range(gh):
+        sh_px = seg_h if tile else min(rows, h - i * rows)
+        for j in range(gw):
+            my, mx = i * seg_h // (8 * sv), j * seg_w // (8 * sh)
+            ny, nx = -(-sh_px // (8 * sv)), -(-seg_w // (8 * sh))
+            part = [p[my * fv:(my + ny) * fv, mx * fh:(mx + nx) * fh]
+                    for p, (fh, fv) in zip(planes, factors)]
+            tab, seg = split_jpeg(loader.encode_jpeg(part, qt, seg_w, sh_px,
+                                                     (sh, sv)), (0xDB,))
+            segs.append(seg if tables else tab[:-2] + seg[2:])
+    n = 1 if gray else 3
+    tags = {258: (3, [8] * n), 259: (3, [7]), 262: (3, [1 if gray else 6]),
+            277: (3, [n]), 284: (3, [1])}
+    if not gray:
+        tags[530] = (3, [sh, sv])
+    if not tile:
+        tags[278] = (4, [rows])
+    if tables:
+        tags[347] = (7, tab)
+    return tiff_file(w, h, tags, segs, tile)
+
+
+def phase_tiff_jpeg(card: str) -> dict:
+    """JPEG-compressed TIFFs through one engine: each strip or tile
+    entropy-decoded on the codec pool, then one pixel decode a page on a
+    dispatch thread (one K3 launch a page of one or three components, two
+    for four, with block-diagonal chroma stacks), then the RGB head (K2, one
+    launch a batch). The RGB and CMYK files are Pillow's, committed (the
+    card's machine has no Pillow); the YCbCr strips and tiles, the gray
+    page and the A4 page are written here (``make_jpeg_tiff``). Each decode
+    is checked first: against the picture it was made from, and on the card
+    against the plain decode on the host's CPU. Then the rounds
+    (``drive_rounds``), the A4 page's stacks (bytes and build + upload
+    time), and K3 at the 1080p strip page's block-diagonal stacks against
+    its plain version. The seconds of each step are logged."""
+    from imagekit_tpu_torch.codecs import decode_bytes, tiff
+    from imagekit_tpu_torch.config import ImageFormat
+    from imagekit_tpu_torch.ops import dct
+
+    W, J = ImageFormat.webp, ImageFormat.jpeg
+    t0 = time.perf_counter()
+    rgb = open(TIFF_JPEG_RGB_FIXTURE, "rb").read()
+    cmyk = open(TIFF_JPEG_CMYK_FIXTURE, "rb").read()
+    picture = synth_image(TIFF_JPEG_SEED, noise=False)
+    image = synth_image(810, noise=False)
+    strips = make_jpeg_tiff(image, 80)
+    tiles = make_jpeg_tiff(image, 80, tile=256)
+    gray = make_jpeg_tiff(image, 80, gray=True)
+    page = synth_image(820, *A4, noise=False)
+    a4 = make_jpeg_tiff(page, 80)
+    log(f"    read the Pillow-written 1080p RGB ({len(rgb) / 1e3:.0f} kB, "
+        f"68 strips) and CMYK ({len(cmyk) / 1e3:.0f} kB, 135 strips) JPEG "
+        f"TIFFs; made a 1080p YCbCr 4:2:0 JPEG TIFF in 16-row strips "
+        f"({len(strips) / 1e3:.0f} kB, 68) and in 256x256 tiles "
+        f"({len(tiles) / 1e3:.0f} kB, 40), a gray one and a {A4[0]}x{A4[1]}"
+        f" YCbCr page in 16-row strips ({len(a4) / 1e3:.0f} kB, "
+        f"{-(-A4[1] // 16)}) in {time.perf_counter() - t0:.2f} s")
+    steps = {"sources": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    luma = np.clip(np.floor(image.astype(np.float32) @ np.float32(
+        [0.299, 0.587, 0.114]) + 0.5), 0, 255).astype(np.uint8)
+    checks = []
+    for name, data, want in (
+            ("RGB", rgb, picture), ("CMYK", cmyk, picture),
+            ("YCbCr strips", strips, image), ("YCbCr tiles", tiles, image),
+            ("gray", gray, np.repeat(luma[..., None], 3, 2)),
+            ("A4 page", a4, page)):
+        decode_bytes(data, device="cuda")  # a first call loads its modules
+        t1 = time.perf_counter()
+        got = decode_bytes(data, device="cuda")[0]
+        steps[f"decode {name}"] = time.perf_counter() - t1
+        err = got.astype(np.float64) - want
+        p = 10 * np.log10(255.0 ** 2 / max(float((err ** 2).mean()), 1e-12))
+        checks.append(f"{name} {p:.2f} dB")
+        if got.shape != want.shape or p < 30.0:
+            raise RuntimeError(f"the {name} JPEG TIFF decode is not its "
+                               f"picture ({got.shape}, PSNR {p:.2f} dB)")
+    against_plain = []
+    for name, data in (("YCbCr strips", strips), ("YCbCr tiles", tiles),
+                       ("CMYK", cmyk)):
+        diff = np.abs(decode_bytes(data, device="cuda")[0].astype(int)
+                      - decode_bytes(data, device="cpu")[0].astype(int))
+        against_plain.append(f"{name} max|d|={diff.max()} on "
+                             f"{(diff > 0).mean():.3e} of values")
+        if diff.max() > 2 or (diff > 0).mean() > MAX_SHARE:
+            raise RuntimeError(f"the {name} JPEG TIFF decode on the card is "
+                               f"not the plain one on the host's CPU")
+    log(f"    decodes against their pictures: {', '.join(checks)} (host + "
+        f"card ms: " + ", ".join(f"{k[7:]} {v * 1e3:.1f}" for k, v in
+                                 steps.items() if k.startswith("decode "))
+        + f"); on the card against the host's plain decode: "
+        f"{'; '.join(against_plain)}")
+    steps["decode checks"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    a4_page = tiff.entropy_decode(a4)
+    entropy_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, a4_stacks, _, _ = dct.tiff_page_inputs(a4_page, torch.device("cuda"))
+    torch.cuda.synchronize()
+    stacks_s = time.perf_counter() - t0
+    stack_mb = sum(t.numel() * t.element_size() for t in {
+        id(x): x for pair in a4_stacks for x in pair}.values()) / 1e6
+    log(f"    the A4 page: {-(-A4[1] // 16)} segments entropy-decoded in "
+        f"{entropy_s * 1e3:.1f} ms; its dense stacks (luma identity, "
+        f"block-diagonal chroma) {stack_mb:.1f} MB, built on the host and "
+        f"uploaded with the IDCT planes in {stacks_s * 1e3:.1f} ms a request")
+    steps["A4 stacks"] = entropy_s + stacks_s
+
+    small_out = (400, 225)
+    head, cmyk_head = {"k3": 1, "k2": "batch"}, {"k3": 2, "k2": "batch"}
+    rounds = [
+        ("1080p RGB JPEG TIFF (Pillow, 16-row strips) -> w=400 WebP", [rgb],
+         16, 400, W, small_out, head),
+        ("1080p YCbCr 4:2:0 JPEG TIFF, 16-row strips -> w=400 JPEG",
+         [strips], 16, 400, J, small_out, head),
+        ("1080p YCbCr 4:2:0 JPEG TIFF, 16-row strips -> w=400 WebP",
+         [strips], 16, 400, W, small_out, head),
+        ("1080p YCbCr 4:2:0 JPEG TIFF, 256x256 tiles -> w=400 WebP",
+         [tiles], 16, 400, W, small_out, head),
+        ("1080p CMYK JPEG TIFF (Pillow, 8-row strips) -> w=400 WebP",
+         [cmyk], 16, 400, W, small_out, cmyk_head),
+        ("1080p gray JPEG TIFF -> JPEG, no resize", [gray], 16, None, J,
+         (1920, 1080), {"k3": 1}),
+        ("A4 300 dpi YCbCr 4:2:0 JPEG TIFF, 16-row strips -> w=400 WebP",
+         [a4], 16, 400, W, (400, 566), head),
+    ]
+    summary = drive_rounds(rounds, card, steps)
+    log("    K3 launches in column strips: " + ", ".join(
+        f"{name.split(' JPEG')[0]} {r['k3_strips']} of "
+        f"{r['launches']['k3']}" for name, r in summary["rounds"].items()))
+    case, steps["K3 at the strip page"] = timed(
+        lambda: k3_planes_case(*dct.tiff_page_inputs(
+            tiff.entropy_decode(strips), torch.device("cuda")),
+            "JPEG TIFF page"))
+    log(f"  K3 at the 1080p YCbCr 4:2:0 JPEG TIFF page (68 strips, "
+        f"{case['planes']} -> 1088x1920, block-diagonal vertical chroma "
+        f"stacks, B=1, one launch) vs plain: max|d|={case['max_abs_err']} "
+        f"share(differ)={case['share_differ']:.3e}; device time per call K3 "
+        f"{case['ms']:.4f} ms vs plain {case['plain_ms']:.4f} ms vs einsum "
+        f"{case['library_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
+        f"({case['bound_by']}), K3 at {case['bound_ms'] / case['ms']:.1%} "
+        f"of it [{card}]")
+    summary["k3_page"] = case
+    summary["a4_stacks"] = {"mb": stack_mb, "ms": stacks_s * 1e3,
+                            "entropy_ms": entropy_s * 1e3}
+    log("    seconds a step (a round's include its warm-up and trace): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in steps.items()))
+    summary["step_s"] = steps
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3938,6 +4205,11 @@ def main() -> int:
           " and core-header BMPs, progressive CMYK and YCCK JPEGs, "
           "BatchedEngine(device='cuda').transform")
     fallbacks = phase_pillow_fallbacks(card)
+
+    begin("[21] JPEG-compressed TIFFs: strips and tiles entropy-decoded on "
+          "the host, one K3 pixel decode a page, the RGB head on K2, "
+          "BatchedEngine(device='cuda').transform")
+    tiffj = phase_tiff_jpeg(card)
     end_phase()
     log("    seconds a phase (heading to heading): " + ", ".join(
         f"[{k}] {v:.2f}" for k, v in PHASE_S.items()))
@@ -3966,6 +4238,7 @@ def main() -> int:
         "avif_launches": avif_n["resample_rgb_yuv_batch"],
         "pillow_source_launches": pillow["k2_launches"],
         "pillow_fallback_launches": fallbacks["k2_launches"],
+        "tiff_jpeg_launches": tiffj["k2_launches"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
@@ -4003,6 +4276,13 @@ def main() -> int:
         "progressive_cmyk_launches": fallbacks["k3_launches"],
         "pixel_decode_progressive_cmyk": {
             key: fallbacks["k3_progressive"][key] for key in (
+                "max_abs_err", "share_differ", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")},
+        # JPEG-compressed TIFFs (phase 21): one launch a page (two for
+        # CMYK), and K3 at a strip page's block-diagonal stacks
+        "tiff_jpeg_launches": tiffj["k3_launches"],
+        "pixel_decode_tiff_jpeg_page": {
+            key: tiffj["k3_page"][key] for key in (
                 "max_abs_err", "share_differ", "ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms")},
     }, {
@@ -4093,6 +4373,8 @@ def main() -> int:
     if min(fallbacks[f"{k}_launches"] for k in ("k2", "k2_rgba", "k3")) <= 0:
         raise RuntimeError("a BMP, TIFF or progressive CMYK round launched "
                            "no K2 or K3")
+    if min(tiffj[f"{k}_launches"] for k in ("k2", "k3")) <= 0:
+        raise RuntimeError("a JPEG TIFF round launched no K2 or K3")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

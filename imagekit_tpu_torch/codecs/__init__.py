@@ -7,7 +7,9 @@
 :func:`decode_bytes` and :func:`encode_bytes` are the reference's
 dispatchers (``:115-239``) over the port's decoders and encoders, all on
 :mod:`.native` with no Pillow: PNG (:mod:`.png`), WebP lossy, lossless and
-extended (:mod:`.vp8`), GIF and BMP (:mod:`.misc`), TIFF (:mod:`.tiff`),
+extended (:mod:`.vp8`), GIF and BMP (:mod:`.misc`), TIFF, JPEG-compressed
+ones included, whose strips or tiles the JPEG pixel decode takes a page at
+a time (:mod:`.tiff`),
 Radiance HDR and farbfeld (:mod:`.longtail`), JPEG pixels in every layout
 the pixel decode takes, CMYK and YCCK included (:mod:`.jpeg`, whose DCT
 and colour stages run on the device: the reference's serving path decodes
@@ -115,8 +117,8 @@ def decode_bytes(data: bytes, device=None) -> Tuple[np.ndarray, SourceFormat]:
     """Decode to an HWC uint8 array (RGB, or RGBA when the source carries
     alpha). Raises TransformError on malformed input and NotPortedError for
     a source the port has no decoder for. ``device`` (the card unless the
-    caller names another) runs the DCT and colour stages of a JPEG and the
-    colour step of a CMYK TIFF."""
+    caller names another) runs the DCT and colour stages of a JPEG and of
+    a JPEG-compressed TIFF, and the colour step of a CMYK TIFF."""
     fmt = guess_format(data)
     if fmt == SourceFormat.png:
         from imagekit_tpu_torch.codecs import png

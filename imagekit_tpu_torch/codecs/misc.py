@@ -30,15 +30,20 @@ from imagekit_tpu_torch.errors import NotPortedError, TransformError
 
 _OK = 0
 _UNSUPPORTED = -3
+BUFFER = -7
 
 
 class _IkInfo(ctypes.Structure):
-    """``IkMiscInfo`` / ``IkTiffInfo``: the decoded image's geometry."""
+    """``IkMiscInfo`` / ``IkTiffInfo``: the decoded image's geometry; then
+    ``IkTiffxInfo``'s layout (what ``ik_tiffx_decode`` writes, or a JPEG
+    TIFF's segments: ``tiff_ext_decode.cpp``), which the other decoders
+    leave 0."""
 
     _fields_ = [
         ("width", ctypes.c_int32),
         ("height", ctypes.c_int32),
         ("channels", ctypes.c_int32),
+        ("layout", ctypes.c_int32),
     ]
 
 
@@ -61,7 +66,8 @@ def _fn(name: str, out_type):
     return fn
 
 
-def _check(rc: int, what: str, corrupt: str) -> None:
+def check(rc: int, what: str, corrupt: str) -> None:
+    """A decoder's return code -> nothing for 0, else the port's error."""
     if rc == _UNSUPPORTED:
         raise NotPortedError(
             f"a {what} the native decoder does not take (the host-library "
@@ -71,19 +77,20 @@ def _check(rc: int, what: str, corrupt: str) -> None:
 
 
 def header(data: bytes, stem: str, what: str, corrupt: str,
-           ext: Optional[str]) -> Tuple[int, int, int, str]:
-    """(width, height, channels, the stem that took the data)."""
+           ext: Optional[str]) -> Tuple[int, int, int, str, int]:
+    """(width, height, channels, the stem that took the data, its
+    layout)."""
     info = _IkInfo()
     rc = _fn(f"ik_{stem}_parse", _IkInfo)(data, len(data), ctypes.byref(info))
     if rc == _UNSUPPORTED and ext is not None:
         stem = ext
         rc = _fn(f"ik_{ext}_parse", _IkInfo)(data, len(data),
                                              ctypes.byref(info))
-    _check(rc, what, corrupt)
+    check(rc, what, corrupt)
     if info.width * info.height > MAX_PIXELS:
         raise TransformError(
             f"image is too large ({info.width}x{info.height} pixels)")
-    return info.width, info.height, info.channels, stem
+    return info.width, info.height, info.channels, stem, info.layout
 
 
 def parse(data: bytes, stem: str, what: str, corrupt: str = "image",
@@ -96,13 +103,14 @@ def parse(data: bytes, stem: str, what: str, corrupt: str = "image",
 
 
 def decode(data: bytes, stem: str, what: str, corrupt: str = "image",
-           ext: Optional[str] = None) -> Tuple[np.ndarray, str]:
+           ext: Optional[str] = None, head=None) -> Tuple[np.ndarray, str]:
     """``data`` -> ((H, W, C) u8, the stem that decoded it), through
     ``ik_<stem>_parse`` and ``ik_<stem>_decode`` (or ``ext``'s); C = 3, or
-    4 for alpha (or for what the ``ext`` decoder says it writes)."""
-    w, h, ch, stem = header(data, stem, what, corrupt, ext)
+    4 for alpha (or for what the ``ext`` decoder says it writes). ``head``
+    is :func:`header`'s result, where the caller has read it."""
+    w, h, ch, stem, _ = head or header(data, stem, what, corrupt, ext)
     out = np.empty((h, w, ch), np.uint8)
-    _check(_fn(f"ik_{stem}_decode", None)(
+    check(_fn(f"ik_{stem}_decode", None)(
         data, len(data), out.ctypes.data_as(ctypes.c_void_p), out.nbytes),
         what, corrupt)
     return out, stem

@@ -105,9 +105,11 @@ def load() -> ctypes.CDLL:
 
 
 def _configure(lib: ctypes.CDLL) -> None:
+    from imagekit_tpu_torch.codecs import tiff
     from imagekit_tpu_torch.codecs.native import jpeg_abi
 
     jpeg_abi.configure(lib)
+    tiff.configure(lib)
     # raster_decode.cpp: (data, len, w, h, channels | BCn kind, out)
     for fn in (lib.ik_qoi_decode, lib.ik_bcn_decode):
         fn.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,

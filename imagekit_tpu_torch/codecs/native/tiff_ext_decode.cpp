@@ -15,14 +15,34 @@
 //   - CMYK (photometric 5, 8-bit, 4 samples, chunky or planar, strips or
 //     tiles, the pinned copy's compressions and predictor): written out as
 //     the four samples as stored; the caller turns them to RGB with
-//     Pillow's cmyk2rgb (ops/color.py::cmyk_to_rgb on inverted planes).
+//     Pillow's cmyk2rgb (ops/color.py::cmyk_to_rgb on inverted planes);
+//   - gray and palette with unassociated alpha (Pillow's LA and PA:
+//     photometric 1 or 3, 8-bit, 2 samples, ExtraSamples 2, chunky, the
+//     pinned copy's compressions and predictor): written out as RGBA.
+//
+// JPEG-compressed TIFFs (compression 7, 8-bit, chunky, strips or tiles:
+// YCbCr with YCbCrSubSampling of 1 or 2 on each axis, RGB, RGB with
+// unassociated alpha, gray, CMYK) are not decoded here:
+// ik_tiffx_jpeg_segments returns their segment grid, each segment's byte
+// range and the JPEGTables' range, and ik_tiffx_jpeg_parse_many and
+// ik_tiffx_jpeg_decode_many entropy-decode a page's segments in two calls,
+// each segment an independent JPEG as libtiff makes it (spliced onto the
+// tables in one scratch buffer, a segment at a time, and its levels copied
+// to its place in the page's planes), through the pinned decoder
+// (jpeg_entropy.cpp) and the four-component one (jpeg4_decode.cpp), which
+// the loader links beside this file. libtiff reads the tables once;
+// a splice copies them for each segment, so a JPEGTables longer than
+// kMaxTables, and a page whose splices would copy more than kSpliceFactor
+// times the file (overlapping segments, or many over large tables), are
+// refused as corrupt.
 //
 // Tags take Pillow's defaults where they are missing: BitsPerSample 1,
 // PhotometricInterpretation 0, SamplesPerPixel 1. Everything else (FillOrder
-// 2, JPEG and other compressions, YCbCr, CIELab, float or signed samples,
-// extra samples, 16-bit CMYK, Orientation 5-8) is -3. Corrupt data is an
-// error; so is a CCITT row whose runs overshoot its width, which libtiff
-// pads with a warning: every write is bounded by its row before it is made.
+// 2, old-style JPEG and other compressions, YCbCr without JPEG, CIELab,
+// float or signed samples, other extra samples, 16-bit CMYK, Orientation
+// 5-8) is -3. Corrupt data is an error; so is a CCITT row whose runs
+// overshoot its width, which libtiff pads with a warning: every write is
+// bounded by its row before it is made.
 //
 // The LZW, deflate and PackBits decoders are copies of tiff_decode.cpp's,
 // which keeps them in an anonymous namespace. The exported names are
@@ -100,9 +120,37 @@ struct Tiff {
   uint32_t rows_per_strip = 0;
   uint32_t tile_w = 0, tile_h = 0;
   bool tiled = false;
+  bool alpha = false;  // the last sample is unassociated alpha
+  // JPEG (compression 7): YCbCrSubSampling (0 where the tag is missing:
+  // libtiff then takes the first segment's sampling) and JPEGTables
+  int sub_h = 0, sub_v = 0;
+  size_t tables_off = 0, tables_len = 0;
 };
 
+constexpr int kJpeg = 7;
+// Four DQT and four DHT segments take under 2.5 kB
+constexpr uint64_t kMaxTables = 1 << 16;
+// The Annex K Huffman tables the caller may splice ahead of a segment's own
+constexpr uint64_t kStdDhtLen = 420;
+constexpr uint64_t kSpliceFactor = 64;
+
 bool Ccitt(int c) { return c == 2 || c == 3 || c == 4; }
+
+// The layouts of the header comment with JPEG compression: photometric 6
+// (3 samples), 2 (3, or 4 with alpha), 1 (1) or 5 (4); 8 bits, chunky.
+int CheckJpeg(const Tiff& t) {
+  if (t.bits != 8 || t.planar != 1) return kUnsupported;
+  switch (t.photometric) {
+    case 6:
+      if (t.spp != 3 || t.sub_h > 2 || t.sub_v > 2) return kUnsupported;
+      return kOk;
+    case 2: return t.spp == 3 || (t.spp == 4 && t.alpha) ? kOk
+                                                         : kUnsupported;
+    case 1: return t.spp == 1 ? kOk : kUnsupported;
+    case 5: return t.spp == 4 && !t.alpha ? kOk : kUnsupported;
+    default: return kUnsupported;
+  }
+}
 
 int Parse(const uint8_t* data, size_t len, Tiff* t) {
   Reader r{data, len, true};
@@ -120,7 +168,7 @@ int Parse(const uint8_t* data, size_t len, Tiff* t) {
   const uint16_t n = r.U16(ifd);
   if (ifd + 2 + 12u * n > len) return kTruncated;
 
-  Entry off_e, cnt_e, bps_e, extra_e, fmt_e, cmap_e;
+  Entry off_e, cnt_e, bps_e, extra_e, fmt_e, cmap_e, tables_e, sub_e;
   bool tiles = false;
   for (uint16_t i = 0; i < n; ++i) {
     const size_t e = ifd + 2 + 12u * i;
@@ -162,6 +210,8 @@ int Parse(const uint8_t* data, size_t len, Tiff* t) {
       case 325: cnt_e = ent; break;
       case 338: extra_e = ent; break;
       case 339: fmt_e = ent; break;
+      case 347: tables_e = ent; break;
+      case 530: sub_e = ent; break;
       default: break;
     }
   }
@@ -170,10 +220,16 @@ int Parse(const uint8_t* data, size_t len, Tiff* t) {
   // the layouts of the header comment, else -3
   for (uint32_t i = 0; i < fmt_e.count; ++i)
     if (EntryValue(r, fmt_e, i) != 1) return kUnsupported;
-  if (extra_e.count > 0) return kUnsupported;
+  // one extra sample, unassociated alpha (2), the last; none else
+  if (extra_e.count > 1) return kUnsupported;
+  if (extra_e.count == 1) {
+    if (EntryValue(r, extra_e, 0) != 2) return kUnsupported;
+    t->alpha = true;
+  }
   if (t->planar != 1 && t->planar != 2) return kUnsupported;
   const int c = t->compression;
-  if (c != 1 && c != 5 && c != 8 && c != 32946 && c != 32773 && !Ccitt(c))
+  if (c != 1 && c != 5 && c != 8 && c != 32946 && c != 32773 && !Ccitt(c) &&
+      c != kJpeg)
     return kUnsupported;
   if (t->predictor != 1 && t->predictor != 2) return kUnsupported;
   if (Ccitt(c) && (t->t4 & 2)) return kUnsupported;  // uncompressed mode
@@ -190,7 +246,30 @@ int Parse(const uint8_t* data, size_t len, Tiff* t) {
         return kUnsupported;
   }
   const int p = t->photometric, b = t->bits;
-  if (p == 0 || p == 1) {
+  if (c == kJpeg) {
+    if (sub_e.count >= 2) {
+      t->sub_h = static_cast<int>(EntryValue(r, sub_e, 0));
+      t->sub_v = static_cast<int>(EntryValue(r, sub_e, 1));
+      if (t->sub_h < 1 || t->sub_v < 1) return kBadData;
+    }
+    const int rc = CheckJpeg(*t);
+    if (rc != kOk) return rc;
+    if (tables_e.count > 0) {  // a count of 0 is no tables
+      t->tables_off = tables_e.value_off;
+      t->tables_len = tables_e.count * TypeSize(tables_e.type);
+    }
+  } else if (t->alpha) {  // Pillow's LA and PA
+    if ((p != 1 && p != 3) || t->spp != 2 || b != 8 || t->planar != 1)
+      return kUnsupported;
+    if (p == 3) {
+      if (cmap_e.count < 3 * 256u) return kBadData;
+      t->colors = cmap_e.count / 3;
+      if (t->colors > 65536) return kBadData;
+      t->colormap.resize(3 * static_cast<size_t>(t->colors));
+      for (uint32_t j = 0; j < 3 * t->colors; ++j)
+        t->colormap[j] = static_cast<uint8_t>(EntryValue(r, cmap_e, j) >> 8);
+    }
+  } else if (p == 0 || p == 1) {
     if (t->spp != 1) return kUnsupported;
     if (Ccitt(c) && b != 1) return kBadData;  // libtiff: 1 bit for fax
     if (b != 1 && b != 2 && b != 4) return kUnsupported;
@@ -237,6 +316,13 @@ int Parse(const uint8_t* data, size_t len, Tiff* t) {
     t->counts[i] = EntryValue(r, cnt_e, i);
     if (static_cast<size_t>(t->offsets[i]) + t->counts[i] > len)
       return kTruncated;
+  }
+  if (c == kJpeg) {  // what the splices of the header comment copy
+    if (t->tables_len > kMaxTables) return kBadData;
+    uint64_t spliced = 0;
+    for (uint32_t cnt : t->counts) spliced += cnt + t->tables_len + kStdDhtLen;
+    if (spliced > kSpliceFactor * static_cast<uint64_t>(len))
+      return kBadData;
   }
   return kOk;
 }
@@ -707,8 +793,9 @@ void Unpack(const uint8_t* src, int bits, size_t count, uint8_t* dst) {
 
 int Decode(const uint8_t* data, const Tiff& t, uint8_t* out,
            size_t out_cap) {
+  if (t.compression == kJpeg) return kUnsupported;  // ik_tiffx_jpeg_segments
   const size_t W = t.width, H = t.height, spp = t.spp;
-  const int oc = t.photometric == 5 ? 4 : 3;
+  const int oc = t.photometric == 5 || t.alpha ? 4 : 3;
   if (out_cap < W * H * oc) return kBuffer;
   // every sample as a byte, chunky: (H, W, spp)
   std::vector<uint8_t> s(W * H * spp);
@@ -752,6 +839,23 @@ int Decode(const uint8_t* data, const Tiff& t, uint8_t* out,
     std::memcpy(out, s.data(), npx * 4);
     return kOk;
   }
+  if (t.alpha) {  // LA and PA, 8-bit: RGBA
+    const size_t per = t.colors;
+    for (size_t i = 0; i < npx; ++i) {
+      const size_t v = s[2 * i];
+      uint8_t* o = out + 4 * i;
+      if (t.photometric == 3) {
+        if (v >= per) return kBadData;  // an index past the ColorMap
+        o[0] = t.colormap[v];
+        o[1] = t.colormap[per + v];
+        o[2] = t.colormap[2 * per + v];
+      } else {
+        o[0] = o[1] = o[2] = static_cast<uint8_t>(v);
+      }
+      o[3] = s[2 * i + 1];
+    }
+    return kOk;
+  }
   if (t.photometric == 3) {
     const size_t per = t.colors;
     for (size_t i = 0; i < npx; ++i) {
@@ -774,19 +878,24 @@ int Decode(const uint8_t* data, const Tiff& t, uint8_t* out,
 
 }  // namespace
 
-struct IkTiffxInfo {  // the layout of tiff_decode.cpp's IkTiffInfo
+struct IkTiffxInfo {  // tiff_decode.cpp's IkTiffInfo, then the layout
   int32_t width, height, channels;
+  // 0: ik_tiffx_decode writes the image; 1: it writes CMYK's four samples
+  // as stored; 2: JPEG segments (ik_tiffx_jpeg_segments)
+  int32_t layout;
 };
 
-// channels: 3 (RGB), or 4 for CMYK, whose four samples the decode writes
-// as stored.
+// channels: 3 (RGB), or 4 for alpha, and for CMYK, whose four samples the
+// decode writes as stored; a JPEG TIFF's channels are its image's.
 IK_EXPORT int ik_tiffx_parse(const uint8_t* data, size_t len,
                              IkTiffxInfo* out) {
   Tiff t;
   const int rc = Parse(data, len, &t);
   out->width = static_cast<int32_t>(t.width);
   out->height = static_cast<int32_t>(t.height);
-  out->channels = t.photometric == 5 ? 4 : 3;
+  const bool jpeg = t.compression == kJpeg;
+  out->channels = t.alpha || (t.photometric == 5 && !jpeg) ? 4 : 3;
+  out->layout = jpeg ? 2 : t.photometric == 5 ? 1 : 0;
   return rc;
 }
 
@@ -796,4 +905,182 @@ IK_EXPORT int ik_tiffx_decode(const uint8_t* data, size_t len, uint8_t* out,
   const int rc = Parse(data, len, &t);
   if (rc != kOk) return rc;
   return Decode(data, t, out, out_cap);
+}
+
+struct IkTiffxJpeg {
+  int32_t width, height;
+  int32_t photometric, samples;
+  int32_t alpha;         // the fourth sample is unassociated alpha
+  int32_t sub_h, sub_v;  // YCbCrSubSampling; 0 where the tag is missing
+  int32_t seg_w, seg_h;  // a tile, or the image's width and RowsPerStrip
+  int32_t rows, cols;    // the segment grid (strips: rows x 1)
+  int32_t tiled;
+  uint64_t tables_off, tables_len;  // JPEGTables; a length of 0 for none
+};
+
+// A JPEG-compressed TIFF's segments: `out` always, then each segment's
+// offset and byte count, in grid order (row by row), where `cap` holds
+// rows * cols of them (else -7). Every range lies inside `data`. -3 for a
+// TIFF that is not one of the JPEG layouts of the header comment.
+IK_EXPORT int ik_tiffx_jpeg_segments(const uint8_t* data, size_t len,
+                                     IkTiffxJpeg* out, uint64_t* offsets,
+                                     uint64_t* counts, size_t cap) {
+  Tiff t;
+  std::memset(out, 0, sizeof(*out));
+  int rc = Parse(data, len, &t);
+  if (rc != kOk) return rc;
+  if (t.compression != kJpeg) return kUnsupported;
+  out->width = static_cast<int32_t>(t.width);
+  out->height = static_cast<int32_t>(t.height);
+  out->photometric = t.photometric;
+  out->samples = t.spp;
+  out->alpha = t.alpha;
+  out->sub_h = t.sub_h;
+  out->sub_v = t.sub_v;
+  out->tiled = t.tiled;
+  out->seg_w = static_cast<int32_t>(t.tiled ? t.tile_w : t.width);
+  out->seg_h = static_cast<int32_t>(t.tiled ? t.tile_h : t.rows_per_strip);
+  out->cols = static_cast<int32_t>(
+      t.tiled ? (t.width + t.tile_w - 1) / t.tile_w : 1);
+  out->rows = static_cast<int32_t>(t.offsets.size() / out->cols);
+  out->tables_off = t.tables_off;
+  out->tables_len = t.tables_len;
+  if (cap < t.offsets.size()) return kBuffer;
+  for (size_t i = 0; i < t.offsets.size(); ++i) {
+    offsets[i] = t.offsets[i];
+    counts[i] = t.counts[i];
+  }
+  return kOk;
+}
+
+// -- a page's JPEG segments, many at a time -----------------------------------
+
+// jpeg_entropy.cpp's IkJpegInfo (jpeg4_decode.cpp's has the same layout)
+struct IkSegInfo {
+  int32_t width, height, ncomp, hmax, vmax;
+  int32_t comp_h[4], comp_v[4], comp_width[4], comp_height[4];
+  int32_t blocks_w[4], blocks_h[4], comp_tq[4];
+  int32_t progressive;
+};
+
+extern "C" {
+int ik_jpeg_parse(const uint8_t* data, size_t len, IkSegInfo* info);
+int ik_jpeg_decode_coeffs(const uint8_t* data, size_t len, int16_t** coeffs,
+                          uint16_t* qtabs_out);
+int ik_jpeg4_parse(const uint8_t* data, size_t len, IkSegInfo* info,
+                   int32_t* adobe_transform);
+int ik_jpeg4_decode_coeffs(const uint8_t* data, size_t len, int16_t** coeffs,
+                           uint16_t* qtabs_out);
+}
+
+// A page's segments as libtiff hands each to libjpeg: segment i, the bytes
+// [offsets[i], offsets[i] + counts[i]) of the file, which start with an
+// SOI, spliced after prefix[which[i]] in place of that SOI. The caller's
+// prefixes are an SOI and the JPEGTables without their SOI and EOI (an SOI
+// alone where there are none), prefix 1 with the Annex K Huffman tables
+// between them.
+struct IkTiffxSplice {
+  const uint8_t* data;
+  uint64_t len;
+  const uint8_t* prefix[2];
+  uint64_t prefix_len[2];
+  const uint64_t* offsets;
+  const uint64_t* counts;
+  const int32_t* which;
+  int32_t n;
+};
+
+namespace {
+
+// Segment i of `s` as one stream in `buf`: -1 where its range leaves the
+// file, -2 where it does not start with an SOI.
+int Splice(const IkTiffxSplice& s, int32_t i, std::vector<uint8_t>* buf) {
+  const uint64_t off = s.offsets[i], cnt = s.counts[i];
+  if (off > s.len || cnt > s.len - off) return kTruncated;
+  if (cnt < 2 || s.data[off] != 0xFF || s.data[off + 1] != 0xD8)
+    return kBadMagic;
+  const int w = s.which[i] ? 1 : 0;
+  buf->assign(s.prefix[w], s.prefix[w] + s.prefix_len[w]);
+  buf->insert(buf->end(), s.data + off + 2, s.data + off + cnt);
+  return kOk;
+}
+
+// The header of a spliced segment as jpeg_abi.parse_any reads it: the
+// pinned parser, then, where it says -3, the four-component one. Returns 0
+// or the failing parser's code (the pinned parser's -3 where both refuse
+// the frame as unsupported); `four` is 1 where the four-component parser
+// took the stream or failed on it.
+int ParseAny(const std::vector<uint8_t>& buf, IkSegInfo* info,
+             int32_t* four) {
+  *four = 0;
+  int rc = ik_jpeg_parse(buf.data(), buf.size(), info);
+  if (rc == kUnsupported) {
+    int32_t flag = -1;
+    const int rc4 = ik_jpeg4_parse(buf.data(), buf.size(), info, &flag);
+    if (rc4 != kUnsupported) {
+      rc = rc4;
+      *four = 1;
+    }
+  }
+  return rc;
+}
+
+}  // namespace
+
+// The headers of the n spliced segments of `s` (ParseAny's): rcs[i] is 0
+// or the splice's or parser's code.
+IK_EXPORT void ik_tiffx_jpeg_parse_many(const IkTiffxSplice* s,
+                                        IkSegInfo* infos, int32_t* four,
+                                        int32_t* rcs) {
+  std::vector<uint8_t> buf;
+  for (int32_t i = 0; i < s->n; ++i) {
+    four[i] = 0;
+    int rc = Splice(*s, i, &buf);
+    if (rc == kOk) rc = ParseAny(buf, &infos[i], &four[i]);
+    rcs[i] = rc;
+  }
+}
+
+// Entropy-decode the spliced segments of `s` (by the decoder ParseAny
+// names): segment i's component c into a zeroed scratch, then its block
+// rows copied to planes[4 * i + c], whose rows lie strides[4 * i + c]
+// blocks of 64 int16 levels apart (the page's planes, each segment at its
+// place), and its four quantisation tables into qtabs[256 * i]. Each
+// destination holds the blocks_h rows of blocks_w blocks that
+// ik_tiffx_jpeg_parse_many reported. rcs[i] is 0 or the splice's, parser's
+// or decoder's code.
+IK_EXPORT void ik_tiffx_jpeg_decode_many(const IkTiffxSplice* s,
+                                         int16_t** planes,
+                                         const int64_t* strides,
+                                         uint16_t* qtabs, int32_t* rcs) {
+  std::vector<uint8_t> buf;
+  std::vector<int16_t> scratch;
+  for (int32_t i = 0; i < s->n; ++i) {
+    IkSegInfo h;
+    int32_t four = 0;
+    int rc = Splice(*s, i, &buf);
+    if (rc == kOk) rc = ParseAny(buf, &h, &four);
+    if (rc == kOk && (h.ncomp < 1 || h.ncomp > 4)) rc = kBadData;
+    if (rc == kOk) {
+      int16_t* comp[4] = {nullptr, nullptr, nullptr, nullptr};
+      size_t at[4] = {0, 0, 0, 0}, total = 0;
+      for (int c = 0; c < h.ncomp; ++c) {
+        at[c] = total;
+        total += static_cast<size_t>(h.blocks_w[c]) * h.blocks_h[c] * 64;
+      }
+      scratch.assign(total, 0);
+      for (int c = 0; c < h.ncomp; ++c) comp[c] = scratch.data() + at[c];
+      rc = four ? ik_jpeg4_decode_coeffs(buf.data(), buf.size(), comp,
+                                         qtabs + 256 * i)
+                : ik_jpeg_decode_coeffs(buf.data(), buf.size(), comp,
+                                        qtabs + 256 * i);
+      for (int c = 0; rc == kOk && c < h.ncomp; ++c) {
+        const size_t row = static_cast<size_t>(h.blocks_w[c]) * 64;
+        for (int32_t r = 0; r < h.blocks_h[c]; ++r)
+          std::memcpy(planes[4 * i + c] + r * strides[4 * i + c] * 64,
+                      comp[c] + r * row, row * sizeof(int16_t));
+      }
+    }
+    rcs[i] = rc;
+  }
 }

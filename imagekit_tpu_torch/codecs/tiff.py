@@ -8,43 +8,121 @@ predictor) and expands gray, palette and RGB(A) samples of 8 or 16 bits to
 reference hands to Pillow, goes to the port's own
 ``native/tiff_ext_decode.cpp``: bilevel (none, PackBits, LZW, deflate and
 CCITT modified Huffman, Group 3 and Group 4), 2- and 4-bit gray and
-palette, and 8-bit CMYK, whose samples :func:`decode` turns to RGB as
-Pillow's ``convert("RGB")`` does (``ops/color.py::cmyk_to_rgb``, on the
-device: run on the host from the codec pool's threads at once, its torch
-ops took 20x longer). The differences from the reference are those of
-:mod:`.misc`, whose binding helpers this uses: a constant pixel ceiling (no
-Pillow), and :class:`~imagekit_tpu_torch.errors.NotPortedError` where
-neither decoder takes a layout.
+palette, 8-bit gray and palette with alpha (Pillow's LA and PA, to RGBA),
+and 8-bit CMYK, whose samples :func:`decode` turns to RGB as Pillow's
+``convert("RGB")`` does (``ops/color.py::cmyk_to_rgb``, on the device:
+run on the host from the codec pool's threads at once, its torch ops took
+20x longer).
+
+JPEG-compressed TIFFs (compression 7, 8-bit, chunky, strips or tiles:
+YCbCr, RGB, RGB with alpha, gray, CMYK) are decoded as libtiff decodes
+them, each strip or tile an independent JPEG: :func:`entropy_decode` has
+the native library splice each segment onto the ``JPEGTables``, one at a
+time, and parse and entropy-decode the page's segments in two calls (the
+pinned decoder, or the four-component one), checks each header against the
+IFD as libtiff does, and assembles the segments' coefficients into one
+plane a component (:class:`JpegPage`); the device half is
+``ops/dct.py::decode_tiff_page`` (one K3 launch a page, two for four
+components). The colour step follows the TIFF photometric, never the JPEG
+stream. The differences from the reference are those of :mod:`.misc`,
+whose binding helpers this uses: a constant pixel ceiling (no Pillow), and
+:class:`~imagekit_tpu_torch.errors.NotPortedError` where neither decoder
+takes a layout (old-style JPEG, planar JPEG, 12-bit, CIELab, YCbCr without
+JPEG, float samples). A JPEG segment whose entropy data ends early is an
+error here, where libjpeg fills the rest of that segment gray; so is a
+``JPEGTables`` longer than 64 kB, and a page whose splices would copy more
+than 64 times the file (``tiff_ext_decode.cpp``), which libtiff reads.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 from imagekit_tpu_torch.codecs import misc
+from imagekit_tpu_torch.codecs.native import jpeg_abi
+from imagekit_tpu_torch.errors import NotPortedError, TransformError
+
+#: ``IkTiffxInfo.layout``: what the port's decoder of the layouts the
+#: pinned one refuses makes of the file
+SAMPLES, CMYK, JPEG = 0, 1, 2
+
+_SOI, _EOI = b"\xff\xd8", b"\xff\xd9"
+
+# The Huffman tables of ITU T.81 Annex K.3, as one DHT segment: libjpeg
+# decodes with these where a stream defines no table 0 or 1 of a class
+# (Motion-JPEG segments carry none); the pinned decoder has no such default.
+_STD_DHT = bytes.fromhex(
+    "ffc401a2"
+    "00" "00010501010101010100000000000000" "000102030405060708090a0b"
+    "10" "0002010303020403050504040000017d"
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
+    "2433627282090a161718191a25262728292a3435363738393a434445464748494a"
+    "535455565758595a636465666768696a737475767778797a838485868788898a"
+    "92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7"
+    "c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa"
+    "01" "00030101010101010101010000000000" "000102030405060708090a0b"
+    "11" "00020102040403040705040400010277"
+    "000102031104052131061241510761711322328108144291a1b1c109233352f0"
+    "156272d10a162434e125f11718191a262728292a35363738393a434445464748"
+    "494a535455565758595a636465666768696a737475767778797a828384858687"
+    "88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3"
+    "c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8"
+    "f9fa")
+
+
+def _header(data: bytes):
+    return misc.header(data, "tiff", "TIFF", "TIFF", "tiffx")
 
 
 def parse(data: bytes) -> Tuple[int, int, int]:
     """Header only: (width, height, channels) of the decoded image."""
-    w, h, ch, stem = misc.header(data, "tiff", "TIFF", "TIFF", "tiffx")
-    return w, h, 3 if stem == "tiffx" else ch
+    w, h, ch, stem, layout = _header(data)
+    return w, h, 3 if stem == "tiffx" and layout == CMYK else ch
 
 
-def decode_stored(data: bytes) -> Tuple[np.ndarray, bool]:
-    """The host half of :func:`decode`: HWC u8 RGB(A), or a CMYK TIFF's
-    four samples as stored (then True)."""
-    out, stem = misc.decode(data, "tiff", "TIFF", corrupt="TIFF", ext="tiffx")
-    return out, stem == "tiffx" and out.shape[2] == 4
+def _layout(head) -> int:
+    _, _, _, stem, lay = head
+    return lay if stem == "tiffx" else SAMPLES
+
+
+def layout(data: bytes) -> int:
+    """Header only: :data:`SAMPLES`, :data:`CMYK` or :data:`JPEG`."""
+    return _layout(_header(data))
+
+
+def decode_stored(data: bytes) -> Tuple[object, int]:
+    """The host half of :func:`decode`, and its layout: HWC u8 RGB(A)
+    (:data:`SAMPLES`), a CMYK TIFF's four samples as stored (:data:`CMYK`)
+    or a JPEG TIFF's entropy-decoded page (:data:`JPEG`)."""
+    head = _header(data)
+    kind = _layout(head)
+    if kind == JPEG:
+        return entropy_decode(data), JPEG
+    return misc.decode(data, "tiff", "TIFF", corrupt="TIFF", ext="tiffx",
+                       head=head)[0], kind
+
+
+def finish(stored, kind: int, device=None) -> np.ndarray:
+    """The device half of :func:`decode`: a CMYK TIFF's colour step, or a
+    JPEG TIFF's pixel decode, on ``device`` (the card unless named)."""
+    if kind == CMYK:
+        return cmyk_to_rgb(stored, device=device)
+    if kind == JPEG:
+        from imagekit_tpu_torch.ops import dct
+
+        return dct.decode_tiff_page(stored, device=device)
+    return stored
 
 
 def decode(data: bytes, device=None) -> np.ndarray:
-    """TIFF -> HWC u8 (RGB, or RGBA for ExtraSamples alpha); a CMYK TIFF's
-    colour step runs on ``device`` (the card unless the caller names
-    another)."""
-    out, cmyk = decode_stored(data)
-    return cmyk_to_rgb(out, device=device) if cmyk else out
+    """TIFF -> HWC u8 (RGB, or RGBA for alpha); a CMYK TIFF's colour step
+    and a JPEG TIFF's pixel decode run on ``device`` (the card unless the
+    caller names another)."""
+    return finish(*decode_stored(data), device=device)
 
 
 def cmyk_to_rgb(cmyk: np.ndarray, device=None) -> np.ndarray:
@@ -58,3 +136,317 @@ def cmyk_to_rgb(cmyk: np.ndarray, device=None) -> np.ndarray:
 
     planes = torch.from_numpy(cmyk).to(resolve_device(device or "cuda"))
     return color.cmyk_to_rgb(*(255 - planes).unbind(-1)).cpu().numpy()
+
+
+# -- JPEG-compressed TIFFs -------------------------------------------------------
+
+
+class _JpegInfo(ctypes.Structure):
+    """``IkTiffxJpeg`` (``tiff_ext_decode.cpp``)."""
+
+    _fields_ = [(name, ctypes.c_int32) for name in (
+        "width", "height", "photometric", "samples", "alpha", "sub_h",
+        "sub_v", "seg_w", "seg_h", "rows", "cols", "tiled")] + [
+        ("tables_off", ctypes.c_uint64), ("tables_len", ctypes.c_uint64)]
+
+
+class _Splice(ctypes.Structure):
+    """``IkTiffxSplice`` (``tiff_ext_decode.cpp``): a page's segments, each
+    spliced after ``prefix[which[i]]`` in place of its SOI."""
+
+    _fields_ = [("data", ctypes.c_char_p), ("len", ctypes.c_uint64),
+                ("prefix", ctypes.c_char_p * 2),
+                ("prefix_len", ctypes.c_uint64 * 2),
+                ("offsets", ctypes.c_void_p), ("counts", ctypes.c_void_p),
+                ("which", ctypes.c_void_p), ("n", ctypes.c_int32)]
+
+
+def configure(lib: ctypes.CDLL) -> None:
+    """The ``ik_tiffx_jpeg_*`` entries' signatures."""
+    lib.ik_tiffx_jpeg_segments.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(_JpegInfo),
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t]
+    lib.ik_tiffx_jpeg_segments.restype = ctypes.c_int
+    lib.ik_tiffx_jpeg_parse_many.argtypes = [
+        ctypes.POINTER(_Splice),
+        ctypes.POINTER(jpeg_abi.IkJpegInfo),  # n headers
+        ctypes.c_void_p,                      # four-component flags (i32*)
+        ctypes.c_void_p]                      # codes (i32*)
+    lib.ik_tiffx_jpeg_parse_many.restype = None
+    lib.ik_tiffx_jpeg_decode_many.argtypes = [
+        ctypes.POINTER(_Splice),
+        ctypes.POINTER(ctypes.c_void_p),      # 4 destinations a segment
+        ctypes.c_void_p,                      # their row strides (i64*)
+        ctypes.c_void_p,                      # qtabs (u16*, n x 4 x 64)
+        ctypes.c_void_p]                      # codes (i32*)
+    lib.ik_tiffx_jpeg_decode_many.restype = None
+
+
+@dataclass
+class JpegPage:
+    """A JPEG TIFF page after the host entropy decode: ``coeffs[c]`` is
+    component c's (by, bx, 64) i16 levels, the segments' planes placed at
+    their grid positions; ``qtabs[c]`` its (64,) table; ``rows[c]`` and
+    ``cols[c]`` the block rows of each row of segments and the block columns
+    of each column of them. ``height`` x ``width`` is the image, which the
+    assembled planes cover (their MCU padding and the partial tiles lie
+    beyond it). An irregular page holds ``segments`` instead: a one-segment
+    page each, with its top-left corner, which the device half decodes
+    alone."""
+
+    width: int
+    height: int
+    photometric: int
+    coeffs: List[np.ndarray]
+    qtabs: np.ndarray
+    rows: List[Tuple[int, ...]]
+    cols: List[Tuple[int, ...]]
+    segments: Optional[List[Tuple["JpegPage", int, int]]] = None
+
+
+def segments(data: bytes) -> Tuple[_JpegInfo, np.ndarray, np.ndarray]:
+    """``ik_tiffx_jpeg_segments``: the layout, and each segment's offset
+    and byte count (u64), row by row of the grid."""
+    from imagekit_tpu_torch.codecs.native import loader
+
+    fn = loader.load().ik_tiffx_jpeg_segments
+    info = _JpegInfo()
+    offs = np.zeros(4096, np.uint64)  # a page's grid, mostly: one parse
+    for _ in range(2):  # the second call with room for the grid
+        cnt = np.zeros_like(offs)
+        rc = fn(data, len(data), ctypes.byref(info),
+                offs.ctypes.data_as(ctypes.c_void_p),
+                cnt.ctypes.data_as(ctypes.c_void_p), len(offs))
+        if rc != misc.BUFFER:
+            break
+        offs = np.zeros(info.rows * info.cols, np.uint64)
+    misc.check(rc, "TIFF", "TIFF")
+    n = info.rows * info.cols
+    return info, offs[:n], cnt[:n]
+
+
+def prefixes(tables: bytes) -> Tuple[bytes, bytes]:
+    """What each segment is spliced after, in place of its SOI, as libtiff
+    reads ``JPEGTables`` ahead of it (an abbreviated stream): an SOI and the
+    tables without their SOI and EOI; then the same with the Annex K
+    Huffman tables after the SOI, for a segment that lacks one of them with
+    the tables (its own, later, replace them)."""
+    if tables and tables[:2] != _SOI:  # libtiff: "Bogus JPEGTables field"
+        raise TransformError("corrupt TIFF: JPEGTables is not a JPEG stream")
+    body = tables[2:-2] if tables[-2:] == _EOI else tables[2:]
+    return _SOI + body, _SOI + _STD_DHT + body
+
+
+def _segment_error(e, i: int) -> Exception:
+    """A segment's native decoder error -> the port's: unsupported (-3) is
+    a path not ported yet, anything else corrupt data."""
+    if e.code == -3:
+        return NotPortedError(f"a JPEG TIFF segment the native decoders do "
+                              f"not take ({e})", "queue 1 item 9")
+    return TransformError(f"corrupt TIFF: JPEG segment {i} ({e})")
+
+
+def tables_defined(stream) -> Tuple[set, set]:
+    """The quantisation table ids and the Huffman tables, (class, id), that
+    a JPEG stream's DQT and DHT segments define before its first scan."""
+    quant, huff, at = set(), set(), 2
+    while at + 4 <= len(stream) and stream[at] == 0xFF:
+        marker = stream[at + 1]
+        if marker == 0xDA:
+            break
+        end = at + 2 + int.from_bytes(stream[at + 2:at + 4], "big")
+        p = at + 4
+        while marker in (0xDB, 0xC4) and p < min(end, len(stream)):
+            if marker == 0xDB:
+                quant.add(stream[p] & 15)
+                p += 1 + 64 * (1 + (stream[p] >> 4))
+            else:
+                huff.add((stream[p] >> 4, stream[p] & 15))
+                p += 17 + sum(stream[p + 1:p + 17])
+        at = end
+    return quant, huff
+
+
+_ALL_HUFFMAN = {(0, 0), (0, 1), (1, 0), (1, 1)}
+
+
+def _segment_tables(segment, tables_defs) -> Tuple[set, bool]:
+    """The quantisation tables a segment can use (its own and the
+    ``JPEGTables``', ``tables_defs`` = their :func:`tables_defined`), and
+    whether it lacks one of the Huffman tables 0 and 1 of a class, which
+    libjpeg then takes from Annex K. The pinned decoder leaves an undefined
+    quantisation table unset, where libjpeg refuses the stream
+    ("Quantization table 0x.. was not defined"): a segment whose tables
+    went into a missing ``JPEGTables``."""
+    quant, huff = tables_defined(segment)
+    quant, huff = quant | tables_defs[0], huff | tables_defs[1]
+    return quant, not _ALL_HUFFMAN <= huff
+
+
+def segment_stream(tables: bytes, segment: bytes) -> bytes:
+    """One segment as the whole JPEG that ``ik_tiffx_jpeg_parse_many`` and
+    ``decode_many`` splice: the plain statement of their splice."""
+    if segment[:2] != _SOI:
+        raise TransformError("corrupt TIFF: a JPEG segment has no SOI")
+    _, std = _segment_tables(segment, tables_defined(tables))
+    return prefixes(tables)[std] + segment[2:]
+
+
+def _check_segment(hdr, info, sampling, i: int, want: Tuple[int, int],
+                   last_strip: bool) -> None:
+    """libtiff's checks of a segment against the IFD (``JPEGPreDecode``), in
+    its order. libtiff takes a last strip coded taller than its rows (and
+    reads its rows only); here one coded at most a whole strip's height. A
+    segment smaller than its place libtiff takes with a warning and leaves
+    the rest undefined, which is an error here."""
+    w, h = want
+    if hdr.width != w or hdr.height != h:
+        if not (last_strip and hdr.width == w
+                and h < hdr.height <= info.seg_h):
+            raise TransformError(
+                f"corrupt TIFF: JPEG segment {i} is {hdr.width}x{hdr.height},"
+                f" its place {w}x{h}")
+    if hdr.ncomp != info.samples:
+        raise TransformError(f"corrupt TIFF: JPEG segment {i} has "
+                             f"{hdr.ncomp} components, the IFD "
+                             f"{info.samples} samples")
+    if (hdr.comp_h[0], hdr.comp_v[0]) != sampling or any(
+            (hh, vv) != (1, 1) for hh, vv in zip(hdr.comp_h[1:],
+                                                 hdr.comp_v[1:])):
+        raise TransformError(f"corrupt TIFF: JPEG segment {i} is sampled "
+                             f"{hdr.comp_h} x {hdr.comp_v}, the IFD "
+                             f"{sampling}")
+
+
+def _parse_many(lib, splice: _Splice) -> list:
+    """:func:`jpeg_abi.parse_any` of each spliced segment, in one native
+    call: each one's :class:`~jpeg_abi.JpegHeader` or the
+    :class:`~jpeg_abi.NativeJpegError` ``parse_any`` would raise."""
+    n = splice.n
+    infos = (jpeg_abi.IkJpegInfo * n)()
+    four = np.zeros(n, np.int32)
+    rcs = np.zeros(n, np.int32)
+    lib.ik_tiffx_jpeg_parse_many(ctypes.byref(splice), infos,
+                                 four.ctypes.data_as(ctypes.c_void_p),
+                                 rcs.ctypes.data_as(ctypes.c_void_p))
+    return [jpeg_abi._header(infos[i]) if rcs[i] == 0
+            else jpeg_abi.NativeJpegError(int(rcs[i]), bool(four[i]))
+            for i in range(n)]
+
+
+def _decode_many(lib, splice: _Splice, places) -> Tuple[np.ndarray, list]:
+    """:func:`jpeg_abi.decode_any` of each spliced segment, in one native
+    call, into ``places[i]``: its components' (blocks_h, blocks_w, 64) i16
+    views of the page's planes (rows of whole blocks, each row
+    contiguous). Returns the (n, 4, 64) quant tables and each segment's
+    :class:`~jpeg_abi.NativeJpegError`, or None."""
+    n = splice.n
+    ptrs = (ctypes.c_void_p * (4 * n))()
+    strides = np.zeros(4 * n, np.int64)
+    for i, comps in enumerate(places):
+        for c, v in enumerate(comps):
+            ptrs[4 * i + c] = v.ctypes.data
+            strides[4 * i + c] = v.strides[0] // (64 * v.itemsize)
+    qtabs = np.zeros((n, 4, 64), np.uint16)
+    rcs = np.zeros(n, np.int32)
+    lib.ik_tiffx_jpeg_decode_many(ctypes.byref(splice), ptrs,
+                                  strides.ctypes.data_as(ctypes.c_void_p),
+                                  qtabs.ctypes.data_as(ctypes.c_void_p),
+                                  rcs.ctypes.data_as(ctypes.c_void_p))
+    return qtabs, [jpeg_abi.NativeJpegError(int(rc)) if rc else None
+                   for rc in rcs]
+
+
+def entropy_decode(data: bytes) -> JpegPage:
+    """The host half of a JPEG TIFF's decode: every strip or tile spliced
+    onto the tables (:func:`prefixes`), its header read and checked against
+    the IFD and the others, then entropy-decoded (the pinned decoder for one
+    or three components, ``jpeg4_decode.cpp`` for four): the page's
+    segments in two native calls, which splice each one in a scratch
+    buffer and copy its levels to its place in the page's planes, so that
+    the codec pool's threads do not queue on the interpreter lock at each
+    segment or copy. Only the last strip, and the last row and column of
+    tiles, may be partial, so the planes hold each segment's MCU padding at
+    the page's bottom or right edge, which the device half crops. Where the segments' tables differ, or a strip that is
+    not a whole number of MCUs ends before the last, the page keeps its
+    segments apart. Corrupt data raises :class:`TransformError`; what the
+    decoders refuse as unsupported, :class:`NotPortedError`."""
+    from imagekit_tpu_torch.codecs.native import loader
+
+    lib = loader.load()
+    info, offs, cnts = segments(data)
+    tables = data[info.tables_off:info.tables_off + info.tables_len]
+    W, H = info.width, info.height
+    # the segments' whole area, which their planes hold: tiles may pass
+    # the image by most of a tile, each side
+    padded = info.rows * info.seg_h * info.cols * info.seg_w
+    if padded > max(misc.MAX_PIXELS, 2 * W * H):
+        raise TransformError(f"corrupt TIFF: {info.rows}x{info.cols} "
+                             f"segments of {info.seg_w}x{info.seg_h} for "
+                             f"a {W}x{H} image")
+    heads_p = prefixes(tables)
+    defs, view = tables_defined(tables), memoryview(data)
+    quants, which = zip(*(_segment_tables(view[o:o + n], defs)
+                          for o, n in zip(offs.tolist(), cnts.tolist())))
+    which = np.array(which, np.int32)
+    splice = _Splice(data, len(data), (ctypes.c_char_p * 2)(*heads_p),
+                     (ctypes.c_uint64 * 2)(*map(len, heads_p)),
+                     offs.ctypes.data, cnts.ctypes.data, which.ctypes.data,
+                     len(offs))
+    heads = _parse_many(lib, splice)
+    sampling, places = None, []
+    for i, hdr in enumerate(heads):
+        if isinstance(hdr, jpeg_abi.NativeJpegError):
+            raise _segment_error(hdr, i)
+        y0 = (i // info.cols) * info.seg_h
+        x0 = (i % info.cols) * info.seg_w
+        # a tile decodes whole and is clipped; a strip holds its rows only
+        want = (info.seg_w, info.seg_h if info.tiled
+                else min(info.seg_h, H - y0))
+        if sampling is None:
+            # libtiff takes a missing YCbCrSubSampling from the first
+            # segment
+            sampling = ((info.sub_h or hdr.comp_h[0],
+                         info.sub_v or hdr.comp_v[0])
+                        if info.photometric == 6 else (1, 1))
+            if max(sampling) > 2:
+                raise NotPortedError(f"a JPEG TIFF sampled {sampling}",
+                                     "queue 1 item 9")
+        _check_segment(hdr, info, sampling, i, want,
+                       not info.tiled and i == len(heads) - 1)
+        if not set(hdr.comp_tq) <= quants[i]:
+            raise TransformError(f"corrupt TIFF: JPEG segment {i} uses a "
+                                 f"quantisation table it does not define")
+        places.append((y0, x0, min(want[0], W - x0), min(want[1], H - y0)))
+    # the page's planes: every segment of a row of the grid is as tall as
+    # the others (one strip a row; tiles all of a tile's size), and every
+    # segment of a column as wide, so each sits at its block offset
+    ncomp = info.samples
+    rows = [tuple(heads[r * info.cols].blocks_h[c] for r in range(info.rows))
+            for c in range(ncomp)]
+    cols = [tuple(heads[k].blocks_w[c] for k in range(info.cols))
+            for c in range(ncomp)]
+    coeffs = [np.zeros((sum(rows[c]), sum(cols[c]), 64), np.int16)
+              for c in range(ncomp)]
+    r0 = [np.cumsum((0,) + r) for r in rows]
+    c0 = [np.cumsum((0,) + k) for k in cols]
+    views = [[coeffs[c][r0[c][i // info.cols]:r0[c][i // info.cols + 1],
+                        c0[c][i % info.cols]:c0[c][i % info.cols + 1]]
+              for c in range(ncomp)] for i in range(len(heads))]
+    qtabs, errors = _decode_many(lib, splice, views)
+    for i, e in enumerate(errors):
+        if e is not None:
+            raise _segment_error(e, i)
+    qts = [qtabs[i][list(h.comp_tq)] for i, h in enumerate(heads)]
+    # strips whose MCUs do not straddle one another, and tiles (whole MCUs
+    # each), of one set of tables: one pixel decode a page
+    regular = (info.tiled or len(heads) == 1
+               or info.seg_h % (8 * sampling[1]) == 0)
+    if regular and all(np.array_equal(q, qts[0]) for q in qts):
+        return JpegPage(W, H, info.photometric, coeffs, qts[0], rows, cols)
+    return JpegPage(W, H, info.photometric, [], qts[0], [], [], segments=[
+        (JpegPage(w, h, info.photometric,
+                  [np.ascontiguousarray(v) for v in vs], q,
+                  [(v.shape[0],) for v in vs], [(v.shape[1],) for v in vs]),
+         y0, x0)
+        for vs, q, (y0, x0, w, h) in zip(views, qts, places)])

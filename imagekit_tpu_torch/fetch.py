@@ -21,7 +21,10 @@ progressive, is then validated by the four-component parser, and another
 no decoder takes. A BMP or TIFF that the pinned parser refuses as
 unsupported is validated by the port's own parser of those layouts
 (``misc.parse_bmp``, ``tiff.parse``); what that one refuses as corrupt, as
-Pillow would, is this stage's 400.
+Pillow would, is this stage's 400. A JPEG-compressed TIFF is validated by
+its IFD (segment ranges inside the file); a segment that then does not
+decode is the engine's :class:`~imagekit_tpu_torch.errors.
+SourceDecodeError`, answered with this stage's body.
 """
 
 from __future__ import annotations

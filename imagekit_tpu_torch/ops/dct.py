@@ -57,6 +57,13 @@ JPEGs; for CMYK and YCCK JPEGs, which the reference decodes with Pillow,
 :func:`decode_four_components`: the same IDCT and upsample stacks for four
 components, TWO K3 launches, then libjpeg's and Pillow's integer colour
 steps, :func:`~imagekit_tpu_torch.ops.color.cmyk_to_rgb`).
+
+The pixel decode of a JPEG-compressed TIFF page, which the reference
+decodes with Pillow: :func:`decode_tiff_page` takes the coefficient planes
+``codecs/tiff.py`` assembles from the page's strips or tiles, with
+block-diagonal chroma stacks (libjpeg upsamples each segment alone), ONE
+K3 launch a page (two for four components) and the colour step of the
+TIFF photometric.
 """
 
 from __future__ import annotations
@@ -93,6 +100,7 @@ from imagekit_tpu_torch.ops.weights import (
     chroma_axis_weights,
     idct_basis,
     quality_tables,
+    segment_axis_weights,
     upsample_weights,
 )
 
@@ -240,16 +248,22 @@ def _rgb_tail(Y, Cb, Cr, wv_y, wh_y, wv_c, wh_c, vidx, bands=None,
     head did where K3 fits VMEM (the 1080p bucket does); its CPU branch
     skips that rounding. ``bands`` is the (luma, chroma) pair of the
     stacks' tables (:class:`resize_strip.ResizeTables`), or None."""
-    y, cb, cr = (p.float() for p in resize(
-        (Y, Cb, Cr), (wv_y, wh_y, wv_c, wh_c), vidx, bands=bands))
-    cb = cb - 128.0
-    cr = cr - 128.0
+    rgb = _ycc_to_rgb(*resize((Y, Cb, Cr), (wv_y, wh_y, wv_c, wh_c), vidx,
+                              bands=bands))
+    return rgb.reshape(rgb.shape[0], -1)
+
+
+def _ycc_to_rgb(y, cb, cr) -> torch.Tensor:
+    """u8 planes of full-range BT.601 YCbCr -> (..., 3) u8 RGB, rounded
+    half up and clipped, in the reference's float order (``dct.py:236``)."""
+    y = y.float()
+    cb = cb.float() - 128.0
+    cr = cr.float() - 128.0
     r = y + 1.402 * cr
     g = y - 0.344136286 * cb - 0.714136286 * cr
     b = y + 1.772 * cb
     rgb = torch.stack([r, g, b], dim=-1)
-    rgb = torch.clamp(torch.floor(rgb + 0.5), 0.0, 255.0).to(torch.uint8)
-    return rgb.reshape(rgb.shape[0], -1)
+    return torch.clamp(torch.floor(rgb + 0.5), 0.0, 255.0).to(torch.uint8)
 
 
 def decode_resize_rgb(y_flat, cb_flat, cr_flat, qtabs, wv_y, wh_y, wv_c,
@@ -621,40 +635,57 @@ def decode_components_to_rgb(decoded, device: Optional[torch.device] = None
     return out[0, :hdr.height, :hdr.width]
 
 
-def four_component_inputs(decoded, device: torch.device):
-    """K3's inputs in the four-component JPEG pixel decode, on ``device``:
-    the four u8 planes after dequantisation and the 8x8 IDCT
-    (:func:`_blocks_to_plane`), (1, by*8, bx*8) each at its own block grid;
-    each plane's (wv, wh) stacks, per axis the identity or libjpeg's
-    triangle 2x against the largest block grid, as 4:2:0 chroma takes them
-    (other ratios raise ValueError); each plane's band tables; the index.
-    Planes of one grid share their stacks and tables, made once."""
-    hdr, coeffs, qtabs = decoded
+def plane_inputs(coeffs, qt, keys, stacks_of, device: torch.device):
+    """K3's inputs in a pixel decode of independent components, on
+    ``device``: component c's u8 plane after dequantisation (table
+    ``qt[c]``) and the 8x8 IDCT (:func:`_blocks_to_plane`), (1, by*8,
+    bx*8) at its own block grid; its (wv, wh) stacks, ``stacks_of(keys[c])``
+    as numpy, and their band tables (components of one key share them,
+    made once); the index."""
+    per_key = {}
+    for key in dict.fromkeys(keys):
+        wv, wh = on_device(tuple(a[None] for a in stacks_of(key)), device)
+        per_key[key] = (wv, wh), resize_tables(wv, wh)
     grids = [c.shape[:2] for c in coeffs]
-    by_f, bx_f = max(g[0] for g in grids), max(g[1] for g in grids)
-    per_grid = {}
-    for by, bx in dict.fromkeys(grids):
-        wv, wh = on_device((chroma_axis_weights(by_f, by)[None],
-                            chroma_axis_weights(bx_f, bx)[None]), device)
-        per_grid[by, bx] = (wv, wh), resize_tables(wv, wh)
-    qt = np.stack([qtabs[t] for t in hdr.comp_tq]).astype(np.float32)
     qt, vidx, *levels = on_device(
-        (qt, np.zeros(1, np.int32),
+        (np.asarray(qt, np.float32), np.zeros(1, np.int32),
          *(c.reshape(1, by, -1) for c, (by, _) in zip(coeffs, grids))),
         device)
     planes = [_blocks_to_plane(lv, by, bx, qt[i:i + 1])
               for i, (lv, (by, bx)) in enumerate(zip(levels, grids))]
-    return (planes, [per_grid[g][0] for g in grids],
-            [per_grid[g][1] for g in grids], vidx)
+    return (planes, [per_key[k][0] for k in keys],
+            [per_key[k][1] for k in keys], vidx)
+
+
+def four_component_inputs(decoded, device: torch.device):
+    """:func:`plane_inputs` of the four-component JPEG pixel decode: each
+    plane's stacks, per axis the identity or libjpeg's triangle 2x against
+    the largest block grid, as 4:2:0 chroma takes them (other ratios raise
+    ValueError)."""
+    hdr, coeffs, qtabs = decoded
+    grids = [c.shape[:2] for c in coeffs]
+    by_f, bx_f = max(g[0] for g in grids), max(g[1] for g in grids)
+    return plane_inputs(
+        coeffs, np.stack([qtabs[t] for t in hdr.comp_tq]), grids,
+        lambda g: (chroma_axis_weights(by_f, g[0]),
+                   chroma_axis_weights(bx_f, g[1])), device)
+
+
+def resize_components(planes, stacks, tabs, vidx):
+    """K3 on the planes of a pixel decode, three at a time: one launch for
+    one to three components, two for four."""
+    out = []
+    for i in range(0, len(planes), 3):
+        out += resize_planes_u8(planes[i:i + 3], stacks[i:i + 3], vidx,
+                                bands=tabs[i:i + 3])
+    return out
 
 
 def four_component_planes(decoded, device: torch.device):
     """The four u8 planes of a CMYK or YCCK JPEG at the full grid, (1,
     by*8, bx*8) each, uncropped: :func:`four_component_inputs`, then TWO K3
-    launches on CUDA (:func:`resize_planes_u8`: C, M and Y, then K)."""
-    planes, stacks, tabs, vidx = four_component_inputs(decoded, device)
-    return (resize_planes_u8(planes[:3], stacks[:3], vidx, bands=tabs[:3])
-            + resize_planes_u8(planes[3:], stacks[3:], vidx, bands=tabs[3:]))
+    launches on CUDA (:func:`resize_components`: C, M and Y, then K)."""
+    return resize_components(*four_component_inputs(decoded, device))
 
 
 def decode_four_components(decoded, device: Optional[torch.device] = None
@@ -672,3 +703,68 @@ def decode_four_components(decoded, device: Optional[torch.device] = None
     rgb = cmyk_to_rgb(*(p[0, :h, :w] for p in planes),
                       ycck=hdr.adobe_transform > 0)
     return to_host(rgb, device)
+
+
+# -- JPEG-compressed TIFF pages ----------------------------------------------
+
+
+def tiff_page_inputs(page, device: torch.device):
+    """:func:`plane_inputs` of a JPEG TIFF page (``codecs/tiff.py::
+    JpegPage``): component c's coefficient plane assembled from the
+    segments; its stacks per axis :func:`~imagekit_tpu_torch.ops.weights.
+    segment_axis_weights`, block-diagonal over the segments along the axis
+    against component 0's (the largest) grid."""
+    keys = list(zip(page.rows, page.cols))
+    return plane_inputs(
+        page.coeffs, page.qtabs, keys,
+        lambda k: (segment_axis_weights(page.rows[0], k[0]),
+                   segment_axis_weights(page.cols[0], k[1])), device)
+
+
+def _tiff_colour(planes, photometric: int) -> torch.Tensor:
+    """The page's cropped u8 planes -> (H, W, 3 or 4) u8, by the TIFF
+    photometric, not by the JPEG stream (libtiff asks libjpeg for colour
+    only for YCbCr): YCbCr -> RGB as the JPEG pixel decode does; CMYK as
+    an 8-bit CMYK TIFF (:func:`~imagekit_tpu_torch.ops.color.cmyk_to_rgb`
+    on the inverted planes); RGB, RGBA and gray (R = G = B) as they are."""
+    if photometric == 6:
+        return _ycc_to_rgb(*planes)
+    if photometric == 5:
+        return cmyk_to_rgb(*(255 - p for p in planes))
+    if len(planes) == 1:
+        planes = planes * 3
+    return torch.stack(planes, dim=-1)
+
+
+def _tiff_page_pixels(page, device: torch.device) -> torch.Tensor:
+    if page.segments:
+        # the fallback of an irregular page: each segment on its own
+        out = None
+        for seg, y0, x0 in page.segments:
+            px = _tiff_page_pixels(seg, device)
+            if out is None:
+                out = torch.empty((page.height, page.width, px.shape[-1]),
+                                  dtype=torch.uint8, device=device)
+            out[y0:y0 + seg.height, x0:x0 + seg.width] = px
+        return out
+    h, w = page.height, page.width
+    planes = resize_components(*tiff_page_inputs(page, device))
+    return _tiff_colour([p[0, :h, :w] for p in planes], page.photometric)
+
+
+def decode_tiff_page(page, device: Optional[torch.device] = None
+                     ) -> np.ndarray:
+    """The pixel decode of a JPEG-compressed TIFF page on ``device`` (the
+    card unless named): ``page`` is ``codecs/tiff.py``'s host entropy
+    decode, its segments' coefficient planes assembled into one plane a
+    component. IDCT and, per axis, block-diagonal chroma stacks (libjpeg's
+    triangle upsample stops at every strip and tile edge), so ONE K3 launch
+    a page for one or three components and TWO for four; crop; the colour
+    step of the photometric -> (H, W, 3) u8, or (H, W, 4) with alpha. An
+    irregular page (its segments' tables differ, or a strip that is not a
+    whole number of MCUs ends before the last) carries its segments
+    instead, each decoded alone (K3 once or twice a segment), cropped and
+    stitched."""
+    device = resolve(device)
+    return to_host(_tiff_page_pixels(page, device), device)
+

@@ -343,6 +343,35 @@ def chroma_axis_weights(luma_blocks: int, chroma_blocks: int) -> np.ndarray:
     return upsample_weights(chroma_blocks * 8, luma_blocks * 8)
 
 
+def _segment_axis_weights_impl(luma_blocks, chroma_blocks) -> np.ndarray:
+    out = np.zeros((sum(luma_blocks) * 8, sum(chroma_blocks) * 8), np.float32)
+    o = i = 0
+    for lb, cb in zip(luma_blocks, chroma_blocks):
+        out[o:o + lb * 8, i:i + cb * 8] = chroma_axis_weights(lb, cb)
+        o, i = o + lb * 8, i + cb * 8
+    return out
+
+
+def segment_axis_weights(luma_blocks, chroma_blocks) -> np.ndarray:
+    """One axis's stack of a page assembled from independent JPEG segments
+    (the strips or tiles of a JPEG-compressed TIFF): block-diagonal, the
+    :func:`chroma_axis_weights` block of each segment along the axis, whose
+    block counts are ``luma_blocks[i]`` and ``chroma_blocks[i]``. libjpeg
+    upsamples each segment alone, so the triangle stops at every segment
+    edge. Where every segment's grids are equal (luma, and chroma on an axis
+    it is not subsampled on) it is the identity."""
+    luma_blocks, chroma_blocks = tuple(luma_blocks), tuple(chroma_blocks)
+    if len(luma_blocks) != len(chroma_blocks):
+        raise ValueError(f"{len(luma_blocks)} luma segments against "
+                         f"{len(chroma_blocks)} chroma segments")
+    if luma_blocks == chroma_blocks:
+        n = sum(luma_blocks) * 8
+        return upsample_weights(n, n)
+    return _chroma_cached(("seg", luma_blocks, chroma_blocks),
+                          lambda: _segment_axis_weights_impl(luma_blocks,
+                                                             chroma_blocks))
+
+
 def _combined_chroma_weights_impl(
     chroma_true: int,
     full_true: int,

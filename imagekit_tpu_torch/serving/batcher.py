@@ -172,8 +172,10 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
         pool, without Pillow (:func:`imagekit_tpu_torch.codecs.
         decode_bytes`). A JPEG is entropy-decoded there, and its IDCT,
         chroma upsample and colour stages run on the engine's device (one
-        K3 launch on CUDA) from a dispatch thread, as is a CMYK TIFF's
-        colour step. A source that the reference decodes in full at its
+        K3 launch on CUDA) from a dispatch thread, as do a JPEG-compressed
+        TIFF's page (its strips or tiles entropy-decoded on the pool) and
+        a CMYK TIFF's colour step. A source that the reference decodes in
+        full at its
         fetch stage (everything but JPEG, WebP and AVIF) and whose data does
         not decode raises :class:`SourceDecodeError`."""
         src = guess_format(data)  # TransformError on undetectable bytes
@@ -193,11 +195,17 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
                 raise
 
         if src == SourceFormat.tiff:
-            img, cmyk = await self._pool_run("decode", run, tiff.decode_stored)
-            if cmyk:  # the colour step on the device, as a CMYK JPEG's
-                img = await self._device_run("device_decode",
-                                             tiff.cmyk_to_rgb, img)
-            return img
+            # a JPEG TIFF's segments are entropy-decoded on the pool (its
+            # time under "entropy_decode") and its page decoded on a
+            # dispatch thread, as a JPEG; a CMYK TIFF's colour step runs
+            # there too
+            stored, kind = await self._pool_run(
+                lambda out: "entropy_decode" if out and out[1] == tiff.JPEG
+                else "decode", run, tiff.decode_stored)
+            if kind == tiff.SAMPLES:
+                return stored
+            return await self._device_run("device_decode", tiff.finish,
+                                          stored, kind)
         return await self._pool_run(
             "decode_png" if src == SourceFormat.png else "decode", run)
 
@@ -257,21 +265,25 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
             self._insystem -= 1
             self._avif_insystem -= avif
 
-    async def _pool_run(self, stage: str, fn, *args, pool=None):
+    async def _pool_run(self, stage, fn, *args, pool=None):
         """Run ``fn`` on the codec pool (or ``pool``); ``stage_seconds``
         gets the time inside the call, ``stage_wait_seconds`` the
-        pool-queue time."""
+        pool-queue time, under ``stage``: a name, or a function of the
+        call's result (None where it raised) that gives one."""
         loop = asyncio.get_running_loop()
         t_submit = time.perf_counter()
 
         def timed():
             t_start = time.perf_counter()
-            self.metrics.add_stage_wait(stage, t_start - t_submit)
+            out = None
             try:
-                return fn(*args)
+                out = fn(*args)
+                return out
             finally:
                 spent = time.perf_counter() - t_start
-                self.metrics.add_stage_time(stage, spent)
+                name = stage if isinstance(stage, str) else stage(out)
+                self.metrics.add_stage_wait(name, t_start - t_submit)
+                self.metrics.add_stage_time(name, spent)
                 if pool is self._avif_pool:
                     self._avif_secs.append(spent)
 

@@ -1299,3 +1299,41 @@ def test_pillow_fallbacks_on_card_match_cpu(monkeypatch, case):
             d = (torch.from_numpy(p).int() - torch.from_numpy(q).int()).abs()
             assert int(d.max()) <= 1
             assert float((d > 0).float().mean()) <= MAX_SHARE
+
+
+@needs_card
+@pytest.mark.parametrize("case", ["rgb_fixture", "cmyk_fixture", "strips_22",
+                                  "tiles_21", "strips_12", "gray"])
+def test_tiff_jpeg_pages_on_card_match_cpu(case):
+    """JPEG-compressed TIFFs (the committed Pillow-written 1080p RGB and
+    CMYK files; YCbCr and gray files from ``chip_smoke.make_jpeg_tiff``) on
+    the card: one K3 launch a page, two for CMYK, whatever the number of
+    strips or tiles, and pixels within +-2 on at most 0.1% of the CPU's
+    plain decode."""
+    from pathlib import Path
+
+    import chip_smoke
+    from imagekit_tpu_torch import codecs
+    from imagekit_tpu_torch.ops import resize_planes
+
+    fixtures = Path(__file__).parent / "fixtures"
+    img = chip_smoke.synth_image(11, 640, 360, noise=False)
+    data = {
+        "rgb_fixture": lambda: (fixtures / "tiff_jpeg_rgb_1080p_q80.tif")
+        .read_bytes(),
+        "cmyk_fixture": lambda: (fixtures / "tiff_jpeg_cmyk_1080p_q80.tif")
+        .read_bytes(),
+        "strips_22": lambda: chip_smoke.make_jpeg_tiff(img, 80),
+        "tiles_21": lambda: chip_smoke.make_jpeg_tiff(img, 80, samp=(2, 1),
+                                                      tile=64),
+        "strips_12": lambda: chip_smoke.make_jpeg_tiff(img, 80, samp=(1, 2)),
+        "gray": lambda: chip_smoke.make_jpeg_tiff(img, 80, gray=True),
+    }[case]()
+    before = resize_planes.LAUNCHES
+    got = codecs.decode_bytes(data, device="cuda")[0]
+    assert resize_planes.LAUNCHES - before == (2 if case == "cmyk_fixture"
+                                               else 1)
+    want = codecs.decode_bytes(data, device="cpu")[0]
+    assert got.shape == want.shape
+    d = np.abs(got.astype(int) - want.astype(int))
+    assert d.max() <= 2 and (d > 0).mean() <= MAX_SHARE

@@ -13,6 +13,12 @@ the inputs ``dct.four_component_inputs`` makes from a progressive CMYK
 JPEG. Every output is held against the plain version. This checks the
 indexing of the global and shared memory the body touches; races it cannot
 see.
+
+Beside them, the host half of the JPEG TIFF path: ``tiff_ext_decode.cpp``
+under the same sanitizers, its ``ik_tiffx_jpeg_segments`` fed JPEG TIFFs
+and hostile IFDs (segment offsets and counts past the end, a tile grid
+that overflows, ``JPEGTables`` of 0, 2 or too many bytes), each copied into
+a buffer of its exact size so that a read past it is caught.
 """
 
 import json
@@ -118,6 +124,257 @@ def test_k2_and_k3_under_address_sanitizer(tmp_path):
     assert len(worst) == 4 * 2 * 2 + 4
     for name, (mx, share) in worst.items():
         assert mx <= 1 and share <= 1e-3, (name, mx, share)
+
+
+_TIFFX = textwrap.dedent("""
+    import ctypes, json, sys
+    lib = ctypes.CDLL(sys.argv[1])
+    libc = ctypes.CDLL(None)
+    libc.malloc.restype = ctypes.c_void_p
+    libc.malloc.argtypes = [ctypes.c_size_t]
+    libc.free.argtypes = [ctypes.c_void_p]
+    u64 = ctypes.c_uint64
+
+    class Jpeg(ctypes.Structure):
+        _fields_ = [(n, ctypes.c_int32) for n in (
+            "width", "height", "photometric", "samples", "alpha", "sub_h",
+            "sub_v", "seg_w", "seg_h", "rows", "cols", "tiled")] + [
+            ("tables_off", u64), ("tables_len", u64)]
+
+    class Info(ctypes.Structure):
+        _fields_ = [(n, ctypes.c_int32) for n in ("w", "h", "c", "layout")]
+
+    class Seg(ctypes.Structure):  # IkSegInfo: 5 + 7 x 4 + 1 int32
+        _fields_ = [("head", ctypes.c_int32 * 5),
+                    ("comp", (ctypes.c_int32 * 4) * 7),
+                    ("progressive", ctypes.c_int32)]
+
+    class Splice(ctypes.Structure):
+        _fields_ = [("data", ctypes.c_void_p), ("len", u64),
+                    ("prefix", ctypes.c_void_p * 2), ("prefix_len", u64 * 2),
+                    ("offsets", ctypes.c_void_p), ("counts", ctypes.c_void_p),
+                    ("which", ctypes.c_void_p), ("n", ctypes.c_int32)]
+
+    def exact(raw):
+        # a copy of exactly its size: a redzone after
+        at = libc.malloc(max(len(raw), 1))
+        ctypes.memmove(at, raw, len(raw))
+        return at
+
+    def many(buf, size, ranges, case):
+        # the page's segments, spliced onto exact-size prefixes by the
+        # native entries, parsed and decoded into planes of exactly their
+        # headers' size
+        offs, cnts = zip(*ranges)
+        offs, cnts = case.get("offsets", offs), case.get("counts", cnts)
+        n = len(offs)
+        pre = [bytes.fromhex(h) for h in case["prefixes"]]
+        heads = [exact(p) for p in pre]
+        arr = lambda t, v: (t * n)(*v)
+        sp = Splice(buf, size, (ctypes.c_void_p * 2)(*heads),
+                    (u64 * 2)(*map(len, pre)))
+        keep = [arr(u64, offs), arr(u64, cnts),
+                arr(ctypes.c_int32, case["which"])]
+        sp.offsets, sp.counts, sp.which = map(ctypes.addressof, keep)
+        sp.n = n
+        infos = (Seg * n)()
+        four, rcs = (ctypes.c_int32 * n)(), (ctypes.c_int32 * n)()
+        lib.ik_tiffx_jpeg_parse_many(ctypes.byref(sp), infos, four, rcs)
+        parsed = list(rcs)
+        ptrs, owned = (ctypes.c_void_p * (4 * n))(), []
+        strides = (ctypes.c_int64 * (4 * n))()
+        for i in range(n):
+            for c in range(infos[i].head[2] if parsed[i] == 0 else 0):
+                bw, bh = infos[i].comp[4][c], infos[i].comp[5][c]
+                ptrs[4 * i + c] = libc.malloc(bw * bh * 64 * 2)
+                strides[4 * i + c] = bw
+                owned.append(ptrs[4 * i + c])
+        q = (ctypes.c_uint16 * (256 * n))()
+        lib.ik_tiffx_jpeg_decode_many(ctypes.byref(sp), ptrs, strides, q,
+                                      rcs)
+        for a in owned + heads:
+            libc.free(ctypes.c_void_p(a))
+        return parsed, list(rcs)
+
+    out = {}
+    for name, case in json.loads(sys.stdin.read()).items():
+        data = bytes.fromhex(case["data"])
+        buf = exact(data)
+        info, jinfo = Info(), Jpeg()
+        rc_parse = lib.ik_tiffx_parse(ctypes.c_void_p(buf), len(data),
+                                      ctypes.byref(info))
+        rc_small = lib.ik_tiffx_jpeg_segments(
+            ctypes.c_void_p(buf), len(data), ctypes.byref(jinfo), None, None,
+            0)
+        n = max(jinfo.rows * jinfo.cols, 0) if rc_small == -7 else 0
+        offs, cnts = (u64 * n)(), (u64 * n)()
+        rc = lib.ik_tiffx_jpeg_segments(ctypes.c_void_p(buf), len(data),
+                                        ctypes.byref(jinfo), offs, cnts, n)
+        ranges = [[offs[i], cnts[i]] for i in range(n)]
+        out[name] = {"parse": rc_parse, "small": rc_small, "rc": rc,
+                     "len": len(data), "ranges": ranges,
+                     "tables": [jinfo.tables_off, jinfo.tables_len]}
+        if case["splice"]:
+            out[name]["many"] = many(buf, len(data), ranges, case["splice"])
+        libc.free(ctypes.c_void_p(buf))
+    print(json.dumps(out))
+""")
+
+
+def _tiffx_cases() -> dict:
+    """JPEG TIFFs (strips, tiles, no tables) and hostile IFDs around
+    them."""
+    import chip_smoke
+    from tests.conftest import make_test_image
+
+    img = make_test_image(64, 48)
+    good = {"strips": chip_smoke.make_jpeg_tiff(img, 85),
+            "tiles": chip_smoke.make_jpeg_tiff(img, 85, tile=16),
+            "no_tables": chip_smoke.make_jpeg_tiff(img, 85, tables=False)}
+    base = {258: (3, [8] * 3), 259: (3, [7]), 262: (3, [6]), 277: (3, [3]),
+            284: (3, [1]), 530: (3, [2, 2])}
+    seg = b"\xff\xd8" + bytes(60) + b"\xff\xd9"
+
+    def strips(n, extra=None, **tags):
+        return chip_smoke.tiff_file(64, 16 * n, {**base, 278: (4, [16]),
+                                                 **(extra or {})},
+                                    [seg] * n)
+
+    def patched(data, tag, index, value):
+        # the index-th value of a LONG tag's array, set to ``value``
+        at = data.index(tag.to_bytes(2, "little") + b"\x04\x00")
+        off = int.from_bytes(data[at + 8:at + 12], "little")
+        return (data[:off + 4 * index] + value.to_bytes(4, "little")
+                + data[off + 4 * index + 4:])
+
+    # tables of 60 kB (a COM segment in them) and a hundred one-row strips
+    # of an SOI each: the splices would copy about 6 MB of a 61 kB file
+    big = b"\xff\xd8\xff\xfe\xea\x60" + bytes(0xEA5E) + b"\xff\xd9"
+    hostile = {
+        "offset_past_the_end": patched(strips(3), 273, 2, 1 << 20),
+        "count_past_the_end": patched(strips(3), 279, 1, 1 << 20),
+        "offset_and_count_wrap": patched(patched(strips(3), 273, 0,
+                                                 0xFFFFFFF0), 279, 0, 0x20),
+        "tile_grid_overflows": chip_smoke.tiff_file(
+            1 << 24, 1 << 24, base, [seg] * 4, tile=16),
+        "tile_of_zero": chip_smoke.tiff_file(
+            64, 48, {**base, 322: (3, [0]), 323: (3, [0]),
+                     324: (4, [8]), 325: (4, [64])}, []),
+        "tables_past_the_end": strips(2, {347: (7, b"\xff\xd8" * 3)})[:-4],
+        "fewer_strips_than_rows": strips(2, {257: (4, [64])}),
+        "tables_too_long": strips(2, {347: (7, b"\xff\xd8" + bytes(1 << 16)
+                                             + b"\xff\xd9")}),
+        "splices_amplified": chip_smoke.tiff_file(
+            64, 100, {**base, 278: (4, [1]), 347: (7, big)},
+            [b"\xff\xd8"] * 100),
+    }
+    edge = {"tables_of_0": strips(2, {347: (7, b"")}),
+            "tables_of_2": strips(2, {347: (7, b"\xff\xd8")})}
+    return good, hostile, edge
+
+
+def test_tiff_jpeg_segments_under_address_sanitizer(tmp_path):
+    """``ik_tiffx_jpeg_segments`` under ASan and UBSan: JPEG TIFFs give
+    their grid and ranges inside the data; hostile IFDs are refused (rc <
+    0), tables longer than 64 kB and splices that would copy more than 64
+    times the file among them; ``JPEGTables`` of 0 or 2 bytes parse, their
+    range inside the data; a grid larger than the caller's room is -7,
+    nothing written. The good pages' segments go through
+    ``ik_tiffx_jpeg_parse_many`` and ``ik_tiffx_jpeg_decode_many``, which
+    splice them from the file and the prefixes, each held in a buffer of
+    exactly its size; so do
+    pages with a segment cut short or turned to garbage, and splices whose
+    ranges leave the file or start without an SOI (all refused). The
+    decode writes each segment's levels through a scratch buffer into
+    destinations of exactly their size. The sanitizers report nothing."""
+    from imagekit_tpu_torch.codecs import tiff
+
+    native = ROOT / "imagekit_tpu_torch" / "codecs" / "native"
+    so = tmp_path / "libtiffx_asan.so"
+    # the batch entries call the pinned and the four-component decoders
+    subprocess.run(["g++", "-std=c++17", "-O1", "-g", "-fPIC", "-shared",
+                    "-fsanitize=address,undefined",
+                    "-fno-sanitize-recover=undefined",
+                    *(str(native / f) for f in ("tiff_ext_decode.cpp",
+                                                "jpeg_entropy.cpp",
+                                                "jpeg4_decode.cpp")),
+                    "-o", str(so), "-lz"], check=True, timeout=300)
+    good, hostile, edge = _tiffx_cases()
+
+    def splice(data, **hostile_ranges):
+        # the prefixes and each segment's choice of them, as entropy_decode
+        # makes them
+        info, offs, cnts = tiff.segments(data)
+        tables = data[info.tables_off:info.tables_off + info.tables_len]
+        defs = tiff.tables_defined(tables)
+        which = [int(tiff._segment_tables(data[o:o + n], defs)[1])
+                 for o, n in zip(offs.tolist(), cnts.tolist())]
+        return {"prefixes": [p.hex() for p in tiff.prefixes(tables)],
+                "which": which, **hostile_ranges}
+
+    cases = {f"{kind}/{k}": {"data": v.hex(),
+                             "splice": splice(v) if kind == "good" else None}
+             for kind, group in (("good", good), ("hostile", hostile),
+                                 ("edge", edge))
+             for k, v in group.items()}
+    strips = good["strips"]
+    info, offs, cnts = tiff.segments(strips)
+    offs, cnts = offs.tolist(), cnts.tolist()
+    # a page whose last segment is cut short, one with a segment of
+    # garbage, and splices whose ranges leave the file or have no SOI
+    garbage = (strips[:offs[1] + 200] + b"\xab" * (cnts[1] - 200)
+               + strips[offs[1] + cnts[1]:])
+    len_ = len(strips)
+    rogue = {
+        "cut/last": (strips, {"counts": cnts[:2] + [300]}),
+        "cut/garbage": (garbage, {}),
+        "cut/offset_past_the_end": (strips, {"offsets": offs[:2]
+                                             + [len_ + 1]}),
+        "cut/count_past_the_end": (strips, {"counts": cnts[:2]
+                                            + [len_ - offs[2] + 1]}),
+        "cut/count_wraps": (strips, {"offsets": offs[:2] + [2 ** 64 - 4],
+                                     "counts": cnts[:2] + [8]}),
+        "cut/no_soi": (strips, {"offsets": offs[:2] + [offs[2] + 2],
+                                "counts": cnts[:2] + [cnts[2] - 2]}),
+        "cut/count_of_1": (strips, {"counts": cnts[:2] + [1]}),
+    }
+    for name, (data, ranges) in rogue.items():
+        cases[name] = {"data": data.hex(), "splice": splice(data, **ranges)}
+    asan = subprocess.run(["g++", "-print-file-name=libasan.so"],
+                          capture_output=True, text=True).stdout.strip()
+    env = {**os.environ, "LD_PRELOAD": asan,
+           "ASAN_OPTIONS": "detect_leaks=0:abort_on_error=1",
+           "UBSAN_OPTIONS": "print_stacktrace=1:halt_on_error=1"}
+    proc = subprocess.run([sys.executable, "-c", _TIFFX, str(so)],
+                          input=json.dumps(cases), capture_output=True,
+                          text=True, env=env, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-6000:]
+    assert "Sanitizer" not in proc.stderr, proc.stderr[-6000:]
+    assert "runtime error" not in proc.stderr, proc.stderr[-6000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name, r in res.items():
+        kind = name.split("/")[0]
+        if kind == "cut":  # the rogue segment 2 is refused, the others not
+            parsed, decoded = r["many"]
+            cut = 2 if name != "cut/garbage" else 1
+            assert min(parsed[cut], decoded[cut]) < 0, (name, r)
+            assert parsed[:cut] == decoded[:cut] == [0] * cut, (name, r)
+            continue
+        if kind == "good":  # every segment parses and decodes
+            assert r["many"] == [[0] * len(r["ranges"])] * 2, (name, r)
+        if kind == "hostile":
+            assert r["rc"] < 0 and r["parse"] < 0, (name, r)
+            continue
+        assert r["rc"] == r["parse"] == 0 and r["small"] == -7, (name, r)
+        assert r["ranges"] and all(0 < o and o + n <= r["len"]
+                                   for o, n in r["ranges"]), (name, r)
+        off, n = r["tables"]
+        assert off + n <= r["len"], (name, r)
+    assert res["good/tiles"]["ranges"].__len__() == 12
+    assert res["edge/tables_of_0"]["tables"][1] == 0
+    assert res["edge/tables_of_2"]["tables"][1] == 2
+    for name in ("offset_past_the_end", "no_soi", "count_of_1"):
+        assert res[f"cut/{name}"]["many"][0][2] in (-1, -2), name
 
 
 if __name__ == "__main__":

@@ -286,6 +286,17 @@ def _gray_tiff(bits, photo, compression, le=True):
     return _tiff(W, H, tags, [body], le=le)
 
 
+def _alpha_img(mode, w=37, h=23):
+    """A test image as Pillow's LA or PA, its alpha a ramp of every
+    value."""
+    img = Image.fromarray(make_test_image(w, h))
+    pic = img.convert("L") if mode == "LA" else img.convert("P")
+    pic = pic.convert(mode)
+    pic.putalpha(Image.fromarray(
+        (np.arange(w * h) % 256).astype(np.uint8).reshape(h, w)))
+    return pic
+
+
 def _cmyk_img(w=37, h=23):
     return Image.fromarray(make_test_image(w, h)).convert("CMYK")
 
@@ -353,6 +364,15 @@ TIFFS = {
                                  tiffinfo={278: 4}),
     "cmyk_planar": _cmyk_planar,
     "cmyk_tiled": _cmyk_tiled,
+    # Pillow's LA and PA (gray and palette with unassociated alpha): RGBA
+    **{f"{name}_{k}": (lambda m=mode, c=c, kw=kw: _save(
+        _alpha_img(m), "TIFF", compression=c, **kw))
+       for name, mode in (("gray_alpha", "LA"), ("palette_alpha", "PA"))
+       for k, c, kw in (("none", "raw", {}), ("packbits", "packbits", {}),
+                        ("lzw", "tiff_lzw", {}),
+                        ("deflate", "tiff_adobe_deflate", {}),
+                        ("lzw_predictor", "tiff_lzw", {"tiffinfo": {317: 2}}),
+                        ("strips", "packbits", {"tiffinfo": {278: 4}}))},
 }
 SOURCES = {**{f"bmp_{k}": v for k, v in BMPS.items()},
            **{f"tiff_{k}": v for k, v in TIFFS.items()}}
@@ -483,15 +503,32 @@ def _extra_samples_cmyk():
                         277: (3, [5]), 338: (3, [0])}, [px.tobytes()])
 
 
+def _ojpeg() -> bytes:
+    """Old-style JPEG (compression 6): one whole JPEG in the strip and
+    behind JPEGInterchangeFormat (513, 514)."""
+    whole = _save(Image.fromarray(make_test_image(48, 32)), "JPEG")
+    return _tiff(48, 32, {258: (3, [8] * 3), 259: (3, [6]), 262: (3, [6]),
+                          277: (3, [3]), 278: (3, [32]), 513: (4, [8]),
+                          514: (4, [len(whole)])}, [whole])
+
+
+def _planar_jpeg() -> bytes:
+    """PlanarConfiguration 2 with JPEG: each channel a one-component JPEG
+    carrying its own tables."""
+    img = make_test_image(48, 32)
+    return _tiff(48, 32, {258: (3, [8] * 3), 259: (3, [7]), 262: (3, [2]),
+                          277: (3, [3]), 278: (3, [32]), 284: (3, [2])},
+                 [_save(Image.fromarray(img[..., c]), "JPEG")
+                  for c in range(3)])
+
+
 STILL_501 = {
     "tiff_fill_order_2": lambda: _tiff(
         W, H, {258: (3, [1]), 259: (3, [1]), 262: (3, [1]), 266: (3, [2])},
         [_pack(_values(1), 1)]),
-    "tiff_jpeg_ycbcr": lambda: _save(make_test_image(48, 32), "TIFF",
-                                     compression="jpeg"),
-    "tiff_gray_alpha": lambda: _save(Image.fromarray(make_test_image(
-        48, 32)).convert("LA"), "TIFF"),
     "tiff_cmyk_5_samples": _extra_samples_cmyk,
+    "tiff_old_style_jpeg": _ojpeg,
+    "tiff_planar_jpeg": _planar_jpeg,
 }
 
 
@@ -506,6 +543,30 @@ def test_layouts_neither_decoder_takes_stay_not_ported(name):
         codecs.decode_bytes(data, device="cpu")
     with pytest.raises(NotPortedError, match="queue 1 item 9"):
         tiff.parse(data)
+
+
+@pytest.mark.parametrize("name", ["tiff_jpeg_rgb", "tiff_gray_alpha"])
+def test_layouts_that_left_the_501s_are_served(name):
+    """Pillow's JPEG TIFF (photometric RGB, not YCbCr: Pillow writes an RGB
+    image's components as they are) and its LA TIFF, once 501 here, are
+    served: the JPEG within the pixel decode's bounds of Pillow's pixels,
+    the LA exactly, as RGBA."""
+    img = Image.fromarray(make_test_image(48, 32))
+    data = _save(img if name == "tiff_jpeg_rgb" else img.convert("LA"),
+                 "TIFF", **({"compression": "jpeg"}
+                            if name == "tiff_jpeg_rgb" else {}))
+    with Image.open(io.BytesIO(data)) as im:
+        assert im.tag_v2[262] == (2 if name == "tiff_jpeg_rgb" else 1)
+    want = ref_codecs.decode_bytes(data)[0]
+    got = codecs.decode_bytes(data, device="cpu")[0]
+    assert got.shape == want.shape == (32, 48, 3 if name == "tiff_jpeg_rgb"
+                                       else 4)
+    if name == "tiff_jpeg_rgb":
+        assert psnr(got, want) >= 40.0
+        assert np.abs(got.astype(int) - want.astype(int)).max() <= 12
+    else:
+        assert np.array_equal(got, want)
+    assert tiff.parse(data) == (48, 32, got.shape[2])
 
 
 @pytest.mark.parametrize("name", ["bmp_core24", "tiff_bilevel_g4"])
@@ -652,7 +713,7 @@ _SANITIZED = textwrap.dedent("""
     cases = json.loads(sys.stdin.read())
 
     class Info(ctypes.Structure):
-        _fields_ = [(n, ctypes.c_int32) for n in ("w", "h", "c")]
+        _fields_ = [(n, ctypes.c_int32) for n in ("w", "h", "c", "layout")]
 
     rcs = {}
     for name, hexdata in cases.items():
@@ -696,7 +757,9 @@ def test_port_only_decoders_under_address_sanitizer(tmp_path):
          "-fno-omit-frame-pointer",
          *(str(native / s) for s in ("bmp_ext_decode.cpp",
                                      "tiff_ext_decode.cpp",
-                                     "jpeg4_decode.cpp")),
+                                     "jpeg4_decode.cpp",
+                                     # the JPEG TIFF entries call it
+                                     "jpeg_entropy.cpp")),
          "-o", str(lib), "-lz"], check=True, capture_output=True, timeout=300)
     asan = subprocess.run(["g++", "-print-file-name=libasan.so"],
                           capture_output=True, text=True).stdout.strip()
@@ -817,7 +880,10 @@ def test_committed_fixtures_are_their_recipes():
 
     for name, make in recipe.FIXTURES.items():
         data = (FIXTURES / name).read_bytes()
-        assert make() == data and len(data) < 200_000
+        # the 1080p JPEG TIFFs of phase 21 are checked in
+        # tests/test_torch_tiff_jpeg.py, under 400 kB each
+        assert make() == data and len(data) < (
+            400_000 if name.startswith("tiff_jpeg") else 200_000)
     page = chip_smoke.text_page(chip_smoke.G4_SEED)
     got = codecs.decode_bytes((FIXTURES / "g4_a4_300dpi.tif").read_bytes(),
                               device="cpu")[0]

@@ -208,6 +208,54 @@ def test_port_serves_pillow_sources_without_pillow(tmp_path):
     assert res["mods"] == []
 
 
+def test_port_serves_jpeg_tiffs_without_pillow(tmp_path):
+    """JPEG TIFFs of every layout (``tests/test_torch_tiff_jpeg.py``'s
+    engine sources: RGB, CMYK, RGBA and gray by Pillow, YCbCr strips and
+    tiles by ``chip_smoke.make_jpeg_tiff``), written here, through
+    ``BatchedEngine(device="cpu")`` in a subprocess that then holds no
+    Pillow, no ``jax`` and no ``imagekit_tpu`` module."""
+    import json
+
+    from tests.test_torch_tiff_jpeg import ENGINE_SOURCES
+
+    names = sorted(ENGINE_SOURCES)
+    for name in names:
+        (tmp_path / name).write_bytes(ENGINE_SOURCES[name]())
+    script = textwrap.dedent("""
+        import asyncio, json, sys
+        from pathlib import Path
+        from imagekit_tpu_torch.codecs import vp8
+        from imagekit_tpu_torch.config import BatchConfig, ImageFormat, ImageKitConfig
+        from imagekit_tpu_torch.serving.batcher import BatchedEngine
+        from imagekit_tpu_torch.serving.metrics import Metrics
+
+        datas = [(Path(sys.argv[1]) / n).read_bytes() for n in sys.argv[2:]]
+        engine = BatchedEngine(ImageKitConfig(secret="s", batch=BatchConfig(
+            max_batch=1)), metrics=Metrics(), device="cpu")
+
+        async def run():
+            try:
+                return await asyncio.gather(*(
+                    engine.transform(d, 32, None, ImageFormat.webp, 80)
+                    for d in datas))
+            finally:
+                await engine.close()
+
+        outs = asyncio.run(run())
+        print(json.dumps({
+            "sizes": [list(vp8.dimensions(o)) for o in outs],
+            "mods": sorted(m for m in sys.modules if m.split(".")[0] in (
+                "PIL", "jax", "imagekit_tpu"))}))
+    """)
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp_path),
+                           *names], capture_output=True, text=True,
+                          timeout=600, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["sizes"] == [[32, 24]] * len(names)
+    assert res["mods"] == []
+
+
 # -- the copies against the reference ------------------------------------------------
 
 NATIVE = ("jpeg_entropy.cpp", "vp8_encode.cpp", "vp8_decode.cpp",
@@ -236,7 +284,7 @@ def test_port_only_native_sources_are_built_and_not_copies():
     lib = loader.load()
     for fn in ("ik_qoi_decode", "ik_bcn_decode", "ik_jpeg4_parse",
                "ik_jpeg4_decode_coeffs", "ik_bmpx_parse", "ik_bmpx_decode",
-               "ik_tiffx_parse", "ik_tiffx_decode"):
+               "ik_tiffx_parse", "ik_tiffx_decode", "ik_tiffx_jpeg_segments"):
         assert hasattr(lib, fn)
 
 

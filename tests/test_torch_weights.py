@@ -157,6 +157,7 @@ def test_port_imports_no_jax_and_no_reference_device_modules():
         import imagekit_tpu_torch.codecs.jpeg
         import imagekit_tpu_torch.codecs.misc
         import imagekit_tpu_torch.codecs.tiff
+        import imagekit_tpu_torch.codecs.native.jpeg_abi
         import imagekit_tpu_torch.codecs.native.loader
         import imagekit_tpu_torch.cache
         import imagekit_tpu_torch.signature
@@ -200,6 +201,13 @@ def test_port_sources_never_import_jax():
     root = Path(imagekit_tpu_torch.__file__).parent
     files = sorted(root.rglob("*.py")) + [root.parent / "chip_smoke.py"]
     assert len(files) > 30
+    # the JPEG TIFF path among them: IFD, segments, page decode, engine
+    scanned = {f.relative_to(root.parent).as_posix() for f in files}
+    assert {"imagekit_tpu_torch/codecs/tiff.py",
+            "imagekit_tpu_torch/codecs/misc.py",
+            "imagekit_tpu_torch/codecs/native/jpeg_abi.py",
+            "imagekit_tpu_torch/ops/dct.py", "imagekit_tpu_torch/ops/weights.py",
+            "imagekit_tpu_torch/serving/batcher.py"} <= scanned
     forbidden = ("jax", "jaxlib", "imagekit_tpu", "rust_image_transform_tpu",
                  "PIL")
     for f in files:
