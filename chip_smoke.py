@@ -23,7 +23,9 @@ whole rows); and JPEG sources beyond 4:2:0 (4:4:4, 4:2:2, 4:4:0,
 grayscale: the JPEG pixel decode on K3, then the RGB head on K2); and
 the sources the reference decodes with Pillow (ICO, PNM, QOI, DDS, CMYK
 and YCCK JPEGs baseline and progressive, BMP and TIFF layouts its native
-decoders refuse, JPEG-compressed TIFFs):
+decoders refuse, JPEG-compressed TIFFs, and the TIFF layouts it still
+decoded with Pillow: old-style, planar and extra-sample JPEG pages,
+16-bit CMYK, float32 rasters, FillOrder 2):
 
 1. environment: the card (``nvidia-smi``), torch and CUDA versions;
 2. build: the kernel library (one nvcc per source, started together) and,
@@ -191,7 +193,21 @@ decoders refuse, JPEG-compressed TIFFs):
     one K2 launch a batch; K3's column strips counted): requests/s,
     p50/p99, host stages, idle share. K3 on the 1080p strip page's
     block-diagonal stacks against its plain version, timed, with an einsum
-    yardstick and the bound.
+    yardstick and the bound;
+22. the TIFF layouts the reference still decoded with Pillow, written here
+    without Pillow: a 1080p old-style JPEG page (JFIF behind 513/514), a
+    planar RGB JPEG page in 16-row strips, the committed CMYK JPEG TIFF
+    rewritten as RGB with an unspecified extra sample, a 16-bit CMYK page,
+    a float32 elevation raster (deflate, floating-point predictor) and the
+    committed A4 G4 page in FillOrder 2; each decode checked against its
+    picture (exactly for the sample layouts) and, for the JPEG pages,
+    against the host's plain decode; counts reset before each round, each
+    round run once, traced, -> w=400 WebP (the planar page -> JPEG): one K3
+    launch an old-style or planar page, two an extra-sample page, none for
+    the sample layouts, one K2 launch a batch; requests/s, p50/p99, host
+    stages, idle share. K3 at the old-style page's replication stacks
+    against its plain version (max |d| 0), timed, with an einsum yardstick
+    and the bound.
 
 Device times are the kernels' own, summed by ``torch.profiler`` over 20
 calls (the host's launch cost excluded); the bound is the larger of the
@@ -4062,6 +4078,255 @@ def phase_tiff_jpeg(card: str) -> dict:
     return summary
 
 
+# phase 22: the TIFF layouts the reference still decoded with Pillow
+# ---------------------------------------------------------------------------
+
+
+def read_ifd(data: bytes) -> dict:
+    """The SHORT and LONG entries of a little-endian TIFF's first IFD:
+    {tag: (type, values)}."""
+    ifd = struct.unpack("<I", data[4:8])[0]
+    tags = {}
+    for i in range(struct.unpack("<H", data[ifd:ifd + 2])[0]):
+        tag, typ, n, raw = struct.unpack(
+            "<HHII", data[ifd + 2 + 12 * i:ifd + 14 + 12 * i])
+        if typ not in (3, 4):
+            continue
+        size = 2 if typ == 3 else 4
+        at = ifd + 10 + 12 * i if n * size <= 4 else raw
+        tags[tag] = (typ, list(struct.unpack(f"<{n}{'HI'[typ == 4]}",
+                                             data[at:at + n * size])))
+    return tags
+
+
+REVERSED_BITS = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)],
+                         np.uint8)
+
+
+def fill_order_2(data: bytes) -> bytes:
+    """A little-endian strip TIFF of SHORT and LONG tags in FillOrder 2:
+    each strip's bits reversed, FillOrder (266) set to 2."""
+    tags = read_ifd(data)
+    w, h = tags.pop(256)[1][0], tags.pop(257)[1][0]
+    strips = [REVERSED_BITS[np.frombuffer(data[o:o + n], np.uint8)]
+              .tobytes() for o, n in zip(tags.pop(273)[1], tags.pop(279)[1])]
+    tags[266] = (3, [2])
+    return tiff_file(w, h, tags, strips)
+
+
+def make_old_style_tiff(img: np.ndarray, quality: int = 80) -> bytes:
+    """An old-style JPEG TIFF (compression 6) without Pillow: the image's
+    4:2:0 JFIF stream (the port's encoder) as the one strip and behind
+    JPEGInterchangeFormat (513, 514), as old scanners wrote them."""
+    from imagekit_tpu_torch.codecs.native import loader
+    from imagekit_tpu_torch.ops.weights import host_encode_rgb_to_coefficients
+
+    h, w = img.shape[:2]
+    planes, qt = host_encode_rgb_to_coefficients(img, quality, (2, 2))
+    jpeg = loader.encode_jpeg(planes, qt, w, h, (2, 2))
+    return tiff_file(w, h, {258: (3, [8] * 3), 259: (3, [6]), 262: (3, [6]),
+                            277: (3, [3]), 278: (4, [h]), 513: (4, [8]),
+                            514: (4, [len(jpeg)])}, [jpeg])
+
+
+def make_planar_jpeg_tiff(img: np.ndarray, quality: int = 80,
+                          rows: int = 16) -> bytes:
+    """A planar (PlanarConfiguration 2) RGB JPEG TIFF without Pillow: each
+    channel's strips one-component JPEGs (``make_jpeg_tiff``'s gray
+    segments of the channel), plane after plane, the planes' one
+    ``JPEGTables``."""
+    from imagekit_tpu_torch.codecs import tiff
+
+    h, w = img.shape[:2]
+    segs, tables = [], b""
+    for c in range(3):
+        plane = np.repeat(img[..., c:c + 1], 3, 2)
+        data = make_jpeg_tiff(plane, quality, rows=rows, gray=True)
+        info, offs, cnts = tiff.segments(data)
+        tables = data[info.tables_off:info.tables_off + info.tables_len]
+        segs += [data[o:o + n] for o, n in zip(offs.tolist(), cnts.tolist())]
+    return tiff_file(w, h, {258: (3, [8] * 3), 259: (3, [7]), 262: (3, [2]),
+                            277: (3, [3]), 278: (4, [rows]), 284: (3, [2]),
+                            347: (7, tables)}, segs)
+
+
+def with_unspecified_extra(cmyk_jpeg_tiff: bytes) -> bytes:
+    """Pillow's CMYK JPEG TIFF rewritten as RGB with one unspecified extra
+    sample (photometric 2, ExtraSamples 0): its four-component segments and
+    tables as they are, the fourth component dropped in the decode."""
+    from imagekit_tpu_torch.codecs import tiff
+
+    info, offs, cnts = tiff.segments(cmyk_jpeg_tiff)
+    tables = cmyk_jpeg_tiff[info.tables_off:info.tables_off + info.tables_len]
+    segs = [cmyk_jpeg_tiff[o:o + n] for o, n in zip(offs.tolist(),
+                                                    cnts.tolist())]
+    return tiff_file(info.width, info.height, {
+        258: (3, [8] * 4), 259: (3, [7]), 262: (3, [2]), 277: (3, [4]),
+        278: (4, [info.seg_h]), 284: (3, [1]), 338: (3, [0]),
+        347: (7, tables)}, segs)
+
+
+def make_cmyk16_tiff(img: np.ndarray) -> bytes:
+    """A 16-bit CMYK TIFF (chunky, little-endian, uncompressed), as a
+    prepress tool writes one: C, M, Y = (255 - R, G, B) * 257 plus a
+    seeded low byte, K = 0; its high bytes are Pillow's CMYK."""
+    h, w = img.shape[:2]
+    ink = np.concatenate([255 - img, np.zeros((h, w, 1), np.uint8)], 2)
+    low = np.random.default_rng(16).integers(0, 256, ink.shape, np.uint16)
+    px = (ink.astype(np.uint16) << 8) | low
+    return tiff_file(w, h, {258: (3, [16] * 4), 259: (3, [1]), 262: (3, [5]),
+                            277: (3, [4]), 278: (4, [h])},
+                     [px.astype("<u2").tobytes()])
+
+
+def elevation(seed: int, w: int = 1920, h: int = 1080) -> np.ndarray:
+    """A seeded float32 raster like a digital elevation model's tile: ridges
+    and noise from -40 to 300 m, with no-data NaN holes."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    z = (130 + 120 * np.sin(x / 97) * np.cos(y / 61)
+         + 40 * np.sin((x + y) / 23) + rng.normal(0, 4, (h, w)))
+    z[rng.random((h, w)) < 1e-3] = np.nan
+    return z.astype(np.float32)
+
+
+def make_float_tiff(z: np.ndarray) -> bytes:
+    """A float32 gray TIFF as GDAL writes elevation: deflate with the
+    floating-point predictor (3), in strips of 16 rows: each row's
+    big-endian bytes as four byte planes, differenced byte by byte."""
+    h, w = z.shape
+    b = z.astype(">f4").view(np.uint8).reshape(h, w, 4)
+    planes = np.concatenate([b[:, :, k] for k in range(4)], axis=1)
+    planes[:, 1:] = planes[:, 1:] - planes[:, :-1]
+    strips = [zlib.compress(planes[y:y + 16].tobytes(), 1)
+              for y in range(0, h, 16)]
+    return tiff_file(w, h, {258: (3, [32]), 259: (3, [8]), 262: (3, [1]),
+                            277: (3, [1]), 278: (4, [16]), 317: (3, [3]),
+                            339: (3, [3])}, strips)
+
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    err = a.astype(np.float64) - b
+    return 10 * np.log10(255.0 ** 2 / max(float((err ** 2).mean()), 1e-12))
+
+
+def float_bytes(z: np.ndarray) -> np.ndarray:
+    """Pillow's F -> RGB of a float raster: truncated to a byte, NaN and
+    what is not above 0 to 0, 255 and above to 255; (h, w, 3) u8."""
+    v = np.where(z > 0, z, 0)
+    g = np.where(v >= 255, 255, np.trunc(np.nan_to_num(v))).astype(np.uint8)
+    return np.repeat(g[..., None], 3, 2)
+
+
+def phase_tiff_remainder(card: str) -> dict:
+    """The TIFF layouts the reference still decoded with Pillow, through one
+    engine: an old-style JPEG page (the JFIF stream behind 513/514
+    entropy-decoded on the codec pool; on a dispatch thread the IDCT, ONE
+    K3 launch with replication stacks for chroma, libtiff's YCbCr to RGB),
+    a planar RGB JPEG page (ONE K3 launch for its three planes), an RGB
+    JPEG page with an unspecified extra sample (TWO), a 16-bit CMYK page
+    (high bytes on the pool, the CMYK colour step on a dispatch thread), a
+    float32 elevation raster (deflate, floating-point predictor: to bytes
+    on the pool) and an A4 G4 page in FillOrder 2; the RGB head (K2) a
+    batch. Each decode is checked first, against its picture or Pillow's
+    rule and, for the JPEG pages, against the plain decode on the host's
+    CPU. Then the rounds (``drive_rounds``), and K3 at the old-style page's
+    replication stacks against its plain version (exact: weights of 1 on
+    u8)."""
+    from imagekit_tpu_torch.codecs import decode_bytes, tiff
+    from imagekit_tpu_torch.config import ImageFormat
+    from imagekit_tpu_torch.ops import dct
+
+    W, J = ImageFormat.webp, ImageFormat.jpeg
+    t0 = time.perf_counter()
+    picture = synth_image(830, noise=False)
+    old = make_old_style_tiff(picture)
+    planar = make_planar_jpeg_tiff(picture)
+    rgbx = with_unspecified_extra(open(TIFF_JPEG_CMYK_FIXTURE, "rb").read())
+    cmyk16 = make_cmyk16_tiff(picture)
+    z = elevation(840)
+    raster = make_float_tiff(z)
+    g4 = fill_order_2(open(G4_FIXTURE, "rb").read())
+    log(f"    made a 1080p old-style JPEG TIFF ({len(old) / 1e3:.0f} kB, "
+        f"JFIF behind 513/514), a planar RGB JPEG TIFF in 16-row strips "
+        f"({len(planar) / 1e3:.0f} kB, 3 x 68), an RGB + unspecified extra "
+        f"sample JPEG TIFF ({len(rgbx) / 1e3:.0f} kB), a 16-bit CMYK TIFF "
+        f"({len(cmyk16) / 1e6:.1f} MB), a float32 elevation raster "
+        f"(deflate, predictor 3, {len(raster) / 1e6:.1f} MB) and the A4 G4 "
+        f"page in FillOrder 2 ({len(g4) / 1e3:.1f} kB) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    steps = {"sources": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    page = text_page(G4_SEED)
+    exact = {"16-bit CMYK": (cmyk16, picture),
+             "float32 raster": (raster, float_bytes(z)),
+             "FillOrder 2 G4": (g4, np.repeat(np.where(
+                 page, 255, 0).astype(np.uint8)[..., None], 3, 2))}
+    checks = []
+    for name, (data, want) in exact.items():
+        got = decode_bytes(data, device="cuda")[0]
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise RuntimeError(f"the {name} TIFF decode is not its picture")
+        checks.append(f"{name} exact")
+    for name, data in (("old-style", old), ("planar", planar),
+                       ("RGB + extra", rgbx)):
+        got = decode_bytes(data, device="cuda")[0]
+        if name != "RGB + extra":
+            p = psnr(got, picture)
+            checks.append(f"{name} {p:.2f} dB")
+            if got.shape != picture.shape or p < 30.0:
+                raise RuntimeError(f"the {name} JPEG TIFF decode is not its "
+                                   f"picture (PSNR {p:.2f} dB)")
+        diff = np.abs(got.astype(int) - decode_bytes(
+            data, device="cpu")[0].astype(int))
+        checks.append(f"{name} vs the host's plain decode max|d|="
+                      f"{diff.max()} on {(diff > 0).mean():.3e}")
+        if got.shape[:2] != (1080, 1920) or diff.max() > 2 or (
+                diff > 0).mean() > MAX_SHARE:
+            raise RuntimeError(f"the {name} JPEG TIFF decode on the card is "
+                               f"not the plain one on the host's CPU")
+    log(f"    decodes: {'; '.join(checks)}")
+    steps["decode checks"] = time.perf_counter() - t0
+
+    small_out = (400, 225)
+    head = {"k3": 1, "k2": "batch"}
+    rounds = [
+        ("1080p old-style JPEG TIFF (JFIF behind 513/514) -> w=400 WebP",
+         [old], 16, 400, W, small_out, head),
+        ("1080p planar RGB JPEG TIFF, 16-row strips -> w=400 JPEG",
+         [planar], 16, 400, J, small_out, head),
+        ("1080p RGB JPEG TIFF + unspecified extra sample -> w=400 WebP",
+         [rgbx], 16, 400, W, small_out, {"k3": 2, "k2": "batch"}),
+        ("1080p 16-bit CMYK TIFF -> w=400 WebP", [cmyk16], 16, 400, W,
+         small_out, {"k2": "batch"}),
+        ("1080p float32 elevation raster (deflate, predictor 3) -> w=400 "
+         "WebP", [raster], 16, 400, W, small_out, {"k2": "batch"}),
+        ("A4 300 dpi G4 page, FillOrder 2 -> w=400 WebP", [g4], 16, 400, W,
+         (400, 566), {"k2": "batch"}),
+    ]
+    summary = drive_rounds(rounds, card, steps)
+    case, steps["K3 at the old-style page"] = timed(
+        lambda: k3_planes_case(*dct.tiff_page_inputs(
+            tiff.entropy_decode(old), torch.device("cuda")),
+            "old-style page"))
+    if case["max_abs_err"] != 0:
+        raise RuntimeError(f"K3 at the replication stacks is not exact: "
+                           f"max|d|={case['max_abs_err']}")
+    log(f"  K3 at the 1080p old-style JPEG TIFF page ({case['planes']} -> "
+        f"1088x1920, identity luma and replication chroma stacks, B=1, one "
+        f"launch) vs plain: max|d|={case['max_abs_err']}; device time per "
+        f"call K3 {case['ms']:.4f} ms vs plain {case['plain_ms']:.4f} ms vs "
+        f"einsum {case['library_ms']:.4f} ms, bound {case['bound_ms']:.4f} "
+        f"ms ({case['bound_by']}), K3 at "
+        f"{case['bound_ms'] / case['ms']:.1%} of it [{card}]")
+    summary["k3_page"] = case
+    log("    seconds a step (a round's include its warm-up and trace): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in steps.items()))
+    summary["step_s"] = steps
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4210,6 +4475,12 @@ def main() -> int:
           "the host, one K3 pixel decode a page, the RGB head on K2, "
           "BatchedEngine(device='cuda').transform")
     tiffj = phase_tiff_jpeg(card)
+
+    begin("[22] the TIFF layouts the reference still decoded with Pillow: "
+          "old-style, planar and extra-sample JPEG pages (K3), 16-bit CMYK, "
+          "a float32 raster and a FillOrder 2 G4 page, the RGB head on K2, "
+          "BatchedEngine(device='cuda').transform")
+    remainder = phase_tiff_remainder(card)
     end_phase()
     log("    seconds a phase (heading to heading): " + ", ".join(
         f"[{k}] {v:.2f}" for k, v in PHASE_S.items()))
@@ -4239,6 +4510,7 @@ def main() -> int:
         "pillow_source_launches": pillow["k2_launches"],
         "pillow_fallback_launches": fallbacks["k2_launches"],
         "tiff_jpeg_launches": tiffj["k2_launches"],
+        "tiff_remainder_launches": remainder["k2_launches"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
@@ -4283,6 +4555,14 @@ def main() -> int:
         "tiff_jpeg_launches": tiffj["k3_launches"],
         "pixel_decode_tiff_jpeg_page": {
             key: tiffj["k3_page"][key] for key in (
+                "max_abs_err", "share_differ", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")},
+        # the TIFF layouts of phase 22: one launch an old-style or planar
+        # page, two an RGB page with an extra sample, and K3 at the
+        # old-style page's replication stacks
+        "tiff_remainder_launches": remainder["k3_launches"],
+        "pixel_decode_old_style_page": {
+            key: remainder["k3_page"][key] for key in (
                 "max_abs_err", "share_differ", "ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms")},
     }, {
@@ -4375,6 +4655,8 @@ def main() -> int:
                            "no K2 or K3")
     if min(tiffj[f"{k}_launches"] for k in ("k2", "k3")) <= 0:
         raise RuntimeError("a JPEG TIFF round launched no K2 or K3")
+    if min(remainder[f"{k}_launches"] for k in ("k2", "k3")) <= 0:
+        raise RuntimeError("a round of phase 22 launched no K2 or K3")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -52,15 +52,31 @@ def decode_error(e) -> Exception:
     return TransformError(f"JPEG decode failed: {e}")
 
 
+def source_header(lib, data: bytes):
+    """``jpeg_abi.parse_any``'s header of a JPEG source. A frame of two
+    components, which the port's decoder takes for a JPEG TIFF's gray +
+    alpha segments, raises the decoders' -3: Pillow has no mode for a JPEG
+    file of two components, and the port does not serve one."""
+    from imagekit_tpu_torch.codecs.native import jpeg_abi
+
+    hdr = jpeg_abi.parse_any(lib, data)
+    if hdr.ncomp == 2:
+        raise jpeg_abi.NativeJpegError(-3)
+    return hdr
+
+
 def decode_to_coefficients(data: bytes):
     """Host C++: entropy-decode a JPEG into per-component quantised
     coefficient planes + quant tables + sampling factors; a four-component
     frame, which the native decoder refuses with -3, through the port's own
-    (``jpeg_abi.decode_any``). Errors as :func:`decode_error` maps them."""
+    (``jpeg_abi.decode_any``). Errors as :func:`decode_error` maps them,
+    a two-component frame's as :func:`source_header` refuses it."""
     from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
 
+    lib = loader.load()
     try:
-        return jpeg_abi.decode_any(loader.load(), data)
+        source_header(lib, data)
+        return jpeg_abi.decode_any(lib, data)
     except jpeg_abi.NativeJpegError as e:
         raise decode_error(e) from e
 

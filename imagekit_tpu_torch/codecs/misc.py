@@ -31,19 +31,24 @@ from imagekit_tpu_torch.errors import NotPortedError, TransformError
 _OK = 0
 _UNSUPPORTED = -3
 BUFFER = -7
+#: the port's decoders' code for a layout Pillow refuses (the reference
+#: answers it as corrupt data)
+REFUSED = -8
 
 
 class _IkInfo(ctypes.Structure):
     """``IkMiscInfo`` / ``IkTiffInfo``: the decoded image's geometry; then
     ``IkTiffxInfo``'s layout (what ``ik_tiffx_decode`` writes, or a JPEG
-    TIFF's segments: ``tiff_ext_decode.cpp``), which the other decoders
-    leave 0."""
+    TIFF's segments: ``tiff_ext_decode.cpp``) and, where it refuses a YCbCr
+    TIFF without compression, the bytes Pillow's read leaves unread (-1
+    else), which the other decoders leave as they are."""
 
     _fields_ = [
         ("width", ctypes.c_int32),
         ("height", ctypes.c_int32),
         ("channels", ctypes.c_int32),
         ("layout", ctypes.c_int32),
+        ("unread", ctypes.c_int32),
     ]
 
 
@@ -72,6 +77,8 @@ def check(rc: int, what: str, corrupt: str) -> None:
         raise NotPortedError(
             f"a {what} the native decoder does not take (the host-library "
             f"fallback)", "queue 1 item 9")
+    if rc == REFUSED:  # Pillow's words, less the address of its buffer
+        raise TransformError("cannot identify image file")
     if rc != _OK:
         raise TransformError(f"corrupt {corrupt} ({rc})")
 
@@ -79,13 +86,17 @@ def check(rc: int, what: str, corrupt: str) -> None:
 def header(data: bytes, stem: str, what: str, corrupt: str,
            ext: Optional[str]) -> Tuple[int, int, int, str, int]:
     """(width, height, channels, the stem that took the data, its
-    layout)."""
-    info = _IkInfo()
+    layout). A refusal that counts unread bytes is Pillow's message for a
+    file its read runs out of."""
+    info = _IkInfo(unread=-1)
     rc = _fn(f"ik_{stem}_parse", _IkInfo)(data, len(data), ctypes.byref(info))
     if rc == _UNSUPPORTED and ext is not None:
         stem = ext
         rc = _fn(f"ik_{ext}_parse", _IkInfo)(data, len(data),
                                              ctypes.byref(info))
+    if rc == REFUSED and info.unread >= 0:
+        raise TransformError(f"image file is truncated ({info.unread} bytes "
+                             f"not processed)")
     check(rc, what, corrupt)
     if info.width * info.height > MAX_PIXELS:
         raise TransformError(

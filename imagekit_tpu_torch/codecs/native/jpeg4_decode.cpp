@@ -14,7 +14,9 @@
 // FinalizeProgressive; T.81 G.1.2 and G.2), copied rather than linked:
 // blocks accumulate in zigzag order and are put in natural order once, at
 // the EOI. Arithmetic-coded, 12-bit and lossless frames, other component
-// counts and a baseline frame in non-interleaved scans return -3.
+// counts and a baseline frame in non-interleaved scans return -3. A frame
+// of two components (a JPEG TIFF's gray + alpha segments) decodes as one of
+// four does; the JPEG source layer refuses it, as Pillow does.
 // Its output matches jpeg_entropy.cpp's ik_jpeg_decode_coeffs: quantised
 // coefficient planes [by][bx][64] in natural order, MCU-padded, and the
 // four 64-entry quant tables; its header is the same IkJpegInfo, plus the
@@ -285,7 +287,7 @@ struct Frame {
     height = (s[1] << 8) | s[2];
     width = (s[3] << 8) | s[4];
     ncomp = s[5];
-    if (ncomp != 4) return kUnsupported;
+    if (ncomp != 2 && ncomp != 4) return kUnsupported;
     if (width <= 0 || height <= 0) return kBadDimensions;
     if (n < 6 + 3 * ncomp) return kTruncated;
     for (int c = 0; c < ncomp; ++c) {
@@ -665,8 +667,8 @@ IK_EXPORT int ik_jpeg4_parse(const uint8_t* data, size_t len, Ik4Info* info,
   return kOk;
 }
 
-// The scans into coeffs[0..3] (zeroed by the caller, blocks_h*blocks_w*64
-// int16 each) and qtabs_out (4 x 64, natural order).
+// The scans into coeffs[0..ncomp-1] (zeroed by the caller,
+// blocks_h*blocks_w*64 int16 each) and qtabs_out (4 x 64, natural order).
 IK_EXPORT int ik_jpeg4_decode_coeffs(const uint8_t* data, size_t len,
                                      int16_t** coeffs, uint16_t* qtabs_out) {
   Frame f;

@@ -173,7 +173,8 @@ def parse(lib: ctypes.CDLL, data: bytes) -> JpegHeader:
 
 def parse4(lib: ctypes.CDLL, data: bytes) -> JpegHeader:
     """The header of a four-component (CMYK or YCCK) JPEG, baseline or
-    progressive, with its Adobe transform flag; -3 for anything else the
+    progressive, or of a two-component one (a JPEG TIFF's gray + alpha
+    segment), with its Adobe transform flag; -3 for anything else the
     native decoder refuses (arithmetic, 12-bit, other component counts)."""
     info = IkJpegInfo()
     flag = ctypes.c_int32(-1)
@@ -186,7 +187,7 @@ def parse4(lib: ctypes.CDLL, data: bytes) -> JpegHeader:
 
 def parse_any(lib: ctypes.CDLL, data: bytes) -> JpegHeader:
     """:func:`parse`'s header, or where it refuses the frame with -3,
-    :func:`parse4`'s (``ncomp`` 4). Raises the pinned parser's -3 when
+    :func:`parse4`'s (``ncomp`` 4 or 2). Raises the pinned parser's -3 when
     neither takes the frame, else the failing parser's error."""
     try:
         return parse(lib, data)
@@ -253,11 +254,12 @@ def decode(
 def decode4(
     lib: ctypes.CDLL, data: bytes
 ) -> Tuple[JpegHeader, List[np.ndarray], np.ndarray]:
-    """:func:`decode`'s output for a four-component JPEG (:func:`parse4`'s
-    header): every scan of a progressive one accumulated."""
+    """:func:`decode`'s output for a four- or two-component JPEG
+    (:func:`parse4`'s header): every scan of a progressive one
+    accumulated."""
     hdr = parse4(lib, data)
     coeffs = [np.zeros((hdr.blocks_h[c], hdr.blocks_w[c], 64), np.int16)
-              for c in range(4)]
+              for c in range(hdr.ncomp)]
     qtabs = np.empty((4, 64), np.uint16)
     ptrs = (ctypes.c_void_p * 4)(
         *[p.ctypes.data_as(ctypes.c_void_p).value for p in coeffs])
@@ -273,7 +275,7 @@ def decode_any(
 ) -> Tuple[JpegHeader, List[np.ndarray], np.ndarray]:
     """:func:`decode` or :func:`decode4`, as :func:`parse_any` finds the
     frame; its errors as there."""
-    if parse_any(lib, data).ncomp == 4:
+    if parse_any(lib, data).ncomp in (2, 4):
         return decode4(lib, data)
     return decode(lib, data)
 

@@ -8,46 +8,70 @@
 //
 //   - bilevel (photometric 0 WhiteIsZero, 1 BlackIsZero; 1 bit) in none,
 //     PackBits, LZW, deflate, CCITT modified Huffman (2), T.4 Group 3 1-D
-//     and 2-D (3, any T4Options fill) and T.6 Group 4 (4), FillOrder 1;
+//     and 2-D (3, any T4Options fill) and T.6 Group 4 (4);
 //   - 2- and 4-bit gray (Pillow's L;2 x85, L;4 x17, inverted for
 //     WhiteIsZero) and 1-, 2- and 4-bit palette (the ColorMap's high
 //     bytes), in the four byte-oriented compressions;
-//   - CMYK (photometric 5, 8-bit, 4 samples, chunky or planar, strips or
-//     tiles, the pinned copy's compressions and predictor): written out as
-//     the four samples as stored; the caller turns them to RGB with
+//   - those in FillOrder 2: each byte's bits reversed before any
+//     decompression, as libtiff does;
+//   - 32-bit gray: float (SampleFormat 3, photometric 0 or 1, Pillow's F)
+//     and signed or little-endian unsigned integers (Pillow's I), as
+//     Pillow's convert("RGB") makes a byte of them (Gray32), in the
+//     byte-oriented compressions with either predictor (2, or 3 for
+//     floats); a big-endian file's samples through libtiff come out
+//     byte-swapped, as Pillow reads them;
+//   - CMYK (photometric 5, 4 samples of 8 bits, chunky or planar, strips
+//     or tiles, the pinned copy's compressions and predictor; of 16 bits,
+//     chunky, the high byte of each as Pillow's CMYK;16L/B; of 8 bits with
+//     one or two unspecified extra samples, chunky, dropped): written out
+//     as the four inks as stored; the caller turns them to RGB with
 //     Pillow's cmyk2rgb (ops/color.py::cmyk_to_rgb on inverted planes);
 //   - gray and palette with unassociated alpha (Pillow's LA and PA:
 //     photometric 1 or 3, 8-bit, 2 samples, ExtraSamples 2, chunky, the
 //     pinned copy's compressions and predictor): written out as RGBA.
 //
-// JPEG-compressed TIFFs (compression 7, 8-bit, chunky, strips or tiles:
-// YCbCr with YCbCrSubSampling of 1 or 2 on each axis, RGB, RGB with
-// unassociated alpha, gray, CMYK) are not decoded here:
-// ik_tiffx_jpeg_segments returns their segment grid, each segment's byte
-// range and the JPEGTables' range, and ik_tiffx_jpeg_parse_many and
-// ik_tiffx_jpeg_decode_many entropy-decode a page's segments in two calls,
-// each segment an independent JPEG as libtiff makes it (spliced onto the
-// tables in one scratch buffer, a segment at a time, and its levels copied
-// to its place in the page's planes), through the pinned decoder
-// (jpeg_entropy.cpp) and the four-component one (jpeg4_decode.cpp), which
-// the loader links beside this file. libtiff reads the tables once;
-// a splice copies them for each segment, so a JPEGTables longer than
-// kMaxTables, and a page whose splices would copy more than kSpliceFactor
-// times the file (overlapping segments, or many over large tables), are
-// refused as corrupt.
+// JPEG-compressed TIFFs (compression 7, 8-bit, strips or tiles: YCbCr with
+// YCbCrSubSampling of 1 or 2 on each axis, chunky; RGB, RGB with one extra
+// sample (unspecified, associated or unassociated alpha), gray and CMYK,
+// chunky or planar; gray with alpha, chunky) are not
+// decoded here: ik_tiffx_jpeg_segments returns their segment grid, each
+// segment's byte range and the JPEGTables' range, and
+// ik_tiffx_jpeg_parse_many and ik_tiffx_jpeg_decode_many entropy-decode a
+// page's segments in two calls, each segment an independent JPEG as
+// libtiff makes it (spliced onto the tables in one scratch buffer, a
+// segment at a time, and its levels copied to its place in the page's
+// planes), through the pinned decoder (jpeg_entropy.cpp) and the one for
+// two and four components (jpeg4_decode.cpp), which the loader links
+// beside this file. libtiff reads the tables once; a splice copies them for
+// each segment, so a JPEGTables longer than kMaxTables, and a page whose
+// splices would copy more than kSpliceFactor times the file (overlapping
+// segments, or many over large tables), are refused as corrupt.
+//
+// Old-style JPEG TIFFs (compression 6, which Pillow reads as YCbCr through
+// libtiff: three 8-bit samples, chunky, baseline) are one JPEG stream a
+// page, which ik_tiffx_ojpeg_stream assembles as libtiff does
+// (OldJpegStream): the JPEGInterchangeFormat stream, the strip's own, or
+// the tables-in-tags form's; the same two calls decode it as one segment.
 //
 // Tags take Pillow's defaults where they are missing: BitsPerSample 1,
-// PhotometricInterpretation 0, SamplesPerPixel 1. Everything else (FillOrder
-// 2, old-style JPEG and other compressions, YCbCr without JPEG, CIELab,
-// float or signed samples, other extra samples, 16-bit CMYK, Orientation
-// 5-8) is -3. Corrupt data is an error; so is a CCITT row whose runs
-// overshoot its width, which libtiff pads with a warning: every write is
-// bounded by its row before it is made.
+// PhotometricInterpretation 0, SamplesPerPixel 1 (3 for an old-style
+// JPEG). A file whose layout has no mode in Pillow's reader (PillowKeys:
+// a 16-bit palette, a 12-bit JPEG, CMYK with alpha, FillOrder 2 beyond
+// gray and palette, float samples of 16 or 64 bits, ...) is -8, as is one
+// Pillow's read fails on (YCbCr without compression, which its raw reader
+// runs out of; planar YCbCr JPEG and planar CMYK with extra samples): the
+// reference answers those as corrupt. Everything else (CIELab, YCbCr
+// compressed without JPEG, YCbCrSubSampling 4, planar 16-bit CMYK, an
+// old-style JPEG of one sample or assembled from several strips, other
+// compressions, Orientation 5-8) is -3. Corrupt data is an error; so is a
+// CCITT row whose runs overshoot its width, which libtiff pads with a
+// warning: every write is bounded by its row before it is made.
 //
 // The LZW, deflate and PackBits decoders are copies of tiff_decode.cpp's,
 // which keeps them in an anonymous namespace. The exported names are
 // ik_tiffx_*: the loader links every native source into one library.
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -65,6 +89,9 @@ constexpr int kUnsupported = -3;
 constexpr int kBadData = -4;
 constexpr int kBadDims = -5;
 constexpr int kBuffer = -7;
+// A layout Pillow refuses (its reader has no mode for it, or its read of
+// the strips fails): the reference answers it as corrupt data
+constexpr int kRefused = -8;
 
 struct Reader {
   const uint8_t* d = nullptr;
@@ -82,6 +109,12 @@ struct Reader {
                  (static_cast<uint32_t>(d[off + 3]) << 24))
               : ((static_cast<uint32_t>(d[off]) << 24) | (d[off + 1] << 16) |
                  (d[off + 2] << 8) | d[off + 3]);
+  }
+  // A RATIONAL as libtiff reads one into a float: num / den in float, 0
+  // for a denominator of 0
+  float Rational(size_t off) const {
+    const uint32_t num = U32(off), den = U32(off + 4);
+    return den == 0 ? 0.0f : static_cast<float>(num) / static_cast<float>(den);
   }
 };
 
@@ -113,6 +146,9 @@ struct Tiff {
   uint32_t width = 0, height = 0;
   int compression = 1, photometric = 0, spp = 1, predictor = 1, planar = 1;
   int bits = 1;
+  int fill = 1;    // FillOrder
+  int format = 1;  // SampleFormat: one value for every sample
+  bool le = true;
   uint32_t t4 = 0;  // T4Options
   std::vector<uint8_t> colormap;  // per R, then per G, then per B
   uint32_t colors = 0;
@@ -120,14 +156,28 @@ struct Tiff {
   uint32_t rows_per_strip = 0;
   uint32_t tile_w = 0, tile_h = 0;
   bool tiled = false;
-  bool alpha = false;  // the last sample is unassociated alpha
+  bool alpha = false;  // the image has alpha (LA, PA; RGBA and LA JPEG)
+  int extra = -1;      // the one ExtraSamples value, -1 for none
   // JPEG (compression 7): YCbCrSubSampling (0 where the tag is missing:
   // libtiff then takes the first segment's sampling) and JPEGTables
   int sub_h = 0, sub_v = 0;
   size_t tables_off = 0, tables_len = 0;
+  // old-style JPEG (compression 6): JPEGInterchangeFormat and its length
+  // as libtiff corrects them, JPEGProc, JPEGRestartInterval and the tables
+  // in tags (one offset a component each)
+  uint64_t jif_off = 0, jif_len = 0;
+  int jpeg_proc = 1;
+  uint32_t restart = 0;
+  Entry qtabs_e, dctabs_e, actabs_e;
+  // YCbCrCoefficients and ReferenceBlackWhite, libtiff's defaults
+  float luma[3] = {0.299f, 0.587f, 0.114f};
+  float refbw[6] = {0.0f, 255.0f, 128.0f, 255.0f, 128.0f, 255.0f};
+  // YCbCr without compression: what Pillow's read leaves unread where it
+  // runs out of the file (RawYccLeft); -1 for none
+  int64_t unread = -1;
 };
 
-constexpr int kJpeg = 7;
+constexpr int kOldJpeg = 6, kJpeg = 7;
 // Four DQT and four DHT segments take under 2.5 kB
 constexpr uint64_t kMaxTables = 1 << 16;
 // The Annex K Huffman tables the caller may splice ahead of a segment's own
@@ -136,21 +186,124 @@ constexpr uint64_t kSpliceFactor = 64;
 
 bool Ccitt(int c) { return c == 2 || c == 3 || c == 4; }
 
-// The layouts of the header comment with JPEG compression: photometric 6
-// (3 samples), 2 (3, or 4 with alpha), 1 (1) or 5 (4); 8 bits, chunky.
+// The layouts of the header comment with JPEG compression, 8 bits (libtiff's
+// libjpeg takes no other precision), chunky or planar: photometric 6 (3
+// samples; planar Pillow refuses), 2 (3, or 4 with one extra sample), 1 (1,
+// or 2 with alpha, chunky) or 5 (4).
 int CheckJpeg(const Tiff& t) {
-  if (t.bits != 8 || t.planar != 1) return kUnsupported;
+  if (t.bits != 8) return kRefused;  // "Improper JPEG data precision"
   switch (t.photometric) {
     case 6:
+      if (t.planar != 1) return kRefused;  // Pillow: "decoder error -2"
       if (t.spp != 3 || t.sub_h > 2 || t.sub_v > 2) return kUnsupported;
       return kOk;
-    case 2: return t.spp == 3 || (t.spp == 4 && t.alpha) ? kOk
+    case 2:
+      if (t.spp == 3) return kOk;
+      return t.spp == 4 && t.extra >= 0 && t.extra <= 2 ? kOk
                                                          : kUnsupported;
-    case 1: return t.spp == 1 ? kOk : kUnsupported;
-    case 5: return t.spp == 4 && !t.alpha ? kOk : kUnsupported;
+    case 1:  // Pillow reads a planar gray + alpha page's alpha as 0
+      return t.spp == 1 || (t.spp == 2 && t.alpha && t.planar == 1)
+                 ? kOk : kUnsupported;
+    case 5: return t.spp == 4 ? kOk : kUnsupported;
     default: return kUnsupported;
   }
 }
+
+// -- the modes Pillow's TIFF reader has ----------------------------------------
+
+// A key of TiffImagePlugin.OPEN_INFO: (byte orders, photometric,
+// SampleFormat, FillOrder, BitsPerSample, ExtraSamples); byte orders bit 0
+// for "II", bit 1 for "MM". Pillow refuses a file whose key is not one of
+// these before it reads a strip ("cannot identify image file").
+struct PillowKey {
+  uint8_t orders, photo, format, fill, n;
+  uint8_t bps[6];
+  uint8_t nx;
+  uint16_t extra[3];
+};
+
+const PillowKey kPillowKeys[] = {
+    {3, 0, 1, 1, 1, {1}, 0, {}},
+    {3, 0, 1, 1, 1, {2}, 0, {}},
+    {3, 0, 1, 1, 1, {4}, 0, {}},
+    {3, 0, 1, 1, 1, {8}, 0, {}},
+    {1, 0, 1, 1, 1, {16}, 0, {}},
+    {3, 0, 1, 2, 1, {1}, 0, {}},
+    {3, 0, 1, 2, 1, {2}, 0, {}},
+    {3, 0, 1, 2, 1, {4}, 0, {}},
+    {3, 0, 1, 2, 1, {8}, 0, {}},
+    {3, 0, 3, 1, 1, {32}, 0, {}},
+    {3, 1, 1, 1, 1, {1}, 0, {}},
+    {3, 1, 1, 1, 1, {2}, 0, {}},
+    {3, 1, 1, 1, 1, {4}, 0, {}},
+    {3, 1, 1, 1, 1, {8}, 0, {}},
+    {3, 1, 1, 1, 2, {8, 8}, 1, {2}},
+    {1, 1, 1, 1, 1, {12}, 0, {}},
+    {3, 1, 1, 1, 1, {16}, 0, {}},
+    {1, 1, 1, 1, 1, {32}, 0, {}},
+    {3, 1, 1, 2, 1, {1}, 0, {}},
+    {3, 1, 1, 2, 1, {2}, 0, {}},
+    {3, 1, 1, 2, 1, {4}, 0, {}},
+    {3, 1, 1, 2, 1, {8}, 0, {}},
+    {1, 1, 1, 2, 1, {16}, 0, {}},
+    {3, 1, 2, 1, 1, {8}, 0, {}},
+    {3, 1, 2, 1, 1, {16}, 0, {}},
+    {3, 1, 2, 1, 1, {32}, 0, {}},
+    {3, 1, 3, 1, 1, {32}, 0, {}},
+    {3, 2, 1, 1, 3, {8, 8, 8}, 0, {}},
+    {3, 2, 1, 1, 4, {8, 8, 8, 8}, 0, {}},
+    {3, 2, 1, 1, 4, {8, 8, 8, 8}, 1, {0}},
+    {3, 2, 1, 1, 4, {8, 8, 8, 8}, 1, {1}},
+    {3, 2, 1, 1, 4, {8, 8, 8, 8}, 1, {2}},
+    {3, 2, 1, 1, 4, {8, 8, 8, 8}, 1, {999}},
+    {3, 2, 1, 1, 5, {8, 8, 8, 8, 8}, 2, {0, 0}},
+    {3, 2, 1, 1, 5, {8, 8, 8, 8, 8}, 2, {1, 0}},
+    {3, 2, 1, 1, 5, {8, 8, 8, 8, 8}, 2, {2, 0}},
+    {3, 2, 1, 1, 6, {8, 8, 8, 8, 8, 8}, 3, {0, 0, 0}},
+    {3, 2, 1, 1, 6, {8, 8, 8, 8, 8, 8}, 3, {1, 0, 0}},
+    {3, 2, 1, 1, 6, {8, 8, 8, 8, 8, 8}, 3, {2, 0, 0}},
+    {3, 2, 1, 1, 3, {16, 16, 16}, 0, {}},
+    {3, 2, 1, 1, 4, {16, 16, 16, 16}, 0, {}},
+    {3, 2, 1, 1, 4, {16, 16, 16, 16}, 1, {0}},
+    {3, 2, 1, 1, 4, {16, 16, 16, 16}, 1, {1}},
+    {3, 2, 1, 1, 4, {16, 16, 16, 16}, 1, {2}},
+    {3, 2, 1, 2, 3, {8, 8, 8}, 0, {}},
+    {3, 3, 1, 1, 1, {1}, 0, {}},
+    {3, 3, 1, 1, 1, {2}, 0, {}},
+    {3, 3, 1, 1, 1, {4}, 0, {}},
+    {3, 3, 1, 1, 1, {8}, 0, {}},
+    {3, 3, 1, 1, 2, {8, 8}, 1, {0}},
+    {3, 3, 1, 1, 2, {8, 8}, 1, {2}},
+    {3, 3, 1, 2, 1, {1}, 0, {}},
+    {3, 3, 1, 2, 1, {2}, 0, {}},
+    {3, 3, 1, 2, 1, {4}, 0, {}},
+    {3, 3, 1, 2, 1, {8}, 0, {}},
+    {3, 5, 1, 1, 4, {8, 8, 8, 8}, 0, {}},
+    {3, 5, 1, 1, 5, {8, 8, 8, 8, 8}, 1, {0}},
+    {3, 5, 1, 1, 6, {8, 8, 8, 8, 8, 8}, 2, {0, 0}},
+    {3, 5, 1, 1, 4, {16, 16, 16, 16}, 0, {}},
+    {3, 6, 1, 1, 1, {8}, 0, {}},
+    {3, 6, 1, 1, 3, {8, 8, 8}, 0, {}},
+    {3, 8, 1, 1, 3, {8, 8, 8}, 0, {}},
+};
+
+// Whether Pillow has a mode for the key. `format` is 0 where the
+// SampleFormat values differ (Pillow keeps them all; no key has several).
+bool PillowReads(bool le, int photo, int format, int fill, int n,
+                 const uint32_t* bps, int nx, const uint32_t* extra) {
+  for (const PillowKey& k : kPillowKeys) {
+    if (!((k.orders >> (le ? 0 : 1)) & 1) || k.photo != photo ||
+        k.format != format || k.fill != fill || k.n != n || k.nx != nx)
+      continue;
+    bool same = true;
+    for (int i = 0; i < n && same; ++i) same = k.bps[i] == bps[i];
+    for (int i = 0; i < nx && same; ++i) same = k.extra[i] == extra[i];
+    if (same) return true;
+  }
+  return false;
+}
+
+int64_t RawYccLeft(size_t len, const Tiff& t);
 
 int Parse(const uint8_t* data, size_t len, Tiff* t) {
   Reader r{data, len, true};
@@ -162,6 +315,7 @@ int Parse(const uint8_t* data, size_t len, Tiff* t) {
   } else {
     return kBadMagic;
   }
+  t->le = r.le;
   if (r.U16(2) != 42) return kBadMagic;
   const uint32_t ifd = r.U32(4);
   if (static_cast<size_t>(ifd) + 2 > len) return kTruncated;
@@ -169,6 +323,7 @@ int Parse(const uint8_t* data, size_t len, Tiff* t) {
   if (ifd + 2 + 12u * n > len) return kTruncated;
 
   Entry off_e, cnt_e, bps_e, extra_e, fmt_e, cmap_e, tables_e, sub_e;
+  Entry spp_e, luma_e, refbw_e;
   bool tiles = false;
   for (uint16_t i = 0; i < n; ++i) {
     const size_t e = ifd + 2 + 12u * i;
@@ -187,14 +342,12 @@ int Parse(const uint8_t* data, size_t len, Tiff* t) {
       case 258: bps_e = ent; break;
       case 259: t->compression = EntryValue(r, ent, 0); break;
       case 262: t->photometric = EntryValue(r, ent, 0); break;
-      case 266:
-        if (EntryValue(r, ent, 0) != 1) return kUnsupported;  // FillOrder 2
-        break;
+      case 266: t->fill = static_cast<int>(EntryValue(r, ent, 0)); break;
       case 273: if (!tiles) off_e = ent; break;
       case 274:  // Orientation: Pillow swaps the size of 5-8
         if (EntryValue(r, ent, 0) >= 5) return kUnsupported;
         break;
-      case 277: t->spp = EntryValue(r, ent, 0); break;
+      case 277: spp_e = ent; break;
       case 278: t->rows_per_strip = EntryValue(r, ent, 0); break;
       case 279: if (!tiles) cnt_e = ent; break;
       case 284: t->planar = EntryValue(r, ent, 0); break;
@@ -211,41 +364,65 @@ int Parse(const uint8_t* data, size_t len, Tiff* t) {
       case 338: extra_e = ent; break;
       case 339: fmt_e = ent; break;
       case 347: tables_e = ent; break;
+      case 512: t->jpeg_proc = static_cast<int>(EntryValue(r, ent, 0)); break;
+      case 513: t->jif_off = EntryValue(r, ent, 0); break;
+      case 514: t->jif_len = EntryValue(r, ent, 0); break;
+      case 515: t->restart = EntryValue(r, ent, 0); break;
+      case 519: t->qtabs_e = ent; break;
+      case 520: t->dctabs_e = ent; break;
+      case 521: t->actabs_e = ent; break;
+      case 529: luma_e = ent; break;
       case 530: sub_e = ent; break;
+      case 532: refbw_e = ent; break;
       default: break;
     }
   }
   if (t->width == 0 || t->height == 0) return kBadDims;
   if (t->width > (1u << 24) || t->height > (1u << 24)) return kBadDims;
-  // the layouts of the header comment, else -3
-  for (uint32_t i = 0; i < fmt_e.count; ++i)
-    if (EntryValue(r, fmt_e, i) != 1) return kUnsupported;
-  // one extra sample, unassociated alpha (2), the last; none else
-  if (extra_e.count > 1) return kUnsupported;
-  if (extra_e.count == 1) {
-    if (EntryValue(r, extra_e, 0) != 2) return kUnsupported;
-    t->alpha = true;
-  }
   if (t->planar != 1 && t->planar != 2) return kUnsupported;
   const int c = t->compression;
   if (c != 1 && c != 5 && c != 8 && c != 32946 && c != 32773 && !Ccitt(c) &&
-      c != kJpeg)
+      c != kJpeg && c != kOldJpeg)
     return kUnsupported;
-  if (t->predictor != 1 && t->predictor != 2) return kUnsupported;
+  if (t->predictor < 1 || t->predictor > 3) return kUnsupported;
   if (Ccitt(c) && (t->t4 & 2)) return kUnsupported;  // uncompressed mode
-  // BitsPerSample as Pillow reads it: one value stands for every sample,
-  // extra values are dropped, a count short of the samples is refused
-  if (bps_e.count > 0) {
-    t->bits = static_cast<int>(EntryValue(r, bps_e, 0));
-    const uint32_t m = bps_e.count < static_cast<uint32_t>(t->spp)
-                           ? bps_e.count : static_cast<uint32_t>(t->spp);
-    if (bps_e.count > 1 && bps_e.count < static_cast<uint32_t>(t->spp))
-      return kBadData;  // "unknown data organization"
-    for (uint32_t i = 1; i < m; ++i)
-      if (static_cast<int>(EntryValue(r, bps_e, i)) != t->bits)
-        return kUnsupported;
-  }
-  const int p = t->photometric, b = t->bits;
+  // Pillow's reading of the tags: an old-style JPEG is YCbCr whatever its
+  // photometric; SamplesPerPixel 3 where an old-style JPEG of RGB or YCbCr
+  // has none, else 1; BitsPerSample (1 where missing) cut to the samples,
+  // or one value for every sample; a count short of the samples, or more
+  // samples than any of its modes, is refused
+  if (c == kOldJpeg) t->photometric = 6;
+  const int p = t->photometric;
+  t->spp = spp_e.count > 0 ? static_cast<int>(EntryValue(r, spp_e, 0))
+           : c == kOldJpeg && (p == 2 || p == 6) ? 3 : 1;
+  if (t->spp < 1 || t->spp > 6) return kRefused;
+  uint32_t bps[6], nb = bps_e.count > 0 ? bps_e.count : 1;
+  if (nb > static_cast<uint32_t>(t->spp)) nb = t->spp;
+  for (uint32_t i = 0; i < nb; ++i)
+    bps[i] = bps_e.count > 0 ? EntryValue(r, bps_e, i) : 1;
+  if (nb == 1)
+    for (; nb < static_cast<uint32_t>(t->spp); ++nb) bps[nb] = bps[0];
+  if (nb != static_cast<uint32_t>(t->spp))
+    return kBadData;  // "unknown data organization"
+  t->bits = static_cast<int>(bps[0]);
+  // SampleFormat: one value, or several that are all 1, stand for every
+  // sample; several others match no mode of Pillow's
+  t->format = fmt_e.count > 0 ? static_cast<int>(EntryValue(r, fmt_e, 0)) : 1;
+  for (uint32_t i = 1; i < fmt_e.count; ++i)
+    if (EntryValue(r, fmt_e, i) != 1 || t->format != 1) t->format = 0;
+  uint32_t extra[3] = {0, 0, 0};
+  const uint32_t nx = extra_e.count;
+  for (uint32_t i = 0; i < nx && i < 3; ++i)
+    extra[i] = EntryValue(r, extra_e, i);
+  if (nx > 3 || !PillowReads(r.le, p, t->format, t->fill,
+                             static_cast<int>(nb), bps,
+                             static_cast<int>(nx), extra))
+    return kRefused;
+  // the layouts of the header comment, else -3
+  if (nx == 1) t->extra = static_cast<int>(extra[0]);
+  t->alpha = t->extra == 2 || (t->extra == 1 && c == kJpeg);
+  const int b = t->bits;
+  bool raw_ycc = false;
   if (c == kJpeg) {
     if (sub_e.count >= 2) {
       t->sub_h = static_cast<int>(EntryValue(r, sub_e, 0));
@@ -257,6 +434,34 @@ int Parse(const uint8_t* data, size_t len, Tiff* t) {
     if (tables_e.count > 0) {  // a count of 0 is no tables
       t->tables_off = tables_e.value_off;
       t->tables_len = tables_e.count * TypeSize(tables_e.type);
+    }
+  } else if (c == kOldJpeg) {
+    // three 8-bit samples, chunky, baseline (JPEGProc 1)
+    if (t->spp != 3 || b != 8 || t->planar != 1 || t->jpeg_proc != 1)
+      return kUnsupported;
+    if (sub_e.count >= 2) {  // the tables-in-tags form's frame
+      t->sub_h = static_cast<int>(EntryValue(r, sub_e, 0));
+      t->sub_v = static_cast<int>(EntryValue(r, sub_e, 1));
+    } else {
+      t->sub_h = t->sub_v = 2;
+    }
+    if (t->sub_h < 1 || t->sub_h > 2 || t->sub_v < 1 || t->sub_v > 2)
+      return kUnsupported;
+    for (uint32_t i = 0; i < 3 && i < luma_e.count; ++i)
+      t->luma[i] = luma_e.type == 5 ? r.Rational(luma_e.value_off + 8 * i)
+                                    : static_cast<float>(
+                                          EntryValue(r, luma_e, i));
+    for (uint32_t i = 0; i < 6 && i < refbw_e.count; ++i)
+      t->refbw[i] = refbw_e.type == 5
+                        ? r.Rational(refbw_e.value_off + 8 * i)
+                        : static_cast<float>(EntryValue(r, refbw_e, i));
+    // libtiff: an interchange format past the file is none; a length of 0,
+    // or past the file, runs to its end
+    if (t->jif_off >= len) t->jif_off = 0;
+    if (t->jif_off == 0) {
+      t->jif_len = 0;
+    } else if (t->jif_len == 0 || t->jif_len > len - t->jif_off) {
+      t->jif_len = len - t->jif_off;
     }
   } else if (t->alpha) {  // Pillow's LA and PA
     if ((p != 1 && p != 3) || t->spp != 2 || b != 8 || t->planar != 1)
@@ -272,7 +477,9 @@ int Parse(const uint8_t* data, size_t len, Tiff* t) {
   } else if (p == 0 || p == 1) {
     if (t->spp != 1) return kUnsupported;
     if (Ccitt(c) && b != 1) return kBadData;  // libtiff: 1 bit for fax
-    if (b != 1 && b != 2 && b != 4) return kUnsupported;
+    // 1-, 2- and 4-bit gray; 32-bit float and integer gray (Pillow's F and
+    // I), the key having checked their photometric and format
+    if (b != 1 && b != 2 && b != 4 && b != 32) return kUnsupported;
   } else if (p == 3) {
     if (t->spp != 1 || Ccitt(c)) return kUnsupported;
     if (b != 1 && b != 2 && b != 4) return kUnsupported;
@@ -283,13 +490,28 @@ int Parse(const uint8_t* data, size_t len, Tiff* t) {
     for (uint32_t j = 0; j < 3 * t->colors; ++j)
       t->colormap[j] = static_cast<uint8_t>(EntryValue(r, cmap_e, j) >> 8);
   } else if (p == 5) {
-    if (t->spp != 4 || b != 8 || Ccitt(c)) return kUnsupported;
+    if (Ccitt(c)) return kUnsupported;
+    // 8 bits, chunky or planar; 16 bits, chunky (Pillow reads a planar
+    // one's planes as 8-bit bands); 8 bits with one or two extra samples,
+    // chunky (a planar one's extra band Pillow cannot read)
+    if (t->spp > 4 && t->planar == 2) return kRefused;
+    if (b == 16 && t->planar == 2) return kUnsupported;
+  } else if (p == 6) {
+    // YCbCr without JPEG: Pillow's raw reader takes RGBX, four bytes a
+    // pixel, from three, and runs out of the file (RawYccLeft, once the
+    // strips are read); libtiff decodes the other compressions, which are
+    // not ported
+    if (c != 1) return kUnsupported;
+    raw_ycc = true;
   } else {
     return kUnsupported;
   }
   if (t->planar == 2 && t->spp == 1) t->planar = 1;  // the same layout
-  // libtiff's horizontal differencing takes 8 bits and more only
-  if (t->predictor == 2 && b < 8 && (c == 5 || c == 8 || c == 32946))
+  const bool filtered = c == 5 || c == 8 || c == 32946;
+  // libtiff's horizontal differencing takes 8 bits and more only; its
+  // floating-point differencing, floats only
+  if (filtered && ((t->predictor == 2 && b < 8) ||
+                   (t->predictor == 3 && t->format != 3)))
     return kBadData;
   const size_t planes = t->planar == 2 ? t->spp : 1;
   size_t want;
@@ -323,6 +545,11 @@ int Parse(const uint8_t* data, size_t len, Tiff* t) {
     for (uint32_t cnt : t->counts) spliced += cnt + t->tables_len + kStdDhtLen;
     if (spliced > kSpliceFactor * static_cast<uint64_t>(len))
       return kBadData;
+  }
+  // a read that fits the file Pillow makes, of the wrong pixels: not ported
+  if (raw_ycc) {
+    t->unread = RawYccLeft(len, *t);
+    return t->unread >= 0 ? kRefused : kUnsupported;
   }
   return kOk;
 }
@@ -774,12 +1001,8 @@ int Decompress(const Tiff& t, const uint8_t* src, size_t n, uint8_t* dst,
   }
 }
 
-// Samples of `count` at `bits` (1, 2, 4 or 8), MSB first, as bytes.
+// Samples of `count` at `bits` (1, 2 or 4), MSB first, as bytes.
 void Unpack(const uint8_t* src, int bits, size_t count, uint8_t* dst) {
-  if (bits == 8) {
-    std::memcpy(dst, src, count);
-    return;
-  }
   const int per = 8 / bits, mask = (1 << bits) - 1;
   size_t i = 0;
   for (; i + per <= count; i += per) {  // whole bytes
@@ -791,9 +1014,71 @@ void Unpack(const uint8_t* src, int bits, size_t count, uint8_t* dst) {
     dst[i] = (*src >> (8 - bits * (j + 1))) & mask;
 }
 
+uint8_t Reverse(uint8_t v) {
+  v = static_cast<uint8_t>((v & 0xF0) >> 4 | (v & 0x0F) << 4);
+  v = static_cast<uint8_t>((v & 0xCC) >> 2 | (v & 0x33) << 2);
+  return static_cast<uint8_t>((v & 0xAA) >> 1 | (v & 0x55) << 1);
+}
+
+// A sample of `bytes` (1, 2 or 4) at p, in the byte order `le`
+uint32_t Word(const uint8_t* p, int bytes, bool le) {
+  uint32_t v = 0;
+  for (int k = 0; k < bytes; ++k)
+    v |= static_cast<uint32_t>(p[k]) << (8 * (le ? k : bytes - 1 - k));
+  return v;
+}
+
+void PutWord(uint8_t* p, int bytes, bool le, uint32_t v) {
+  for (int k = 0; k < bytes; ++k)
+    p[k] = static_cast<uint8_t>(v >> (8 * (le ? k : bytes - 1 - k)));
+}
+
+// libtiff's horizontal differencing undone on a row of `count` samples of
+// `bytes` each in the file's byte order, `lanes` samples a pixel.
+void Unfilter(uint8_t* row, size_t count, int bytes, size_t lanes, bool le) {
+  if (bytes == 1) {
+    for (size_t i = lanes; i < count; ++i) row[i] += row[i - lanes];
+    return;
+  }
+  for (size_t i = lanes; i < count; ++i)
+    PutWord(row + i * bytes, bytes, le,
+            Word(row + i * bytes, bytes, le) +
+                Word(row + (i - lanes) * bytes, bytes, le));
+}
+
+// libtiff's floating-point differencing undone (fpAcc) on a row of `count`
+// 32-bit samples, `lanes` a pixel: the row's bytes summed `lanes` apart,
+// then each sample's four bytes gathered from the row's four byte planes,
+// the most significant first. The samples come out big-endian, whatever
+// the file's byte order.
+void FpUnfilter(uint8_t* row, size_t count, size_t lanes,
+                std::vector<uint8_t>* tmp) {
+  const size_t cc = count * 4;
+  for (size_t i = lanes; i < cc; ++i) row[i] += row[i - lanes];
+  tmp->assign(row, row + cc);
+  for (size_t k = 0; k < count; ++k)
+    for (size_t byte = 0; byte < 4; ++byte)
+      row[4 * k + byte] = (*tmp)[byte * count + k];
+}
+
+// A 32-bit gray sample as Pillow's convert("RGB") makes it a byte: a float
+// (F) truncated, NaN and what is not above 0 to 0, 255 and above to 255;
+// an integer (I, signed) clipped to [0, 255].
+uint8_t Gray32(uint32_t v, int format) {
+  if (format == 3) {
+    float f;
+    std::memcpy(&f, &v, 4);
+    if (!(f > 0.0f)) return 0;
+    return f >= 255.0f ? 255 : static_cast<uint8_t>(f);
+  }
+  const int32_t i = static_cast<int32_t>(v);
+  return i < 0 ? 0 : i > 255 ? 255 : static_cast<uint8_t>(i);
+}
+
 int Decode(const uint8_t* data, const Tiff& t, uint8_t* out,
            size_t out_cap) {
-  if (t.compression == kJpeg) return kUnsupported;  // ik_tiffx_jpeg_segments
+  if (t.compression == kJpeg || t.compression == kOldJpeg)
+    return kUnsupported;  // ik_tiffx_jpeg_segments
   const size_t W = t.width, H = t.height, spp = t.spp;
   const int oc = t.photometric == 5 || t.alpha ? 4 : 3;
   if (out_cap < W * H * oc) return kBuffer;
@@ -805,27 +1090,56 @@ int Decode(const uint8_t* data, const Tiff& t, uint8_t* out,
   const size_t rowbytes = (rw * lanes * t.bits + 7) / 8;
   const size_t per_plane = t.offsets.size() / (t.planar == 2 ? spp : 1);
   const size_t across = t.tiled ? (W + rw - 1) / rw : 1;
-  std::vector<uint8_t> buf(rh * rowbytes), line(rw * lanes);
-  const bool unfilter = t.predictor == 2 &&
-      (t.compression == 5 || t.compression == 8 || t.compression == 32946);
+  const int bytes = t.bits / 8;  // 0 below 8 bits
+  std::vector<uint8_t> buf(rh * rowbytes), line(rw * lanes), src, tmp;
+  const bool filtered = t.compression == 5 || t.compression == 8 ||
+                        t.compression == 32946;
+  const bool horizontal = filtered && t.predictor == 2;  // 8 bits and more
+  const bool fp = filtered && t.predictor == 3;          // 32-bit floats
+  // the byte order of the samples after the predictor, and Pillow's
+  // reading of a big-endian file's 32-bit samples through libtiff (every
+  // compression but none), which hands them over in the machine's order
+  // while Pillow unpacks them big-endian: each such sample byte-swapped
+  const bool order = fp ? false : t.le;
+  const bool swapped = !t.le && t.compression != 1;
   for (size_t k = 0; k < t.offsets.size(); ++k) {
     const size_t g = k % per_plane, comp = k / per_plane;
     const size_t ox = (g % across) * rw, oy = (g / across) * rh;
     if (oy >= H) return kBadData;
     // a strip holds its rows only; a tile decodes whole and is clipped
     const size_t rows = t.tiled ? rh : (H - oy < rh ? H - oy : rh);
-    const int rc = Decompress(t, data + t.offsets[k], t.counts[k], buf.data(),
-                              rows, rowbytes, static_cast<int>(rw));
+    const uint8_t* raw = data + t.offsets[k];
+    if (t.fill == 2) {  // libtiff reverses the bits before decompressing
+      src.resize(t.counts[k]);
+      for (size_t i = 0; i < src.size(); ++i) src[i] = Reverse(raw[i]);
+      raw = src.data();
+    }
+    const int rc = Decompress(t, raw, t.counts[k], buf.data(), rows,
+                              rowbytes, static_cast<int>(rw));
     if (rc != kOk) return rc;
-    if (unfilter)  // 8-bit samples only (Parse refuses fewer bits)
-      for (size_t y = 0; y < rows; ++y) {
-        uint8_t* r = buf.data() + y * rowbytes;
-        for (size_t i = lanes; i < rw * lanes; ++i) r[i] += r[i - lanes];
-      }
+    for (size_t y = 0; y < rows; ++y) {
+      uint8_t* r = buf.data() + y * rowbytes;
+      if (horizontal) Unfilter(r, rw * lanes, bytes, lanes, t.le);
+      if (fp) FpUnfilter(r, rw * lanes, lanes, &tmp);
+    }
     const size_t cols = rw < W - ox ? rw : W - ox;
     const size_t keep = oy + rows <= H ? rows : H - oy;
     for (size_t y = 0; y < keep; ++y) {
-      Unpack(buf.data() + y * rowbytes, t.bits, rw * lanes, line.data());
+      const uint8_t* r = buf.data() + y * rowbytes;
+      const size_t count = rw * lanes;
+      if (t.bits < 8) {
+        Unpack(r, t.bits, count, line.data());
+      } else if (bytes == 1) {
+        std::memcpy(line.data(), r, count);
+      } else if (bytes == 2) {  // 16-bit CMYK: the high byte (CMYK;16L/B)
+        for (size_t i = 0; i < count; ++i) line[i] = r[2 * i + (t.le ? 1 : 0)];
+      } else {  // 32-bit gray
+        for (size_t i = 0; i < count; ++i) {
+          uint32_t v = Word(r + 4 * i, 4, order);
+          if (swapped) v = __builtin_bswap32(v);
+          line[i] = Gray32(v, t.format);
+        }
+      }
       uint8_t* d = s.data() + ((oy + y) * W + ox) * spp;
       if (t.planar == 2) {
         for (size_t x = 0; x < cols; ++x) d[x * spp + comp] = line[x];
@@ -835,8 +1149,8 @@ int Decode(const uint8_t* data, const Tiff& t, uint8_t* out,
     }
   }
   const size_t npx = W * H;
-  if (t.photometric == 5) {
-    std::memcpy(out, s.data(), npx * 4);
+  if (t.photometric == 5) {  // the four inks; extra samples dropped
+    for (size_t i = 0; i < npx; ++i) std::memcpy(out + 4 * i, &s[i * spp], 4);
     return kOk;
   }
   if (t.alpha) {  // LA and PA, 8-bit: RGBA
@@ -867,6 +1181,11 @@ int Decode(const uint8_t* data, const Tiff& t, uint8_t* out,
     }
     return kOk;
   }
+  if (t.bits == 32) {  // already bytes; a float's photometric 0 is as 1
+    for (size_t i = 0; i < npx; ++i)
+      out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = s[i];
+    return kOk;
+  }
   const int scale = t.bits == 1 ? 255 : t.bits == 2 ? 85 : 17;
   const int flip = t.photometric == 0 ? 255 : 0;
   for (size_t i = 0; i < npx; ++i) {
@@ -876,6 +1195,156 @@ int Decode(const uint8_t* data, const Tiff& t, uint8_t* out,
   return kOk;
 }
 
+// -- old-style JPEG (compression 6) -----------------------------------------------
+
+// The entropy-coded data's offset in the JPEG stream p[0, n): just past its
+// first SOS segment; 0 where the stream's markers up to it do not parse.
+size_t SosEnd(const uint8_t* p, size_t n) {
+  if (n < 4 || p[0] != 0xFF || p[1] != 0xD8) return 0;
+  size_t at = 2;
+  while (at + 4 <= n) {
+    if (p[at] != 0xFF) return 0;
+    const uint8_t m = p[at + 1];
+    if (m == 0xFF) {  // fill byte
+      ++at;
+      continue;
+    }
+    if (m == 0xD8 || (m >= 0xD0 && m <= 0xD7) || m == 0x01) {
+      at += 2;
+      continue;
+    }
+    if (m == 0xD9) return 0;
+    const size_t seg = (static_cast<size_t>(p[at + 2]) << 8) | p[at + 3];
+    if (seg < 2 || at + 2 + seg > n) return 0;
+    at += 2 + seg;
+    if (m == 0xDA) return at;
+  }
+  return 0;
+}
+
+// Just past the EOI at or after `from`, 0 where p[from, n) holds none
+// (entropy-coded data holds 0xFF only before 0x00 or a marker)
+size_t EoiEnd(const uint8_t* p, size_t n, size_t from) {
+  for (size_t i = from; i + 1 < n; ++i)
+    if (p[i] == 0xFF && p[i + 1] == 0xD9) return i + 2;
+  return 0;
+}
+
+void Put16(std::vector<uint8_t>* o, uint32_t v) {
+  o->push_back(static_cast<uint8_t>(v >> 8));
+  o->push_back(static_cast<uint8_t>(v));
+}
+
+// The JPEG stream of the tables-in-tags form, as libtiff writes it for
+// libjpeg: SOI, component i's quantisation table (JPEGQTables, 64 bytes in
+// zigzag order) and DC and AC Huffman tables (JPEGDCTables, JPEGACTables:
+// 16 counts, then the symbols) under id i, a baseline frame of the image
+// with the luma sampled YCbCrSubSampling, JPEGRestartInterval, one
+// interleaved scan, then `scan` (the strip's entropy-coded data) and an EOI.
+int TablesStream(const Reader& r, const Tiff& t, const uint8_t* scan,
+                 size_t n, std::vector<uint8_t>* o) {
+  const Entry* tabs[3] = {&t.qtabs_e, &t.dctabs_e, &t.actabs_e};
+  for (const Entry* e : tabs)
+    if (e->count < 3) return kBadData;
+  if (t.width > 65535 || t.height > 65535) return kUnsupported;
+  o->assign({0xFF, 0xD8});
+  for (uint32_t i = 0; i < 3; ++i) {
+    const size_t q = EntryValue(r, t.qtabs_e, i);
+    if (q > r.len || r.len - q < 64) return kTruncated;
+    o->insert(o->end(), {0xFF, 0xDB, 0, 67, static_cast<uint8_t>(i)});
+    o->insert(o->end(), r.d + q, r.d + q + 64);
+  }
+  for (int cls = 0; cls < 2; ++cls)
+    for (uint32_t i = 0; i < 3; ++i) {
+      const size_t h = EntryValue(r, cls ? t.actabs_e : t.dctabs_e, i);
+      if (h > r.len || r.len - h < 16) return kTruncated;
+      size_t symbols = 0;
+      for (int l = 0; l < 16; ++l) symbols += r.d[h + l];
+      if (symbols > 256) return kBadData;
+      if (r.len - h < 16 + symbols) return kTruncated;
+      o->insert(o->end(), {0xFF, 0xC4});
+      Put16(o, static_cast<uint32_t>(3 + 16 + symbols));
+      o->push_back(static_cast<uint8_t>(cls << 4 | i));
+      o->insert(o->end(), r.d + h, r.d + h + 16 + symbols);
+    }
+  o->insert(o->end(), {0xFF, 0xC0, 0, 17, 8});
+  Put16(o, t.height);
+  Put16(o, t.width);
+  o->insert(o->end(), {3, 1, static_cast<uint8_t>(t.sub_h << 4 | t.sub_v), 0,
+                       2, 0x11, 1, 3, 0x11, 2});
+  if (t.restart > 0) {
+    if (t.restart > 65535) return kBadData;
+    o->insert(o->end(), {0xFF, 0xDD, 0, 4});
+    Put16(o, t.restart);
+  }
+  o->insert(o->end(), {0xFF, 0xDA, 0, 12, 3, 1, 0x00, 2, 0x11, 3, 0x22, 0, 63,
+                       0});
+  o->insert(o->end(), scan, scan + n);
+  o->insert(o->end(), {0xFF, 0xD9});
+  return kOk;
+}
+
+// An old-style JPEG page as the one JPEG stream libtiff hands to libjpeg:
+// the JPEGInterchangeFormat stream (its range as Parse corrected it) up to
+// its EOI; where it has no EOI, its entropy-coded data runs on into the
+// strip; with no interchange format, the strip's own stream, or the
+// tables-in-tags form's (TablesStream). The strips are ignored where the
+// interchange format holds the whole stream. A stream to assemble from
+// several strips (libtiff inserts restart markers between them) is -3.
+int OldJpegStream(const uint8_t* data, size_t len, const Tiff& t,
+                  std::vector<uint8_t>* o) {
+  const bool one = t.offsets.size() == 1;
+  const uint8_t* s0 = data + t.offsets[0];
+  const size_t n0 = t.counts[0];
+  const uint8_t* head = t.jif_off ? data + t.jif_off : s0;
+  const size_t hn = t.jif_off ? t.jif_len : n0;
+  if (!t.jif_off && !(n0 >= 2 && s0[0] == 0xFF && s0[1] == 0xD8)) {
+    if (!one) return kUnsupported;
+    return TablesStream(Reader{data, len, t.le}, t, s0, n0, o);
+  }
+  const size_t sos = SosEnd(head, hn);
+  if (sos == 0) return kBadData;  // no JPEG header before a scan
+  const size_t eoi = EoiEnd(head, hn, sos);
+  if (eoi) {
+    o->assign(head, head + eoi);
+    return kOk;
+  }
+  if (!one) return kUnsupported;
+  o->assign(head, head + hn);
+  if (t.jif_off) o->insert(o->end(), s0, s0 + n0);
+  o->insert(o->end(), {0xFF, 0xD9});
+  return kOk;
+}
+
+// What Pillow's raw reader leaves unread of a YCbCr TIFF without
+// compression where the file runs out: it reads four bytes a pixel (RGBX)
+// where the file holds three, a region (strip or tile) at a time in the
+// order of their offsets, each from its offset for its rows, a tile that
+// passes the image's right edge at three bytes a pixel of the tile; the
+// first region the file cannot fill leaves the rest of the file modulo a
+// row. -1 where every region fits.
+int64_t RawYccLeft(size_t len, const Tiff& t) {
+  const size_t W = t.width, H = t.height;
+  const size_t rw = t.tiled ? t.tile_w : W;
+  const size_t rh = t.tiled ? t.tile_h : t.rows_per_strip;
+  const size_t across = t.tiled ? (W + rw - 1) / rw : 1;
+  std::vector<size_t> order(t.offsets.size());
+  for (size_t i = 0; i < order.size(); ++i) order[i] = i;
+  std::stable_sort(order.begin(), order.end(), [&](size_t a, size_t b) {
+    return t.offsets[a] < t.offsets[b];
+  });
+  for (size_t k : order) {
+    const size_t ox = (k % across) * rw, oy = (k / across) * rh;
+    if (oy >= H) continue;
+    const size_t line = ox + rw > W && t.tiled ? 3 * rw : 4 * (t.tiled ? rw
+                                                                   : W);
+    const size_t rows = (oy + rh < H ? oy + rh : H) - oy;
+    const size_t avail = len - t.offsets[k];
+    if (avail < line * rows) return static_cast<int64_t>(avail % line);
+  }
+  return -1;
+}
+
 }  // namespace
 
 struct IkTiffxInfo {  // tiff_decode.cpp's IkTiffInfo, then the layout
@@ -883,6 +1352,9 @@ struct IkTiffxInfo {  // tiff_decode.cpp's IkTiffInfo, then the layout
   // 0: ik_tiffx_decode writes the image; 1: it writes CMYK's four samples
   // as stored; 2: JPEG segments (ik_tiffx_jpeg_segments)
   int32_t layout;
+  // where the parse refuses a YCbCr TIFF without compression (-8): the
+  // bytes Pillow's read leaves unread, for its "truncated" message; else -1
+  int32_t unread;
 };
 
 // channels: 3 (RGB), or 4 for alpha, and for CMYK, whose four samples the
@@ -893,9 +1365,10 @@ IK_EXPORT int ik_tiffx_parse(const uint8_t* data, size_t len,
   const int rc = Parse(data, len, &t);
   out->width = static_cast<int32_t>(t.width);
   out->height = static_cast<int32_t>(t.height);
-  const bool jpeg = t.compression == kJpeg;
+  const bool jpeg = t.compression == kJpeg || t.compression == kOldJpeg;
   out->channels = t.alpha || (t.photometric == 5 && !jpeg) ? 4 : 3;
   out->layout = jpeg ? 2 : t.photometric == 5 ? 1 : 0;
+  out->unread = static_cast<int32_t>(std::min<int64_t>(t.unread, INT32_MAX));
   return rc;
 }
 
@@ -910,18 +1383,25 @@ IK_EXPORT int ik_tiffx_decode(const uint8_t* data, size_t len, uint8_t* out,
 struct IkTiffxJpeg {
   int32_t width, height;
   int32_t photometric, samples;
-  int32_t alpha;         // the fourth sample is unassociated alpha
+  int32_t alpha;         // the image has alpha (the last sample)
   int32_t sub_h, sub_v;  // YCbCrSubSampling; 0 where the tag is missing
   int32_t seg_w, seg_h;  // a tile, or the image's width and RowsPerStrip
-  int32_t rows, cols;    // the segment grid (strips: rows x 1)
+  int32_t rows, cols;    // the segment grid (strips: rows x 1) of a plane
   int32_t tiled;
   uint64_t tables_off, tables_len;  // JPEGTables; a length of 0 for none
+  int32_t planes;     // 1, or the samples where each has its own segments
+  int32_t extra;      // the one ExtraSamples value, -1 for none
+  int32_t old_style;  // compression 6: one stream (ik_tiffx_ojpeg_stream)
+  float luma[3];      // YCbCrCoefficients and ReferenceBlackWhite, or
+  float refbw[6];     // libtiff's defaults
 };
 
 // A JPEG-compressed TIFF's segments: `out` always, then each segment's
-// offset and byte count, in grid order (row by row), where `cap` holds
-// rows * cols of them (else -7). Every range lies inside `data`. -3 for a
-// TIFF that is not one of the JPEG layouts of the header comment.
+// offset and byte count, plane by plane, in grid order (row by row), where
+// `cap` holds planes * rows * cols of them (else -7). Every range lies
+// inside `data`. -3 for a TIFF that is not one of the JPEG layouts of the
+// header comment. An old-style JPEG's page is one segment, the image, whose
+// stream ik_tiffx_ojpeg_stream writes: `out` only.
 IK_EXPORT int ik_tiffx_jpeg_segments(const uint8_t* data, size_t len,
                                      IkTiffxJpeg* out, uint64_t* offsets,
                                      uint64_t* counts, size_t cap) {
@@ -929,28 +1409,53 @@ IK_EXPORT int ik_tiffx_jpeg_segments(const uint8_t* data, size_t len,
   std::memset(out, 0, sizeof(*out));
   int rc = Parse(data, len, &t);
   if (rc != kOk) return rc;
-  if (t.compression != kJpeg) return kUnsupported;
+  const bool old = t.compression == kOldJpeg;
+  if (t.compression != kJpeg && !old) return kUnsupported;
   out->width = static_cast<int32_t>(t.width);
   out->height = static_cast<int32_t>(t.height);
   out->photometric = t.photometric;
   out->samples = t.spp;
   out->alpha = t.alpha;
-  out->sub_h = t.sub_h;
-  out->sub_v = t.sub_v;
-  out->tiled = t.tiled;
-  out->seg_w = static_cast<int32_t>(t.tiled ? t.tile_w : t.width);
-  out->seg_h = static_cast<int32_t>(t.tiled ? t.tile_h : t.rows_per_strip);
+  out->sub_h = old ? 0 : t.sub_h;  // an old-style stream's own sampling
+  out->sub_v = old ? 0 : t.sub_v;
+  out->tiled = t.tiled && !old;
+  out->planes = t.planar == 2 ? t.spp : 1;
+  out->extra = t.extra;
+  out->old_style = old;
+  std::memcpy(out->luma, t.luma, sizeof(t.luma));
+  std::memcpy(out->refbw, t.refbw, sizeof(t.refbw));
+  out->seg_w = static_cast<int32_t>(t.tiled && !old ? t.tile_w : t.width);
+  out->seg_h = static_cast<int32_t>(
+      old ? t.height : t.tiled ? t.tile_h : t.rows_per_strip);
   out->cols = static_cast<int32_t>(
-      t.tiled ? (t.width + t.tile_w - 1) / t.tile_w : 1);
-  out->rows = static_cast<int32_t>(t.offsets.size() / out->cols);
+      t.tiled && !old ? (t.width + t.tile_w - 1) / t.tile_w : 1);
+  out->rows = old ? 1 : static_cast<int32_t>(
+      t.offsets.size() / out->planes / out->cols);
   out->tables_off = t.tables_off;
   out->tables_len = t.tables_len;
+  if (old) return kOk;
   if (cap < t.offsets.size()) return kBuffer;
   for (size_t i = 0; i < t.offsets.size(); ++i) {
     offsets[i] = t.offsets[i];
     counts[i] = t.counts[i];
   }
   return kOk;
+}
+
+// An old-style JPEG page's stream (OldJpegStream) into `out`: its length,
+// written where `cap` holds it; or a negative code. The stream is at most
+// the file and the tables, so 2 * len + 4096 bytes always hold it.
+IK_EXPORT int64_t ik_tiffx_ojpeg_stream(const uint8_t* data, size_t len,
+                                        uint8_t* out, size_t cap) {
+  Tiff t;
+  int rc = Parse(data, len, &t);
+  if (rc != kOk) return rc;
+  if (t.compression != kOldJpeg) return kUnsupported;
+  std::vector<uint8_t> s;
+  rc = OldJpegStream(data, len, t, &s);
+  if (rc != kOk) return rc;
+  if (s.size() <= cap) std::memcpy(out, s.data(), s.size());
+  return static_cast<int64_t>(s.size());
 }
 
 // -- a page's JPEG segments, many at a time -----------------------------------

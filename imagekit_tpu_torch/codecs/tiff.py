@@ -8,30 +8,46 @@ predictor) and expands gray, palette and RGB(A) samples of 8 or 16 bits to
 reference hands to Pillow, goes to the port's own
 ``native/tiff_ext_decode.cpp``: bilevel (none, PackBits, LZW, deflate and
 CCITT modified Huffman, Group 3 and Group 4), 2- and 4-bit gray and
-palette, 8-bit gray and palette with alpha (Pillow's LA and PA, to RGBA),
-and 8-bit CMYK, whose samples :func:`decode` turns to RGB as Pillow's
-``convert("RGB")`` does (``ops/color.py::cmyk_to_rgb``, on the device:
-run on the host from the codec pool's threads at once, its torch ops took
-20x longer).
+palette, in either FillOrder; 8-bit gray and palette with alpha (Pillow's
+LA and PA, to RGBA); float32 and signed or unsigned 32-bit gray (Pillow's
+F and I, then its ``convert("RGB")``: truncated or clipped to a byte); and
+8-bit CMYK, 16-bit CMYK (the high byte of each sample) and CMYK with one or
+two extra samples (dropped), whose inks :func:`decode` turns to RGB as
+Pillow's ``convert("RGB")`` does (``ops/color.py::cmyk_to_rgb``, on the
+device: run on the host from the codec pool's threads at once, its torch
+ops took 20x longer).
 
-JPEG-compressed TIFFs (compression 7, 8-bit, chunky, strips or tiles:
-YCbCr, RGB, RGB with alpha, gray, CMYK) are decoded as libtiff decodes
-them, each strip or tile an independent JPEG: :func:`entropy_decode` has
-the native library splice each segment onto the ``JPEGTables``, one at a
-time, and parse and entropy-decode the page's segments in two calls (the
-pinned decoder, or the four-component one), checks each header against the
-IFD as libtiff does, and assembles the segments' coefficients into one
-plane a component (:class:`JpegPage`); the device half is
-``ops/dct.py::decode_tiff_page`` (one K3 launch a page, two for four
-components). The colour step follows the TIFF photometric, never the JPEG
-stream. The differences from the reference are those of :mod:`.misc`,
-whose binding helpers this uses: a constant pixel ceiling (no Pillow), and
+JPEG-compressed TIFFs (compression 7, 8-bit: YCbCr, RGB, gray, CMYK,
+chunky, strips or tiles; RGB planar; RGB with an unspecified, associated
+or unassociated extra sample and gray with alpha, chunky) are decoded as
+libtiff decodes them, each strip or tile an independent JPEG:
+:func:`entropy_decode` has the native library splice each segment onto the
+``JPEGTables``, one at a time, and parse and entropy-decode the page's
+segments in two calls (the pinned decoder, or the port's for two and four
+components), checks each header against the IFD as libtiff does, and
+assembles the segments' coefficients into one plane a component
+(:class:`JpegPage`); the device half is ``ops/dct.py::decode_tiff_page``
+(one K3 launch a page, two for four components). The colour step follows
+the TIFF photometric, never the JPEG stream. Old-style JPEG (compression
+6), which Pillow reads as YCbCr through libtiff's RGBA interface, is one
+stream a page (``ik_tiffx_ojpeg_stream``: the JPEGInterchangeFormat
+stream, or the strip's, or the tables-in-tags form's, assembled as libtiff
+assembles it) entropy-decoded the same way; its page replicates chroma
+over each subsampling block and takes libtiff's ``TIFFYCbCrToRGB``.
+
+The differences from the reference are those of :mod:`.misc`, whose
+binding helpers this uses: a constant pixel ceiling (no Pillow), and
 :class:`~imagekit_tpu_torch.errors.NotPortedError` where neither decoder
-takes a layout (old-style JPEG, planar JPEG, 12-bit, CIELab, YCbCr without
-JPEG, float samples). A JPEG segment whose entropy data ends early is an
-error here, where libjpeg fills the rest of that segment gray; so is a
-``JPEGTables`` longer than 64 kB, and a page whose splices would copy more
-than 64 times the file (``tiff_ext_decode.cpp``), which libtiff reads.
+takes a layout (CIELab, YCbCrSubSampling 4, YCbCr compressed without JPEG,
+planar 16-bit CMYK, an old-style JPEG assembled from several strips,
+Orientation 5-8). What Pillow refuses answers as the reference does, a
+:class:`~imagekit_tpu_torch.errors.TransformError` (a layout it has no mode
+for, such as a 16-bit palette or a 12-bit JPEG; YCbCr without compression,
+which its raw reader runs out of). A JPEG segment whose entropy data ends
+early is an error here, where libjpeg fills the rest of that segment gray;
+so is a ``JPEGTables`` longer than 64 kB, and a page whose splices would
+copy more than 64 times the file (``tiff_ext_decode.cpp``), which libtiff
+reads.
 """
 
 from __future__ import annotations
@@ -147,7 +163,10 @@ class _JpegInfo(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int32) for name in (
         "width", "height", "photometric", "samples", "alpha", "sub_h",
         "sub_v", "seg_w", "seg_h", "rows", "cols", "tiled")] + [
-        ("tables_off", ctypes.c_uint64), ("tables_len", ctypes.c_uint64)]
+        ("tables_off", ctypes.c_uint64), ("tables_len", ctypes.c_uint64)] + [
+        (name, ctypes.c_int32) for name in ("planes", "extra",
+                                            "old_style")] + [
+        ("luma", ctypes.c_float * 3), ("refbw", ctypes.c_float * 6)]
 
 
 class _Splice(ctypes.Structure):
@@ -180,19 +199,27 @@ def configure(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p,                      # qtabs (u16*, n x 4 x 64)
         ctypes.c_void_p]                      # codes (i32*)
     lib.ik_tiffx_jpeg_decode_many.restype = None
+    lib.ik_tiffx_ojpeg_stream.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_size_t]
+    lib.ik_tiffx_ojpeg_stream.restype = ctypes.c_int64
 
 
 @dataclass
 class JpegPage:
     """A JPEG TIFF page after the host entropy decode: ``coeffs[c]`` is
     component c's (by, bx, 64) i16 levels, the segments' planes placed at
-    their grid positions; ``qtabs[c]`` its (64,) table; ``rows[c]`` and
-    ``cols[c]`` the block rows of each row of segments and the block columns
-    of each column of them. ``height`` x ``width`` is the image, which the
+    their grid positions (a planar page's component c is plane c's
+    segments'); ``qtabs[c]`` its (64,) table; ``rows[c]`` and ``cols[c]``
+    the block rows of each row of segments and the block columns of each
+    column of them. ``height`` x ``width`` is the image, which the
     assembled planes cover (their MCU padding and the partial tiles lie
-    beyond it). An irregular page holds ``segments`` instead: a one-segment
-    page each, with its top-left corner, which the device half decodes
-    alone."""
+    beyond it). ``extra`` is the ExtraSamples value of a page with one
+    (-1 for none). An old-style page holds its ``ycbcr`` colour
+    (YCbCrCoefficients and ReferenceBlackWhite, for libtiff's
+    ``TIFFYCbCrToRGB``), and its chroma is replicated over each subsampling
+    block, not upsampled. An irregular page holds ``segments`` instead: a
+    one-segment page each, with its top-left corner, which the device half
+    decodes alone."""
 
     width: int
     height: int
@@ -202,6 +229,8 @@ class JpegPage:
     rows: List[Tuple[int, ...]]
     cols: List[Tuple[int, ...]]
     segments: Optional[List[Tuple["JpegPage", int, int]]] = None
+    extra: int = -1
+    ycbcr: Optional[Tuple[Tuple[float, ...], Tuple[float, ...]]] = None
 
 
 def segments(data: bytes) -> Tuple[_JpegInfo, np.ndarray, np.ndarray]:
@@ -221,8 +250,21 @@ def segments(data: bytes) -> Tuple[_JpegInfo, np.ndarray, np.ndarray]:
             break
         offs = np.zeros(info.rows * info.cols, np.uint64)
     misc.check(rc, "TIFF", "TIFF")
-    n = info.rows * info.cols
+    n = info.rows * info.cols * info.planes
     return info, offs[:n], cnt[:n]
+
+
+def old_style_stream(data: bytes) -> bytes:
+    """``ik_tiffx_ojpeg_stream``: an old-style JPEG page as the one JPEG
+    stream libtiff hands to libjpeg."""
+    from imagekit_tpu_torch.codecs.native import loader
+
+    fn = loader.load().ik_tiffx_ojpeg_stream
+    out = np.empty(2 * len(data) + 4096, np.uint8)  # what any stream takes
+    n = int(fn(data, len(data), out.ctypes.data_as(ctypes.c_void_p),
+               out.nbytes))
+    misc.check(min(n, 0) if n <= out.nbytes else misc.BUFFER, "TIFF", "TIFF")
+    return out[:n].tobytes()
 
 
 def prefixes(tables: bytes) -> Tuple[bytes, bytes]:
@@ -293,7 +335,7 @@ def segment_stream(tables: bytes, segment: bytes) -> bytes:
 
 
 def _check_segment(hdr, info, sampling, i: int, want: Tuple[int, int],
-                   last_strip: bool) -> None:
+                   last_strip: bool, ncomp: int) -> None:
     """libtiff's checks of a segment against the IFD (``JPEGPreDecode``), in
     its order. libtiff takes a last strip coded taller than its rows (and
     reads its rows only); here one coded at most a whole strip's height. A
@@ -306,10 +348,10 @@ def _check_segment(hdr, info, sampling, i: int, want: Tuple[int, int],
             raise TransformError(
                 f"corrupt TIFF: JPEG segment {i} is {hdr.width}x{hdr.height},"
                 f" its place {w}x{h}")
-    if hdr.ncomp != info.samples:
+    if hdr.ncomp != ncomp:
         raise TransformError(f"corrupt TIFF: JPEG segment {i} has "
                              f"{hdr.ncomp} components, the IFD "
-                             f"{info.samples} samples")
+                             f"{ncomp} samples")
     if (hdr.comp_h[0], hdr.comp_v[0]) != sampling or any(
             (hh, vv) != (1, 1) for hh, vv in zip(hdr.comp_h[1:],
                                                  hdr.comp_v[1:])):
@@ -361,21 +403,31 @@ def entropy_decode(data: bytes) -> JpegPage:
     """The host half of a JPEG TIFF's decode: every strip or tile spliced
     onto the tables (:func:`prefixes`), its header read and checked against
     the IFD and the others, then entropy-decoded (the pinned decoder for one
-    or three components, ``jpeg4_decode.cpp`` for four): the page's
+    or three components, ``jpeg4_decode.cpp`` for two or four): the page's
     segments in two native calls, which splice each one in a scratch
     buffer and copy its levels to its place in the page's planes, so that
     the codec pool's threads do not queue on the interpreter lock at each
     segment or copy. Only the last strip, and the last row and column of
     tiles, may be partial, so the planes hold each segment's MCU padding at
-    the page's bottom or right edge, which the device half crops. Where the segments' tables differ, or a strip that is
-    not a whole number of MCUs ends before the last, the page keeps its
-    segments apart. Corrupt data raises :class:`TransformError`; what the
-    decoders refuse as unsupported, :class:`NotPortedError`."""
+    the page's bottom or right edge, which the device half crops. A planar
+    page's segments are one component each, plane by plane. An old-style
+    page is one segment, its stream (:func:`old_style_stream`). Where the
+    segments' tables differ, or a strip that is not a whole number of MCUs
+    ends before the last, the page keeps its segments apart (a planar page
+    of that kind is not ported). Corrupt data raises
+    :class:`TransformError`; what the decoders refuse as unsupported,
+    :class:`NotPortedError`."""
     from imagekit_tpu_torch.codecs.native import loader
 
     lib = loader.load()
     info, offs, cnts = segments(data)
-    tables = data[info.tables_off:info.tables_off + info.tables_len]
+    if info.old_style:
+        data = old_style_stream(data)
+        offs = np.zeros(1, np.uint64)
+        cnts = np.full(1, len(data), np.uint64)
+        tables = b""
+    else:
+        tables = data[info.tables_off:info.tables_off + info.tables_len]
     W, H = info.width, info.height
     # the segments' whole area, which their planes hold: tiles may pass
     # the image by most of a tile, each side
@@ -394,12 +446,14 @@ def entropy_decode(data: bytes) -> JpegPage:
                      offs.ctypes.data, cnts.ctypes.data, which.ctypes.data,
                      len(offs))
     heads = _parse_many(lib, splice)
+    planar, grid, ncomp = info.planes > 1, info.rows * info.cols, info.samples
     sampling, places = None, []
     for i, hdr in enumerate(heads):
         if isinstance(hdr, jpeg_abi.NativeJpegError):
             raise _segment_error(hdr, i)
-        y0 = (i // info.cols) * info.seg_h
-        x0 = (i % info.cols) * info.seg_w
+        g = i % grid
+        y0 = (g // info.cols) * info.seg_h
+        x0 = (g % info.cols) * info.seg_w
         # a tile decodes whole and is clipped; a strip holds its rows only
         want = (info.seg_w, info.seg_h if info.tiled
                 else min(info.seg_h, H - y0))
@@ -413,40 +467,64 @@ def entropy_decode(data: bytes) -> JpegPage:
                 raise NotPortedError(f"a JPEG TIFF sampled {sampling}",
                                      "queue 1 item 9")
         _check_segment(hdr, info, sampling, i, want,
-                       not info.tiled and i == len(heads) - 1)
+                       not info.tiled and g == grid - 1,
+                       1 if planar else ncomp)
         if not set(hdr.comp_tq) <= quants[i]:
             raise TransformError(f"corrupt TIFF: JPEG segment {i} uses a "
                                  f"quantisation table it does not define")
         places.append((y0, x0, min(want[0], W - x0), min(want[1], H - y0)))
+
+    def held(c: int, g: int) -> Tuple[int, int]:
+        """(segment, its component) of page component c at grid place g."""
+        return (c * grid + g, 0) if planar else (g, c)
+
     # the page's planes: every segment of a row of the grid is as tall as
     # the others (one strip a row; tiles all of a tile's size), and every
     # segment of a column as wide, so each sits at its block offset
-    ncomp = info.samples
-    rows = [tuple(heads[r * info.cols].blocks_h[c] for r in range(info.rows))
-            for c in range(ncomp)]
-    cols = [tuple(heads[k].blocks_w[c] for k in range(info.cols))
-            for c in range(ncomp)]
+    rows = [tuple(heads[i].blocks_h[k] for i, k in (
+        held(c, r * info.cols) for r in range(info.rows)))
+        for c in range(ncomp)]
+    cols = [tuple(heads[i].blocks_w[k] for i, k in (
+        held(c, x) for x in range(info.cols))) for c in range(ncomp)]
     coeffs = [np.zeros((sum(rows[c]), sum(cols[c]), 64), np.int16)
               for c in range(ncomp)]
     r0 = [np.cumsum((0,) + r) for r in rows]
     c0 = [np.cumsum((0,) + k) for k in cols]
-    views = [[coeffs[c][r0[c][i // info.cols]:r0[c][i // info.cols + 1],
-                        c0[c][i % info.cols]:c0[c][i % info.cols + 1]]
-              for c in range(ncomp)] for i in range(len(heads))]
+
+    def place(c: int, g: int) -> np.ndarray:
+        r, x = g // info.cols, g % info.cols
+        return coeffs[c][r0[c][r]:r0[c][r + 1], c0[c][x]:c0[c][x + 1]]
+
+    views = [[place(i // grid, i % grid)] if planar
+             else [place(c, i) for c in range(ncomp)]
+             for i in range(len(heads))]
     qtabs, errors = _decode_many(lib, splice, views)
     for i, e in enumerate(errors):
         if e is not None:
             raise _segment_error(e, i)
     qts = [qtabs[i][list(h.comp_tq)] for i, h in enumerate(heads)]
+    page_q = np.stack([qts[i][k] for i, k in (held(c, 0)
+                                              for c in range(ncomp))])
+    same = all(np.array_equal(q, page_q[i // grid:i // grid + 1] if planar
+                              else page_q) for i, q in enumerate(qts))
     # strips whose MCUs do not straddle one another, and tiles (whole MCUs
     # each), of one set of tables: one pixel decode a page
-    regular = (info.tiled or len(heads) == 1
+    regular = (info.tiled or grid == 1
                or info.seg_h % (8 * sampling[1]) == 0)
-    if regular and all(np.array_equal(q, qts[0]) for q in qts):
-        return JpegPage(W, H, info.photometric, coeffs, qts[0], rows, cols)
-    return JpegPage(W, H, info.photometric, [], qts[0], [], [], segments=[
+    ycbcr = ((tuple(info.luma), tuple(info.refbw)) if info.old_style
+             else None)
+    if regular and same:
+        return JpegPage(W, H, info.photometric, coeffs, page_q, rows, cols,
+                        extra=info.extra, ycbcr=ycbcr)
+    if planar:
+        raise NotPortedError("a planar JPEG TIFF whose strips straddle "
+                             "blocks or whose tables differ a strip",
+                             "queue 1 item 9")
+    return JpegPage(W, H, info.photometric, [], page_q, [], [], segments=[
         (JpegPage(w, h, info.photometric,
                   [np.ascontiguousarray(v) for v in vs], q,
-                  [(v.shape[0],) for v in vs], [(v.shape[1],) for v in vs]),
+                  [(v.shape[0],) for v in vs], [(v.shape[1],) for v in vs],
+                  extra=info.extra),
          y0, x0)
-        for vs, q, (y0, x0, w, h) in zip(views, qts, places)])
+        for vs, q, (y0, x0, w, h) in zip(views, qts, places)],
+        extra=info.extra)

@@ -36,6 +36,7 @@ from imagekit_tpu_torch.codecs import (
     dds,
     guess_format,
     ico,
+    jpeg,
     misc,
     png,
     pnm,
@@ -183,7 +184,7 @@ def _jpeg_header(data: bytes):
     parsers refuse as unsupported (-3); anything else they refuse is the
     reference's validation failure."""
     try:
-        return jpeg_abi.parse_any(loader.load(), data)
+        return jpeg.source_header(loader.load(), data)
     except jpeg_abi.NativeJpegError as e:
         if e.code == -3:
             return None

@@ -63,7 +63,9 @@ decodes with Pillow: :func:`decode_tiff_page` takes the coefficient planes
 ``codecs/tiff.py`` assembles from the page's strips or tiles, with
 block-diagonal chroma stacks (libjpeg upsamples each segment alone), ONE
 K3 launch a page (two for four components) and the colour step of the
-TIFF photometric.
+TIFF photometric. An old-style JPEG page (compression 6) takes
+replication stacks for its chroma and libtiff's ``TIFFYCbCrToRGB``, as
+Pillow reads it through libtiff's RGBA interface.
 """
 
 from __future__ import annotations
@@ -99,7 +101,9 @@ from imagekit_tpu_torch.ops.resize_strip import (
 from imagekit_tpu_torch.ops.weights import (
     chroma_axis_weights,
     idct_basis,
+    libtiff_ycbcr_tables,
     quality_tables,
+    replication_axis_weights,
     segment_axis_weights,
     upsample_weights,
 )
@@ -713,26 +717,70 @@ def tiff_page_inputs(page, device: torch.device):
     JpegPage``): component c's coefficient plane assembled from the
     segments; its stacks per axis :func:`~imagekit_tpu_torch.ops.weights.
     segment_axis_weights`, block-diagonal over the segments along the axis
-    against component 0's (the largest) grid."""
+    against component 0's (the largest) grid; an old-style page's (one
+    segment) :func:`~imagekit_tpu_torch.ops.weights.
+    replication_axis_weights`, chroma replicated over each subsampling
+    block."""
     keys = list(zip(page.rows, page.cols))
-    return plane_inputs(
-        page.coeffs, page.qtabs, keys,
-        lambda k: (segment_axis_weights(page.rows[0], k[0]),
-                   segment_axis_weights(page.cols[0], k[1])), device)
+    if page.ycbcr is not None:
+        def stacks_of(k):
+            return (replication_axis_weights(sum(page.rows[0]), sum(k[0])),
+                    replication_axis_weights(sum(page.cols[0]), sum(k[1])))
+    else:
+        def stacks_of(k):
+            return (segment_axis_weights(page.rows[0], k[0]),
+                    segment_axis_weights(page.cols[0], k[1]))
+    return plane_inputs(page.coeffs, page.qtabs, keys, stacks_of, device)
 
 
-def _tiff_colour(planes, photometric: int) -> torch.Tensor:
+def libtiff_ycbcr_to_rgb(y, cb, cr, luma, refbw) -> torch.Tensor:
+    """libtiff's ``TIFFYCbCrtoRGB`` on u8 planes -> (..., 3) u8, through
+    the integer tables of :func:`~imagekit_tpu_torch.ops.weights.
+    libtiff_ycbcr_tables` (YCbCrCoefficients ``luma``,
+    ReferenceBlackWhite ``refbw``), on the planes' device."""
+    tab = torch.from_numpy(libtiff_ycbcr_tables(tuple(luma), tuple(refbw))
+                           .astype(np.int32)).to(y.device)
+    y_t, cr_r, cb_b, cr_g, cb_g = tab.unbind(0)
+    yv = y_t[y.long()]
+    cb, cr = cb.long(), cr.long()
+    rgb = torch.stack([yv + cr_r[cr], yv + ((cb_g[cb] + cr_g[cr]) >> 16),
+                       yv + cb_b[cb]], dim=-1)
+    return rgb.clamp_(0, 255).to(torch.uint8)
+
+
+def unpremultiply(r, g, b, a) -> torch.Tensor:
+    """Pillow's ``RGBa`` -> ``RGBA`` (``unpackRGBa``): each colour times
+    255 over the alpha, truncated and clipped to 255; all four 0 where the
+    alpha is 0. u8 planes -> (..., 4) u8."""
+    a32 = a.int()
+    out = [torch.where(a32 > 0, (p.int() * 255) // a32.clamp(min=1),
+                       torch.zeros_like(a32)).clamp_(max=255)
+           for p in (r, g, b)]
+    return torch.stack(out + [a32], dim=-1).to(torch.uint8)
+
+
+def _tiff_colour(planes, page) -> torch.Tensor:
     """The page's cropped u8 planes -> (H, W, 3 or 4) u8, by the TIFF
     photometric, not by the JPEG stream (libtiff asks libjpeg for colour
-    only for YCbCr): YCbCr -> RGB as the JPEG pixel decode does; CMYK as
-    an 8-bit CMYK TIFF (:func:`~imagekit_tpu_torch.ops.color.cmyk_to_rgb`
-    on the inverted planes); RGB, RGBA and gray (R = G = B) as they are."""
-    if photometric == 6:
+    only for YCbCr): an old-style page by libtiff's ``TIFFYCbCrtoRGB``
+    (:func:`libtiff_ycbcr_to_rgb`); YCbCr -> RGB as the JPEG pixel decode
+    does; CMYK as an 8-bit CMYK TIFF (:func:`~imagekit_tpu_torch.ops.
+    color.cmyk_to_rgb` on the inverted planes); gray (R = G = B), with its
+    alpha; RGB with an extra sample as Pillow reads it: dropped where
+    unspecified (0), un-premultiplied where associated (1,
+    :func:`unpremultiply`), kept where unassociated (2)."""
+    if page.ycbcr is not None:
+        return libtiff_ycbcr_to_rgb(*planes, *page.ycbcr)
+    if page.photometric == 6:
         return _ycc_to_rgb(*planes)
-    if photometric == 5:
+    if page.photometric == 5:
         return cmyk_to_rgb(*(255 - p for p in planes))
-    if len(planes) == 1:
-        planes = planes * 3
+    if len(planes) <= 2:  # gray, gray with alpha
+        planes = planes[:1] * 3 + planes[1:]
+    elif len(planes) == 4 and page.extra == 0:
+        planes = planes[:3]
+    elif len(planes) == 4 and page.extra == 1:
+        return unpremultiply(*planes)
     return torch.stack(planes, dim=-1)
 
 
@@ -749,7 +797,7 @@ def _tiff_page_pixels(page, device: torch.device) -> torch.Tensor:
         return out
     h, w = page.height, page.width
     planes = resize_components(*tiff_page_inputs(page, device))
-    return _tiff_colour([p[0, :h, :w] for p in planes], page.photometric)
+    return _tiff_colour([p[0, :h, :w] for p in planes], page)
 
 
 def decode_tiff_page(page, device: Optional[torch.device] = None
@@ -761,8 +809,11 @@ def decode_tiff_page(page, device: Optional[torch.device] = None
     triangle upsample stops at every strip and tile edge), so ONE K3 launch
     a page for one or three components and TWO for four; crop; the colour
     step of the photometric -> (H, W, 3) u8, or (H, W, 4) with alpha. An
-    irregular page (its segments' tables differ, or a strip that is not a
-    whole number of MCUs ends before the last) carries its segments
+    old-style page (``page.ycbcr``) takes replication stacks and libtiff's
+    ``TIFFYCbCrToRGB`` instead (one K3 launch); a planar page's components
+    are its planes (one launch for three). An irregular page (its
+    segments' tables differ, or a strip that is not a whole number of MCUs
+    ends before the last) carries its segments
     instead, each decoded alone (K3 once or twice a segment), cropped and
     stitched."""
     device = resolve(device)

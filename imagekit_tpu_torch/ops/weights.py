@@ -372,6 +372,90 @@ def segment_axis_weights(luma_blocks, chroma_blocks) -> np.ndarray:
                                                              chroma_blocks))
 
 
+def _replication_axis_weights_impl(luma_blocks: int,
+                                   chroma_blocks: int) -> np.ndarray:
+    step = luma_blocks // chroma_blocks
+    out = np.zeros((luma_blocks * 8, chroma_blocks * 8), np.float32)
+    rows = np.arange(luma_blocks * 8)
+    out[rows, rows // step] = 1.0
+    return out
+
+
+def replication_axis_weights(luma_blocks: int,
+                             chroma_blocks: int) -> np.ndarray:
+    """The (luma_blocks*8, chroma_blocks*8) chroma stack of one axis of an
+    old-style JPEG TIFF page, as libtiff's RGBA interface reads one (Pillow
+    decodes it that way): chroma replicated over each subsampling block,
+    weight 1 at ``floor(i / s)`` for output row i, ``s`` the ratio of the
+    grids (1 or 2), no triangle upsample. The identity where the grids are
+    equal. Any other ratio raises ValueError."""
+    if luma_blocks not in (chroma_blocks, 2 * chroma_blocks):
+        raise ValueError(f"chroma grid of {chroma_blocks} blocks against "
+                         f"{luma_blocks} luma blocks: not 1x or 2x")
+    if luma_blocks == chroma_blocks:
+        return upsample_weights(luma_blocks * 8, luma_blocks * 8)
+    return _chroma_cached(("rep", luma_blocks, chroma_blocks),
+                          lambda: _replication_axis_weights_impl(
+                              luma_blocks, chroma_blocks))
+
+
+def _fix16(x: np.float32) -> int:
+    """libtiff's FIX: ``(int32_t)(x * (1L << 16) + 0.5)``, x a float."""
+    return int(np.float64(np.float32(x) * np.float32(65536)) + 0.5)
+
+
+def _code2v(c, rb, rw, cr):
+    """libtiff's Code2V in float: ``((c - (int32_t)RB) * (float)CR) /
+    (float)(RW - RB != 0 ? RW - RB : 1)``, over an array of codes c."""
+    den = np.float32(rw) - np.float32(rb)
+    num = (np.asarray(c, np.int64) - int(np.float32(rb))).astype(np.float32)
+    return (num * np.float32(cr)) / np.float32(den if den != 0 else 1)
+
+
+def _clamp_trunc(f: np.ndarray) -> np.ndarray:
+    """``(int32_t)CLAMP(f, -128 * 32, 128 * 32)`` (NaN to the minimum)."""
+    f = np.where(f >= np.float32(-4096), f, np.float32(-4096))
+    return np.trunc(np.minimum(f, np.float32(4096))).astype(np.int64)
+
+
+@functools.lru_cache(maxsize=16)
+def libtiff_ycbcr_tables(luma: Tuple[float, float, float],
+                         refbw: Tuple[float, ...]) -> np.ndarray:
+    """libtiff's ``TIFFYCbCrToRGBInit`` (``tif_color.c``): the (5, 256)
+    int64 tables Y_tab, Cr_r_tab, Cb_b_tab, Cr_g_tab and Cb_g_tab, each
+    indexed by the 8-bit sample, from YCbCrCoefficients ``luma`` and
+    ReferenceBlackWhite ``refbw`` as floats, in its float and 16-bit
+    fixed-point arithmetic. ``TIFFYCbCrtoRGB`` is then R = clip(Y_tab[Y] +
+    Cr_r_tab[Cr]), G = clip(Y_tab[Y] + ((Cb_g_tab[Cb] + Cr_g_tab[Cr]) >>
+    16)), B = clip(Y_tab[Y] + Cb_b_tab[Cb]), clip to [0, 255]."""
+    lr, lg, lb = (np.float32(v) for v in luma)
+    rb = [np.float32(v) for v in refbw]
+
+    def clamp2(f):
+        f = np.float32(f)
+        return np.float32(0) if not f >= 0 else min(f, np.float32(2))
+
+    f1 = np.float32(2) - np.float32(2) * lr
+    d1 = _fix16(clamp2(f1))
+    d2 = -_fix16(clamp2(lr * f1 / lg))
+    f3 = np.float32(2) - np.float32(2) * lb
+    d3 = _fix16(clamp2(f3))
+    d4 = -_fix16(clamp2(lb * f3 / lg))
+    x = np.arange(256) - 128
+    cr = _clamp_trunc(_code2v(x, rb[4] - np.float32(128),
+                              rb[5] - np.float32(128), 127))
+    cb = _clamp_trunc(_code2v(x, rb[2] - np.float32(128),
+                              rb[3] - np.float32(128), 127))
+    half = 1 << 15
+    return np.stack([
+        _clamp_trunc(_code2v(x + 128, rb[0], rb[1], 255)),
+        (d1 * cr + half) >> 16,
+        (d3 * cb + half) >> 16,
+        d2 * cr,
+        d4 * cb + half,
+    ])
+
+
 def _combined_chroma_weights_impl(
     chroma_true: int,
     full_true: int,

@@ -195,10 +195,11 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
                 raise
 
         if src == SourceFormat.tiff:
-            # a JPEG TIFF's segments are entropy-decoded on the pool (its
-            # time under "entropy_decode") and its page decoded on a
-            # dispatch thread, as a JPEG; a CMYK TIFF's colour step runs
-            # there too
+            # a JPEG TIFF's segments (an old-style page's one stream) are
+            # entropy-decoded on the pool (its time under
+            # "entropy_decode") and its page decoded on a dispatch thread,
+            # as a JPEG; a CMYK TIFF's colour step (16-bit CMYK's too)
+            # runs there; the other sample layouts end on the pool
             stored, kind = await self._pool_run(
                 lambda out: "entropy_decode" if out and out[1] == tiff.JPEG
                 else "decode", run, tiff.decode_stored)

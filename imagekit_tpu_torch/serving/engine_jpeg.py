@@ -64,6 +64,7 @@ from imagekit_tpu_torch.ops.weights import (
     target_dimensions,
 )
 from imagekit_tpu_torch.codecs.jpeg import decode_error as _decode_error
+from imagekit_tpu_torch.codecs.jpeg import source_header as _source_header
 from imagekit_tpu_torch.serving import jpeg_transport as _jt
 from imagekit_tpu_torch.serving.batch_types import (
     _cached_weights,
@@ -97,7 +98,7 @@ class JpegPathMixin:
         self._ensure_flusher(loop)
 
         try:
-            pre_hdr = jpeg_abi.parse_any(lib, data)  # header-only, microseconds
+            pre_hdr = _source_header(lib, data)  # header-only, microseconds
         except jpeg_abi.NativeJpegError as e:
             raise _decode_error(e) from e
         if pre_hdr.ncomp == 4:

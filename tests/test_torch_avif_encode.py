@@ -39,6 +39,14 @@ from imagekit_tpu_torch.codecs.native import av1_abi
 from imagekit_tpu_torch.errors import NotPortedError
 from tests.test_torch_jxc_slice import _ref_native_lib
 
+
+@pytest.fixture(autouse=True)
+def _reference_library(monkeypatch):
+    """The reference's native library loaded before any test runs its
+    decoders (``_ref_native_lib``: it is built in place with no lock)."""
+    _ref_native_lib(monkeypatch)
+
+
 needs_dav1d = pytest.mark.skipif(
     not avif_native.decode_available(),
     reason="libdav1d unavailable (the decode oracle of these tests)")

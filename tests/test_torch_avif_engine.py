@@ -63,6 +63,13 @@ needs_dav1d = pytest.mark.skipif(
     reason="libdav1d unavailable (the decode oracle of these tests)")
 
 
+@pytest.fixture(autouse=True)
+def _reference_library(monkeypatch):
+    """The reference's native library loaded before any test runs its
+    decoders (``_ref_native_lib``: it is built in place with no lock)."""
+    _ref_native_lib(monkeypatch)
+
+
 def avif_info(data: bytes):
     """(major brand, [ispe (w, h)], alpha auxiliary item?) of an AVIF body,
     from its ftyp and meta/iprp/ipco boxes."""

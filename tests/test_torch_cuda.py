@@ -1337,3 +1337,43 @@ def test_tiff_jpeg_pages_on_card_match_cpu(case):
     assert got.shape == want.shape
     d = np.abs(got.astype(int) - want.astype(int))
     assert d.max() <= 2 and (d > 0).mean() <= MAX_SHARE
+
+
+@needs_card
+@pytest.mark.parametrize("case", ["old_style", "planar", "rgb_extra",
+                                  "cmyk16", "float32"])
+def test_tiff_remainder_pages_on_card_match_cpu(case):
+    """The TIFF layouts the reference decoded with Pillow, written by
+    ``chip_smoke``'s writers, on the card: one K3 launch an old-style or
+    planar page (identity and replication stacks for the old-style one),
+    two for an RGB page with an extra sample, none for the sample layouts;
+    pixels within +-2 on at most 0.1% of the CPU's plain decode (exact for
+    the sample layouts)."""
+    from pathlib import Path
+
+    import chip_smoke
+    from imagekit_tpu_torch import codecs
+    from imagekit_tpu_torch.ops import resize_planes
+
+    fixtures = Path(__file__).parent / "fixtures"
+    img = chip_smoke.synth_image(12, 640, 360, noise=False)
+    data = {
+        "old_style": lambda: chip_smoke.make_old_style_tiff(img),
+        "planar": lambda: chip_smoke.make_planar_jpeg_tiff(img),
+        "rgb_extra": lambda: chip_smoke.with_unspecified_extra(
+            (fixtures / "tiff_jpeg_cmyk_1080p_q80.tif").read_bytes()),
+        "cmyk16": lambda: chip_smoke.make_cmyk16_tiff(img),
+        "float32": lambda: chip_smoke.make_float_tiff(
+            chip_smoke.elevation(3, 640, 360)),
+    }[case]()
+    before = resize_planes.LAUNCHES
+    got = codecs.decode_bytes(data, device="cuda")[0]
+    assert resize_planes.LAUNCHES - before == {"rgb_extra": 2, "cmyk16": 0,
+                                               "float32": 0}.get(case, 1)
+    want = codecs.decode_bytes(data, device="cpu")[0]
+    assert got.shape == want.shape
+    d = np.abs(got.astype(int) - want.astype(int))
+    if case in ("cmyk16", "float32"):
+        assert d.max() == 0
+    else:
+        assert d.max() <= 2 and (d > 0).mean() <= MAX_SHARE

@@ -58,10 +58,20 @@ from tests.test_longtail_formats import (
     _rand_rgbe,
 )
 from tests.test_tiff import _be_gray_tiff, _craft_planar, _craft_tiled
+from tests.test_torch_jxc_slice import _ref_native_lib
 from tests.test_torch_rgba_slice import _capture, _diff, run_both_plain
 from tests.test_torch_webp_slice import _Body, _CannedFetcher
 
 ROOT = __import__("pathlib").Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True)
+def _reference_library(monkeypatch):
+    """The reference's native library loaded before any test runs its
+    decoders (``_ref_native_lib``: it is built in place with no lock, and a
+    worker whose first load meets another's half-written build would
+    decode through Pillow alone)."""
+    _ref_native_lib(monkeypatch)
 
 
 def _save(arr_or_img, fmt, **kw) -> bytes:

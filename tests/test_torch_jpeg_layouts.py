@@ -69,6 +69,13 @@ SECRET = "test-secret-key"
 SIZES = [(320, 240), (203, 151)]
 
 
+@pytest.fixture(autouse=True)
+def _reference_library(monkeypatch):
+    """The reference's native library loaded before any test runs its
+    decoders (``_ref_native_lib``: it is built in place with no lock)."""
+    _ref_native_lib(monkeypatch)
+
+
 def psnr(a, b):
     d = np.asarray(a, np.float64) - np.asarray(b, np.float64)
     return 10 * np.log10(255.0 ** 2 / max((d ** 2).mean(), 1e-12))

@@ -262,6 +262,13 @@ def _ref_native_lib(monkeypatch):
     return lib
 
 
+@pytest.fixture(autouse=True)
+def _reference_library(monkeypatch):
+    """The reference's native library loaded before any test runs its
+    decoders (``_ref_native_lib``: it is built in place with no lock)."""
+    _ref_native_lib(monkeypatch)
+
+
 def jpeg_sig(ref, nb, sig_kind, k, src_hw, width, split=True):
     """The JAX engine's signature of a JPEG-source batch of ``nb`` images of
     ``src_hw`` resized to ``width`` (``engine_jpeg.py:271-274``)."""

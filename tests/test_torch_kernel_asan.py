@@ -23,6 +23,7 @@ a buffer of its exact size so that a read past it is caught.
 
 import json
 import os
+import struct
 import subprocess
 import sys
 import textwrap
@@ -139,10 +140,15 @@ _TIFFX = textwrap.dedent("""
         _fields_ = [(n, ctypes.c_int32) for n in (
             "width", "height", "photometric", "samples", "alpha", "sub_h",
             "sub_v", "seg_w", "seg_h", "rows", "cols", "tiled")] + [
-            ("tables_off", u64), ("tables_len", u64)]
+            ("tables_off", u64), ("tables_len", u64)] + [
+            (n, ctypes.c_int32) for n in ("planes", "extra", "old_style")] + [
+            ("luma", ctypes.c_float * 3), ("refbw", ctypes.c_float * 6)]
+
+    lib.ik_tiffx_ojpeg_stream.restype = ctypes.c_int64
 
     class Info(ctypes.Structure):
-        _fields_ = [(n, ctypes.c_int32) for n in ("w", "h", "c", "layout")]
+        _fields_ = [(n, ctypes.c_int32) for n in ("w", "h", "c", "layout",
+                                                  "unread")]
 
     class Seg(ctypes.Structure):  # IkSegInfo: 5 + 7 x 4 + 1 int32
         _fields_ = [("head", ctypes.c_int32 * 5),
@@ -206,7 +212,8 @@ _TIFFX = textwrap.dedent("""
         rc_small = lib.ik_tiffx_jpeg_segments(
             ctypes.c_void_p(buf), len(data), ctypes.byref(jinfo), None, None,
             0)
-        n = max(jinfo.rows * jinfo.cols, 0) if rc_small == -7 else 0
+        n = (max(jinfo.rows * jinfo.cols * jinfo.planes, 0)
+             if rc_small == -7 else 0)
         offs, cnts = (u64 * n)(), (u64 * n)()
         rc = lib.ik_tiffx_jpeg_segments(ctypes.c_void_p(buf), len(data),
                                         ctypes.byref(jinfo), offs, cnts, n)
@@ -214,6 +221,23 @@ _TIFFX = textwrap.dedent("""
         out[name] = {"parse": rc_parse, "small": rc_small, "rc": rc,
                      "len": len(data), "ranges": ranges,
                      "tables": [jinfo.tables_off, jinfo.tables_len]}
+        # an old-style page's stream, into a buffer of exactly its size;
+        # a sample layout's pixels, likewise
+        size = lib.ik_tiffx_ojpeg_stream(ctypes.c_void_p(buf), len(data),
+                                         None, 0)
+        if size > 0:
+            at = libc.malloc(size)
+            size = lib.ik_tiffx_ojpeg_stream(ctypes.c_void_p(buf), len(data),
+                                             ctypes.c_void_p(at), size)
+            libc.free(ctypes.c_void_p(at))
+        out[name]["stream"] = size
+        if rc_parse == 0 and info.layout in (0, 1):
+            at = libc.malloc(info.w * info.h * info.c)
+            out[name]["decode"] = lib.ik_tiffx_decode(
+                ctypes.c_void_p(buf), len(data), ctypes.c_void_p(at),
+                info.w * info.h * info.c)
+            libc.free(ctypes.c_void_p(at))
+        out[name]["unread"] = info.unread
         if case["splice"]:
             out[name]["many"] = many(buf, len(data), ranges, case["splice"])
         libc.free(ctypes.c_void_p(buf))
@@ -375,6 +399,101 @@ def test_tiff_jpeg_segments_under_address_sanitizer(tmp_path):
     assert res["edge/tables_of_2"]["tables"][1] == 2
     for name in ("offset_past_the_end", "no_soi", "count_of_1"):
         assert res[f"cut/{name}"]["many"][0][2] in (-1, -2), name
+
+
+def test_tiff_remainder_under_address_sanitizer(tmp_path):
+    """The paths of ``tiff_ext_decode.cpp`` for the layouts the reference
+    still decoded with Pillow, under ASan and UBSan, every file held in a
+    buffer of exactly its size: the sample layouts (FillOrder 2, 16-bit
+    CMYK, CMYK with extra samples, 32-bit gray, their predictors) parse and
+    decode into an exact buffer; old-style pages assemble their stream
+    (``ik_tiffx_ojpeg_stream``) into an exact buffer; planar, gray +
+    alpha and extra-sample JPEG pages splice, parse and decode every
+    segment (``ik_jpeg4_*`` for two components); what Pillow refuses is -8
+    (a raw YCbCr page's unread bytes counted); hostile old-style pages
+    (tables past the file, Huffman counts past 256, a frame past 65535, a
+    stream of no JPEG, a length past the file) and corrupt ones are
+    refused. The sanitizers report nothing."""
+    from imagekit_tpu_torch.codecs import tiff
+    from tests import test_torch_tiff_remainder as rem
+
+    native = ROOT / "imagekit_tpu_torch" / "codecs" / "native"
+    so = tmp_path / "libtiffx_asan.so"
+    subprocess.run(["g++", "-std=c++17", "-O1", "-g", "-fPIC", "-shared",
+                    "-fsanitize=address,undefined",
+                    "-fno-sanitize-recover=undefined",
+                    *(str(native / f) for f in ("tiff_ext_decode.cpp",
+                                                "jpeg_entropy.cpp",
+                                                "jpeg4_decode.cpp")),
+                    "-o", str(so), "-lz"], check=True, timeout=300)
+
+    def splice(data):
+        info, offs, cnts = tiff.segments(data)
+        tables = data[info.tables_off:info.tables_off + info.tables_len]
+        defs = tiff.tables_defined(tables)
+        return {"prefixes": [p.hex() for p in tiff.prefixes(tables)],
+                "which": [int(tiff._segment_tables(data[o:o + n], defs)[1])
+                          for o, n in zip(offs.tolist(), cnts.tolist())]}
+
+    tables = rem._tables_form()
+
+    def tables_with(tag, value):
+        return rem._patched_first(tables, tag, value)
+
+    dc_at = struct.unpack("<I", tables[tables.index(
+        struct.pack("<HHI", 520, 4, 3)) + 8:][:4])[0]
+    dc0 = struct.unpack("<I", tables[dc_at:dc_at + 4])[0]
+    hostile = {
+        "old_style_qtable_past_the_file": tables_with(519, len(tables) - 10),
+        "old_style_dctable_at_the_end": tables_with(520, len(tables) - 8),
+        "old_style_huffman_counts_past_256": (
+            tables[:dc0] + bytes([255] * 16) + tables[dc0 + 16:]),
+        "old_style_frame_past_65535": rem._tiff(
+            70000, 8, {258: (3, [8] * 3), 259: (3, [6]), 262: (3, [6]),
+                       277: (3, [3]), 519: (4, [8, 8, 8]),
+                       520: (4, [8, 8, 8]), 521: (4, [8, 8, 8])},
+            [bytes(64)]),
+        "old_style_no_jpeg": rem.CORRUPT["old_style_no_jpeg"](),
+        "old_style_jif_of_garbage": rem._ojpeg(jif=(30, None)),
+        **{f"refused_{k}": v() for k, v in rem.REFUSED.items()},
+        "fill_order_2_ccitt_row_overshoots": rem.CORRUPT[
+            "fill_order_2_ccitt_row_overshoots"](),
+    }
+    cases = {f"sample/{k}": {"data": v().hex(), "splice": None}
+             for k, v in rem.SAMPLES.items()}
+    cases.update({f"old/{k}": {"data": v().hex(), "splice": None}
+                  for k, v in rem.OLD_STYLE.items()})
+    cases.update({f"page/{k}": {"data": v().hex(), "splice": splice(v())}
+                  for k, v in rem.JPEG_PAGES.items()})
+    cases.update({f"hostile/{k}": {"data": v.hex(), "splice": None}
+                  for k, v in hostile.items()})
+    asan = subprocess.run(["g++", "-print-file-name=libasan.so"],
+                          capture_output=True, text=True).stdout.strip()
+    env = {**os.environ, "LD_PRELOAD": asan,
+           "ASAN_OPTIONS": "detect_leaks=0:abort_on_error=1",
+           "UBSAN_OPTIONS": "print_stacktrace=1:halt_on_error=1"}
+    proc = subprocess.run([sys.executable, "-c", _TIFFX, str(so)],
+                          input=json.dumps(cases), capture_output=True,
+                          text=True, env=env, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-6000:]
+    assert "Sanitizer" not in proc.stderr, proc.stderr[-6000:]
+    assert "runtime error" not in proc.stderr, proc.stderr[-6000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name, r in res.items():
+        kind = name.split("/")[0]
+        if kind == "sample":
+            assert r["parse"] == 0 and r["decode"] == 0, (name, r)
+        elif kind == "old":
+            assert r["parse"] == r["rc"] == 0 and r["stream"] > 0, (name, r)
+        elif kind == "page":
+            assert r["many"] == [[0] * len(r["ranges"])] * 2, (name, r)
+        elif name.startswith("hostile/refused_"):
+            assert r["parse"] == -8, (name, r)
+            assert (r["unread"] >= 0) == ("ycbcr_uncompressed" in name), (
+                name, r)
+        else:
+            assert min(r["parse"], r["stream"], r.get("decode", 0)) < 0, (
+                name, r)
 
 
 if __name__ == "__main__":

@@ -63,6 +63,7 @@ from imagekit_tpu_torch.ops import dct, weights
 from imagekit_tpu_torch.serving.batcher import BatchedEngine as PortEngine
 from imagekit_tpu_torch.serving.metrics import Metrics
 from tests.conftest import make_test_image
+from tests.test_torch_jxc_slice import _ref_native_lib
 from tests.test_torch_pillow_sources import (
     LAYOUTS,
     MODES,
@@ -82,6 +83,17 @@ from tests.test_torch_webp_slice import _CannedFetcher
 
 ROOT = Path(__file__).resolve().parents[1]
 FIXTURES = ROOT / "tests" / "fixtures"
+
+
+@pytest.fixture(autouse=True)
+def _reference_library(monkeypatch):
+    """The reference's native library loaded before any test runs its
+    decoders: it is built in place with no lock, and a worker whose first
+    load meets another's half-written build would decode through Pillow
+    alone (``_ref_native_lib`` retries the load)."""
+    _ref_native_lib(monkeypatch)
+
+
 MAX_SHARE = 1e-3
 VALIDATION = b"Invalid argument: Unable to decode image for validation"
 
@@ -497,38 +509,30 @@ def test_bilevel_tiff_without_bits_per_sample_keeps_its_parity_trap():
         assert "(-1)" in str(e.value)
 
 
-def _extra_samples_cmyk():
-    px = np.zeros((H, W, 5), np.uint8)
-    return _tiff(W, H, {258: (3, [8] * 5), 259: (3, [1]), 262: (3, [5]),
-                        277: (3, [5]), 338: (3, [0])}, [px.tobytes()])
-
-
-def _ojpeg() -> bytes:
-    """Old-style JPEG (compression 6): one whole JPEG in the strip and
-    behind JPEGInterchangeFormat (513, 514)."""
-    whole = _save(Image.fromarray(make_test_image(48, 32)), "JPEG")
-    return _tiff(48, 32, {258: (3, [8] * 3), 259: (3, [6]), 262: (3, [6]),
-                          277: (3, [3]), 278: (3, [32]), 513: (4, [8]),
-                          514: (4, [len(whole)])}, [whole])
-
-
-def _planar_jpeg() -> bytes:
-    """PlanarConfiguration 2 with JPEG: each channel a one-component JPEG
-    carrying its own tables."""
-    img = make_test_image(48, 32)
-    return _tiff(48, 32, {258: (3, [8] * 3), 259: (3, [7]), 262: (3, [2]),
-                          277: (3, [3]), 278: (3, [32]), 284: (3, [2])},
-                 [_save(Image.fromarray(img[..., c]), "JPEG")
-                  for c in range(3)])
+def _fill_order_2():
+    """A raw bilevel TIFF in FillOrder 2: decoded by the port's own decoder
+    (``tests/test_torch_tiff_remainder.py`` holds its pixels to Pillow's)."""
+    return _tiff(W, H, {258: (3, [1]), 259: (3, [1]), 262: (3, [1]),
+                        266: (3, [2])}, [_pack(_values(1), 1)])
 
 
 STILL_501 = {
-    "tiff_fill_order_2": lambda: _tiff(
-        W, H, {258: (3, [1]), 259: (3, [1]), 262: (3, [1]), 266: (3, [2])},
-        [_pack(_values(1), 1)]),
-    "tiff_cmyk_5_samples": _extra_samples_cmyk,
-    "tiff_old_style_jpeg": _ojpeg,
-    "tiff_planar_jpeg": _planar_jpeg,
+    # CIELab: Pillow's own LAB -> RGB, not a conversion the port pins
+    "tiff_cielab": lambda: _tiff(W, H, {258: (3, [8] * 3), 259: (3, [1]),
+                                        262: (3, [8]), 277: (3, [3])},
+                                 [_values(8, shape=(H, W, 3)).astype(
+                                     np.uint8).tobytes()]),
+    # YCbCr compressed without JPEG: libtiff's RGBA interface decodes it
+    "tiff_ycbcr_deflate": lambda: _tiff(
+        W, H, {258: (3, [8] * 3), 259: (3, [8]), 262: (3, [6]),
+               277: (3, [3]), 530: (3, [1, 1])},
+        [zlib.compress(_values(8, shape=(H, W, 3)).astype(
+            np.uint8).tobytes())]),
+    # 16-bit CMYK in planes: Pillow reads each plane as 8-bit samples
+    "tiff_cmyk16_planar": lambda: _tiff(
+        W, H, {258: (3, [16] * 4), 259: (3, [1]), 262: (3, [5]),
+               277: (3, [4]), 284: (3, [2])},
+        [_values(16, seed=c).astype("<u2").tobytes() for c in range(4)]),
 }
 
 
@@ -536,7 +540,9 @@ STILL_501 = {
 def test_layouts_neither_decoder_takes_stay_not_ported(name):
     """Pillow reads them (the reference serves them); the port's decoders
     both refuse them as unsupported, so the port answers 501 naming queue
-    1 item 9, and ROADMAP lists them."""
+    1 item 9, and ROADMAP lists them. (FillOrder 2, CMYK with an extra
+    sample, old-style and planar JPEG, once here, are decoded now:
+    ``tests/test_torch_tiff_remainder.py``.)"""
     data = STILL_501[name]()
     ref_codecs.decode_bytes(data)
     with pytest.raises(NotPortedError, match="queue 1 item 9"):
@@ -713,7 +719,8 @@ _SANITIZED = textwrap.dedent("""
     cases = json.loads(sys.stdin.read())
 
     class Info(ctypes.Structure):
-        _fields_ = [(n, ctypes.c_int32) for n in ("w", "h", "c", "layout")]
+        _fields_ = [(n, ctypes.c_int32) for n in ("w", "h", "c", "layout",
+                                                  "unread")]
 
     rcs = {}
     for name, hexdata in cases.items():
@@ -1088,8 +1095,11 @@ def test_fetch_validates_the_new_layouts_by_header():
     for name in ("bmp_alphabitfields", "bmp_2bit", "bmp_unknown_masks"):
         with pytest.raises(InvalidArgumentError, match="validation"):
             asyncio.run(run(REFUSED[name]()))
+    # FillOrder 2, once a 501, is validated by its header as the others
+    data = _fill_order_2()
+    assert asyncio.run(run(data))[0] == data
     # a layout neither decoder takes is the engine's 501
-    data = STILL_501["tiff_fill_order_2"]()
+    data = STILL_501["tiff_cielab"]()
     assert asyncio.run(run(data))[0] == data
 
 

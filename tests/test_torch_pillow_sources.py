@@ -75,6 +75,15 @@ SECRET = "test-secret-key"
 MAX_SHARE = 1e-3
 
 
+@pytest.fixture(autouse=True)
+def _reference_library(monkeypatch):
+    """The reference's native library loaded before any test runs its
+    decoders (``_ref_native_lib``: it is built in place with no lock, and a
+    worker whose first load meets another's half-written build would
+    decode through Pillow alone)."""
+    _ref_native_lib(monkeypatch)
+
+
 def psnr(a, b):
     d = np.asarray(a, np.float64) - np.asarray(b, np.float64)
     return 10 * np.log10(255.0 ** 2 / max((d ** 2).mean(), 1e-12))

@@ -48,6 +48,15 @@ from tests.test_torch_cuda import zlib_png
 from tests.test_torch_resize import _inputs, assert_band
 
 
+@pytest.fixture(autouse=True)
+def _reference_library(monkeypatch):
+    """The reference's native library loaded before any test runs its
+    decoders (``_ref_native_lib``: it is built in place with no lock)."""
+    from tests.test_torch_jxc_slice import _ref_native_lib
+
+    _ref_native_lib(monkeypatch)
+
+
 @pytest.mark.parametrize("pallas", ["", "interpret"])
 def test_rgbyuv_head_matches_jax(monkeypatch, pallas):
     imgs, wv, wh, vidx, hidx = _inputs(seed=4)

@@ -47,6 +47,13 @@ from tests.test_torch_resize import _stacks, assert_band
 from tests.test_vp8l import _lossless
 
 
+@pytest.fixture(autouse=True)
+def _reference_library(monkeypatch):
+    """The reference's native library loaded before any test runs its
+    decoders (``_ref_native_lib``: it is built in place with no lock)."""
+    _ref_native_lib(monkeypatch)
+
+
 def _diff(got, want, what):
     got, want = np.asarray(got), np.asarray(want)
     assert_band(got, want, what)

@@ -42,6 +42,15 @@ from tests.conftest import encode_jpeg_pil, encode_png, make_test_image
 MAX_SHARE = 1e-3
 
 
+@pytest.fixture(autouse=True)
+def _reference_library(monkeypatch):
+    """The reference's native library loaded before any test runs its
+    decoders (``_ref_native_lib``: it is built in place with no lock)."""
+    from tests.test_torch_jxc_slice import _ref_native_lib
+
+    _ref_native_lib(monkeypatch)
+
+
 def _cfg(max_batch=8, delay_ms=5.0):
     return ImageKitConfig(
         secret="s", batch=BatchConfig(max_batch=max_batch, max_delay_ms=delay_ms)

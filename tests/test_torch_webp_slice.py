@@ -56,12 +56,21 @@ from tests.test_torch_jxc_slice import (
     _capture,
     _cfg,
     _drive,
+    _ref_native_lib,
     jpeg_sig,
     run_engines,
 )
 from tests.test_torch_resize import assert_band
 from tests.test_vp8_decode import _libwebp, _photo
 from tests.test_vp8l import _images, _lossless
+
+
+@pytest.fixture(autouse=True)
+def _reference_library(monkeypatch):
+    """The reference's native library loaded before any test runs its
+    decoders (``_ref_native_lib``: it is built in place with no lock)."""
+    _ref_native_lib(monkeypatch)
+
 
 # -- the decoders ----------------------------------------------------------------
 
