@@ -207,7 +207,22 @@ decoded with Pillow: old-style, planar and extra-sample JPEG pages,
     the sample layouts, one K2 launch a batch; requests/s, p50/p99, host
     stages, idle share. K3 at the old-style page's replication stacks
     against its plain version (max |d| 0), timed, with an einsum yardstick
-    and the bound.
+    and the bound;
+23. the DDS and JPEG layouts the reference still decoded with Pillow,
+    written here without Pillow: DDS textures of the sizes games and tools
+    ship (2048x2048 BC7 in mode 6 fitted to a picture, BC6H in mode 11
+    and a signed BC5 normal map; 1024x1024 BC4, R8G8B8A8 and an 8-bit
+    palette), each decode checked exactly against the numpy model of its
+    blocks; 1080p JPEGs from ``tests/fixtures/jpeg_writer.py`` (4:1:1, Cb
+    1x1 with Cr 2x1, 4:2:0 and 4:4:4 in one scan a component), each checked
+    against its picture and against the host's plain decode; counts reset
+    before each round, each round run once, traced: the RGB and the RGBA
+    DDS layouts -> w=400 WebP (one K2 launch a batch, three or four
+    channels), the JPEGs -> w=400 WebP and -> w=400 JPEG (one K3 launch a
+    request, one K2 a batch, no K1): requests/s, p50/p99, host stages, idle
+    share. K3 at the 4:1:1 page's identity and replication stacks against
+    its plain version (max |d| 0), timed, with an einsum yardstick and the
+    bound.
 
 Device times are the kernels' own, summed by ``torch.profiler`` over 20
 calls (the host's launch cost excluded); the bound is the larger of the
@@ -3279,7 +3294,7 @@ def _bc3_alpha(alpha: np.ndarray):
 
 def make_dds(img: np.ndarray, fourcc: bytes):
     """DXT1 or DXT5 DDS without Pillow (sides multiples of 4): the header
-    with ``struct``, the blocks from :func:`_bc1_colour` and
+    from :func:`dds_file`, the blocks from :func:`_bc1_colour` and
     :func:`_bc3_alpha`. Returns (the file, the RGBA pixels a decoder must
     give)."""
     h, w = img.shape[:2]
@@ -3290,12 +3305,9 @@ def make_dds(img: np.ndarray, fourcc: bytes):
     else:
         abytes, alpha = _bc3_alpha(blocks[..., 3])
         data = np.concatenate([abytes, colour], axis=1)
-    header = (b"DDS " + struct.pack("<7I", 124, 0x81007, h, w, data.nbytes,
-                                    0, 0) + bytes(44)
-              + struct.pack("<4I", 32, 0x4, struct.unpack("<I", fourcc)[0], 0)
-              + bytes(16) + struct.pack("<5I", 0x1000, 0, 0, 0, 0))
     want = _unblocks4(np.concatenate([rgb, alpha[..., None]], axis=2), h, w)
-    return header + data.tobytes(), want.astype(np.uint8)
+    return (dds_file(w, h, data.tobytes(), fourcc=fourcc),
+            want.astype(np.uint8))
 
 
 def make_ico(big: np.ndarray, small: np.ndarray, with_big: bool = True):
@@ -4327,6 +4339,319 @@ def phase_tiff_remainder(card: str) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the DDS and JPEG layouts the reference still decoded with Pillow
+# ---------------------------------------------------------------------------
+
+JPEG_WRITER = os.path.join(ROOT, "tests", "fixtures", "jpeg_writer.py")
+#: the 1080p JPEG layouts of the phase: (h, v) factors of Y, Cb, Cr, and
+#: whether each component has a scan of its own
+JPEG_LAYOUTS = {
+    "4:1:1": (((4, 1), (1, 1), (1, 1)), True),
+    "Cb 1x1, Cr 2x1": (((2, 2), (1, 1), (2, 1)), True),
+    "4:2:0, a scan a component": (((2, 2), (1, 1), (1, 1)), False),
+    "4:4:4, a scan a component": (((1, 1), (1, 1), (1, 1)), False),
+}
+BC_WEIGHTS4 = np.array([0, 4, 9, 13, 17, 21, 26, 30, 34, 38, 43, 47, 51, 55,
+                        60, 64])
+
+
+def jpeg_writer():
+    """``tests/fixtures/jpeg_writer.py``, loaded by its path (numpy only)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("jpeg_writer", JPEG_WRITER)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def dds_file(w: int, h: int, body: bytes, fourcc: bytes = b"DX10",
+             dxgi: int = 0, pfflags: int = 0x4, bitcount: int = 0,
+             extra: bytes = b"") -> bytes:
+    """A DDS header (and a DX10 one for ``fourcc`` DX10) before ``extra``
+    (a palette) and the body."""
+    head = (b"DDS " + struct.pack("<7I", 124, 0x81007, h, w, len(body), 0, 0)
+            + bytes(44) + struct.pack("<4I", 32, pfflags,
+                                      struct.unpack("<I", fourcc)[0],
+                                      bitcount)
+            + bytes(16) + struct.pack("<5I", 0x1000, 0, 0, 0, 0))
+    if fourcc == b"DX10":
+        head += struct.pack("<5I", dxgi, 3, 0, 1, 0)
+    return head + extra + body
+
+
+def _pack_bits(fields, n: int) -> np.ndarray:
+    """(value array, bits) pairs of N blocks, LSB first -> (N, 16) u8."""
+    lo = np.zeros(n, np.uint64)
+    hi = np.zeros(n, np.uint64)
+    pos = 0
+    for val, bits in fields:
+        val = np.asarray(val, np.uint64) & np.uint64((1 << bits) - 1)
+        for b in range(bits):
+            bit = (val >> np.uint64(b)) & np.uint64(1)
+            if pos < 64:
+                lo |= bit << np.uint64(pos)
+            else:
+                hi |= bit << np.uint64(pos - 64)
+            pos += 1
+    return np.concatenate([lo.astype("<u8").view(np.uint8).reshape(n, 8),
+                           hi.astype("<u8").view(np.uint8).reshape(n, 8)], 1)
+
+
+def _indices4(target, e0, e1):
+    """4-bit BC6H / BC7 indices of each texel: the weight (of
+    BC_WEIGHTS4 / 64) nearest its projection on the line e0 -> e1; texel 0's
+    index must be below 8, else the endpoints swap. target (N, 16, C), e0
+    and e1 (N, C) -> (indices (N, 16), e0, e1)."""
+    d = (e1 - e0).astype(np.float64)
+    t = ((target - e0[:, None]) * d[:, None]).sum(-1) / np.maximum(
+        (d * d).sum(-1), 1e-9)[:, None]
+    idx = np.abs(t[..., None] * 64 - BC_WEIGHTS4).argmin(-1)
+    swap = idx[:, 0] >= 8
+    idx[swap] = 15 - idx[swap]
+    e0, e1 = np.where(swap[:, None], e1, e0), np.where(swap[:, None], e0, e1)
+    return idx, e0, e1
+
+
+def make_bc7(img: np.ndarray):
+    """An RGBA BC7 texture in mode 6 (one subset, 7-bit endpoints and a
+    p-bit each, 4-bit indices): each block's channel-wise min (p-bit 0) and
+    max (p-bit 1) as its endpoints. Returns (the blocks, what a decoder
+    gives)."""
+    h, w = img.shape[:2]
+    px = _blocks4(img).astype(np.int64)
+    lo, hi = px.min(1) >> 1, np.minimum(px.max(1) >> 1, 127)
+    e0, e1 = lo << 1, (hi << 1) | 1
+    idx, e0, e1 = _indices4(px, e0, e1)
+    p0, p1 = e0[:, 0] & 1, e1[:, 0] & 1
+    n = len(px)
+    fields = [(np.full(n, 1 << 6), 7)]
+    for c in range(4):
+        fields += [(e0[:, c] >> 1, 7), (e1[:, c] >> 1, 7)]
+    fields += [(p0, 1), (p1, 1), (idx[:, 0], 3)]
+    fields += [(idx[:, i], 4) for i in range(1, 16)]
+    wgt = BC_WEIGHTS4[idx][..., None]
+    out = ((64 - wgt) * e0[:, None] + wgt * e1[:, None] + 32) >> 6
+    return (_pack_bits(fields, n).tobytes(),
+            _unblocks4(out.astype(np.uint8), h, w))
+
+
+def _bc6_value(x: np.ndarray) -> np.ndarray:
+    """What an unsigned BC6H texel decodes to for an interpolated
+    unquantised value x: x * 31 >> 6 as a half float, clipped to [0, 1],
+    times 255 truncated."""
+    half = ((x * 31) >> 6).astype(np.uint16).view(np.float16)
+    f = np.clip(half.astype(np.float32), 0, 1)
+    return (f * np.float32(255)).astype(np.uint8)
+
+
+def make_bc6h(img: np.ndarray):
+    """An unsigned BC6H texture in mode 11 (one region, 10-bit endpoints,
+    4-bit indices): each channel's byte v mapped to the least 10-bit
+    endpoint that decodes to at least v, each block's channel-wise min and
+    max of those as its endpoints. Returns (the blocks, what a decoder
+    gives)."""
+    h, w = img.shape[:2]
+    x = np.arange(1023, dtype=np.int64)
+    unq = np.where(x == 0, 0, ((x << 15) + 0x4000) >> 9)
+    table = np.searchsorted(_bc6_value(unq), np.arange(256))
+    px = table[_blocks4(img)]
+    e0, e1 = px.min(1), px.max(1)
+    idx, e0, e1 = _indices4(px, e0, e1)
+    n = len(px)
+    fields = [(np.full(n, 3), 5)]
+    fields += [(e0[:, c], 10) for c in range(3)]
+    fields += [(e1[:, c], 10) for c in range(3)]
+    fields += [(idx[:, 0], 3)] + [(idx[:, i], 4) for i in range(1, 16)]
+
+    def unquantise(e):
+        return np.where(e == 0, 0, np.where(e == 1023, 0xFFFF,
+                                            ((e << 15) + 0x4000) >> 9))
+
+    wgt = BC_WEIGHTS4[idx][..., None]
+    v = ((64 - wgt) * unquantise(e0)[:, None]
+         + wgt * unquantise(e1)[:, None]) >> 6
+    return _pack_bits(fields, n).tobytes(), _unblocks4(_bc6_value(v), h, w)
+
+
+def make_bc4(plane: np.ndarray, signed: bool = False):
+    """BC4 blocks of one u8 plane (:func:`_bc3_alpha`); ``signed`` writes
+    the endpoints as signed BC5 reads them, each byte its value minus 128.
+    Returns (the (N, 8) blocks, the decoded plane)."""
+    h, w = plane.shape
+    blocks, dec = _bc3_alpha(_blocks4(plane[..., None])[..., 0])
+    if signed:
+        blocks[:, :2] ^= 0x80
+    return blocks, _unblocks4(dec[..., None].astype(np.uint8), h, w)[..., 0]
+
+
+def normal_map(seed: int, n: int = 2048) -> np.ndarray:
+    """A tangent-space normal map's X and Y of a seeded height field, as
+    signed BC5 stores them plus 128: (n, n, 2) u8 in 1..255."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:n, 0:n].astype(np.float32)
+    z = (np.sin(x / 37 + rng.random() * 6) * np.cos(y / 53)
+         + 0.3 * np.sin((x + 2 * y) / 11))
+    gy, gx = np.gradient(z * 8)
+    norm = np.sqrt(gx * gx + gy * gy + 1)
+    return np.stack([np.rint(127 * -gx / norm) + 128,
+                     np.rint(127 * -gy / norm) + 128], -1).astype(np.uint8)
+
+
+def make_palette(img: np.ndarray):
+    """An 8-bit palette of a 6 x 7 x 6 colour cube (RGBA, the rest zero)
+    and each pixel's nearest entry. Returns (the palette, the indices, what
+    a decoder gives)."""
+    levels = (6, 7, 6)
+    q = [np.rint(img[..., c].astype(np.float32) * (n - 1) / 255).astype(int)
+         for c, n in enumerate(levels)]
+    index = (q[0] * 7 + q[1]) * 6 + q[2]
+    r, g, b = np.meshgrid(*(np.rint(np.arange(n) * 255 / (n - 1))
+                            for n in levels), indexing="ij")
+    pal = np.zeros((256, 4), np.uint8)
+    pal[:252] = np.stack([r.ravel(), g.ravel(), b.ravel(),
+                          np.full(252, 255)], -1)
+    return pal, index.astype(np.uint8), pal[index, :3]
+
+
+def make_dds_textures():
+    """The phase's DDS files and the pixels each must decode to."""
+    out = {}
+    body, want = make_bc7(ramp_alpha(synth_image(910, 2048, 2048,
+                                                 noise=False)))
+    out["2048x2048 BC7 (mode 6)"] = (dds_file(2048, 2048, body, dxgi=98),
+                                     want)
+    body, want = make_bc6h(synth_image(920, 2048, 2048, noise=False))
+    out["2048x2048 BC6H (UF16, mode 11)"] = (
+        dds_file(2048, 2048, body, dxgi=95), want)
+    nm = normal_map(930)
+    bx, dx = make_bc4(nm[..., 0], signed=True)
+    by, dy = make_bc4(nm[..., 1], signed=True)
+    out["2048x2048 signed BC5 normal map"] = (
+        dds_file(2048, 2048, np.concatenate([bx, by], 1).tobytes(),
+                 fourcc=b"BC5S"),
+        np.stack([dx, dy, np.full_like(dx, 128)], -1))
+    small = synth_image(940, 1024, 1024, noise=False)
+    blocks, dec = make_bc4(small[..., 1])
+    out["1024x1024 BC4"] = (dds_file(1024, 1024, blocks.tobytes(),
+                                     fourcc=b"BC4U"),
+                            np.repeat(dec[..., None], 3, 2))
+    raw = ramp_alpha(small)
+    out["1024x1024 R8G8B8A8"] = (dds_file(1024, 1024, raw.tobytes(),
+                                          dxgi=28), raw)
+    pal, index, want = make_palette(small)
+    out["1024x1024 8-bit palette"] = (
+        dds_file(1024, 1024, index.tobytes(), fourcc=b"\0\0\0\0",
+                 pfflags=0x20, bitcount=8, extra=pal.tobytes()), want)
+    return out
+
+
+def make_jpeg_layouts(writer) -> dict:
+    """The phase's 1080p JPEGs (q80, from :data:`JPEG_LAYOUTS`) and their
+    picture."""
+    picture = synth_image(950, noise=False)
+    return {name: writer.encode(picture, 80, samp, interleaved=inter)
+            for name, (samp, inter) in JPEG_LAYOUTS.items()}, picture
+
+
+def phase_dds_jpeg_layouts(card: str) -> dict:
+    """The DDS and JPEG layouts the reference still decoded with Pillow,
+    through one engine: DDS textures decode on the codec pool
+    (``codecs/dds.py``, ``native/raster_decode.cpp`` and
+    ``bcn_ext_decode.cpp``) and take the batched RGB head (K2, three or
+    four channels); JPEGs in 4:1:1, with Cb and Cr sampled differently or
+    in one scan a component are entropy-decoded on the pool (the pinned
+    decoder, or the port's ``jpeg4_decode.cpp`` for the non-interleaved
+    ones), then on a dispatch thread the IDCT and ONE K3 launch with each
+    component's own stacks, then the RGB head. Each decode is checked
+    first: the DDS ones exactly against the numpy model of their blocks,
+    the JPEGs against their picture and the host's plain decode. Then the
+    rounds (``drive_rounds``), and K3 at the 4:1:1 page's identity and
+    replication stacks against its plain version (exact: weights of 1 on
+    u8)."""
+    from imagekit_tpu_torch.codecs import decode_bytes, jpeg
+    from imagekit_tpu_torch.config import ImageFormat
+    from imagekit_tpu_torch.ops import dct
+
+    W, J = ImageFormat.webp, ImageFormat.jpeg
+    t0 = time.perf_counter()
+    textures = make_dds_textures()
+    writer = jpeg_writer()
+    layouts, picture = make_jpeg_layouts(writer)
+    log(f"    made {len(textures)} DDS textures ("
+        + ", ".join(f"{k} {len(d) / 1e6:.2f} MB"
+                    for k, (d, _) in textures.items())
+        + f") and {len(layouts)} 1080p q80 JPEGs ("
+        + ", ".join(f"{k} {len(d) / 1e3:.0f} kB" for k, d in layouts.items())
+        + f") in {time.perf_counter() - t0:.2f} s")
+    steps = {"sources": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    checks = []
+    for name, (data, want) in textures.items():
+        got = decode_bytes(data, device="cuda")[0]
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise RuntimeError(f"the {name} DDS decode is not its blocks' "
+                               f"model")
+        checks.append(f"{name} exact")
+    for name, data in layouts.items():
+        got = decode_bytes(data, device="cuda")[0]
+        p = psnr(got, picture)
+        diff = np.abs(got.astype(int) - decode_bytes(
+            data, device="cpu")[0].astype(int))
+        checks.append(f"{name} {p:.2f} dB, vs the host's plain decode "
+                      f"max|d|={diff.max()} on {(diff > 0).mean():.3e}")
+        if got.shape != picture.shape or p < 30.0:
+            raise RuntimeError(f"the {name} JPEG decode is not its picture "
+                               f"(PSNR {p:.2f} dB)")
+        if diff.max() > 2 or (diff > 0).mean() > MAX_SHARE:
+            raise RuntimeError(f"the {name} JPEG decode on the card is not "
+                               f"the plain one on the host's CPU")
+    log(f"    decodes: {'; '.join(checks)}")
+    steps["decode checks"] = time.perf_counter() - t0
+
+    names = list(textures)
+    rgb_dds = [textures[k][0] for k in names if "BC7" not in k
+               and "R8G8B8A8" not in k]
+    rgba_dds = [textures[k][0] for k in names if "BC7" in k
+                or "R8G8B8A8" in k]
+    out = (400, 400)
+    head = {"k3": 1, "k2": "batch"}
+    rounds = [
+        ("DDS BC6H, signed BC5, BC4, palette -> w=400 WebP", rgb_dds, 16,
+         400, W, out, {"k2": "batch"}),
+        ("DDS BC7, R8G8B8A8 -> w=400 WebP", rgba_dds, 16, 400, W, out,
+         {"k2_rgba": "batch"}),
+        ("1080p JPEG 4:1:1, Cb 1x1 / Cr 2x1, 4:2:0 and 4:4:4 a scan a "
+         "component -> w=400 WebP", list(layouts.values()), 16, 400, W,
+         (400, 225), head),
+        ("1080p JPEG 4:1:1, Cb 1x1 / Cr 2x1, 4:2:0 and 4:4:4 a scan a "
+         "component -> w=400 JPEG", list(layouts.values()), 16, 400, J,
+         (400, 225), head),
+    ]
+    summary = drive_rounds(rounds, card, steps)
+    case, steps["K3 at the 4:1:1 page"] = timed(
+        lambda: k3_planes_case(*dct.sampled_inputs(
+            jpeg.decode_to_coefficients(layouts["4:1:1"]),
+            torch.device("cuda")), "4:1:1 page"))
+    if case["max_abs_err"] != 0:
+        raise RuntimeError(f"K3 at the identity and replication stacks is "
+                           f"not exact: max|d|={case['max_abs_err']}")
+    log(f"  K3 at the 1080p 4:1:1 page ({case['planes']} -> 1080x1920, "
+        f"identity luma and replication chroma stacks, B=1, one launch) vs "
+        f"plain: max|d|={case['max_abs_err']}; device time per call K3 "
+        f"{case['ms']:.4f} ms vs plain {case['plain_ms']:.4f} ms vs einsum "
+        f"{case['library_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
+        f"({case['bound_by']}), K3 at {case['bound_ms'] / case['ms']:.1%} of "
+        f"it [{card}]")
+    summary["k3_page"] = case
+    log("    seconds a step (a round's include its warm-up and trace): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in steps.items()))
+    summary["step_s"] = steps
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4481,6 +4806,12 @@ def main() -> int:
           "a float32 raster and a FillOrder 2 G4 page, the RGB head on K2, "
           "BatchedEngine(device='cuda').transform")
     remainder = phase_tiff_remainder(card)
+
+    begin("[23] the DDS and JPEG layouts the reference still decoded with "
+          "Pillow: BC4, signed BC5, BC6H, BC7, R8G8B8A8 and palette DDS (K2),"
+          " 4:1:1, mixed-chroma and one-scan-a-component JPEGs (K3, then K2),"
+          " BatchedEngine(device='cuda').transform")
+    layouts23 = phase_dds_jpeg_layouts(card)
     end_phase()
     log("    seconds a phase (heading to heading): " + ", ".join(
         f"[{k}] {v:.2f}" for k, v in PHASE_S.items()))
@@ -4511,6 +4842,7 @@ def main() -> int:
         "pillow_fallback_launches": fallbacks["k2_launches"],
         "tiff_jpeg_launches": tiffj["k2_launches"],
         "tiff_remainder_launches": remainder["k2_launches"],
+        "dds_jpeg_layout_launches": layouts23["k2_launches"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
@@ -4565,6 +4897,13 @@ def main() -> int:
             key: remainder["k3_page"][key] for key in (
                 "max_abs_err", "share_differ", "ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms")},
+        # the JPEG layouts of phase 23: one launch a request, and K3 at the
+        # 4:1:1 page's identity and replication stacks
+        "jpeg_layout_launches": layouts23["k3_launches"],
+        "pixel_decode_411_page": {
+            key: layouts23["k3_page"][key] for key in (
+                "max_abs_err", "share_differ", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")},
     }, {
         "name": "resize_planes3_f32 (K4, Y + Cb + Cr in one launch; u8 planes "
                 "in, f32 out on the k=8 JPEG -> WebP heads)",
@@ -4615,6 +4954,7 @@ def main() -> int:
         "avif_launches": avif_n["resample_bucketed_flat"],
         "pillow_source_launches": pillow["k2_rgba_launches"],
         "pillow_fallback_launches": fallbacks["k2_rgba_launches"],
+        "dds_launches": layouts23["k2_rgba_launches"],
         **{key: k2_rgba[key] for key in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by", "library_ms")},
     }, {
@@ -4657,6 +4997,8 @@ def main() -> int:
         raise RuntimeError("a JPEG TIFF round launched no K2 or K3")
     if min(remainder[f"{k}_launches"] for k in ("k2", "k3")) <= 0:
         raise RuntimeError("a round of phase 22 launched no K2 or K3")
+    if min(layouts23[f"{k}_launches"] for k in ("k2", "k2_rgba", "k3")) <= 0:
+        raise RuntimeError("a round of phase 23 launched no K2 or K3")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -2,22 +2,28 @@
 
 The reference decodes DirectDraw Surfaces with Pillow
 (``imagekit_tpu/codecs/pil_backend.py``, ``PIL/DdsImagePlugin.py``); this
-module gives the same pixels for the layouts Pillow writes:
+module gives the same pixels for every layout Pillow reads:
 
 - uncompressed RGB and RGBA by their bit masks (each channel
   ``int(v / max * 255)``; like Pillow's reader, a raster cut short reads as
   zeros), 8-bit luminance and 16-bit luminance + alpha;
-- DXT1, DXT3 and DXT5 (FourCC, or BC1/BC2/BC3 in a DX10 header) and BC5
-  (``BC5U``/``ATI2``, or a DX10 header), decoded block by block in
-  ``native/raster_decode.cpp`` (``ik_bcn_decode``), the blocks past the
-  right and bottom edges cut.
+- an 8-bit palette (the 1024-byte RGBA palette after the header, then one
+  index a pixel; RGB, since the palette's alpha is no ``transparency``
+  entry) and a DX10 R8G8B8A8 raster (the bytes as they are);
+- DXT1, DXT3 and DXT5 (FourCC, or BC1/BC2/BC3 in a DX10 header), BC4
+  (``BC4U``/``ATI1``, or a DX10 header; gray, as RGB), BC5 (``BC5U``/
+  ``ATI2``, or a DX10 header), signed BC5 (``BC5S``, or DXGI 84), BC6H
+  unsigned and signed and BC7, decoded block by block in
+  ``native/raster_decode.cpp`` and ``native/bcn_ext_decode.cpp``
+  (``ik_bcn_decode``), the blocks past the right and bottom edges cut.
 
-The output is Pillow's mode after ``pil_backend.decode``: RGBA for RGBA,
-luminance + alpha and DXT1/3/5 (alpha kept), RGB for the rest. The
-layouts Pillow reads but cannot write, so that no fixture holds them
-(palette, BC4, signed BC5, BC6H, BC7, DX10 R8G8B8A8), raise
-:class:`~imagekit_tpu_torch.errors.NotPortedError` (ROADMAP queue 1 item
-9); what Pillow does not read is a
+Of a texture with mipmaps or a DX10 array, the first surface is read, as
+Pillow reads it; the sRGB formats' pixels are the same as the others'. A
+body cut short is Pillow's "image file is truncated (n bytes not
+processed)", n the bytes of its last incomplete block or row. The output
+is Pillow's mode after ``pil_backend.decode``: RGBA for RGBA, luminance +
+alpha, DXT1/3/5, BC7 and R8G8B8A8 (alpha kept), RGB for the rest. What
+Pillow does not read is a
 :class:`~imagekit_tpu_torch.errors.TransformError`. The decompression-bomb
 ceiling is :data:`png.MAX_PIXELS`, after the header.
 """
@@ -32,25 +38,30 @@ from typing import Tuple
 import numpy as np
 
 from imagekit_tpu_torch.codecs.png import MAX_PIXELS
-from imagekit_tpu_torch.errors import NotPortedError, TransformError
+from imagekit_tpu_torch.errors import TransformError
 
 _RGB, _ALPHAPIXELS, _FOURCC, _PALETTE, _LUMINANCE = (
     0x40, 0x1, 0x4, 0x20, 0x20000)
-#: FourCC -> BCn kind of ``ik_bcn_decode``
-_FOURCC_BCN = {b"DXT1": 1, b"DXT3": 2, b"DXT5": 3, b"BC5U": 5, b"ATI2": 5}
-#: DX10 DXGI format -> BCn kind (the unsigned BC1/2/3/5 Pillow reads)
-_DXGI_BCN = {70: 1, 71: 1, 73: 2, 74: 2, 76: 3, 77: 3, 82: 5, 83: 5}
-_FOURCC_NOT_PORTED = {b"BC4U": "BC4", b"ATI1": "BC4", b"BC5S": "signed BC5"}
-_DXGI_NOT_PORTED = {79: "BC4", 80: "BC4", 84: "signed BC5", 95: "BC6H",
-                    96: "BC6H", 97: "BC7", 98: "BC7", 99: "BC7",
-                    27: "R8G8B8A8", 28: "R8G8B8A8", 29: "R8G8B8A8"}
+#: the BCn kinds of ``ik_bcn_decode``: kind -> (block bytes, channels)
+_BCN = {1: (8, 4), 2: (16, 4), 3: (16, 4), 4: (8, 3), 5: (16, 3),
+        6: (16, 3), 7: (16, 3), 8: (16, 3), 9: (16, 4)}
+#: FourCC -> BCn kind
+_FOURCC_BCN = {b"DXT1": 1, b"DXT3": 2, b"DXT5": 3, b"BC4U": 4, b"ATI1": 4,
+               b"BC5U": 5, b"ATI2": 5, b"BC5S": 6}
+#: DX10 DXGI format -> BCn kind: BC1-BC3 (typeless, unorm), BC4, BC5
+#: (typeless, unorm), signed BC5, BC6H (UF16, SF16), BC7 (typeless,
+#: unorm, sRGB)
+_DXGI_BCN = {70: 1, 71: 1, 73: 2, 74: 2, 76: 3, 77: 3, 79: 4, 80: 4,
+             82: 5, 83: 5, 84: 6, 95: 7, 96: 8, 97: 9, 98: 9, 99: 9}
+#: DX10 R8G8B8A8 (typeless, unorm, sRGB)
+_DXGI_RGBA8 = (27, 28, 29)
 
 
 @dataclass
 class _Layout:
     width: int
     height: int
-    kind: str          # "masks", "L", "LA" or "bcn"
+    kind: str          # "masks", "L", "LA", "P", "RGBA" or "bcn"
     offset: int        # where the raster starts
     channels: int      # of the decoded image
     bitcount: int = 0
@@ -58,9 +69,9 @@ class _Layout:
     bcn: int = 0
 
 
-def _not_ported(what: str):
-    return NotPortedError(f"a DDS in {what} (a layout Pillow reads but no "
-                          f"fixture here holds)", "queue 1 item 9")
+def _truncated(left: int) -> TransformError:
+    return TransformError(f"image file is truncated ({left} bytes not "
+                          f"processed)")
 
 
 def _layout(data: bytes) -> _Layout:
@@ -89,15 +100,13 @@ def _layout(data: bytes) -> _Layout:
             return _Layout(w, h, "LA", 128, 4)
         raise TransformError(f"Unsupported bitcount {bitcount} for {pfflags}")
     if pfflags & _PALETTE:
-        raise _not_ported("8-bit palette")
+        return _Layout(w, h, "P", 128 + 1024, 3)
     if not pfflags & _FOURCC:
         raise TransformError(f"Unknown pixel format flags {pfflags}")
     code = struct.pack("<I", fourcc)
     if code in _FOURCC_BCN:
         n = _FOURCC_BCN[code]
-        return _Layout(w, h, "bcn", 128, 3 if n == 5 else 4, bcn=n)
-    if code in _FOURCC_NOT_PORTED:
-        raise _not_ported(_FOURCC_NOT_PORTED[code])
+        return _Layout(w, h, "bcn", 128, _BCN[n][1], bcn=n)
     if code != b"DX10":
         raise TransformError(f"Unimplemented pixel format {fourcc!r}")
     if len(data) < 148:
@@ -105,9 +114,9 @@ def _layout(data: bytes) -> _Layout:
     (dxgi,) = struct.unpack("<I", data[128:132])
     if dxgi in _DXGI_BCN:
         n = _DXGI_BCN[dxgi]
-        return _Layout(w, h, "bcn", 148, 3 if n == 5 else 4, bcn=n)
-    if dxgi in _DXGI_NOT_PORTED:
-        raise _not_ported(f"DX10 {_DXGI_NOT_PORTED[dxgi]}")
+        return _Layout(w, h, "bcn", 148, _BCN[n][1], bcn=n)
+    if dxgi in _DXGI_RGBA8:
+        return _Layout(w, h, "RGBA", 148, 4)
     raise TransformError(f"Unimplemented DXGI format {dxgi}")
 
 
@@ -144,6 +153,15 @@ def _by_masks(body: bytes, lay: _Layout) -> np.ndarray:
     return out.reshape(lay.height, lay.width, len(lay.masks))
 
 
+def _raw(body: bytes, lay: _Layout, n: int) -> np.ndarray:
+    """Pillow's raw reader: ``n`` bytes a pixel, row by row; a body short
+    of the raster leaves the bytes of its last incomplete row."""
+    w, h = lay.width, lay.height
+    if len(body) < w * h * n:
+        raise _truncated(len(body) % (w * n))
+    return np.frombuffer(body, np.uint8, w * h * n).reshape(h, w, n)
+
+
 def decode(data: bytes) -> np.ndarray:
     """DDS -> (H, W, 3) or (H, W, 4) u8."""
     lay = _layout(data)
@@ -152,17 +170,21 @@ def decode(data: bytes) -> np.ndarray:
     if lay.kind == "masks":
         return _by_masks(body, lay)
     if lay.kind in ("L", "LA"):
-        n = 1 if lay.kind == "L" else 2
-        if len(body) < w * h * n:
-            raise TransformError("image file is truncated")
-        px = np.frombuffer(body, np.uint8, w * h * n).reshape(h, w, n)
+        px = _raw(body, lay, 1 if lay.kind == "L" else 2)
         rgb = np.repeat(px[:, :, :1], 3, axis=2)
-        return rgb if n == 1 else np.concatenate([rgb, px[:, :, 1:]], axis=2)
+        return rgb if lay.kind == "L" else np.concatenate(
+            [rgb, px[:, :, 1:]], axis=2)
+    if lay.kind == "RGBA":
+        return _raw(body, lay, 4).copy()
+    if lay.kind == "P":
+        palette = np.frombuffer(data[128:128 + 1024], np.uint8)
+        index = _raw(body, lay, 1)[:, :, 0]  # a short palette: no raster
+        return palette.reshape(256, 4)[index, :3]
     from imagekit_tpu_torch.codecs.native import loader
 
     out = np.empty((h, w, lay.channels), np.uint8)
     rc = loader.load().ik_bcn_decode(body, len(body), w, h, lay.bcn,
                                      out.ctypes.data_as(ctypes.c_void_p))
     if rc != 0:
-        raise TransformError("image file is truncated")
+        raise _truncated(len(body) % _BCN[lay.bcn][0])
     return out

@@ -1,22 +1,30 @@
-// Four-component (CMYK and YCCK) JPEG entropy decode of the port.
+// Four-component (CMYK and YCCK) JPEG entropy decode of the port, and the
+// baseline frames in several scans.
 //
 // The port's copy of the reference's decoder (jpeg_entropy.cpp, pinned
-// byte-equal to it) refuses a frame of four components with -3; the
-// reference then decodes such a JPEG with Pillow. This decoder is the
-// port's own, for that case only: a frame of 8-bit precision and exactly
-// four components, baseline or extended Huffman (SOF0/SOF1) in one
-// interleaved scan, or progressive Huffman (SOF2) in any sequence of scans:
-// DC first and refinement scans, interleaved or not, and AC first and
-// refinement scans of one component each, with EOB runs and restart
-// intervals (an EOB run past the scan's last block or across a restart
-// marker, which no encoder writes, is refused). The progressive scans
-// follow jpeg_entropy.cpp's (DecodeProgressiveScan, DecodeBlockProgressive,
-// FinalizeProgressive; T.81 G.1.2 and G.2), copied rather than linked:
-// blocks accumulate in zigzag order and are put in natural order once, at
-// the EOI. Arithmetic-coded, 12-bit and lossless frames, other component
-// counts and a baseline frame in non-interleaved scans return -3. A frame
-// of two components (a JPEG TIFF's gray + alpha segments) decodes as one of
-// four does; the JPEG source layer refuses it, as Pillow does.
+// byte-equal to it) refuses a frame of four components, and a baseline
+// frame whose first scan is not interleaved over every component, with
+// -3; the reference then decodes such a JPEG with Pillow. This decoder is
+// the port's own, for those cases only: a frame of 8-bit precision and
+// two, three or four components, baseline or extended Huffman (SOF0/SOF1)
+// in one interleaved scan or in a sequence of scans of one or more
+// components each (a component's blocks over ceil(cw / 8) x ceil(ch / 8)
+// in its own raster order when it is alone in a scan, T.81 A.2.2; the
+// MCU-padding blocks of such a component are not coded and stay zero), or
+// progressive Huffman (SOF2) in any sequence of scans: DC first and
+// refinement scans, interleaved or not, and AC first and refinement scans
+// of one component each, with EOB runs and restart intervals (an EOB run
+// past the scan's last block or across a restart marker, which no encoder
+// writes, is refused). The progressive scans follow jpeg_entropy.cpp's
+// (DecodeProgressiveScan, DecodeBlockProgressive, FinalizeProgressive;
+// T.81 G.1.2 and G.2), copied rather than linked: blocks accumulate in
+// zigzag order and are put in natural order once, at the EOI. An
+// interleaved scan of more than 10 blocks an MCU is refused with -8, as
+// libjpeg refuses it ("Sampling factors too large for interleaved scan").
+// Arithmetic-coded, 12-bit and lossless frames and other component counts
+// return -3. A frame of two components (a JPEG TIFF's gray + alpha
+// segments) decodes as one of four does; the JPEG source layer refuses it,
+// as Pillow does.
 // Its output matches jpeg_entropy.cpp's ik_jpeg_decode_coeffs: quantised
 // coefficient planes [by][bx][64] in natural order, MCU-padded, and the
 // four 64-entry quant tables; its header is the same IkJpegInfo, plus the
@@ -40,6 +48,7 @@ enum {
   kUnsupported = -3,
   kBadHuffman = -4,
   kBadDimensions = -5,
+  kMcuTooLarge = -8,  // an interleaved scan of more than 10 blocks an MCU
   kEoi = 1,  // Next(): the EOI marker, after a progressive frame's scans
 };
 
@@ -180,7 +189,7 @@ struct Frame {
   Scan sos;
   const uint8_t* scan = nullptr;
   const uint8_t* at = nullptr;  // where the marker walk stands
-  int scans = 0;                // scans decoded (progressive)
+  int scans = 0;                // scans decoded (DecodeScans)
 
   // SOI, then the markers up to the first SOS; scan points at its
   // entropy-coded data.
@@ -287,7 +296,7 @@ struct Frame {
     height = (s[1] << 8) | s[2];
     width = (s[3] << 8) | s[4];
     ncomp = s[5];
-    if (ncomp != 2 && ncomp != 4) return kUnsupported;
+    if (ncomp < 2 || ncomp > 4) return kUnsupported;
     if (width <= 0 || height <= 0) return kBadDimensions;
     if (n < 6 + 3 * ncomp) return kTruncated;
     for (int c = 0; c < ncomp; ++c) {
@@ -320,8 +329,6 @@ struct Frame {
     const int ns = s[0];
     if (ns < 1 || ns > 4) return kBadMarker;
     if (n < 1 + 2 * ns + 3) return kTruncated;
-    // baseline: one interleaved scan only
-    if (!progressive && ns != ncomp) return kUnsupported;
     sos.ns = ns;
     for (int i = 0; i < ns; ++i) {
       const int cid = s[1 + 2 * i], tabs = s[2 + 2 * i];
@@ -333,6 +340,12 @@ struct Frame {
       comp[found].td = tabs >> 4;
       comp[found].ta = tabs & 15;
       sos.ci[i] = found;
+    }
+    if (ns > 1) {  // libjpeg's D_MAX_BLOCKS_IN_MCU
+      int blocks = 0;
+      for (int i = 0; i < ns; ++i)
+        blocks += comp[sos.ci[i]].h * comp[sos.ci[i]].v;
+      if (blocks > 10) return kMcuTooLarge;
     }
     const uint8_t* sp = s + 1 + 2 * ns;
     sos.Ss = sp[0];
@@ -426,11 +439,12 @@ struct Frame {
     return kOk;
   }
 
-  // -- progressive (SOF2) -------------------------------------------------
+  // -- several scans: progressive (SOF2), or baseline not interleaved ----
 
-  // Every scan from the first SOS to the EOI into coeffs[c] (zigzag order
-  // while the scans accumulate, natural order at the end).
-  int DecodeProgressive(int16_t** coeffs) {
+  // Every scan from the first SOS to the EOI into coeffs[c] (a
+  // progressive frame's in zigzag order while the scans accumulate, put in
+  // natural order at the end).
+  int DecodeScans(int16_t** coeffs) {
     const uint8_t* end = data + len;
     while (true) {
       Bits br;
@@ -449,6 +463,7 @@ struct Frame {
       if (next == kEoi) break;
       if (next != kOk) return next;
     }
+    if (!progressive) return kOk;
     int16_t tmp[64];
     for (int c = 0; c < ncomp; ++c) {
       const size_t nblk =
@@ -462,14 +477,17 @@ struct Frame {
     return kOk;
   }
 
-  // One scan (T.81 G.2): a DC scan interleaved over MCUs, or one
-  // component's blocks in its own geometry (every AC scan).
+  // One scan (T.81 G.2, A.2): interleaved over MCUs, or one component's
+  // blocks in its own geometry (every progressive AC scan). A baseline
+  // scan's blocks are whole (DecodeBlock), a progressive one's a band or a
+  // bit of one (DecodeBlockP).
   int DecodeScan(Bits& br, int16_t** coeffs) {
     const Scan& si = sos;
     for (int i = 0; i < si.ns; ++i) {
       const Component& C = comp[si.ci[i]];
       if (si.Ss == 0 ? si.Ah == 0 && !dc[C.td].present : !ac[C.ta].present)
         return kBadHuffman;
+      if (!progressive && !ac[C.ta].present) return kBadHuffman;
       comp[si.ci[i]].pred = 0;
     }
     int eobrun = 0, count = 0;
@@ -500,7 +518,8 @@ struct Frame {
         }
         int16_t* blk = coeffs[c] +
             (static_cast<size_t>(i / bw) * C.blocks_w + i % bw) * 64;
-        const int rc = DecodeBlockP(br, si, C, blk, eobrun);
+        const int rc = progressive ? DecodeBlockP(br, si, C, blk, eobrun)
+                                     : DecodeBlock(br, C, blk);
         if (rc != kOk) return rc;
         ++count;
         ++i;
@@ -525,7 +544,8 @@ struct Frame {
               int16_t* blk = coeffs[c] +
                   (static_cast<size_t>(my * C.v + v) * C.blocks_w +
                    mx * C.h + h) * 64;
-              const int rc = DecodeBlockP(br, si, C, blk, eobrun);
+              const int rc = progressive ? DecodeBlockP(br, si, C, blk, eobrun)
+                                     : DecodeBlock(br, C, blk);
               if (rc != kOk) return rc;
             }
           }
@@ -676,7 +696,9 @@ IK_EXPORT int ik_jpeg4_decode_coeffs(const uint8_t* data, size_t len,
   f.len = len;
   int rc = f.Parse();
   if (rc != kOk) return rc;
-  rc = f.progressive ? f.DecodeProgressive(coeffs) : f.Decode(coeffs);
+  // one interleaved baseline scan, or a sequence of scans to the EOI
+  rc = !f.progressive && f.sos.ns == f.ncomp ? f.Decode(coeffs)
+                                             : f.DecodeScans(coeffs);
   std::memcpy(qtabs_out, f.qtab, sizeof(f.qtab));  // DQT may follow a scan
   return rc;
 }

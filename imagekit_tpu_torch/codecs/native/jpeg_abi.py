@@ -1,8 +1,8 @@
 """ctypes ABI for the native JPEG entropy codec (jpeg_entropy.cpp) and for
-the port's four-component decoder beside it (jpeg4_decode.cpp: CMYK and
-YCCK JPEGs, :func:`parse4` and :func:`decode4`). :func:`parse_any` and
-:func:`decode_any` try the first, then the second where it refuses the
-frame as unsupported."""
+the port's decoder beside it (jpeg4_decode.cpp: CMYK and YCCK JPEGs, and
+baseline frames in several scans, :func:`parse4` and :func:`decode4`).
+:func:`parse_any` and :func:`decode_any` try the first, then the second
+where it refuses the frame as unsupported."""
 
 from __future__ import annotations
 
@@ -39,12 +39,14 @@ ERRORS = {
     -5: "bad dimensions",
     -6: "internal error",
     -7: "buffer too small",
+    -8: "sampling factors too large for interleaved scan",
 }
 
 
 class NativeJpegError(Exception):
-    """``four_components``: raised by the four-component decoder, on a
-    frame that the pinned one refused as unsupported."""
+    """``four_components``: raised by the port's decoder
+    (``jpeg4_decode.cpp``: four components, or a baseline frame in several
+    scans), on a frame that the pinned one refused as unsupported."""
 
     def __init__(self, code: int, four_components: bool = False):
         super().__init__(ERRORS.get(code, f"error {code}"))
@@ -142,6 +144,8 @@ class JpegHeader:
     #: an Adobe APP14 segment's transform flag (0 CMYK, else YCCK), -1
     #: without one; read by :func:`parse4` only
     adobe_transform: int = -1
+    #: the frame is one that only the port's decoder takes (:func:`parse4`)
+    port_decoder: bool = False
 
 
 def _header(info: IkJpegInfo, **extra) -> JpegHeader:
@@ -173,8 +177,9 @@ def parse(lib: ctypes.CDLL, data: bytes) -> JpegHeader:
 
 def parse4(lib: ctypes.CDLL, data: bytes) -> JpegHeader:
     """The header of a four-component (CMYK or YCCK) JPEG, baseline or
-    progressive, or of a two-component one (a JPEG TIFF's gray + alpha
-    segment), with its Adobe transform flag; -3 for anything else the
+    progressive, of a two-component one (a JPEG TIFF's gray + alpha
+    segment), or of a baseline frame of two to four components in several
+    scans, with its Adobe transform flag; -3 for anything else the
     native decoder refuses (arithmetic, 12-bit, other component counts)."""
     info = IkJpegInfo()
     flag = ctypes.c_int32(-1)
@@ -182,13 +187,13 @@ def parse4(lib: ctypes.CDLL, data: bytes) -> JpegHeader:
                             ctypes.byref(flag))
     if rc != 0:
         raise NativeJpegError(rc, four_components=True)
-    return _header(info, adobe_transform=int(flag.value))
+    return _header(info, adobe_transform=int(flag.value), port_decoder=True)
 
 
 def parse_any(lib: ctypes.CDLL, data: bytes) -> JpegHeader:
     """:func:`parse`'s header, or where it refuses the frame with -3,
-    :func:`parse4`'s (``ncomp`` 4 or 2). Raises the pinned parser's -3 when
-    neither takes the frame, else the failing parser's error."""
+    :func:`parse4`'s (``port_decoder`` set). Raises the pinned parser's -3
+    when neither takes the frame, else the failing parser's error."""
     try:
         return parse(lib, data)
     except NativeJpegError as e:
@@ -254,9 +259,9 @@ def decode(
 def decode4(
     lib: ctypes.CDLL, data: bytes
 ) -> Tuple[JpegHeader, List[np.ndarray], np.ndarray]:
-    """:func:`decode`'s output for a four- or two-component JPEG
-    (:func:`parse4`'s header): every scan of a progressive one
-    accumulated."""
+    """:func:`decode`'s output for a frame :func:`parse4` takes: every scan
+    of a progressive one accumulated, every scan of a baseline one in
+    several scans decoded (the blocks no scan codes stay zero)."""
     hdr = parse4(lib, data)
     coeffs = [np.zeros((hdr.blocks_h[c], hdr.blocks_w[c], 64), np.int16)
               for c in range(hdr.ncomp)]
@@ -275,7 +280,7 @@ def decode_any(
 ) -> Tuple[JpegHeader, List[np.ndarray], np.ndarray]:
     """:func:`decode` or :func:`decode4`, as :func:`parse_any` finds the
     frame; its errors as there."""
-    if parse_any(lib, data).ncomp in (2, 4):
+    if parse_any(lib, data).port_decoder:
         return decode4(lib, data)
     return decode(lib, data)
 

@@ -5,7 +5,8 @@ The port's copies of the reference's C++ codecs (``jpeg_entropy.cpp``,
 ``png_decode.cpp``, ``misc_decode.cpp``, ``tiff_decode.cpp`` and the AV1
 encoder's entropy engine and leaf evaluation ``av1_enc.cpp``, beside this
 file) and its own decoders of what the reference hands to Pillow
-(``raster_decode.cpp``: QOI and BCn; ``jpeg4_decode.cpp``: CMYK and YCCK
+(``raster_decode.cpp`` and ``bcn_ext_decode.cpp``: QOI and BCn;
+``jpeg4_decode.cpp``: CMYK and YCCK
 JPEGs, baseline and progressive; ``bmp_ext_decode.cpp`` and
 ``tiff_ext_decode.cpp``: the BMP and TIFF layouts the copies refuse) are
 compiled at first use, one ``g++ -c`` a source, all started
@@ -36,7 +37,8 @@ _HERE = Path(__file__).resolve().parent
 _SOURCES = ("jpeg_entropy.cpp", "vp8_encode.cpp", "vp8_decode.cpp",
             "vp8l_decode.cpp", "png_decode.cpp", "misc_decode.cpp",
             "tiff_decode.cpp", "av1_enc.cpp", "raster_decode.cpp",
-            "jpeg4_decode.cpp", "bmp_ext_decode.cpp", "tiff_ext_decode.cpp")
+            "jpeg4_decode.cpp", "bmp_ext_decode.cpp", "tiff_ext_decode.cpp",
+            "bcn_ext_decode.cpp")
 _HEADERS = ("vp8_common.h", "vp8_tables.h")
 BUILD_DIR = _HERE.parents[2] / "build" / "imagekit_tpu_torch"
 _LIB = BUILD_DIR / "libik_native.so"

@@ -1,4 +1,5 @@
-// QOI and BCn (DXT1/3/5, BC5) decodes of the port, C ABI for ctypes.
+// QOI and BCn (DXT1/3/5, BC4, BC5 unsigned and signed, BC6H, BC7) decodes
+// of the port, C ABI for ctypes.
 //
 // The reference decodes QOI and DDS sources with Pillow
 // (imagekit_tpu/codecs/pil_backend.py); the port has no Pillow, so these
@@ -8,15 +9,22 @@
 // BcnDecode.c (565 endpoints widened by bit replication, the 1/3 and 2/3
 // colours and the BC3 alpha ramps in integer arithmetic truncated toward
 // zero, BC1's three-colour mode with a transparent black fourth index,
-// BC2 and BC3 colour blocks always in four-colour mode, BC5's blue 0).
-// The serial inner loops live here; headers are parsed in Python
-// (codecs/qoi.py, codecs/dds.py).
+// BC2 and BC3 colour blocks always in four-colour mode, BC4 as BC3's alpha
+// block (gray), BC5's blue 0, signed BC5 as BC5 with each endpoint byte
+// read as a signed value plus 128 and a blue of 128). BC6H and BC7 blocks are decoded in
+// bcn_ext_decode.cpp. The serial inner loops live here; headers are parsed
+// in Python (codecs/qoi.py, codecs/dds.py).
 
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
 
 #define IK_EXPORT extern "C" __attribute__((visibility("default")))
+
+namespace ik_bcn {  // bcn_ext_decode.cpp: 16 texels of R, G, B, A
+void DecodeBc7(const uint8_t* src, uint8_t* rgba);
+void DecodeBc6(const uint8_t* src, uint8_t* rgba, bool sign);
+}  // namespace ik_bcn
 
 namespace {
 
@@ -111,12 +119,29 @@ void Bc3Alpha(uint8_t* dst, const uint8_t* src, int stride, int o) {
     dst[stride * (8 + n) + o] = a[7 & (lut2 >> (3 * n))];
 }
 
+// The BCn kinds of ik_bcn_decode.
+enum {
+  kDxt1 = 1, kDxt3 = 2, kDxt5 = 3, kBc4 = 4, kBc5 = 5, kBc5s = 6,
+  kBc6u = 7, kBc6s = 8, kBc7 = 9,
+};
+
+// A BC3 alpha block whose endpoint bytes are signed (signed BC5): each
+// read as its value plus 128, then as an unsigned block.
+void Bc5sAlpha(uint8_t* dst, const uint8_t* src, int stride, int o) {
+  uint8_t b[8];
+  std::memcpy(b, src, 8);
+  b[0] ^= 0x80;
+  b[1] ^= 0x80;
+  Bc3Alpha(dst, b, stride, o);
+}
+
 void DecodeBlock(int n, const uint8_t* src, Rgba* col) {
+  uint8_t* bytes = reinterpret_cast<uint8_t*>(col);
   switch (n) {
-    case 1:
+    case kDxt1:
       Bc1Color(col, src, false);
       break;
-    case 2:
+    case kDxt3:
       Bc1Color(col, src + 8, true);
       for (int i = 0; i < 16; ++i) {
         const int bit = i * 4;
@@ -124,14 +149,31 @@ void DecodeBlock(int n, const uint8_t* src, Rgba* col) {
         col[i].a = static_cast<uint8_t>((av << 4) | av);
       }
       break;
-    case 3:
+    case kDxt5:
       Bc1Color(col, src + 8, true);
-      Bc3Alpha(reinterpret_cast<uint8_t*>(col), src, sizeof(Rgba), 3);
+      Bc3Alpha(bytes, src, sizeof(Rgba), 3);
       break;
-    default:  // 5
+    case kBc4:  // gray, as R = G = B
+      Bc3Alpha(bytes, src, sizeof(Rgba), 0);
+      for (int i = 0; i < 16; ++i) col[i].g = col[i].b = col[i].r;
+      break;
+    case kBc5:
       std::memset(col, 0, 16 * sizeof(Rgba));
-      Bc3Alpha(reinterpret_cast<uint8_t*>(col), src, sizeof(Rgba), 0);
-      Bc3Alpha(reinterpret_cast<uint8_t*>(col), src + 8, sizeof(Rgba), 1);
+      Bc3Alpha(bytes, src, sizeof(Rgba), 0);
+      Bc3Alpha(bytes, src + 8, sizeof(Rgba), 1);
+      break;
+    case kBc5s:
+      std::memset(col, 0, 16 * sizeof(Rgba));
+      Bc5sAlpha(bytes, src, sizeof(Rgba), 0);
+      Bc5sAlpha(bytes, src + 8, sizeof(Rgba), 1);
+      for (int i = 0; i < 16; ++i) col[i].b = 128;  // a signed 0
+      break;
+    case kBc6u:
+    case kBc6s:
+      ik_bcn::DecodeBc6(src, bytes, n == kBc6s);
+      break;
+    default:  // kBc7
+      ik_bcn::DecodeBc7(src, bytes);
       break;
   }
 }
@@ -187,15 +229,14 @@ IK_EXPORT int ik_qoi_decode(const uint8_t* d, size_t len, int w, int h, int ch,
   return kOk;
 }
 
-// BCn blocks (n = 1 DXT1, 2 DXT3, 3 DXT5, 5 BC5) of a w x h texture ->
-// RGBA (n = 1..3) or RGB (n = 5) pixels, the blocks past the right and
+// BCn blocks (n: the kinds above) of a w x h texture -> RGBA (DXT1/3/5,
+// BC7) or RGB (BC4, BC5, BC6H) pixels, the blocks past the right and
 // bottom edges cut. kTruncated where the data holds fewer blocks.
 IK_EXPORT int ik_bcn_decode(const uint8_t* d, size_t len, int w, int h, int n,
                             uint8_t* out) {
-  if (w <= 0 || h <= 0 || (n != 1 && n != 2 && n != 3 && n != 5))
-    return kBadArgs;
-  const int block = n == 1 ? 8 : 16;
-  const int ch = n == 5 ? 3 : 4;
+  if (w <= 0 || h <= 0 || n < kDxt1 || n > kBc7) return kBadArgs;
+  const int block = n == kDxt1 || n == kBc4 ? 8 : 16;
+  const int ch = n == kDxt1 || n == kDxt3 || n == kDxt5 || n == kBc7 ? 4 : 3;
   const size_t bw = (static_cast<size_t>(w) + 3) / 4;
   const size_t bh = (static_cast<size_t>(h) + 3) / 4;
   if (len < bw * bh * block) return kTruncated;

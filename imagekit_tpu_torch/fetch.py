@@ -15,8 +15,11 @@ this stage's body, :class:`~imagekit_tpu_torch.errors.SourceDecodeError`).
 A JPEG whose header the native parser refuses answers here as the
 reference's Pillow decode does ("Unable to decode image for validation"),
 unless it refuses it as unsupported (-3): a CMYK or YCCK JPEG, baseline or
-progressive, is then validated by the four-component parser, and another
-(12-bit, arithmetic) is left to the engine, which answers it with a
+progressive, or a baseline frame in several scans, is then validated by
+the port's own parser (and refused here where libjpeg refuses its
+sampling, as the reference's Pillow decode does here); a frame whose
+precision is not 8 bits is this stage's 400 (Pillow opens none), and
+another (arithmetic) is left to the engine, which answers it with a
 :class:`~imagekit_tpu_torch.errors.NotPortedError`, as it does a variant
 no decoder takes. A BMP or TIFF that the pinned parser refuses as
 unsupported is validated by the port's own parser of those layouts

@@ -53,7 +53,10 @@ outputs) and :func:`decode_components_to_rgb` (``dct.py:1938``: the JPEG
 pixel decode, :func:`decode_resize_rgb_batch` with identity luma stacks
 and, per axis, the 2x triangle upsample or the identity as chroma stacks,
 so ONE K3 launch on CUDA, for 4:2:0, 4:2:2, 4:4:0, 4:4:4 and grayscale
-JPEGs; for CMYK and YCCK JPEGs, which the reference decodes with Pillow,
+JPEGs; for three components in any other integer sampling (4:1:1, Cb and
+Cr sampled differently, ...), :func:`decode_sampled_components`: each
+component's own stacks by libjpeg's choice of upsample, ONE K3 launch; for
+CMYK and YCCK JPEGs, which the reference decodes with Pillow,
 :func:`decode_four_components`: the same IDCT and upsample stacks for four
 components, TWO K3 launches, then libjpeg's and Pillow's integer colour
 steps, :func:`~imagekit_tpu_torch.ops.color.cmyk_to_rgb`).
@@ -100,11 +103,13 @@ from imagekit_tpu_torch.ops.resize_strip import (
 )
 from imagekit_tpu_torch.ops.weights import (
     chroma_axis_weights,
+    component_stacks,
     idct_basis,
     libtiff_ycbcr_tables,
     quality_tables,
     replication_axis_weights,
     segment_axis_weights,
+    upsample_method,
     upsample_weights,
 )
 
@@ -588,34 +593,45 @@ def gray_chroma(luma: np.ndarray) -> np.ndarray:
                     luma.dtype)
 
 
+def _batched_head_layout(hdr) -> bool:
+    """Three components in a layout of the batched RGB head: Cb and Cr
+    sampled alike, each 1x or 2x below the luma on each axis."""
+    if hdr.ncomp != 3 or (hdr.comp_h[1], hdr.comp_v[1]) != (
+            hdr.comp_h[2], hdr.comp_v[2]):
+        return False
+    return all(f0 in (f1, 2 * f1) for f0, f1 in (
+        (hdr.comp_h[0], hdr.comp_h[1]), (hdr.comp_v[0], hdr.comp_v[1])))
+
+
 def decode_components_to_rgb(decoded, device: Optional[torch.device] = None
                              ) -> np.ndarray:
     """The JPEG pixel decode of one image: entropy output -> IDCT, chroma
     upsample and colour on ``device`` -> (H, W, 3) u8 RGB at full
     resolution. ``decoded`` is the (header, coeff_planes, qtabs) tuple of
     ``jpeg_abi.decode``. Three components whose Cb and Cr share one
-    sampling at most the luma's, 1x or 2x on each axis (4:2:0, 4:2:2,
-    4:4:0, 4:4:4), each with its own table; or grayscale, with
-    :func:`gray_chroma`'s planes. The "resize" is the identity for luma and,
-    per axis, libjpeg's triangle 2x upsample or the identity for chroma
-    (:func:`~imagekit_tpu_torch.ops.weights.chroma_axis_weights`): ONE K3
-    launch on CUDA. Four components (CMYK, YCCK) take
-    :func:`decode_four_components`. Anything else raises ValueError."""
+    sampling 1x or 2x below the luma's on each axis (4:2:0, 4:2:2, 4:4:0,
+    4:4:4), each with its own table, or grayscale, with
+    :func:`gray_chroma`'s planes, take the batched RGB head: identity for
+    luma and, per axis, libjpeg's triangle 2x upsample or the identity for
+    chroma (:func:`~imagekit_tpu_torch.ops.weights.chroma_axis_weights`),
+    ONE K3 launch on CUDA. Three components in any other integer sampling
+    take :func:`decode_sampled_components` (one K3 launch too); four
+    components (CMYK, YCCK) :func:`decode_four_components`. Anything else
+    raises ValueError."""
     hdr, coeffs, qtabs = decoded
     if hdr.ncomp == 4:
         return decode_four_components(decoded, device=device)
+    if hdr.ncomp == 3 and not _batched_head_layout(hdr):
+        return decode_sampled_components(decoded, device=device)
     if hdr.ncomp == 1:
         cz = gray_chroma(coeffs[0])
         coeffs, tq = [coeffs[0], cz, cz], (hdr.comp_tq[0],) * 3
-    elif hdr.ncomp == 3 and (hdr.comp_h[1], hdr.comp_v[1]) == (
-        hdr.comp_h[2], hdr.comp_v[2]
-    ) and hdr.comp_h[0] >= hdr.comp_h[1] and hdr.comp_v[0] >= hdr.comp_v[1]:
+    elif hdr.ncomp == 3:
         tq = tuple(hdr.comp_tq[:3])
     else:
         raise ValueError(
             f"{hdr.ncomp} components sampled {tuple(hdr.comp_h)} x "
-            f"{tuple(hdr.comp_v)}: not grayscale, 4:4:4, 4:2:2, 4:4:0 or "
-            f"4:2:0")
+            f"{tuple(hdr.comp_v)}: not grayscale, three or four components")
     by_y, bx_y = coeffs[0].shape[:2]
     by_c, bx_c = coeffs[1].shape[:2]
     # the stacks: identity for luma, one axis of the upsample each for chroma
@@ -637,6 +653,48 @@ def decode_components_to_rgb(decoded, device: Optional[torch.device] = None
         device=device,
     )
     return out[0, :hdr.height, :hdr.width]
+
+
+def sampled_inputs(decoded, device: torch.device):
+    """:func:`plane_inputs` of a three-component JPEG in any integer
+    sampling: each component's stacks to the grid of the largest factors
+    (:func:`~imagekit_tpu_torch.ops.weights.component_stacks`), by the
+    method libjpeg picks from the pair of its ratios to those factors
+    (:func:`~imagekit_tpu_torch.ops.weights.upsample_method`: the
+    identity, a triangle 2x on one or both axes, or replication on both),
+    each stopping at the component's real size; the luma is upsampled too
+    where its factors are not the largest. A ratio that is not an integer
+    raises ValueError."""
+    hdr, coeffs, qtabs = decoded
+    grids = [c.shape[:2] for c in coeffs]
+    full = (max(g[0] for g in grids), max(g[1] for g in grids))
+    keys = []
+    for c, grid in enumerate(grids):
+        h, v = hdr.comp_h[c], hdr.comp_v[c]
+        if hdr.hmax % h or hdr.vmax % v:
+            raise ValueError(f"component {c} sampled {h}x{v} under "
+                             f"{hdr.hmax}x{hdr.vmax}: a fractional ratio")
+        method = upsample_method((hdr.hmax // h, hdr.vmax // v),
+                                 hdr.comp_width[c])
+        keys.append((grid, (hdr.comp_height[c], hdr.comp_width[c]), method))
+    return plane_inputs(
+        coeffs, np.stack([qtabs[t] for t in hdr.comp_tq]), keys,
+        lambda k: component_stacks(full, *k), device)
+
+
+def decode_sampled_components(decoded, device: Optional[torch.device] = None
+                              ) -> np.ndarray:
+    """The JPEG pixel decode of three components in a sampling outside the
+    batched head's (4:1:1, 4:1:0, a ratio of 3, Cb and Cr sampled
+    differently, a luma below the largest factors): each component's IDCT,
+    then its own stacks (:func:`sampled_inputs`) to the full grid in ONE
+    K3 launch on CUDA, crop, YCbCr -> RGB as the batched head does ->
+    (H, W, 3) u8, on ``device`` (the card unless named)."""
+    hdr = decoded[0]
+    device = resolve(device)
+    planes = resize_components(*sampled_inputs(decoded, device))
+    h, w = hdr.height, hdr.width
+    return to_host(_ycc_to_rgb(*(p[0, :h, :w] for p in planes)), device)
 
 
 def plane_inputs(coeffs, qt, keys, stacks_of, device: torch.device):

@@ -372,31 +372,93 @@ def segment_axis_weights(luma_blocks, chroma_blocks) -> np.ndarray:
                                                              chroma_blocks))
 
 
-def _replication_axis_weights_impl(luma_blocks: int,
-                                   chroma_blocks: int) -> np.ndarray:
+def _replication_axis_weights_impl(luma_blocks: int, chroma_blocks: int,
+                                   real: int) -> np.ndarray:
     step = luma_blocks // chroma_blocks
     out = np.zeros((luma_blocks * 8, chroma_blocks * 8), np.float32)
     rows = np.arange(luma_blocks * 8)
-    out[rows, rows // step] = 1.0
+    out[rows, np.minimum(rows // step, real - 1)] = 1.0
     return out
 
 
-def replication_axis_weights(luma_blocks: int,
-                             chroma_blocks: int) -> np.ndarray:
-    """The (luma_blocks*8, chroma_blocks*8) chroma stack of one axis of an
-    old-style JPEG TIFF page, as libtiff's RGBA interface reads one (Pillow
-    decodes it that way): chroma replicated over each subsampling block,
-    weight 1 at ``floor(i / s)`` for output row i, ``s`` the ratio of the
-    grids (1 or 2), no triangle upsample. The identity where the grids are
-    equal. Any other ratio raises ValueError."""
-    if luma_blocks not in (chroma_blocks, 2 * chroma_blocks):
+def replication_axis_weights(luma_blocks: int, chroma_blocks: int,
+                             real: int = 0) -> np.ndarray:
+    """The (luma_blocks*8, chroma_blocks*8) chroma stack of one axis that
+    replicates each sample over its subsampling block: weight 1 at
+    ``floor(i / s)`` for output row i, ``s`` the ratio of the grids, any
+    integer, no triangle upsample, and at most ``real - 1`` where the
+    component's real size ``real`` is given (its samples past that are not
+    read). libtiff's RGBA interface reads an old-style JPEG TIFF page this
+    way, and libjpeg's ``int_upsample`` (and its plain 2x ones) a JPEG
+    component. The identity where the grids are equal. A ratio that is not
+    an integer raises ValueError."""
+    if chroma_blocks <= 0 or luma_blocks % chroma_blocks:
         raise ValueError(f"chroma grid of {chroma_blocks} blocks against "
-                         f"{luma_blocks} luma blocks: not 1x or 2x")
-    if luma_blocks == chroma_blocks:
+                         f"{luma_blocks} luma blocks: not an integer ratio")
+    real = real or chroma_blocks * 8
+    if luma_blocks == chroma_blocks and real == luma_blocks * 8:
         return upsample_weights(luma_blocks * 8, luma_blocks * 8)
-    return _chroma_cached(("rep", luma_blocks, chroma_blocks),
+    return _chroma_cached(("rep", luma_blocks, chroma_blocks, real),
                           lambda: _replication_axis_weights_impl(
-                              luma_blocks, chroma_blocks))
+                              luma_blocks, chroma_blocks, real))
+
+
+def _triangle_axis_weights_impl(out_blocks: int, in_blocks: int,
+                                real: int) -> np.ndarray:
+    out = np.zeros((out_blocks * 8, in_blocks * 8), np.float32)
+    o = np.arange(out_blocks * 8)
+    i = o // 2
+    far = np.where(o % 2 == 0, i - 1, i + 1)
+    np.add.at(out, (o, np.minimum(i, real - 1)), 0.75)
+    np.add.at(out, (o, np.clip(far, 0, real - 1)), 0.25)
+    return out
+
+
+def triangle_axis_weights(out_blocks: int, in_blocks: int,
+                          real: int) -> np.ndarray:
+    """libjpeg's triangle ("fancy") 2x upsample of one axis of a JPEG
+    component of ``real`` samples on a grid of ``in_blocks`` blocks, to
+    ``out_blocks = 2 * in_blocks``: :func:`upsample_weights`' taps, with
+    the edge at the component's real size, not at its block grid (libjpeg
+    upsamples ``downsampled_width`` samples and repeats the last row)."""
+    if out_blocks != 2 * in_blocks:
+        raise ValueError(f"{out_blocks} blocks from {in_blocks}: not 2x")
+    return _chroma_cached(("tri", out_blocks, in_blocks, real),
+                          lambda: _triangle_axis_weights_impl(
+                              out_blocks, in_blocks, real))
+
+
+def upsample_method(ratio: Tuple[int, int], width: int) -> str:
+    """libjpeg-turbo's choice (``jdsample.c::jinit_upsampler``, which
+    Pillow's decode runs) for a JPEG component whose largest factors are
+    ``ratio = (rh, rv)`` times its own and whose real width is ``width``
+    samples: ``"full"`` (equal grids), the triangles ``"h2v1"`` (2, 1),
+    ``"h1v2"`` (1, 2) and ``"h2v2"`` (2, 2), or ``"int"``, replication on
+    both axes, for any other pair of integer ratios and for (2, 1) and
+    (2, 2) where the component is at most 2 samples wide."""
+    rh, rv = ratio
+    if (rh, rv) == (1, 1):
+        return "full"
+    if (rh, rv) == (1, 2):
+        return "h1v2"
+    if (rh, rv) in ((2, 1), (2, 2)) and width > 2:
+        return "h2v1" if rv == 1 else "h2v2"
+    return "int"
+
+
+def component_stacks(full: Tuple[int, int], grid: Tuple[int, int],
+                     real: Tuple[int, int], method: str):
+    """The (wv, wh) stacks of one JPEG component, (out, in) each, from its
+    block grid ``grid`` and real size ``real`` (rows, columns) to the
+    ``full`` grid of the largest factors, by :func:`upsample_method`'s
+    ``method``: the triangle on the axes it names, replication
+    (:func:`replication_axis_weights`) on the others."""
+    tri = {"h2v1": (False, True), "h1v2": (True, False),
+           "h2v2": (True, True)}.get(method, (False, False))
+    return tuple(
+        triangle_axis_weights(f, g, r) if t
+        else replication_axis_weights(f, g, r)
+        for f, g, r, t in zip(full, grid, real, tri))
 
 
 def _fix16(x: np.float32) -> int:

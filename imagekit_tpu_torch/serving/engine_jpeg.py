@@ -101,9 +101,11 @@ class JpegPathMixin:
             pre_hdr = _source_header(lib, data)  # header-only, microseconds
         except jpeg_abi.NativeJpegError as e:
             raise _decode_error(e) from e
-        if pre_hdr.ncomp == 4:
-            # CMYK and YCCK: the four-component pixel decode and the RGB
-            # head (the reference decodes them with Pillow)
+        if pre_hdr.port_decoder:
+            # CMYK and YCCK, and baseline frames in several scans (4:2:0
+            # too): only the port's own entropy decoder takes them, and the
+            # JPEG heads' entries are the pinned decoder's; the pixel decode
+            # and the RGB head (the reference decodes them with Pillow)
             raise _NativeUnsupported()
         if pre_hdr.ncomp != 1 and (
             tuple(pre_hdr.comp_h) != (2, 1, 1)

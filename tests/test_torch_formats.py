@@ -17,7 +17,8 @@ JAX package, on the CPU.
   of ``tests/test_torch_rgba_slice.py``.
 - HTTP: a truncated GIF or TIFF, and a JPEG cut before its SOS marker,
   answer ``/img`` with the fetch stage's body in both apps; an ICO is
-  served; 12-bit and arithmetic-coded JPEGs answer 501; EXR answers 400.
+  served; arithmetic-coded JPEGs answer 501, 12-bit ones 400 as in the
+  reference; EXR answers 400.
 """
 
 import io
@@ -424,14 +425,25 @@ def test_http_truncated_source_answers_as_the_reference(tmp_path, name):
 
 @pytest.mark.parametrize("name", ["12bit.jpg", "arithmetic.jpg"])
 def test_http_unsupported_jpeg_coding_answers_501(tmp_path, name):
-    """12-bit and arithmetic-coded JPEGs (the native decoders' -3) pass the
-    fetch stage and answer 501 naming their queue item, with a resize and
-    without."""
+    """An arithmetic-coded JPEG (the native decoders' -3) passes the fetch
+    stage and answers 501 naming its queue item, with a resize and without
+    (the reference's Pillow decodes this hand-patched file, whose scan is
+    Huffman behind SOF9, to 200: ROADMAP queue 3). A 12-bit JPEG answers as
+    the reference does: Pillow opens 8-bit frames only, so its fetch stage
+    answers 400, and so does the port's."""
     async def fn(client):
         return [await _img(client, url=URLS[name], **({"w": w} if w else {}))
                 for w in (64, None)]
 
-    for status, _, body in _serve(tmp_path, "port", fn):
+    port = _serve(tmp_path, "port", fn)
+    if name == "12bit.jpg":
+        assert port == _serve(tmp_path, "ref", fn)
+        for status, _, body in port:
+            assert status == 400
+            assert body == (b"Invalid argument: Unable to decode image for "
+                            b"validation")
+        return
+    for status, _, body in port:
         assert status == 501 and b"ROADMAP queue 1 item 10" in body
 
 

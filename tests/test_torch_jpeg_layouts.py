@@ -23,11 +23,13 @@ K3's plain version here), and hands the pixels to the batched RGB head.
   (``device_decode``) and, with a resize, one batch of the RGB head
   (``device_resize``), never the JPEG heads (``device_decode_resize``).
   AVIF output, a source beyond the bucket ladder and HTTP answer too.
-- (d) What stays 501 (``NotPortedError``, queue 1 item 10): progressive
-  CMYK, 12-bit and arithmetic-coded JPEGs (the native decoders' code -3),
-  Cb and Cr sampled differently, and a chroma ratio of 4 (4:1:1, a header
-  made by hand: no encoder here writes factors beyond 2). Baseline CMYK and
-  YCCK JPEGs are served (``tests/test_torch_pillow_sources.py``).
+- (d) What stays 501 (``NotPortedError``, queue 1 item 10): arithmetic
+  coding (the native decoders' code -3), progressive CMYK among it. A
+  12-bit frame is Pillow's "cannot identify image file", a 400 as in the
+  reference; Cb and Cr sampled differently and a chroma ratio of 4 (4:1:1)
+  are served (``tests/test_torch_jpeg_sampling.py`` has the layouts and
+  their fixtures, from ``tests/fixtures/jpeg_writer.py``). Baseline CMYK
+  and YCCK JPEGs are served (``tests/test_torch_pillow_sources.py``).
 
 4:4:0 sources come from the port's native encoder
 (``loader.encode_jpeg(samp=(1, 2))``), the others from Pillow.
@@ -53,7 +55,7 @@ from imagekit_tpu_torch import config as port_config
 from imagekit_tpu_torch.codecs import jpeg, vp8
 from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
 from imagekit_tpu_torch.config import ImageFormat, ImageKitConfig
-from imagekit_tpu_torch.errors import NotPortedError
+from imagekit_tpu_torch.errors import NotPortedError, TransformError
 from imagekit_tpu_torch.ops import dct, resize_planes, weights
 from imagekit_tpu_torch.serving.app import create_app
 from imagekit_tpu_torch.serving.batcher import BatchedEngine as PortEngine
@@ -441,26 +443,62 @@ NOT_PORTED = {
 
 @pytest.mark.parametrize("name", list(NOT_PORTED))
 def test_layouts_outside_the_decode_stay_not_ported(name):
+    """Arithmetic coding (progressive CMYK among it) stays 501 naming its
+    queue item, with a resize and without. A 12-bit frame is Pillow's
+    "cannot identify image file" in the decode and both engine paths (400,
+    as the reference answers). Cb and Cr sampled differently decode, as
+    Pillow decodes them."""
     data = NOT_PORTED[name]()
-    with pytest.raises(NotPortedError, match="queue 1 item 10"):
+    if name == "mixed_chroma":
+        got = jpeg.decode_rgb(data, device="cpu")
+        want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        assert got.shape == want.shape == (48, 64, 3)
+        assert psnr(got, want) >= 40.0
+        assert np.abs(got.astype(int) - want).max() <= 12
+        for width in (64, None):
+            engine = PortEngine(_cfg(port_config, 1), metrics=Metrics(),
+                                device="cpu")
+            (out,) = _drive(engine, [data], [width], ImageFormat.webp)
+            assert _out_size(out) == (64, 48)
+        return
+    if name == "12bit":
+        raised, match = TransformError, "cannot identify image file"
+    else:
+        raised, match = NotPortedError, "queue 1 item 10"
+    with pytest.raises(raised, match=match) as e:
         jpeg.decode_rgb(data, device="cpu")
+    assert isinstance(e.value, NotPortedError) == (name != "12bit")
     for width in (64, None):
         engine = PortEngine(_cfg(port_config, 1), metrics=Metrics(),
                             device="cpu")
-        with pytest.raises(NotPortedError, match="queue 1 item 10") as e:
+        with pytest.raises(raised, match=match) as e:
             _drive(engine, [data], [width], ImageFormat.webp)
-        assert e.value.roadmap_item == "queue 1 item 10"
+        if name != "12bit":
+            assert e.value.roadmap_item == "queue 1 item 10"
+        else:
+            assert not isinstance(e.value, NotPortedError)
 
 
 def test_411_header_is_not_ported():
-    """4:1:1 (a chroma ratio of 4): no encoder here writes it, so the
-    decoded tuple of a 4:2:2 JPEG is given a 4:1:1 header and grid."""
+    """4:1:1 (a chroma ratio of 4): the decoded tuple of a 4:2:2 JPEG given
+    a 4:1:1 header and grid (zero luma at twice the width) is a 4:1:1
+    frame; the pixel decode replicates its chroma 4x across, as libjpeg's
+    ``int_upsample`` does, and agrees with Pillow on the same coefficients
+    written as a file (``tests/fixtures/jpeg_writer.py``)."""
+    from tests.fixtures import jpeg_writer
+
     hdr, coeffs, qtabs = jpeg_abi.decode(loader.load(),
                                          _pil_jpeg(make_test_image(64, 48), 1))
-    hdr = dataclasses.replace(hdr, comp_h=(4, 1, 1))
+    hdr = dataclasses.replace(hdr, comp_h=(4, 1, 1), hmax=4, width=128,
+                              comp_width=(128, 32, 32))
     by, bx = coeffs[0].shape[:2]
     coeffs = [np.zeros((by, 2 * bx, 64), np.int16), coeffs[1], coeffs[2]]
-    with pytest.raises(ValueError, match="not 1x or 2x"):
-        dct.decode_components_to_rgb((hdr, coeffs, qtabs), device="cpu")
-    with pytest.raises(NotPortedError, match="queue 1 item 10"):
-        jpeg.components_to_rgb((hdr, coeffs, qtabs), device="cpu")
+    got = jpeg.components_to_rgb((hdr, coeffs, qtabs), device="cpu")
+    data = jpeg_writer.write(coeffs, qtabs, 128, 48,
+                             ((4, 1), (1, 1), (1, 1)), hdr.comp_tq)
+    want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    assert got.shape == want.shape == (48, 128, 3)
+    assert psnr(got, want) >= 40.0
+    assert np.abs(got.astype(int) - want).max() <= 12
+    # replication: each chroma sample over four columns
+    assert (got[:, 0::4] == got[:, 3::4]).mean() > 0.99

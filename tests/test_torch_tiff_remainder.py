@@ -616,7 +616,7 @@ def test_old_style_planes(name):
 @pytest.mark.parametrize("luma,chroma", [(4, 2), (3, 3), (34, 17), (1, 1)])
 def test_replication_axis_weights_are_libtiffs(luma, chroma):
     """Weight 1 at floor(i / s) of each output row i, s the ratio of the
-    grids: a numpy mirror; any ratio but 1 and 2 raises."""
+    grids: a numpy mirror; a ratio that is not an integer raises."""
     got = weights.replication_axis_weights(luma, chroma)
     s = luma // chroma
     want = np.zeros((luma * 8, chroma * 8), np.float32)
