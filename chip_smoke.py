@@ -85,7 +85,7 @@ decoded with Pillow: old-style, planar and extra-sample JPEG pages,
     WebP (K4); lossy WebP -> w=400 WebP and -> JPEG (one K2 launch per
     batch). Outputs parsed to their size and format, the last batch of each
     head against the plain head, requests/s, p50/p99, the host stages, and
-    the device's idle share from a second, traced round;
+    the device's idle share from the round, run once, traced;
 13. K2's four-channel entry against its plain version: an interleaved
     RGBA batch 1088x1920 -> 240x400 at B in {1, 32}, vidx != hidx, stored
     interleaved; device times, an einsum yardstick, the bound and the H2D
@@ -98,9 +98,9 @@ decoded with Pillow: old-style, planar and extra-sample JPEG pages,
     no resize each from a JPEG (one K3 launch per request: the JPEG pixel
     decode), a PNG and a WebP, to WebP and to JPEG. Outputs parsed to
     their size and format, requests/s, p50/p99, the host stages and the
-    device's idle share from a second, traced round;
+    device's idle share from the round, run once, traced;
 15. AVIF output through the engine, one round a head, counts reset before
-    each: 4 JPEGs -> w=400 (K1), 2 escape-dense JPEGs -> w=400 (K1's int16
+    each: 2 JPEGs -> w=400 (K1), 2 escape-dense JPEGs -> w=400 (K1's int16
     entry), a 640x360 JPEG -> w=480 (k=8, K4), 2 RGB PNGs -> w=400 (K2,
     rgbyuv), 2 lossy WebPs -> w=400 (K2, ``yuv_resize``), 2 RGBA PNGs ->
     w=400 with their alpha (K2, ``rgba_resize``) and a 320x240 JPEG with no
@@ -222,7 +222,20 @@ decoded with Pillow: old-style, planar and extra-sample JPEG pages,
     request, one K2 a batch, no K1): requests/s, p50/p99, host stages, idle
     share. K3 at the 4:1:1 page's identity and replication stacks against
     its plain version (max |d| 0), timed, with an einsum yardstick and the
-    bound.
+    bound;
+24. arithmetic-coded and lossless JPEGs, written here without Pillow by
+    ``tests/fixtures/jpeg_arith_writer.py`` and ``jpeg_lossless_writer.py``
+    from one 1080p picture: arithmetic 4:2:0 with restart intervals,
+    progressive 4:4:4 with successive approximation and CMYK, lossless
+    gray and lossless RGB with G and B at half size; on the card's host
+    each entropy decode equal to what its writer was given (coefficients,
+    or samples), and the pixels on the card against the host's plain
+    decode; counts reset before each round, each round run once, traced,
+    -> w=400 WebP (the progressive one -> JPEG): one K3 launch a request
+    (two for CMYK, none for lossless gray), one K2 a batch, no K1:
+    requests/s, p50/p99, host stages, idle share. K3 at the lossless RGB
+    page's replication stacks against its plain version (max |d| 0), timed,
+    with an einsum yardstick and the bound.
 
 Device times are the kernels' own, summed by ``torch.profiler`` over 20
 calls (the host's launch cost excluded); the bound is the larger of the
@@ -242,6 +255,7 @@ from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import contextlib
 import json
 import os
 import statistics
@@ -1736,7 +1750,7 @@ def device_busy_s(prof):
     return (busy + hi - lo) / 1e6
 
 
-def idle_share(run, on_card: bool = True, traced: str = "a second, traced"):
+def idle_share(run, on_card: bool = True, traced: str = "this"):
     """(the device's idle share in a round's traced run, its log line).
     ``on_card``: whether the round's requests use the card at all; a round
     that does not is idle throughout. A round that does and whose trace
@@ -1800,8 +1814,8 @@ def phase_new_paths(jpegs, dense, webps, card: str) -> dict:
     counts set to 0 before each and read after it: 1080p JPEG -> w=1280 WebP
     (k = 8, K4); escape-dense JPEG -> w=400 WebP (int16 transport, K1) and
     -> w=1280 WebP (int16, K4); 1080p lossy WebP -> w=400 WebP and -> JPEG
-    (K2). Each round runs twice: timed, then under ``torch.profiler`` for
-    the device's idle share."""
+    (K2). Each round runs once, under ``torch.profiler`` for the device's
+    idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     from imagekit_tpu_torch.codecs import vp8
@@ -1857,20 +1871,16 @@ def phase_new_paths(jpegs, dense, webps, card: str) -> dict:
                 stage0 = {k: metrics.stage_seconds[k] for k in stages}
                 jpeg8.LAUNCHES = resize_strip.LAUNCHES = 0
                 rp.LAUNCHES = rp.LAUNCHES_F32 = 0
-                t0 = time.perf_counter()
-                res = await asyncio.gather(*(one(*r) for r in reqs))
-                wall = time.perf_counter() - t0
-                run = {"res": res, "wall": wall, **counts(),
-                       "batches": metrics.batches - batches0,
-                       "spent": {k: metrics.stage_seconds[k] - stage0[k]
-                                 for k in stages}}
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     t0 = time.perf_counter()
-                    await asyncio.gather(*(one(*r) for r in reqs))
+                    res = await asyncio.gather(*(one(*r) for r in reqs))
                     torch.cuda.synchronize()
-                    run["traced_wall"] = time.perf_counter() - t0
-                run["busy"] = device_busy_s(prof)
-                runs.append(run)
+                    wall = time.perf_counter() - t0
+                runs.append({"res": res, "wall": wall, "traced_wall": wall,
+                             **counts(), "busy": device_busy_s(prof),
+                             "batches": metrics.batches - batches0,
+                             "spent": {k: metrics.stage_seconds[k] - stage0[k]
+                                       for k in stages}})
             return runs
         finally:
             await engine.close()
@@ -1902,6 +1912,7 @@ def phase_new_paths(jpegs, dense, webps, card: str) -> dict:
         idle, idle_line = idle_share(run)
         launched = {k: run[k] for k in ("k1", "k2", "k3", "k4")}
         log(f"  {name}: {n_req} concurrent requests in {run['wall']:.4f} s "
+            f"(traced) "
             f"-> {rps:.2f} req/s, p50 {p50:.2f} ms, p99 {p99:.2f} ms, "
             f"{run['batches']} batches, launches {launched} [{card}]")
         log("    host seconds: " + ", ".join(
@@ -2016,7 +2027,7 @@ def out_dims(out: bytes):
 def phase_alpha_and_single(rgba_pngs, others, jpegs, pngs, webps,
                            card: str) -> dict:
     """Rounds through one engine, the launch counts set to 0 before each and
-    read after it; each round runs twice, timed and then traced.
+    read after it; each round runs once, traced.
     ``others``: BMP, TIFF and GIF sources of 1920x1080."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -2077,22 +2088,18 @@ def phase_alpha_and_single(rgba_pngs, others, jpegs, pngs, webps,
                 jpeg8.LAUNCHES = resize_strip.LAUNCHES = 0
                 resize_strip.LAUNCHES_RGBA = 0
                 rp.LAUNCHES = rp.LAUNCHES_F32 = 0
-                t0 = time.perf_counter()
-                res = await asyncio.gather(*(one(*r) for r in reqs))
-                wall = time.perf_counter() - t0
-                run = {"res": res, "wall": wall, **counts(),
-                       "batches": metrics.batches - batches0,
-                       "spent": {k: metrics.stage_seconds[k] - stage0[k]
-                                 for k in stages}}
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     t0 = time.perf_counter()
-                    await asyncio.gather(*(one(*r) for r in reqs))
+                    res = await asyncio.gather(*(one(*r) for r in reqs))
                     torch.cuda.synchronize()
-                    run["traced_wall"] = time.perf_counter() - t0
-                # None for a WebP from a PNG or a WebP with no resize,
+                    wall = time.perf_counter() - t0
+                # busy None for a WebP from a PNG or a WebP with no resize,
                 # which never touches the card
-                run["busy"] = device_busy_s(prof)
-                runs.append(run)
+                runs.append({"res": res, "wall": wall, "traced_wall": wall,
+                             **counts(), "busy": device_busy_s(prof),
+                             "batches": metrics.batches - batches0,
+                             "spent": {k: metrics.stage_seconds[k] - stage0[k]
+                                       for k in stages}})
             return runs
         finally:
             await engine.close()
@@ -2113,6 +2120,7 @@ def phase_alpha_and_single(rgba_pngs, others, jpegs, pngs, webps,
             v > 0 for k, v in run["spent"].items() if k.startswith("device")))
         launched = {k: run[k] for k in ("k1", "k2", "k2_rgba", "k3", "k4")}
         log(f"  {name}: {n_req} concurrent requests in {run['wall']:.4f} s "
+            f"(traced) "
             f"-> {rps:.2f} req/s, p50 {p50:.2f} ms, p99 {p99:.2f} ms, "
             f"{run['batches']} batches, launches {launched} [{card}]")
         log("    host seconds: " + ", ".join(
@@ -2225,7 +2233,7 @@ def phase_avif(jpegs, dense, pngs, webps, rgba_pngs, card: str) -> dict:
     # (name, sources, width, output size, head module and function, the
     # kernel it launches, one launch a "batch" or a "request", alpha?)
     rounds = (
-        ("1080p JPEG -> w=400 AVIF (k=2, split int8)", jpegs[:4], 400,
+        ("1080p JPEG -> w=400 AVIF (k=2, split int8)", jpegs[:2], 400,
          (400, 225), (engine_jpeg, "decode_resize_yuv_lowfreq_i8_batch"),
          "k1", "batch", False),
         ("escape-dense JPEG -> w=400 AVIF (k=2, int16)", dense[:2], 400,
@@ -2816,7 +2824,7 @@ def phase_jpeg_layouts(layout_jpegs, gray_jpegs, jpegs, sources,
     request) and the batched RGB head (one K2 launch a batch) serve them.
     ``layout_jpegs``: layout -> 1080p q80 JPEGs; ``sources``: the images
     they were made from. Rounds, the launch counts set to 0 before each
-    and read after it, each run twice (timed, then traced): 32 4:4:4 ->
+    and read after it, each run once, traced: 32 4:4:4 ->
     w=400 WebP and -> w=400 JPEG; 16 4:2:2 and 16 4:4:0 -> w=400 WebP; 32
     4:2:0 -> w=400 WebP (K1, the route the others do not take); 16 4:4:4 ->
     JPEG and 4 grayscale -> WebP with no resize; one 4:4:4 -> w=400 AVIF
@@ -2887,21 +2895,19 @@ def phase_jpeg_layouts(layout_jpegs, gray_jpegs, jpegs, sources,
                 jpeg8.LAUNCHES = resize_strip.LAUNCHES = 0
                 resize_strip.LAUNCHES_RGBA = 0
                 rp.LAUNCHES = rp.LAUNCHES_F32 = 0
-                t0 = time.perf_counter()
-                res = await asyncio.gather(*(one(*r) for r in reqs))
-                wall = time.perf_counter() - t0
-                run = {"res": res, "wall": wall, **counts(),
-                       "batches": metrics.batches - batches0,
-                       "spent": {k: metrics.stage_seconds[k] - stage0[k]
-                                 for k in stages}, "busy": None}
-                if fmt != A:
-                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                        t0 = time.perf_counter()
-                        await asyncio.gather(*(one(*r) for r in reqs))
-                        torch.cuda.synchronize()
-                        run["traced_wall"] = time.perf_counter() - t0
-                    run["busy"] = device_busy_s(prof)
-                runs.append(run)
+                # traced, but for the AVIF round (its encode takes seconds)
+                with (profile(activities=[ProfilerActivity.CUDA])
+                      if fmt != A else contextlib.nullcontext()) as prof:
+                    t0 = time.perf_counter()
+                    res = await asyncio.gather(*(one(*r) for r in reqs))
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                runs.append({"res": res, "wall": wall, "traced_wall": wall,
+                             **counts(),
+                             "busy": device_busy_s(prof) if prof else None,
+                             "batches": metrics.batches - batches0,
+                             "spent": {k: metrics.stage_seconds[k] - stage0[k]
+                                       for k in stages}})
             return runs
         finally:
             await engine.close()
@@ -2920,6 +2926,7 @@ def phase_jpeg_layouts(layout_jpegs, gray_jpegs, jpegs, sources,
         rps = n_req / run["wall"]
         launched = {k: run[k] for k in ("k1", "k2", "k2_rgba", "k3", "k4")}
         log(f"  {name}: {n_req} concurrent requests in {run['wall']:.4f} s "
+            f"({'untraced' if fmt == A else 'traced'}) "
             f"-> {rps:.2f} req/s, p50 {p50:.2f} ms, p99 {p99:.2f} ms, "
             f"{run['batches']} batches, launches {launched} [{card}]")
         log("    host seconds: " + ", ".join(
@@ -4356,11 +4363,13 @@ BC_WEIGHTS4 = np.array([0, 4, 9, 13, 17, 21, 26, 30, 34, 38, 43, 47, 51, 55,
                         60, 64])
 
 
-def jpeg_writer():
-    """``tests/fixtures/jpeg_writer.py``, loaded by its path (numpy only)."""
+def jpeg_writer(name: str = "jpeg_writer"):
+    """``tests/fixtures/<name>.py`` (``jpeg_writer``, ``jpeg_arith_writer``
+    or ``jpeg_lossless_writer``), loaded by its path (numpy only)."""
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location("jpeg_writer", JPEG_WRITER)
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(os.path.dirname(JPEG_WRITER), name + ".py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -4652,6 +4661,152 @@ def phase_dds_jpeg_layouts(card: str) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 24: arithmetic-coded and lossless JPEGs
+# ---------------------------------------------------------------------------
+
+S420 = ((2, 2), (1, 1), (1, 1))
+S444 = ((1, 1), (1, 1), (1, 1))
+SCMYK = ((2, 2), (1, 1), (1, 1), (2, 2))
+
+
+def make_arith_lossless():
+    """The phase's 1080p sources, from one seeded picture, by the numpy
+    writers of ``tests/fixtures/``: arithmetic 4:2:0 (SOF9, restart
+    intervals of a row of MCUs), arithmetic progressive 4:4:4 with
+    successive approximation (SOF10), arithmetic CMYK with an Adobe APP14
+    (SOF9; C and K at 2x2; stored as Adobe's inverted inks, the picture's
+    R, G and B over a K of 255, so that it decodes to the picture), all at
+    q50 (fewer coded coefficients: the writer's QM coder is a Python loop),
+    lossless gray (predictor 1) and lossless RGB with its G and B at half
+    size (predictor 4, Pt 1; the samples as they are, no colour step).
+    Returns name -> (bytes, what the decoders must give: coefficient planes,
+    or sample planes; the picture it shows)."""
+    jw, aw, lw = (jpeg_writer(n) for n in (
+        "jpeg_writer", "jpeg_arith_writer", "jpeg_lossless_writer"))
+    picture = synth_image(980, noise=False)
+    w, h = picture.shape[1], picture.shape[0]
+    p420, tabs, tq = jw.coefficients(picture, 50, S420)
+    p444, tabs444, tq444 = jw.coefficients(picture, 50, S444)
+    inks, _, _ = jw.coefficients(picture, 50, S420, colour="rgb")
+    white, _, _ = jw.coefficients(np.full_like(picture, 255), 50, S420)
+    pcmyk = inks + white[:1]
+    gray = picture.mean(axis=2).round().astype(np.uint8)
+    rgb = lw.subsample(picture, S420)
+    return {
+        "arithmetic 4:2:0": (aw.write(p420, tabs, w, h, S420, tq,
+                                      restart=w // 16), p420, picture),
+        "arithmetic progressive 4:4:4": (aw.write(
+            p444, tabs444, w, h, S444, tq444, progressive=True), p444,
+            picture),
+        "arithmetic CMYK": (aw.write(pcmyk, tabs, w, h, SCMYK, tq + [0],
+                                     adobe_transform=0), pcmyk, picture),
+        "lossless gray": (lw.write([gray], w, h, ((1, 1),), predictor=1),
+                          [gray], np.repeat(gray[:, :, None], 3, axis=2)),
+        "lossless RGB, G and B at 1/2": (lw.write(
+            rgb, w, h, S420, predictor=4, pt=1), [(p >> 1) << 1
+                                                  for p in rgb], picture),
+    }
+
+
+def phase_arith_lossless(card: str) -> dict:
+    """Arithmetic-coded and lossless JPEGs through one engine: the port's
+    ``jpeg4_decode.cpp`` entropy-decodes them on the codec pool (the QM
+    decoder; the lossless decoder, samples out), then on a dispatch thread
+    the pixel decode (the IDCT and ONE K3 launch a request, TWO for CMYK;
+    for the lossless RGB frame ONE K3 launch of replication stacks, none
+    for lossless gray), then the RGB head (K2, one launch a batch). Each
+    decode is checked first: the arithmetic decodes' coefficients exactly
+    the planes the writer was given and the lossless decodes' samples
+    exactly its samples, on the card's host; the pixels on the card against
+    the host's plain decode. Then the rounds (``drive_rounds``), and K3 at
+    the lossless page's replication stacks against its plain version
+    (exact: weights of 1 on u8)."""
+    from imagekit_tpu_torch.codecs import decode_bytes, jpeg
+    from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
+    from imagekit_tpu_torch.config import ImageFormat
+    from imagekit_tpu_torch.ops import dct
+
+    W, J = ImageFormat.webp, ImageFormat.jpeg
+    t0 = time.perf_counter()
+    sources = make_arith_lossless()
+    log("    made 1080p sources (" + ", ".join(
+        f"{k} {len(d) / 1e3:.0f} kB" for k, (d, _, _) in sources.items())
+        + f") in {time.perf_counter() - t0:.2f} s")
+    steps = {"sources": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    lib = loader.load()
+    checks = []
+    for name, (data, want, picture) in sources.items():
+        t1 = time.perf_counter()
+        if name.startswith("lossless"):
+            got = jpeg_abi.decode_lossless(lib, data)[1]
+        else:
+            got = jpeg_abi.decode4(lib, data)[1]
+        host_s = time.perf_counter() - t1
+        if len(got) != len(want) or not all(
+                np.array_equal(g, x) for g, x in zip(got, want)):
+            raise RuntimeError(f"the {name} entropy decode is not what its "
+                               f"writer was given")
+        card_rgb = decode_bytes(data, device="cuda")[0]
+        diff = np.abs(card_rgb.astype(int) - decode_bytes(
+            data, device="cpu")[0].astype(int))
+        p = psnr(card_rgb, picture)
+        checks.append(f"{name}: {'samples' if name.startswith('lossless') else 'coefficients'}"
+                      f" exact (host decode {host_s * 1e3:.1f} ms), "
+                      f"{p:.2f} dB to the picture, vs the host's plain "
+                      f"decode max|d|={diff.max()}")
+        if card_rgb.shape != picture.shape or diff.max() > 2 or (
+                (diff > 0).mean() > MAX_SHARE):
+            raise RuntimeError(f"the {name} decode on the card is not the "
+                               f"plain one on the host's CPU")
+        if p < 25.0:
+            raise RuntimeError(f"the {name} decode is not its picture "
+                               f"(PSNR {p:.2f} dB)")
+    log(f"    decodes: {'; '.join(checks)}")
+    steps["decode checks"] = time.perf_counter() - t0
+
+    out = (400, 225)
+    rounds = [
+        ("1080p arithmetic 4:2:0 -> w=400 WebP",
+         [sources["arithmetic 4:2:0"][0]], 16, 400, W, out,
+         {"k3": 1, "k2": "batch"}),
+        ("1080p arithmetic progressive 4:4:4 -> w=400 JPEG",
+         [sources["arithmetic progressive 4:4:4"][0]], 16, 400, J, out,
+         {"k3": 1, "k2": "batch"}),
+        ("1080p arithmetic CMYK -> w=400 WebP",
+         [sources["arithmetic CMYK"][0]], 16, 400, W, out,
+         {"k3": 2, "k2": "batch"}),
+        ("1080p lossless gray -> w=400 WebP",
+         [sources["lossless gray"][0]], 16, 400, W, out, {"k2": "batch"}),
+        ("1080p lossless RGB, G and B at 1/2 -> w=400 WebP",
+         [sources["lossless RGB, G and B at 1/2"][0]], 16, 400, W, out,
+         {"k3": 1, "k2": "batch"}),
+    ]
+    summary = drive_rounds(rounds, card, steps)
+    case, steps["K3 at the lossless page"] = timed(
+        lambda: k3_planes_case(*dct.lossless_inputs(
+            jpeg.decode_to_coefficients(
+                sources["lossless RGB, G and B at 1/2"][0]),
+            torch.device("cuda")), "lossless page"))
+    if case["max_abs_err"] != 0:
+        raise RuntimeError(f"K3 at the replication stacks is not exact: "
+                           f"max|d|={case['max_abs_err']}")
+    log(f"  K3 at the 1080p lossless page ({case['planes']} -> 1088x1920, "
+        f"identity and replication stacks, B=1, one launch) vs plain: "
+        f"max|d|={case['max_abs_err']}; device time per call K3 "
+        f"{case['ms']:.4f} ms vs plain {case['plain_ms']:.4f} ms vs einsum "
+        f"{case['library_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
+        f"({case['bound_by']}), K3 at {case['bound_ms'] / case['ms']:.1%} of "
+        f"it [{card}]")
+    summary["k3_page"] = case
+    log("    seconds a step (a round's include its warm-up and trace): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in steps.items()))
+    summary["step_s"] = steps
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4812,6 +4967,11 @@ def main() -> int:
           " 4:1:1, mixed-chroma and one-scan-a-component JPEGs (K3, then K2),"
           " BatchedEngine(device='cuda').transform")
     layouts23 = phase_dds_jpeg_layouts(card)
+
+    begin("[24] arithmetic-coded and lossless JPEGs: the QM and lossless "
+          "decoders on the host, the pixel decode (K3), the RGB head (K2), "
+          "BatchedEngine(device='cuda').transform")
+    arith = phase_arith_lossless(card)
     end_phase()
     log("    seconds a phase (heading to heading): " + ", ".join(
         f"[{k}] {v:.2f}" for k, v in PHASE_S.items()))
@@ -4843,6 +5003,7 @@ def main() -> int:
         "tiff_jpeg_launches": tiffj["k2_launches"],
         "tiff_remainder_launches": remainder["k2_launches"],
         "dds_jpeg_layout_launches": layouts23["k2_launches"],
+        "arith_lossless_launches": arith["k2_launches"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
@@ -4902,6 +5063,14 @@ def main() -> int:
         "jpeg_layout_launches": layouts23["k3_launches"],
         "pixel_decode_411_page": {
             key: layouts23["k3_page"][key] for key in (
+                "max_abs_err", "share_differ", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")},
+        # the arithmetic and lossless JPEGs of phase 24: one launch a
+        # request (two for CMYK, none for lossless gray), and K3 at the
+        # lossless RGB page's replication stacks
+        "arith_lossless_launches": arith["k3_launches"],
+        "pixel_decode_lossless_page": {
+            key: arith["k3_page"][key] for key in (
                 "max_abs_err", "share_differ", "ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms")},
     }, {
@@ -4999,6 +5168,8 @@ def main() -> int:
         raise RuntimeError("a round of phase 22 launched no K2 or K3")
     if min(layouts23[f"{k}_launches"] for k in ("k2", "k2_rgba", "k3")) <= 0:
         raise RuntimeError("a round of phase 23 launched no K2 or K3")
+    if min(arith[f"{k}_launches"] for k in ("k2", "k3")) <= 0:
+        raise RuntimeError("a round of phase 24 launched no K2 or K3")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

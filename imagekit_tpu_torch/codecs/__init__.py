@@ -11,9 +11,10 @@ extended (:mod:`.vp8`), GIF and BMP (:mod:`.misc`), TIFF, JPEG-compressed
 ones included, whose strips or tiles the JPEG pixel decode takes a page at
 a time (:mod:`.tiff`),
 Radiance HDR and farbfeld (:mod:`.longtail`), JPEG pixels in every layout
-the pixel decode takes, CMYK and YCCK included (:mod:`.jpeg`, whose DCT
-and colour stages run on the device: the reference's serving path decodes
-JPEG pixels with Pillow), and the sources the reference decodes only with
+the pixel decode takes, CMYK and YCCK, arithmetic-coded and lossless
+frames included (:mod:`.jpeg`, whose DCT and colour stages run on the
+device: the reference's serving path decodes JPEG pixels with Pillow),
+and the sources the reference decodes only with
 Pillow: ICO (:mod:`.ico`), PNM (:mod:`.pnm`), QOI (:mod:`.qoi`) and DDS
 (:mod:`.dds`); JPEG, WebP and AVIF (the first-party encoder,
 :mod:`.avif_encode`) out. There is no host-library fallback: where the

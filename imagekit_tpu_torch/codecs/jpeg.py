@@ -13,19 +13,25 @@ none, so :func:`decode_rgb` is its JPEG pixel decode, baseline or
 progressive: three components in any sampling Pillow reads (the chroma
 ratios of 4:2:0, 4:2:2, 4:4:0, 4:4:4, 4:1:1, 4:1:0 and any other integer
 ratio, Cb and Cr sampled alike or not, the luma below the largest
-factors), each with its own table, and grayscale JPEGs; CMYK and YCCK
-JPEGs, baseline or progressive; and baseline frames in several scans.
-The pinned native decoder refuses the last two with -3; the port's own
-entropy decode (``jpeg_abi.decode4``) takes them, then the device decode.
-A frame whose precision is not 8 bits and one whose sampling libjpeg
-refuses (:func:`sampling_refused`) answer 400, as Pillow's refusals do in
-the reference; arithmetic coding raises
+factors), each with its own table, coded as YCbCr or as RGB
+(:func:`colour_space`), and grayscale JPEGs; CMYK and YCCK JPEGs,
+baseline or progressive; baseline frames in several scans;
+arithmetic-coded frames (SOF9, SOF10) of 1, 3 or 4 components; and
+lossless frames (SOF3) of 1 or 3 components. The pinned native decoder
+refuses the last four with -3; the port's own entropy decode
+(``jpeg_abi.decode4``, ``decode_lossless``) takes them, then the device
+decode. What Pillow refuses answers 400 as in the reference: a frame
+whose precision is not 8 bits or whose component count is not 1, 3 or
+4, a sampling libjpeg refuses (:func:`sampling_refused`), hierarchical
+and lossless arithmetic frames, and lossless frames that would need a
+colour conversion. Lossless frames of four components raise
 :class:`~imagekit_tpu_torch.errors.NotPortedError`.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -43,22 +49,33 @@ JPEG_MAX_SIDE = 65535
 #: Pillow's message where libjpeg refuses a frame Pillow has opened
 BROKEN_STREAM = "broken data stream when reading image file"
 
+#: Pillow's message where its JPEG reader has no mode for a frame
+UNIDENTIFIED = "cannot identify image file"
+
+#: the SOFn markers of hierarchical frames (SOF5-7, SOF13-15) and of
+#: lossless arithmetic ones (SOF11): Pillow opens them, libjpeg refuses
+#: them
+_LIBJPEG_REFUSES = (0xC5, 0xC6, 0xC7, 0xCB, 0xCD, 0xCE, 0xCF)
+
 
 def decode_error(e) -> Exception:
-    """Native decoder failure -> the port's error: an unsupported coding
-    (arithmetic) is a path not ported yet; a frame that only the port's
-    decoder takes (CMYK, YCCK, baseline in several scans) that fails is a
+    """Native decoder failure -> the port's error: an unsupported frame
+    (-3, a lossless one of four components) is a path not ported yet; a
+    frame that only the port's decoder takes (CMYK, YCCK, baseline in
+    several scans, arithmetic, lossless) that fails is a
     :class:`~imagekit_tpu_torch.errors.SourceDecodeError`, because the
-    reference decodes such a JPEG in full at its fetch stage (an
-    interleaved scan of more than 10 blocks an MCU, -8, with Pillow's
-    message); anything else is a bad source (400, as the reference's decode
+    reference decodes such a JPEG in full at its fetch stage: with Pillow's
+    message where libjpeg refuses it (an interleaved scan of more than 10
+    blocks an MCU, -8; a bad marker segment, such as a DAC with L > U;
+    data the decoder cannot take), the decoder's own where the data ends
+    (-1); anything else is a bad source (400, as the reference's decode
     would give)."""
     if getattr(e, "code", None) == -3:
         return NotPortedError(
             f"a JPEG the native decoder does not take ({e})", "queue 1 item 10"
         )
     if getattr(e, "four_components", False):
-        return SourceDecodeError(BROKEN_STREAM if e.code == -8
+        return SourceDecodeError(BROKEN_STREAM if e.code != -1
                                  else f"JPEG decode failed: {e}")
     return TransformError(f"JPEG decode failed: {e}")
 
@@ -77,13 +94,30 @@ def sampling_refused(hdr) -> bool:
             and sum(h * v for h, v in samp) > 10)
 
 
-def frame_precision(data: bytes) -> Optional[int]:
-    """The sample precision of a JPEG's frame header (the first SOFn), None
-    where the markers end or a scan starts first."""
+class FrameMarkers(NamedTuple):
+    """What libjpeg and Pillow read of a JPEG's markers before its first
+    scan: the first SOFn (its marker, precision and component ids; None
+    where there is none), and whether a JFIF APP0 and an Adobe APP14 came
+    (the latter's transform flag, else None)."""
+    sof: Optional[int]
+    precision: Optional[int]
+    ids: tuple
+    jfif: bool
+    adobe: Optional[int]
+
+
+def frame_markers(data: bytes) -> FrameMarkers:
+    """The markers from the SOI to the first SOS (or the EOI, or where the
+    data ends or stops being markers), as libjpeg's marker reader sees
+    them: a JFIF APP0 of at least 14 bytes starting ``JFIF\\0``
+    (``examine_app0``), an Adobe APP14 of at least 12 starting ``Adobe``
+    (``examine_app14``)."""
+    sof = precision = adobe = None
+    ids, jfif = (), False
     i, n = 2, len(data)
     while i + 4 <= n:
         if data[i] != 0xFF:
-            return None
+            break
         m = data[i + 1]
         if m == 0xFF:  # fill byte
             i += 1
@@ -92,57 +126,125 @@ def frame_precision(data: bytes) -> Optional[int]:
             i += 2
             continue
         if m in (0xD9, 0xDA):
-            return None
+            break
+        seg = data[i + 4:i + 2 + ((data[i + 2] << 8) | data[i + 3])]
         if 0xC0 <= m <= 0xCF and m not in (0xC4, 0xC8, 0xCC):
-            return data[i + 4] if i + 4 < n else None
+            if sof is None:
+                sof = m
+                precision = seg[0] if seg else None
+                if len(seg) >= 6:
+                    ids = tuple(seg[6:6 + 3 * seg[5]:3])
+        elif m == 0xE0 and len(seg) >= 14 and seg[:5] == b"JFIF\0":
+            jfif = True
+        elif m == 0xEE and len(seg) >= 12 and seg[:5] == b"Adobe":
+            adobe = seg[11]
         i += 2 + ((data[i + 2] << 8) | data[i + 3])
-    return None
+    return FrameMarkers(sof, precision, ids, jfif, adobe)
+
+
+def colour_space(data: bytes, ncomp: int, lossless: bool = False) -> str:
+    """libjpeg's ``jpeg_color_space`` of a frame of ``ncomp`` components
+    (``jdapimin.c::default_decompress_parms``, libjpeg-turbo 3): "gray"
+    for one; for three, "ycbcr" after a JFIF APP0, else by an Adobe
+    APP14's transform (0 "rgb", any other "ycbcr"), else by the component
+    ids ('R', 'G', 'B' "rgb"; others "ycbcr", but "rgb" in a lossless
+    frame); for four, "cmyk" or, by an Adobe transform other than 0,
+    "ycck"."""
+    mk = frame_markers(data)
+    if ncomp == 1:
+        return "gray"
+    if ncomp == 4:
+        return "cmyk" if mk.adobe in (None, 0) else "ycck"
+    if mk.jfif:
+        return "ycbcr"
+    if mk.adobe is not None:
+        return "rgb" if mk.adobe == 0 else "ycbcr"
+    if mk.ids == (82, 71, 66) or lossless:
+        return "rgb"
+    return "ycbcr"
 
 
 def source_header(lib, data: bytes):
-    """``jpeg_abi.parse_any``'s header of a JPEG source. A frame of two
-    components, which the port's decoder takes for a JPEG TIFF's gray +
-    alpha segments, raises the decoders' -3: Pillow has no mode for a JPEG
-    file of two components, and the port does not serve one. A frame the
-    decoders refuse (-3) whose precision is not 8 bits is Pillow's
-    "cannot identify image file" (its JPEG reader opens 8-bit frames
-    only), a :class:`~imagekit_tpu_torch.errors.TransformError`: the
-    reference's fetch stage answers such a source with its 400. So does a
-    frame only the port's decoder takes whose sampling libjpeg refuses
-    (:func:`sampling_refused`: the reference decodes it at its fetch
-    stage), a :class:`~imagekit_tpu_torch.errors.SourceDecodeError` with
-    Pillow's message."""
+    """``jpeg_abi.parse_any``'s header of a JPEG source, ``rgb`` set for
+    three components coded as RGB (:func:`colour_space`). What Pillow
+    refuses raises as the reference's fetch stage meets it (a
+    :class:`~imagekit_tpu_torch.errors.TransformError`, its 400):
+
+    - "cannot identify image file" (Pillow's JPEG reader opens 8-bit
+      frames of 1, 3 or 4 components only): a frame the decoders refuse
+      (-3) whose precision is not 8 bits, and a frame of another component
+      count (two, which the port's decoder takes for a JPEG TIFF's gray +
+      alpha segments; five or more, which both refuse);
+    - Pillow's "broken data stream" (libjpeg refuses the frame Pillow has
+      opened), a :class:`~imagekit_tpu_torch.errors.SourceDecodeError`:
+      hierarchical and lossless arithmetic frames (both decoders' -3), a
+      frame only the port's decoder takes whose sampling libjpeg refuses
+      (:func:`sampling_refused`), a lossless frame whose colour space
+      would need a conversion (libjpeg converts none in lossless mode);
+    - "image is too large": a frame of the new codings (arithmetic,
+      lossless) past the pixel ceiling of Pillow's decompression-bomb
+      check (:data:`~imagekit_tpu_torch.codecs.png.MAX_PIXELS`).
+
+    A lossless frame of four components raises the decoders' -3 (not
+    ported)."""
     from imagekit_tpu_torch.codecs.native import jpeg_abi
+    from imagekit_tpu_torch.codecs.png import MAX_PIXELS
 
     try:
         hdr = jpeg_abi.parse_any(lib, data)
     except jpeg_abi.NativeJpegError as e:
-        if e.code == -3 and frame_precision(data) not in (None, 8):
-            raise TransformError("cannot identify image file") from None
+        if e.code != -3:
+            raise
+        mk = frame_markers(data)
+        if mk.precision not in (None, 8) or (
+                mk.sof is not None and len(mk.ids) not in (1, 3, 4)):
+            raise TransformError(UNIDENTIFIED) from None
+        if mk.sof in _LIBJPEG_REFUSES:
+            raise SourceDecodeError(BROKEN_STREAM) from None
         raise
     if hdr.ncomp == 2:
-        raise jpeg_abi.NativeJpegError(-3)
-    if hdr.port_decoder and sampling_refused(hdr):
+        raise TransformError(UNIDENTIFIED)
+    if not hdr.port_decoder:
+        if hdr.ncomp == 3:
+            hdr = dataclasses.replace(
+                hdr, rgb=colour_space(data, 3) == "rgb")
+        return hdr
+    if sampling_refused(hdr):
         raise SourceDecodeError(BROKEN_STREAM)
-    return hdr
+    lossless = hdr.coding == jpeg_abi.LOSSLESS
+    if hdr.coding != jpeg_abi.HUFFMAN and (
+            hdr.width * hdr.height > MAX_PIXELS):
+        raise TransformError(
+            f"image is too large ({hdr.width}x{hdr.height} pixels)")
+    space = colour_space(data, hdr.ncomp, lossless)
+    if lossless and space not in ("gray", "rgb", "cmyk"):
+        raise SourceDecodeError(BROKEN_STREAM)
+    if lossless and hdr.ncomp == 4:
+        raise jpeg_abi.NativeJpegError(-3)
+    return dataclasses.replace(hdr, rgb=space == "rgb")
 
 
 def decode_to_coefficients(data: bytes):
-    """Host C++: entropy-decode a JPEG into per-component quantised
-    coefficient planes + quant tables + sampling factors; a frame the
-    native decoder refuses with -3 (four components, baseline in several
-    scans) through the port's own (``jpeg_abi.decode_any``). Errors as
-    :func:`decode_error` maps them, a frame's as :func:`source_header`
-    refuses it; a frame the pinned decoder takes whose sampling libjpeg
-    refuses (:func:`sampling_refused`) is Pillow's 400 here, where the
-    reference's engine meets it."""
+    """Host C++: entropy-decode a JPEG into (header, per-component
+    quantised coefficient planes, quant tables); a frame the native
+    decoder refuses with -3 (four components, baseline in several scans,
+    arithmetic coding) through the port's own (``jpeg_abi.decode_any``).
+    A lossless frame gives (header, its u8 sample planes, None)
+    (``jpeg_abi.decode_lossless``). The header is :func:`source_header`'s.
+    Errors as :func:`decode_error` maps them, a frame's as
+    :func:`source_header` refuses it; a frame the pinned decoder takes
+    whose sampling libjpeg refuses (:func:`sampling_refused`) is Pillow's
+    400 here, where the reference's engine meets it."""
     from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
 
     lib = loader.load()
     try:
-        if sampling_refused(source_header(lib, data)):
+        hdr = source_header(lib, data)
+        if sampling_refused(hdr):
             raise TransformError(BROKEN_STREAM)
-        return jpeg_abi.decode_any(lib, data)
+        if hdr.coding == jpeg_abi.LOSSLESS:
+            return hdr, jpeg_abi.decode_lossless(lib, data)[1], None
+        return (hdr, *jpeg_abi.decode_any(lib, data)[1:])
     except jpeg_abi.NativeJpegError as e:
         raise decode_error(e) from e
 
@@ -150,13 +252,17 @@ def decode_to_coefficients(data: bytes):
 def components_to_rgb(comps, device: Optional[torch.device] = None
                       ) -> np.ndarray:
     """The device half of :func:`decode_rgb`: dequant + IDCT + chroma
-    upsample + YCbCr (or CMYK, YCCK) -> RGB of
+    upsample + YCbCr (or CMYK, YCCK; none for RGB) -> RGB of
     :func:`decode_to_coefficients`' output, for the layouts of the module
     docstring (a four-component frame sampled other than 1x or 2x raises
-    :class:`~imagekit_tpu_torch.errors.NotPortedError`)."""
+    :class:`~imagekit_tpu_torch.errors.NotPortedError`); a lossless
+    frame's samples to RGB (``dct.decode_lossless_planes``)."""
+    from imagekit_tpu_torch.codecs.native import jpeg_abi
     from imagekit_tpu_torch.ops import dct as dct_ops
 
     try:
+        if comps[0].coding == jpeg_abi.LOSSLESS:
+            return dct_ops.decode_lossless_planes(comps, device=device)
         return dct_ops.decode_components_to_rgb(comps, device=device)
     except ValueError as e:
         raise NotPortedError(

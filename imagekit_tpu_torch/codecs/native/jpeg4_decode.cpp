@@ -1,34 +1,55 @@
-// Four-component (CMYK and YCCK) JPEG entropy decode of the port, and the
-// baseline frames in several scans.
+// The port's own JPEG entropy decode: four-component (CMYK and YCCK)
+// frames, baseline frames in several scans, arithmetic-coded frames and
+// lossless frames.
 //
 // The port's copy of the reference's decoder (jpeg_entropy.cpp, pinned
-// byte-equal to it) refuses a frame of four components, and a baseline
-// frame whose first scan is not interleaved over every component, with
-// -3; the reference then decodes such a JPEG with Pillow. This decoder is
-// the port's own, for those cases only: a frame of 8-bit precision and
-// two, three or four components, baseline or extended Huffman (SOF0/SOF1)
-// in one interleaved scan or in a sequence of scans of one or more
-// components each (a component's blocks over ceil(cw / 8) x ceil(ch / 8)
-// in its own raster order when it is alone in a scan, T.81 A.2.2; the
-// MCU-padding blocks of such a component are not coded and stay zero), or
-// progressive Huffman (SOF2) in any sequence of scans: DC first and
-// refinement scans, interleaved or not, and AC first and refinement scans
-// of one component each, with EOB runs and restart intervals (an EOB run
-// past the scan's last block or across a restart marker, which no encoder
-// writes, is refused). The progressive scans follow jpeg_entropy.cpp's
-// (DecodeProgressiveScan, DecodeBlockProgressive, FinalizeProgressive;
-// T.81 G.1.2 and G.2), copied rather than linked: blocks accumulate in
-// zigzag order and are put in natural order once, at the EOI. An
-// interleaved scan of more than 10 blocks an MCU is refused with -8, as
-// libjpeg refuses it ("Sampling factors too large for interleaved scan").
-// Arithmetic-coded, 12-bit and lossless frames and other component counts
-// return -3. A frame of two components (a JPEG TIFF's gray + alpha
-// segments) decodes as one of four does; the JPEG source layer refuses it,
-// as Pillow does.
-// Its output matches jpeg_entropy.cpp's ik_jpeg_decode_coeffs: quantised
-// coefficient planes [by][bx][64] in natural order, MCU-padded, and the
-// four 64-entry quant tables; its header is the same IkJpegInfo, plus the
-// transform flag of an Adobe APP14 segment (-1 when there is none).
+// byte-equal to it) refuses a frame of four components, a baseline frame
+// whose first scan is not interleaved over every component, and
+// arithmetic-coded and lossless frames, with -3; the reference then
+// decodes such a JPEG with Pillow. This decoder is the port's own, for
+// those cases only: a frame of 8-bit precision and one to four
+// components, in one of three codings.
+//
+// - Huffman DCT: baseline or extended (SOF0/SOF1) in one interleaved scan
+//   or in a sequence of scans of one or more components each (a
+//   component's blocks over ceil(cw / 8) x ceil(ch / 8) in its own raster
+//   order when it is alone in a scan, T.81 A.2.2; the MCU-padding blocks
+//   of such a component are not coded and stay zero), or progressive
+//   (SOF2) in any sequence of scans: DC first and refinement scans,
+//   interleaved or not, and AC first and refinement scans of one
+//   component each, with EOB runs and restart intervals (an EOB run past
+//   the scan's last block or across a restart marker, which no encoder
+//   writes, is refused). The progressive scans follow jpeg_entropy.cpp's
+//   (DecodeProgressiveScan, DecodeBlockProgressive, FinalizeProgressive;
+//   T.81 G.1.2 and G.2), copied rather than linked.
+// - Arithmetic DCT, sequential (SOF9) or progressive (SOF10): the QM
+//   decoder of T.81 Annex D with the statistics and conditioning of F.1.4
+//   (sequential) and G.1.3 (progressive), DAC segments (L, U, K; 0, 1 and
+//   5 by default), the statistics reset at each restart. It follows
+//   libjpeg's jdarith.c, as lenient as it is: zero bytes are fed after a
+//   marker; a magnitude or a run past the band (JWRN_ARITH_BAD_CODE) ends
+//   the decode of the restart interval, the blocks decoded so far kept;
+//   restart markers out of sequence are resynchronised as
+//   jpeg_resync_to_restart does. Data that ends with no marker is
+//   refused (libjpeg's arithmetic decoder cannot suspend for more).
+// - Lossless (SOF3, T.81 Annex H), Huffman coded: predictors 1-7, the
+//   point transform, interleaved or one-component scans, restart intervals
+//   of whole MCU rows (libjpeg's condition; others are refused). Its
+//   output is the samples, not coefficients (ik_jpeg4_decode_lossless).
+//
+// Progressive blocks accumulate in zigzag order and are put in natural
+// order once, at the EOI. An interleaved scan of more than 10 blocks (or
+// samples) an MCU is refused with -8, as libjpeg refuses it ("Sampling
+// factors too large for interleaved scan"). 12-bit, hierarchical and
+// lossless arithmetic frames and other component counts return -3. A
+// frame of two components (a JPEG TIFF's gray + alpha segments) decodes as
+// one of four does; the JPEG source layer refuses it, as Pillow does.
+// Its DCT output matches jpeg_entropy.cpp's ik_jpeg_decode_coeffs:
+// quantised coefficient planes [by][bx][64] in natural order, MCU-padded,
+// and the four 64-entry quant tables; its header is the same IkJpegInfo
+// (a lossless frame's "blocks" are samples: its MCU-padded sample grid),
+// plus the transform flag of an Adobe APP14 segment (-1 when there is
+// none) and the frame's coding.
 //
 // The exported names are ik_jpeg4_*: the loader links every native source
 // into one library.
@@ -36,6 +57,8 @@
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
+#include <utility>
+#include <vector>
 
 #define IK_EXPORT extern "C" __attribute__((visibility("default")))
 
@@ -50,6 +73,199 @@ enum {
   kBadDimensions = -5,
   kMcuTooLarge = -8,  // an interleaved scan of more than 10 blocks an MCU
   kEoi = 1,  // Next(): the EOI marker, after a progressive frame's scans
+};
+
+// the frame's coding (Ik4Extra.coding)
+enum { kHuffmanDct = 0, kArithDct = 1, kLossless = 2 };
+
+// T.81 Table D.2 (jaricom.c's jpeg_aritab): Qe in bits 16-31, the next
+// state after an MPS in bits 8-15, the MPS switch in bit 7 and the next
+// state after an LPS in bits 0-6. State 113 is the fixed estimate of 0.5
+// (T.851 10.3) that signs and refinement bits take.
+#define IK_QE(qe, lps, mps, sw) \
+  ((static_cast<uint32_t>(qe) << 16) | ((mps) << 8) | ((sw) << 7) | (lps))
+const uint32_t kQe[114] = {
+    IK_QE(0x5A1D, 1, 1, 1),     IK_QE(0x2586, 14, 2, 0),
+    IK_QE(0x1114, 16, 3, 0),    IK_QE(0x080B, 18, 4, 0),
+    IK_QE(0x03D8, 20, 5, 0),    IK_QE(0x01DA, 23, 6, 0),
+    IK_QE(0x00E5, 25, 7, 0),    IK_QE(0x006F, 28, 8, 0),
+    IK_QE(0x0036, 30, 9, 0),    IK_QE(0x001A, 33, 10, 0),
+    IK_QE(0x000D, 35, 11, 0),   IK_QE(0x0006, 9, 12, 0),
+    IK_QE(0x0003, 10, 13, 0),   IK_QE(0x0001, 12, 13, 0),
+    IK_QE(0x5A7F, 15, 15, 1),   IK_QE(0x3F25, 36, 16, 0),
+    IK_QE(0x2CF2, 38, 17, 0),   IK_QE(0x207C, 39, 18, 0),
+    IK_QE(0x17B9, 40, 19, 0),   IK_QE(0x1182, 42, 20, 0),
+    IK_QE(0x0CEF, 43, 21, 0),   IK_QE(0x09A1, 45, 22, 0),
+    IK_QE(0x072F, 46, 23, 0),   IK_QE(0x055C, 48, 24, 0),
+    IK_QE(0x0406, 49, 25, 0),   IK_QE(0x0303, 51, 26, 0),
+    IK_QE(0x0240, 52, 27, 0),   IK_QE(0x01B1, 54, 28, 0),
+    IK_QE(0x0144, 56, 29, 0),   IK_QE(0x00F5, 57, 30, 0),
+    IK_QE(0x00B7, 59, 31, 0),   IK_QE(0x008A, 60, 32, 0),
+    IK_QE(0x0068, 62, 33, 0),   IK_QE(0x004E, 63, 34, 0),
+    IK_QE(0x003B, 32, 35, 0),   IK_QE(0x002C, 33, 9, 0),
+    IK_QE(0x5AE1, 37, 37, 1),   IK_QE(0x484C, 64, 38, 0),
+    IK_QE(0x3A0D, 65, 39, 0),   IK_QE(0x2EF1, 67, 40, 0),
+    IK_QE(0x261F, 68, 41, 0),   IK_QE(0x1F33, 69, 42, 0),
+    IK_QE(0x19A8, 70, 43, 0),   IK_QE(0x1518, 72, 44, 0),
+    IK_QE(0x1177, 73, 45, 0),   IK_QE(0x0E74, 74, 46, 0),
+    IK_QE(0x0BFB, 75, 47, 0),   IK_QE(0x09F8, 77, 48, 0),
+    IK_QE(0x0861, 78, 49, 0),   IK_QE(0x0706, 79, 50, 0),
+    IK_QE(0x05CD, 48, 51, 0),   IK_QE(0x04DE, 50, 52, 0),
+    IK_QE(0x040F, 50, 53, 0),   IK_QE(0x0363, 51, 54, 0),
+    IK_QE(0x02D4, 52, 55, 0),   IK_QE(0x025C, 53, 56, 0),
+    IK_QE(0x01F8, 54, 57, 0),   IK_QE(0x01A4, 55, 58, 0),
+    IK_QE(0x0160, 56, 59, 0),   IK_QE(0x0125, 57, 60, 0),
+    IK_QE(0x00F6, 58, 61, 0),   IK_QE(0x00CB, 59, 62, 0),
+    IK_QE(0x00AB, 61, 63, 0),   IK_QE(0x008F, 61, 32, 0),
+    IK_QE(0x5B12, 65, 65, 1),   IK_QE(0x4D04, 80, 66, 0),
+    IK_QE(0x412C, 81, 67, 0),   IK_QE(0x37D8, 82, 68, 0),
+    IK_QE(0x2FE8, 83, 69, 0),   IK_QE(0x293C, 84, 70, 0),
+    IK_QE(0x2379, 86, 71, 0),   IK_QE(0x1EDF, 87, 72, 0),
+    IK_QE(0x1AA9, 87, 73, 0),   IK_QE(0x174E, 72, 74, 0),
+    IK_QE(0x1424, 72, 75, 0),   IK_QE(0x119C, 74, 76, 0),
+    IK_QE(0x0F6B, 74, 77, 0),   IK_QE(0x0D51, 75, 78, 0),
+    IK_QE(0x0BB6, 77, 79, 0),   IK_QE(0x0A40, 77, 48, 0),
+    IK_QE(0x5832, 80, 81, 1),   IK_QE(0x4D1C, 88, 82, 0),
+    IK_QE(0x438E, 89, 83, 0),   IK_QE(0x3BDD, 90, 84, 0),
+    IK_QE(0x34EE, 91, 85, 0),   IK_QE(0x2EAE, 92, 86, 0),
+    IK_QE(0x299A, 93, 87, 0),   IK_QE(0x2516, 86, 71, 0),
+    IK_QE(0x5570, 88, 89, 1),   IK_QE(0x4CA9, 95, 90, 0),
+    IK_QE(0x44D9, 96, 91, 0),   IK_QE(0x3E22, 97, 92, 0),
+    IK_QE(0x3824, 99, 93, 0),   IK_QE(0x32B4, 99, 94, 0),
+    IK_QE(0x2E17, 93, 86, 0),   IK_QE(0x56A8, 95, 96, 1),
+    IK_QE(0x4F46, 101, 97, 0),  IK_QE(0x47E5, 102, 98, 0),
+    IK_QE(0x41CF, 103, 99, 0),  IK_QE(0x3C3D, 104, 100, 0),
+    IK_QE(0x375E, 99, 93, 0),   IK_QE(0x5231, 105, 102, 0),
+    IK_QE(0x4C0F, 106, 103, 0), IK_QE(0x4639, 107, 104, 0),
+    IK_QE(0x415E, 103, 99, 0),  IK_QE(0x5627, 105, 106, 1),
+    IK_QE(0x50E7, 108, 107, 0), IK_QE(0x4B85, 109, 103, 0),
+    IK_QE(0x5597, 110, 109, 0), IK_QE(0x504F, 111, 107, 0),
+    IK_QE(0x5A10, 110, 111, 1), IK_QE(0x5522, 112, 109, 0),
+    IK_QE(0x59EB, 112, 111, 1), IK_QE(0x5A1D, 113, 113, 0)};
+#undef IK_QE
+constexpr uint8_t kFixedState = 113;
+
+// The QM decoder's registers and its byte input (jdarith.c's
+// arith_decode and get_byte): 0xFF00 is a data 0xFF; at a marker the
+// marker is held and zero bytes are fed; past the end of the data with no
+// marker, `overrun` is set (libjpeg's decoder cannot suspend for more).
+struct Qm {
+  const uint8_t* p;
+  const uint8_t* end;
+  int32_t c = 0, a = 0;
+  int ct = -16;  // -16: two initial bytes to read; -1: the interval failed
+  int marker = 0;  // the marker met in the data, not yet acted on
+  bool overrun = false;
+
+  int Byte() {
+    if (p >= end) {
+      overrun = true;
+      return 0;
+    }
+    return *p++;
+  }
+
+  // one binary decision on statistics bin *st (T.81 D.2)
+  int Decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        int data = 0;
+        if (!marker) {
+          data = Byte();
+          if (data == 0xFF) {
+            do data = Byte();
+            while (data == 0xFF);
+            if (data == 0) {
+              data = 0xFF;  // a stuffed zero
+            } else {
+              marker = data;
+              data = 0;
+            }
+          }
+        }
+        c = (c << 8) | data;
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;  // the first two bytes
+      }
+      a <<= 1;
+    }
+    const int sv = *st;
+    const uint32_t e = kQe[sv & 0x7F];
+    const int32_t qe = static_cast<int32_t>(e >> 16);
+    const int nl = e & 0xFF, nm = (e >> 8) & 0xFF;
+    int32_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    int bit = sv >> 7;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {  // conditional exchange: the MPS
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        bit ^= 1;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {  // conditional exchange: the LPS
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        bit ^= 1;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return bit;
+  }
+
+  // Scan forward to the next marker (libjpeg's next_marker): false where
+  // the data ends first.
+  bool NextMarker() {
+    while (true) {
+      while (p < end && *p != 0xFF) ++p;
+      while (p < end && *p == 0xFF) ++p;
+      if (p >= end) return false;
+      if (*p != 0) {
+        marker = *p++;
+        return true;
+      }
+      ++p;  // a stuffed zero: data, not a marker
+    }
+  }
+
+  // At the end of a restart interval: the RSTn that should come next
+  // (read_restart_marker, then jpeg_resync_to_restart where it is not),
+  // then the registers afresh. False where the data ends first.
+  bool Restart(int want) {
+    if (!marker && !NextMarker()) return false;
+    while (marker != 0xD0 + want) {
+      int action;  // jpeg_resync_to_restart's
+      if (marker < 0xC0) {
+        action = 2;  // not a marker: look for the next one
+      } else if (marker < 0xD0 || marker > 0xD7) {
+        action = 3;  // another marker: leave it, the interval reads zeros
+      } else if (marker == 0xD0 + ((want + 1) & 7) ||
+                 marker == 0xD0 + ((want + 2) & 7)) {
+        action = 3;  // one of the next two: an empty interval
+      } else if (marker == 0xD0 + ((want - 1) & 7) ||
+                 marker == 0xD0 + ((want - 2) & 7)) {
+        action = 2;  // an earlier one: look further
+      } else {
+        action = 1;  // too far off: take it as this one
+      }
+      if (action == 1) break;
+      if (action == 3) {
+        c = a = 0;
+        ct = -16;
+        return true;
+      }
+      marker = 0;
+      if (!NextMarker()) return false;
+    }
+    marker = 0;
+    c = a = 0;
+    ct = -16;
+    return true;
+  }
 };
 
 const uint8_t kZigzag[64] = {
@@ -183,6 +399,9 @@ struct Frame {
   int adobe_transform = -1;
   bool have_frame = false;
   bool progressive = false;
+  int coding = kHuffmanDct;
+  // DAC conditioning of the arithmetic tables (defaults: L 0, U 1, K 5)
+  uint8_t arith_l[16], arith_u[16], arith_k[16];
   uint16_t qtab[4][64] = {};
   Huffman dc[4], ac[4];
   Component comp[4];
@@ -195,6 +414,9 @@ struct Frame {
   // entropy-coded data.
   int Parse() {
     if (len < 4 || data[0] != 0xFF || data[1] != 0xD8) return kBadMarker;
+    std::memset(arith_l, 0, sizeof(arith_l));
+    std::memset(arith_u, 1, sizeof(arith_u));
+    std::memset(arith_k, 5, sizeof(arith_k));
     at = data + 2;
     return Next();
   }
@@ -231,13 +453,20 @@ struct Frame {
         case 0xC0:
         case 0xC1:
         case 0xC2:
+        case 0xC3:
+        case 0xC9:
+        case 0xCA:
           if (have_frame) return kBadMarker;
-          progressive = m == 0xC2;
+          progressive = m == 0xC2 || m == 0xCA;
+          coding = m == 0xC3 ? kLossless : m >= 0xC9 ? kArithDct : kHuffmanDct;
           rc = Sof(s, n);
           break;
-        case 0xC3: case 0xC5: case 0xC6: case 0xC7: case 0xC9:
-        case 0xCA: case 0xCB: case 0xCD: case 0xCE: case 0xCF:
-          return kUnsupported;  // lossless, hierarchical, arithmetic
+        case 0xC5: case 0xC6: case 0xC7: case 0xCB:
+        case 0xCD: case 0xCE: case 0xCF:
+          return kUnsupported;  // hierarchical, lossless arithmetic
+        case 0xCC:
+          rc = Dac(s, n);
+          break;
         case 0xDD:
           if (n < 2) return kTruncated;
           restart_interval = (s[0] << 8) | s[1];
@@ -274,6 +503,23 @@ struct Frame {
     return kOk;
   }
 
+  // DAC (get_dac): a DC table's L and U (L <= U), an AC table's K
+  int Dac(const uint8_t* s, int n) {
+    if (n % 2) return kBadMarker;
+    for (; n > 0; s += 2, n -= 2) {
+      const int index = s[0], val = s[1];
+      if (index >= 32) return kBadMarker;
+      if (index >= 16) {
+        arith_k[index - 16] = static_cast<uint8_t>(val);
+      } else {
+        if ((val & 15) > (val >> 4)) return kBadMarker;
+        arith_l[index] = static_cast<uint8_t>(val & 15);
+        arith_u[index] = static_cast<uint8_t>(val >> 4);
+      }
+    }
+    return kOk;
+  }
+
   int Dht(const uint8_t* s, int n) {
     while (n > 0) {
       if (n < 17) return kTruncated;
@@ -296,7 +542,7 @@ struct Frame {
     height = (s[1] << 8) | s[2];
     width = (s[3] << 8) | s[4];
     ncomp = s[5];
-    if (ncomp < 2 || ncomp > 4) return kUnsupported;
+    if (ncomp < 1 || ncomp > 4) return kUnsupported;
     if (width <= 0 || height <= 0) return kBadDimensions;
     if (n < 6 + 3 * ncomp) return kTruncated;
     for (int c = 0; c < ncomp; ++c) {
@@ -310,8 +556,7 @@ struct Frame {
       hmax = C.h > hmax ? C.h : hmax;
       vmax = C.v > vmax ? C.v : vmax;
     }
-    const int mcux = (width + 8 * hmax - 1) / (8 * hmax);
-    const int mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+    const int mcux = McusX(), mcuy = McusY();
     for (int c = 0; c < ncomp; ++c) {
       Component& C = comp[c];
       C.width = (width * C.h + hmax - 1) / hmax;
@@ -323,6 +568,11 @@ struct Frame {
     return kOk;
   }
 
+  // MCUs a row and a column: of 8x8 blocks, or of samples (lossless)
+  int Unit() const { return coding == kLossless ? 1 : 8; }
+  int McusX() const { return (width + Unit() * hmax - 1) / (Unit() * hmax); }
+  int McusY() const { return (height + Unit() * vmax - 1) / (Unit() * vmax); }
+
   int Sos(const uint8_t* s, int n) {
     if (!have_frame) return kBadMarker;
     if (n < 1) return kTruncated;
@@ -332,7 +582,9 @@ struct Frame {
     sos.ns = ns;
     for (int i = 0; i < ns; ++i) {
       const int cid = s[1 + 2 * i], tabs = s[2 + 2 * i];
-      if ((tabs >> 4) > 3 || (tabs & 15) > 3) return kBadMarker;
+      // an arithmetic scan may name any of its 16 conditioning tables
+      if (coding != kArithDct && ((tabs >> 4) > 3 || (tabs & 15) > 3))
+        return kBadMarker;
       int found = -1;
       for (int c = 0; c < ncomp; ++c)
         if (comp[c].id == cid) found = c;
@@ -352,6 +604,19 @@ struct Frame {
     sos.Se = sp[1];
     sos.Ah = sp[2] >> 4;
     sos.Al = sp[2] & 15;
+    if (coding == kLossless)  // Ss the predictor, Al the point transform
+      return sos.Ss < 1 || sos.Ss > 7 || sos.Se != 0 || sos.Ah != 0 ||
+                     sos.Al >= 8
+                 ? kBadMarker
+                 : kOk;
+    if (!progressive && coding == kArithDct) {
+      // jdarith.c only warns of another band (JWRN_NOT_SEQUENTIAL) and
+      // decodes the whole block
+      sos.Ss = 0;
+      sos.Se = 63;
+      sos.Ah = sos.Al = 0;
+      return kOk;
+    }
     if (!progressive)
       return sos.Ss != 0 || sos.Se != 63 || sp[2] != 0 ? kUnsupported : kOk;
     // T.81 G.1.1.1.1: a DC scan is 0..0, an AC scan one component's
@@ -368,8 +633,7 @@ struct Frame {
     Bits br;
     br.p = scan;
     br.end = data + len;
-    const int mcux = (width + 8 * hmax - 1) / (8 * hmax);
-    const int mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+    const int mcux = McusX(), mcuy = McusY();
     for (int c = 0; c < ncomp; ++c) {
       if (!dc[comp[c].td].present || !ac[comp[c].ta].present)
         return kBadHuffman;
@@ -447,14 +711,24 @@ struct Frame {
   int DecodeScans(int16_t** coeffs) {
     const uint8_t* end = data + len;
     while (true) {
-      Bits br;
-      br.p = scan;
-      br.end = end;
-      const int rc = DecodeScan(br, coeffs);
-      if (rc != kOk || br.Overrun()) return br.Overrun() ? kTruncated : rc;
+      const uint8_t* p;
+      if (coding == kArithDct) {
+        Qm qm;
+        qm.p = scan;
+        qm.end = end;
+        const int rc = DecodeScanArith(qm, coeffs);
+        if (rc != kOk) return rc;
+        p = qm.marker ? qm.p - 2 : qm.p;  // the marker the decoder met
+      } else {
+        Bits br;
+        br.p = scan;
+        br.end = end;
+        const int rc = DecodeScan(br, coeffs);
+        if (rc != kOk || br.Overrun()) return br.Overrun() ? kTruncated : rc;
+        p = br.p;
+      }
       ++scans;
       // the next marker after the entropy-coded data (RSTn lie inside it)
-      const uint8_t* p = br.p;
       while (p + 1 < end && !(p[0] == 0xFF && p[1] != 0x00 &&
                               !(p[1] >= 0xD0 && p[1] <= 0xD7)))
         ++p;
@@ -526,8 +800,7 @@ struct Frame {
       }
       return eobrun > 0 ? kBadHuffman : kOk;  // a run past the scan's blocks
     }
-    const int mcux = (width + 8 * hmax - 1) / (8 * hmax);
-    const int mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+    const int mcux = McusX(), mcuy = McusY();
     for (int my = 0; my < mcuy; ++my) {
       for (int mx = 0; mx < mcux; ++mx) {
         if (restart_interval && count == restart_interval) {
@@ -647,6 +920,318 @@ struct Frame {
     }
     return kOk;
   }
+
+  // -- arithmetic coding (T.81 Annex D, F.1.4, G.1.3; jdarith.c) ---------
+
+  uint8_t dc_stats[16][64];
+  uint8_t ac_stats[16][256];
+
+  // One scan in arithmetic coding, its blocks in DecodeScan's geometry:
+  // a whole block a time (sequential, decode_mcu) or a band or a bit of
+  // one (progressive, in zigzag order). The statistics, the DC
+  // predictions and the registers start afresh with the scan and with
+  // each restart interval; a failed interval (qm.ct == -1) decodes no
+  // further block until the next restart, as libjpeg's does.
+  int DecodeScanArith(Qm& qm, int16_t** coeffs) {
+    const Scan& si = sos;
+    int last[4], ctx[4];
+    uint8_t fixed = kFixedState;
+    auto fresh = [&]() {
+      std::memset(dc_stats, 0, sizeof(dc_stats));
+      std::memset(ac_stats, 0, sizeof(ac_stats));
+      for (int i = 0; i < 4; ++i) last[i] = ctx[i] = 0;
+    };
+    fresh();
+    int count = 0, rst = 0;
+    auto restart = [&]() {
+      if (!qm.Restart(rst)) return false;
+      rst = (rst + 1) & 7;
+      count = 0;
+      fresh();
+      return true;
+    };
+    auto block = [&](int i, int16_t* blk) {
+      const Component& C = comp[si.ci[i]];
+      if (!progressive) {
+        if (ArithDc(qm, C.td, last[i], ctx[i])) {
+          blk[0] = static_cast<int16_t>(last[i]);
+          ArithAc(qm, C.ta, 1, 63, 0, blk, fixed, false);
+        }
+      } else if (si.Ss == 0 && si.Ah == 0) {
+        if (ArithDc(qm, C.td, last[i], ctx[i]))
+          blk[0] = static_cast<int16_t>(static_cast<uint32_t>(last[i])
+                                        << si.Al);
+      } else if (si.Ss == 0) {
+        if (qm.Decode(&fixed)) blk[0] = static_cast<int16_t>(blk[0] |
+                                                            (1 << si.Al));
+      } else if (si.Ah == 0) {
+        ArithAc(qm, C.ta, si.Ss, si.Se, si.Al, blk, fixed, true);
+      } else {
+        ArithAcRefine(qm, C.ta, si.Ss, si.Se, si.Al, blk, fixed);
+      }
+    };
+    if (si.ns == 1) {
+      const int c = si.ci[0];
+      const Component& C = comp[c];
+      const int bw = (C.width + 7) / 8;
+      const int total = bw * ((C.height + 7) / 8);
+      for (int i = 0; i < total; ++i) {
+        if (restart_interval && count == restart_interval && !restart())
+          return kTruncated;
+        if (qm.ct != -1)
+          block(0, coeffs[c] +
+                       (static_cast<size_t>(i / bw) * C.blocks_w + i % bw) *
+                           64);
+        if (qm.overrun) return kTruncated;
+        ++count;
+      }
+      return kOk;
+    }
+    const int mcux = McusX(), mcuy = McusY();
+    for (int my = 0; my < mcuy; ++my) {
+      for (int mx = 0; mx < mcux; ++mx) {
+        if (restart_interval && count == restart_interval && !restart())
+          return kTruncated;
+        for (int i = 0; i < si.ns && qm.ct != -1; ++i) {
+          const int c = si.ci[i];
+          const Component& C = comp[c];
+          for (int v = 0; v < C.v && qm.ct != -1; ++v)
+            for (int h = 0; h < C.h && qm.ct != -1; ++h)
+              block(i, coeffs[c] +
+                           (static_cast<size_t>(my * C.v + v) * C.blocks_w +
+                            mx * C.h + h) * 64);
+        }
+        if (qm.overrun) return kTruncated;
+        ++count;
+      }
+    }
+    return kOk;
+  }
+
+  // A DC difference (F.2.4.1) into last (mod 2^16) and the component's
+  // conditioning category ctx; false where its magnitude overflows (the
+  // interval fails: JWRN_ARITH_BAD_CODE).
+  bool ArithDc(Qm& qm, int tbl, int& last, int& ctx) {
+    uint8_t* st = dc_stats[tbl] + ctx;
+    if (qm.Decode(st) == 0) {
+      ctx = 0;
+      return true;
+    }
+    const int sign = qm.Decode(st + 1);
+    st += 2 + sign;
+    int m = qm.Decode(st);
+    if (m != 0) {
+      st = dc_stats[tbl] + 20;
+      while (qm.Decode(st)) {
+        if ((m <<= 1) == 0x8000) {
+          qm.ct = -1;
+          return false;
+        }
+        st += 1;
+      }
+    }
+    if (m < ((1 << arith_l[tbl]) >> 1))
+      ctx = 0;
+    else if (m > ((1 << arith_u[tbl]) >> 1))
+      ctx = 12 + sign * 4;
+    else
+      ctx = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (qm.Decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    last = (last + v) & 0xFFFF;
+    return true;
+  }
+
+  // The AC band Ss..Se of a block (F.2.4.2, G.1.3.2): values shifted up
+  // by Al, at blk[k] (zigzag) or blk[kZigzag[k]] (natural order). A run
+  // or a magnitude past its end fails the interval.
+  void ArithAc(Qm& qm, int tbl, int ss, int se, int al, int16_t* blk,
+               uint8_t& fixed, bool zigzag) {
+    int k = ss - 1;
+    do {
+      uint8_t* st = ac_stats[tbl] + 3 * k;
+      if (qm.Decode(st)) break;  // the end of the block
+      for (;;) {
+        ++k;
+        if (qm.Decode(st + 1)) break;
+        st += 3;
+        if (k >= se) {
+          qm.ct = -1;
+          return;
+        }
+      }
+      const int sign = qm.Decode(&fixed);
+      st += 2;
+      int m = qm.Decode(st);
+      if (m != 0 && qm.Decode(st)) {
+        m <<= 1;
+        st = ac_stats[tbl] + (k <= arith_k[tbl] ? 189 : 217);
+        while (qm.Decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            qm.ct = -1;
+            return;
+          }
+          st += 1;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (qm.Decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      blk[zigzag ? k : kZigzag[k]] =
+          static_cast<int16_t>(static_cast<uint32_t>(v) << al);
+    } while (k < se);
+  }
+
+  // A refinement of the band Ss..Se (G.1.3.3, zigzag order): a bit more
+  // of each value already nonzero, new values of +-1 << Al, the end of the
+  // block decided only past the last value nonzero before this scan.
+  void ArithAcRefine(Qm& qm, int tbl, int ss, int se, int al, int16_t* blk,
+                     uint8_t& fixed) {
+    const int p1 = 1 << al, m1 = -p1;
+    int kex = se;
+    while (kex > 0 && blk[kex] == 0) --kex;
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (k > kex && qm.Decode(st)) break;  // the end of the block
+      for (;;) {
+        int16_t* coef = blk + k;
+        if (*coef) {  // nonzero before: its next bit
+          if (qm.Decode(st + 2))
+            *coef = static_cast<int16_t>(*coef + (*coef < 0 ? m1 : p1));
+          break;
+        }
+        if (qm.Decode(st + 1)) {  // newly nonzero
+          *coef = static_cast<int16_t>(qm.Decode(&fixed) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (k >= se) {
+          qm.ct = -1;
+          return;
+        }
+        ++k;
+      }
+    }
+  }
+
+  // -- lossless (T.81 Annex H; libjpeg-turbo's jdlhuff.c, jdpred.c) -----
+
+  // Every scan of a lossless frame into out[c] (comp_height x comp_width
+  // u8 samples each, zeroed by the caller; a component no scan codes stays
+  // zero): the differences an MCU row at a time, then each of its rows
+  // undone against the row above (Table H.1) and shifted up by Pt.
+  int DecodeLossless(uint8_t** out) {
+    const uint8_t* end = data + len;
+    while (true) {
+      Bits br;
+      br.p = scan;
+      br.end = end;
+      const int rc = LosslessScan(br, out);
+      if (rc != kOk || br.Overrun()) return br.Overrun() ? kTruncated : rc;
+      ++scans;
+      const uint8_t* p = br.p;
+      while (p + 1 < end && !(p[0] == 0xFF && p[1] != 0x00 &&
+                              !(p[1] >= 0xD0 && p[1] <= 0xD7)))
+        ++p;
+      at = p;
+      const int next = Next();
+      if (next == kEoi) return kOk;
+      if (next != kOk) return next;
+    }
+  }
+
+  int LosslessScan(Bits& br, uint8_t** out) {
+    const Scan& si = sos;
+    const bool one = si.ns == 1;
+    // MCUs a row and MCU rows: one sample a MCU in a component's own scan
+    const int per_row = one ? comp[si.ci[0]].width : McusX();
+    const int mcu_rows = one ? comp[si.ci[0]].height : McusY();
+    if (restart_interval && restart_interval % per_row)
+      return kBadHuffman;  // libjpeg takes whole MCU rows only
+    const int rows_a_interval =
+        restart_interval ? restart_interval / per_row : mcu_rows;
+    std::vector<int32_t> diff[4], prev[4], cur[4];
+    int gw[4], gv[4], gh[4];
+    for (int i = 0; i < si.ns; ++i) {
+      const Component& C = comp[si.ci[i]];
+      if (!dc[C.td].present) return kBadHuffman;
+      gh[i] = one ? 1 : C.h;
+      gv[i] = one ? 1 : C.v;
+      gw[i] = per_row * gh[i];
+      diff[i].assign(static_cast<size_t>(gw[i]) * gv[i], 0);
+      prev[i].assign(gw[i], 0);
+      cur[i].assign(gw[i], 0);
+    }
+    const int pt = si.Al, psv = si.Ss;
+    for (int my = 0; my < mcu_rows; ++my) {
+      const bool first = my % rows_a_interval == 0;
+      if (first && my > 0) {
+        const int rc = Restart(br);
+        if (rc != kOk) return rc;
+      }
+      for (int mx = 0; mx < per_row; ++mx) {
+        for (int i = 0; i < si.ns; ++i) {
+          const Huffman& tab = dc[comp[si.ci[i]].td];
+          for (int v = 0; v < gv[i]; ++v) {
+            for (int h = 0; h < gh[i]; ++h) {
+              const int s = DecodeSymbol(br, tab);
+              if (s < 0 || s > 16) return kBadHuffman;
+              int d = 0;
+              if (s == 16)
+                d = 32768;
+              else if (s)
+                d = Extend(br.Get(s), s);
+              diff[i][static_cast<size_t>(v) * gw[i] + mx * gh[i] + h] = d;
+            }
+          }
+        }
+        if (br.Overrun()) return kTruncated;
+      }
+      for (int i = 0; i < si.ns; ++i) {
+        const Component& C = comp[si.ci[i]];
+        for (int v = 0; v < gv[i]; ++v) {
+          const int32_t* d = diff[i].data() + static_cast<size_t>(v) * gw[i];
+          int32_t* x = cur[i].data();
+          const int32_t* up = prev[i].data();
+          if (first && v == 0) {  // the first row of the scan or interval
+            x[0] = (d[0] + (1 << (8 - pt - 1))) & 0xFFFF;
+            for (int k = 1; k < gw[i]; ++k) x[k] = (d[k] + x[k - 1]) & 0xFFFF;
+          } else {
+            x[0] = (d[0] + up[0]) & 0xFFFF;
+            for (int k = 1; k < gw[i]; ++k) {
+              const int ra = x[k - 1], rb = up[k], rc = up[k - 1];
+              int pred;
+              switch (psv) {
+                case 1: pred = ra; break;
+                case 2: pred = rb; break;
+                case 3: pred = rc; break;
+                case 4: pred = ra + rb - rc; break;
+                case 5: pred = ra + ((rb - rc) >> 1); break;
+                case 6: pred = rb + ((ra - rc) >> 1); break;
+                default: pred = (ra + rb) >> 1; break;
+              }
+              x[k] = (d[k] + pred) & 0xFFFF;
+            }
+          }
+          const int y = my * gv[i] + v;
+          if (y < C.height) {
+            uint8_t* o = out[si.ci[i]] + static_cast<size_t>(y) * C.width;
+            for (int k = 0; k < C.width; ++k)
+              o[k] = static_cast<uint8_t>(x[k] << pt);
+          }
+          std::swap(prev[i], cur[i]);
+        }
+      }
+    }
+    return kOk;
+  }
 };
 
 struct Ik4Info {  // the layout of jpeg_entropy.cpp's IkJpegInfo
@@ -656,12 +1241,18 @@ struct Ik4Info {  // the layout of jpeg_entropy.cpp's IkJpegInfo
   int32_t progressive;
 };
 
+// What the port's header adds to IkJpegInfo.
+struct Ik4Extra {
+  int32_t adobe_transform;  // an Adobe APP14 segment's flag, -1 without
+  int32_t coding;           // 0 Huffman DCT, 1 arithmetic DCT, 2 lossless
+};
+
 }  // namespace
 
-// Header only, up to the first SOS: the frame, and in *adobe_transform
-// the flag of an Adobe APP14 segment (-1 when none).
+// Header only, up to the first SOS: the frame, its Adobe transform flag
+// and its coding.
 IK_EXPORT int ik_jpeg4_parse(const uint8_t* data, size_t len, Ik4Info* info,
-                             int32_t* adobe_transform) {
+                             Ik4Extra* extra) {
   Frame f;
   f.data = data;
   f.len = len;
@@ -683,12 +1274,14 @@ IK_EXPORT int ik_jpeg4_parse(const uint8_t* data, size_t len, Ik4Info* info,
     info->blocks_h[c] = f.comp[c].blocks_h;
     info->comp_tq[c] = f.comp[c].tq;
   }
-  *adobe_transform = f.adobe_transform;
+  extra->adobe_transform = f.adobe_transform;
+  extra->coding = f.coding;
   return kOk;
 }
 
-// The scans into coeffs[0..ncomp-1] (zeroed by the caller,
-// blocks_h*blocks_w*64 int16 each) and qtabs_out (4 x 64, natural order).
+// The scans of a DCT frame into coeffs[0..ncomp-1] (zeroed by the caller,
+// blocks_h*blocks_w*64 int16 each) and qtabs_out (4 x 64, natural order);
+// -3 for a lossless frame.
 IK_EXPORT int ik_jpeg4_decode_coeffs(const uint8_t* data, size_t len,
                                      int16_t** coeffs, uint16_t* qtabs_out) {
   Frame f;
@@ -696,9 +1289,24 @@ IK_EXPORT int ik_jpeg4_decode_coeffs(const uint8_t* data, size_t len,
   f.len = len;
   int rc = f.Parse();
   if (rc != kOk) return rc;
-  // one interleaved baseline scan, or a sequence of scans to the EOI
-  rc = !f.progressive && f.sos.ns == f.ncomp ? f.Decode(coeffs)
-                                             : f.DecodeScans(coeffs);
+  if (f.coding == kLossless) return kUnsupported;
+  // one interleaved Huffman baseline scan, or a sequence of scans to the EOI
+  rc = f.coding == kHuffmanDct && !f.progressive && f.sos.ns == f.ncomp
+           ? f.Decode(coeffs)
+           : f.DecodeScans(coeffs);
   std::memcpy(qtabs_out, f.qtab, sizeof(f.qtab));  // DQT may follow a scan
   return rc;
+}
+
+// The samples of a lossless frame into planes[0..ncomp-1] (zeroed by the
+// caller, comp_height x comp_width u8 each); -3 for a DCT frame.
+IK_EXPORT int ik_jpeg4_decode_lossless(const uint8_t* data, size_t len,
+                                       uint8_t** planes) {
+  Frame f;
+  f.data = data;
+  f.len = len;
+  const int rc = f.Parse();
+  if (rc != kOk) return rc;
+  if (f.coding != kLossless) return kUnsupported;
+  return f.DecodeLossless(planes);
 }

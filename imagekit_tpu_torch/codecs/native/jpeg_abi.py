@@ -1,6 +1,7 @@
 """ctypes ABI for the native JPEG entropy codec (jpeg_entropy.cpp) and for
-the port's decoder beside it (jpeg4_decode.cpp: CMYK and YCCK JPEGs, and
-baseline frames in several scans, :func:`parse4` and :func:`decode4`).
+the port's decoder beside it (jpeg4_decode.cpp: CMYK and YCCK JPEGs,
+baseline frames in several scans, arithmetic-coded and lossless frames,
+:func:`parse4`, :func:`decode4` and :func:`decode_lossless`).
 :func:`parse_any` and :func:`decode_any` try the first, then the second
 where it refuses the frame as unsupported."""
 
@@ -31,10 +32,22 @@ class IkJpegInfo(ctypes.Structure):
     ]
 
 
+class Ik4Extra(ctypes.Structure):
+    """What ``jpeg4_decode.cpp``'s header adds to :class:`IkJpegInfo`."""
+
+    _fields_ = [
+        ("adobe_transform", ctypes.c_int32),
+        ("coding", ctypes.c_int32),
+    ]
+
+
+#: ``JpegHeader.coding``: the entropy coding of a frame
+HUFFMAN, ARITHMETIC, LOSSLESS = 0, 1, 2
+
 ERRORS = {
     -1: "truncated",
     -2: "bad marker",
-    -3: "unsupported (progressive/arithmetic/12-bit)",
+    -3: "unsupported (12-bit, hierarchical, lossless arithmetic)",
     -4: "bad huffman data",
     -5: "bad dimensions",
     -6: "internal error",
@@ -114,7 +127,7 @@ def configure(lib: ctypes.CDLL) -> None:
         ctypes.c_char_p,
         ctypes.c_size_t,
         ctypes.POINTER(IkJpegInfo),
-        ctypes.POINTER(ctypes.c_int32),  # the Adobe transform flag
+        ctypes.POINTER(Ik4Extra),
     ]
     lib.ik_jpeg4_parse.restype = ctypes.c_int
     lib.ik_jpeg4_decode_coeffs.argtypes = [
@@ -124,6 +137,12 @@ def configure(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p,
     ]
     lib.ik_jpeg4_decode_coeffs.restype = ctypes.c_int
+    lib.ik_jpeg4_decode_lossless.argtypes = [
+        ctypes.c_char_p,
+        ctypes.c_size_t,
+        ctypes.POINTER(ctypes.c_void_p),
+    ]
+    lib.ik_jpeg4_decode_lossless.restype = ctypes.c_int
 
 
 @dataclass
@@ -146,6 +165,14 @@ class JpegHeader:
     adobe_transform: int = -1
     #: the frame is one that only the port's decoder takes (:func:`parse4`)
     port_decoder: bool = False
+    #: :data:`HUFFMAN`, :data:`ARITHMETIC` (SOF9, SOF10) or :data:`LOSSLESS`
+    #: (SOF3: ``comp_width`` x ``comp_height`` samples a component, the
+    #: "blocks" its MCU-padded sample grid); read by :func:`parse4` only
+    coding: int = HUFFMAN
+    #: three components coded as RGB, not YCbCr (libjpeg's choice from the
+    #: JFIF and Adobe markers and the component ids): set by
+    #: ``codecs/jpeg.py``, which reads those markers
+    rgb: bool = False
 
 
 def _header(info: IkJpegInfo, **extra) -> JpegHeader:
@@ -176,18 +203,21 @@ def parse(lib: ctypes.CDLL, data: bytes) -> JpegHeader:
 
 
 def parse4(lib: ctypes.CDLL, data: bytes) -> JpegHeader:
-    """The header of a four-component (CMYK or YCCK) JPEG, baseline or
-    progressive, of a two-component one (a JPEG TIFF's gray + alpha
-    segment), or of a baseline frame of two to four components in several
-    scans, with its Adobe transform flag; -3 for anything else the
-    native decoder refuses (arithmetic, 12-bit, other component counts)."""
+    """The header of a frame the pinned parser refuses with -3 that the
+    port's decoder takes: four components (CMYK or YCCK), baseline or
+    progressive; two (a JPEG TIFF's gray + alpha segment); a baseline frame
+    in several scans; an arithmetic-coded (SOF9, SOF10) or a lossless
+    (SOF3) frame of one to four components. With its Adobe transform flag
+    and its coding; -3 for anything else the native decoder refuses
+    (12-bit, hierarchical, lossless arithmetic, other component counts)."""
     info = IkJpegInfo()
-    flag = ctypes.c_int32(-1)
+    extra = Ik4Extra(-1, HUFFMAN)
     rc = lib.ik_jpeg4_parse(data, len(data), ctypes.byref(info),
-                            ctypes.byref(flag))
+                            ctypes.byref(extra))
     if rc != 0:
         raise NativeJpegError(rc, four_components=True)
-    return _header(info, adobe_transform=int(flag.value), port_decoder=True)
+    return _header(info, adobe_transform=int(extra.adobe_transform),
+                   port_decoder=True, coding=int(extra.coding))
 
 
 def parse_any(lib: ctypes.CDLL, data: bytes) -> JpegHeader:
@@ -273,6 +303,24 @@ def decode4(
     if rc != 0:
         raise NativeJpegError(rc, four_components=True)
     return hdr, coeffs, qtabs
+
+
+def decode_lossless(lib: ctypes.CDLL, data: bytes
+                    ) -> Tuple[JpegHeader, List[np.ndarray]]:
+    """The samples of a lossless frame (:func:`parse4`'s ``LOSSLESS``):
+    one u8 plane a component, (comp_height, comp_width), shifted up by the
+    point transform; a component no scan codes stays zero."""
+    hdr = parse4(lib, data)
+    if hdr.coding != LOSSLESS:
+        raise NativeJpegError(-3, four_components=True)
+    planes = [np.zeros((hdr.comp_height[c], hdr.comp_width[c]), np.uint8)
+              for c in range(hdr.ncomp)]
+    ptrs = (ctypes.c_void_p * 4)(
+        *[p.ctypes.data_as(ctypes.c_void_p).value for p in planes])
+    rc = lib.ik_jpeg4_decode_lossless(data, len(data), ptrs)
+    if rc != 0:
+        raise NativeJpegError(rc, four_components=True)
+    return hdr, planes
 
 
 def decode_any(

@@ -6,8 +6,9 @@ The port's copies of the reference's C++ codecs (``jpeg_entropy.cpp``,
 encoder's entropy engine and leaf evaluation ``av1_enc.cpp``, beside this
 file) and its own decoders of what the reference hands to Pillow
 (``raster_decode.cpp`` and ``bcn_ext_decode.cpp``: QOI and BCn;
-``jpeg4_decode.cpp``: CMYK and YCCK
-JPEGs, baseline and progressive; ``bmp_ext_decode.cpp`` and
+``jpeg4_decode.cpp``: CMYK and YCCK JPEGs, baseline and progressive,
+baseline frames in several scans, arithmetic-coded and lossless frames;
+``bmp_ext_decode.cpp`` and
 ``tiff_ext_decode.cpp``: the BMP and TIFF layouts the copies refuse) are
 compiled at first use, one ``g++ -c`` a source, all started
 together, then linked:

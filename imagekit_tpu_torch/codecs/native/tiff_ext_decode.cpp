@@ -1472,8 +1472,11 @@ extern "C" {
 int ik_jpeg_parse(const uint8_t* data, size_t len, IkSegInfo* info);
 int ik_jpeg_decode_coeffs(const uint8_t* data, size_t len, int16_t** coeffs,
                           uint16_t* qtabs_out);
+struct IkSegExtra {  // jpeg4_decode.cpp's Ik4Extra
+  int32_t adobe_transform, coding;
+};
 int ik_jpeg4_parse(const uint8_t* data, size_t len, IkSegInfo* info,
-                   int32_t* adobe_transform);
+                   IkSegExtra* extra);
 int ik_jpeg4_decode_coeffs(const uint8_t* data, size_t len, int16_t** coeffs,
                            uint16_t* qtabs_out);
 }
@@ -1513,16 +1516,17 @@ int Splice(const IkTiffxSplice& s, int32_t i, std::vector<uint8_t>* buf) {
 // The header of a spliced segment as jpeg_abi.parse_any reads it: the
 // pinned parser, then, where it says -3, the four-component one. Returns 0
 // or the failing parser's code (the pinned parser's -3 where both refuse
-// the frame as unsupported); `four` is 1 where the four-component parser
-// took the stream or failed on it.
+// the frame as unsupported, and where the segment is arithmetic-coded or
+// lossless, which a JPEG TIFF page does not take); `four` is 1 where the
+// four-component parser took the stream or failed on it.
 int ParseAny(const std::vector<uint8_t>& buf, IkSegInfo* info,
              int32_t* four) {
   *four = 0;
   int rc = ik_jpeg_parse(buf.data(), buf.size(), info);
   if (rc == kUnsupported) {
-    int32_t flag = -1;
-    const int rc4 = ik_jpeg4_parse(buf.data(), buf.size(), info, &flag);
-    if (rc4 != kUnsupported) {
+    IkSegExtra extra = {-1, 0};
+    const int rc4 = ik_jpeg4_parse(buf.data(), buf.size(), info, &extra);
+    if (rc4 != kUnsupported && !(rc4 == kOk && extra.coding != 0)) {
       rc = rc4;
       *four = 1;
     }

@@ -10,7 +10,11 @@ images to RGB, alpha to RGBA. What differs from the reference:
   reference's default), so Pillow is never imported;
 - where the reference hands a PNG to Pillow (a PNG the native decoder
   does not take), this raises
-  :class:`~imagekit_tpu_torch.errors.NotPortedError`.
+  :class:`~imagekit_tpu_torch.errors.NotPortedError`, except for the
+  IHDR's method bytes, which the native decoder refuses and Pillow reads
+  (:func:`_ihdr`): a compression method (byte 10) other than 0, which
+  Pillow ignores, is decoded as 0; a filter method (byte 11) other than
+  0, which Pillow refuses, is its "cannot identify image file".
 
 A corrupt PNG raises :class:`~imagekit_tpu_torch.errors.TransformError`
 with the reference's message.
@@ -19,6 +23,7 @@ with the reference's message.
 from __future__ import annotations
 
 import ctypes
+import zlib
 from typing import Tuple
 
 import numpy as np
@@ -82,9 +87,29 @@ def _check(rc: int) -> None:
         raise TransformError(f"corrupt PNG ({rc})")
 
 
+def _ihdr(data: bytes) -> bytes:
+    """The PNG as the native decoder should read it, by the IHDR's method
+    bytes as Pillow reads them: filter method (byte 11) not 0 is refused
+    (Pillow has no such PNG: "cannot identify image file"); compression
+    method (byte 10) not 0 is read as 0 (Pillow never looks at it), the
+    byte cleared and the chunk's CRC, where it held, made again."""
+    if len(data) < 33 or data[12:16] != b"IHDR":
+        return data
+    if data[27]:
+        raise TransformError("cannot identify image file")
+    if not data[26]:
+        return data
+    fixed = bytearray(data)
+    fixed[26] = 0
+    if zlib.crc32(data[12:29]) == int.from_bytes(data[29:33], "big"):
+        fixed[29:33] = zlib.crc32(fixed[12:29]).to_bytes(4, "big")
+    return bytes(fixed)
+
+
 def parse(data: bytes) -> Tuple[int, int, int]:
     """Header only: (width, height, channels) of the decoded image, after
     the pixel ceiling."""
+    data = _ihdr(data)
     info = _IkPngInfo()
     _check(_lib().ik_png_parse(data, len(data), ctypes.byref(info)))
     if info.width * info.height > MAX_PIXELS:
@@ -97,6 +122,7 @@ def decode(data: bytes) -> np.ndarray:
     """PNG -> (H, W, C) u8: C = 3 for RGB, grayscale and palette sources,
     4 when the source has alpha."""
     w, h, ch = parse(data)
+    data = _ihdr(data)
     out = np.empty((h, w, ch), np.uint8)
     _check(_lib().ik_png_decode(
         data, len(data), out.ctypes.data_as(ctypes.c_void_p), out.nbytes))

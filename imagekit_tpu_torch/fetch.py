@@ -15,11 +15,14 @@ this stage's body, :class:`~imagekit_tpu_torch.errors.SourceDecodeError`).
 A JPEG whose header the native parser refuses answers here as the
 reference's Pillow decode does ("Unable to decode image for validation"),
 unless it refuses it as unsupported (-3): a CMYK or YCCK JPEG, baseline or
-progressive, or a baseline frame in several scans, is then validated by
-the port's own parser (and refused here where libjpeg refuses its
-sampling, as the reference's Pillow decode does here); a frame whose
-precision is not 8 bits is this stage's 400 (Pillow opens none), and
-another (arithmetic) is left to the engine, which answers it with a
+progressive, a baseline frame in several scans, an arithmetic-coded or a
+lossless frame, is then validated by the port's own parser
+(``codecs/jpeg.py::source_header``), and refused here where Pillow or
+libjpeg refuse it, as the reference's Pillow decode does here: a frame
+whose precision is not 8 bits or whose component count is not 1, 3 or 4,
+a sampling libjpeg refuses, a hierarchical or lossless arithmetic frame,
+a lossless one that needs a colour conversion. A lossless frame of four
+components is left to the engine, which answers it with a
 :class:`~imagekit_tpu_torch.errors.NotPortedError`, as it does a variant
 no decoder takes. A BMP or TIFF that the pinned parser refuses as
 unsupported is validated by the port's own parser of those layouts
@@ -185,7 +188,9 @@ async def fetch_source(
 def _jpeg_header(data: bytes):
     """The header of a JPEG the port decodes, None for one the native
     parsers refuse as unsupported (-3); anything else they refuse is the
-    reference's validation failure."""
+    reference's validation failure (a
+    :class:`~imagekit_tpu_torch.errors.TransformError` of
+    ``jpeg.source_header`` is raised to the caller, which answers it so)."""
     try:
         return jpeg.source_header(loader.load(), data)
     except jpeg_abi.NativeJpegError as e:

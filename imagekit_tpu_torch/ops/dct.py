@@ -61,6 +61,12 @@ CMYK and YCCK JPEGs, which the reference decodes with Pillow,
 components, TWO K3 launches, then libjpeg's and Pillow's integer colour
 steps, :func:`~imagekit_tpu_torch.ops.color.cmyk_to_rgb`).
 
+A JPEG coded as RGB (``hdr.rgb``: an Adobe transform of 0, or the ids
+'R', 'G', 'B' with no marker) skips the YCbCr step in the pixel decode.
+A lossless JPEG's samples need no IDCT: :func:`decode_lossless_planes`
+takes gray and alike-sampled frames as they are, and runs ONE K3 launch
+with replication stacks where the components are sampled differently.
+
 The pixel decode of a JPEG-compressed TIFF page, which the reference
 decodes with Pillow: :func:`decode_tiff_page` takes the coefficient planes
 ``codecs/tiff.py`` assembles from the page's strips or tiles, with
@@ -250,15 +256,17 @@ def _blocks_to_plane(coef_flat, by: int, bx: int, qtab) -> torch.Tensor:
 
 
 def _rgb_tail(Y, Cb, Cr, wv_y, wh_y, wv_c, wh_c, vidx, bands=None,
-              resize=resize_planes3):
+              resize=resize_planes3, ycc: bool = True):
     """Resize the three u8 planes with K3 (one launch) and convert BT.601
-    full-range YCbCr -> RGB -> flat (B, OH*OW*3) u8 (``dct.py:228``). K3
-    rounds each resized plane to u8 at every shape, as the reference's TPU
-    head did where K3 fits VMEM (the 1080p bucket does); its CPU branch
-    skips that rounding. ``bands`` is the (luma, chroma) pair of the
-    stacks' tables (:class:`resize_strip.ResizeTables`), or None."""
-    rgb = _ycc_to_rgb(*resize((Y, Cb, Cr), (wv_y, wh_y, wv_c, wh_c), vidx,
-                              bands=bands))
+    full-range YCbCr -> RGB -> flat (B, OH*OW*3) u8 (``dct.py:228``); with
+    ``ycc`` False (a JPEG coded as RGB) the planes are R, G and B as they
+    are. K3 rounds each resized plane to u8 at every shape, as the
+    reference's TPU head did where K3 fits VMEM (the 1080p bucket does);
+    its CPU branch skips that rounding. ``bands`` is the (luma, chroma)
+    pair of the stacks' tables (:class:`resize_strip.ResizeTables`), or
+    None."""
+    planes = resize((Y, Cb, Cr), (wv_y, wh_y, wv_c, wh_c), vidx, bands=bands)
+    rgb = _ycc_to_rgb(*planes) if ycc else torch.stack(planes, dim=-1)
     return rgb.reshape(rgb.shape[0], -1)
 
 
@@ -277,30 +285,36 @@ def _ycc_to_rgb(y, cb, cr) -> torch.Tensor:
 
 def decode_resize_rgb(y_flat, cb_flat, cr_flat, qtabs, wv_y, wh_y, wv_c,
                       wh_c, vidx, by_y: int, bx_y: int, by_c: int, bx_c: int,
-                      bands=None, resize=resize_planes3) -> torch.Tensor:
+                      bands=None, resize=resize_planes3,
+                      ycc: bool = True) -> torch.Tensor:
     """The RGB-output head on int16 levels (``_decode_resize_kernel``,
     ``dct.py:206``): flat (B, OH*OW*3) u8. ``qtabs`` is (B, 128), the luma
     table and the one Cb and Cr share, as the batched head carries them, or
-    (B, 192), Y, Cb and Cr each with its own (the JPEG pixel decode)."""
+    (B, 192), Y, Cb and Cr each with its own (the JPEG pixel decode).
+    ``ycc`` as :func:`_rgb_tail` takes it."""
     Y = _blocks_to_plane(y_flat, by_y, bx_y, qtabs[:, :64])
     Cb = _blocks_to_plane(cb_flat, by_c, bx_c, qtabs[:, 64:128])
     Cr = _blocks_to_plane(cr_flat, by_c, bx_c, qtabs[:, -64:])
-    return _rgb_tail(Y, Cb, Cr, wv_y, wh_y, wv_c, wh_c, vidx, bands, resize)
+    return _rgb_tail(Y, Cb, Cr, wv_y, wh_y, wv_c, wh_c, vidx, bands, resize,
+                     ycc)
 
 
 def decode_resize_rgb_batch(y_flat, cb_flat, cr_flat, qtabs, weights, vidx,
                             block_dims, out_shape, bands=None,
-                            device: Optional[torch.device] = None):
+                            device: Optional[torch.device] = None,
+                            ycc: bool = True):
     """Run the RGB-output head (``dct.py:1717``); returns (B, OHb, OWb, 3)
     u8 numpy (crop on the host). One K3 launch on CUDA, K3's plain
-    version on the CPU."""
+    version on the CPU. ``ycc`` False: planes coded as RGB, no colour
+    step (the JPEG pixel decode of such a frame)."""
     wv_y, wh_y, wv_c, wh_c = weights
     obh, obw = out_shape
     device = resolve(device)
     args = on_device((y_flat, cb_flat, cr_flat, qtabs, wv_y, wh_y, wv_c,
                       wh_c, vidx), device)
     flat = to_host(decode_resize_rgb(*args, *block_dims,
-                                     bands=tables_on(bands, device)), device)
+                                     bands=tables_on(bands, device), ycc=ycc),
+                   device)
     return flat.reshape(flat.shape[0], obh, obw, 3)
 
 
@@ -616,8 +630,9 @@ def decode_components_to_rgb(decoded, device: Optional[torch.device] = None
     chroma (:func:`~imagekit_tpu_torch.ops.weights.chroma_axis_weights`),
     ONE K3 launch on CUDA. Three components in any other integer sampling
     take :func:`decode_sampled_components` (one K3 launch too); four
-    components (CMYK, YCCK) :func:`decode_four_components`. Anything else
-    raises ValueError."""
+    components (CMYK, YCCK) :func:`decode_four_components`. A frame coded
+    as RGB (``hdr.rgb``) skips the colour step. Anything else raises
+    ValueError."""
     hdr, coeffs, qtabs = decoded
     if hdr.ncomp == 4:
         return decode_four_components(decoded, device=device)
@@ -651,6 +666,7 @@ def decode_components_to_rgb(decoded, device: Optional[torch.device] = None
         (by_y, bx_y, by_c, bx_c),
         (by_y * 8, bx_y * 8),
         device=device,
+        ycc=not hdr.rgb,
     )
     return out[0, :hdr.height, :hdr.width]
 
@@ -688,13 +704,16 @@ def decode_sampled_components(decoded, device: Optional[torch.device] = None
     batched head's (4:1:1, 4:1:0, a ratio of 3, Cb and Cr sampled
     differently, a luma below the largest factors): each component's IDCT,
     then its own stacks (:func:`sampled_inputs`) to the full grid in ONE
-    K3 launch on CUDA, crop, YCbCr -> RGB as the batched head does ->
-    (H, W, 3) u8, on ``device`` (the card unless named)."""
+    K3 launch on CUDA, crop, YCbCr -> RGB as the batched head does (none
+    for a frame coded as RGB) -> (H, W, 3) u8, on ``device`` (the card
+    unless named)."""
     hdr = decoded[0]
     device = resolve(device)
     planes = resize_components(*sampled_inputs(decoded, device))
     h, w = hdr.height, hdr.width
-    return to_host(_ycc_to_rgb(*(p[0, :h, :w] for p in planes)), device)
+    planes = [p[0, :h, :w] for p in planes]
+    return to_host(torch.stack(planes, dim=-1) if hdr.rgb
+                   else _ycc_to_rgb(*planes), device)
 
 
 def plane_inputs(coeffs, qt, keys, stacks_of, device: torch.device):
@@ -704,10 +723,6 @@ def plane_inputs(coeffs, qt, keys, stacks_of, device: torch.device):
     bx*8) at its own block grid; its (wv, wh) stacks, ``stacks_of(keys[c])``
     as numpy, and their band tables (components of one key share them,
     made once); the index."""
-    per_key = {}
-    for key in dict.fromkeys(keys):
-        wv, wh = on_device(tuple(a[None] for a in stacks_of(key)), device)
-        per_key[key] = (wv, wh), resize_tables(wv, wh)
     grids = [c.shape[:2] for c in coeffs]
     qt, vidx, *levels = on_device(
         (np.asarray(qt, np.float32), np.zeros(1, np.int32),
@@ -715,8 +730,17 @@ def plane_inputs(coeffs, qt, keys, stacks_of, device: torch.device):
         device)
     planes = [_blocks_to_plane(lv, by, bx, qt[i:i + 1])
               for i, (lv, (by, bx)) in enumerate(zip(levels, grids))]
-    return (planes, [per_key[k][0] for k in keys],
-            [per_key[k][1] for k in keys], vidx)
+    return (planes, *_stack_inputs(keys, stacks_of, device), vidx)
+
+
+def _stack_inputs(keys, stacks_of, device: torch.device):
+    """The (wv, wh) stacks ``stacks_of(keys[c])`` of each plane on
+    ``device`` and their band tables, made once a key."""
+    per_key = {}
+    for key in dict.fromkeys(keys):
+        wv, wh = on_device(tuple(a[None] for a in stacks_of(key)), device)
+        per_key[key] = (wv, wh), resize_tables(wv, wh)
+    return [per_key[k][0] for k in keys], [per_key[k][1] for k in keys]
 
 
 def four_component_inputs(decoded, device: torch.device):
@@ -765,6 +789,57 @@ def decode_four_components(decoded, device: Optional[torch.device] = None
     rgb = cmyk_to_rgb(*(p[0, :h, :w] for p in planes),
                       ycck=hdr.adobe_transform > 0)
     return to_host(rgb, device)
+
+
+# -- lossless JPEGs ------------------------------------------------------------
+
+
+def lossless_inputs(decoded, device: torch.device):
+    """K3's inputs in the pixel decode of a lossless JPEG whose components
+    are sampled differently: each component's u8 samples, zero-padded to
+    the MCU-padded grid a DCT frame of its sampling has (whole blocks of
+    8, so the grids' ratios are the sampling's), uploaded as (1, rows,
+    columns); replication stacks to the grid of the largest factors
+    (:func:`~imagekit_tpu_torch.ops.weights.component_stacks`, "int":
+    weight 1 at floor(i / ratio), stopping at the component's real size;
+    libjpeg-turbo upsamples a lossless frame by replication, no triangle)
+    and their band tables; the index."""
+    hdr, samples, _ = decoded
+    mcux = -(-hdr.width // (8 * hdr.hmax))
+    mcuy = -(-hdr.height // (8 * hdr.vmax))
+    full = (mcuy * hdr.vmax, mcux * hdr.hmax)
+    keys, padded = [], []
+    for c, p in enumerate(samples):
+        grid = (mcuy * hdr.comp_v[c], mcux * hdr.comp_h[c])
+        a = np.zeros((1, grid[0] * 8, grid[1] * 8), np.uint8)
+        a[0, :p.shape[0], :p.shape[1]] = p
+        padded.append(a)
+        keys.append((grid, p.shape, "int"))
+    vidx, *planes = on_device((np.zeros(1, np.int32), *padded), device)
+    return (planes, *_stack_inputs(keys, lambda k: component_stacks(full, *k),
+                                   device), vidx)
+
+
+def decode_lossless_planes(decoded, device: Optional[torch.device] = None
+                           ) -> np.ndarray:
+    """The pixel decode of a lossless JPEG: ``decoded`` is (header, u8
+    sample planes, None) of ``codecs/jpeg.py::decode_to_coefficients``, one
+    or three components, the samples as they are (libjpeg converts no
+    colour in lossless mode: gray, or R, G and B) -> (H, W, 3) u8. Gray,
+    or three components sampled alike, is the samples themselves, on the
+    host (no kernel: the RGB head's K2 comes next); components sampled
+    differently take :func:`lossless_inputs` and ONE K3 launch on
+    ``device`` (the card unless named), exact: replication on u8."""
+    hdr, samples, _ = decoded
+    if hdr.ncomp == 1:
+        return np.repeat(samples[0][:, :, None], 3, axis=2)
+    if len(set(zip(hdr.comp_h, hdr.comp_v))) == 1:
+        return np.stack(samples, axis=-1)
+    device = resolve(device)
+    planes = resize_components(*lossless_inputs(decoded, device))
+    h, w = hdr.height, hdr.width
+    return to_host(torch.stack([p[0, :h, :w] for p in planes], dim=-1),
+                   device)
 
 
 # -- JPEG-compressed TIFF pages ----------------------------------------------

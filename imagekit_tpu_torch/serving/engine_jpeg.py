@@ -102,10 +102,11 @@ class JpegPathMixin:
         except jpeg_abi.NativeJpegError as e:
             raise _decode_error(e) from e
         if pre_hdr.port_decoder:
-            # CMYK and YCCK, and baseline frames in several scans (4:2:0
-            # too): only the port's own entropy decoder takes them, and the
-            # JPEG heads' entries are the pinned decoder's; the pixel decode
-            # and the RGB head (the reference decodes them with Pillow)
+            # CMYK and YCCK, baseline frames in several scans (4:2:0 too),
+            # arithmetic-coded and lossless frames: only the port's own
+            # entropy decoder takes them, and the JPEG heads' entries are
+            # the pinned decoder's; the pixel decode and the RGB head (the
+            # reference decodes them with Pillow)
             raise _NativeUnsupported()
         if pre_hdr.ncomp != 1 and (
             tuple(pre_hdr.comp_h) != (2, 1, 1)

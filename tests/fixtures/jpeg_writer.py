@@ -111,9 +111,10 @@ def grids(width: int, height: int, samp: Sequence[Tuple[int, int]]):
 
 
 def coefficients(rgb: np.ndarray, quality: int,
-                 samp: Sequence[Tuple[int, int]]):
+                 samp: Sequence[Tuple[int, int]], colour: str = "ycbcr"):
     """(H, W, 3) u8 RGB -> (quantised planes, tables, the tables'
-    selectors): YCbCr (BT.601, full range), component c box-filtered to
+    selectors): YCbCr (BT.601, full range; R, G and B as they are with
+    ``colour="rgb"``), component c box-filtered to
     ``samp[c]`` of the largest factors (a fractional ratio takes the
     nearest sample; its real size edge-replicated to its padded grid),
     level-shifted, 8x8 forward DCT, quantised (rounded half away from
@@ -124,6 +125,8 @@ def coefficients(rgb: np.ndarray, quality: int,
     planes = [0.299 * r + 0.587 * g + 0.114 * b,
               -0.168735892 * r - 0.331264108 * g + 0.5 * b + 128,
               0.5 * r - 0.418687589 * g - 0.081312411 * b + 128]
+    if colour == "rgb":
+        planes = [r, g, b]
     hmax = max(s[0] for s in samp)
     vmax = max(s[1] for s in samp)
     tabs = quality_tables(quality)
@@ -288,7 +291,8 @@ def _dht(tc: int, th: int, table) -> bytes:
 def write(planes, qtabs, width: int, height: int,
           samp: Sequence[Tuple[int, int]], tq: Optional[Sequence[int]] = None,
           interleaved: bool = True, restart: int = 0,
-          adobe_transform: Optional[int] = None) -> bytes:
+          adobe_transform: Optional[int] = None,
+          ids: Optional[Sequence[int]] = None) -> bytes:
     """A baseline JPEG (SOF0) of 1, 3 or 4 components: ``planes[c]`` the
     quantised coefficients of component c on its padded grid
     (:func:`grids`), ``qtabs`` 64-entry tables in natural order, ``tq[c]``
@@ -296,8 +300,9 @@ def write(planes, qtabs, width: int, height: int,
     factors (1-4). One scan of every component in MCU order, or one scan
     a component; ``restart`` MCUs (a component scan's blocks) a restart
     interval; ``adobe_transform`` writes an Adobe APP14 segment with that
-    flag."""
+    flag; ``ids`` are the component ids (1, 2, ... by default)."""
     ncomp = len(planes)
+    ids = list(ids) if ids is not None else [c + 1 for c in range(ncomp)]
     tq = list(tq) if tq is not None else [0] + [1] * (ncomp - 1)
     blocks, real = grids(width, height, samp)
     for p, (bh, bw) in zip(planes, blocks):
@@ -315,7 +320,7 @@ def write(planes, qtabs, width: int, height: int,
     sof = bytes([8]) + height.to_bytes(2, "big") + width.to_bytes(2, "big")
     sof += bytes([ncomp])
     for c, (h, v) in enumerate(samp):
-        sof += bytes([c + 1, (h << 4) | v, tq[c]])
+        sof += bytes([ids[c], (h << 4) | v, tq[c]])
     out += _segment(0xC0, sof)
     out += _segment(0xC4, _dht(0, 0, DC_LUMA) + _dht(1, 0, AC_LUMA)
                     + _dht(0, 1, DC_CHROMA) + _dht(1, 1, AC_CHROMA))
@@ -329,7 +334,7 @@ def write(planes, qtabs, width: int, height: int,
     for comps in scans:
         sos = bytes([len(comps)])
         for c in comps:
-            sos += bytes([c + 1, 0x00 if c == 0 else 0x11])
+            sos += bytes([ids[c], 0x00 if c == 0 else 0x11])
         out += _segment(0xDA, sos + bytes([0, 63, 0]))
         out += _scan_bytes(planes, *_scan_units(blocks, real_blocks, comps,
                                                 samp), tables, restart)

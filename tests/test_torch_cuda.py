@@ -1377,3 +1377,48 @@ def test_tiff_remainder_pages_on_card_match_cpu(case):
         assert d.max() == 0
     else:
         assert d.max() <= 2 and (d > 0).mean() <= MAX_SHARE
+
+
+@needs_card
+@pytest.mark.parametrize("case", ["arith_420", "arith_progressive_444",
+                                  "arith_cmyk", "lossless_gray",
+                                  "lossless_rgb_420"])
+def test_arith_lossless_on_card_match_cpu(case):
+    """Arithmetic-coded and lossless JPEGs written by the numpy writers of
+    ``tests/fixtures/`` (``chip_smoke.jpeg_writer`` loads them by path), on
+    the card: one K3 launch a DCT frame (two for CMYK) and a lossless frame
+    of subsampled components, none for lossless gray; pixels within +-2 on
+    at most 0.1% of the CPU's plain decode (exact for lossless)."""
+    import chip_smoke
+    from imagekit_tpu_torch import codecs
+    from imagekit_tpu_torch.ops import resize_planes
+
+    jw, aw, lw = (chip_smoke.jpeg_writer(n) for n in (
+        "jpeg_writer", "jpeg_arith_writer", "jpeg_lossless_writer"))
+    img = chip_smoke.synth_image(13, 640, 360, noise=False)
+    s420, s444 = chip_smoke.S420, chip_smoke.S444
+    if case.startswith("arith"):
+        samp = s444 if "444" in case else s420
+        planes, tabs, tq = jw.coefficients(
+            img, 80, samp, colour="rgb" if case == "arith_cmyk" else "ycbcr")
+        if case == "arith_cmyk":  # R, G and B as Adobe's inverted inks
+            white = jw.coefficients(np.full_like(img, 255), 80, samp)[0]
+            planes, samp, tq = planes + white[:1], chip_smoke.SCMYK, tq + [0]
+        data = aw.write(planes, tabs, 640, 360, samp, tq,
+                        progressive="progressive" in case, restart=40,
+                        adobe_transform=0 if case == "arith_cmyk" else None)
+    else:
+        samp = ((1, 1),) if case == "lossless_gray" else s420
+        data = lw.write(lw.subsample(img[:, :, :len(samp)], samp), 640, 360,
+                        samp, predictor=5)
+    before = resize_planes.LAUNCHES
+    got = codecs.decode_bytes(data, device="cuda")[0]
+    assert resize_planes.LAUNCHES - before == {
+        "arith_cmyk": 2, "lossless_gray": 0}.get(case, 1)
+    want = codecs.decode_bytes(data, device="cpu")[0]
+    assert got.shape == want.shape == (360, 640, 3)
+    d = np.abs(got.astype(int) - want.astype(int))
+    if case.startswith("lossless"):
+        assert d.max() == 0
+    else:
+        assert d.max() <= 2 and (d > 0).mean() <= MAX_SHARE

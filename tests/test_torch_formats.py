@@ -17,7 +17,7 @@ JAX package, on the CPU.
   of ``tests/test_torch_rgba_slice.py``.
 - HTTP: a truncated GIF or TIFF, and a JPEG cut before its SOS marker,
   answer ``/img`` with the fetch stage's body in both apps; an ICO is
-  served; arithmetic-coded JPEGs answer 501, 12-bit ones 400 as in the
+  served; lossless CMYK JPEGs answer 501, 12-bit ones 400 as in the
   reference; EXR answers 400.
 """
 
@@ -335,7 +335,8 @@ def test_engine_matches_jax_engine(monkeypatch, kind):
 SECRET = "test-secret-key"
 URLS = {name: f"https://example.com/{name}" for name in (
     "ok.gif", "cut.gif", "cut.tiff", "ok.bmp", "ok.tiff", "x.ico",
-    "cut_sos.jpg", "12bit.jpg", "arithmetic.jpg")}
+    "cut_sos.jpg", "12bit.jpg", "arithmetic.jpg", "lossless_cmyk.jpg",
+    "sof11.jpg")}
 
 
 def _cut_before_sos() -> bytes:
@@ -346,7 +347,7 @@ def _cut_before_sos() -> bytes:
 
 
 def _canned():
-    from tests.test_torch_jpeg_layouts import _sof_patched
+    from tests.test_torch_jpeg_layouts import _lossless, _sof_patched
 
     gif = _photo_like("gif")
     tif = _photo_like("tiff")
@@ -357,6 +358,8 @@ def _canned():
         URLS["12bit.jpg"]: ("image/jpeg", _sof_patched(0, 12)),
         URLS["arithmetic.jpg"]: ("image/jpeg",
                                  _sof_patched(0, 0, marker=0xC9)),
+        URLS["lossless_cmyk.jpg"]: ("image/jpeg", _lossless(4)),
+        URLS["sof11.jpg"]: ("image/jpeg", _lossless(3, marker=0xCB)),
         URLS["ok.gif"]: ("image/gif", gif),
         URLS["cut.gif"]: ("image/gif", gif[: len(gif) // 2]),
         URLS["cut.tiff"]: ("image/tiff", tif[: len(tif) // 2]),
@@ -423,25 +426,37 @@ def test_http_truncated_source_answers_as_the_reference(tmp_path, name):
         assert body == b"Invalid argument: Unable to decode image for validation"
 
 
-@pytest.mark.parametrize("name", ["12bit.jpg", "arithmetic.jpg"])
+@pytest.mark.parametrize("name", ["12bit.jpg", "arithmetic.jpg",
+                                  "lossless_cmyk.jpg", "sof11.jpg"])
 def test_http_unsupported_jpeg_coding_answers_501(tmp_path, name):
-    """An arithmetic-coded JPEG (the native decoders' -3) passes the fetch
-    stage and answers 501 naming its queue item, with a resize and without
-    (the reference's Pillow decodes this hand-patched file, whose scan is
-    Huffman behind SOF9, to 200: ROADMAP queue 3). A 12-bit JPEG answers as
-    the reference does: Pillow opens 8-bit frames only, so its fetch stage
-    answers 400, and so does the port's."""
+    """With a resize and without: a lossless CMYK JPEG passes the fetch
+    stage and answers 501 naming its queue item (the reference serves it
+    with Pillow). The hand-patched arithmetic file, whose scan is Huffman
+    behind SOF9, answers 200 in both apps now, the QM decoder reading it as
+    libjpeg's does (the name is kept from when it answered 501). A 12-bit
+    JPEG and a lossless arithmetic one (SOF11) answer as the reference
+    does: Pillow opens 8-bit frames only, and libjpeg refuses SOF11, so its
+    fetch stage answers 400, and so does the port's."""
     async def fn(client):
         return [await _img(client, url=URLS[name], **({"w": w} if w else {}))
                 for w in (64, None)]
 
     port = _serve(tmp_path, "port", fn)
-    if name == "12bit.jpg":
+    if name in ("12bit.jpg", "sof11.jpg"):
         assert port == _serve(tmp_path, "ref", fn)
         for status, _, body in port:
             assert status == 400
             assert body == (b"Invalid argument: Unable to decode image for "
                             b"validation")
+        return
+    if name == "arithmetic.jpg":
+        ref = _serve(tmp_path, "ref", fn)
+        for (ps, pct, pbody), (rs, rct, rbody) in zip(port, ref):
+            assert (ps, pct) == (rs, rct) == (200, "image/webp")
+            a, b = vp8.decode_rgb(pbody), vp8.decode_rgb(rbody)
+            assert a.shape == b.shape
+            err = ((a.astype(float) - b) ** 2).mean()
+            assert err == 0 or 10 * np.log10(255.0 ** 2 / err) >= 38.0
         return
     for status, _, body in port:
         assert status == 501 and b"ROADMAP queue 1 item 10" in body

@@ -23,9 +23,11 @@ K3's plain version here), and hands the pixels to the batched RGB head.
   (``device_decode``) and, with a resize, one batch of the RGB head
   (``device_resize``), never the JPEG heads (``device_decode_resize``).
   AVIF output, a source beyond the bucket ladder and HTTP answer too.
-- (d) What stays 501 (``NotPortedError``, queue 1 item 10): arithmetic
-  coding (the native decoders' code -3), progressive CMYK among it. A
-  12-bit frame is Pillow's "cannot identify image file", a 400 as in the
+- (d) What stays 501 (``NotPortedError``, queue 1 item 10): lossless
+  CMYK. Arithmetic coding is served (progressive CMYK among it; the
+  coding has its own tests, ``tests/test_torch_jpeg_arith_lossless.py``).
+  A 12-bit frame is Pillow's "cannot identify image file", a lossless
+  arithmetic one (SOF11) libjpeg's "broken data stream", 400s as in the
   reference; Cb and Cr sampled differently and a chroma ratio of 4 (4:1:1)
   are served (``tests/test_torch_jpeg_sampling.py`` has the layouts and
   their fixtures, from ``tests/fixtures/jpeg_writer.py``). Baseline CMYK
@@ -401,7 +403,8 @@ def test_http_img_and_upload(tmp_path):
 
 def _cmyk_progressive() -> bytes:
     """A progressive CMYK JPEG in arithmetic coding (Pillow's Huffman one
-    with its SOF2 marker made SOF10): the Huffman one decodes now."""
+    with its SOF2 marker made SOF10): the QM decoder reads its Huffman bits
+    as libjpeg's does."""
     buf = io.BytesIO()
     Image.fromarray(make_test_image(64, 48)).convert("CMYK").save(
         buf, "JPEG", progressive=True)
@@ -433,23 +436,43 @@ def _mixed_chroma() -> bytes:
                            ((2, 2), (1, 1), (2, 1)))
 
 
+def _lossless(ncomp: int, marker: int = 0xC3) -> bytes:
+    """A lossless JPEG (``tests/fixtures/jpeg_lossless_writer.py``) of
+    ``ncomp`` components at 1x1, its SOF3 marker made ``marker``."""
+    from tests.fixtures import jpeg_lossless_writer
+
+    img = make_test_image(64, 48)
+    planes = jpeg_lossless_writer.subsample(
+        np.dstack([img, img[:, :, 1]])[:, :, :ncomp], [(1, 1)] * ncomp)
+    data = bytearray(jpeg_lossless_writer.write(planes, 64, 48,
+                                                [(1, 1)] * ncomp))
+    data[data.index(b"\xff\xc3") + 1] = marker
+    return bytes(data)
+
+
 NOT_PORTED = {
     "cmyk_progressive": _cmyk_progressive,
     "12bit": lambda: _sof_patched(0, 12),
     "arithmetic": lambda: _sof_patched(0, 0, marker=0xC9),
     "mixed_chroma": _mixed_chroma,
+    "lossless_cmyk": lambda: _lossless(4),
+    "lossless_arithmetic": lambda: _lossless(3, marker=0xCB),
 }
 
 
 @pytest.mark.parametrize("name", list(NOT_PORTED))
 def test_layouts_outside_the_decode_stay_not_ported(name):
-    """Arithmetic coding (progressive CMYK among it) stays 501 naming its
-    queue item, with a resize and without. A 12-bit frame is Pillow's
-    "cannot identify image file" in the decode and both engine paths (400,
-    as the reference answers). Cb and Cr sampled differently decode, as
-    Pillow decodes them."""
+    """Cb and Cr sampled differently and arithmetic coding (progressive
+    CMYK among it: Huffman bits behind SOF9 and SOF10, which the QM
+    decoder reads as libjpeg's does) decode, to the pixels Pillow gives,
+    with a resize and without (the name is kept from when arithmetic
+    coding answered 501). A lossless CMYK frame stays 501 naming its queue
+    item. A 12-bit frame is Pillow's "cannot identify image file", and a
+    lossless arithmetic one (SOF11) libjpeg's refusal, "broken data
+    stream", in the decode and both engine paths (400, as the reference
+    answers)."""
     data = NOT_PORTED[name]()
-    if name == "mixed_chroma":
+    if name in ("mixed_chroma", "arithmetic", "cmyk_progressive"):
         got = jpeg.decode_rgb(data, device="cpu")
         want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
         assert got.shape == want.shape == (48, 64, 3)
@@ -463,17 +486,19 @@ def test_layouts_outside_the_decode_stay_not_ported(name):
         return
     if name == "12bit":
         raised, match = TransformError, "cannot identify image file"
+    elif name == "lossless_arithmetic":
+        raised, match = TransformError, "broken data stream"
     else:
         raised, match = NotPortedError, "queue 1 item 10"
     with pytest.raises(raised, match=match) as e:
         jpeg.decode_rgb(data, device="cpu")
-    assert isinstance(e.value, NotPortedError) == (name != "12bit")
+    assert isinstance(e.value, NotPortedError) == (raised is NotPortedError)
     for width in (64, None):
         engine = PortEngine(_cfg(port_config, 1), metrics=Metrics(),
                             device="cpu")
         with pytest.raises(raised, match=match) as e:
             _drive(engine, [data], [width], ImageFormat.webp)
-        if name != "12bit":
+        if raised is NotPortedError:
             assert e.value.roadmap_item == "queue 1 item 10"
         else:
             assert not isinstance(e.value, NotPortedError)

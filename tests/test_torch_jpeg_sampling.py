@@ -486,9 +486,8 @@ class Info(ctypes.Structure):
 rcs = {}
 for name, hexdata in json.loads(sys.stdin.read()).items():
     data = bytes.fromhex(hexdata)
-    info, flag = Info(), ctypes.c_int32()
-    rc = lib.ik_jpeg4_parse(data, len(data), ctypes.byref(info),
-                            ctypes.byref(flag))
+    info, extra = Info(), (ctypes.c_int32 * 2)()  # Adobe flag, coding
+    rc = lib.ik_jpeg4_parse(data, len(data), ctypes.byref(info), extra)
     if rc == 0:
         bufs = [ctypes.create_string_buffer(info.bw[c] * info.bh[c] * 128)
                 for c in range(info.n)]

@@ -14,6 +14,11 @@ JPEG. Every output is held against the plain version. This checks the
 indexing of the global and shared memory the body touches; races it cannot
 see.
 
+``jpeg4_decode.cpp``'s arithmetic and lossless decoders run under the same
+sanitizers on the writers' files and on hostile ones (DAC segments out of
+range, scans cut short, lossless scans libjpeg refuses, frames at the
+sides' ceiling).
+
 Beside them, the host half of the JPEG TIFF path: ``tiff_ext_decode.cpp``
 under the same sanitizers, its ``ik_tiffx_jpeg_segments`` fed JPEG TIFFs
 and hostile IFDs (segment offsets and counts past the end, a tile grid
@@ -494,6 +499,192 @@ def test_tiff_remainder_under_address_sanitizer(tmp_path):
         else:
             assert min(r["parse"], r["stream"], r.get("decode", 0)) < 0, (
                 name, r)
+
+
+_JPEG4 = textwrap.dedent("""
+    import ctypes, json, sys
+    lib = ctypes.CDLL(sys.argv[1])
+    out = {}
+    for name, hexdata in json.loads(sys.stdin.read()).items():
+        data = bytes.fromhex(hexdata)
+        # each file, header and buffer, of exactly its size
+        buf = ctypes.create_string_buffer(data, len(data))
+        info = (ctypes.c_int32 * 38)()
+        extra = (ctypes.c_int32 * 2)()  # the Adobe flag, the coding
+        rc = lib.ik_jpeg4_parse(buf, len(data), info, extra)
+        r = {"parse": rc, "coding": extra[1], "decode": None}
+        n, width, height = info[2], info[0], info[1]
+        if rc == 0 and width * height <= 1 << 22:
+            if extra[1] == 2:
+                planes = [ctypes.create_string_buffer(
+                    info[13 + c] * info[17 + c]) for c in range(n)]
+                ptrs = (ctypes.c_void_p * 4)(*[ctypes.addressof(p)
+                                               for p in planes])
+                r["decode"] = lib.ik_jpeg4_decode_lossless(buf, len(data),
+                                                           ptrs)
+            else:
+                planes = [(ctypes.c_int16 * (64 * info[21 + c] * info[25 + c]))()
+                          for c in range(n)]
+                ptrs = (ctypes.c_void_p * 4)(*[ctypes.addressof(p)
+                                               for p in planes])
+                q = (ctypes.c_uint16 * 256)()
+                r["decode"] = lib.ik_jpeg4_decode_coeffs(buf, len(data),
+                                                         ptrs, q)
+        out[name] = r
+    print(json.dumps(out))
+""")
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return bytes((0xFF, marker)) + struct.pack(">H", len(body) + 2) + body
+
+
+def _arith_lossless_cases():
+    """The writers' files (good), and hostile ones: DAC segments out of
+    range, scans cut short or ending in a marker, refinement data of
+    garbage, lossless scans of predictor 0 or 8, of Pt 8, of an MCU of
+    more than 10 samples, frames at the sides' ceiling."""
+    import numpy as np
+
+    from tests.conftest import make_test_image
+    from tests.fixtures import jpeg_arith_writer as aw
+    from tests.fixtures import jpeg_lossless_writer as lw
+    from tests.fixtures import jpeg_writer as jw
+
+    img = make_test_image(61, 37)
+    s420 = ((2, 2), (1, 1), (1, 1))
+    planes, tabs, tq = jw.coefficients(img, 85, s420)
+    cmyk = planes + [planes[0].copy()]
+    good = {
+        "sof9": aw.write(planes, tabs, 61, 37, s420, tq),
+        "sof9_rst": aw.write(planes, tabs, 61, 37, s420, tq, restart=2),
+        "sof9_scans": aw.write(planes, tabs, 61, 37, s420, tq,
+                               interleaved=False),
+        "sof10": aw.write(planes, tabs, 61, 37, s420, tq, progressive=True),
+        "sof10_gray": aw.write(planes[:1], tabs, 61, 37, s420[:1], tq[:1],
+                               progressive=True, restart=5),
+        "sof10_cmyk": aw.write(cmyk, tabs, 61, 37, s420 + ((2, 2),),
+                               tq + [0], progressive=True),
+        "dac_k_0": aw.write(planes, tabs, 61, 37, s420, tq,
+                            dac={("ac", 0): 0, ("ac", 1): 0}),
+        "dac_k_200": aw.write(planes, tabs, 61, 37, s420, tq,
+                              dac={("ac", 0): 200, ("dc", 0): (15, 15)}),
+    }
+    for pred in (1, 4, 7):
+        for samp in (((1, 1),) * 3, s420, ((1, 1),)):
+            good[f"lossless_p{pred}_{len(samp)}_{samp[0][0]}"] = lw.write(
+                lw.subsample(img[:, :, :len(samp)], samp), 61, 37, samp,
+                predictor=pred, pt=pred % 3, restart=31 if samp == s420
+                else 0)
+
+    def patched(data, find, offset, value):
+        out = bytearray(data)
+        out[out.index(find) + offset] = value
+        return bytes(out)
+
+    sof9, sof10 = good["sof9"], good["sof10"]
+    lossless = good["lossless_p1_3_1"]
+    first_sos = sof10.index(b"\xff\xda")
+    refine = sof10.rindex(b"\xff\xda")  # the last scan: an AC refinement
+    rng = np.random.default_rng(0)
+    noise = bytes(rng.integers(0, 255, 400, dtype=np.uint8).tolist())
+    sos_len = struct.unpack(">H", sof10[refine + 2:refine + 4])[0]
+    body_at = refine + 2 + sos_len
+    dac_at = sof9.index(b"\xff\xc9")
+    hostile = {
+        "dac_l_over_u": sof9[:dac_at] + _segment(0xCC, bytes((0, 0x25)))
+        + sof9[dac_at:],
+        "dac_index_32": sof9[:dac_at] + _segment(0xCC, bytes((32, 1)))
+        + sof9[dac_at:],
+        "dac_odd_length": sof9[:dac_at] + _segment(0xCC, bytes((0, 0x10, 1)))
+        + sof9[dac_at:],
+        "scan_cut_short": sof9[:len(sof9) // 2],
+        "progressive_cut_short": sof10[:first_sos + 60],
+        "lossless_cut_short": lossless[:len(lossless) // 2],
+        "refinement_past_se": sof10[:refine]
+        + sof10[refine:refine + 2 + sos_len - 3] + bytes((1, 64, 0x10))
+        + sof10[body_at:],
+        # an SOS of 3 components: Ss (the predictor) at 11, Ah/Al (Pt) at 13
+        "lossless_predictor_0": patched(lossless, b"\xff\xda", 11, 0),
+        "lossless_predictor_8": patched(lossless, b"\xff\xda", 11, 8),
+        "lossless_pt_8": patched(lossless, b"\xff\xda", 13, 8),
+        "lossless_mcu_of_11": lw.write(
+            lw.subsample(img, ((3, 3), (1, 1), (1, 1))), 61, 37,
+            ((3, 3), (1, 1), (1, 1))),
+        "lossless_restart_not_rows": patched(
+            good["lossless_p4_3_2"], b"\xff\xdd", 5, 7),
+    }
+    edge = {  # decoded (or refused) without a report
+        "scan_ending_in_marker": sof9[:sof9.index(b"\xff\xda") + 40]
+        + b"\xff\xd9",
+        "refinement_of_garbage": sof10[:body_at] + noise.replace(
+            b"\xff", b"\x00") + b"\xff\xd9",
+        "sequential_of_garbage": sof9[:sof9.index(b"\xff\xda") + 14]
+        + noise + b"\xff\xd9",
+        "lossless_of_garbage": lossless[:lossless.index(b"\xff\xda") + 14]
+        + noise.replace(b"\xff", b"\x00") + b"\xff\xd9",
+        "rst_out_of_order": good["sof9_rst"].replace(b"\xff\xd0", b"\xff\xd5",
+                                                     1),
+        "wide_at_the_ceiling": patched(
+            sof9[:sof9.index(b"\xff\xda") + 14] + b"\xff\xd9", b"\xff\xc9",
+            7, 0xFF).replace(b"\x00\x3d\x03", b"\xff\xff\x03", 1),
+        "tall_at_the_ceiling": patched(patched(
+            sof9[:sof9.index(b"\xff\xda") + 14] + b"\xff\xd9", b"\xff\xc9",
+            5, 0xFF), b"\xff\xc9", 6, 0xFF),
+        "both_at_the_ceiling": lossless[:lossless.index(b"\xff\xc3") + 5]
+        + b"\xff\xff\xff\xff" + lossless[lossless.index(b"\xff\xc3") + 9:],
+        "lossless_wide_at_the_ceiling": lossless[:lossless.index(
+            b"\xff\xc3") + 5] + b"\x00\x10\xff\xff" + lossless[
+            lossless.index(b"\xff\xc3") + 9:lossless.index(b"\xff\xda") + 14]
+        + b"\xff\xd9",
+    }
+    return good, hostile, edge
+
+
+def test_arithmetic_and_lossless_under_address_sanitizer(tmp_path):
+    """``jpeg4_decode.cpp``'s QM decoder and lossless decoder under ASan and
+    UBSan, every file and buffer of exactly its size: the writers' files
+    (SOF9, SOF10 with successive approximation and restarts, DAC K of 0
+    and above 63, lossless of predictors 1, 4, 7 with Pt and restarts)
+    decode; hostile ones are refused (a DAC with L > U, an index past 31 or
+    an odd length; scans cut short; an AC refinement past Se; lossless
+    predictors 0 and 8, Pt 8, an MCU of 11 samples, a restart interval of
+    a part of a row); scans ending in a marker or of garbage data, restart
+    markers out of order and frames at the sides' ceiling (65535) decode or
+    are refused. The sanitizers report nothing."""
+    native = ROOT / "imagekit_tpu_torch" / "codecs" / "native"
+    so = tmp_path / "libjpeg4_asan.so"
+    subprocess.run(["g++", "-std=c++17", "-O1", "-g", "-fPIC", "-shared",
+                    "-fsanitize=address,undefined",
+                    "-fno-sanitize-recover=undefined",
+                    str(native / "jpeg4_decode.cpp"), "-o", str(so)],
+                   check=True, timeout=300)
+    good, hostile, edge = _arith_lossless_cases()
+    cases = {f"{kind}/{k}": v.hex() for kind, group in (
+        ("good", good), ("hostile", hostile), ("edge", edge))
+        for k, v in group.items()}
+    asan = subprocess.run(["g++", "-print-file-name=libasan.so"],
+                          capture_output=True, text=True).stdout.strip()
+    env = {**os.environ, "LD_PRELOAD": asan,
+           "ASAN_OPTIONS": "detect_leaks=0:abort_on_error=1",
+           "UBSAN_OPTIONS": "print_stacktrace=1:halt_on_error=1"}
+    proc = subprocess.run([sys.executable, "-c", _JPEG4, str(so)],
+                          input=json.dumps(cases), capture_output=True,
+                          text=True, env=env, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-6000:]
+    assert "Sanitizer" not in proc.stderr, proc.stderr[-6000:]
+    assert "runtime error" not in proc.stderr, proc.stderr[-6000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name, r in res.items():
+        kind = name.split("/")[0]
+        if kind == "good":
+            assert r["parse"] == 0 and r["decode"] == 0, (name, r)
+            assert r["coding"] == (2 if "lossless" in name else 1), (name, r)
+        elif kind == "hostile":
+            assert r["parse"] < 0 or r["decode"] < 0, (name, r)
+    assert res["edge/scan_ending_in_marker"]["decode"] == 0
+    assert res["edge/rst_out_of_order"]["decode"] == 0
+    assert res["hostile/lossless_mcu_of_11"]["parse"] == -8
 
 
 if __name__ == "__main__":

@@ -727,8 +727,8 @@ _SANITIZED = textwrap.dedent("""
         data = bytes.fromhex(hexdata)
         if data[:2] == b"\\xff\\xd8":
             info = (ctypes.c_int32 * 64)()
-            flag = ctypes.c_int32()
-            rc = lib.ik_jpeg4_parse(data, len(data), info, ctypes.byref(flag))
+            extra = (ctypes.c_int32 * 2)()  # the Adobe flag, the coding
+            rc = lib.ik_jpeg4_parse(data, len(data), info, extra)
             if rc == 0:
                 nb = [info[21 + c] * info[25 + c] for c in range(4)]
                 planes = [(ctypes.c_int16 * (64 * n))() for n in nb]

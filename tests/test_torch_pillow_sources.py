@@ -615,15 +615,29 @@ def test_committed_fixture_is_its_recipe():
 
 
 def test_progressive_cmyk_stays_not_ported():
-    """Progressive CMYK in Huffman coding decodes now
-    (``tests/test_torch_pillow_fallbacks.py``); in arithmetic coding (SOF10,
-    Pillow's file with its SOF2 marker changed) it stays 501."""
+    """Progressive CMYK in Huffman coding decodes
+    (``tests/test_torch_pillow_fallbacks.py``), and in arithmetic coding
+    now too: Pillow's file with its SOF2 marker changed to SOF10, whose
+    Huffman bits the QM decoder reads as libjpeg's does, to the pixels
+    Pillow gives (the name is kept from when it answered 501). What stays
+    501 in its place: a lossless CMYK frame (queue 1 item 10)."""
+    from tests.fixtures import jpeg_lossless_writer
+
     data = _save(Image.fromarray(make_test_image(64, 48)).convert("CMYK"),
                  "JPEG", progressive=True)
     at = data.index(b"\xff\xc2")
     data = data[:at + 1] + b"\xca" + data[at + 2:]
+    got = jpeg.decode_rgb(data, device="cpu")
+    want = _pil_rgb(data)
+    assert got.shape == want.shape == (48, 64, 3)
+    assert psnr(got, want) >= 40.0
+    assert np.abs(got.astype(int) - want).max() <= 12
+    img = make_test_image(64, 48)
+    planes = jpeg_lossless_writer.subsample(
+        np.dstack([img, img[:, :, 1]]), [(1, 1)] * 4)
+    lossless = jpeg_lossless_writer.write(planes, 64, 48, [(1, 1)] * 4)
     with pytest.raises(NotPortedError, match="queue 1 item 10"):
-        jpeg.decode_rgb(data, device="cpu")
+        jpeg.decode_rgb(lossless, device="cpu")
 
 
 def test_cut_cmyk_is_the_fetch_stage_error():
