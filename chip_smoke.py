@@ -235,7 +235,23 @@ decoded with Pillow: old-style, planar and extra-sample JPEG pages,
     (two for CMYK, none for lossless gray), one K2 a batch, no K1:
     requests/s, p50/p99, host stages, idle share. K3 at the lossless RGB
     page's replication stacks against its plain version (max |d| 0), timed,
-    with an einsum yardstick and the bound.
+    with an einsum yardstick and the bound;
+25. CMYK JPEGs at a 4:1:1-like sampling and at ratios of 3, lossless CMYK
+    sampled alike and with C and K at 2x2, a 1080p YCbCr JPEG TIFF page of
+    arithmetic-coded strips, a planar RGB JPEG TIFF page whose 36-row
+    strips straddle blocks (all written here without Pillow, by the numpy
+    writers of ``tests/fixtures/``) and the committed G4 A4 page with
+    T6Options 2; each decode on the card checked against the host's plain
+    decode (the lossless ones and the G4 page exactly) and against its
+    picture; counts reset before each round (16 requests; 8 of the planar
+    page), each round run once, traced,
+    -> w=400 WebP or JPEG: two K3 launches a CMYK request and a lossless
+    CMYK one sampled differently, none sampled alike, one an arithmetic
+    TIFF page, one a strip of the planar page, none for the G4 page, one K2
+    a batch, no K1: requests/s, p50/p99, host stages, idle share. K3 at the
+    4:1:1-like CMYK planes and at the lossless CMYK page's replication
+    stacks against its plain version (max |d| 0), timed, with an einsum
+    yardstick and the bound.
 
 Device times are the kernels' own, summed by ``torch.profiler`` over 20
 calls (the host's launch cost excluded); the bound is the larger of the
@@ -1733,21 +1749,25 @@ def phase_k2_yuv(webps) -> dict:
 
 def device_busy_s(prof):
     """Seconds in which the card ran at least one kernel or copy: the union
-    of the device activities' intervals of a ``torch.profiler`` trace. None
+    of the device activities' intervals of a ``torch.profiler`` trace, read
+    from its raw kineto records (``prof.events()`` builds every host op's
+    event tree first, which took seconds a round of pixel decodes, up to
+    23 s on an H100 for a round of segment-by-segment TIFF pages). None
     where the trace holds no device record."""
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == cuda)
     if not spans:
         return None
-    busy, (lo, hi) = 0.0, spans[0]
+    busy, (lo, hi) = 0, spans[0]
     for a, b in spans[1:]:
         if a > hi:
             busy += hi - lo
             lo, hi = a, b
         else:
             hi = max(hi, b)
-    return (busy + hi - lo) / 1e6
+    return (busy + hi - lo) / 1e9
 
 
 def idle_share(run, on_card: bool = True, traced: str = "this"):
@@ -2233,22 +2253,22 @@ def phase_avif(jpegs, dense, pngs, webps, rgba_pngs, card: str) -> dict:
     # (name, sources, width, output size, head module and function, the
     # kernel it launches, one launch a "batch" or a "request", alpha?)
     rounds = (
-        ("1080p JPEG -> w=400 AVIF (k=2, split int8)", jpegs[:2], 400,
+        ("1080p JPEG -> w=400 AVIF (k=2, split int8)", jpegs[:1], 400,
          (400, 225), (engine_jpeg, "decode_resize_yuv_lowfreq_i8_batch"),
          "k1", "batch", False),
-        ("escape-dense JPEG -> w=400 AVIF (k=2, int16)", dense[:2], 400,
+        ("escape-dense JPEG -> w=400 AVIF (k=2, int16)", dense[:1], 400,
          (400, 225), (engine_jpeg, "decode_resize_yuv_lowfreq_batch"), "k1",
          "batch", False),
         ("640x360 JPEG -> w=480 AVIF (k=8)", [small], 480, (480, 270),
          (engine_jpeg, "decode_resize_yuv_i8_batch"), "k4", "batch", False),
-        ("1080p RGB PNG -> w=400 AVIF (rgbyuv head)", pngs[:2], 400,
+        ("1080p RGB PNG -> w=400 AVIF (rgbyuv head)", pngs[:1], 400,
          (400, 225), (engine_rgb, "resample_rgb_yuv_batch"), "k2", "batch",
          False),
-        ("1080p lossy WebP -> w=400 AVIF (yuv_resize)", webps[:2], 400,
+        ("1080p lossy WebP -> w=400 AVIF (yuv_resize)", webps[:1], 400,
          (400, 225), (engine_yuv, "resize_yuv420_batch"), "k2", "batch",
          False),
         ("1080p RGBA PNG -> w=400 AVIF with alpha (plain RGB head)",
-         rgba_pngs[:2], 400, (400, 225),
+         rgba_pngs[:1], 400, (400, 225),
          (engine_rgb, "resample_bucketed_flat"), "k2_rgba", "batch", True),
         ("320x240 JPEG -> AVIF, no resize (the pixel decode)", [still], None,
          (320, 240), (dct, "decode_resize_rgb_batch"), "k3", "request",
@@ -3384,7 +3404,7 @@ def k3_cmyk_case(data: bytes) -> dict:
     from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
     from imagekit_tpu_torch.ops import dct
 
-    return k3_planes_case(*dct.four_component_inputs(
+    return k3_planes_case(*dct.sampled_inputs(
         jpeg_abi.decode4(loader.load(), data), torch.device("cuda")), "CMYK")
 
 
@@ -4807,6 +4827,204 @@ def phase_arith_lossless(card: str) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 25: CMYK JPEGs in every sampling, lossless CMYK, the last JPEG TIFF
+# layouts and CCITT's uncompressed-mode flag
+# ---------------------------------------------------------------------------
+
+S411K = ((4, 1), (1, 1), (1, 1), (4, 1))  # C and K 4x1: M and Y at 1/4
+S3K = ((3, 1), (1, 1), (1, 1), (3, 1))    # ratios of 3
+
+
+def tiff_with_tag(data: bytes, tag: int, value: int) -> bytes:
+    """A little-endian TIFF with a LONG entry ``tag`` = ``value`` added: its
+    IFD written again after the data (word-aligned), one entry more."""
+    if data[:2] != b"II":
+        raise RuntimeError("tiff_with_tag takes little-endian TIFFs")
+    data += b"\0" * (len(data) % 2)
+    ifd = struct.unpack("<I", data[4:8])[0]
+    n = struct.unpack("<H", data[ifd:ifd + 2])[0]
+    entries = [data[ifd + 2 + 12 * i:ifd + 14 + 12 * i] for i in range(n)]
+    entries.append(struct.pack("<HHII", tag, 4, 1, value))
+    entries.sort(key=lambda e: struct.unpack("<H", e[:2])[0])
+    return (data[:4] + struct.pack("<I", len(data)) + data[8:]
+            + struct.pack("<H", n + 1) + b"".join(entries) + b"\0\0\0\0")
+
+
+def make_remainder_sources():
+    """The phase's sources, without Pillow, from one seeded 1080p picture:
+    CMYK JPEGs (``tests/fixtures/jpeg_writer.py``, q80, an Adobe APP14 of
+    transform 0; the picture's R, G and B as C, M and Y over a K of 255,
+    stored as Adobe's inverted inks, so that they decode to the picture) at
+    a 4:1:1-like sampling (``S411K``) and at ratios of 3 (``S3K``);
+    lossless CMYK (``jpeg_lossless_writer.py``, predictor 1) sampled alike
+    and with C and K at 2x2; a YCbCr 4:2:0 JPEG TIFF page of 16-row strips,
+    each arithmetic-coded (``jpeg_arith_writer.py``, q50: the writer's QM
+    coder is a Python loop); a planar RGB JPEG TIFF page whose 36-row
+    strips straddle blocks, each a one-component JPEG of its own tables
+    (``jpeg_writer.py``, q80); and the committed Group 4 A4 page with
+    T6Options 2 (the uncompressed-mode bit; its rows use no such code).
+    Returns name -> (bytes, the picture it shows)."""
+    jw, aw, lw = (jpeg_writer(n) for n in (
+        "jpeg_writer", "jpeg_arith_writer", "jpeg_lossless_writer"))
+    picture = synth_image(990, noise=False)
+    h, w = picture.shape[:2]
+    four = np.dstack([picture, np.full((h, w), 255, np.uint8)])
+
+    def cmyk(samp):
+        planes, tabs, tq = jw.coefficients(four, 80, samp, colour="raw")
+        return jw.write(planes, tabs, w, h, samp, tq, adobe_transform=0)
+
+    def lossless(samp):
+        return lw.write(lw.subsample(four, samp), w, h, samp, predictor=1)
+
+    def strips(rows, seg):
+        return [seg(y, picture[y:y + rows]) for y in range(0, h, rows)]
+
+    def arith_strip(_, part):
+        planes, tabs, tq = jw.coefficients(part, 50, S420)
+        return aw.write(planes, tabs, w, part.shape[0], S420, tq)
+
+    def gray_strip(c):
+        def seg(_, part):
+            planes, tabs, tq = jw.coefficients(part[:, :, c:c + 1], 80,
+                                               ((1, 1),), colour="raw")
+            return jw.write(planes, tabs, w, part.shape[0], ((1, 1),), tq)
+        return seg
+
+    arith_tags = {258: (3, [8] * 3), 259: (3, [7]), 262: (3, [6]),
+                  277: (3, [3]), 278: (4, [16]), 284: (3, [1]),
+                  530: (3, [2, 2])}
+    planar_tags = {258: (3, [8] * 3), 259: (3, [7]), 262: (3, [2]),
+                   277: (3, [3]), 278: (4, [36]), 284: (3, [2])}
+    with open(G4_FIXTURE, "rb") as f:
+        g4 = f.read()
+    page = np.repeat(np.where(text_page(G4_SEED), 255, 0).astype(
+        np.uint8)[:, :, None], 3, axis=2)
+    return {
+        "CMYK 4:1:1-like": (cmyk(S411K), picture),
+        "CMYK ratio 3": (cmyk(S3K), picture),
+        "lossless CMYK": (lossless(((1, 1),) * 4), picture),
+        "lossless CMYK, C and K at 2x2": (lossless(SCMYK), picture),
+        "arithmetic JPEG TIFF": (tiff_file(w, h, arith_tags, strips(
+            16, arith_strip)), picture),
+        "planar JPEG TIFF, 36-row strips": (tiff_file(
+            w, h, planar_tags, [s for c in range(3)
+                                for s in strips(36, gray_strip(c))]),
+            picture),
+        "G4 page, uncompressed-mode bit": (tiff_with_tag(g4, 293, 2), page),
+    }
+
+
+def phase_cmyk_tiff_remainder(card: str) -> dict:
+    """CMYK JPEGs in every sampling, lossless CMYK, arithmetic and planar
+    JPEG TIFF pages and a G4 page that flags uncompressed mode, through one
+    engine: the CMYK JPEGs' pixel decode takes each component's stacks by
+    libjpeg's upsampling (replication at ratios of 3 and 4) in TWO K3
+    launches a request; lossless CMYK sampled alike needs no K3, sampled
+    differently TWO launches on replication stacks; the arithmetic TIFF
+    page's segments go through the QM decoder, then ONE K3 launch a page;
+    the planar page, whose strips straddle blocks, decodes segment by
+    segment, ONE launch for its three planes a strip; the G4 page decodes on
+    the host; then the RGB head (K2, one launch a batch). Each decode is
+    checked first on the card against the host's plain decode (the lossless
+    ones and the G4 page exactly) and against its picture. Then the rounds
+    (``drive_rounds``; the planar page's of 8 requests, each of which
+    takes 0.7-0.8 s of the dispatch threads), and K3 at the 4:1:1-like
+    CMYK planes (identity and replication) and at the lossless CMYK page's
+    replication stacks against its plain version (exact: weights of 1 on
+    u8)."""
+    from imagekit_tpu_torch.codecs import decode_bytes, jpeg
+    from imagekit_tpu_torch.config import ImageFormat
+    from imagekit_tpu_torch.ops import dct
+
+    W, J = ImageFormat.webp, ImageFormat.jpeg
+    t0 = time.perf_counter()
+    sources = make_remainder_sources()
+    log("    made the sources (" + ", ".join(
+        f"{k} {len(d) / 1e3:.0f} kB" for k, (d, _) in sources.items())
+        + f") in {time.perf_counter() - t0:.2f} s")
+    steps = {"sources": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    checks = []
+    for name, (data, picture) in sources.items():
+        card_rgb = decode_bytes(data, device="cuda")[0]
+        host = decode_bytes(data, device="cpu")[0]
+        diff = np.abs(card_rgb.astype(int) - host.astype(int))
+        exact = name.startswith(("lossless", "G4"))
+        p = psnr(card_rgb, picture)
+        checks.append(f"{name}: vs the host's plain decode max|d|="
+                      f"{diff.max()}, {p:.2f} dB to the picture")
+        if card_rgb.shape != picture.shape or (
+                diff.max() > (0 if exact else 2)) or (
+                (diff > 0).mean() > MAX_SHARE):
+            raise RuntimeError(f"the {name} decode on the card is not the "
+                               f"plain one on the host's CPU")
+        if exact and name != "lossless CMYK, C and K at 2x2" and (
+                not np.array_equal(card_rgb, picture)):
+            raise RuntimeError(f"the {name} decode is not its picture")
+        if p < 25.0:
+            raise RuntimeError(f"the {name} decode is not its picture "
+                               f"(PSNR {p:.2f} dB)")
+    log(f"    decodes: {'; '.join(checks)}")
+    steps["decode checks"] = time.perf_counter() - t0
+
+    out = (400, 225)
+    strips = -(-1080 // 36)
+    rounds = [
+        ("1080p CMYK 4:1:1-like -> w=400 WebP",
+         [sources["CMYK 4:1:1-like"][0]], 16, 400, W, out,
+         {"k3": 2, "k2": "batch"}),
+        ("1080p CMYK at ratios of 3 -> w=400 JPEG",
+         [sources["CMYK ratio 3"][0]], 16, 400, J, out,
+         {"k3": 2, "k2": "batch"}),
+        ("1080p lossless CMYK sampled alike (no K3) -> w=400 WebP",
+         [sources["lossless CMYK"][0]], 16, 400, W, out, {"k2": "batch"}),
+        ("1080p lossless CMYK, C and K at 2x2 -> w=400 WebP",
+         [sources["lossless CMYK, C and K at 2x2"][0]], 16, 400, W, out,
+         {"k3": 2, "k2": "batch"}),
+        ("1080p arithmetic JPEG TIFF, 68 strips -> w=400 WebP",
+         [sources["arithmetic JPEG TIFF"][0]], 16, 400, W, out,
+         {"k3": 1, "k2": "batch"}),
+        (f"1080p planar JPEG TIFF, 3 x {strips} straddling strips "
+         f"-> w=400 JPEG",
+         [sources["planar JPEG TIFF, 36-row strips"][0]], 8, 400, J, out,
+         {"k3": strips, "k2": "batch"}),
+        ("A4 G4 page, uncompressed-mode bit -> w=400 WebP",
+         [sources["G4 page, uncompressed-mode bit"][0]], 16, 400, W,
+         (400, 566), {"k2": "batch"}),
+    ]
+    summary = drive_rounds(rounds, card, steps)
+    cases = {}
+    for key, what, make in (
+            ("k3_cmyk_411", "CMYK 4:1:1-like", lambda: dct.sampled_inputs(
+                jpeg.decode_to_coefficients(sources["CMYK 4:1:1-like"][0]),
+                torch.device("cuda"))),
+            ("k3_lossless_cmyk", "lossless CMYK", lambda: dct.lossless_inputs(
+                jpeg.decode_to_coefficients(
+                    sources["lossless CMYK, C and K at 2x2"][0]),
+                torch.device("cuda")))):
+        case, steps[f"K3 at the {what} planes"] = timed(
+            lambda: k3_planes_case(*make(), what))
+        if case["max_abs_err"] != 0:
+            raise RuntimeError(f"K3 at the {what} planes (identity and "
+                               f"replication stacks) is not exact: "
+                               f"max|d|={case['max_abs_err']}")
+        log(f"  K3 at the 1080p {what} planes ({case['planes']} -> "
+            f"1088x1920, identity and replication stacks, B=1, two "
+            f"launches) vs plain: max|d|={case['max_abs_err']}; device time "
+            f"per call K3 {case['ms']:.4f} ms vs plain "
+            f"{case['plain_ms']:.4f} ms vs einsum {case['library_ms']:.4f} "
+            f"ms, bound {case['bound_ms']:.4f} ms ({case['bound_by']}), K3 "
+            f"at {case['bound_ms'] / case['ms']:.1%} of it [{card}]")
+        summary[key] = case
+    log("    seconds a step (a round's include its warm-up and trace): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in steps.items()))
+    summary["step_s"] = steps
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4972,6 +5190,12 @@ def main() -> int:
           "decoders on the host, the pixel decode (K3), the RGB head (K2), "
           "BatchedEngine(device='cuda').transform")
     arith = phase_arith_lossless(card)
+
+    begin("[25] CMYK JPEGs in every sampling, lossless CMYK, arithmetic and "
+          "planar JPEG TIFF pages and a G4 page flagging uncompressed mode: "
+          "the pixel decode (K3), the RGB head (K2), "
+          "BatchedEngine(device='cuda').transform")
+    remainder25 = phase_cmyk_tiff_remainder(card)
     end_phase()
     log("    seconds a phase (heading to heading): " + ", ".join(
         f"[{k}] {v:.2f}" for k, v in PHASE_S.items()))
@@ -5004,6 +5228,7 @@ def main() -> int:
         "tiff_remainder_launches": remainder["k2_launches"],
         "dds_jpeg_layout_launches": layouts23["k2_launches"],
         "arith_lossless_launches": arith["k2_launches"],
+        "cmyk_tiff_remainder_launches": remainder25["k2_launches"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
@@ -5073,6 +5298,16 @@ def main() -> int:
             key: arith["k3_page"][key] for key in (
                 "max_abs_err", "share_differ", "ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms")},
+        # phase 25: two launches a CMYK JPEG request and a lossless CMYK one
+        # sampled differently, none sampled alike, one an arithmetic TIFF
+        # page, one a strip of the planar page; K3 at the 4:1:1-like CMYK
+        # planes and at the lossless CMYK page's replication stacks
+        "cmyk_tiff_remainder_launches": remainder25["k3_launches"],
+        **{f"pixel_decode_{key[3:]}": {
+            k: remainder25[key][k] for k in (
+                "max_abs_err", "share_differ", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")}
+           for key in ("k3_cmyk_411", "k3_lossless_cmyk")},
     }, {
         "name": "resize_planes3_f32 (K4, Y + Cb + Cr in one launch; u8 planes "
                 "in, f32 out on the k=8 JPEG -> WebP heads)",
@@ -5170,6 +5405,8 @@ def main() -> int:
         raise RuntimeError("a round of phase 23 launched no K2 or K3")
     if min(arith[f"{k}_launches"] for k in ("k2", "k3")) <= 0:
         raise RuntimeError("a round of phase 24 launched no K2 or K3")
+    if min(remainder25[f"{k}_launches"] for k in ("k2", "k3")) <= 0:
+        raise RuntimeError("a round of phase 25 launched no K2 or K3")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -15,17 +15,17 @@ ratios of 4:2:0, 4:2:2, 4:4:0, 4:4:4, 4:1:1, 4:1:0 and any other integer
 ratio, Cb and Cr sampled alike or not, the luma below the largest
 factors), each with its own table, coded as YCbCr or as RGB
 (:func:`colour_space`), and grayscale JPEGs; CMYK and YCCK JPEGs,
-baseline or progressive; baseline frames in several scans;
-arithmetic-coded frames (SOF9, SOF10) of 1, 3 or 4 components; and
-lossless frames (SOF3) of 1 or 3 components. The pinned native decoder
-refuses the last four with -3; the port's own entropy decode
-(``jpeg_abi.decode4``, ``decode_lossless``) takes them, then the device
-decode. What Pillow refuses answers 400 as in the reference: a frame
-whose precision is not 8 bits or whose component count is not 1, 3 or
-4, a sampling libjpeg refuses (:func:`sampling_refused`), hierarchical
-and lossless arithmetic frames, and lossless frames that would need a
-colour conversion. Lossless frames of four components raise
-:class:`~imagekit_tpu_torch.errors.NotPortedError`.
+baseline or progressive, in any integer sampling; baseline frames in
+several scans; arithmetic-coded frames (SOF9, SOF10) of 1, 3 or 4
+components; and lossless frames (SOF3) of 1, 3 or 4 components. The
+pinned native decoder refuses the last four with -3; the port's own
+entropy decode (``jpeg_abi.decode4``, ``decode_lossless``) takes them,
+then the device decode. What Pillow refuses answers 400 as in the
+reference: a frame whose precision is not 8 bits or whose component count
+is not 1, 3 or 4, a sampling libjpeg refuses (:func:`sampling_refused`),
+hierarchical and lossless arithmetic frames, lossless frames that would
+need a colour conversion, and data that runs out where Pillow's feed of
+libjpeg does (:func:`decode_to_coefficients`).
 """
 
 from __future__ import annotations
@@ -60,7 +60,7 @@ _LIBJPEG_REFUSES = (0xC5, 0xC6, 0xC7, 0xCB, 0xCD, 0xCE, 0xCF)
 
 def decode_error(e) -> Exception:
     """Native decoder failure -> the port's error: an unsupported frame
-    (-3, a lossless one of four components) is a path not ported yet; a
+    (-3) is a path not ported yet; a
     frame that only the port's decoder takes (CMYK, YCCK, baseline in
     several scans, arithmetic, lossless) that fails is a
     :class:`~imagekit_tpu_torch.errors.SourceDecodeError`, because the
@@ -183,10 +183,7 @@ def source_header(lib, data: bytes):
       would need a conversion (libjpeg converts none in lossless mode);
     - "image is too large": a frame of the new codings (arithmetic,
       lossless) past the pixel ceiling of Pillow's decompression-bomb
-      check (:data:`~imagekit_tpu_torch.codecs.png.MAX_PIXELS`).
-
-    A lossless frame of four components raises the decoders' -3 (not
-    ported)."""
+      check (:data:`~imagekit_tpu_torch.codecs.png.MAX_PIXELS`)."""
     from imagekit_tpu_torch.codecs.native import jpeg_abi
     from imagekit_tpu_torch.codecs.png import MAX_PIXELS
 
@@ -219,22 +216,50 @@ def source_header(lib, data: bytes):
     space = colour_space(data, hdr.ncomp, lossless)
     if lossless and space not in ("gray", "rgb", "cmyk"):
         raise SourceDecodeError(BROKEN_STREAM)
-    if lossless and hdr.ncomp == 4:
-        raise jpeg_abi.NativeJpegError(-3)
     return dataclasses.replace(hdr, rgb=space == "rgb")
+
+
+#: Pillow's message where libjpeg's data runs out before its decode ends
+TRUNCATED = "image file is truncated ({} bytes not processed)"
+
+
+def _ends_at_eoi(data: bytes) -> bool:
+    """Whether an EOI marker follows the last scan's header (anything after
+    it aside): libjpeg's bit reader then never runs out of bytes (it stops
+    at the marker and feeds zeros). Entropy-coded data holds 0xFF only
+    before 0x00 or an RSTn."""
+    return data.rfind(b"\xff\xd9") > data.rfind(b"\xff\xda")
 
 
 def decode_to_coefficients(data: bytes):
     """Host C++: entropy-decode a JPEG into (header, per-component
-    quantised coefficient planes, quant tables); a frame the native
-    decoder refuses with -3 (four components, baseline in several scans,
-    arithmetic coding) through the port's own (``jpeg_abi.decode_any``).
-    A lossless frame gives (header, its u8 sample planes, None)
+    quantised coefficient planes, quant tables), as the reference's Pillow
+    decodes it; a frame the native decoder refuses with -3 (four
+    components, baseline in several scans, arithmetic coding) through the
+    port's own. A lossless frame gives (header, its u8 sample planes, None)
     (``jpeg_abi.decode_lossless``). The header is :func:`source_header`'s.
+
+    Pillow hands libjpeg the file ``jpeg_abi.PILLOW_BLOCK`` bytes at a
+    time, and the port answers as Pillow does where that matters:
+
+    - an arithmetic scan that needs a byte past the blocks fed is Pillow's
+      "broken data stream" (libjpeg's QM decoder cannot suspend);
+    - a Huffman frame whose data ends before libjpeg's decode does (cut
+      inside a scan, or, with no EOI, short of the bytes its bit reader
+      reads ahead) is Pillow's "image file is truncated (n bytes not
+      processed)", n the bytes libjpeg left unconsumed
+      (``jpeg_abi.decode_libjpeg``, which follows libjpeg to the byte);
+    - a Huffman frame the port's decoders refuse and libjpeg decodes whole
+      (an EOB run past a progressive scan's last block) takes libjpeg's
+      coefficients.
+
     Errors as :func:`decode_error` maps them, a frame's as
-    :func:`source_header` refuses it; a frame the pinned decoder takes
-    whose sampling libjpeg refuses (:func:`sampling_refused`) is Pillow's
-    400 here, where the reference's engine meets it."""
+    :func:`source_header` refuses it, Pillow's as a
+    :class:`~imagekit_tpu_torch.errors.SourceDecodeError` for a frame only
+    the port's decoders take (the reference meets it at its fetch stage);
+    a frame the pinned decoder takes whose sampling libjpeg refuses
+    (:func:`sampling_refused`) is Pillow's 400 here, where the reference's
+    engine meets it."""
     from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
 
     lib = loader.load()
@@ -244,9 +269,33 @@ def decode_to_coefficients(data: bytes):
             raise TransformError(BROKEN_STREAM)
         if hdr.coding == jpeg_abi.LOSSLESS:
             return hdr, jpeg_abi.decode_lossless(lib, data)[1], None
-        return (hdr, *jpeg_abi.decode_any(lib, data)[1:])
     except jpeg_abi.NativeJpegError as e:
         raise decode_error(e) from e
+    refusal = SourceDecodeError if hdr.port_decoder else TransformError
+    out, failed = None, None
+    try:
+        if hdr.port_decoder:
+            out = jpeg_abi.decode4(lib, data, jpeg_abi.PILLOW_BLOCK)[1:]
+        else:
+            out = jpeg_abi.decode(lib, data)[1:]
+    except jpeg_abi.NativeJpegError as e:
+        if e.code == -3:
+            raise decode_error(e) from e
+        failed = e
+    if hdr.coding == jpeg_abi.HUFFMAN and (
+            failed is not None or not _ends_at_eoi(data)):
+        try:
+            _, coeffs, qtabs, unread = jpeg_abi.decode_libjpeg(
+                lib, data, jpeg_abi.PILLOW_BLOCK)
+        except jpeg_abi.NativeJpegError:
+            unread, coeffs = None, None
+        if unread is not None:
+            raise refusal(TRUNCATED.format(unread))
+        if failed is not None and coeffs is not None:
+            out, failed = (coeffs, qtabs), None
+    if failed is not None:
+        raise decode_error(failed) from failed
+    return (hdr, *out)
 
 
 def components_to_rgb(comps, device: Optional[torch.device] = None
@@ -254,20 +303,14 @@ def components_to_rgb(comps, device: Optional[torch.device] = None
     """The device half of :func:`decode_rgb`: dequant + IDCT + chroma
     upsample + YCbCr (or CMYK, YCCK; none for RGB) -> RGB of
     :func:`decode_to_coefficients`' output, for the layouts of the module
-    docstring (a four-component frame sampled other than 1x or 2x raises
-    :class:`~imagekit_tpu_torch.errors.NotPortedError`); a lossless
-    frame's samples to RGB (``dct.decode_lossless_planes``)."""
+    docstring; a lossless frame's samples to RGB
+    (``dct.decode_lossless_planes``)."""
     from imagekit_tpu_torch.codecs.native import jpeg_abi
     from imagekit_tpu_torch.ops import dct as dct_ops
 
-    try:
-        if comps[0].coding == jpeg_abi.LOSSLESS:
-            return dct_ops.decode_lossless_planes(comps, device=device)
-        return dct_ops.decode_components_to_rgb(comps, device=device)
-    except ValueError as e:
-        raise NotPortedError(
-            f"a JPEG sampling the JPEG pixel decode does not take ({e})",
-            "queue 1 item 10") from None
+    if comps[0].coding == jpeg_abi.LOSSLESS:
+        return dct_ops.decode_lossless_planes(comps, device=device)
+    return dct_ops.decode_components_to_rgb(comps, device=device)
 
 
 def decode_rgb(data: bytes, device: Optional[torch.device] = None

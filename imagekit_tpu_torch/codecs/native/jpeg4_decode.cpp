@@ -18,8 +18,8 @@
 //   (SOF2) in any sequence of scans: DC first and refinement scans,
 //   interleaved or not, and AC first and refinement scans of one
 //   component each, with EOB runs and restart intervals (an EOB run past
-//   the scan's last block or across a restart marker, which no encoder
-//   writes, is refused). The progressive scans follow jpeg_entropy.cpp's
+//   the scan's last block ends with the scan, and a restart marker ends
+//   one, as in libjpeg). The progressive scans follow jpeg_entropy.cpp's
 //   (DecodeProgressiveScan, DecodeBlockProgressive, FinalizeProgressive;
 //   T.81 G.1.2 and G.2), copied rather than linked.
 // - Arithmetic DCT, sequential (SOF9) or progressive (SOF10): the QM
@@ -31,7 +31,9 @@
 //   the decode of the restart interval, the blocks decoded so far kept;
 //   restart markers out of sequence are resynchronised as
 //   jpeg_resync_to_restart does. Data that ends with no marker is
-//   refused (libjpeg's arithmetic decoder cannot suspend for more).
+//   refused (libjpeg's arithmetic decoder cannot suspend for more), and so,
+//   fed as Pillow feeds libjpeg (ik_jpeg4_decode_fed), is a scan that
+//   needs a byte past the blocks Pillow has handed it (-9).
 // - Lossless (SOF3, T.81 Annex H), Huffman coded: predictors 1-7, the
 //   point transform, interleaved or one-component scans, restart intervals
 //   of whole MCU rows (libjpeg's condition; others are refused). Its
@@ -50,6 +52,11 @@
 // (a lossless frame's "blocks" are samples: its MCU-padded sample grid),
 // plus the transform flag of an Adobe APP14 segment (-1 when there is
 // none) and the frame's coding.
+//
+// Lj, beside them, follows libjpeg-turbo's Huffman decoder to the byte
+// (ik_jpeg4_decode_libjpeg): fed as Pillow feeds it, it tells where
+// Pillow's decode of data that runs out stops; fed as libtiff feeds a JPEG
+// segment, it decodes one that ends early.
 //
 // The exported names are ik_jpeg4_*: the loader links every native source
 // into one library.
@@ -72,6 +79,7 @@ enum {
   kBadHuffman = -4,
   kBadDimensions = -5,
   kMcuTooLarge = -8,  // an interleaved scan of more than 10 blocks an MCU
+  kCantSuspend = -9,  // arithmetic data past the bytes Pillow has fed
   kEoi = 1,  // Next(): the EOI marker, after a progressive frame's scans
 };
 
@@ -408,7 +416,11 @@ struct Frame {
   Scan sos;
   const uint8_t* scan = nullptr;
   const uint8_t* at = nullptr;  // where the marker walk stands
+  const uint8_t* seg = nullptr;  // the marker segment it reads
   int scans = 0;                // scans decoded (DecodeScans)
+  // Pillow's read block (ImageFile.decodermaxblock), 0 for the data whole,
+  // and the end of the bytes fed so far (arithmetic scans, DecodeScans)
+  size_t block = 0, win = 0;
 
   // SOI, then the markers up to the first SOS; scan points at its
   // entropy-coded data.
@@ -427,6 +439,7 @@ struct Frame {
     const uint8_t* p = at;
     const uint8_t* end = data + len;
     while (true) {
+      seg = p;
       if (p + 2 > end) return kTruncated;
       if (p[0] != 0xFF) return kBadMarker;
       const uint8_t m = p[1];
@@ -716,8 +729,18 @@ struct Frame {
         Qm qm;
         qm.p = scan;
         qm.end = end;
+        if (block) {
+          // Pillow's feed: libjpeg holds whole blocks from the file's
+          // start, up to past this scan's header (its marker reader
+          // suspends for more); the QM decoder cannot suspend, so it may
+          // not need a byte past them (JERR_CANT_SUSPEND)
+          const size_t sos_end = static_cast<size_t>(scan - data);
+          const size_t need = (sos_end + block - 1) / block * block;
+          if (need > win) win = need;
+          if (win < len) qm.end = data + win;
+        }
         const int rc = DecodeScanArith(qm, coeffs);
-        if (rc != kOk) return rc;
+        if (rc != kOk) return block && qm.overrun ? kCantSuspend : rc;
         p = qm.marker ? qm.p - 2 : qm.p;  // the marker the decoder met
       } else {
         Bits br;
@@ -773,7 +796,7 @@ struct Frame {
       const bool ac_first = si.Ss != 0 && si.Ah == 0;
       for (int i = 0; i < total;) {
         if (restart_interval && count == restart_interval) {
-          if (eobrun > 0) return kBadHuffman;  // a run across the RSTn
+          eobrun = 0;  // a restart ends an EOB run (process_restart)
           const int rc = Restart(br);
           if (rc != kOk) return rc;
           count = 0;
@@ -798,7 +821,7 @@ struct Frame {
         ++count;
         ++i;
       }
-      return eobrun > 0 ? kBadHuffman : kOk;  // a run past the scan's blocks
+      return kOk;  // a run past the scan's last block ends with the scan
     }
     const int mcux = McusX(), mcuy = McusY();
     for (int my = 0; my < mcuy; ++my) {
@@ -1234,6 +1257,539 @@ struct Frame {
   }
 };
 
+// -- libjpeg's Huffman decoder, to the byte (jdhuff.c, jdphuff.c) ------------
+//
+// Frame decodes a file at once and refuses a scan that runs out. Where the
+// port must answer what libjpeg answers for such data, Lj follows
+// libjpeg-turbo's bit reader to the byte instead: a fill loads at least 57
+// bits (MIN_GET_BITS) or stops at a marker, after which zero bits are fed
+// and the MCUs that follow stay zero (insufficient_data) until a restart;
+// decode_mcu_fast prefetches six bytes at a time where 512 bytes a block
+// of the MCU are in the buffer; the state is saved after each MCU and an
+// MCU that runs out of bytes is decoded again from its start once more are
+// fed; a bad code is the symbol 0; an EOB run ends with its scan and at a
+// restart. It is fed in one of two ways:
+//
+// - as Pillow's ImageFile.load feeds libjpeg: `block` bytes more at each
+//   call (decodermaxblock), the decoder suspending where they run out. A
+//   frame of one scan is read whole once its last MCU is decoded (Pillow
+//   ignores a missing EOI then); a frame of several scans once its EOI is
+//   read. Where the data runs out first, Pillow reports the bytes its last
+//   call left unconsumed ("image file is truncated (n bytes not
+//   processed)"): `unread`.
+// - as libtiff feeds a JPEG segment: the bytes whole, then an EOI (block 0;
+//   the caller appends it), so a segment that ends early is decoded as
+//   libjpeg decodes it, its MCU in flight from zero bits and the rest zero.
+struct Lj {
+  Frame& f;
+  const uint8_t* data;
+  size_t len, block, win;
+  int16_t** coeffs;
+  // the source and bitread_perm_state
+  size_t pos = 0;
+  uint64_t buf = 0;
+  int bits = 0;
+  int marker = 0;  // unread_marker
+  bool insufficient = false;
+  // the scan
+  int ncomp = 0, ci[4] = {0, 0, 0, 0}, blocks_in_mcu = 0;
+  int pred[4] = {0, 0, 0, 0};
+  int togo = 0, next_rst = 0;
+  unsigned eobrun = 0;
+  static constexpr int kSusp = -100;
+
+  Lj(Frame& fr, size_t blk, int16_t** out)
+      : f(fr), data(fr.data), len(fr.len), block(blk),
+        win(blk && blk < fr.len ? blk : fr.len), coeffs(out) {}
+
+  uint32_t GetBits(int n) {
+    bits -= n;
+    return static_cast<uint32_t>(buf >> bits) & ((1u << n) - 1);
+  }
+
+  // jpeg_fill_bit_buffer: false to suspend
+  bool Fill(int nbits) {
+    if (!marker) {
+      while (bits < 57) {
+        if (pos >= win) return false;
+        int c = data[pos++];
+        if (c == 0xFF) {
+          do {
+            if (pos >= win) return false;
+            c = data[pos++];
+          } while (c == 0xFF);
+          if (c == 0) {
+            c = 0xFF;
+          } else {
+            marker = c;
+            break;
+          }
+        }
+        buf = (buf << 8) | static_cast<uint64_t>(c);
+        bits += 8;
+      }
+      if (!marker) return true;
+    }
+    if (nbits > bits) {  // JWRN_HIT_MARKER: zero bits
+      insufficient = true;
+      buf <<= 57 - bits;
+      bits = 57;
+    }
+    return true;
+  }
+
+  bool Need(int n) { return bits >= n || Fill(n); }
+
+  // the rest of a code of at least l bits (jpeg_huff_decode)
+  int Slow(const Huffman& h, int l) {
+    if (!Need(l)) return kSusp;
+    int32_t code = static_cast<int32_t>(GetBits(l));
+    while (code > h.maxcode[l]) {
+      code <<= 1;
+      if (!Need(1)) return kSusp;
+      code |= static_cast<int32_t>(GetBits(1));
+      ++l;
+    }
+    if (l > 16) return 0;  // JWRN_HUFF_BAD_CODE
+    return h.vals[h.valptr[l] + code - h.mincode[l]];
+  }
+
+  // a code of at most 8 bits in the next 8 (the lookahead table), else -1
+  static int Look(const Huffman& h, int look, int* nb) {
+    for (int l = 1; l <= 8; ++l) {
+      const int code = look >> (8 - l);
+      if (code <= h.maxcode[l]) {
+        *nb = l;
+        return h.vals[h.valptr[l] + code - h.mincode[l]];
+      }
+    }
+    return -1;
+  }
+
+  int Sym(const Huffman& h) {  // HUFF_DECODE
+    if (bits < 8) {
+      if (!Fill(0)) return kSusp;
+      if (bits < 8) return Slow(h, 1);
+    }
+    int nb;
+    const int s = Look(h, static_cast<int>(buf >> (bits - 8)) & 0xFF, &nb);
+    if (s < 0) return Slow(h, 9);
+    bits -= nb;
+    return s;
+  }
+
+  // decode_mcu_fast's input: GET_BYTE six times while 16 bits or fewer
+  void FastFill() {
+    if (bits > 16) return;
+    for (int i = 0; i < 6; ++i) {
+      const int c0 = data[pos++];
+      const int c1 = pos < len ? data[pos] : 0;
+      buf = (buf << 8) | static_cast<uint64_t>(c0);
+      bits += 8;
+      if (c0 == 0xFF) {
+        ++pos;
+        if (c1 != 0) {
+          marker = c1;
+          pos -= 2;
+          buf &= ~uint64_t{0xFF};
+        }
+      }
+    }
+  }
+
+  int FastSym(const Huffman& h) {  // HUFF_DECODE_FAST
+    FastFill();
+    int nb;
+    const int s = Look(h, static_cast<int>(buf >> (bits - 8)) & 0xFF, &nb);
+    if (s >= 0) {
+      bits -= nb;
+      return s;
+    }
+    nb = 9;
+    bits -= nb;
+    int32_t code = static_cast<int32_t>(buf >> bits) & 0x1FF;
+    while (code > h.maxcode[nb]) {
+      code <<= 1;
+      code |= static_cast<int32_t>(GetBits(1));
+      ++nb;
+    }
+    return nb > 16 ? 0 : h.vals[h.valptr[nb] + code - h.mincode[nb]];
+  }
+
+  int16_t* Block(int c, size_t row, size_t col) {
+    return coeffs[c] + (row * f.comp[c].blocks_w + col) * 64;
+  }
+  static int Natural(int k) { return k > 63 ? 63 : kZigzag[k]; }
+
+  // -- sequential (jdhuff.c) --
+
+  // decode_mcu_slow / decode_mcu_fast over the MCU's blocks; false where the
+  // slow one suspends or the fast one meets a marker
+  template <bool kFast>
+  bool McuSeq(int16_t** blks, const int* comp_of) {
+    for (int b = 0; b < blocks_in_mcu; ++b) {
+      const int i = comp_of[b];
+      const Component& C = f.comp[ci[i]];
+      const Huffman& dct = f.dc[C.td];
+      const Huffman& act = f.ac[C.ta];
+      int s = kFast ? FastSym(dct) : Sym(dct);
+      if (s == kSusp) return false;
+      if (s) {
+        if (kFast) FastFill(); else if (!Need(s)) return false;
+        s = Extend(GetBits(s), s);
+      }
+      pred[i] += s;
+      int16_t* blk = blks[b];
+      blk[0] = static_cast<int16_t>(pred[i]);
+      for (int k = 1; k < 64; ++k) {
+        s = kFast ? FastSym(act) : Sym(act);
+        if (s == kSusp) return false;
+        int r = s >> 4;
+        s &= 15;
+        if (s) {
+          k += r;
+          if (kFast) FastFill(); else if (!Need(s)) return false;
+          blk[Natural(k)] = static_cast<int16_t>(Extend(GetBits(s), s));
+        } else {
+          if (r != 15) break;
+          k += 15;
+        }
+      }
+    }
+    if (kFast && marker) {
+      marker = 0;
+      return false;
+    }
+    return true;
+  }
+
+  // next_marker: the marker after `pos`, pos past it; false to suspend
+  bool NextMarker() {
+    for (;;) {
+      if (pos >= win) return false;
+      int c = data[pos++];
+      while (c != 0xFF) {
+        if (pos >= win) return false;
+        c = data[pos++];
+      }
+      do {
+        if (pos >= win) return false;
+        c = data[pos++];
+      } while (c == 0xFF);
+      if (c != 0) {
+        marker = c;
+        return true;
+      }
+    }
+  }
+
+  // process_restart with read_restart_marker and jpeg_resync_to_restart;
+  // false to suspend
+  bool Restart() {
+    bits = 0;
+    if (!marker && !NextMarker()) return false;
+    for (;;) {
+      int action = 1;
+      if (marker == 0xD0 + next_rst) {
+        action = 1;
+      } else if (marker < 0xC0) {
+        action = 2;
+      } else if (marker < 0xD0 || marker > 0xD7) {
+        action = 3;
+      } else if (marker == 0xD0 + ((next_rst + 1) & 7) ||
+                 marker == 0xD0 + ((next_rst + 2) & 7)) {
+        action = 3;
+      } else if (marker == 0xD0 + ((next_rst - 1) & 7) ||
+                 marker == 0xD0 + ((next_rst - 2) & 7)) {
+        action = 2;
+      }
+      if (action == 1) marker = 0;
+      if (action != 2) break;
+      marker = 0;
+      if (!NextMarker()) return false;
+    }
+    next_rst = (next_rst + 1) & 7;
+    for (int& p : pred) p = 0;
+    eobrun = 0;
+    togo = f.restart_interval;
+    if (!marker) insufficient = false;
+    return true;
+  }
+
+  // -- progressive (jdphuff.c), one MCU; false to suspend --
+
+  bool McuProg(int16_t** blks, const int* comp_of) {
+    const Scan& si = f.sos;
+    if (si.Ss == 0 && si.Ah == 0) {  // decode_mcu_DC_first
+      if (insufficient) return true;
+      for (int b = 0; b < blocks_in_mcu; ++b) {
+        const int i = comp_of[b];
+        int s = Sym(f.dc[f.comp[ci[i]].td]);
+        if (s == kSusp) return false;
+        if (s) {
+          if (!Need(s)) return false;
+          s = Extend(GetBits(s), s);
+        }
+        pred[i] += s;
+        blks[b][0] = static_cast<int16_t>(
+            static_cast<uint32_t>(pred[i]) << si.Al);
+      }
+      return true;
+    }
+    if (si.Ss == 0) {  // decode_mcu_DC_refine (no insufficient check)
+      for (int b = 0; b < blocks_in_mcu; ++b) {
+        if (!Need(1)) return false;
+        if (GetBits(1)) blks[b][0] = static_cast<int16_t>(blks[b][0] |
+                                                          (1 << si.Al));
+      }
+      return true;
+    }
+    if (insufficient) return true;
+    const Huffman& act = f.ac[f.comp[ci[0]].ta];
+    int16_t* blk = blks[0];
+    if (si.Ah == 0) {  // decode_mcu_AC_first
+      if (eobrun > 0) {
+        --eobrun;
+        return true;
+      }
+      for (int k = si.Ss; k <= si.Se; ++k) {
+        int s = Sym(act);
+        if (s == kSusp) return false;
+        int r = s >> 4;
+        s &= 15;
+        if (s) {
+          k += r;
+          if (!Need(s)) return false;
+          blk[Natural(k)] = static_cast<int16_t>(
+              static_cast<uint32_t>(Extend(GetBits(s), s)) << si.Al);
+        } else if (r == 15) {
+          k += 15;
+        } else {
+          eobrun = 1u << r;
+          if (r) {
+            if (!Need(r)) return false;
+            eobrun += GetBits(r);
+          }
+          --eobrun;
+          break;
+        }
+      }
+      return true;
+    }
+    // decode_mcu_AC_refine
+    const int p1 = 1 << si.Al, m1 = -p1;
+    int k = si.Ss;
+    if (eobrun == 0) {
+      for (; k <= si.Se; ++k) {
+        int s = Sym(act);
+        if (s == kSusp) return false;
+        int r = s >> 4;
+        s &= 15;
+        if (s) {  // a size other than 1 is JWRN_HUFF_BAD_CODE, taken as 1
+          if (!Need(1)) return false;
+          s = GetBits(1) ? p1 : m1;
+        } else if (r != 15) {
+          eobrun = 1u << r;
+          if (r) {
+            if (!Need(r)) return false;
+            eobrun += GetBits(r);
+          }
+          break;
+        }
+        do {
+          int16_t* c = blk + Natural(k);
+          if (*c != 0) {
+            if (!Need(1)) return false;
+            if (GetBits(1) && (*c & p1) == 0)
+              *c = static_cast<int16_t>(*c + (*c >= 0 ? p1 : m1));
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= si.Se);
+        if (s) blk[Natural(k)] = static_cast<int16_t>(s);
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= si.Se; ++k) {
+        int16_t* c = blk + Natural(k);
+        if (*c != 0) {
+          if (!Need(1)) return false;
+          if (GetBits(1) && (*c & p1) == 0)
+            *c = static_cast<int16_t>(*c + (*c >= 0 ? p1 : m1));
+        }
+      }
+      --eobrun;
+    }
+    return true;
+  }
+
+  // decode_mcu of either kind, after its restart (OneScan); false to
+  // suspend
+  bool Mcu(int16_t** blks, const int* comp_of) {
+    bool fast = !f.progressive && !f.restart_interval;
+    if (win - pos < static_cast<size_t>(512) * blocks_in_mcu || marker)
+      fast = false;
+    bool ok = true;
+    if (f.progressive) {
+      ok = McuProg(blks, comp_of);
+    } else if (!insufficient) {
+      const size_t p0 = pos;
+      const uint64_t b0 = buf;
+      const int n0 = bits;
+      int pr[4];
+      std::memcpy(pr, pred, sizeof(pr));
+      if (!fast || !McuSeq<true>(blks, comp_of)) {
+        pos = p0;
+        buf = b0;
+        bits = n0;
+        std::memcpy(pred, pr, sizeof(pr));
+        ok = McuSeq<false>(blks, comp_of);
+      }
+    }
+    if (ok && f.restart_interval) --togo;
+    return ok;
+  }
+
+  // One scan, MCU by MCU, each decoded again from its start with another
+  // block fed while it suspends. 0, or 1 where the data runs out.
+  int OneScan(int64_t* unread) {
+    const ::Scan& si = f.sos;
+    ncomp = si.ns;
+    int comp_of[10];
+    blocks_in_mcu = 0;
+    for (int i = 0; i < ncomp; ++i) {
+      ci[i] = si.ci[i];
+      const Component& C = f.comp[ci[i]];
+      const bool dc = si.Ss == 0;
+      if (dc ? si.Ah == 0 && !f.dc[C.td].present
+             : !f.ac[C.ta].present)
+        return kBadHuffman;
+      if (!f.progressive && !f.ac[C.ta].present) return kBadHuffman;
+      const int nb = ncomp == 1 ? 1 : C.h * C.v;
+      for (int k = 0; k < nb && blocks_in_mcu < 10; ++k)
+        comp_of[blocks_in_mcu++] = i;
+    }
+    bits = 0;
+    buf = 0;
+    marker = 0;
+    insufficient = false;
+    eobrun = 0;
+    for (int& p : pred) p = 0;
+    togo = f.restart_interval;
+    next_rst = 0;
+    pos = static_cast<size_t>(f.scan - data);
+    const Component& C0 = f.comp[ci[0]];
+    const size_t bw = (C0.width + 7) / 8, bh = (C0.height + 7) / 8;
+    const size_t mcux = ncomp == 1 ? bw : f.McusX();
+    const size_t mcus = ncomp == 1 ? bw * bh : mcux * f.McusY();
+    int16_t* blks[10];
+    int16_t keep[64];
+    for (size_t m = 0; m < mcus; ++m) {
+      const size_t my = m / mcux, mx = m % mcux;
+      if (ncomp == 1) {
+        blks[0] = Block(ci[0], my, mx);
+      } else {
+        int b = 0;
+        for (int i = 0; i < ncomp; ++i) {
+          const Component& C = f.comp[ci[i]];
+          for (int v = 0; v < C.v; ++v)
+            for (int h = 0; h < C.h; ++h)
+              blks[b++] = Block(ci[i], my * C.v + v, mx * C.h + h);
+        }
+      }
+      const bool refine = f.progressive && si.Ss > 0 && si.Ah > 0;
+      if (refine) std::memcpy(keep, blks[0], sizeof(keep));
+      for (;;) {
+        // a restart read stays read when the MCU after it suspends
+        const size_t r0 = pos;
+        if (f.restart_interval && togo == 0 && !Restart()) {
+          pos = r0;
+        } else {
+          const size_t p0 = pos;
+          const uint64_t b0 = buf;
+          const int n0 = bits;
+          const unsigned e0 = eobrun;
+          int pr[4];
+          std::memcpy(pr, pred, sizeof(pr));
+          if (Mcu(blks, comp_of)) break;
+          pos = p0;
+          buf = b0;
+          bits = n0;
+          eobrun = e0;
+          std::memcpy(pred, pr, sizeof(pr));
+        }
+        if (refine) std::memcpy(blks[0], keep, sizeof(keep));
+        if (win >= len) {
+          *unread = static_cast<int64_t>(len - pos);
+          return 1;
+        }
+        win = win + block < len ? win + block : len;
+      }
+    }
+    return kOk;
+  }
+
+  // Every scan to the end of the frame: 0 where libjpeg reads it whole, 1
+  // where the data runs out first (`unread` set), or the frame's error.
+  int Run(int64_t* unread) {
+    const bool several = f.progressive || f.sos.ns != f.ncomp;
+    for (;;) {
+      // the marker reader suspends until it has the scan's header whole
+      const size_t sos_end = static_cast<size_t>(f.scan - data);
+      while (win < sos_end) win = win + block < len ? win + block : len;
+      const int rc = OneScan(unread);
+      if (rc != kOk) return rc;
+      ++f.scans;
+      if (!several) return kOk;
+      // the next marker: met by the entropy decoder, or read past the
+      // scan's last bytes; the data ending first leaves the FF bytes
+      // read since the last byte discarded
+      if (!marker) {
+        size_t sync = pos;
+        for (;;) {
+          if (pos >= len) {
+            *unread = static_cast<int64_t>(len - sync);
+            return 1;
+          }
+          const int c = data[pos++];
+          if (c != 0xFF) {
+            sync = pos;
+            continue;
+          }
+          while (pos < len && data[pos] == 0xFF) ++pos;
+          if (pos >= len) {
+            *unread = static_cast<int64_t>(len - sync);
+            return 1;
+          }
+          if (data[pos++] != 0) {
+            marker = data[pos - 1];
+            break;
+          }
+          sync = pos;
+        }
+      }
+      f.at = data + pos - 2;
+      marker = 0;
+      const int next = f.Next();
+      if (next == kEoi) return kOk;
+      if (next == kTruncated) {
+        // a marker segment cut: the marker reader keeps what follows its
+        // code; an APPn or COM segment is skipped to the data's end once
+        // its length is read
+        const size_t m = static_cast<size_t>(f.seg - data);
+        const int code = m + 1 < len ? data[m + 1] : 0;
+        const bool skipped = (code >= 0xE0 && code <= 0xEF) || code == 0xFE;
+        *unread = static_cast<int64_t>(
+            m + 2 > len ? len - m
+            : skipped && m + 4 <= len ? 0 : len - m - 2);
+        return 1;
+      }
+      if (next != kOk) return next;
+    }
+  }
+};
+
 struct Ik4Info {  // the layout of jpeg_entropy.cpp's IkJpegInfo
   int32_t width, height, ncomp, hmax, vmax;
   int32_t comp_h[4], comp_v[4], comp_width[4], comp_height[4];
@@ -1281,12 +1837,16 @@ IK_EXPORT int ik_jpeg4_parse(const uint8_t* data, size_t len, Ik4Info* info,
 
 // The scans of a DCT frame into coeffs[0..ncomp-1] (zeroed by the caller,
 // blocks_h*blocks_w*64 int16 each) and qtabs_out (4 x 64, natural order);
-// -3 for a lossless frame.
-IK_EXPORT int ik_jpeg4_decode_coeffs(const uint8_t* data, size_t len,
-                                     int16_t** coeffs, uint16_t* qtabs_out) {
+// -3 for a lossless frame. With `block` > 0 the arithmetic scans are fed
+// as Pillow feeds libjpeg, `block` bytes at a time (-9 where the QM decoder
+// needs a byte it has not been fed).
+IK_EXPORT int ik_jpeg4_decode_fed(const uint8_t* data, size_t len,
+                                  size_t block, int16_t** coeffs,
+                                  uint16_t* qtabs_out) {
   Frame f;
   f.data = data;
   f.len = len;
+  f.block = block;
   int rc = f.Parse();
   if (rc != kOk) return rc;
   if (f.coding == kLossless) return kUnsupported;
@@ -1295,6 +1855,48 @@ IK_EXPORT int ik_jpeg4_decode_coeffs(const uint8_t* data, size_t len,
            ? f.Decode(coeffs)
            : f.DecodeScans(coeffs);
   std::memcpy(qtabs_out, f.qtab, sizeof(f.qtab));  // DQT may follow a scan
+  return rc;
+}
+
+// ik_jpeg4_decode_fed of the data whole.
+IK_EXPORT int ik_jpeg4_decode_coeffs(const uint8_t* data, size_t len,
+                                     int16_t** coeffs, uint16_t* qtabs_out) {
+  return ik_jpeg4_decode_fed(data, len, 0, coeffs, qtabs_out);
+}
+
+// A DCT frame decoded as libjpeg decodes it (Lj), into coeffs (zeroed by
+// the caller) and qtabs_out. With `block` > 0, a Huffman frame fed as
+// Pillow feeds libjpeg: 0 where libjpeg reads it whole, 1 where the data
+// runs out first, *unread then the bytes Pillow's last call left
+// unconsumed; -3 for another coding. With `block` 0, the data whole and
+// then an EOI, as libtiff feeds a JPEG segment: a Huffman frame through
+// Lj, an arithmetic one through Frame (which feeds zeros at the EOI).
+IK_EXPORT int ik_jpeg4_decode_libjpeg(const uint8_t* data, size_t len,
+                                      size_t block, int16_t** coeffs,
+                                      uint16_t* qtabs_out, int64_t* unread) {
+  *unread = 0;
+  std::vector<uint8_t> copy;
+  if (!block) {
+    copy.assign(data, data + len);
+    copy.push_back(0xFF);
+    copy.push_back(0xD9);
+    data = copy.data();
+    len = copy.size();
+  }
+  Frame f;
+  f.data = data;
+  f.len = len;
+  int rc = f.Parse();
+  if (rc != kOk) return rc;
+  if (f.coding == kHuffmanDct) {
+    Lj lj(f, block, coeffs);
+    rc = lj.Run(unread);
+  } else if (f.coding == kArithDct && !block) {
+    rc = f.DecodeScans(coeffs);
+  } else {
+    return kUnsupported;
+  }
+  std::memcpy(qtabs_out, f.qtab, sizeof(f.qtab));
   return rc;
 }
 

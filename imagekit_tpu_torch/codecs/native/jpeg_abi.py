@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -53,7 +53,13 @@ ERRORS = {
     -6: "internal error",
     -7: "buffer too small",
     -8: "sampling factors too large for interleaved scan",
+    -9: "arithmetic data past the bytes fed",
 }
+
+#: the bytes Pillow's ``ImageFile.load`` hands libjpeg a call
+#: (``decodermaxblock``): the feed :func:`decode4` and
+#: :func:`decode_libjpeg` model for a JPEG source
+PILLOW_BLOCK = 65536
 
 
 class NativeJpegError(Exception):
@@ -137,6 +143,23 @@ def configure(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p,
     ]
     lib.ik_jpeg4_decode_coeffs.restype = ctypes.c_int
+    lib.ik_jpeg4_decode_fed.argtypes = [
+        ctypes.c_char_p,
+        ctypes.c_size_t,
+        ctypes.c_size_t,
+        ctypes.POINTER(ctypes.c_void_p),
+        ctypes.c_void_p,
+    ]
+    lib.ik_jpeg4_decode_fed.restype = ctypes.c_int
+    lib.ik_jpeg4_decode_libjpeg.argtypes = [
+        ctypes.c_char_p,
+        ctypes.c_size_t,
+        ctypes.c_size_t,
+        ctypes.POINTER(ctypes.c_void_p),
+        ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.ik_jpeg4_decode_libjpeg.restype = ctypes.c_int
     lib.ik_jpeg4_decode_lossless.argtypes = [
         ctypes.c_char_p,
         ctypes.c_size_t,
@@ -286,23 +309,54 @@ def decode(
     return hdr, coeffs, qtabs
 
 
+def _planes(hdr: JpegHeader):
+    coeffs = [np.zeros((hdr.blocks_h[c], hdr.blocks_w[c], 64), np.int16)
+              for c in range(hdr.ncomp)]
+    ptrs = (ctypes.c_void_p * 4)(
+        *[p.ctypes.data_as(ctypes.c_void_p).value for p in coeffs])
+    return coeffs, ptrs, np.empty((4, 64), np.uint16)
+
+
 def decode4(
-    lib: ctypes.CDLL, data: bytes
+    lib: ctypes.CDLL, data: bytes, block: int = 0
 ) -> Tuple[JpegHeader, List[np.ndarray], np.ndarray]:
     """:func:`decode`'s output for a frame :func:`parse4` takes: every scan
     of a progressive one accumulated, every scan of a baseline one in
-    several scans decoded (the blocks no scan codes stay zero)."""
+    several scans decoded (the blocks no scan codes stay zero). With
+    ``block`` (:data:`PILLOW_BLOCK`), arithmetic scans are fed as Pillow
+    feeds libjpeg, whose QM decoder cannot suspend for more: -9 where one
+    needs a byte past those fed."""
     hdr = parse4(lib, data)
-    coeffs = [np.zeros((hdr.blocks_h[c], hdr.blocks_w[c], 64), np.int16)
-              for c in range(hdr.ncomp)]
-    qtabs = np.empty((4, 64), np.uint16)
-    ptrs = (ctypes.c_void_p * 4)(
-        *[p.ctypes.data_as(ctypes.c_void_p).value for p in coeffs])
-    rc = lib.ik_jpeg4_decode_coeffs(data, len(data), ptrs,
-                                    qtabs.ctypes.data_as(ctypes.c_void_p))
+    coeffs, ptrs, qtabs = _planes(hdr)
+    rc = lib.ik_jpeg4_decode_fed(data, len(data), block, ptrs,
+                                 qtabs.ctypes.data_as(ctypes.c_void_p))
     if rc != 0:
         raise NativeJpegError(rc, four_components=True)
     return hdr, coeffs, qtabs
+
+
+def decode_libjpeg(
+    lib: ctypes.CDLL, data: bytes, block: int
+) -> Tuple[JpegHeader, List[np.ndarray], np.ndarray, Optional[int]]:
+    """A DCT frame decoded as libjpeg decodes it, to the byte
+    (``jpeg4_decode.cpp``'s ``Lj``): (header, planes, tables, unread).
+    ``block`` > 0 feeds a Huffman frame as Pillow does, that many bytes a
+    call; ``unread`` is None where libjpeg reads it whole, else the bytes
+    Pillow's last call left unconsumed when the data ran out. ``block`` 0
+    feeds it whole and then an EOI, as libtiff feeds a JPEG segment: a
+    segment cut short decodes, its MCU in flight from zero bits and the
+    rest zero (arithmetic frames too, zeros fed at the EOI). Raises the
+    frame's error; -3 for a lossless frame, or an arithmetic one with
+    ``block``."""
+    hdr = parse4(lib, data)
+    coeffs, ptrs, qtabs = _planes(hdr)
+    unread = ctypes.c_int64(0)
+    rc = lib.ik_jpeg4_decode_libjpeg(data, len(data), block, ptrs,
+                                     qtabs.ctypes.data_as(ctypes.c_void_p),
+                                     ctypes.byref(unread))
+    if rc not in (0, 1):
+        raise NativeJpegError(rc, four_components=True)
+    return hdr, coeffs, qtabs, (unread.value if rc == 1 else None)
 
 
 def decode_lossless(lib: ctypes.CDLL, data: bytes

@@ -31,27 +31,30 @@
 //     pinned copy's compressions and predictor): written out as RGBA.
 //
 // JPEG-compressed TIFFs (compression 7, 8-bit, strips or tiles: YCbCr with
-// YCbCrSubSampling of 1 or 2 on each axis, chunky; RGB, RGB with one extra
-// sample (unspecified, associated or unassociated alpha), gray and CMYK,
-// chunky or planar; gray with alpha, chunky) are not
-// decoded here: ik_tiffx_jpeg_segments returns their segment grid, each
+// YCbCrSubSampling of 1, 2 or 4 on each axis, chunky; RGB, RGB with one
+// extra sample (unspecified, associated or unassociated alpha), gray, gray
+// with alpha and CMYK, chunky or planar; Huffman or arithmetic coded) are
+// not decoded here: ik_tiffx_jpeg_segments returns their segment grid, each
 // segment's byte range and the JPEGTables' range, and
 // ik_tiffx_jpeg_parse_many and ik_tiffx_jpeg_decode_many entropy-decode a
 // page's segments in two calls, each segment an independent JPEG as
 // libtiff makes it (spliced onto the tables in one scratch buffer, a
 // segment at a time, and its levels copied to its place in the page's
 // planes), through the pinned decoder (jpeg_entropy.cpp) and the one for
-// two and four components (jpeg4_decode.cpp), which the loader links
-// beside this file. libtiff reads the tables once; a splice copies them for
+// two and four components and for arithmetic coding (jpeg4_decode.cpp),
+// which the loader links beside this file; a segment whose data ends early
+// decodes as libjpeg decodes it under libtiff's fake EOI
+// (ik_jpeg4_decode_libjpeg). libtiff reads the tables once; a splice copies them for
 // each segment, so a JPEGTables longer than kMaxTables, and a page whose
 // splices would copy more than kSpliceFactor times the file (overlapping
 // segments, or many over large tables), are refused as corrupt.
 //
 // Old-style JPEG TIFFs (compression 6, which Pillow reads as YCbCr through
-// libtiff: three 8-bit samples, chunky, baseline) are one JPEG stream a
-// page, which ik_tiffx_ojpeg_stream assembles as libtiff does
-// (OldJpegStream): the JPEGInterchangeFormat stream, the strip's own, or
-// the tables-in-tags form's; the same two calls decode it as one segment.
+// libtiff: three 8-bit samples, or one for gray, chunky, baseline) are one
+// JPEG stream a page, which ik_tiffx_ojpeg_stream assembles as libtiff does
+// (OldJpegStream): the JPEGInterchangeFormat stream, the first strip's
+// own, or the tables-in-tags form's, over the strips with an RSTn between
+// each two; the same two calls decode it as one segment.
 //
 // Tags take Pillow's defaults where they are missing: BitsPerSample 1,
 // PhotometricInterpretation 0, SamplesPerPixel 1 (3 for an old-style
@@ -61,11 +64,11 @@
 // Pillow's read fails on (YCbCr without compression, which its raw reader
 // runs out of; planar YCbCr JPEG and planar CMYK with extra samples): the
 // reference answers those as corrupt. Everything else (CIELab, YCbCr
-// compressed without JPEG, YCbCrSubSampling 4, planar 16-bit CMYK, an
-// old-style JPEG of one sample or assembled from several strips, other
-// compressions, Orientation 5-8) is -3. Corrupt data is an error; so is a
-// CCITT row whose runs overshoot its width, which libtiff pads with a
-// warning: every write is bounded by its row before it is made.
+// compressed without JPEG, planar 16-bit CMYK, other compressions,
+// Orientation 5-8) is -3. Corrupt data is an error. A CCITT row whose runs
+// pass its width is cut as libtiff cuts it (Overshoot), every write
+// bounded by its row; a row that reaches an uncompressed-mode extension
+// ends as libtiff ends it, which does not decode that mode.
 //
 // The LZW, deflate and PackBits decoders are copies of tiff_decode.cpp's,
 // which keeps them in an anonymous namespace. The exported names are
@@ -193,17 +196,18 @@ bool Ccitt(int c) { return c == 2 || c == 3 || c == 4; }
 int CheckJpeg(const Tiff& t) {
   if (t.bits != 8) return kRefused;  // "Improper JPEG data precision"
   switch (t.photometric) {
-    case 6:
+    case 6:  // YCbCrSubSampling 1, 2 or 4 an axis (libtiff checks each
+             // segment's sampling against it)
       if (t.planar != 1) return kRefused;  // Pillow: "decoder error -2"
-      if (t.spp != 3 || t.sub_h > 2 || t.sub_v > 2) return kUnsupported;
-      return kOk;
+      if (t.spp != 3) return kUnsupported;
+      return t.sub_h > 4 || t.sub_v > 4 ? kBadData : kOk;
     case 2:
       if (t.spp == 3) return kOk;
       return t.spp == 4 && t.extra >= 0 && t.extra <= 2 ? kOk
                                                          : kUnsupported;
-    case 1:  // Pillow reads a planar gray + alpha page's alpha as 0
-      return t.spp == 1 || (t.spp == 2 && t.alpha && t.planar == 1)
-                 ? kOk : kUnsupported;
+    case 1:  // gray, with alpha chunky or planar (whose alpha Pillow
+             // reads as 0)
+      return t.spp == 1 || (t.spp == 2 && t.alpha) ? kOk : kUnsupported;
     case 5: return t.spp == 4 ? kOk : kUnsupported;
     default: return kUnsupported;
   }
@@ -352,9 +356,6 @@ int Parse(const uint8_t* data, size_t len, Tiff* t) {
       case 279: if (!tiles) cnt_e = ent; break;
       case 284: t->planar = EntryValue(r, ent, 0); break;
       case 292: t->t4 = EntryValue(r, ent, 0); break;
-      case 293:  // T6Options: bit 1 is uncompressed mode
-        if (EntryValue(r, ent, 0) & 2) return kUnsupported;
-        break;
       case 317: t->predictor = EntryValue(r, ent, 0); break;
       case 320: cmap_e = ent; break;
       case 322: t->tile_w = EntryValue(r, ent, 0); break;
@@ -385,7 +386,6 @@ int Parse(const uint8_t* data, size_t len, Tiff* t) {
       c != kJpeg && c != kOldJpeg)
     return kUnsupported;
   if (t->predictor < 1 || t->predictor > 3) return kUnsupported;
-  if (Ccitt(c) && (t->t4 & 2)) return kUnsupported;  // uncompressed mode
   // Pillow's reading of the tags: an old-style JPEG is YCbCr whatever its
   // photometric; SamplesPerPixel 3 where an old-style JPEG of RGB or YCbCr
   // has none, else 1; BitsPerSample (1 where missing) cut to the samples,
@@ -436,8 +436,9 @@ int Parse(const uint8_t* data, size_t len, Tiff* t) {
       t->tables_len = tables_e.count * TypeSize(tables_e.type);
     }
   } else if (c == kOldJpeg) {
-    // three 8-bit samples, chunky, baseline (JPEGProc 1)
-    if (t->spp != 3 || b != 8 || t->planar != 1 || t->jpeg_proc != 1)
+    // three 8-bit samples (one, gray), chunky, baseline (JPEGProc 1)
+    if ((t->spp != 3 && t->spp != 1) || b != 8 || t->planar != 1 ||
+        t->jpeg_proc != 1)
       return kUnsupported;
     if (sub_e.count >= 2) {  // the tables-in-tags form's frame
       t->sub_h = static_cast<int>(EntryValue(r, sub_e, 0));
@@ -841,6 +842,15 @@ struct Row {
   }
 };
 
+// libtiff's CLEANUP_RUNS for a row whose runs pass its width: the runs
+// that end past it are dropped, and the row is white from where the last
+// one kept ends (after a black run of 0 where that one ended a white run).
+// Every change stays inside the row.
+int Overshoot(Row& cur) {
+  if ((cur.n & 1) && !cur.Push(cur.x[cur.n - 1])) return kBadData;
+  return kOk;
+}
+
 // One 1-D coded row into `cur` (runs alternate from white).
 int Row1D(BitIn& in, int width, Row& cur) {
   cur.n = 0;
@@ -850,7 +860,7 @@ int Row1D(BitIn& in, int width, Row& cur) {
     const int run = ReadRun(in, black);
     if (run < 0) return run == kEol ? kBadData : run;
     a0 += run;
-    if (a0 > width) return kBadData;  // a run past the row
+    if (a0 > width) return Overshoot(cur);
     if (a0 < width && !cur.Push(a0)) return kBadData;
     black = !black;
   }
@@ -889,7 +899,12 @@ int Row2D(BitIn& in, int width, const Row& ref, Row& cur) {
       const int r2 = ReadRun(in, !black);
       if (r2 < 0) return r2 == kEol ? kBadData : r2;
       const int a2 = start + r1 + r2;
-      if (start + r1 > width || a2 > width) return kBadData;
+      if (in.Over()) return kTruncated;
+      if (a2 > width) {  // both runs read, those past the row dropped
+        if (start + r1 >= width) return start + r1 == width ? kOk
+                                                             : Overshoot(cur);
+        return cur.Push(start + r1) ? Overshoot(cur) : kBadData;
+      }
       if (!cur.Push(start + r1) || !cur.Push(a2)) return kBadData;
       a0 = a2;
       if (in.Over()) return kTruncated;
@@ -912,11 +927,25 @@ int Row2D(BitIn& in, int width, const Row& ref, Row& cur) {
     } else if (m == 0x2) {  // 0000010: VL3
       in.Skip(7);
       a1 = b1 - 3;
-    } else {  // extensions (uncompressed mode), an EOL, or no code
+    } else if (m == 0x1) {
+      // 0000001: an extension (uncompressed mode), which libtiff does not
+      // decode: it ends the row in the colour of the run at a0 (the runs
+      // of a pending pass first: that colour for as many pixels as the
+      // row has left past a0, then the other), and the next row's codes
+      // follow the seven bits
+      in.Skip(7);
+      if (in.Over()) return kTruncated;
+      const int last = cur.n ? cur.x[cur.n - 1] : 0;
+      if (a0 > last && last + width - a0 < width &&
+          !cur.Push(last + width - a0))
+        return kBadData;
+      return kOk;
+    } else {  // an EOL, or no code
       return kBadData;
     }
     if (in.Over()) return kTruncated;
-    if (a1 < (a0 < 0 ? 0 : a0) || a1 > width) return kBadData;
+    if (a1 > width) return Overshoot(cur);
+    if (a1 < (a0 < 0 ? 0 : a0)) return kBadData;
     if (a1 < width && !cur.Push(a1)) return kBadData;
     a0 = a1;
     black = !black;
@@ -1244,18 +1273,19 @@ void Put16(std::vector<uint8_t>* o, uint32_t v) {
 int TablesStream(const Reader& r, const Tiff& t, const uint8_t* scan,
                  size_t n, std::vector<uint8_t>* o) {
   const Entry* tabs[3] = {&t.qtabs_e, &t.dctabs_e, &t.actabs_e};
+  const uint32_t nc = t.spp == 1 ? 1 : 3;  // gray, or YCbCr
   for (const Entry* e : tabs)
-    if (e->count < 3) return kBadData;
+    if (e->count < nc) return kBadData;
   if (t.width > 65535 || t.height > 65535) return kUnsupported;
   o->assign({0xFF, 0xD8});
-  for (uint32_t i = 0; i < 3; ++i) {
+  for (uint32_t i = 0; i < nc; ++i) {
     const size_t q = EntryValue(r, t.qtabs_e, i);
     if (q > r.len || r.len - q < 64) return kTruncated;
     o->insert(o->end(), {0xFF, 0xDB, 0, 67, static_cast<uint8_t>(i)});
     o->insert(o->end(), r.d + q, r.d + q + 64);
   }
   for (int cls = 0; cls < 2; ++cls)
-    for (uint32_t i = 0; i < 3; ++i) {
+    for (uint32_t i = 0; i < nc; ++i) {
       const size_t h = EntryValue(r, cls ? t.actabs_e : t.dctabs_e, i);
       if (h > r.len || r.len - h < 16) return kTruncated;
       size_t symbols = 0;
@@ -1267,40 +1297,67 @@ int TablesStream(const Reader& r, const Tiff& t, const uint8_t* scan,
       o->push_back(static_cast<uint8_t>(cls << 4 | i));
       o->insert(o->end(), r.d + h, r.d + h + 16 + symbols);
     }
-  o->insert(o->end(), {0xFF, 0xC0, 0, 17, 8});
+  o->insert(o->end(), {0xFF, 0xC0, 0, static_cast<uint8_t>(8 + 3 * nc), 8});
   Put16(o, t.height);
   Put16(o, t.width);
-  o->insert(o->end(), {3, 1, static_cast<uint8_t>(t.sub_h << 4 | t.sub_v), 0,
-                       2, 0x11, 1, 3, 0x11, 2});
+  if (nc == 1)
+    o->insert(o->end(), {1, 1, 0x11, 0});
+  else
+    o->insert(o->end(), {3, 1, static_cast<uint8_t>(t.sub_h << 4 | t.sub_v),
+                         0, 2, 0x11, 1, 3, 0x11, 2});
   if (t.restart > 0) {
     if (t.restart > 65535) return kBadData;
     o->insert(o->end(), {0xFF, 0xDD, 0, 4});
     Put16(o, t.restart);
   }
-  o->insert(o->end(), {0xFF, 0xDA, 0, 12, 3, 1, 0x00, 2, 0x11, 3, 0x22, 0, 63,
-                       0});
+  if (nc == 1)
+    o->insert(o->end(), {0xFF, 0xDA, 0, 8, 1, 1, 0x00, 0, 63, 0});
+  else
+    o->insert(o->end(), {0xFF, 0xDA, 0, 12, 3, 1, 0x00, 2, 0x11, 3, 0x22, 0,
+                         63, 0});
   o->insert(o->end(), scan, scan + n);
   o->insert(o->end(), {0xFF, 0xD9});
+  return kOk;
+}
+
+// The strips of an old-style JPEG page as libtiff's OJPEG module feeds
+// their bytes to libjpeg (OJPEGReadBufferFill, OJPEGWriteStreamRst): the
+// first strip's from `first` on, then each later one's after an RSTn, n
+// counting 0-7 from the first. Their ranges may not overlap: a page whose
+// strips hold more bytes than the file is refused as corrupt.
+int StripData(const uint8_t* data, size_t len, const Tiff& t, size_t first,
+              std::vector<uint8_t>* o) {
+  size_t total = 0;
+  for (size_t i = 0; i < t.offsets.size(); ++i) total += t.counts[i];
+  if (total > len) return kBadData;
+  const uint8_t* s0 = data + t.offsets[0];
+  if (first < t.counts[0]) o->insert(o->end(), s0 + first, s0 + t.counts[0]);
+  for (size_t i = 1; i < t.offsets.size(); ++i) {
+    o->insert(o->end(), {0xFF, static_cast<uint8_t>(0xD0 + ((i - 1) & 7))});
+    o->insert(o->end(), data + t.offsets[i],
+              data + t.offsets[i] + t.counts[i]);
+  }
   return kOk;
 }
 
 // An old-style JPEG page as the one JPEG stream libtiff hands to libjpeg:
 // the JPEGInterchangeFormat stream (its range as Parse corrected it) up to
 // its EOI; where it has no EOI, its entropy-coded data runs on into the
-// strip; with no interchange format, the strip's own stream, or the
-// tables-in-tags form's (TablesStream). The strips are ignored where the
-// interchange format holds the whole stream. A stream to assemble from
-// several strips (libtiff inserts restart markers between them) is -3.
+// strips; with no interchange format, the first strip's own stream, or the
+// tables-in-tags form's (TablesStream), over the strips (StripData). The
+// strips are ignored where the interchange format holds the whole stream.
 int OldJpegStream(const uint8_t* data, size_t len, const Tiff& t,
                   std::vector<uint8_t>* o) {
-  const bool one = t.offsets.size() == 1;
   const uint8_t* s0 = data + t.offsets[0];
   const size_t n0 = t.counts[0];
   const uint8_t* head = t.jif_off ? data + t.jif_off : s0;
   const size_t hn = t.jif_off ? t.jif_len : n0;
   if (!t.jif_off && !(n0 >= 2 && s0[0] == 0xFF && s0[1] == 0xD8)) {
-    if (!one) return kUnsupported;
-    return TablesStream(Reader{data, len, t.le}, t, s0, n0, o);
+    std::vector<uint8_t> scan;
+    const int rc = StripData(data, len, t, 0, &scan);
+    if (rc != kOk) return rc;
+    return TablesStream(Reader{data, len, t.le}, t, scan.data(), scan.size(),
+                        o);
   }
   const size_t sos = SosEnd(head, hn);
   if (sos == 0) return kBadData;  // no JPEG header before a scan
@@ -1309,9 +1366,10 @@ int OldJpegStream(const uint8_t* data, size_t len, const Tiff& t,
     o->assign(head, head + eoi);
     return kOk;
   }
-  if (!one) return kUnsupported;
   o->assign(head, head + hn);
-  if (t.jif_off) o->insert(o->end(), s0, s0 + n0);
+  // the first strip follows an interchange format; else it was the head
+  const int rc = StripData(data, len, t, t.jif_off ? 0 : n0, o);
+  if (rc != kOk) return rc;
   o->insert(o->end(), {0xFF, 0xD9});
   return kOk;
 }
@@ -1413,7 +1471,7 @@ IK_EXPORT int ik_tiffx_jpeg_segments(const uint8_t* data, size_t len,
   if (t.compression != kJpeg && !old) return kUnsupported;
   out->width = static_cast<int32_t>(t.width);
   out->height = static_cast<int32_t>(t.height);
-  out->photometric = t.photometric;
+  out->photometric = old && t.spp == 1 ? 1 : t.photometric;  // gray
   out->samples = t.spp;
   out->alpha = t.alpha;
   out->sub_h = old ? 0 : t.sub_h;  // an old-style stream's own sampling
@@ -1444,7 +1502,7 @@ IK_EXPORT int ik_tiffx_jpeg_segments(const uint8_t* data, size_t len,
 
 // An old-style JPEG page's stream (OldJpegStream) into `out`: its length,
 // written where `cap` holds it; or a negative code. The stream is at most
-// the file and the tables, so 2 * len + 4096 bytes always hold it.
+// the file twice, the tables and two bytes a strip (StripData).
 IK_EXPORT int64_t ik_tiffx_ojpeg_stream(const uint8_t* data, size_t len,
                                         uint8_t* out, size_t cap) {
   Tiff t;
@@ -1479,6 +1537,9 @@ int ik_jpeg4_parse(const uint8_t* data, size_t len, IkSegInfo* info,
                    IkSegExtra* extra);
 int ik_jpeg4_decode_coeffs(const uint8_t* data, size_t len, int16_t** coeffs,
                            uint16_t* qtabs_out);
+int ik_jpeg4_decode_libjpeg(const uint8_t* data, size_t len, size_t block,
+                            int16_t** coeffs, uint16_t* qtabs_out,
+                            int64_t* unread);
 }
 
 // A page's segments as libtiff hands each to libjpeg: segment i, the bytes
@@ -1514,11 +1575,12 @@ int Splice(const IkTiffxSplice& s, int32_t i, std::vector<uint8_t>* buf) {
 }
 
 // The header of a spliced segment as jpeg_abi.parse_any reads it: the
-// pinned parser, then, where it says -3, the four-component one. Returns 0
-// or the failing parser's code (the pinned parser's -3 where both refuse
-// the frame as unsupported, and where the segment is arithmetic-coded or
-// lossless, which a JPEG TIFF page does not take); `four` is 1 where the
-// four-component parser took the stream or failed on it.
+// pinned parser, then, where it says -3, the port's (jpeg4_decode.cpp).
+// Returns 0 or the failing parser's code (the pinned parser's -3 where
+// both refuse the frame as unsupported, and where the segment is lossless,
+// which a JPEG TIFF page does not take); `four` is 1 where the port's
+// parser took the stream (two or four components, an arithmetic-coded
+// segment) or failed on it.
 int ParseAny(const std::vector<uint8_t>& buf, IkSegInfo* info,
              int32_t* four) {
   *four = 0;
@@ -1526,7 +1588,7 @@ int ParseAny(const std::vector<uint8_t>& buf, IkSegInfo* info,
   if (rc == kUnsupported) {
     IkSegExtra extra = {-1, 0};
     const int rc4 = ik_jpeg4_parse(buf.data(), buf.size(), info, &extra);
-    if (rc4 != kUnsupported && !(rc4 == kOk && extra.coding != 0)) {
+    if (rc4 != kUnsupported && !(rc4 == kOk && extra.coding == 2)) {
       rc = rc4;
       *four = 1;
     }
@@ -1583,6 +1645,16 @@ IK_EXPORT void ik_tiffx_jpeg_decode_many(const IkTiffxSplice* s,
                                          qtabs + 256 * i)
                 : ik_jpeg_decode_coeffs(buf.data(), buf.size(), comp,
                                         qtabs + 256 * i);
+      if (rc != kOk && rc != kUnsupported) {
+        // libtiff hands libjpeg the segment whole, then a fake EOI: data
+        // that ends early decodes, its MCU in flight from zero bits and the
+        // rest of the segment zero, as jpeg4_decode.cpp's Lj follows it
+        std::fill(scratch.begin(), scratch.end(), int16_t{0});
+        int64_t unread = 0;
+        rc = ik_jpeg4_decode_libjpeg(buf.data(), buf.size(), 0, comp,
+                                     qtabs + 256 * i, &unread);
+        if (rc == 1) rc = kTruncated;
+      }
       for (int c = 0; rc == kOk && c < h.ncomp; ++c) {
         const size_t row = static_cast<size_t>(h.blocks_w[c]) * 64;
         for (int32_t r = 0; r < h.blocks_h[c]; ++r)

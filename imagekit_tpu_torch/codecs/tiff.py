@@ -17,37 +17,43 @@ Pillow's ``convert("RGB")`` does (``ops/color.py::cmyk_to_rgb``, on the
 device: run on the host from the codec pool's threads at once, its torch
 ops took 20x longer).
 
-JPEG-compressed TIFFs (compression 7, 8-bit: YCbCr, RGB, gray, CMYK,
-chunky, strips or tiles; RGB planar; RGB with an unspecified, associated
-or unassociated extra sample and gray with alpha, chunky) are decoded as
-libtiff decodes them, each strip or tile an independent JPEG:
+JPEG-compressed TIFFs (compression 7, 8-bit: YCbCr with
+YCbCrSubSampling 1, 2 or 4 an axis, RGB, gray, CMYK, chunky, strips or
+tiles; RGB, gray and CMYK planar; RGB with an unspecified, associated or
+unassociated extra sample and gray with alpha; Huffman or arithmetic
+coded) are decoded as libtiff decodes them, each strip or tile an
+independent JPEG:
 :func:`entropy_decode` has the native library splice each segment onto the
 ``JPEGTables``, one at a time, and parse and entropy-decode the page's
 segments in two calls (the pinned decoder, or the port's for two and four
-components), checks each header against the IFD as libtiff does, and
-assembles the segments' coefficients into one plane a component
+components and arithmetic coding; a segment whose data ends early as
+libjpeg decodes it under libtiff's fake EOI, its MCU in flight from zero
+bits and the rest zero), checks each header against the IFD as libtiff
+does, and assembles the segments' coefficients into one plane a component
 (:class:`JpegPage`); the device half is ``ops/dct.py::decode_tiff_page``
 (one K3 launch a page, two for four components). The colour step follows
-the TIFF photometric, never the JPEG stream. Old-style JPEG (compression
-6), which Pillow reads as YCbCr through libtiff's RGBA interface, is one
-stream a page (``ik_tiffx_ojpeg_stream``: the JPEGInterchangeFormat
-stream, or the strip's, or the tables-in-tags form's, assembled as libtiff
-assembles it) entropy-decoded the same way; its page replicates chroma
-over each subsampling block and takes libtiff's ``TIFFYCbCrToRGB``.
+the TIFF photometric, never the JPEG stream; a planar gray + alpha page's
+alpha is 0, as Pillow reads it. Old-style JPEG (compression 6), which
+Pillow reads as YCbCr through libtiff's RGBA interface (one sample: gray),
+is one stream a page (``ik_tiffx_ojpeg_stream``: the JPEGInterchangeFormat
+stream, or the first strip's, or the tables-in-tags form's, over every
+strip as libtiff's OJPEG module feeds them) entropy-decoded the same way;
+its page replicates chroma over each subsampling block and takes libtiff's
+``TIFFYCbCrToRGB``.
 
 The differences from the reference are those of :mod:`.misc`, whose
 binding helpers this uses: a constant pixel ceiling (no Pillow), and
 :class:`~imagekit_tpu_torch.errors.NotPortedError` where neither decoder
-takes a layout (CIELab, YCbCrSubSampling 4, YCbCr compressed without JPEG,
-planar 16-bit CMYK, an old-style JPEG assembled from several strips,
+takes a layout (CIELab, YCbCr compressed without JPEG, planar 16-bit CMYK,
 Orientation 5-8). What Pillow refuses answers as the reference does, a
 :class:`~imagekit_tpu_torch.errors.TransformError` (a layout it has no mode
 for, such as a 16-bit palette or a 12-bit JPEG; YCbCr without compression,
-which its raw reader runs out of). A JPEG segment whose entropy data ends
-early is an error here, where libjpeg fills the rest of that segment gray;
-so is a ``JPEGTables`` longer than 64 kB, and a page whose splices would
-copy more than 64 times the file (``tiff_ext_decode.cpp``), which libtiff
-reads.
+which its raw reader runs out of). Resource bounds, where libtiff reads
+on: a ``JPEGTables`` longer than 64 kB and a page whose splices would copy
+more than 64 times the file (``tiff_ext_decode.cpp``), and a segment coded
+smaller than its place, which libtiff decodes into the rows it has and
+whose other rows Pillow leaves as its buffer held them (the previous
+strip's, or memory never written), are 400 here.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from imagekit_tpu_torch.codecs import misc
+from imagekit_tpu_torch.codecs.jpeg import sampling_refused
 from imagekit_tpu_torch.codecs.native import jpeg_abi
 from imagekit_tpu_torch.errors import NotPortedError, TransformError
 
@@ -231,6 +238,9 @@ class JpegPage:
     segments: Optional[List[Tuple["JpegPage", int, int]]] = None
     extra: int = -1
     ycbcr: Optional[Tuple[Tuple[float, ...], Tuple[float, ...]]] = None
+    #: a planar gray + alpha page, whose alpha Pillow reads as 0: its gray
+    #: plane alone, and an alpha of 0
+    zero_alpha: bool = False
 
 
 def segments(data: bytes) -> Tuple[_JpegInfo, np.ndarray, np.ndarray]:
@@ -260,9 +270,13 @@ def old_style_stream(data: bytes) -> bytes:
     from imagekit_tpu_torch.codecs.native import loader
 
     fn = loader.load().ik_tiffx_ojpeg_stream
-    out = np.empty(2 * len(data) + 4096, np.uint8)  # what any stream takes
-    n = int(fn(data, len(data), out.ctypes.data_as(ctypes.c_void_p),
-               out.nbytes))
+    out = np.empty(2 * len(data) + 4096, np.uint8)  # what a stream takes
+    for _ in range(2):  # the second call with its length (RSTs of strips)
+        n = int(fn(data, len(data), out.ctypes.data_as(ctypes.c_void_p),
+                   out.nbytes))
+        if n <= out.nbytes:
+            break
+        out = np.empty(n, np.uint8)
     misc.check(min(n, 0) if n <= out.nbytes else misc.BUFFER, "TIFF", "TIFF")
     return out[:n].tobytes()
 
@@ -337,7 +351,8 @@ def segment_stream(tables: bytes, segment: bytes) -> bytes:
 def _check_segment(hdr, info, sampling, i: int, want: Tuple[int, int],
                    last_strip: bool, ncomp: int) -> None:
     """libtiff's checks of a segment against the IFD (``JPEGPreDecode``), in
-    its order. libtiff takes a last strip coded taller than its rows (and
+    its order, then libjpeg's of its sampling (``jpeg.sampling_refused``:
+    a fractional ratio, more than 10 blocks an MCU in one scan). libtiff takes a last strip coded taller than its rows (and
     reads its rows only); here one coded at most a whole strip's height. A
     segment smaller than its place libtiff takes with a warning and leaves
     the rest undefined, which is an error here."""
@@ -358,6 +373,9 @@ def _check_segment(hdr, info, sampling, i: int, want: Tuple[int, int],
         raise TransformError(f"corrupt TIFF: JPEG segment {i} is sampled "
                              f"{hdr.comp_h} x {hdr.comp_v}, the IFD "
                              f"{sampling}")
+    if sampling_refused(hdr):
+        raise TransformError(f"corrupt TIFF: JPEG segment {i}: libjpeg "
+                             f"refuses its sampling")
 
 
 def _parse_many(lib, splice: _Splice) -> list:
@@ -413,14 +431,20 @@ def entropy_decode(data: bytes) -> JpegPage:
     page's segments are one component each, plane by plane. An old-style
     page is one segment, its stream (:func:`old_style_stream`). Where the
     segments' tables differ, or a strip that is not a whole number of MCUs
-    ends before the last, the page keeps its segments apart (a planar page
-    of that kind is not ported). Corrupt data raises
+    ends before the last, the page keeps its segments apart, a planar
+    page's by grid place, its planes' segments there together. A planar
+    gray + alpha page decodes its gray plane alone (:attr:`JpegPage.
+    zero_alpha`). Corrupt data raises
     :class:`TransformError`; what the decoders refuse as unsupported,
     :class:`NotPortedError`."""
     from imagekit_tpu_torch.codecs.native import loader
 
     lib = loader.load()
     info, offs, cnts = segments(data)
+    planar, grid, ncomp = info.planes > 1, info.rows * info.cols, info.samples
+    zero_alpha = planar and info.photometric == 1 and ncomp == 2
+    if zero_alpha:  # Pillow reads the gray plane; the alpha is 0
+        offs, cnts, ncomp = offs[:grid], cnts[:grid], 1
     if info.old_style:
         data = old_style_stream(data)
         offs = np.zeros(1, np.uint64)
@@ -446,7 +470,6 @@ def entropy_decode(data: bytes) -> JpegPage:
                      offs.ctypes.data, cnts.ctypes.data, which.ctypes.data,
                      len(offs))
     heads = _parse_many(lib, splice)
-    planar, grid, ncomp = info.planes > 1, info.rows * info.cols, info.samples
     sampling, places = None, []
     for i, hdr in enumerate(heads):
         if isinstance(hdr, jpeg_abi.NativeJpegError):
@@ -463,9 +486,6 @@ def entropy_decode(data: bytes) -> JpegPage:
             sampling = ((info.sub_h or hdr.comp_h[0],
                          info.sub_v or hdr.comp_v[0])
                         if info.photometric == 6 else (1, 1))
-            if max(sampling) > 2:
-                raise NotPortedError(f"a JPEG TIFF sampled {sampling}",
-                                     "queue 1 item 9")
         _check_segment(hdr, info, sampling, i, want,
                        not info.tiled and g == grid - 1,
                        1 if planar else ncomp)
@@ -511,20 +531,24 @@ def entropy_decode(data: bytes) -> JpegPage:
     # each), of one set of tables: one pixel decode a page
     regular = (info.tiled or grid == 1
                or info.seg_h % (8 * sampling[1]) == 0)
-    ycbcr = ((tuple(info.luma), tuple(info.refbw)) if info.old_style
-             else None)
+    ycbcr = ((tuple(info.luma), tuple(info.refbw))
+             if info.old_style and info.photometric == 6 else None)
     if regular and same:
         return JpegPage(W, H, info.photometric, coeffs, page_q, rows, cols,
-                        extra=info.extra, ycbcr=ycbcr)
+                        extra=info.extra, ycbcr=ycbcr, zero_alpha=zero_alpha)
+    # each place of the grid alone: a chunky segment's components, or the
+    # segments of every plane at that place
     if planar:
-        raise NotPortedError("a planar JPEG TIFF whose strips straddle "
-                             "blocks or whose tables differ a strip",
-                             "queue 1 item 9")
+        groups = [([views[c * grid + g][0] for c in range(ncomp)],
+                   np.stack([qts[c * grid + g][0] for c in range(ncomp)]),
+                   places[g]) for g in range(grid)]
+    else:
+        groups = list(zip(views, qts, places))
     return JpegPage(W, H, info.photometric, [], page_q, [], [], segments=[
         (JpegPage(w, h, info.photometric,
                   [np.ascontiguousarray(v) for v in vs], q,
                   [(v.shape[0],) for v in vs], [(v.shape[1],) for v in vs],
-                  extra=info.extra),
+                  extra=info.extra, zero_alpha=zero_alpha),
          y0, x0)
-        for vs, q, (y0, x0, w, h) in zip(views, qts, places)],
-        extra=info.extra)
+        for vs, q, (y0, x0, w, h) in groups],
+        extra=info.extra, zero_alpha=zero_alpha)

@@ -21,10 +21,10 @@ lossless frame, is then validated by the port's own parser
 libjpeg refuse it, as the reference's Pillow decode does here: a frame
 whose precision is not 8 bits or whose component count is not 1, 3 or 4,
 a sampling libjpeg refuses, a hierarchical or lossless arithmetic frame,
-a lossless one that needs a colour conversion. A lossless frame of four
-components is left to the engine, which answers it with a
-:class:`~imagekit_tpu_torch.errors.NotPortedError`, as it does a variant
-no decoder takes. A BMP or TIFF that the pinned parser refuses as
+a lossless one that needs a colour conversion; data the reference's full
+decode would then find cut short is the engine's
+:class:`~imagekit_tpu_torch.errors.SourceDecodeError`, answered with this
+stage's body. A BMP or TIFF that the pinned parser refuses as
 unsupported is validated by the port's own parser of those layouts
 (``misc.parse_bmp``, ``tiff.parse``); what that one refuses as corrupt, as
 Pillow would, is this stage's 400. A JPEG-compressed TIFF is validated by

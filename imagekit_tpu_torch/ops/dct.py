@@ -56,16 +56,18 @@ so ONE K3 launch on CUDA, for 4:2:0, 4:2:2, 4:4:0, 4:4:4 and grayscale
 JPEGs; for three components in any other integer sampling (4:1:1, Cb and
 Cr sampled differently, ...), :func:`decode_sampled_components`: each
 component's own stacks by libjpeg's choice of upsample, ONE K3 launch; for
-CMYK and YCCK JPEGs, which the reference decodes with Pillow,
-:func:`decode_four_components`: the same IDCT and upsample stacks for four
-components, TWO K3 launches, then libjpeg's and Pillow's integer colour
-steps, :func:`~imagekit_tpu_torch.ops.color.cmyk_to_rgb`).
+CMYK and YCCK JPEGs in any integer sampling, which the reference decodes
+with Pillow, :func:`decode_four_components`: the same IDCT and each
+component's stacks by libjpeg's choice, TWO K3 launches, then libjpeg's and
+Pillow's integer colour steps, :func:`~imagekit_tpu_torch.ops.color.
+cmyk_to_rgb`).
 
 A JPEG coded as RGB (``hdr.rgb``: an Adobe transform of 0, or the ids
 'R', 'G', 'B' with no marker) skips the YCbCr step in the pixel decode.
 A lossless JPEG's samples need no IDCT: :func:`decode_lossless_planes`
-takes gray and alike-sampled frames as they are, and runs ONE K3 launch
-with replication stacks where the components are sampled differently.
+takes gray and alike-sampled frames as they are, and runs K3 with
+replication stacks where the components are sampled differently (one
+launch for three components, two for four); four components are CMYK.
 
 The pixel decode of a JPEG-compressed TIFF page, which the reference
 decodes with Pillow: :func:`decode_tiff_page` takes the coefficient planes
@@ -108,6 +110,7 @@ from imagekit_tpu_torch.ops.resize_strip import (
     yuv_resize,
 )
 from imagekit_tpu_torch.ops.weights import (
+    TRIANGLE_AXES,
     chroma_axis_weights,
     component_stacks,
     idct_basis,
@@ -672,15 +675,15 @@ def decode_components_to_rgb(decoded, device: Optional[torch.device] = None
 
 
 def sampled_inputs(decoded, device: torch.device):
-    """:func:`plane_inputs` of a three-component JPEG in any integer
-    sampling: each component's stacks to the grid of the largest factors
-    (:func:`~imagekit_tpu_torch.ops.weights.component_stacks`), by the
-    method libjpeg picks from the pair of its ratios to those factors
+    """:func:`plane_inputs` of a JPEG of three or four components in any
+    integer sampling: each component's stacks to the grid of the largest
+    factors (:func:`~imagekit_tpu_torch.ops.weights.component_stacks`), by
+    the method libjpeg picks from the pair of its ratios to those factors
     (:func:`~imagekit_tpu_torch.ops.weights.upsample_method`: the
     identity, a triangle 2x on one or both axes, or replication on both),
-    each stopping at the component's real size; the luma is upsampled too
-    where its factors are not the largest. A ratio that is not an integer
-    raises ValueError."""
+    each stopping at the component's real size; the first component is
+    upsampled too where its factors are not the largest. A ratio that is
+    not an integer raises ValueError."""
     hdr, coeffs, qtabs = decoded
     grids = [c.shape[:2] for c in coeffs]
     full = (max(g[0] for g in grids), max(g[1] for g in grids))
@@ -743,20 +746,6 @@ def _stack_inputs(keys, stacks_of, device: torch.device):
     return [per_key[k][0] for k in keys], [per_key[k][1] for k in keys]
 
 
-def four_component_inputs(decoded, device: torch.device):
-    """:func:`plane_inputs` of the four-component JPEG pixel decode: each
-    plane's stacks, per axis the identity or libjpeg's triangle 2x against
-    the largest block grid, as 4:2:0 chroma takes them (other ratios raise
-    ValueError)."""
-    hdr, coeffs, qtabs = decoded
-    grids = [c.shape[:2] for c in coeffs]
-    by_f, bx_f = max(g[0] for g in grids), max(g[1] for g in grids)
-    return plane_inputs(
-        coeffs, np.stack([qtabs[t] for t in hdr.comp_tq]), grids,
-        lambda g: (chroma_axis_weights(by_f, g[0]),
-                   chroma_axis_weights(bx_f, g[1])), device)
-
-
 def resize_components(planes, stacks, tabs, vidx):
     """K3 on the planes of a pixel decode, three at a time: one launch for
     one to three components, two for four."""
@@ -769,9 +758,10 @@ def resize_components(planes, stacks, tabs, vidx):
 
 def four_component_planes(decoded, device: torch.device):
     """The four u8 planes of a CMYK or YCCK JPEG at the full grid, (1,
-    by*8, bx*8) each, uncropped: :func:`four_component_inputs`, then TWO K3
+    by*8, bx*8) each, uncropped: :func:`sampled_inputs` (any integer
+    sampling, each component by libjpeg's upsampling), then TWO K3
     launches on CUDA (:func:`resize_components`: C, M and Y, then K)."""
-    return resize_components(*four_component_inputs(decoded, device))
+    return resize_components(*sampled_inputs(decoded, device))
 
 
 def decode_four_components(decoded, device: Optional[torch.device] = None
@@ -823,23 +813,33 @@ def lossless_inputs(decoded, device: torch.device):
 def decode_lossless_planes(decoded, device: Optional[torch.device] = None
                            ) -> np.ndarray:
     """The pixel decode of a lossless JPEG: ``decoded`` is (header, u8
-    sample planes, None) of ``codecs/jpeg.py::decode_to_coefficients``, one
-    or three components, the samples as they are (libjpeg converts no
-    colour in lossless mode: gray, or R, G and B) -> (H, W, 3) u8. Gray,
-    or three components sampled alike, is the samples themselves, on the
-    host (no kernel: the RGB head's K2 comes next); components sampled
-    differently take :func:`lossless_inputs` and ONE K3 launch on
-    ``device`` (the card unless named), exact: replication on u8."""
+    sample planes, None) of ``codecs/jpeg.py::decode_to_coefficients``, one,
+    three or four components, the samples as they are (libjpeg converts no
+    colour in lossless mode: gray, R, G and B, or C, M, Y and K) -> (H, W,
+    3) u8. Gray, or three components sampled alike, is the samples
+    themselves, on the host (no kernel: the RGB head's K2 comes next);
+    components sampled differently take :func:`lossless_inputs` and K3 on
+    ``device`` (the card unless named), ONE launch for three components and
+    TWO for four, exact: replication on u8. Four components are CMYK as
+    Pillow reads them (the samples inverted, ``CMYK;I``, then its
+    ``cmyk2rgb``: :func:`~imagekit_tpu_torch.ops.color.cmyk_to_rgb`), on
+    ``device`` whether they are sampled alike or not."""
     hdr, samples, _ = decoded
     if hdr.ncomp == 1:
         return np.repeat(samples[0][:, :, None], 3, axis=2)
-    if len(set(zip(hdr.comp_h, hdr.comp_v))) == 1:
+    alike = len(set(zip(hdr.comp_h, hdr.comp_v))) == 1
+    if alike and hdr.ncomp == 3:
         return np.stack(samples, axis=-1)
     device = resolve(device)
-    planes = resize_components(*lossless_inputs(decoded, device))
     h, w = hdr.height, hdr.width
-    return to_host(torch.stack([p[0, :h, :w] for p in planes], dim=-1),
-                   device)
+    if alike:
+        planes = on_device(tuple(samples), device)
+    else:
+        planes = [p[0, :h, :w]
+                  for p in resize_components(*lossless_inputs(decoded,
+                                                              device))]
+    return to_host(cmyk_to_rgb(*planes) if hdr.ncomp == 4
+                   else torch.stack(planes, dim=-1), device)
 
 
 # -- JPEG-compressed TIFF pages ----------------------------------------------
@@ -850,10 +850,12 @@ def tiff_page_inputs(page, device: torch.device):
     JpegPage``): component c's coefficient plane assembled from the
     segments; its stacks per axis :func:`~imagekit_tpu_torch.ops.weights.
     segment_axis_weights`, block-diagonal over the segments along the axis
-    against component 0's (the largest) grid; an old-style page's (one
-    segment) :func:`~imagekit_tpu_torch.ops.weights.
-    replication_axis_weights`, chroma replicated over each subsampling
-    block."""
+    against component 0's (the largest) grid: the triangle on the axes
+    libjpeg's choice for the pair of ratios takes it (:func:`~imagekit_
+    tpu_torch.ops.weights.upsample_method`), replication on the others (a
+    ratio of 4 on either axis); an old-style page's (one segment)
+    :func:`~imagekit_tpu_torch.ops.weights.replication_axis_weights`,
+    chroma replicated over each subsampling block."""
     keys = list(zip(page.rows, page.cols))
     if page.ycbcr is not None:
         def stacks_of(k):
@@ -861,8 +863,13 @@ def tiff_page_inputs(page, device: torch.device):
                     replication_axis_weights(sum(page.cols[0]), sum(k[1])))
     else:
         def stacks_of(k):
-            return (segment_axis_weights(page.rows[0], k[0]),
-                    segment_axis_weights(page.cols[0], k[1]))
+            rv = page.rows[0][0] // k[0][0]
+            rh = page.cols[0][0] // k[1][0]
+            width = -(-min(page.width, page.cols[0][0] * 8) // rh)
+            tri = TRIANGLE_AXES.get(upsample_method((rh, rv), width),
+                                    (False, False))
+            return (segment_axis_weights(page.rows[0], k[0], not tri[0]),
+                    segment_axis_weights(page.cols[0], k[1], not tri[1]))
     return plane_inputs(page.coeffs, page.qtabs, keys, stacks_of, device)
 
 
@@ -908,7 +915,9 @@ def _tiff_colour(planes, page) -> torch.Tensor:
         return _ycc_to_rgb(*planes)
     if page.photometric == 5:
         return cmyk_to_rgb(*(255 - p for p in planes))
-    if len(planes) <= 2:  # gray, gray with alpha
+    if page.zero_alpha:  # planar gray + alpha: Pillow's alpha of 0
+        planes = planes[:1] * 3 + [torch.zeros_like(planes[0])]
+    elif len(planes) <= 2:  # gray, gray with alpha
         planes = planes[:1] * 3 + planes[1:]
     elif len(planes) == 4 and page.extra == 0:
         planes = planes[:3]

@@ -343,23 +343,29 @@ def chroma_axis_weights(luma_blocks: int, chroma_blocks: int) -> np.ndarray:
     return upsample_weights(chroma_blocks * 8, luma_blocks * 8)
 
 
-def _segment_axis_weights_impl(luma_blocks, chroma_blocks) -> np.ndarray:
+def _segment_axis_weights_impl(luma_blocks, chroma_blocks,
+                               replicate: bool) -> np.ndarray:
     out = np.zeros((sum(luma_blocks) * 8, sum(chroma_blocks) * 8), np.float32)
     o = i = 0
     for lb, cb in zip(luma_blocks, chroma_blocks):
-        out[o:o + lb * 8, i:i + cb * 8] = chroma_axis_weights(lb, cb)
+        out[o:o + lb * 8, i:i + cb * 8] = (
+            replication_axis_weights(lb, cb) if replicate
+            else chroma_axis_weights(lb, cb))
         o, i = o + lb * 8, i + cb * 8
     return out
 
 
-def segment_axis_weights(luma_blocks, chroma_blocks) -> np.ndarray:
+def segment_axis_weights(luma_blocks, chroma_blocks,
+                         replicate: bool = False) -> np.ndarray:
     """One axis's stack of a page assembled from independent JPEG segments
     (the strips or tiles of a JPEG-compressed TIFF): block-diagonal, the
     :func:`chroma_axis_weights` block of each segment along the axis, whose
-    block counts are ``luma_blocks[i]`` and ``chroma_blocks[i]``. libjpeg
-    upsamples each segment alone, so the triangle stops at every segment
-    edge. Where every segment's grids are equal (luma, and chroma on an axis
-    it is not subsampled on) it is the identity."""
+    block counts are ``luma_blocks[i]`` and ``chroma_blocks[i]``, or with
+    ``replicate`` its :func:`replication_axis_weights` block (libjpeg's
+    ``int_upsample``, where the pair of ratios is not one its triangles
+    take). libjpeg upsamples each segment alone, so the triangle stops at
+    every segment edge. Where every segment's grids are equal (luma, and
+    chroma on an axis it is not subsampled on) it is the identity."""
     luma_blocks, chroma_blocks = tuple(luma_blocks), tuple(chroma_blocks)
     if len(luma_blocks) != len(chroma_blocks):
         raise ValueError(f"{len(luma_blocks)} luma segments against "
@@ -367,9 +373,9 @@ def segment_axis_weights(luma_blocks, chroma_blocks) -> np.ndarray:
     if luma_blocks == chroma_blocks:
         n = sum(luma_blocks) * 8
         return upsample_weights(n, n)
-    return _chroma_cached(("seg", luma_blocks, chroma_blocks),
-                          lambda: _segment_axis_weights_impl(luma_blocks,
-                                                             chroma_blocks))
+    return _chroma_cached(("seg", luma_blocks, chroma_blocks, replicate),
+                          lambda: _segment_axis_weights_impl(
+                              luma_blocks, chroma_blocks, replicate))
 
 
 def _replication_axis_weights_impl(luma_blocks: int, chroma_blocks: int,
@@ -446,15 +452,20 @@ def upsample_method(ratio: Tuple[int, int], width: int) -> str:
     return "int"
 
 
+#: the axes (rows, columns) on which :func:`upsample_method`'s methods take
+#: libjpeg's triangle; replication on the others
+TRIANGLE_AXES = {"h2v1": (False, True), "h1v2": (True, False),
+                 "h2v2": (True, True)}
+
+
 def component_stacks(full: Tuple[int, int], grid: Tuple[int, int],
                      real: Tuple[int, int], method: str):
     """The (wv, wh) stacks of one JPEG component, (out, in) each, from its
     block grid ``grid`` and real size ``real`` (rows, columns) to the
     ``full`` grid of the largest factors, by :func:`upsample_method`'s
-    ``method``: the triangle on the axes it names, replication
-    (:func:`replication_axis_weights`) on the others."""
-    tri = {"h2v1": (False, True), "h1v2": (True, False),
-           "h2v2": (True, True)}.get(method, (False, False))
+    ``method``: the triangle on the axes it names (:data:`TRIANGLE_AXES`),
+    replication (:func:`replication_axis_weights`) on the others."""
+    tri = TRIANGLE_AXES.get(method, (False, False))
     return tuple(
         triangle_axis_weights(f, g, r) if t
         else replication_axis_weights(f, g, r)

@@ -28,8 +28,10 @@ The C++ Huffman decoder and the batch layouts are the reference's, and the
 weight stacks live on the device. As the reference does, the head turns
 away (``_NativeUnsupported``) a source that is neither 4:2:0 with shared
 Cb/Cr tables nor grayscale, a CMYK or YCCK JPEG among them (to the JPEG
-pixel decode and the batched RGB head), and a source or target beyond the
-bucket ladder (to the pixel decode and the engine's exact-shape path).
+pixel decode and the batched RGB head), a source or target beyond the
+bucket ladder (to the pixel decode and the engine's exact-shape path), and
+a source whose entropy decode fails (to the pixel decode, which answers as
+the reference's Pillow fallback does).
 """
 
 from __future__ import annotations
@@ -152,7 +154,10 @@ class JpegPathMixin:
                     h3, ck, qt = jpeg_abi.decode(lib, data)
                 return h3, ck, None, qt
             except jpeg_abi.NativeJpegError as e:
-                raise _decode_error(e) from e
+                # the pixel decode answers it, as libjpeg under Pillow
+                # does in the reference (a scan cut short, an EOB run the
+                # pinned decoder refuses)
+                raise _NativeUnsupported() from e
 
         hdr, coeffs, split, qtabs = await self._pool_run(
             "entropy_decode", entropy_decode

@@ -71,7 +71,10 @@ def cmyk_steps(data: bytes, reps: int = 10) -> dict:
     from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
     from imagekit_tpu_torch.ops import color, dct, resize_planes
     from imagekit_tpu_torch.ops.resize_strip import resize_tables
-    from imagekit_tpu_torch.ops.weights import chroma_axis_weights
+    from imagekit_tpu_torch.ops.weights import (
+        component_stacks,
+        upsample_method,
+    )
 
     dev = torch.device("cuda")
     steps = {}
@@ -87,17 +90,21 @@ def cmyk_steps(data: bytes, reps: int = 10) -> dict:
     for _ in range(reps):
         hdr, coeffs, qtabs = step("entropy decode (host)",
                                   lambda: jpeg_abi.decode4(loader.load(), data))
-        grids = list(dict.fromkeys(c.shape[:2] for c in coeffs))
+        grids = [c.shape[:2] for c in coeffs]
         full = max(g[0] for g in grids), max(g[1] for g in grids)
+        keys = list(dict.fromkeys(
+            (g, (hdr.comp_height[c], hdr.comp_width[c]),
+             upsample_method((hdr.hmax // hdr.comp_h[c],
+                              hdr.vmax // hdr.comp_v[c]), hdr.comp_width[c]))
+            for c, g in enumerate(grids)))
         host = step("stacks, host (LRU)", lambda: [
-            (chroma_axis_weights(full[0], by)[None],
-             chroma_axis_weights(full[1], bx)[None]) for by, bx in grids])
+            tuple(a[None] for a in component_stacks(full, *k)) for k in keys])
         dev_stacks = step("stacks, upload", lambda: [
             tuple(torch.as_tensor(a, device=dev) for a in st) for st in host])
         step("band tables", lambda: [resize_tables(*st) for st in dev_stacks])
         planes, stacks, tabs, vidx = step(
-            "all of the above + levels' upload + IDCT (four_component_inputs)",
-            lambda: dct.four_component_inputs((hdr, coeffs, qtabs), dev))
+            "all of the above + levels' upload + IDCT (sampled_inputs)",
+            lambda: dct.sampled_inputs((hdr, coeffs, qtabs), dev))
         out = step("K3, two launches", lambda: (
             resize_planes.resize_planes_u8(planes[:3], stacks[:3], vidx,
                                            bands=tabs[:3])

@@ -114,19 +114,22 @@ def coefficients(rgb: np.ndarray, quality: int,
                  samp: Sequence[Tuple[int, int]], colour: str = "ycbcr"):
     """(H, W, 3) u8 RGB -> (quantised planes, tables, the tables'
     selectors): YCbCr (BT.601, full range; R, G and B as they are with
-    ``colour="rgb"``), component c box-filtered to
+    ``colour="rgb"``; with ``colour="raw"``, (H, W, N) u8 of any N
+    channels, each a component as it is), component c box-filtered to
     ``samp[c]`` of the largest factors (a fractional ratio takes the
     nearest sample; its real size edge-replicated to its padded grid),
     level-shifted, 8x8 forward DCT, quantised (rounded half away from
     zero). Component 0 takes the luminance table."""
     h, w = rgb.shape[:2]
     f = rgb.astype(np.float64)
-    r, g, b = f[..., 0], f[..., 1], f[..., 2]
-    planes = [0.299 * r + 0.587 * g + 0.114 * b,
-              -0.168735892 * r - 0.331264108 * g + 0.5 * b + 128,
-              0.5 * r - 0.418687589 * g - 0.081312411 * b + 128]
-    if colour == "rgb":
-        planes = [r, g, b]
+    if colour == "raw":
+        planes = [f[..., c] for c in range(f.shape[2])]
+    else:
+        r, g, b = f[..., 0], f[..., 1], f[..., 2]
+        planes = [r, g, b] if colour == "rgb" else [
+            0.299 * r + 0.587 * g + 0.114 * b,
+            -0.168735892 * r - 0.331264108 * g + 0.5 * b + 128,
+            0.5 * r - 0.418687589 * g - 0.081312411 * b + 128]
     hmax = max(s[0] for s in samp)
     vmax = max(s[1] for s in samp)
     tabs = quality_tables(quality)

@@ -1422,3 +1422,67 @@ def test_arith_lossless_on_card_match_cpu(case):
         assert d.max() == 0
     else:
         assert d.max() <= 2 and (d > 0).mean() <= MAX_SHARE
+
+
+@needs_card
+@pytest.mark.parametrize("case", ["cmyk_411", "cmyk_ratio_3", "ycck_411",
+                                  "lossless_cmyk", "lossless_cmyk_2x2",
+                                  "arith_tiff", "planar_straddling_tiff"])
+def test_cmyk_and_tiff_remainder_on_card_match_cpu(case):
+    """CMYK JPEGs at ratios of 4 and 3, lossless CMYK and the JPEG TIFF
+    pages of the last slice (``chip_smoke.make_remainder_sources``' kinds,
+    640x360), on the card: two K3 launches a CMYK request and a lossless
+    CMYK one sampled differently, none sampled alike, one an arithmetic
+    TIFF page, one a strip of the planar page; pixels within +-2 on at most
+    0.1% of the CPU's plain decode (exact for lossless)."""
+    import chip_smoke
+    from imagekit_tpu_torch import codecs
+    from imagekit_tpu_torch.ops import resize_planes
+
+    jw, aw, lw = (chip_smoke.jpeg_writer(n) for n in (
+        "jpeg_writer", "jpeg_arith_writer", "jpeg_lossless_writer"))
+    img = chip_smoke.synth_image(17, 640, 360, noise=False)
+    four = np.dstack([img, np.full((360, 640), 255, np.uint8)])
+    samp = {"cmyk_411": chip_smoke.S411K, "ycck_411": chip_smoke.S411K,
+            "cmyk_ratio_3": chip_smoke.S3K, "lossless_cmyk": ((1, 1),) * 4,
+            "lossless_cmyk_2x2": chip_smoke.SCMYK}.get(case)
+    if case.startswith(("cmyk", "ycck")):
+        planes, tabs, tq = jw.coefficients(four, 80, samp, colour="raw")
+        data = jw.write(planes, tabs, 640, 360, samp, tq,
+                        adobe_transform=2 if case == "ycck_411" else 0)
+        launches = 2
+    elif case.startswith("lossless"):
+        data = lw.write(lw.subsample(four, samp), 640, 360, samp)
+        launches = 0 if case == "lossless_cmyk" else 2
+    elif case == "arith_tiff":
+        segs = []
+        for y in range(0, 360, 16):
+            part = img[y:y + 16]
+            planes, tabs, tq = jw.coefficients(part, 80, chip_smoke.S420)
+            segs.append(aw.write(planes, tabs, 640, part.shape[0],
+                                 chip_smoke.S420, tq))
+        data = chip_smoke.tiff_file(640, 360, {
+            258: (3, [8] * 3), 259: (3, [7]), 262: (3, [6]), 277: (3, [3]),
+            278: (4, [16]), 284: (3, [1]), 530: (3, [2, 2])}, segs)
+        launches = 1
+    else:
+        segs = []
+        for c in range(3):
+            for y in range(0, 360, 36):
+                planes, tabs, tq = jw.coefficients(
+                    img[y:y + 36, :, c:c + 1], 80, ((1, 1),), colour="raw")
+                segs.append(jw.write(planes, tabs, 640, 36, ((1, 1),), tq))
+        data = chip_smoke.tiff_file(640, 360, {
+            258: (3, [8] * 3), 259: (3, [7]), 262: (3, [2]), 277: (3, [3]),
+            278: (4, [36]), 284: (3, [2])}, segs)
+        launches = 10
+    before = resize_planes.LAUNCHES
+    got = codecs.decode_bytes(data, device="cuda")[0]
+    assert resize_planes.LAUNCHES - before == launches
+    want = codecs.decode_bytes(data, device="cpu")[0]
+    assert got.shape == want.shape == (360, 640, 3)
+    d = np.abs(got.astype(int) - want.astype(int))
+    if case.startswith("lossless"):
+        assert d.max() == 0
+    else:
+        assert d.max() <= 2 and (d > 0).mean() <= MAX_SHARE

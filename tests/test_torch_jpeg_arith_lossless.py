@@ -33,12 +33,12 @@ first.
   colour conversion, has a restart interval of part of a row, an MCU of
   more than 10 samples or a fractional ratio. A PNG whose compression method byte is not 0 is
   served by both; an RGB-coded JPEG is served as RGB.
-- Recorded, not matched: libjpeg's arithmetic decoder cannot suspend for
-  more data, and Pillow feeds it 64 KiB at a time, so the reference
-  refuses an arithmetic file whose scan runs past its first read block;
-  the port serves it.
+- libjpeg's arithmetic decoder cannot suspend for more data, and Pillow
+  feeds it 64 KiB at a time, so both apps refuse an arithmetic file whose
+  scan runs past its first read block ("broken data stream").
 """
 
+import dataclasses
 import io
 import zlib
 
@@ -335,12 +335,16 @@ def test_arithmetic_decode_of_a_scan_ending_in_no_marker_is_refused():
 
 
 def test_arithmetic_past_pillows_read_block_is_served():
-    """Recorded, not matched: Pillow hands libjpeg a file 64 KiB at a time,
-    and libjpeg's arithmetic decoder cannot suspend when a block runs out
+    """Pillow hands libjpeg a file 64 KiB at a time, and libjpeg's
+    arithmetic decoder cannot suspend when a block runs out
     (JERR_CANT_SUSPEND), so the reference refuses ("broken data stream")
-    an arithmetic JPEG whose scan runs past its first block. The port
-    decodes it whole, to the planes written (and the pixels Pillow gives
-    when it is handed the file in one block)."""
+    an arithmetic JPEG whose scan runs past its first block; so does the
+    port now, a SourceDecodeError (the name is kept from when it served
+    it). Its decoder still decodes the file whole where it is not fed as
+    Pillow feeds it, to the planes written and the pixels Pillow gives
+    when it is handed the file in one block. The boundary, a large APP
+    segment ahead of the frame and a progressive file, are in
+    ``tests/test_torch_jpeg_cmyk_tiff_remainder.py``."""
     planes, tabs, tq = jpeg_writer.coefficients(_photo(800, 480, 9), 95,
                                                 SAMPLINGS["420"])
     data = jpeg_arith_writer.write(planes, tabs, 800, 480, SAMPLINGS["420"],
@@ -348,13 +352,17 @@ def test_arithmetic_past_pillows_read_block_is_served():
     assert len(data) > 1 << 16
     with pytest.raises(OSError, match="broken data stream"):
         Image.open(io.BytesIO(data)).load()
+    with pytest.raises(SourceDecodeError, match="broken data stream"):
+        jpeg.decode_to_coefficients(data)
     whole = Image.open(io.BytesIO(data))
     whole.decodermaxblock = 1 << 30
     want = np.asarray(whole.convert("RGB"))
-    _, got, _ = jpeg_abi.decode4(loader.load(), data)
+    lib = loader.load()
+    hdr, got, qtabs = jpeg_abi.decode4(lib, data)
     for g, p in zip(got, planes):
         assert np.array_equal(g, p)
-    pixels = codecs.decode_bytes(data, device="cpu")[0]
+    pixels = dct.decode_components_to_rgb((dataclasses.replace(
+        hdr, rgb=False), got, qtabs), device="cpu")
     assert psnr(pixels, want) >= 40.0
 
 

@@ -466,8 +466,9 @@ def test_layouts_outside_the_decode_stay_not_ported(name):
     CMYK among it: Huffman bits behind SOF9 and SOF10, which the QM
     decoder reads as libjpeg's does) decode, to the pixels Pillow gives,
     with a resize and without (the name is kept from when arithmetic
-    coding answered 501). A lossless CMYK frame stays 501 naming its queue
-    item. A 12-bit frame is Pillow's "cannot identify image file", and a
+    coding answered 501). A lossless CMYK frame, 501 once, decodes to
+    exactly Pillow's pixels. A 12-bit frame is Pillow's "cannot identify
+    image file", and a
     lossless arithmetic one (SOF11) libjpeg's refusal, "broken data
     stream", in the decode and both engine paths (400, as the reference
     answers)."""
@@ -484,12 +485,14 @@ def test_layouts_outside_the_decode_stay_not_ported(name):
             (out,) = _drive(engine, [data], [width], ImageFormat.webp)
             assert _out_size(out) == (64, 48)
         return
+    if name == "lossless_cmyk":
+        want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        assert np.array_equal(jpeg.decode_rgb(data, device="cpu"), want)
+        return
     if name == "12bit":
         raised, match = TransformError, "cannot identify image file"
-    elif name == "lossless_arithmetic":
-        raised, match = TransformError, "broken data stream"
     else:
-        raised, match = NotPortedError, "queue 1 item 10"
+        raised, match = TransformError, "broken data stream"
     with pytest.raises(raised, match=match) as e:
         jpeg.decode_rgb(data, device="cpu")
     assert isinstance(e.value, NotPortedError) == (raised is NotPortedError)

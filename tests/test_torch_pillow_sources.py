@@ -495,25 +495,42 @@ def test_cmyk_fixtures_have_the_layouts_they_name():
     assert jpeg_abi.parse4(lib, _cmyk(app14=False)).adobe_transform == -1
 
 
-def _jax_planes(decoded):
+def _jax_planes(decoded, libjpeg: bool = True):
     """The JAX package's 8x8 IDCT (``_blocks_to_plane``) of each component
-    and its K3-semantic resize with its own upsample stacks, against the
-    largest block grid."""
+    and its K3-semantic resize (``_resize_planes_einsum``) against the
+    largest block grid, with the component's stacks by libjpeg's
+    upsampling: the port's ``weights.component_stacks`` of
+    ``weights.upsample_method``'s choice (held to their numpy mirrors in
+    ``tests/test_torch_jpeg_sampling.py``; libjpeg's triangle stops at the
+    component's real size, its replication repeats the last sample past
+    it). Without ``libjpeg``, the JAX package's ``upsample_weights``: the
+    triangle of a 2x ratio up to the block grid's edge, the identity where
+    the grids are equal (a JPEG TIFF page's planes of one sampling)."""
     import jax.numpy as jnp
 
     hdr, coeffs, qtabs = decoded
     grids = [c.shape[:2] for c in coeffs]
-    by_f, bx_f = max(g[0] for g in grids), max(g[1] for g in grids)
+    full = (max(g[0] for g in grids), max(g[1] for g in grids))
     A = jnp.asarray(ref_dct.idct_basis())
     out = []
-    for c, (by, bx), t in zip(coeffs, grids, hdr.comp_tq):
-        p = ref_dct._blocks_to_plane(jnp.asarray(c.reshape(1, by, -1)), by,
-                                     bx, jnp.asarray(qtabs[t][None], jnp.float32),
+    for c, ((by, bx), t) in enumerate(zip(grids, hdr.comp_tq)):
+        p = ref_dct._blocks_to_plane(jnp.asarray(coeffs[c].reshape(1, by, -1)),
+                                     by, bx,
+                                     jnp.asarray(qtabs[t][None], jnp.float32),
                                      A).astype(jnp.uint8)
-        wv = jnp.asarray(ref_dct.upsample_weights(by * 8, by_f * 8))[None]
-        wh = jnp.asarray(ref_dct.upsample_weights(bx * 8, bx_f * 8))[None]
+        if libjpeg:
+            method = weights.upsample_method(
+                (hdr.hmax // hdr.comp_h[c], hdr.vmax // hdr.comp_v[c]),
+                hdr.comp_width[c])
+            wv, wh = weights.component_stacks(
+                full, (by, bx), (hdr.comp_height[c], hdr.comp_width[c]),
+                method)
+        else:
+            wv = ref_dct.upsample_weights(by * 8, full[0] * 8)
+            wh = ref_dct.upsample_weights(bx * 8, full[1] * 8)
         out.append(np.asarray(ref_resize_kernel._resize_planes_einsum(
-            p, wv, wh, jnp.zeros(1, jnp.int32))))
+            p, jnp.asarray(wv)[None], jnp.asarray(wh)[None],
+            jnp.zeros(1, jnp.int32))))
     return out
 
 
@@ -619,8 +636,9 @@ def test_progressive_cmyk_stays_not_ported():
     (``tests/test_torch_pillow_fallbacks.py``), and in arithmetic coding
     now too: Pillow's file with its SOF2 marker changed to SOF10, whose
     Huffman bits the QM decoder reads as libjpeg's does, to the pixels
-    Pillow gives (the name is kept from when it answered 501). What stays
-    501 in its place: a lossless CMYK frame (queue 1 item 10)."""
+    Pillow gives (the name is kept from when it answered 501). So does a
+    lossless CMYK frame, which answered 501 in its place: exactly Pillow's
+    pixels."""
     from tests.fixtures import jpeg_lossless_writer
 
     data = _save(Image.fromarray(make_test_image(64, 48)).convert("CMYK"),
@@ -636,8 +654,8 @@ def test_progressive_cmyk_stays_not_ported():
     planes = jpeg_lossless_writer.subsample(
         np.dstack([img, img[:, :, 1]]), [(1, 1)] * 4)
     lossless = jpeg_lossless_writer.write(planes, 64, 48, [(1, 1)] * 4)
-    with pytest.raises(NotPortedError, match="queue 1 item 10"):
-        jpeg.decode_rgb(lossless, device="cpu")
+    assert np.array_equal(jpeg.decode_rgb(lossless, device="cpu"),
+                          _pil_rgb(lossless))
 
 
 def test_cut_cmyk_is_the_fetch_stage_error():

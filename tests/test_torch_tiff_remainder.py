@@ -465,14 +465,10 @@ def _ojpeg(jpeg=None, size=OJ_SIZE, jif=(8, None), strip=None, extra=None,
     return data
 
 
-def _tables_form(sampling=2, restart=0) -> bytes:
-    """The tables-in-tags form: a Pillow JPEG's quantisation and Huffman
-    tables at offsets in JPEGQTables, JPEGDCTables and JPEGACTables (one a
-    component: Y, then Cb and Cr sharing the chroma ones), its frame in
-    the tags (YCbCrSubSampling, JPEGRestartInterval) and its entropy-coded
-    data alone in the strip."""
-    kw = {"restart_marker_blocks": restart} if restart else {}
-    j = _jfif(sampling=sampling, **kw)
+def _tables_of(j: bytes):
+    """A JPEG's quantisation tables (id -> 64 bytes, zigzag) and DC and AC
+    Huffman tables (id -> 16 counts and the symbols), as its DQT and DHT
+    segments hold them."""
     q, dc, ac, at = {}, {}, {}, 2
     while j[at + 1] != 0xDA:
         n = struct.unpack(">H", j[at + 2:at + 4])[0]
@@ -487,6 +483,18 @@ def _tables_form(sampling=2, restart=0) -> bytes:
                 (ac if p[i] >> 4 else dc)[p[i] & 15] = p[i + 1:i + k]
                 i += k
         at += 2 + n
+    return q, dc, ac
+
+
+def _tables_form(sampling=2, restart=0) -> bytes:
+    """The tables-in-tags form: a Pillow JPEG's quantisation and Huffman
+    tables at offsets in JPEGQTables, JPEGDCTables and JPEGACTables (one a
+    component: Y, then Cb and Cr sharing the chroma ones), its frame in
+    the tags (YCbCrSubSampling, JPEGRestartInterval) and its entropy-coded
+    data alone in the strip."""
+    kw = {"restart_marker_blocks": restart} if restart else {}
+    j = _jfif(sampling=sampling, **kw)
+    q, dc, ac = _tables_of(j)
     sub = {2: (2, 2), 1: (2, 1), 0: (1, 1)}[sampling]
     tags = {258: (3, [8] * 3), 259: (3, [6]), 262: (3, [6]), 277: (3, [3]),
             278: (4, [OJ_SIZE[1]]), 512: (3, [1]), 530: (3, list(sub)),
@@ -1099,23 +1107,32 @@ CORRUPT = {
     # the tables-in-tags form with a quantisation table past the file
     "old_style_table_past_the_file": lambda: _patched_first(
         _tables_form(), 519, 1 << 20),
-    # a FillOrder 2 CCITT row whose runs overshoot (the hostile row of
-    # test_torch_pillow_fallbacks, bits reversed): libtiff pads it with a
-    # warning, the port refuses it (every write is bounded by its row)
-    "fill_order_2_ccitt_row_overshoots": lambda: _tiff(8, 1, {
-        258: (3, [1]), 259: (3, [2]), 262: (3, [0]), 266: (3, [2]),
-        277: (3, [1])}, [_reverse_bits(bytes([0b11011101, 0b10000000]))]),
 }
+
+
+def fill_order_2_ccitt_row_overshoots() -> bytes:
+    """A FillOrder 2 CCITT row whose runs overshoot (the hostile row of
+    test_torch_pillow_fallbacks, bits reversed)."""
+    return _tiff(8, 1, {
+        258: (3, [1]), 259: (3, [2]), 262: (3, [0]), 266: (3, [2]),
+        277: (3, [1])}, [_reverse_bits(bytes([0b11011101, 0b10000000]))])
+
+
+def test_fill_order_2_ccitt_row_overshoots_is_served():
+    """The overshooting row, refused here once: libtiff drops the runs past
+    the row and ends it white (CLEANUP_RUNS), and so does the port, every
+    write bounded by the row: Pillow's pixels."""
+    data = fill_order_2_ccitt_row_overshoots()
+    want = ref_codecs.decode_bytes(data)[0]
+    assert np.array_equal(codecs.decode_bytes(data, device="cpu")[0], want)
 
 
 @pytest.mark.parametrize("name", sorted(CORRUPT))
 def test_corrupt_inputs_are_transform_errors(name):
-    """Refused, never a crash: a TransformError (400) in the port; in the
-    reference too, but for the overshooting fax row (padded there)."""
+    """Refused, never a crash: a TransformError (400) in both."""
     data = CORRUPT[name]()
-    if name != "fill_order_2_ccitt_row_overshoots":
-        with pytest.raises(ref_codecs.TransformError):
-            ref_codecs.decode_bytes(data)
+    with pytest.raises(ref_codecs.TransformError):
+        ref_codecs.decode_bytes(data)
     with pytest.raises(TransformError) as e:
         codecs.decode_bytes(data, device="cpu")
     assert not isinstance(e.value, NotPortedError)
