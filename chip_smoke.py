@@ -251,7 +251,21 @@ decoded with Pillow: old-style, planar and extra-sample JPEG pages,
     a batch, no K1: requests/s, p50/p99, host stages, idle share. K3 at the
     4:1:1-like CMYK planes and at the lossless CMYK page's replication
     stacks against its plain version (max |d| 0), timed, with an einsum
+    yardstick and the bound;
+26. a 1080p CIELab LZW page, a YCbCr 4:2:0 LZW page, a planar 16-bit CMYK
+    page, an RGB picture's YCbCr JPEG TIFF page with Orientation 6 and a
+    4x3 gray-palette 4 bpp BMP, written here without Pillow; each decode
+    on the card checked against the host's plain decode and its picture;
+    the CIELab conversion on the card against the host's on all 2^24
+    triples (the off-by-one and worse counts); counts reset before each
+    round (8 requests), each round run once, traced, -> w=400 WebP: one K3
+    launch a YCbCr page and a JPEG TIFF page, one K2 a batch: requests/s,
+    p50/p99, host stages, idle share. K3 at the YCbCr page's replication
+    stacks against its plain version (max |d| 0), timed, with an einsum
     yardstick and the bound.
+
+Rounds of phase 26 take 8 requests each (warmed by 4); every phase's
+sources are made while nvcc builds the kernels.
 
 Device times are the kernels' own, summed by ``torch.profiler`` over 20
 calls (the host's launch cost excluded); the bound is the larger of the
@@ -272,6 +286,7 @@ from __future__ import annotations
 import asyncio
 import concurrent.futures
 import contextlib
+import functools
 import json
 import os
 import statistics
@@ -3513,6 +3528,24 @@ def drive_rounds(rounds, card: str, steps: dict) -> dict:
     return summary
 
 
+@functools.lru_cache(maxsize=None)
+def make_pillow_sources():
+    """Phase 19's sources: four 1080p pictures as P6 and RGBA QOI, four
+    256x256 ICOs (a PNG entry and a 48x48 BMP one), a DXT1 and a DXT5
+    2048x2048 DDS, and the committed CMYK JPEG with its YCCK twin."""
+    images = [synth_image(600 + i, noise=False) for i in range(4)]
+    pnms = [make_pnm(img) for img in images]
+    qois = [make_qoi(with_alpha(img, i)) for i, img in enumerate(images)]
+    icons = [ramp_alpha(synth_image(620 + i, 256, 256)) for i in range(4)]
+    small = ramp_alpha(synth_image(630, 256, 256)[:48, :48])
+    icos = [make_ico(big, small) for big in icons]
+    dxt = [make_dds(with_alpha(synth_image(640 + i, 2048, 2048), i), cc)
+           for i, cc in enumerate((b"DXT1", b"DXT5"))]
+    with open(CMYK_FIXTURE, "rb") as f:
+        cmyk = f.read()
+    return images, pnms, qois, icons, small, icos, dxt, cmyk, ycck_of(cmyk)
+
+
 def phase_pillow_sources(card: str) -> dict:
     """The sources the reference decodes with Pillow, through one engine:
     ICO, P6, QOI and DDS decode on the codec pool and take the batched RGB
@@ -3531,16 +3564,8 @@ def phase_pillow_sources(card: str) -> dict:
 
     W, J = ImageFormat.webp, ImageFormat.jpeg
     t0 = time.perf_counter()
-    images = [synth_image(600 + i, noise=False) for i in range(4)]
-    pnms = [make_pnm(img) for img in images]
-    qois = [make_qoi(with_alpha(img, i)) for i, img in enumerate(images)]
-    icons = [ramp_alpha(synth_image(620 + i, 256, 256)) for i in range(4)]
-    small = ramp_alpha(synth_image(630, 256, 256)[:48, :48])
-    icos = [make_ico(big, small) for big in icons]
-    dxt = [make_dds(with_alpha(synth_image(640 + i, 2048, 2048), i), cc)
-           for i, cc in enumerate((b"DXT1", b"DXT5"))]
-    cmyk = open(CMYK_FIXTURE, "rb").read()
-    ycck = ycck_of(cmyk)
+    images, pnms, qois, icons, small, icos, dxt, cmyk, ycck = (
+        make_pillow_sources())
     log(f"    made 4 1920x1080 P6 and RGBA QOI ({len(qois[0]) / 1e6:.2f} MB), "
         f"4 ICOs (256x256 PNG + 48x48 BMP), a DXT1 and a DXT5 2048x2048 "
         f"DDS, read the {len(cmyk) / 1e3:.0f} kB CMYK fixture in "
@@ -4383,6 +4408,7 @@ BC_WEIGHTS4 = np.array([0, 4, 9, 13, 17, 21, 26, 30, 34, 38, 43, 47, 51, 55,
                         60, 64])
 
 
+@functools.lru_cache(maxsize=None)
 def jpeg_writer(name: str = "jpeg_writer"):
     """``tests/fixtures/<name>.py`` (``jpeg_writer``, ``jpeg_arith_writer``
     or ``jpeg_lossless_writer``), loaded by its path (numpy only)."""
@@ -4544,6 +4570,7 @@ def make_palette(img: np.ndarray):
     return pal, index.astype(np.uint8), pal[index, :3]
 
 
+@functools.lru_cache(maxsize=None)
 def make_dds_textures():
     """The phase's DDS files and the pixels each must decode to."""
     out = {}
@@ -4576,6 +4603,7 @@ def make_dds_textures():
     return out
 
 
+@functools.lru_cache(maxsize=None)
 def make_jpeg_layouts(writer) -> dict:
     """The phase's 1080p JPEGs (q80, from :data:`JPEG_LAYOUTS`) and their
     picture."""
@@ -4690,6 +4718,7 @@ S444 = ((1, 1), (1, 1), (1, 1))
 SCMYK = ((2, 2), (1, 1), (1, 1), (2, 2))
 
 
+@functools.lru_cache(maxsize=None)
 def make_arith_lossless():
     """The phase's 1080p sources, from one seeded picture, by the numpy
     writers of ``tests/fixtures/``: arithmetic 4:2:0 (SOF9, restart
@@ -4851,6 +4880,7 @@ def tiff_with_tag(data: bytes, tag: int, value: int) -> bytes:
             + struct.pack("<H", n + 1) + b"".join(entries) + b"\0\0\0\0")
 
 
+@functools.lru_cache(maxsize=None)
 def make_remainder_sources():
     """The phase's sources, without Pillow, from one seeded 1080p picture:
     CMYK JPEGs (``tests/fixtures/jpeg_writer.py``, q80, an Adobe APP14 of
@@ -5025,6 +5055,263 @@ def phase_cmyk_tiff_remainder(card: str) -> dict:
     return summary
 
 
+# -- phase 26: CIELab, YCbCr without JPEG, planar 16-bit CMYK, Orientation --
+
+
+def lzw_literal(data: bytes) -> bytes:
+    """TIFF LZW of ``data`` in literal codes only: a Clear, at most 253
+    byte codes (so the table stops short of 511 entries and every code
+    stays 9 bits), again, then EOI. A stream any TIFF LZW decoder reads;
+    numpy alone, fast enough for a 1080p page."""
+    raw = np.frombuffer(data, np.uint8).astype(np.uint16)
+    n = len(raw)
+    codes = np.full(n + -(-n // 253) + 1, 256, np.uint16)  # Clear codes
+    codes[np.arange(n) + np.arange(n) // 253 + 1] = raw
+    codes[-1] = 257
+    bits = (codes[:, None] >> np.arange(8, -1, -1)) & 1
+    return np.packbits(bits.astype(np.uint8).reshape(-1)).tobytes()
+
+
+def lab_bytes(img: np.ndarray) -> np.ndarray:
+    """A picture's CIELab samples as a chunky TIFF stores them, by a rough
+    mapping (the card's machine has no colour management to ask): L the
+    BT.601 luma, a* and b* half the red-green and green-blue differences,
+    as signed bytes."""
+    f = img.astype(np.int32)
+    lum = (299 * f[..., 0] + 587 * f[..., 1] + 114 * f[..., 2] + 500) // 1000
+    a = np.clip((f[..., 0] - f[..., 1]) // 2, -128, 127)
+    b = np.clip((f[..., 1] - f[..., 2]) // 2, -128, 127)
+    return np.stack([lum, a & 255, b & 255], -1).astype(np.uint8)
+
+
+def make_lab_tiff(img: np.ndarray, rows: int = 16) -> bytes:
+    """A CIELab TIFF (photometric 8) of ``lab_bytes(img)``, LZW strips of
+    ``rows`` rows."""
+    h, w = img.shape[:2]
+    lab = lab_bytes(img)
+    tags = {258: (3, [8] * 3), 259: (3, [5]), 262: (3, [8]), 277: (3, [3]),
+            278: (4, [rows]), 284: (3, [1])}
+    return tiff_file(w, h, tags, [lzw_literal(lab[y:y + rows].tobytes())
+                                  for y in range(0, h, rows)])
+
+
+def ycc_planes(img: np.ndarray, sub=(2, 2)):
+    """BT.601 full-range Y, Cb and Cr of a picture, the chroma averaged over
+    each ``sub`` (horizontal, vertical) block: (H, W), then (ceil(H / v),
+    ceil(W / h)) each, u8."""
+    f = img.astype(np.float64)
+    y = 0.299 * f[..., 0] + 0.587 * f[..., 1] + 0.114 * f[..., 2]
+    cb = 128 - 0.168736 * f[..., 0] - 0.331264 * f[..., 1] + 0.5 * f[..., 2]
+    cr = 128 + 0.5 * f[..., 0] - 0.418688 * f[..., 1] - 0.081312 * f[..., 2]
+    sh, sv = sub
+    h, w = y.shape
+    ch, cw = -(-h // sv), -(-w // sh)
+
+    def box(p):
+        p = np.pad(p, ((0, ch * sv - h), (0, cw * sh - w)), mode="edge")
+        return p.reshape(ch, sv, cw, sh).mean(axis=(1, 3))
+
+    def u8(p):
+        return np.clip(np.floor(p + 0.5), 0, 255).astype(np.uint8)
+
+    return u8(y), u8(box(cb)), u8(box(cr))
+
+
+def ycc_strip(y, cb, cr, sub, y0: int, rows: int) -> bytes:
+    """Rows [y0, y0 + rows) of a YCbCr page as a chunky TIFF stores them:
+    blocks of sub_h x sub_v luma samples, row by row, then Cb and Cr, whole
+    blocks past the image's edges (the luma replicated there)."""
+    sh, sv = sub
+    w = y.shape[1]
+    bw, bh = -(-w // sh), -(-rows // sv)
+    yy = np.pad(y[y0:y0 + rows], ((0, bh * sv - rows), (0, bw * sh - w)),
+                mode="edge")
+    blocks = yy.reshape(bh, sv, bw, sh).transpose(0, 2, 1, 3).reshape(
+        bh, bw, sv * sh)
+    c0 = y0 // sv
+    return np.concatenate([blocks, cb[c0:c0 + bh, :, None],
+                           cr[c0:c0 + bh, :, None]], -1).tobytes()
+
+
+def make_ycbcr_tiff(img: np.ndarray, sub=(2, 2), rows: int = 16) -> bytes:
+    """A YCbCr TIFF compressed without JPEG: the picture's ``ycc_planes``
+    in LZW strips of ``rows`` rows (a multiple of the vertical
+    subsampling), YCbCrSubSampling ``sub``."""
+    h, w = img.shape[:2]
+    y, cb, cr = ycc_planes(img, sub)
+    tags = {258: (3, [8] * 3), 259: (3, [5]), 262: (3, [6]), 277: (3, [3]),
+            278: (4, [rows]), 284: (3, [1]), 530: (3, list(sub))}
+    return tiff_file(w, h, tags, [
+        lzw_literal(ycc_strip(y, cb, cr, sub, y0, min(rows, h - y0)))
+        for y0 in range(0, h, rows)])
+
+
+def make_cmyk16_planar_tiff(img: np.ndarray, rows: int = 64) -> bytes:
+    """A planar 16-bit CMYK TIFF of a picture (C, M, Y the inverted R, G,
+    B, K 0, each sample its byte times 257), deflate strips of ``rows``
+    rows, plane by plane."""
+    h, w = img.shape[:2]
+    inks = np.dstack([255 - img, np.zeros((h, w), np.uint8)]).astype(
+        np.uint16) * 257
+    tags = {258: (3, [16] * 4), 259: (3, [8]), 262: (3, [5]), 277: (3, [4]),
+            278: (4, [rows]), 284: (3, [2])}
+    return tiff_file(w, h, tags, [
+        zlib.compress(inks[y:y + rows, :, c].astype("<u2").tobytes())
+        for c in range(4) for y in range(0, h, rows)])
+
+
+def make_gray4_bmp(values: np.ndarray) -> bytes:
+    """A BITMAPCOREHEADER BMP of 4 bpp whose palette is the grays 0-15
+    (which Pillow reads as 8-bit gray: each row's first bytes, a byte a
+    pixel), of ``values`` (h, w) in 0-15, w at most 4."""
+    h, w = values.shape
+    stride = ((w * 4 + 31) // 32) * 4
+    rows = np.zeros((h, stride), np.uint8)
+    packed = np.zeros((h, (w + 1) // 2 * 2), np.uint8)
+    packed[:, :w] = values
+    rows[:, :packed.shape[1] // 2] = (packed[:, 0::2] << 4) | packed[:, 1::2]
+    body = rows[::-1].tobytes()
+    palette = bytes(v for i in range(16) for v in (i, i, i))
+    off = 14 + 12 + len(palette)
+    return (b"BM" + struct.pack("<IHHI", off + len(body), 0, 0, off)
+            + struct.pack("<IHHHH", 12, w, h, 1, 4) + palette + body)
+
+
+@functools.lru_cache(maxsize=None)
+def make_lab_ycbcr_sources():
+    """The phase's sources, without Pillow, from one seeded 1080p picture:
+    a CIELab LZW page, a YCbCr 4:2:0 LZW page, a planar 16-bit CMYK page,
+    an RGB picture's YCbCr JPEG TIFF page with Orientation 6, and a 4 x 3
+    gray-palette 4 bpp BMP (Pillow serves that BMP up to 4 pixels wide).
+    Returns name -> (bytes, the picture it shows, or None)."""
+    picture = synth_image(1260, noise=False)
+    values = np.arange(12, dtype=np.uint8).reshape(3, 4)
+    # what Pillow reads of that BMP: each row's first four bytes
+    bmp_px = np.zeros((3, 4), np.uint8)
+    bmp_px[:, :2] = (values[:, 0::2] << 4) | values[:, 1::2]
+    bmp_px = np.repeat(bmp_px[:, :, None], 3, axis=2)
+    return {
+        "CIELab": (make_lab_tiff(picture), None),
+        "YCbCr 4:2:0": (make_ycbcr_tiff(picture), picture),
+        "planar 16-bit CMYK": (make_cmyk16_planar_tiff(picture), picture),
+        "Orientation 6": (tiff_with_tag(make_jpeg_tiff(picture, 90), 274, 6),
+                          np.ascontiguousarray(np.rot90(picture, -1))),
+        "gray 4 bpp BMP": (make_gray4_bmp(values), bmp_px),
+    }
+
+
+def phase_lab_ycbcr(card: str) -> dict:
+    """CIELab, YCbCr compressed without JPEG, planar 16-bit CMYK, an
+    Orientation 6 page and the gray-palette 4 bpp BMP through one engine:
+    the CIELab page's colour step (littleCMS's lattice, integer torch ops
+    on the card) on a dispatch thread; the YCbCr page's chroma replicated
+    by K3 (ONE launch a page), then libtiff's YCbCr -> RGB; the CMYK page's
+    colour step on the card; the JPEG TIFF page's pixel decode (ONE K3
+    launch), then the Orientation, on the card; the BMP on the host; then
+    the RGB head (K2, one launch a batch). Each decode is checked first on
+    the card against the host's plain decode (exact but the JPEG page's)
+    and against its picture. The CIELab conversion on the card is held to
+    the host's on all 2^24 triples; K3 at the YCbCr page's replication
+    stacks against its plain version (exact)."""
+    from imagekit_tpu_torch.codecs import decode_bytes, tiff
+    from imagekit_tpu_torch.config import ImageFormat
+    from imagekit_tpu_torch.ops import color, dct
+    from imagekit_tpu_torch.ops.weights import target_dimensions
+
+    W = ImageFormat.webp
+    t0 = time.perf_counter()
+    sources = make_lab_ycbcr_sources()
+    log("    made the sources (" + ", ".join(
+        f"{k} {len(d) / 1e3:.0f} kB" for k, (d, _) in sources.items())
+        + f") in {time.perf_counter() - t0:.2f} s")
+    steps = {"sources": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    checks = []
+    for name, (data, picture) in sources.items():
+        card_rgb = decode_bytes(data, device="cuda")[0]
+        host = decode_bytes(data, device="cpu")[0]
+        diff = np.abs(card_rgb.astype(int) - host.astype(int))
+        exact = name != "Orientation 6"
+        line = f"{name}: vs the host's plain decode max|d|={diff.max()}"
+        if card_rgb.shape != host.shape or (
+                diff.max() > (0 if exact else 2)) or (
+                (diff > 0).mean() > MAX_SHARE):
+            raise RuntimeError(f"the {name} decode on the card is not the "
+                               f"plain one on the host's CPU ({line})")
+        if picture is not None:
+            p = psnr(card_rgb, picture)
+            line += f", {p:.2f} dB to the picture"
+            if card_rgb.shape != picture.shape or p < 30.0:
+                raise RuntimeError(f"the {name} decode is not its picture "
+                                   f"({line})")
+        checks.append(line)
+    log(f"    decodes: {'; '.join(checks)}")
+    steps["decode checks"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    triples = torch.arange(1 << 24, dtype=torch.int64)
+    triples = torch.stack([triples >> 16, (triples >> 8) & 255,
+                           triples & 255], -1).to(torch.uint8)
+    on_card = color.lab_to_rgb(triples.cuda()).cpu()
+    on_host = torch.cat([color.lab_to_rgb(part)
+                         for part in triples.split(1 << 22)])
+    off = (on_card.int() - on_host.int()).abs().amax(-1)
+    lab = {"triples": 1 << 24, "off_by_1": int((off == 1).sum()),
+           "off_by_more": int((off > 1).sum())}
+    log(f"    CIELab -> RGB on the card against the host on all 2^24 "
+        f"triples: {lab['off_by_1']} off by 1, {lab['off_by_more']} by "
+        f"more [{card}]")
+    if lab["off_by_more"] or lab["off_by_1"] > 1e-3 * (1 << 24):
+        raise RuntimeError(f"the CIELab conversion on the card is not the "
+                           f"host's: {lab}")
+    steps["CIELab table"] = time.perf_counter() - t0
+
+    out = (400, 225)
+    portrait = target_dimensions(1080, 1920, 400, None)
+    rounds = [
+        ("1080p CIELab LZW page -> w=400 WebP", [sources["CIELab"][0]], 8,
+         400, W, out, {"k2": "batch"}),
+        ("1080p YCbCr 4:2:0 LZW page -> w=400 WebP",
+         [sources["YCbCr 4:2:0"][0]], 8, 400, W, out,
+         {"k3": 1, "k2": "batch"}),
+        ("1080p planar 16-bit CMYK page -> w=400 WebP",
+         [sources["planar 16-bit CMYK"][0]], 8, 400, W, out,
+         {"k2": "batch"}),
+        ("1080p JPEG TIFF page, Orientation 6 -> w=400 WebP",
+         [sources["Orientation 6"][0]], 8, 400, W, portrait,
+         {"k3": 1, "k2": "batch"}),
+        ("4x3 gray-palette 4 bpp BMP -> w=400 WebP",
+         [sources["gray 4 bpp BMP"][0]], 8, 400, W, (400, 300),
+         {"k2": "batch"}),
+    ]
+    summary = drive_rounds(rounds, card, steps)
+    summary["lab"] = lab
+    page, kind, _ = tiff.decode_stored(sources["YCbCr 4:2:0"][0])
+    h, w = page.y.shape
+    frame = dct._YccFrame(w, h, page.sub)
+    case, steps["K3 at the YCbCr planes"] = timed(
+        lambda: k3_planes_case(*dct.lossless_inputs(
+            (frame, (page.y, page.cb, page.cr), None), torch.device("cuda")),
+            "YCbCr 4:2:0"))
+    if case["max_abs_err"] != 0:
+        raise RuntimeError(f"K3 at the YCbCr planes (identity and "
+                           f"replication stacks) is not exact: "
+                           f"max|d|={case['max_abs_err']}")
+    log(f"  K3 at the 1080p YCbCr 4:2:0 planes ({case['planes']} -> "
+        f"1088x1920, identity and replication stacks, B=1, one launch) vs "
+        f"plain: max|d|={case['max_abs_err']}; device time per call K3 "
+        f"{case['ms']:.4f} ms vs plain {case['plain_ms']:.4f} ms vs einsum "
+        f"{case['library_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
+        f"({case['bound_by']}), K3 at {case['bound_ms'] / case['ms']:.1%} "
+        f"of it [{card}]")
+    summary["k3_ycbcr"] = case
+    log("    seconds a step (a round's include its warm-up and trace): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in steps.items()))
+    summary["step_s"] = steps
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5043,39 +5330,48 @@ def main() -> int:
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
-    # the host codecs' g++ beside nvcc: the two builds share nothing
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        codecs = pool.submit(timed, native_codecs)
-        _build.load()
-        nvcc_s = time.perf_counter() - t0
-        codecs_name, codecs_s = codecs.result()
+    # nvcc on a thread, the host codecs' g++ on another (the two builds
+    # share nothing); once the codecs are built, the sources of every phase
+    # are made here while nvcc runs (they need the host codecs, not the
+    # kernels)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        build = pool.submit(timed, _build.load)
+        codecs_name, codecs_s = pool.submit(timed, native_codecs).result()
+        made, t1 = {}, time.perf_counter()
+        jpegs = [make_jpeg(seed, 80) for seed in range(16)]
+        jpegs_hq = [make_jpeg(100 + seed, 95) for seed in range(2)]
+        dense = [make_jpeg(200 + seed, 100, dense_image) for seed in range(4)]
+        made["jpegs"], t1 = time.perf_counter() - t1, time.perf_counter()
+        images = [synth_image(seed) for seed in range(16)]
+        pngs = [make_png(img) for img in images]
+        made["pngs"], t1 = time.perf_counter() - t1, time.perf_counter()
+        webps = [make_webp(img, 80) for img in images[:8]]
+        made["webps"], t1 = time.perf_counter() - t1, time.perf_counter()
+        # the later phases' own sources (memoized; each phase logs its
+        # step "sources" as the time to fetch them)
+        for make in (make_pillow_sources, make_dds_textures,
+                     make_arith_lossless, make_remainder_sources,
+                     make_lab_ycbcr_sources):
+            make()
+        make_jpeg_layouts(jpeg_writer())
+        made["later"] = time.perf_counter() - t1
+        _, nvcc_s = build.result()
     begin(f"[2] K1, K2 (1, 3 and 4 channels), K3 and K4 built by nvcc in "
           f"{nvcc_s:.2f} s")
     for line in _build.build_log().splitlines():
         if "registers" in line or "bytes stack" in line or "smem" in line:
             log("    ptxas: " + line.strip())
     log(f"    host codecs: {codecs_name} ({codecs_s:.2f} s, g++ beside nvcc;"
-        f" both built in {time.perf_counter() - t0:.2f} s)")
-
-    t0 = time.perf_counter()
-    jpegs = [make_jpeg(seed, 80) for seed in range(16)]
-    jpegs_hq = [make_jpeg(100 + seed, 95) for seed in range(2)]
-    dense = [make_jpeg(200 + seed, 100, dense_image) for seed in range(4)]
-    log(f"    made {len(jpegs)} q80, {len(jpegs_hq)} q95 and {len(dense)} "
-        f"escape-dense q100 1920x1080 JPEGs in {time.perf_counter() - t0:.2f}"
-        f" s")
-    t0 = time.perf_counter()
-    images = [synth_image(seed) for seed in range(16)]
-    pngs = [make_png(img) for img in images]
-    log(f"    made {len(pngs)} 1920x1080 RGB PNGs (zlib level 1, "
-        f"{sum(map(len, pngs)) / len(pngs) / 1e6:.2f} MB each) in "
-        f"{time.perf_counter() - t0:.2f} s")
-
-    t0 = time.perf_counter()
-    webps = [make_webp(img, 80) for img in images[:8]]
-    log(f"    made {len(webps)} 1920x1080 lossy WebPs with the port's VP8 "
-        f"encoder ({sum(map(len, webps)) / len(webps) / 1e3:.0f} kB each) in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f" both built, and the sources below made, in "
+        f"{time.perf_counter() - t0:.2f} s)")
+    log(f"    made while nvcc ran: {len(jpegs)} q80, {len(jpegs_hq)} q95 and "
+        f"{len(dense)} escape-dense q100 1920x1080 JPEGs in "
+        f"{made['jpegs']:.2f} s; {len(pngs)} 1920x1080 RGB PNGs (zlib level "
+        f"1, {sum(map(len, pngs)) / len(pngs) / 1e6:.2f} MB each) in "
+        f"{made['pngs']:.2f} s; {len(webps)} 1920x1080 lossy WebPs with the "
+        f"port's VP8 encoder ({sum(map(len, webps)) / len(webps) / 1e3:.0f} "
+        f"kB each) in {made['webps']:.2f} s; the sources of phases 19 and "
+        f"23-26 in {made['later']:.2f} s")
 
     begin("[3] K1 against its plain PyTorch version on the card")
     kern = phase_kernel(jpegs, jpegs_hq)
@@ -5196,6 +5492,12 @@ def main() -> int:
           "the pixel decode (K3), the RGB head (K2), "
           "BatchedEngine(device='cuda').transform")
     remainder25 = phase_cmyk_tiff_remainder(card)
+
+    begin("[26] CIELab, YCbCr without JPEG, planar 16-bit CMYK and "
+          "Orientation 6 TIFFs and the gray 4 bpp BMP: the colour steps and "
+          "the YCbCr chroma (K3), the RGB head (K2), "
+          "BatchedEngine(device='cuda').transform")
+    lab26 = phase_lab_ycbcr(card)
     end_phase()
     log("    seconds a phase (heading to heading): " + ", ".join(
         f"[{k}] {v:.2f}" for k, v in PHASE_S.items()))
@@ -5229,6 +5531,7 @@ def main() -> int:
         "dds_jpeg_layout_launches": layouts23["k2_launches"],
         "arith_lossless_launches": arith["k2_launches"],
         "cmyk_tiff_remainder_launches": remainder25["k2_launches"],
+        "lab_ycbcr_launches": lab26["k2_launches"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
@@ -5308,6 +5611,13 @@ def main() -> int:
                 "max_abs_err", "share_differ", "ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms")}
            for key in ("k3_cmyk_411", "k3_lossless_cmyk")},
+        # phase 26: one launch a YCbCr page and an Orientation 6 JPEG TIFF
+        # page, and K3 at the YCbCr page's replication stacks
+        "lab_ycbcr_launches": lab26["k3_launches"],
+        "pixel_decode_ycbcr_page": {
+            key: lab26["k3_ycbcr"][key] for key in (
+                "max_abs_err", "share_differ", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")},
     }, {
         "name": "resize_planes3_f32 (K4, Y + Cb + Cr in one launch; u8 planes "
                 "in, f32 out on the k=8 JPEG -> WebP heads)",
@@ -5407,6 +5717,8 @@ def main() -> int:
         raise RuntimeError("a round of phase 24 launched no K2 or K3")
     if min(remainder25[f"{k}_launches"] for k in ("k2", "k3")) <= 0:
         raise RuntimeError("a round of phase 25 launched no K2 or K3")
+    if min(lab26[f"{k}_launches"] for k in ("k2", "k3")) <= 0:
+        raise RuntimeError("a round of phase 26 launched no K2 or K3")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -18,8 +18,9 @@ and the sources the reference decodes only with
 Pillow: ICO (:mod:`.ico`), PNM (:mod:`.pnm`), QOI (:mod:`.qoi`) and DDS
 (:mod:`.dds`); JPEG, WebP and AVIF (the first-party encoder,
 :mod:`.avif_encode`) out. There is no host-library fallback: where the
-reference falls to Pillow or libdav1d for a variant a native decoder does
-not take, or for AVIF sources, the port raises
+reference falls to Pillow, the port's decoders answer as Pillow does (a
+WebP with no frame libwebp takes, Pillow's message); for AVIF sources,
+which the reference decodes with libdav1d, the port raises
 :class:`~imagekit_tpu_torch.errors.NotPortedError`.
 """
 
@@ -133,9 +134,7 @@ def decode_bytes(data: bytes, device=None) -> Tuple[np.ndarray, SourceFormat]:
         except ValueError as e:
             raise TransformError(str(e)) from e
         if arr is None:
-            raise NotPortedError(
-                "a WebP the native decoders do not take (the host-library "
-                "fallback)", "queue 1 item 9")
+            raise TransformError(vp8.undecodable(data))
         return arr, fmt
     if fmt in (SourceFormat.gif, SourceFormat.bmp):
         from imagekit_tpu_torch.codecs import misc
@@ -196,7 +195,8 @@ def encode_bytes(img: np.ndarray, fmt: ImageFormat, quality: int,
         if img.ndim == 2:
             img = _to_rgb(img)
         return avif_encode.encode_rgb(img, q)
-    raise NotPortedError(f"{fmt.value} output from pixels", "queue 1 item 9")
+    # ImageFormat has the three outputs above only
+    raise NotPortedError(f"{fmt.value} output from pixels", None)
 
 
 def _to_rgb(img: np.ndarray) -> np.ndarray:

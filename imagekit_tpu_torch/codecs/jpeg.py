@@ -70,10 +70,9 @@ def decode_error(e) -> Exception:
     data the decoder cannot take), the decoder's own where the data ends
     (-1); anything else is a bad source (400, as the reference's decode
     would give)."""
-    if getattr(e, "code", None) == -3:
+    if getattr(e, "code", None) == -3:  # source_header answers every -3
         return NotPortedError(
-            f"a JPEG the native decoder does not take ({e})", "queue 1 item 10"
-        )
+            f"a JPEG the native decoder does not take ({e})", None)
     if getattr(e, "four_components", False):
         return SourceDecodeError(BROKEN_STREAM if e.code != -1
                                  else f"JPEG decode failed: {e}")
@@ -96,14 +95,15 @@ def sampling_refused(hdr) -> bool:
 
 class FrameMarkers(NamedTuple):
     """What libjpeg and Pillow read of a JPEG's markers before its first
-    scan: the first SOFn (its marker, precision and component ids; None
-    where there is none), and whether a JFIF APP0 and an Adobe APP14 came
-    (the latter's transform flag, else None)."""
+    scan: the first SOFn (its marker, precision, component ids and (h, v)
+    sampling factors; None where there is none), and whether a JFIF APP0
+    and an Adobe APP14 came (the latter's transform flag, else None)."""
     sof: Optional[int]
     precision: Optional[int]
     ids: tuple
     jfif: bool
     adobe: Optional[int]
+    factors: tuple = ()
 
 
 def frame_markers(data: bytes) -> FrameMarkers:
@@ -113,7 +113,7 @@ def frame_markers(data: bytes) -> FrameMarkers:
     (``examine_app0``), an Adobe APP14 of at least 12 starting ``Adobe``
     (``examine_app14``)."""
     sof = precision = adobe = None
-    ids, jfif = (), False
+    ids, factors, jfif = (), (), False
     i, n = 2, len(data)
     while i + 4 <= n:
         if data[i] != 0xFF:
@@ -134,12 +134,14 @@ def frame_markers(data: bytes) -> FrameMarkers:
                 precision = seg[0] if seg else None
                 if len(seg) >= 6:
                     ids = tuple(seg[6:6 + 3 * seg[5]:3])
+                    factors = tuple((f >> 4, f & 15)
+                                    for f in seg[7:6 + 3 * seg[5]:3])
         elif m == 0xE0 and len(seg) >= 14 and seg[:5] == b"JFIF\0":
             jfif = True
         elif m == 0xEE and len(seg) >= 12 and seg[:5] == b"Adobe":
             adobe = seg[11]
         i += 2 + ((data[i + 2] << 8) | data[i + 3])
-    return FrameMarkers(sof, precision, ids, jfif, adobe)
+    return FrameMarkers(sof, precision, ids, jfif, adobe, factors)
 
 
 def colour_space(data: bytes, ncomp: int, lossless: bool = False) -> str:
@@ -178,6 +180,7 @@ def source_header(lib, data: bytes):
     - Pillow's "broken data stream" (libjpeg refuses the frame Pillow has
       opened), a :class:`~imagekit_tpu_torch.errors.SourceDecodeError`:
       hierarchical and lossless arithmetic frames (both decoders' -3), a
+      frame with a sampling factor outside 1-4 (both decoders' -3), a
       frame only the port's decoder takes whose sampling libjpeg refuses
       (:func:`sampling_refused`), a lossless frame whose colour space
       would need a conversion (libjpeg converts none in lossless mode);
@@ -190,9 +193,12 @@ def source_header(lib, data: bytes):
     try:
         hdr = jpeg_abi.parse_any(lib, data)
     except jpeg_abi.NativeJpegError as e:
+        mk = frame_markers(data)
+        if any(not (1 <= f <= 4) for hv in mk.factors for f in hv):
+            # libjpeg: "Bogus sampling factors"
+            raise SourceDecodeError(BROKEN_STREAM) from None
         if e.code != -3:
             raise
-        mk = frame_markers(data)
         if mk.precision not in (None, 8) or (
                 mk.sof is not None and len(mk.ids) not in (1, 3, 4)):
             raise TransformError(UNIDENTIFIED) from None

@@ -8,11 +8,16 @@ Pillow, goes to the port's own ``native/bmp_ext_decode.cpp``
 (BITMAPCOREHEADER, 16 bpp, the bit-field layouts Pillow reads), as a TIFF
 goes from ``tiff_decode.cpp`` to ``tiff_ext_decode.cpp``
 (:mod:`.tiff`): :func:`parse` and :func:`decode` try a decoder's
-``ext`` stem only where its pinned one says -3. What differs from the
-reference, as in :mod:`.png`: the decompression-bomb ceiling is the
-constant :data:`png.MAX_PIXELS`, so Pillow is never imported, and a
-variant neither decoder takes raises
-:class:`~imagekit_tpu_torch.errors.NotPortedError`. Corrupt data raises
+``ext`` stem only where its pinned one says -3 (the 4 bpp gray-palette
+core BMP among the port's: Pillow's 8-bit reading of its rows). What
+differs from the reference, as in :mod:`.png`: the decompression-bomb
+ceiling is the constant :data:`png.MAX_PIXELS`, so Pillow is never
+imported. A variant neither decoder takes would raise
+:class:`~imagekit_tpu_torch.errors.NotPortedError`, a guard: every BMP
+header and every mode of Pillow's TIFF reader answers as the reference.
+Pillow's messages where its read fails after it opened the file: "decoder
+error -2" (:data:`DECODER_ERROR`), "codec configuration error"
+(:data:`CODEC_CONFIG`). Corrupt data raises
 :class:`~imagekit_tpu_torch.errors.TransformError` with the reference's
 message where the pinned decoder finds it. The decoders share one info
 structure and one pair of signatures.
@@ -34,6 +39,19 @@ BUFFER = -7
 #: the port's decoders' code for a layout Pillow refuses (the reference
 #: answers it as corrupt data)
 REFUSED = -8
+#: the port's decoders' code for a file Pillow opens and whose read
+#: through libtiff fails
+DECODER_ERROR = -9
+#: Pillow's message for it
+PILLOW_DECODER_ERROR = "decoder error -2"
+#: the port's decoders' code for a file whose rows Pillow's raw decoder
+#: refuses to unpack, and Pillow's message
+CODEC_CONFIG = -10
+PILLOW_CODEC_CONFIG = "codec configuration error when reading image file"
+#: the port's decoders' code for a planar file Pillow's raw reader has no
+#: unpacker for, and Pillow's message
+RAW_MODE = -12
+PILLOW_RAW_MODE = "unknown raw mode for given image mode"
 
 
 class _IkInfo(ctypes.Structure):
@@ -73,12 +91,18 @@ def _fn(name: str, out_type):
 
 def check(rc: int, what: str, corrupt: str) -> None:
     """A decoder's return code -> nothing for 0, else the port's error."""
-    if rc == _UNSUPPORTED:
+    if rc == _UNSUPPORTED:  # a guard: no input reaches it (tests)
         raise NotPortedError(
-            f"a {what} the native decoder does not take (the host-library "
-            f"fallback)", "queue 1 item 9")
+            f"a {what} neither native decoder takes (a guard no input "
+            f"reaches)", None)
     if rc == REFUSED:  # Pillow's words, less the address of its buffer
         raise TransformError("cannot identify image file")
+    if rc == DECODER_ERROR:
+        raise TransformError(PILLOW_DECODER_ERROR)
+    if rc == CODEC_CONFIG:
+        raise TransformError(PILLOW_CODEC_CONFIG)
+    if rc == RAW_MODE:
+        raise TransformError(PILLOW_RAW_MODE)
     if rc != _OK:
         raise TransformError(f"corrupt {corrupt} ({rc})")
 

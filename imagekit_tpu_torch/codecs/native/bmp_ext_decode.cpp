@@ -16,13 +16,17 @@
 //     5- and 6-bit fields widen as Pillow's unpackers do: v * 255 / 31 and
 //     v * 255 / 63, truncated.
 //
+//   - a 4 bpp palette of the grays 0-15, which Pillow reads as 8-bit L:
+//     each row's first bytes, a byte a pixel, where the row's stride holds
+//     the width; a wider image its raw decoder refuses ("codec
+//     configuration error", -10).
+//
 // Output is RGB, or RGBA where Pillow reads an alpha channel. What Pillow
 // refuses (another header size, a depth other than 1/4/8/16/24/32, a mask
-// set it does not know, compressions above 3) is an error, not -3; a
-// layout Pillow reads that this decoder does not (RLE, the pinned
-// decoder's; a 4 bpp palette of the grays 0-15, which Pillow reads as
-// 8-bit L) is -3. Every read is bounded by the data: a palette or pixel
-// array that runs past the end is refused before any pixel is written.
+// set it does not know, compressions above 3) is an error, not -3; RLE,
+// the pinned decoder's, is -3. Every read is bounded by the data: a
+// palette or pixel array that runs past the end is refused before any
+// pixel is written.
 //
 // The exported names are ik_bmpx_*: the loader links every native source
 // into one library.
@@ -41,6 +45,7 @@ enum {
   kUnsupported = -3,
   kBadData = -4,
   kBuffer = -7,
+  kCodecConfig = -10,  // Pillow's raw decoder refuses the row layout
 };
 
 inline uint32_t U16(const uint8_t* p) { return p[0] | (p[1] << 8); }
@@ -66,7 +71,7 @@ const Bytes4 kMasks32[] = {
     {0x0, 0x0, 0x0, 0x0, 2, 1, 0, 3},                          // BGRA
 };
 
-enum Kind { kPalette, kBgr15, kBgr16, kBgr24, kBytes32 };
+enum Kind { kPalette, kBgr15, kBgr16, kBgr24, kBytes32, kGray8 };
 
 struct Bmp {
   uint32_t width = 0, height = 0;
@@ -177,9 +182,10 @@ int Parse(const uint8_t* d, size_t len, Bmp* b) {
       const uint8_t* e = b->palette + b->pad * i;
       gray = e[0] == v && e[1] == v && e[2] == v;
     }
-    if (gray && colors != 2 && bits == 4) return kUnsupported;
+    if (gray && colors != 2 && bits == 4) b->kind = kGray8;
   }
   b->stride = ((static_cast<size_t>(b->width) * bits + 31) >> 3) & ~size_t{3};
+  if (b->kind == kGray8 && b->width > b->stride) return kCodecConfig;
   b->pix = offset ? offset : after;
   if (b->pix > len || b->stride * b->height > len - b->pix) return kTruncated;
   return kOk;
@@ -248,6 +254,9 @@ IK_EXPORT int ik_bmpx_decode(const uint8_t* d, size_t len, uint8_t* out,
           break;
         case kBytes32:
           for (size_t c = 0; c < oc; ++c) o[c] = s[4 * x + b.ch[c]];
+          break;
+        case kGray8:
+          o[0] = o[1] = o[2] = s[x];
           break;
       }
     }

@@ -622,16 +622,14 @@ struct Frame {
                      sos.Al >= 8
                  ? kBadMarker
                  : kOk;
-    if (!progressive && coding == kArithDct) {
-      // jdarith.c only warns of another band (JWRN_NOT_SEQUENTIAL) and
-      // decodes the whole block
+    if (!progressive) {
+      // jdhuff.c and jdarith.c only warn of another band in a sequential
+      // scan (JWRN_NOT_SEQUENTIAL) and decode the whole block
       sos.Ss = 0;
       sos.Se = 63;
       sos.Ah = sos.Al = 0;
       return kOk;
     }
-    if (!progressive)
-      return sos.Ss != 0 || sos.Se != 63 || sp[2] != 0 ? kUnsupported : kOk;
     // T.81 G.1.1.1.1: a DC scan is 0..0, an AC scan one component's
     // 1 <= Ss <= Se <= 63; refinement one bit at a time
     if (sos.Se > 63 || sos.Ss > sos.Se || (sos.Ss == 0) != (sos.Se == 0) ||

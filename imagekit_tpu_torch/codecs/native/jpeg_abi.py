@@ -243,14 +243,40 @@ def parse4(lib: ctypes.CDLL, data: bytes) -> JpegHeader:
                    port_decoder=True, coding=int(extra.coding))
 
 
+def _band_past_sequential(data: bytes) -> bool:
+    """Whether a sequential frame's (SOF0, SOF1) first scan states a
+    spectral band past T.81's (Ss or Se over 63, Ss over Se): the pinned
+    parser refuses it as a bad marker, where libjpeg only warns
+    (JWRN_NOT_SEQUENTIAL) and decodes every block whole, as the port's
+    parser does."""
+    at, sof = 2, None
+    while at + 4 <= len(data) and data[at] == 0xFF:
+        marker = data[at + 1]
+        if marker == 0xFF:
+            at += 1
+            continue
+        end = at + 2 + int.from_bytes(data[at + 2:at + 4], "big")
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            sof = sof or marker
+        if marker == 0xDA:
+            ns = data[at + 4] if at + 4 < len(data) else 0
+            band = data[at + 5 + 2 * ns:at + 7 + 2 * ns]
+            return (sof in (0xC0, 0xC1) and len(band) == 2
+                    and (band[0] > 63 or band[1] > 63 or band[0] > band[1]))
+        at = end
+    return False
+
+
 def parse_any(lib: ctypes.CDLL, data: bytes) -> JpegHeader:
-    """:func:`parse`'s header, or where it refuses the frame with -3,
-    :func:`parse4`'s (``port_decoder`` set). Raises the pinned parser's -3
-    when neither takes the frame, else the failing parser's error."""
+    """:func:`parse`'s header, or where it refuses the frame with -3, or
+    with a bad marker for a sequential scan's band
+    (:func:`_band_past_sequential`), :func:`parse4`'s (``port_decoder``
+    set). Raises the pinned parser's error when neither takes the frame,
+    else the failing parser's."""
     try:
         return parse(lib, data)
     except NativeJpegError as e:
-        if e.code != -3:
+        if e.code != -3 and not (e.code == -2 and _band_past_sequential(data)):
             raise
         refused = e
     try:

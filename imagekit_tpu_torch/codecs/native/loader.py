@@ -19,7 +19,9 @@ together, then linked:
 into ``build/imagekit_tpu_torch/`` under the checkout (a directory
 ``.gitignore`` lists), never into the package, and rebuilt when a source
 is newer than the library. Concurrent processes serialise on a lock file
-there, so one builds and the others load its result. Where the library
+there, so one builds and the others load its result. The library links
+no liblzma: LZMA TIFF strips go through Python's ``lzma``, which it calls
+back (:func:`_xz_strip`, registered at load). Where the library
 cannot be built or loaded, :func:`load` raises with the compiler's
 message: the port has no host-library codec to fall back to.
 """
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import lzma
 import os
 import subprocess
 import threading
@@ -94,6 +97,28 @@ def _run(cmds) -> None:
                 f"{' '.join(c)}\n{err[-8000:]}")
 
 
+_XZ_FN = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_void_p, ctypes.c_size_t,
+                          ctypes.c_void_p, ctypes.c_size_t)
+
+
+@_XZ_FN
+def _xz_strip(src, n, dst, want):
+    """``tiff_ext_decode.cpp``'s LZMA strip decoder (``ik_tiffx_set_xz``):
+    liblzma's stream decoder, which libtiff's LZMA codec runs, through
+    Python's ``lzma``. Writes the first ``want`` bytes of the .xz stream
+    ``src[0, n)`` to ``dst`` and returns 0; -1 where the stream ends first,
+    -4 where it does not decode (no exception crosses the C caller)."""
+    try:
+        out = lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(
+            ctypes.string_at(src, n), want)
+    except Exception:  # LZMAError, MemoryError: the strip fails
+        return -4
+    if len(out) < want:
+        return -1
+    ctypes.memmove(dst, out, want)
+    return 0
+
+
 def load() -> ctypes.CDLL:
     """Build (if stale) and load the codec library; raises on failure."""
     global _lib
@@ -102,6 +127,7 @@ def load() -> ctypes.CDLL:
             if _stale():
                 _build()
             lib = ctypes.CDLL(str(_LIB))
+            lib.ik_tiffx_set_xz(_xz_strip)
             _configure(lib)
             _lib = lib
         return _lib

@@ -39,8 +39,9 @@ _UNSUPPORTED = -3
 
 
 def _not_ported(what: str) -> NotPortedError:
-    return NotPortedError(f"{what} (the host-library fallback)",
-                          "queue 1 item 9")
+    """The pinned decoder's only -3 (a compression or filter method other
+    than 0), which :func:`_ihdr` answers or rewrites before it decodes."""
+    return NotPortedError(what, None)
 
 
 class _IkPngInfo(ctypes.Structure):

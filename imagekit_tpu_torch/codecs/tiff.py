@@ -15,7 +15,17 @@ F and I, then its ``convert("RGB")``: truncated or clipped to a byte); and
 two extra samples (dropped), whose inks :func:`decode` turns to RGB as
 Pillow's ``convert("RGB")`` does (``ops/color.py::cmyk_to_rgb``, on the
 device: run on the host from the codec pool's threads at once, its torch
-ops took 20x longer).
+ops took 20x longer); planar 16-bit CMYK; CIELab, whose samples go
+through littleCMS's lattice as Pillow converts them
+(``ops/color.py::lab_to_rgb``, on the device); YCbCr compressed without
+JPEG, as libtiff's RGBA interface reads it (:class:`YccPage`: the chroma
+replicated over each block by K3, then libtiff's ``TIFFYCbCrToRGB``,
+``ops/dct.py::decode_ycbcr_page``), and uncompressed where Pillow's raw
+reader reads it. The Orientation tag is applied as Pillow applies it to
+every layout this decoder takes and to the pages rewritten for the pinned
+decoder (:func:`as_deflate`), which the reference hands to Pillow
+(``ops/color.py::orient``; the pinned decoder's other pages, which the
+reference decodes itself, ignore it).
 
 JPEG-compressed TIFFs (compression 7, 8-bit: YCbCr with
 YCbCrSubSampling 1, 2 or 4 an axis, RGB, gray, CMYK, chunky, strips or
@@ -44,11 +54,13 @@ its page replicates chroma over each subsampling block and takes libtiff's
 The differences from the reference are those of :mod:`.misc`, whose
 binding helpers this uses: a constant pixel ceiling (no Pillow), and
 :class:`~imagekit_tpu_torch.errors.NotPortedError` where neither decoder
-takes a layout (CIELab, YCbCr compressed without JPEG, planar 16-bit CMYK,
-Orientation 5-8). What Pillow refuses answers as the reference does, a
+takes a layout, a guard no mode of Pillow's TIFF reader reaches. What
+Pillow refuses answers as the reference does, a
 :class:`~imagekit_tpu_torch.errors.TransformError` (a layout it has no mode
 for, such as a 16-bit palette or a 12-bit JPEG; YCbCr without compression,
-which its raw reader runs out of). Resource bounds, where libtiff reads
+which its raw reader runs out of; a page libtiff's read refuses, "decoder
+error -2", :class:`PageRefused` for a JPEG page). Resource bounds, where
+libtiff reads
 on: a ``JPEGTables`` longer than 64 kB and a page whose splices would copy
 more than 64 times the file (``tiff_ext_decode.cpp``), and a segment coded
 smaller than its place, which libtiff decodes into the rows it has and
@@ -68,10 +80,11 @@ from imagekit_tpu_torch.codecs import misc
 from imagekit_tpu_torch.codecs.jpeg import sampling_refused
 from imagekit_tpu_torch.codecs.native import jpeg_abi
 from imagekit_tpu_torch.errors import NotPortedError, TransformError
+from imagekit_tpu_torch.ops import color
 
 #: ``IkTiffxInfo.layout``: what the port's decoder of the layouts the
 #: pinned one refuses makes of the file
-SAMPLES, CMYK, JPEG = 0, 1, 2
+SAMPLES, CMYK, JPEG, LAB, YCC = 0, 1, 2, 3, 4
 
 _SOI, _EOI = b"\xff\xd8", b"\xff\xd9"
 
@@ -97,19 +110,96 @@ _STD_DHT = bytes.fromhex(
     "f9fa")
 
 
+#: the Compression tags of LZMA (one .xz stream a strip or tile) and
+#: Zstandard (one frame a strip or tile), which the pinned decoder does not
+#: take: its layouts' pages go to it through :func:`as_deflate`
+PACKED = (34925, 50000)
+
+
+class _More(ctypes.Structure):
+    """``IkTiffxMore`` (``tiff_ext_decode.cpp``)."""
+
+    _fields_ = [(name, ctypes.c_int32) for name in (
+        "compression", "orientation", "sub_h", "sub_v")] + [
+        ("luma", ctypes.c_float * 3), ("refbw", ctypes.c_float * 6),
+        ("palette", ctypes.c_uint8 * 768)]
+
+
+def _more(data: bytes) -> Tuple[int, _More]:
+    """``ik_tiffx_more``: its code, and what it read (the Compression tag
+    whatever the code)."""
+    from imagekit_tpu_torch.codecs.native import loader
+
+    fn = loader.load().ik_tiffx_more
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(_More)]
+    more = _More(compression=1, orientation=1, sub_h=1, sub_v=1)
+    return fn(data, len(data), ctypes.byref(more)), more
+
+
+def as_deflate(data: bytes, strips: bool = True) -> bytes:
+    """``ik_tiffx_rewrap``: a TIFF of the pinned decoder's layouts (8- and
+    16-bit gray, palette, RGB(A)) that it does not take as one it does: an
+    LZMA or Zstandard page as deflate, its strips decoded and stored again
+    (``strips``, else only its Compression tag changed, for its header);
+    an uncompressed page with a PlanarConfiguration or Predictor Pillow's
+    raw reader ignores, those tags made 1."""
+    from imagekit_tpu_torch.codecs.native import loader
+
+    fn = loader.load().ik_tiffx_rewrap
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+                   ctypes.c_size_t, ctypes.c_int]
+    fn.restype = ctypes.c_int64
+    out = np.empty(len(data) + 4096, np.uint8)
+    for _ in range(2):  # the second call with the rewritten file's length
+        n = int(fn(data, len(data), out.ctypes.data_as(ctypes.c_void_p),
+                   out.nbytes, int(strips)))
+        if n <= out.nbytes:
+            break
+        out = np.empty(n, np.uint8)
+    misc.check(min(n, 0), "TIFF", "TIFF")
+    return out[:n].tobytes()
+
+
 def _header(data: bytes):
-    return misc.header(data, "tiff", "TIFF", "TIFF", "tiffx")
+    """``misc.header``'s, then, where the port's decoder took the file or
+    it is a page of the pinned decoder's layouts that it reads once
+    rewritten (:func:`as_deflate`), ``ik_tiffx_more``'s (None else), and
+    whether it is such a page."""
+    try:
+        head = misc.header(data, "tiff", "TIFF", "TIFF", "tiffx")
+    except NotPortedError as refused:
+        try:  # a page the pinned decoder takes once rewritten
+            header_only = as_deflate(data, strips=False)
+        except NotPortedError:
+            raise refused from None
+        head = misc.header(header_only, "tiff", "TIFF", "TIFF", "tiffx")
+        # its Orientation, which the reference's Pillow applies (the
+        # parse's code, the port decoder's refusal, does not matter here)
+        return (*head, _more(data)[1], True)
+    more = None
+    if head[3] == "tiffx":
+        rc, more = _more(data)
+        misc.check(rc, "TIFF", "TIFF")
+    return (*head, more, False)
+
+
+def _orientation(head) -> int:
+    """The Orientation Pillow applies: the port's decoder's layouts and the
+    rewritten pages only (the pinned decoder's others, which the reference
+    decodes itself, ignore it)."""
+    return head[5].orientation if head[5] is not None else 1
 
 
 def parse(data: bytes) -> Tuple[int, int, int]:
     """Header only: (width, height, channels) of the decoded image."""
-    w, h, ch, stem, layout = _header(data)
+    head = _header(data)
+    w, h, ch, stem, layout, _, _ = head
+    w, h = color.oriented_size(w, h, _orientation(head))
     return w, h, 3 if stem == "tiffx" and layout == CMYK else ch
 
 
 def _layout(head) -> int:
-    _, _, _, stem, lay = head
-    return lay if stem == "tiffx" else SAMPLES
+    return head[4] if head[3] == "tiffx" else SAMPLES
 
 
 def layout(data: bytes) -> int:
@@ -117,48 +207,91 @@ def layout(data: bytes) -> int:
     return _layout(_header(data))
 
 
-def decode_stored(data: bytes) -> Tuple[object, int]:
-    """The host half of :func:`decode`, and its layout: HWC u8 RGB(A)
-    (:data:`SAMPLES`), a CMYK TIFF's four samples as stored (:data:`CMYK`)
-    or a JPEG TIFF's entropy-decoded page (:data:`JPEG`)."""
+@dataclass
+class YccPage:
+    """A YCbCr page compressed without JPEG after the host decode: its Y
+    plane (H, W) and its Cb and Cr planes, ``sub`` (horizontal, vertical)
+    times coarser, each sample over its block as libtiff's RGBA interface
+    replicates it; its YCbCrCoefficients and ReferenceBlackWhite."""
+
+    y: np.ndarray
+    cb: np.ndarray
+    cr: np.ndarray
+    sub: Tuple[int, int]
+    luma: Tuple[float, ...]
+    refbw: Tuple[float, ...]
+
+
+def decode_stored(data: bytes) -> Tuple[object, int, int]:
+    """The host half of :func:`decode`, its layout and the Orientation
+    still to apply: HWC u8 RGB(A) (:data:`SAMPLES`, oriented here, so 1),
+    a CMYK TIFF's four samples as
+    stored (:data:`CMYK`), a JPEG TIFF's entropy-decoded page
+    (:data:`JPEG`), CIELab's three samples as a chunky page stores them
+    (:data:`LAB`) or a YCbCr page's planes (:data:`YCC`, a
+    :class:`YccPage`)."""
     head = _header(data)
-    kind = _layout(head)
+    kind, orientation = _layout(head), _orientation(head)
     if kind == JPEG:
-        return entropy_decode(data), JPEG
-    return misc.decode(data, "tiff", "TIFF", corrupt="TIFF", ext="tiffx",
-                       head=head)[0], kind
+        return entropy_decode(data), JPEG, orientation
+    if head[6]:  # a page of the pinned decoder's layouts, rewritten
+        data = as_deflate(data)
+    out = misc.decode(data, "tiff", "TIFF", corrupt="TIFF", ext="tiffx",
+                      head=head[:5])[0]
+    if kind == YCC:
+        info = head[5]
+        (h, w), sh, sv = out.shape[:2], info.sub_h, info.sub_v
+        cw, ch = -(-w // sh), -(-h // sv)
+        flat = out.reshape(-1)
+        planes = (flat[:w * h].reshape(h, w),
+                  flat[w * h:w * h + cw * ch].reshape(ch, cw),
+                  flat[w * h + cw * ch:w * h + 2 * cw * ch].reshape(ch, cw))
+        out = YccPage(*planes, (sh, sv), tuple(info.luma), tuple(info.refbw))
+    elif kind == SAMPLES:
+        return color.orient(out, orientation), kind, 1
+    return out, kind, orientation
 
 
-def finish(stored, kind: int, device=None) -> np.ndarray:
-    """The device half of :func:`decode`: a CMYK TIFF's colour step, or a
-    JPEG TIFF's pixel decode, on ``device`` (the card unless named)."""
-    if kind == CMYK:
-        return cmyk_to_rgb(stored, device=device)
+def finish(stored, kind: int, orientation: int = 1,
+           device=None) -> np.ndarray:
+    """The device half of :func:`decode`, on ``device`` (the card unless
+    named): a CMYK or CIELab TIFF's colour step, a JPEG TIFF's pixel
+    decode or a YCbCr page's (its chroma replicated by K3, then libtiff's
+    ``TIFFYCbCrToRGB``), then the Orientation; a page of samples, on
+    the host."""
+    import torch
+
+    from imagekit_tpu_torch.device import resolve_device
+    from imagekit_tpu_torch.ops import dct
+
+    if kind == SAMPLES:
+        return color.orient(stored, orientation)
+    device = resolve_device(device or "cuda")
     if kind == JPEG:
-        from imagekit_tpu_torch.ops import dct
-
-        return dct.decode_tiff_page(stored, device=device)
-    return stored
+        return dct.decode_tiff_page(stored, device=device,
+                                    orientation=orientation)
+    if kind == YCC:
+        return dct.decode_ycbcr_page(stored, device=device,
+                                     orientation=orientation)
+    planes = torch.from_numpy(stored).to(device)
+    rgb = (color.lab_to_rgb(planes) if kind == LAB
+           else color.cmyk_to_rgb(*(255 - planes).unbind(-1)))
+    return color.orient(rgb, orientation).cpu().numpy()
 
 
 def decode(data: bytes, device=None) -> np.ndarray:
-    """TIFF -> HWC u8 (RGB, or RGBA for alpha); a CMYK TIFF's colour step
-    and a JPEG TIFF's pixel decode run on ``device`` (the card unless the
-    caller names another)."""
-    return finish(*decode_stored(data), device=device)
+    """TIFF -> HWC u8 (RGB, or RGBA for alpha); the colour step of a CMYK
+    or CIELab TIFF and the pixel decode of a JPEG or YCbCr TIFF run on
+    ``device`` (the card unless the caller names another)."""
+    stored, kind, orientation = decode_stored(data)
+    return finish(stored, kind, orientation, device=device)
 
 
 def cmyk_to_rgb(cmyk: np.ndarray, device=None) -> np.ndarray:
     """(H, W, 4) CMYK as a TIFF stores it -> (H, W, 3) RGB, Pillow's
     ``cmyk2rgb``: the JPEG colour step (``ops/color.py::cmyk_to_rgb``) on
     the planes inverted, as an Adobe JPEG stores them, on ``device``."""
-    import torch
-
-    from imagekit_tpu_torch.device import resolve_device
-    from imagekit_tpu_torch.ops import color
-
-    planes = torch.from_numpy(cmyk).to(resolve_device(device or "cuda"))
-    return color.cmyk_to_rgb(*(255 - planes).unbind(-1)).cpu().numpy()
+    return finish(cmyk, CMYK, device=device)
 
 
 # -- JPEG-compressed TIFFs -------------------------------------------------------
@@ -238,9 +371,17 @@ class JpegPage:
     segments: Optional[List[Tuple["JpegPage", int, int]]] = None
     extra: int = -1
     ycbcr: Optional[Tuple[Tuple[float, ...], Tuple[float, ...]]] = None
-    #: a planar gray + alpha page, whose alpha Pillow reads as 0: its gray
-    #: plane alone, and an alpha of 0
+    #: a planar gray or palette + alpha page, whose alpha Pillow reads as
+    #: 0: its gray or index plane alone, and an alpha of 0
     zero_alpha: bool = False
+    #: a palette page's ColorMap, (256, 3) u8, its samples the indices
+    palette: Optional[np.ndarray] = None
+    #: a page of lossless segments: its (H, W) u8 sample planes, a
+    #: component each, in place of ``coeffs``
+    samples: Optional[List[np.ndarray]] = None
+    #: a planar page: Pillow's bands of it hold CIELab's a* and b*
+    #: unsigned
+    planar: bool = False
 
 
 def segments(data: bytes) -> Tuple[_JpegInfo, np.ndarray, np.ndarray]:
@@ -293,13 +434,20 @@ def prefixes(tables: bytes) -> Tuple[bytes, bytes]:
     return _SOI + body, _SOI + _STD_DHT + body
 
 
+class PageRefused(TransformError):
+    """A JPEG TIFF page whose read libtiff refuses (a segment that does not
+    fit its place or the IFD, or that libjpeg refuses). The message names
+    the reason; Pillow's, whatever the reason, is :attr:`pillow`, which
+    the engine's decode answers with."""
+
+    pillow = "decoder error -2"
+
+
 def _segment_error(e, i: int) -> Exception:
-    """A segment's native decoder error -> the port's: unsupported (-3) is
-    a path not ported yet, anything else corrupt data."""
-    if e.code == -3:
-        return NotPortedError(f"a JPEG TIFF segment the native decoders do "
-                              f"not take ({e})", "queue 1 item 9")
-    return TransformError(f"corrupt TIFF: JPEG segment {i} ({e})")
+    """A segment's native decoder error -> the port's: corrupt data, as
+    libtiff refuses it (a sampling factor or precision libjpeg refuses is
+    both decoders' -3; a lossless page goes to :func:`_lossless_page`)."""
+    return PageRefused(f"corrupt TIFF: JPEG segment {i} ({e})")
 
 
 def tables_defined(stream) -> Tuple[set, set]:
@@ -360,21 +508,21 @@ def _check_segment(hdr, info, sampling, i: int, want: Tuple[int, int],
     if hdr.width != w or hdr.height != h:
         if not (last_strip and hdr.width == w
                 and h < hdr.height <= info.seg_h):
-            raise TransformError(
+            raise PageRefused(
                 f"corrupt TIFF: JPEG segment {i} is {hdr.width}x{hdr.height},"
                 f" its place {w}x{h}")
     if hdr.ncomp != ncomp:
-        raise TransformError(f"corrupt TIFF: JPEG segment {i} has "
+        raise PageRefused(f"corrupt TIFF: JPEG segment {i} has "
                              f"{hdr.ncomp} components, the IFD "
                              f"{ncomp} samples")
     if (hdr.comp_h[0], hdr.comp_v[0]) != sampling or any(
             (hh, vv) != (1, 1) for hh, vv in zip(hdr.comp_h[1:],
                                                  hdr.comp_v[1:])):
-        raise TransformError(f"corrupt TIFF: JPEG segment {i} is sampled "
+        raise PageRefused(f"corrupt TIFF: JPEG segment {i} is sampled "
                              f"{hdr.comp_h} x {hdr.comp_v}, the IFD "
                              f"{sampling}")
     if sampling_refused(hdr):
-        raise TransformError(f"corrupt TIFF: JPEG segment {i}: libjpeg "
+        raise PageRefused(f"corrupt TIFF: JPEG segment {i}: libjpeg "
                              f"refuses its sampling")
 
 
@@ -417,6 +565,51 @@ def _decode_many(lib, splice: _Splice, places) -> Tuple[np.ndarray, list]:
                    for rc in rcs]
 
 
+def _is_lossless(segment: bytes) -> bool:
+    """Whether a JPEG segment's frame is lossless (SOF3)."""
+    from imagekit_tpu_torch.codecs.jpeg import frame_markers
+
+    return frame_markers(segment).sof == 0xC3
+
+
+def _lossless_page(lib, data: bytes, tables: bytes, info, offs, cnts,
+                   per_segment: int, zero_alpha: bool, palette) -> JpegPage:
+    """A page of lossless segments, which libjpeg decodes for libtiff to
+    samples: each segment spliced (:func:`segment_stream`), checked against
+    its place as libtiff checks it, decoded (``jpeg_abi.decode_lossless``)
+    and its samples placed; a planar page's segment i is plane i // (rows
+    * cols). libjpeg converts no colour in lossless mode, so a YCbCr page
+    is libtiff's refusal."""
+    if info.photometric == 6:
+        raise PageRefused("corrupt TIFF: a lossless JPEG segment of YCbCr")
+    W, H, grid = info.width, info.height, info.rows * info.cols
+    ncomp = per_segment if info.planes == 1 else len(offs) // grid
+    planes = [np.zeros((H, W), np.uint8) for _ in range(ncomp)]
+    for i, (o, n) in enumerate(zip(offs.tolist(), cnts.tolist())):
+        g = i % grid
+        y0 = (g // info.cols) * info.seg_h
+        x0 = (g % info.cols) * info.seg_w
+        want = (info.seg_w, info.seg_h if info.tiled
+                else min(info.seg_h, H - y0))
+        try:
+            hdr, samples = jpeg_abi.decode_lossless(
+                lib, segment_stream(tables, data[o:o + n]))
+        except jpeg_abi.NativeJpegError as e:
+            raise PageRefused(f"corrupt TIFF: JPEG segment {i} ({e})") from e
+        if (hdr.width, hdr.height) != want or hdr.ncomp != per_segment or (
+                set(zip(hdr.comp_h, hdr.comp_v)) != {(1, 1)}):
+            raise PageRefused(f"corrupt TIFF: lossless JPEG segment {i} "
+                              f"does not fit its place")
+        h, w = min(want[1], H - y0), min(want[0], W - x0)
+        comps = [i // grid] if info.planes > 1 else range(per_segment)
+        for k, c in enumerate(comps):
+            planes[c][y0:y0 + h, x0:x0 + w] = samples[k][:h, :w]
+    return JpegPage(W, H, info.photometric, [], np.zeros((ncomp, 64)), [],
+                    [], extra=info.extra, zero_alpha=zero_alpha,
+                    palette=palette, samples=planes,
+                    planar=info.planes > 1)
+
+
 def entropy_decode(data: bytes) -> JpegPage:
     """The host half of a JPEG TIFF's decode: every strip or tile spliced
     onto the tables (:func:`prefixes`), its header read and checked against
@@ -442,8 +635,8 @@ def entropy_decode(data: bytes) -> JpegPage:
     lib = loader.load()
     info, offs, cnts = segments(data)
     planar, grid, ncomp = info.planes > 1, info.rows * info.cols, info.samples
-    zero_alpha = planar and info.photometric == 1 and ncomp == 2
-    if zero_alpha:  # Pillow reads the gray plane; the alpha is 0
+    zero_alpha = planar and info.photometric in (1, 3) and ncomp == 2
+    if zero_alpha:  # Pillow reads the gray or index plane; the alpha is 0
         offs, cnts, ncomp = offs[:grid], cnts[:grid], 1
     if info.old_style:
         data = old_style_stream(data)
@@ -460,6 +653,11 @@ def entropy_decode(data: bytes) -> JpegPage:
         raise TransformError(f"corrupt TIFF: {info.rows}x{info.cols} "
                              f"segments of {info.seg_w}x{info.seg_h} for "
                              f"a {W}x{H} image")
+    palette = (np.frombuffer(bytes(_more(data)[1].palette), np.uint8)
+               .reshape(3, 256).T.copy() if info.photometric == 3 else None)
+    if len(offs) and _is_lossless(data[int(offs[0]):int(offs[0] + cnts[0])]):
+        return _lossless_page(lib, data, tables, info, offs, cnts,
+                              1 if planar else ncomp, zero_alpha, palette)
     heads_p = prefixes(tables)
     defs, view = tables_defined(tables), memoryview(data)
     quants, which = zip(*(_segment_tables(view[o:o + n], defs)
@@ -490,7 +688,7 @@ def entropy_decode(data: bytes) -> JpegPage:
                        not info.tiled and g == grid - 1,
                        1 if planar else ncomp)
         if not set(hdr.comp_tq) <= quants[i]:
-            raise TransformError(f"corrupt TIFF: JPEG segment {i} uses a "
+            raise PageRefused(f"corrupt TIFF: JPEG segment {i} uses a "
                                  f"quantisation table it does not define")
         places.append((y0, x0, min(want[0], W - x0), min(want[1], H - y0)))
 
@@ -531,11 +729,15 @@ def entropy_decode(data: bytes) -> JpegPage:
     # each), of one set of tables: one pixel decode a page
     regular = (info.tiled or grid == 1
                or info.seg_h % (8 * sampling[1]) == 0)
+    # libtiff's RGBA interface converts an old-style page and a planar
+    # YCbCr one (TIFFYCbCrToRGB)
     ycbcr = ((tuple(info.luma), tuple(info.refbw))
-             if info.old_style and info.photometric == 6 else None)
+             if (info.old_style or planar) and info.photometric == 6
+             else None)
     if regular and same:
         return JpegPage(W, H, info.photometric, coeffs, page_q, rows, cols,
-                        extra=info.extra, ycbcr=ycbcr, zero_alpha=zero_alpha)
+                        extra=info.extra, ycbcr=ycbcr, zero_alpha=zero_alpha,
+                        palette=palette, planar=planar)
     # each place of the grid alone: a chunky segment's components, or the
     # segments of every plane at that place
     if planar:
@@ -548,7 +750,9 @@ def entropy_decode(data: bytes) -> JpegPage:
         (JpegPage(w, h, info.photometric,
                   [np.ascontiguousarray(v) for v in vs], q,
                   [(v.shape[0],) for v in vs], [(v.shape[1],) for v in vs],
-                  extra=info.extra, zero_alpha=zero_alpha),
+                  extra=info.extra, ycbcr=ycbcr, zero_alpha=zero_alpha,
+                  palette=palette, planar=planar),
          y0, x0)
         for vs, q, (y0, x0, w, h) in groups],
-        extra=info.extra, zero_alpha=zero_alpha)
+        extra=info.extra, ycbcr=ycbcr, zero_alpha=zero_alpha,
+        palette=palette, planar=planar)

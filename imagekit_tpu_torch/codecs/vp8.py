@@ -336,7 +336,9 @@ def _decode_first_frame(chunks) -> Optional[np.ndarray]:
     library's frame-0 semantics — the ANIM background colour is a player
     hint, not part of decoded frame 0). ANMF payload (container spec):
     3B x/2, 3B y/2, 3B w-1, 3B h-1, 3B duration, 1B flags, then the
-    frame's ALPH?/VP8|VP8L sub-chunks."""
+    frame's ALPH?/VP8|VP8L sub-chunks. A frame with neither sub-chunk is
+    no frame to libwebp's demuxer, which drops it: frame 0 is the first
+    that has one."""
     canvas_w = canvas_h = None
     vp8x_alpha = False
     for tag, body in chunks:
@@ -371,7 +373,7 @@ def _decode_first_frame(chunks) -> Optional[np.ndarray]:
                     [px, _decode_alpha_plane(frame[b"ALPH"], w, h)]
                 )
         else:
-            return None
+            continue
         if px is None:
             return None
         if px.shape[0] != fh or px.shape[1] != fw:
@@ -396,9 +398,9 @@ def decode_rgb(data: bytes) -> Optional[np.ndarray]:
     (VP8) decodes natively + the 'fancy' separable triangle chroma upsample
     (libwebp's default kernel) + studio-range BT.601 inverse; extended
     (VP8X) still images route through both (+ native ALPH alpha decode).
-    None: an animation whose first frame has no decodable sub-image
-    (the reference hands it to its host library; the port's callers answer
-    it as not ported)."""
+    None where libwebp's demuxer takes no frame (an extended file with no
+    image, an animation whose frames have none, a frame that is not a key
+    frame), which :func:`undecodable` names as Pillow does."""
     if len(data) >= 16 and data[12:16] == b"VP8L":
         return decode_lossless(data)
     if len(data) >= 16 and data[12:16] == b"VP8X":
@@ -449,3 +451,16 @@ def _webp_chunks(data: bytes):
         out.append((tag, body))
         pos += 8 + sz + (sz & 1)
     return out
+
+
+#: the chunks Pillow's WebP reader takes as a file's first
+_FIRST_CHUNKS = (b"VP8 ", b"VP8L", b"VP8X")
+
+
+def undecodable(data: bytes) -> str:
+    """Pillow's message for a WebP that :func:`decode_rgb` returns None
+    for: its reader refuses a file whose first chunk is not an image or an
+    extended header, and libwebp's demuxer one that holds no frame."""
+    if data[12:16] not in _FIRST_CHUNKS:
+        return "cannot identify image file"
+    return "could not create decoder object"

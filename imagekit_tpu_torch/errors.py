@@ -11,6 +11,8 @@ port adds :class:`NotPortedError` (501).
 
 from __future__ import annotations
 
+from typing import Optional
+
 
 class ImageKitError(Exception):
     """Base class; ``kind`` names the reference enum variant."""
@@ -95,13 +97,16 @@ class EngineOverloaded(Exception):
 
 class NotPortedError(ImageKitError):
     """The request needs a path of :mod:`imagekit_tpu` that the port does
-    not serve yet; the message names the ROADMAP item that ports it. The
-    port's HTTP app answers it with 501."""
+    not serve yet; the message names the ROADMAP item that ports it, or,
+    for a guard that no input reaches (``roadmap_item`` None), says so.
+    The port's HTTP app answers it with 501."""
 
     kind = "Internal"
 
-    def __init__(self, what: str, roadmap_item: str):
-        super().__init__(f"{what} is not ported yet (ROADMAP {roadmap_item})")
+    def __init__(self, what: str, roadmap_item: Optional[str]):
+        super().__init__(
+            f"{what} is not ported yet (ROADMAP {roadmap_item})"
+            if roadmap_item else f"{what} (a guard no input reaches)")
         self.roadmap_item = roadmap_item
 
     def __str__(self) -> str:

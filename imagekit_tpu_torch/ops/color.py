@@ -20,6 +20,7 @@ device), which the reference leaves to libjpeg and Pillow.
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
@@ -210,3 +211,87 @@ def cmyk_to_rgb(c, m, y, k, ycck: bool = False) -> torch.Tensor:
 
     rgb = torch.stack([nk - muldiv255(255 - p, nk) for p in (c, m, y)], -1)
     return torch.clamp(rgb, 0, 255).to(torch.uint8)
+
+
+# -- CIELab, as Pillow converts it ---------------------------------------------
+
+#: Pillow's LAB -> RGB lattice, littleCMS's optimised transform from its
+#: built-in Lab profile to its built-in sRGB one: (33, 33, 33, 3) u16 nodes
+#: (``tests/fixtures/make_lab_clut.py`` writes it)
+_LAB_CLUT = Path(__file__).with_name("lab_srgb_clut.npy")
+_LAB_GRID = 33
+_lab_nodes = {}
+
+
+def _lab_table(device: torch.device) -> torch.Tensor:
+    """The lattice as (33^3, 3) int64 on ``device``, loaded once a
+    device."""
+    key = str(device)
+    if key not in _lab_nodes:
+        nodes = np.load(_LAB_CLUT).reshape(-1, 3).astype(np.int64)
+        _lab_nodes[key] = torch.from_numpy(nodes).to(device)
+    return _lab_nodes[key]
+
+
+def lab_to_rgb(lab: torch.Tensor) -> torch.Tensor:
+    """(..., 3) u8 CIELab as a chunky TIFF stores it (L, then a* and b* as
+    signed bytes) -> (..., 3) u8 RGB, as Pillow serves such a page: its
+    ``LAB`` unpacker (a* and b* plus 128), then ``convert("RGB")``, which
+    littleCMS computes as 16-bit words (each byte times 257) interpolated
+    tetrahedrally in the lattice (``TetrahedralInterp16``: the corner, then
+    the three steps along the axes in order of their fractions, in 16.16
+    fixed point), each word then rounded to a byte (``FROM_16_TO_8``).
+    Integer torch ops on ``lab``'s device; exact. Where fractions tie, the
+    order of their steps does not change the sum (the terms telescope)."""
+    nodes = _lab_table(lab.device)
+    v = lab.to(torch.int64)
+    v = torch.stack([v[..., 0], v[..., 1] ^ 128, v[..., 2] ^ 128], -1) * 257
+    f = v * (_LAB_GRID - 1)
+    f = f + (f + 0x7FFF) // 0xFFFF            # _cmsToFixedDomain
+    base, rest = f >> 16, f & 0xFFFF
+    strides = torch.tensor([_LAB_GRID * _LAB_GRID, _LAB_GRID, 1],
+                           device=lab.device)
+    # a node a step along each axis (none at the lattice's far edge)
+    step = strides * (v != 0xFFFF)
+    corner = (base * strides).sum(-1)
+    hi, first = rest.max(-1)
+    lo, last = rest.min(-1)
+    mid = rest.sum(-1) - hi - lo
+    v1 = corner + step.gather(-1, first[..., None])[..., 0]
+    v3 = corner + step.sum(-1)
+    v2 = v3 - step.gather(-1, last[..., None])[..., 0]
+    c0, c1, c2, c3 = (nodes[i] for i in (corner, v1, v2, v3))
+    total = ((c1 - c0) * hi[..., None] + (c2 - c1) * mid[..., None]
+             + (c3 - c2) * lo[..., None] + 0x8001)
+    out = (c0 + ((total + (total >> 16)) >> 16)) & 0xFFFF
+    return ((out * 65281 + 8388608) >> 24).to(torch.uint8)
+
+
+# -- the TIFF Orientation tag -------------------------------------------------------
+
+#: Orientation -> (the axes to reverse, then whether to swap rows and
+#: columns): Pillow's transpose of each value (2 mirrors, 3 turns 180
+#: degrees, 4 flips, 5 transposes, 6 turns 90 degrees clockwise, 7
+#: transverses, 8 turns 90 degrees anticlockwise); any other value is none
+_ORIENT = {2: ((1,), False), 3: ((0, 1), False), 4: ((0,), False),
+           5: ((), True), 6: ((0,), True), 7: ((0, 1), True),
+           8: ((1,), True)}
+
+
+def oriented_size(width: int, height: int, orientation: int):
+    """(width, height) of an image after :func:`orient`."""
+    swap = _ORIENT.get(orientation, ((), False))[1]
+    return (height, width) if swap else (width, height)
+
+
+def orient(img, orientation: int):
+    """An (H, W, C) image, numpy or torch, as Pillow serves a TIFF page of
+    that Orientation; contiguous."""
+    flips, swap = _ORIENT.get(orientation, ((), False))
+    if isinstance(img, torch.Tensor):
+        if flips:
+            img = img.flip(flips)
+        return (img.transpose(0, 1) if swap else img).contiguous()
+    if flips:
+        img = np.flip(img, flips)
+    return np.ascontiguousarray(img.transpose(1, 0, 2) if swap else img)

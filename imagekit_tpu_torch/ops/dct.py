@@ -91,6 +91,8 @@ from imagekit_tpu_torch.errors import NotPortedError
 from imagekit_tpu_torch.ops.color import (
     box2,
     cmyk_to_rgb,
+    lab_to_rgb,
+    orient,
     on_device,
     q8,
     resolve,
@@ -906,7 +908,9 @@ def _tiff_colour(planes, page) -> torch.Tensor:
     (:func:`libtiff_ycbcr_to_rgb`); YCbCr -> RGB as the JPEG pixel decode
     does; CMYK as an 8-bit CMYK TIFF (:func:`~imagekit_tpu_torch.ops.
     color.cmyk_to_rgb` on the inverted planes); gray (R = G = B), with its
-    alpha; RGB with an extra sample as Pillow reads it: dropped where
+    alpha; palette, the ColorMap at each index, with its alpha (PA) or
+    without its unspecified sample (PX); RGB with an extra sample as Pillow
+    reads it: dropped where
     unspecified (0), un-premultiplied where associated (1,
     :func:`unpremultiply`), kept where unassociated (2)."""
     if page.ycbcr is not None:
@@ -915,6 +919,22 @@ def _tiff_colour(planes, page) -> torch.Tensor:
         return _ycc_to_rgb(*planes)
     if page.photometric == 5:
         return cmyk_to_rgb(*(255 - p for p in planes))
+    if page.photometric == 8:  # CIELab: Pillow's LAB unpacker and convert
+        if page.planar:  # Pillow's bands of a planar page: a*, b* unsigned
+            planes = planes[:1] + [p ^ 128 for p in planes[1:]]
+        return lab_to_rgb(torch.stack(planes, dim=-1))
+    if page.photometric == 0:  # WhiteIsZero gray: Pillow's L;I
+        planes = [255 - planes[0]] + planes[1:]
+    if page.palette is not None:  # Pillow's P: the ColorMap at each sample
+        rgb = torch.from_numpy(page.palette).to(planes[0].device)[
+            planes[0].long()]
+        if page.zero_alpha:  # planar PA: Pillow's alpha of 0
+            alpha = torch.zeros_like(planes[0])
+        elif len(planes) == 2 and page.extra == 2:  # PA
+            alpha = planes[1]
+        else:  # P, and PX's unspecified sample dropped
+            return rgb
+        return torch.cat([rgb, alpha[..., None]], -1)
     if page.zero_alpha:  # planar gray + alpha: Pillow's alpha of 0
         planes = planes[:1] * 3 + [torch.zeros_like(planes[0])]
     elif len(planes) <= 2:  # gray, gray with alpha
@@ -937,13 +957,16 @@ def _tiff_page_pixels(page, device: torch.device) -> torch.Tensor:
                                   dtype=torch.uint8, device=device)
             out[y0:y0 + seg.height, x0:x0 + seg.width] = px
         return out
+    if page.samples is not None:  # lossless segments: samples, no IDCT
+        return _tiff_colour(list(on_device(tuple(page.samples), device)),
+                            page)
     h, w = page.height, page.width
     planes = resize_components(*tiff_page_inputs(page, device))
     return _tiff_colour([p[0, :h, :w] for p in planes], page)
 
 
-def decode_tiff_page(page, device: Optional[torch.device] = None
-                     ) -> np.ndarray:
+def decode_tiff_page(page, device: Optional[torch.device] = None,
+                     orientation: int = 1) -> np.ndarray:
     """The pixel decode of a JPEG-compressed TIFF page on ``device`` (the
     card unless named): ``page`` is ``codecs/tiff.py``'s host entropy
     decode, its segments' coefficient planes assembled into one plane a
@@ -957,7 +980,41 @@ def decode_tiff_page(page, device: Optional[torch.device] = None
     segments' tables differ, or a strip that is not a whole number of MCUs
     ends before the last) carries its segments
     instead, each decoded alone (K3 once or twice a segment), cropped and
-    stitched."""
+    stitched. Then the page's TIFF ``orientation``, as Pillow applies it
+    (:func:`~imagekit_tpu_torch.ops.color.orient`)."""
     device = resolve(device)
-    return to_host(_tiff_page_pixels(page, device), device)
+    return to_host(orient(_tiff_page_pixels(page, device), orientation),
+                   device)
+
+
+class _YccFrame:
+    """The sampling of a YCbCr TIFF page's planes as :func:`lossless_inputs`
+    reads a frame's: the luma at (sub_h, sub_v), the chroma at (1, 1)."""
+
+    def __init__(self, width: int, height: int, sub: Tuple[int, int]):
+        self.width, self.height = width, height
+        self.hmax, self.vmax = sub
+        self.comp_h, self.comp_v = (sub[0], 1, 1), (sub[1], 1, 1)
+
+
+def decode_ycbcr_page(page, device: Optional[torch.device] = None,
+                      orientation: int = 1) -> np.ndarray:
+    """The pixel decode of a YCbCr TIFF page compressed without JPEG
+    (``codecs/tiff.py::YccPage``), as libtiff's RGBA interface reads it, on
+    ``device`` (the card unless named): its Cb and Cr replicated over each
+    subsampling block by K3 (:func:`lossless_inputs`' replication stacks on
+    the block-padded grid, ONE launch for the three planes, exact on u8;
+    none where the chroma is at full resolution), then libtiff's
+    ``TIFFYCbCrToRGB`` (:func:`libtiff_ycbcr_to_rgb`) and the page's
+    ``orientation`` -> (H, W, 3) u8."""
+    device = resolve(device)
+    h, w = page.y.shape
+    if page.sub == (1, 1):
+        planes = on_device((page.y, page.cb, page.cr), device)
+    else:
+        frame = _YccFrame(w, h, page.sub)
+        planes = [p[0, :h, :w] for p in resize_components(*lossless_inputs(
+            (frame, (page.y, page.cb, page.cr), None), device))]
+    rgb = libtiff_ycbcr_to_rgb(*planes, page.luma, page.refbw)
+    return to_host(orient(rgb, orientation), device)
 

@@ -190,23 +190,25 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
             try:
                 return decode(data)
             except TransformError as e:
-                if at_fetch:
-                    raise SourceDecodeError(e.message) from e
+                if at_fetch:  # in Pillow's words where they differ
+                    raise SourceDecodeError(
+                        getattr(e, "pillow", e.message)) from e
                 raise
 
         if src == SourceFormat.tiff:
             # a JPEG TIFF's segments (an old-style page's one stream) are
             # entropy-decoded on the pool (its time under
             # "entropy_decode") and its page decoded on a dispatch thread,
-            # as a JPEG; a CMYK TIFF's colour step (16-bit CMYK's too)
-            # runs there; the other sample layouts end on the pool
-            stored, kind = await self._pool_run(
+            # as a JPEG; so is a YCbCr page's (its planes unpacked on the
+            # pool); a CMYK or CIELab TIFF's colour step runs there; the
+            # other sample layouts end on the pool, oriented there
+            stored, kind, orientation = await self._pool_run(
                 lambda out: "entropy_decode" if out and out[1] == tiff.JPEG
                 else "decode", run, tiff.decode_stored)
             if kind == tiff.SAMPLES:
                 return stored
             return await self._device_run("device_decode", tiff.finish,
-                                          stored, kind)
+                                          stored, kind, orientation)
         return await self._pool_run(
             "decode_png" if src == SourceFormat.png else "decode", run)
 

@@ -1486,3 +1486,74 @@ def test_cmyk_and_tiff_remainder_on_card_match_cpu(case):
         assert d.max() == 0
     else:
         assert d.max() <= 2 and (d > 0).mean() <= MAX_SHARE
+
+
+@needs_card
+@pytest.mark.parametrize("case", ["cielab", "ycbcr_420", "ycbcr_42_rows_5",
+                                  "cmyk16_planar", "orientation_6_jpeg",
+                                  "orientation_7_cmyk16", "gray4_bmp"])
+def test_lab_ycbcr_sources_on_card_match_cpu(case):
+    """CIELab, YCbCr without JPEG, planar 16-bit CMYK, the Orientation and
+    the gray 4 bpp BMP (``chip_smoke.make_lab_ycbcr_sources``' kinds,
+    640x360) on the card: one K3 launch a subsampled YCbCr page (none where
+    its strips restart the blocks: the chroma comes at full resolution)
+    and a JPEG TIFF page; pixels equal to the CPU's plain decode (the JPEG
+    page within +-2 on at most 0.1%)."""
+    import chip_smoke
+    from imagekit_tpu_torch import codecs
+    from imagekit_tpu_torch.ops import resize_planes
+
+    img = chip_smoke.synth_image(18, 640, 360, noise=False)
+    data, launches = {
+        "cielab": lambda: (chip_smoke.make_lab_tiff(img), 0),
+        "ycbcr_420": lambda: (chip_smoke.make_ycbcr_tiff(img), 1),
+        "ycbcr_42_rows_5": lambda: (_ycbcr_rows_not_blocks(img), 0),
+        "cmyk16_planar": lambda: (chip_smoke.make_cmyk16_planar_tiff(img), 0),
+        "orientation_6_jpeg": lambda: (chip_smoke.tiff_with_tag(
+            chip_smoke.make_jpeg_tiff(img, 90), 274, 6), 1),
+        "orientation_7_cmyk16": lambda: (chip_smoke.tiff_with_tag(
+            chip_smoke.make_cmyk16_planar_tiff(img), 274, 7), 0),
+        "gray4_bmp": lambda: (chip_smoke.make_gray4_bmp(np.arange(
+            12, dtype=np.uint8).reshape(3, 4)), 0),
+    }[case]()
+    before = resize_planes.LAUNCHES
+    got = codecs.decode_bytes(data, device="cuda")[0]
+    assert resize_planes.LAUNCHES - before == launches
+    want = codecs.decode_bytes(data, device="cpu")[0]
+    assert got.shape == want.shape
+    d = np.abs(got.astype(int) - want.astype(int))
+    if case == "orientation_6_jpeg":
+        assert got.shape == (640, 360, 3)
+        assert d.max() <= 2 and (d > 0).mean() <= MAX_SHARE
+    else:
+        assert d.max() == 0
+
+
+def _ycbcr_rows_not_blocks(img):
+    """A YCbCr 4:2 LZW page in 5-row strips: libtiff's blocks start again
+    at each strip, so the decode takes its chroma at full resolution."""
+    import chip_smoke
+
+    h, w = img.shape[:2]
+    y, cb, cr = chip_smoke.ycc_planes(img, (4, 2))
+    full_cb = np.repeat(cb, 2, axis=0)  # a chroma row a strip's block row
+    full_cr = np.repeat(cr, 2, axis=0)
+    strips = [chip_smoke.lzw_literal(chip_smoke.ycc_strip(
+        y, full_cb, full_cr, (4, 2), y0, min(5, h - y0)))
+        for y0 in range(0, h, 5)]
+    return chip_smoke.tiff_file(w, h, {
+        258: (3, [8] * 3), 259: (3, [5]), 262: (3, [6]), 277: (3, [3]),
+        278: (4, [5]), 530: (3, [4, 2])}, strips)
+
+
+@needs_card
+def test_lab_conversion_on_card_equals_cpu():
+    """``color.lab_to_rgb`` on the card against the CPU on all 2^24 CIELab
+    triples: integer ops, equal."""
+    from imagekit_tpu_torch.ops import color
+
+    v = torch.arange(1 << 24, dtype=torch.int64)
+    lab = torch.stack([v >> 16, (v >> 8) & 255, v & 255], -1).to(torch.uint8)
+    got = color.lab_to_rgb(lab.cuda()).cpu()
+    want = torch.cat([color.lab_to_rgb(p) for p in lab.split(1 << 22)])
+    assert torch.equal(got, want)

@@ -516,8 +516,10 @@ def _fill_order_2():
                         266: (3, [2])}, [_pack(_values(1), 1)])
 
 
+#: layouts that answered 501 here, decoded now
+#: (``tests/test_torch_tiff_lab_ycbcr.py`` holds them and their kin)
 STILL_501 = {
-    # CIELab: Pillow's own LAB -> RGB, not a conversion the port pins
+    # CIELab: Pillow's LAB unpacker, then littleCMS's LAB -> sRGB
     "tiff_cielab": lambda: _tiff(W, H, {258: (3, [8] * 3), 259: (3, [1]),
                                         262: (3, [8]), 277: (3, [3])},
                                  [_values(8, shape=(H, W, 3)).astype(
@@ -538,17 +540,16 @@ STILL_501 = {
 
 @pytest.mark.parametrize("name", sorted(STILL_501))
 def test_layouts_neither_decoder_takes_stay_not_ported(name):
-    """Pillow reads them (the reference serves them); the port's decoders
-    both refuse them as unsupported, so the port answers 501 naming queue
-    1 item 9, and ROADMAP lists them. (FillOrder 2, CMYK with an extra
-    sample, old-style and planar JPEG, once here, are decoded now:
+    """Pillow reads them (the reference serves them); the port, which
+    answered 501 here (the name is kept), decodes them to Pillow's pixels
+    exactly, the header giving their geometry. (FillOrder 2, CMYK with an
+    extra sample, old-style and planar JPEG, once here, are decoded too:
     ``tests/test_torch_tiff_remainder.py``.)"""
     data = STILL_501[name]()
-    ref_codecs.decode_bytes(data)
-    with pytest.raises(NotPortedError, match="queue 1 item 9"):
-        codecs.decode_bytes(data, device="cpu")
-    with pytest.raises(NotPortedError, match="queue 1 item 9"):
-        tiff.parse(data)
+    want = ref_codecs.decode_bytes(data)[0]
+    got = codecs.decode_bytes(data, device="cpu")[0]
+    assert got.shape == want.shape and np.array_equal(got, want)
+    assert tiff.parse(data) == (want.shape[1], want.shape[0], want.shape[2])
 
 
 @pytest.mark.parametrize("name", ["tiff_jpeg_rgb", "tiff_gray_alpha"])
@@ -693,11 +694,13 @@ HOSTILE = {
 #: reference serves and the port now decodes to Pillow's pixels: CCITT rows
 #: whose runs pass the row (libtiff's CLEANUP_RUNS drops them and ends the
 #: row white), a G4 uncompressed-mode extension (libtiff ends the row in
-#: the colour at a0), an EOB run past a progressive scan's last block
-#: (libjpeg ends it with the scan)
+#: the colour at a0), a row with no code of the table and an EOL inside a
+#: row (libtiff ends the row there and decodes on), an EOB run past a
+#: progressive scan's last block (libjpeg ends it with the scan)
 SERVED = ("ccitt_run_past_the_row_mh", "ccitt_run_past_the_row_g3",
           "ccitt_run_past_the_row_g4", "ccitt_extension_g4",
-          "ccitt_cut_mid_row", "jpeg_eob_run_past_the_scan")
+          "ccitt_cut_mid_row", "ccitt_no_code_mh", "ccitt_eol_inside_a_row",
+          "jpeg_eob_run_past_the_scan")
 
 
 def test_progressive_writer_makes_a_valid_jpeg():
@@ -1134,7 +1137,7 @@ def test_fetch_validates_the_new_layouts_by_header():
     # FillOrder 2, once a 501, is validated by its header as the others
     data = _fill_order_2()
     assert asyncio.run(run(data))[0] == data
-    # a layout neither decoder takes is the engine's 501
+    # CIELab, once the engine's 501, is validated by its header too
     data = STILL_501["tiff_cielab"]()
     assert asyncio.run(run(data))[0] == data
 

@@ -595,16 +595,19 @@ def _planar_gray_with_alpha() -> bytes:
         segs)
 
 
-STILL_501 = {
-    # CIELab: Pillow's own LAB -> RGB, not a conversion the port pins
-    "cielab_jpeg": lambda: _one_segment(8, 0, None),
-}
+#: no JPEG TIFF layout answers 501 now
+STILL_501 = {}
 #: layouts that answered 501 here and are decoded now
-#: (``tests/test_torch_jpeg_cmyk_tiff_remainder.py`` holds them and their
-#: kin to Pillow)
+#: (``tests/test_torch_jpeg_cmyk_tiff_remainder.py`` and
+#: ``tests/test_torch_tiff_lab_ycbcr.py`` hold them and their kin to
+#: Pillow)
 SERVED_NOW = {
     "old_style_gray": _old_style_gray,
     "planar_gray_with_alpha": _planar_gray_with_alpha,
+    # CIELab (Pillow's JPEG TIFF of a LAB picture): its bands as libjpeg
+    # decodes them, then littleCMS's LAB -> sRGB
+    "cielab_jpeg": lambda: _save(Image.fromarray(_img_rgb((64, 48))).convert(
+        "LAB"), "TIFF", compression="jpeg"),
 }
 
 
@@ -626,11 +629,10 @@ def test_jpeg_subsampling_4_stays_not_ported():
 
 @pytest.mark.parametrize("name", sorted({**STILL_501, **SERVED_NOW}))
 def test_jpeg_layouts_no_decoder_takes_stay_not_ported(name):
-    """Pillow reads them (the reference serves them); the port answers 501
-    naming queue 1 item 9, from the header on, for CIELab. Old-style gray
-    and planar gray with alpha, 501 once (the name is kept), decode within
-    the JPEG TIFF band of Pillow's pixels, the planar page's alpha 0 as
-    Pillow reads it."""
+    """Pillow reads them (the reference serves them). Old-style gray,
+    planar gray with alpha and CIELab, 501 once (the name is kept), decode
+    within the JPEG TIFF band of Pillow's pixels, the planar page's alpha
+    0 as Pillow reads it."""
     data = {**STILL_501, **SERVED_NOW}[name]()
     want = ref_codecs.decode_bytes(data)[0]
     if name in SERVED_NOW:
@@ -778,15 +780,20 @@ def test_http_corrupt_files_answer_as_the_reference(tmp_path):
 
 
 def test_http_still_501(tmp_path):
-    sources = {name: make() for name, make in STILL_501.items()}
+    """The layouts that answered 501 here (the name is kept) are served as
+    the reference serves them: 200, within 38 dB of its output."""
+    sources = {name: make() for name, make in SERVED_NOW.items()}
 
     async def fn(client):
         return [await _img(client, url=_url(name), w=64)
-                for name in STILL_501]
+                for name in SERVED_NOW]
 
-    for name, (status, _, body) in zip(STILL_501, _serve(
-            tmp_path, "port", sources, fn)):
-        assert status == 501 and b"queue 1 item 9" in body, name
+    port = _serve(tmp_path, "port", sources, fn)
+    ref = _serve(tmp_path, "ref", sources, fn)
+    for name, (status, _, body), (rstatus, _, rbody) in zip(
+            SERVED_NOW, port, ref):
+        assert status == rstatus == 200, name
+        assert psnr(_decoded(body), _decoded(rbody)) >= 38.0, name
 
 
 def test_http_upload_of_jpeg_tiffs(tmp_path):
