@@ -2055,6 +2055,10 @@ def out_dims(out: bytes):
 
     if out[:4] == b"RIFF" and out[8:12] == b"WEBP":
         return ("webp", *vp8.dimensions(out))
+    if out[4:8] == b"ftyp":
+        from imagekit_tpu_torch.codecs import avif_native
+
+        return ("avif", *avif_native.header_dimensions(out))
     hdr = jpeg_abi.parse(loader.load(), out)
     return ("jpeg", hdr.width, hdr.height)
 
@@ -3446,8 +3450,8 @@ def drive_rounds(rounds, card: str, steps: dict) -> dict:
         ImageKitConfig(secret=SECRET,
                        batch=BatchConfig(max_queue_latency_s=0.0)),
         metrics=metrics, device="cuda")
-    stages = ("decode", "entropy_decode", "device_decode", "batch_build",
-              "device_resize", "device_encode", "encode")
+    stages = ("decode", "entropy_decode", "avif_decode", "device_decode",
+              "batch_build", "device_resize", "device_encode", "encode")
     kinds = ("k1", "k2", "k2_rgba", "k3", "k4")
 
     def counts():
@@ -3473,6 +3477,7 @@ def drive_rounds(rounds, card: str, steps: dict) -> dict:
                 stage0 = {k: metrics.stage_seconds[k] for k in stages}
                 jpeg8.LAUNCHES = resize_strip.LAUNCHES = 0
                 resize_strip.LAUNCHES_RGBA = 0
+                resize_strip.YUV_LAUNCHES.clear()
                 rp.LAUNCHES = rp.LAUNCHES_F32 = rp.LAUNCHES_STRIPS = 0
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     t0 = time.perf_counter()
@@ -3481,6 +3486,7 @@ def drive_rounds(rounds, card: str, steps: dict) -> dict:
                     wall = time.perf_counter() - t0
                 runs.append({"res": res, "wall": wall, "traced_wall": wall,
                              **counts(), "k3_strips": rp.LAUNCHES_STRIPS,
+                             "yuv": dict(resize_strip.YUV_LAUNCHES),
                              "batches": metrics.batches - batches0,
                              "spent": {k: metrics.stage_seconds[k] - stage0[k]
                                        for k in stages},
@@ -3518,6 +3524,7 @@ def drive_rounds(rounds, card: str, steps: dict) -> dict:
                 f"expected {expected} and no other")
         summary["rounds"][name] = {
             "launches": launched, "k3_strips": run["k3_strips"],
+            "yuv_launches": run["yuv"],
             "batches": run["batches"], "rps": rps,
             "p50_ms": p50, "p99_ms": p99, "idle_share": idle,
             "stage_s_per_request": {k: v / n_req
@@ -3525,6 +3532,11 @@ def drive_rounds(rounds, card: str, steps: dict) -> dict:
     for key in ("k2", "k2_rgba", "k3"):
         summary[f"{key}_launches"] = sum(
             r["launches"][key] for r in summary["rounds"].values())
+    summary["yuv_launches"] = {}
+    for r in summary["rounds"].values():
+        for entry, n in r["yuv_launches"].items():
+            summary["yuv_launches"][entry] = summary["yuv_launches"].get(
+                entry, 0) + n
     return summary
 
 
@@ -5312,6 +5324,257 @@ def phase_lab_ycbcr(card: str) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 27: AVIF sources, the port's AV1 decoder and K2's YUV entries
+# ---------------------------------------------------------------------------
+
+AVIF_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "avif")
+
+
+@functools.lru_cache(maxsize=None)
+def avif_sources() -> dict:
+    """Phase 27's committed AVIFs (``tests/fixtures/make_avif_sources.py``:
+    Pillow's writer, the card's machine has none) with the SHA-256 of
+    libdav1d's planes of each: name -> (bytes, entry)."""
+    with open(os.path.join(AVIF_FIXTURES, "avif_planes.json")) as f:
+        table = json.load(f)
+    out = {}
+    for name, entry in table.items():
+        with open(os.path.join(AVIF_FIXTURES, entry["file"]), "rb") as f:
+            out[name] = (f.read(), entry)
+    return out
+
+
+def avif_decode_case(data: bytes) -> dict:
+    """The port's AV1 decode of one file on the host: the digest of its
+    planes (colour item, then the alpha item's luma) and the colour item's
+    decode time (the least of three), with the tools its header turns on."""
+    import hashlib
+
+    from imagekit_tpu_torch.codecs import avif_native
+    from imagekit_tpu_torch.codecs.native import av1_dec_abi
+
+    info = avif_native.parse_container(data)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        y, u, v, head = av1_dec_abi.decode(info.obu)
+        times.append(time.perf_counter() - t0)
+    digest = hashlib.sha256()
+    for p in (y, u, v):
+        digest.update(np.ascontiguousarray(p).tobytes())
+    if info.alpha_obu:
+        digest.update(av1_dec_abi.decode(info.alpha_obu)[0].tobytes())
+    layout = {0: "4:0:0", 1: "4:2:0", 2: "4:2:2", 3: "4:4:4"}[head.layout]
+    return {"sha256": digest.hexdigest(), "decode_ms": min(times) * 1e3,
+            "layout": layout, "alpha": bool(info.alpha_obu),
+            "bytes": len(data)}
+
+
+@contextlib.contextmanager
+def quick_avif_encodes():
+    """AVIF encodes stubbed while a batch is captured: the capture keeps the
+    head's device inputs, and the first-party encoder's seconds (1-6 s an
+    image on the card's host) are not what it measures."""
+    from imagekit_tpu_torch.codecs import avif_encode
+
+    real = avif_encode.encode_yuv420_studio
+    avif_encode.encode_yuv420_studio = lambda *a, **kw: b""
+    try:
+        yield
+    finally:
+        avif_encode.encode_yuv420_studio = real
+
+
+def k2_avif_case(call, what: str) -> dict:
+    """K2 at a captured AVIF batch's planes (``resize_yuv420_batch``'s
+    inputs): the u8 entry with Y, Cb, Cr (any chroma factors) and alpha in
+    one launch, or with ``mix`` the f32 entry's six resizes, against the
+    plain version, timed, with the einsum yardstick and the bound."""
+    from imagekit_tpu_torch.ops import dct, resize_strip
+
+    args, kw, _ = call
+    flat, weights, vidx, in_shape = args[0], args[1], args[2], args[3]
+    cs, alpha, mix = tuple(kw["chroma_sub"]), kw["alpha"], kw["mix"]
+    bands = kw["bands"]
+    planes = dct.yuv_planes(flat, *in_shape, cs, alpha)
+    n = len(planes)
+    if mix:
+        fn = lambda: resize_strip.yuv_mix_resize(planes, weights, vidx,
+                                                 bands=bands)
+        plain = lambda: resize_strip.yuv_mix_resize_plain(planes, weights,
+                                                          vidx)
+        srcs = [planes[0], planes[1], planes[2], planes[1], planes[2]] + list(
+            planes[3:])
+        pairs = resize_strip._mix_pairs(weights, n)
+        luma, half, full = bands
+        tabs = [luma, full, full, half, half, luma][:len(srcs)]
+        fresh = [True, True, True, False, False, True][:len(srcs)]
+    else:
+        fn = lambda: resize_strip.yuv_resize(planes, weights, vidx,
+                                             bands=bands)
+        plain = lambda: resize_strip.yuv_resize_plain(planes, weights, vidx)
+        srcs, pairs = list(planes), resize_strip._yuv_pairs(weights, n)
+        luma, chroma = bands
+        tabs = [luma, chroma, chroma, luma][:n]
+        fresh = [True] * n
+    before = resize_strip.LAUNCHES
+    got = fn()
+    torch.cuda.synchronize()
+    if resize_strip.LAUNCHES != before + 1:
+        raise RuntimeError(f"K2 ({what}) did not launch once")
+    ref = plain()
+    worst = 0.0
+    for a, b in zip(got, ref):
+        if mix:
+            d = float((a - b).abs().max())
+            if d > 1e-3:
+                raise RuntimeError(f"K2's f32 entry ({what}) disagrees with "
+                                   f"its plain version: max|d|={d}")
+            worst = max(worst, d)
+        else:
+            mx, _ = check_band(f"K2 ({what})", a, b)
+            worst = max(worst, mx)
+    ms = device_ms(fn)
+    plain_ms = device_ms(plain)
+    library_ms = device_ms(plane_list_einsums(srcs, pairs, vidx))
+    from imagekit_tpu_torch.ops.resize_strip import band_table
+
+    nbytes = flops = 0.0
+    for x, (wv, wh), t, first in zip(srcs, pairs, tabs, fresh):
+        out_px = x.shape[0] * wv.shape[1] * wh.shape[1]
+        # each input plane read once, each output written once
+        nb, fl = resize_bound(x.numel() if first else 0,
+                              out_px * (4 if mix else 1), wv, t.band_v,
+                              band_table(wh), vidx, vidx, x.shape[2])
+        nbytes += nb
+        flops += fl
+    bound_ms, bound_by = bound(nbytes, flops)
+    shapes = ", ".join(f"{tuple(x.shape[1:])}->{(wv.shape[1], wh.shape[1])}"
+                       for x, (wv, wh) in zip(srcs, pairs))
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "planes": shapes, "B": int(flat.shape[0])}
+
+
+def phase_avif_sources(card: str) -> dict:
+    """AVIF sources: the port's AV1 decoder on the host, then K2.
+
+    The committed 1080p AVIFs (4:2:0, 4:4:4, 4:2:2, RGBA, BT.709, CDEF and
+    speed 4 with loop restoration; 4x2 tiles each) decode on the host with
+    the port's decoder (``codecs/native/av1_decode.cpp``): the planes'
+    SHA-256 must be libdav1d's, recorded where the fixtures were made.
+    K2's entries for these batches, captured from the engine at B=8 (the
+    AVIF encodes stubbed for the capture), against their plain versions
+    and timed: the u8 entry with 4:4:4 and 4:2:2 chroma, with the alpha
+    plane as a fourth, and the f32 entry's six resizes of a BT.709 batch.
+    Then rounds of 8 requests through one engine, counts reset before
+    each, each run once, traced: the decode on the codec pool, ONE K2
+    launch a batch, and the VP8, Huffman or first-party AV1 encode."""
+    from imagekit_tpu_torch.codecs import avif_native
+    from imagekit_tpu_torch.config import ImageFormat
+    from imagekit_tpu_torch.serving import engine_yuv
+
+    W, J, A = ImageFormat.webp, ImageFormat.jpeg, ImageFormat.avif
+    t0 = time.perf_counter()
+    sources = avif_sources()
+    steps = {"sources": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    decodes = {}
+    for name, (data, entry) in sources.items():
+        case = avif_decode_case(data)
+        if case["sha256"] != entry["sha256"]:
+            raise RuntimeError(f"the port's AV1 decode of {name} is not "
+                               f"libdav1d's planes ({case['sha256']} != "
+                               f"{entry['sha256']})")
+        decodes[name] = case
+        log(f"    {name} ({case['layout']}{', alpha' if case['alpha'] else ''}"
+            f", {case['bytes'] / 1e3:.1f} kB): planes = libdav1d's (SHA-256 "
+            f"{case['sha256'][:16]}...), avif_decode {case['decode_ms']:.2f} "
+            f"ms a frame on the host [{card}]")
+    steps["decode checks"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    k2 = {}
+    captures = (("444", "1080p_444", W, "4:4:4, three planes"),
+                ("422", "1080p_422", W, "4:2:2, three planes"),
+                ("420+a", "1080p_rgba", A, "4:2:0 and alpha, four planes"),
+                ("420+mix", "1080p_bt709", W,
+                 "BT.709: Y, chroma to two grids, f32"))
+    for entry, name, fmt, what in captures:
+        with quick_avif_encodes():
+            call = capture_batch([sources[name][0]], 400, 8,
+                                 "resize_yuv420_batch", module=engine_yuv,
+                                 fmt=fmt)
+        case = k2_avif_case(call, what)
+        k2[entry] = case
+        log(f"  K2 vs plain, {what} (B={case['B']}: {case['planes']}): "
+            f"max|d|={case['max_abs_err']}; device time per call K2 "
+            f"{case['ms']:.4f} ms vs plain {case['plain_ms']:.4f} ms vs einsum "
+            f"{case['library_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
+            f"({case['bound_by']}), K2 at {case['bound_ms'] / case['ms']:.1%} "
+            f"of it [{card}]")
+    steps["K2 entries"] = time.perf_counter() - t0
+
+    def src(name):
+        return [sources[name][0]]
+
+    out, small = (400, 225), (160, 90)
+    rounds = [
+        ("1080p 4:2:0 AVIF -> w=400 WebP", src("1080p_420"), 8, 400, W, out,
+         {"k2": "batch"}),
+        ("1080p 4:4:4 AVIF -> w=400 WebP", src("1080p_444"), 8, 400, W, out,
+         {"k2": "batch"}),
+        ("1080p 4:2:2 AVIF -> w=400 WebP", src("1080p_422"), 8, 400, W, out,
+         {"k2": "batch"}),
+        ("1080p RGBA AVIF -> w=160 AVIF, alpha kept", src("1080p_rgba"), 8,
+         160, A, small, {"k2": "batch"}),
+        ("1080p BT.709 AVIF -> w=400 WebP", src("1080p_bt709"), 8, 400, W,
+         out, {"k2": "batch"}),
+        ("1080p BT.709 AVIF -> w=400 JPEG", src("1080p_bt709"), 8, 400, J,
+         out, {"k2": "batch"}),
+        ("1080p CDEF AVIF -> w=400 JPEG", src("1080p_cdef"), 8, 400, J, out,
+         {"k2": "batch"}),
+        ("1080p speed-4 AVIF (loop restoration) -> w=160 AVIF",
+         src("1080p_speed4_lr"), 8, 160, A, small, {"k2": "batch"}),
+    ]
+    summary = drive_rounds(rounds, card, steps)
+    summary["decodes"] = decodes
+    summary["k2"] = k2
+    for entry in ("444", "422", "420+a", "420+mix"):
+        if summary["yuv_launches"].get(entry, 0) <= 0:
+            raise RuntimeError(f"no round launched K2's {entry} entry")
+    log(f"    K2's YUV entries launched by the rounds: "
+        f"{summary['yuv_launches']}")
+
+    # the alpha survives into AVIF output, and only there
+    from imagekit_tpu_torch.config import ImageKitConfig
+    from imagekit_tpu_torch.serving.batcher import BatchedEngine
+    from imagekit_tpu_torch.serving.metrics import Metrics
+
+    async def alpha_outputs():
+        engine = BatchedEngine(ImageKitConfig(secret=SECRET),
+                               metrics=Metrics(), device="cuda")
+        try:
+            return [await engine.transform(sources["1080p_rgba"][0], 160,
+                                           None, fmt, 80) for fmt in (A, W)]
+        finally:
+            await engine.close()
+
+    avif_out, webp_out = asyncio.run(alpha_outputs())
+    if not avif_native.parse_container(avif_out).has_alpha or (
+            webp_out[:4] != b"RIFF"):
+        raise RuntimeError("an RGBA AVIF's alpha is not kept in AVIF output "
+                           "alone")
+    log("    an RGBA AVIF at w=160: AVIF output keeps its alpha item, WebP "
+        "output has none")
+    log("    seconds a step (a round's include its warm-up and trace): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in steps.items()))
+    summary["step_s"] = steps
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5498,6 +5761,11 @@ def main() -> int:
           "the YCbCr chroma (K3), the RGB head (K2), "
           "BatchedEngine(device='cuda').transform")
     lab26 = phase_lab_ycbcr(card)
+
+    begin("[27] AVIF sources: the port's AV1 decoder on the host (planes "
+          "against libdav1d's digests), K2's YUV entries for 4:4:4, 4:2:2, "
+          "alpha and BT.709 batches, BatchedEngine(device='cuda').transform")
+    avif27 = phase_avif_sources(card)
     end_phase()
     log("    seconds a phase (heading to heading): " + ", ".join(
         f"[{k}] {v:.2f}" for k, v in PHASE_S.items()))
@@ -5689,7 +5957,25 @@ def main() -> int:
         "flagship_strips_of_128": {
             f"{ch}ch": {key: over[f"flagship_{ch}ch"][key] for key in (
                 "ms", "bound_ms", "library_ms")} for ch in (3, 4)},
-    }]
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "imagekit_tpu_torch/csrc/resize_strip.cu",
+        "replaces": "imagekit_tpu/ops/pallas_resize.py:155",
+        "launches": avif27["yuv_launches"].get(entry, 0),
+        **{key: avif27["k2"][entry][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+    } for entry, name in (
+        ("444", "yuv_resize, 4:4:4 (K2, Y + full-size Cb + Cr of an AVIF "
+                "batch in one launch)"),
+        ("422", "yuv_resize, 4:2:2 (K2, Y + half-width Cb + Cr of an AVIF "
+                "batch in one launch)"),
+        ("420+a", "yuv_resize, four planes (K2, Y + Cb + Cr + alpha of an "
+                  "AVIF batch in one launch)"),
+        ("420+mix", "yuv_mix_resize (K2's f32 entry: Y, Cb and Cr to the "
+                    "half and the full grid of a BT.709 AVIF batch, six "
+                    "resizes in one launch)"))]
     # K3 also ran once per JPEG request with no resize (the pixel decode)
     if alpha["pixel_decode_launches"] <= 0:
         raise RuntimeError("no JPEG pixel decode launched K3")

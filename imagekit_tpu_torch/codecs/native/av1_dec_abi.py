@@ -1,0 +1,245 @@
+"""ctypes binding of the port's AV1 intra decoder (``av1_decode.cpp``).
+
+The decoder takes its default tables once, packed here into the one
+struct it declares (``Tables`` in ``av1_decode.cpp``): the CDFs of
+``av1_tables.npz`` (the encoder's, extracted by
+``tools/extract_av1_tables.py``) and of ``av1_dec_tables.npz`` (written by
+``tests/fixtures/make_av1_dec_tables.py``), one copy per coefficient q
+context, then the quantizer lookups, smooth weights, filter-intra taps,
+directional derivatives, coefficient context offsets, self-guided
+parameters and scans. The struct's size is checked against the
+library's, so a packing that drifts from the C declaration fails at load
+and never decodes.
+
+:func:`probe` parses the sequence header and the first frame header;
+:func:`decode` returns the first frame's planes. Both raise
+:class:`Av1NotPorted` for a tool the decoder does not build (palette,
+intra block copy, superres, film grain, 10/12-bit, quantizer matrices,
+inter and layered streams) and :class:`ValueError` for a malformed
+stream.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from pathlib import Path
+from typing import NamedTuple, Optional
+
+import numpy as np
+
+from . import loader
+
+_HERE = Path(__file__).resolve().parent
+_lock = threading.Lock()
+_state: dict = {"lib": None}
+
+OK, BAD, NOT_PORTED = 0, -1, -2
+#: the layouts of ``IkAv1dInfo.layout``
+I400, I420, I422, I444 = 0, 1, 2, 3
+
+
+class Av1NotPorted(Exception):
+    """A stream that uses a tool the decoder does not build."""
+
+
+class _Info(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_int32) for name in (
+        "width", "height", "layout", "bitdepth", "mono", "color_range",
+        "matrix", "primaries", "transfer")] + [("reason", ctypes.c_char * 120)]
+
+
+class StreamInfo(NamedTuple):
+    width: int
+    height: int
+    layout: int
+    bitdepth: int
+    mono: bool
+    full_range: bool
+    matrix: int
+    primaries: int
+    transfer: int
+
+
+# (name in the npz files, C record shape per q context); coefficient
+# tables carry a leading q dimension of 4 in av1_tables.npz
+_CDF_LAYOUT = (
+    ("txb_skip", (5, 13, 3), True),
+    ("eob_extra", (5, 2, 9, 3), True),
+    ("dc_sign", (2, 3, 3), True),
+    ("coeff_base", (5, 2, 42, 5), True),
+    ("coeff_br", (5, 2, 21, 5), True),
+    ("coeff_base_eob", (5, 2, 4, 4), True),
+    ("eob_pt_16", (2, 2, 6), True),
+    ("eob_pt_32", (2, 2, 7), True),
+    ("eob_pt_64", (2, 2, 8), True),
+    ("eob_pt_128", (2, 2, 9), True),
+    ("eob_pt_256", (2, 2, 10), True),
+    ("eob_pt_512", (2, 11), True),
+    ("eob_pt_1024", (2, 12), True),
+    ("kf_y_mode", (5, 5, 14), False),
+    ("uv_mode_cfl", (13, 15), False),
+    ("uv_mode_nocfl", (13, 14), False),
+    ("partition", (20, 11), False),
+    ("use_filter_intra", (22, 3), False),
+    ("filter_intra_mode", (6,), False),
+    ("angle_delta", (8, 8), False),
+    ("intra_tx1", (4, 13, 8), False),
+    ("intra_tx2", (4, 13, 6), False),
+    ("skip", (3, 3), False),
+    ("segment_id", (3, 9), False),
+    ("delta_q", (5,), False),
+    ("delta_lf", (5,), False),
+    ("delta_lf_multi", (4, 5), False),
+    ("cfl_sign", (9,), False),
+    ("cfl_alpha", (6, 17), False),
+    ("pal_y_mode", (7, 3, 3), False),
+    ("pal_uv_mode", (2, 3), False),
+    ("tx_8x8", (3, 3), False),
+    ("tx_depth", (3, 3, 4), False),
+    ("switchable_restore", (4,), False),
+    ("wiener_restore", (3,), False),
+    ("sgrproj_restore", (3,), False),
+)
+_SCANS = ("4x4", "8x8", "16x16", "32x32", "4x8", "8x4", "8x16", "16x8",
+          "16x32", "32x16", "4x16", "16x4", "8x32", "32x8")
+
+
+def _cdf_arrays() -> dict:
+    """Every CDF of the layout, as the decoder reads it."""
+    enc = np.load(_HERE.parent / "av1_tables.npz")
+    dec = np.load(_HERE.parent / "av1_dec_tables.npz")
+    out = {k: enc[k] for k in enc.files}
+    out.update({k: dec[k] for k in dec.files})
+    # eob_pt_512/1024: libaom keeps a context dimension that only its
+    # first entry uses
+    out["eob_pt_512"] = out["eob_pt_512"][:, :, 0]
+    out["eob_pt_1024"] = out["eob_pt_1024"][:, :, 0]
+    # uv_mode: [0] CfL not allowed (13 symbols), [1] allowed (14)
+    out["uv_mode_cfl"] = out["uv_mode"][1]
+    out["uv_mode_nocfl"] = out["uv_mode"][0][:, :14]
+    # intra_ext_tx1 comes without its counter
+    tx1 = out["intra_ext_tx1"]
+    out["intra_tx1"] = np.concatenate(
+        [tx1, np.zeros(tx1.shape[:-1] + (1,), tx1.dtype)], axis=-1)
+    out["intra_tx2"] = out["intra_ext_tx2"]
+    out["tx_depth"] = np.stack([out["tx_16x16"], out["tx_32x32"],
+                                out["tx_64x64"]])
+    return out
+
+
+def tables_blob() -> bytes:
+    """The packed ``Tables`` struct of ``av1_decode.cpp``."""
+    T = _cdf_arrays()
+    parts = []
+    for q in range(4):
+        for name, shape, per_q in _CDF_LAYOUT:
+            a = np.asarray(T[name][q] if per_q else T[name], np.uint16)
+            if a.shape != shape:
+                raise RuntimeError(f"AV1 table {name} has shape {a.shape}, "
+                                   f"the decoder's is {shape}")
+            parts.append(a.astype("<u2").tobytes())
+    parts.append(np.asarray(T["dc_qlookup"], "<i2").tobytes())
+    parts.append(np.asarray(T["ac_qlookup"], "<i2").tobytes())
+    parts.append(np.asarray(T["dr_intra_derivative"], "<i2").tobytes())
+    parts.append(np.asarray(T["sgr_params"], "<i2").tobytes())
+    for s in _SCANS:
+        parts.append(np.asarray(T[f"scan_{s}"], "<i2").tobytes())
+    sm = np.zeros(128, np.uint8)
+    sm[:124] = T["sm_weights"]
+    parts.append(sm.tobytes())
+    taps = np.zeros((5, 8, 8), np.int8)
+    taps[:, :, :7] = T["filter_intra_taps"]
+    parts.append(taps.tobytes())
+    parts.append(np.asarray(T["coeff_base_ctx_offset"], np.int8).tobytes())
+    parts.append(b"\0")  # the struct's pad_ byte
+    return b"".join(parts)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.ik_av1d_tables_size.restype = ctypes.c_int
+    lib.ik_av1d_set_tables.argtypes = [ctypes.c_char_p, ctypes.c_int]
+    lib.ik_av1d_set_tables.restype = ctypes.c_int
+    lib.ik_av1d_probe.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                  ctypes.POINTER(_Info)]
+    lib.ik_av1d_probe.restype = ctypes.c_int
+    lib.ik_av1d_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.POINTER(_Info)]
+    lib.ik_av1d_decode.restype = ctypes.c_int
+    lib.ik_av1d_tx1d.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+
+
+def load(lib: Optional[ctypes.CDLL] = None) -> ctypes.CDLL:
+    """The native library with the decoder's tables set (``lib``: another
+    build of the same sources, for the sanitizer tests)."""
+    with _lock:
+        if lib is None and _state["lib"] is not None:
+            return _state["lib"]
+        target = lib if lib is not None else loader.load()
+        _bind(target)
+        blob = tables_blob()
+        if len(blob) != target.ik_av1d_tables_size():
+            raise RuntimeError(
+                f"AV1 decoder tables packed to {len(blob)} bytes, the "
+                f"library declares {target.ik_av1d_tables_size()}")
+        if target.ik_av1d_set_tables(blob, len(blob)) != OK:
+            raise RuntimeError("the AV1 decoder refused its tables")
+        if lib is None:
+            _state["lib"] = target
+        return target
+
+
+def _raise(rc: int, info: _Info) -> None:
+    why = info.reason.decode("ascii", "replace")
+    if rc == NOT_PORTED:
+        raise Av1NotPorted(why)
+    raise ValueError(f"AV1 stream does not decode: {why}")
+
+
+def _info(info: _Info) -> StreamInfo:
+    return StreamInfo(info.width, info.height, info.layout, info.bitdepth,
+                      bool(info.mono), bool(info.color_range), info.matrix,
+                      info.primaries, info.transfer)
+
+
+def probe(obu: bytes, lib: Optional[ctypes.CDLL] = None) -> StreamInfo:
+    """The stream's sequence and first frame header."""
+    lib = lib or load()
+    info = _Info()
+    rc = lib.ik_av1d_probe(obu, len(obu), ctypes.byref(info))
+    if rc != OK:
+        _raise(rc, info)
+    return _info(info)
+
+
+def decode(obu: bytes, lib: Optional[ctypes.CDLL] = None,
+           expect: Optional[tuple] = None):
+    """The first frame of an AV1 OBU stream -> (y, u | None, v | None,
+    StreamInfo): u8 planes of width x height luma, chroma rounded up by
+    the layout's subsampling (None for monochrome). ``expect``: the
+    (width, height) the container gives; a stream of another size raises
+    ValueError before anything is allocated for it."""
+    lib = lib or load()
+    head = probe(obu, lib)
+    w, h = head.width, head.height
+    if expect is not None and (w, h) != tuple(expect):
+        raise ValueError(f"AV1 stream of {w}x{h} in a {expect[0]}x"
+                         f"{expect[1]} item")
+    y = np.empty((h, w), np.uint8)
+    u = v = None
+    cw = ch = 1
+    if head.layout != I400:
+        cw = (w + 1) // 2 if head.layout in (I420, I422) else w
+        ch = (h + 1) // 2 if head.layout == I420 else h
+    u = np.empty((ch, cw), np.uint8)
+    v = np.empty((ch, cw), np.uint8)
+    info = _Info()
+    rc = lib.ik_av1d_decode(obu, len(obu), y.ctypes.data, w, u.ctypes.data,
+                            v.ctypes.data, cw, ctypes.byref(info))
+    if rc != OK:
+        _raise(rc, info)
+    if head.layout == I400:
+        u = v = None
+    return y, u, v, _info(info)

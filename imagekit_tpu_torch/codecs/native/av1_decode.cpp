@@ -1,0 +1,3400 @@
+// AV1 intra-frame decoder of the port's own: the still picture (or the
+// first frame of an image sequence) of an AVIF item, 8-bit, in place of
+// libdav1d, which the reference's avif_native.py calls over ctypes.
+//
+// It follows the AV1 specification's decoding process section by section
+// (the names of its variables and processes are kept: decode_partition,
+// intra_frame_mode_info, coeffs, predict_intra, edge_loop_filter,
+// cdef_block, ...), since reconstruction is normative: the planes must be
+// byte-equal to any conforming decoder's, libdav1d's included
+// (tests/test_torch_av1_decode.py holds them so). Tools:
+//
+//   - OBUs: temporal delimiter, sequence header (reduced or full), frame
+//     header and tile groups, or frame OBUs; padding and metadata skipped;
+//   - frame header of a KEY_FRAME or INTRA_ONLY frame: frame size, tile
+//     info (uniform or explicit, several tiles and tile groups), quantizer
+//     params with DC/AC/U/V deltas, segmentation, delta q / lf, loop
+//     filter, CDEF and loop restoration params, tx mode, reduced tx set,
+//     film grain params (parsed);
+//   - symbol decoder with CDF adaptation (spec 8.2), the default CDFs
+//     handed over by av1_dec_abi.py at load (av1_tables.npz and
+//     av1_dec_tables.npz);
+//   - block syntax of 64 and 128 superblocks, all 22 block sizes, the
+//     intra mode info (skip, cdef_idx, delta q and lf, segment ids with
+//     spatial prediction, y and uv modes, angle deltas, CfL alphas,
+//     filter intra), tx depth and the intra tx sets, coefficients of all
+//     19 tx sizes, dequantisation;
+//   - inverse DCT 4-64, ADST 4/8/16, identity 4-32 and the 4x4 WHT of
+//     lossless blocks, rectangular scaling, intermediate clamps;
+//   - intra prediction: DC, V, H, Paeth, smooth, directional with edge
+//     filter and upsampling, CfL, recursive filter intra;
+//   - deblocking (4, 6, 8 and 14 taps), CDEF, loop restoration (Wiener
+//     and self-guided, stripes reading the deblocked rows).
+//
+// Not built, answered with IK_AV1D_NOT_PORTED and a reason (the caller's
+// 501): palette blocks, intra block copy, superres, film grain applied,
+// 10/12-bit streams, quantizer matrices, inter frames, layered streams.
+// Tiles decode on threads of their own (decode_tiles), and so do CDEF's
+// rows of 64x64 units; deblocking and loop restoration run on the calling
+// thread. Malformed streams answer IK_AV1D_BAD (400): every
+// read is bounds checked, and a symbol decoder that runs past its tile reads zeros as the
+// spec says, so a truncated tile decodes to something, as in libdav1d.
+
+#include <stdint.h>
+#include <string.h>
+
+#include <algorithm>
+#include <atomic>
+#include <cmath>
+#include <cstdlib>
+#include <memory>
+#include <new>
+#include <thread>
+#include <vector>
+
+#define IK_EXPORT extern "C" __attribute__((visibility("default")))
+
+namespace {
+
+enum { IK_AV1D_OK = 0, IK_AV1D_BAD = -1, IK_AV1D_NOT_PORTED = -2,
+       IK_AV1D_NO_TABLES = -3 };
+
+// ---------------------------------------------------------------------------
+// Default tables, as av1_dec_abi.py packs them (one struct of uint16 CDF
+// records [icdf 0..N-2, 0, counter], then the other constants).
+
+struct Cdfs {
+  uint16_t txb_skip[5][13][3];
+  uint16_t eob_extra[5][2][9][3];
+  uint16_t dc_sign[2][3][3];
+  uint16_t coeff_base[5][2][42][5];
+  uint16_t coeff_br[5][2][21][5];
+  uint16_t coeff_base_eob[5][2][4][4];
+  uint16_t eob_pt_16[2][2][6];
+  uint16_t eob_pt_32[2][2][7];
+  uint16_t eob_pt_64[2][2][8];
+  uint16_t eob_pt_128[2][2][9];
+  uint16_t eob_pt_256[2][2][10];
+  uint16_t eob_pt_512[2][11];
+  uint16_t eob_pt_1024[2][12];
+  uint16_t kf_y_mode[5][5][14];
+  uint16_t uv_mode_cfl[13][15];
+  uint16_t uv_mode_nocfl[13][14];
+  uint16_t partition[20][11];
+  uint16_t use_filter_intra[22][3];
+  uint16_t filter_intra_mode[6];
+  uint16_t angle_delta[8][8];
+  uint16_t intra_tx1[4][13][8];
+  uint16_t intra_tx2[4][13][6];
+  uint16_t skip[3][3];
+  uint16_t segment_id[3][9];
+  uint16_t delta_q[5];
+  uint16_t delta_lf[5];
+  uint16_t delta_lf_multi[4][5];
+  uint16_t cfl_sign[9];
+  uint16_t cfl_alpha[6][17];
+  uint16_t pal_y_mode[7][3][3];
+  uint16_t pal_uv_mode[2][3];
+  uint16_t tx_8x8[3][3];
+  uint16_t tx_depth[3][3][4];  // 16x16, 32x32, 64x64 categories
+  uint16_t switchable_restore[4];
+  uint16_t wiener_restore[3];
+  uint16_t sgrproj_restore[3];
+};
+
+struct Tables {
+  Cdfs cdf[4];  // one per coefficient q context
+  // 16-bit members first, then bytes: no padding anywhere
+  int16_t dc_q[256];
+  int16_t ac_q[256];
+  int16_t dr_deriv[44];
+  int16_t sgr[16][4];  // r0, s0, r1, s1
+  int16_t scan4x4[16], scan8x8[64], scan16x16[256], scan32x32[1024];
+  int16_t scan4x8[32], scan8x4[32], scan8x16[128], scan16x8[128];
+  int16_t scan16x32[512], scan32x16[512], scan4x16[64], scan16x4[64];
+  int16_t scan8x32[256], scan32x8[256];
+  uint8_t sm_weights[128];  // 124 used: sizes 4, 8, 16, 32, 64 in turn
+  int8_t filter_taps[5][8][8];  // 7 used
+  int8_t ctx_offset[19][5][5];
+  int8_t pad_[1];
+};
+
+Tables g_tab;
+bool g_ready = false;
+int g_cos128[65];
+
+// ---------------------------------------------------------------------------
+// Constants of the specification
+
+enum { BLOCK_4X4, BLOCK_4X8, BLOCK_8X4, BLOCK_8X8, BLOCK_8X16, BLOCK_16X8,
+       BLOCK_16X16, BLOCK_16X32, BLOCK_32X16, BLOCK_32X32, BLOCK_32X64,
+       BLOCK_64X32, BLOCK_64X64, BLOCK_64X128, BLOCK_128X64, BLOCK_128X128,
+       BLOCK_4X16, BLOCK_16X4, BLOCK_8X32, BLOCK_32X8, BLOCK_16X64,
+       BLOCK_64X16, BLOCK_INVALID = 22 };
+enum { TX_4X4, TX_8X8, TX_16X16, TX_32X32, TX_64X64, TX_4X8, TX_8X4,
+       TX_8X16, TX_16X8, TX_16X32, TX_32X16, TX_32X64, TX_64X32, TX_4X16,
+       TX_16X4, TX_8X32, TX_32X8, TX_16X64, TX_64X16 };
+enum { DC_PRED, V_PRED, H_PRED, D45_PRED, D135_PRED, D113_PRED, D157_PRED,
+       D203_PRED, D67_PRED, SMOOTH_PRED, SMOOTH_V_PRED, SMOOTH_H_PRED,
+       PAETH_PRED, UV_CFL_PRED };
+enum { PARTITION_NONE, PARTITION_HORZ, PARTITION_VERT, PARTITION_SPLIT,
+       PARTITION_HORZ_A, PARTITION_HORZ_B, PARTITION_VERT_A,
+       PARTITION_VERT_B, PARTITION_HORZ_4, PARTITION_VERT_4 };
+enum { DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST, FLIPADST_DCT, DCT_FLIPADST,
+       FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST, IDTX, V_DCT, H_DCT,
+       V_ADST, H_ADST, V_FLIPADST, H_FLIPADST };
+enum { TX_SET_DCTONLY, TX_SET_INTRA_1, TX_SET_INTRA_2 };
+enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
+enum { TX_MODE_ONLY_4X4, TX_MODE_LARGEST, TX_MODE_SELECT };
+enum { SEG_LVL_ALT_Q, SEG_LVL_ALT_LF_Y_V, SEG_LVL_REF_FRAME = 5,
+       SEG_LVL_SKIP = 6, SEG_LVL_MAX = 8 };
+
+const uint8_t kNum4x4W[22] = {1, 1, 2, 2, 2, 4, 4, 4, 8, 8, 8,
+                              16, 16, 16, 32, 32, 1, 4, 2, 8, 4, 16};
+const uint8_t kNum4x4H[22] = {1, 2, 1, 2, 4, 2, 4, 8, 4, 8, 16,
+                              8, 16, 32, 16, 32, 4, 1, 8, 2, 16, 4};
+const uint8_t kMiWLog2[22] = {0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 3,
+                              4, 4, 4, 5, 5, 0, 2, 1, 3, 2, 4};
+const uint8_t kMiHLog2[22] = {0, 1, 0, 1, 2, 1, 2, 3, 2, 3, 4,
+                              3, 4, 5, 4, 5, 2, 0, 3, 1, 4, 2};
+const uint8_t kSubsize[10][22] = {
+    // NONE
+    {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19,
+     20, 21},
+    // HORZ
+    {22, 22, 22, BLOCK_8X4, 22, 22, BLOCK_16X8, 22, 22, BLOCK_32X16, 22, 22,
+     BLOCK_64X32, 22, 22, BLOCK_128X64, 22, 22, 22, 22, 22, 22},
+    // VERT
+    {22, 22, 22, BLOCK_4X8, 22, 22, BLOCK_8X16, 22, 22, BLOCK_16X32, 22, 22,
+     BLOCK_32X64, 22, 22, BLOCK_64X128, 22, 22, 22, 22, 22, 22},
+    // SPLIT
+    {22, 22, 22, BLOCK_4X4, 22, 22, BLOCK_8X8, 22, 22, BLOCK_16X16, 22, 22,
+     BLOCK_32X32, 22, 22, BLOCK_64X64, 22, 22, 22, 22, 22, 22},
+    // HORZ_A, HORZ_B
+    {22, 22, 22, BLOCK_8X4, 22, 22, BLOCK_16X8, 22, 22, BLOCK_32X16, 22, 22,
+     BLOCK_64X32, 22, 22, BLOCK_128X64, 22, 22, 22, 22, 22, 22},
+    {22, 22, 22, BLOCK_8X4, 22, 22, BLOCK_16X8, 22, 22, BLOCK_32X16, 22, 22,
+     BLOCK_64X32, 22, 22, BLOCK_128X64, 22, 22, 22, 22, 22, 22},
+    // VERT_A, VERT_B
+    {22, 22, 22, BLOCK_4X8, 22, 22, BLOCK_8X16, 22, 22, BLOCK_16X32, 22, 22,
+     BLOCK_32X64, 22, 22, BLOCK_64X128, 22, 22, 22, 22, 22, 22},
+    {22, 22, 22, BLOCK_4X8, 22, 22, BLOCK_8X16, 22, 22, BLOCK_16X32, 22, 22,
+     BLOCK_32X64, 22, 22, BLOCK_64X128, 22, 22, 22, 22, 22, 22},
+    // HORZ_4
+    {22, 22, 22, 22, 22, 22, BLOCK_16X4, 22, 22, BLOCK_32X8, 22, 22,
+     BLOCK_64X16, 22, 22, 22, 22, 22, 22, 22, 22, 22},
+    // VERT_4
+    {22, 22, 22, 22, 22, 22, BLOCK_4X16, 22, 22, BLOCK_8X32, 22, 22,
+     BLOCK_16X64, 22, 22, 22, 22, 22, 22, 22, 22, 22},
+};
+// Subsampled_Size[bsize][subx][suby]
+const uint8_t kSsSize[22][2][2] = {
+    {{BLOCK_4X4, BLOCK_4X4}, {BLOCK_4X4, BLOCK_4X4}},
+    {{BLOCK_4X8, BLOCK_4X4}, {BLOCK_INVALID, BLOCK_4X4}},
+    {{BLOCK_8X4, BLOCK_INVALID}, {BLOCK_4X4, BLOCK_4X4}},
+    {{BLOCK_8X8, BLOCK_8X4}, {BLOCK_4X8, BLOCK_4X4}},
+    {{BLOCK_8X16, BLOCK_8X8}, {BLOCK_INVALID, BLOCK_4X8}},
+    {{BLOCK_16X8, BLOCK_INVALID}, {BLOCK_8X8, BLOCK_8X4}},
+    {{BLOCK_16X16, BLOCK_16X8}, {BLOCK_8X16, BLOCK_8X8}},
+    {{BLOCK_16X32, BLOCK_16X16}, {BLOCK_INVALID, BLOCK_8X16}},
+    {{BLOCK_32X16, BLOCK_INVALID}, {BLOCK_16X16, BLOCK_16X8}},
+    {{BLOCK_32X32, BLOCK_32X16}, {BLOCK_16X32, BLOCK_16X16}},
+    {{BLOCK_32X64, BLOCK_32X32}, {BLOCK_INVALID, BLOCK_16X32}},
+    {{BLOCK_64X32, BLOCK_INVALID}, {BLOCK_32X32, BLOCK_32X16}},
+    {{BLOCK_64X64, BLOCK_64X32}, {BLOCK_32X64, BLOCK_32X32}},
+    {{BLOCK_64X128, BLOCK_64X64}, {BLOCK_INVALID, BLOCK_32X64}},
+    {{BLOCK_128X64, BLOCK_INVALID}, {BLOCK_64X64, BLOCK_64X32}},
+    {{BLOCK_128X128, BLOCK_128X64}, {BLOCK_64X128, BLOCK_64X64}},
+    {{BLOCK_4X16, BLOCK_4X8}, {BLOCK_INVALID, BLOCK_4X8}},
+    {{BLOCK_16X4, BLOCK_INVALID}, {BLOCK_8X4, BLOCK_8X4}},
+    {{BLOCK_8X32, BLOCK_8X16}, {BLOCK_INVALID, BLOCK_4X16}},
+    {{BLOCK_32X8, BLOCK_INVALID}, {BLOCK_16X8, BLOCK_16X4}},
+    {{BLOCK_16X64, BLOCK_16X32}, {BLOCK_INVALID, BLOCK_8X32}},
+    {{BLOCK_64X16, BLOCK_INVALID}, {BLOCK_32X16, BLOCK_32X8}},
+};
+const uint8_t kMaxTxRect[22] = {
+    TX_4X4,   TX_4X8,   TX_8X4,   TX_8X8,   TX_8X16,  TX_16X8,
+    TX_16X16, TX_16X32, TX_32X16, TX_32X32, TX_32X64, TX_64X32,
+    TX_64X64, TX_64X64, TX_64X64, TX_64X64, TX_4X16,  TX_16X4,
+    TX_8X32,  TX_32X8,  TX_16X64, TX_64X16};
+const uint8_t kMaxTxDepth[22] = {0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 4,
+                                 4, 4, 4, 4, 4, 2, 2, 3, 3, 4, 4};
+const uint8_t kTxW[19] = {4, 8, 16, 32, 64, 4, 8, 8, 16, 16,
+                          32, 32, 64, 4, 16, 8, 32, 16, 64};
+const uint8_t kTxH[19] = {4, 8, 16, 32, 64, 8, 4, 16, 8, 32,
+                          16, 64, 32, 16, 4, 32, 8, 64, 16};
+const uint8_t kTxWLog2[19] = {2, 3, 4, 5, 6, 2, 3, 3, 4, 4,
+                              5, 5, 6, 2, 4, 3, 5, 4, 6};
+const uint8_t kTxHLog2[19] = {2, 3, 4, 5, 6, 3, 2, 4, 3, 5,
+                              4, 6, 5, 4, 2, 5, 3, 6, 4};
+const uint8_t kSplitTx[19] = {
+    TX_4X4,   TX_4X4,   TX_8X8,   TX_16X16, TX_32X32, TX_4X4,  TX_4X4,
+    TX_8X8,   TX_8X8,   TX_16X16, TX_16X16, TX_32X32, TX_32X32, TX_4X8,
+    TX_8X4,   TX_8X16,  TX_16X8,  TX_16X32, TX_32X16};
+const uint8_t kTxSqr[19] = {0, 1, 2, 3, 4, 0, 0, 1, 1, 2,
+                            2, 3, 3, 0, 0, 1, 1, 2, 2};
+const uint8_t kTxSqrUp[19] = {0, 1, 2, 3, 4, 1, 1, 2, 2, 3,
+                              3, 4, 4, 2, 2, 3, 3, 4, 4};
+const uint8_t kTxRowShift[19] = {0, 1, 2, 2, 2, 0, 0, 1, 1, 1,
+                                 1, 1, 1, 1, 1, 2, 2, 2, 2};
+// Adjusted_Tx_Size: 64 sides count as 32
+const uint8_t kAdjTx[19] = {
+    TX_4X4,   TX_8X8,   TX_16X16, TX_32X32, TX_32X32, TX_4X8,   TX_8X4,
+    TX_8X16,  TX_16X8,  TX_16X32, TX_32X16, TX_32X32, TX_32X32, TX_4X16,
+    TX_16X4,  TX_8X32,  TX_32X8,  TX_16X32, TX_32X16};
+const uint8_t kIntraModeCtx[13] = {0, 1, 2, 3, 4, 4, 4, 4, 3, 0, 1, 2, 0};
+const uint8_t kModeToTxfm[14] = {
+    DCT_DCT,  ADST_DCT, DCT_ADST,  DCT_DCT,  ADST_ADST, ADST_DCT, DCT_ADST,
+    DCT_ADST, ADST_DCT, ADST_ADST, ADST_DCT, DCT_ADST,  ADST_ADST, DCT_DCT};
+const uint8_t kTxInvSet1[7] = {IDTX, DCT_DCT, V_DCT, H_DCT,
+                               ADST_ADST, ADST_DCT, DCT_ADST};
+const uint8_t kTxInvSet2[5] = {IDTX, DCT_DCT, ADST_ADST, ADST_DCT, DCT_ADST};
+const uint8_t kFilterIntraToDir[5] = {DC_PRED, V_PRED, H_PRED, D157_PRED,
+                                      DC_PRED};
+const int kModeToAngle[13] = {0, 90, 180, 45, 135, 113, 157, 203, 67,
+                              0, 0, 0, 0};
+const int kSegFeatureBits[8] = {8, 6, 6, 6, 6, 3, 0, 0};
+const int kSegFeatureSigned[8] = {1, 1, 1, 1, 1, 0, 0, 0};
+const int kSegFeatureMax[8] = {255, 63, 63, 63, 63, 7, 0, 0};
+const int kSigRefDiff[3][5][2] = {
+    {{0, 1}, {1, 0}, {1, 1}, {0, 2}, {2, 0}},
+    {{0, 1}, {1, 0}, {0, 2}, {0, 3}, {0, 4}},
+    {{0, 1}, {1, 0}, {2, 0}, {3, 0}, {4, 0}}};
+const int kMagRefOffset[3][3][2] = {{{0, 1}, {1, 0}, {1, 1}},
+                                    {{0, 1}, {1, 0}, {0, 2}},
+                                    {{0, 1}, {1, 0}, {2, 0}}};
+const int kWienerTapsMin[3] = {-5, -23, -17};
+const int kWienerTapsMax[3] = {10, 8, 46};
+const int kWienerTapsK[3] = {1, 2, 3};
+const int kSgrprojXqdMin[2] = {-96, -32};
+const int kSgrprojXqdMax[2] = {31, 95};
+const int kCdefUvDir[2][2][8] = {
+    {{0, 1, 2, 3, 4, 5, 6, 7}, {1, 2, 2, 2, 3, 4, 6, 0}},
+    {{7, 0, 2, 4, 5, 6, 6, 6}, {0, 1, 2, 3, 4, 5, 6, 7}}};
+const int kCdefDirections[8][2][2] = {
+    {{-1, 1}, {-2, 2}}, {{0, 1}, {-1, 2}}, {{0, 1}, {0, 2}},
+    {{0, 1}, {1, 2}},   {{1, 1}, {2, 2}},  {{1, 0}, {2, 1}},
+    {{1, 0}, {2, 0}},   {{1, 0}, {2, -1}}};
+const int kCdefDivTable[9] = {0, 840, 420, 280, 210, 168, 140, 120, 105};
+const int kIntraEdgeKernel[3][5] = {{0, 4, 8, 4, 0}, {0, 5, 6, 5, 0},
+                                    {2, 4, 4, 4, 2}};
+
+inline int clip3(int lo, int hi, int v) { return v < lo ? lo : v > hi ? hi : v; }
+inline int64_t clip3l(int64_t lo, int64_t hi, int64_t v) {
+  return v < lo ? lo : v > hi ? hi : v;
+}
+inline uint8_t clip1(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
+inline int round2(int x, int n) { return n ? (x + (1 << (n - 1))) >> n : x; }
+inline int64_t round2l(int64_t x, int n) {
+  return n ? (x + ((int64_t)1 << (n - 1))) >> n : x;
+}
+inline int floor_log2(uint32_t x) { return 31 - __builtin_clz(x); }
+
+// Errors leave the decode by exception: one try in each entry point.
+struct Fail {
+  int code;
+  const char* why;
+};
+[[noreturn]] void bad(const char* why) { throw Fail{IK_AV1D_BAD, why}; }
+[[noreturn]] void not_ported(const char* why) {
+  throw Fail{IK_AV1D_NOT_PORTED, why};
+}
+
+// fn(0) .. fn(n - 1) on up to one thread a core, this one included; fn
+// must not throw.
+template <typename F>
+void parallel_for(int n, F fn) {
+  int workers = std::min<int>(n, std::max(1u, std::thread::hardware_concurrency()));
+  std::atomic<int> next{0};
+  auto work = [&]() {
+    for (int i; (i = next.fetch_add(1)) < n;) fn(i);
+  };
+  std::vector<std::thread> pool;
+  for (int i = 1; i < workers; ++i) pool.emplace_back(work);
+  work();
+  for (std::thread& t : pool) t.join();
+}
+
+// ---------------------------------------------------------------------------
+// Bit reader of the headers (spec 4.10, 8.1)
+
+struct Bits {
+  const uint8_t* p;
+  size_t n;      // bytes
+  size_t pos;    // bit position
+  uint32_t f(int k) {
+    uint32_t v = 0;
+    for (int i = 0; i < k; ++i) {
+      if ((pos >> 3) >= n) bad("header runs past its OBU");
+      v = (v << 1) | ((p[pos >> 3] >> (7 - (pos & 7))) & 1);
+      ++pos;
+    }
+    return v;
+  }
+  int su(int k) {
+    int v = (int)f(k);
+    int sign = 1 << (k - 1);
+    return (v & sign) ? v - 2 * sign : v;
+  }
+  uint32_t uvlc() {
+    int zeros = 0;
+    while (!f(1)) {
+      if (++zeros >= 32) bad("uvlc");
+    }
+    return zeros ? (uint32_t)((1ull << zeros) - 1 + f(zeros)) : 0;
+  }
+  uint32_t ns(uint32_t nn) {
+    int w = floor_log2(nn) + 1;
+    uint32_t m = (1u << w) - nn;
+    uint32_t v = f(w - 1);
+    if (v < m) return v;
+    return (v << 1) - m + f(1);
+  }
+  void byte_align() { pos = (pos + 7) & ~(size_t)7; }
+};
+
+// ---------------------------------------------------------------------------
+// Sequence and frame headers
+
+struct SeqHdr {
+  int profile = 0, still = 0, reduced = 0;
+  int timing_info = 0, decoder_model_info = 0, equal_picture_interval = 0;
+  int buffer_delay_len = 0, buffer_removal_time_len = 0,
+      frame_presentation_time_len = 0;
+  int op_cnt = 1;
+  int op_idc[32] = {0};
+  int decoder_model_present[32] = {0};
+  int wbits = 0, hbits = 0, max_w = 0, max_h = 0;
+  int frame_id_numbers = 0, delta_frame_id_len = 0, frame_id_len = 0;
+  int sb128 = 0, filter_intra = 0, intra_edge = 0;
+  int order_hint = 0, order_hint_bits = 0;
+  int force_sct = 2, force_integer_mv = 2;
+  int superres = 0, cdef = 0, restoration = 0;
+  int bitdepth = 8, mono = 0, ssx = 1, ssy = 1;
+  int primaries = 2, transfer = 2, matrix = 2, color_range = 0;
+  int separate_uv_delta_q = 0, film_grain = 0;
+};
+
+void parse_seq(Bits& b, SeqHdr& s) {
+  s.profile = b.f(3);
+  if (s.profile > 2) bad("sequence profile");
+  s.still = b.f(1);
+  s.reduced = b.f(1);
+  if (s.reduced) {
+    b.f(5);  // seq_level_idx[0]
+  } else {
+    s.timing_info = b.f(1);
+    if (s.timing_info) {
+      b.f(32);
+      b.f(32);
+      s.equal_picture_interval = b.f(1);
+      if (s.equal_picture_interval) b.uvlc();
+      s.decoder_model_info = b.f(1);
+      if (s.decoder_model_info) {
+        s.buffer_delay_len = b.f(5) + 1;
+        b.f(32);
+        s.buffer_removal_time_len = b.f(5) + 1;
+        s.frame_presentation_time_len = b.f(5) + 1;
+      }
+    }
+    int initial_display_delay = b.f(1);
+    s.op_cnt = b.f(5) + 1;
+    for (int i = 0; i < s.op_cnt; ++i) {
+      s.op_idc[i] = b.f(12);
+      int lvl = b.f(5);
+      if (lvl > 7) b.f(1);
+      if (s.decoder_model_info) {
+        s.decoder_model_present[i] = b.f(1);
+        if (s.decoder_model_present[i]) {
+          b.f(s.buffer_delay_len);
+          b.f(s.buffer_delay_len);
+          b.f(1);
+        }
+      }
+      if (initial_display_delay && b.f(1)) b.f(4);
+    }
+  }
+  s.wbits = b.f(4) + 1;
+  s.hbits = b.f(4) + 1;
+  s.max_w = b.f(s.wbits) + 1;
+  s.max_h = b.f(s.hbits) + 1;
+  if (!s.reduced) s.frame_id_numbers = b.f(1);
+  if (s.frame_id_numbers) {
+    s.delta_frame_id_len = b.f(4) + 2;
+    s.frame_id_len = b.f(3) + 1 + s.delta_frame_id_len;
+  }
+  s.sb128 = b.f(1);
+  s.filter_intra = b.f(1);
+  s.intra_edge = b.f(1);
+  if (!s.reduced) {
+    b.f(4);  // interintra, masked compound, warped motion, dual filter
+    s.order_hint = b.f(1);
+    if (s.order_hint) b.f(2);  // jnt_comp, ref_frame_mvs
+    int choose_sct = b.f(1);
+    s.force_sct = choose_sct ? 2 : (int)b.f(1);
+    if (s.force_sct > 0) {
+      int choose_imv = b.f(1);
+      s.force_integer_mv = choose_imv ? 2 : (int)b.f(1);
+    } else {
+      s.force_integer_mv = 2;
+    }
+    if (s.order_hint) s.order_hint_bits = b.f(3) + 1;
+  }
+  s.superres = b.f(1);
+  s.cdef = b.f(1);
+  s.restoration = b.f(1);
+  // color_config
+  int high_bd = b.f(1);
+  if (s.profile == 2 && high_bd)
+    s.bitdepth = b.f(1) ? 12 : 10;
+  else
+    s.bitdepth = high_bd ? 10 : 8;
+  s.mono = s.profile == 1 ? 0 : (int)b.f(1);
+  if (b.f(1)) {
+    s.primaries = b.f(8);
+    s.transfer = b.f(8);
+    s.matrix = b.f(8);
+  }
+  if (s.mono) {
+    s.color_range = b.f(1);
+    s.ssx = s.ssy = 1;
+    s.separate_uv_delta_q = 0;
+  } else {
+    if (s.primaries == 1 && s.transfer == 13 && s.matrix == 0) {
+      s.color_range = 1;
+      s.ssx = s.ssy = 0;
+    } else {
+      s.color_range = b.f(1);
+      if (s.profile == 0) {
+        s.ssx = s.ssy = 1;
+      } else if (s.profile == 1) {
+        s.ssx = s.ssy = 0;
+      } else if (s.bitdepth == 12) {
+        s.ssx = b.f(1);
+        s.ssy = s.ssx ? (int)b.f(1) : 0;
+      } else {
+        s.ssx = 1;
+        s.ssy = 0;
+      }
+      if (s.ssx && s.ssy) b.f(2);  // chroma_sample_position
+    }
+    s.separate_uv_delta_q = b.f(1);
+  }
+  s.film_grain = b.f(1);
+}
+
+struct FrameHdr {
+  int frame_type = 0, show_frame = 1, showable = 0, error_resilient = 1;
+  int disable_cdf_update = 0, allow_sct = 0, allow_intrabc = 0;
+  int width = 0, height = 0, upscaled_width = 0;
+  int mi_cols = 0, mi_rows = 0;
+  // tiles
+  int tile_cols = 1, tile_rows = 1, tile_cols_log2 = 0, tile_rows_log2 = 0;
+  int mi_col_starts[65], mi_row_starts[65];
+  int tile_size_bytes = 4;
+  // quantizer
+  int base_q_idx = 0, dq_ydc = 0, dq_udc = 0, dq_uac = 0, dq_vdc = 0,
+      dq_vac = 0;
+  // segmentation
+  int seg_enabled = 0, seg_preskip = 0, last_active_seg = 0;
+  int feature_enabled[8][8] = {{0}};
+  int feature_data[8][8] = {{0}};
+  int lossless[8] = {0};
+  int coded_lossless = 0, all_lossless = 0;
+  // deltas
+  int delta_q_present = 0, delta_q_res = 0, delta_lf_present = 0,
+      delta_lf_res = 0, delta_lf_multi = 0;
+  // loop filter
+  int lf_level[4] = {0}, lf_sharpness = 0, lf_delta_enabled = 0;
+  int lf_ref_deltas[8] = {1, 0, 0, 0, -1, 0, -1, -1};
+  int lf_mode_deltas[2] = {0, 0};
+  // cdef
+  int cdef_damping = 3, cdef_bits = 0;
+  int cdef_y_pri[8] = {0}, cdef_y_sec[8] = {0}, cdef_uv_pri[8] = {0},
+      cdef_uv_sec[8] = {0};
+  int cdef_on = 0;
+  // loop restoration
+  int lr_type[3] = {0, 0, 0};
+  int lr_size[3] = {64, 64, 64};
+  int uses_lr = 0;
+  int tx_mode = TX_MODE_LARGEST, reduced_tx_set = 0;
+};
+
+inline int tile_log2(int blk, int target) {
+  int k = 0;
+  while ((blk << k) < target) ++k;
+  return k;
+}
+
+void parse_frame_header(Bits& b, const SeqHdr& s, FrameHdr& h,
+                        int temporal_id, int spatial_id) {
+  int id_len = s.frame_id_numbers ? s.frame_id_len : 0;
+  if (s.reduced) {
+    h.frame_type = 0;
+    h.show_frame = 1;
+  } else {
+    if (b.f(1)) not_ported("a frame that shows an existing frame");
+    h.frame_type = b.f(2);
+    if (h.frame_type != 0 && h.frame_type != 2)
+      not_ported("inter frames (an image sequence whose first frame is "
+                 "not intra)");
+    h.show_frame = b.f(1);
+    if (h.show_frame && s.decoder_model_info && !s.equal_picture_interval)
+      b.f(s.frame_presentation_time_len);
+    if (!h.show_frame) h.showable = b.f(1);
+    else h.showable = h.frame_type != 0;
+    if (h.frame_type == 0 && h.show_frame)
+      h.error_resilient = 1;
+    else
+      h.error_resilient = b.f(1);
+  }
+  h.disable_cdf_update = b.f(1);
+  h.allow_sct = s.force_sct == 2 ? (int)b.f(1) : s.force_sct;
+  if (h.allow_sct && s.force_integer_mv == 2) b.f(1);  // force_integer_mv
+  if (s.frame_id_numbers) b.f(id_len);  // current_frame_id
+  int size_override = 0;
+  if (!s.reduced) size_override = b.f(1);
+  if (s.order_hint_bits) b.f(s.order_hint_bits);
+  // primary_ref_frame: none for intra frames and error resilient ones
+  if (s.decoder_model_info) {
+    if (b.f(1)) {  // buffer_removal_time_present_flag
+      for (int op = 0; op < s.op_cnt; ++op) {
+        if (!s.decoder_model_present[op]) continue;
+        int idc = s.op_idc[op];
+        int in_t = (idc >> temporal_id) & 1;
+        int in_s = (idc >> (spatial_id + 8)) & 1;
+        if (idc == 0 || (in_t && in_s)) b.f(s.buffer_removal_time_len);
+      }
+    }
+  }
+  int refresh = 0xFF;
+  if (!(h.frame_type == 0 && h.show_frame)) refresh = b.f(8);
+  if (refresh != 0xFF && h.error_resilient && s.order_hint)
+    for (int i = 0; i < 8; ++i) b.f(s.order_hint_bits);
+  // frame_size
+  if (size_override) {
+    h.width = b.f(s.wbits) + 1;
+    h.height = b.f(s.hbits) + 1;
+  } else {
+    h.width = s.max_w;
+    h.height = s.max_h;
+  }
+  if (s.superres && b.f(1)) not_ported("superres");
+  h.upscaled_width = h.width;
+  h.mi_cols = 2 * ((h.width + 7) >> 3);
+  h.mi_rows = 2 * ((h.height + 7) >> 3);
+  if (b.f(1)) {  // render_and_frame_size_different
+    b.f(16);
+    b.f(16);
+  }
+  if (h.allow_sct && h.upscaled_width == h.width) h.allow_intrabc = b.f(1);
+  if (h.allow_intrabc) not_ported("intra block copy");
+  if (!(s.reduced || h.disable_cdf_update)) b.f(1);  // end update cdf
+  // tile_info
+  int sb_cols = s.sb128 ? (h.mi_cols + 31) >> 5 : (h.mi_cols + 15) >> 4;
+  int sb_rows = s.sb128 ? (h.mi_rows + 31) >> 5 : (h.mi_rows + 15) >> 4;
+  int sb_shift = s.sb128 ? 5 : 4;
+  int sb_size = sb_shift + 2;
+  int max_tile_w_sb = 4096 >> sb_size;
+  int max_tile_area_sb = (4096 * 2304) >> (2 * sb_size);
+  int min_log2_cols = tile_log2(max_tile_w_sb, sb_cols);
+  int max_log2_cols = tile_log2(1, std::min(sb_cols, 64));
+  int max_log2_rows = tile_log2(1, std::min(sb_rows, 64));
+  int min_log2_tiles =
+      std::max(min_log2_cols, tile_log2(max_tile_area_sb, sb_rows * sb_cols));
+  if (b.f(1)) {  // uniform
+    h.tile_cols_log2 = min_log2_cols;
+    while (h.tile_cols_log2 < max_log2_cols && b.f(1)) ++h.tile_cols_log2;
+    int tw = (sb_cols + (1 << h.tile_cols_log2) - 1) >> h.tile_cols_log2;
+    int i = 0;
+    for (int start = 0; start < sb_cols; start += tw) {
+      if (i >= 64) bad("tile columns");
+      h.mi_col_starts[i++] = start << sb_shift;
+    }
+    h.mi_col_starts[i] = h.mi_cols;
+    h.tile_cols = i;
+    int min_log2_rows = std::max(min_log2_tiles - h.tile_cols_log2, 0);
+    h.tile_rows_log2 = min_log2_rows;
+    while (h.tile_rows_log2 < max_log2_rows && b.f(1)) ++h.tile_rows_log2;
+    int th = (sb_rows + (1 << h.tile_rows_log2) - 1) >> h.tile_rows_log2;
+    i = 0;
+    for (int start = 0; start < sb_rows; start += th) {
+      if (i >= 64) bad("tile rows");
+      h.mi_row_starts[i++] = start << sb_shift;
+    }
+    h.mi_row_starts[i] = h.mi_rows;
+    h.tile_rows = i;
+  } else {
+    int widest = 0, start = 0, i = 0;
+    for (; start < sb_cols; ++i) {
+      if (i >= 64) bad("tile columns");
+      h.mi_col_starts[i] = start << sb_shift;
+      int maxw = std::min(sb_cols - start, max_tile_w_sb);
+      int size = b.ns(maxw) + 1;
+      widest = std::max(size, widest);
+      start += size;
+    }
+    h.mi_col_starts[i] = h.mi_cols;
+    h.tile_cols = i;
+    h.tile_cols_log2 = tile_log2(1, h.tile_cols);
+    int area = min_log2_tiles > 0 ? (sb_rows * sb_cols) >> (min_log2_tiles + 1)
+                                  : sb_rows * sb_cols;
+    int max_th = std::max(area / widest, 1);
+    start = 0;
+    i = 0;
+    for (; start < sb_rows; ++i) {
+      if (i >= 64) bad("tile rows");
+      h.mi_row_starts[i] = start << sb_shift;
+      int maxh = std::min(sb_rows - start, max_th);
+      start += b.ns(maxh) + 1;
+    }
+    h.mi_row_starts[i] = h.mi_rows;
+    h.tile_rows = i;
+    h.tile_rows_log2 = tile_log2(1, h.tile_rows);
+  }
+  if (h.tile_cols_log2 > 0 || h.tile_rows_log2 > 0) {
+    b.f(h.tile_rows_log2 + h.tile_cols_log2);  // context_update_tile_id
+    h.tile_size_bytes = b.f(2) + 1;
+  }
+  // quantization_params
+  int planes = s.mono ? 1 : 3;
+  h.base_q_idx = b.f(8);
+  auto read_delta_q = [&]() { return b.f(1) ? b.su(7) : 0; };
+  h.dq_ydc = read_delta_q();
+  if (planes > 1) {
+    int diff_uv = s.separate_uv_delta_q ? (int)b.f(1) : 0;
+    h.dq_udc = read_delta_q();
+    h.dq_uac = read_delta_q();
+    if (diff_uv) {
+      h.dq_vdc = read_delta_q();
+      h.dq_vac = read_delta_q();
+    } else {
+      h.dq_vdc = h.dq_udc;
+      h.dq_vac = h.dq_uac;
+    }
+  }
+  if (b.f(1)) not_ported("quantizer matrices");
+  // segmentation_params
+  h.seg_enabled = b.f(1);
+  if (h.seg_enabled) {
+    for (int i = 0; i < 8; ++i)
+      for (int j = 0; j < SEG_LVL_MAX; ++j) {
+        int v = 0;
+        h.feature_enabled[i][j] = b.f(1);
+        if (h.feature_enabled[i][j]) {
+          int bits = kSegFeatureBits[j], lim = kSegFeatureMax[j];
+          if (kSegFeatureSigned[j])
+            v = clip3(-lim, lim, b.su(1 + bits));
+          else
+            v = clip3(0, lim, (int)b.f(bits));
+        }
+        h.feature_data[i][j] = v;
+      }
+    for (int i = 0; i < 8; ++i)
+      for (int j = 0; j < SEG_LVL_MAX; ++j)
+        if (h.feature_enabled[i][j]) {
+          h.last_active_seg = i;
+          if (j >= SEG_LVL_REF_FRAME) h.seg_preskip = 1;
+        }
+  }
+  // delta_q_params, delta_lf_params
+  if (h.base_q_idx > 0) h.delta_q_present = b.f(1);
+  if (h.delta_q_present) {
+    h.delta_q_res = b.f(2);
+    h.delta_lf_present = b.f(1);  // allow_intrabc is 0 here
+    if (h.delta_lf_present) {
+      h.delta_lf_res = b.f(2);
+      h.delta_lf_multi = b.f(1);
+    }
+  }
+  h.coded_lossless = 1;
+  for (int sid = 0; sid < 8; ++sid) {
+    int q = h.base_q_idx;
+    if (h.seg_enabled && h.feature_enabled[sid][SEG_LVL_ALT_Q])
+      q = clip3(0, 255, q + h.feature_data[sid][SEG_LVL_ALT_Q]);
+    h.lossless[sid] = q == 0 && !h.dq_ydc && !h.dq_uac && !h.dq_udc &&
+                      !h.dq_vac && !h.dq_vdc;
+    if (!h.lossless[sid]) h.coded_lossless = 0;
+  }
+  h.all_lossless = h.coded_lossless;  // no superres
+  // loop_filter_params
+  if (!h.coded_lossless) {
+    h.lf_level[0] = b.f(6);
+    h.lf_level[1] = b.f(6);
+    if (planes > 1 && (h.lf_level[0] || h.lf_level[1])) {
+      h.lf_level[2] = b.f(6);
+      h.lf_level[3] = b.f(6);
+    }
+    h.lf_sharpness = b.f(3);
+    h.lf_delta_enabled = b.f(1);
+    if (h.lf_delta_enabled && b.f(1)) {
+      for (int i = 0; i < 8; ++i)
+        if (b.f(1)) h.lf_ref_deltas[i] = b.su(7);
+      for (int i = 0; i < 2; ++i)
+        if (b.f(1)) h.lf_mode_deltas[i] = b.su(7);
+    }
+  }
+  // cdef_params
+  if (!h.coded_lossless && s.cdef) {
+    h.cdef_on = 1;
+    h.cdef_damping = b.f(2) + 3;
+    h.cdef_bits = b.f(2);
+    for (int i = 0; i < (1 << h.cdef_bits); ++i) {
+      h.cdef_y_pri[i] = b.f(4);
+      h.cdef_y_sec[i] = b.f(2);
+      if (h.cdef_y_sec[i] == 3) h.cdef_y_sec[i] = 4;
+      if (planes > 1) {
+        h.cdef_uv_pri[i] = b.f(4);
+        h.cdef_uv_sec[i] = b.f(2);
+        if (h.cdef_uv_sec[i] == 3) h.cdef_uv_sec[i] = 4;
+      }
+    }
+  }
+  // lr_params
+  if (!h.all_lossless && s.restoration) {
+    static const int remap[4] = {RESTORE_NONE, RESTORE_SWITCHABLE,
+                                 RESTORE_WIENER, RESTORE_SGRPROJ};
+    int chroma_lr = 0;
+    for (int i = 0; i < planes; ++i) {
+      h.lr_type[i] = remap[b.f(2)];
+      if (h.lr_type[i] != RESTORE_NONE) {
+        h.uses_lr = 1;
+        if (i > 0) chroma_lr = 1;
+      }
+    }
+    if (h.uses_lr) {
+      int shift;
+      if (s.sb128) {
+        shift = b.f(1) + 1;
+      } else {
+        shift = b.f(1);
+        if (shift) shift += b.f(1);
+      }
+      h.lr_size[0] = 256 >> (2 - shift);
+      int uv_shift = (s.ssx && s.ssy && chroma_lr) ? (int)b.f(1) : 0;
+      h.lr_size[1] = h.lr_size[2] = h.lr_size[0] >> uv_shift;
+    }
+  }
+  // read_tx_mode
+  if (h.coded_lossless)
+    h.tx_mode = TX_MODE_ONLY_4X4;
+  else
+    h.tx_mode = b.f(1) ? TX_MODE_SELECT : TX_MODE_LARGEST;
+  // reference_select, skip_mode, warped motion: none for intra frames
+  h.reduced_tx_set = b.f(1);
+  // global motion: none for intra frames
+  if (s.film_grain && (h.show_frame || h.showable) && b.f(1))
+    not_ported("film grain");
+}
+
+// ---------------------------------------------------------------------------
+// Symbol decoder (spec 8.2), in libaom's windowed form
+
+struct Msac {
+  const uint8_t* bptr;
+  const uint8_t* end;
+  uint64_t dif;
+  uint32_t rng;
+  int cnt;
+  int allow_update;
+
+  void refill() {
+    int s = 64 - 9 - (cnt + 15);
+    for (; s >= 0 && bptr < end; s -= 8, ++bptr) {
+      dif ^= (uint64_t)bptr[0] << s;
+      cnt += 8;
+    }
+    if (bptr >= end) cnt = 0x4000;
+  }
+  void init(const uint8_t* p, size_t n, int disable_update) {
+    bptr = p;
+    end = p + n;
+    dif = ((uint64_t)1 << 63) - 1;
+    rng = 0x8000;
+    cnt = -15;
+    allow_update = !disable_update;
+    refill();
+  }
+  int normalize(uint64_t d, uint32_t r, int ret) {
+    int sh = 15 - floor_log2(r);
+    cnt -= sh;
+    dif = ((d + 1) << sh) - 1;
+    rng = r << sh;
+    if (cnt < 0) refill();
+    return ret;
+  }
+  // a symbol of an N-symbol icdf, no adaptation
+  int decode(const uint16_t* icdf, int N) {
+    uint32_t c = (uint32_t)(dif >> 48);
+    uint32_t u, v = rng;
+    int ret = -1;
+    do {
+      u = v;
+      ++ret;
+      v = ((rng >> 8) * (uint32_t)(icdf[ret] >> 6) >> 1) + 4 * (N - 1 - ret);
+    } while (c < v);
+    return normalize(dif - ((uint64_t)v << 48), u - v, ret);
+  }
+  int symbol(uint16_t* cdf, int N) {
+    int v = decode(cdf, N);
+    if (allow_update) {
+      int count = cdf[N];
+      int rate = 3 + (count > 15) + (count > 31) + (N > 3 ? 2 : 1);
+      for (int i = 0; i < N - 1; ++i) {
+        if (i < v)
+          cdf[i] = (uint16_t)(cdf[i] + ((32768 - cdf[i]) >> rate));
+        else
+          cdf[i] = (uint16_t)(cdf[i] - (cdf[i] >> rate));
+      }
+      cdf[N] = (uint16_t)(count + (count < 32));
+    }
+    return v;
+  }
+  int bool_equi() {
+    static const uint16_t half[2] = {16384, 0};
+    return decode(half, 2);
+  }
+  int literal(int n) {
+    int x = 0;
+    for (int i = 0; i < n; ++i) x = 2 * x + bool_equi();
+    return x;
+  }
+  int ns(int n) {
+    int w = floor_log2((uint32_t)n) + 1;
+    int m = (1 << w) - n;
+    int v = literal(w - 1);
+    if (v < m) return v;
+    return (v << 1) - m + literal(1);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Inverse transforms (spec 7.13.2), int64 throughout
+
+inline int64_t cos128(int angle) {
+  int a = angle & 255;
+  if (a <= 64) return g_cos128[a];
+  if (a <= 128) return -g_cos128[128 - a];
+  if (a <= 192) return -g_cos128[a - 128];
+  return g_cos128[256 - a];
+}
+inline int64_t sin128(int angle) { return cos128(angle - 64); }
+
+inline void B(int64_t* T, int a, int b, int angle, int flip) {
+  int64_t x = T[a] * cos128(angle) - T[b] * sin128(angle);
+  int64_t y = T[a] * sin128(angle) + T[b] * cos128(angle);
+  T[a] = round2l(x, 12);
+  T[b] = round2l(y, 12);
+  if (flip) std::swap(T[a], T[b]);
+}
+inline void H(int64_t* T, int a, int b, int flip) {
+  if (flip) std::swap(a, b);
+  int64_t x = T[a], y = T[b];
+  T[a] = x + y;
+  T[b] = x - y;
+}
+inline int brev(int bits, int x) {
+  int r = 0;
+  for (int i = 0; i < bits; ++i) r |= ((x >> i) & 1) << (bits - 1 - i);
+  return r;
+}
+
+void idct(int64_t* T, int n) {
+  int n0 = 1 << n;
+  int64_t copy[64];
+  memcpy(copy, T, n0 * sizeof(int64_t));
+  for (int i = 0; i < n0; ++i) T[i] = copy[brev(n, i)];
+  if (n == 6)
+    for (int i = 0; i < 16; ++i) B(T, 32 + i, 63 - i, 63 - 4 * brev(4, i), 0);
+  if (n >= 5)
+    for (int i = 0; i < 8; ++i)
+      B(T, 16 + i, 31 - i, 6 + (brev(3, 7 - i) << 3), 0);
+  if (n == 6)
+    for (int i = 0; i < 16; ++i) H(T, 32 + i * 2, 33 + i * 2, i & 1);
+  if (n >= 4)
+    for (int i = 0; i < 4; ++i)
+      B(T, 8 + i, 15 - i, 12 + (brev(2, 3 - i) << 4), 0);
+  if (n >= 5)
+    for (int i = 0; i < 8; ++i) H(T, 16 + 2 * i, 17 + 2 * i, i & 1);
+  if (n == 6)
+    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < 2; ++j)
+        B(T, 62 - i * 4 - j, 33 + i * 4 + j,
+          60 - 16 * brev(2, i) + 64 * j, 1);
+  if (n >= 3)
+    for (int i = 0; i < 2; ++i) B(T, 4 + i, 7 - i, 56 - 32 * i, 0);
+  if (n >= 4)
+    for (int i = 0; i < 4; ++i) H(T, 8 + 2 * i, 9 + 2 * i, i & 1);
+  if (n >= 5)
+    for (int i = 0; i < 2; ++i)
+      for (int j = 0; j < 2; ++j)
+        B(T, 30 - 4 * i - j, 17 + 4 * i + j,
+          24 + (j << 6) + ((1 - i) << 5), 1);
+  if (n == 6)
+    for (int i = 0; i < 8; ++i)
+      for (int j = 0; j < 2; ++j) H(T, 32 + i * 4 + j, 35 + i * 4 - j, i & 1);
+  for (int i = 0; i < 2; ++i) B(T, 2 * i, 2 * i + 1, 32 + 16 * i, 1 - i);
+  if (n >= 3)
+    for (int i = 0; i < 2; ++i) H(T, 4 + 2 * i, 5 + 2 * i, i);
+  if (n >= 4)
+    for (int i = 0; i < 2; ++i) B(T, 14 - i, 9 + i, 48 + 64 * i, 1);
+  if (n >= 5)
+    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < 2; ++j) H(T, 16 + 4 * i + j, 19 + 4 * i - j, i & 1);
+  if (n == 6)
+    for (int i = 0; i < 2; ++i)
+      for (int j = 0; j < 4; ++j)
+        B(T, 61 - i * 8 - j, 34 + i * 8 + j, 56 - i * 32 + (j >> 1) * 64, 1);
+  for (int i = 0; i < 2; ++i) H(T, i, 3 - i, 0);
+  if (n >= 3) B(T, 6, 5, 32, 1);
+  if (n >= 4)
+    for (int i = 0; i < 2; ++i)
+      for (int j = 0; j < 2; ++j) H(T, 8 + 4 * i + j, 11 + 4 * i - j, i);
+  if (n >= 5)
+    for (int i = 0; i < 4; ++i) B(T, 29 - i, 18 + i, 48 + (i >> 1) * 64, 1);
+  if (n == 6)
+    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < 4; ++j) H(T, 32 + 8 * i + j, 39 + 8 * i - j, i & 1);
+  if (n >= 3)
+    for (int i = 0; i < 4; ++i) H(T, i, 7 - i, 0);
+  if (n >= 4)
+    for (int i = 0; i < 2; ++i) B(T, 13 - i, 10 + i, 32, 1);
+  if (n >= 5)
+    for (int i = 0; i < 2; ++i)
+      for (int j = 0; j < 4; ++j) H(T, 16 + i * 8 + j, 23 + i * 8 - j, i);
+  if (n == 6)
+    for (int i = 0; i < 8; ++i) B(T, 59 - i, 36 + i, i < 4 ? 48 : 112, 1);
+  if (n >= 4)
+    for (int i = 0; i < 8; ++i) H(T, i, 15 - i, 0);
+  if (n >= 5)
+    for (int i = 0; i < 4; ++i) B(T, 27 - i, 20 + i, 32, 1);
+  if (n == 6) {
+    for (int i = 0; i < 8; ++i) H(T, 32 + i, 47 - i, 0);
+    for (int i = 0; i < 8; ++i) H(T, 48 + i, 63 - i, 1);
+  }
+  if (n >= 5)
+    for (int i = 0; i < 16; ++i) H(T, i, 31 - i, 0);
+  if (n == 6)
+    for (int i = 0; i < 8; ++i) B(T, 55 - i, 40 + i, 32, 1);
+  if (n == 6)
+    for (int i = 0; i < 32; ++i) H(T, i, 63 - i, 0);
+}
+
+inline int64_t hbtf(int w0, int64_t x0, int w1, int64_t x1) {
+  return round2l((int64_t)w0 * x0 + (int64_t)w1 * x1, 12);
+}
+
+void iadst4(int64_t* T) {
+  static const int64_t S1 = 1321, S2 = 2482, S3 = 3344, S4 = 3803;
+  int64_t s0 = S1 * T[0], s1 = S2 * T[0], s2 = S3 * T[1], s3 = S4 * T[2];
+  int64_t s4 = S1 * T[2], s5 = S2 * T[3], s6 = S4 * T[3];
+  int64_t a7 = T[0] - T[2];
+  int64_t b7 = a7 + T[3];
+  s0 = s0 + s3;
+  s1 = s1 - s4;
+  s3 = s2;
+  s2 = S3 * b7;
+  s0 = s0 + s5;
+  s1 = s1 - s6;
+  int64_t x0 = s0 + s3, x1 = s1 + s3, x2 = s2, x3 = s0 + s1;
+  x3 = x3 - s3;
+  T[0] = round2l(x0, 12);
+  T[1] = round2l(x1, 12);
+  T[2] = round2l(x2, 12);
+  T[3] = round2l(x3, 12);
+}
+
+void iadst8(int64_t* T) {
+  const int* c = g_cos128;
+  int64_t b[8], a[8];
+  b[0] = T[7]; b[1] = T[0]; b[2] = T[5]; b[3] = T[2];
+  b[4] = T[3]; b[5] = T[4]; b[6] = T[1]; b[7] = T[6];
+  a[0] = hbtf(c[4], b[0], c[60], b[1]);
+  a[1] = hbtf(c[60], b[0], -c[4], b[1]);
+  a[2] = hbtf(c[20], b[2], c[44], b[3]);
+  a[3] = hbtf(c[44], b[2], -c[20], b[3]);
+  a[4] = hbtf(c[36], b[4], c[28], b[5]);
+  a[5] = hbtf(c[28], b[4], -c[36], b[5]);
+  a[6] = hbtf(c[52], b[6], c[12], b[7]);
+  a[7] = hbtf(c[12], b[6], -c[52], b[7]);
+  for (int i = 0; i < 4; ++i) {
+    b[i] = a[i] + a[i + 4];
+    b[i + 4] = a[i] - a[i + 4];
+  }
+  a[0] = b[0]; a[1] = b[1]; a[2] = b[2]; a[3] = b[3];
+  a[4] = hbtf(c[16], b[4], c[48], b[5]);
+  a[5] = hbtf(c[48], b[4], -c[16], b[5]);
+  a[6] = hbtf(-c[48], b[6], c[16], b[7]);
+  a[7] = hbtf(c[16], b[6], c[48], b[7]);
+  b[0] = a[0] + a[2]; b[1] = a[1] + a[3]; b[2] = a[0] - a[2];
+  b[3] = a[1] - a[3]; b[4] = a[4] + a[6]; b[5] = a[5] + a[7];
+  b[6] = a[4] - a[6]; b[7] = a[5] - a[7];
+  a[0] = b[0]; a[1] = b[1]; a[4] = b[4]; a[5] = b[5];
+  a[2] = hbtf(c[32], b[2], c[32], b[3]);
+  a[3] = hbtf(c[32], b[2], -c[32], b[3]);
+  a[6] = hbtf(c[32], b[6], c[32], b[7]);
+  a[7] = hbtf(c[32], b[6], -c[32], b[7]);
+  T[0] = a[0]; T[1] = -a[4]; T[2] = a[6]; T[3] = -a[2];
+  T[4] = a[3]; T[5] = -a[7]; T[6] = a[5]; T[7] = -a[1];
+}
+
+void iadst16(int64_t* T) {
+  const int* c = g_cos128;
+  int64_t b[16], a[16];
+  static const int in_idx[16] = {15, 0, 13, 2, 11, 4, 9, 6,
+                                 7, 8, 5, 10, 3, 12, 1, 14};
+  for (int i = 0; i < 16; ++i) b[i] = T[in_idx[i]];
+  static const int ang[8] = {2, 10, 18, 26, 34, 42, 50, 58};
+  for (int i = 0; i < 8; ++i) {
+    int k = ang[i];
+    a[2 * i] = hbtf(c[k], b[2 * i], c[64 - k], b[2 * i + 1]);
+    a[2 * i + 1] = hbtf(c[64 - k], b[2 * i], -c[k], b[2 * i + 1]);
+  }
+  for (int i = 0; i < 8; ++i) {
+    b[i] = a[i] + a[i + 8];
+    b[i + 8] = a[i] - a[i + 8];
+  }
+  for (int i = 0; i < 8; ++i) a[i] = b[i];
+  a[8] = hbtf(c[8], b[8], c[56], b[9]);
+  a[9] = hbtf(c[56], b[8], -c[8], b[9]);
+  a[10] = hbtf(c[40], b[10], c[24], b[11]);
+  a[11] = hbtf(c[24], b[10], -c[40], b[11]);
+  a[12] = hbtf(-c[56], b[12], c[8], b[13]);
+  a[13] = hbtf(c[8], b[12], c[56], b[13]);
+  a[14] = hbtf(-c[24], b[14], c[40], b[15]);
+  a[15] = hbtf(c[40], b[14], c[24], b[15]);
+  for (int g = 0; g < 16; g += 8)
+    for (int i = 0; i < 4; ++i) {
+      b[g + i] = a[g + i] + a[g + i + 4];
+      b[g + i + 4] = a[g + i] - a[g + i + 4];
+    }
+  for (int g = 0; g < 16; g += 8) {
+    a[g + 0] = b[g + 0]; a[g + 1] = b[g + 1];
+    a[g + 2] = b[g + 2]; a[g + 3] = b[g + 3];
+    a[g + 4] = hbtf(c[16], b[g + 4], c[48], b[g + 5]);
+    a[g + 5] = hbtf(c[48], b[g + 4], -c[16], b[g + 5]);
+    a[g + 6] = hbtf(-c[48], b[g + 6], c[16], b[g + 7]);
+    a[g + 7] = hbtf(c[16], b[g + 6], c[48], b[g + 7]);
+  }
+  for (int g = 0; g < 16; g += 4) {
+    b[g + 0] = a[g + 0] + a[g + 2];
+    b[g + 1] = a[g + 1] + a[g + 3];
+    b[g + 2] = a[g + 0] - a[g + 2];
+    b[g + 3] = a[g + 1] - a[g + 3];
+  }
+  for (int g = 0; g < 16; g += 4) {
+    a[g + 0] = b[g + 0];
+    a[g + 1] = b[g + 1];
+    a[g + 2] = hbtf(c[32], b[g + 2], c[32], b[g + 3]);
+    a[g + 3] = hbtf(c[32], b[g + 2], -c[32], b[g + 3]);
+  }
+  T[0] = a[0]; T[1] = -a[8]; T[2] = a[12]; T[3] = -a[4];
+  T[4] = a[6]; T[5] = -a[14]; T[6] = a[10]; T[7] = -a[2];
+  T[8] = a[3]; T[9] = -a[11]; T[10] = a[15]; T[11] = -a[7];
+  T[12] = a[5]; T[13] = -a[13]; T[14] = a[9]; T[15] = -a[1];
+}
+
+void iidentity(int64_t* T, int n) {
+  int n0 = 1 << n;
+  for (int i = 0; i < n0; ++i) {
+    if (n == 2) T[i] = round2l(T[i] * 5793, 12);
+    else if (n == 3) T[i] = T[i] * 2;
+    else if (n == 4) T[i] = round2l(T[i] * 11586, 12);
+    else T[i] = T[i] * 4;
+  }
+}
+
+void iwht(int64_t* T, int shift) {
+  int64_t a = T[0] >> shift, c = T[1] >> shift, d = T[2] >> shift,
+          b = T[3] >> shift;
+  a += c;
+  d -= b;
+  int64_t e = (a - d) >> 1;
+  b = e - b;
+  c = e - c;
+  a -= b;
+  d += c;
+  T[0] = a; T[1] = b; T[2] = c; T[3] = d;
+}
+
+enum { T1D_DCT, T1D_ADST, T1D_IDTX };
+
+void tx1d(int64_t* T, int kind, int n) {
+  if (kind == T1D_IDTX) return iidentity(T, n);
+  if (kind == T1D_DCT) return idct(T, n);
+  if (n == 2) return iadst4(T);
+  if (n == 3) return iadst8(T);
+  return iadst16(T);
+}
+
+// ---------------------------------------------------------------------------
+// Frame state
+
+struct Plane {
+  std::vector<uint8_t> buf;
+  int stride = 0;
+  uint8_t* row(int y) { return buf.data() + (size_t)y * stride; }
+  uint8_t& at(int x, int y) { return buf[(size_t)y * stride + x]; }
+};
+
+struct LrUnit {
+  int8_t type;
+  int8_t wiener[2][3];
+  int8_t sgr_set;
+  int16_t xqd[2];
+};
+
+struct Decoder {
+  SeqHdr seq;
+  FrameHdr fh;
+  int planes = 3, ssx = 1, ssy = 1;
+  int mi_rows = 0, mi_cols = 0;
+  // MI arrays
+  std::vector<uint8_t> mi_size, skips, tx_sizes, y_modes, uv_modes, seg_ids;
+  std::vector<int8_t> delta_lfs;  // 4 per MI
+  std::vector<uint8_t> lf_tx[3];  // per plane 4x4 unit
+  int lf_tx_stride[3] = {0, 0, 0};
+  std::vector<int8_t> cdef_idx;  // per 64x64
+  int cdef_stride = 0;
+  std::vector<LrUnit> lr[3];
+  int lr_rows[3] = {0, 0, 0}, lr_cols[3] = {0, 0, 0};
+  Plane cur[3];
+
+  uint8_t& MI(std::vector<uint8_t>& v, int r, int c) {
+    return v[(size_t)r * mi_cols + c];
+  }
+  void alloc() {
+    mi_rows = fh.mi_rows;
+    mi_cols = fh.mi_cols;
+    size_t n = (size_t)mi_rows * mi_cols;
+    mi_size.assign(n, 0);
+    skips.assign(n, 0);
+    tx_sizes.assign(n, 0);
+    y_modes.assign(n, 0);
+    uv_modes.assign(n, 0);
+    seg_ids.assign(n, 0);
+    delta_lfs.assign(n * 4, 0);
+    cdef_stride = (mi_cols + 15) >> 4;
+    cdef_idx.assign((size_t)cdef_stride * ((mi_rows + 15) >> 4), -1);
+    for (int p = 0; p < planes; ++p) {
+      int sx = p ? ssx : 0, sy = p ? ssy : 0;
+      int w = (mi_cols * 4) >> sx, hh = (mi_rows * 4) >> sy;
+      cur[p].stride = w + 160;
+      cur[p].buf.assign((size_t)cur[p].stride * (hh + 160), 0);
+      lf_tx_stride[p] = (w >> 2) + 32;
+      lf_tx[p].assign((size_t)lf_tx_stride[p] * ((hh >> 2) + 32), 0);
+    }
+  }
+};
+
+inline int count_units(int unit, int size) {
+  return std::max((size + (unit >> 1)) / unit, 1);
+}
+
+// ---------------------------------------------------------------------------
+// Tile decoding
+
+struct Tile {
+  Decoder& d;
+  const FrameHdr& fh;
+  Cdfs cdf;
+  Msac ms;
+  int mi_row_start, mi_row_end, mi_col_start, mi_col_end;
+  int current_q;
+  int delta_lf[4];
+  int ref_sgr_xqd[3][2];
+  int ref_wiener[3][2][3];
+  // entropy contexts, absolute indices in each plane's 4x4 units
+  std::vector<uint8_t> above_level[3], above_dc[3], left_level[3],
+      left_dc[3];
+  // BlockDecoded[plane][-1..32][-1..32]
+  uint8_t block_decoded[3][35][35];
+  // the current block
+  int mi_row, mi_col, mi_sz, bw4, bh4;
+  int has_chroma, avail_u, avail_l, avail_u_chroma, avail_l_chroma;
+  int skip, segment_id, lossless, read_deltas;
+  int y_mode, uv_mode, angle_delta_y, angle_delta_uv;
+  int cfl_alpha_u, cfl_alpha_v;
+  int use_filter_intra, filter_intra_mode;
+  int tx_size;
+  int max_luma_w, max_luma_h;
+  // coefficient scratch
+  int32_t quant[1024];
+  int64_t resid[64 * 64];
+
+  Tile(Decoder& dd) : d(dd), fh(dd.fh) {}
+
+  int is_inside(int r, int c) const {
+    return c >= mi_col_start && c < mi_col_end && r >= mi_row_start &&
+           r < mi_row_end;
+  }
+  uint8_t& bd(int plane, int y, int x) {
+    return block_decoded[plane][y + 1][x + 1];
+  }
+
+  // -- superblock-level --------------------------------------------------
+  void clear_block_decoded_flags(int r, int c, int sb4) {
+    for (int p = 0; p < d.planes; ++p) {
+      int sx = p ? d.ssx : 0, sy = p ? d.ssy : 0;
+      int sbw4 = (mi_col_end - c) >> sx;
+      int sbh4 = (mi_row_end - r) >> sy;
+      for (int y = -1; y <= (sb4 >> sy); ++y)
+        for (int x = -1; x <= (sb4 >> sx); ++x) {
+          if (y < 0 && x < sbw4)
+            bd(p, y, x) = 1;
+          else if (x < 0 && y < sbh4)
+            bd(p, y, x) = 1;
+          else
+            bd(p, y, x) = 0;
+        }
+      bd(p, sb4 >> sy, -1) = 0;
+    }
+  }
+
+  int decode_signed_subexp_with_ref(int low, int high, int k, int r) {
+    int x = decode_unsigned_subexp_with_ref(high - low, k, r - low);
+    return x + low;
+  }
+  int decode_unsigned_subexp_with_ref(int mx, int k, int r) {
+    int v = decode_subexp(mx, k);
+    if ((r << 1) <= mx) return inverse_recenter(r, v);
+    return mx - 1 - inverse_recenter(mx - 1 - r, v);
+  }
+  int decode_subexp(int num_syms, int k) {
+    int i = 0, mk = 0;
+    while (true) {
+      int b2 = i ? k + i - 1 : k;
+      int a = 1 << b2;
+      if (num_syms <= mk + 3 * a) return ms.ns(num_syms - mk) + mk;
+      if (ms.literal(1)) {
+        ++i;
+        mk += a;
+      } else {
+        return ms.literal(b2) + mk;
+      }
+    }
+  }
+  static int inverse_recenter(int r, int v) {
+    if (v > 2 * r) return v;
+    if (v & 1) return r - ((v + 1) >> 1);
+    return r + (v >> 1);
+  }
+
+  void read_lr_unit(int plane, int unit_row, int unit_col) {
+    LrUnit& u = d.lr[plane][(size_t)unit_row * d.lr_cols[plane] + unit_col];
+    int t = fh.lr_type[plane];
+    int rtype;
+    if (t == RESTORE_WIENER)
+      rtype = ms.symbol(cdf.wiener_restore, 2) ? RESTORE_WIENER : RESTORE_NONE;
+    else if (t == RESTORE_SGRPROJ)
+      rtype = ms.symbol(cdf.sgrproj_restore, 2) ? RESTORE_SGRPROJ
+                                                : RESTORE_NONE;
+    else
+      rtype = ms.symbol(cdf.switchable_restore, 3);
+    u.type = (int8_t)rtype;
+    if (rtype == RESTORE_WIENER) {
+      for (int pass = 0; pass < 2; ++pass) {
+        int first = 0;
+        if (plane) {
+          first = 1;
+          u.wiener[pass][0] = 0;
+        }
+        for (int j = first; j < 3; ++j) {
+          int v = decode_signed_subexp_with_ref(
+              kWienerTapsMin[j], kWienerTapsMax[j] + 1, kWienerTapsK[j],
+              ref_wiener[plane][pass][j]);
+          u.wiener[pass][j] = (int8_t)v;
+          ref_wiener[plane][pass][j] = v;
+        }
+      }
+    } else if (rtype == RESTORE_SGRPROJ) {
+      int set = ms.literal(4);
+      u.sgr_set = (int8_t)set;
+      for (int i = 0; i < 2; ++i) {
+        int radius = g_tab.sgr[set][i * 2];
+        int mn = kSgrprojXqdMin[i], mx = kSgrprojXqdMax[i];
+        int v;
+        if (radius) {
+          v = decode_signed_subexp_with_ref(mn, mx + 1, 4,
+                                            ref_sgr_xqd[plane][i]);
+        } else {
+          v = 0;
+          if (i == 1) v = clip3(mn, mx, 128 - ref_sgr_xqd[plane][0]);
+        }
+        u.xqd[i] = (int16_t)v;
+        ref_sgr_xqd[plane][i] = v;
+      }
+    }
+  }
+
+  void read_lr(int r, int c, int bsize) {
+    int w = kNum4x4W[bsize], h = kNum4x4H[bsize];
+    for (int p = 0; p < d.planes; ++p) {
+      if (fh.lr_type[p] == RESTORE_NONE) continue;
+      int sx = p ? d.ssx : 0, sy = p ? d.ssy : 0;
+      int unit = fh.lr_size[p];
+      int rows = d.lr_rows[p], cols = d.lr_cols[p];
+      int row_start = (r * (4 >> sy) + unit - 1) / unit;
+      int row_end = std::min(rows, ((r + h) * (4 >> sy) + unit - 1) / unit);
+      int num = 4 >> sx;
+      int col_start = (c * num + unit - 1) / unit;
+      int col_end = std::min(cols, ((c + w) * num + unit - 1) / unit);
+      for (int ur = row_start; ur < row_end; ++ur)
+        for (int uc = col_start; uc < col_end; ++uc) read_lr_unit(p, ur, uc);
+    }
+  }
+
+  void decode() {
+    const int planes = d.planes;
+    for (int p = 0; p < planes; ++p) {
+      int sx = p ? d.ssx : 0, sy = p ? d.ssy : 0;
+      size_t wc = ((size_t)d.mi_cols >> sx) + 40;
+      size_t hc = ((size_t)d.mi_rows >> sy) + 40;
+      above_level[p].assign(wc, 0);
+      above_dc[p].assign(wc, 0);
+      left_level[p].assign(hc, 0);
+      left_dc[p].assign(hc, 0);
+    }
+    for (int i = 0; i < 4; ++i) delta_lf[i] = 0;
+    for (int p = 0; p < planes; ++p) {
+      ref_sgr_xqd[p][0] = -32;
+      ref_sgr_xqd[p][1] = 31;
+      for (int pass = 0; pass < 2; ++pass) {
+        ref_wiener[p][pass][0] = 3;
+        ref_wiener[p][pass][1] = -7;
+        ref_wiener[p][pass][2] = 15;
+      }
+    }
+    int sb_size = d.seq.sb128 ? BLOCK_128X128 : BLOCK_64X64;
+    int sb4 = kNum4x4W[sb_size];
+    for (int r = mi_row_start; r < mi_row_end; r += sb4) {
+      for (int p = 0; p < planes; ++p) {
+        std::fill(left_level[p].begin(), left_level[p].end(), 0);
+        std::fill(left_dc[p].begin(), left_dc[p].end(), 0);
+      }
+      for (int c = mi_col_start; c < mi_col_end; c += sb4) {
+        read_deltas = fh.delta_q_present;
+        // clear_cdef
+        int cr = r >> 4, cc = c >> 4;
+        d.cdef_idx[(size_t)cr * d.cdef_stride + cc] = -1;
+        if (d.seq.sb128) {
+          if (cc + 1 < d.cdef_stride)
+            d.cdef_idx[(size_t)cr * d.cdef_stride + cc + 1] = -1;
+          if ((size_t)(cr + 1) * d.cdef_stride < d.cdef_idx.size()) {
+            d.cdef_idx[(size_t)(cr + 1) * d.cdef_stride + cc] = -1;
+            if (cc + 1 < d.cdef_stride)
+              d.cdef_idx[(size_t)(cr + 1) * d.cdef_stride + cc + 1] = -1;
+          }
+        }
+        clear_block_decoded_flags(r, c, sb4);
+        read_lr(r, c, sb_size);
+        decode_partition(r, c, sb_size);
+      }
+    }
+  }
+
+  // -- partitions ----------------------------------------------------------
+  void decode_partition(int r, int c, int bsize) {
+    if (r >= d.mi_rows || c >= d.mi_cols) return;
+    int avail_u = is_inside(r - 1, c), avail_l = is_inside(r, c - 1);
+    int num4x4 = kNum4x4W[bsize];
+    int half = num4x4 >> 1, quarter = half >> 1;
+    int has_rows = (r + half) < d.mi_rows;
+    int has_cols = (c + half) < d.mi_cols;
+    int partition;
+    if (bsize < BLOCK_8X8) {
+      partition = PARTITION_NONE;
+    } else {
+      int bsl = kMiWLog2[bsize];
+      int above = avail_u && kMiWLog2[d.MI(d.mi_size, r - 1, c)] < bsl;
+      int left = avail_l && kMiHLog2[d.MI(d.mi_size, r, c - 1)] < bsl;
+      int ctx = left * 2 + above;
+      int cls = bsize == BLOCK_8X8     ? 0
+                : bsize == BLOCK_16X16 ? 1
+                : bsize == BLOCK_32X32 ? 2
+                : bsize == BLOCK_64X64 ? 3
+                                       : 4;
+      uint16_t* pcdf = cdf.partition[cls * 4 + ctx];
+      int nsym = cls == 0 ? 4 : cls == 4 ? 8 : 10;
+      auto prob = [&](int e) {
+        return (e > 0 ? pcdf[e - 1] : 32768) - pcdf[e];
+      };
+      if (has_rows && has_cols) {
+        partition = ms.symbol(pcdf, nsym);
+      } else if (has_cols) {
+        int psum = prob(PARTITION_VERT) + prob(PARTITION_SPLIT);
+        if (bsize != BLOCK_8X8)
+          psum += prob(PARTITION_HORZ_A) + prob(PARTITION_VERT_A) +
+                  prob(PARTITION_VERT_B);
+        if (bsize != BLOCK_8X8 && bsize != BLOCK_128X128)
+          psum += prob(PARTITION_VERT_4);
+        uint16_t bcdf[2] = {(uint16_t)psum, 0};
+        partition = ms.decode(bcdf, 2) ? PARTITION_SPLIT : PARTITION_HORZ;
+      } else if (has_rows) {
+        int psum = prob(PARTITION_HORZ) + prob(PARTITION_SPLIT);
+        if (bsize != BLOCK_8X8)
+          psum += prob(PARTITION_HORZ_A) + prob(PARTITION_HORZ_B) +
+                  prob(PARTITION_VERT_A);
+        if (bsize != BLOCK_8X8 && bsize != BLOCK_128X128)
+          psum += prob(PARTITION_HORZ_4);
+        uint16_t bcdf[2] = {(uint16_t)psum, 0};
+        partition = ms.decode(bcdf, 2) ? PARTITION_SPLIT : PARTITION_VERT;
+      } else {
+        partition = PARTITION_SPLIT;
+      }
+    }
+    int sub = kSubsize[partition][bsize];
+    int split = kSubsize[PARTITION_SPLIT][bsize];
+    if (sub == BLOCK_INVALID) bad("partition");
+    switch (partition) {
+      case PARTITION_NONE:
+        decode_block(r, c, sub);
+        break;
+      case PARTITION_HORZ:
+        decode_block(r, c, sub);
+        if (has_rows) decode_block(r + half, c, sub);
+        break;
+      case PARTITION_VERT:
+        decode_block(r, c, sub);
+        if (has_cols) decode_block(r, c + half, sub);
+        break;
+      case PARTITION_SPLIT:
+        decode_partition(r, c, sub);
+        decode_partition(r, c + half, sub);
+        decode_partition(r + half, c, sub);
+        decode_partition(r + half, c + half, sub);
+        break;
+      case PARTITION_HORZ_A:
+        decode_block(r, c, split);
+        decode_block(r, c + half, split);
+        decode_block(r + half, c, sub);
+        break;
+      case PARTITION_HORZ_B:
+        decode_block(r, c, sub);
+        decode_block(r + half, c, split);
+        decode_block(r + half, c + half, split);
+        break;
+      case PARTITION_VERT_A:
+        decode_block(r, c, split);
+        decode_block(r + half, c, split);
+        decode_block(r, c + half, sub);
+        break;
+      case PARTITION_VERT_B:
+        decode_block(r, c, sub);
+        decode_block(r, c + half, split);
+        decode_block(r + half, c + half, split);
+        break;
+      case PARTITION_HORZ_4:
+        for (int i = 0; i < 4; ++i)
+          if (i < 3 || r + quarter * 3 < d.mi_rows)
+            decode_block(r + quarter * i, c, sub);
+        break;
+      case PARTITION_VERT_4:
+        for (int i = 0; i < 4; ++i)
+          if (i < 3 || c + quarter * 3 < d.mi_cols)
+            decode_block(r, c + quarter * i, sub);
+        break;
+    }
+  }
+
+  // -- mode info -----------------------------------------------------------
+  int seg_feature_active(int feature) const {
+    return fh.seg_enabled && fh.feature_enabled[segment_id][feature];
+  }
+  int get_qindex(int ignore_delta_q) const {
+    if (seg_feature_active(SEG_LVL_ALT_Q)) {
+      int data = fh.feature_data[segment_id][SEG_LVL_ALT_Q];
+      int q = fh.base_q_idx + data;
+      if (!ignore_delta_q && fh.delta_q_present) q = current_q + data;
+      return clip3(0, 255, q);
+    }
+    if (!ignore_delta_q && fh.delta_q_present) return current_q;
+    return fh.base_q_idx;
+  }
+
+  void read_segment_id() {
+    int prev_ul = -1, prev_u = -1, prev_l = -1;
+    if (avail_u && avail_l)
+      prev_ul = d.MI(d.seg_ids, mi_row - 1, mi_col - 1);
+    if (avail_u) prev_u = d.MI(d.seg_ids, mi_row - 1, mi_col);
+    if (avail_l) prev_l = d.MI(d.seg_ids, mi_row, mi_col - 1);
+    int ctx;
+    if (prev_ul < 0)
+      ctx = 0;
+    else if (prev_ul == prev_u && prev_ul == prev_l)
+      ctx = 2;
+    else if (prev_ul == prev_u || prev_ul == prev_l || prev_u == prev_l)
+      ctx = 1;
+    else
+      ctx = 0;
+    int pred;
+    if (prev_u == -1)
+      pred = prev_l == -1 ? 0 : prev_l;
+    else if (prev_l == -1)
+      pred = prev_u;
+    else
+      pred = prev_ul == prev_u ? prev_u : prev_l;
+    if (skip) {
+      segment_id = pred;
+      return;
+    }
+    int v = ms.symbol(cdf.segment_id[ctx], 8);
+    int mx = fh.last_active_seg + 1;
+    // neg_deinterleave
+    int out;
+    if (!pred)
+      out = v;
+    else if (pred >= mx - 1)
+      out = mx - v - 1;
+    else if (2 * pred < mx) {
+      if (v <= 2 * pred)
+        out = (v & 1) ? pred + ((v + 1) >> 1) : pred - (v >> 1);
+      else
+        out = v;
+    } else {
+      if (v <= 2 * (mx - pred - 1))
+        out = (v & 1) ? pred + ((v + 1) >> 1) : pred - (v >> 1);
+      else
+        out = mx - (v + 1);
+    }
+    segment_id = clip3(0, fh.last_active_seg, out);
+  }
+
+  void intra_segment_id() {
+    if (fh.seg_enabled)
+      read_segment_id();
+    else
+      segment_id = 0;
+    lossless = fh.lossless[segment_id];
+  }
+
+  void read_cdef() {
+    if (skip || fh.coded_lossless || !d.seq.cdef) return;
+    int r = mi_row & ~15, c = mi_col & ~15;
+    int8_t& idx = d.cdef_idx[(size_t)(r >> 4) * d.cdef_stride + (c >> 4)];
+    if (idx == -1) {
+      idx = (int8_t)ms.literal(fh.cdef_bits);
+      int w4 = kNum4x4W[mi_sz], h4 = kNum4x4H[mi_sz];
+      for (int y = r; y < r + h4; y += 16)
+        for (int x = c; x < c + w4; x += 16)
+          if ((y >> 4) < ((d.mi_rows + 15) >> 4) && (x >> 4) < d.cdef_stride)
+            d.cdef_idx[(size_t)(y >> 4) * d.cdef_stride + (x >> 4)] = idx;
+    }
+  }
+
+  void read_delta_qindex() {
+    int sb_size = d.seq.sb128 ? BLOCK_128X128 : BLOCK_64X64;
+    if (mi_sz == sb_size && skip) return;
+    if (read_deltas) {
+      int abs = ms.symbol(cdf.delta_q, 4);
+      if (abs == 3) {
+        int rem = ms.literal(3) + 1;
+        abs = ms.literal(rem) + (1 << rem) + 1;
+      }
+      if (abs) {
+        int sign = ms.literal(1);
+        int reduced = sign ? -abs : abs;
+        current_q = clip3(1, 255, current_q + reduced * (1 << fh.delta_q_res));
+      }
+    }
+  }
+
+  void read_delta_lf() {
+    int sb_size = d.seq.sb128 ? BLOCK_128X128 : BLOCK_64X64;
+    if (mi_sz == sb_size && skip) return;
+    if (read_deltas && fh.delta_lf_present) {
+      int count = 1;
+      if (fh.delta_lf_multi) count = d.planes > 1 ? 4 : 2;
+      for (int i = 0; i < count; ++i) {
+        uint16_t* c = fh.delta_lf_multi ? cdf.delta_lf_multi[i] : cdf.delta_lf;
+        int abs = ms.symbol(c, 4);
+        if (abs == 3) {
+          int n = ms.literal(3) + 1;
+          abs = ms.literal(n) + (1 << n) + 1;
+        }
+        if (abs) {
+          int sign = ms.literal(1);
+          int reduced = sign ? -abs : abs;
+          delta_lf[i] =
+              clip3(-63, 63, delta_lf[i] + reduced * (1 << fh.delta_lf_res));
+        }
+      }
+    }
+  }
+
+  static int is_directional(int mode) {
+    return mode >= V_PRED && mode <= D67_PRED;
+  }
+
+  void intra_frame_mode_info() {
+    skip = 0;
+    if (fh.seg_preskip) intra_segment_id();
+    // read_skip
+    if (fh.seg_preskip && seg_feature_active(SEG_LVL_SKIP)) {
+      skip = 1;
+    } else {
+      int ctx = (avail_u ? d.MI(d.skips, mi_row - 1, mi_col) : 0) +
+                (avail_l ? d.MI(d.skips, mi_row, mi_col - 1) : 0);
+      skip = ms.symbol(cdf.skip[ctx], 2);
+    }
+    if (!fh.seg_preskip) intra_segment_id();
+    read_cdef();
+    read_delta_qindex();
+    read_delta_lf();
+    read_deltas = 0;
+    // intra_frame_y_mode
+    int above = avail_u ? d.MI(d.y_modes, mi_row - 1, mi_col) : DC_PRED;
+    int left = avail_l ? d.MI(d.y_modes, mi_row, mi_col - 1) : DC_PRED;
+    y_mode = ms.symbol(
+        cdf.kf_y_mode[kIntraModeCtx[above]][kIntraModeCtx[left]], 13);
+    angle_delta_y = 0;
+    if (mi_sz >= BLOCK_8X8 && is_directional(y_mode))
+      angle_delta_y = ms.symbol(cdf.angle_delta[y_mode - V_PRED], 7) - 3;
+    uv_mode = DC_PRED;
+    angle_delta_uv = 0;
+    cfl_alpha_u = cfl_alpha_v = 0;
+    if (has_chroma) {
+      int cfl_allowed;
+      if (lossless && kSsSize[mi_sz][d.ssx][d.ssy] == BLOCK_4X4)
+        cfl_allowed = 1;
+      else if (!lossless &&
+               std::max(kNum4x4W[mi_sz], kNum4x4H[mi_sz]) * 4 <= 32)
+        cfl_allowed = 1;
+      else
+        cfl_allowed = 0;
+      if (cfl_allowed)
+        uv_mode = ms.symbol(cdf.uv_mode_cfl[y_mode], 14);
+      else
+        uv_mode = ms.symbol(cdf.uv_mode_nocfl[y_mode], 13);
+      if (uv_mode == UV_CFL_PRED) {
+        int signs = ms.symbol(cdf.cfl_sign, 8);
+        int sign_u = (signs + 1) / 3, sign_v = (signs + 1) % 3;
+        if (sign_u) {
+          int ctx = (sign_u - 1) * 3 + sign_v;
+          cfl_alpha_u = 1 + ms.symbol(cdf.cfl_alpha[ctx], 16);
+          if (sign_u == 1) cfl_alpha_u = -cfl_alpha_u;
+        }
+        if (sign_v) {
+          int ctx = (sign_v - 1) * 3 + sign_u;
+          cfl_alpha_v = 1 + ms.symbol(cdf.cfl_alpha[ctx], 16);
+          if (sign_v == 1) cfl_alpha_v = -cfl_alpha_v;
+        }
+      }
+      if (mi_sz >= BLOCK_8X8 && is_directional(uv_mode))
+        angle_delta_uv = ms.symbol(cdf.angle_delta[uv_mode - V_PRED], 7) - 3;
+    }
+    // palette_mode_info
+    if (mi_sz >= BLOCK_8X8 && kNum4x4W[mi_sz] <= 16 && kNum4x4H[mi_sz] <= 16 &&
+        fh.allow_sct) {
+      int bsize_ctx = kMiWLog2[mi_sz] + kMiHLog2[mi_sz] - 2;
+      if (y_mode == DC_PRED) {
+        // no block of this decoder has a palette, so the context is 0
+        if (ms.symbol(cdf.pal_y_mode[bsize_ctx][0], 2))
+          not_ported("palette blocks");
+      }
+      if (has_chroma && uv_mode == DC_PRED) {
+        if (ms.symbol(cdf.pal_uv_mode[0], 2)) not_ported("palette blocks");
+      }
+    }
+    // filter_intra_mode_info
+    use_filter_intra = 0;
+    if (d.seq.filter_intra && y_mode == DC_PRED &&
+        std::max(kNum4x4W[mi_sz], kNum4x4H[mi_sz]) * 4 <= 32) {
+      use_filter_intra = ms.symbol(cdf.use_filter_intra[mi_sz], 2);
+      if (use_filter_intra)
+        filter_intra_mode = ms.symbol(cdf.filter_intra_mode, 5);
+    }
+  }
+
+  // -- tx size -------------------------------------------------------------
+  void read_tx_size(int allow_select) {
+    if (lossless) {
+      tx_size = TX_4X4;
+      return;
+    }
+    int max_rect = kMaxTxRect[mi_sz];
+    int max_depth = kMaxTxDepth[mi_sz];
+    tx_size = max_rect;
+    if (mi_sz > BLOCK_4X4 && allow_select && fh.tx_mode == TX_MODE_SELECT) {
+      int maxw = kTxW[max_rect], maxh = kTxH[max_rect];
+      int above_w = 0, left_h = 0;
+      if (avail_u) above_w = kTxW[d.MI(d.tx_sizes, mi_row - 1, mi_col)];
+      if (avail_l) left_h = kTxH[d.MI(d.tx_sizes, mi_row, mi_col - 1)];
+      int ctx = (above_w >= maxw) + (left_h >= maxh);
+      int depth;
+      if (max_depth > 1) {
+        int cat = max_depth == 4 ? 2 : max_depth == 3 ? 1 : 0;
+        depth = ms.symbol(cdf.tx_depth[cat][ctx], 3);
+      } else {
+        depth = ms.symbol(cdf.tx_8x8[ctx], 2);
+      }
+      for (int i = 0; i < depth; ++i) tx_size = kSplitTx[tx_size];
+    }
+  }
+
+  void reset_block_context() {
+    for (int p = 0; p < 1 + 2 * has_chroma; ++p) {
+      int sx = p ? d.ssx : 0, sy = p ? d.ssy : 0;
+      for (int i = mi_col >> sx; i < ((mi_col + bw4) >> sx); ++i) {
+        above_level[p][i] = 0;
+        above_dc[p][i] = 0;
+      }
+      for (int i = mi_row >> sy; i < ((mi_row + bh4) >> sy); ++i) {
+        left_level[p][i] = 0;
+        left_dc[p][i] = 0;
+      }
+    }
+  }
+
+  // -- block ---------------------------------------------------------------
+  void decode_block(int r, int c, int sub) {
+    mi_row = r;
+    mi_col = c;
+    mi_sz = sub;
+    bw4 = kNum4x4W[sub];
+    bh4 = kNum4x4H[sub];
+    if (bh4 == 1 && d.ssy && (mi_row & 1) == 0)
+      has_chroma = 0;
+    else if (bw4 == 1 && d.ssx && (mi_col & 1) == 0)
+      has_chroma = 0;
+    else
+      has_chroma = d.planes > 1;
+    if (has_chroma && kSsSize[sub][d.ssx][d.ssy] == BLOCK_INVALID)
+      bad("block size invalid for the chroma subsampling");
+    avail_u = is_inside(r - 1, c);
+    avail_l = is_inside(r, c - 1);
+    avail_u_chroma = avail_u;
+    avail_l_chroma = avail_l;
+    if (has_chroma) {
+      if (d.ssy && bh4 == 1) avail_u_chroma = is_inside(r - 2, c);
+      if (d.ssx && bw4 == 1) avail_l_chroma = is_inside(r, c - 2);
+    } else {
+      avail_u_chroma = avail_l_chroma = 0;
+    }
+    intra_frame_mode_info();
+    read_tx_size(1);
+    if (skip) reset_block_context();
+    int rows = std::min(bh4, d.mi_rows - r), cols = std::min(bw4, d.mi_cols - c);
+    for (int y = 0; y < rows; ++y)
+      for (int x = 0; x < cols; ++x) {
+        size_t i = (size_t)(r + y) * d.mi_cols + c + x;
+        d.y_modes[i] = (uint8_t)y_mode;
+        if (has_chroma) d.uv_modes[i] = (uint8_t)uv_mode;
+        d.skips[i] = (uint8_t)skip;
+        d.tx_sizes[i] = (uint8_t)tx_size;
+        d.mi_size[i] = (uint8_t)mi_sz;
+        d.seg_ids[i] = (uint8_t)segment_id;
+        for (int k = 0; k < 4; ++k) d.delta_lfs[i * 4 + k] = (int8_t)delta_lf[k];
+      }
+    residual();
+  }
+
+  int get_tx_size(int plane, int txsz) {
+    if (plane == 0) return txsz;
+    int uv = kMaxTxRect[kSsSize[mi_sz][d.ssx][d.ssy]];
+    if (kTxW[uv] == 64 || kTxH[uv] == 64) {
+      if (kTxW[uv] == 16) return TX_16X32;
+      if (kTxH[uv] == 16) return TX_32X16;
+      return TX_32X32;
+    }
+    return uv;
+  }
+
+  void residual() {
+    int sb_mask = d.seq.sb128 ? 31 : 15;
+    int width_chunks = std::max(1, (bw4 * 4) >> 6);
+    int height_chunks = std::max(1, (bh4 * 4) >> 6);
+    int size_chunk =
+        (width_chunks > 1 || height_chunks > 1) ? BLOCK_64X64 : mi_sz;
+    for (int cy = 0; cy < height_chunks; ++cy)
+      for (int cx = 0; cx < width_chunks; ++cx) {
+        for (int p = 0; p < 1 + has_chroma * 2; ++p) {
+          int txsz = lossless ? TX_4X4 : get_tx_size(p, tx_size);
+          int step_x = kTxW[txsz] >> 2, step_y = kTxH[txsz] >> 2;
+          int sx = p ? d.ssx : 0, sy = p ? d.ssy : 0;
+          int plane_sz = kSsSize[size_chunk][sx][sy];
+          int n4w = kNum4x4W[plane_sz], n4h = kNum4x4H[plane_sz];
+          int base_x = (mi_col >> sx) * 4, base_y = (mi_row >> sy) * 4;
+          for (int y = 0; y < n4h; y += step_y)
+            for (int x = 0; x < n4w; x += step_x)
+              transform_block(p, base_x, base_y, txsz,
+                              x + ((cx << 4) >> sx), y + ((cy << 4) >> sy),
+                              sb_mask);
+        }
+      }
+  }
+
+  void transform_block(int plane, int base_x, int base_y, int txsz, int x,
+                       int y, int sb_mask) {
+    int start_x = base_x + 4 * x, start_y = base_y + 4 * y;
+    int sx = plane ? d.ssx : 0, sy = plane ? d.ssy : 0;
+    int row = (start_y << sy) >> 2, col = (start_x << sx) >> 2;
+    int sub_r = row & sb_mask, sub_c = col & sb_mask;
+    int step_x = kTxW[txsz] >> 2, step_y = kTxH[txsz] >> 2;
+    int max_x = (d.mi_cols * 4) >> sx, max_y = (d.mi_rows * 4) >> sy;
+    if (start_x >= max_x || start_y >= max_y) return;
+    int is_cfl = plane > 0 && uv_mode == UV_CFL_PRED;
+    int mode = plane == 0 ? y_mode : is_cfl ? DC_PRED : uv_mode;
+    int have_left = (plane == 0 ? avail_l : avail_l_chroma) || x > 0;
+    int have_above = (plane == 0 ? avail_u : avail_u_chroma) || y > 0;
+    int have_ar = bd(plane, (sub_r >> sy) - 1, (sub_c >> sx) + step_x);
+    int have_bl = bd(plane, (sub_r >> sy) + step_y, (sub_c >> sx) - 1);
+    predict_intra(plane, start_x, start_y, have_left, have_above, have_ar,
+                  have_bl, mode, kTxWLog2[txsz], kTxHLog2[txsz]);
+    if (is_cfl) predict_cfl(plane, start_x, start_y, txsz);
+    if (plane == 0) {
+      max_luma_w = start_x + step_x * 4;
+      max_luma_h = start_y + step_y * 4;
+    }
+    if (!skip) {
+      int tx_type;
+      int eob = coeffs(plane, start_x, start_y, txsz, &tx_type);
+      if (eob > 0) reconstruct(plane, start_x, start_y, txsz, tx_type);
+    }
+    for (int i = 0; i < step_y; ++i)
+      for (int j = 0; j < step_x; ++j) {
+        size_t li = (size_t)((row >> sy) + i) * d.lf_tx_stride[plane] +
+                    (col >> sx) + j;
+        if (li < d.lf_tx[plane].size()) d.lf_tx[plane][li] = (uint8_t)txsz;
+        int by = (sub_r >> sy) + i, bx = (sub_c >> sx) + j;
+        if (by < 34 && bx < 34) bd(plane, by, bx) = 1;
+      }
+  }
+
+  // -- coefficients --------------------------------------------------------
+  int get_tx_set(int txsz) const {
+    if (kTxSqrUp[txsz] > TX_32X32) return TX_SET_DCTONLY;
+    if (kTxSqrUp[txsz] == TX_32X32) return TX_SET_DCTONLY;
+    if (fh.reduced_tx_set) return TX_SET_INTRA_2;
+    if (kTxSqr[txsz] == TX_16X16) return TX_SET_INTRA_2;
+    return TX_SET_INTRA_1;
+  }
+
+  static int tx_class(int t) {
+    if (t == V_DCT || t == V_ADST || t == V_FLIPADST) return 2;
+    if (t == H_DCT || t == H_ADST || t == H_FLIPADST) return 1;
+    return 0;
+  }
+
+  const int16_t* default_scan(int txsz) const {
+    switch (txsz) {
+      case TX_4X4: return g_tab.scan4x4;
+      case TX_8X8: return g_tab.scan8x8;
+      case TX_16X16: return g_tab.scan16x16;
+      case TX_4X8: return g_tab.scan4x8;
+      case TX_8X4: return g_tab.scan8x4;
+      case TX_8X16: return g_tab.scan8x16;
+      case TX_16X8: return g_tab.scan16x8;
+      case TX_16X32: return g_tab.scan16x32;
+      case TX_32X16: return g_tab.scan32x16;
+      case TX_4X16: return g_tab.scan4x16;
+      case TX_16X4: return g_tab.scan16x4;
+      case TX_8X32: return g_tab.scan8x32;
+      case TX_32X8: return g_tab.scan32x8;
+      default: return g_tab.scan32x32;
+    }
+  }
+
+  int coeffs(int plane, int start_x, int start_y, int txsz, int* out_type) {
+    int x4 = start_x >> 2, y4 = start_y >> 2;
+    int w4 = kTxW[txsz] >> 2, h4 = kTxH[txsz] >> 2;
+    int sx = plane ? d.ssx : 0, sy = plane ? d.ssy : 0;
+    int max_x4 = d.mi_cols >> sx, max_y4 = d.mi_rows >> sy;
+    int tx_sz_ctx = (kTxSqr[txsz] + kTxSqrUp[txsz] + 1) >> 1;
+    int ptype = plane > 0;
+    int adj = kAdjTx[txsz];
+    int bwl = kTxWLog2[adj];
+    int txw = kTxW[adj], txh = kTxH[adj];
+    int seg_eob = txw * txh;
+    memset(quant, 0, sizeof(int32_t) * seg_eob);
+    int eob = 0, cul_level = 0, dc_category = 0;
+    // all_zero context
+    int ctx;
+    int plane_bsize = kSsSize[mi_sz][sx][sy];
+    int bw = kNum4x4W[plane_bsize] * 4, bh = kNum4x4H[plane_bsize] * 4;
+    int w = kTxW[txsz], h = kTxH[txsz];
+    if (plane == 0) {
+      int top = 0, left = 0;
+      for (int k = 0; k < w4; ++k)
+        if (x4 + k < max_x4) top = std::max(top, (int)above_level[0][x4 + k]);
+      for (int k = 0; k < h4; ++k)
+        if (y4 + k < max_y4)
+          left = std::max(left, (int)left_level[0][y4 + k]);
+      top = std::min(top, 255);
+      left = std::min(left, 255);
+      if (bw == w && bh == h)
+        ctx = 0;
+      else if (top == 0 && left == 0)
+        ctx = 1;
+      else if (top == 0 || left == 0)
+        ctx = 2 + (std::max(top, left) > 3);
+      else if (std::max(top, left) <= 3)
+        ctx = 4;
+      else if (std::min(top, left) <= 3)
+        ctx = 5;
+      else
+        ctx = 6;
+    } else {
+      int above = 0, left = 0;
+      for (int i = 0; i < w4; ++i)
+        if (x4 + i < max_x4)
+          above |= above_level[plane][x4 + i] | above_dc[plane][x4 + i];
+      for (int i = 0; i < h4; ++i)
+        if (y4 + i < max_y4)
+          left |= left_level[plane][y4 + i] | left_dc[plane][y4 + i];
+      ctx = (above != 0) + (left != 0) + 7;
+      if (bw * bh > w * h) ctx += 3;
+    }
+    int all_zero = ms.symbol(cdf.txb_skip[tx_sz_ctx][ctx], 2);
+    int tx_type = DCT_DCT;
+    if (!all_zero) {
+      // transform_type (luma) / compute_tx_type
+      int set = get_tx_set(txsz);
+      if (lossless || kTxSqrUp[txsz] > TX_32X32) {
+        tx_type = DCT_DCT;
+      } else if (plane == 0) {
+        int qi = fh.seg_enabled ? get_qindex(1) : fh.base_q_idx;
+        if (set > 0 && qi > 0) {
+          int dir = use_filter_intra ? kFilterIntraToDir[filter_intra_mode]
+                                     : y_mode;
+          int sqr = kTxSqr[txsz];
+          if (set == TX_SET_INTRA_1)
+            tx_type = kTxInvSet1[ms.symbol(cdf.intra_tx1[sqr][dir], 7)];
+          else
+            tx_type = kTxInvSet2[ms.symbol(cdf.intra_tx2[sqr][dir], 5)];
+        }
+      } else {
+        tx_type = set == TX_SET_DCTONLY ? DCT_DCT : kModeToTxfm[uv_mode];
+      }
+      int cls = tx_class(tx_type);
+      const int16_t* scan;
+      int16_t lin[1024];
+      if (kTxSqrUp[txsz] == TX_64X64 || tx_type == IDTX || cls == 0) {
+        scan = default_scan(adj);
+      } else {
+        // mrow (V_*: raster) or mcol (H_*: column by column)
+        for (int i = 0; i < seg_eob; ++i)
+          lin[i] = (int16_t)(cls == 2 ? i : (i % txh) * txw + i / txh);
+        scan = lin;
+      }
+      int eob_multisize = std::min((int)kTxWLog2[txsz], 5) +
+                          std::min((int)kTxHLog2[txsz], 5) - 4;
+      int c2 = cls == 0 ? 0 : 1;
+      int eob_pt;
+      switch (eob_multisize) {
+        case 0: eob_pt = ms.symbol(cdf.eob_pt_16[ptype][c2], 5) + 1; break;
+        case 1: eob_pt = ms.symbol(cdf.eob_pt_32[ptype][c2], 6) + 1; break;
+        case 2: eob_pt = ms.symbol(cdf.eob_pt_64[ptype][c2], 7) + 1; break;
+        case 3: eob_pt = ms.symbol(cdf.eob_pt_128[ptype][c2], 8) + 1; break;
+        case 4: eob_pt = ms.symbol(cdf.eob_pt_256[ptype][c2], 9) + 1; break;
+        case 5: eob_pt = ms.symbol(cdf.eob_pt_512[ptype], 10) + 1; break;
+        default: eob_pt = ms.symbol(cdf.eob_pt_1024[ptype], 11) + 1; break;
+      }
+      eob = eob_pt < 2 ? eob_pt : ((1 << (eob_pt - 2)) + 1);
+      int eob_shift = eob_pt - 3;
+      if (eob_shift >= 0) {
+        if (ms.symbol(cdf.eob_extra[tx_sz_ctx][ptype][eob_pt - 3], 2))
+          eob += 1 << eob_shift;
+        for (int i = 1; i < std::max(0, eob_pt - 2); ++i) {
+          eob_shift = std::max(0, eob_pt - 2) - 1 - i;
+          if (ms.literal(1)) eob += 1 << eob_shift;
+        }
+      }
+      if (eob > seg_eob) bad("eob");
+      for (int c = eob - 1; c >= 0; --c) {
+        int pos = scan[c];
+        int level;
+        if (c == eob - 1) {
+          int ectx;
+          if (c == 0)
+            ectx = 0;
+          else if (c <= (txh << bwl) / 8)
+            ectx = 1;
+          else if (c <= (txh << bwl) / 4)
+            ectx = 2;
+          else
+            ectx = 3;
+          level = ms.symbol(cdf.coeff_base_eob[tx_sz_ctx][ptype][ectx], 3) + 1;
+        } else {
+          level = ms.symbol(
+              cdf.coeff_base[tx_sz_ctx][ptype]
+                            [coeff_base_ctx(txsz, bwl, txh, cls, pos)],
+              4);
+        }
+        if (level > 2) {
+          int bctx = coeff_br_ctx(bwl, txh, cls, pos);
+          for (int idx = 0; idx < 4; ++idx) {
+            int br = ms.symbol(
+                cdf.coeff_br[std::min(tx_sz_ctx, 3)][ptype][bctx], 4);
+            level += br;
+            if (br < 3) break;
+          }
+        }
+        quant[pos] = level;
+      }
+      for (int c = 0; c < eob; ++c) {
+        int pos = scan[c];
+        int sign = 0;
+        if (quant[pos] != 0) {
+          if (c == 0) {
+            int dctx = dc_sign_ctx(plane, x4, y4, w4, h4, max_x4, max_y4);
+            sign = ms.symbol(cdf.dc_sign[ptype][dctx], 2);
+          } else {
+            sign = ms.literal(1);
+          }
+        }
+        if (quant[pos] > 14) {
+          int length = 0;
+          int bit;
+          do {
+            ++length;
+            bit = ms.literal(1);
+            if (length > 32) bad("golomb");
+          } while (!bit);
+          uint32_t xg = 1;
+          for (int i = length - 2; i >= 0; --i) xg = (xg << 1) | ms.literal(1);
+          quant[pos] = (int32_t)((xg + 14) & 0xFFFFF);
+        }
+        if (pos == 0 && quant[pos] > 0) dc_category = sign ? 1 : 2;
+        quant[pos] &= 0xFFFFF;
+        cul_level += quant[pos];
+        if (cul_level > (1 << 30)) cul_level = 1 << 30;
+        if (sign) quant[pos] = -quant[pos];
+      }
+      cul_level = std::min(63, cul_level);
+    }
+    for (int i = 0; i < w4; ++i) {
+      above_level[plane][x4 + i] = (uint8_t)cul_level;
+      above_dc[plane][x4 + i] = (uint8_t)dc_category;
+    }
+    for (int i = 0; i < h4; ++i) {
+      left_level[plane][y4 + i] = (uint8_t)cul_level;
+      left_dc[plane][y4 + i] = (uint8_t)dc_category;
+    }
+    *out_type = tx_type;
+    return eob;
+  }
+
+  int coeff_base_ctx(int txsz, int bwl, int txh, int cls, int pos) {
+    int row = pos >> bwl, col = pos - (row << bwl);
+    int mag = 0;
+    for (int idx = 0; idx < 5; ++idx) {
+      int rr = row + kSigRefDiff[cls][idx][0];
+      int cc = col + kSigRefDiff[cls][idx][1];
+      if (rr >= 0 && cc >= 0 && rr < txh && cc < (1 << bwl))
+        mag += std::min(std::abs(quant[(rr << bwl) + cc]), 3);
+    }
+    int ctx = std::min((mag + 1) >> 1, 4);
+    if (cls == 0) {
+      if (row == 0 && col == 0) return 0;
+      return ctx + g_tab.ctx_offset[txsz][std::min(row, 4)][std::min(col, 4)];
+    }
+    int idx = cls == 2 ? row : col;
+    static const int pos_off[3] = {26, 31, 36};
+    return ctx + pos_off[std::min(idx, 2)];
+  }
+
+  int coeff_br_ctx(int bwl, int txh, int cls, int pos) {
+    int row = pos >> bwl, col = pos - (row << bwl);
+    int txw = 1 << bwl;
+    int mag = 0;
+    for (int idx = 0; idx < 3; ++idx) {
+      int rr = row + kMagRefOffset[cls][idx][0];
+      int cc = col + kMagRefOffset[cls][idx][1];
+      if (rr >= 0 && cc >= 0 && rr < txh && cc < txw)
+        mag += std::min(quant[rr * txw + cc], 15);
+    }
+    mag = std::min((mag + 1) >> 1, 6);
+    if (pos == 0) return mag;
+    if (cls == 0) {
+      if (row < 2 && col < 2) return mag + 7;
+    } else if (cls == 1) {
+      if (col == 0) return mag + 7;
+    } else {
+      if (row == 0) return mag + 7;
+    }
+    return mag + 14;
+  }
+
+  int dc_sign_ctx(int plane, int x4, int y4, int w4, int h4, int max_x4,
+                  int max_y4) {
+    int s = 0;
+    for (int k = 0; k < w4; ++k)
+      if (x4 + k < max_x4) {
+        int v = above_dc[plane][x4 + k];
+        if (v == 1) --s;
+        else if (v == 2) ++s;
+      }
+    for (int k = 0; k < h4; ++k)
+      if (y4 + k < max_y4) {
+        int v = left_dc[plane][y4 + k];
+        if (v == 1) --s;
+        else if (v == 2) ++s;
+      }
+    return s < 0 ? 1 : s > 0 ? 2 : 0;
+  }
+
+  // -- reconstruction --------------------------------------------------------
+  void reconstruct(int plane, int x, int y, int txsz, int tx_type) {
+    int log2w = kTxWLog2[txsz], log2h = kTxHLog2[txsz];
+    int w = 1 << log2w, h = 1 << log2h;
+    int tw = std::min(32, w), th = std::min(32, h);
+    // dqDenom, from the size's context (the mean of its square sizes):
+    // 1 for 32x32, 16x32, 32x16, 16x64, 64x16; 2 for 32x64, 64x32, 64x64;
+    // 0 for 8x32 and 32x8
+    int dq_denom = std::max(0, ((kTxSqr[txsz] + kTxSqrUp[txsz] + 1) >> 1) - 2);
+    int qindex = get_qindex(0);
+    int dc_delta = plane == 0 ? fh.dq_ydc : plane == 1 ? fh.dq_udc : fh.dq_vdc;
+    int ac_delta = plane == 0 ? 0 : plane == 1 ? fh.dq_uac : fh.dq_vac;
+    int64_t dcq = g_tab.dc_q[clip3(0, 255, qindex + dc_delta)];
+    int64_t acq = g_tab.ac_q[clip3(0, 255, qindex + ac_delta)];
+    // row and column transform kinds
+    int row_kind, col_kind;
+    switch (tx_type) {
+      case ADST_DCT: col_kind = T1D_ADST; row_kind = T1D_DCT; break;
+      case DCT_ADST: col_kind = T1D_DCT; row_kind = T1D_ADST; break;
+      case ADST_ADST: col_kind = T1D_ADST; row_kind = T1D_ADST; break;
+      case IDTX: col_kind = T1D_IDTX; row_kind = T1D_IDTX; break;
+      case V_DCT: col_kind = T1D_DCT; row_kind = T1D_IDTX; break;
+      case H_DCT: col_kind = T1D_IDTX; row_kind = T1D_DCT; break;
+      default: col_kind = T1D_DCT; row_kind = T1D_DCT; break;
+    }
+    int row_shift = lossless ? 0 : kTxRowShift[txsz];
+    int col_shift = lossless ? 0 : 4;
+    int rect2 = std::abs(log2w - log2h) == 1;
+    int64_t T[64];
+    for (int i = 0; i < h; ++i) {
+      int64_t* out = resid + (size_t)i * w;
+      bool nz = false;
+      if (i < th)
+        for (int j = 0; j < tw; ++j)
+          if (quant[i * tw + j]) {
+            nz = true;
+            break;
+          }
+      if (!nz) {
+        for (int j = 0; j < w; ++j) out[j] = 0;
+        continue;
+      }
+      for (int j = 0; j < w; ++j) {
+        int64_t v = 0;
+        if (j < tw) {
+          int32_t qv = quant[i * tw + j];
+          if (qv) {
+            int64_t q = (i == 0 && j == 0) ? dcq : acq;
+            int64_t a = ((int64_t)std::abs(qv) * q) & 0xFFFFFF;
+            a >>= dq_denom;
+            v = qv < 0 ? -a : a;
+            v = clip3l(-(1 << 15), (1 << 15) - 1, v);
+          }
+        }
+        T[j] = v;
+      }
+      if (rect2)
+        for (int j = 0; j < w; ++j) T[j] = round2l(T[j] * 2896, 12);
+      if (lossless) {
+        iwht(T, 2);
+      } else {
+        for (int j = 0; j < w; ++j)
+          T[j] = clip3l(-(1 << 15), (1 << 15) - 1, T[j]);
+        tx1d(T, row_kind, log2w);
+      }
+      for (int j = 0; j < w; ++j) {
+        int64_t v = round2l(T[j], row_shift);
+        if (!lossless) v = clip3l(-(1 << 15), (1 << 15) - 1, v);
+        out[j] = v;
+      }
+    }
+    Plane& P = d.cur[plane];
+    for (int j = 0; j < w; ++j) {
+      for (int i = 0; i < h; ++i) T[i] = resid[(size_t)i * w + j];
+      if (lossless)
+        iwht(T, 0);
+      else
+        tx1d(T, col_kind, log2h);
+      for (int i = 0; i < h; ++i) {
+        int64_t r = round2l(T[i], col_shift);
+        r = clip3l(-100000, 100000, r);
+        uint8_t& px = P.at(x + j, y + i);
+        px = clip1((int)(px + r));
+      }
+    }
+  }
+
+  // -- intra prediction ------------------------------------------------------
+  int is_smooth(int row, int col, int plane) {
+    int mode = plane == 0 ? d.MI(d.y_modes, row, col)
+                          : d.MI(d.uv_modes, row, col);
+    return mode == SMOOTH_PRED || mode == SMOOTH_V_PRED ||
+           mode == SMOOTH_H_PRED;
+  }
+  int get_filter_type(int plane) {
+    int above_smooth = 0, left_smooth = 0;
+    if (plane == 0 ? avail_u : avail_u_chroma) {
+      int r = mi_row - 1, c = mi_col;
+      if (plane > 0) {
+        if (d.ssx && !(mi_col & 1)) ++c;
+        if (d.ssy && (mi_row & 1)) --r;
+      }
+      above_smooth = is_smooth(r, c, plane);
+    }
+    if (plane == 0 ? avail_l : avail_l_chroma) {
+      int r = mi_row, c = mi_col - 1;
+      if (plane > 0) {
+        if (d.ssx && (mi_col & 1)) --c;
+        if (d.ssy && !(mi_row & 1)) ++r;
+      }
+      left_smooth = is_smooth(r, c, plane);
+    }
+    return above_smooth || left_smooth;
+  }
+  static int edge_filter_strength(int w, int h, int filter_type, int delta) {
+    int dd = std::abs(delta);
+    int blk = w + h;
+    int s = 0;
+    if (filter_type == 0) {
+      if (blk <= 8) {
+        if (dd >= 56) s = 1;
+      } else if (blk <= 12) {
+        if (dd >= 40) s = 1;
+      } else if (blk <= 16) {
+        if (dd >= 40) s = 1;
+      } else if (blk <= 24) {
+        if (dd >= 8) s = 1;
+        if (dd >= 16) s = 2;
+        if (dd >= 32) s = 3;
+      } else if (blk <= 32) {
+        if (dd >= 1) s = 1;
+        if (dd >= 4) s = 2;
+        if (dd >= 32) s = 3;
+      } else {
+        if (dd >= 1) s = 3;
+      }
+    } else {
+      if (blk <= 8) {
+        if (dd >= 40) s = 1;
+        if (dd >= 64) s = 2;
+      } else if (blk <= 16) {
+        if (dd >= 20) s = 1;
+        if (dd >= 48) s = 2;
+      } else if (blk <= 24) {
+        if (dd >= 4) s = 3;
+      } else {
+        if (dd >= 1) s = 3;
+      }
+    }
+    return s;
+  }
+  static int use_upsample(int w, int h, int filter_type, int delta) {
+    int dd = std::abs(delta);
+    int blk = w + h;
+    if (dd <= 0 || dd >= 40) return 0;
+    return filter_type == 0 ? blk <= 16 : blk <= 8;
+  }
+  // edge arrays: index i stored at [i + 16]
+  static void edge_filter(int* buf, int sz, int strength) {
+    if (!strength) return;
+    int edge[300];
+    for (int i = 0; i < sz; ++i) edge[i] = buf[i - 1];
+    for (int i = 1; i < sz; ++i) {
+      int s = 0;
+      for (int j = 0; j < 5; ++j) {
+        int k = clip3(0, sz - 1, i - 2 + j);
+        s += kIntraEdgeKernel[strength - 1][j] * edge[k];
+      }
+      buf[i - 1] = (s + 8) >> 4;
+    }
+  }
+  static void edge_upsample(int* buf, int num_px) {
+    int dup[300];
+    dup[0] = buf[-1];
+    for (int i = -1; i < num_px; ++i) dup[i + 2] = buf[i];
+    dup[num_px + 2] = buf[num_px - 1];
+    buf[-2] = dup[0];
+    for (int i = 0; i < num_px; ++i) {
+      int s = -dup[i] + 9 * dup[i + 1] + 9 * dup[i + 2] - dup[i + 3];
+      s = clip1(round2(s, 4));
+      buf[2 * i - 1] = s;
+      buf[2 * i] = dup[i + 2];
+    }
+  }
+
+  void predict_intra(int plane, int x, int y, int have_left, int have_above,
+                     int have_ar, int have_bl, int mode, int log2w,
+                     int log2h) {
+    Plane& P = d.cur[plane];
+    int w = 1 << log2w, h = 1 << log2h;
+    int sx = plane ? d.ssx : 0, sy = plane ? d.ssy : 0;
+    int max_x = ((d.mi_cols * 4) >> sx) - 1;
+    int max_y = ((d.mi_rows * 4) >> sy) - 1;
+    int above_buf[320], left_buf[320];
+    int* above = above_buf + 16;
+    int* left = left_buf + 16;
+    int n = w + h;
+    if (!have_above && have_left) {
+      int v = P.at(x - 1, y);
+      for (int i = -1; i < n; ++i) above[i] = v;
+    } else if (!have_above && !have_left) {
+      for (int i = -1; i < n; ++i) above[i] = 127;
+    } else {
+      int limit = std::min(max_x, x + (have_ar ? 2 * w : w) - 1);
+      const uint8_t* rowp = P.row(y - 1);
+      for (int i = 0; i < n; ++i) above[i] = rowp[std::min(limit, x + i)];
+    }
+    if (!have_left && have_above) {
+      int v = P.at(x, y - 1);
+      for (int i = -1; i < n; ++i) left[i] = v;
+    } else if (!have_left && !have_above) {
+      for (int i = -1; i < n; ++i) left[i] = 129;
+    } else {
+      int limit = std::min(max_y, y + (have_bl ? 2 * h : h) - 1);
+      for (int i = 0; i < n; ++i) left[i] = P.at(x - 1, std::min(limit, y + i));
+    }
+    int corner;
+    if (have_above && have_left)
+      corner = P.at(x - 1, y - 1);
+    else if (have_above)
+      corner = P.at(x, y - 1);
+    else if (have_left)
+      corner = P.at(x - 1, y);
+    else
+      corner = 128;
+    above[-1] = corner;
+    left[-1] = corner;
+
+    uint8_t pred[64 * 64];
+    if (plane == 0 && use_filter_intra) {
+      recursive_intra(pred, above, left, w, h);
+    } else if (is_directional(mode)) {
+      int angle_delta = plane == 0 ? angle_delta_y : angle_delta_uv;
+      int p_angle = kModeToAngle[mode] + angle_delta * 3;
+      directional(plane, pred, above, left, w, h, x, y, max_x, max_y,
+                  have_left, have_above, p_angle);
+    } else if (mode == SMOOTH_PRED || mode == SMOOTH_V_PRED ||
+               mode == SMOOTH_H_PRED) {
+      const uint8_t* wx = g_tab.sm_weights + (w - 4);
+      const uint8_t* wy = g_tab.sm_weights + (h - 4);
+      for (int i = 0; i < h; ++i)
+        for (int j = 0; j < w; ++j) {
+          int v;
+          if (mode == SMOOTH_PRED)
+            v = round2(wy[i] * above[j] + (256 - wy[i]) * left[h - 1] +
+                           wx[j] * left[i] + (256 - wx[j]) * above[w - 1],
+                       9);
+          else if (mode == SMOOTH_V_PRED)
+            v = round2(wy[i] * above[j] + (256 - wy[i]) * left[h - 1], 8);
+          else
+            v = round2(wx[j] * left[i] + (256 - wx[j]) * above[w - 1], 8);
+          pred[i * w + j] = (uint8_t)v;
+        }
+    } else if (mode == DC_PRED) {
+      int avg;
+      if (have_above && have_left) {
+        int sum = 0;
+        for (int k = 0; k < w; ++k) sum += above[k];
+        for (int k = 0; k < h; ++k) sum += left[k];
+        avg = (sum + ((w + h) >> 1)) / (w + h);
+      } else if (have_left) {
+        int sum = 0;
+        for (int k = 0; k < h; ++k) sum += left[k];
+        avg = (sum + (h >> 1)) >> log2h;
+      } else if (have_above) {
+        int sum = 0;
+        for (int k = 0; k < w; ++k) sum += above[k];
+        avg = (sum + (w >> 1)) >> log2w;
+      } else {
+        avg = 128;
+      }
+      memset(pred, avg, (size_t)w * h);
+    } else {  // PAETH
+      for (int i = 0; i < h; ++i)
+        for (int j = 0; j < w; ++j) {
+          int base = above[j] + left[i] - corner;
+          int pl = std::abs(base - left[i]), pt = std::abs(base - above[j]),
+              ptl = std::abs(base - corner);
+          int v;
+          if (pl <= pt && pl <= ptl)
+            v = left[i];
+          else if (pt <= ptl)
+            v = above[j];
+          else
+            v = corner;
+          pred[i * w + j] = (uint8_t)v;
+        }
+    }
+    for (int i = 0; i < h; ++i) memcpy(P.row(y + i) + x, pred + i * w, w);
+  }
+
+  void recursive_intra(uint8_t* pred, const int* above, const int* left,
+                       int w, int h) {
+    int w4 = w >> 2, h2 = h >> 1;
+    for (int i2 = 0; i2 < h2; ++i2)
+      for (int j4 = 0; j4 < w4; ++j4) {
+        int p[7];
+        for (int i = 0; i < 7; ++i) {
+          if (i < 5) {
+            if (i2 == 0)
+              p[i] = above[(j4 << 2) + i - 1];
+            else if (j4 == 0 && i == 0)
+              p[i] = left[(i2 << 1) - 1];
+            else
+              p[i] = pred[((i2 << 1) - 1) * w + (j4 << 2) + i - 1];
+          } else {
+            if (j4 == 0)
+              p[i] = left[(i2 << 1) + i - 5];
+            else
+              p[i] = pred[((i2 << 1) + i - 5) * w + (j4 << 2) - 1];
+          }
+        }
+        for (int i = 0; i < 8; ++i) {
+          int pr = 0;
+          for (int j = 0; j < 7; ++j)
+            pr += g_tab.filter_taps[filter_intra_mode][i][j] * p[j];
+          // Round2Signed(pr, 4)
+          int v = pr >= 0 ? round2(pr, 4) : -round2(-pr, 4);
+          pred[((i2 << 1) + (i >> 2)) * w + (j4 << 2) + (i & 3)] = clip1(v);
+        }
+      }
+  }
+
+  void directional(int plane, uint8_t* pred, int* above, int* left, int w,
+                   int h, int x, int y, int max_x, int max_y, int have_left,
+                   int have_above, int p_angle) {
+    int up_above = 0, up_left = 0;
+    if (d.seq.intra_edge) {
+      int filter_type = get_filter_type(plane);
+      if (p_angle != 90 && p_angle != 180) {
+        if (p_angle > 90 && p_angle < 180 && (w + h) >= 24) {
+          int v = round2(left[0] * 5 + above[-1] * 6 + above[0] * 5, 4);
+          left[-1] = v;
+          above[-1] = v;
+        }
+        if (have_above) {
+          int strength = edge_filter_strength(w, h, filter_type, p_angle - 90);
+          int num = std::min(w, max_x - x + 1) + (p_angle < 90 ? h : 0) + 1;
+          edge_filter(above, num, strength);
+        }
+        if (have_left) {
+          int strength = edge_filter_strength(w, h, filter_type, p_angle - 180);
+          int num = std::min(h, max_y - y + 1) + (p_angle > 180 ? w : 0) + 1;
+          edge_filter(left, num, strength);
+        }
+      }
+      up_above = use_upsample(w, h, filter_type, p_angle - 90);
+      if (up_above) edge_upsample(above, w + (p_angle < 90 ? h : 0));
+      up_left = use_upsample(w, h, filter_type, p_angle - 180);
+      if (up_left) edge_upsample(left, h + (p_angle > 180 ? w : 0));
+    }
+    int dx = 0, dy = 0;
+    if (p_angle < 90)
+      dx = g_tab.dr_deriv[p_angle >> 1];
+    else if (p_angle > 90 && p_angle < 180)
+      dx = g_tab.dr_deriv[(180 - p_angle) >> 1];
+    if (p_angle > 90 && p_angle < 180)
+      dy = g_tab.dr_deriv[(p_angle - 90) >> 1];
+    else if (p_angle > 180)
+      dy = g_tab.dr_deriv[(270 - p_angle) >> 1];
+    for (int i = 0; i < h; ++i)
+      for (int j = 0; j < w; ++j) {
+        int v;
+        if (p_angle < 90) {
+          int idx = (i + 1) * dx;
+          int base = (idx >> (6 - up_above)) + (j << up_above);
+          int shift = ((idx << up_above) >> 1) & 0x1F;
+          int max_base = (w + h - 1) << up_above;
+          if (base < max_base)
+            v = round2(above[base] * (32 - shift) + above[base + 1] * shift, 5);
+          else
+            v = above[max_base];
+        } else if (p_angle > 90 && p_angle < 180) {
+          int idx = (j << 6) - (i + 1) * dx;
+          int base = idx >> (6 - up_above);
+          if (base >= -(1 << up_above)) {
+            int shift = ((idx * (1 << up_above)) >> 1) & 0x1F;
+            v = round2(above[base] * (32 - shift) + above[base + 1] * shift, 5);
+          } else {
+            idx = (i << 6) - (j + 1) * dy;
+            base = idx >> (6 - up_left);
+            int shift = ((idx * (1 << up_left)) >> 1) & 0x1F;
+            v = round2(left[base] * (32 - shift) + left[base + 1] * shift, 5);
+          }
+        } else if (p_angle > 180) {
+          int idx = (j + 1) * dy;
+          int base = (idx >> (6 - up_left)) + (i << up_left);
+          int shift = ((idx << up_left) >> 1) & 0x1F;
+          v = round2(left[base] * (32 - shift) + left[base + 1] * shift, 5);
+        } else if (p_angle == 90) {
+          v = above[j];
+        } else {
+          v = left[i];
+        }
+        pred[i * w + j] = (uint8_t)v;
+      }
+  }
+
+  void predict_cfl(int plane, int start_x, int start_y, int txsz) {
+    int w = kTxW[txsz], h = kTxH[txsz];
+    int sx = d.ssx, sy = d.ssy;
+    int alpha = plane == 1 ? cfl_alpha_u : cfl_alpha_v;
+    Plane& L = d.cur[0];
+    Plane& P = d.cur[plane];
+    static thread_local int lum[32 * 32];
+    int sum = 0;
+    for (int i = 0; i < h; ++i) {
+      int ly = (start_y + i) << sy;
+      ly = std::min(ly, max_luma_h - (1 << sy));
+      for (int j = 0; j < w; ++j) {
+        int lx = (start_x + j) << sx;
+        lx = std::min(lx, max_luma_w - (1 << sx));
+        int t = 0;
+        for (int dy = 0; dy <= sy; ++dy)
+          for (int dx = 0; dx <= sx; ++dx) t += L.at(lx + dx, ly + dy);
+        int v = t << (3 - sx - sy);
+        lum[i * w + j] = v;
+        sum += v;
+      }
+    }
+    int avg = round2(sum, kTxWLog2[txsz] + kTxHLog2[txsz]);
+    for (int i = 0; i < h; ++i)
+      for (int j = 0; j < w; ++j) {
+        uint8_t& px = P.at(start_x + j, start_y + i);
+        int sc = alpha * (lum[i * w + j] - avg);
+        int scaled = sc >= 0 ? round2(sc, 6) : -round2(-sc, 6);
+        px = clip1(px + scaled);
+      }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Loop filter (spec 7.14)
+
+struct LoopFilter {
+  Decoder& d;
+  const FrameHdr& fh;
+  explicit LoopFilter(Decoder& dd) : d(dd), fh(dd.fh) {}
+
+  int filter_level(int row, int col, int plane, int pass) {
+    size_t i = (size_t)row * d.mi_cols + col;
+    int segment = d.seg_ids[i];
+    int idx = plane == 0 ? pass : plane + 1;
+    int delta = d.delta_lfs[i * 4 + (fh.delta_lf_multi ? idx : 0)];
+    int base = clip3(0, 63, delta + fh.lf_level[idx]);
+    int lvl = base;
+    int feature = SEG_LVL_ALT_LF_Y_V + idx;
+    if (fh.seg_enabled && fh.feature_enabled[segment][feature])
+      lvl = clip3(0, 63, lvl + fh.feature_data[segment][feature]);
+    if (fh.lf_delta_enabled) {
+      int nshift = lvl >> 5;
+      lvl = clip3(0, 63, lvl + fh.lf_ref_deltas[0] * (1 << nshift));
+    }
+    return lvl;
+  }
+
+  void edge(int plane, int pass, int row, int col) {
+    int sx = plane ? d.ssx : 0, sy = plane ? d.ssy : 0;
+    int dx = pass == 0, dy = pass == 1;
+    int x = col * 4, y = row * 4;
+    row |= sy;
+    col |= sx;
+    if (x >= fh.width || y >= fh.height) return;
+    if (pass == 0 && x == 0) return;
+    if (pass == 1 && y == 0) return;
+    int xp = x >> sx, yp = y >> sy;
+    int prev_row = row - (dy << sy), prev_col = col - (dx << sx);
+    const std::vector<uint8_t>& lt = d.lf_tx[plane];
+    int ls = d.lf_tx_stride[plane];
+    int txsz = lt[(size_t)(row >> sy) * ls + (col >> sx)];
+    int prev_tx = lt[(size_t)(prev_row >> sy) * ls + (prev_col >> sx)];
+    // every transform edge of an intra block is filtered (the spec's
+    // skip and block-edge terms matter to inter blocks only)
+    if (pass == 0 ? xp % kTxW[txsz] : yp % kTxH[txsz]) return;
+    int base = pass == 0 ? std::min(kTxW[prev_tx], kTxW[txsz])
+                         : std::min(kTxH[prev_tx], kTxH[txsz]);
+    int filter_size = plane == 0 ? std::min(16, base) : std::min(8, base);
+    int lvl = filter_level(row, col, plane, pass);
+    if (lvl == 0) lvl = filter_level(prev_row, prev_col, plane, pass);
+    if (lvl == 0) return;
+    int shift = fh.lf_sharpness > 4 ? 2 : fh.lf_sharpness > 0 ? 1 : 0;
+    int limit = fh.lf_sharpness > 0
+                    ? clip3(1, 9 - fh.lf_sharpness, lvl >> shift)
+                    : std::max(1, lvl >> shift);
+    int blimit = 2 * (lvl + 2) + limit;
+    int thresh = lvl >> 4;
+    Plane& P = d.cur[plane];
+    for (int i = 0; i < 4; ++i)
+      sample(P, xp + dy * i, yp + dx * i, plane, limit, blimit, thresh, dx, dy,
+             filter_size);
+  }
+
+  static void sample(Plane& P, int x, int y, int plane, int limit,
+                     int blimit, int thresh, int dx, int dy, int fsize) {
+    auto px = [&](int k) -> uint8_t& {  // k >= 0: q_k, k < 0: p_(-k-1)
+      return P.at(x + dx * k, y + dy * k);
+    };
+    int q0 = px(0), q1 = px(1), q2 = px(2), q3 = px(3);
+    int p0 = px(-1), p1 = px(-2), p2 = px(-3), p3 = px(-4);
+    int hev = std::abs(p1 - p0) > thresh || std::abs(q1 - q0) > thresh;
+    int flen = fsize == 4 ? 4 : plane != 0 ? 6 : fsize == 8 ? 8 : 16;
+    int mask = 0;
+    mask |= std::abs(p1 - p0) > limit;
+    mask |= std::abs(q1 - q0) > limit;
+    mask |= std::abs(p0 - q0) * 2 + std::abs(p1 - q1) / 2 > blimit;
+    if (flen >= 6) {
+      mask |= std::abs(p2 - p1) > limit;
+      mask |= std::abs(q2 - q1) > limit;
+    }
+    if (flen >= 8) {
+      mask |= std::abs(p3 - p2) > limit;
+      mask |= std::abs(q3 - q2) > limit;
+    }
+    if (mask) return;
+    int flat = 0, flat2 = 0;
+    if (flen >= 6) {
+      int m = 0;
+      m |= std::abs(p1 - p0) > 1;
+      m |= std::abs(q1 - q0) > 1;
+      m |= std::abs(p2 - p0) > 1;
+      m |= std::abs(q2 - q0) > 1;
+      if (flen >= 8) {
+        m |= std::abs(p3 - p0) > 1;
+        m |= std::abs(q3 - q0) > 1;
+      }
+      flat = !m;
+    }
+    if (flen >= 16) {
+      int q4 = px(4), q5 = px(5), q6 = px(6);
+      int p4 = px(-5), p5 = px(-6), p6 = px(-7);
+      int m = 0;
+      m |= std::abs(p6 - p0) > 1;
+      m |= std::abs(q6 - q0) > 1;
+      m |= std::abs(p5 - p0) > 1;
+      m |= std::abs(q5 - q0) > 1;
+      m |= std::abs(p4 - p0) > 1;
+      m |= std::abs(q4 - q0) > 1;
+      flat2 = !m;
+    }
+    if (fsize == 4 || !flat) {
+      // narrow filter
+      auto c4 = [](int v) { return clip3(-128, 127, v); };
+      int ps1 = p1 - 128, ps0 = p0 - 128, qs0 = q0 - 128, qs1 = q1 - 128;
+      int f = hev ? c4(ps1 - qs1) : 0;
+      f = c4(f + 3 * (qs0 - ps0));
+      int f1 = c4(f + 4) >> 3;
+      int f2 = c4(f + 3) >> 3;
+      px(0) = (uint8_t)(c4(qs0 - f1) + 128);
+      px(-1) = (uint8_t)(c4(ps0 + f2) + 128);
+      if (!hev) {
+        f = round2(f1, 1);
+        px(1) = (uint8_t)(c4(qs1 - f) + 128);
+        px(-2) = (uint8_t)(c4(ps1 + f) + 128);
+      }
+    } else {
+      int log2size = (fsize == 8 || !flat2) ? 3 : 4;
+      int n = log2size == 4 ? 6 : plane == 0 ? 3 : 2;
+      int n2 = (log2size == 3 && plane == 0) ? 0 : 1;
+      int F[14], F2[14];
+      for (int k = -(n + 1); k <= n; ++k) F[k + 7] = px(k);
+      for (int i = -n; i < n; ++i) {
+        int t = 0;
+        for (int j = -n; j <= n; ++j) {
+          int p = clip3(-(n + 1), n, i + j);
+          int tap = std::abs(j) <= n2 ? 2 : 1;
+          t += F[p + 7] * tap;
+        }
+        F2[i + 7] = round2(t, log2size);
+      }
+      for (int i = -n; i < n; ++i) px(i) = (uint8_t)F2[i + 7];
+    }
+  }
+
+  void run() {
+    if (!fh.lf_level[0] && !fh.lf_level[1]) return;
+    for (int plane = 0; plane < d.planes; ++plane) {
+      if (plane > 0 && !fh.lf_level[1 + plane]) continue;
+      int rstep = plane == 0 ? 1 : 1 << d.ssy;
+      int cstep = plane == 0 ? 1 : 1 << d.ssx;
+      for (int pass = 0; pass < 2; ++pass)
+        for (int row = 0; row < d.mi_rows; row += rstep)
+          for (int col = 0; col < d.mi_cols; col += cstep)
+            edge(plane, pass, row, col);
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// CDEF (spec 7.15)
+
+struct Cdef {
+  Decoder& d;
+  const FrameHdr& fh;
+  Plane out[3];
+  explicit Cdef(Decoder& dd) : d(dd), fh(dd.fh) {}
+
+  // constrain() of the spec with its damping shift worked out once a
+  // block: adj = Max(0, damping - FloorLog2(threshold))
+  static inline int constrain(int diff, int threshold, int adj) {
+    if (!threshold) return 0;
+    int a = diff < 0 ? -diff : diff;
+    int v = std::min(a, std::max(0, threshold - (a >> adj)));
+    return diff < 0 ? -v : v;
+  }
+  static int damping_adj(int threshold, int damping) {
+    return threshold ? std::max(0, damping - floor_log2((uint32_t)threshold))
+                     : 0;
+  }
+
+  void direction(int r, int c, int* ydir, int* var) {
+    int cost[8] = {0};
+    int partial[8][15] = {{0}};
+    int x0 = c * 4, y0 = r * 4;
+    Plane& P = d.cur[0];
+    for (int i = 0; i < 8; ++i)
+      for (int j = 0; j < 8; ++j) {
+        int x = P.at(x0 + j, y0 + i) - 128;
+        partial[0][i + j] += x;
+        partial[1][i + j / 2] += x;
+        partial[2][i] += x;
+        partial[3][3 + i - j / 2] += x;
+        partial[4][7 + i - j] += x;
+        partial[5][3 - i / 2 + j] += x;
+        partial[6][j] += x;
+        partial[7][i / 2 + j] += x;
+      }
+    for (int i = 0; i < 8; ++i) {
+      cost[2] += partial[2][i] * partial[2][i];
+      cost[6] += partial[6][i] * partial[6][i];
+    }
+    cost[2] *= kCdefDivTable[8];
+    cost[6] *= kCdefDivTable[8];
+    for (int i = 0; i < 7; ++i) {
+      cost[0] += (partial[0][i] * partial[0][i] +
+                  partial[0][14 - i] * partial[0][14 - i]) *
+                 kCdefDivTable[i + 1];
+      cost[4] += (partial[4][i] * partial[4][i] +
+                  partial[4][14 - i] * partial[4][14 - i]) *
+                 kCdefDivTable[i + 1];
+    }
+    cost[0] += partial[0][7] * partial[0][7] * kCdefDivTable[8];
+    cost[4] += partial[4][7] * partial[4][7] * kCdefDivTable[8];
+    for (int i = 1; i < 8; i += 2) {
+      for (int j = 0; j < 5; ++j)
+        cost[i] += partial[i][3 + j] * partial[i][3 + j];
+      cost[i] *= kCdefDivTable[8];
+      for (int j = 0; j < 3; ++j)
+        cost[i] += (partial[i][j] * partial[i][j] +
+                    partial[i][10 - j] * partial[i][10 - j]) *
+                   kCdefDivTable[2 * j + 2];
+    }
+    int best = 0, dir = 0;
+    for (int i = 0; i < 8; ++i)
+      if (cost[i] > best) {
+        best = cost[i];
+        dir = i;
+      }
+    *ydir = dir;
+    *var = (best - cost[(dir + 4) & 7]) >> 10;
+  }
+
+  void filter(int plane, int r, int c, int pri, int sec, int damping,
+              int dir) {
+    if (!pri && !sec) return;  // the sum is 0: the copy stands
+    int sx = plane ? d.ssx : 0, sy = plane ? d.ssy : 0;
+    int x0 = (c * 4) >> sx, y0 = (r * 4) >> sy;
+    int w = 8 >> sx, h = 8 >> sy;
+    Plane& P = d.cur[plane];
+    Plane& O = out[plane];
+    int pri_tap = (pri & 1);
+    static const int pri_taps[2][2] = {{4, 2}, {3, 3}};
+    static const int sec_taps[2][2] = {{2, 1}, {2, 1}};
+    int pri_adj = damping_adj(pri, damping), sec_adj = damping_adj(sec, damping);
+    // the taps' (row, column) offsets: the primary direction's and the two
+    // secondary ones', for k = 0, 1
+    int off[2][3][2];
+    for (int k = 0; k < 2; ++k)
+      for (int t = 0; t < 3; ++t) {
+        int dd = t == 0 ? dir : (dir + (t == 1 ? -2 : 2)) & 7;
+        off[k][t][0] = kCdefDirections[dd][k][0];
+        off[k][t][1] = kCdefDirections[dd][k][1];
+      }
+    // a block whose taps (at most 2 away) all lie inside the frame's MI
+    // area reads them with no check
+    int pw = (d.mi_cols * 4) >> sx, ph = (d.mi_rows * 4) >> sy;
+    bool inside = x0 >= 2 && y0 >= 2 && x0 + w + 2 <= pw && y0 + h + 2 <= ph;
+    for (int i = 0; i < h; ++i)
+      for (int j = 0; j < w; ++j) {
+        int x = P.at(x0 + j, y0 + i);
+        int sum = 0, mx = x, mn = x;
+        for (int k = 0; k < 2; ++k)
+          for (int sign = -1; sign <= 1; sign += 2)
+            for (int t = 0; t < 3; ++t) {
+              int avail = 1, v;
+              int yy = i + sign * off[k][t][0], xx = j + sign * off[k][t][1];
+              if (inside)
+                v = P.at(x0 + xx, y0 + yy);
+              else
+                v = get(plane, x0, y0, yy, xx, &avail);
+              if (!avail) continue;
+              if (t == 0)
+                sum += pri_taps[pri_tap][k] * constrain(v - x, pri, pri_adj);
+              else
+                sum += sec_taps[pri_tap][k] * constrain(v - x, sec, sec_adj);
+              mx = std::max(v, mx);
+              mn = std::min(v, mn);
+            }
+        O.at(x0 + j, y0 + i) =
+            (uint8_t)clip3(mn, mx, x + ((8 + sum - (sum < 0)) >> 4));
+      }
+  }
+
+  int get(int plane, int x0, int y0, int i, int j, int* avail) {
+    int sx = plane ? d.ssx : 0, sy = plane ? d.ssy : 0;
+    int y = y0 + i, x = x0 + j;
+    if (y < 0 || x < 0 || ((y << sy) >> 2) >= d.mi_rows ||
+        ((x << sx) >> 2) >= d.mi_cols) {
+      *avail = 0;
+      return 0;
+    }
+    *avail = 1;
+    return d.cur[plane].at(x, y);
+  }
+
+  void block(int r, int c, int idx) {
+    if (idx == -1) return;
+    size_t mi = (size_t)r * d.mi_cols + c;
+    int skip = d.skips[mi] && d.skips[mi + 1] && d.skips[mi + d.mi_cols] &&
+               d.skips[mi + d.mi_cols + 1];
+    if (skip) return;
+    int ydir, var;
+    direction(r, c, &ydir, &var);
+    int pri = fh.cdef_y_pri[idx], sec = fh.cdef_y_sec[idx];
+    int dir = pri == 0 ? 0 : ydir;
+    int var_str = (var >> 6) ? std::min(floor_log2((uint32_t)(var >> 6)), 12) : 0;
+    pri = var ? (pri * (4 + var_str) + 8) >> 4 : 0;
+    int damping = fh.cdef_damping;
+    filter(0, r, c, pri, sec, damping, dir);
+    if (d.planes == 1) return;
+    pri = fh.cdef_uv_pri[idx];
+    sec = fh.cdef_uv_sec[idx];
+    dir = pri == 0 ? 0 : kCdefUvDir[d.ssx][d.ssy][ydir];
+    damping = fh.cdef_damping - 1;
+    filter(1, r, c, pri, sec, damping, dir);
+    filter(2, r, c, pri, sec, damping, dir);
+  }
+
+  // Each 8x8 block reads the deblocked frame and writes its own pixels of
+  // the copy, so rows of 64x64 units run on threads of their own.
+  void run() {
+    for (int p = 0; p < d.planes; ++p) out[p] = d.cur[p];
+    parallel_for((d.mi_rows + 15) >> 4, [&](int unit_row) {
+      for (int r = unit_row * 16; r < std::min(d.mi_rows, unit_row * 16 + 16);
+           r += 2)
+        for (int c = 0; c < d.mi_cols; c += 2) {
+          int idx = d.cdef_idx[(size_t)(r >> 4) * d.cdef_stride + (c >> 4)];
+          block(r, c, idx);
+        }
+    });
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Loop restoration (spec 7.17)
+
+struct Restoration {
+  Decoder& d;
+  const FrameHdr& fh;
+  Plane* deblocked;  // before CDEF
+  Plane* cdefed;     // after CDEF
+  Plane out[3];
+  int stripe_start, stripe_end, plane_end_x, plane_end_y;
+  Restoration(Decoder& dd, Plane* deb, Plane* cd)
+      : d(dd), fh(dd.fh), deblocked(deb), cdefed(cd) {}
+
+  inline int src(int plane, int x, int y) const {
+    x = std::max(0, std::min(plane_end_x, x));
+    y = std::max(0, std::min(plane_end_y, y));
+    if (y < stripe_start) {
+      y = std::max(stripe_start - 2, y);
+      return deblocked[plane].at(x, y);
+    }
+    if (y > stripe_end) {
+      y = std::min(stripe_end + 2, y);
+      return deblocked[plane].at(x, y);
+    }
+    return cdefed[plane].at(x, y);
+  }
+
+  void wiener(int plane, const LrUnit& u, int x, int y, int w, int h) {
+    int vf[7], hf[7];
+    auto get_filter = [](const int8_t* c, int* f) {
+      f[3] = 128;
+      for (int i = 0; i < 3; ++i) {
+        f[i] = c[i];
+        f[6 - i] = c[i];
+        f[3] -= 2 * c[i];
+      }
+    };
+    get_filter(u.wiener[0], vf);
+    get_filter(u.wiener[1], hf);
+    const int round0 = 3, round1 = 11;
+    const int offset = 1 << (8 + 7 - round0 - 1);
+    const int limit = (1 << (8 + 1 + 7 - round0)) - 1;
+    std::vector<int> inter((size_t)(h + 6) * w);
+    for (int r = 0; r < h + 6; ++r)
+      for (int c = 0; c < w; ++c) {
+        int s = 0;
+        for (int t = 0; t < 7; ++t)
+          s += hf[t] * src(plane, x + c + t - 3, y + r - 3);
+        int v = round2(s, round0);
+        inter[(size_t)r * w + c] = clip3(-offset, limit - offset, v);
+      }
+    for (int r = 0; r < h; ++r)
+      for (int c = 0; c < w; ++c) {
+        int s = 0;
+        for (int t = 0; t < 7; ++t) s += vf[t] * inter[(size_t)(r + t) * w + c];
+        out[plane].at(x + c, y + r) = clip1(round2(s, round1));
+      }
+  }
+
+  void box_filter(int plane, int x, int y, int w, int h, int set, int pass,
+                  std::vector<int>& F) {
+    int r = g_tab.sgr[set][pass * 2];
+    uint32_t s = (uint32_t)g_tab.sgr[set][pass * 2 + 1];
+    int n = (2 * r + 1) * (2 * r + 1);
+    int one_over_n = ((1 << 12) + (n / 2)) / n;
+    int aw = w + 2;
+    std::vector<int> A((size_t)(h + 2) * aw), Bv((size_t)(h + 2) * aw);
+    for (int i = -1; i < h + 1; ++i) {
+      for (int j = -1; j < w + 1; ++j) {
+        int a = 0, b = 0;
+        for (int dy = -r; dy <= r; ++dy)
+          for (int dx = -r; dx <= r; ++dx) {
+            int c = src(plane, x + j + dx, y + i + dy);
+            a += c * c;
+            b += c;
+          }
+        int64_t p = std::max<int64_t>(0, (int64_t)a * n - (int64_t)b * b);
+        int64_t z = (p * s + (1 << 19)) >> 20;
+        int a2;
+        if (z >= 255)
+          a2 = 256;
+        else if (z == 0)
+          a2 = 1;
+        else
+          a2 = (int)(((z << 8) + (z / 2)) / (z + 1));
+        int64_t b2 = (int64_t)((1 << 8) - a2) * b * one_over_n;
+        A[(size_t)(i + 1) * aw + j + 1] = a2;
+        Bv[(size_t)(i + 1) * aw + j + 1] = (int)round2l(b2, 12);
+      }
+    }
+    for (int i = 0; i < h; ++i) {
+      int shift = 5;
+      if (pass == 0 && ((y + i) & 1)) shift = 4;
+      for (int j = 0; j < w; ++j) {
+        int64_t a = 0, b = 0;
+        for (int dy = -1; dy <= 1; ++dy)
+          for (int dx = -1; dx <= 1; ++dx) {
+            int weight;
+            if (pass == 0)
+              weight = ((y + i + dy) & 1) ? (dx == 0 ? 6 : 5) : 0;
+            else
+              weight = (dx == 0 || dy == 0) ? 4 : 3;
+            size_t k = (size_t)(i + 1 + dy) * aw + j + 1 + dx;
+            a += weight * A[k];
+            b += weight * Bv[k];
+          }
+        int64_t v = a * cdefed[plane].at(x + j, y + i) + b;
+        F[(size_t)i * w + j] = (int)round2l(v, 8 + shift - 4);
+      }
+    }
+  }
+
+  void self_guided(int plane, const LrUnit& u, int x, int y, int w, int h) {
+    int set = u.sgr_set;
+    int r0 = g_tab.sgr[set][0], r1 = g_tab.sgr[set][2];
+    std::vector<int> f0((size_t)w * h), f1((size_t)w * h);
+    if (r0) box_filter(plane, x, y, w, h, set, 0, f0);
+    if (r1) box_filter(plane, x, y, w, h, set, 1, f1);
+    int w0 = u.xqd[0], w1 = u.xqd[1];
+    int w2 = 128 - w0 - w1;
+    for (int i = 0; i < h; ++i)
+      for (int j = 0; j < w; ++j) {
+        int64_t uu = (int64_t)cdefed[plane].at(x + j, y + i) << 4;
+        int64_t v = w1 * uu;
+        v += r0 ? (int64_t)w0 * f0[(size_t)i * w + j] : w0 * uu;
+        v += r1 ? (int64_t)w2 * f1[(size_t)i * w + j] : w2 * uu;
+        int s = (int)round2l(v, 4 + 7);
+        out[plane].at(x + j, y + i) = clip1(s);
+      }
+  }
+
+  void run() {
+    for (int p = 0; p < d.planes; ++p) out[p] = cdefed[p];
+    for (int p = 0; p < d.planes; ++p) {
+      if (fh.lr_type[p] == RESTORE_NONE) continue;
+      int sx = p ? d.ssx : 0, sy = p ? d.ssy : 0;
+      int unit = fh.lr_size[p];
+      int unit_rows = d.lr_rows[p], unit_cols = d.lr_cols[p];
+      plane_end_x = round2(fh.upscaled_width, sx) - 1;
+      plane_end_y = round2(fh.height, sy) - 1;
+      int bh = 4 >> sy, bw = 4 >> sx;
+      // rows of 4x4 (luma) blocks grouped by stripe and unit row
+      int y = 0;
+      while (y <= plane_end_y) {
+        int luma_y = y << sy;
+        int stripe = (luma_y + 8) / 64;
+        int unit_row = std::min(unit_rows - 1, ((luma_y + 8) >> sy) / unit);
+        int y_end = y;
+        while (y_end <= plane_end_y) {
+          int ly = y_end << sy;
+          if ((ly + 8) / 64 != stripe ||
+              std::min(unit_rows - 1, ((ly + 8) >> sy) / unit) != unit_row)
+            break;
+          y_end += bh;
+        }
+        stripe_start = (-8 + stripe * 64) >> sy;
+        stripe_end = stripe_start + (64 >> sy) - 1;
+        int h = std::min(y_end, plane_end_y + 1) - y;
+        int x = 0;
+        while (x <= plane_end_x) {
+          int unit_col = std::min(unit_cols - 1, x / unit);
+          int x_end = x;
+          while (x_end <= plane_end_x &&
+                 std::min(unit_cols - 1, x_end / unit) == unit_col)
+            x_end += bw;
+          int w = std::min(x_end, plane_end_x + 1) - x;
+          const LrUnit& u =
+              d.lr[p][(size_t)unit_row * unit_cols + unit_col];
+          if (u.type == RESTORE_WIENER)
+            wiener(p, u, x, y, w, h);
+          else if (u.type == RESTORE_SGRPROJ)
+            self_guided(p, u, x, y, w, h);
+          x = x_end;
+        }
+        y = y_end;
+      }
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// OBU walk and the frame
+
+struct Obu {
+  int type, temporal_id, spatial_id;
+  const uint8_t* p;
+  size_t n;
+};
+
+// Splits the stream into OBUs; returns false on a malformed one.
+bool next_obu(const uint8_t*& p, const uint8_t* end, Obu& o) {
+  if (p >= end) return false;
+  uint8_t hdr = *p++;
+  if (hdr & 0x80) bad("OBU forbidden bit");
+  o.type = (hdr >> 3) & 15;
+  int ext = (hdr >> 2) & 1, has_size = (hdr >> 1) & 1;
+  o.temporal_id = o.spatial_id = 0;
+  if (ext) {
+    if (p >= end) bad("truncated OBU extension");
+    o.temporal_id = *p >> 5;
+    o.spatial_id = (*p >> 3) & 3;
+    ++p;
+  }
+  size_t size;
+  if (has_size) {
+    uint64_t v = 0;
+    int i = 0;
+    for (;; ++i) {
+      if (i >= 8 || p >= end) bad("OBU size");
+      uint8_t b = *p++;
+      v |= (uint64_t)(b & 0x7F) << (7 * i);
+      if (!(b & 0x80)) break;
+    }
+    if (v > (uint64_t)(end - p)) bad("OBU runs past the data");
+    size = (size_t)v;
+  } else {
+    size = (size_t)(end - p);
+  }
+  o.p = p;
+  o.n = size;
+  p += size;
+  return true;
+}
+
+struct Result {
+  int width, height, layout, bitdepth, mono, color_range, matrix, primaries,
+      transfer;
+};
+
+struct TileJob {
+  const uint8_t* p;
+  size_t n;
+  int t;  // the tile's number, in raster order
+};
+
+void decode_tile(Decoder& d, const TileJob& job) {
+  const FrameHdr& fh = d.fh;
+  int qctx = fh.base_q_idx <= 20 ? 0 : fh.base_q_idx <= 60 ? 1
+             : fh.base_q_idx <= 120 ? 2 : 3;
+  int tr = job.t / fh.tile_cols, tc = job.t % fh.tile_cols;
+  std::unique_ptr<Tile> tile(new Tile(d));
+  tile->cdf = g_tab.cdf[qctx];
+  tile->mi_row_start = fh.mi_row_starts[tr];
+  tile->mi_row_end = fh.mi_row_starts[tr + 1];
+  tile->mi_col_start = fh.mi_col_starts[tc];
+  tile->mi_col_end = fh.mi_col_starts[tc + 1];
+  tile->current_q = fh.base_q_idx;
+  tile->ms.init(job.p, job.n, fh.disable_cdf_update);
+  tile->decode();
+}
+
+// Tiles share no state but the frame's arrays, each writing its own
+// region of them, so they decode on threads of their own; the error of
+// the first tile in raster order that fails is the stream's.
+void decode_tiles(Decoder& d, const std::vector<TileJob>& jobs) {
+  int n = (int)jobs.size();
+  std::vector<int> codes(n, IK_AV1D_OK);
+  std::vector<const char*> whys(n, nullptr);
+  parallel_for(n, [&](int i) {
+    try {
+      decode_tile(d, jobs[i]);
+    } catch (const Fail& f) {
+      codes[i] = f.code;
+      whys[i] = f.why;
+    } catch (const std::bad_alloc&) {
+      codes[i] = IK_AV1D_BAD;
+      whys[i] = "out of memory";
+    }
+  });
+  for (int i = 0; i < n; ++i)
+    if (codes[i] != IK_AV1D_OK) throw Fail{codes[i], whys[i]};
+}
+
+// Parses up to the first frame's header; decodes its tiles when `dec`.
+void run(const uint8_t* data, size_t n, Decoder& d, Result& res, bool dec) {
+  std::vector<TileJob> jobs;
+  const uint8_t* p = data;
+  const uint8_t* end = data + n;
+  bool have_seq = false, have_frame = false;
+  int tiles_done = 0, num_tiles = 0;
+  Obu o;
+  while (next_obu(p, end, o)) {
+    if (o.type == 1) {  // sequence header
+      if (have_frame) break;
+      Bits b{o.p, o.n, 0};
+      d.seq = SeqHdr();
+      parse_seq(b, d.seq);
+      have_seq = true;
+      continue;
+    }
+    if (o.type == 3 || o.type == 6) {  // frame header / frame
+      if (have_frame) {
+        if (o.type == 3) continue;  // a redundant copy of the header
+        break;
+      }
+      if (!have_seq) bad("frame before any sequence header");
+      if (d.seq.op_idc[0] != 0) not_ported("layered (scalable) streams");
+      if (d.seq.bitdepth != 8) not_ported("10- and 12-bit streams");
+      Bits b{o.p, o.n, 0};
+      d.fh = FrameHdr();
+      parse_frame_header(b, d.seq, d.fh, o.temporal_id, o.spatial_id);
+      have_frame = true;
+      res.width = d.fh.width;
+      res.height = d.fh.height;
+      res.mono = d.seq.mono;
+      res.layout = d.seq.mono ? 0
+                   : (d.seq.ssx && d.seq.ssy) ? 1
+                   : d.seq.ssx                ? 2
+                                              : 3;
+      res.bitdepth = d.seq.bitdepth;
+      res.color_range = d.seq.color_range;
+      res.matrix = d.seq.matrix;
+      res.primaries = d.seq.primaries;
+      res.transfer = d.seq.transfer;
+      if (!dec) return;
+      d.planes = d.seq.mono ? 1 : 3;
+      d.ssx = d.seq.ssx;
+      d.ssy = d.seq.ssy;
+      if ((size_t)d.fh.width * d.fh.height > ((size_t)1 << 28))
+        bad("frame too large");
+      d.alloc();
+      for (int pl = 0; pl < d.planes; ++pl) {
+        int sx = pl ? d.ssx : 0, sy = pl ? d.ssy : 0;
+        if (d.fh.lr_type[pl] != RESTORE_NONE) {
+          int unit = d.fh.lr_size[pl];
+          d.lr_rows[pl] = count_units(unit, round2(d.fh.height, sy));
+          d.lr_cols[pl] = count_units(unit, round2(d.fh.upscaled_width, sx));
+          d.lr[pl].assign((size_t)d.lr_rows[pl] * d.lr_cols[pl], LrUnit{});
+        }
+      }
+      num_tiles = d.fh.tile_cols * d.fh.tile_rows;
+      if (o.type == 3) continue;
+      b.byte_align();
+      size_t hb = b.pos >> 3;
+      if (hb > o.n) bad("frame header");
+      o.p += hb;
+      o.n -= hb;
+      o.type = 4;
+    }
+    if (o.type == 4) {  // tile group
+      if (!have_frame || !dec) {
+        if (!have_frame) bad("tile group before its frame header");
+        continue;
+      }
+      Bits b{o.p, o.n, 0};
+      int tg_start = 0, tg_end = num_tiles - 1;
+      if (num_tiles > 1 && b.f(1)) {
+        int bits = d.fh.tile_cols_log2 + d.fh.tile_rows_log2;
+        tg_start = b.f(bits);
+        tg_end = b.f(bits);
+      }
+      b.byte_align();
+      if (tg_start != tiles_done || tg_end < tg_start || tg_end >= num_tiles)
+        bad("tile group order");
+      size_t pos = b.pos >> 3;
+      for (int t = tg_start; t <= tg_end; ++t) {
+        size_t tile_size;
+        if (t == tg_end) {
+          if (pos > o.n) bad("tile data");
+          tile_size = o.n - pos;
+        } else {
+          int tsb = d.fh.tile_size_bytes;
+          if (pos + tsb > o.n) bad("tile size");
+          size_t v = 0;
+          for (int i = 0; i < tsb; ++i) v |= (size_t)o.p[pos + i] << (8 * i);
+          pos += tsb;
+          tile_size = v + 1;
+          if (tile_size > o.n - pos) bad("tile runs past its group");
+        }
+        jobs.push_back(TileJob{o.p + pos, tile_size, t});
+        pos += tile_size;
+      }
+      tiles_done = tg_end + 1;
+      if (tiles_done == num_tiles) break;
+      continue;
+    }
+    // temporal delimiter, metadata, padding, tile list: skipped
+  }
+  if (!have_frame) bad("no frame in the stream");
+  if (dec && tiles_done != num_tiles) bad("missing tiles");
+  if (dec) decode_tiles(d, jobs);
+}
+
+void postfilter(Decoder& d) {
+  LoopFilter lf(d);
+  lf.run();
+  Plane* deblocked = d.cur;
+  std::unique_ptr<Cdef> cdef;
+  Plane* cdefed = d.cur;
+  if (d.fh.cdef_on) {
+    cdef.reset(new Cdef(d));
+    cdef->run();
+    cdefed = cdef->out;
+  }
+  if (d.fh.uses_lr) {
+    std::unique_ptr<Restoration> lr(new Restoration(d, deblocked, cdefed));
+    lr->run();
+    for (int p = 0; p < d.planes; ++p) d.cur[p] = std::move(lr->out[p]);
+  } else if (cdef) {
+    for (int p = 0; p < d.planes; ++p) d.cur[p] = std::move(cdef->out[p]);
+  }
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// C ABI
+
+struct IkAv1dInfo {
+  int32_t width, height, layout, bitdepth, mono, color_range, matrix,
+      primaries, transfer;
+  char reason[120];
+};
+
+static int finish(const Fail& f, IkAv1dInfo* info) {
+  if (info) {
+    strncpy(info->reason, f.why, sizeof(info->reason) - 1);
+    info->reason[sizeof(info->reason) - 1] = 0;
+  }
+  return f.code;
+}
+
+static void fill(const Result& r, IkAv1dInfo* info) {
+  info->width = r.width;
+  info->height = r.height;
+  info->layout = r.layout;
+  info->bitdepth = r.bitdepth;
+  info->mono = r.mono;
+  info->color_range = r.color_range;
+  info->matrix = r.matrix;
+  info->primaries = r.primaries;
+  info->transfer = r.transfer;
+}
+
+IK_EXPORT int ik_av1d_tables_size() { return (int)sizeof(Tables); }
+
+IK_EXPORT int ik_av1d_set_tables(const void* blob, int size) {
+  if (size != (int)sizeof(Tables)) return IK_AV1D_NO_TABLES;
+  memcpy(&g_tab, blob, sizeof(Tables));
+  for (int k = 0; k <= 64; ++k)
+    g_cos128[k] = (int)(4096 * std::cos(k * M_PI / 128) + 0.5);
+  g_ready = true;
+  return IK_AV1D_OK;
+}
+
+// The sequence and first frame header: dimensions, layout, bit depth and
+// colour description, without decoding tiles.
+IK_EXPORT int ik_av1d_probe(const uint8_t* data, size_t n, IkAv1dInfo* info) {
+  memset(info, 0, sizeof(*info));
+  try {
+    Decoder d;
+    Result r{};
+    run(data, n, d, r, false);
+    fill(r, info);
+    return IK_AV1D_OK;
+  } catch (const Fail& f) {
+    return finish(f, info);
+  } catch (const std::bad_alloc&) {
+    return finish(Fail{IK_AV1D_BAD, "out of memory"}, info);
+  }
+}
+
+// Decodes the first frame into y (ystride) and u, v (cstride), whose sizes
+// the caller takes from ik_av1d_probe: width x height luma, chroma rounded
+// up by the layout's subsampling; u and v are unused for monochrome.
+IK_EXPORT int ik_av1d_decode(const uint8_t* data, size_t n, uint8_t* y,
+                             int ystride, uint8_t* u, uint8_t* v, int cstride,
+                             IkAv1dInfo* info) {
+  memset(info, 0, sizeof(*info));
+  if (!g_ready) return IK_AV1D_NO_TABLES;
+  try {
+    std::unique_ptr<Decoder> d(new Decoder());
+    Result r{};
+    run(data, n, *d, r, true);
+    fill(r, info);
+    postfilter(*d);
+    int w = r.width, h = r.height;
+    for (int i = 0; i < h; ++i) memcpy(y + (size_t)i * ystride, d->cur[0].row(i), w);
+    if (!r.mono) {
+      int cw = (w + d->ssx) >> d->ssx, ch = (h + d->ssy) >> d->ssy;
+      for (int i = 0; i < ch; ++i) {
+        memcpy(u + (size_t)i * cstride, d->cur[1].row(i), cw);
+        memcpy(v + (size_t)i * cstride, d->cur[2].row(i), cw);
+      }
+    }
+    return IK_AV1D_OK;
+  } catch (const Fail& f) {
+    return finish(f, info);
+  } catch (const std::bad_alloc&) {
+    return finish(Fail{IK_AV1D_BAD, "out of memory"}, info);
+  }
+}
+
+// One 1-D inverse transform, for the tests: kind 0 DCT, 1 ADST, 2 identity,
+// 3 WHT (shift in n); n = log2 of the length.
+IK_EXPORT void ik_av1d_tx1d(int64_t* T, int kind, int n) {
+  if (!g_ready)
+    for (int k = 0; k <= 64; ++k)
+      g_cos128[k] = (int)(4096 * std::cos(k * M_PI / 128) + 0.5);
+  if (kind == 3) return iwht(T, n);
+  tx1d(T, kind, n);
+}

@@ -9,7 +9,9 @@ file) and its own decoders of what the reference hands to Pillow
 ``jpeg4_decode.cpp``: CMYK and YCCK JPEGs, baseline and progressive,
 baseline frames in several scans, arithmetic-coded and lossless frames;
 ``bmp_ext_decode.cpp`` and
-``tiff_ext_decode.cpp``: the BMP and TIFF layouts the copies refuse) are
+``tiff_ext_decode.cpp``: the BMP and TIFF layouts the copies refuse;
+``av1_decode.cpp``: AV1 intra frames, where the reference calls libdav1d)
+are
 compiled at first use, one ``g++ -c`` a source, all started
 together, then linked:
 
@@ -42,7 +44,7 @@ _SOURCES = ("jpeg_entropy.cpp", "vp8_encode.cpp", "vp8_decode.cpp",
             "vp8l_decode.cpp", "png_decode.cpp", "misc_decode.cpp",
             "tiff_decode.cpp", "av1_enc.cpp", "raster_decode.cpp",
             "jpeg4_decode.cpp", "bmp_ext_decode.cpp", "tiff_ext_decode.cpp",
-            "bcn_ext_decode.cpp")
+            "bcn_ext_decode.cpp", "av1_decode.cpp")
 _HEADERS = ("vp8_common.h", "vp8_tables.h")
 BUILD_DIR = _HERE.parents[2] / "build" / "imagekit_tpu_torch"
 _LIB = BUILD_DIR / "libik_native.so"

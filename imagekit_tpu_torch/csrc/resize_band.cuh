@@ -1,5 +1,5 @@
 // The banded two-pass resize body that K2 (resize_strip.cu) and K3/K4
-// (resize_planes.cu) share: up to three planes of a batch in one launch,
+// (resize_planes.cu) share: up to six planes of a batch in one launch,
 // each a plane of pixel rows of C elements (C = 1, 3 for an interleaved RGB
 // batch or 4 for an RGBA one, every channel read), per image b and channel ch
 //
@@ -24,8 +24,10 @@
 //
 // Design, and what each point answers:
 // - One grid for every plane: blockIdx.x walks plane 0's (image, tile of
-//   TR output rows, strip of output columns), then plane 1's, then plane
-//   2's; each plane's pointers,
+//   TR output rows, strip of output columns), then plane 1's, and so on
+//   (up to six: the Y, Cb, Cr and alpha planes of an AVIF batch, or a
+//   BT.709 batch's Y, its chroma to two grids and its alpha); each
+//   plane's pointers,
 //   strides and shapes come by value in the kernel's parameter block
 //   (__grid_constant__). A plane's tiles of one image are neighbours in the
 //   grid, so the rows two tiles share come from L2 the second time.
@@ -147,7 +149,7 @@ constexpr int band_threads() {
   return sizeof(Tin) == 1 && NCH == 1 ? 128 : 256;
 }
 constexpr int kBandChunk = 64;  // input rows of Wv staged per step of pass 1
-constexpr int kBandPlanes = 3;
+constexpr int kBandPlanes = 6;
 constexpr int kSlots = 8;  // ring slots per thread in pass 1 (a power of 2)
 constexpr int kDepth = kSlots - 1;  // row loads in flight per thread
 // at most this much shared memory a block, so that 512 threads (two blocks

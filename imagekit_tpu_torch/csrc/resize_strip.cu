@@ -32,7 +32,7 @@
 
 #include "resize_band.cuh"
 
-// planes: nplanes (1..3) IkPlane records (resize_band.cuh), u8 in and out,
+// planes: nplanes (1..6) IkPlane records (resize_band.cuh), u8 in and out,
 // each with its own affine epilogue; C = 1, 3 or 4 elements a pixel, the
 // same in every plane. Returns a cudaError_t: 0 when the launch was
 // accepted; info (two ints, or null) gets the tile height and the column
@@ -41,4 +41,14 @@ extern "C" int ik_resize_strip(const void* planes, int nplanes, int B,
                                int centered, void* stream, int* info) {
   return band_resize<uint8_t, uint8_t>(static_cast<const IkPlane*>(planes),
                                        nplanes, B, centered, stream, info);
+}
+
+// The same body with u8 planes in and unrounded f32 out (no epilogue): the
+// resizes of a BT.709 AVIF batch, whose 709 -> 601 mix of Y, Cb and Cr
+// needs the planes before rounding (the reference computes it between its
+// einsums and its rounding, imagekit_tpu/ops/dct.py::_yuv_mix_tail).
+extern "C" int ik_resize_strip_f32(const void* planes, int nplanes, int B,
+                                   void* stream, int* info) {
+  return band_resize<uint8_t, float>(static_cast<const IkPlane*>(planes),
+                                     nplanes, B, 0, stream, info);
 }

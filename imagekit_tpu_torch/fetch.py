@@ -30,7 +30,9 @@ unsupported is validated by the port's own parser of those layouts
 Pillow would, is this stage's 400. A JPEG-compressed TIFF is validated by
 its IFD (segment ranges inside the file); a segment that then does not
 decode is the engine's :class:`~imagekit_tpu_torch.errors.
-SourceDecodeError`, answered with this stage's body.
+SourceDecodeError`, answered with this stage's body. An AVIF is probed
+for its dimensions as the reference probes it
+(``avif_native.header_dimensions``), and the engine decodes it once.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from typing import Optional, Tuple
 
 from imagekit_tpu_torch.codecs import (
     SourceFormat,
+    avif_native,
     dds,
     guess_format,
     ico,
@@ -175,6 +178,14 @@ async def fetch_source(
             dims = vp8.dimensions(data)
             if dims is None:
                 return data, ct  # an exotic container: the engine's decode
+            w, h = dims
+        elif src == SourceFormat.avif:
+            # the reference's dims-only probe (``fetch.py:172-183``); a
+            # file it cannot probe goes to its full decode, where one with
+            # no ispe or no av01 item fails as it does here
+            dims = avif_native.header_dimensions(data)
+            if dims is None:
+                raise TransformError("no AVIF image item")
             w, h = dims
         else:
             return data, ct

@@ -157,7 +157,7 @@ def configure_band(lib: ctypes.CDLL) -> None:
     lib.ik_resize_strip.argtypes = [vp, ci, ci, ci, vp, info]
     lib.ik_resize_strip.restype = ci
     for fn in (lib.ik_resize_planes_u8, lib.ik_resize_planes_f32,
-               lib.ik_resize_planes_u8_f32):
+               lib.ik_resize_planes_u8_f32, lib.ik_resize_strip_f32):
         fn.argtypes = [vp, ci, ci, vp, info]
         fn.restype = ci
 

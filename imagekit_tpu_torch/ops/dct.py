@@ -37,13 +37,19 @@ escape-dense image at k < 8 rides block-grouped int16 levels through
 :func:`decode_resize_yuv_lowfreq_batch` (``dct.py:669``): one K1 launch of
 its int16 entry.
 
-The YUV-source heads serve decoded lossy WebP sources, whose planes are
-studio range already: :func:`resize_yuv420_batch` (``dct.py:1436``, WebP
-out: no remap at either end) and :func:`resize_yuv_jpeg_batch`
-(``dct.py:1377``, JPEG out: remap to full range, centre, fDCT). Each is
-ONE K2 launch for the three planes
+The YUV-source heads serve decoded lossy WebP and AVIF sources, whose
+planes are studio range already: :func:`resize_yuv420_batch`
+(``dct.py:1436``, WebP and AVIF out: no remap at either end; chroma in
+4:2:0, 4:2:2 or 4:4:4, and an AVIF's alpha plane) and
+:func:`resize_yuv_jpeg_batch` (``dct.py:1377``, JPEG out: remap to full
+range, centre, fDCT). Each is ONE K2 launch for the planes
 (:func:`imagekit_tpu_torch.ops.resize_strip.yuv_resize`), read in place
-from the flat batch the engine uploads.
+from the flat batch the engine uploads. BT.709 sources (``mix``) take
+K2's f32 entry instead
+(:func:`imagekit_tpu_torch.ops.resize_strip.yuv_mix_resize`: Y, the
+chroma to the half and the full output grid, and the alpha, in one
+launch), then the 709 -> 601 mix :func:`_mix_tail` and the rounding as
+torch ops, as the reference computes them outside any Pallas kernel.
 
 The single-image entries of the JPEG codec (``codecs/jpeg.py``):
 :func:`encode_rgb_to_coefficients` (``dct.py:1793``, ``_encode_kernel``
@@ -87,7 +93,6 @@ import numpy as np
 import torch
 
 from imagekit_tpu_torch.ops import jpeg8
-from imagekit_tpu_torch.errors import NotPortedError
 from imagekit_tpu_torch.ops.color import (
     box2,
     cmyk_to_rgb,
@@ -109,6 +114,7 @@ from imagekit_tpu_torch.ops.resize_planes import (
 from imagekit_tpu_torch.ops.resize_strip import (
     resize_tables,
     rgb_resize,
+    yuv_mix_resize,
     yuv_resize,
 )
 from imagekit_tpu_torch.ops.weights import (
@@ -492,38 +498,96 @@ def decode_resize_yuv_lowfreq_batch(y_flat, cb_flat, cr_flat, qtabs, weights,
     return split_yuv(to_host(flat, device), obh, obw)
 
 
-# -- the YUV-source heads (decoded lossy WebP) -------------------------------
+# -- the YUV-source heads (decoded lossy WebP and AVIF) ----------------------
+
+#: the BT.709 -> BT.601 cross-plane mix of studio-range planes
+#: (``dct.py:1112-1127``: M = A601 @ inv(A709) over the analog YCbCr
+#: matrices; the Y row's chroma terms carry the 219/224 excursion ratio)
+MIX_709_YU = 0.09931166
+MIX_709_YV = 0.19169955
+MIX_709_UU = 0.98985381
+MIX_709_UV = -0.11065251
+MIX_709_VU = -0.07245296
+MIX_709_VV = 0.98339782
 
 
-def yuv_planes(flat: torch.Tensor, bh: int, bw: int):
-    """The (B, bh, bw) Y and (B, bh/2, bw/2) Cb, Cr views of the engine's
-    flat 4:2:0 batch (``dct.py:1176-1184``): rows dense, images a padded
-    row of ``flat`` apart, no copy."""
+def yuv_planes(flat: torch.Tensor, bh: int, bw: int, chroma_sub=(2, 2),
+               alpha: bool = False):
+    """The (B, bh, bw) Y, (B, bh/csy, bw/csx) Cb, Cr and, with ``alpha``,
+    (B, bh, bw) alpha views of the engine's flat batch (``dct.py:1176-1184,
+    1198-1201``): rows dense, images a padded row of ``flat`` apart, no
+    copy."""
     B = flat.shape[0]
-    ny, nc = bh * bw, (bh // 2) * (bw // 2)
-    return (flat[:, :ny].view(B, bh, bw),
-            flat[:, ny:ny + nc].view(B, bh // 2, bw // 2),
-            flat[:, ny + nc:ny + 2 * nc].view(B, bh // 2, bw // 2))
+    csy, csx = chroma_sub
+    ch, cw = bh // csy, bw // csx
+    ny, nc = bh * bw, ch * cw
+    views = [flat[:, :ny].view(B, bh, bw),
+             flat[:, ny:ny + nc].view(B, ch, cw),
+             flat[:, ny + nc:ny + 2 * nc].view(B, ch, cw)]
+    if alpha:
+        views.append(flat[:, ny + 2 * nc:2 * ny + 2 * nc].view(B, bh, bw))
+    return tuple(views)
+
+
+def _mix_tail(ry, cbf, crf, cbh, crh):
+    """The 709 -> 601 mix of the unrounded resizes (``_yuv_mix_tail``,
+    ``dct.py:1129``): luma from Y and the full-grid chroma, chroma from
+    the half-grid chroma. Offsets commute with the resizes because every
+    weight row sums to 1."""
+    cbf, crf = cbf - 128.0, crf - 128.0
+    cbh, crh = cbh - 128.0, crh - 128.0
+    y = ry + MIX_709_YU * cbf + MIX_709_YV * crf
+    cb = 128.0 + MIX_709_UU * cbh + MIX_709_UV * crh
+    cr = 128.0 + MIX_709_VU * cbh + MIX_709_VV * crh
+    return y, cb, cr
 
 
 def resize_yuv420(flat, stacks, vidx, in_shape, bands=None,
-                  resize=yuv_resize) -> torch.Tensor:
-    """Studio-range 4:2:0 planes -> resized, rounded u8 planes, packed
-    flat (``_resize_yuv420_kernel``, ``dct.py:1150``; its Pallas front
-    ``pallas_resize.py:177``). No remap: both ends are studio range."""
+                  resize=yuv_resize, chroma_sub=(2, 2), alpha: bool = False,
+                  mix: bool = False,
+                  mix_resize=yuv_mix_resize) -> torch.Tensor:
+    """Studio-range planes in any chroma factors (and an alpha plane) ->
+    resized, rounded u8 4:2:0 planes (and alpha), packed flat
+    (``_resize_yuv420_kernel`` and its BT.709 twin
+    ``_resize_yuv420_mix_kernel``, ``dct.py:1150,1218``; the Pallas front
+    ``pallas_resize.py:177,271``). No remap: both ends are studio range.
+    With ``mix`` the resizes come unrounded from K2's f32 entry and the
+    709 -> 601 mix runs before the rounding."""
     B = flat.shape[0]
-    out = resize(yuv_planes(flat, *in_shape), stacks, vidx, bands=bands)
+    planes = yuv_planes(flat, *in_shape, chroma_sub, alpha)
+    if mix:
+        r = mix_resize(planes, stacks, vidx, bands=bands)
+        out = [q8(p) for p in _mix_tail(*r[:5])] + [q8(p) for p in r[5:]]
+    else:
+        out = resize(planes, stacks, vidx, bands=bands)
     return torch.cat([p.reshape(B, -1) for p in out], dim=1)
 
 
+def _u8c(p: torch.Tensor) -> torch.Tensor:
+    """The full-range u8 grid hand-off, centred for the fDCT."""
+    return torch.clamp(torch.floor(p + 0.5), 0.0, 255.0) - 128.0
+
+
 def resize_yuv_jpeg(flat, stacks, qt_out, vidx, in_shape, bands=None,
-                    resize=yuv_resize) -> torch.Tensor:
+                    resize=yuv_resize, mix: bool = False,
+                    mix_resize=yuv_mix_resize) -> torch.Tensor:
     """Studio-range 4:2:0 planes -> resized, remapped to full range,
     rounded and centred (K2's epilogues) -> fDCT + quantise -> flat int16
     levels, Y then Cb then Cr (``_resize_yuv_jpeg_kernel``, ``dct.py:1280``;
-    its Pallas front ``pallas_resize.py:319``)."""
-    y, cb, cr = (p.float() for p in resize(
-        yuv_planes(flat, *in_shape), stacks, vidx, jpeg=True, bands=bands))
+    its Pallas front ``pallas_resize.py:319``). With ``mix`` (BT.709
+    sources, ``_resize_yuv_jpeg_mix_kernel``, ``dct.py:1334``) the
+    resizes come unrounded from K2's f32 entry and the mix and the remap
+    run as torch ops."""
+    planes = yuv_planes(flat, *in_shape)
+    if mix:
+        ym, cbm, crm = _mix_tail(*mix_resize(planes, stacks, vidx,
+                                             bands=bands))
+        y = _u8c((ym - 16.0) * (255.0 / 219.0))
+        cb = _u8c((cbm - 128.0) * (255.0 / 224.0) + 128.0)
+        cr = _u8c((crm - 128.0) * (255.0 / 224.0) + 128.0)
+    else:
+        y, cb, cr = (p.float() for p in resize(planes, stacks, vidx,
+                                               jpeg=True, bands=bands))
     return torch.cat([
         _fdct_quant_flat(y, qt_out[:, :64]),
         _fdct_quant_flat(cb, qt_out[:, 64:]),
@@ -531,27 +595,29 @@ def resize_yuv_jpeg(flat, stacks, qt_out, vidx, in_shape, bands=None,
     ], dim=1)
 
 
-def _yuv_source_args(chroma_sub=(2, 2), mix=False, alpha=False) -> None:
-    """The variants that only AVIF sources need are not ported."""
-    if tuple(chroma_sub) != (2, 2) or mix or alpha:
-        raise NotPortedError(
-            "a YUV source that is not BT.601 4:2:0 without alpha (the "
-            "AVIF-source variants of the YUV heads)", "queue 1 item 8")
-
-
 def resize_yuv420_batch(flat, weights, vidx, in_shape, out_shape,
                         chroma_sub=(2, 2), mix=False, alpha=False,
                         bands=None, device: Optional[torch.device] = None):
     """Run the YUV-domain resize (``dct.py:1436``): ``flat`` is the (B,
-    pad128(bh*bw*3/2)) u8 batch, Y then Cb then Cr; returns (Y, Cb, Cr) u8
-    numpy planes at bucket output shapes. One K2 launch on CUDA."""
-    _yuv_source_args(chroma_sub, mix, alpha)
+    pad128(bh*bw + 2*(bh/csy)*(bw/csx) [+ bh*bw])) u8 batch, Y, Cb, Cr
+    [and alpha]; returns (Y, Cb, Cr[, A]) u8 numpy planes at bucket output
+    shapes. ``weights`` is (wv_y, wh_y, wv_c, wh_c), plus the full-grid
+    chroma stacks (wv_cf, wh_cf) with ``mix``; ``bands`` the matching
+    (luma, chroma[, chroma full]) tables or None. One K2 launch on CUDA:
+    the u8 entry, or with ``mix`` the f32 one."""
     obh, obw = out_shape
     device = resolve(device)
     flat, vidx = on_device((flat, vidx), device)
-    out = resize_yuv420(flat, tuple(on_device(weights[:4], device)), vidx,
-                        in_shape, tables_on(bands, device))
-    return split_yuv(to_host(out, device), obh, obw)
+    out = resize_yuv420(flat, tuple(on_device(weights[:6 if mix else 4],
+                                              device)),
+                        vidx, in_shape, tables_on(bands, device),
+                        chroma_sub=tuple(chroma_sub), alpha=alpha, mix=mix)
+    host = to_host(out, device)
+    planes = split_yuv(host[:, :host.shape[1] - (obh * obw if alpha else 0)],
+                       obh, obw)
+    if alpha:
+        return planes + (host[:, -obh * obw:].reshape(-1, obh, obw),)
+    return planes
 
 
 def resize_yuv_jpeg_batch(flat, weights, qt_out, vidx, in_shape, out_shape,
@@ -559,13 +625,15 @@ def resize_yuv_jpeg_batch(flat, weights, qt_out, vidx, in_shape, out_shape,
                           device: Optional[torch.device] = None):
     """Run the YUV -> JPEG head (``dct.py:1377``); returns (y, cb, cr)
     int16 numpy levels of shapes (B, OHb/8, OWb/8, 64) and (B, OHb/16,
-    OWb/16, 64) x2 for the host Huffman encoder. One K2 launch on CUDA."""
-    _yuv_source_args(mix=mix)
+    OWb/16, 64) x2 for the host Huffman encoder. 4:2:0 sources only, as the
+    reference's. One K2 launch on CUDA (the f32 entry with ``mix``)."""
     obh, obw = out_shape
     device = resolve(device)
     flat, qt_out, vidx = on_device((flat, qt_out, vidx), device)
-    out = resize_yuv_jpeg(flat, tuple(on_device(weights[:4], device)),
-                          qt_out, vidx, in_shape, tables_on(bands, device))
+    out = resize_yuv_jpeg(flat, tuple(on_device(weights[:6 if mix else 4],
+                                                device)),
+                          qt_out, vidx, in_shape, tables_on(bands, device),
+                          mix=mix)
     return split_yuv(to_host(out, device), obh, obw, block=8)
 
 

@@ -13,7 +13,7 @@ shares with K3 (``csrc/resize_band.cuh``); its plain PyTorch versions,
 :func:`plane_resize_plain`, :func:`rgb_resize_plain` and
 :func:`rgba_resize_plain`, sit beside it.
 
-Four entries launch it:
+Five entries launch it:
 
 - :func:`rgb_resize`, the RGB heads' main path: the interleaved (B, H,
   W*3) u8 batch -> the three rounded u8 planes (B, 3, OH, OW), one launch
@@ -27,11 +27,17 @@ Four entries launch it:
   of the three epilogues (a channel of an interleaved batch goes
   through :func:`rgb_resize`, or as a contiguous copy);
 - :func:`yuv_resize`, the YUV-source heads' main path
-  (``pallas_resize.py:177-202,319-353``): the Y, Cb and Cr planes of a
-  decoded WebP batch, two shapes with their own stacks, in one launch, as
-  rounded u8 planes (WebP output) or, with ``jpeg=True``, remapped from
-  studio to full range (Y and chroma by their own constants,
-  :data:`JPEG_REMAP`) and centred to i8 for the fDCT.
+  (``pallas_resize.py:177-202,271-289,319-353``): the Y, Cb and Cr planes
+  of a decoded WebP or AVIF batch, chroma in any factors, and an AVIF's
+  alpha plane as a fourth, each shape with its own stacks, in one launch,
+  as rounded u8 planes (WebP, AVIF output) or, with ``jpeg=True``,
+  remapped from studio to full range (Y and chroma by their own
+  constants, :data:`JPEG_REMAP`) and centred to i8 for the fDCT;
+- :func:`yuv_mix_resize`, the BT.709 YUV heads' resizes
+  (``dct.py:1129-1148``, which the reference runs as XLA einsums): Y,
+  both chroma planes to the half and the full output grid and the alpha
+  plane, up to six planes in one launch of K2's f32 entry, unrounded for
+  the 709 -> 601 mix that follows as torch ops.
 
 The Lanczos stacks are banded: a row of ``Wv`` has about 27 nonzero taps
 out of 1088 at the 1080p -> 240 bucket, a row of ``Wh`` about 29 out of
@@ -65,6 +71,9 @@ LAUNCHES_RGBA = 0
 #: launches of any entry above that took the body's column strips (rows
 #: too wide for a tile of whole rows), counted besides their entry's count
 LAUNCHES_STRIPS = 0
+#: launches of :func:`yuv_resize` and :func:`yuv_mix_resize` by the entry
+#: :func:`yuv_entry` names (also counted in :data:`LAUNCHES`)
+YUV_LAUNCHES: dict = {}
 _launch_lock = threading.Lock()
 
 #: the yuvjpg head's studio -> full-range remaps, ``(v + pre) * scale +
@@ -350,29 +359,41 @@ def rgba_resize(imgs: torch.Tensor, wv: torch.Tensor, wh: torch.Tensor,
     return out
 
 
-def _remaps(jpeg: bool):
-    """The (Y, Cb, Cr) epilogue constants of :func:`yuv_resize`."""
+def _remaps(jpeg: bool, n: int = 3):
+    """The (Y, Cb, Cr[, A]) epilogue constants of :func:`yuv_resize`: the
+    alpha plane (never in a JPEG batch) keeps K2's default epilogue."""
     luma, chroma = JPEG_REMAP if jpeg else ({}, {})
-    return luma, chroma, chroma
+    return (luma, chroma, chroma, {})[:n]
 
 
-def yuv_resize(planes, stacks, vidx: torch.Tensor, *, jpeg: bool = False,
-               bands=None):
-    """The Y, Cb and Cr planes of a YUV-source batch in one K2 launch:
-    (B, IH, IW) u8 for Y and (B, IH/2, IW/2) x2 for chroma, each with dense
-    rows (a plane's images may lie a padded batch row apart: the views of
-    the engine's flat batch are read in place). Y is resized with
-    ``stacks[:2]`` and Cb, Cr with ``stacks[2:]`` ((wv, wh) each), all
-    picked by ``vidx``. Returns the three (B, OH, OW) planes: rounded u8, or
-    with ``jpeg`` remapped by :data:`JPEG_REMAP` (luma's constants for Y,
-    chroma's for Cb and Cr, each in its plane's record) and centred to i8.
-    ``bands`` is None or a (luma, chroma) pair of :class:`ResizeTables`."""
-    wv_y, wh_y, wv_c, wh_c = stacks
-    luma_b, chroma_b = bands if bands is not None else (None, None)
-    planes = list(planes)
-    pairs = [(wv_y, wh_y), (wv_c, wh_c), (wv_c, wh_c)]
-    tabs = [tables(wv, wh, b)
-            for (wv, wh), b in zip(pairs, (luma_b, chroma_b, chroma_b))]
+def _yuv_pairs(stacks, n: int):
+    """The (wv, wh) pair of each of :func:`yuv_resize`'s planes: luma's for
+    Y and alpha, chroma's for Cb and Cr."""
+    wv_y, wh_y, wv_c, wh_c = stacks[:4]
+    return [(wv_y, wh_y), (wv_c, wh_c), (wv_c, wh_c), (wv_y, wh_y)][:n]
+
+
+def _count_yuv(entry: str) -> None:
+    with _launch_lock:
+        YUV_LAUNCHES[entry] = YUV_LAUNCHES.get(entry, 0) + 1
+
+
+def yuv_entry(planes, mix: bool = False) -> str:
+    """The name under which :data:`YUV_LAUNCHES` counts a launch of these
+    planes: the chroma factors (``"420"``, ``"422"``, ``"444"``), ``"+a"``
+    with an alpha plane, ``"+mix"`` for the BT.709 entry."""
+    y, cb = planes[0], planes[1]
+    csy, csx = y.shape[1] // max(cb.shape[1], 1), y.shape[2] // max(
+        cb.shape[2], 1)
+    name = {(2, 2): "420", (1, 2): "422", (1, 1): "444"}.get(
+        (csy, csx), f"{csy}x{csx}")
+    return name + ("+a" if len(planes) == 4 else "") + ("+mix" if mix else "")
+
+
+def _check_yuv(planes, pairs, vidx, bands):
+    """The checks of :func:`yuv_resize`'s planes and stacks; returns the
+    planes' :class:`ResizeTables`."""
+    tabs = [tables(wv, wh, b) for (wv, wh), b in zip(pairs, bands)]
     for x, (wv, wh), t in zip(planes, pairs, tabs):
         on_device_with_kernel(x, "K2")
         if x.dtype != torch.uint8 or x.dim() != 3:
@@ -382,26 +403,101 @@ def yuv_resize(planes, stacks, vidx: torch.Tensor, *, jpeg: bool = False,
             raise ValueError(f"a plane's rows (strides {x.stride()}) must "
                              f"be dense; only its images may lie apart")
         check_args(x.device, x.shape, wv, wh, vidx, vidx, t)
-    if planes[0].device.type == "cpu":
-        return yuv_resize_plain(planes, stacks, vidx, jpeg=jpeg)
+    return tabs
+
+
+def _launch_yuv(planes, pairs, tabs, vidx, remaps, centered: bool,
+                f32: bool):
+    """One K2 launch over ``planes`` (u8 out with each plane's epilogue, or
+    f32); returns the outputs."""
     recs, outs = [], []
-    for x, (wv, wh), t, kw in zip(planes, pairs, tabs, _remaps(jpeg)):
+    dtype = torch.float32 if f32 else torch.int8 if centered else torch.uint8
+    for x, (wv, wh), t, kw in zip(planes, pairs, tabs, remaps):
         B, ih, iw = x.shape
         sb = x.stride(0) if B > 1 else ih * iw
         check_rows(x.data_ptr(), sb, iw, iw, 4 * t.taps_h.shape[1], iw, 8, 1)
         oh, ow = wv.shape[1], wh.shape[1]
-        out = torch.empty((B, oh, ow), device=x.device,
-                          dtype=torch.int8 if jpeg else torch.uint8)
+        out = torch.empty((B, oh, ow), device=x.device, dtype=dtype)
         recs.append(plane_record(x.data_ptr(), sb, iw, 1, wv, t, vidx, vidx,
                                  out, oh * ow, 0, ih, iw, **kw))
         outs.append(out)
     lib = _build.load()
     dev = planes[0].device
     with torch.cuda.device(dev):
-        info = _build.launch_band(lib.ik_resize_strip, recs,
-                                  planes[0].shape[0], int(jpeg), _stream(dev))
+        if f32:
+            info = _build.launch_band(lib.ik_resize_strip_f32, recs,
+                                      planes[0].shape[0], _stream(dev))
+        else:
+            info = _build.launch_band(lib.ik_resize_strip, recs,
+                                      planes[0].shape[0], int(centered),
+                                      _stream(dev))
     _count(info)
     return tuple(outs)
+
+
+def yuv_resize(planes, stacks, vidx: torch.Tensor, *, jpeg: bool = False,
+               bands=None):
+    """The Y, Cb and Cr planes of a YUV-source batch, and its alpha plane
+    when there are four, in one K2 launch: (B, IH, IW) u8 for Y and alpha
+    and (B, IH/csy, IW/csx) for chroma in any factors (4:2:0, 4:2:2, 4:4:4),
+    each with dense rows (a plane's images may lie a padded batch row
+    apart: the views of the engine's flat batch are read in place). Y and
+    alpha are resized with ``stacks[:2]`` and Cb, Cr with ``stacks[2:4]``
+    ((wv, wh) each), all picked by ``vidx``. Returns the (B, OH, OW)
+    planes: rounded u8, or with ``jpeg`` (three planes) remapped by
+    :data:`JPEG_REMAP` (luma's constants for Y, chroma's for Cb and Cr,
+    each in its plane's record) and centred to i8. ``bands`` is None or a
+    (luma, chroma) pair of :class:`ResizeTables`."""
+    planes = list(planes)
+    n = len(planes)
+    if n not in (3, 4) or (jpeg and n != 3):
+        raise ValueError(f"{n} planes: Y, Cb, Cr and at most an alpha plane "
+                         f"(none in a JPEG batch)")
+    luma_b, chroma_b = bands if bands is not None else (None, None)
+    pairs = _yuv_pairs(stacks, n)
+    tabs = _check_yuv(planes, pairs, vidx,
+                      (luma_b, chroma_b, chroma_b, luma_b)[:n])
+    if planes[0].device.type == "cpu":
+        return yuv_resize_plain(planes, stacks, vidx, jpeg=jpeg)
+    outs = _launch_yuv(planes, pairs, tabs, vidx, _remaps(jpeg, n), jpeg,
+                       False)
+    _count_yuv(yuv_entry(planes))
+    return outs
+
+
+def _mix_pairs(stacks, n: int):
+    """The (wv, wh) pairs of :func:`yuv_mix_resize`'s six resizes: Y with
+    luma's, Cb and Cr with the full-grid chroma stacks, then with the
+    half-grid ones, alpha with luma's."""
+    wv_y, wh_y, wv_c, wh_c, wv_cf, wh_cf = stacks
+    pairs = [(wv_y, wh_y), (wv_cf, wh_cf), (wv_cf, wh_cf), (wv_c, wh_c),
+             (wv_c, wh_c), (wv_y, wh_y)]
+    return pairs[:5 + (n == 4)]
+
+
+def yuv_mix_resize(planes, stacks, vidx: torch.Tensor, *, bands=None):
+    """The resizes of a BT.709 YUV-source batch in one K2 launch, f32 out
+    and unrounded, for the 709 -> 601 mix (``dct.py:1129``): Y to the
+    output grid, Cb and Cr to the full output grid (the mix's luma row)
+    and to the half grid (its chroma block), and the alpha plane when
+    there are four. ``stacks`` is (wv_y, wh_y, wv_c, wh_c, wv_cf, wh_cf);
+    ``bands`` None or the (luma, chroma half, chroma full)
+    :class:`ResizeTables`. Returns (Y, CbF, CrF, Cbh, Crh[, A])."""
+    planes = list(planes)
+    n = len(planes)
+    if n not in (3, 4):
+        raise ValueError(f"{n} planes: Y, Cb, Cr and at most an alpha plane")
+    luma_b, half_b, full_b = bands if bands is not None else (None,) * 3
+    srcs = [planes[0], planes[1], planes[2], planes[1], planes[2]] + planes[3:]
+    pairs = _mix_pairs(stacks, n)
+    tabs = _check_yuv(srcs, pairs, vidx,
+                      [luma_b, full_b, full_b, half_b, half_b, luma_b])
+    if planes[0].device.type == "cpu":
+        return yuv_mix_resize_plain(planes, stacks, vidx)
+    outs = _launch_yuv(srcs, pairs, tabs, vidx, [{}] * len(srcs), False,
+                       True)
+    _count_yuv(yuv_entry(planes, mix=True))
+    return outs
 
 
 def plane_resize_plain(x, wv, wh, vidx, hidx, *, scale: float = 1.0,
@@ -445,8 +541,24 @@ def yuv_resize_plain(planes, stacks, vidx, *, jpeg: bool = False, bands=None):
     """Plain PyTorch version of :func:`yuv_resize`: K2's plain version on
     each plane, with the plane's remap."""
     del bands
-    wv_y, wh_y, wv_c, wh_c = stacks
-    pairs = [(wv_y, wh_y), (wv_c, wh_c), (wv_c, wh_c)]
+    planes = list(planes)
     return tuple(
         plane_resize_plain(x, wv, wh, vidx, vidx, centered=jpeg, **kw)
-        for x, (wv, wh), kw in zip(planes, pairs, _remaps(jpeg)))
+        for x, (wv, wh), kw in zip(planes, _yuv_pairs(stacks, len(planes)),
+                                   _remaps(jpeg, len(planes))))
+
+
+def resize_plain_f32(x, wv, wh, vidx) -> torch.Tensor:
+    """K2's f32 entry's plain version on one plane: the dense product,
+    unrounded."""
+    return torch.bmm(torch.bmm(wv[vidx.long()], x.float()),
+                     wh[vidx.long()].transpose(1, 2))
+
+
+def yuv_mix_resize_plain(planes, stacks, vidx, *, bands=None):
+    """Plain PyTorch version of :func:`yuv_mix_resize`."""
+    del bands
+    planes = list(planes)
+    srcs = [planes[0], planes[1], planes[2], planes[1], planes[2]] + planes[3:]
+    return tuple(resize_plain_f32(x, wv, wh, vidx)
+                 for x, (wv, wh) in zip(srcs, _mix_pairs(stacks, len(planes))))

@@ -6,7 +6,7 @@ from __future__ import annotations
 import asyncio
 import time
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -28,9 +28,10 @@ class _Item:
 
 @dataclass
 class _YuvItem:
-    """A decoded studio-range YUV 4:2:0 source (the native WebP decode)
-    bound for a WebP or JPEG output: resized entirely in YUV space, no RGB
-    anywhere (JPEG outputs ride the resize + remap + fDCT head)."""
+    """A decoded studio-range YUV source (the native WebP decode, or an
+    AVIF's in any chroma factors) bound for a WebP, AVIF or JPEG output:
+    resized entirely in YUV space, no RGB anywhere (JPEG outputs ride the
+    resize + remap + fDCT head)."""
 
     y: np.ndarray
     cb: np.ndarray
@@ -40,6 +41,8 @@ class _YuvItem:
     quality: int
     future: asyncio.Future
     fmt: ImageFormat = ImageFormat.webp
+    alpha: Optional[np.ndarray] = None  # full-range u8, luma geometry
+    mix: bool = False  # BT.709 source: the head applies the 709->601 mix
     enqueued: float = field(default_factory=time.perf_counter)
 
 

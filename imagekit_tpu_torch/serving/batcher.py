@@ -7,8 +7,8 @@ item has waited ``max_delay_ms``, and each flush is ONE device call while
 the host codec stages run on a thread pool. Admission control, the
 split-by-geometry rule and the depth-aware soft flush are the reference's.
 Three heads are served: JPEG sources on their coefficients
-(:mod:`.engine_jpeg`, ``_jqueues``), lossy WebP sources on their decoded
-YUV planes (:mod:`.engine_yuv`, ``_yqueues``), and sources decoded to
+(:mod:`.engine_jpeg`, ``_jqueues``), lossy WebP and AVIF sources on their
+decoded YUV planes (:mod:`.engine_yuv`, ``_yqueues``), and sources decoded to
 pixels (:mod:`.engine_rgb`, ``_queues``): PNGs, the other WebPs, GIF, BMP,
 TIFF, HDR and farbfeld, with 3 channels on the fused heads and with 4 on
 the plain RGB head. A request with no resize decodes and encodes one image
@@ -410,6 +410,16 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
             # lossless or extended container decodes to pixels instead
             try:
                 return await self._transform_webp_native(
+                    data, w, h, fmt, quality
+                )
+            except _NativeUnsupported:
+                pass
+        if src == SourceFormat.avif and resize:
+            # the port's AV1 decode feeds the same YUV-domain batch
+            # (``batcher.py:335-345``), in any chroma factors, with its
+            # alpha plane (AVIF output) and BT.709 mix
+            try:
+                return await self._transform_avif_native(
                     data, w, h, fmt, quality
                 )
             except _NativeUnsupported:

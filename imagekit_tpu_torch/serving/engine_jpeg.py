@@ -37,6 +37,7 @@ the reference's Pillow fallback does).
 from __future__ import annotations
 
 import asyncio
+import functools
 import time
 from typing import Dict, Optional, Tuple
 
@@ -322,12 +323,15 @@ class JpegPathMixin:
                     it.future.set_exception(e)
 
     async def _finish_jpeg_yuv(self, out, i: int, it) -> None:
-        yb, cbb, crb = out
+        """Crop a YUV head's 4:2:0 planes (and its alpha plane, the fourth
+        where there is one) and encode them (WebP or AVIF)."""
+        yb, cbb, crb = out[:3]
         ch = (it.out_h + 1) // 2
         cw = (it.out_w + 1) // 2
+        alpha = out[3][i, : it.out_h, : it.out_w] if len(out) > 3 else None
         await _settle(it, self._encode_yuv(
             yb[i, : it.out_h, : it.out_w], cbb[i, :ch, :cw], crb[i, :ch, :cw],
-            it.quality, it.fmt,
+            it.quality, it.fmt, alpha=alpha,
         ))
 
     async def _finish_rgb_jpeg(self, out, i: int, it) -> None:
@@ -436,15 +440,21 @@ class JpegPathMixin:
         self._dweights.put(wkey, cached)
         return cached
 
-    async def _encode_yuv(self, y, cb, cr, q: int, fmt: ImageFormat) -> bytes:
+    async def _encode_yuv(self, y, cb, cr, q: int, fmt: ImageFormat,
+                          alpha=None) -> bytes:
         """WebP or AVIF encode from device-produced studio-range 4:2:0
         planes: only the VP8 or AV1 bitstream runs on the host
-        (``imagekit_tpu/serving/engine_yuv.py:488-517``)."""
+        (``imagekit_tpu/serving/engine_yuv.py:488-517``). ``alpha``
+        (full-range, luma geometry) feeds the AVIF encoder's alpha arm;
+        WebP output never gets one."""
         if fmt == ImageFormat.avif:
             from imagekit_tpu_torch.codecs import avif_encode
 
             return await self._pool_run(
-                "encode", avif_encode.encode_yuv420_studio, y, cb, cr, q,
+                "encode", functools.partial(
+                    avif_encode.encode_yuv420_studio, y, cb, cr, q,
+                    alpha=np.ascontiguousarray(alpha)
+                    if alpha is not None else None),
                 pool=self._avif_pool,
             )
         from imagekit_tpu_torch.codecs import vp8 as vp8_native

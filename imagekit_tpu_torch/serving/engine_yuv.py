@@ -1,25 +1,28 @@
-"""YUV-source head: decoded lossy WebP planes -> K2 on the card -> WebP,
-JPEG or AVIF.
+"""YUV-source head: decoded lossy WebP and AVIF planes -> K2 on the card ->
+WebP, JPEG or AVIF.
 
-Counterpart of ``imagekit_tpu/serving/engine_yuv.py:32-58,111-372`` for
-lossy WebP sources (studio-range BT.601 4:2:0, no alpha plane): the native
-VP8 decode hands its planes over on the codec pool, a batch is the
-reference's flat (B, pad128(bh*bw*3/2)) u8 layout (Y, then Cb, then Cr;
-every plane starts on a multiple of 64 bytes, so K2 reads the three in
-place), and one call of
-:func:`imagekit_tpu_torch.ops.dct.resize_yuv420_batch` (WebP, AVIF output) or
-:func:`imagekit_tpu_torch.ops.dct.resize_yuv_jpeg_batch` (JPEG output), one
-K2 launch on CUDA, produces what the host VP8, first-party AV1 or Huffman
-encoder takes (WebP and AVIF items share a batch).
-No RGB anywhere. The weight stacks live on the device with their band and
-compact tables. Planes beyond the bucket ladder are turned away
-(``_NativeUnsupported``) to the pixel decode and the engine's exact-shape
-path, as the reference turns them away.
+Counterpart of ``imagekit_tpu/serving/engine_yuv.py:32-372``. A lossy
+WebP's planes come from the native VP8 decode (studio-range BT.601 4:2:0);
+an AVIF's from the port's AV1 decoder (:mod:`imagekit_tpu_torch.codecs.
+avif_native`): studio range, 4:2:0, 4:2:2 or 4:4:4, with an alpha plane
+and a BT.709 flag. Both are decoded on the codec pool. A batch is the
+reference's flat (B, pad128(bh*bw + 2*(bh/csy)*(bw/csx) [+ bh*bw])) u8
+layout (Y, Cb, Cr, then alpha; every plane starts on a multiple of 64
+bytes, so K2 reads them in place), keyed by chroma factors, alpha and the
+709 mix as the reference keys it, and one call of
+:func:`imagekit_tpu_torch.ops.dct.resize_yuv420_batch` (WebP, AVIF output)
+or :func:`imagekit_tpu_torch.ops.dct.resize_yuv_jpeg_batch` (JPEG output),
+one K2 launch on CUDA, produces what the host VP8, first-party AV1 or
+Huffman encoder takes (WebP and AVIF items share a batch). No RGB
+anywhere. Only AVIF output keeps an alpha plane; WebP output drops it, and
+JPEG output of chroma factors other than 4:2:0 takes the pixel decode, as
+at the reference's ``engine_yuv.py:96-106``. The weight stacks live on the
+device with their band and compact tables. Planes beyond the bucket ladder
+are turned away (``_NativeUnsupported``) to the pixel decode and the
+engine's exact-shape path, as the reference turns them away.
 
-Not ported: AVIF sources (``_transform_avif_native``) with their BT.709,
-4:2:2 / 4:4:4 and alpha variants of the batch; and, by design, the compile
-kick and the host fallback for cold shapes (a hand-written kernel has no
-per-shape compile).
+Not ported, by design: the compile kick and the host fallback for cold
+shapes (a hand-written kernel has no per-shape compile).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from imagekit_tpu_torch.ops.dct import resize_yuv420_batch, resize_yuv_jpeg_batc
 from imagekit_tpu_torch.ops.resize_strip import ResizeTables, resize_tables
 from imagekit_tpu_torch.ops.weights import (
     combined_chroma_half_weights,
+    combined_chroma_weights,
     pad128,
     quality_tables,
     target_dimensions,
@@ -72,11 +76,48 @@ class YuvPathMixin:
             raise _NativeUnsupported()
         return await self._enqueue_yuv(planes, w, h, quality, loop, fmt)
 
+    async def _transform_avif_native(
+        self, data: bytes, w, h, fmt: ImageFormat, quality: int
+    ) -> bytes:
+        """AVIF -> WebP, JPEG or AVIF through the YUV-domain batch
+        (``engine_yuv.py:60-110``): the container parse and the port's AV1
+        decode on the codec pool yield studio-range planes. Raises
+        ``_NativeUnsupported`` for what the pixel decode takes instead (a
+        file the direct path declines, 4:2:2 or 4:4:4 to JPEG) and lets
+        NotPortedError through (a tool the decoder does not build)."""
+        from imagekit_tpu_torch.codecs import avif_native
+
+        loop = asyncio.get_running_loop()
+        self._ensure_flusher(loop)
+
+        def avif_decode():
+            try:
+                # only AVIF output keeps alpha: the other outputs skip the
+                # alpha item's decode outright
+                return avif_native.decode_yuv_studio(
+                    data, want_alpha=(fmt == ImageFormat.avif))
+            except ValueError as e:
+                raise _NativeUnsupported() from e
+
+        out = await self._pool_run("avif_decode", avif_decode)
+        if out is None:  # declined or undecodable -> the pixel decode
+            raise _NativeUnsupported()
+        if (out.csy, out.csx) != (2, 2) and fmt == ImageFormat.jpeg:
+            # the fDCT head takes 4:2:0 only; the pixel decode takes these
+            raise _NativeUnsupported()
+        alpha = out.alpha if fmt == ImageFormat.avif else None
+        return await self._enqueue_yuv(
+            (out.y, out.u, out.v), w, h, quality, loop, fmt,
+            cs=(out.csy, out.csx), alpha=alpha, mix=out.bt709)
+
     async def _enqueue_yuv(self, planes, w, h, quality: int, loop,
-                           fmt: ImageFormat) -> bytes:
-        """Queue decoded studio-range planes; the output-format tag keeps
-        resize-only (WebP, AVIF) and resize + fDCT (JPEG) batches
-        homogeneous."""
+                           fmt: ImageFormat, cs=(2, 2), alpha=None,
+                           mix: bool = False) -> bytes:
+        """Queue decoded studio-range planes (``engine_yuv.py:111-149``);
+        the output-format tag keeps resize-only (WebP, AVIF) and resize +
+        fDCT (JPEG) batches homogeneous, and ``cs`` (the source chroma
+        factors), ``alpha`` (full-range u8, luma geometry) and ``mix``
+        (BT.709 planes) key their own batches of the same head."""
         y, cb, cr = planes
         ih, iw = y.shape
         out_w, out_h = target_dimensions(iw, ih, w, h)
@@ -89,8 +130,10 @@ class YuvPathMixin:
         if bh % 16 or bw % 16:
             raise _NativeUnsupported()
         fut: asyncio.Future = loop.create_future()
-        item = _YuvItem(y, cb, cr, out_h, out_w, quality, fut, fmt=fmt)
-        key = (bh, bw, obh, obw, fmt == ImageFormat.jpeg)
+        item = _YuvItem(y, cb, cr, out_h, out_w, quality, fut, fmt=fmt,
+                        alpha=alpha, mix=mix)
+        key = (bh, bw, obh, obw, fmt == ImageFormat.jpeg, cs[0], cs[1], mix,
+               alpha is not None)
         queue = self._yqueues.setdefault(key, [])
         queue.append(item)
         self.metrics.queue_depth = self._total_queued()
@@ -109,14 +152,15 @@ class YuvPathMixin:
 
     async def _flush_yuv_group(self, key, items) -> None:
         loop = asyncio.get_running_loop()
-        bh, bw, obh, obw, jq = key
-        ch_b, cw_b = bh // 2, bw // 2  # source chroma bucket dims
+        bh, bw, obh, obw, jq, csy, csx, mix, al = key
+        ch_b, cw_b = bh // csy, bw // csx  # source chroma bucket dims
         try:
             t0 = time.perf_counter()
             nb = batch_bucket(len(items), self.max_batch)
             ny = bh * bw
             nc = ch_b * cw_b
-            flat = np.zeros((nb, pad128(ny + 2 * nc)), np.uint8)
+            flat = np.zeros((nb, pad128(ny + 2 * nc + (ny if al else 0))),
+                            np.uint8)
             u_keys: Dict[Tuple[int, int, int, int], int] = {
                 g: i
                 for i, g in enumerate(
@@ -137,6 +181,10 @@ class YuvPathMixin:
                 flat[i, ny:ny + nc].reshape(ch_b, cw_b)[:chh, :cww] = it.cb
                 flat[i, ny + nc:ny + 2 * nc].reshape(ch_b, cw_b)[
                     :chh, :cww] = it.cr
+                if al:
+                    # the pad region stays 0 (transparent), cropped on host
+                    flat[i, ny + 2 * nc:2 * ny + 2 * nc].reshape(bh, bw)[
+                        :ihh, :iww] = it.alpha
                 vidx[i] = u_keys[(iww, ihh, it.out_w, it.out_h)]
                 if jq:
                     qto[i, :64], qto[i, 64:] = quality_tables(it.quality)
@@ -148,11 +196,12 @@ class YuvPathMixin:
                     if jq:
                         return resize_yuv_jpeg_batch(
                             put(flat), weights, put(qto), put(vidx),
-                            (bh, bw), (obh, obw), bands=bands,
+                            (bh, bw), (obh, obw), mix=mix, bands=bands,
                             device=self.device,
                         )
                     return resize_yuv420_batch(
                         put(flat), weights, put(vidx), (bh, bw), (obh, obw),
+                        chroma_sub=(csy, csx), mix=mix, alpha=al,
                         bands=bands, device=self.device,
                     )
 
@@ -176,15 +225,18 @@ class YuvPathMixin:
             self.metrics.queue_depth = self._total_queued()
 
     def _yuv_weights(self, key, u_keys):
-        """The (wv_y, wh_y, wv_c, wh_c) stacks for this set of geometries
-        and their (luma, chroma) :class:`ResizeTables`, kept on the
-        engine's device across batches (``engine_yuv.py:223-279``): luma
-        Lanczos stacks, chroma with subsample, resize and upsample folded to
-        HALF output resolution. For JPEG output the rows past the true
-        output replicate the last true row up to the MCU grid (the staged
-        encoder's ``np.pad(mode="edge")``); the tables are built after
-        that."""
-        bh, bw, obh, obw, jq = key
+        """The (wv_y, wh_y, wv_c, wh_c[, wv_cf, wh_cf]) stacks for this set
+        of geometries and their (luma, chroma[, chroma full])
+        :class:`ResizeTables`, kept on the engine's device across batches
+        (``engine_yuv.py:223-279``): luma Lanczos stacks, chroma with
+        subsample, resize and upsample (the identity on an axis the source
+        does not subsample) folded to HALF output resolution, and for a
+        BT.709 batch to the FULL output grid too. For JPEG output the rows
+        past the true output replicate the last true row up to the MCU
+        grid (the staged encoder's ``np.pad(mode="edge")``); the tables
+        are built after that."""
+        bh, bw, obh, obw, jq, csy, csx, mix, _al = key
+        ch_b, cw_b = bh // csy, bw // csx
         wkey = ("yuvsrc", key, tuple(sorted(u_keys)))
         cached = self._dweights.get(wkey)
         if cached is not None:
@@ -192,16 +244,23 @@ class YuvPathMixin:
         nu = self.MAX_UNIQUE
         wv_y = np.zeros((nu, obh, bh), np.float32)
         wh_y = np.zeros((nu, obw, bw), np.float32)
-        wv_c = np.zeros((nu, obh // 2, bh // 2), np.float32)
-        wh_c = np.zeros((nu, obw // 2, bw // 2), np.float32)
+        wv_c = np.zeros((nu, obh // 2, ch_b), np.float32)
+        wh_c = np.zeros((nu, obw // 2, cw_b), np.float32)
+        if mix:
+            wv_cf = np.zeros((nu, obh, ch_b), np.float32)
+            wh_cf = np.zeros((nu, obw, cw_b), np.float32)
         for (iww, ihh, ow_, oh_), u in u_keys.items():
-            ch_, cw_ = (ihh + 1) // 2, (iww + 1) // 2
+            ch_ = (ihh + csy - 1) // csy
+            cw_ = (iww + csx - 1) // csx
             wv_y[u] = _cached_weights(ihh, oh_, bh, obh)
             wh_y[u] = _cached_weights(iww, ow_, bw, obw)
             wv_c[u] = combined_chroma_half_weights(
-                ch_, ihh, oh_, bh // 2, obh // 2)
+                ch_, ihh, oh_, ch_b, obh // 2)
             wh_c[u] = combined_chroma_half_weights(
-                cw_, iww, ow_, bw // 2, obw // 2)
+                cw_, iww, ow_, cw_b, obw // 2)
+            if mix:
+                wv_cf[u] = combined_chroma_weights(ch_, ihh, oh_, ch_b, obh)
+                wh_cf[u] = combined_chroma_weights(cw_, iww, ow_, cw_b, obw)
             if jq:
                 m_h = min((oh_ + 15) // 16 * 16, obh)
                 m_w = min((ow_ + 15) // 16 * 16, obw)
@@ -211,10 +270,15 @@ class YuvPathMixin:
                 cw_t = (ow_ + 1) // 2
                 wv_c[u, ch_t: m_h // 2] = wv_c[u, ch_t - 1]
                 wh_c[u, cw_t: m_w // 2] = wh_c[u, cw_t - 1]
-        stacks = [torch.from_numpy(w_) for w_ in (wv_y, wh_y, wv_c, wh_c)]
+                if mix:
+                    wv_cf[u, oh_:m_h] = wv_cf[u, oh_ - 1]
+                    wh_cf[u, ow_:m_w] = wh_cf[u, ow_ - 1]
+        arrays = (wv_y, wh_y, wv_c, wh_c) + ((wv_cf, wh_cf) if mix else ())
+        stacks = [torch.from_numpy(w_) for w_ in arrays]
         bands = tuple(ResizeTables(*(t.to(self.device)
                                      for t in resize_tables(*pair)))
-                      for pair in (stacks[:2], stacks[2:]))
+                      for pair in (stacks[0:2], stacks[2:4], stacks[4:6])
+                      if pair)
         cached = (tuple(s.to(self.device) for s in stacks), bands)
         self._dweights.put(wkey, cached)
         return cached

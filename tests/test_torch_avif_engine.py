@@ -21,7 +21,8 @@ engine.
   rgbyuv head.
 - The HTTP app: a signed ``/img?...&f=avif`` answers 200 ``image/avif``
   with an ETag and a ``.avif`` disk-cache entry, then hits that entry; an
-  AVIF source still answers 501 naming queue 1 item 8.
+  AVIF source is served (200) and one of the AV1 decoder's remainder (a
+  10-bit stream) answers 501 naming queue 1 item 8.
 """
 
 import asyncio
@@ -36,7 +37,7 @@ from PIL import Image
 from imagekit_tpu import config as ref_config
 from imagekit_tpu.codecs import avif_native
 from imagekit_tpu.serving.metrics import Metrics as RefMetrics
-from imagekit_tpu_torch.codecs import avif_encode
+from imagekit_tpu_torch.codecs import avif_encode, vp8
 from imagekit_tpu_torch.config import ImageFormat, ImageKitConfig
 from imagekit_tpu_torch.ops.weights import target_dimensions
 from imagekit_tpu_torch.serving import engine_jpeg, engine_rgb, engine_yuv
@@ -55,6 +56,7 @@ from tests.test_torch_jxc_slice import (
     jpeg_sig,
     run_engines,
 )
+from tests.test_torch_av1_decode import remainder_avif
 from tests.test_torch_slice import _OfflineFetcher
 from tests.test_vp8_decode import _libwebp
 
@@ -293,11 +295,15 @@ JPG = "https://example.com/a.jpg"
 AVIF = "https://example.com/a.avif"
 
 
+AVIF_10BIT = "https://example.com/b.avif"
+
+
 def _serve(tmp_path, fn):
     fetcher = _OfflineFetcher({
         JPG: ("image/jpeg", encode_jpeg_pil(make_test_image(640, 360), 88)),
         AVIF: ("image/avif", avif_encode.encode_rgb(make_test_image(64, 48),
                                                     80)),
+        AVIF_10BIT: ("image/avif", remainder_avif()),
     })
     metrics = Metrics()
 
@@ -337,13 +343,22 @@ def test_http_img_serves_avif_then_hits_cache(tmp_path):
 
 
 def test_http_avif_source_answers_501(tmp_path):
-    params = {"url": AVIF, "w": "32"}
-
+    """AVIF sources are served since the port decodes AV1 itself: the
+    port's own AVIF at w=32 is a 200 WebP; a stream of the decoder's
+    remainder (10-bit) still answers 501 naming queue 1 item 8."""
     async def fn(client, metrics):
+        params = {"url": AVIF, "w": "32"}
+        r = await client.get("/img", params={**params,
+                                             "sig": sign(params, SECRET)})
+        body = await r.read()
+        assert r.status == 200, body[:200]
+        assert r.headers["Content-Type"] == "image/webp"
+        assert vp8.dimensions(body) == (32, 24)
+        params = {"url": AVIF_10BIT, "w": "32"}
         r = await client.get("/img", params={**params,
                                              "sig": sign(params, SECRET)})
         text = await r.text()
         assert r.status == 501, text
-        assert "queue 1 item 8" in text and "avif sources" in text
+        assert "queue 1 item 8" in text and "10- and 12-bit" in text
 
     _serve(tmp_path, fn)

@@ -1557,3 +1557,162 @@ def test_lab_conversion_on_card_equals_cpu():
     got = color.lab_to_rgb(lab.cuda()).cpu()
     want = torch.cat([color.lab_to_rgb(p) for p in lab.split(1 << 22)])
     assert torch.equal(got, want)
+
+
+# -- AVIF sources: K2's YUV entries in any chroma layout, with alpha, and its
+# f32 entry for BT.709 batches; the port's AV1 decoder on the card's host --
+
+
+def _avif_stacks(cs, mix: bool):
+    """The YUV head's stacks at the flagship pair for chroma of factors
+    ``cs``: luma 1088x1920 -> 240x400, chroma to HALF output resolution
+    (and to the full one with ``mix``), as ``engine_yuv._yuv_weights``."""
+    from imagekit_tpu_torch.ops.weights import (
+        combined_chroma_half_weights,
+        combined_chroma_weights,
+        padded_weights,
+    )
+
+    csy, csx = cs
+    ch, cw = 1088 // csy, 1920 // csx
+    geoms = [(1920, 1080, 400, 225), (1904, 1072, 397, 223)]
+    s = [np.zeros((2, 240, 1088), np.float32),
+         np.zeros((2, 400, 1920), np.float32),
+         np.zeros((2, 120, ch), np.float32), np.zeros((2, 200, cw), np.float32),
+         np.zeros((2, 240, ch), np.float32), np.zeros((2, 400, cw), np.float32)]
+    for u, (iw, ih, ow, oh) in enumerate(geoms):
+        cht, cwt = (ih + csy - 1) // csy, (iw + csx - 1) // csx
+        s[0][u] = padded_weights(ih, oh, 1088, 240)
+        s[1][u] = padded_weights(iw, ow, 1920, 400)
+        s[2][u] = combined_chroma_half_weights(cht, ih, oh, ch, 120)
+        s[3][u] = combined_chroma_half_weights(cwt, iw, ow, cw, 200)
+        s[4][u] = combined_chroma_weights(cht, ih, oh, ch, 240)
+        s[5][u] = combined_chroma_weights(cwt, iw, ow, cw, 400)
+    return tuple(torch.from_numpy(x).cuda() for x in s[:6 if mix else 4])
+
+
+def _avif_flat(batch: int, cs, alpha: bool):
+    from imagekit_tpu_torch.ops.weights import pad128
+
+    ch, cw = 1088 // cs[0], 1920 // cs[1]
+    ny, nc = 1088 * 1920, ch * cw
+    host = np.zeros((batch, pad128(ny * (1 + alpha) + 2 * nc)), np.uint8)
+    parts = [(0, (1088, 1920)), (ny, (ch, cw)), (ny + nc, (ch, cw))]
+    if alpha:
+        parts.append((ny + 2 * nc, (1088, 1920)))
+    for at, (h, w) in parts:
+        host[:, at:at + h * w] = _k3_planes(batch, h, w, seed=at % 5).reshape(
+            batch, -1)
+    return torch.from_numpy(host).cuda()
+
+
+@needs_card
+@pytest.mark.parametrize("cs, alpha", [((1, 1), False), ((1, 2), False),
+                                       ((2, 2), True), ((1, 1), True)],
+                         ids=["444", "422", "420_alpha", "444_alpha"])
+def test_k2_avif_planes_in_one_launch_match_plain(cs, alpha):
+    """An AVIF batch's Y, Cb, Cr of any chroma factors and its alpha plane
+    as views of one flat batch, in ONE launch of K2's u8 entry, against
+    ``yuv_resize_plain``; then the whole head."""
+    from imagekit_tpu_torch.ops import dct
+
+    flat = _avif_flat(8, cs, alpha)
+    stacks = _avif_stacks(cs, False)
+    vidx = torch.arange(8, dtype=torch.int32, device="cuda") % 2
+    bands = (resize_strip.resize_tables(*stacks[:2]),
+             resize_strip.resize_tables(*stacks[2:4]))
+    planes = dct.yuv_planes(flat, 1088, 1920, cs, alpha)
+    before = resize_strip.LAUNCHES
+    got = resize_strip.yuv_resize(planes, stacks, vidx, bands=bands)
+    torch.cuda.synchronize()
+    assert resize_strip.LAUNCHES == before + 1
+    want = resize_strip.yuv_resize_plain(planes, stacks, vidx)
+    assert len(got) == 3 + alpha
+    for a, b in zip(got, want):
+        assert_band(a, b)
+    a = dct.resize_yuv420(flat, stacks, vidx, (1088, 1920), bands,
+                          chroma_sub=cs, alpha=alpha)
+    b = dct.resize_yuv420(flat, stacks, vidx, (1088, 1920), bands,
+                          resize=resize_strip.yuv_resize_plain, chroma_sub=cs,
+                          alpha=alpha)
+    assert_band(a, b)
+
+
+@needs_card
+@pytest.mark.parametrize("alpha", [False, True])
+def test_k2_f32_entry_for_bt709_batches_matches_plain(alpha):
+    """A BT.709 batch's six resizes (Y, chroma to the half and the full
+    grid, alpha) in ONE launch of K2's f32 entry, against
+    ``yuv_mix_resize_plain``; then the mixed head to WebP and JPEG."""
+    from imagekit_tpu_torch.ops import dct
+
+    cs = (2, 2)
+    flat = _avif_flat(8, cs, alpha)
+    stacks = _avif_stacks(cs, True)
+    vidx = torch.arange(8, dtype=torch.int32, device="cuda") % 2
+    bands = tuple(resize_strip.resize_tables(*stacks[i:i + 2])
+                  for i in (0, 2, 4))
+    planes = dct.yuv_planes(flat, 1088, 1920, cs, alpha)
+    before = resize_strip.LAUNCHES
+    got = resize_strip.yuv_mix_resize(planes, stacks, vidx, bands=bands)
+    torch.cuda.synchronize()
+    assert resize_strip.LAUNCHES == before + 1
+    want = resize_strip.yuv_mix_resize_plain(planes, stacks, vidx)
+    assert len(got) == 5 + alpha
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=255e-5)
+    a = dct.resize_yuv420(flat, stacks, vidx, (1088, 1920), bands,
+                          alpha=alpha, mix=True)
+    b = dct.resize_yuv420(flat, stacks, vidx, (1088, 1920), bands,
+                          alpha=alpha, mix=True,
+                          mix_resize=resize_strip.yuv_mix_resize_plain)
+    assert_band(a, b)
+    if not alpha:
+        qt = torch.full((8, 128), 8.0, device="cuda")
+        a = dct.resize_yuv_jpeg(flat, stacks, qt, vidx, (1088, 1920), bands,
+                                mix=True)
+        b = dct.resize_yuv_jpeg(flat, stacks, qt, vidx, (1088, 1920), bands,
+                                mix=True,
+                                mix_resize=resize_strip.yuv_mix_resize_plain)
+        assert_band(a, b)
+
+
+@needs_card
+def test_av1_decoder_gives_libdav1d_planes_on_the_cards_host():
+    """The committed AVIFs of ``tests/fixtures/avif/`` decode on the card's
+    host (which has no libdav1d) to the planes whose SHA-256 libdav1d gave
+    where they were made; then one through the engine on the card."""
+    import hashlib
+    import json
+    from pathlib import Path
+
+    from imagekit_tpu_torch.codecs import avif_native, vp8
+    from imagekit_tpu_torch.codecs.native import av1_dec_abi
+    from imagekit_tpu_torch.config import ImageFormat
+    from imagekit_tpu_torch.serving.batcher import BatchedEngine
+
+    root = Path(__file__).resolve().parent / "fixtures" / "avif"
+    table = json.loads((root / "avif_planes.json").read_text())
+    for name, entry in table.items():
+        data = (root / entry["file"]).read_bytes()
+        info = avif_native.parse_container(data)
+        digest = hashlib.sha256()
+        for p in av1_dec_abi.decode(info.obu)[:3]:
+            digest.update(p.tobytes())
+        if info.alpha_obu:
+            digest.update(av1_dec_abi.decode(info.alpha_obu)[0].tobytes())
+        assert digest.hexdigest() == entry["sha256"], name
+    data = (root / table["1080p_444"]["file"]).read_bytes()
+
+    async def run():
+        engine = BatchedEngine(device="cuda")
+        try:
+            return await engine.transform(data, 400, None, ImageFormat.webp,
+                                          80)
+        finally:
+            await engine.close()
+
+    before = resize_strip.YUV_LAUNCHES.get("444", 0)
+    assert vp8.dimensions(asyncio.run(run())) == (400, 225)
+    assert resize_strip.YUV_LAUNCHES["444"] == before + 1

@@ -40,7 +40,7 @@ from imagekit_tpu.codecs import misc as ref_misc
 from imagekit_tpu.codecs import tiff as ref_tiff
 from imagekit_tpu.serving.metrics import Metrics as RefMetrics
 from imagekit_tpu_torch import codecs, fetch
-from imagekit_tpu_torch.codecs import longtail, misc, png, tiff, vp8
+from imagekit_tpu_torch.codecs import avif_encode, longtail, misc, png, tiff, vp8
 from imagekit_tpu_torch.config import ImageFormat, ImageKitConfig
 from imagekit_tpu_torch.errors import (
     InvalidArgumentError,
@@ -496,15 +496,20 @@ def test_fetch_validates_by_header_and_engine_raises_source_decode_error():
             await fetch.fetch_source("bad", 1 << 24, fetcher=_CannedFetcher(
                 {"bad": ("image/gif", b"GIF89a\x00")}))
         # an ICO is validated by its header now, and one with no entries
-        # fails there; a source the header check cannot place (AVIF) is
-        # left to the engine
+        # fails there; an AVIF is probed for its dimensions as the
+        # reference probes it (``fetch.py:172-183``): one the probe cannot
+        # place fails here, as it fails the reference's full decode, and a
+        # whole one is left to the engine
         ico = await fetch.fetch_source(URLS["x.ico"], 1 << 24,
                                        fetcher=_CannedFetcher(canned))
         assert ico[0].startswith(b"\x00\x00\x01\x00")
         with pytest.raises(InvalidArgumentError, match="validation"):
             await fetch.fetch_source("bad", 1 << 24, fetcher=_CannedFetcher(
                 {"bad": ("image/x-icon", b"\x00\x00\x01\x00" + b"\0" * 64)}))
-        avif = b"\0\0\0\x1cftypavif" + b"\0" * 64
+        with pytest.raises(InvalidArgumentError, match="validation"):
+            await fetch.fetch_source("avif", 1 << 24, fetcher=_CannedFetcher(
+                {"avif": ("image/avif", b"\0\0\0\x1cftypavif" + b"\0" * 64)}))
+        avif = avif_encode.encode_rgb(make_test_image(32, 24), 70)
         left = await fetch.fetch_source("avif", 1 << 24, fetcher=_CannedFetcher(
             {"avif": ("image/avif", avif)}))
         assert left[0] == avif

@@ -24,6 +24,12 @@ under the same sanitizers, its ``ik_tiffx_jpeg_segments`` fed JPEG TIFFs
 and hostile IFDs (segment offsets and counts past the end, a tile grid
 that overflows, ``JPEGTables`` of 0, 2 or too many bytes), each copied into
 a buffer of its exact size so that a read past it is caught.
+
+The port's AV1 decoder (``av1_decode.cpp``) runs under the same sanitizers
+on real streams (Pillow's and the port's encoders: 4:2:0, 4:2:2, 4:4:4,
+loop restoration, CDEF, alpha, odd sizes), whose planes must equal the
+normal build's, and on hostile ones (truncations, byte flips, garbage,
+headers that claim the largest frame), which decode or are refused.
 """
 
 import json
@@ -707,6 +713,118 @@ def test_arithmetic_and_lossless_under_address_sanitizer(tmp_path):
     assert res["edge/scan_ending_in_marker"]["decode"] == 0
     assert res["edge/rst_out_of_order"]["decode"] == 0
     assert res["hostile/lossless_mcu_of_11"]["parse"] == -8
+
+
+_AV1 = textwrap.dedent("""
+    import ctypes, hashlib, json, sys
+    from imagekit_tpu_torch.codecs.native import av1_dec_abi
+
+    lib = ctypes.CDLL(sys.argv[1])
+    av1_dec_abi.load(lib)
+    out = {}
+    for name, hexdata in json.loads(sys.stdin.read()).items():
+        data = bytes.fromhex(hexdata)
+        buf = ctypes.create_string_buffer(data, len(data))  # exact size
+        try:
+            y, u, v, info = av1_dec_abi.decode(buf.raw, lib)
+            h = hashlib.sha256(y.tobytes())
+            for p in (u, v):
+                if p is not None:
+                    h.update(p.tobytes())
+            out[name] = h.hexdigest()
+        except av1_dec_abi.Av1NotPorted:
+            out[name] = "501"
+        except ValueError:
+            out[name] = "400"
+    print(json.dumps(out))
+""")
+
+
+def _av1_cases():
+    """(good streams with their planes' digest from the normal build,
+    hostile streams)."""
+    import hashlib
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from imagekit_tpu_torch.codecs import avif_encode
+    from imagekit_tpu_torch.codecs.avif_native import parse_container
+    from imagekit_tpu_torch.codecs.native import av1_dec_abi
+    from tests.test_torch_av1_decode import hostile_streams, seq_header, synth
+
+    files = {"own_420": avif_encode.encode_rgb(synth(96, 64, seed=1), 60)}
+    for name, w, h, kw in (
+            ("pillow_422_odd", 37, 21, dict(subsampling="4:2:2")),
+            ("pillow_444", 64, 48, dict(subsampling="4:4:4")),
+            ("pillow_lr", 160, 96, dict(speed=4, quality=20)),
+            ("pillow_cdef", 128, 96,
+             dict(advanced=[("enable-cdef", "1")], quality=40))):
+        buf = io.BytesIO()
+        try:
+            Image.fromarray(synth(w, h, seed=w, kind="edges")).save(
+                buf, "AVIF", **{"quality": 50, **kw})
+        except Exception:  # no AVIF writer: the port's encoder's only
+            continue
+        files[name] = buf.getvalue()
+    rgba = np.dstack([synth(48, 32), np.full((32, 48), 100, np.uint8)])
+    files["own_alpha"] = avif_encode.encode_rgb(rgba, 70)
+    good = {}
+    for name, data in files.items():
+        info = parse_container(data)
+        for item, stream in (("", info.obu), ("_alpha", info.alpha_obu)):
+            if not stream:
+                continue
+            y, u, v, _ = av1_dec_abi.decode(stream)
+            digest = hashlib.sha256(y.tobytes())
+            for p in (u, v):
+                if p is not None:
+                    digest.update(p.tobytes())
+            good[name + item] = (stream, digest.hexdigest())
+    hostile = {f"h{i}": s for i, s in enumerate(hostile_streams())}
+    # a header that claims 65536 x 65536 with no tile data
+    hostile["huge"] = seq_header(65535, 65535)[:0] + bytes([0x0A, 0x0B, 0x00,
+                                                           0x00, 0x00, 0x24,
+                                                           0xFF, 0xFF, 0xFF,
+                                                           0xFF, 0xC0, 0x00])
+    return good, hostile
+
+
+def test_av1_decoder_under_address_sanitizer(tmp_path):
+    """``av1_decode.cpp`` under ASan and UBSan, each stream in a buffer of
+    exactly its size: real streams decode to the normal build's planes
+    (digests), hostile ones decode or are refused, and the sanitizers
+    report nothing."""
+    native = ROOT / "imagekit_tpu_torch" / "codecs" / "native"
+    so = tmp_path / "libav1d_asan.so"
+    subprocess.run(["g++", "-std=c++17", "-O1", "-g", "-fPIC", "-shared",
+                    "-fsanitize=address,undefined",
+                    "-fno-sanitize-recover=undefined",
+                    str(native / "av1_decode.cpp"), "-o", str(so)],
+                   check=True, timeout=300)
+    good, hostile = _av1_cases()
+    cases = {**{k: v[0].hex() for k, v in good.items()},
+             **{k: v.hex() for k, v in hostile.items()}}
+    # the decoder leaves a malformed stream by a C++ throw: ASan's
+    # interceptor of it needs libstdc++ loaded at start-up as well
+    asan, cxx = (subprocess.run(["g++", f"-print-file-name={lib}"],
+                                capture_output=True, text=True).stdout.strip()
+                 for lib in ("libasan.so", "libstdc++.so.6"))
+    env = {**os.environ, "LD_PRELOAD": f"{asan} {cxx}",
+           "ASAN_OPTIONS": "detect_leaks=0:abort_on_error=1",
+           "UBSAN_OPTIONS": "print_stacktrace=1:halt_on_error=1"}
+    proc = subprocess.run([sys.executable, "-c", _AV1, str(so)],
+                          input=json.dumps(cases), capture_output=True,
+                          text=True, env=env, timeout=900, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-6000:]
+    assert "Sanitizer" not in proc.stderr, proc.stderr[-6000:]
+    assert "runtime error" not in proc.stderr, proc.stderr[-6000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name, (_stream, digest) in good.items():
+        assert res[name] == digest, name
+    assert set(res) == set(cases)
+    assert res["huge"] == "400"
 
 
 if __name__ == "__main__":

@@ -26,7 +26,7 @@ from imagekit_tpu import config as ref_config
 from imagekit_tpu.codecs import vp8 as ref_vp8
 from imagekit_tpu.serving.metrics import Metrics as RefMetrics
 from imagekit_tpu_torch.cache import cloudflare_cache_headers
-from imagekit_tpu_torch.codecs import avif_encode, vp8
+from imagekit_tpu_torch.codecs import vp8
 from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
 from imagekit_tpu_torch.config import BatchConfig, ImageFormat, ImageKitConfig
 from imagekit_tpu_torch.errors import NotPortedError
@@ -38,6 +38,7 @@ from imagekit_tpu_torch.serving.metrics import Metrics
 from imagekit_tpu_torch.signature import sign
 from imagekit_tpu_torch.utils.bucketing import bucket_for
 from tests.conftest import encode_jpeg_pil, encode_png, make_test_image
+from tests.test_torch_av1_decode import remainder_avif
 
 MAX_SHARE = 1e-3
 
@@ -167,7 +168,8 @@ def test_cuda_device_is_never_implicit():
                                   "avif_src"])
 def test_off_slice_requests_raise_not_ported(case):
     """Each request outside the ported slices raises NotPortedError naming
-    its ROADMAP item (an AVIF source is what is left here); an RGB PNG, a
+    its ROADMAP item (an AVIF source of the decoder's remainder, here a
+    10-bit stream, is what is left); an RGB PNG, a
     JPEG to JPEG, AVIF output, a downscale under 2x (k=8), a lossy WebP
     source, an RGBA PNG (the plain RGB head) and a request with no resize,
     once off the slice, are now served."""
@@ -188,7 +190,7 @@ def test_off_slice_requests_raise_not_ported(case):
     elif case == "webp_src":
         data = ref_vp8.encode_rgb(img, 80)
     elif case == "avif_src":
-        data = avif_encode.encode_rgb(img[:48, :64], 80)
+        data = remainder_avif()
     engine = PortEngine(_cfg(), metrics=Metrics(), device="cpu")
 
     async def run():
@@ -269,8 +271,7 @@ def _http(tmp_path, fn):
         JPG: ("image/jpeg", encode_jpeg_pil(img, 88)),
         PNG: ("image/png", encode_png(make_test_image(320, 240))),
         BMP: ("image/bmp", _encode_bmp(make_test_image(320, 240))),
-        AVIF: ("image/avif", avif_encode.encode_rgb(make_test_image(64, 48),
-                                                    80)),
+        AVIF: ("image/avif", remainder_avif()),
     })
     metrics = Metrics()
 
@@ -318,7 +319,7 @@ def test_http_sign_then_img_serves_webp_then_hits_cache(tmp_path):
     ({"url": BMP, "w": "64"}, 200),          # BMP source: served
     ({"url": JPG, "w": "256", "f": "jpeg"}, 200),  # JPEG -> JPEG: served
     ({"url": JPG}, 200),                      # no resize: served
-    ({"url": AVIF, "w": "256"}, 501),        # AVIF source: not ported
+    ({"url": AVIF, "w": "256"}, 501),        # 10-bit AVIF: not ported
     ({"url": JPG, "w": "256", "q": "0"}, 400),  # the reference's own 400
     ({"url": PNG, "w": "64"}, 200),          # RGB PNG source: served
 ])

@@ -256,6 +256,76 @@ def test_port_serves_jpeg_tiffs_without_pillow(tmp_path):
     assert res["mods"] == []
 
 
+def test_port_serves_avif_sources_without_dav1d_or_pillow(tmp_path):
+    """AVIF sources (the port's own encoder's, with and without alpha, and
+    Pillow's in 4:2:0, 4:2:2 and 4:4:4, written here) through
+    ``BatchedEngine(device="cpu")`` to WebP and AVIF in a subprocess that
+    then holds no Pillow, no ``jax`` and no ``imagekit_tpu`` module and has
+    mapped no libdav1d or libavif (``/proc/self/maps``)."""
+    import io
+    import json
+
+    import numpy as np
+    from PIL import Image
+
+    from imagekit_tpu_torch.codecs import avif_encode
+    from tests.conftest import make_test_image
+
+    img = make_test_image(96, 64)
+    files = {"own": avif_encode.encode_rgb(img, 70),
+             "own_alpha": avif_encode.encode_rgb(
+                 np.dstack([img, np.full((64, 96), 90, np.uint8)]), 70)}
+    for sub in ("4:2:0", "4:2:2", "4:4:4"):
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "AVIF", quality=70, subsampling=sub)
+        files[sub.replace(":", "")] = buf.getvalue()
+    for name, data in files.items():
+        (tmp_path / name).write_bytes(data)
+    script = textwrap.dedent("""
+        import asyncio, json, sys
+        from pathlib import Path
+        from imagekit_tpu_torch.codecs import avif_native, vp8
+        from imagekit_tpu_torch.config import BatchConfig, ImageFormat, ImageKitConfig
+        from imagekit_tpu_torch.serving.batcher import BatchedEngine
+        from imagekit_tpu_torch.serving.metrics import Metrics
+
+        datas = [(Path(sys.argv[1]) / n).read_bytes() for n in sys.argv[2:]]
+        engine = BatchedEngine(ImageKitConfig(secret="s", batch=BatchConfig(
+            max_batch=1)), metrics=Metrics(), device="cpu")
+
+        async def run():
+            try:
+                outs = []
+                for fmt in (ImageFormat.webp, ImageFormat.avif):
+                    outs += await asyncio.gather(*(
+                        engine.transform(d, 48, None, fmt, 80) for d in datas))
+                return outs
+            finally:
+                await engine.close()
+
+        outs = asyncio.run(run())
+        maps = Path("/proc/self/maps").read_text()
+        print(json.dumps({
+            "sizes": [list(vp8.dimensions(o)) if o[:4] == b"RIFF" else
+                      [avif_native.header_dimensions(o)[0],
+                       avif_native.parse_container(o).has_alpha]
+                      for o in outs],
+            "libs": [k for k in ("dav1d", "libavif") if k in maps],
+            "mods": sorted(m for m in sys.modules if m.split(".")[0] in (
+                "PIL", "jax", "imagekit_tpu"))}))
+    """)
+    names = sorted(files)
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp_path),
+                           *names], capture_output=True, text=True,
+                          timeout=600, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["sizes"][:len(names)] == [[48, 32]] * len(names)
+    assert res["sizes"][len(names):] == [[48, n == "own_alpha"]
+                                         for n in names]
+    assert res["libs"] == [] and res["mods"] == []
+
+
 # -- the copies against the reference ------------------------------------------------
 
 NATIVE = ("jpeg_entropy.cpp", "vp8_encode.cpp", "vp8_decode.cpp",

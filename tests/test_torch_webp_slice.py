@@ -51,6 +51,7 @@ from imagekit_tpu_torch.serving.metrics import Metrics
 from imagekit_tpu_torch.signature import sign
 from imagekit_tpu_torch.utils.bucketing import bucket_for
 from tests.conftest import encode_jpeg_pil, encode_png, make_test_image
+from tests.test_torch_av1_decode import remainder_avif
 from tests.test_batcher import _noisy_jpeg
 from tests.test_torch_jxc_slice import (
     _capture,
@@ -367,7 +368,8 @@ def test_yuv_batches_split_by_output_format():
 @pytest.mark.parametrize("case", ["rgba_lossless", "vp8x_alph", "avif_src",
                                   "avif_out", "no_resize"])
 def test_webp_requests_outside_the_slice_are_not_ported(case):
-    """An AVIF source is what is left; WebPs with alpha (the plain RGB
+    """An AVIF source of the decoder's remainder (a 10-bit stream) is what
+    is left; WebPs with alpha (the plain RGB
     head), a request with no resize and AVIF output (the YUV head and the
     first-party AV1 encoder), once here, are served."""
     fmt, w, item = ImageFormat.webp, 32, "queue 1 item 9"
@@ -387,7 +389,7 @@ def test_webp_requests_outside_the_slice_are_not_ported(case):
         (out,) = _drive(engine, [data], [w], ImageFormat.avif)
         assert out[4:12] == b"ftypavif" and engine.metrics.batches == 1
         return
-    data, item = b"\x00\x00\x00\x1cftypavif" + b"\x00" * 64, "queue 1 item 8"
+    data, item = remainder_avif(), "queue 1 item 8"
     with pytest.raises(NotPortedError, match="ROADMAP") as e:
         _drive(engine, [data], [w], fmt)
     assert e.value.roadmap_item == item

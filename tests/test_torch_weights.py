@@ -220,3 +220,37 @@ def test_port_sources_never_import_jax():
                 continue
             for name in names:
                 assert name.split(".")[0] not in forbidden, (f, node.lineno, name)
+
+
+def test_port_sources_load_no_dav1d_avif_or_pillow():
+    """The port decodes AV1 with its own decoder: no port source and not
+    ``chip_smoke.py`` names libdav1d, libavif or Pillow in a call that
+    loads a library (``ctypes.CDLL``, ``cdll.LoadLibrary``,
+    ``ctypes.util.find_library``, ``importlib.import_module``,
+    ``__import__``), and no native source of the port calls ``dlopen``."""
+    import ast
+    from pathlib import Path
+
+    import imagekit_tpu_torch
+
+    root = Path(imagekit_tpu_torch.__file__).parent
+    files = sorted(root.rglob("*.py")) + [root.parent / "chip_smoke.py"]
+    assert root / "codecs" / "avif_native.py" in files
+    loaders = {"CDLL", "LoadLibrary", "find_library", "import_module",
+               "__import__", "PyDLL"}
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if not isinstance(node, ast.Call):
+                continue
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(
+                fn, "id", "")
+            if name not in loaders:
+                continue
+            for arg in ast.walk(node):
+                if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+                    low = arg.value.lower()
+                    assert not any(k in low for k in ("dav1d", "avif", "pil")), (
+                        f, node.lineno, arg.value)
+    for src in sorted((root / "codecs" / "native").glob("*.cpp")):
+        assert "dlopen" not in src.read_text(), src

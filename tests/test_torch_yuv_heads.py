@@ -29,7 +29,6 @@ import torch
 from imagekit_tpu.ops import dct as ref_dct
 from imagekit_tpu.ops import pallas_resize
 from imagekit_tpu.ops.resize import padded_weights
-from imagekit_tpu_torch.errors import NotPortedError
 from imagekit_tpu_torch.ops import dct, jpeg8, resize_planes, resize_strip
 from imagekit_tpu_torch.ops.weights import (
     combined_chroma_half_weights,
@@ -341,15 +340,38 @@ def test_yuv_planes_are_views_of_the_flat_batch():
 
 @pytest.mark.parametrize("variant", ["mix", "alpha", "chroma_sub", "jpeg_mix"])
 def test_avif_source_variants_are_not_ported(variant):
+    """The AVIF-source variants of the YUV heads, refused with queue 1
+    item 8 until AVIF sources were ported, now run (their values against
+    the JAX heads: ``test_torch_avif_sources.py``): the BT.709 mix with the
+    full-grid chroma stacks, a fourth (alpha) plane, 4:4:4 chroma, and the
+    mix to JPEG levels."""
     flat, ws, vidx = _yuv_inputs(seed=64)
-    with pytest.raises(NotPortedError) as e:
-        if variant == "jpeg_mix":
-            dct.resize_yuv_jpeg_batch(flat, ws, np.ones((3, 128), np.float32),
-                                      vidx, (BH, BW), (OBH, OBW), mix=True,
-                                      device="cpu")
-        else:
-            kw = {"mix": {"mix": True}, "alpha": {"alpha": True},
-                  "chroma_sub": {"chroma_sub": (1, 1)}}[variant]
-            dct.resize_yuv420_batch(flat, ws, vidx, (BH, BW), (OBH, OBW),
-                                    device="cpu", **kw)
-    assert e.value.roadmap_item == "queue 1 item 8"
+    B = flat.shape[0]
+    # chroma to the full output grid: each half-grid row twice
+    full = (np.repeat(ws[2], 2, axis=1), np.repeat(ws[3], 2, axis=1))
+    if variant == "jpeg_mix":
+        y, cb, cr = dct.resize_yuv_jpeg_batch(
+            flat, ws + full, np.ones((B, 128), np.float32), vidx, (BH, BW),
+            (OBH, OBW), mix=True, device="cpu")
+        assert y.shape == (B, OBH // 8, OBW // 8, 64)
+        assert cb.shape == cr.shape == (B, OBH // 16, OBW // 16, 64)
+        return
+    kw, weights = {}, ws
+    if variant == "mix":
+        kw, weights = {"mix": True}, ws + full
+    elif variant == "alpha":
+        kw = {"alpha": True}
+        ny = BH * BW
+        flat = np.concatenate([flat, flat[:, :ny]], axis=1)
+    else:
+        kw = {"chroma_sub": (1, 1)}
+        ny = BH * BW
+        flat = np.concatenate([flat[:, :ny]] * 3, axis=1)
+        # full-size chroma to the half output grid: every other luma row
+        weights = ws[:2] + (np.ascontiguousarray(ws[0][:, ::2]),
+                            np.ascontiguousarray(ws[1][:, ::2]))
+    out = dct.resize_yuv420_batch(flat, weights, vidx, (BH, BW), (OBH, OBW),
+                                  device="cpu", **kw)
+    assert len(out) == 4 if variant == "alpha" else len(out) == 3
+    assert out[0].shape == (B, OBH, OBW)
+    assert out[1].shape == out[2].shape == (B, OBH // 2, OBW // 2)
