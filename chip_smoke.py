@@ -262,10 +262,21 @@ decoded with Pillow: old-style, planar and extra-sample JPEG pages,
     launch a YCbCr page and a JPEG TIFF page, one K2 a batch: requests/s,
     p50/p99, host stages, idle share. K3 at the YCbCr page's replication
     stacks against its plain version (max |d| 0), timed, with an einsum
-    yardstick and the bound.
+    yardstick and the bound;
+27. AVIF sources: the committed 1080p AVIFs (``tests/fixtures/avif``:
+    4:2:0, 4:4:4, 4:2:2, RGBA, BT.709, CDEF, loop restoration; a UI
+    screenshot and a logo sheet with palette blocks and intra block copy,
+    an RGBA logo whose alpha codes palettes; a 10-bit 4:2:0 and a 12-bit
+    4:4:4 picture) decoded on the host by the port's AV1 decoder, the
+    planes held to libdav1d's digests (the raw 16-bit planes too for 10
+    and 12 bits) and the decode timed alone; K2's YUV entries at each
+    file's captured batch against their plain versions, timed; rounds of 8
+    requests (warmed by 4), counts reset before each, run once, traced,
+    -> w=400 WebP or JPEG, the alpha files -> w=160 AVIF: requests/s,
+    p50/p99, host stages, idle share.
 
-Rounds of phase 26 take 8 requests each (warmed by 4); every phase's
-sources are made while nvcc builds the kernels.
+Rounds of phases 26 and 27 take 8 requests each (warmed by 4); every
+phase's sources are made while nvcc builds the kernels.
 
 Device times are the kernels' own, summed by ``torch.profiler`` over 20
 calls (the host's launch cost excluded); the bound is the larger of the
@@ -5329,6 +5340,9 @@ def phase_lab_ycbcr(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 AVIF_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "avif")
+#: the screen-content fixtures: the screenshot and the logo sheet code
+#: palettes and intra block copy, the RGBA logo palettes in its alpha
+AVIF_SCREEN = ("1080p_screenshot", "1080p_logos", "1080p_rgba_logo")
 
 
 @functools.lru_cache(maxsize=None)
@@ -5347,8 +5361,11 @@ def avif_sources() -> dict:
 
 def avif_decode_case(data: bytes) -> dict:
     """The port's AV1 decode of one file on the host: the digest of its
-    planes (colour item, then the alpha item's luma) and the colour item's
-    decode time (the least of three), with the tools its header turns on."""
+    planes (colour item, rounded to 8 bits, then the alpha item's luma;
+    for 10 and 12 bits also of the raw planes, little-endian) and the
+    colour item's decode time (the least of three), with its bit depth and
+    the palette and intrabc blocks it coded (the alpha item's palettes
+    too)."""
     import hashlib
 
     from imagekit_tpu_torch.codecs import avif_native
@@ -5363,12 +5380,24 @@ def avif_decode_case(data: bytes) -> dict:
     digest = hashlib.sha256()
     for p in (y, u, v):
         digest.update(np.ascontiguousarray(p).tobytes())
+    alpha_palettes = 0
     if info.alpha_obu:
-        digest.update(av1_dec_abi.decode(info.alpha_obu)[0].tobytes())
+        ay, _au, _av, ahead = av1_dec_abi.decode(info.alpha_obu)
+        digest.update(ay.tobytes())
+        alpha_palettes = ahead.palette_blocks
+    samples = None
+    if head.bitdepth > 8:
+        raw = hashlib.sha256()
+        for p in av1_dec_abi.decode_samples(info.obu)[:3]:
+            raw.update(p.astype("<u2").tobytes())
+        samples = raw.hexdigest()
     layout = {0: "4:0:0", 1: "4:2:0", 2: "4:2:2", 3: "4:4:4"}[head.layout]
-    return {"sha256": digest.hexdigest(), "decode_ms": min(times) * 1e3,
-            "layout": layout, "alpha": bool(info.alpha_obu),
-            "bytes": len(data)}
+    return {"sha256": digest.hexdigest(), "sha256_samples": samples,
+            "decode_ms": min(times) * 1e3, "layout": layout,
+            "alpha": bool(info.alpha_obu), "bytes": len(data),
+            "bitdepth": head.bitdepth, "palette_blocks": head.palette_blocks,
+            "intrabc_blocks": head.intrabc_blocks,
+            "alpha_palette_blocks": alpha_palettes}
 
 
 @contextlib.contextmanager
@@ -5461,16 +5490,23 @@ def phase_avif_sources(card: str) -> dict:
     """AVIF sources: the port's AV1 decoder on the host, then K2.
 
     The committed 1080p AVIFs (4:2:0, 4:4:4, 4:2:2, RGBA, BT.709, CDEF and
-    speed 4 with loop restoration; 4x2 tiles each) decode on the host with
-    the port's decoder (``codecs/native/av1_decode.cpp``): the planes'
-    SHA-256 must be libdav1d's, recorded where the fixtures were made.
-    K2's entries for these batches, captured from the engine at B=8 (the
-    AVIF encodes stubbed for the capture), against their plain versions
-    and timed: the u8 entry with 4:4:4 and 4:2:2 chroma, with the alpha
-    plane as a fourth, and the f32 entry's six resizes of a BT.709 batch.
-    Then rounds of 8 requests through one engine, counts reset before
-    each, each run once, traced: the decode on the codec pool, ONE K2
-    launch a batch, and the VP8, Huffman or first-party AV1 encode."""
+    speed 4 with loop restoration, 4x2 tiles each; a UI screenshot and a
+    logo sheet at Pillow's defaults, which code palette blocks and intra
+    block copy, and an RGBA logo sheet whose alpha item codes palettes; a
+    10-bit 4:2:0 picture with CDEF and a 12-bit 4:4:4 one with loop
+    restoration) decode on the host with the port's decoder
+    (``codecs/native/av1_decode.cpp``): the planes' SHA-256 must be
+    libdav1d's, recorded where the fixtures were made (for 10 and 12 bits
+    both the 8-bit planes' and the raw 16-bit planes'), and the screen
+    files must have coded their tools. K2's entries for these batches,
+    captured from the engine at B=8 (the AVIF encodes stubbed for the
+    capture), against their plain versions and timed: the u8 entry with
+    4:4:4 and 4:2:2 chroma, with the alpha plane as a fourth, and the f32
+    entry's six resizes of a BT.709 batch; then the batch of each file of
+    this slice. Then rounds of 8 requests through one engine, counts
+    reset before each, each run once, traced: the decode on the codec
+    pool, ONE K2 launch a batch, and the VP8, Huffman or first-party AV1
+    encode."""
     from imagekit_tpu_torch.codecs import avif_native
     from imagekit_tpu_torch.config import ImageFormat
     from imagekit_tpu_torch.serving import engine_yuv
@@ -5488,11 +5524,27 @@ def phase_avif_sources(card: str) -> dict:
             raise RuntimeError(f"the port's AV1 decode of {name} is not "
                                f"libdav1d's planes ({case['sha256']} != "
                                f"{entry['sha256']})")
+        if case["sha256_samples"] != entry.get("sha256_samples"):
+            raise RuntimeError(f"the port's {case['bitdepth']}-bit samples of "
+                               f"{name} are not libdav1d's")
+        if name in AVIF_SCREEN and not (
+                case["palette_blocks"] or case["alpha_palette_blocks"]):
+            raise RuntimeError(f"{name} coded no palette block")
+        if name in AVIF_SCREEN[:2] and not case["intrabc_blocks"]:
+            raise RuntimeError(f"{name} coded no intra block copy")
         decodes[name] = case
+        tools = ""
+        if case["bitdepth"] > 8:
+            tools = (f", {case['bitdepth']}-bit: raw planes = libdav1d's "
+                     f"(SHA-256 {case['sha256_samples'][:16]}...)")
+        if case["palette_blocks"] or case["alpha_palette_blocks"]:
+            tools += (f", {case['palette_blocks']} palette and "
+                      f"{case['intrabc_blocks']} intrabc blocks (alpha: "
+                      f"{case['alpha_palette_blocks']} palette)")
         log(f"    {name} ({case['layout']}{', alpha' if case['alpha'] else ''}"
-            f", {case['bytes'] / 1e3:.1f} kB): planes = libdav1d's (SHA-256 "
-            f"{case['sha256'][:16]}...), avif_decode {case['decode_ms']:.2f} "
-            f"ms a frame on the host [{card}]")
+            f", {case['bytes'] / 1e3:.1f} kB{tools}): planes = libdav1d's "
+            f"(SHA-256 {case['sha256'][:16]}...), avif_decode "
+            f"{case['decode_ms']:.2f} ms a frame on the host [{card}]")
     steps["decode checks"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -5501,7 +5553,15 @@ def phase_avif_sources(card: str) -> dict:
                 ("422", "1080p_422", W, "4:2:2, three planes"),
                 ("420+a", "1080p_rgba", A, "4:2:0 and alpha, four planes"),
                 ("420+mix", "1080p_bt709", W,
-                 "BT.709: Y, chroma to two grids, f32"))
+                 "BT.709: Y, chroma to two grids, f32"),
+                ("screenshot", "1080p_screenshot", W,
+                 "UI screenshot (palette, intrabc), 4:2:0"),
+                ("logos", "1080p_logos", W,
+                 "logo sheet (palette, intrabc), 4:2:0"),
+                ("rgba_logo", "1080p_rgba_logo", A,
+                 "RGBA logo sheet (palettes in the alpha), four planes"),
+                ("10bit", "1080p_10bit_420", W, "10-bit 4:2:0, rounded"),
+                ("12bit_444", "1080p_12bit_444", W, "12-bit 4:4:4, rounded"))
     for entry, name, fmt, what in captures:
         with quick_avif_encodes():
             call = capture_batch([sources[name][0]], 400, 8,
@@ -5538,6 +5598,16 @@ def phase_avif_sources(card: str) -> dict:
          {"k2": "batch"}),
         ("1080p speed-4 AVIF (loop restoration) -> w=160 AVIF",
          src("1080p_speed4_lr"), 8, 160, A, small, {"k2": "batch"}),
+        ("1080p UI screenshot AVIF (palette, intrabc) -> w=400 WebP",
+         src("1080p_screenshot"), 8, 400, W, out, {"k2": "batch"}),
+        ("1080p logo sheet AVIF (palette, intrabc) -> w=400 JPEG",
+         src("1080p_logos"), 8, 400, J, out, {"k2": "batch"}),
+        ("1080p RGBA logo AVIF (palettes in the alpha) -> w=160 AVIF",
+         src("1080p_rgba_logo"), 8, 160, A, small, {"k2": "batch"}),
+        ("1080p 10-bit 4:2:0 AVIF -> w=400 WebP", src("1080p_10bit_420"), 8,
+         400, W, out, {"k2": "batch"}),
+        ("1080p 12-bit 4:4:4 AVIF -> w=400 JPEG", src("1080p_12bit_444"), 8,
+         400, J, out, {"k2": "batch"}),
     ]
     summary = drive_rounds(rounds, card, steps)
     summary["decodes"] = decodes
@@ -5763,8 +5833,10 @@ def main() -> int:
     lab26 = phase_lab_ycbcr(card)
 
     begin("[27] AVIF sources: the port's AV1 decoder on the host (planes "
-          "against libdav1d's digests), K2's YUV entries for 4:4:4, 4:2:2, "
-          "alpha and BT.709 batches, BatchedEngine(device='cuda').transform")
+          "against libdav1d's digests; palette blocks, intra block copy, "
+          "10- and 12-bit streams), K2's YUV entries for 4:4:4, 4:2:2, "
+          "alpha and BT.709 batches and each file's batch, "
+          "BatchedEngine(device='cuda').transform")
     avif27 = phase_avif_sources(card)
     end_phase()
     log("    seconds a phase (heading to heading): " + ", ".join(
@@ -5926,6 +5998,10 @@ def main() -> int:
         "avif_launches": avif_n["resize_yuv420_batch"],
         **{key: k2_yuv[key] for key in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by", "library_ms")},
+        # phase 27's 4:2:0 AVIF batches at B=8 (screen content, 10-bit)
+        **{f"avif_{entry}_b8": {key: avif27["k2"][entry][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")} for entry in ("screenshot", "logos", "10bit")},
     }, {
         "name": "rgba_resize (K2, 4 channels in one launch, interleaved out: "
                 "the plain RGB head of sources with alpha)",

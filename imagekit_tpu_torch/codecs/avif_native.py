@@ -13,9 +13,8 @@ The return contract stays: the same planes, chroma factors, alpha and
 
 What differs, because the port has no host library behind it:
 
-- a stream that uses a tool the decoder does not build (palette blocks,
-  intra block copy, superres, film grain, 10- and 12-bit streams,
-  quantizer matrices, inter or layered frames) raises
+- a stream that uses a tool the decoder does not build (superres, film
+  grain, quantizer matrices, inter or layered frames) raises
   :class:`~imagekit_tpu_torch.errors.NotPortedError` naming ROADMAP queue 1
   item 8 (the app's 501), where the reference decodes it with libdav1d or
   Pillow;
@@ -412,8 +411,9 @@ def _decode_obu(obu: bytes, want_w: int, want_h: int):
     """One still frame through the port's AV1 decoder -> (y, u|None,
     v|None, layout, 8), or None where the stream does not decode or its
     picture's size is not the container's (the reference rejects such a
-    file too). Raises NotPortedError for a tool the decoder does not
-    build."""
+    file too). A 10- or 12-bit stream's planes come rounded to 8 bits as
+    the reference rounds libdav1d's (``av1_dec_abi.to_8bit``). Raises
+    NotPortedError for a tool the decoder does not build."""
     from imagekit_tpu_torch.codecs.native import av1_dec_abi
 
     try:

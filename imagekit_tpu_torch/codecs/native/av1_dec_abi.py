@@ -5,18 +5,21 @@ struct it declares (``Tables`` in ``av1_decode.cpp``): the CDFs of
 ``av1_tables.npz`` (the encoder's, extracted by
 ``tools/extract_av1_tables.py``) and of ``av1_dec_tables.npz`` (written by
 ``tests/fixtures/make_av1_dec_tables.py``), one copy per coefficient q
-context, then the quantizer lookups, smooth weights, filter-intra taps,
-directional derivatives, coefficient context offsets, self-guided
-parameters and scans. The struct's size is checked against the
+context, then the quantizer lookups of the three bit depths, smooth
+weights, filter-intra taps, directional derivatives, coefficient context
+offsets, self-guided parameters, scans, the BILINEAR filter and the
+palette colour contexts. The struct's size is checked against the
 library's, so a packing that drifts from the C declaration fails at load
 and never decodes.
 
 :func:`probe` parses the sequence header and the first frame header;
-:func:`decode` returns the first frame's planes. Both raise
-:class:`Av1NotPorted` for a tool the decoder does not build (palette,
-intra block copy, superres, film grain, 10/12-bit, quantizer matrices,
-inter and layered streams) and :class:`ValueError` for a malformed
-stream.
+:func:`decode_samples` returns the first frame's planes at the stream's
+depth (uint8 for 8-bit, uint16 for 10- and 12-bit streams), and
+:func:`decode` returns u8 planes, those of a high-bit-depth stream
+rounded to 8 bits as the reference's ``avif_native._decode_obu`` rounds
+libdav1d's. All raise :class:`Av1NotPorted` for a tool the decoder does
+not build (superres, film grain, quantizer matrices, inter and layered
+streams) and :class:`ValueError` for a malformed stream.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ _state: dict = {"lib": None}
 OK, BAD, NOT_PORTED = 0, -1, -2
 #: the layouts of ``IkAv1dInfo.layout``
 I400, I420, I422, I444 = 0, 1, 2, 3
+#: the bits of ``StreamInfo.filters``
+FILTER_DEBLOCK, FILTER_CDEF, FILTER_LR = 1, 2, 4
 
 
 class Av1NotPorted(Exception):
@@ -46,7 +51,9 @@ class Av1NotPorted(Exception):
 class _Info(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int32) for name in (
         "width", "height", "layout", "bitdepth", "mono", "color_range",
-        "matrix", "primaries", "transfer")] + [("reason", ctypes.c_char * 120)]
+        "matrix", "primaries", "transfer", "allow_sct", "allow_intrabc",
+        "palette_blocks", "intrabc_blocks", "filters")] + [
+            ("reason", ctypes.c_char * 120)]
 
 
 class StreamInfo(NamedTuple):
@@ -59,6 +66,15 @@ class StreamInfo(NamedTuple):
     matrix: int
     primaries: int
     transfer: int
+    #: the frame header's allow_screen_content_tools and allow_intrabc
+    screen_content: bool = False
+    intrabc: bool = False
+    #: after a decode, the blocks that coded a palette or intra block copy
+    palette_blocks: int = 0
+    intrabc_blocks: int = 0
+    #: the frame's in-loop filters: 1 deblocking, 2 CDEF, 4 loop
+    #: restoration (FILTER_*)
+    filters: int = 0
 
 
 # (name in the npz files, C record shape per q context); coefficient
@@ -100,6 +116,19 @@ _CDF_LAYOUT = (
     ("switchable_restore", (4,), False),
     ("wiener_restore", (3,), False),
     ("sgrproj_restore", (3,), False),
+    ("pal_y_size", (7, 8), False),
+    ("pal_uv_size", (7, 8), False),
+    ("pal_color", (2, 7, 5, 9), False),
+    ("intrabc", (3,), False),
+    ("mv_joint", (5,), False),
+    ("mv_class", (2, 12), False),
+    ("mv_class0", (2, 3), False),
+    ("mv_bits", (2, 10, 3), False),
+    ("mv_sign", (2, 3), False),
+    ("txfm_split", (21, 3), False),
+    ("inter_tx1", (2, 17), False),
+    ("inter_tx2", (13,), False),
+    ("inter_tx3", (4, 3), False),
 )
 _SCANS = ("4x4", "8x8", "16x16", "32x32", "4x8", "8x4", "8x16", "16x8",
           "16x32", "32x16", "4x16", "16x4", "8x32", "32x8")
@@ -125,6 +154,16 @@ def _cdf_arrays() -> dict:
     out["intra_tx2"] = out["intra_ext_tx2"]
     out["tx_depth"] = np.stack([out["tx_16x16"], out["tx_32x32"],
                                 out["tx_64x64"]])
+    # the colour-index CDFs of every palette size, each record padded to
+    # that of 8 colours
+    pal = np.zeros((2, 7, 5, 9), np.uint16)
+    for t, plane in enumerate(("y", "uv")):
+        for n in range(2, 9):
+            pal[t, n - 2, :, :n + 1] = out[f"pal_{plane}_color_{n}"]
+    out["pal_color"] = pal
+    # one copy of each motion vector CDF per component
+    for name in ("mv_class", "mv_class0", "mv_bits", "mv_sign"):
+        out[name] = np.stack([out[name]] * 2)
     return out
 
 
@@ -139,12 +178,15 @@ def tables_blob() -> bytes:
                 raise RuntimeError(f"AV1 table {name} has shape {a.shape}, "
                                    f"the decoder's is {shape}")
             parts.append(a.astype("<u2").tobytes())
-    parts.append(np.asarray(T["dc_qlookup"], "<i2").tobytes())
-    parts.append(np.asarray(T["ac_qlookup"], "<i2").tobytes())
+    for kind in ("dc", "ac"):
+        rows = np.concatenate([np.asarray(T[f"{kind}_qlookup"])[None],
+                               np.asarray(T[f"{kind}_qlookup_hbd"])])
+        parts.append(rows.astype("<i2").tobytes())
     parts.append(np.asarray(T["dr_intra_derivative"], "<i2").tobytes())
     parts.append(np.asarray(T["sgr_params"], "<i2").tobytes())
     for s in _SCANS:
         parts.append(np.asarray(T[f"scan_{s}"], "<i2").tobytes())
+    parts.append(np.asarray(T["bilinear"], "<i2").tobytes())
     sm = np.zeros(128, np.uint8)
     sm[:124] = T["sm_weights"]
     parts.append(sm.tobytes())
@@ -152,6 +194,8 @@ def tables_blob() -> bytes:
     taps[:, :, :7] = T["filter_intra_taps"]
     parts.append(taps.tobytes())
     parts.append(np.asarray(T["coeff_base_ctx_offset"], np.int8).tobytes())
+    parts.append(np.asarray(T["palette_color_context"], np.int8).tobytes())
+    parts.append(np.asarray(T["palette_hash_mult"], np.int8).tobytes())
     parts.append(b"\0")  # the struct's pad_ byte
     return b"".join(parts)
 
@@ -164,8 +208,8 @@ def _bind(lib: ctypes.CDLL) -> None:
                                   ctypes.POINTER(_Info)]
     lib.ik_av1d_probe.restype = ctypes.c_int
     lib.ik_av1d_decode.argtypes = [
-        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.POINTER(_Info)]
     lib.ik_av1d_decode.restype = ctypes.c_int
     lib.ik_av1d_tx1d.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
@@ -201,7 +245,9 @@ def _raise(rc: int, info: _Info) -> None:
 def _info(info: _Info) -> StreamInfo:
     return StreamInfo(info.width, info.height, info.layout, info.bitdepth,
                       bool(info.mono), bool(info.color_range), info.matrix,
-                      info.primaries, info.transfer)
+                      info.primaries, info.transfer, bool(info.allow_sct),
+                      bool(info.allow_intrabc), info.palette_blocks,
+                      info.intrabc_blocks, info.filters)
 
 
 def probe(obu: bytes, lib: Optional[ctypes.CDLL] = None) -> StreamInfo:
@@ -214,12 +260,13 @@ def probe(obu: bytes, lib: Optional[ctypes.CDLL] = None) -> StreamInfo:
     return _info(info)
 
 
-def decode(obu: bytes, lib: Optional[ctypes.CDLL] = None,
-           expect: Optional[tuple] = None):
-    """The first frame of an AV1 OBU stream -> (y, u | None, v | None,
-    StreamInfo): u8 planes of width x height luma, chroma rounded up by
-    the layout's subsampling (None for monochrome). ``expect``: the
-    (width, height) the container gives; a stream of another size raises
+def decode_samples(obu: bytes, lib: Optional[ctypes.CDLL] = None,
+                   expect: Optional[tuple] = None):
+    """The first frame of an AV1 OBU stream at its own depth -> (y, u |
+    None, v | None, StreamInfo): uint8 planes for an 8-bit stream, uint16
+    for a 10- or 12-bit one, width x height luma, chroma rounded up by the
+    layout's subsampling (None for monochrome). ``expect``: the (width,
+    height) the container gives; a stream of another size raises
     ValueError before anything is allocated for it."""
     lib = lib or load()
     head = probe(obu, lib)
@@ -227,19 +274,39 @@ def decode(obu: bytes, lib: Optional[ctypes.CDLL] = None,
     if expect is not None and (w, h) != tuple(expect):
         raise ValueError(f"AV1 stream of {w}x{h} in a {expect[0]}x"
                          f"{expect[1]} item")
-    y = np.empty((h, w), np.uint8)
-    u = v = None
+    dt = np.uint8 if head.bitdepth == 8 else np.uint16
+    y = np.empty((h, w), dt)
     cw = ch = 1
     if head.layout != I400:
         cw = (w + 1) // 2 if head.layout in (I420, I422) else w
         ch = (h + 1) // 2 if head.layout == I420 else h
-    u = np.empty((ch, cw), np.uint8)
-    v = np.empty((ch, cw), np.uint8)
+    u = np.empty((ch, cw), dt)
+    v = np.empty((ch, cw), dt)
     info = _Info()
-    rc = lib.ik_av1d_decode(obu, len(obu), y.ctypes.data, w, u.ctypes.data,
-                            v.ctypes.data, cw, ctypes.byref(info))
+    rc = lib.ik_av1d_decode(obu, len(obu), head.bitdepth, y.ctypes.data, w,
+                            u.ctypes.data, v.ctypes.data, cw,
+                            ctypes.byref(info))
     if rc != OK:
         _raise(rc, info)
     if head.layout == I400:
         u = v = None
     return y, u, v, _info(info)
+
+
+def to_8bit(plane: Optional[np.ndarray], bitdepth: int):
+    """A plane of ``bitdepth`` samples rounded to 8 bits as the
+    reference's ``_decode_obu`` rounds libdav1d's: (v + 2^(s-1)) >> s,
+    clipped to 255, s = bitdepth - 8."""
+    if plane is None or bitdepth == 8:
+        return plane
+    s = bitdepth - 8
+    return np.minimum((plane + (1 << (s - 1))) >> s, 255).astype(np.uint8)
+
+
+def decode(obu: bytes, lib: Optional[ctypes.CDLL] = None,
+           expect: Optional[tuple] = None):
+    """:func:`decode_samples` with u8 planes: a 10- or 12-bit stream's
+    rounded by :func:`to_8bit`."""
+    y, u, v, info = decode_samples(obu, lib, expect)
+    return (to_8bit(y, info.bitdepth), to_8bit(u, info.bitdepth),
+            to_8bit(v, info.bitdepth), info)

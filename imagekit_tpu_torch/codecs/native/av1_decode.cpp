@@ -1,39 +1,52 @@
 // AV1 intra-frame decoder of the port's own: the still picture (or the
-// first frame of an image sequence) of an AVIF item, 8-bit, in place of
-// libdav1d, which the reference's avif_native.py calls over ctypes.
+// first frame of an image sequence) of an AVIF item, 8-, 10- or 12-bit, in
+// place of libdav1d, which the reference's avif_native.py calls over ctypes.
 //
 // It follows the AV1 specification's decoding process section by section
 // (the names of its variables and processes are kept: decode_partition,
 // intra_frame_mode_info, coeffs, predict_intra, edge_loop_filter,
 // cdef_block, ...), since reconstruction is normative: the planes must be
 // byte-equal to any conforming decoder's, libdav1d's included
-// (tests/test_torch_av1_decode.py holds them so). Tools:
+// (tests/test_torch_av1_decode.py and test_torch_av1_screen_hbd.py hold
+// them so). Tools:
 //
 //   - OBUs: temporal delimiter, sequence header (reduced or full), frame
 //     header and tile groups, or frame OBUs; padding and metadata skipped;
 //   - frame header of a KEY_FRAME or INTRA_ONLY frame: frame size, tile
 //     info (uniform or explicit, several tiles and tile groups), quantizer
 //     params with DC/AC/U/V deltas, segmentation, delta q / lf, loop
-//     filter, CDEF and loop restoration params, tx mode, reduced tx set,
-//     film grain params (parsed);
+//     filter, CDEF and loop restoration params, allow_intrabc, tx mode,
+//     reduced tx set, film grain params (parsed);
 //   - symbol decoder with CDF adaptation (spec 8.2), the default CDFs
 //     handed over by av1_dec_abi.py at load (av1_tables.npz and
 //     av1_dec_tables.npz);
 //   - block syntax of 64 and 128 superblocks, all 22 block sizes, the
 //     intra mode info (skip, cdef_idx, delta q and lf, segment ids with
 //     spatial prediction, y and uv modes, angle deltas, CfL alphas,
-//     filter intra), tx depth and the intra tx sets, coefficients of all
-//     19 tx sizes, dequantisation;
-//   - inverse DCT 4-64, ADST 4/8/16, identity 4-32 and the 4x4 WHT of
-//     lossless blocks, rectangular scaling, intermediate clamps;
+//     palette mode info and colour index maps, filter intra), tx depth
+//     and the intra tx sets, coefficients of all 19 tx sizes,
+//     dequantisation;
+//   - intra block copy: use_intrabc, the spatial motion vector stack,
+//     read_mv under MV_INTRABC_CONTEXT, the var-tx tree and the inter
+//     transform sets, prediction from the frame's own unfiltered samples
+//     with the BILINEAR filter (a subsampled chroma vector may land on a
+//     half sample); a vector that reaches outside its tile or into samples
+//     not yet decoded is refused (the conformance rule is_mv_valid), so
+//     tiles stay on their threads;
+//   - inverse DCT 4-64, ADST 4/8/16 (and flipped), identity 4-32 and the
+//     4x4 WHT of lossless blocks, rectangular scaling, intermediate clamps;
 //   - intra prediction: DC, V, H, Paeth, smooth, directional with edge
-//     filter and upsampling, CfL, recursive filter intra;
+//     filter and upsampling, CfL, recursive filter intra, palette;
 //   - deblocking (4, 6, 8 and 14 taps), CDEF, loop restoration (Wiener
 //     and self-guided, stripes reading the deblocked rows).
 //
-// Not built, answered with IK_AV1D_NOT_PORTED and a reason (the caller's
-// 501): palette blocks, intra block copy, superres, film grain applied,
-// 10/12-bit streams, quantizer matrices, inter frames, layered streams.
+// Everything from the tiles on is a template over the sample type:
+// uint8_t for 8-bit streams, uint16_t for 10- and 12-bit ones, whose
+// BitDepth-dependent steps (quantizer rows, clamps, edge base values,
+// deblocking limits, CDEF strengths, Wiener and self-guided rounding,
+// palette literals) follow the spec. Not built, answered with
+// IK_AV1D_NOT_PORTED and a reason (the caller's 501): superres, film
+// grain applied, quantizer matrices, inter frames, layered streams.
 // Tiles decode on threads of their own (decode_tiles), and so do CDEF's
 // rows of 64x64 units; deblocking and loop restoration run on the calling
 // thread. Malformed streams answer IK_AV1D_BAD (400): every
@@ -100,22 +113,41 @@ struct Cdfs {
   uint16_t switchable_restore[4];
   uint16_t wiener_restore[3];
   uint16_t sgrproj_restore[3];
+  uint16_t pal_y_size[7][8];
+  uint16_t pal_uv_size[7][8];
+  // [plane type][palette size - 2][context]: N = size symbols, the record
+  // padded to the largest (8 symbols)
+  uint16_t pal_color[2][7][5][9];
+  uint16_t intrabc[3];
+  // MV_INTRABC_CONTEXT's motion vector CDFs, [comp] row then column
+  uint16_t mv_joint[5];
+  uint16_t mv_class[2][12];
+  uint16_t mv_class0[2][3];
+  uint16_t mv_bits[2][10][3];
+  uint16_t mv_sign[2][3];
+  uint16_t txfm_split[21][3];
+  uint16_t inter_tx1[2][17];
+  uint16_t inter_tx2[13];
+  uint16_t inter_tx3[4][3];
 };
 
 struct Tables {
   Cdfs cdf[4];  // one per coefficient q context
   // 16-bit members first, then bytes: no padding anywhere
-  int16_t dc_q[256];
-  int16_t ac_q[256];
+  int16_t dc_q[3][256];  // BitDepth 8, 10, 12
+  int16_t ac_q[3][256];
   int16_t dr_deriv[44];
   int16_t sgr[16][4];  // r0, s0, r1, s1
   int16_t scan4x4[16], scan8x8[64], scan16x16[256], scan32x32[1024];
   int16_t scan4x8[32], scan8x4[32], scan8x16[128], scan16x8[128];
   int16_t scan16x32[512], scan32x16[512], scan4x16[64], scan16x4[64];
   int16_t scan8x32[256], scan32x8[256];
+  int16_t bilinear[16][8];  // Subpel_Filters[BILINEAR]
   uint8_t sm_weights[128];  // 124 used: sizes 4, 8, 16, 32, 64 in turn
   int8_t filter_taps[5][8][8];  // 7 used
   int8_t ctx_offset[19][5][5];
+  int8_t palette_color_context[9];
+  int8_t palette_hash_mult[3];
   int8_t pad_[1];
 };
 
@@ -144,6 +176,7 @@ enum { DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST, FLIPADST_DCT, DCT_FLIPADST,
        FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST, IDTX, V_DCT, H_DCT,
        V_ADST, H_ADST, V_FLIPADST, H_FLIPADST };
 enum { TX_SET_DCTONLY, TX_SET_INTRA_1, TX_SET_INTRA_2 };
+enum { TX_SET_INTER_1 = 1, TX_SET_INTER_2, TX_SET_INTER_3 };
 enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
 enum { TX_MODE_ONLY_4X4, TX_MODE_LARGEST, TX_MODE_SELECT };
 enum { SEG_LVL_ALT_Q, SEG_LVL_ALT_LF_Y_V, SEG_LVL_REF_FRAME = 5,
@@ -249,6 +282,19 @@ const uint8_t kModeToTxfm[14] = {
 const uint8_t kTxInvSet1[7] = {IDTX, DCT_DCT, V_DCT, H_DCT,
                                ADST_ADST, ADST_DCT, DCT_ADST};
 const uint8_t kTxInvSet2[5] = {IDTX, DCT_DCT, ADST_ADST, ADST_DCT, DCT_ADST};
+const uint8_t kTxInterInvSet1[16] = {
+    IDTX,     V_DCT,        H_DCT,        V_ADST,
+    H_ADST,   V_FLIPADST,   H_FLIPADST,   DCT_DCT,
+    ADST_DCT, DCT_ADST,     FLIPADST_DCT, DCT_FLIPADST,
+    ADST_ADST, FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST};
+const uint8_t kTxInterInvSet2[12] = {
+    IDTX,         V_DCT,        H_DCT,     DCT_DCT,
+    ADST_DCT,     DCT_ADST,     FLIPADST_DCT, DCT_FLIPADST,
+    ADST_ADST,    FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST};
+const uint8_t kTxInterInvSet3[2] = {IDTX, DCT_DCT};
+// Tx_Type_In_Set_Inter of sets 1, 2 and 3, as bit masks over the types
+const uint16_t kTxInSetInter[4] = {1u << DCT_DCT, 0xFFFF, 0x0FFF,
+                                   (1u << DCT_DCT) | (1u << IDTX)};
 const uint8_t kFilterIntraToDir[5] = {DC_PRED, V_PRED, H_PRED, D157_PRED,
                                       DC_PRED};
 const int kModeToAngle[13] = {0, 90, 180, 45, 135, 113, 157, 203, 67,
@@ -588,7 +634,6 @@ void parse_frame_header(Bits& b, const SeqHdr& s, FrameHdr& h,
     b.f(16);
   }
   if (h.allow_sct && h.upscaled_width == h.width) h.allow_intrabc = b.f(1);
-  if (h.allow_intrabc) not_ported("intra block copy");
   if (!(s.reduced || h.disable_cdf_update)) b.f(1);  // end update cdf
   // tile_info
   int sb_cols = s.sb128 ? (h.mi_cols + 31) >> 5 : (h.mi_cols + 15) >> 4;
@@ -701,7 +746,7 @@ void parse_frame_header(Bits& b, const SeqHdr& s, FrameHdr& h,
   if (h.base_q_idx > 0) h.delta_q_present = b.f(1);
   if (h.delta_q_present) {
     h.delta_q_res = b.f(2);
-    h.delta_lf_present = b.f(1);  // allow_intrabc is 0 here
+    if (!h.allow_intrabc) h.delta_lf_present = b.f(1);
     if (h.delta_lf_present) {
       h.delta_lf_res = b.f(2);
       h.delta_lf_multi = b.f(1);
@@ -717,8 +762,9 @@ void parse_frame_header(Bits& b, const SeqHdr& s, FrameHdr& h,
     if (!h.lossless[sid]) h.coded_lossless = 0;
   }
   h.all_lossless = h.coded_lossless;  // no superres
-  // loop_filter_params
-  if (!h.coded_lossless) {
+  // loop_filter_params, cdef_params and lr_params: none with intra block
+  // copy, whose frames are not filtered
+  if (!h.coded_lossless && !h.allow_intrabc) {
     h.lf_level[0] = b.f(6);
     h.lf_level[1] = b.f(6);
     if (planes > 1 && (h.lf_level[0] || h.lf_level[1])) {
@@ -735,7 +781,7 @@ void parse_frame_header(Bits& b, const SeqHdr& s, FrameHdr& h,
     }
   }
   // cdef_params
-  if (!h.coded_lossless && s.cdef) {
+  if (!h.coded_lossless && !h.allow_intrabc && s.cdef) {
     h.cdef_on = 1;
     h.cdef_damping = b.f(2) + 3;
     h.cdef_bits = b.f(2);
@@ -751,7 +797,7 @@ void parse_frame_header(Bits& b, const SeqHdr& s, FrameHdr& h,
     }
   }
   // lr_params
-  if (!h.all_lossless && s.restoration) {
+  if (!h.all_lossless && !h.allow_intrabc && s.restoration) {
     static const int remap[4] = {RESTORE_NONE, RESTORE_SWITCHABLE,
                                  RESTORE_WIENER, RESTORE_SGRPROJ};
     int chroma_lr = 0;
@@ -1130,11 +1176,12 @@ void tx1d(int64_t* T, int kind, int n) {
 // ---------------------------------------------------------------------------
 // Frame state
 
+template <typename Pixel>
 struct Plane {
-  std::vector<uint8_t> buf;
+  std::vector<Pixel> buf;
   int stride = 0;
-  uint8_t* row(int y) { return buf.data() + (size_t)y * stride; }
-  uint8_t& at(int x, int y) { return buf[(size_t)y * stride + x]; }
+  Pixel* row(int y) { return buf.data() + (size_t)y * stride; }
+  Pixel& at(int x, int y) { return buf[(size_t)y * stride + x]; }
 };
 
 struct LrUnit {
@@ -1144,36 +1191,65 @@ struct LrUnit {
   int16_t xqd[2];
 };
 
-struct Decoder {
+// The headers and what the tiles write beside the samples: the same for
+// every bit depth.
+struct FrameInfo {
   SeqHdr seq;
   FrameHdr fh;
   int planes = 3, ssx = 1, ssy = 1;
   int mi_rows = 0, mi_cols = 0;
+  int bitdepth = 8;
   // MI arrays
-  std::vector<uint8_t> mi_size, skips, tx_sizes, y_modes, uv_modes, seg_ids;
+  std::vector<uint8_t> mi_size, skips, inter_tx_sizes, y_modes, uv_modes,
+      seg_ids, is_inters;
   std::vector<int8_t> delta_lfs;  // 4 per MI
+  // frames with intra block copy only: the luma TxTypes (chroma of an
+  // intrabc block takes its co-located one) and each MI's vector
+  std::vector<uint8_t> tx_types;
+  std::vector<int16_t> mvs;  // row, column
   std::vector<uint8_t> lf_tx[3];  // per plane 4x4 unit
   int lf_tx_stride[3] = {0, 0, 0};
   std::vector<int8_t> cdef_idx;  // per 64x64
   int cdef_stride = 0;
   std::vector<LrUnit> lr[3];
   int lr_rows[3] = {0, 0, 0}, lr_cols[3] = {0, 0, 0};
-  Plane cur[3];
 
   uint8_t& MI(std::vector<uint8_t>& v, int r, int c) {
     return v[(size_t)r * mi_cols + c];
   }
+};
+
+template <typename Pixel>
+struct Decoder : FrameInfo {
+  Plane<Pixel> cur[3];
+  int pmax = 255;  // (1 << BitDepth) - 1
+
+  // Clip1 of the spec
+  Pixel clip1(int v) const {
+    if (sizeof(Pixel) == 1) return (Pixel)(v < 0 ? 0 : v > 255 ? 255 : v);
+    return (Pixel)(v < 0 ? 0 : v > pmax ? pmax : v);
+  }
   void alloc() {
+    planes = seq.mono ? 1 : 3;
+    ssx = seq.ssx;
+    ssy = seq.ssy;
+    bitdepth = seq.bitdepth;
+    pmax = (1 << bitdepth) - 1;
     mi_rows = fh.mi_rows;
     mi_cols = fh.mi_cols;
     size_t n = (size_t)mi_rows * mi_cols;
     mi_size.assign(n, 0);
     skips.assign(n, 0);
-    tx_sizes.assign(n, 0);
+    inter_tx_sizes.assign(n, 0);
     y_modes.assign(n, 0);
     uv_modes.assign(n, 0);
     seg_ids.assign(n, 0);
+    is_inters.assign(n, 0);
     delta_lfs.assign(n * 4, 0);
+    if (fh.allow_intrabc) {
+      tx_types.assign(n, 0);
+      mvs.assign(n * 2, 0);
+    }
     cdef_stride = (mi_cols + 15) >> 4;
     cdef_idx.assign((size_t)cdef_stride * ((mi_rows + 15) >> 4), -1);
     for (int p = 0; p < planes; ++p) {
@@ -1194,8 +1270,9 @@ inline int count_units(int unit, int size) {
 // ---------------------------------------------------------------------------
 // Tile decoding
 
+template <typename Pixel>
 struct Tile {
-  Decoder& d;
+  Decoder<Pixel>& d;
   const FrameHdr& fh;
   Cdfs cdf;
   Msac ms;
@@ -1218,11 +1295,31 @@ struct Tile {
   int use_filter_intra, filter_intra_mode;
   int tx_size;
   int max_luma_w, max_luma_h;
+  int partition;  // the parent's, for has_top_right
+  // palette: the block's sizes, colours (Y, U, V) and colour index maps;
+  // the sizes and colours of the blocks above and to the left, by MI
+  // column and row (8 colours each), for the caches
+  int pal_size_y, pal_size_uv;
+  uint16_t pal_colors[3][8];
+  int map_w[2];
+  uint8_t color_map[2][64 * 64];
+  std::vector<uint8_t> above_pal_n[2], left_pal_n[2];
+  std::vector<uint16_t> above_pal[2], left_pal[2];
+  // intra block copy
+  int use_intrabc, is_inter;
+  int mv[2];  // row, column in 1/8 samples
+  int num_mv;
+  // blocks of the tile that code a palette (Y or UV) and intra block copy
+  int n_palette = 0, n_intrabc = 0;
+  int stack_mv[8][2];
+  int stack_weight[8];
   // coefficient scratch
   int32_t quant[1024];
   int64_t resid[64 * 64];
+  // intra block copy's horizontal pass, (128 + 1) x 128
+  int32_t inter_buf[129 * 128];
 
-  Tile(Decoder& dd) : d(dd), fh(dd.fh) {}
+  Tile(Decoder<Pixel>& dd) : d(dd), fh(dd.fh) {}
 
   int is_inside(int r, int c) const {
     return c >= mi_col_start && c < mi_col_end && r >= mi_row_start &&
@@ -1355,6 +1452,13 @@ struct Tile {
       left_level[p].assign(hc, 0);
       left_dc[p].assign(hc, 0);
     }
+    if (fh.allow_sct)
+      for (int p = 0; p < 2; ++p) {
+        above_pal_n[p].assign((size_t)d.mi_cols + 32, 0);
+        above_pal[p].assign(((size_t)d.mi_cols + 32) * 8, 0);
+        left_pal_n[p].assign((size_t)d.mi_rows + 32, 0);
+        left_pal[p].assign(((size_t)d.mi_rows + 32) * 8, 0);
+      }
     for (int i = 0; i < 4; ++i) delta_lf[i] = 0;
     for (int p = 0; p < planes; ++p) {
       ref_sgr_xqd[p][0] = -32;
@@ -1448,15 +1552,15 @@ struct Tile {
     if (sub == BLOCK_INVALID) bad("partition");
     switch (partition) {
       case PARTITION_NONE:
-        decode_block(r, c, sub);
+        decode_block(r, c, sub, partition);
         break;
       case PARTITION_HORZ:
-        decode_block(r, c, sub);
-        if (has_rows) decode_block(r + half, c, sub);
+        decode_block(r, c, sub, partition);
+        if (has_rows) decode_block(r + half, c, sub, partition);
         break;
       case PARTITION_VERT:
-        decode_block(r, c, sub);
-        if (has_cols) decode_block(r, c + half, sub);
+        decode_block(r, c, sub, partition);
+        if (has_cols) decode_block(r, c + half, sub, partition);
         break;
       case PARTITION_SPLIT:
         decode_partition(r, c, sub);
@@ -1465,34 +1569,34 @@ struct Tile {
         decode_partition(r + half, c + half, sub);
         break;
       case PARTITION_HORZ_A:
-        decode_block(r, c, split);
-        decode_block(r, c + half, split);
-        decode_block(r + half, c, sub);
+        decode_block(r, c, split, partition);
+        decode_block(r, c + half, split, partition);
+        decode_block(r + half, c, sub, partition);
         break;
       case PARTITION_HORZ_B:
-        decode_block(r, c, sub);
-        decode_block(r + half, c, split);
-        decode_block(r + half, c + half, split);
+        decode_block(r, c, sub, partition);
+        decode_block(r + half, c, split, partition);
+        decode_block(r + half, c + half, split, partition);
         break;
       case PARTITION_VERT_A:
-        decode_block(r, c, split);
-        decode_block(r + half, c, split);
-        decode_block(r, c + half, sub);
+        decode_block(r, c, split, partition);
+        decode_block(r + half, c, split, partition);
+        decode_block(r, c + half, sub, partition);
         break;
       case PARTITION_VERT_B:
-        decode_block(r, c, sub);
-        decode_block(r, c + half, split);
-        decode_block(r + half, c + half, split);
+        decode_block(r, c, sub, partition);
+        decode_block(r, c + half, split, partition);
+        decode_block(r + half, c + half, split, partition);
         break;
       case PARTITION_HORZ_4:
         for (int i = 0; i < 4; ++i)
           if (i < 3 || r + quarter * 3 < d.mi_rows)
-            decode_block(r + quarter * i, c, sub);
+            decode_block(r + quarter * i, c, sub, partition);
         break;
       case PARTITION_VERT_4:
         for (int i = 0; i < 4; ++i)
           if (i < 3 || c + quarter * 3 < d.mi_cols)
-            decode_block(r, c + quarter * i, sub);
+            decode_block(r, c + quarter * i, sub, partition);
         break;
     }
   }
@@ -1569,7 +1673,7 @@ struct Tile {
   }
 
   void read_cdef() {
-    if (skip || fh.coded_lossless || !d.seq.cdef) return;
+    if (skip || fh.coded_lossless || !d.seq.cdef || fh.allow_intrabc) return;
     int r = mi_row & ~15, c = mi_col & ~15;
     int8_t& idx = d.cdef_idx[(size_t)(r >> 4) * d.cdef_stride + (c >> 4)];
     if (idx == -1) {
@@ -1642,17 +1746,25 @@ struct Tile {
     read_delta_qindex();
     read_delta_lf();
     read_deltas = 0;
+    use_intrabc = fh.allow_intrabc ? ms.symbol(cdf.intrabc, 2) : 0;
+    is_inter = use_intrabc;
+    y_mode = uv_mode = DC_PRED;
+    angle_delta_y = angle_delta_uv = 0;
+    cfl_alpha_u = cfl_alpha_v = 0;
+    pal_size_y = pal_size_uv = 0;
+    use_filter_intra = 0;
+    if (use_intrabc) {
+      find_mv_stack();
+      assign_mv();
+      return;
+    }
     // intra_frame_y_mode
     int above = avail_u ? d.MI(d.y_modes, mi_row - 1, mi_col) : DC_PRED;
     int left = avail_l ? d.MI(d.y_modes, mi_row, mi_col - 1) : DC_PRED;
     y_mode = ms.symbol(
         cdf.kf_y_mode[kIntraModeCtx[above]][kIntraModeCtx[left]], 13);
-    angle_delta_y = 0;
     if (mi_sz >= BLOCK_8X8 && is_directional(y_mode))
       angle_delta_y = ms.symbol(cdf.angle_delta[y_mode - V_PRED], 7) - 3;
-    uv_mode = DC_PRED;
-    angle_delta_uv = 0;
-    cfl_alpha_u = cfl_alpha_v = 0;
     if (has_chroma) {
       int cfl_allowed;
       if (lossless && kSsSize[mi_sz][d.ssx][d.ssy] == BLOCK_4X4)
@@ -1683,22 +1795,11 @@ struct Tile {
       if (mi_sz >= BLOCK_8X8 && is_directional(uv_mode))
         angle_delta_uv = ms.symbol(cdf.angle_delta[uv_mode - V_PRED], 7) - 3;
     }
-    // palette_mode_info
     if (mi_sz >= BLOCK_8X8 && kNum4x4W[mi_sz] <= 16 && kNum4x4H[mi_sz] <= 16 &&
-        fh.allow_sct) {
-      int bsize_ctx = kMiWLog2[mi_sz] + kMiHLog2[mi_sz] - 2;
-      if (y_mode == DC_PRED) {
-        // no block of this decoder has a palette, so the context is 0
-        if (ms.symbol(cdf.pal_y_mode[bsize_ctx][0], 2))
-          not_ported("palette blocks");
-      }
-      if (has_chroma && uv_mode == DC_PRED) {
-        if (ms.symbol(cdf.pal_uv_mode[0], 2)) not_ported("palette blocks");
-      }
-    }
+        fh.allow_sct)
+      palette_mode_info();
     // filter_intra_mode_info
-    use_filter_intra = 0;
-    if (d.seq.filter_intra && y_mode == DC_PRED &&
+    if (d.seq.filter_intra && y_mode == DC_PRED && pal_size_y == 0 &&
         std::max(kNum4x4W[mi_sz], kNum4x4H[mi_sz]) * 4 <= 32) {
       use_filter_intra = ms.symbol(cdf.use_filter_intra[mi_sz], 2);
       if (use_filter_intra)
@@ -1706,7 +1807,482 @@ struct Tile {
     }
   }
 
+  // -- palette (spec 5.11.46, 5.11.49, 7.11.4) ----------------------------
+  static int ceil_log2(int x) {
+    if (x < 2) return 0;
+    int i = 1, p = 2;
+    while (p < x) {
+      ++i;
+      p <<= 1;
+    }
+    return i;
+  }
+
+  int get_palette_cache(int plane, uint16_t* cache) {
+    int above_n = 0, left_n = 0;
+    if (((mi_row * 4) % 64) && avail_u) above_n = above_pal_n[plane][mi_col];
+    if (avail_l) left_n = left_pal_n[plane][mi_row];
+    const uint16_t* above = &above_pal[plane][(size_t)mi_col * 8];
+    const uint16_t* left = &left_pal[plane][(size_t)mi_row * 8];
+    int ai = 0, li = 0, n = 0;
+    while (ai < above_n && li < left_n) {
+      int a = above[ai], l = left[li];
+      if (l < a) {
+        if (n == 0 || l != cache[n - 1]) cache[n++] = (uint16_t)l;
+        ++li;
+      } else {
+        if (n == 0 || a != cache[n - 1]) cache[n++] = (uint16_t)a;
+        ++ai;
+        if (l == a) ++li;
+      }
+    }
+    for (; ai < above_n; ++ai)
+      if (n == 0 || above[ai] != cache[n - 1]) cache[n++] = above[ai];
+    for (; li < left_n; ++li)
+      if (n == 0 || left[li] != cache[n - 1]) cache[n++] = left[li];
+    return n;
+  }
+
+  // The Y (plane 0) or U (plane 1) colours: from the cache, a literal, then
+  // ascending deltas (at least 1 apart for Y)
+  void read_palette_colors(int plane, int n, uint16_t* colors) {
+    int bd = d.bitdepth;
+    uint16_t cache[16];
+    int cache_n = get_palette_cache(plane, cache);
+    int idx = 0;
+    for (int i = 0; i < cache_n && idx < n; ++i)
+      if (ms.literal(1)) colors[idx++] = cache[i];
+    if (idx < n) colors[idx++] = (uint16_t)ms.literal(bd);
+    int bits = 0;
+    if (idx < n) bits = bd - 3 + ms.literal(2);
+    for (; idx < n; ++idx) {
+      int delta = ms.literal(bits) + (plane == 0);
+      colors[idx] = d.clip1(colors[idx - 1] + delta);
+      int range = (1 << bd) - colors[idx] - (plane == 0);
+      bits = std::min(bits, ceil_log2(range));
+    }
+    std::sort(colors, colors + n);
+  }
+
+  void palette_mode_info() {
+    int bsize_ctx = kMiWLog2[mi_sz] + kMiHLog2[mi_sz] - 2;
+    int bd = d.bitdepth;
+    if (y_mode == DC_PRED) {
+      int ctx = (avail_u && above_pal_n[0][mi_col] > 0) +
+                (avail_l && left_pal_n[0][mi_row] > 0);
+      if (ms.symbol(cdf.pal_y_mode[bsize_ctx][ctx], 2)) {
+        pal_size_y = ms.symbol(cdf.pal_y_size[bsize_ctx], 7) + 2;
+        read_palette_colors(0, pal_size_y, pal_colors[0]);
+      }
+    }
+    if (has_chroma && uv_mode == DC_PRED) {
+      if (ms.symbol(cdf.pal_uv_mode[pal_size_y > 0], 2)) {
+        int n = pal_size_uv = ms.symbol(cdf.pal_uv_size[bsize_ctx], 7) + 2;
+        read_palette_colors(1, n, pal_colors[1]);
+        uint16_t* v = pal_colors[2];
+        if (ms.literal(1)) {  // delta_encode_palette_colors_v
+          int max_val = 1 << bd;
+          int bits = bd - 4 + ms.literal(2);
+          v[0] = (uint16_t)ms.literal(bd);
+          for (int i = 1; i < n; ++i) {
+            int delta = ms.literal(bits);
+            if (delta && ms.literal(1)) delta = -delta;
+            int val = v[i - 1] + delta;
+            if (val < 0) val += max_val;
+            if (val >= max_val) val -= max_val;
+            v[i] = d.clip1(val);
+          }
+        } else {
+          for (int i = 0; i < n; ++i) v[i] = (uint16_t)ms.literal(bd);
+        }
+      }
+    }
+  }
+
+  // get_palette_color_context: the neighbours' scores, the colour order
+  // they give and the context of their hash
+  int palette_color_context(const uint8_t* map, int stride, int r, int c,
+                            int n, int* order) {
+    int scores[8] = {0};
+    for (int i = 0; i < 8; ++i) order[i] = i;
+    if (c > 0) scores[map[r * stride + c - 1]] += 2;
+    if (r > 0 && c > 0) scores[map[(r - 1) * stride + c - 1]] += 1;
+    if (r > 0) scores[map[(r - 1) * stride + c]] += 2;
+    for (int i = 0; i < 3; ++i) {
+      int max_score = scores[i], max_idx = i;
+      for (int j = i + 1; j < n; ++j)
+        if (scores[j] > max_score) {
+          max_score = scores[j];
+          max_idx = j;
+        }
+      if (max_idx != i) {
+        int max_order = order[max_idx];
+        for (int k = max_idx; k > i; --k) {
+          scores[k] = scores[k - 1];
+          order[k] = order[k - 1];
+        }
+        scores[i] = max_score;
+        order[i] = max_order;
+      }
+    }
+    int hash = 0;
+    for (int i = 0; i < 3; ++i) hash += scores[i] * g_tab.palette_hash_mult[i];
+    int ctx = g_tab.palette_color_context[hash];
+    if (ctx < 0) bad("palette colour context");
+    return ctx;
+  }
+
+  void read_color_map(int ptype, int n, int bw, int bh, int on_w, int on_h) {
+    uint8_t* map = color_map[ptype];
+    map_w[ptype] = bw;
+    map[0] = (uint8_t)ms.ns(n);
+    int order[8];
+    for (int i = 1; i < on_h + on_w - 1; ++i)
+      for (int j = std::min(i, on_w - 1); j >= std::max(0, i - on_h + 1); --j) {
+        int ctx = palette_color_context(map, bw, i - j, j, n, order);
+        int idx = ms.symbol(cdf.pal_color[ptype][n - 2][ctx], n);
+        map[(i - j) * bw + j] = (uint8_t)order[idx];
+      }
+    for (int i = 0; i < on_h; ++i)
+      for (int j = on_w; j < bw; ++j) map[i * bw + j] = map[i * bw + on_w - 1];
+    for (int i = on_h; i < bh; ++i)
+      memcpy(map + i * bw, map + (on_h - 1) * bw, bw);
+  }
+
+  void palette_tokens() {
+    int bw = bw4 * 4, bh = bh4 * 4;
+    int on_h = std::min(bh, (d.mi_rows - mi_row) * 4);
+    int on_w = std::min(bw, (d.mi_cols - mi_col) * 4);
+    if (pal_size_y) read_color_map(0, pal_size_y, bw, bh, on_w, on_h);
+    if (pal_size_uv) {
+      bw >>= d.ssx;
+      bh >>= d.ssy;
+      on_w >>= d.ssx;
+      on_h >>= d.ssy;
+      if (bw < 4) {
+        bw += 2;
+        on_w += 2;
+      }
+      if (bh < 4) {
+        bh += 2;
+        on_h += 2;
+      }
+      read_color_map(1, pal_size_uv, bw, bh, on_w, on_h);
+    }
+  }
+
+  void predict_palette(int plane, int start_x, int start_y, int x, int y,
+                       int txsz) {
+    int w = kTxW[txsz], h = kTxH[txsz];
+    const uint16_t* pal = pal_colors[plane];
+    int ptype = plane > 0;
+    const uint8_t* map = color_map[ptype];
+    int stride = map_w[ptype];
+    auto& P = d.cur[plane];
+    for (int i = 0; i < h; ++i) {
+      const uint8_t* m = map + (y * 4 + i) * stride + x * 4;
+      Pixel* out = P.row(start_y + i) + start_x;
+      for (int j = 0; j < w; ++j) out[j] = (Pixel)pal[m[j]];
+    }
+  }
+
+  // The palette sizes and colours of the block, for the caches and
+  // contexts of the blocks below it and to its right
+  void store_palette() {
+    int cols = std::min(bw4, d.mi_cols - mi_col);
+    int rows = std::min(bh4, d.mi_rows - mi_row);
+    int sizes[2] = {pal_size_y, pal_size_uv};
+    for (int p = 0; p < 2; ++p) {
+      for (int c = mi_col; c < mi_col + cols; ++c) {
+        above_pal_n[p][c] = (uint8_t)sizes[p];
+        if (sizes[p])
+          memcpy(&above_pal[p][(size_t)c * 8], pal_colors[p],
+                 sizeof(uint16_t) * sizes[p]);
+      }
+      for (int r = mi_row; r < mi_row + rows; ++r) {
+        left_pal_n[p][r] = (uint8_t)sizes[p];
+        if (sizes[p])
+          memcpy(&left_pal[p][(size_t)r * 8], pal_colors[p],
+                 sizeof(uint16_t) * sizes[p]);
+      }
+    }
+  }
+
+  // -- intra block copy (spec 7.10.2, 5.11.26, 7.11.3) --------------------
+  // has_top_right of libaom's motion vector search: whether the block
+  // above and to the right is decoded before this one
+  int has_top_right() const {
+    int sb_mi = d.seq.sb128 ? 32 : 16;
+    int mask_row = mi_row & (sb_mi - 1), mask_col = mi_col & (sb_mi - 1);
+    int bs = std::max(bw4, bh4);
+    if (bs > 16) return 0;
+    int has_tr = !((mask_row & bs) && (mask_col & bs));
+    while (bs < sb_mi) {
+      if (!(mask_col & bs)) break;
+      if ((mask_col & (2 * bs)) && (mask_row & (2 * bs))) {
+        has_tr = 0;
+        break;
+      }
+      bs <<= 1;
+    }
+    // the parts of a vertical split but the last have one (the block
+    // above is decoded); the parts of a horizontal split but the first
+    // have none (the block to the right is not)
+    if (bw4 < bh4 && ((mi_col + bw4) & (bh4 - 1))) has_tr = 1;
+    if (bw4 > bh4 && (mi_row & (bw4 - 1))) has_tr = 0;
+    if (partition == PARTITION_VERT_A && bw4 == bh4 && (mask_row & bs))
+      has_tr = 0;
+    return has_tr;
+  }
+
+  void add_ref_mv_candidate(int r, int c, int weight) {
+    size_t i = (size_t)r * d.mi_cols + c;
+    if (!d.is_inters[i]) return;
+    int cand[2] = {d.mvs[2 * i], d.mvs[2 * i + 1]};
+    // an intra frame's vectors are whole samples: lower_mv_precision
+    // changes none
+    int idx = 0;
+    for (; idx < num_mv; ++idx)
+      if (stack_mv[idx][0] == cand[0] && stack_mv[idx][1] == cand[1]) break;
+    if (idx < num_mv) {
+      stack_weight[idx] += weight;
+    } else if (num_mv < 8) {
+      stack_mv[num_mv][0] = cand[0];
+      stack_mv[num_mv][1] = cand[1];
+      stack_weight[num_mv] = weight;
+      ++num_mv;
+    }
+  }
+
+  void scan_row(int delta_row) {
+    int end4 = std::min(std::min(bw4, d.mi_cols - mi_col), 16);
+    int delta_col = 0;
+    int use_step16 = bw4 >= 16;
+    if (std::abs(delta_row) > 1) {
+      delta_row += mi_row & 1;
+      delta_col = 1 - (mi_col & 1);
+    }
+    for (int i = 0; i < end4;) {
+      int r = mi_row + delta_row, c = mi_col + delta_col + i;
+      if (!is_inside(r, c)) break;
+      int len = std::min(bw4, (int)kNum4x4W[d.MI(d.mi_size, r, c)]);
+      if (std::abs(delta_row) > 1) len = std::max(2, len);
+      if (use_step16) len = std::max(4, len);
+      add_ref_mv_candidate(r, c, len * 2);
+      i += len;
+    }
+  }
+
+  void scan_col(int delta_col) {
+    int end4 = std::min(std::min(bh4, d.mi_rows - mi_row), 16);
+    int delta_row = 0;
+    int use_step16 = bh4 >= 16;
+    if (std::abs(delta_col) > 1) {
+      delta_row = 1 - (mi_row & 1);
+      delta_col += mi_col & 1;
+    }
+    for (int i = 0; i < end4;) {
+      int r = mi_row + delta_row + i, c = mi_col + delta_col;
+      if (!is_inside(r, c)) break;
+      int len = std::min(bh4, (int)kNum4x4H[d.MI(d.mi_size, r, c)]);
+      if (std::abs(delta_col) > 1) len = std::max(2, len);
+      if (use_step16) len = std::max(4, len);
+      add_ref_mv_candidate(r, c, len * 2);
+      i += len;
+    }
+  }
+
+  void scan_point(int delta_row, int delta_col) {
+    int r = mi_row + delta_row, c = mi_col + delta_col;
+    if (is_inside(r, c)) add_ref_mv_candidate(r, c, 4);
+  }
+
+  void sort_stack(int start, int end) {
+    while (end > start) {
+      int new_end = start;
+      for (int idx = start + 1; idx < end; ++idx)
+        if (stack_weight[idx - 1] < stack_weight[idx]) {
+          std::swap(stack_weight[idx - 1], stack_weight[idx]);
+          std::swap(stack_mv[idx - 1][0], stack_mv[idx][0]);
+          std::swap(stack_mv[idx - 1][1], stack_mv[idx][1]);
+          new_end = idx;
+        }
+      end = new_end;
+    }
+  }
+
+  // find_mv_stack for INTRA_FRAME: the spatial candidates only (no
+  // temporal ones in an intra frame, and the extra search adds none, its
+  // candidates being inter references)
+  void find_mv_stack() {
+    num_mv = 0;
+    scan_row(-1);
+    scan_col(-1);
+    if (std::max(bw4, bh4) <= 16 && has_top_right()) scan_point(-1, bw4);
+    int num_nearest = num_mv;
+    for (int i = 0; i < num_nearest; ++i) stack_weight[i] += 640;  // REF_CAT_LEVEL
+    scan_point(-1, -1);
+    scan_row(-3);
+    scan_col(-3);
+    if (bh4 > 1) scan_row(-5);
+    if (bw4 > 1) scan_col(-5);
+    sort_stack(0, num_nearest);
+    sort_stack(num_nearest, num_mv);
+    // context_and_clamping: each vector kept within MV_BORDER of the frame
+    for (int i = 0; i < num_mv; ++i) {
+      int top = -(mi_row * 4 * 8), bottom = (d.mi_rows - bh4 - mi_row) * 4 * 8;
+      int left = -(mi_col * 4 * 8), right = (d.mi_cols - bw4 - mi_col) * 4 * 8;
+      int brow = 128 + bh4 * 4 * 8, bcol = 128 + bw4 * 4 * 8;
+      stack_mv[i][0] = clip3(top - brow, bottom + brow, stack_mv[i][0]);
+      stack_mv[i][1] = clip3(left - bcol, right + bcol, stack_mv[i][1]);
+    }
+  }
+
+  int read_mv_component(int comp) {
+    int sign = ms.symbol(cdf.mv_sign[comp], 2);
+    int cls = ms.symbol(cdf.mv_class[comp], 11);
+    int mag;
+    // force_integer_mv: the fraction is 3 and the high precision bit 1
+    if (cls == 0) {
+      int bit = ms.symbol(cdf.mv_class0[comp], 2);
+      mag = ((bit << 3) | (3 << 1) | 1) + 1;
+    } else {
+      int dd = 0;
+      for (int i = 0; i < cls; ++i)
+        dd |= ms.symbol(cdf.mv_bits[comp][i], 2) << i;
+      mag = (2 << (cls + 2)) + ((dd << 3) | (3 << 1) | 1) + 1;
+    }
+    return sign ? -mag : mag;
+  }
+
+  // is_mv_valid for intra block copy: a whole-sample vector to samples of
+  // this tile that are decoded (the superblocks 256 samples to the left
+  // and above, along the wavefront)
+  bool intrabc_mv_valid() const {
+    if (std::abs(mv[0]) >= (1 << 14) || std::abs(mv[1]) >= (1 << 14))
+      return false;
+    if ((mv[0] & 7) || (mv[1] & 7)) return false;
+    int top = mi_row * 4 + (mv[0] >> 3), left = mi_col * 4 + (mv[1] >> 3);
+    int bottom = top + bh4 * 4, right = left + bw4 * 4;
+    if (has_chroma) {
+      if (bw4 < 2 && d.ssx) left -= 4;
+      if (bh4 < 2 && d.ssy) top -= 4;
+    }
+    if (top < mi_row_start * 4 || left < mi_col_start * 4 ||
+        bottom > mi_row_end * 4 || right > mi_col_end * 4)
+      return false;
+    int sb_h = d.seq.sb128 ? 128 : 64;
+    int active_sb_row = (mi_row * 4) / sb_h;
+    int active_sb64_col = (mi_col * 4) >> 6;
+    int src_sb_row = (bottom - 1) / sb_h;
+    int src_sb64_col = (right - 1) >> 6;
+    int per_row = ((mi_col_end - mi_col_start - 1) >> 4) + 1;
+    int active_sb64 = active_sb_row * per_row + active_sb64_col;
+    int src_sb64 = src_sb_row * per_row + src_sb64_col;
+    if (src_sb64 >= active_sb64 - 4) return false;  // INTRABC_DELAY_SB64
+    int gradient = 1 + 4 + (sb_h == 128);
+    int wf_offset = gradient * (active_sb_row - src_sb_row);
+    if (src_sb_row > active_sb_row ||
+        src_sb64_col >= active_sb64_col - 4 + wf_offset)
+      return false;
+    return true;
+  }
+
+  void assign_mv() {
+    int pred[2] = {0, 0};
+    if (num_mv > 0) {
+      pred[0] = stack_mv[0][0];
+      pred[1] = stack_mv[0][1];
+    }
+    if (!pred[0] && !pred[1] && num_mv > 1) {
+      pred[0] = stack_mv[1][0];
+      pred[1] = stack_mv[1][1];
+    }
+    if (!pred[0] && !pred[1]) {
+      int sb4 = d.seq.sb128 ? 32 : 16;
+      if (mi_row - sb4 < mi_row_start) {
+        pred[0] = 0;
+        pred[1] = -(sb4 * 4 + 256) * 8;  // INTRABC_DELAY_PIXELS
+      } else {
+        pred[0] = -(sb4 * 4 * 8);
+        pred[1] = 0;
+      }
+    }
+    // read_mv under MV_INTRABC_CONTEXT
+    int joint = ms.symbol(cdf.mv_joint, 4);
+    int diff[2] = {0, 0};
+    if (joint == 2 || joint == 3) diff[0] = read_mv_component(0);
+    if (joint == 1 || joint == 3) diff[1] = read_mv_component(1);
+    mv[0] = pred[0] + diff[0];
+    mv[1] = pred[1] + diff[1];
+    if (!intrabc_mv_valid()) bad("intra block copy vector outside its tile");
+  }
+
+  // The prediction of an intrabc block (7.11.3.1 with someUseIntra: one
+  // block a plane, with its own vector) from the frame's unfiltered
+  // samples: motion_vector_scaling without scaling, then
+  // block_inter_prediction with BILINEAR, whose taps 3 and 4 are the only
+  // ones not 0; the rounding variables of a single prediction
+  void predict_intrabc(int plane, int x, int y, int w, int h) {
+    int sx = plane ? d.ssx : 0, sy = plane ? d.ssy : 0;
+    auto& P = d.cur[plane];
+    int pos_x = (x << 4) + ((2 * mv[1]) >> sx);  // 1/16 sample
+    int pos_y = (y << 4) + ((2 * mv[0]) >> sy);
+    int ix = pos_x >> 4, fx = pos_x & 15, iy = pos_y >> 4, fy = pos_y & 15;
+    int last_x = ((d.mi_cols * 4 + sx) >> sx) - 1;
+    int last_y = ((d.mi_rows * 4 + sy) >> sy) - 1;
+    int round0 = d.bitdepth == 12 ? 5 : 3, round1 = d.bitdepth == 12 ? 9 : 11;
+    const int16_t* hf = g_tab.bilinear[fx];
+    const int16_t* vf = g_tab.bilinear[fy];
+    int rows = h + (fy != 0);
+    for (int r = 0; r < rows; ++r) {
+      const Pixel* src = P.row(clip3(0, last_y, iy + r));
+      int32_t* out = inter_buf + r * w;
+      for (int c = 0; c < w; ++c) {
+        int s = hf[3] * src[clip3(0, last_x, ix + c)];
+        if (fx) s += hf[4] * src[clip3(0, last_x, ix + c + 1)];
+        out[c] = round2(s, round0);
+      }
+    }
+    for (int r = 0; r < h; ++r) {
+      Pixel* dst = P.row(y + r) + x;
+      const int32_t* a = inter_buf + r * w;
+      for (int c = 0; c < w; ++c) {
+        int s = vf[3] * a[c];
+        if (fy) s += vf[4] * a[c + w];
+        dst[c] = d.clip1(round2(s, round1));
+      }
+    }
+  }
+
+  // compute_prediction of an intrabc block: the whole block, each plane
+  void compute_prediction() {
+    for (int p = 0; p < 1 + 2 * has_chroma; ++p) {
+      int sx = p ? d.ssx : 0, sy = p ? d.ssy : 0;
+      int plane_sz = kSsSize[mi_sz][sx][sy];
+      predict_intrabc(p, (mi_col >> sx) * 4, (mi_row >> sy) * 4,
+                      kNum4x4W[plane_sz] * 4, kNum4x4H[plane_sz] * 4);
+    }
+  }
+
   // -- tx size -------------------------------------------------------------
+  int get_above_tx_width(int row, int col) {
+    if (row == mi_row) {
+      if (!avail_u) return 64;
+      size_t i = (size_t)(row - 1) * d.mi_cols + col;
+      if (d.skips[i] && d.is_inters[i]) return kNum4x4W[d.mi_size[i]] * 4;
+    }
+    return kTxW[d.MI(d.inter_tx_sizes, row - 1, col)];
+  }
+  int get_left_tx_height(int row, int col) {
+    if (col == mi_col) {
+      if (!avail_l) return 64;
+      size_t i = (size_t)row * d.mi_cols + col - 1;
+      if (d.skips[i] && d.is_inters[i]) return kNum4x4H[d.mi_size[i]] * 4;
+    }
+    return kTxH[d.MI(d.inter_tx_sizes, row, col - 1)];
+  }
+
   void read_tx_size(int allow_select) {
     if (lossless) {
       tx_size = TX_4X4;
@@ -1718,8 +2294,16 @@ struct Tile {
     if (mi_sz > BLOCK_4X4 && allow_select && fh.tx_mode == TX_MODE_SELECT) {
       int maxw = kTxW[max_rect], maxh = kTxH[max_rect];
       int above_w = 0, left_h = 0;
-      if (avail_u) above_w = kTxW[d.MI(d.tx_sizes, mi_row - 1, mi_col)];
-      if (avail_l) left_h = kTxH[d.MI(d.tx_sizes, mi_row, mi_col - 1)];
+      if (avail_u) {
+        size_t i = (size_t)(mi_row - 1) * d.mi_cols + mi_col;
+        above_w = d.is_inters[i] ? kNum4x4W[d.mi_size[i]] * 4
+                                 : get_above_tx_width(mi_row, mi_col);
+      }
+      if (avail_l) {
+        size_t i = (size_t)mi_row * d.mi_cols + mi_col - 1;
+        left_h = d.is_inters[i] ? kNum4x4H[d.mi_size[i]] * 4
+                                : get_left_tx_height(mi_row, mi_col);
+      }
       int ctx = (above_w >= maxw) + (left_h >= maxh);
       int depth;
       if (max_depth > 1) {
@@ -1729,6 +2313,51 @@ struct Tile {
         depth = ms.symbol(cdf.tx_8x8[ctx], 2);
       }
       for (int i = 0; i < depth; ++i) tx_size = kSplitTx[tx_size];
+    }
+  }
+
+  void read_var_tx_size(int row, int col, int txsz, int depth) {
+    if (row >= d.mi_rows || col >= d.mi_cols) return;
+    int split = 0;
+    if (txsz != TX_4X4 && depth != 2) {  // MAX_VARTX_DEPTH
+      int above = get_above_tx_width(row, col) < kTxW[txsz];
+      int left = get_left_tx_height(row, col) < kTxH[txsz];
+      int size = std::min(64, std::max(kNum4x4W[mi_sz], kNum4x4H[mi_sz]) * 4);
+      int max_tx = size == 64 ? TX_64X64 : size == 32 ? TX_32X32
+                   : size == 16 ? TX_16X16 : TX_8X8;
+      int ctx = (kTxSqrUp[txsz] != max_tx) * 3 + (TX_64X64 - max_tx) * 6 +
+                above + left;
+      split = ms.symbol(cdf.txfm_split[ctx], 2);
+    }
+    int w4 = kTxW[txsz] >> 2, h4 = kTxH[txsz] >> 2;
+    if (split) {
+      int sub = kSplitTx[txsz];
+      int sw = kTxW[sub] >> 2, sh = kTxH[sub] >> 2;
+      for (int i = 0; i < h4; i += sh)
+        for (int j = 0; j < w4; j += sw)
+          read_var_tx_size(row + i, col + j, sub, depth + 1);
+    } else {
+      for (int i = 0; i < h4 && row + i < d.mi_rows; ++i)
+        for (int j = 0; j < w4 && col + j < d.mi_cols; ++j)
+          d.MI(d.inter_tx_sizes, row + i, col + j) = (uint8_t)txsz;
+      tx_size = txsz;
+    }
+  }
+
+  void read_block_tx_size() {
+    if (fh.tx_mode == TX_MODE_SELECT && mi_sz > BLOCK_4X4 && is_inter &&
+        !skip && !lossless) {
+      int max_tx = kMaxTxRect[mi_sz];
+      int tw4 = kTxW[max_tx] >> 2, th4 = kTxH[max_tx] >> 2;
+      for (int row = mi_row; row < mi_row + bh4; row += th4)
+        for (int col = mi_col; col < mi_col + bw4; col += tw4)
+          read_var_tx_size(row, col, max_tx, 0);
+    } else {
+      read_tx_size(!skip || !is_inter);
+      int rows = std::min(bh4, d.mi_rows - mi_row);
+      int cols = std::min(bw4, d.mi_cols - mi_col);
+      for (int y = 0; y < rows; ++y)
+        memset(&d.MI(d.inter_tx_sizes, mi_row + y, mi_col), tx_size, cols);
     }
   }
 
@@ -1747,10 +2376,11 @@ struct Tile {
   }
 
   // -- block ---------------------------------------------------------------
-  void decode_block(int r, int c, int sub) {
+  void decode_block(int r, int c, int sub, int part) {
     mi_row = r;
     mi_col = c;
     mi_sz = sub;
+    partition = part;
     bw4 = kNum4x4W[sub];
     bh4 = kNum4x4H[sub];
     if (bh4 == 1 && d.ssy && (mi_row & 1) == 0)
@@ -1772,7 +2402,8 @@ struct Tile {
       avail_u_chroma = avail_l_chroma = 0;
     }
     intra_frame_mode_info();
-    read_tx_size(1);
+    if (pal_size_y || pal_size_uv) palette_tokens();
+    read_block_tx_size();
     if (skip) reset_block_context();
     int rows = std::min(bh4, d.mi_rows - r), cols = std::min(bw4, d.mi_cols - c);
     for (int y = 0; y < rows; ++y)
@@ -1781,11 +2412,19 @@ struct Tile {
         d.y_modes[i] = (uint8_t)y_mode;
         if (has_chroma) d.uv_modes[i] = (uint8_t)uv_mode;
         d.skips[i] = (uint8_t)skip;
-        d.tx_sizes[i] = (uint8_t)tx_size;
         d.mi_size[i] = (uint8_t)mi_sz;
         d.seg_ids[i] = (uint8_t)segment_id;
+        d.is_inters[i] = (uint8_t)is_inter;
         for (int k = 0; k < 4; ++k) d.delta_lfs[i * 4 + k] = (int8_t)delta_lf[k];
+        if (fh.allow_intrabc) {
+          d.mvs[2 * i] = (int16_t)(is_inter ? mv[0] : 0);
+          d.mvs[2 * i + 1] = (int16_t)(is_inter ? mv[1] : 0);
+        }
       }
+    if (fh.allow_sct) store_palette();
+    n_palette += pal_size_y || pal_size_uv;
+    n_intrabc += use_intrabc;
+    if (is_inter) compute_prediction();
     residual();
   }
 
@@ -1815,6 +2454,11 @@ struct Tile {
           int plane_sz = kSsSize[size_chunk][sx][sy];
           int n4w = kNum4x4W[plane_sz], n4h = kNum4x4H[plane_sz];
           int base_x = (mi_col >> sx) * 4, base_y = (mi_row >> sy) * 4;
+          if (is_inter && !lossless && !p) {
+            transform_tree(base_x + cx * 64, base_y + cy * 64, n4w * 4,
+                           n4h * 4, sb_mask);
+            continue;
+          }
           for (int y = 0; y < n4h; y += step_y)
             for (int x = 0; x < n4w; x += step_x)
               transform_block(p, base_x, base_y, txsz,
@@ -1822,6 +2466,26 @@ struct Tile {
                               sb_mask);
         }
       }
+  }
+
+  // The luma transform blocks of an inter block: the var-tx tree's leaves
+  void transform_tree(int start_x, int start_y, int w, int h, int sb_mask) {
+    if (start_x >= d.mi_cols * 4 || start_y >= d.mi_rows * 4) return;
+    int txsz = d.MI(d.inter_tx_sizes, start_y >> 2, start_x >> 2);
+    if (w <= kTxW[txsz] && h <= kTxH[txsz]) {
+      transform_block(0, start_x, start_y, txsz, 0, 0, sb_mask);
+    } else if (w > h) {
+      transform_tree(start_x, start_y, w / 2, h, sb_mask);
+      transform_tree(start_x + w / 2, start_y, w / 2, h, sb_mask);
+    } else if (w < h) {
+      transform_tree(start_x, start_y, w, h / 2, sb_mask);
+      transform_tree(start_x, start_y + h / 2, w, h / 2, sb_mask);
+    } else {
+      transform_tree(start_x, start_y, w / 2, h / 2, sb_mask);
+      transform_tree(start_x + w / 2, start_y, w / 2, h / 2, sb_mask);
+      transform_tree(start_x, start_y + h / 2, w / 2, h / 2, sb_mask);
+      transform_tree(start_x + w / 2, start_y + h / 2, w / 2, h / 2, sb_mask);
+    }
   }
 
   void transform_block(int plane, int base_x, int base_y, int txsz, int x,
@@ -1833,18 +2497,24 @@ struct Tile {
     int step_x = kTxW[txsz] >> 2, step_y = kTxH[txsz] >> 2;
     int max_x = (d.mi_cols * 4) >> sx, max_y = (d.mi_rows * 4) >> sy;
     if (start_x >= max_x || start_y >= max_y) return;
-    int is_cfl = plane > 0 && uv_mode == UV_CFL_PRED;
-    int mode = plane == 0 ? y_mode : is_cfl ? DC_PRED : uv_mode;
-    int have_left = (plane == 0 ? avail_l : avail_l_chroma) || x > 0;
-    int have_above = (plane == 0 ? avail_u : avail_u_chroma) || y > 0;
-    int have_ar = bd(plane, (sub_r >> sy) - 1, (sub_c >> sx) + step_x);
-    int have_bl = bd(plane, (sub_r >> sy) + step_y, (sub_c >> sx) - 1);
-    predict_intra(plane, start_x, start_y, have_left, have_above, have_ar,
-                  have_bl, mode, kTxWLog2[txsz], kTxHLog2[txsz]);
-    if (is_cfl) predict_cfl(plane, start_x, start_y, txsz);
-    if (plane == 0) {
-      max_luma_w = start_x + step_x * 4;
-      max_luma_h = start_y + step_y * 4;
+    if (!is_inter) {
+      if (plane == 0 ? pal_size_y : pal_size_uv) {
+        predict_palette(plane, start_x, start_y, x, y, txsz);
+      } else {
+        int is_cfl = plane > 0 && uv_mode == UV_CFL_PRED;
+        int mode = plane == 0 ? y_mode : is_cfl ? DC_PRED : uv_mode;
+        int have_left = (plane == 0 ? avail_l : avail_l_chroma) || x > 0;
+        int have_above = (plane == 0 ? avail_u : avail_u_chroma) || y > 0;
+        int have_ar = bd(plane, (sub_r >> sy) - 1, (sub_c >> sx) + step_x);
+        int have_bl = bd(plane, (sub_r >> sy) + step_y, (sub_c >> sx) - 1);
+        predict_intra(plane, start_x, start_y, have_left, have_above, have_ar,
+                      have_bl, mode, kTxWLog2[txsz], kTxHLog2[txsz]);
+        if (is_cfl) predict_cfl(plane, start_x, start_y, txsz);
+      }
+      if (plane == 0) {
+        max_luma_w = start_x + step_x * 4;
+        max_luma_h = start_y + step_y * 4;
+      }
     }
     if (!skip) {
       int tx_type;
@@ -1864,6 +2534,12 @@ struct Tile {
   // -- coefficients --------------------------------------------------------
   int get_tx_set(int txsz) const {
     if (kTxSqrUp[txsz] > TX_32X32) return TX_SET_DCTONLY;
+    if (is_inter) {
+      if (fh.reduced_tx_set || kTxSqrUp[txsz] == TX_32X32)
+        return TX_SET_INTER_3;
+      if (kTxSqr[txsz] == TX_16X16) return TX_SET_INTER_2;
+      return TX_SET_INTER_1;
+    }
     if (kTxSqrUp[txsz] == TX_32X32) return TX_SET_DCTONLY;
     if (fh.reduced_tx_set) return TX_SET_INTRA_2;
     if (kTxSqr[txsz] == TX_16X16) return TX_SET_INTRA_2;
@@ -1954,15 +2630,27 @@ struct Tile {
         tx_type = DCT_DCT;
       } else if (plane == 0) {
         int qi = fh.seg_enabled ? get_qindex(1) : fh.base_q_idx;
-        if (set > 0 && qi > 0) {
+        int sqr = kTxSqr[txsz];
+        if (set > 0 && qi > 0 && is_inter) {
+          if (set == TX_SET_INTER_1)
+            tx_type = kTxInterInvSet1[ms.symbol(cdf.inter_tx1[sqr], 16)];
+          else if (set == TX_SET_INTER_2)
+            tx_type = kTxInterInvSet2[ms.symbol(cdf.inter_tx2, 12)];
+          else
+            tx_type = kTxInterInvSet3[ms.symbol(cdf.inter_tx3[sqr], 2)];
+        } else if (set > 0 && qi > 0) {
           int dir = use_filter_intra ? kFilterIntraToDir[filter_intra_mode]
                                      : y_mode;
-          int sqr = kTxSqr[txsz];
           if (set == TX_SET_INTRA_1)
             tx_type = kTxInvSet1[ms.symbol(cdf.intra_tx1[sqr][dir], 7)];
           else
             tx_type = kTxInvSet2[ms.symbol(cdf.intra_tx2[sqr][dir], 5)];
         }
+      } else if (is_inter) {
+        // the co-located luma TxType, where the chroma size's set has it
+        int lx = std::max(mi_col, x4 << sx), ly = std::max(mi_row, y4 << sy);
+        tx_type = d.MI(d.tx_types, ly, lx);
+        if (!((kTxInSetInter[set] >> tx_type) & 1)) tx_type = DCT_DCT;
       } else {
         tx_type = set == TX_SET_DCTONLY ? DCT_DCT : kModeToTxfm[uv_mode];
       }
@@ -2063,6 +2751,10 @@ struct Tile {
       }
       cul_level = std::min(63, cul_level);
     }
+    if (plane == 0 && fh.allow_intrabc)
+      for (int i = 0; i < h4 && y4 + i < max_y4; ++i)
+        for (int j = 0; j < w4 && x4 + j < max_x4; ++j)
+          d.MI(d.tx_types, y4 + i, x4 + j) = (uint8_t)tx_type;
     for (int i = 0; i < w4; ++i) {
       above_level[plane][x4 + i] = (uint8_t)cul_level;
       above_dc[plane][x4 + i] = (uint8_t)dc_category;
@@ -2146,10 +2838,15 @@ struct Tile {
     int qindex = get_qindex(0);
     int dc_delta = plane == 0 ? fh.dq_ydc : plane == 1 ? fh.dq_udc : fh.dq_vdc;
     int ac_delta = plane == 0 ? 0 : plane == 1 ? fh.dq_uac : fh.dq_vac;
-    int64_t dcq = g_tab.dc_q[clip3(0, 255, qindex + dc_delta)];
-    int64_t acq = g_tab.ac_q[clip3(0, 255, qindex + ac_delta)];
-    // row and column transform kinds
-    int row_kind, col_kind;
+    int bdi = (d.bitdepth - 8) >> 1;
+    int64_t dcq = g_tab.dc_q[bdi][clip3(0, 255, qindex + dc_delta)];
+    int64_t acq = g_tab.ac_q[bdi][clip3(0, 255, qindex + ac_delta)];
+    // the clamps of the coefficients (BitDepth + 8 bits) and of the row
+    // transforms' output (Max(BitDepth + 6, 16) bits)
+    const int64_t hi1 = ((int64_t)1 << (d.bitdepth + 7)) - 1;
+    const int64_t hi2 = ((int64_t)1 << (std::max(d.bitdepth + 6, 16) - 1)) - 1;
+    // row and column transform kinds, and the flips of FLIPADST
+    int row_kind, col_kind, flip_ud = 0, flip_lr = 0;
     switch (tx_type) {
       case ADST_DCT: col_kind = T1D_ADST; row_kind = T1D_DCT; break;
       case DCT_ADST: col_kind = T1D_DCT; row_kind = T1D_ADST; break;
@@ -2157,6 +2854,23 @@ struct Tile {
       case IDTX: col_kind = T1D_IDTX; row_kind = T1D_IDTX; break;
       case V_DCT: col_kind = T1D_DCT; row_kind = T1D_IDTX; break;
       case H_DCT: col_kind = T1D_IDTX; row_kind = T1D_DCT; break;
+      case V_ADST: col_kind = T1D_ADST; row_kind = T1D_IDTX; break;
+      case H_ADST: col_kind = T1D_IDTX; row_kind = T1D_ADST; break;
+      case V_FLIPADST:
+        col_kind = T1D_ADST; row_kind = T1D_IDTX; flip_ud = 1; break;
+      case H_FLIPADST:
+        col_kind = T1D_IDTX; row_kind = T1D_ADST; flip_lr = 1; break;
+      case FLIPADST_DCT:
+        col_kind = T1D_ADST; row_kind = T1D_DCT; flip_ud = 1; break;
+      case DCT_FLIPADST:
+        col_kind = T1D_DCT; row_kind = T1D_ADST; flip_lr = 1; break;
+      case FLIPADST_FLIPADST:
+        col_kind = T1D_ADST; row_kind = T1D_ADST; flip_ud = flip_lr = 1;
+        break;
+      case ADST_FLIPADST:
+        col_kind = T1D_ADST; row_kind = T1D_ADST; flip_lr = 1; break;
+      case FLIPADST_ADST:
+        col_kind = T1D_ADST; row_kind = T1D_ADST; flip_ud = 1; break;
       default: col_kind = T1D_DCT; row_kind = T1D_DCT; break;
     }
     int row_shift = lossless ? 0 : kTxRowShift[txsz];
@@ -2185,7 +2899,7 @@ struct Tile {
             int64_t a = ((int64_t)std::abs(qv) * q) & 0xFFFFFF;
             a >>= dq_denom;
             v = qv < 0 ? -a : a;
-            v = clip3l(-(1 << 15), (1 << 15) - 1, v);
+            v = clip3l(-hi1 - 1, hi1, v);
           }
         }
         T[j] = v;
@@ -2195,28 +2909,28 @@ struct Tile {
       if (lossless) {
         iwht(T, 2);
       } else {
-        for (int j = 0; j < w; ++j)
-          T[j] = clip3l(-(1 << 15), (1 << 15) - 1, T[j]);
+        for (int j = 0; j < w; ++j) T[j] = clip3l(-hi1 - 1, hi1, T[j]);
         tx1d(T, row_kind, log2w);
       }
       for (int j = 0; j < w; ++j) {
         int64_t v = round2l(T[j], row_shift);
-        if (!lossless) v = clip3l(-(1 << 15), (1 << 15) - 1, v);
+        if (!lossless) v = clip3l(-hi2 - 1, hi2, v);
         out[j] = v;
       }
     }
-    Plane& P = d.cur[plane];
+    auto& P = d.cur[plane];
     for (int j = 0; j < w; ++j) {
       for (int i = 0; i < h; ++i) T[i] = resid[(size_t)i * w + j];
       if (lossless)
         iwht(T, 0);
       else
         tx1d(T, col_kind, log2h);
+      int xx = flip_lr ? w - 1 - j : j;
       for (int i = 0; i < h; ++i) {
         int64_t r = round2l(T[i], col_shift);
         r = clip3l(-100000, 100000, r);
-        uint8_t& px = P.at(x + j, y + i);
-        px = clip1((int)(px + r));
+        Pixel& px = P.at(x + xx, y + (flip_ud ? h - 1 - i : i));
+        px = d.clip1((int)(px + r));
       }
     }
   }
@@ -2305,7 +3019,7 @@ struct Tile {
       buf[i - 1] = (s + 8) >> 4;
     }
   }
-  static void edge_upsample(int* buf, int num_px) {
+  void edge_upsample(int* buf, int num_px) {
     int dup[300];
     dup[0] = buf[-1];
     for (int i = -1; i < num_px; ++i) dup[i + 2] = buf[i];
@@ -2313,7 +3027,7 @@ struct Tile {
     buf[-2] = dup[0];
     for (int i = 0; i < num_px; ++i) {
       int s = -dup[i] + 9 * dup[i + 1] + 9 * dup[i + 2] - dup[i + 3];
-      s = clip1(round2(s, 4));
+      s = d.clip1(round2(s, 4));
       buf[2 * i - 1] = s;
       buf[2 * i] = dup[i + 2];
     }
@@ -2322,9 +3036,10 @@ struct Tile {
   void predict_intra(int plane, int x, int y, int have_left, int have_above,
                      int have_ar, int have_bl, int mode, int log2w,
                      int log2h) {
-    Plane& P = d.cur[plane];
+    auto& P = d.cur[plane];
     int w = 1 << log2w, h = 1 << log2h;
     int sx = plane ? d.ssx : 0, sy = plane ? d.ssy : 0;
+    const int base = 1 << (d.bitdepth - 1);
     int max_x = ((d.mi_cols * 4) >> sx) - 1;
     int max_y = ((d.mi_rows * 4) >> sy) - 1;
     int above_buf[320], left_buf[320];
@@ -2335,17 +3050,17 @@ struct Tile {
       int v = P.at(x - 1, y);
       for (int i = -1; i < n; ++i) above[i] = v;
     } else if (!have_above && !have_left) {
-      for (int i = -1; i < n; ++i) above[i] = 127;
+      for (int i = -1; i < n; ++i) above[i] = base - 1;
     } else {
       int limit = std::min(max_x, x + (have_ar ? 2 * w : w) - 1);
-      const uint8_t* rowp = P.row(y - 1);
+      const Pixel* rowp = P.row(y - 1);
       for (int i = 0; i < n; ++i) above[i] = rowp[std::min(limit, x + i)];
     }
     if (!have_left && have_above) {
       int v = P.at(x, y - 1);
       for (int i = -1; i < n; ++i) left[i] = v;
     } else if (!have_left && !have_above) {
-      for (int i = -1; i < n; ++i) left[i] = 129;
+      for (int i = -1; i < n; ++i) left[i] = base + 1;
     } else {
       int limit = std::min(max_y, y + (have_bl ? 2 * h : h) - 1);
       for (int i = 0; i < n; ++i) left[i] = P.at(x - 1, std::min(limit, y + i));
@@ -2358,11 +3073,11 @@ struct Tile {
     else if (have_left)
       corner = P.at(x - 1, y);
     else
-      corner = 128;
+      corner = base;
     above[-1] = corner;
     left[-1] = corner;
 
-    uint8_t pred[64 * 64];
+    Pixel pred[64 * 64];
     if (plane == 0 && use_filter_intra) {
       recursive_intra(pred, above, left, w, h);
     } else if (is_directional(mode)) {
@@ -2385,7 +3100,7 @@ struct Tile {
             v = round2(wy[i] * above[j] + (256 - wy[i]) * left[h - 1], 8);
           else
             v = round2(wx[j] * left[i] + (256 - wx[j]) * above[w - 1], 8);
-          pred[i * w + j] = (uint8_t)v;
+          pred[i * w + j] = (Pixel)v;
         }
     } else if (mode == DC_PRED) {
       int avg;
@@ -2403,9 +3118,9 @@ struct Tile {
         for (int k = 0; k < w; ++k) sum += above[k];
         avg = (sum + (w >> 1)) >> log2w;
       } else {
-        avg = 128;
+        avg = base;
       }
-      memset(pred, avg, (size_t)w * h);
+      std::fill_n(pred, (size_t)w * h, (Pixel)avg);
     } else {  // PAETH
       for (int i = 0; i < h; ++i)
         for (int j = 0; j < w; ++j) {
@@ -2419,13 +3134,14 @@ struct Tile {
             v = above[j];
           else
             v = corner;
-          pred[i * w + j] = (uint8_t)v;
+          pred[i * w + j] = (Pixel)v;
         }
     }
-    for (int i = 0; i < h; ++i) memcpy(P.row(y + i) + x, pred + i * w, w);
+    for (int i = 0; i < h; ++i)
+      memcpy(P.row(y + i) + x, pred + i * w, w * sizeof(Pixel));
   }
 
-  void recursive_intra(uint8_t* pred, const int* above, const int* left,
+  void recursive_intra(Pixel* pred, const int* above, const int* left,
                        int w, int h) {
     int w4 = w >> 2, h2 = h >> 1;
     for (int i2 = 0; i2 < h2; ++i2)
@@ -2452,12 +3168,12 @@ struct Tile {
             pr += g_tab.filter_taps[filter_intra_mode][i][j] * p[j];
           // Round2Signed(pr, 4)
           int v = pr >= 0 ? round2(pr, 4) : -round2(-pr, 4);
-          pred[((i2 << 1) + (i >> 2)) * w + (j4 << 2) + (i & 3)] = clip1(v);
+          pred[((i2 << 1) + (i >> 2)) * w + (j4 << 2) + (i & 3)] = d.clip1(v);
         }
       }
   }
 
-  void directional(int plane, uint8_t* pred, int* above, int* left, int w,
+  void directional(int plane, Pixel* pred, int* above, int* left, int w,
                    int h, int x, int y, int max_x, int max_y, int have_left,
                    int have_above, int p_angle) {
     int up_above = 0, up_left = 0;
@@ -2528,7 +3244,7 @@ struct Tile {
         } else {
           v = left[i];
         }
-        pred[i * w + j] = (uint8_t)v;
+        pred[i * w + j] = (Pixel)v;
       }
   }
 
@@ -2536,8 +3252,8 @@ struct Tile {
     int w = kTxW[txsz], h = kTxH[txsz];
     int sx = d.ssx, sy = d.ssy;
     int alpha = plane == 1 ? cfl_alpha_u : cfl_alpha_v;
-    Plane& L = d.cur[0];
-    Plane& P = d.cur[plane];
+    auto& L = d.cur[0];
+    auto& P = d.cur[plane];
     static thread_local int lum[32 * 32];
     int sum = 0;
     for (int i = 0; i < h; ++i) {
@@ -2557,10 +3273,10 @@ struct Tile {
     int avg = round2(sum, kTxWLog2[txsz] + kTxHLog2[txsz]);
     for (int i = 0; i < h; ++i)
       for (int j = 0; j < w; ++j) {
-        uint8_t& px = P.at(start_x + j, start_y + i);
+        Pixel& px = P.at(start_x + j, start_y + i);
         int sc = alpha * (lum[i * w + j] - avg);
         int scaled = sc >= 0 ? round2(sc, 6) : -round2(-sc, 6);
-        px = clip1(px + scaled);
+        px = d.clip1(px + scaled);
       }
   }
 };
@@ -2568,10 +3284,11 @@ struct Tile {
 // ---------------------------------------------------------------------------
 // Loop filter (spec 7.14)
 
+template <typename Pixel>
 struct LoopFilter {
-  Decoder& d;
+  Decoder<Pixel>& d;
   const FrameHdr& fh;
-  explicit LoopFilter(Decoder& dd) : d(dd), fh(dd.fh) {}
+  explicit LoopFilter(Decoder<Pixel>& dd) : d(dd), fh(dd.fh) {}
 
   int filter_level(int row, int col, int plane, int pass) {
     size_t i = (size_t)row * d.mi_cols + col;
@@ -2620,17 +3337,20 @@ struct LoopFilter {
                     : std::max(1, lvl >> shift);
     int blimit = 2 * (lvl + 2) + limit;
     int thresh = lvl >> 4;
-    Plane& P = d.cur[plane];
+    // the limits at the bit depth (7.14.6.2)
+    int bd_shift = d.bitdepth - 8;
+    auto& P = d.cur[plane];
     for (int i = 0; i < 4; ++i)
-      sample(P, xp + dy * i, yp + dx * i, plane, limit, blimit, thresh, dx, dy,
-             filter_size);
+      sample(P, xp + dy * i, yp + dx * i, plane, limit << bd_shift,
+             blimit << bd_shift, thresh << bd_shift, dx, dy, filter_size);
   }
 
-  static void sample(Plane& P, int x, int y, int plane, int limit,
-                     int blimit, int thresh, int dx, int dy, int fsize) {
-    auto px = [&](int k) -> uint8_t& {  // k >= 0: q_k, k < 0: p_(-k-1)
+  void sample(Plane<Pixel>& P, int x, int y, int plane, int limit,
+              int blimit, int thresh, int dx, int dy, int fsize) {
+    auto px = [&](int k) -> Pixel& {  // k >= 0: q_k, k < 0: p_(-k-1)
       return P.at(x + dx * k, y + dy * k);
     };
+    const int shift = d.bitdepth - 8, one = 1 << shift;
     int q0 = px(0), q1 = px(1), q2 = px(2), q3 = px(3);
     int p0 = px(-1), p1 = px(-2), p2 = px(-3), p3 = px(-4);
     int hev = std::abs(p1 - p0) > thresh || std::abs(q1 - q0) > thresh;
@@ -2651,13 +3371,13 @@ struct LoopFilter {
     int flat = 0, flat2 = 0;
     if (flen >= 6) {
       int m = 0;
-      m |= std::abs(p1 - p0) > 1;
-      m |= std::abs(q1 - q0) > 1;
-      m |= std::abs(p2 - p0) > 1;
-      m |= std::abs(q2 - q0) > 1;
+      m |= std::abs(p1 - p0) > one;
+      m |= std::abs(q1 - q0) > one;
+      m |= std::abs(p2 - p0) > one;
+      m |= std::abs(q2 - q0) > one;
       if (flen >= 8) {
-        m |= std::abs(p3 - p0) > 1;
-        m |= std::abs(q3 - q0) > 1;
+        m |= std::abs(p3 - p0) > one;
+        m |= std::abs(q3 - q0) > one;
       }
       flat = !m;
     }
@@ -2665,28 +3385,29 @@ struct LoopFilter {
       int q4 = px(4), q5 = px(5), q6 = px(6);
       int p4 = px(-5), p5 = px(-6), p6 = px(-7);
       int m = 0;
-      m |= std::abs(p6 - p0) > 1;
-      m |= std::abs(q6 - q0) > 1;
-      m |= std::abs(p5 - p0) > 1;
-      m |= std::abs(q5 - q0) > 1;
-      m |= std::abs(p4 - p0) > 1;
-      m |= std::abs(q4 - q0) > 1;
+      m |= std::abs(p6 - p0) > one;
+      m |= std::abs(q6 - q0) > one;
+      m |= std::abs(p5 - p0) > one;
+      m |= std::abs(q5 - q0) > one;
+      m |= std::abs(p4 - p0) > one;
+      m |= std::abs(q4 - q0) > one;
       flat2 = !m;
     }
     if (fsize == 4 || !flat) {
       // narrow filter
-      auto c4 = [](int v) { return clip3(-128, 127, v); };
-      int ps1 = p1 - 128, ps0 = p0 - 128, qs0 = q0 - 128, qs1 = q1 - 128;
+      const int half = 0x80 << shift;
+      auto c4 = [&](int v) { return clip3(-half, half - 1, v); };
+      int ps1 = p1 - half, ps0 = p0 - half, qs0 = q0 - half, qs1 = q1 - half;
       int f = hev ? c4(ps1 - qs1) : 0;
       f = c4(f + 3 * (qs0 - ps0));
       int f1 = c4(f + 4) >> 3;
       int f2 = c4(f + 3) >> 3;
-      px(0) = (uint8_t)(c4(qs0 - f1) + 128);
-      px(-1) = (uint8_t)(c4(ps0 + f2) + 128);
+      px(0) = (Pixel)(c4(qs0 - f1) + half);
+      px(-1) = (Pixel)(c4(ps0 + f2) + half);
       if (!hev) {
         f = round2(f1, 1);
-        px(1) = (uint8_t)(c4(qs1 - f) + 128);
-        px(-2) = (uint8_t)(c4(ps1 + f) + 128);
+        px(1) = (Pixel)(c4(qs1 - f) + half);
+        px(-2) = (Pixel)(c4(ps1 + f) + half);
       }
     } else {
       int log2size = (fsize == 8 || !flat2) ? 3 : 4;
@@ -2703,7 +3424,7 @@ struct LoopFilter {
         }
         F2[i + 7] = round2(t, log2size);
       }
-      for (int i = -n; i < n; ++i) px(i) = (uint8_t)F2[i + 7];
+      for (int i = -n; i < n; ++i) px(i) = (Pixel)F2[i + 7];
     }
   }
 
@@ -2724,11 +3445,12 @@ struct LoopFilter {
 // ---------------------------------------------------------------------------
 // CDEF (spec 7.15)
 
+template <typename Pixel>
 struct Cdef {
-  Decoder& d;
+  Decoder<Pixel>& d;
   const FrameHdr& fh;
-  Plane out[3];
-  explicit Cdef(Decoder& dd) : d(dd), fh(dd.fh) {}
+  Plane<Pixel> out[3];
+  explicit Cdef(Decoder<Pixel>& dd) : d(dd), fh(dd.fh) {}
 
   // constrain() of the spec with its damping shift worked out once a
   // block: adj = Max(0, damping - FloorLog2(threshold))
@@ -2747,10 +3469,11 @@ struct Cdef {
     int cost[8] = {0};
     int partial[8][15] = {{0}};
     int x0 = c * 4, y0 = r * 4;
-    Plane& P = d.cur[0];
+    auto& P = d.cur[0];
+    const int shift = d.bitdepth - 8;
     for (int i = 0; i < 8; ++i)
       for (int j = 0; j < 8; ++j) {
-        int x = P.at(x0 + j, y0 + i) - 128;
+        int x = (P.at(x0 + j, y0 + i) >> shift) - 128;
         partial[0][i + j] += x;
         partial[1][i + j / 2] += x;
         partial[2][i] += x;
@@ -2801,9 +3524,11 @@ struct Cdef {
     int sx = plane ? d.ssx : 0, sy = plane ? d.ssy : 0;
     int x0 = (c * 4) >> sx, y0 = (r * 4) >> sy;
     int w = 8 >> sx, h = 8 >> sy;
-    Plane& P = d.cur[plane];
-    Plane& O = out[plane];
-    int pri_tap = (pri & 1);
+    auto& P = d.cur[plane];
+    auto& O = out[plane];
+    // the taps' table follows the strength before its scaling to the bit
+    // depth
+    int pri_tap = (pri >> (d.bitdepth - 8)) & 1;
     static const int pri_taps[2][2] = {{4, 2}, {3, 3}};
     static const int sec_taps[2][2] = {{2, 1}, {2, 1}};
     int pri_adj = damping_adj(pri, damping), sec_adj = damping_adj(sec, damping);
@@ -2842,7 +3567,7 @@ struct Cdef {
               mn = std::min(v, mn);
             }
         O.at(x0 + j, y0 + i) =
-            (uint8_t)clip3(mn, mx, x + ((8 + sum - (sum < 0)) >> 4));
+            (Pixel)clip3(mn, mx, x + ((8 + sum - (sum < 0)) >> 4));
       }
   }
 
@@ -2866,17 +3591,19 @@ struct Cdef {
     if (skip) return;
     int ydir, var;
     direction(r, c, &ydir, &var);
-    int pri = fh.cdef_y_pri[idx], sec = fh.cdef_y_sec[idx];
+    // strengths and damping at the bit depth
+    const int shift = d.bitdepth - 8;
+    int pri = fh.cdef_y_pri[idx] << shift, sec = fh.cdef_y_sec[idx] << shift;
     int dir = pri == 0 ? 0 : ydir;
     int var_str = (var >> 6) ? std::min(floor_log2((uint32_t)(var >> 6)), 12) : 0;
     pri = var ? (pri * (4 + var_str) + 8) >> 4 : 0;
-    int damping = fh.cdef_damping;
+    int damping = fh.cdef_damping + shift;
     filter(0, r, c, pri, sec, damping, dir);
     if (d.planes == 1) return;
-    pri = fh.cdef_uv_pri[idx];
-    sec = fh.cdef_uv_sec[idx];
+    pri = fh.cdef_uv_pri[idx] << shift;
+    sec = fh.cdef_uv_sec[idx] << shift;
     dir = pri == 0 ? 0 : kCdefUvDir[d.ssx][d.ssy][ydir];
-    damping = fh.cdef_damping - 1;
+    damping = fh.cdef_damping - 1 + shift;
     filter(1, r, c, pri, sec, damping, dir);
     filter(2, r, c, pri, sec, damping, dir);
   }
@@ -2899,14 +3626,15 @@ struct Cdef {
 // ---------------------------------------------------------------------------
 // Loop restoration (spec 7.17)
 
+template <typename Pixel>
 struct Restoration {
-  Decoder& d;
+  Decoder<Pixel>& d;
   const FrameHdr& fh;
-  Plane* deblocked;  // before CDEF
-  Plane* cdefed;     // after CDEF
-  Plane out[3];
+  Plane<Pixel>* deblocked;  // before CDEF
+  Plane<Pixel>* cdefed;     // after CDEF
+  Plane<Pixel> out[3];
   int stripe_start, stripe_end, plane_end_x, plane_end_y;
-  Restoration(Decoder& dd, Plane* deb, Plane* cd)
+  Restoration(Decoder<Pixel>& dd, Plane<Pixel>* deb, Plane<Pixel>* cd)
       : d(dd), fh(dd.fh), deblocked(deb), cdefed(cd) {}
 
   inline int src(int plane, int x, int y) const {
@@ -2935,9 +3663,11 @@ struct Restoration {
     };
     get_filter(u.wiener[0], vf);
     get_filter(u.wiener[1], hf);
-    const int round0 = 3, round1 = 11;
-    const int offset = 1 << (8 + 7 - round0 - 1);
-    const int limit = (1 << (8 + 1 + 7 - round0)) - 1;
+    // the rounding variables of a single prediction (7.11.3.2)
+    const int bd = d.bitdepth;
+    const int round0 = bd == 12 ? 5 : 3, round1 = bd == 12 ? 9 : 11;
+    const int offset = 1 << (bd + 7 - round0 - 1);
+    const int limit = (1 << (bd + 1 + 7 - round0)) - 1;
     std::vector<int> inter((size_t)(h + 6) * w);
     for (int r = 0; r < h + 6; ++r)
       for (int c = 0; c < w; ++c) {
@@ -2951,7 +3681,7 @@ struct Restoration {
       for (int c = 0; c < w; ++c) {
         int s = 0;
         for (int t = 0; t < 7; ++t) s += vf[t] * inter[(size_t)(r + t) * w + c];
-        out[plane].at(x + c, y + r) = clip1(round2(s, round1));
+        out[plane].at(x + c, y + r) = d.clip1(round2(s, round1));
       }
   }
 
@@ -2962,9 +3692,11 @@ struct Restoration {
     int n = (2 * r + 1) * (2 * r + 1);
     int one_over_n = ((1 << 12) + (n / 2)) / n;
     int aw = w + 2;
+    const int shift = d.bitdepth - 8;
     std::vector<int> A((size_t)(h + 2) * aw), Bv((size_t)(h + 2) * aw);
     for (int i = -1; i < h + 1; ++i) {
       for (int j = -1; j < w + 1; ++j) {
+        // at most 25 samples of 12 bits: a fits an int
         int a = 0, b = 0;
         for (int dy = -r; dy <= r; ++dy)
           for (int dx = -r; dx <= r; ++dx) {
@@ -2972,7 +3704,9 @@ struct Restoration {
             a += c * c;
             b += c;
           }
-        int64_t p = std::max<int64_t>(0, (int64_t)a * n - (int64_t)b * b);
+        a = round2(a, 2 * shift);
+        int64_t db = round2(b, shift);
+        int64_t p = std::max<int64_t>(0, (int64_t)a * n - db * db);
         int64_t z = (p * s + (1 << 19)) >> 20;
         int a2;
         if (z >= 255)
@@ -3023,7 +3757,7 @@ struct Restoration {
         v += r0 ? (int64_t)w0 * f0[(size_t)i * w + j] : w0 * uu;
         v += r1 ? (int64_t)w2 * f1[(size_t)i * w + j] : w2 * uu;
         int s = (int)round2l(v, 4 + 7);
-        out[plane].at(x + j, y + i) = clip1(s);
+        out[plane].at(x + j, y + i) = d.clip1(s);
       }
   }
 
@@ -3122,7 +3856,8 @@ bool next_obu(const uint8_t*& p, const uint8_t* end, Obu& o) {
 
 struct Result {
   int width, height, layout, bitdepth, mono, color_range, matrix, primaries,
-      transfer;
+      transfer, allow_sct, allow_intrabc, palette_blocks, intrabc_blocks,
+      filters;
 };
 
 struct TileJob {
@@ -3131,12 +3866,26 @@ struct TileJob {
   int t;  // the tile's number, in raster order
 };
 
-void decode_tile(Decoder& d, const TileJob& job) {
+// The headers and tiles of a stream's first frame
+struct Stream {
+  SeqHdr seq;
+  FrameHdr fh;
+  Result res{};
+  std::vector<TileJob> jobs;
+};
+
+// the tiles' counts of palette and intrabc blocks
+struct ToolCounts {
+  std::atomic<int> palette{0}, intrabc{0};
+};
+
+template <typename Pixel>
+void decode_tile(Decoder<Pixel>& d, const TileJob& job, ToolCounts& counts) {
   const FrameHdr& fh = d.fh;
   int qctx = fh.base_q_idx <= 20 ? 0 : fh.base_q_idx <= 60 ? 1
              : fh.base_q_idx <= 120 ? 2 : 3;
   int tr = job.t / fh.tile_cols, tc = job.t % fh.tile_cols;
-  std::unique_ptr<Tile> tile(new Tile(d));
+  std::unique_ptr<Tile<Pixel>> tile(new Tile<Pixel>(d));
   tile->cdf = g_tab.cdf[qctx];
   tile->mi_row_start = fh.mi_row_starts[tr];
   tile->mi_row_end = fh.mi_row_starts[tr + 1];
@@ -3145,18 +3894,23 @@ void decode_tile(Decoder& d, const TileJob& job) {
   tile->current_q = fh.base_q_idx;
   tile->ms.init(job.p, job.n, fh.disable_cdf_update);
   tile->decode();
+  counts.palette += tile->n_palette;
+  counts.intrabc += tile->n_intrabc;
 }
 
 // Tiles share no state but the frame's arrays, each writing its own
-// region of them, so they decode on threads of their own; the error of
-// the first tile in raster order that fails is the stream's.
-void decode_tiles(Decoder& d, const std::vector<TileJob>& jobs) {
+// region of them (and intra block copy reading only its own), so they
+// decode on threads of their own; the error of the first tile in raster
+// order that fails is the stream's.
+template <typename Pixel>
+void decode_tiles(Decoder<Pixel>& d, const std::vector<TileJob>& jobs,
+                  ToolCounts& counts) {
   int n = (int)jobs.size();
   std::vector<int> codes(n, IK_AV1D_OK);
   std::vector<const char*> whys(n, nullptr);
   parallel_for(n, [&](int i) {
     try {
-      decode_tile(d, jobs[i]);
+      decode_tile(d, jobs[i], counts);
     } catch (const Fail& f) {
       codes[i] = f.code;
       whys[i] = f.why;
@@ -3169,20 +3923,20 @@ void decode_tiles(Decoder& d, const std::vector<TileJob>& jobs) {
     if (codes[i] != IK_AV1D_OK) throw Fail{codes[i], whys[i]};
 }
 
-// Parses up to the first frame's header; decodes its tiles when `dec`.
-void run(const uint8_t* data, size_t n, Decoder& d, Result& res, bool dec) {
-  std::vector<TileJob> jobs;
+// Parses up to the first frame's header; collects its tiles when `tiles`.
+void parse_stream(const uint8_t* data, size_t n, Stream& st, bool tiles) {
   const uint8_t* p = data;
   const uint8_t* end = data + n;
   bool have_seq = false, have_frame = false;
   int tiles_done = 0, num_tiles = 0;
+  Result& res = st.res;
   Obu o;
   while (next_obu(p, end, o)) {
     if (o.type == 1) {  // sequence header
       if (have_frame) break;
       Bits b{o.p, o.n, 0};
-      d.seq = SeqHdr();
-      parse_seq(b, d.seq);
+      st.seq = SeqHdr();
+      parse_seq(b, st.seq);
       have_seq = true;
       continue;
     }
@@ -3192,41 +3946,31 @@ void run(const uint8_t* data, size_t n, Decoder& d, Result& res, bool dec) {
         break;
       }
       if (!have_seq) bad("frame before any sequence header");
-      if (d.seq.op_idc[0] != 0) not_ported("layered (scalable) streams");
-      if (d.seq.bitdepth != 8) not_ported("10- and 12-bit streams");
+      if (st.seq.op_idc[0] != 0) not_ported("layered (scalable) streams");
       Bits b{o.p, o.n, 0};
-      d.fh = FrameHdr();
-      parse_frame_header(b, d.seq, d.fh, o.temporal_id, o.spatial_id);
+      st.fh = FrameHdr();
+      parse_frame_header(b, st.seq, st.fh, o.temporal_id, o.spatial_id);
       have_frame = true;
-      res.width = d.fh.width;
-      res.height = d.fh.height;
-      res.mono = d.seq.mono;
-      res.layout = d.seq.mono ? 0
-                   : (d.seq.ssx && d.seq.ssy) ? 1
-                   : d.seq.ssx                ? 2
-                                              : 3;
-      res.bitdepth = d.seq.bitdepth;
-      res.color_range = d.seq.color_range;
-      res.matrix = d.seq.matrix;
-      res.primaries = d.seq.primaries;
-      res.transfer = d.seq.transfer;
-      if (!dec) return;
-      d.planes = d.seq.mono ? 1 : 3;
-      d.ssx = d.seq.ssx;
-      d.ssy = d.seq.ssy;
-      if ((size_t)d.fh.width * d.fh.height > ((size_t)1 << 28))
+      res.width = st.fh.width;
+      res.height = st.fh.height;
+      res.mono = st.seq.mono;
+      res.layout = st.seq.mono ? 0
+                   : (st.seq.ssx && st.seq.ssy) ? 1
+                   : st.seq.ssx                 ? 2
+                                                : 3;
+      res.bitdepth = st.seq.bitdepth;
+      res.color_range = st.seq.color_range;
+      res.matrix = st.seq.matrix;
+      res.primaries = st.seq.primaries;
+      res.transfer = st.seq.transfer;
+      res.allow_sct = st.fh.allow_sct;
+      res.allow_intrabc = st.fh.allow_intrabc;
+      res.filters = (st.fh.lf_level[0] || st.fh.lf_level[1]) |
+                    st.fh.cdef_on << 1 | st.fh.uses_lr << 2;
+      if (!tiles) return;
+      if ((size_t)st.fh.width * st.fh.height > ((size_t)1 << 28))
         bad("frame too large");
-      d.alloc();
-      for (int pl = 0; pl < d.planes; ++pl) {
-        int sx = pl ? d.ssx : 0, sy = pl ? d.ssy : 0;
-        if (d.fh.lr_type[pl] != RESTORE_NONE) {
-          int unit = d.fh.lr_size[pl];
-          d.lr_rows[pl] = count_units(unit, round2(d.fh.height, sy));
-          d.lr_cols[pl] = count_units(unit, round2(d.fh.upscaled_width, sx));
-          d.lr[pl].assign((size_t)d.lr_rows[pl] * d.lr_cols[pl], LrUnit{});
-        }
-      }
-      num_tiles = d.fh.tile_cols * d.fh.tile_rows;
+      num_tiles = st.fh.tile_cols * st.fh.tile_rows;
       if (o.type == 3) continue;
       b.byte_align();
       size_t hb = b.pos >> 3;
@@ -3236,14 +3980,14 @@ void run(const uint8_t* data, size_t n, Decoder& d, Result& res, bool dec) {
       o.type = 4;
     }
     if (o.type == 4) {  // tile group
-      if (!have_frame || !dec) {
+      if (!have_frame || !tiles) {
         if (!have_frame) bad("tile group before its frame header");
         continue;
       }
       Bits b{o.p, o.n, 0};
       int tg_start = 0, tg_end = num_tiles - 1;
       if (num_tiles > 1 && b.f(1)) {
-        int bits = d.fh.tile_cols_log2 + d.fh.tile_rows_log2;
+        int bits = st.fh.tile_cols_log2 + st.fh.tile_rows_log2;
         tg_start = b.f(bits);
         tg_end = b.f(bits);
       }
@@ -3257,7 +4001,7 @@ void run(const uint8_t* data, size_t n, Decoder& d, Result& res, bool dec) {
           if (pos > o.n) bad("tile data");
           tile_size = o.n - pos;
         } else {
-          int tsb = d.fh.tile_size_bytes;
+          int tsb = st.fh.tile_size_bytes;
           if (pos + tsb > o.n) bad("tile size");
           size_t v = 0;
           for (int i = 0; i < tsb; ++i) v |= (size_t)o.p[pos + i] << (8 * i);
@@ -3265,7 +4009,7 @@ void run(const uint8_t* data, size_t n, Decoder& d, Result& res, bool dec) {
           tile_size = v + 1;
           if (tile_size > o.n - pos) bad("tile runs past its group");
         }
-        jobs.push_back(TileJob{o.p + pos, tile_size, t});
+        st.jobs.push_back(TileJob{o.p + pos, tile_size, t});
         pos += tile_size;
       }
       tiles_done = tg_end + 1;
@@ -3275,27 +4019,64 @@ void run(const uint8_t* data, size_t n, Decoder& d, Result& res, bool dec) {
     // temporal delimiter, metadata, padding, tile list: skipped
   }
   if (!have_frame) bad("no frame in the stream");
-  if (dec && tiles_done != num_tiles) bad("missing tiles");
-  if (dec) decode_tiles(d, jobs);
+  if (tiles && tiles_done != num_tiles) bad("missing tiles");
 }
 
-void postfilter(Decoder& d) {
-  LoopFilter lf(d);
+template <typename Pixel>
+void postfilter(Decoder<Pixel>& d) {
+  LoopFilter<Pixel> lf(d);
   lf.run();
-  Plane* deblocked = d.cur;
-  std::unique_ptr<Cdef> cdef;
-  Plane* cdefed = d.cur;
+  Plane<Pixel>* deblocked = d.cur;
+  std::unique_ptr<Cdef<Pixel>> cdef;
+  Plane<Pixel>* cdefed = d.cur;
   if (d.fh.cdef_on) {
-    cdef.reset(new Cdef(d));
+    cdef.reset(new Cdef<Pixel>(d));
     cdef->run();
     cdefed = cdef->out;
   }
   if (d.fh.uses_lr) {
-    std::unique_ptr<Restoration> lr(new Restoration(d, deblocked, cdefed));
+    std::unique_ptr<Restoration<Pixel>> lr(
+        new Restoration<Pixel>(d, deblocked, cdefed));
     lr->run();
     for (int p = 0; p < d.planes; ++p) d.cur[p] = std::move(lr->out[p]);
   } else if (cdef) {
     for (int p = 0; p < d.planes; ++p) d.cur[p] = std::move(cdef->out[p]);
+  }
+}
+
+// Decodes the stream's first frame into the caller's planes: samples of
+// type Pixel, strides in samples.
+template <typename Pixel>
+void decode_frame(Stream& st, Pixel* y, int ystride, Pixel* u, Pixel* v,
+                  int cstride) {
+  std::unique_ptr<Decoder<Pixel>> dp(new Decoder<Pixel>());
+  Decoder<Pixel>& d = *dp;
+  d.seq = st.seq;
+  d.fh = st.fh;
+  d.alloc();
+  for (int pl = 0; pl < d.planes; ++pl) {
+    int sx = pl ? d.ssx : 0, sy = pl ? d.ssy : 0;
+    if (d.fh.lr_type[pl] != RESTORE_NONE) {
+      int unit = d.fh.lr_size[pl];
+      d.lr_rows[pl] = count_units(unit, round2(d.fh.height, sy));
+      d.lr_cols[pl] = count_units(unit, round2(d.fh.upscaled_width, sx));
+      d.lr[pl].assign((size_t)d.lr_rows[pl] * d.lr_cols[pl], LrUnit{});
+    }
+  }
+  ToolCounts counts;
+  decode_tiles(d, st.jobs, counts);
+  st.res.palette_blocks = counts.palette;
+  st.res.intrabc_blocks = counts.intrabc;
+  postfilter(d);
+  int w = d.fh.width, h = d.fh.height;
+  for (int i = 0; i < h; ++i)
+    memcpy(y + (size_t)i * ystride, d.cur[0].row(i), w * sizeof(Pixel));
+  if (!d.seq.mono) {
+    int cw = (w + d.ssx) >> d.ssx, ch = (h + d.ssy) >> d.ssy;
+    for (int i = 0; i < ch; ++i) {
+      memcpy(u + (size_t)i * cstride, d.cur[1].row(i), cw * sizeof(Pixel));
+      memcpy(v + (size_t)i * cstride, d.cur[2].row(i), cw * sizeof(Pixel));
+    }
   }
 }
 
@@ -3307,6 +4088,11 @@ void postfilter(Decoder& d) {
 struct IkAv1dInfo {
   int32_t width, height, layout, bitdepth, mono, color_range, matrix,
       primaries, transfer;
+  // the frame header's allow_screen_content_tools and allow_intrabc, and
+  // after a decode the blocks that coded a palette or intra block copy
+  int32_t allow_sct, allow_intrabc, palette_blocks, intrabc_blocks;
+  // the frame's in-loop filters: 1 deblocking, 2 CDEF, 4 loop restoration
+  int32_t filters;
   char reason[120];
 };
 
@@ -3328,6 +4114,11 @@ static void fill(const Result& r, IkAv1dInfo* info) {
   info->matrix = r.matrix;
   info->primaries = r.primaries;
   info->transfer = r.transfer;
+  info->allow_sct = r.allow_sct;
+  info->allow_intrabc = r.allow_intrabc;
+  info->palette_blocks = r.palette_blocks;
+  info->intrabc_blocks = r.intrabc_blocks;
+  info->filters = r.filters;
 }
 
 IK_EXPORT int ik_av1d_tables_size() { return (int)sizeof(Tables); }
@@ -3346,10 +4137,9 @@ IK_EXPORT int ik_av1d_set_tables(const void* blob, int size) {
 IK_EXPORT int ik_av1d_probe(const uint8_t* data, size_t n, IkAv1dInfo* info) {
   memset(info, 0, sizeof(*info));
   try {
-    Decoder d;
-    Result r{};
-    run(data, n, d, r, false);
-    fill(r, info);
+    Stream st;
+    parse_stream(data, n, st, false);
+    fill(st.res, info);
     return IK_AV1D_OK;
   } catch (const Fail& f) {
     return finish(f, info);
@@ -3360,27 +4150,27 @@ IK_EXPORT int ik_av1d_probe(const uint8_t* data, size_t n, IkAv1dInfo* info) {
 
 // Decodes the first frame into y (ystride) and u, v (cstride), whose sizes
 // the caller takes from ik_av1d_probe: width x height luma, chroma rounded
-// up by the layout's subsampling; u and v are unused for monochrome.
-IK_EXPORT int ik_av1d_decode(const uint8_t* data, size_t n, uint8_t* y,
-                             int ystride, uint8_t* u, uint8_t* v, int cstride,
-                             IkAv1dInfo* info) {
+// up by the layout's subsampling; u and v are unused for monochrome. The
+// samples are uint8_t for an 8-bit stream and uint16_t for a 10- or
+// 12-bit one (the probe's bitdepth), strides in samples; `bitdepth` is the
+// depth the caller allocated for, and a stream of another answers
+// IK_AV1D_BAD.
+IK_EXPORT int ik_av1d_decode(const uint8_t* data, size_t n, int bitdepth,
+                             void* y, int ystride, void* u, void* v,
+                             int cstride, IkAv1dInfo* info) {
   memset(info, 0, sizeof(*info));
   if (!g_ready) return IK_AV1D_NO_TABLES;
   try {
-    std::unique_ptr<Decoder> d(new Decoder());
-    Result r{};
-    run(data, n, *d, r, true);
-    fill(r, info);
-    postfilter(*d);
-    int w = r.width, h = r.height;
-    for (int i = 0; i < h; ++i) memcpy(y + (size_t)i * ystride, d->cur[0].row(i), w);
-    if (!r.mono) {
-      int cw = (w + d->ssx) >> d->ssx, ch = (h + d->ssy) >> d->ssy;
-      for (int i = 0; i < ch; ++i) {
-        memcpy(u + (size_t)i * cstride, d->cur[1].row(i), cw);
-        memcpy(v + (size_t)i * cstride, d->cur[2].row(i), cw);
-      }
-    }
+    Stream st;
+    parse_stream(data, n, st, true);
+    if (st.seq.bitdepth != bitdepth) bad("bit depth differs from the probe's");
+    if (bitdepth == 8)
+      decode_frame<uint8_t>(st, (uint8_t*)y, ystride, (uint8_t*)u,
+                            (uint8_t*)v, cstride);
+    else
+      decode_frame<uint16_t>(st, (uint16_t*)y, ystride, (uint16_t*)u,
+                             (uint16_t*)v, cstride);
+    fill(st.res, info);
     return IK_AV1D_OK;
   } catch (const Fail& f) {
     return finish(f, info);

@@ -38,7 +38,23 @@ counter]`` (N + 1 entries, the layout of ``av1_tables.npz``):
 - ``coeff_base_ctx_offset`` (19 transform sizes x 5 x 5, int8);
 - ``filter_intra_taps`` (5 modes x 8 outputs x 7 taps, int8);
 - ``sgr_params`` (16 x {r0, s0, r1, s1}, int32; s = -1 where r = 0);
-- ``dr_intra_derivative`` (44, int16, indexed by angle >> 1).
+- ``dr_intra_derivative`` (44, int16, indexed by angle >> 1);
+- the screen-content and inter-style tools of intra frames: the palette
+  size CDFs ``pal_y_size`` and ``pal_uv_size`` (7 block-size contexts, 7
+  symbols), the colour-index CDFs ``pal_y_color_N`` and ``pal_uv_color_N``
+  (N = 2..8 colours, 5 contexts each), ``intrabc``, the motion vector CDFs
+  of ``MV_INTRABC_CONTEXT`` (``mv_joint``, ``mv_class``, ``mv_class0``,
+  ``mv_bits`` for the 10 bits, ``mv_sign``), ``txfm_split`` (21
+  contexts), the inter transform-type CDFs ``inter_tx1`` (2 square sizes,
+  16 symbols), ``inter_tx2`` (12 symbols) and ``inter_tx3`` (4, 2);
+- ``palette_color_context`` (9, int8), ``palette_hash_mult`` (3, int8) and
+  ``bilinear`` (the BILINEAR row of Subpel_Filters, 16 x 8, int16);
+- ``dc_qlookup_hbd`` and ``ac_qlookup_hbd`` (2 x 256, int16): the 10- and
+  12-bit rows of Dc_Qlookup and Ac_Qlookup (``av1_tables.npz`` holds the
+  8-bit row). These 1024 values are not retyped: they are read from
+  libdav1d's table of (dc, ac) pairs, found by the 8-bit row it starts
+  with, then each row must be found whole in libaom's image, and its
+  first and last entries must be the specification's.
 
 Run from the repository root: ``python tests/fixtures/make_av1_dec_tables.py``.
 """
@@ -98,12 +114,116 @@ CDFS = {
     "switchable_restore": [9413, 22581],
     "wiener_restore": [11570],
     "sgrproj_restore": [16855],
+    "pal_y_size": [[7952, 13000, 18149, 21478, 25527, 29241],
+                   [7139, 11421, 16195, 19544, 23666, 28073],
+                   [7788, 12741, 17325, 20500, 24315, 28530],
+                   [8271, 14064, 18246, 21564, 25071, 28533],
+                   [12725, 19180, 21863, 24839, 27535, 30120],
+                   [9711, 14888, 16923, 21052, 25661, 27875],
+                   [14940, 20797, 21678, 24186, 27033, 28999]],
+    "pal_uv_size": [[8713, 19979, 27128, 29609, 31331, 32272],
+                    [5839, 15573, 23581, 26947, 29848, 31700],
+                    [4426, 11260, 17999, 21483, 25863, 29430],
+                    [3228, 9464, 14993, 18089, 22523, 27420],
+                    [3768, 8886, 13091, 17852, 22495, 27207],
+                    [2464, 8451, 12861, 21632, 25525, 28555],
+                    [1269, 5435, 10433, 18963, 21700, 25865]],
+    "pal_y_color_2": [[28710], [16384], [10553], [27036], [31603]],
+    "pal_y_color_3": [[27877, 30490], [11532, 25697], [6544, 30234],
+                      [23018, 28072], [31915, 32385]],
+    "pal_y_color_4": [[25572, 28046, 30045], [9478, 21590, 27256],
+                      [7248, 26837, 29824], [19167, 24486, 28349],
+                      [31400, 31825, 32250]],
+    "pal_y_color_5": [[24779, 26955, 28576, 30282],
+                      [8669, 20364, 24073, 28093],
+                      [4255, 27565, 29377, 31067],
+                      [19864, 23674, 26716, 29530],
+                      [31646, 31893, 32147, 32426]],
+    "pal_y_color_6": [[23132, 25407, 26970, 28435, 30073],
+                      [7443, 17242, 20717, 24762, 27982],
+                      [6300, 24862, 26944, 28784, 30671],
+                      [18916, 22895, 25267, 27435, 29652],
+                      [31270, 31550, 31808, 32059, 32353]],
+    "pal_y_color_7": [[23105, 25199, 26464, 27684, 28931, 30318],
+                      [6950, 15447, 18952, 22681, 25567, 28563],
+                      [7560, 23474, 25490, 27203, 28921, 30708],
+                      [18544, 22373, 24457, 26195, 28119, 30045],
+                      [31198, 31451, 31670, 31882, 32123, 32391]],
+    "pal_y_color_8": [[21689, 23883, 25163, 26352, 27506, 28827, 30195],
+                      [6892, 15385, 17840, 21606, 24287, 26753, 29204],
+                      [5651, 23182, 25042, 26518, 27982, 29392, 30900],
+                      [19349, 22578, 24418, 25994, 27524, 29031, 30448],
+                      [31028, 31270, 31504, 31705, 31927, 32153, 32392]],
+    "pal_uv_color_2": [[29089], [16384], [8713], [29257], [31610]],
+    "pal_uv_color_3": [[25257, 29145], [12287, 27293], [7033, 27960],
+                       [20145, 25405], [30608, 31639]],
+    "pal_uv_color_4": [[24210, 27175, 29903], [9888, 22386, 27214],
+                       [5901, 26053, 29293], [18318, 22152, 28333],
+                       [30459, 31136, 31926]],
+    "pal_uv_color_5": [[22980, 25479, 27781, 29986],
+                       [8413, 21408, 24859, 28874],
+                       [2257, 29449, 30594, 31598],
+                       [19189, 21202, 25915, 28620],
+                       [31844, 32044, 32281, 32518]],
+    "pal_uv_color_6": [[22217, 24567, 26637, 28683, 30548],
+                       [7307, 16406, 19636, 24632, 28424],
+                       [4441, 25064, 26879, 28942, 30919],
+                       [17210, 20528, 23319, 26750, 29582],
+                       [30674, 30953, 31396, 31735, 32207]],
+    "pal_uv_color_7": [[21239, 23168, 25044, 26962, 28705, 30506],
+                       [6545, 15012, 18004, 21817, 25503, 28701],
+                       [3448, 26295, 27437, 28704, 30126, 31442],
+                       [15889, 18323, 21704, 24698, 26976, 29690],
+                       [30988, 31204, 31479, 31734, 31983, 32325]],
+    "pal_uv_color_8": [[21442, 23288, 24758, 26246, 27649, 28980, 30563],
+                       [5863, 14933, 17552, 20668, 23683, 26411, 29273],
+                       [3415, 25810, 26877, 27990, 29223, 30394, 31618],
+                       [17965, 20084, 22232, 23974, 26274, 28402, 30390],
+                       [31190, 31329, 31516, 31679, 31825, 32026, 32322]],
+    "intrabc": [30531],
+    "mv_joint": [4096, 11264, 19328],
+    "mv_class": [28672, 30976, 31858, 32320, 32551, 32656, 32740, 32757,
+                 32762, 32767],
+    "mv_class0": [27648],
+    "mv_bits": [[17408], [17920], [18944], [20480], [22528], [24576],
+                [28672], [29952], [29952], [30720]],
+    "mv_sign": [16384],
+    "txfm_split": [[28581], [23846], [20847], [24315], [18196], [12133],
+                   [18791], [10887], [11005], [27179], [20004], [11281],
+                   [26549], [19308], [14224], [28015], [21546], [14400],
+                   [28165], [22401], [16088]],
+    "inter_tx1": [[4458, 5560, 7695, 9709, 13330, 14789, 17537, 20266, 21504,
+                   22848, 23934, 25474, 27727, 28915, 30631],
+                  [1645, 2573, 4778, 5711, 7807, 8622, 10522, 15357, 17674,
+                   20408, 22517, 25010, 27116, 28856, 30749]],
+    "inter_tx2": [770, 2421, 5225, 12907, 15819, 18927, 21561, 24089, 26595,
+                  28526, 30529],
+    "inter_tx3": [[16384], [4167], [1998], [748]],
 }
 # CDFs of two symbols are one value: a run of one u16 proves nothing, so
 # these are searched as whole tables (value, 0 [, counter]) in the
 # library that keeps them that way
 WHOLE = {"pal_y_mode", "pal_uv_mode", "tx_8x8", "wiener_restore",
-         "sgrproj_restore", "use_filter_intra"}
+         "sgrproj_restore", "use_filter_intra", "pal_y_color_2",
+         "pal_uv_color_2", "intrabc", "mv_class0", "mv_bits", "mv_sign",
+         "txfm_split", "inter_tx3"}
+# a library may pad a record to the width of the largest of its kind (the
+# colour-index CDFs to 8 symbols, the inter transform types to 16)
+MAX_PAD = 16
+
+PALETTE_COLOR_CONTEXT = [-1, -1, 0, -1, -1, 4, 3, 2, 1]
+PALETTE_HASH_MULT = [1, 2, 2]
+# Subpel_Filters[BILINEAR]: phase k takes 128 - 8k of the sample and 8k
+# of the next one
+BILINEAR = [[0, 0, 0, 128 - 8 * k, 8 * k, 0, 0, 0] for k in range(16)]
+# the specification's first eight and last entries of each high-bit-depth
+# quantizer row: 10-bit DC, 10-bit AC, 12-bit DC, 12-bit AC
+Q_ANCHORS = {
+    "dc10": ([4, 9, 10, 13, 15, 17, 20, 22], 5347),
+    "ac10": ([4, 9, 11, 13, 16, 18, 21, 24], 7312),
+    "dc12": ([4, 12, 18, 25, 33, 41, 50, 60], 21387),
+    "ac12": ([4, 13, 19, 27, 35, 44, 54, 64], 29247),
+}
 
 SGR_PARAMS = [[2, 140, 1, 3236], [2, 112, 1, 2158], [2, 93, 1, 1618],
               [2, 80, 1, 1438], [2, 70, 1, 1295], [2, 58, 1, 1177],
@@ -191,7 +311,7 @@ def main() -> int:
             icdf = (32768 - flat).astype("<u2")
             forms = [np.concatenate([np.r_[r, np.zeros(k, "<u2")]
                                      for r in icdf]).astype("<u2").tobytes()
-                     for k in (1, 2, 3)]
+                     for k in range(1, MAX_PAD + 1)]
             where = sorted(k for k, b in img.items()
                            if any(f in b for f in forms))
         else:
@@ -268,6 +388,43 @@ def main() -> int:
         fail(f"dr_intra_derivative: found in {where} only")
     out["dr_intra_derivative"] = dr.astype(np.int16)
     print(f"dr_intra_derivative   found in {where}")
+
+    for name, vals, dt in (
+            ("palette_color_context", PALETTE_COLOR_CONTEXT, "<i4"),
+            ("palette_hash_mult", PALETTE_HASH_MULT, "<i4"),
+            ("bilinear", BILINEAR, "<i2")):
+        a = np.array(vals)
+        # rav1e keeps its filters as int32
+        where = [k for k, b in img.items()
+                 if a.astype(dt).tobytes() in b
+                 or a.astype("<i4").tobytes() in b]
+        if len(where) < 2:
+            fail(f"{name}: found in {sorted(where)} only")
+        out[name] = a.astype(np.int16 if name == "bilinear" else np.int8)
+        print(f"{name:21s} found in {sorted(where)}")
+
+    enc = np.load(os.path.join(os.path.dirname(OUT), "av1_tables.npz"))
+    pairs = np.stack([enc["dc_qlookup"], enc["ac_qlookup"]], 1)
+    dav = img["dav1d"]
+    at = dav.find(pairs.astype("<u2").tobytes())
+    if at < 0:
+        fail("quantizer lookups: libdav1d's (dc, ac) table not found")
+    rows = np.frombuffer(dav[at:at + 3 * 256 * 4], "<u2").reshape(3, 256, 2)
+    hbd = {"dc10": rows[1, :, 0], "ac10": rows[1, :, 1],
+           "dc12": rows[2, :, 0], "ac12": rows[2, :, 1]}
+    for name, row in hbd.items():
+        first, last = Q_ANCHORS[name]
+        if row[:8].tolist() != first or int(row[-1]) != last:
+            fail(f"quantizer lookup {name}: not the specification's")
+        if np.any(np.diff(row.astype(np.int64)) < 0):
+            fail(f"quantizer lookup {name}: not monotonic")
+        if row.astype("<i2").tobytes() not in img["aom"]:
+            fail(f"quantizer lookup {name}: not in libaom")
+    out["dc_qlookup_hbd"] = np.stack([hbd["dc10"], hbd["dc12"]]).astype(
+        np.int16)
+    out["ac_qlookup_hbd"] = np.stack([hbd["ac10"], hbd["ac12"]]).astype(
+        np.int16)
+    print("dc/ac_qlookup_hbd     found in ['aom', 'dav1d']")
 
     np.savez(OUT, **out)
     print("wrote", os.path.relpath(OUT, ROOT))

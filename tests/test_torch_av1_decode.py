@@ -8,12 +8,16 @@ Pillow's AVIF writer (libavif with libaom) over sweeps of quality, speed
 (speed 4 and lower turn loop restoration on), chroma layout, size, alpha,
 ``enable-cdef`` and screen content, from the port's own first-party
 encoder, and true monochrome streams as the JAX package's own tests make
-them (``tests/test_avif_native.py::_mono_avif``). The streams that use a
-tool the decoder does not build answer ``Av1NotPorted`` (the app's 501):
-palette blocks, film grain, quantizer matrices from Pillow's writer;
-superres, intra block copy and 10-bit from headers written here bit by
-bit. Hostile streams raise ValueError or decode, and never crash (the
-sanitizer run of the same cases is in ``test_torch_kernel_asan.py``).
+them (``tests/test_avif_native.py::_mono_avif``); the sweeps of palette
+blocks, intra block copy and 10- and 12-bit streams are in
+``test_torch_av1_screen_hbd.py``. The streams that use a tool the decoder
+does not build answer ``Av1NotPorted`` (the app's 501): film grain and
+quantizer matrices from Pillow's writer; superres and quantizer matrices
+from headers written here bit by bit. Hostile streams (truncations and
+byte flips of an own, a palette, an intrabc and a 10-bit stream, and an
+intrabc vector that reaches outside its tile) raise ValueError or decode,
+and never crash (the sanitizer run of the same cases is in
+``test_torch_kernel_asan.py``).
 The 1-D inverse transforms are held against the encoder's certified
 ``av1_itx`` (DCT 4-32, bit-exact) and against float references (DCT64 and
 the ADSTs). Speed-0 and speed-2 streams stay at most 256 x 256.
@@ -166,7 +170,8 @@ def test_rgba(quality):
 @pytest.mark.parametrize("sub", ["4:2:0", "4:4:4"])
 def test_screen_content_exact_or_501(sub):
     """``tune-content=screen`` turns the screen-content tools on: a frame
-    that codes no palette decodes exactly, one that does answers 501."""
+    that codes no palette and one that codes palette blocks both decode
+    exactly (palettes answered 501 before the decoder built them)."""
     natural = pillow_avif(synth(128, 96, seed=1), quality=60, subsampling=sub,
                           advanced=[("tune-content", "screen")])
     assert_file_equal(natural, "screen content, natural picture")
@@ -175,8 +180,9 @@ def test_screen_content_exact_or_501(sub):
     flat[:, ::16] = (200, 30, 30)
     data = pillow_avif(flat, quality=60, subsampling=sub,
                        advanced=[("tune-content", "screen")])
-    with pytest.raises(av1_dec_abi.Av1NotPorted, match="palette"):
-        av1_dec_abi.decode(ref_avif.parse_container(data).obu)
+    assert_file_equal(data, "screen content, flat lines")
+    assert av1_dec_abi.decode(
+        ref_avif.parse_container(data).obu)[3].palette_blocks > 0
 
 
 @needs_oracles
@@ -269,8 +275,10 @@ def seq_header(w: int = 64, h: int = 64, high_bitdepth: int = 0,
 
 
 def frame_header(allow_sct: int = 0, allow_intrabc: int = 0,
-                 use_superres: int = 0) -> bytes:
-    """The first bits of a reduced header's KEY_FRAME (spec 5.9)."""
+                 use_superres: int = 0, qm: int = 0) -> bytes:
+    """The first bits of a reduced header's KEY_FRAME (spec 5.9) of a
+    frame of one superblock; with ``qm`` its tile info (uniform) and
+    quantizer params up to using_qmatrix = 1."""
     b = BitWriter()
     b.f(0, 1)  # disable_cdf_update
     b.f(allow_sct, 1)
@@ -282,34 +290,83 @@ def frame_header(allow_sct: int = 0, allow_intrabc: int = 0,
     b.f(0, 1)  # render_and_frame_size_different
     if allow_sct:
         b.f(allow_intrabc, 1)
+    if qm:
+        b.f(1, 1)    # uniform_tile_spacing_flag (one superblock: no more)
+        b.f(100, 8)  # base_q_idx
+        b.f(0, 3)    # no DC / U delta q
+        b.f(1, 1)    # using_qmatrix
     b.f(0, 64)
     b.trailing_bits()
     return obu(3, b.bytes())
 
 
 def remainder_avif(w: int = 64, h: int = 48) -> bytes:
-    """A whole AVIF file whose stream is 10-bit: a source of the
-    remainder, which the port answers with 501 (the container is the
+    """A whole AVIF file whose stream uses quantizer matrices: a source of
+    the remainder, which the port answers with 501 (the container is the
     port's first-party writer's)."""
     from imagekit_tpu_torch.codecs.av1_container import write_avif
 
-    return write_avif(seq_header(w, h, high_bitdepth=1) + frame_header(),
-                      w, h)
+    return write_avif(seq_header(w, h) + frame_header(qm=1), w, h)
+
+
+def intrabc_outside_tile() -> bytes:
+    """A 64 x 64 frame with intra block copy whose first block takes the
+    default vector (0, -320 samples) with no difference: a vector to the
+    left of its tile, which is_mv_valid refuses. Written symbol by symbol
+    with the port's encoder's MSAC coder over the default CDFs."""
+    from imagekit_tpu_torch.codecs.av1_entropy import MsacEncoder
+
+    b = BitWriter()
+    b.f(0, 1)    # disable_cdf_update
+    b.f(1, 1)    # allow_screen_content_tools
+    b.f(0, 1)    # force_integer_mv (1 in an intra frame all the same)
+    b.f(0, 1)    # render_and_frame_size_different
+    b.f(1, 1)    # allow_intrabc
+    b.f(1, 1)    # uniform_tile_spacing_flag
+    b.f(100, 8)  # base_q_idx
+    b.f(0, 3)    # no DC / U delta q
+    b.f(0, 1)    # using_qmatrix
+    b.f(0, 1)    # segmentation_enabled
+    b.f(0, 1)    # delta_q_present
+    # no loop filter, CDEF or restoration params with intra block copy
+    b.f(0, 1)    # tx_mode_select
+    b.f(0, 1)    # reduced_tx_set
+    b.trailing_bits()
+    cdf = av1_dec_abi._cdf_arrays()
+    ms = MsacEncoder()
+    ms.encode_symbol(0, cdf["partition"][3 * 4], 10)  # PARTITION_NONE
+    ms.encode_symbol(1, cdf["skip"][0], 2)            # skip
+    ms.encode_symbol(1, cdf["intrabc"], 2)            # use_intrabc
+    ms.encode_symbol(0, cdf["mv_joint"], 4)           # MV_JOINT_ZERO
+    return (seq_header(64, 64) + obu(3, b.bytes())
+            + obu(4, ms.done()))
 
 
 @pytest.mark.parametrize("stream, reason", [
-    (lambda: seq_header(high_bitdepth=1) + frame_header(), "10- and 12-bit"),
+    (lambda: seq_header(high_bitdepth=1) + frame_header(), None),
     (lambda: seq_header(superres=1) + frame_header(use_superres=1),
      "superres"),
     (lambda: seq_header() + frame_header(allow_sct=1, allow_intrabc=1),
-     "intra block copy"),
-], ids=["10-bit", "superres", "intrabc"])
+     None),
+    (lambda: seq_header() + frame_header(qm=1), "quantizer matrices"),
+], ids=["10-bit", "superres", "intrabc", "quantizer matrices"])
 def test_remainder_from_headers(stream, reason):
-    """Tools gated at the headers answer before any tile decodes."""
-    with pytest.raises(av1_dec_abi.Av1NotPorted, match=reason):
-        av1_dec_abi.probe(stream())
-    with pytest.raises(av1_dec_abi.Av1NotPorted, match=reason):
+    """Tools gated at the headers answer before any tile decodes; 10-bit
+    streams and intra block copy are built: their headers probe, and
+    these streams, which carry no tile, do not decode (as in libdav1d)."""
+    if reason is not None:
+        with pytest.raises(av1_dec_abi.Av1NotPorted, match=reason):
+            av1_dec_abi.probe(stream())
+        with pytest.raises(av1_dec_abi.Av1NotPorted, match=reason):
+            av1_dec_abi.decode(stream())
+        return
+    head = av1_dec_abi.probe(stream())
+    assert (head.bitdepth, head.screen_content, head.intrabc) in (
+        (10, False, False), (8, True, True))
+    with pytest.raises(ValueError, match="missing tiles"):
         av1_dec_abi.decode(stream())
+    if ref_avif.decode_available():
+        assert ref_avif._decode_obu(stream(), 64, 64) is None
 
 
 def test_probe_reads_the_headers():
@@ -322,20 +379,47 @@ def test_probe_reads_the_headers():
 # -- hostile streams ---------------------------------------------------------------
 
 
+def tool_streams() -> dict:
+    """Small streams of a palette, an intrabc and a 10-bit frame, where
+    Pillow's writer and libavif are at hand (the hostile cases' seeds)."""
+    from imagekit_tpu_torch.codecs.avif_native import parse_container
+    from tests.fixtures.make_avif_sources import encode_avif_hbd
+    from tests.test_torch_av1_screen_hbd import flat_logo, ui_text
+
+    out = {}
+    try:
+        out["palette"] = pillow_avif(flat_logo(96, 64, 2), quality=60)
+        out["intrabc"] = pillow_avif(ui_text(256, 64, 2), quality=60)
+    except Exception:  # no AVIF writer
+        pass
+    rng = np.random.default_rng(3)
+    y = rng.integers(64, 940, (48, 64)).astype(np.uint16)
+    c = np.full((24, 32), 512, np.uint16)
+    ten = encode_avif_hbd(y, c, c, 10, "420", 30)
+    if ten is not None:
+        out["10bit"] = ten
+    return {k: parse_container(v).obu for k, v in out.items()}
+
+
 def hostile_streams():
-    """Truncations and byte flips of a real stream, and garbage."""
+    """Truncations and byte flips of real streams (the port's own encoder's,
+    and a palette, an intrabc and a 10-bit one where their writers are at
+    hand), an intrabc vector outside its tile, and garbage."""
     data = avif_encode.encode_rgb(synth(96, 64, seed=2), 60)
     from imagekit_tpu_torch.codecs.avif_native import parse_container
 
-    stream = parse_container(data).obu
     rng = np.random.default_rng(7)
-    out = [b"", b"\x00", b"\x12\x00", stream[:3], stream[:len(stream) // 2],
-           stream[:-1], bytes(rng.integers(0, 256, 300, dtype=np.uint8))]
-    for _ in range(24):
-        m = bytearray(stream)
-        for i in rng.integers(0, len(m), 3):
-            m[i] ^= int(rng.integers(1, 256))
-        out.append(bytes(m))
+    out = [b"", b"\x00", b"\x12\x00",
+           bytes(rng.integers(0, 256, 300, dtype=np.uint8)),
+           intrabc_outside_tile()]
+    streams = [parse_container(data).obu] + list(tool_streams().values())
+    for stream in streams:
+        out += [stream[:3], stream[:len(stream) // 2], stream[:-1]]
+        for _ in range(24 if len(out) < 40 else 12):
+            m = bytearray(stream)
+            for i in rng.integers(0, len(m), 3):
+                m[i] ^= int(rng.integers(1, 256))
+            out.append(bytes(m))
     return out
 
 
@@ -346,6 +430,11 @@ def test_hostile_streams_never_crash():
             assert y.shape == (info.height, info.width)
         except (ValueError, av1_dec_abi.Av1NotPorted):
             pass
+
+
+def test_intrabc_vector_outside_its_tile_is_refused():
+    with pytest.raises(ValueError, match="outside its tile"):
+        av1_dec_abi.decode(intrabc_outside_tile())
 
 
 # -- inverse transforms ---------------------------------------------------------------

@@ -21,8 +21,9 @@ engine.
   rgbyuv head.
 - The HTTP app: a signed ``/img?...&f=avif`` answers 200 ``image/avif``
   with an ETag and a ``.avif`` disk-cache entry, then hits that entry; an
-  AVIF source is served (200) and one of the AV1 decoder's remainder (a
-  10-bit stream) answers 501 naming queue 1 item 8.
+  AVIF source and a 10-bit one are served (200) and one of the AV1
+  decoder's remainder (quantizer matrices) answers 501 naming queue 1
+  item 8.
 """
 
 import asyncio
@@ -295,16 +296,29 @@ JPG = "https://example.com/a.jpg"
 AVIF = "https://example.com/a.avif"
 
 
-AVIF_10BIT = "https://example.com/b.avif"
+AVIF_REMAINDER = "https://example.com/b.avif"
+AVIF_10BIT = "https://example.com/c.avif"
+
+
+def _ten_bit_avif():
+    """A 10-bit 4:2:0 AVIF by libavif, or None without it."""
+    from tests.fixtures.make_avif_sources import encode_avif_hbd
+    from tests.test_torch_av1_screen_hbd import hbd_picture
+
+    return encode_avif_hbd(*hbd_picture(64, 48, 10, "420", 3), 10, "420", 20)
 
 
 def _serve(tmp_path, fn):
-    fetcher = _OfflineFetcher({
+    canned = {
         JPG: ("image/jpeg", encode_jpeg_pil(make_test_image(640, 360), 88)),
         AVIF: ("image/avif", avif_encode.encode_rgb(make_test_image(64, 48),
                                                     80)),
-        AVIF_10BIT: ("image/avif", remainder_avif()),
-    })
+        AVIF_REMAINDER: ("image/avif", remainder_avif()),
+    }
+    ten = _ten_bit_avif()
+    if ten is not None:
+        canned[AVIF_10BIT] = ("image/avif", ten)
+    fetcher = _OfflineFetcher(canned)
     metrics = Metrics()
 
     async def inner():
@@ -344,21 +358,27 @@ def test_http_img_serves_avif_then_hits_cache(tmp_path):
 
 def test_http_avif_source_answers_501(tmp_path):
     """AVIF sources are served since the port decodes AV1 itself: the
-    port's own AVIF at w=32 is a 200 WebP; a stream of the decoder's
-    remainder (10-bit) still answers 501 naming queue 1 item 8."""
+    port's own AVIF and a 10-bit one by libavif (which answered 501 before
+    the decoder built high bit depth) at w=32 are 200 WebPs, as the
+    reference serves them; a stream of the decoder's remainder (quantizer
+    matrices) still answers 501 naming queue 1 item 8."""
+    if _ten_bit_avif() is None:
+        pytest.skip("libavif's high-bit-depth encode unavailable")
+
     async def fn(client, metrics):
-        params = {"url": AVIF, "w": "32"}
-        r = await client.get("/img", params={**params,
-                                             "sig": sign(params, SECRET)})
-        body = await r.read()
-        assert r.status == 200, body[:200]
-        assert r.headers["Content-Type"] == "image/webp"
-        assert vp8.dimensions(body) == (32, 24)
-        params = {"url": AVIF_10BIT, "w": "32"}
+        for url in (AVIF, AVIF_10BIT):
+            params = {"url": url, "w": "32"}
+            r = await client.get("/img", params={**params,
+                                                 "sig": sign(params, SECRET)})
+            body = await r.read()
+            assert r.status == 200, body[:200]
+            assert r.headers["Content-Type"] == "image/webp"
+            assert vp8.dimensions(body) == (32, 24)
+        params = {"url": AVIF_REMAINDER, "w": "32"}
         r = await client.get("/img", params={**params,
                                              "sig": sign(params, SECRET)})
         text = await r.text()
         assert r.status == 501, text
-        assert "queue 1 item 8" in text and "10- and 12-bit" in text
+        assert "queue 1 item 8" in text and "quantizer matrices" in text
 
     _serve(tmp_path, fn)

@@ -4,8 +4,10 @@
   studio-range planes (4:2:0, 4:2:2, 4:4:4, monochrome, alpha, BT.709) and
   the RGB decode equal the JAX package's ``avif_native`` (libdav1d), since
   the port's AV1 decoder's planes are byte-equal to libdav1d's
-  (``test_torch_av1_decode.py``); what it does not build answers 501, what
-  does not decode 400 in libavif's words.
+  (``test_torch_av1_decode.py``, ``test_torch_av1_screen_hbd.py``), for
+  screen content (palette blocks, intra block copy) and 10- and 12-bit
+  streams too; what it does not build answers 501, what does not decode
+  400 in libavif's words.
 - The YUV heads for every chroma layout, alpha and the BT.709 mix against
   the JAX heads (``ops/dct.py::resize_yuv420_batch`` and
   ``resize_yuv_jpeg_batch``): within +-1 on <= 0.1%.
@@ -102,6 +104,10 @@ SOURCES = {
     "own": lambda: avif_encode.encode_rgb(synth(120, 80, seed=9), 70),
     "own_rgba": lambda: avif_encode.encode_rgb(np.dstack(
         [synth(120, 80, seed=10), np.full((80, 120), 77, np.uint8)]), 70),
+    "palette": lambda: _palette(),
+    "intrabc": lambda: _intrabc(),
+    "10bit_420": lambda: _ten_bit(),
+    "12bit_444": lambda: _hbd(12, "444"),
 }
 
 
@@ -166,6 +172,18 @@ def _palette() -> bytes:
     return pillow_avif(flat, quality=60, advanced=[("tune-content", "screen")])
 
 
+def _intrabc() -> bytes:
+    from tests.test_torch_av1_screen_hbd import ui_text
+
+    return pillow_avif(ui_text(256, 96, seed=4), quality=60)
+
+
+def _hbd(depth: int, layout: str) -> bytes:
+    from tests.test_torch_av1_screen_hbd import hbd_file
+
+    return hbd_file(120, 88, depth, layout, 20, depth)
+
+
 def _ten_bit() -> bytes:
     """A 10-bit AVIF by libavif (the JAX package's test writer)."""
     from tests.test_avif_native import _encode_avif_10bit
@@ -180,8 +198,11 @@ def _ten_bit() -> bytes:
     return data
 
 
+#: name -> (writer, the reason of the 501, or None for a file the port
+#: now serves as the reference does)
 REMAINDER = {
-    "palette": (_palette, "palette"),
+    "palette": (_palette, None),
+    "intrabc": (_intrabc, None),
     "film_grain": (lambda: pillow_avif(synth(256, 192, seed=9), quality=60,
                                        advanced=[("denoise-noise-level",
                                                   "50")]), "film grain"),
@@ -189,7 +210,7 @@ REMAINDER = {
                                advanced=[("enable-qm", "1")]),
            "quantizer matrices"),
     "premultiplied": (_premultiplied, "premultiplied"),
-    "10bit": (lambda: _ten_bit(), "10- and 12-bit"),
+    "10bit": (lambda: _ten_bit(), None),
     "identity_matrix": (lambda: _patch_colr_matrix(
         pillow_avif(synth(64, 48), quality=70, subsampling="4:4:4"), 0),
         "colour description"),
@@ -199,16 +220,24 @@ REMAINDER = {
 @needs_oracles
 @pytest.mark.parametrize("name", sorted(REMAINDER))
 def test_the_remainder_answers_501(name):
-    """What the decoder does not build, and what the reference's native
-    path hands to Pillow's libavif, is NotPortedError naming queue 1 item
-    8, where the reference serves it."""
+    """What the decoder does not build (film grain, quantizer matrices),
+    and what the reference's native path hands to Pillow's libavif, is
+    NotPortedError naming queue 1 item 8, where the reference serves it;
+    palette blocks, intra block copy and 10-bit streams, which answered
+    501 before the decoder built them, decode as the reference decodes
+    them."""
     make, reason = REMAINDER[name]
     data = make()
+    arr, _ = ref_codecs.decode_bytes(data)
+    assert arr.ndim == 3
+    if reason is None:
+        got, fmt = port_codecs.decode_bytes(data, device="cpu")
+        assert fmt == port_codecs.SourceFormat.avif
+        assert np.array_equal(got, arr)
+        return
     with pytest.raises(NotPortedError, match=reason) as e:
         port_codecs.decode_bytes(data, device="cpu")
     assert "queue 1 item 8" in str(e.value)
-    arr, _ = ref_codecs.decode_bytes(data)
-    assert arr.ndim == 3
 
 
 @needs_oracles
@@ -499,21 +528,30 @@ def test_img_and_upload_serve_as_the_reference(monkeypatch, tmp_path, name):
 
 @needs_oracles
 def test_the_remainder_and_hostile_files_over_http(tmp_path):
-    """A palette AVIF answers 501 through the port (the reference decodes
-    it with libdav1d); a truncated one 400 through both apps, in the same
+    """A palette AVIF is served through both apps alike (it answered 501
+    before the decoder built palettes); one with quantizer matrices
+    answers 501 through the port (the reference decodes it with
+    libdav1d); a truncated one 400 through both apps, in the same
     words."""
     good = pillow_avif(synth(64, 48), quality=60)
-    sources = {"pal": _palette(), "cut": good[:-20]}
+    sources = {"pal": _palette(), "cut": good[:-20],
+               "qm": REMAINDER["qm"][0]()}
 
     async def fn(client):
         return [await _img(client, url=_url("pal"), w=32),
-                await _img(client, url=_url("cut"), w=32)]
+                await _img(client, url=_url("cut"), w=32),
+                await _img(client, url=_url("qm"), w=32)]
 
     ref = _serve(tmp_path, "ref", sources, fn)
     port = _serve(tmp_path, "port", sources, fn)
-    assert ref[0][0] == 200 and port[0][0] == 501
-    assert b"queue 1 item 8" in port[0][2] and b"palette" in port[0][2]
+    assert ref[0][:2] == port[0][:2] and port[0][0] == 200
+    assert _out_size(port[0][2]) == _out_size(ref[0][2])
+    if port[0][2] != ref[0][2]:
+        assert psnr(_decoded(port[0][2]), _decoded(ref[0][2])) >= 45.0
     assert port[1] == ref[1] and port[1][0] == 400
+    assert ref[2][0] == 200 and port[2][0] == 501
+    assert b"queue 1 item 8" in port[2][2]
+    assert b"quantizer matrices" in port[2][2]
 
 
 def test_fetch_probes_avif_dimensions():
@@ -582,6 +620,15 @@ def test_committed_fixtures_hold_the_port_to_libdav1d(name):
     if info.alpha_obu:
         ours.update(av1_dec_abi.decode(info.alpha_obu)[0].tobytes())
     assert ours.hexdigest() == entry["sha256"]
+    if "sha256_samples" in entry:  # 10 and 12 bits: the raw planes too
+        raw = hashlib.sha256()
+        for p in av1_dec_abi.decode_samples(info.obu)[:3]:
+            raw.update(p.astype("<u2").tobytes())
+        assert raw.hexdigest() == entry["sha256_samples"]
+        if ref_avif.decode_available():
+            from tests.fixtures.make_avif_sources import samples_digest
+
+            assert samples_digest(data) == entry["sha256_samples"]
     if ref_avif.decode_available():
         want = hashlib.sha256()
         y, u, v = ref_avif._decode_obu(info.obu, info.width, info.height)[:3]

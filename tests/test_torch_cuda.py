@@ -1680,9 +1680,11 @@ def test_k2_f32_entry_for_bt709_batches_matches_plain(alpha):
 
 @needs_card
 def test_av1_decoder_gives_libdav1d_planes_on_the_cards_host():
-    """The committed AVIFs of ``tests/fixtures/avif/`` decode on the card's
-    host (which has no libdav1d) to the planes whose SHA-256 libdav1d gave
-    where they were made; then one through the engine on the card."""
+    """The committed AVIFs of ``tests/fixtures/avif/`` (palette blocks,
+    intra block copy and 10- and 12-bit files among them) decode on the
+    card's host (which has no libdav1d) to the planes whose SHA-256
+    libdav1d gave where they were made, the raw 16-bit ones too; then one
+    through the engine on the card."""
     import hashlib
     import json
     from pathlib import Path
@@ -1703,6 +1705,11 @@ def test_av1_decoder_gives_libdav1d_planes_on_the_cards_host():
         if info.alpha_obu:
             digest.update(av1_dec_abi.decode(info.alpha_obu)[0].tobytes())
         assert digest.hexdigest() == entry["sha256"], name
+        if "sha256_samples" in entry:  # 10 and 12 bits: the raw planes
+            raw = hashlib.sha256()
+            for p in av1_dec_abi.decode_samples(info.obu)[:3]:
+                raw.update(p.astype("<u2").tobytes())
+            assert raw.hexdigest() == entry["sha256_samples"], name
     data = (root / table["1080p_444"]["file"]).read_bytes()
 
     async def run():

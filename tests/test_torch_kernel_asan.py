@@ -771,6 +771,16 @@ def _av1_cases():
     rgba = np.dstack([synth(48, 32), np.full((32, 48), 100, np.uint8)])
     files["own_alpha"] = avif_encode.encode_rgb(rgba, 70)
     good = {}
+    # palette blocks, intra block copy and a 10-bit frame, where their
+    # writers are at hand
+    from tests.test_torch_av1_decode import tool_streams
+
+    for name, stream in tool_streams().items():
+        y, u, v, _ = av1_dec_abi.decode(stream)
+        digest = hashlib.sha256(y.tobytes())
+        digest.update(u.tobytes())
+        digest.update(v.tobytes())
+        good[f"tool_{name}"] = (stream, digest.hexdigest())
     for name, data in files.items():
         info = parse_container(data)
         for item, stream in (("", info.obu), ("_alpha", info.alpha_obu)):
@@ -793,9 +803,10 @@ def _av1_cases():
 
 def test_av1_decoder_under_address_sanitizer(tmp_path):
     """``av1_decode.cpp`` under ASan and UBSan, each stream in a buffer of
-    exactly its size: real streams decode to the normal build's planes
-    (digests), hostile ones decode or are refused, and the sanitizers
-    report nothing."""
+    exactly its size: real streams (palette, intrabc and 10-bit ones
+    among them) decode to the normal build's planes (digests), hostile
+    ones (their truncations and byte flips, an intrabc vector outside its
+    tile) decode or are refused, and the sanitizers report nothing."""
     native = ROOT / "imagekit_tpu_torch" / "codecs" / "native"
     so = tmp_path / "libav1d_asan.so"
     subprocess.run(["g++", "-std=c++17", "-O1", "-g", "-fPIC", "-shared",
@@ -825,6 +836,7 @@ def test_av1_decoder_under_address_sanitizer(tmp_path):
         assert res[name] == digest, name
     assert set(res) == set(cases)
     assert res["huge"] == "400"
+    assert res["h4"] == "400"  # hostile_streams' intrabc vector off its tile
 
 
 if __name__ == "__main__":

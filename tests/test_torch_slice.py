@@ -169,7 +169,7 @@ def test_cuda_device_is_never_implicit():
 def test_off_slice_requests_raise_not_ported(case):
     """Each request outside the ported slices raises NotPortedError naming
     its ROADMAP item (an AVIF source of the decoder's remainder, here a
-    10-bit stream, is what is left); an RGB PNG, a
+    stream with quantizer matrices, is what is left); an RGB PNG, a
     JPEG to JPEG, AVIF output, a downscale under 2x (k=8), a lossy WebP
     source, an RGBA PNG (the plain RGB head) and a request with no resize,
     once off the slice, are now served."""
@@ -319,7 +319,7 @@ def test_http_sign_then_img_serves_webp_then_hits_cache(tmp_path):
     ({"url": BMP, "w": "64"}, 200),          # BMP source: served
     ({"url": JPG, "w": "256", "f": "jpeg"}, 200),  # JPEG -> JPEG: served
     ({"url": JPG}, 200),                      # no resize: served
-    ({"url": AVIF, "w": "256"}, 501),        # 10-bit AVIF: not ported
+    ({"url": AVIF, "w": "256"}, 501),        # AVIF with QMs: not ported
     ({"url": JPG, "w": "256", "q": "0"}, 400),  # the reference's own 400
     ({"url": PNG, "w": "64"}, 200),          # RGB PNG source: served
 ])
