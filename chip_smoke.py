@@ -5349,7 +5349,8 @@ AVIF_SCREEN = ("1080p_screenshot", "1080p_logos", "1080p_rgba_logo")
 def avif_sources() -> dict:
     """Phase 27's committed AVIFs (``tests/fixtures/make_avif_sources.py``:
     Pillow's writer, the card's machine has none) with the SHA-256 of
-    libdav1d's planes of each: name -> (bytes, entry)."""
+    libdav1d's planes of each and its quantizer-matrix and film-grain
+    flags: name -> (bytes, entry)."""
     with open(os.path.join(AVIF_FIXTURES, "avif_planes.json")) as f:
         table = json.load(f)
     out = {}
@@ -5363,9 +5364,10 @@ def avif_decode_case(data: bytes) -> dict:
     """The port's AV1 decode of one file on the host: the digest of its
     planes (colour item, rounded to 8 bits, then the alpha item's luma;
     for 10 and 12 bits also of the raw planes, little-endian) and the
-    colour item's decode time (the least of three), with its bit depth and
+    colour item's decode time (the least of three), with its bit depth,
     the palette and intrabc blocks it coded (the alpha item's palettes
-    too)."""
+    too) and whether its frame header uses quantizer matrices and film
+    grain."""
     import hashlib
 
     from imagekit_tpu_torch.codecs import avif_native
@@ -5397,7 +5399,8 @@ def avif_decode_case(data: bytes) -> dict:
             "alpha": bool(info.alpha_obu), "bytes": len(data),
             "bitdepth": head.bitdepth, "palette_blocks": head.palette_blocks,
             "intrabc_blocks": head.intrabc_blocks,
-            "alpha_palette_blocks": alpha_palettes}
+            "alpha_palette_blocks": alpha_palettes,
+            "qmatrix": head.qmatrix, "film_grain": head.film_grain}
 
 
 @contextlib.contextmanager
@@ -5494,19 +5497,23 @@ def phase_avif_sources(card: str) -> dict:
     logo sheet at Pillow's defaults, which code palette blocks and intra
     block copy, and an RGBA logo sheet whose alpha item codes palettes; a
     10-bit 4:2:0 picture with CDEF and a 12-bit 4:4:4 one with loop
-    restoration) decode on the host with the port's decoder
-    (``codecs/native/av1_decode.cpp``): the planes' SHA-256 must be
-    libdav1d's, recorded where the fixtures were made (for 10 and 12 bits
-    both the 8-bit planes' and the raw 16-bit planes'), and the screen
-    files must have coded their tools. K2's entries for these batches,
+    restoration; a 4:2:0 picture with quantizer matrices (libaom's
+    ``tune=iq``), one with film grain (test vector 4: lag 3, overlap) and
+    a 10-bit 4:4:4 one with both) decode on the host with the port's
+    decoder (``codecs/native/av1_decode.cpp``): the planes' SHA-256 must
+    be libdav1d's, recorded where the fixtures were made (for 10 and 12
+    bits both the 8-bit planes' and the raw 16-bit planes'; with the
+    grain synthesized), the screen files must have coded their tools,
+    and exactly the files made with quantizer matrices and film grain
+    must say so in their frame headers. K2's entries for these batches,
     captured from the engine at B=8 (the AVIF encodes stubbed for the
     capture), against their plain versions and timed: the u8 entry with
     4:4:4 and 4:2:2 chroma, with the alpha plane as a fourth, and the f32
     entry's six resizes of a BT.709 batch; then the batch of each file of
-    this slice. Then rounds of 8 requests through one engine, counts
-    reset before each, each run once, traced: the decode on the codec
-    pool, ONE K2 launch a batch, and the VP8, Huffman or first-party AV1
-    encode."""
+    this slice. Then rounds of 8 requests through one engine (4 for AVIF
+    output, which its one encode thread bounds), counts reset before
+    each, each run once, traced: the decode on the codec pool, ONE K2
+    launch a batch, and the VP8, Huffman or first-party AV1 encode."""
     from imagekit_tpu_torch.codecs import avif_native
     from imagekit_tpu_torch.config import ImageFormat
     from imagekit_tpu_torch.serving import engine_yuv
@@ -5532,10 +5539,16 @@ def phase_avif_sources(card: str) -> dict:
             raise RuntimeError(f"{name} coded no palette block")
         if name in AVIF_SCREEN[:2] and not case["intrabc_blocks"]:
             raise RuntimeError(f"{name} coded no intra block copy")
+        if (case["qmatrix"], case["film_grain"]) != (entry["qmatrix"],
+                                                     entry["film_grain"]):
+            raise RuntimeError(f"{name}'s frame header: quantizer matrices "
+                               f"{case['qmatrix']}, film grain "
+                               f"{case['film_grain']}")
         decodes[name] = case
-        tools = ""
+        tools = (f", quantizer matrices {'yes' if case['qmatrix'] else 'no'}"
+                 f", film grain {'yes' if case['film_grain'] else 'no'}")
         if case["bitdepth"] > 8:
-            tools = (f", {case['bitdepth']}-bit: raw planes = libdav1d's "
+            tools += (f", {case['bitdepth']}-bit: raw planes = libdav1d's "
                      f"(SHA-256 {case['sha256_samples'][:16]}...)")
         if case["palette_blocks"] or case["alpha_palette_blocks"]:
             tools += (f", {case['palette_blocks']} palette and "
@@ -5561,7 +5574,13 @@ def phase_avif_sources(card: str) -> dict:
                 ("rgba_logo", "1080p_rgba_logo", A,
                  "RGBA logo sheet (palettes in the alpha), four planes"),
                 ("10bit", "1080p_10bit_420", W, "10-bit 4:2:0, rounded"),
-                ("12bit_444", "1080p_12bit_444", W, "12-bit 4:4:4, rounded"))
+                ("12bit_444", "1080p_12bit_444", W, "12-bit 4:4:4, rounded"),
+                ("qm", "1080p_qm", W, "quantizer matrices (tune=iq), 4:2:0"),
+                ("grain", "1080p_grain", W,
+                 "film grain (lag 3, overlap), 4:2:0"),
+                ("10bit_grain_444", "1080p_10bit_grain_444", W,
+                 "10-bit 4:4:4, quantizer matrices and film grain, "
+                 "rounded"))
     for entry, name, fmt, what in captures:
         with quick_avif_encodes():
             call = capture_batch([sources[name][0]], 400, 8,
@@ -5588,7 +5607,7 @@ def phase_avif_sources(card: str) -> dict:
          {"k2": "batch"}),
         ("1080p 4:2:2 AVIF -> w=400 WebP", src("1080p_422"), 8, 400, W, out,
          {"k2": "batch"}),
-        ("1080p RGBA AVIF -> w=160 AVIF, alpha kept", src("1080p_rgba"), 8,
+        ("1080p RGBA AVIF -> w=160 AVIF, alpha kept", src("1080p_rgba"), 4,
          160, A, small, {"k2": "batch"}),
         ("1080p BT.709 AVIF -> w=400 WebP", src("1080p_bt709"), 8, 400, W,
          out, {"k2": "batch"}),
@@ -5597,17 +5616,24 @@ def phase_avif_sources(card: str) -> dict:
         ("1080p CDEF AVIF -> w=400 JPEG", src("1080p_cdef"), 8, 400, J, out,
          {"k2": "batch"}),
         ("1080p speed-4 AVIF (loop restoration) -> w=160 AVIF",
-         src("1080p_speed4_lr"), 8, 160, A, small, {"k2": "batch"}),
+         src("1080p_speed4_lr"), 4, 160, A, small, {"k2": "batch"}),
         ("1080p UI screenshot AVIF (palette, intrabc) -> w=400 WebP",
          src("1080p_screenshot"), 8, 400, W, out, {"k2": "batch"}),
         ("1080p logo sheet AVIF (palette, intrabc) -> w=400 JPEG",
          src("1080p_logos"), 8, 400, J, out, {"k2": "batch"}),
         ("1080p RGBA logo AVIF (palettes in the alpha) -> w=160 AVIF",
-         src("1080p_rgba_logo"), 8, 160, A, small, {"k2": "batch"}),
+         src("1080p_rgba_logo"), 4, 160, A, small, {"k2": "batch"}),
         ("1080p 10-bit 4:2:0 AVIF -> w=400 WebP", src("1080p_10bit_420"), 8,
          400, W, out, {"k2": "batch"}),
         ("1080p 12-bit 4:4:4 AVIF -> w=400 JPEG", src("1080p_12bit_444"), 8,
          400, J, out, {"k2": "batch"}),
+        ("1080p AVIF with quantizer matrices (tune=iq) -> w=400 WebP",
+         src("1080p_qm"), 8, 400, W, out, {"k2": "batch"}),
+        ("1080p AVIF with film grain -> w=400 JPEG", src("1080p_grain"), 8,
+         400, J, out, {"k2": "batch"}),
+        ("1080p 10-bit 4:4:4 AVIF, quantizer matrices and film grain -> "
+         "w=400 JPEG", src("1080p_10bit_grain_444"), 8, 400, J, out,
+         {"k2": "batch"}),
     ]
     summary = drive_rounds(rounds, card, steps)
     summary["decodes"] = decodes
@@ -5834,9 +5860,9 @@ def main() -> int:
 
     begin("[27] AVIF sources: the port's AV1 decoder on the host (planes "
           "against libdav1d's digests; palette blocks, intra block copy, "
-          "10- and 12-bit streams), K2's YUV entries for 4:4:4, 4:2:2, "
-          "alpha and BT.709 batches and each file's batch, "
-          "BatchedEngine(device='cuda').transform")
+          "10- and 12-bit streams, quantizer matrices, film grain), K2's "
+          "YUV entries for 4:4:4, 4:2:2, alpha and BT.709 batches and each "
+          "file's batch, BatchedEngine(device='cuda').transform")
     avif27 = phase_avif_sources(card)
     end_phase()
     log("    seconds a phase (heading to heading): " + ", ".join(
@@ -5998,10 +6024,12 @@ def main() -> int:
         "avif_launches": avif_n["resize_yuv420_batch"],
         **{key: k2_yuv[key] for key in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by", "library_ms")},
-        # phase 27's 4:2:0 AVIF batches at B=8 (screen content, 10-bit)
+        # phase 27's AVIF batches at B=8: 4:2:0 (screen content, 10-bit,
+        # quantizer matrices, film grain) and the 10-bit 4:4:4 one with both
         **{f"avif_{entry}_b8": {key: avif27["k2"][entry][key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")} for entry in ("screenshot", "logos", "10bit")},
+            "library_ms")} for entry in ("screenshot", "logos", "10bit", "qm",
+                                         "grain", "10bit_grain_444")},
     }, {
         "name": "rgba_resize (K2, 4 channels in one launch, interleaved out: "
                 "the plain RGB head of sources with alpha)",

@@ -13,8 +13,8 @@ The return contract stays: the same planes, chroma factors, alpha and
 
 What differs, because the port has no host library behind it:
 
-- a stream that uses a tool the decoder does not build (superres, film
-  grain, quantizer matrices, inter or layered frames) raises
+- a stream that uses a tool the decoder does not build (superres, inter
+  or layered frames) raises
   :class:`~imagekit_tpu_torch.errors.NotPortedError` naming ROADMAP queue 1
   item 8 (the app's 501), where the reference decodes it with libdav1d or
   Pillow;

@@ -7,8 +7,9 @@ struct it declares (``Tables`` in ``av1_decode.cpp``): the CDFs of
 ``tests/fixtures/make_av1_dec_tables.py``), one copy per coefficient q
 context, then the quantizer lookups of the three bit depths, smooth
 weights, filter-intra taps, directional derivatives, coefficient context
-offsets, self-guided parameters, scans, the BILINEAR filter and the
-palette colour contexts. The struct's size is checked against the
+offsets, self-guided parameters, scans, the BILINEAR filter, the
+Gaussian sequence of film grain, Qm_Offset, the palette colour contexts
+and the quantizer matrices. The struct's size is checked against the
 library's, so a packing that drifts from the C declaration fails at load
 and never decodes.
 
@@ -18,8 +19,10 @@ depth (uint8 for 8-bit, uint16 for 10- and 12-bit streams), and
 :func:`decode` returns u8 planes, those of a high-bit-depth stream
 rounded to 8 bits as the reference's ``avif_native._decode_obu`` rounds
 libdav1d's. All raise :class:`Av1NotPorted` for a tool the decoder does
-not build (superres, film grain, quantizer matrices, inter and layered
-streams) and :class:`ValueError` for a malformed stream.
+not build (superres, inter and layered streams) and :class:`ValueError`
+for a malformed stream. Two settings serve tests and timing only, never
+the engine: :func:`_decode_samples` can leave a stream's film grain out,
+and :func:`_set_threads` caps the decoder's threads.
 """
 
 from __future__ import annotations
@@ -52,7 +55,8 @@ class _Info(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int32) for name in (
         "width", "height", "layout", "bitdepth", "mono", "color_range",
         "matrix", "primaries", "transfer", "allow_sct", "allow_intrabc",
-        "palette_blocks", "intrabc_blocks", "filters")] + [
+        "palette_blocks", "intrabc_blocks", "filters", "qmatrix",
+        "film_grain")] + [
             ("reason", ctypes.c_char * 120)]
 
 
@@ -75,6 +79,9 @@ class StreamInfo(NamedTuple):
     #: the frame's in-loop filters: 1 deblocking, 2 CDEF, 4 loop
     #: restoration (FILTER_*)
     filters: int = 0
+    #: the frame header's using_qmatrix and apply_grain
+    qmatrix: bool = False
+    film_grain: bool = False
 
 
 # (name in the npz files, C record shape per q context); coefficient
@@ -187,6 +194,8 @@ def tables_blob() -> bytes:
     for s in _SCANS:
         parts.append(np.asarray(T[f"scan_{s}"], "<i2").tobytes())
     parts.append(np.asarray(T["bilinear"], "<i2").tobytes())
+    parts.append(np.asarray(T["gaussian_sequence"], "<i2").tobytes())
+    parts.append(np.asarray(T["qm_offset"], "<i2").tobytes())
     sm = np.zeros(128, np.uint8)
     sm[:124] = T["sm_weights"]
     parts.append(sm.tobytes())
@@ -197,6 +206,7 @@ def tables_blob() -> bytes:
     parts.append(np.asarray(T["palette_color_context"], np.int8).tobytes())
     parts.append(np.asarray(T["palette_hash_mult"], np.int8).tobytes())
     parts.append(b"\0")  # the struct's pad_ byte
+    parts.append(np.asarray(T["quantizer_matrix"], np.uint8).tobytes())
     return b"".join(parts)
 
 
@@ -210,9 +220,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ik_av1d_decode.argtypes = [
         ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.POINTER(_Info)]
+        ctypes.c_int, ctypes.POINTER(_Info)]
     lib.ik_av1d_decode.restype = ctypes.c_int
     lib.ik_av1d_tx1d.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    lib.ik_av1d_set_threads.argtypes = [ctypes.c_int]
 
 
 def load(lib: Optional[ctypes.CDLL] = None) -> ctypes.CDLL:
@@ -235,6 +246,13 @@ def load(lib: Optional[ctypes.CDLL] = None) -> ctypes.CDLL:
         return target
 
 
+def _set_threads(n: int, lib: Optional[ctypes.CDLL] = None) -> None:
+    """The threads a decode takes for its tiles, CDEF's rows and film
+    grain's stripes, for the whole process: at most ``n``, 0 for one a
+    core (the default). The planes are the same at any count."""
+    (lib or load()).ik_av1d_set_threads(n)
+
+
 def _raise(rc: int, info: _Info) -> None:
     why = info.reason.decode("ascii", "replace")
     if rc == NOT_PORTED:
@@ -247,7 +265,8 @@ def _info(info: _Info) -> StreamInfo:
                       bool(info.mono), bool(info.color_range), info.matrix,
                       info.primaries, info.transfer, bool(info.allow_sct),
                       bool(info.allow_intrabc), info.palette_blocks,
-                      info.intrabc_blocks, info.filters)
+                      info.intrabc_blocks, info.filters, bool(info.qmatrix),
+                      bool(info.film_grain))
 
 
 def probe(obu: bytes, lib: Optional[ctypes.CDLL] = None) -> StreamInfo:
@@ -268,6 +287,14 @@ def decode_samples(obu: bytes, lib: Optional[ctypes.CDLL] = None,
     layout's subsampling (None for monochrome). ``expect``: the (width,
     height) the container gives; a stream of another size raises
     ValueError before anything is allocated for it."""
+    return _decode_samples(obu, lib, expect, True)
+
+
+def _decode_samples(obu: bytes, lib: Optional[ctypes.CDLL] = None,
+                    expect: Optional[tuple] = None, apply_grain: bool = True):
+    """:func:`decode_samples`; ``apply_grain`` False leaves a stream's film
+    grain out (libdav1d's setting of that name): the reconstruction alone,
+    for diagnostics and timing."""
     lib = lib or load()
     head = probe(obu, lib)
     w, h = head.width, head.height
@@ -285,7 +312,7 @@ def decode_samples(obu: bytes, lib: Optional[ctypes.CDLL] = None,
     info = _Info()
     rc = lib.ik_av1d_decode(obu, len(obu), head.bitdepth, y.ctypes.data, w,
                             u.ctypes.data, v.ctypes.data, cw,
-                            ctypes.byref(info))
+                            int(apply_grain), ctypes.byref(info))
     if rc != OK:
         _raise(rc, info)
     if head.layout == I400:

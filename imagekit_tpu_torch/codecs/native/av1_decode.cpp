@@ -16,7 +16,8 @@
 //     info (uniform or explicit, several tiles and tile groups), quantizer
 //     params with DC/AC/U/V deltas, segmentation, delta q / lf, loop
 //     filter, CDEF and loop restoration params, allow_intrabc, tx mode,
-//     reduced tx set, film grain params (parsed);
+//     reduced tx set, quantizer matrices (using_qmatrix, qm_y, qm_u, qm_v)
+//     and film grain params;
 //   - symbol decoder with CDF adaptation (spec 8.2), the default CDFs
 //     handed over by av1_dec_abi.py at load (av1_tables.npz and
 //     av1_dec_tables.npz);
@@ -25,7 +26,8 @@
 //     spatial prediction, y and uv modes, angle deltas, CfL alphas,
 //     palette mode info and colour index maps, filter intra), tx depth
 //     and the intra tx sets, coefficients of all 19 tx sizes,
-//     dequantisation;
+//     dequantisation, weighted by Quantizer_Matrix where the frame uses
+//     quantizer matrices;
 //   - intra block copy: use_intrabc, the spatial motion vector stack,
 //     read_mv under MV_INTRABC_CONTEXT, the var-tx tree and the inter
 //     transform sets, prediction from the frame's own unfiltered samples
@@ -38,17 +40,20 @@
 //   - intra prediction: DC, V, H, Paeth, smooth, directional with edge
 //     filter and upsampling, CfL, recursive filter intra, palette;
 //   - deblocking (4, 6, 8 and 14 taps), CDEF, loop restoration (Wiener
-//     and self-guided, stripes reading the deblocked rows).
+//     and self-guided, stripes reading the deblocked rows);
+//   - film grain synthesis (7.18.3) on the shown frame: grain templates
+//     with auto-regressive filtering, scaling lookups, noise stripes with
+//     overlap blending, chroma scaled from luma, clipping to the range.
 //
 // Everything from the tiles on is a template over the sample type:
 // uint8_t for 8-bit streams, uint16_t for 10- and 12-bit ones, whose
 // BitDepth-dependent steps (quantizer rows, clamps, edge base values,
 // deblocking limits, CDEF strengths, Wiener and self-guided rounding,
-// palette literals) follow the spec. Not built, answered with
-// IK_AV1D_NOT_PORTED and a reason (the caller's 501): superres, film
-// grain applied, quantizer matrices, inter frames, layered streams.
-// Tiles decode on threads of their own (decode_tiles), and so do CDEF's
-// rows of 64x64 units; deblocking and loop restoration run on the calling
+// palette literals, grain ranges) follow the spec. Not built, answered
+// with IK_AV1D_NOT_PORTED and a reason (the caller's 501): superres, inter
+// frames, layered streams. Tiles decode on threads of their own
+// (decode_tiles), and so do CDEF's rows of 64x64 units and film grain's
+// stripes of 32 rows; deblocking and loop restoration run on the calling
 // thread. Malformed streams answer IK_AV1D_BAD (400): every
 // read is bounds checked, and a symbol decoder that runs past its tile reads zeros as the
 // spec says, so a truncated tile decodes to something, as in libdav1d.
@@ -143,12 +148,15 @@ struct Tables {
   int16_t scan16x32[512], scan32x16[512], scan4x16[64], scan16x4[64];
   int16_t scan8x32[256], scan32x8[256];
   int16_t bilinear[16][8];  // Subpel_Filters[BILINEAR]
+  int16_t gaussian[2048];   // Gaussian_Sequence
+  int16_t qm_offset[19];    // Qm_Offset
   uint8_t sm_weights[128];  // 124 used: sizes 4, 8, 16, 32, 64 in turn
   int8_t filter_taps[5][8][8];  // 7 used
   int8_t ctx_offset[19][5][5];
   int8_t palette_color_context[9];
   int8_t palette_hash_mult[3];
   int8_t pad_[1];
+  uint8_t qm[15][2][3344];  // Quantizer_Matrix [level][plane > 0]
 };
 
 Tables g_tab;
@@ -346,11 +354,16 @@ struct Fail {
   throw Fail{IK_AV1D_NOT_PORTED, why};
 }
 
-// fn(0) .. fn(n - 1) on up to one thread a core, this one included; fn
-// must not throw.
+// The workers of parallel_for: 0 for one a core (ik_av1d_set_threads).
+std::atomic<int> g_threads{0};
+
+// fn(0) .. fn(n - 1) on up to one thread a core (or g_threads), this one
+// included; fn must not throw.
 template <typename F>
 void parallel_for(int n, F fn) {
-  int workers = std::min<int>(n, std::max(1u, std::thread::hardware_concurrency()));
+  int most = g_threads.load();
+  if (most <= 0) most = std::max(1u, std::thread::hardware_concurrency());
+  int workers = std::min<int>(n, most);
   std::atomic<int> next{0};
   auto work = [&]() {
     for (int i; (i = next.fetch_add(1)) < n;) fn(i);
@@ -529,6 +542,20 @@ void parse_seq(Bits& b, SeqHdr& s) {
   s.film_grain = b.f(1);
 }
 
+// film_grain_params() of an intra frame (update_grain is 1): the scaling
+// points of Y, Cb and Cr, the auto-regressive coefficients (each minus
+// 128), and the Cb / Cr multipliers and offsets, each less its bias
+struct FilmGrain {
+  int apply = 0, seed = 0;
+  int num[3] = {0, 0, 0};   // num_y_points, num_cb_points, num_cr_points
+  int points[3][14][2] = {};  // [plane][i] = {value, scaling}
+  int cfl = 0;              // chroma_scaling_from_luma
+  int scaling_shift = 8, ar_lag = 0, ar_shift = 6, grain_scale_shift = 0;
+  int ar[3][25] = {};
+  int mult[3] = {0, 0, 0}, luma_mult[3] = {0, 0, 0}, offset[3] = {0, 0, 0};
+  int overlap = 0, clip_restricted = 0;
+};
+
 struct FrameHdr {
   int frame_type = 0, show_frame = 1, showable = 0, error_resilient = 1;
   int disable_cdf_update = 0, allow_sct = 0, allow_intrabc = 0;
@@ -541,6 +568,10 @@ struct FrameHdr {
   // quantizer
   int base_q_idx = 0, dq_ydc = 0, dq_udc = 0, dq_uac = 0, dq_vdc = 0,
       dq_vac = 0;
+  // quantizer matrices: each plane's level in each segment (SegQMLevel,
+  // 15 = flat)
+  int using_qmatrix = 0, qm_y = 15, qm_u = 15, qm_v = 15;
+  int seg_qm_level[3][8];
   // segmentation
   int seg_enabled = 0, seg_preskip = 0, last_active_seg = 0;
   int feature_enabled[8][8] = {{0}};
@@ -564,7 +595,54 @@ struct FrameHdr {
   int lr_size[3] = {64, 64, 64};
   int uses_lr = 0;
   int tx_mode = TX_MODE_LARGEST, reduced_tx_set = 0;
+  FilmGrain grain;
 };
+
+// film_grain_params() once apply_grain is read as 1, refusing what
+// libdav1d refuses: more than 14 luma or 10 chroma points, points whose
+// values do not increase, and Cb points without Cr points (or the
+// reverse) in 4:2:0.
+void parse_film_grain(Bits& b, const SeqHdr& s, FilmGrain& g) {
+  g.apply = 1;
+  g.seed = b.f(16);
+  auto read_points = [&](int pl, int most) {
+    g.num[pl] = b.f(4);
+    if (g.num[pl] > most) bad("film grain: too many scaling points");
+    for (int i = 0; i < g.num[pl]; ++i) {
+      g.points[pl][i][0] = b.f(8);
+      if (i && g.points[pl][i - 1][0] >= g.points[pl][i][0])
+        bad("film grain: scaling points do not increase");
+      g.points[pl][i][1] = b.f(8);
+    }
+  };
+  read_points(0, 14);
+  g.cfl = s.mono ? 0 : (int)b.f(1);
+  if (!(s.mono || g.cfl || (s.ssx && s.ssy && !g.num[0]))) {
+    read_points(1, 10);
+    read_points(2, 10);
+  }
+  if (s.ssx && s.ssy && !g.num[1] != !g.num[2])
+    bad("film grain: Cb and Cr points differ in 4:2:0");
+  g.scaling_shift = b.f(2) + 8;
+  g.ar_lag = b.f(2);
+  int num_pos = 2 * g.ar_lag * (g.ar_lag + 1);
+  if (g.num[0])
+    for (int i = 0; i < num_pos; ++i) g.ar[0][i] = (int)b.f(8) - 128;
+  for (int pl = 1; pl < 3; ++pl)
+    if (g.num[pl] || g.cfl)
+      for (int i = 0; i < num_pos + (g.num[0] > 0); ++i)
+        g.ar[pl][i] = (int)b.f(8) - 128;
+  g.ar_shift = b.f(2) + 6;
+  g.grain_scale_shift = b.f(2);
+  for (int pl = 1; pl < 3; ++pl)
+    if (g.num[pl]) {
+      g.mult[pl] = (int)b.f(8) - 128;
+      g.luma_mult[pl] = (int)b.f(8) - 128;
+      g.offset[pl] = (int)b.f(9) - 256;
+    }
+  g.overlap = b.f(1);
+  g.clip_restricted = b.f(1);
+}
 
 inline int tile_log2(int blk, int target) {
   int k = 0;
@@ -718,7 +796,12 @@ void parse_frame_header(Bits& b, const SeqHdr& s, FrameHdr& h,
       h.dq_vac = h.dq_uac;
     }
   }
-  if (b.f(1)) not_ported("quantizer matrices");
+  h.using_qmatrix = b.f(1);
+  if (h.using_qmatrix) {
+    h.qm_y = b.f(4);
+    h.qm_u = b.f(4);
+    h.qm_v = s.separate_uv_delta_q ? (int)b.f(4) : h.qm_u;
+  }
   // segmentation_params
   h.seg_enabled = b.f(1);
   if (h.seg_enabled) {
@@ -760,6 +843,10 @@ void parse_frame_header(Bits& b, const SeqHdr& s, FrameHdr& h,
     h.lossless[sid] = q == 0 && !h.dq_ydc && !h.dq_uac && !h.dq_udc &&
                       !h.dq_vac && !h.dq_vdc;
     if (!h.lossless[sid]) h.coded_lossless = 0;
+    bool flat = !h.using_qmatrix || h.lossless[sid];
+    h.seg_qm_level[0][sid] = flat ? 15 : h.qm_y;
+    h.seg_qm_level[1][sid] = flat ? 15 : h.qm_u;
+    h.seg_qm_level[2][sid] = flat ? 15 : h.qm_v;
   }
   h.all_lossless = h.coded_lossless;  // no superres
   // loop_filter_params, cdef_params and lr_params: none with intra block
@@ -830,7 +917,7 @@ void parse_frame_header(Bits& b, const SeqHdr& s, FrameHdr& h,
   h.reduced_tx_set = b.f(1);
   // global motion: none for intra frames
   if (s.film_grain && (h.show_frame || h.showable) && b.f(1))
-    not_ported("film grain");
+    parse_film_grain(b, s, h.grain);
 }
 
 // ---------------------------------------------------------------------------
@@ -2841,6 +2928,14 @@ struct Tile {
     int bdi = (d.bitdepth - 8) >> 1;
     int64_t dcq = g_tab.dc_q[bdi][clip3(0, 255, qindex + dc_delta)];
     int64_t acq = g_tab.ac_q[bdi][clip3(0, 255, qindex + ac_delta)];
+    // the quantizer matrix, which weights the step of each position (5
+    // fractional bits): 2-D transform types only, below level 15; the
+    // sizes with a side of 64 take the matrix of the side cut to 32, whose
+    // positions row * tw + col the coefficients keep
+    const uint8_t* qm = nullptr;
+    int qm_level = fh.seg_qm_level[plane][segment_id];
+    if (fh.using_qmatrix && qm_level < 15 && tx_type < IDTX)
+      qm = g_tab.qm[qm_level][plane > 0] + g_tab.qm_offset[txsz];
     // the clamps of the coefficients (BitDepth + 8 bits) and of the row
     // transforms' output (Max(BitDepth + 6, 16) bits)
     const int64_t hi1 = ((int64_t)1 << (d.bitdepth + 7)) - 1;
@@ -2896,6 +2991,7 @@ struct Tile {
           int32_t qv = quant[i * tw + j];
           if (qv) {
             int64_t q = (i == 0 && j == 0) ? dcq : acq;
+            if (qm) q = round2l(q * qm[i * tw + j], 5);
             int64_t a = ((int64_t)std::abs(qv) * q) & 0xFFFFFF;
             a >>= dq_denom;
             v = qv < 0 ? -a : a;
@@ -3857,7 +3953,7 @@ bool next_obu(const uint8_t*& p, const uint8_t* end, Obu& o) {
 struct Result {
   int width, height, layout, bitdepth, mono, color_range, matrix, primaries,
       transfer, allow_sct, allow_intrabc, palette_blocks, intrabc_blocks,
-      filters;
+      filters, qmatrix, film_grain;
 };
 
 struct TileJob {
@@ -3967,6 +4063,8 @@ void parse_stream(const uint8_t* data, size_t n, Stream& st, bool tiles) {
       res.allow_intrabc = st.fh.allow_intrabc;
       res.filters = (st.fh.lf_level[0] || st.fh.lf_level[1]) |
                     st.fh.cdef_on << 1 | st.fh.uses_lr << 2;
+      res.qmatrix = st.fh.using_qmatrix;
+      res.film_grain = st.fh.grain.apply;
       if (!tiles) return;
       if ((size_t)st.fh.width * st.fh.height > ((size_t)1 << 28))
         bad("frame too large");
@@ -4044,11 +4142,259 @@ void postfilter(Decoder<Pixel>& d) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Film grain synthesis (spec 7.18.3), applied to the shown frame on its
+// way to the caller's planes: the grain templates (a 73 x 82 luma block of
+// Gaussian noise filtered auto-regressively, the chroma blocks sized by
+// the subsampling), the scaling lookups, then the noise of each stripe of
+// 32 luma rows: blocks of 32 x 32 at random offsets of the templates,
+// blended across their seams where overlap_flag says so, scaled by the
+// lookup of the sample (chroma by the luma beside it) and added with a
+// clip to the full or the restricted range. A stripe draws its offsets
+// from a seed of its own (and redraws its upper neighbour's for the
+// seam), so stripes run on parallel_for's threads, each writing its own
+// rows: the planes do not depend on the number of workers.
+
+// get_random_number of the spec: the 16-bit register's next `bits`
+inline int grain_random(uint32_t& r, int bits) {
+  uint32_t bit = (r ^ (r >> 1) ^ (r >> 3) ^ (r >> 12)) & 1;
+  r = (r >> 1) | (bit << 15);
+  return (int)((r >> (16 - bits)) & ((1u << bits) - 1));
+}
+
+struct GrainSynth {
+  const FilmGrain& g;
+  int bitdepth, ssx, ssy, planes, width, height, matrix;
+  int gmin, gmax;  // GrainMin, GrainMax
+  // LumaGrain, CbGrain, CrGrain (chroma in their top-left 38 x 44 where
+  // subsampled)
+  int16_t tmpl[3][73][82];
+  // the scaling of every sample value: scale_lut(plane, v) for v below
+  // 1 << BitDepth
+  std::vector<uint8_t> scale[3];
+  bool active[3];
+
+  GrainSynth(const FilmGrain& fg, int bd, int sx, int sy, int np, int w,
+             int h, int mc)
+      : g(fg), bitdepth(bd), ssx(sx), ssy(sy), planes(np), width(w),
+        height(h), matrix(mc) {
+    gmin = -(128 << (bd - 8));
+    gmax = (128 << (bd - 8)) - 1;
+    active[0] = g.num[0] > 0;
+    for (int p = 1; p < 3; ++p) active[p] = p < np && (g.num[p] || g.cfl);
+    generate();
+    for (int p = 0; p < np; ++p) scaling_lookup(p);
+  }
+
+  // generate_grain
+  void generate() {
+    memset(tmpl, 0, sizeof(tmpl));
+    int shift = 12 - bitdepth + g.grain_scale_shift;
+    uint32_t r = (uint32_t)g.seed;
+    if (g.num[0])
+      for (int y = 0; y < 73; ++y)
+        for (int x = 0; x < 82; ++x)
+          tmpl[0][y][x] = (int16_t)round2(g_tab.gaussian[grain_random(r, 11)],
+                                          shift);
+    int lag = g.ar_lag, ar_shift = g.ar_shift;
+    if (g.num[0])
+      for (int y = 3; y < 73; ++y)
+        for (int x = 3; x < 82 - 3; ++x) {
+          int sum = 0, pos = 0;
+          for (int dr = -lag; dr <= 0; ++dr)
+            for (int dc = -lag; dc <= lag; ++dc) {
+              if (dr == 0 && dc == 0) break;
+              sum += tmpl[0][y + dr][x + dc] * g.ar[0][pos++];
+            }
+          tmpl[0][y][x] = (int16_t)clip3(gmin, gmax,
+                                         tmpl[0][y][x] + round2(sum, ar_shift));
+        }
+    int cw = ssx ? 44 : 82, ch = ssy ? 38 : 73;
+    for (int p = 1; p < 3; ++p) {
+      if (!active[p]) continue;
+      r = (uint32_t)g.seed ^ (p == 1 ? 0xb524u : 0x49d8u);
+      for (int y = 0; y < ch; ++y)
+        for (int x = 0; x < cw; ++x)
+          tmpl[p][y][x] = (int16_t)round2(g_tab.gaussian[grain_random(r, 11)],
+                                          shift);
+      for (int y = 3; y < ch; ++y)
+        for (int x = 3; x < cw - 3; ++x) {
+          int sum = 0, pos = 0;
+          for (int dr = -lag; dr <= 0; ++dr)
+            for (int dc = -lag; dc <= lag; ++dc) {
+              int c = g.ar[p][pos];
+              if (dr == 0 && dc == 0) {
+                if (g.num[0]) {
+                  // the co-located luma grain, averaged over the subsampling
+                  int luma = 0;
+                  int lx = ((x - 3) << ssx) + 3, ly = ((y - 3) << ssy) + 3;
+                  for (int i = 0; i <= ssy; ++i)
+                    for (int j = 0; j <= ssx; ++j)
+                      luma += tmpl[0][ly + i][lx + j];
+                  sum += round2(luma, ssx + ssy) * c;
+                }
+                break;
+              }
+              sum += c * tmpl[p][y + dr][x + dc];
+              ++pos;
+            }
+          tmpl[p][y][x] = (int16_t)clip3(gmin, gmax,
+                                         tmpl[p][y][x] + round2(sum, ar_shift));
+        }
+    }
+  }
+
+  // scaling_lookup_init, then scale_lut's interpolation above 8 bits
+  void scaling_lookup(int p) {
+    const int pl = (p == 0 || g.cfl) ? 0 : p;
+    const int n = g.num[pl];
+    const int(*pt)[2] = g.points[pl];
+    int lut[256];
+    if (n == 0) {
+      for (int i = 0; i < 256; ++i) lut[i] = 0;
+    } else {
+      for (int i = 0; i < pt[0][0]; ++i) lut[i] = pt[0][1];
+      for (int i = 0; i < n - 1; ++i) {
+        int dy = pt[i + 1][1] - pt[i][1], dx = pt[i + 1][0] - pt[i][0];
+        int delta = dy * ((65536 + (dx >> 1)) / dx);
+        for (int x = 0; x < dx; ++x)
+          lut[pt[i][0] + x] = pt[i][1] + ((x * delta + 32768) >> 16);
+      }
+      for (int i = pt[n - 1][0]; i < 256; ++i) lut[i] = pt[n - 1][1];
+    }
+    int shift = bitdepth - 8;
+    scale[p].resize((size_t)1 << bitdepth);
+    for (int v = 0; v < (1 << bitdepth); ++v) {
+      int x = v >> shift, rem = v - (x << shift);
+      if (bitdepth == 8 || x == 255)
+        scale[p][v] = (uint8_t)lut[x];
+      else
+        scale[p][v] = (uint8_t)(lut[x] + round2((lut[x + 1] - lut[x]) * rem,
+                                                shift));
+    }
+  }
+
+  // Rows i0 .. i1 - 1 of plane p's noise stripe `num` (noiseStripe of the
+  // spec, before the seams between stripes), `stride` columns a row.
+  void stripe(int num, int p, int i0, int i1, int* out, int stride) const {
+    int sx = p ? ssx : 0, sy = p ? ssy : 0;
+    uint32_t r = (uint32_t)g.seed;
+    r ^= (uint32_t)(((num * 37 + 178) & 255) << 8);
+    r ^= (uint32_t)((num * 173 + 105) & 255);
+    int rows = std::min(i1, 34 >> sy), cols = 34 >> sx;
+    for (int x = 0; x < (width + 1) / 2; x += 16) {
+      int rnd = grain_random(r, 8);
+      int ox = rnd >> 4, oy = rnd & 15;
+      int px = sx ? 6 + ox : 9 + ox * 2, py = sy ? 6 + oy : 9 + oy * 2;
+      int col0 = sx ? x : x * 2;
+      for (int i = i0; i < rows; ++i) {
+        int* o = out + (size_t)(i - i0) * stride + col0;
+        const int16_t* t = tmpl[p][py + i] + px;
+        for (int j = 0; j < cols; ++j) {
+          int v = t[j];
+          if (g.overlap && x > 0 && j < (2 >> sx)) {
+            int old = o[j];
+            v = sx ? old * 23 + v * 22
+                   : j == 0 ? old * 27 + v * 17 : old * 17 + v * 27;
+            v = clip3(gmin, gmax, round2(v, 5));
+          }
+          o[j] = v;
+        }
+      }
+    }
+  }
+
+  // add_noise for the rows of luma stripe `num`: from the frame `in`
+  // (the reconstructed planes) into the caller's planes
+  template <typename Pixel>
+  void add_noise(int num, Plane<Pixel>* in, Pixel* const* out,
+                 const int* ostride) const {
+    int min_v = 0, max_luma = (256 << (bitdepth - 8)) - 1;
+    int max_chroma = max_luma;
+    if (g.clip_restricted) {
+      min_v = 16 << (bitdepth - 8);
+      max_luma = 235 << (bitdepth - 8);
+      max_chroma = matrix == 0 ? max_luma : 240 << (bitdepth - 8);
+    }
+    const int pmax = (1 << bitdepth) - 1;
+    for (int p = 0; p < planes; ++p) {
+      int sx = p ? ssx : 0, sy = p ? ssy : 0;
+      int pw = (width + sx) >> sx, ph = (height + sy) >> sy;
+      int sh = 32 >> sy;  // the stripe's rows in this plane
+      int y0 = num * sh, y1 = std::min(y0 + sh, ph);
+      if (y0 >= y1) continue;
+      if (!active[p]) {
+        for (int y = y0; y < y1; ++y)
+          memcpy(out[p] + (size_t)y * ostride[p], in[p].row(y),
+                 pw * sizeof(Pixel));
+        continue;
+      }
+      int stride = pw + 48;
+      std::vector<int> cur((size_t)(y1 - y0) * stride);
+      stripe(num, p, 0, y1 - y0, cur.data(), stride);
+      int seam = (g.overlap && num > 0) ? std::min(2 >> sy, y1 - y0) : 0;
+      if (seam) {
+        // the upper stripe's rows below its 32 (16): blended into this
+        // stripe's first rows
+        std::vector<int> up((size_t)seam * stride);
+        stripe(num - 1, p, sh, sh + seam, up.data(), stride);
+        for (int i = 0; i < seam; ++i)
+          for (int x = 0; x < pw; ++x) {
+            int old = up[(size_t)i * stride + x];
+            int& v = cur[(size_t)i * stride + x];
+            int w = sy ? old * 23 + v * 22
+                       : i == 0 ? old * 27 + v * 17 : old * 17 + v * 27;
+            v = clip3(gmin, gmax, round2(w, 5));
+          }
+      }
+      const uint8_t* lut = scale[p].data();
+      int shift = g.scaling_shift;
+      int max_v = p ? max_chroma : max_luma;
+      for (int y = y0; y < y1; ++y) {
+        const int* noise = cur.data() + (size_t)(y - y0) * stride;
+        const Pixel* src = in[p].row(y);
+        Pixel* dst = out[p] + (size_t)y * ostride[p];
+        if (p == 0) {
+          for (int x = 0; x < pw; ++x) {
+            int v = src[x];
+            dst[x] = (Pixel)clip3(min_v, max_v,
+                                  v + round2(lut[v] * noise[x], shift));
+          }
+          continue;
+        }
+        const Pixel* luma = in[0].row(y << sy);
+        for (int x = 0; x < pw; ++x) {
+          int lx = x << sx;
+          int avg = luma[lx];
+          if (sx) avg = round2(avg + luma[std::min(lx + 1, width - 1)], 1);
+          int v = src[x];
+          int merged = avg;
+          if (!g.cfl) {
+            int combined = avg * g.luma_mult[p] + v * g.mult[p];
+            merged = clip3(0, pmax, (combined >> 6) +
+                                        g.offset[p] * (1 << (bitdepth - 8)));
+          }
+          dst[x] = (Pixel)clip3(min_v, max_v,
+                                v + round2(lut[merged] * noise[x], shift));
+        }
+      }
+    }
+  }
+};
+
+// Whether the film grain synthesis runs: as libdav1d decides it, where
+// some plane has scaling points. (A frame with chroma_scaling_from_luma,
+// clip_to_restricted_range and no luma points gets no noise but the
+// spec's clip; libdav1d leaves it as it was, and so does the port.)
+inline bool grain_applies(const FilmGrain& g) {
+  return g.apply && (g.num[0] || g.num[1] || g.num[2]);
+}
+
 // Decodes the stream's first frame into the caller's planes: samples of
 // type Pixel, strides in samples.
 template <typename Pixel>
 void decode_frame(Stream& st, Pixel* y, int ystride, Pixel* u, Pixel* v,
-                  int cstride) {
+                  int cstride, bool apply_grain) {
   std::unique_ptr<Decoder<Pixel>> dp(new Decoder<Pixel>());
   Decoder<Pixel>& d = *dp;
   d.seq = st.seq;
@@ -4069,6 +4415,17 @@ void decode_frame(Stream& st, Pixel* y, int ystride, Pixel* u, Pixel* v,
   st.res.intrabc_blocks = counts.intrabc;
   postfilter(d);
   int w = d.fh.width, h = d.fh.height;
+  if (apply_grain && grain_applies(d.fh.grain)) {
+    std::unique_ptr<GrainSynth> gs(
+        new GrainSynth(d.fh.grain, d.bitdepth, d.ssx, d.ssy, d.planes, w, h,
+                       d.seq.matrix));
+    Pixel* out[3] = {y, u, v};
+    int ostride[3] = {ystride, cstride, cstride};
+    int stripes = ((h + 1) / 2 + 15) / 16;
+    parallel_for(stripes,
+                 [&](int i) { gs->add_noise(i, d.cur, out, ostride); });
+    return;
+  }
   for (int i = 0; i < h; ++i)
     memcpy(y + (size_t)i * ystride, d.cur[0].row(i), w * sizeof(Pixel));
   if (!d.seq.mono) {
@@ -4093,6 +4450,8 @@ struct IkAv1dInfo {
   int32_t allow_sct, allow_intrabc, palette_blocks, intrabc_blocks;
   // the frame's in-loop filters: 1 deblocking, 2 CDEF, 4 loop restoration
   int32_t filters;
+  // the frame header's using_qmatrix and apply_grain
+  int32_t qmatrix, film_grain;
   char reason[120];
 };
 
@@ -4119,9 +4478,15 @@ static void fill(const Result& r, IkAv1dInfo* info) {
   info->palette_blocks = r.palette_blocks;
   info->intrabc_blocks = r.intrabc_blocks;
   info->filters = r.filters;
+  info->qmatrix = r.qmatrix;
+  info->film_grain = r.film_grain;
 }
 
 IK_EXPORT int ik_av1d_tables_size() { return (int)sizeof(Tables); }
+
+// The threads that tiles, CDEF's rows and film grain's stripes take: 0 for
+// one a core, else at most n.
+IK_EXPORT void ik_av1d_set_threads(int n) { g_threads = n; }
 
 IK_EXPORT int ik_av1d_set_tables(const void* blob, int size) {
   if (size != (int)sizeof(Tables)) return IK_AV1D_NO_TABLES;
@@ -4154,10 +4519,11 @@ IK_EXPORT int ik_av1d_probe(const uint8_t* data, size_t n, IkAv1dInfo* info) {
 // samples are uint8_t for an 8-bit stream and uint16_t for a 10- or
 // 12-bit one (the probe's bitdepth), strides in samples; `bitdepth` is the
 // depth the caller allocated for, and a stream of another answers
-// IK_AV1D_BAD.
+// IK_AV1D_BAD. `apply_grain` 0 leaves the film grain out (libdav1d's
+// setting of that name): the frame as reconstructed, for diagnostics.
 IK_EXPORT int ik_av1d_decode(const uint8_t* data, size_t n, int bitdepth,
                              void* y, int ystride, void* u, void* v,
-                             int cstride, IkAv1dInfo* info) {
+                             int cstride, int apply_grain, IkAv1dInfo* info) {
   memset(info, 0, sizeof(*info));
   if (!g_ready) return IK_AV1D_NO_TABLES;
   try {
@@ -4166,10 +4532,10 @@ IK_EXPORT int ik_av1d_decode(const uint8_t* data, size_t n, int bitdepth,
     if (st.seq.bitdepth != bitdepth) bad("bit depth differs from the probe's");
     if (bitdepth == 8)
       decode_frame<uint8_t>(st, (uint8_t*)y, ystride, (uint8_t*)u,
-                            (uint8_t*)v, cstride);
+                            (uint8_t*)v, cstride, apply_grain != 0);
     else
       decode_frame<uint16_t>(st, (uint16_t*)y, ystride, (uint16_t*)u,
-                             (uint16_t*)v, cstride);
+                             (uint16_t*)v, cstride, apply_grain != 0);
     fill(st.res, info);
     return IK_AV1D_OK;
   } catch (const Fail& f) {

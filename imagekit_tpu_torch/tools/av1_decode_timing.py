@@ -13,8 +13,12 @@ the fixture directory (``tests/fixtures/avif`` of the first ROOT by
 default) is parsed, decoded once to warm up, then ``N`` times (5), and the
 least time of the colour item's decode is kept, in ms, beside the stream's
 bit depth and layout; a file that tree does not decode is recorded as its
-error. The host needs no card. Prints one JSON line a ROOT, then one line
-that joins them, and writes the joined object to ``--out`` when given.
+error. Where a tree's decoder reports film grain (``StreamInfo.film_grain``)
+the file is also timed with the grain left out (``apply_grain=False``) and
+both on one thread (``_set_threads(1)``): the synthesis' own cost, on the
+stripes' threads and alone. The host needs no card. Prints one JSON line
+a ROOT, then one line that joins them, and writes the joined object to
+``--out`` when given.
 """
 
 from __future__ import annotations
@@ -33,6 +37,13 @@ from imagekit_tpu_torch.codecs.avif_native import parse_container
 from imagekit_tpu_torch.codecs.native import av1_dec_abi
 
 av1_dec_abi.load()
+
+
+def decode(obu, grain):
+    y, u, v, info = av1_dec_abi._decode_samples(obu, apply_grain=grain)
+    return [av1_dec_abi.to_8bit(p, info.bitdepth) for p in (y, u, v)]
+
+
 out = {}
 for path in sorted(glob.glob(os.path.join(fixtures, "*.avif"))):
     name = os.path.basename(path)[:-5]
@@ -46,6 +57,20 @@ for path in sorted(glob.glob(os.path.join(fixtures, "*.avif"))):
             times.append(time.perf_counter() - t0)
         out[name] = {"ms": min(times) * 1e3, "bitdepth": head.bitdepth,
                      "layout": head.layout}
+        if getattr(head, "film_grain", False):
+            for key, grain, threads in (
+                    ("no_grain_ms", False, 0), ("one_thread_ms", True, 1),
+                    ("one_thread_no_grain_ms", False, 1)):
+                av1_dec_abi._set_threads(threads)
+                try:
+                    times = []
+                    for _ in range(repeat):
+                        t0 = time.perf_counter()
+                        decode(obu, grain)
+                        times.append(time.perf_counter() - t0)
+                finally:
+                    av1_dec_abi._set_threads(0)
+                out[name][key] = min(times) * 1e3
     except Exception as e:
         out[name] = {"error": f"{type(e).__name__}: {e}"}
 print(json.dumps(out))

@@ -55,6 +55,30 @@ counter]`` (N + 1 entries, the layout of ``av1_tables.npz``):
   libdav1d's table of (dc, ac) pairs, found by the 8-bit row it starts
   with, then each row must be found whole in libaom's image, and its
   first and last entries must be the specification's.
+- ``quantizer_matrix`` (15 levels x 2 (luma, chroma) x 3344, uint8): the
+  specification's Quantizer_Matrix, the decoder's weights of each
+  coefficient's quantizer step (5 fractional bits). Not retyped: found
+  in libaom's image as the inverse weights it dequantises with
+  (``iwt_matrix_ref``), by the level-0 luma 4x4 matrix it starts with
+  (the first sixteen entries, which must be the specification's), then
+  found whole in SVT-AV1's (``libSvtAv1Enc.so.1``), whose encoder
+  reconstructs with the same table. libdav1d keeps its matrices
+  compressed (a triangle of each and the transposes left out), so it
+  holds no copy to compare. The last entry must be the specification's
+  32; every square matrix must be symmetric and each wide matrix the
+  transpose of its tall twin, which places every offset of ``qm_offset``.
+- ``qm_offset`` (19, int16): Qm_Offset, where each transform size's
+  matrix starts in a level's 3344 entries, as the specification gives
+  it: the sizes in the order of TX_4X4 .. TX_64X16, each of a side of
+  64 on the matrix of its side cut to 32 (libaom's
+  ``av1_get_adjusted_tx_size``). No library keeps it as a table (libaom
+  walks the sizes when it sets its pointers up); it is held by the
+  matrices' symmetries above and by summing to 3344.
+- ``gaussian_sequence`` (2048, int16): Gaussian_Sequence, the film grain
+  synthesis' white noise. Not retyped: read from libdav1d's image (int16)
+  by its first eight entries, which must be the specification's, as must
+  its last; then found whole in libaom's and SVT-AV1's (as int32) and in
+  librav1e's (int16).
 
 Run from the repository root: ``python tests/fixtures/make_av1_dec_tables.py``.
 """
@@ -241,6 +265,18 @@ FILTER_INTRA_ANCHOR = [[-6, 10, 0, 0, 0, 12, 0], [-5, 2, 10, 0, 0, 9, 0],
                        [-3, 1, 1, 10, 0, 7, 0], [-3, 1, 1, 2, 10, 5, 0],
                        [-4, 6, 0, 0, 0, 2, 12], [-3, 2, 6, 0, 0, 2, 9],
                        [-3, 2, 2, 6, 0, 2, 7], [-3, 1, 2, 2, 6, 3, 5]]
+# the specification's first sixteen entries of Quantizer_Matrix (level 0,
+# luma, 4x4) and its last (level 14, chroma, the last of 32x8)
+QM_FIRST = [32, 43, 73, 97, 43, 67, 94, 110, 73, 94, 137, 150, 97, 110,
+            150, 200]
+QM_LAST = 32
+QM_SIZE = 3344
+# Qm_Offset of the specification, TX_4X4 .. TX_64X16
+QM_OFFSET = [0, 16, 80, 336, 336, 1360, 1392, 1424, 1552, 1680, 2192, 336,
+             336, 2704, 2768, 2832, 3088, 1680, 2192]
+# the specification's first eight and last entries of Gaussian_Sequence
+GAUSS_FIRST = [56, 568, -180, 172, 124, -84, 172, -64]
+GAUSS_LAST = -484
 # (width, height) of the rectangular transforms
 RECT = [(4, 8), (8, 4), (8, 16), (16, 8), (16, 32), (32, 16), (4, 16),
         (16, 4), (8, 32), (32, 8)]
@@ -299,6 +335,64 @@ def ctx_offset_full(w: int, h: int) -> np.ndarray:
     aw, ah = min(w, 32), min(h, 32)
     return np.array([[t[min(r, 4), min(c, 4)] for c in range(aw)]
                      for r in range(ah)], np.int8).reshape(-1)
+
+
+def quantizer_matrix(img: dict):
+    """(Quantizer_Matrix, Qm_Offset): the matrices read from libaom's
+    image and checked as the docstring says."""
+    first = np.array(QM_FIRST, np.uint8).tobytes()
+    at = img["aom"].find(first)
+    if at < 0 or img["aom"].find(first, at + 1) >= 0:
+        fail("quantizer matrices: not found once in libaom")
+    raw = img["aom"][at:at + 15 * 2 * QM_SIZE]
+    if raw not in img["svt"]:
+        fail("quantizer matrices: libaom's are not in SVT-AV1")
+    qm = np.frombuffer(raw, np.uint8).reshape(15, 2, QM_SIZE)
+    if int(qm[-1, -1, -1]) != QM_LAST:
+        fail("quantizer matrices: the last entry is not the specification's")
+    # each size not of a 64 side holds its own matrix, in order
+    at = 0
+    for t, (w, h) in enumerate(TX_DIMS):
+        if max(w, h) == 64:
+            continue
+        if QM_OFFSET[t] != at:
+            fail(f"Qm_Offset of {w}x{h}: {QM_OFFSET[t]}, the sizes say {at}")
+        at += w * h
+    if at != QM_SIZE:
+        fail(f"Qm_Offset: the matrices take {at} entries, not {QM_SIZE}")
+
+    def matrix(level, chroma, t):
+        w, h = (min(v, 32) for v in TX_DIMS[t])
+        return qm[level, chroma, QM_OFFSET[t]:QM_OFFSET[t] + w * h].reshape(
+            h, w)
+
+    for level in range(15):
+        for chroma in range(2):
+            for t, (w, h) in enumerate(TX_DIMS):
+                m = matrix(level, chroma, t)
+                if w == h and not np.array_equal(m, m.T):
+                    fail(f"quantizer matrix {level}/{chroma} {w}x{h}: "
+                         "not symmetric")
+                if w < h and not np.array_equal(
+                        m, matrix(level, chroma, TX_DIMS.index((h, w))).T):
+                    fail(f"quantizer matrix {level}/{chroma} {w}x{h}: not "
+                         f"the transpose of {h}x{w}'s")
+    return qm.copy(), np.array(QM_OFFSET, np.int16)
+
+
+def gaussian_sequence(img: dict) -> np.ndarray:
+    """Gaussian_Sequence, read from libdav1d and found in the others."""
+    first = np.array(GAUSS_FIRST, "<i2").tobytes()
+    at = img["dav1d"].find(first)
+    if at < 0:
+        fail("gaussian sequence: not in libdav1d")
+    g = np.frombuffer(img["dav1d"][at:at + 4096], "<i2").copy()
+    if int(g[-1]) != GAUSS_LAST:
+        fail("gaussian sequence: the last entry is not the specification's")
+    for lib, dt in (("aom", "<i4"), ("svt", "<i4"), ("rav1e", "<i2")):
+        if g.astype(dt).tobytes() not in img[lib]:
+            fail(f"gaussian sequence: not whole in {lib}")
+    return g.astype(np.int16)
 
 
 def main() -> int:
@@ -426,7 +520,12 @@ def main() -> int:
         np.int16)
     print("dc/ac_qlookup_hbd     found in ['aom', 'dav1d']")
 
-    np.savez(OUT, **out)
+    out["quantizer_matrix"], out["qm_offset"] = quantizer_matrix(img)
+    print("quantizer_matrix      found in ['aom', 'svt']")
+    out["gaussian_sequence"] = gaussian_sequence(img)
+    print("gaussian_sequence     found in ['aom', 'dav1d', 'rav1e', 'svt']")
+
+    np.savez_compressed(OUT, **out)
     print("wrote", os.path.relpath(OUT, ROOT))
     return 0
 

@@ -21,7 +21,13 @@ made here, all 1920x1080:
 - high bit depth through libavif (:func:`encode_avif_hbd`, the recipe of
   ``tests/test_avif_native.py::_encode_avif_10bit`` with the depth, the
   layout and the quantizer as arguments): a 10-bit 4:2:0 and a 12-bit
-  4:4:4 picture (:func:`hbd_planes`).
+  4:4:4 picture (:func:`hbd_planes`);
+- quantizer matrices and film grain: 4:2:0 with libaom's still-image
+  tuning (``tune=iq``, which turns quantizer matrices on; at quality 40,
+  where its file is as large as the others at 60), 4:2:0 with
+  libaom's film grain test vector 4 (auto-regressive lag 3, overlap on,
+  nine scaling points a plane), and a 10-bit 4:4:4 picture through
+  libavif with both (``enable-qm``, test vector 10).
 
 Each entry of the JSON holds the file's name, the decoded width and
 height, and the digest of the Y, U and V planes (then the alpha item's Y
@@ -60,7 +66,15 @@ RECIPES = {
     "1080p_bt709": (2704, {}, False, 1),
     "1080p_cdef": (2705, {"advanced": [("enable-cdef", "1")]}, False, None),
     "1080p_speed4_lr": (2706, {"speed": 4}, False, None),
+    "1080p_qm": (2713, {"quality": 40, "advanced": [("tune", "iq")]}, False,
+                 None),
+    "1080p_grain": (2714, {"advanced": [("film-grain-test", "4")]}, False,
+                    None),
 }
+#: the files whose frame headers must use quantizer matrices, film grain
+#: (recorded as ``qmatrix`` / ``film_grain`` in each entry of the table)
+QM_FILES = {"1080p_qm", "1080p_10bit_grain_444"}
+GRAIN_FILES = {"1080p_grain", "1080p_10bit_grain_444"}
 #: screen content: name -> (picture, seed, Pillow's keywords (none: its
 #: defaults), alpha)
 SCREEN = {
@@ -74,6 +88,8 @@ SCREEN = {
 HBD = {
     "1080p_10bit_420": (2711, 10, "420", 24, 6, {"enable-cdef": "1"}),
     "1080p_12bit_444": (2712, 12, "444", 24, 4, None),
+    "1080p_10bit_grain_444": (2715, 10, "444", 24, 6,
+                              {"enable-qm": "1", "film-grain-test": "10"}),
 }
 
 
@@ -195,7 +211,8 @@ def encode_avif_hbd(y, u, v, depth: int, layout: str, quantizer: int,
                     speed: int = 8, options=None):
     """A 10- or 12-bit AVIF through libavif's C API (libaom inside), over
     the pinned ABI of ``tests/test_avif_native.py::_encode_avif_10bit``:
-    ``layout`` "420", "422" or "444", limited range, BT.601 tags,
+    ``layout`` "420", "422", "444" or "400" (monochrome: ``u`` and ``v``
+    unused), ``depth`` 8 too (uint8 rows), limited range, BT.601 tags,
     ``quantizer`` 0..63 for both bounds, ``options`` libaom's
     codec-specific keys. None where libavif is not installed."""
     try:
@@ -217,8 +234,8 @@ def encode_avif_hbd(y, u, v, depth: int, layout: str, quantizer: int,
         _fields_ = [("data", ctypes.c_void_p), ("size", ctypes.c_size_t)]
 
     h, w = y.shape
-    img = lib.avifImageCreate(w, h, depth, {"444": 1, "422": 2, "420": 3}[
-        layout])
+    img = lib.avifImageCreate(w, h, depth, {"444": 1, "422": 2, "420": 3,
+                                            "400": 4}[layout])
     enc = None
     try:
         ctypes.c_int32.from_address(img + 16).value = 0  # limited range
@@ -228,12 +245,14 @@ def encode_avif_hbd(y, u, v, depth: int, layout: str, quantizer: int,
             return None
         planes = (ctypes.c_void_p * 3).from_address(img + 24)
         rb = (ctypes.c_uint32 * 3).from_address(img + 48)
-        for i, arr in ((0, y), (1, u), (2, v)):
-            src = np.ascontiguousarray(arr, np.uint16)
+        size = 1 if depth == 8 else 2
+        for i, arr in ((0, y), (1, u), (2, v))[:1 if layout == "400" else 3]:
+            src = np.ascontiguousarray(arr, np.uint8 if size == 1
+                                       else np.uint16)
             ph, pw = src.shape
             for row in range(ph):
                 ctypes.memmove(planes[i] + row * rb[i],
-                               src.ctypes.data + row * pw * 2, pw * 2)
+                               src.ctypes.data + row * pw * size, pw * size)
         enc = lib.avifEncoderCreate()
         # maxThreads, speed, min and max quantizer
         for off, val in ((4, 1), (8, speed), (24, quantizer),
@@ -254,12 +273,14 @@ def encode_avif_hbd(y, u, v, depth: int, layout: str, quantizer: int,
         lib.avifImageDestroy(img)
 
 
-def dav1d_samples(obu: bytes):
+def dav1d_samples(obu: bytes, apply_grain: bool = True):
     """libdav1d's picture of ``obu`` at its own depth -> (y, u | None,
     v | None, bitdepth): uint16 planes for 10 and 12 bits, read with the
     reference's ``_PIC_*`` offsets of ``Dav1dPicture`` (the reference's
     ``_decode_obu`` rounds them to 8 bits). None where libdav1d is
-    absent or fails."""
+    absent or fails. ``apply_grain`` False turns libdav1d's setting of
+    that name off (byte 8 of ``Dav1dSettings``): the picture before its
+    film grain."""
     from imagekit_tpu.codecs import avif_native as ref_avif
 
     lib = ref_avif._dav1d()
@@ -267,6 +288,7 @@ def dav1d_samples(obu: bytes):
         return None
     settings = ctypes.create_string_buffer(256)
     lib.dav1d_default_settings(settings)
+    struct.pack_into("<i", settings, 8, int(apply_grain))
     ctx = ctypes.c_void_p()
     if lib.dav1d_open(ctypes.byref(ctx), settings) != 0:
         return None
@@ -364,7 +386,7 @@ def main() -> int:
             img = chip_smoke.ramp_alpha(img)
         buf = io.BytesIO()
         Image.fromarray(img, "RGBA" if alpha else "RGB").save(
-            buf, "AVIF", quality=QUALITY, **kw)
+            buf, "AVIF", **{"quality": QUALITY, **kw})
         data = buf.getvalue()
         if matrix is not None:
             data = retag_matrix(data, matrix)
@@ -391,13 +413,21 @@ def main() -> int:
         if data is None:
             raise SystemExit("ABORT: libavif's high-bit-depth encode failed")
         files[name] = data
+    for name, data in files.items():
+        head = av1_dec_abi.probe(ref_avif.parse_container(data).obu)
+        if head.qmatrix != (name in QM_FILES) or \
+                head.film_grain != (name in GRAIN_FILES):
+            raise SystemExit(f"ABORT: {name}'s frame header: quantizer "
+                             f"matrices {head.qmatrix}, film grain "
+                             f"{head.film_grain}")
     table = {}
     for name, data in files.items():
         with open(os.path.join(OUT, f"{name}.avif"), "wb") as f:
             f.write(data)
         w, h, digest = planes_digest(data)
         table[name] = {"file": f"{name}.avif", "width": w, "height": h,
-                       "sha256": digest}
+                       "sha256": digest, "qmatrix": name in QM_FILES,
+                       "film_grain": name in GRAIN_FILES}
         if name in HBD:
             table[name]["sha256_samples"] = samples_digest(data)
         print(f"{name}: {len(data) / 1e3:.1f} kB, {w}x{h}")

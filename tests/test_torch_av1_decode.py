@@ -10,10 +10,12 @@ Pillow's AVIF writer (libavif with libaom) over sweeps of quality, speed
 encoder, and true monochrome streams as the JAX package's own tests make
 them (``tests/test_avif_native.py::_mono_avif``); the sweeps of palette
 blocks, intra block copy and 10- and 12-bit streams are in
-``test_torch_av1_screen_hbd.py``. The streams that use a tool the decoder
-does not build answer ``Av1NotPorted`` (the app's 501): film grain and
-quantizer matrices from Pillow's writer; superres and quantizer matrices
-from headers written here bit by bit. Hostile streams (truncations and
+``test_torch_av1_screen_hbd.py``, those of quantizer matrices and film
+grain in ``test_torch_av1_qm_grain.py``. A stream that uses a tool the
+decoder does not build answers ``Av1NotPorted`` (the app's 501): superres,
+from headers written here bit by bit; a quantizer-matrix and a film-grain
+stream from Pillow's writer, which answered 501 before the decoder built
+them, decode exactly. Hostile streams (truncations and
 byte flips of an own, a palette, an intrabc and a 10-bit stream, and an
 intrabc vector that reaches outside its tile) raise ValueError or decode,
 and never crash (the sanitizer run of the same cases is in
@@ -230,13 +232,18 @@ def test_monochrome(full_range):
 
 @needs_oracles
 @pytest.mark.parametrize("case, advanced, reason", [
-    ("film grain", [("denoise-noise-level", "50")], "film grain"),
+    ("film grain", [("film-grain-test", "4")], "film grain"),
     ("quantizer matrices", [("enable-qm", "1")], "quantizer matrices"),
 ])
 def test_remainder_from_pillow(case, advanced, reason):
+    """Film grain and quantizer matrices answered 501 before the decoder
+    built them: both decode to libdav1d's planes, and the header says
+    which tool the stream uses."""
     data = pillow_avif(synth(256, 192, seed=9), quality=60, advanced=advanced)
-    with pytest.raises(av1_dec_abi.Av1NotPorted, match=reason):
-        av1_dec_abi.decode(ref_avif.parse_container(data).obu)
+    assert_file_equal(data, case)
+    info = av1_dec_abi.probe(ref_avif.parse_container(data).obu)
+    assert (info.film_grain, info.qmatrix) == (reason == "film grain",
+                                               reason != "film grain")
 
 
 def obu(kind: int, payload: bytes) -> bytes:
@@ -301,12 +308,13 @@ def frame_header(allow_sct: int = 0, allow_intrabc: int = 0,
 
 
 def remainder_avif(w: int = 64, h: int = 48) -> bytes:
-    """A whole AVIF file whose stream uses quantizer matrices: a source of
-    the remainder, which the port answers with 501 (the container is the
+    """A whole AVIF file whose stream uses superres: a source of the
+    remainder, which the port answers with 501 (the container is the
     port's first-party writer's)."""
     from imagekit_tpu_torch.codecs.av1_container import write_avif
 
-    return write_avif(seq_header(w, h) + frame_header(qm=1), w, h)
+    return write_avif(seq_header(w, h, superres=1)
+                      + frame_header(use_superres=1), w, h)
 
 
 def intrabc_outside_tile() -> bytes:
@@ -348,12 +356,13 @@ def intrabc_outside_tile() -> bytes:
      "superres"),
     (lambda: seq_header() + frame_header(allow_sct=1, allow_intrabc=1),
      None),
-    (lambda: seq_header() + frame_header(qm=1), "quantizer matrices"),
+    (lambda: seq_header() + frame_header(qm=1), None),
 ], ids=["10-bit", "superres", "intrabc", "quantizer matrices"])
 def test_remainder_from_headers(stream, reason):
     """Tools gated at the headers answer before any tile decodes; 10-bit
-    streams and intra block copy are built: their headers probe, and
-    these streams, which carry no tile, do not decode (as in libdav1d)."""
+    streams, intra block copy and quantizer matrices are built: their
+    headers probe, and these streams, which carry no tile, do not decode
+    (as in libdav1d)."""
     if reason is not None:
         with pytest.raises(av1_dec_abi.Av1NotPorted, match=reason):
             av1_dec_abi.probe(stream())
@@ -361,8 +370,10 @@ def test_remainder_from_headers(stream, reason):
             av1_dec_abi.decode(stream())
         return
     head = av1_dec_abi.probe(stream())
-    assert (head.bitdepth, head.screen_content, head.intrabc) in (
-        (10, False, False), (8, True, True))
+    assert (head.bitdepth, head.screen_content, head.intrabc,
+            head.qmatrix) in ((10, False, False, False),
+                              (8, True, True, False),
+                              (8, False, False, True))
     with pytest.raises(ValueError, match="missing tiles"):
         av1_dec_abi.decode(stream())
     if ref_avif.decode_available():

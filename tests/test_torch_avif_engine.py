@@ -22,7 +22,7 @@ engine.
 - The HTTP app: a signed ``/img?...&f=avif`` answers 200 ``image/avif``
   with an ETag and a ``.avif`` disk-cache entry, then hits that entry; an
   AVIF source and a 10-bit one are served (200) and one of the AV1
-  decoder's remainder (quantizer matrices) answers 501 naming queue 1
+  decoder's remainder (superres) answers 501 naming queue 1
   item 8.
 """
 
@@ -379,6 +379,6 @@ def test_http_avif_source_answers_501(tmp_path):
                                              "sig": sign(params, SECRET)})
         text = await r.text()
         assert r.status == 501, text
-        assert "queue 1 item 8" in text and "quantizer matrices" in text
+        assert "queue 1 item 8" in text and "superres" in text
 
     _serve(tmp_path, fn)

@@ -204,11 +204,10 @@ REMAINDER = {
     "palette": (_palette, None),
     "intrabc": (_intrabc, None),
     "film_grain": (lambda: pillow_avif(synth(256, 192, seed=9), quality=60,
-                                       advanced=[("denoise-noise-level",
-                                                  "50")]), "film grain"),
+                                       advanced=[("film-grain-test",
+                                                  "4")]), None),
     "qm": (lambda: pillow_avif(synth(128, 96), quality=60,
-                               advanced=[("enable-qm", "1")]),
-           "quantizer matrices"),
+                               advanced=[("enable-qm", "1")]), None),
     "premultiplied": (_premultiplied, "premultiplied"),
     "10bit": (lambda: _ten_bit(), None),
     "identity_matrix": (lambda: _patch_colr_matrix(
@@ -220,12 +219,11 @@ REMAINDER = {
 @needs_oracles
 @pytest.mark.parametrize("name", sorted(REMAINDER))
 def test_the_remainder_answers_501(name):
-    """What the decoder does not build (film grain, quantizer matrices),
-    and what the reference's native path hands to Pillow's libavif, is
+    """What the reference's native path hands to Pillow's libavif is
     NotPortedError naming queue 1 item 8, where the reference serves it;
-    palette blocks, intra block copy and 10-bit streams, which answered
-    501 before the decoder built them, decode as the reference decodes
-    them."""
+    palette blocks, intra block copy, 10-bit streams, film grain and
+    quantizer matrices, which answered 501 before the decoder built them,
+    decode as the reference decodes them."""
     make, reason = REMAINDER[name]
     data = make()
     arr, _ = ref_codecs.decode_bytes(data)
@@ -529,18 +527,17 @@ def test_img_and_upload_serve_as_the_reference(monkeypatch, tmp_path, name):
 @needs_oracles
 def test_the_remainder_and_hostile_files_over_http(tmp_path):
     """A palette AVIF is served through both apps alike (it answered 501
-    before the decoder built palettes); one with quantizer matrices
-    answers 501 through the port (the reference decodes it with
-    libdav1d); a truncated one 400 through both apps, in the same
-    words."""
+    before the decoder built palettes); a premultiplied one answers 501
+    through the port (the reference serves it through Pillow's libavif);
+    a truncated one 400 through both apps, in the same words."""
     good = pillow_avif(synth(64, 48), quality=60)
     sources = {"pal": _palette(), "cut": good[:-20],
-               "qm": REMAINDER["qm"][0]()}
+               "prem": REMAINDER["premultiplied"][0]()}
 
     async def fn(client):
         return [await _img(client, url=_url("pal"), w=32),
                 await _img(client, url=_url("cut"), w=32),
-                await _img(client, url=_url("qm"), w=32)]
+                await _img(client, url=_url("prem"), w=32)]
 
     ref = _serve(tmp_path, "ref", sources, fn)
     port = _serve(tmp_path, "port", sources, fn)
@@ -551,7 +548,7 @@ def test_the_remainder_and_hostile_files_over_http(tmp_path):
     assert port[1] == ref[1] and port[1][0] == 400
     assert ref[2][0] == 200 and port[2][0] == 501
     assert b"queue 1 item 8" in port[2][2]
-    assert b"quantizer matrices" in port[2][2]
+    assert b"premultiplied" in port[2][2]
 
 
 def test_fetch_probes_avif_dimensions():
@@ -614,6 +611,9 @@ def test_committed_fixtures_hold_the_port_to_libdav1d(name):
     data = (FIXTURES / entry["file"]).read_bytes()
     info = avif_native.parse_container(data)
     assert (info.width, info.height) == (entry["width"], entry["height"])
+    head = av1_dec_abi.probe(info.obu)
+    assert (head.qmatrix, head.film_grain) == (entry["qmatrix"],
+                                               entry["film_grain"])
     ours = hashlib.sha256()
     for p in av1_dec_abi.decode(info.obu)[:3]:
         ours.update(p.tobytes())

@@ -1681,7 +1681,8 @@ def test_k2_f32_entry_for_bt709_batches_matches_plain(alpha):
 @needs_card
 def test_av1_decoder_gives_libdav1d_planes_on_the_cards_host():
     """The committed AVIFs of ``tests/fixtures/avif/`` (palette blocks,
-    intra block copy and 10- and 12-bit files among them) decode on the
+    intra block copy, 10- and 12-bit files, quantizer matrices and film
+    grain among them) decode on the
     card's host (which has no libdav1d) to the planes whose SHA-256
     libdav1d gave where they were made, the raw 16-bit ones too; then one
     through the engine on the card."""

@@ -27,9 +27,11 @@ a buffer of its exact size so that a read past it is caught.
 
 The port's AV1 decoder (``av1_decode.cpp``) runs under the same sanitizers
 on real streams (Pillow's and the port's encoders: 4:2:0, 4:2:2, 4:4:4,
-loop restoration, CDEF, alpha, odd sizes), whose planes must equal the
-normal build's, and on hostile ones (truncations, byte flips, garbage,
-headers that claim the largest frame), which decode or are refused.
+loop restoration, CDEF, alpha, odd sizes, quantizer matrices and film
+grain at 8 and 10 bits), whose planes must equal the normal build's, and
+on hostile ones (truncations, byte flips, garbage, headers that claim the
+largest frame, grain params libdav1d refuses), which decode or are
+refused.
 """
 
 import json
@@ -740,6 +742,25 @@ _AV1 = textwrap.dedent("""
 """)
 
 
+#: the QM and grain cases of the AV1 harness, by the names it gives them
+QM_GRAIN_CASES = ("pillow_qm_420", "pillow_grain_444", "pillow_grain_420",
+                  "hbd_qm_grain_420", "hbd_qm_grain_444")
+
+
+def _qm_grain_writers() -> bool:
+    """Pillow's AVIF writer and libavif, which write the QM and grain
+    cases."""
+    import ctypes
+
+    from tests.test_torch_av1_decode import _have_pillow_avif
+
+    try:
+        ctypes.CDLL("libavif.so.15")
+    except OSError:
+        return False
+    return _have_pillow_avif()
+
+
 def _av1_cases():
     """(good streams with their planes' digest from the normal build,
     hostile streams)."""
@@ -770,6 +791,24 @@ def _av1_cases():
         files[name] = buf.getvalue()
     rgba = np.dstack([synth(48, 32), np.full((32, 48), 100, np.uint8)])
     files["own_alpha"] = avif_encode.encode_rgb(rgba, 70)
+    # quantizer matrices and film grain: 4:2:0 and 4:4:4, 8 and 10 bits,
+    # where their writers are at hand (the test asserts these cases then)
+    if _qm_grain_writers():
+        from tests.fixtures.make_avif_sources import encode_avif_hbd
+        from tests.test_torch_av1_screen_hbd import hbd_picture
+
+        for name, sub, adv in (
+                ("pillow_qm_420", "4:2:0", [("tune", "iq")]),
+                ("pillow_grain_444", "4:4:4", [("film-grain-test", "16")]),
+                ("pillow_grain_420", "4:2:0", [("film-grain-test", "10")])):
+            buf = io.BytesIO()
+            Image.fromarray(synth(75, 53, seed=7)).save(
+                buf, "AVIF", quality=50, subsampling=sub, advanced=adv)
+            files[name] = buf.getvalue()
+        for layout in ("420", "444"):
+            files[f"hbd_qm_grain_{layout}"] = encode_avif_hbd(
+                *hbd_picture(67, 45, 10, layout, 3), 10, layout, 30, 6,
+                {"enable-qm": "1", "film-grain-test": "3"})
     good = {}
     # palette blocks, intra block copy and a 10-bit frame, where their
     # writers are at hand
@@ -793,6 +832,18 @@ def _av1_cases():
                     digest.update(p.tobytes())
             good[name + item] = (stream, digest.hexdigest())
     hostile = {f"h{i}": s for i, s in enumerate(hostile_streams())}
+    if _qm_grain_writers():
+        # grain params libdav1d refuses, and byte flips over a stream's
+        from tests.test_torch_av1_qm_grain import hostile_grain, with_grain
+
+        base = parse_container(files["pillow_grain_420"]).obu
+        for i, g in enumerate(hostile_grain().values()):
+            hostile[f"grain{i}"] = with_grain(base, g)
+        rng = np.random.default_rng(9)
+        for i in range(12):
+            m = bytearray(base)
+            m[int(rng.integers(8, 40))] ^= int(rng.integers(1, 256))
+            hostile[f"grain_flip{i}"] = bytes(m)
     # a header that claims 65536 x 65536 with no tile data
     hostile["huge"] = seq_header(65535, 65535)[:0] + bytes([0x0A, 0x0B, 0x00,
                                                            0x00, 0x00, 0x24,
@@ -837,6 +888,12 @@ def test_av1_decoder_under_address_sanitizer(tmp_path):
     assert set(res) == set(cases)
     assert res["huge"] == "400"
     assert res["h4"] == "400"  # hostile_streams' intrabc vector off its tile
+    if not _qm_grain_writers():
+        pytest.skip("Pillow's AVIF writer or libavif unavailable: the QM "
+                    "and grain cases were not written")
+    assert all(name in good for name in QM_GRAIN_CASES)
+    refused = [n for n in res if n.startswith("grain") and "flip" not in n]
+    assert refused and all(res[n] == "400" for n in refused), refused
 
 
 if __name__ == "__main__":

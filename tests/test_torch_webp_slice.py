@@ -368,8 +368,8 @@ def test_yuv_batches_split_by_output_format():
 @pytest.mark.parametrize("case", ["rgba_lossless", "vp8x_alph", "avif_src",
                                   "avif_out", "no_resize"])
 def test_webp_requests_outside_the_slice_are_not_ported(case):
-    """An AVIF source of the decoder's remainder (a stream with quantizer
-    matrices) is what is left; WebPs with alpha (the plain RGB
+    """An AVIF source of the decoder's remainder (a stream with superres)
+    is what is left; WebPs with alpha (the plain RGB
     head), a request with no resize and AVIF output (the YUV head and the
     first-party AV1 encoder), once here, are served."""
     fmt, w, item = ImageFormat.webp, 32, "queue 1 item 9"
