@@ -5671,6 +5671,216 @@ def phase_avif_sources(card: str) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the AVIFs the reference hands to Pillow
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def pillow_avif_sources() -> dict:
+    """Phase 28's committed AVIFs (``tests/fixtures/make_avif_sources.py
+    --pillow``: libavif 0.11.1's writer, which the card's machine lacks,
+    as Pillow and libavif themselves) with the SHA-256 of the array that
+    Pillow 12.1's libavif 1.3.0 decodes from each, taken where they were
+    made: name -> (bytes, entry)."""
+    with open(os.path.join(AVIF_FIXTURES, "pillow_arrays.json")) as f:
+        table = json.load(f)
+    out = {}
+    for name, entry in table.items():
+        with open(os.path.join(AVIF_FIXTURES, entry["file"]), "rb") as f:
+            out[name] = (f.read(), entry)
+    return out
+
+
+def pillow_avif_case(data: bytes) -> dict:
+    """The port's decode of one file on the host (``avif_libavif``): the
+    digest of its array, the whole decode's ms alone (the least of three,
+    the cells and the colour step on threads), and the colour step's
+    (``avif_yuv_rgb.convert`` on the decoded planes) threaded and on one
+    thread."""
+    import hashlib
+
+    from imagekit_tpu_torch.codecs import avif_libavif
+    from imagekit_tpu_torch.codecs.native import avif_yuv_rgb
+
+    def least(fn):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append(time.perf_counter() - t0)
+        return out, min(times) * 1e3
+
+    arr, decode_ms = least(lambda: avif_libavif.decode_pillow_rgb(data))
+    p = avif_libavif.planes_of(data)
+    colour = {}
+    for threads in (0, 1):
+        _, colour[threads] = least(lambda: avif_yuv_rgb.convert(
+            p.y, p.u, p.v, p.alpha, p.depth, p.layout, p.full_range,
+            p.matrix, p.primaries, p.premultiplied, threads))
+    return {"sha256": hashlib.sha256(arr.tobytes()).hexdigest(),
+            "mode": "RGBA" if arr.shape[2] == 4 else "RGB",
+            "shape": arr.shape, "decode_ms": decode_ms,
+            "yuv_rgb_ms": colour[0], "yuv_rgb_one_thread_ms": colour[1],
+            "depth": p.depth, "layout": p.layout, "matrix": p.matrix,
+            "bytes": len(data)}
+
+
+def k2_pixels_case(call, head: str, what: str) -> dict:
+    """K2 at a captured RGB-head batch: ``rgb_resize`` (``head`` "yuv" or
+    "jpg": ``resample_rgb_yuv_batch`` / ``resample_rgb_jpeg_batch``'s
+    inputs) or ``rgba_resize`` ("flat": ``resample_bucketed_flat``'s)
+    against its plain version on the same inputs, timed, with the einsum
+    yardstick (one fp32 einsum a channel) and the bound."""
+    from imagekit_tpu_torch.ops import resize_strip
+    from imagekit_tpu_torch.ops.resize_strip import band_table, resize_tables
+
+    args, kw, _ = call
+    if head == "flat":
+        x, wv, wh, vidx, hidx, ch = args[:6]
+    else:
+        x, (wv, wh), vidx, hidx = args[:4]
+        ch = 3
+    from imagekit_tpu_torch.ops.color import on_device, tables_on
+
+    x, wv, wh, vidx, hidx = on_device((x, wv, wh, vidx, hidx), "cuda")
+    tabs = kw.get("bands")
+    tabs = (resize_tables(wv, wh) if tabs is None
+            else tables_on(tabs, torch.device("cuda")))
+    entry = resize_strip.rgba_resize if ch == 4 else resize_strip.rgb_resize
+    plain_fn = (resize_strip.rgba_resize_plain if ch == 4
+                else resize_strip.rgb_resize_plain)
+    fn = lambda: entry(x, wv, wh, vidx, hidx, bands=tabs)
+    plain = lambda: plain_fn(x, wv, wh, vidx, hidx)
+    counter = "LAUNCHES_RGBA" if ch == 4 else "LAUNCHES"
+    before = getattr(resize_strip, counter)
+    got = fn()
+    torch.cuda.synchronize()
+    if getattr(resize_strip, counter) != before + 1:
+        raise RuntimeError(f"K2 ({what}) did not launch once")
+    mx, share1 = check_band(f"K2 ({what})", got, plain())
+    ms = device_ms(fn)
+    plain_ms = device_ms(plain)
+    B, H = x.shape[0], x.shape[1]
+    W = x.shape[2] // ch
+    wv_g, wh_g = wv[vidx.long()], wh[hidx.long()]
+    full = x.reshape(B, H, W, ch)
+    chans = [full[..., c].float() for c in range(ch)]
+    library_ms = device_ms(lambda: [torch.einsum("boh,bhw,bpw->bop", wv_g,
+                                                 c_, wh_g) for c_ in chans])
+    del chans, wv_g, wh_g
+    oh, ow = wv.shape[1], wh.shape[1]
+    nbytes, flops = resize_bound(x.numel(), ch * B * oh * ow, wv,
+                                 tabs.band_v, band_table(wh), vidx, hidx, W)
+    bound_ms, bound_by = bound(nbytes, ch * flops)
+    return {"max_abs_err": mx, "share_differ": share1, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "shape": f"{H}x{W}x{ch} -> {oh}x{ow}", "B": int(B)}
+
+
+def phase_pillow_avifs(card: str) -> dict:
+    """The AVIFs the reference hands to Pillow: a 12 MP grid (8 x 6 cells
+    of 512 x 512 cropped to 4032 x 3024), a 10-bit BT.2020 HDR picture, a
+    lossless identity-matrix screenshot, a file with an ICC profile and no
+    nclx, and a cut-out with premultiplied alpha. Each decodes on the host
+    through the port's ``avif_libavif`` (the container as libavif reads
+    it, the cells on threads and stitched in YUV, the port's AV1 decoder,
+    then ``avif_yuv_rgb.cpp``: libavif 1.3.0's and libyuv's YUV -> RGB):
+    its array's SHA-256 must be Pillow's, taken where the files were
+    made. K2 against its plain version at each file's RGB-head batch,
+    the grid's 3424 x 4352 -> 368 x 400 bucket included. Then rounds
+    through one engine (the grid at 4 requests, the AVIF output at 2, the
+    others at 8), counts reset before each, each run once, traced: the
+    decode on the codec pool (``batcher.decode``), ONE K2 launch a batch
+    (``rgb_resize``, or ``rgba_resize`` for the alpha), the encode."""
+    from imagekit_tpu_torch.config import ImageFormat
+    from imagekit_tpu_torch.serving import engine_rgb
+
+    W, J, A = ImageFormat.webp, ImageFormat.jpeg, ImageFormat.avif
+    t0 = time.perf_counter()
+    sources = pillow_avif_sources()
+    steps = {"sources": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    decodes = {}
+    for name, (data, entry) in sources.items():
+        case = pillow_avif_case(data)
+        if case["sha256"] != entry["sha256"] or case["mode"] != entry["mode"]:
+            raise RuntimeError(f"the port's decode of {name} is not Pillow's "
+                               f"array ({case['mode']} {case['sha256']} != "
+                               f"{entry['mode']} {entry['sha256']})")
+        decodes[name] = case
+        log(f"    {name} ({entry['recipe']}; {case['bytes'] / 1e3:.1f} kB, "
+            f"{case['mode']} {case['shape'][1]}x{case['shape'][0]}): array = "
+            f"Pillow's (SHA-256 {case['sha256'][:16]}...), decode "
+            f"{case['decode_ms']:.2f} ms alone, of it YUV -> RGB "
+            f"{case['yuv_rgb_ms']:.2f} ms threaded, "
+            f"{case['yuv_rgb_one_thread_ms']:.2f} ms on one thread, on the "
+            f"host [{card}]")
+    steps["decode checks"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    k2 = {}
+    captures = (("grid", "4032x3024_grid", W, 4, "resample_rgb_yuv_batch",
+                 "yuv", "12 MP grid, RGB"),
+                ("hdr_2020", "1080p_hdr_2020", W, 8, "resample_rgb_yuv_batch",
+                 "yuv", "10-bit BT.2020, RGB"),
+                ("identity", "1080p_lossless_identity", J, 8,
+                 "resample_rgb_jpeg_batch", "jpg",
+                 "lossless identity matrix, RGB to JPEG"),
+                ("icc_only", "1080p_icc_only", W, 8, "resample_rgb_yuv_batch",
+                 "yuv", "ICC profile, no nclx, RGB"),
+                ("premultiplied", "1080p_rgba_premultiplied", W, 8,
+                 "resample_bucketed_flat", "flat",
+                 "premultiplied alpha, RGBA"),
+                ("premultiplied_avif", "1080p_rgba_premultiplied", A, 2,
+                 "resample_bucketed_flat", "flat",
+                 "premultiplied alpha, RGBA to w=160 AVIF"))
+    for entry, name, fmt, batch, fn_name, head, what in captures:
+        width = 160 if fmt == A else 400
+        with quick_avif_encodes():
+            call = capture_batch([sources[name][0]], width, batch, fn_name,
+                                 module=engine_rgb, fmt=fmt)
+        case = k2_pixels_case(call, head, what)
+        k2[entry] = case
+        log(f"  K2 vs plain, {what} (B={case['B']}: {case['shape']}): "
+            f"max|d|={case['max_abs_err']}; device time per call K2 "
+            f"{case['ms']:.4f} ms vs plain {case['plain_ms']:.4f} ms vs einsum "
+            f"{case['library_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
+            f"({case['bound_by']}), K2 at {case['bound_ms'] / case['ms']:.1%} "
+            f"of it [{card}]")
+    steps["K2 batches"] = time.perf_counter() - t0
+
+    def src(name):
+        return [sources[name][0]]
+
+    out = (400, 225)
+    rounds = [
+        ("12 MP grid AVIF (8x6 cells) -> w=400 WebP", src("4032x3024_grid"),
+         4, 400, W, (400, 300), {"k2": "batch"}),
+        ("1080p 10-bit BT.2020 AVIF -> w=400 WebP", src("1080p_hdr_2020"), 8,
+         400, W, out, {"k2": "batch"}),
+        ("1080p lossless identity-matrix AVIF -> w=400 JPEG",
+         src("1080p_lossless_identity"), 8, 400, J, out, {"k2": "batch"}),
+        ("1080p AVIF with an ICC profile and no nclx -> w=400 WebP",
+         src("1080p_icc_only"), 8, 400, W, out, {"k2": "batch"}),
+        ("1080p premultiplied RGBA AVIF -> w=400 WebP",
+         src("1080p_rgba_premultiplied"), 8, 400, W, out,
+         {"k2_rgba": "batch"}),
+        ("1080p premultiplied RGBA AVIF -> w=160 AVIF, alpha kept",
+         src("1080p_rgba_premultiplied"), 2, 160, A, (160, 90),
+         {"k2_rgba": "batch"}),
+    ]
+    summary = drive_rounds(rounds, card, steps)
+    summary["decodes"] = decodes
+    summary["k2"] = k2
+    log("    seconds a step (a round's include its warm-up and trace): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in steps.items()))
+    summary["step_s"] = steps
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5864,6 +6074,13 @@ def main() -> int:
           "YUV entries for 4:4:4, 4:2:2, alpha and BT.709 batches and each "
           "file's batch, BatchedEngine(device='cuda').transform")
     avif27 = phase_avif_sources(card)
+
+    begin("[28] the AVIFs the reference hands to Pillow: a 12 MP grid, "
+          "10-bit BT.2020, a lossless identity-matrix file, an ICC profile "
+          "with no nclx, premultiplied alpha; libavif's container and YUV -> "
+          "RGB on the host (arrays against Pillow's digests), the RGB head "
+          "(K2), BatchedEngine(device='cuda').transform")
+    avif28 = phase_pillow_avifs(card)
     end_phase()
     log("    seconds a phase (heading to heading): " + ", ".join(
         f"[{k}] {v:.2f}" for k, v in PHASE_S.items()))
@@ -5898,6 +6115,13 @@ def main() -> int:
         "arith_lossless_launches": arith["k2_launches"],
         "cmyk_tiff_remainder_launches": remainder25["k2_launches"],
         "lab_ycbcr_launches": lab26["k2_launches"],
+        "pillow_avif_launches": avif28["k2_launches"],
+        # phase 28's RGB-head batches: the 12 MP grid's 3424x4352 bucket
+        # (B=4) and the 1080p files' (B=8)
+        **{f"pillow_avif_{entry}": {key: avif28["k2"][entry][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")} for entry in ("grid", "hdr_2020", "identity",
+                                         "icc_only")},
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
@@ -6041,6 +6265,11 @@ def main() -> int:
         "pillow_source_launches": pillow["k2_rgba_launches"],
         "pillow_fallback_launches": fallbacks["k2_rgba_launches"],
         "dds_launches": layouts23["k2_rgba_launches"],
+        "pillow_avif_launches": avif28["k2_rgba_launches"],
+        **{f"pillow_avif_{entry}": {key: avif28["k2"][entry][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")} for entry in ("premultiplied",
+                                         "premultiplied_avif")},
         **{key: k2_rgba[key] for key in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by", "library_ms")},
     }, {
@@ -6109,6 +6338,8 @@ def main() -> int:
         raise RuntimeError("a round of phase 25 launched no K2 or K3")
     if min(lab26[f"{k}_launches"] for k in ("k2", "k3")) <= 0:
         raise RuntimeError("a round of phase 26 launched no K2 or K3")
+    if min(avif28[f"{k}_launches"] for k in ("k2", "k2_rgba")) <= 0:
+        raise RuntimeError("a round of phase 28 launched no K2")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -17,14 +17,15 @@ device: the reference's serving path decodes JPEG pixels with Pillow),
 and the sources the reference decodes only with
 Pillow: ICO (:mod:`.ico`), PNM (:mod:`.pnm`), QOI (:mod:`.qoi`) and DDS
 (:mod:`.dds`); AVIF sources through the port's own AV1 decoder
-(:mod:`.avif_native`, where the reference calls libdav1d); JPEG, WebP and
-AVIF (the first-party encoder, :mod:`.avif_encode`) out. There is no
-host-library fallback: where the reference falls to Pillow, the port's
-decoders answer as Pillow does (a WebP with no frame libwebp takes,
-Pillow's message; an AVIF that does not decode, libavif's words,
-:func:`.avif_native.undecodable_message`),
-and an AVIF that the reference's native path declines for Pillow's
-libavif raises :class:`~imagekit_tpu_torch.errors.NotPortedError`.
+(:mod:`.avif_native`, where the reference calls libdav1d, and
+:mod:`.avif_libavif` for the AVIFs the reference's native path declines
+and hands to Pillow's libavif: grids, no nclx, other matrices,
+premultiplied alpha); JPEG, WebP and AVIF (the first-party encoder,
+:mod:`.avif_encode`) out. There is no host-library fallback: where the
+reference falls to Pillow, the port's decoders answer as Pillow does (a
+WebP with no frame libwebp takes, Pillow's message; an AVIF that libavif
+refuses, libavif's words), and an AV1 tool the port's decoder does not
+build raises :class:`~imagekit_tpu_torch.errors.NotPortedError`.
 """
 
 from __future__ import annotations
@@ -169,18 +170,16 @@ def decode_bytes(data: bytes, device=None) -> Tuple[np.ndarray, SourceFormat]:
         # EXR too
         raise TransformError("EXR input is not supported")
     if fmt == SourceFormat.avif:
-        from imagekit_tpu_torch.codecs import avif_native
+        from imagekit_tpu_torch.codecs import avif_libavif, avif_native
 
         try:
             arr = avif_native.decode_rgb(data)
         except ValueError as e:  # the decompression-bomb ceiling
             raise TransformError(str(e)) from e
         if arr is None:
-            # the reference hands such a file to Pillow: one its native
-            # path declines is not ported, one that does not decode is
-            # Pillow's failure too
-            avif_native.require_supported(data)
-            raise TransformError(avif_native.undecodable_message(data))
+            # the reference hands such a file to Pillow's libavif: a file
+            # its native path declines, and one that does not decode
+            arr = avif_libavif.decode_pillow_rgb(data)
         return arr, fmt
     raise TransformError(f"no decoder for {fmt.value} sources")
 

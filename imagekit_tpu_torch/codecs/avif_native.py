@@ -18,12 +18,13 @@ What differs, because the port has no host library behind it:
   :class:`~imagekit_tpu_torch.errors.NotPortedError` naming ROADMAP queue 1
   item 8 (the app's 501), where the reference decodes it with libdav1d or
   Pillow;
-- so does a file that the reference's native path declines and hands to
-  Pillow's libavif (:func:`unsupported`): premultiplied or several alpha
-  items, no ``nclx`` colour box, a matrix other than BT.601 / BT.709;
-- a stream that does not decode returns None, as libdav1d's failure does
-  in the reference; its callers answer it as the reference's Pillow
-  fallback does for a file Pillow cannot read (a 400).
+- a file that the reference's native path declines (premultiplied or
+  several alpha items, no ``nclx`` colour box, a matrix other than
+  BT.601 / BT.709, a grid) returns None here as there; where the
+  reference then hands it to Pillow's libavif, the port's
+  ``decode_bytes`` hands it to :mod:`.avif_libavif`, which decodes it as
+  libavif 1.3.0 does, and so does a stream that does not decode, which
+  answers libavif's words (a 400).
 """
 
 from __future__ import annotations
@@ -425,23 +426,6 @@ def _decode_obu(obu: bytes, want_w: int, want_h: int):
     return y, u, v, info.layout, 8
 
 
-def unsupported(data: bytes) -> Optional[str]:
-    """Why the reference's native path would decline a file that parses
-    and hand it to Pillow, or None: those files answer 501 here."""
-    try:
-        info = parse_container(data)
-    except ValueError as e:
-        if "not av01" in str(e):
-            return "a primary item that is not av01 (a grid)"
-        return None
-    if info.has_alpha and not info.alpha_obu:
-        return "premultiplied or several alpha items"
-    if not info.monochrome and (not info.has_nclx
-                                or info.matrix not in (1, 2, 5, 6)):
-        return "a colour description other than BT.601 / BT.709 nclx"
-    return None
-
-
 def undecodable_message(data: bytes) -> str:
     """What the reference's Pillow fallback says of an AVIF it cannot read
     either (libavif's words, as Pillow 12 reports them): a container that
@@ -474,13 +458,6 @@ def _mdat_cut(data: bytes) -> bool:
     return False
 
 
-def require_supported(data: bytes) -> None:
-    """Raise NotPortedError for a file :func:`unsupported` names."""
-    why = unsupported(data)
-    if why is not None:
-        raise NotPortedError(f"AVIF sources with {why}", ROADMAP_ITEM)
-
-
 _BT709 = (0.2126, 0.7152, 0.0722)
 _BT601 = (0.299, 0.587, 0.114)
 
@@ -500,10 +477,10 @@ def decode_rgb(data: bytes) -> Optional[np.ndarray]:
     """Container parse + the AV1 decoder -> RGB(A) u8, the alpha item's
     OBU through the same decoder (8-bit, not premultiplied). Returns None
     whenever the reference's native path returns None: a file the
-    decoder cannot read, or one :func:`unsupported` names (its callers
-    tell the two apart). Raises ValueError only for the
-    decompression-bomb ceiling, NotPortedError for a tool the decoder
-    does not build."""
+    decoder cannot read, or one the reference hands to Pillow (its caller
+    takes both to :func:`.avif_libavif.decode_pillow_rgb`). Raises
+    ValueError only for the decompression-bomb ceiling, NotPortedError
+    for a tool the decoder does not build."""
     try:
         info = parse_container(data)
     except ValueError:

@@ -10,12 +10,14 @@ file) and its own decoders of what the reference hands to Pillow
 baseline frames in several scans, arithmetic-coded and lossless frames;
 ``bmp_ext_decode.cpp`` and
 ``tiff_ext_decode.cpp``: the BMP and TIFF layouts the copies refuse;
-``av1_decode.cpp``: AV1 intra frames, where the reference calls libdav1d)
-are
+``av1_decode.cpp``: AV1 intra frames, where the reference calls libdav1d;
+``avif_yuv_rgb.cpp``: the YUV -> RGB of the AVIFs the reference hands to
+Pillow's libavif, in libavif's and libyuv's arithmetic) are
 compiled at first use, one ``g++ -c`` a source, all started
 together, then linked:
 
-    g++ -O3 -march=native -fPIC -c <source> -o <source>.o   (each)
+    g++ -O3 -march=native -fPIC -c <source> -o <source>.o   (each;
+                                  -ffp-contract=off for avif_yuv_rgb.cpp)
     g++ -shared <objects> -o libik_native.so -lz
 
 into ``build/imagekit_tpu_torch/`` under the checkout (a directory
@@ -44,7 +46,10 @@ _SOURCES = ("jpeg_entropy.cpp", "vp8_encode.cpp", "vp8_decode.cpp",
             "vp8l_decode.cpp", "png_decode.cpp", "misc_decode.cpp",
             "tiff_decode.cpp", "av1_enc.cpp", "raster_decode.cpp",
             "jpeg4_decode.cpp", "bmp_ext_decode.cpp", "tiff_ext_decode.cpp",
-            "bcn_ext_decode.cpp", "av1_decode.cpp")
+            "bcn_ext_decode.cpp", "av1_decode.cpp", "avif_yuv_rgb.cpp")
+#: flags of one source beside the common ones: libavif's float path rounds
+#: every product on its own (no fused multiply-add)
+_SOURCE_FLAGS = {"avif_yuv_rgb.cpp": ["-ffp-contract=off"]}
 _HEADERS = ("vp8_common.h", "vp8_tables.h")
 BUILD_DIR = _HERE.parents[2] / "build" / "imagekit_tpu_torch"
 _LIB = BUILD_DIR / "libik_native.so"
@@ -73,7 +78,8 @@ def _build() -> None:
         flags = ["-O3", "-march=native", "-funroll-loops", "-std=c++17",
                  "-fPIC", "-fvisibility=hidden"]
         try:
-            _run([["g++", *flags, "-c", str(_HERE / s), "-o", str(o)]
+            _run([["g++", *flags, *_SOURCE_FLAGS.get(s, []), "-c",
+                   str(_HERE / s), "-o", str(o)]
                   for s, o in zip(_SOURCES, objs)])
             # png_decode.cpp and tiff_decode.cpp inflate via zlib
             _run([["g++", "-shared", *map(str, objs), "-o", str(tmp),

@@ -39,7 +39,28 @@ offsets (:func:`dav1d_samples`). The hashes are of libdav1d's output, not
 the port's: the smoke phase holds the port to them, and
 ``tests/test_torch_avif_sources.py`` holds them to libdav1d.
 
-Run from the repository root: ``python tests/fixtures/make_avif_sources.py``.
+Phase 28's five files (``python tests/fixtures/make_avif_sources.py
+--pillow``, :data:`PILLOW_FILES`) are the AVIFs the reference hands to
+Pillow: a 12 MP grid written by libavif's ``avifEncoderAddImageGrid``
+and cropped (:func:`set_grid_output`), a 10-bit BT.2020 picture, a
+lossless identity-matrix screenshot and a premultiplied cut-out
+(:func:`encode_avif_hbd`), and a file whose nclx box is replaced by an
+sRGB ICC profile (:func:`set_colr`). ``pillow_arrays.json`` holds the
+SHA-256 of the array each decodes to through the JAX package's
+``decode_bytes``, that is Pillow 12.1 with its bundled libavif 1.3.0:
+the oracle of the port's decode (``codecs/avif_libavif.py``).
+
+Which library writes what: Pillow (libavif 1.3.0 with libaom) the
+phase-27 pictures it can write; the system's ``libavif.so.15`` (libavif
+0.11.1 with libaom, through ctypes: :func:`encode_avif_hbd`,
+:func:`encode_avif_grid`) the high-bit-depth, grid, alpha and re-tagged
+files; :func:`demux` / :func:`mux` the container edits no writer makes
+(no nclx, ``prem``, a second alpha item, cropped grids, hostile grids).
+0.11.1 only writes: every decode these files are held to is Pillow's
+1.3.0 (or libdav1d's, for the planes of phase 27).
+
+Run from the repository root: ``python tests/fixtures/make_avif_sources.py``
+(phase 27's files) or with ``--pillow`` (phase 28's).
 """
 
 import ctypes
@@ -207,14 +228,9 @@ def hbd_planes(seed: int, depth: int, layout: str):
     return q(y, 16, 219), q(cb, 128, 224), q(cr, 128, 224)
 
 
-def encode_avif_hbd(y, u, v, depth: int, layout: str, quantizer: int,
-                    speed: int = 8, options=None):
-    """A 10- or 12-bit AVIF through libavif's C API (libaom inside), over
-    the pinned ABI of ``tests/test_avif_native.py::_encode_avif_10bit``:
-    ``layout`` "420", "422", "444" or "400" (monochrome: ``u`` and ``v``
-    unused), ``depth`` 8 too (uint8 rows), limited range, BT.601 tags,
-    ``quantizer`` 0..63 for both bounds, ``options`` libaom's
-    codec-specific keys. None where libavif is not installed."""
+def _avif_lib():
+    """libavif.so.15 (the system's 0.11.1, a writer only here) with the
+    signatures this module calls, or None where it is not installed."""
     try:
         lib = ctypes.CDLL("libavif.so.15")
     except OSError:
@@ -228,40 +244,100 @@ def encode_avif_hbd(y, u, v, depth: int, layout: str, quantizer: int,
         ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p]
     lib.avifEncoderWrite.restype = ctypes.c_int
     lib.avifEncoderWrite.argtypes = [ctypes.c_void_p] * 3
+    lib.avifEncoderAddImageGrid.restype = ctypes.c_int
+    lib.avifEncoderAddImageGrid.argtypes = [
+        ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32,
+        ctypes.POINTER(ctypes.c_void_p), ctypes.c_uint32]
+    lib.avifEncoderFinish.restype = ctypes.c_int
+    lib.avifEncoderFinish.argtypes = [ctypes.c_void_p] * 2
     lib.avifRWDataFree.argtypes = [ctypes.c_void_p]
+    return lib
 
-    class RW(ctypes.Structure):
-        _fields_ = [("data", ctypes.c_void_p), ("size", ctypes.c_size_t)]
 
+class _RW(ctypes.Structure):
+    _fields_ = [("data", ctypes.c_void_p), ("size", ctypes.c_size_t)]
+
+
+def _avif_image(lib, y, u, v, depth: int, layout: str, alpha=None,
+                cicp=(1, 13, 6), full_range: bool = False,
+                premultiplied: bool = False):
+    """An ``avifImage`` of libavif 0.11.1 holding the planes, at the ABI
+    offsets of ``avifImage``: yuvRange at 16, the Y/U/V plane pointers at
+    24 and their row bytes at 48, the alpha plane at 64 and its row bytes
+    at 72, alphaPremultiplied at 80, colour primaries, transfer and matrix
+    (uint16) at 104, 106, 108. None where the planes do not allocate."""
     h, w = y.shape
     img = lib.avifImageCreate(w, h, depth, {"444": 1, "422": 2, "420": 3,
                                             "400": 4}[layout])
+    ctypes.c_int32.from_address(img + 16).value = int(full_range)
+    for off, val in zip((104, 106, 108), cicp):
+        ctypes.c_uint16.from_address(img + off).value = val
+    # AVIF_PLANES_YUV = 1, AVIF_PLANES_ALL = 0xff
+    if lib.avifImageAllocatePlanes(img, 1 if alpha is None else 0xFF) != 0:
+        lib.avifImageDestroy(img)
+        return None
+    ctypes.c_int32.from_address(img + 80).value = int(premultiplied)
+    planes = (ctypes.c_void_p * 3).from_address(img + 24)
+    rb = (ctypes.c_uint32 * 3).from_address(img + 48)
+    dst = [(planes[i], rb[i], arr) for i, arr in
+           ((0, y), (1, u), (2, v))[:1 if layout == "400" else 3]]
+    if alpha is not None:
+        dst.append((ctypes.c_void_p.from_address(img + 64).value,
+                    ctypes.c_uint32.from_address(img + 72).value, alpha))
+    size = 1 if depth == 8 else 2
+    for addr, rowb, arr in dst:
+        src = np.ascontiguousarray(arr, np.uint8 if size == 1 else np.uint16)
+        ph, pw = src.shape
+        for row in range(ph):
+            ctypes.memmove(addr + row * rowb,
+                           src.ctypes.data + row * pw * size, pw * size)
+    return img
+
+
+def _encoder(lib, quantizer: int, speed: int, options,
+             alpha_quantizer=None):
+    """An ``avifEncoder``: maxThreads at 4, speed at 8, min and max
+    quantizer at 24 and 28, alpha's at 32 and 36; ``options`` libaom's
+    codec-specific keys."""
+    enc = lib.avifEncoderCreate()
+    aq = quantizer if alpha_quantizer is None else alpha_quantizer
+    for off, val in ((4, 1), (8, speed), (24, quantizer), (28, quantizer),
+                     (32, aq), (36, aq)):
+        ctypes.c_int32.from_address(enc + off).value = val
+    for key, val in (options or {}).items():
+        lib.avifEncoderSetCodecSpecificOption(enc, key.encode(),
+                                              val.encode())
+    return enc
+
+
+def encode_avif_hbd(y, u, v, depth: int, layout: str, quantizer: int,
+                    speed: int = 8, options=None, alpha=None,
+                    cicp=(1, 13, 6), full_range: bool = False,
+                    premultiplied: bool = False):
+    """An AVIF through libavif's C API (libaom inside), over the pinned
+    ABI of ``tests/test_avif_native.py::_encode_avif_10bit``: ``layout``
+    "420", "422", "444" or "400" (monochrome: ``u`` and ``v`` unused),
+    ``depth`` 8 (uint8 rows), 10 or 12, ``quantizer`` 0..63 for both
+    bounds, ``options`` libaom's codec-specific keys; ``alpha`` a plane
+    at the picture's depth (``premultiplied`` writes libavif's ``prem``
+    reference), ``cicp`` the (primaries, transfer, matrix) of the nclx box
+    and the sequence header, limited range unless ``full_range``. None
+    where libavif is not installed. libaom refuses the identity matrix
+    on a subsampled layout (an assertion that ends the process):
+    re-tag such a file with :func:`retag_matrix`."""
+    lib = _avif_lib()
+    if lib is None:
+        return None
+    if cicp[2] == 0 and layout not in ("444", "400"):
+        raise ValueError("libaom writes the identity matrix in 4:4:4 only")
+    img = _avif_image(lib, y, u, v, depth, layout, alpha, cicp, full_range,
+                      premultiplied)
+    if img is None:
+        return None
     enc = None
     try:
-        ctypes.c_int32.from_address(img + 16).value = 0  # limited range
-        for off, val in ((104, 1), (106, 13), (108, 6)):
-            ctypes.c_uint16.from_address(img + off).value = val
-        if lib.avifImageAllocatePlanes(img, 1) != 0:
-            return None
-        planes = (ctypes.c_void_p * 3).from_address(img + 24)
-        rb = (ctypes.c_uint32 * 3).from_address(img + 48)
-        size = 1 if depth == 8 else 2
-        for i, arr in ((0, y), (1, u), (2, v))[:1 if layout == "400" else 3]:
-            src = np.ascontiguousarray(arr, np.uint8 if size == 1
-                                       else np.uint16)
-            ph, pw = src.shape
-            for row in range(ph):
-                ctypes.memmove(planes[i] + row * rb[i],
-                               src.ctypes.data + row * pw * size, pw * size)
-        enc = lib.avifEncoderCreate()
-        # maxThreads, speed, min and max quantizer
-        for off, val in ((4, 1), (8, speed), (24, quantizer),
-                         (28, quantizer)):
-            ctypes.c_int32.from_address(enc + off).value = val
-        for key, val in (options or {}).items():
-            lib.avifEncoderSetCodecSpecificOption(enc, key.encode(),
-                                                  val.encode())
-        out = RW()
+        enc = _encoder(lib, quantizer, speed, options)
+        out = _RW()
         if lib.avifEncoderWrite(enc, img, ctypes.byref(out)) != 0:
             return None
         data = ctypes.string_at(out.data, out.size)
@@ -271,6 +347,284 @@ def encode_avif_hbd(y, u, v, depth: int, layout: str, quantizer: int,
         if enc:
             lib.avifEncoderDestroy(enc)
         lib.avifImageDestroy(img)
+
+
+def encode_avif_grid(cells, cols: int, rows: int, depth: int, layout: str,
+                     quantizer: int, speed: int = 8, alpha_cells=None,
+                     cicp=(1, 13, 6), full_range: bool = False,
+                     premultiplied: bool = False, options=None):
+    """A grid AVIF through libavif's ``avifEncoderAddImageGrid``: ``cells``
+    the (y, u, v) planes of each cell in raster order, all of one size
+    (libavif 0.11.1 sets the canvas to the cells' whole area; crop it
+    with :func:`set_grid_output`), ``alpha_cells`` their alpha planes
+    (an alpha grid beside the colour grid). None where libavif is not
+    installed or refuses the grid."""
+    lib = _avif_lib()
+    if lib is None:
+        return None
+    imgs = []
+    enc = None
+    try:
+        for i, (y, u, v) in enumerate(cells):
+            a = None if alpha_cells is None else alpha_cells[i]
+            img = _avif_image(lib, y, u, v, depth, layout, a, cicp,
+                              full_range, premultiplied)
+            if img is None:
+                return None
+            imgs.append(img)
+        enc = _encoder(lib, quantizer, speed, options)
+        arr = (ctypes.c_void_p * len(imgs))(*imgs)
+        # AVIF_ADD_IMAGE_FLAG_SINGLE
+        if lib.avifEncoderAddImageGrid(enc, cols, rows, arr, 2) != 0:
+            return None
+        out = _RW()
+        if lib.avifEncoderFinish(enc, ctypes.byref(out)) != 0:
+            return None
+        data = ctypes.string_at(out.data, out.size)
+        lib.avifRWDataFree(ctypes.byref(out))
+        return data
+    finally:
+        if enc:
+            lib.avifEncoderDestroy(enc)
+        for img in imgs:
+            lib.avifImageDestroy(img)
+
+
+# -- the container, item by item --------------------------------------------------
+
+
+def _boxes(data: bytes, start: int, end: int):
+    i = start
+    while i + 8 <= end:
+        size = int.from_bytes(data[i:i + 4], "big")
+        hdr = 8
+        if size == 1:
+            size = int.from_bytes(data[i + 8:i + 16], "big")
+            hdr = 16
+        elif size == 0:
+            size = end - i
+        yield data[i + 4:i + 8], i + hdr, i + size
+        i += size
+
+
+def _box(typ: bytes, payload: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(payload)) + typ + payload
+
+
+def _full(typ: bytes, payload: bytes, version: int = 0,
+          flags: int = 0) -> bytes:
+    return _box(typ, struct.pack(">I", (version << 24) | flags) + payload)
+
+
+def demux(data: bytes) -> dict:
+    """A still AVIF as editable items: ``{"ftyp": bytes, "primary": id,
+    "items": [{"id", "type", "name", "payload", "props": [(box bytes,
+    essential)]}], "refs": [(type, from id, [to ids])]}`` in the file's
+    order (iloc extents read with construction methods 0 and 1)."""
+    top = {t: (a, b) for t, a, b in _boxes(data, 0, len(data))}
+    ma, mb = top[b"meta"]
+    meta = {t: (a, b) for t, a, b in _boxes(data, ma + 4, mb)}
+    pa = meta[b"pitm"][0]
+    primary = int.from_bytes(data[pa + 4:pa + 6], "big")
+    idat = meta.get(b"idat", (0, 0))[0]
+    la, _ = meta[b"iloc"]
+    v = data[la]
+    o = la + 4
+    osz, lsz = data[o] >> 4, data[o] & 15
+    bsz, isz = data[o + 1] >> 4, (data[o + 1] & 15) if v else 0
+    o += 2
+    n = int.from_bytes(data[o:o + (2 if v < 2 else 4)], "big")
+    o += 2 if v < 2 else 4
+    payloads = {}
+    order = []
+    for _ in range(n):
+        iid = int.from_bytes(data[o:o + (2 if v < 2 else 4)], "big")
+        o += 2 if v < 2 else 4
+        method = 0
+        if v:
+            method = int.from_bytes(data[o:o + 2], "big") & 15
+            o += 2
+        o += 2
+        base = int.from_bytes(data[o:o + bsz], "big")
+        o += bsz
+        ec = int.from_bytes(data[o:o + 2], "big")
+        o += 2
+        chunks = []
+        for _ in range(ec):
+            o += isz
+            eo = int.from_bytes(data[o:o + osz], "big")
+            o += osz
+            el = int.from_bytes(data[o:o + lsz], "big")
+            o += lsz
+            start = base + eo + (idat if method == 1 else 0)
+            chunks.append(data[start:start + el])
+        payloads[iid] = b"".join(chunks)
+        order.append(iid)
+    items = {}
+    ia, ib = meta[b"iinf"]
+    for t, a, b in _boxes(data, ia + 4 + (2 if data[ia] == 0 else 4), ib):
+        iid = int.from_bytes(data[a + 4:a + 6], "big")
+        typ = data[a + 8:a + 12]
+        items[iid] = {"id": iid, "type": typ, "name": data[a + 12:b],
+                      "payload": payloads.get(iid, b""), "props": []}
+    ra, rb = meta[b"iprp"]
+    sub = {t: (a, b) for t, a, b in _boxes(data, ra, rb)}
+    props = [data[a - 8:b] for _, a, b in _boxes(data, *sub[b"ipco"])]
+    aa, _ = sub[b"ipma"]
+    v2, flags = data[aa], int.from_bytes(data[aa + 1:aa + 4], "big")
+    count = int.from_bytes(data[aa + 4:aa + 8], "big")
+    o = aa + 8
+    for _ in range(count):
+        iid = int.from_bytes(data[o:o + (2 if v2 < 1 else 4)], "big")
+        o += 2 if v2 < 1 else 4
+        k = data[o]
+        o += 1
+        for _ in range(k):
+            if flags & 1:
+                x = int.from_bytes(data[o:o + 2], "big")
+                o += 2
+                ess, idx = bool(x & 0x8000), x & 0x7FFF
+            else:
+                ess, idx = bool(data[o] & 0x80), data[o] & 0x7F
+                o += 1
+            items[iid]["props"].append((props[idx - 1], ess))
+    refs = []
+    if b"iref" in meta:
+        fa, fb = meta[b"iref"]
+        wide = data[fa] != 0
+        for t, a, b in _boxes(data, fa + 4, fb):
+            w = 4 if wide else 2
+            frm = int.from_bytes(data[a:a + w], "big")
+            cnt = int.from_bytes(data[a + w:a + w + 2], "big")
+            to = [int.from_bytes(data[a + w + 2 + w * k:a + 2 * w + 2 + w * k],
+                                 "big") for k in range(cnt)]
+            refs.append((t, frm, to))
+    ftyp = data[top[b"ftyp"][0] - 8:top[b"ftyp"][1]]
+    return {"ftyp": ftyp, "primary": primary,
+            "items": [items[i] for i in order if i in items]
+            + [it for i, it in items.items() if i not in payloads],
+            "refs": refs}
+
+
+def mux(doc: dict) -> bytes:
+    """The inverse of :func:`demux`: ftyp, meta (hdlr, pitm, iloc v1 with
+    32-bit offsets, iinf, iref, iprp with one property box per
+    association, its ipma by ascending item ID as libavif requires) and
+    one mdat holding every payload in item order (which is libavif's
+    order of the items: that of their first mention, iloc's)."""
+    items = doc["items"]
+    hdlr = _full(b"hdlr", b"\0" * 4 + b"pict" + b"\0" * 13)
+    pitm = _full(b"pitm", struct.pack(">H", doc["primary"]))
+
+    def iloc(base: int) -> bytes:
+        body = struct.pack(">BBH", 0x44, 0x00, len(items))
+        off = base
+        for it in items:
+            body += struct.pack(">HHHHII", it["id"], 0, 0, 1, off,
+                                len(it["payload"]))
+            off += len(it["payload"])
+        return _full(b"iloc", body, version=1)
+
+    iinf = _full(b"iinf", struct.pack(">H", len(items)) + b"".join(
+        _full(b"infe", struct.pack(">HH", it["id"], 0) + it["type"]
+              + it["name"], version=2) for it in items))
+    iref = b""
+    if doc["refs"]:
+        iref = _full(b"iref", b"".join(
+            _box(t, struct.pack(">HH", frm, len(to))
+                 + b"".join(struct.pack(">H", x) for x in to))
+            for t, frm, to in doc["refs"]))
+    boxes, assoc = [], b""
+    for it in sorted(items, key=lambda it: it["id"]):  # libavif's order
+        idx = b""
+        for box, ess in it["props"]:
+            boxes.append(box)
+            idx += struct.pack(">H", (0x8000 if ess else 0) | len(boxes))
+        assoc += struct.pack(">HB", it["id"], len(it["props"])) + idx
+    ipma = _full(b"ipma", struct.pack(">I", len(items)) + assoc, flags=1)
+    iprp = _box(b"iprp", _box(b"ipco", b"".join(boxes)) + ipma)
+
+    def meta(base: int) -> bytes:
+        return _full(b"meta", hdlr + pitm + iloc(base) + iinf + iref + iprp)
+
+    head = len(doc["ftyp"]) + len(meta(0)) + 8
+    return doc["ftyp"] + meta(head) + _box(
+        b"mdat", b"".join(it["payload"] for it in items))
+
+
+def item(doc: dict, iid: int) -> dict:
+    return next(it for it in doc["items"] if it["id"] == iid)
+
+
+def set_grid_output(data: bytes, width: int, height: int) -> bytes:
+    """A grid AVIF with its canvas cropped to ``width`` x ``height``: the
+    ImageGrid payload's output size (16-bit fields where they fit) and
+    the grid items' ``ispe``."""
+    doc = demux(data)
+    for it in doc["items"]:
+        if it["type"] != b"grid":
+            continue
+        wide = width > 0xFFFF or height > 0xFFFF
+        p = it["payload"]
+        it["payload"] = bytes((0, int(wide), p[2], p[3])) + struct.pack(
+            ">II" if wide else ">HH", width, height)
+        it["props"] = [
+            (_full(b"ispe", struct.pack(">II", width, height)), ess)
+            if box[4:8] == b"ispe" else (box, ess) for box, ess in it["props"]]
+    return mux(doc)
+
+
+def colr_nclx(primaries: int, transfer: int, matrix: int,
+              full_range: bool) -> bytes:
+    return _box(b"colr", b"nclx" + struct.pack(
+        ">HHHB", primaries, transfer, matrix, 0x80 if full_range else 0))
+
+
+def set_colr(data: bytes, boxes) -> bytes:
+    """The file with the colour item's ``colr`` properties replaced by
+    ``boxes`` (none: no colr at all)."""
+    doc = demux(data)
+    it = item(doc, doc["primary"])
+    it["props"] = [p for p in it["props"] if p[0][4:8] != b"colr"] + [
+        (b, False) for b in boxes]
+    return mux(doc)
+
+
+def colr_icc(icc: bytes, kind: bytes = b"prof") -> bytes:
+    return _box(b"colr", kind + icc)
+
+
+def srgb_icc() -> bytes:
+    """An sRGB profile of littleCMS (Pillow's ``ImageCms``)."""
+    from PIL import ImageCms
+
+    return ImageCms.ImageCmsProfile(ImageCms.createProfile("sRGB")).tobytes()
+
+
+def add_prem(data: bytes) -> bytes:
+    """The file with libavif's ``prem`` reference from the colour item to
+    its alpha item (the colour is premultiplied by the alpha)."""
+    doc = demux(data)
+    alpha = next(frm for t, frm, to in doc["refs"]
+                 if t == b"auxl" and doc["primary"] in to)
+    doc["refs"].append((b"prem", doc["primary"], [alpha]))
+    return mux(doc)
+
+
+def add_alpha_item(data: bytes, obu: bytes, first: bool = False) -> bytes:
+    """The file with another alpha auxiliary item (``obu``'s AV1 stream,
+    the first alpha item's properties) for its colour item: after the
+    alpha item it has, or before it with ``first``."""
+    doc = demux(data)
+    alpha = next(frm for t, frm, to in doc["refs"]
+                 if t == b"auxl" and doc["primary"] in to)
+    old = item(doc, alpha)
+    new = dict(old, id=max(it["id"] for it in doc["items"]) + 1,
+               payload=obu)
+    at = doc["items"].index(old) + (0 if first else 1)
+    doc["items"].insert(at, new)
+    doc["refs"].append((b"auxl", new["id"], [doc["primary"]]))
+    return mux(doc)
 
 
 def dav1d_samples(obu: bytes, apply_grain: bool = True):
@@ -369,6 +723,181 @@ def planes_digest(data: bytes):
     return info.width, info.height, h.hexdigest()
 
 
+def with_range_flipped(obu: bytes) -> bytes:
+    """An AV1 stream with its sequence header's color_range flipped (a
+    reduced still-picture header, as libaom writes for AVIF items; the
+    reconstruction does not read the bit): a limited-range alpha item,
+    which no writer here makes."""
+    i = 0
+    while True:  # OBUs up to the sequence header (type 1)
+        head = obu[i]
+        if not head & 2:
+            raise ValueError("an OBU without its size")
+        i += 2 if head & 4 else 1
+        size, shift = 0, 0
+        while True:
+            size |= (obu[i] & 0x7F) << shift
+            shift += 7
+            i += 1
+            if not obu[i - 1] & 0x80:
+                break
+        if head >> 3 & 15 == 1:
+            break
+        i += size
+    pos = 8 * i
+
+    def f(n):
+        nonlocal pos
+        v = 0
+        for _ in range(n):
+            v = (v << 1) | (obu[pos >> 3] >> (7 - (pos & 7)) & 1)
+            pos += 1
+        return v
+
+    profile = f(3)
+    f(1)
+    if not f(1):
+        raise ValueError("not a reduced still-picture header")
+    f(5)
+    wb, hb = f(4) + 1, f(4) + 1
+    f(wb + hb + 3 + 3)  # sizes; 128x128, filter intra, intra edge;
+    #                     superres, CDEF, restoration
+    high = f(1)
+    if profile == 2 and high:
+        f(1)
+    mono = f(1) if profile != 1 else 0
+    if f(1):
+        prim, trc, mtx = f(8), f(8), f(8)
+        if not mono and (prim, trc, mtx) == (1, 13, 0):
+            raise ValueError("an sRGB identity header has no color_range")
+    b = bytearray(obu)
+    b[pos >> 3] ^= 0x80 >> (pos & 7)
+    return bytes(b)
+
+
+#: the AVIFs the reference hands to Pillow (phase 28 of chip_smoke.py):
+#: name -> what the recipe in :func:`pillow_files` writes
+PILLOW_FILES = {
+    "4032x3024_grid": "12 MP, 8-bit 4:2:0 BT.601, 8 x 6 cells of 512 x 512 "
+                      "cropped to 4032 x 3024, a synthesized photo",
+    "1080p_hdr_2020": "10-bit 4:2:0, CICP 9/16/9, limited range",
+    "1080p_lossless_identity": "8-bit 4:4:4, identity matrix, full range, "
+                               "lossless, the UI screenshot",
+    "1080p_icc_only": "8-bit 4:2:0, an sRGB colr prof and no nclx",
+    "1080p_rgba_premultiplied": "8-bit 4:2:0 with alpha and prem",
+}
+#: the grid's quantizer, at which its file stays under 400 kB
+GRID_QUANTIZER = 20
+
+
+def yuv_planes(rgb: np.ndarray, depth: int, layout: str, kr: float,
+               kb: float, full_range: bool = False):
+    """Y'CbCr samples of an RGB picture (u8 or float in [0, 1]) at
+    ``depth`` bits for the matrix (kr, kb), chroma averaged to the
+    layout's grid (4:2:0 needs even sides)."""
+    if rgb.dtype == np.uint8:
+        rgb = rgb.astype(np.float64) / 255.0
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    y = kr * r + (1 - kr - kb) * g + kb * b
+    cb = (b - y) / (2 * (1 - kb))
+    cr = (r - y) / (2 * (1 - kr))
+    h, w = y.shape
+    if layout == "420":
+        cb = cb.reshape(h // 2, 2, w // 2, 2).mean((1, 3))
+        cr = cr.reshape(h // 2, 2, w // 2, 2).mean((1, 3))
+    top = (1 << depth) - 1
+    s = 1 << (depth - 8)
+    if full_range:
+        ys, yo, cs = top, 0.0, top
+    else:
+        ys, yo, cs = 219 * s, 16 * s, 224 * s
+    dt = np.uint8 if depth == 8 else np.uint16
+
+    def q(v):
+        return np.clip(np.round(v), 0, top).astype(dt)
+
+    mid = 1 << (depth - 1)
+    return q(yo + y * ys), q(mid + cb * cs), q(mid + cr * cs)
+
+
+def pillow_files() -> dict:
+    """The five files of :data:`PILLOW_FILES`, written by libavif 0.11.1
+    (``libavif.so.15``, libaom inside) and edited item by item."""
+    import chip_smoke
+
+    out = {}
+    # 4096 x 3072 in 512 x 512 cells through avifEncoderAddImageGrid, then
+    # the canvas cropped to 4032 x 3024
+    photo = chip_smoke.synth_image(2801, 4096, 3072)
+    y, u, v = yuv_planes(photo, 8, "420", 0.299, 0.114)
+    cells = [(y[r:r + 512, c:c + 512], u[r // 2:r // 2 + 256,
+                                         c // 2:c // 2 + 256],
+              v[r // 2:r // 2 + 256, c // 2:c // 2 + 256])
+             for r in range(0, 3072, 512) for c in range(0, 4096, 512)]
+    grid = encode_avif_grid(cells, 8, 6, 8, "420", GRID_QUANTIZER)
+    out["4032x3024_grid"] = set_grid_output(grid, 4032, 3024)
+    # HDR: BT.2020 primaries, PQ, BT.2020 NCL at 10 bits
+    hdr = chip_smoke.synth_image(2802).astype(np.float64) / 255.0
+    out["1080p_hdr_2020"] = encode_avif_hbd(
+        *yuv_planes(hdr, 10, "420", 0.2627, 0.0593), 10, "420", 24,
+        cicp=(9, 16, 9))
+    # lossless: libavif --lossless writes G, B, R as Y, U, V (matrix 0)
+    ui = ui_screenshot(2803)
+    out["1080p_lossless_identity"] = encode_avif_hbd(
+        ui[..., 1], ui[..., 2], ui[..., 0], 8, "444", 0, cicp=(1, 13, 0),
+        full_range=True)
+    # an older writer's file: an ICC profile and no nclx (the stream's
+    # sequence header says BT.601, limited range)
+    icc = encode_avif_hbd(*yuv_planes(chip_smoke.synth_image(2804), 8,
+                                      "420", 0.299, 0.114), 8, "420", 28)
+    out["1080p_icc_only"] = set_colr(icc, [colr_icc(srgb_icc())])
+    # a cut-out: the colour premultiplied by a diagonal alpha ramp
+    rgba = chip_smoke.ramp_alpha(chip_smoke.synth_image(2805))
+    a = rgba[..., 3].astype(np.float64) / 255.0
+    pre = rgba[..., :3].astype(np.float64) / 255.0 * a[..., None]
+    out["1080p_rgba_premultiplied"] = encode_avif_hbd(
+        *yuv_planes(pre, 8, "420", 0.299, 0.114), 8, "420", 28,
+        alpha=rgba[..., 3], premultiplied=True)
+    for name, data in out.items():
+        if data is None:
+            raise SystemExit(f"ABORT: libavif did not write {name}")
+    return out
+
+
+def pillow_digest(data: bytes) -> dict:
+    """Pillow 12.1's decode of a file (its bundled libavif 1.3.0), through
+    the JAX package's ``decode_bytes``, as the reference serves it: mode,
+    size and the SHA-256 of the HWC u8 array."""
+    from imagekit_tpu import codecs as ref_codecs
+    from imagekit_tpu.codecs import avif_native as ref_avif
+
+    if ref_avif.decode_rgb(data) is not None:
+        raise SystemExit("ABORT: the reference's native path decodes a file "
+                         "meant for Pillow")
+    arr, _ = ref_codecs.decode_bytes(data)
+    return {"mode": "RGBA" if arr.shape[2] == 4 else "RGB",
+            "width": int(arr.shape[1]), "height": int(arr.shape[0]),
+            "sha256": hashlib.sha256(np.ascontiguousarray(arr).tobytes())
+            .hexdigest()}
+
+
+def write_pillow_files() -> None:
+    """:func:`pillow_files` into ``tests/fixtures/avif/`` with
+    ``pillow_arrays.json``: each file's name, recipe, size in bytes and
+    :func:`pillow_digest`."""
+    table = {}
+    for name, data in pillow_files().items():
+        with open(os.path.join(OUT, f"{name}.avif"), "wb") as f:
+            f.write(data)
+        table[name] = {"file": f"{name}.avif", "recipe": PILLOW_FILES[name],
+                       "bytes": len(data), **pillow_digest(data)}
+        print(f"{name}: {len(data) / 1e3:.1f} kB, {table[name]['mode']} "
+              f"{table[name]['width']}x{table[name]['height']}")
+    with open(os.path.join(OUT, "pillow_arrays.json"), "w") as f:
+        json.dump(table, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     from PIL import Image
@@ -438,4 +967,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    sys.path.insert(0, ROOT)
+    if sys.argv[1:] == ["--pillow"]:
+        write_pillow_files()
+        sys.exit(0)
     sys.exit(main())

@@ -126,7 +126,8 @@ def test_container_and_probe_match_the_reference(name):
         assert getattr(a, f) == getattr(b, f), f
     assert avif_native.header_dimensions(data) == ref_avif.header_dimensions(
         data)
-    assert avif_native.unsupported(data) is None
+    got, _ = port_codecs.decode_bytes(data, device="cpu")
+    assert np.array_equal(got, ref_codecs.decode_bytes(data)[0])
 
 
 @needs_oracles
@@ -163,6 +164,19 @@ def _premultiplied() -> bytes:
     data = _rgba_avif(64, 48)
     i = data.find(b"auxl")
     return data[:i] + b"prem" + data[i + 4:]
+
+
+def _rescaled() -> bytes:
+    """A 64 x 48 stream in an item whose ispe says 96 x 64: libavif (and
+    so the reference, through Pillow) rescales it; the port does not."""
+    from tests.fixtures.make_avif_sources import demux, mux
+
+    doc = demux(pillow_avif(synth(64, 48), quality=60))
+    doc["items"][0]["props"] = [
+        (b"\0\0\0\x14ispe\0\0\0\0\0\0\0\x60\0\0\0\x40", e)
+        if box[4:8] == b"ispe" else (box, e)
+        for box, e in doc["items"][0]["props"]]
+    return mux(doc)
 
 
 def _palette() -> bytes:
@@ -208,22 +222,22 @@ REMAINDER = {
                                                   "4")]), None),
     "qm": (lambda: pillow_avif(synth(128, 96), quality=60,
                                advanced=[("enable-qm", "1")]), None),
-    "premultiplied": (_premultiplied, "premultiplied"),
+    "premultiplied": (_premultiplied, None),
     "10bit": (lambda: _ten_bit(), None),
     "identity_matrix": (lambda: _patch_colr_matrix(
         pillow_avif(synth(64, 48), quality=70, subsampling="4:4:4"), 0),
-        "colour description"),
+        None),
 }
 
 
 @needs_oracles
 @pytest.mark.parametrize("name", sorted(REMAINDER))
 def test_the_remainder_answers_501(name):
-    """What the reference's native path hands to Pillow's libavif is
-    NotPortedError naming queue 1 item 8, where the reference serves it;
-    palette blocks, intra block copy, 10-bit streams, film grain and
+    """Palette blocks, intra block copy, 10-bit streams, film grain and
     quantizer matrices, which answered 501 before the decoder built them,
-    decode as the reference decodes them."""
+    and the files the reference's native path hands to Pillow's libavif
+    (premultiplied alpha, the identity matrix), which answered 501 before
+    ``codecs/avif_libavif.py``, decode as the reference decodes them."""
     make, reason = REMAINDER[name]
     data = make()
     arr, _ = ref_codecs.decode_bytes(data)
@@ -527,17 +541,18 @@ def test_img_and_upload_serve_as_the_reference(monkeypatch, tmp_path, name):
 @needs_oracles
 def test_the_remainder_and_hostile_files_over_http(tmp_path):
     """A palette AVIF is served through both apps alike (it answered 501
-    before the decoder built palettes); a premultiplied one answers 501
-    through the port (the reference serves it through Pillow's libavif);
-    a truncated one 400 through both apps, in the same words."""
+    before the decoder built palettes); one whose stream is smaller than
+    its ispe answers 501 through the port (the reference serves it
+    through Pillow's libavif, which rescales it); a truncated one 400
+    through both apps, in the same words."""
     good = pillow_avif(synth(64, 48), quality=60)
     sources = {"pal": _palette(), "cut": good[:-20],
-               "prem": REMAINDER["premultiplied"][0]()}
+               "scaled": _rescaled()}
 
     async def fn(client):
         return [await _img(client, url=_url("pal"), w=32),
                 await _img(client, url=_url("cut"), w=32),
-                await _img(client, url=_url("prem"), w=32)]
+                await _img(client, url=_url("scaled"), w=32)]
 
     ref = _serve(tmp_path, "ref", sources, fn)
     port = _serve(tmp_path, "port", sources, fn)
@@ -548,7 +563,7 @@ def test_the_remainder_and_hostile_files_over_http(tmp_path):
     assert port[1] == ref[1] and port[1][0] == 400
     assert ref[2][0] == 200 and port[2][0] == 501
     assert b"queue 1 item 8" in port[2][2]
-    assert b"premultiplied" in port[2][2]
+    assert b"ispe" in port[2][2]
 
 
 def test_fetch_probes_avif_dimensions():

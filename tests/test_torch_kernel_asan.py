@@ -32,6 +32,13 @@ grain at 8 and 10 bits), whose planes must equal the normal build's, and
 on hostile ones (truncations, byte flips, garbage, headers that claim the
 largest frame, grain params libdav1d refuses), which decode or are
 refused.
+
+The YUV -> RGB of the AVIFs the reference hands to Pillow
+(``avif_yuv_rgb.cpp``) runs under them too, on every path it takes:
+libyuv's rows at 8 bits, shifted down from 10 and 12, at 16 bits with
+alpha, I400, libavif's float path, identity, YCgCo and YCgCo-Re, odd
+sizes down to 1 x 1, alpha, premultiplied alpha on both unmultiplies,
+one thread and several; each output must equal the normal build's.
 """
 
 import json
@@ -894,6 +901,95 @@ def test_av1_decoder_under_address_sanitizer(tmp_path):
     assert all(name in good for name in QM_GRAIN_CASES)
     refused = [n for n in res if n.startswith("grain") and "flip" not in n]
     assert refused and all(res[n] == "400" for n in refused), refused
+
+
+_YUV_RGB = textwrap.dedent("""
+    import ctypes, hashlib, json, sys
+    import numpy as np
+    from imagekit_tpu_torch.codecs.native import avif_yuv_rgb
+    from tests.test_torch_kernel_asan import yuv_rgb_cases
+
+    lib = ctypes.CDLL(sys.argv[1]) if len(sys.argv) > 1 else None
+    if lib is not None:
+        avif_yuv_rgb.load(lib)
+    out = {}
+    for name, (args, kw) in yuv_rgb_cases().items():
+        try:
+            rgb = avif_yuv_rgb.convert(*args, **kw, lib=lib)
+            out[name] = hashlib.sha256(rgb.tobytes()).hexdigest()
+        except avif_yuv_rgb.Refused:
+            out[name] = "refused"
+    print(json.dumps(out))
+""")
+
+
+def yuv_rgb_cases() -> dict:
+    """name -> (convert's arguments, keywords): every path of
+    ``avif_yuv_rgb.cpp`` on seeded planes at odd sizes."""
+    import numpy as np
+
+    rng = np.random.default_rng(22)
+    cases = {}
+    for depth in (8, 10, 12):
+        dt = np.uint8 if depth == 8 else np.uint16
+        top = (1 << depth) - 1
+        for layout in (0, 1, 2, 3):
+            for w, h in ((1, 1), (2, 3), (37, 21)):
+                cw = w if layout == 3 else (w + 1) // 2
+                ch = (h + 1) // 2 if layout == 1 else h
+                y = rng.integers(0, top + 1, (h, w)).astype(dt)
+                u = rng.integers(0, top + 1, (ch, cw)).astype(dt)
+                v = rng.integers(0, top + 1, (ch, cw)).astype(dt)
+                a = rng.integers(0, top + 1, (h, w)).astype(dt)
+                a[0, 0] = 1  # the unattenuate's saturating corner
+                if layout == 0:
+                    u = v = None
+                for matrix, full, prim in ((6, False, 1), (1, True, 1),
+                                           (9, False, 9), (12, True, 7),
+                                           (4, True, 1), (0, True, 1),
+                                           (8, True, 1), (16, True, 1),
+                                           (3, True, 1)):
+                    for alpha, prem in ((False, False), (True, False),
+                                        (True, True)):
+                        name = (f"{depth}_{layout}_{w}x{h}_{matrix}"
+                                f"{'f' if full else 'l'}{'a' if alpha else ''}"
+                                f"{'p' if prem else ''}")
+                        cases[name] = ((y, u, v, a if alpha else None, depth,
+                                        layout, full, matrix, prim, prem),
+                                       {"threads": 1 + (w * h) % 3})
+    return cases
+
+
+def test_yuv_rgb_under_address_sanitizer(tmp_path):
+    """``avif_yuv_rgb.cpp`` under ASan and UBSan: every case's pixels equal
+    the normal build's, and the sanitizers report nothing."""
+    native = ROOT / "imagekit_tpu_torch" / "codecs" / "native"
+    so = tmp_path / "libyuvrgb_asan.so"
+    subprocess.run(["g++", "-std=c++17", "-O1", "-g", "-fPIC", "-shared",
+                    "-ffp-contract=off", "-fsanitize=address,undefined",
+                    "-fno-sanitize-recover=undefined",
+                    str(native / "avif_yuv_rgb.cpp"), "-o", str(so)],
+                   check=True, timeout=300)
+    normal = subprocess.run([sys.executable, "-c", _YUV_RGB],
+                            capture_output=True, text=True, timeout=600,
+                            cwd=ROOT)
+    assert normal.returncode == 0, normal.stderr[-6000:]
+    asan = subprocess.run(["g++", "-print-file-name=libasan.so"],
+                          capture_output=True, text=True).stdout.strip()
+    env = {**os.environ, "LD_PRELOAD": asan,
+           "ASAN_OPTIONS": "detect_leaks=0:abort_on_error=1",
+           "UBSAN_OPTIONS": "print_stacktrace=1:halt_on_error=1"}
+    proc = subprocess.run([sys.executable, "-c", _YUV_RGB, str(so)],
+                          capture_output=True, text=True, env=env,
+                          timeout=600, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-6000:]
+    assert "Sanitizer" not in proc.stderr, proc.stderr[-6000:]
+    assert "runtime error" not in proc.stderr, proc.stderr[-6000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    want = json.loads(normal.stdout.strip().splitlines()[-1])
+    assert got == want
+    assert sum(v == "refused" for v in got.values()) >= 12
+    assert len(got) == len(yuv_rgb_cases())
 
 
 if __name__ == "__main__":
