@@ -5343,6 +5343,10 @@ AVIF_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "avif")
 #: the screen-content fixtures: the screenshot and the logo sheet code
 #: palettes and intra block copy, the RGBA logo palettes in its alpha
 AVIF_SCREEN = ("1080p_screenshot", "1080p_logos", "1080p_rgba_logo")
+#: the superres fixtures (libaom's, SuperresDenom 16, 11 and 13): their
+#: decodes are also timed 8 at once
+AVIF_SUPERRES = ("1080p_superres", "1080p_10bit_superres_444",
+                 "1080p_superres_grain")
 
 
 @functools.lru_cache(maxsize=None)
@@ -5366,8 +5370,8 @@ def avif_decode_case(data: bytes) -> dict:
     for 10 and 12 bits also of the raw planes, little-endian) and the
     colour item's decode time (the least of three), with its bit depth,
     the palette and intrabc blocks it coded (the alpha item's palettes
-    too) and whether its frame header uses quantizer matrices and film
-    grain."""
+    too), whether its frame header uses quantizer matrices and film grain,
+    and its SuperresDenom (8 without superres)."""
     import hashlib
 
     from imagekit_tpu_torch.codecs import avif_native
@@ -5395,12 +5399,32 @@ def avif_decode_case(data: bytes) -> dict:
         samples = raw.hexdigest()
     layout = {0: "4:0:0", 1: "4:2:0", 2: "4:2:2", 3: "4:4:4"}[head.layout]
     return {"sha256": digest.hexdigest(), "sha256_samples": samples,
+            "superres_denom": head.superres_denom,
             "decode_ms": min(times) * 1e3, "layout": layout,
             "alpha": bool(info.alpha_obu), "bytes": len(data),
             "bitdepth": head.bitdepth, "palette_blocks": head.palette_blocks,
             "intrabc_blocks": head.intrabc_blocks,
             "alpha_palette_blocks": alpha_palettes,
             "qmatrix": head.qmatrix, "film_grain": head.film_grain}
+
+
+def avif_decodes_at_once(data: bytes, n: int = 8) -> float:
+    """Milliseconds of wall time for ``n`` decodes of the colour item on
+    ``n`` threads at once (the engine's codec pool decodes a batch's files
+    so; the decoder's own threads compete), the least of three."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from imagekit_tpu_torch.codecs import avif_native
+    from imagekit_tpu_torch.codecs.native import av1_dec_abi
+
+    obu = avif_native.parse_container(data).obu
+    best = float("inf")
+    with ThreadPoolExecutor(n) as pool:
+        for _ in range(3):
+            t0 = time.perf_counter()
+            list(pool.map(av1_dec_abi.decode, [obu] * n))
+            best = min(best, time.perf_counter() - t0)
+    return best * 1e3
 
 
 @contextlib.contextmanager
@@ -5499,13 +5523,17 @@ def phase_avif_sources(card: str) -> dict:
     10-bit 4:2:0 picture with CDEF and a 12-bit 4:4:4 one with loop
     restoration; a 4:2:0 picture with quantizer matrices (libaom's
     ``tune=iq``), one with film grain (test vector 4: lag 3, overlap) and
-    a 10-bit 4:4:4 one with both) decode on the host with the port's
-    decoder (``codecs/native/av1_decode.cpp``): the planes' SHA-256 must
-    be libdav1d's, recorded where the fixtures were made (for 10 and 12
-    bits both the 8-bit planes' and the raw 16-bit planes'; with the
-    grain synthesized), the screen files must have coded their tools,
-    and exactly the files made with quantizer matrices and film grain
-    must say so in their frame headers. K2's entries for these batches,
+    a 10-bit 4:4:4 one with both; libaom's superres files: 4:2:0 at
+    SuperresDenom 16 with CDEF and switchable restoration, 10-bit 4:4:4
+    at 11 in 4 tile columns, 4:2:0 at 13 with film grain) decode on the
+    host with the port's decoder (``codecs/native/av1_decode.cpp``): the
+    planes' SHA-256 must be libdav1d's, recorded where the fixtures were
+    made (for 10 and 12 bits both the 8-bit planes' and the raw 16-bit
+    planes'; with the grain synthesized), the screen files must have coded
+    their tools, exactly the files made with quantizer matrices, film
+    grain and superres must say so in their frame headers (the
+    denominator the one recorded), and the superres files' decodes are
+    also timed 8 at once. K2's entries for these batches,
     captured from the engine at B=8 (the AVIF encodes stubbed for the
     capture), against their plain versions and timed: the u8 entry with
     4:4:4 and 4:2:2 chroma, with the alpha plane as a fourth, and the f32
@@ -5544,9 +5572,24 @@ def phase_avif_sources(card: str) -> dict:
             raise RuntimeError(f"{name}'s frame header: quantizer matrices "
                                f"{case['qmatrix']}, film grain "
                                f"{case['film_grain']}")
+        if case["superres_denom"] != entry["superres_denom"]:
+            raise RuntimeError(f"{name}'s frame header: SuperresDenom "
+                               f"{case['superres_denom']}, the fixture's "
+                               f"{entry['superres_denom']}")
+        if (name in AVIF_SUPERRES) != (case["superres_denom"] != 8):
+            raise RuntimeError(f"{name}: superres {case['superres_denom']}")
+        if name in AVIF_SUPERRES:
+            case["decode8_ms"] = avif_decodes_at_once(data)
         decodes[name] = case
         tools = (f", quantizer matrices {'yes' if case['qmatrix'] else 'no'}"
                  f", film grain {'yes' if case['film_grain'] else 'no'}")
+        if case["superres_denom"] != 8:
+            d, w = case["superres_denom"], entry["width"]
+            tools += (f", superres: SuperresDenom {d} (coded "
+                      f"{max((w * 8 + d // 2) // d, min(16, w))} px wide, "
+                      f"upscaled to {w}); 8 decodes at once "
+                      f"{case['decode8_ms']:.2f} ms wall "
+                      f"({case['decode8_ms'] / 8:.2f} ms a frame)")
         if case["bitdepth"] > 8:
             tools += (f", {case['bitdepth']}-bit: raw planes = libdav1d's "
                      f"(SHA-256 {case['sha256_samples'][:16]}...)")
@@ -5580,7 +5623,13 @@ def phase_avif_sources(card: str) -> dict:
                  "film grain (lag 3, overlap), 4:2:0"),
                 ("10bit_grain_444", "1080p_10bit_grain_444", W,
                  "10-bit 4:4:4, quantizer matrices and film grain, "
-                 "rounded"))
+                 "rounded"),
+                ("superres", "1080p_superres", W,
+                 "superres 16 with CDEF and restoration, 4:2:0"),
+                ("superres_444", "1080p_10bit_superres_444", W,
+                 "10-bit 4:4:4 superres 11 in 4 tile columns, rounded"),
+                ("superres_grain", "1080p_superres_grain", W,
+                 "superres 13 with film grain, 4:2:0"))
     for entry, name, fmt, what in captures:
         with quick_avif_encodes():
             call = capture_batch([sources[name][0]], 400, 8,
@@ -5634,6 +5683,15 @@ def phase_avif_sources(card: str) -> dict:
         ("1080p 10-bit 4:4:4 AVIF, quantizer matrices and film grain -> "
          "w=400 JPEG", src("1080p_10bit_grain_444"), 8, 400, J, out,
          {"k2": "batch"}),
+        ("1080p superres AVIF (16, CDEF, restoration) -> w=400 WebP",
+         src("1080p_superres"), 8, 400, W, out, {"k2": "batch"}),
+        ("1080p 10-bit 4:4:4 superres AVIF (11, 4 tile columns) -> w=400 "
+         "WebP", src("1080p_10bit_superres_444"), 8, 400, W, out,
+         {"k2": "batch"}),
+        ("1080p superres AVIF with film grain (13) -> w=400 WebP",
+         src("1080p_superres_grain"), 8, 400, W, out, {"k2": "batch"}),
+        ("1080p 10-bit 4:4:4 superres AVIF (11) -> w=400 JPEG",
+         src("1080p_10bit_superres_444"), 8, 400, J, out, {"k2": "batch"}),
     ]
     summary = drive_rounds(rounds, card, steps)
     summary["decodes"] = decodes
@@ -6070,7 +6128,8 @@ def main() -> int:
 
     begin("[27] AVIF sources: the port's AV1 decoder on the host (planes "
           "against libdav1d's digests; palette blocks, intra block copy, "
-          "10- and 12-bit streams, quantizer matrices, film grain), K2's "
+          "10- and 12-bit streams, quantizer matrices, film grain, "
+          "superres), K2's "
           "YUV entries for 4:4:4, 4:2:2, alpha and BT.709 batches and each "
           "file's batch, BatchedEngine(device='cuda').transform")
     avif27 = phase_avif_sources(card)
@@ -6249,11 +6308,15 @@ def main() -> int:
         **{key: k2_yuv[key] for key in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by", "library_ms")},
         # phase 27's AVIF batches at B=8: 4:2:0 (screen content, 10-bit,
-        # quantizer matrices, film grain) and the 10-bit 4:4:4 one with both
+        # quantizer matrices, film grain, superres with restoration and with
+        # grain), the 10-bit 4:4:4 one with QM and grain and the 10-bit
+        # 4:4:4 superres one
         **{f"avif_{entry}_b8": {key: avif27["k2"][entry][key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")} for entry in ("screenshot", "logos", "10bit", "qm",
-                                         "grain", "10bit_grain_444")},
+                                         "grain", "10bit_grain_444",
+                                         "superres", "superres_444",
+                                         "superres_grain")},
     }, {
         "name": "rgba_resize (K2, 4 channels in one launch, interleaved out: "
                 "the plain RGB head of sources with alpha)",

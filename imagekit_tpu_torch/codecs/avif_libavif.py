@@ -31,7 +31,7 @@ module is the port's counterpart of that call, in four steps:
 Files libavif refuses raise TransformError with the words Pillow reports
 (the reference's 400). What the port does not build raises NotPortedError
 naming ROADMAP queue 1 item 8 (the app's 501): an AV1 tool the decoder
-lacks (superres, inter or layered frames), an item whose ``ispe`` is not
+lacks (inter or layered frames), an item whose ``ispe`` is not
 its stream's size (libavif rescales it), an alpha grid made of one alpha
 item per colour cell.
 """

@@ -8,8 +8,8 @@ struct it declares (``Tables`` in ``av1_decode.cpp``): the CDFs of
 context, then the quantizer lookups of the three bit depths, smooth
 weights, filter-intra taps, directional derivatives, coefficient context
 offsets, self-guided parameters, scans, the BILINEAR filter, the
-Gaussian sequence of film grain, Qm_Offset, the palette colour contexts
-and the quantizer matrices. The struct's size is checked against the
+Gaussian sequence of film grain, Qm_Offset, superres' Upscale_Filter, the
+palette colour contexts and the quantizer matrices. The struct's size is checked against the
 library's, so a packing that drifts from the C declaration fails at load
 and never decodes.
 
@@ -19,7 +19,7 @@ depth (uint8 for 8-bit, uint16 for 10- and 12-bit streams), and
 :func:`decode` returns u8 planes, those of a high-bit-depth stream
 rounded to 8 bits as the reference's ``avif_native._decode_obu`` rounds
 libdav1d's. All raise :class:`Av1NotPorted` for a tool the decoder does
-not build (superres, inter and layered streams) and :class:`ValueError`
+not build (inter and layered streams) and :class:`ValueError`
 for a malformed stream. Two settings serve tests and timing only, never
 the engine: :func:`_decode_samples` can leave a stream's film grain out,
 and :func:`_set_threads` caps the decoder's threads.
@@ -56,7 +56,7 @@ class _Info(ctypes.Structure):
         "width", "height", "layout", "bitdepth", "mono", "color_range",
         "matrix", "primaries", "transfer", "allow_sct", "allow_intrabc",
         "palette_blocks", "intrabc_blocks", "filters", "qmatrix",
-        "film_grain")] + [
+        "film_grain", "superres_denom")] + [
             ("reason", ctypes.c_char * 120)]
 
 
@@ -82,6 +82,10 @@ class StreamInfo(NamedTuple):
     #: the frame header's using_qmatrix and apply_grain
     qmatrix: bool = False
     film_grain: bool = False
+    #: the frame header's SuperresDenom: 8 without superres, else 9..16
+    #: (the tiles code a width of width * 8 / superres_denom, rounded;
+    #: ``width`` is the upscaled one)
+    superres_denom: int = 8
 
 
 # (name in the npz files, C record shape per q context); coefficient
@@ -196,6 +200,7 @@ def tables_blob() -> bytes:
     parts.append(np.asarray(T["bilinear"], "<i2").tobytes())
     parts.append(np.asarray(T["gaussian_sequence"], "<i2").tobytes())
     parts.append(np.asarray(T["qm_offset"], "<i2").tobytes())
+    parts.append(np.asarray(T["upscale_filter"], "<i2").tobytes())
     sm = np.zeros(128, np.uint8)
     sm[:124] = T["sm_weights"]
     parts.append(sm.tobytes())
@@ -266,7 +271,7 @@ def _info(info: _Info) -> StreamInfo:
                       info.primaries, info.transfer, bool(info.allow_sct),
                       bool(info.allow_intrabc), info.palette_blocks,
                       info.intrabc_blocks, info.filters, bool(info.qmatrix),
-                      bool(info.film_grain))
+                      bool(info.film_grain), info.superres_denom)
 
 
 def probe(obu: bytes, lib: Optional[ctypes.CDLL] = None) -> StreamInfo:

@@ -12,7 +12,8 @@
 //
 //   - OBUs: temporal delimiter, sequence header (reduced or full), frame
 //     header and tile groups, or frame OBUs; padding and metadata skipped;
-//   - frame header of a KEY_FRAME or INTRA_ONLY frame: frame size, tile
+//   - frame header of a KEY_FRAME or INTRA_ONLY frame: frame size and
+//     superres params (the tiles code the downscaled width), tile
 //     info (uniform or explicit, several tiles and tile groups), quantizer
 //     params with DC/AC/U/V deltas, segmentation, delta q / lf, loop
 //     filter, CDEF and loop restoration params, allow_intrabc, tx mode,
@@ -39,8 +40,11 @@
 //     4x4 WHT of lossless blocks, rectangular scaling, intermediate clamps;
 //   - intra prediction: DC, V, H, Paeth, smooth, directional with edge
 //     filter and upsampling, CfL, recursive filter intra, palette;
-//   - deblocking (4, 6, 8 and 14 taps), CDEF, loop restoration (Wiener
-//     and self-guided, stripes reading the deblocked rows);
+//   - deblocking (4, 6, 8 and 14 taps), CDEF, the upscaling process of
+//     superres (8-tap Upscale_Filter of 64 phases over the CDEF output and,
+//     for restoration's stripe edges, the deblocked frame), loop
+//     restoration (Wiener and self-guided, on the upscaled frame, stripes
+//     reading the deblocked rows);
 //   - film grain synthesis (7.18.3) on the shown frame: grain templates
 //     with auto-regressive filtering, scaling lookups, noise stripes with
 //     overlap blending, chroma scaled from luma, clipping to the range.
@@ -50,10 +54,11 @@
 // BitDepth-dependent steps (quantizer rows, clamps, edge base values,
 // deblocking limits, CDEF strengths, Wiener and self-guided rounding,
 // palette literals, grain ranges) follow the spec. Not built, answered
-// with IK_AV1D_NOT_PORTED and a reason (the caller's 501): superres, inter
-// frames, layered streams. Tiles decode on threads of their own
-// (decode_tiles), and so do CDEF's rows of 64x64 units and film grain's
-// stripes of 32 rows; deblocking and loop restoration run on the calling
+// with IK_AV1D_NOT_PORTED and a reason (the caller's 501): inter frames,
+// layered streams. Tiles decode on threads of their own (decode_tiles),
+// and so do CDEF's rows of 64x64 units, the upscale's bands of 32 rows,
+// loop restoration's runs of rows (a stripe's rows in one row of units)
+// and film grain's stripes of 32 rows; deblocking runs on the calling
 // thread. Malformed streams answer IK_AV1D_BAD (400): every
 // read is bounds checked, and a symbol decoder that runs past its tile reads zeros as the
 // spec says, so a truncated tile decodes to something, as in libdav1d.
@@ -150,6 +155,7 @@ struct Tables {
   int16_t bilinear[16][8];  // Subpel_Filters[BILINEAR]
   int16_t gaussian[2048];   // Gaussian_Sequence
   int16_t qm_offset[19];    // Qm_Offset
+  int16_t upscale[64][8];   // Upscale_Filter
   uint8_t sm_weights[128];  // 124 used: sizes 4, 8, 16, 32, 64 in turn
   int8_t filter_taps[5][8][8];  // 7 used
   int8_t ctx_offset[19][5][5];
@@ -559,7 +565,13 @@ struct FilmGrain {
 struct FrameHdr {
   int frame_type = 0, show_frame = 1, showable = 0, error_resilient = 1;
   int disable_cdf_update = 0, allow_sct = 0, allow_intrabc = 0;
+  // FrameWidth (the coded width, downscaled where superres is used),
+  // UpscaledWidth and SuperresDenom; use_superres where the two widths
+  // differ (a frame under 16 wide reads the flag and keeps its width: as in
+  // libdav1d and libaom, it is neither upscaled nor mapped to restoration
+  // units through the denominator)
   int width = 0, height = 0, upscaled_width = 0;
+  int use_superres = 0, superres_denom = 8;
   int mi_cols = 0, mi_rows = 0;
   // tiles
   int tile_cols = 1, tile_rows = 1, tile_cols_log2 = 0, tile_rows_log2 = 0;
@@ -703,8 +715,17 @@ void parse_frame_header(Bits& b, const SeqHdr& s, FrameHdr& h,
     h.width = s.max_w;
     h.height = s.max_h;
   }
-  if (s.superres && b.f(1)) not_ported("superres");
+  // superres_params and compute_image_size (5.9.8, 5.9.9): the tiles code
+  // the downscaled width, at least Min(16, UpscaledWidth) as libdav1d and
+  // libaom have it
   h.upscaled_width = h.width;
+  if (s.superres && b.f(1)) {
+    h.superres_denom = b.f(3) + 9;
+    h.width = std::max(
+        (h.upscaled_width * 8 + h.superres_denom / 2) / h.superres_denom,
+        std::min(16, h.upscaled_width));
+    h.use_superres = h.width != h.upscaled_width;
+  }
   h.mi_cols = 2 * ((h.width + 7) >> 3);
   h.mi_rows = 2 * ((h.height + 7) >> 3);
   if (b.f(1)) {  // render_and_frame_size_different
@@ -848,7 +869,7 @@ void parse_frame_header(Bits& b, const SeqHdr& s, FrameHdr& h,
     h.seg_qm_level[1][sid] = flat ? 15 : h.qm_u;
     h.seg_qm_level[2][sid] = flat ? 15 : h.qm_v;
   }
-  h.all_lossless = h.coded_lossless;  // no superres
+  h.all_lossless = h.coded_lossless && h.width == h.upscaled_width;
   // loop_filter_params, cdef_params and lr_params: none with intra block
   // copy, whose frames are not filtered
   if (!h.coded_lossless && !h.allow_intrabc) {
@@ -1520,9 +1541,11 @@ struct Tile {
       int rows = d.lr_rows[p], cols = d.lr_cols[p];
       int row_start = (r * (4 >> sy) + unit - 1) / unit;
       int row_end = std::min(rows, ((r + h) * (4 >> sy) + unit - 1) / unit);
-      int num = 4 >> sx;
-      int col_start = (c * num + unit - 1) / unit;
-      int col_end = std::min(cols, ((c + w) * num + unit - 1) / unit);
+      // the columns in the upscaled frame (5.11.57)
+      int num = (4 >> sx) * (fh.use_superres ? fh.superres_denom : 8);
+      int den = unit * 8;
+      int col_start = (c * num + den - 1) / den;
+      int col_end = std::min(cols, ((c + w) * num + den - 1) / den);
       for (int ur = row_start; ur < row_end; ++ur)
         for (int uc = col_start; uc < col_end; ++uc) read_lr_unit(p, ur, uc);
     }
@@ -3722,6 +3745,14 @@ struct Cdef {
 // ---------------------------------------------------------------------------
 // Loop restoration (spec 7.17)
 
+// A run of rows of one plane that lie in one stripe and one row of units:
+// the rows [y, y + h), the row of units, the stripe's first and last rows
+// and the plane's last column and row.
+struct LrRows {
+  int plane, y, h, unit_row, stripe_start, stripe_end, plane_end_x,
+      plane_end_y;
+};
+
 template <typename Pixel>
 struct Restoration {
   Decoder<Pixel>& d;
@@ -3729,25 +3760,25 @@ struct Restoration {
   Plane<Pixel>* deblocked;  // before CDEF
   Plane<Pixel>* cdefed;     // after CDEF
   Plane<Pixel> out[3];
-  int stripe_start, stripe_end, plane_end_x, plane_end_y;
   Restoration(Decoder<Pixel>& dd, Plane<Pixel>* deb, Plane<Pixel>* cd)
       : d(dd), fh(dd.fh), deblocked(deb), cdefed(cd) {}
 
-  inline int src(int plane, int x, int y) const {
-    x = std::max(0, std::min(plane_end_x, x));
-    y = std::max(0, std::min(plane_end_y, y));
-    if (y < stripe_start) {
-      y = std::max(stripe_start - 2, y);
-      return deblocked[plane].at(x, y);
+  inline int src(const LrRows& r, int x, int y) const {
+    x = std::max(0, std::min(r.plane_end_x, x));
+    y = std::max(0, std::min(r.plane_end_y, y));
+    if (y < r.stripe_start) {
+      y = std::max(r.stripe_start - 2, y);
+      return deblocked[r.plane].at(x, y);
     }
-    if (y > stripe_end) {
-      y = std::min(stripe_end + 2, y);
-      return deblocked[plane].at(x, y);
+    if (y > r.stripe_end) {
+      y = std::min(r.stripe_end + 2, y);
+      return deblocked[r.plane].at(x, y);
     }
-    return cdefed[plane].at(x, y);
+    return cdefed[r.plane].at(x, y);
   }
 
-  void wiener(int plane, const LrUnit& u, int x, int y, int w, int h) {
+  void wiener(const LrRows& rr, const LrUnit& u, int x, int w) {
+    const int plane = rr.plane, y = rr.y, h = rr.h;
     int vf[7], hf[7];
     auto get_filter = [](const int8_t* c, int* f) {
       f[3] = 128;
@@ -3769,7 +3800,7 @@ struct Restoration {
       for (int c = 0; c < w; ++c) {
         int s = 0;
         for (int t = 0; t < 7; ++t)
-          s += hf[t] * src(plane, x + c + t - 3, y + r - 3);
+          s += hf[t] * src(rr, x + c + t - 3, y + r - 3);
         int v = round2(s, round0);
         inter[(size_t)r * w + c] = clip3(-offset, limit - offset, v);
       }
@@ -3781,8 +3812,9 @@ struct Restoration {
       }
   }
 
-  void box_filter(int plane, int x, int y, int w, int h, int set, int pass,
+  void box_filter(const LrRows& rr, int x, int w, int set, int pass,
                   std::vector<int>& F) {
+    const int plane = rr.plane, y = rr.y, h = rr.h;
     int r = g_tab.sgr[set][pass * 2];
     uint32_t s = (uint32_t)g_tab.sgr[set][pass * 2 + 1];
     int n = (2 * r + 1) * (2 * r + 1);
@@ -3796,7 +3828,7 @@ struct Restoration {
         int a = 0, b = 0;
         for (int dy = -r; dy <= r; ++dy)
           for (int dx = -r; dx <= r; ++dx) {
-            int c = src(plane, x + j + dx, y + i + dy);
+            int c = src(rr, x + j + dx, y + i + dy);
             a += c * c;
             b += c;
           }
@@ -3838,12 +3870,13 @@ struct Restoration {
     }
   }
 
-  void self_guided(int plane, const LrUnit& u, int x, int y, int w, int h) {
+  void self_guided(const LrRows& rr, const LrUnit& u, int x, int w) {
+    const int plane = rr.plane, y = rr.y, h = rr.h;
     int set = u.sgr_set;
     int r0 = g_tab.sgr[set][0], r1 = g_tab.sgr[set][2];
     std::vector<int> f0((size_t)w * h), f1((size_t)w * h);
-    if (r0) box_filter(plane, x, y, w, h, set, 0, f0);
-    if (r1) box_filter(plane, x, y, w, h, set, 1, f1);
+    if (r0) box_filter(rr, x, w, set, 0, f0);
+    if (r1) box_filter(rr, x, w, set, 1, f1);
     int w0 = u.xqd[0], w1 = u.xqd[1];
     int w2 = 128 - w0 - w1;
     for (int i = 0; i < h; ++i)
@@ -3857,16 +3890,20 @@ struct Restoration {
       }
   }
 
+  // Each run of rows reads the CDEF output and the deblocked frame and
+  // writes its own rows of the copy, so the runs of every plane go to
+  // parallel_for's threads.
   void run() {
-    for (int p = 0; p < d.planes; ++p) out[p] = cdefed[p];
+    std::vector<LrRows> runs;
     for (int p = 0; p < d.planes; ++p) {
+      out[p] = cdefed[p];
       if (fh.lr_type[p] == RESTORE_NONE) continue;
       int sx = p ? d.ssx : 0, sy = p ? d.ssy : 0;
       int unit = fh.lr_size[p];
-      int unit_rows = d.lr_rows[p], unit_cols = d.lr_cols[p];
-      plane_end_x = round2(fh.upscaled_width, sx) - 1;
-      plane_end_y = round2(fh.height, sy) - 1;
-      int bh = 4 >> sy, bw = 4 >> sx;
+      int unit_rows = d.lr_rows[p];
+      int plane_end_x = round2(fh.upscaled_width, sx) - 1;
+      int plane_end_y = round2(fh.height, sy) - 1;
+      int bh = 4 >> sy;
       // rows of 4x4 (luma) blocks grouped by stripe and unit row
       int y = 0;
       while (y <= plane_end_y) {
@@ -3881,27 +3918,36 @@ struct Restoration {
             break;
           y_end += bh;
         }
-        stripe_start = (-8 + stripe * 64) >> sy;
-        stripe_end = stripe_start + (64 >> sy) - 1;
-        int h = std::min(y_end, plane_end_y + 1) - y;
-        int x = 0;
-        while (x <= plane_end_x) {
-          int unit_col = std::min(unit_cols - 1, x / unit);
-          int x_end = x;
-          while (x_end <= plane_end_x &&
-                 std::min(unit_cols - 1, x_end / unit) == unit_col)
-            x_end += bw;
-          int w = std::min(x_end, plane_end_x + 1) - x;
-          const LrUnit& u =
-              d.lr[p][(size_t)unit_row * unit_cols + unit_col];
-          if (u.type == RESTORE_WIENER)
-            wiener(p, u, x, y, w, h);
-          else if (u.type == RESTORE_SGRPROJ)
-            self_guided(p, u, x, y, w, h);
-          x = x_end;
-        }
+        int stripe_start = (-8 + stripe * 64) >> sy;
+        runs.push_back(LrRows{p, y, std::min(y_end, plane_end_y + 1) - y,
+                              unit_row, stripe_start,
+                              stripe_start + (64 >> sy) - 1, plane_end_x,
+                              plane_end_y});
         y = y_end;
       }
+    }
+    parallel_for((int)runs.size(), [&](int i) { units(runs[i]); });
+  }
+
+  // the units of a run of rows, left to right
+  void units(const LrRows& rr) {
+    int p = rr.plane;
+    int unit = fh.lr_size[p], unit_cols = d.lr_cols[p];
+    int bw = 4 >> (p ? d.ssx : 0);
+    int x = 0;
+    while (x <= rr.plane_end_x) {
+      int unit_col = std::min(unit_cols - 1, x / unit);
+      int x_end = x;
+      while (x_end <= rr.plane_end_x &&
+             std::min(unit_cols - 1, x_end / unit) == unit_col)
+        x_end += bw;
+      int w = std::min(x_end, rr.plane_end_x + 1) - x;
+      const LrUnit& u = d.lr[p][(size_t)rr.unit_row * unit_cols + unit_col];
+      if (u.type == RESTORE_WIENER)
+        wiener(rr, u, x, w);
+      else if (u.type == RESTORE_SGRPROJ)
+        self_guided(rr, u, x, w);
+      x = x_end;
     }
   }
 };
@@ -3953,7 +3999,7 @@ bool next_obu(const uint8_t*& p, const uint8_t* end, Obu& o) {
 struct Result {
   int width, height, layout, bitdepth, mono, color_range, matrix, primaries,
       transfer, allow_sct, allow_intrabc, palette_blocks, intrabc_blocks,
-      filters, qmatrix, film_grain;
+      filters, qmatrix, film_grain, superres_denom;
 };
 
 struct TileJob {
@@ -4047,7 +4093,8 @@ void parse_stream(const uint8_t* data, size_t n, Stream& st, bool tiles) {
       st.fh = FrameHdr();
       parse_frame_header(b, st.seq, st.fh, o.temporal_id, o.spatial_id);
       have_frame = true;
-      res.width = st.fh.width;
+      res.width = st.fh.upscaled_width;
+      res.superres_denom = st.fh.superres_denom;
       res.height = st.fh.height;
       res.mono = st.seq.mono;
       res.layout = st.seq.mono ? 0
@@ -4066,7 +4113,7 @@ void parse_stream(const uint8_t* data, size_t n, Stream& st, bool tiles) {
       res.qmatrix = st.fh.using_qmatrix;
       res.film_grain = st.fh.grain.apply;
       if (!tiles) return;
-      if ((size_t)st.fh.width * st.fh.height > ((size_t)1 << 28))
+      if ((size_t)st.fh.upscaled_width * st.fh.height > ((size_t)1 << 28))
         bad("frame too large");
       num_tiles = st.fh.tile_cols * st.fh.tile_rows;
       if (o.type == 3) continue;
@@ -4120,6 +4167,57 @@ void parse_stream(const uint8_t* data, size_t n, Stream& st, bool tiles) {
   if (tiles && tiles_done != num_tiles) bad("missing tiles");
 }
 
+// ---------------------------------------------------------------------------
+// Upscaling process (spec 7.16): each row of a plane widened from the
+// coded width to UpscaledWidth by the 8-tap Upscale_Filter of 64 phases.
+// The source position steps by stepX in 1/16384 of a sample from
+// initialSubpelX, which centres the rounding error across the row; taps
+// are clamped to the decoded area (MiCols wide, so the columns decoded
+// past FrameWidth take part, as in libdav1d). Rows are independent and run
+// on parallel_for's threads, a band of 32 at a time.
+
+template <typename Pixel>
+void upscale(Decoder<Pixel>& d, Plane<Pixel>* in, Plane<Pixel>* out) {
+  const FrameHdr& fh = d.fh;
+  for (int p = 0; p < d.planes; ++p) {
+    int sx = p ? d.ssx : 0, sy = p ? d.ssy : 0;
+    int down_w = round2(fh.width, sx), up_w = round2(fh.upscaled_width, sx);
+    int plane_h = round2(fh.height, sy);
+    int step = ((down_w << 14) + up_w / 2) / up_w;
+    int err = up_w * step - (down_w << 14);
+    // err halved by a shift (down where it is odd and negative), as
+    // libdav1d has it
+    int x0 = (-((up_w - down_w) << 13) + up_w / 2) / up_w + 128 - (err >> 1);
+    x0 &= 0x3FFF;
+    int max_x = ((d.mi_cols * 4) >> sx) - 1;
+    // each output column's first tap and filter phase
+    std::vector<int> first(up_w);
+    std::vector<uint8_t> phase(up_w);
+    for (int x = 0; x < up_w; ++x) {
+      int64_t pos = -(1 << 14) + x0 + (int64_t)x * step;
+      first[x] = (int)(pos >> 14) - 3;
+      phase[x] = (uint8_t)((pos & 0x3FFF) >> 8);
+    }
+    Plane<Pixel>& O = out[p];
+    Plane<Pixel>& I = in[p];
+    O.stride = up_w;
+    O.buf.assign((size_t)O.stride * plane_h, 0);
+    parallel_for((plane_h + 31) >> 5, [&](int band) {
+      for (int y = band * 32; y < std::min(plane_h, band * 32 + 32); ++y) {
+        const Pixel* src = I.row(y);
+        Pixel* dst = O.row(y);
+        for (int x = 0; x < up_w; ++x) {
+          const int16_t* f = g_tab.upscale[phase[x]];
+          int sum = 0;
+          for (int k = 0; k < 8; ++k)
+            sum += f[k] * src[clip3(0, max_x, first[x] + k)];
+          dst[x] = d.clip1(round2(sum, 7));
+        }
+      }
+    });
+  }
+}
+
 template <typename Pixel>
 void postfilter(Decoder<Pixel>& d) {
   LoopFilter<Pixel> lf(d);
@@ -4132,13 +4230,29 @@ void postfilter(Decoder<Pixel>& d) {
     cdef->run();
     cdefed = cdef->out;
   }
+  // superres: the spec's UpscaledCdefFrame (the output where loop
+  // restoration is off) and UpscaledCurrFrame, the deblocked rows that
+  // restoration's stripes take beyond their edges
+  std::unique_ptr<Plane<Pixel>[]> up_cdef, up_deb;
+  if (d.fh.use_superres) {
+    up_cdef.reset(new Plane<Pixel>[3]);
+    upscale(d, cdefed, up_cdef.get());
+    if (d.fh.uses_lr && cdefed != deblocked) {
+      up_deb.reset(new Plane<Pixel>[3]);
+      upscale(d, deblocked, up_deb.get());
+      deblocked = up_deb.get();
+    } else {
+      deblocked = up_cdef.get();
+    }
+    cdefed = up_cdef.get();
+  }
   if (d.fh.uses_lr) {
     std::unique_ptr<Restoration<Pixel>> lr(
         new Restoration<Pixel>(d, deblocked, cdefed));
     lr->run();
     for (int p = 0; p < d.planes; ++p) d.cur[p] = std::move(lr->out[p]);
-  } else if (cdef) {
-    for (int p = 0; p < d.planes; ++p) d.cur[p] = std::move(cdef->out[p]);
+  } else if (cdefed != d.cur) {
+    for (int p = 0; p < d.planes; ++p) d.cur[p] = std::move(cdefed[p]);
   }
 }
 
@@ -4414,7 +4528,7 @@ void decode_frame(Stream& st, Pixel* y, int ystride, Pixel* u, Pixel* v,
   st.res.palette_blocks = counts.palette;
   st.res.intrabc_blocks = counts.intrabc;
   postfilter(d);
-  int w = d.fh.width, h = d.fh.height;
+  int w = d.fh.upscaled_width, h = d.fh.height;
   if (apply_grain && grain_applies(d.fh.grain)) {
     std::unique_ptr<GrainSynth> gs(
         new GrainSynth(d.fh.grain, d.bitdepth, d.ssx, d.ssy, d.planes, w, h,
@@ -4452,6 +4566,9 @@ struct IkAv1dInfo {
   int32_t filters;
   // the frame header's using_qmatrix and apply_grain
   int32_t qmatrix, film_grain;
+  // SuperresDenom: 8 without superres, else 9..16 (the coded width is
+  // width * 8 / superres_denom, rounded)
+  int32_t superres_denom;
   char reason[120];
 };
 
@@ -4480,6 +4597,7 @@ static void fill(const Result& r, IkAv1dInfo* info) {
   info->filters = r.filters;
   info->qmatrix = r.qmatrix;
   info->film_grain = r.film_grain;
+  info->superres_denom = r.superres_denom;
 }
 
 IK_EXPORT int ik_av1d_tables_size() { return (int)sizeof(Tables); }

@@ -79,6 +79,13 @@ counter]`` (N + 1 entries, the layout of ``av1_tables.npz``):
   by its first eight entries, which must be the specification's, as must
   its last; then found whole in libaom's and SVT-AV1's (as int32) and in
   librav1e's (int16).
+- ``upscale_filter`` (64 x 8, int16): Upscale_Filter, superres' 8-tap
+  filter of 64 phases (7.16). Not retyped: read from libaom's image
+  (``av1_resize_filter_normative``, int16) by its first two rows, which
+  must be the specification's, as must its last; then found negated in
+  libdav1d's (``dav1d_resize_filter``, int8, whose rows cannot hold the
+  +128 of the first) and whole in SVT-AV1's (int16). Each row must sum
+  to 128 and row 64 - k be row k reversed.
 
 Run from the repository root: ``python tests/fixtures/make_av1_dec_tables.py``.
 """
@@ -277,6 +284,9 @@ QM_OFFSET = [0, 16, 80, 336, 336, 1360, 1392, 1424, 1552, 1680, 2192, 336,
 # the specification's first eight and last entries of Gaussian_Sequence
 GAUSS_FIRST = [56, 568, -180, 172, 124, -84, 172, -64]
 GAUSS_LAST = -484
+# the specification's first two and last rows of Upscale_Filter
+UPSCALE_FIRST = [[0, 0, 0, 128, 0, 0, 0, 0], [0, 0, -1, 128, 2, -1, 0, 0]]
+UPSCALE_LAST = [0, 0, -1, 2, 128, -1, 0, 0]
 # (width, height) of the rectangular transforms
 RECT = [(4, 8), (8, 4), (8, 16), (16, 8), (16, 32), (32, 16), (4, 16),
         (16, 4), (8, 32), (32, 8)]
@@ -393,6 +403,26 @@ def gaussian_sequence(img: dict) -> np.ndarray:
         if g.astype(dt).tobytes() not in img[lib]:
             fail(f"gaussian sequence: not whole in {lib}")
     return g.astype(np.int16)
+
+
+def upscale_filter(img: dict) -> np.ndarray:
+    """Upscale_Filter, read from libaom and found in the others."""
+    first = np.array(UPSCALE_FIRST, "<i2").tobytes()
+    at = img["aom"].find(first)
+    if at < 0 or img["aom"].find(first, at + 1) >= 0:
+        fail("upscale filter: not found once in libaom")
+    f = np.frombuffer(img["aom"][at:at + 64 * 16], "<i2").reshape(64, 8)
+    if f[-1].tolist() != UPSCALE_LAST:
+        fail("upscale filter: the last row is not the specification's")
+    if np.any(f.astype(np.int64).sum(1) != 128):
+        fail("upscale filter: a row does not sum to 128")
+    if not np.array_equal(f[1:], f[1:][::-1, ::-1]):
+        fail("upscale filter: row 64 - k is not row k reversed")
+    if (-f.astype(np.int64)).astype("<i1").tobytes() not in img["dav1d"]:
+        fail("upscale filter: not negated in libdav1d")
+    if f.tobytes() not in img["svt"]:
+        fail("upscale filter: not whole in SVT-AV1")
+    return f.astype(np.int16)
 
 
 def main() -> int:
@@ -525,6 +555,14 @@ def main() -> int:
     out["gaussian_sequence"] = gaussian_sequence(img)
     print("gaussian_sequence     found in ['aom', 'dav1d', 'rav1e', 'svt']")
 
+    out["upscale_filter"] = upscale_filter(img)
+    print("upscale_filter        found in ['aom', 'dav1d', 'svt']")
+
+    old = np.load(OUT) if os.path.exists(OUT) else None
+    if old is not None:
+        for k in old.files:
+            if k in out and not np.array_equal(old[k], out[k]):
+                fail(f"{k}: differs from the committed table")
     np.savez_compressed(OUT, **out)
     print("wrote", os.path.relpath(OUT, ROOT))
     return 0

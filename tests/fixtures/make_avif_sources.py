@@ -59,8 +59,18 @@ files; :func:`demux` / :func:`mux` the container edits no writer makes
 0.11.1 only writes: every decode these files are held to is Pillow's
 1.3.0 (or libdav1d's, for the planes of phase 27).
 
+Phase 27's superres files (``--superres``, :data:`SUPERRES`) are
+written by the system's libaom 3 directly (:func:`encode_av1_libaom`,
+ctypes with no headers), since no libavif here takes ``superres-mode``,
+and wrapped by the port's container writer (:func:`av1_avif`): an 8-bit
+4:2:0 picture at SuperresDenom 16 with CDEF and loop restoration, a
+10-bit 4:4:4 one at 11 in 4 tile columns, and an 8-bit 4:2:0 one at 13
+with film grain. Every entry of ``avif_planes.json`` records the
+stream's ``superres_denom`` (8 without superres).
+
 Run from the repository root: ``python tests/fixtures/make_avif_sources.py``
-(phase 27's files) or with ``--pillow`` (phase 28's).
+(phase 27's files), with ``--superres`` (its superres files alone, the
+others left as they are) or with ``--pillow`` (phase 28's).
 """
 
 import ctypes
@@ -111,6 +121,17 @@ HBD = {
     "1080p_12bit_444": (2712, 12, "444", 24, 4, None),
     "1080p_10bit_grain_444": (2715, 10, "444", 24, 6,
                               {"enable-qm": "1", "film-grain-test": "10"}),
+}
+#: superres through libaom (:func:`encode_av1_libaom`, ``--superres``):
+#: name -> (seed, depth, layout, quantizer, SuperresDenom, speed, libaom's
+#: options). Speed 4 turns loop restoration on (switchable and
+#: self-guided in both files); the 10-bit file codes 4 tile columns.
+SUPERRES = {
+    "1080p_superres": (2716, 8, "420", 24, 16, 4, {"enable-cdef": 1}),
+    "1080p_10bit_superres_444": (2717, 10, "444", 28, 11, 4,
+                                 {"enable-cdef": 1, "tile-columns": 2}),
+    "1080p_superres_grain": (2718, 8, "420", 24, 13, 6,
+                             {"film-grain-test": 4}),
 }
 
 
@@ -388,6 +409,176 @@ def encode_avif_grid(cells, cols: int, rows: int, depth: int, layout: str,
             lib.avifEncoderDestroy(enc)
         for img in imgs:
             lib.avifImageDestroy(img)
+
+
+#: libaom 3's ABI, read off its headers' layout (no headers are needed):
+#: the ALL_INTRA usage, the encoder ABI version ``aom_codec_enc_init_ver``
+#: checks, the flag for 16-bit images, and the planar image formats
+#: (``AOM_IMG_FMT_HIGHBITDEPTH`` added for 16-bit samples)
+_AOM_USAGE_ALL_INTRA = 2
+_AOM_ENCODER_ABI_VERSION = 25
+_AOM_CODEC_USE_HIGHBITDEPTH = 0x40000
+_AOM_IMG_FMT = {"420": 0x102, "400": 0x102, "422": 0x105, "444": 0x106}
+_AOM_IMG_FMT_HIGHBITDEPTH = 0x800
+#: indices of ``aom_codec_enc_cfg_t`` read as uint32
+_CFG = {"g_profile": 2, "g_w": 3, "g_h": 4, "g_limit": 5, "g_bit_depth": 8,
+        "g_input_bit_depth": 9, "rc_superres_mode": 19,
+        "rc_superres_denominator": 20, "rc_superres_kf_denominator": 21,
+        "rc_min_quantizer": 35, "rc_max_quantizer": 36, "monochrome": 52}
+
+
+def _aom_lib():
+    """The system's ``libaom.so.3`` with the signatures this module calls,
+    or None where it is not installed."""
+    try:
+        lib = ctypes.CDLL("libaom.so.3")
+    except OSError:
+        return None
+    lib.aom_codec_av1_cx.restype = ctypes.c_void_p
+    lib.aom_codec_enc_config_default.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint]
+    lib.aom_codec_enc_init_ver.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
+        ctypes.c_int]
+    lib.aom_codec_set_option.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                         ctypes.c_char_p]
+    lib.aom_codec_encode.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.c_int64, ctypes.c_ulong,
+                                     ctypes.c_long]
+    lib.aom_codec_get_cx_data.restype = ctypes.c_void_p
+    lib.aom_codec_get_cx_data.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.aom_codec_destroy.argtypes = [ctypes.c_void_p]
+    lib.aom_img_alloc.restype = ctypes.c_void_p
+    lib.aom_img_alloc.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.c_uint, ctypes.c_uint, ctypes.c_uint]
+    lib.aom_img_free.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def _obus(stream: bytes):
+    """(type, whole OBU bytes) of a stream of OBUs that carry their size."""
+    i = 0
+    while i < len(stream):
+        head = stream[i]
+        j = i + (2 if head & 4 else 1)
+        size, shift = 0, 0
+        while True:
+            size |= (stream[j] & 0x7F) << shift
+            shift += 7
+            j += 1
+            if not stream[j - 1] & 0x80:
+                break
+        yield head >> 3 & 15, stream[i:j + size]
+        i = j + size
+
+
+def encode_av1_libaom(y, u, v, depth: int, layout: str, quantizer: int,
+                      superres_denom: int = 8, speed: int = 6, options=None):
+    """An AV1 still (sequence header and one key frame, the temporal
+    delimiter dropped) of the planes, written by the system's libaom 3
+    through ctypes with no headers: the ALL_INTRA usage with ``g_limit``
+    1, as libavif writes an AVIF item (a reduced still-picture header).
+    ``layout`` "420", "422", "444" or "400" (monochrome: ``u`` and ``v``
+    unused); ``depth`` 8 (uint8 planes), 10 or 12 (uint16, through
+    ``AOM_CODEC_USE_HIGHBITDEPTH`` and a 16-bit image); ``quantizer``
+    0..63 for both bounds; ``superres_denom`` 9..16 codes the frame at
+    width * 8 / superres_denom (``rc_superres_mode`` 1, fixed, for key
+    frames too), 8 leaves superres off; ``options`` libaom's keys by name
+    (``tile-columns``, ``enable-cdef``, ``enable-restoration``,
+    ``film-grain-test``, ...), ``cpu-used`` from ``speed``. Neither
+    Pillow's libavif nor the system's takes ``superres-mode``, so this is
+    how superres files are made. None where libaom is not installed.
+    libaom asserts and ends the process on a lossless request with
+    superres (quantizer 0 for both bounds): ask for quantizer bounds of
+    (0, 1) with ``cq-level`` 0 instead, which codes the frame at
+    base_q_idx 0 without the request."""
+    lib = _aom_lib()
+    if lib is None:
+        return None
+    h, w = y.shape
+    iface = ctypes.c_void_p(lib.aom_codec_av1_cx())
+    cfg = (ctypes.c_uint32 * 1024)()  # the struct is about 1.4 kB
+    if lib.aom_codec_enc_config_default(iface, cfg, _AOM_USAGE_ALL_INTRA):
+        return None
+    profile = 2 if depth == 12 or layout == "422" else int(layout == "444")
+    lo, hi = quantizer if isinstance(quantizer, tuple) else (quantizer,) * 2
+    for key, val in (("g_profile", profile), ("g_w", w), ("g_h", h),
+                     ("g_limit", 1), ("g_bit_depth", depth),
+                     ("g_input_bit_depth", depth),
+                     ("rc_superres_mode", int(superres_denom != 8)),
+                     ("rc_superres_denominator", superres_denom),
+                     ("rc_superres_kf_denominator", superres_denom),
+                     ("rc_min_quantizer", lo), ("rc_max_quantizer", hi),
+                     ("monochrome", int(layout == "400"))):
+        cfg[_CFG[key]] = val
+    ctx = ctypes.create_string_buffer(256)
+    hbd = depth > 8
+    if lib.aom_codec_enc_init_ver(ctx, iface, cfg,
+                                  _AOM_CODEC_USE_HIGHBITDEPTH if hbd else 0,
+                                  _AOM_ENCODER_ABI_VERSION):
+        return None
+    img = None
+    try:
+        for key, val in {"cpu-used": str(speed), **(options or {})}.items():
+            if lib.aom_codec_set_option(ctx, key.encode(), str(val).encode()):
+                raise ValueError(f"libaom refuses {key}={val}")
+        fmt = _AOM_IMG_FMT[layout] | (_AOM_IMG_FMT_HIGHBITDEPTH if hbd else 0)
+        img = lib.aom_img_alloc(None, fmt, w, h, 16)
+        planes = (ctypes.c_void_p * 3).from_address(img + 64)
+        strides = (ctypes.c_int * 3).from_address(img + 88)
+        if layout == "400":
+            mid = 1 << (depth - 1)
+            c = np.full(((h + 1) // 2, (w + 1) // 2), mid,
+                        np.uint16 if hbd else np.uint8)
+            u = v = c
+        for i, arr in enumerate((y, u, v)):
+            src = np.ascontiguousarray(arr, np.uint16 if hbd else np.uint8)
+            for row in range(src.shape[0]):
+                ctypes.memmove(planes[i] + row * strides[i],
+                               src.ctypes.data + row * src.strides[0],
+                               src.shape[1] * src.itemsize)
+        out = b""
+        for frame in (img, None):  # the picture, then the flush
+            if lib.aom_codec_encode(ctx, frame, 0, 1, 0):
+                return None
+            it = ctypes.c_void_p()
+            while True:
+                pkt = lib.aom_codec_get_cx_data(ctx, ctypes.byref(it))
+                if not pkt:
+                    break
+                if ctypes.c_int.from_address(pkt).value == 0:  # a frame
+                    buf = ctypes.c_void_p.from_address(pkt + 8).value
+                    n = ctypes.c_size_t.from_address(pkt + 16).value
+                    out += ctypes.string_at(buf, n)
+        return b"".join(o for t, o in _obus(out) if t != 2)
+    finally:
+        if img:
+            lib.aom_img_free(img)
+        lib.aom_codec_destroy(ctx)
+
+
+def av1_avif(obu: bytes, w: int, h: int, depth: int, layout: str,
+             cicp=(1, 13, 6), full_range: bool = False) -> bytes:
+    """An AVIF file around an AV1 still: the port's first-party container
+    (``codecs/av1_container.py::write_avif``) with the sequence header in
+    ``av1C`` and its profile, depth and subsampling bits, and ``pixi``'s
+    depth, set to the stream's."""
+    from imagekit_tpu_torch.codecs.av1_container import write_avif
+
+    seq = next(o for t, o in _obus(obu) if t == 1)
+    data = bytearray(write_avif(obu, w, h, seq_obu=seq, mono=layout == "400",
+                                cicp=cicp, full_range=full_range))
+    profile = 2 if depth == 12 or layout == "422" else int(layout == "444")
+    ssx, ssy = {"420": (1, 1), "400": (1, 1), "422": (1, 0),
+                "444": (0, 0)}[layout]
+    at = data.find(b"av1C") + 4
+    data[at + 1] = (profile << 5) | (data[at + 1] & 31)
+    data[at + 2] = (int(depth > 8) << 6 | int(depth == 12) << 5
+                    | int(layout == "400") << 4 | ssx << 3 | ssy << 2)
+    at = data.find(b"pixi") + 8
+    for i in range(data[at]):
+        data[at + 1 + i] = depth
+    return bytes(data)
 
 
 # -- the container, item by item --------------------------------------------------
@@ -960,15 +1151,85 @@ def main() -> int:
         if name in HBD:
             table[name]["sha256_samples"] = samples_digest(data)
         print(f"{name}: {len(data) / 1e3:.1f} kB, {w}x{h}")
-    with open(os.path.join(OUT, "avif_planes.json"), "w") as f:
+    write_table(table)
+    write_superres_files()
+    return 0
+
+
+def superres_files() -> dict:
+    """The files of :data:`SUPERRES`: ``chip_smoke.synth_image``'s picture
+    as BT.601 planes (:func:`yuv_planes`) at 8 bits, :func:`hbd_planes`'
+    at 10, through :func:`encode_av1_libaom` and :func:`av1_avif`."""
+    import chip_smoke
+
+    out = {}
+    for name, (seed, depth, layout, q, denom, speed, opts) in \
+            SUPERRES.items():
+        if depth == 8:
+            planes = yuv_planes(chip_smoke.synth_image(seed), 8, layout,
+                                0.299, 0.114)
+        else:
+            planes = hbd_planes(seed, depth, layout)
+        h, w = planes[0].shape
+        obu = encode_av1_libaom(*planes, depth, layout, q, denom, speed, opts)
+        if obu is None:
+            raise SystemExit(f"ABORT: libaom did not write {name}")
+        out[name] = av1_avif(obu, w, h, depth, layout)
+    return out
+
+
+def write_table(entries: dict) -> None:
+    """Merges ``entries`` into ``avif_planes.json``, each entry with the
+    probe's ``superres_denom`` (8 without superres)."""
+    from imagekit_tpu.codecs import avif_native as ref_avif
+    from imagekit_tpu_torch.codecs.native import av1_dec_abi
+
+    path = os.path.join(OUT, "avif_planes.json")
+    table = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            table = json.load(f)
+    table.update(entries)
+    for name, entry in table.items():
+        with open(os.path.join(OUT, entry["file"]), "rb") as f:
+            obu = ref_avif.parse_container(f.read()).obu
+        entry["superres_denom"] = av1_dec_abi.probe(obu).superres_denom
+    with open(path, "w") as f:
         json.dump(table, f, indent=1, sort_keys=True)
         f.write("\n")
-    return 0
+
+
+def write_superres_files() -> None:
+    """:func:`superres_files` into ``tests/fixtures/avif/``, their entries
+    (libdav1d's digests, raw samples too at 10 bits) merged into
+    ``avif_planes.json``; the files of the other recipes stay as they
+    are."""
+    from imagekit_tpu.codecs import avif_native as ref_avif
+    from imagekit_tpu_torch.codecs.native import av1_dec_abi
+
+    table = {}
+    for name, data in superres_files().items():
+        head = av1_dec_abi.probe(ref_avif.parse_container(data).obu)
+        if head.superres_denom != SUPERRES[name][4]:
+            raise SystemExit(f"ABORT: {name} does not code superres")
+        with open(os.path.join(OUT, f"{name}.avif"), "wb") as f:
+            f.write(data)
+        w, h, digest = planes_digest(data)
+        table[name] = {"file": f"{name}.avif", "width": w, "height": h,
+                       "sha256": digest, "qmatrix": head.qmatrix,
+                       "film_grain": head.film_grain}
+        if SUPERRES[name][1] > 8:
+            table[name]["sha256_samples"] = samples_digest(data)
+        print(f"{name}: {len(data) / 1e3:.1f} kB, {w}x{h}")
+    write_table(table)
 
 
 if __name__ == "__main__":
     sys.path.insert(0, ROOT)
     if sys.argv[1:] == ["--pillow"]:
         write_pillow_files()
+        sys.exit(0)
+    if sys.argv[1:] == ["--superres"]:
+        write_superres_files()
         sys.exit(0)
     sys.exit(main())

@@ -12,8 +12,11 @@ them (``tests/test_avif_native.py::_mono_avif``); the sweeps of palette
 blocks, intra block copy and 10- and 12-bit streams are in
 ``test_torch_av1_screen_hbd.py``, those of quantizer matrices and film
 grain in ``test_torch_av1_qm_grain.py``. A stream that uses a tool the
-decoder does not build answers ``Av1NotPorted`` (the app's 501): superres,
-from headers written here bit by bit; a quantizer-matrix and a film-grain
+decoder does not build answers ``Av1NotPorted`` (the app's 501): a layered
+stream, from headers written here bit by bit (superres, the 501 of
+these headers before the decoder built it, now probes and wants its
+tiles; its streams are in ``test_torch_av1_superres.py``); a
+quantizer-matrix and a film-grain
 stream from Pillow's writer, which answered 501 before the decoder built
 them, decode exactly. Hostile streams (truncations and
 byte flips of an own, a palette, an intrabc and a 10-bit stream, and an
@@ -307,14 +310,58 @@ def frame_header(allow_sct: int = 0, allow_intrabc: int = 0,
     return obu(3, b.bytes())
 
 
+def layered_stream(w: int = 64, h: int = 64) -> bytes:
+    """A stream of a full (not reduced) sequence header whose operating
+    point 0 selects temporal layer 0 of spatial layer 0
+    (operating_point_idc 0x101: a layered, scalable stream), then the
+    first bits of a shown KEY_FRAME's header."""
+    b = BitWriter()
+    b.f(0, 3)       # seq_profile
+    b.f(1, 1)       # still_picture
+    b.f(0, 1)       # reduced_still_picture_header
+    b.f(0, 1)       # timing_info_present_flag
+    b.f(0, 1)       # initial_display_delay_present_flag
+    b.f(0, 5)       # operating_points_cnt_minus_1
+    b.f(0x101, 12)  # operating_point_idc[0]
+    b.f(0, 5)       # seq_level_idx[0]
+    b.f(15, 4)
+    b.f(15, 4)      # frame width / height bits - 1
+    b.f(w - 1, 16)
+    b.f(h - 1, 16)
+    b.f(0, 1)       # frame_id_numbers_present_flag
+    b.f(0, 3)       # 128x128 superblocks, filter intra, intra edge filter
+    b.f(0, 4)       # interintra, masked compound, warped motion, dual filter
+    b.f(0, 1)       # enable_order_hint
+    b.f(0, 1)       # seq_choose_screen_content_tools
+    b.f(0, 1)       # seq_force_screen_content_tools
+    b.f(0, 3)       # superres, CDEF, restoration
+    b.f(0, 1)       # high_bitdepth
+    b.f(0, 1)       # mono_chrome
+    b.f(0, 1)       # color_description_present_flag
+    b.f(0, 1)       # color_range
+    b.f(0, 2)       # chroma_sample_position
+    b.f(0, 1)       # separate_uv_delta_q
+    b.f(0, 1)       # film_grain_params_present
+    b.trailing_bits()
+    f = BitWriter()
+    f.f(0, 1)  # show_existing_frame
+    f.f(0, 2)  # KEY_FRAME
+    f.f(1, 1)  # show_frame
+    f.f(0, 1)  # disable_cdf_update
+    f.f(0, 1)  # frame_size_override_flag
+    f.f(0, 1)  # render_and_frame_size_different
+    f.f(0, 64)
+    f.trailing_bits()
+    return obu(1, b.bytes()) + obu(3, f.bytes())
+
+
 def remainder_avif(w: int = 64, h: int = 48) -> bytes:
-    """A whole AVIF file whose stream uses superres: a source of the
-    remainder, which the port answers with 501 (the container is the
-    port's first-party writer's)."""
+    """A whole AVIF file whose stream is layered (:func:`layered_stream`):
+    a source of the remainder, which the port answers with 501 (the
+    container is the port's first-party writer's)."""
     from imagekit_tpu_torch.codecs.av1_container import write_avif
 
-    return write_avif(seq_header(w, h, superres=1)
-                      + frame_header(use_superres=1), w, h)
+    return write_avif(layered_stream(w, h), w, h)
 
 
 def intrabc_outside_tile() -> bytes:
@@ -352,17 +399,18 @@ def intrabc_outside_tile() -> bytes:
 
 @pytest.mark.parametrize("stream, reason", [
     (lambda: seq_header(high_bitdepth=1) + frame_header(), None),
-    (lambda: seq_header(superres=1) + frame_header(use_superres=1),
-     "superres"),
+    (lambda: seq_header(superres=1) + frame_header(use_superres=1), None),
     (lambda: seq_header() + frame_header(allow_sct=1, allow_intrabc=1),
      None),
     (lambda: seq_header() + frame_header(qm=1), None),
-], ids=["10-bit", "superres", "intrabc", "quantizer matrices"])
+    (layered_stream, "layered"),
+], ids=["10-bit", "superres", "intrabc", "quantizer matrices", "layered"])
 def test_remainder_from_headers(stream, reason):
-    """Tools gated at the headers answer before any tile decodes; 10-bit
-    streams, intra block copy and quantizer matrices are built: their
-    headers probe, and these streams, which carry no tile, do not decode
-    (as in libdav1d)."""
+    """Tools gated at the headers answer before any tile decodes: a
+    layered stream. 10-bit streams, superres (here SuperresDenom 16 of a
+    64-wide frame: a coded width of 32), intra block copy and quantizer
+    matrices are built: their headers probe, and these streams, which
+    carry no tile, do not decode (as in libdav1d)."""
     if reason is not None:
         with pytest.raises(av1_dec_abi.Av1NotPorted, match=reason):
             av1_dec_abi.probe(stream())
@@ -371,9 +419,10 @@ def test_remainder_from_headers(stream, reason):
         return
     head = av1_dec_abi.probe(stream())
     assert (head.bitdepth, head.screen_content, head.intrabc,
-            head.qmatrix) in ((10, False, False, False),
-                              (8, True, True, False),
-                              (8, False, False, True))
+            head.qmatrix, head.superres_denom) in (
+                (10, False, False, False, 8), (8, False, False, False, 16),
+                (8, True, True, False, 8), (8, False, False, True, 8))
+    assert head.width == 64
     with pytest.raises(ValueError, match="missing tiles"):
         av1_dec_abi.decode(stream())
     if ref_avif.decode_available():
@@ -392,9 +441,11 @@ def test_probe_reads_the_headers():
 
 def tool_streams() -> dict:
     """Small streams of a palette, an intrabc and a 10-bit frame, where
-    Pillow's writer and libavif are at hand (the hostile cases' seeds)."""
+    Pillow's writer and libavif are at hand, and of a superres frame with
+    CDEF and loop restoration, where libaom is (the hostile cases'
+    seeds)."""
     from imagekit_tpu_torch.codecs.avif_native import parse_container
-    from tests.fixtures.make_avif_sources import encode_avif_hbd
+    from tests.fixtures.make_avif_sources import _aom_lib, encode_avif_hbd
     from tests.test_torch_av1_screen_hbd import flat_logo, ui_text
 
     out = {}
@@ -409,13 +460,21 @@ def tool_streams() -> dict:
     ten = encode_avif_hbd(y, c, c, 10, "420", 30)
     if ten is not None:
         out["10bit"] = ten
-    return {k: parse_container(v).obu for k, v in out.items()}
+    streams = {k: parse_container(v).obu for k, v in out.items()}
+    if _aom_lib() is not None:
+        from tests.test_torch_av1_superres import stream
+
+        streams["superres"] = stream(160, 96, denom=12, seed=4, speed=4,
+                                     **{"enable-cdef": 1})
+    return streams
 
 
 def hostile_streams():
     """Truncations and byte flips of real streams (the port's own encoder's,
-    and a palette, an intrabc and a 10-bit one where their writers are at
-    hand), an intrabc vector outside its tile, and garbage."""
+    and a palette, an intrabc, a 10-bit and a superres one where their
+    writers are at hand), an intrabc vector outside its tile, garbage, and
+    superres headers spliced to denominators and widths their tiles were
+    not coded for (``test_torch_av1_superres.hostile_superres_streams``)."""
     data = avif_encode.encode_rgb(synth(96, 64, seed=2), 60)
     from imagekit_tpu_torch.codecs.avif_native import parse_container
 
@@ -431,6 +490,12 @@ def hostile_streams():
             for i in rng.integers(0, len(m), 3):
                 m[i] ^= int(rng.integers(1, 256))
             out.append(bytes(m))
+    from tests.fixtures.make_avif_sources import _aom_lib
+
+    if _aom_lib() is not None:
+        from tests.test_torch_av1_superres import hostile_superres_streams
+
+        out += hostile_superres_streams()
     return out
 
 

@@ -127,6 +127,7 @@ class HeaderReader:
         assert self.f(1), "not a reduced still-picture header"
         self.f(5)
         wb, hb = self.f(4) + 1, self.f(4) + 1
+        s["width_bits"] = wb
         s["w"], s["h"] = self.f(wb) + 1, self.f(hb) + 1
         s["sb128"], _, _ = self.f(1), self.f(1), self.f(1)
         s["superres"], s["cdef"], s["lr"] = self.f(1), self.f(1), self.f(1)
@@ -165,18 +166,26 @@ class HeaderReader:
         return s
 
     def frame(self, s: dict) -> int:
-        """Reads up to the film grain params; returns where they start."""
+        """Reads up to the film grain params; returns where they start.
+        ``self.info`` then holds what was read of the frame: the coded
+        width (``frame_width``, downscaled by superres), ``superres_denom``,
+        ``base_q_idx``, ``coded_lossless`` and the planes' restoration
+        types (``lr_types``: 0 none, 1 Wiener, 2 self-guided, 3
+        switchable)."""
         planes = 1 if s["mono"] else 3
         self.f(1)
         sct = self.f(1)
         if sct:
             self.f(1)
-        if s["superres"]:
-            assert not self.f(1), "superres"
+        width, denom, denom_bit = s["w"], 8, None
+        if s["superres"] and self.f(1):
+            denom_bit = self.pos
+            denom = self.f(3) + 9
+            width = max((s["w"] * 8 + denom // 2) // denom, min(16, s["w"]))
         if self.f(1):
             self.f(32)
-        intrabc = self.f(1) if sct else 0
-        mi_cols = 2 * ((s["w"] + 7) >> 3)
+        intrabc = self.f(1) if sct and width == s["w"] else 0
+        mi_cols = 2 * ((width + 7) >> 3)
         mi_rows = 2 * ((s["h"] + 7) >> 3)
         shift = 5 if s["sb128"] else 4
         sb_cols = (mi_cols + (1 << shift) - 1) >> shift
@@ -258,7 +267,9 @@ class HeaderReader:
             self.f(2)
             for _ in range(1 << self.f(2)):
                 self.f(6 if planes == 1 else 12)
-        if not coded_lossless and not intrabc and s["lr"]:
+        types = [0] * planes
+        if not (coded_lossless and width == s["w"]) and not intrabc \
+                and s["lr"]:
             types = [self.f(2) for _ in range(planes)]
             if any(types):
                 if s["sb128"]:
@@ -270,6 +281,10 @@ class HeaderReader:
         if not coded_lossless:
             self.f(1)
         self.f(1)
+        self.info = {"frame_width": width, "superres_denom": denom,
+                     "denom_bit": denom_bit,
+                     "base_q_idx": base_q, "coded_lossless": coded_lossless,
+                     "lr_types": [(0, 3, 1, 2)[t] for t in types]}
         return self.pos
 
     def grain(self, s: dict) -> dict:

@@ -627,8 +627,8 @@ def test_committed_fixtures_hold_the_port_to_libdav1d(name):
     info = avif_native.parse_container(data)
     assert (info.width, info.height) == (entry["width"], entry["height"])
     head = av1_dec_abi.probe(info.obu)
-    assert (head.qmatrix, head.film_grain) == (entry["qmatrix"],
-                                               entry["film_grain"])
+    assert (head.qmatrix, head.film_grain, head.superres_denom) == (
+        entry["qmatrix"], entry["film_grain"], entry["superres_denom"])
     ours = hashlib.sha256()
     for p in av1_dec_abi.decode(info.obu)[:3]:
         ours.update(p.tobytes())

@@ -1706,6 +1706,8 @@ def test_av1_decoder_gives_libdav1d_planes_on_the_cards_host():
         if info.alpha_obu:
             digest.update(av1_dec_abi.decode(info.alpha_obu)[0].tobytes())
         assert digest.hexdigest() == entry["sha256"], name
+        assert av1_dec_abi.probe(info.obu).superres_denom == entry[
+            "superres_denom"], name
         if "sha256_samples" in entry:  # 10 and 12 bits: the raw planes
             raw = hashlib.sha256()
             for p in av1_dec_abi.decode_samples(info.obu)[:3]:

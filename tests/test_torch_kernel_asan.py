@@ -28,10 +28,11 @@ a buffer of its exact size so that a read past it is caught.
 The port's AV1 decoder (``av1_decode.cpp``) runs under the same sanitizers
 on real streams (Pillow's and the port's encoders: 4:2:0, 4:2:2, 4:4:4,
 loop restoration, CDEF, alpha, odd sizes, quantizer matrices and film
-grain at 8 and 10 bits), whose planes must equal the normal build's, and
-on hostile ones (truncations, byte flips, garbage, headers that claim the
-largest frame, grain params libdav1d refuses), which decode or are
-refused.
+grain at 8 and 10 bits, superres from libaom), whose planes must equal
+the normal build's, and on hostile ones (truncations, byte flips,
+garbage, headers that claim the largest frame, grain params libdav1d
+refuses, superres headers spliced to other denominators and widths),
+which decode or are refused.
 
 The YUV -> RGB of the AVIFs the reference hands to Pillow
 (``avif_yuv_rgb.cpp``) runs under them too, on every path it takes:
@@ -895,6 +896,13 @@ def test_av1_decoder_under_address_sanitizer(tmp_path):
     assert set(res) == set(cases)
     assert res["huge"] == "400"
     assert res["h4"] == "400"  # hostile_streams' intrabc vector off its tile
+    from tests.fixtures.make_avif_sources import _aom_lib
+
+    if _aom_lib() is not None:  # the superres seed and its splices ran
+        from tests.test_torch_av1_superres import hostile_superres_streams
+
+        assert "tool_superres" in good
+        assert set(hostile_superres_streams()) <= set(hostile.values())
     if not _qm_grain_writers():
         pytest.skip("Pillow's AVIF writer or libavif unavailable: the QM "
                     "and grain cases were not written")

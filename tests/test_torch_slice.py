@@ -169,7 +169,7 @@ def test_cuda_device_is_never_implicit():
 def test_off_slice_requests_raise_not_ported(case):
     """Each request outside the ported slices raises NotPortedError naming
     its ROADMAP item (an AVIF source of the decoder's remainder, here a
-    stream with superres, is what is left); an RGB PNG, a
+    layered stream, is what is left); an RGB PNG, a
     JPEG to JPEG, AVIF output, a downscale under 2x (k=8), a lossy WebP
     source, an RGBA PNG (the plain RGB head) and a request with no resize,
     once off the slice, are now served."""
