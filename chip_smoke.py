@@ -5784,6 +5784,66 @@ def pillow_avif_case(data: bytes) -> dict:
             "bytes": len(data)}
 
 
+@functools.lru_cache(maxsize=None)
+def remainder_avif_sources() -> dict:
+    """Phase 28's files of the last remainder (``tests/fixtures/
+    make_avif_sources.py --remainder``: libavif 0.11.1's and libaom's
+    writers, spliced), with the path the reference takes for each
+    (``native``: libdav1d's first picture; ``pillow``) and the digest of
+    the array it decodes, taken where they were made: name -> (bytes,
+    entry)."""
+    with open(os.path.join(AVIF_FIXTURES, "remainder_arrays.json")) as f:
+        table = json.load(f)
+    out = {}
+    for name, entry in table.items():
+        with open(os.path.join(AVIF_FIXTURES, entry["file"]), "rb") as f:
+            out[name] = (f.read(), entry)
+    return out
+
+
+def remainder_avif_case(data: bytes, entry: dict) -> dict:
+    """The port's decode of one file of the last remainder on the host:
+    the array's digest (through ``avif_native.decode_rgb`` for the file
+    the native path serves, whose planes' digest is libdav1d's too, else
+    ``avif_libavif``), the decode's ms alone (the least of three) and of 8
+    decodes at once on 8 threads (the least of three: the engine's codec
+    pool decodes a batch's files so)."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from imagekit_tpu_torch.codecs import avif_libavif, avif_native
+    from imagekit_tpu_torch.codecs.native import av1_dec_abi
+
+    native = entry["path"] == "native"
+    decode = (avif_native.decode_rgb if native
+              else avif_libavif.decode_pillow_rgb)
+    arr = decode(data)
+    if arr is None:
+        raise RuntimeError("the port's native path declines a file it serves")
+    case = {"sha256": hashlib.sha256(arr.tobytes()).hexdigest(),
+            "mode": "RGBA" if arr.shape[2] == 4 else "RGB",
+            "shape": arr.shape, "bytes": len(data)}
+    if native:
+        h = hashlib.sha256()
+        obu = avif_native.parse_container(data).obu
+        y, u, v, info = av1_dec_abi.decode(obu)
+        for p in (y, u, v):
+            h.update(np.ascontiguousarray(p).tobytes())
+        case["planes_sha256"] = h.hexdigest()
+        case["frames"], case["spatial_id"] = info.frames, info.spatial_id
+    best1 = best8 = float("inf")
+    with ThreadPoolExecutor(8) as pool:
+        for _ in range(3):
+            t0 = time.perf_counter()
+            decode(data)
+            best1 = min(best1, time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            list(pool.map(decode, [data] * 8))
+            best8 = min(best8, time.perf_counter() - t0)
+    case["decode_ms"], case["decode8_ms"] = best1 * 1e3, best8 * 1e3
+    return case
+
+
 def k2_pixels_case(call, head: str, what: str) -> dict:
     """K2 at a captured RGB-head batch: ``rgb_resize`` (``head`` "yuv" or
     "jpg": ``resample_rgb_yuv_batch`` / ``resample_rgb_jpeg_batch``'s
@@ -5847,13 +5907,23 @@ def phase_pillow_avifs(card: str) -> dict:
     then ``avif_yuv_rgb.cpp``: libavif 1.3.0's and libyuv's YUV -> RGB):
     its array's SHA-256 must be Pillow's, taken where the files were
     made. K2 against its plain version at each file's RGB-head batch,
-    the grid's 3424 x 4352 -> 368 x 400 bucket included. Then rounds
-    through one engine (the grid at 4 requests, the AVIF output at 2, the
-    others at 8), counts reset before each, each run once, traced: the
-    decode on the codec pool (``batcher.decode``), ONE K2 launch a batch
-    (``rgb_resize``, or ``rgba_resize`` for the alpha), the encode."""
+    the grid's 3424 x 4352 -> 368 x 400 bucket included. Then the files
+    of the last remainder (``remainder_arrays.json``): a 1080p item coded
+    at 960 x 540 and the 12 MP grid with its cells coded at half size
+    (libavif scales both to their ispe: ``avif_scale.cpp``), a 1080p grid
+    with an alpha item a cell, and two layered streams, whose base layer
+    is at the full size (the reference's native path, libdav1d's first
+    picture: the YUV head) or at half size (libavif's top layer): each
+    array against the reference's digest (and libdav1d's planes for the
+    native one), decoded alone and 8 at once, K2 at each one's batch. Then
+    rounds through one engine (the first grid at 4 requests, the AVIF
+    outputs at 2, the others at 8), counts reset before each, each run
+    once, traced: the decode on the codec pool (``batcher.decode``, or
+    ``avif_decode`` for the native file), ONE K2 launch a batch
+    (``rgb_resize``, ``rgba_resize`` for the alpha, ``yuv_resize`` for
+    the native file), the encode."""
     from imagekit_tpu_torch.config import ImageFormat
-    from imagekit_tpu_torch.serving import engine_rgb
+    from imagekit_tpu_torch.serving import engine_rgb, engine_yuv
 
     W, J, A = ImageFormat.webp, ImageFormat.jpeg, ImageFormat.avif
     t0 = time.perf_counter()
@@ -5929,6 +5999,97 @@ def phase_pillow_avifs(card: str) -> dict:
         ("1080p premultiplied RGBA AVIF -> w=160 AVIF, alpha kept",
          src("1080p_rgba_premultiplied"), 2, 160, A, (160, 90),
          {"k2_rgba": "batch"}),
+    ]
+    # the last remainder: items and cells libavif rescales to their ispe,
+    # a grid with an alpha item a cell, two layered streams
+    t0 = time.perf_counter()
+    rest = remainder_avif_sources()
+    steps["remainder sources"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name, (data, entry) in rest.items():
+        case = remainder_avif_case(data, entry)
+        if (case["sha256"], case["mode"]) != (entry["sha256"], entry["mode"]):
+            raise RuntimeError(f"the port's decode of {name} is not the "
+                               f"reference's array ({case['mode']} "
+                               f"{case['sha256']} != {entry['mode']} "
+                               f"{entry['sha256']})")
+        if case.get("planes_sha256") != entry.get("planes_sha256"):
+            raise RuntimeError(f"the port's planes of {name} are not "
+                               "libdav1d's")
+        decodes[name] = case
+        how = ("libdav1d's first picture (the base layer), planes = "
+               "libdav1d's" if entry["path"] == "native" else
+               "array = Pillow's")
+        log(f"    {name} ({entry['recipe']}; {case['bytes'] / 1e3:.1f} kB, "
+            f"{case['mode']} {case['shape'][1]}x{case['shape'][0]}): {how} "
+            f"(SHA-256 {case['sha256'][:16]}...), decode "
+            f"{case['decode_ms']:.2f} ms alone, 8 at once "
+            f"{case['decode8_ms']:.2f} ms wall on 8 threads, on the host "
+            f"[{card}]")
+    steps["remainder decode checks"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    captures = (("coded_540p", "1080p_coded_540p", W, 8,
+                 "resample_rgb_yuv_batch", "yuv",
+                 "960x540 stream under a 1080p ispe, scaled, RGB"),
+                ("grid_half_cells", "4032x3024_grid_half_cells", W, 8,
+                 "resample_rgb_yuv_batch", "yuv",
+                 "12 MP grid of half-size cells, scaled, RGB"),
+                ("cell_alpha", "1080p_grid_cell_alpha", W, 8,
+                 "resample_bucketed_flat", "flat",
+                 "grid with an alpha item a cell, RGBA"),
+                ("cell_alpha_avif", "1080p_grid_cell_alpha", A, 2,
+                 "resample_bucketed_flat", "flat",
+                 "grid with an alpha item a cell, RGBA to w=160 AVIF"),
+                ("layered_half", "1080p_layered_half_base", W, 8,
+                 "resample_rgb_yuv_batch", "yuv",
+                 "layered, half-size base: the top layer, RGB"))
+    for entry, name, fmt, batch, fn_name, head, what in captures:
+        width = 160 if fmt == A else 400
+        with quick_avif_encodes():
+            call = capture_batch([rest[name][0]], width, batch, fn_name,
+                                 module=engine_rgb, fmt=fmt)
+        case = k2_pixels_case(call, head, what)
+        k2[entry] = case
+        log(f"  K2 vs plain, {what} (B={case['B']}: {case['shape']}): "
+            f"max|d|={case['max_abs_err']}; device time per call K2 "
+            f"{case['ms']:.4f} ms vs plain {case['plain_ms']:.4f} ms vs einsum "
+            f"{case['library_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
+            f"({case['bound_by']}), K2 at {case['bound_ms'] / case['ms']:.1%} "
+            f"of it [{card}]")
+    with quick_avif_encodes():
+        call = capture_batch([rest["1080p_layered_full_base"][0]], 400, 8,
+                             "resize_yuv420_batch", module=engine_yuv, fmt=W)
+    what = "layered, full-size base: the base layer, 4:2:0"
+    case = k2_avif_case(call, what)
+    k2["layered_full"] = case
+    log(f"  K2 vs plain, {what} (B={case['B']}: {case['planes']}): "
+        f"max|d|={case['max_abs_err']}; device time per call K2 "
+        f"{case['ms']:.4f} ms vs plain {case['plain_ms']:.4f} ms vs einsum "
+        f"{case['library_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
+        f"({case['bound_by']}), K2 at {case['bound_ms'] / case['ms']:.1%} "
+        f"of it [{card}]")
+    steps["remainder K2 batches"] = time.perf_counter() - t0
+
+    def rsrc(name):
+        return [rest[name][0]]
+
+    rounds += [
+        ("1080p AVIF coded at 960x540 (libavif scales it) -> w=400 WebP",
+         rsrc("1080p_coded_540p"), 8, 400, W, out, {"k2": "batch"}),
+        ("12 MP grid AVIF of half-size cells -> w=400 WebP",
+         rsrc("4032x3024_grid_half_cells"), 8, 400, W, (400, 300),
+         {"k2": "batch"}),
+        ("1080p grid AVIF with an alpha item a cell -> w=400 WebP",
+         rsrc("1080p_grid_cell_alpha"), 8, 400, W, out,
+         {"k2_rgba": "batch"}),
+        ("1080p grid AVIF with an alpha item a cell -> w=160 AVIF, alpha "
+         "kept", rsrc("1080p_grid_cell_alpha"), 2, 160, A, (160, 90),
+         {"k2_rgba": "batch"}),
+        ("1080p layered AVIF, full-size base (native path) -> w=400 WebP",
+         rsrc("1080p_layered_full_base"), 8, 400, W, out, {"k2": "batch"}),
+        ("1080p layered AVIF, half-size base (the top layer) -> w=400 WebP",
+         rsrc("1080p_layered_half_base"), 8, 400, W, out, {"k2": "batch"}),
     ]
     summary = drive_rounds(rounds, card, steps)
     summary["decodes"] = decodes
@@ -6136,9 +6297,11 @@ def main() -> int:
 
     begin("[28] the AVIFs the reference hands to Pillow: a 12 MP grid, "
           "10-bit BT.2020, a lossless identity-matrix file, an ICC profile "
-          "with no nclx, premultiplied alpha; libavif's container and YUV -> "
-          "RGB on the host (arrays against Pillow's digests), the RGB head "
-          "(K2), BatchedEngine(device='cuda').transform")
+          "with no nclx, premultiplied alpha; items and grid cells libavif "
+          "rescales, a grid with an alpha item a cell, layered streams; "
+          "libavif's container, scaler and YUV -> RGB on the host (arrays "
+          "against Pillow's digests), the RGB and YUV heads (K2), "
+          "BatchedEngine(device='cuda').transform")
     avif28 = phase_pillow_avifs(card)
     end_phase()
     log("    seconds a phase (heading to heading): " + ", ".join(
@@ -6180,7 +6343,8 @@ def main() -> int:
         **{f"pillow_avif_{entry}": {key: avif28["k2"][entry][key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")} for entry in ("grid", "hdr_2020", "identity",
-                                         "icc_only")},
+                                         "icc_only", "coded_540p",
+                                         "grid_half_cells", "layered_half")},
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
@@ -6317,6 +6481,11 @@ def main() -> int:
                                          "grain", "10bit_grain_444",
                                          "superres", "superres_444",
                                          "superres_grain")},
+        # phase 28's layered file with a full-size base (the native path)
+        "avif_layered_full_b8": {key: avif28["k2"]["layered_full"][key]
+                                 for key in ("max_abs_err", "ms", "plain_ms",
+                                             "bound_ms", "bound_by",
+                                             "library_ms")},
     }, {
         "name": "rgba_resize (K2, 4 channels in one launch, interleaved out: "
                 "the plain RGB head of sources with alpha)",
@@ -6332,7 +6501,8 @@ def main() -> int:
         **{f"pillow_avif_{entry}": {key: avif28["k2"][entry][key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")} for entry in ("premultiplied",
-                                         "premultiplied_avif")},
+                                         "premultiplied_avif", "cell_alpha",
+                                         "cell_alpha_avif")},
         **{key: k2_rgba[key] for key in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by", "library_ms")},
     }, {

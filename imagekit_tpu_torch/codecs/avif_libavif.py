@@ -15,10 +15,18 @@ module is the port's counterpart of that call, in four steps:
    takes (the first ``auxl`` item for the colour item whose ``auxC`` names
    alpha); ``colr`` ``nclx``, ``prof`` and ``rICC``;
 2. each AV1 item or cell through the port's decoder
-   (:mod:`.native.av1_dec_abi`) at the stream's own depth, a grid's cells
-   on threads; a grid stitched in YUV as libavif stitches it (chroma
-   upsampling then crosses the cells' seams) and cropped to its output
-   size; a limited-range alpha stream taken to full range;
+   (:mod:`.native.av1_dec_abi`) at the stream's own depth, with the layer
+   choice libavif makes when Pillow leaves progressive decoding off: the
+   ``a1op`` operating point, and the highest spatial layer (libdav1d's
+   ``all_layers`` off) or the one ``lsel`` names, fed the bytes ``a1lx``
+   gives that layer; a limited-range alpha stream taken to full range;
+   a stream that is not its item's ``ispe`` size rescaled to it as libavif
+   rescales it (:mod:`.native.avif_scale`, libyuv's ``ScalePlane``); a
+   grid's cells on threads, stitched in YUV as libavif stitches them
+   (chroma upsampling then crosses the cells' seams) and cropped to the
+   output size; an alpha grid made of one ``auxl`` item a colour cell
+   where the colour grid has no alpha item of its own
+   (``avifMetaFindAlphaItem``);
 3. YUV -> RGB(A) in :mod:`.native.avif_yuv_rgb`, libavif's and libyuv's
    arithmetic, with the colour description libavif settles on: the
    ``nclx`` box's, else the first stream's sequence header's;
@@ -30,10 +38,8 @@ module is the port's counterpart of that call, in four steps:
 
 Files libavif refuses raise TransformError with the words Pillow reports
 (the reference's 400). What the port does not build raises NotPortedError
-naming ROADMAP queue 1 item 8 (the app's 501): an AV1 tool the decoder
-lacks (inter or layered frames), an item whose ``ispe`` is not
-its stream's size (libavif rescales it), an alpha grid made of one alpha
-item per colour cell.
+naming ROADMAP queue 1 item 12 (the app's 501): a stream whose output
+frame is an inter frame (inter prediction).
 """
 
 from __future__ import annotations
@@ -46,17 +52,18 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 
 from imagekit_tpu_torch.codecs.avif_native import (
-    ROADMAP_ITEM,
+    INTER_ITEM,
     _boxes,
     undecodable_message,
+)
+from imagekit_tpu_torch.codecs.native.avif_scale import (
+    DIMENSION_LIMIT,
+    SIZE_LIMIT,
 )
 from imagekit_tpu_torch.errors import NotPortedError, TransformError
 
 #: Pillow's ``Image.MAX_IMAGE_PIXELS``: twice this is its ceiling
 PILLOW_MAX_PIXELS = 89_478_485
-#: libavif's ``AVIF_DEFAULT_IMAGE_SIZE_LIMIT`` and dimension limit
-SIZE_LIMIT = 16384 * 16384
-DIMENSION_LIMIT = 32768
 _ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
                b"urn:mpeg:hevc:2015:auxid:1")
 _I400, _I420, _I422, _I444 = 0, 1, 2, 3
@@ -92,6 +99,9 @@ class _Item:
     dimg_idx: int = 0
     aux_for: int = 0
     prem_by: int = 0
+    #: an alpha grid libavif makes of one auxl item a colour cell: the
+    #: colour grid's (rows, cols, width, height) and the alpha cells
+    synth: Optional[Tuple[Tuple[int, int, int, int], List["_Item"]]] = None
 
     def prop(self, typ: bytes):
         """The first associated property of that type, or None."""
@@ -180,19 +190,42 @@ def _read(data: bytes) -> _File:
                     assoc += _read_ipma(data, a2, b2)
     if primary is None:
         raise ValueError("no pitm")
+    for t, a, b in props:
+        _check_layer_property(data, t, a, b)
     seen = set()
     for iid, idxs in assoc:
         if iid in seen:
             raise ValueError("an item associated twice in ipma")
         seen.add(iid)
         it = get(iid)
-        for idx, _essential in idxs:
+        for idx, essential in idxs:
             if idx == 0:
                 continue
             if idx > len(props):
                 raise ValueError("ipma names a property ipco lacks")
+            # a1op and lsel must be essential, a1lx must not be
+            if (props[idx - 1][0] in (b"a1op", b"lsel")) != essential and \
+                    props[idx - 1][0] in (b"a1op", b"lsel", b"a1lx"):
+                raise _Fail(UNIDENTIFIED)
             it.props.append(props[idx - 1])
     return _File(data, primary, items, idat)
+
+
+def _check_layer_property(data: bytes, t: bytes, a: int, b: int) -> None:
+    """libavif's parse of the AV1 layer properties in ipco: an a1op's
+    operating point at most 31, an lsel's layer id, an a1lx's reserved
+    bits 0 and its three sizes; Pillow reports a failure as an
+    unidentified file."""
+    need = {b"a1op": 1, b"lsel": 2, b"a1lx": 1}.get(t)
+    if need is None:
+        return
+    if b - a < need:
+        raise _Fail(UNIDENTIFIED)
+    if t == b"a1op" and data[a] > 31:
+        raise _Fail(UNIDENTIFIED)
+    if t == b"a1lx" and (data[a] & 0xFE or
+                         b - a < 1 + 3 * (4 if data[a] & 1 else 2)):
+        raise _Fail(UNIDENTIFIED)
 
 
 def _read_iloc(data: bytes, a: int, b: int, get) -> None:
@@ -278,7 +311,10 @@ def _ispe(f: _File, item: _Item) -> Tuple[int, int]:
     p = item.prop(b"ispe")
     if p is None or p[2] - p[1] < 12:
         raise _Fail(UNIDENTIFIED)  # libavif: the mandatory ispe is missing
-    return _u(f.data, p[1] + 4, 4), _u(f.data, p[1] + 8, 4)
+    w, h = _u(f.data, p[1] + 4, 4), _u(f.data, p[1] + 8, 4)
+    if w == 0 or h == 0:
+        raise _Fail(UNIDENTIFIED)  # an image of no size
+    return w, h
 
 
 def _av1c(f: _File, item: _Item) -> Optional[bytes]:
@@ -337,6 +373,9 @@ class _Grid:
 def _grid(f: _File, item: _Item) -> _Grid:
     """avifParseImageGridBox and the dimg checks of
     avifDecoderItemReadAndParse / avifDecoderGenerateImageGridTiles."""
+    if item.synth is not None:
+        (rows, cols, ow, oh), order = item.synth
+        return _grid_cells(f, rows, cols, ow, oh, order)
     p = f.payload(item)
     if len(p) < 8 or p[0] != 0:
         raise _open_error(GRID)
@@ -359,6 +398,12 @@ def _grid(f: _File, item: _Item) -> _Grid:
         if c.dimg_idx >= len(order) or order[c.dimg_idx] is not None:
             raise _open_error(GRID)
         order[c.dimg_idx] = c
+    return _grid_cells(f, rows, cols, ow, oh, order)
+
+
+def _grid_cells(f: _File, rows: int, cols: int, ow: int, oh: int,
+                order: List[_Item]) -> _Grid:
+    """The checks of a grid's cells, in their order."""
     first = None
     for c in order:
         if c.type != b"av01":
@@ -373,14 +418,29 @@ def _grid(f: _File, item: _Item) -> _Grid:
         elif cfg != first:
             raise _Fail(UNIDENTIFIED)  # the tiles' av1C differ
         _ispe(f, c)
-    # the first cell's size against MIAF's rules: at least 64, even where
-    # the chroma is subsampled in that direction
-    tw, th = _ispe(f, order[0])
+    # the first cell's coded size against MIAF's rules: at least 64, even
+    # where the chroma is subsampled in that direction (its ispe's, once
+    # scaled, at the frame's decode: _picture)
+    tw, th = _coded_size(f, order[0])
     mono, sx, sy = first[2] & 0x10, first[2] & 0x08, first[2] & 0x04
     if tw < 64 or th < 64 or (not mono and sx and tw % 2) or \
             (not mono and sy and th % 2):
         raise _Fail(UNIDENTIFIED)
     return _Grid(rows, cols, ow, oh, order)
+
+
+def _coded_size(f: _File, item: _Item) -> Tuple[int, int]:
+    """The size of the frame libavif's codec returns for the item, read
+    from its headers; its ispe where they do not parse (the decode fails
+    later)."""
+    from imagekit_tpu_torch.codecs.native import av1_dec_abi
+
+    try:
+        cut, select, op = _layer_choice(f, item)
+        head = av1_dec_abi.probe(f.payload(item)[:cut], select=select, op=op)
+    except (av1_dec_abi.Av1NotPorted, ValueError, _Fail):
+        return _ispe(f, item)
+    return head.width, head.height
 
 
 @dataclass
@@ -396,29 +456,90 @@ class _Picture:
     cicp: Tuple[int, int, int]  # the same header's (prim, trc, mtx)
 
 
-def _decode_one(obu: bytes, size: Tuple[int, int], alpha: bool):
-    """One AV1 stream at its own depth, as libavif's codec gives it."""
+def _layer_choice(f: _File, item: _Item) -> Tuple[Optional[int], int, int]:
+    """What libavif feeds its codec for an item with progressive decoding
+    off (avifCodecDecodeInputFillFromDecoderItem): (the bytes of the
+    payload it feeds, None for all of them; the frame to return; the
+    operating point). The point is ``a1op``'s (0 without one); an ``lsel``
+    layer other than 0xFFFF selects that spatial layer and, where ``a1lx``
+    gives the layers' sizes, only the bytes up to that layer's end;
+    otherwise the highest spatial layer (libdav1d's ``all_layers`` off)
+    of the whole payload. Its refusals are the open's."""
     from imagekit_tpu_torch.codecs.native import av1_dec_abi
+
+    p = item.prop(b"a1op")
+    op = f.data[p[1]] if p is not None else 0
+    sizes: List[int] = []
+    p = item.prop(b"a1lx")
+    if p is not None:
+        n = 4 if f.data[p[1]] & 1 else 2
+        rest = item.size
+        for i in range(3):
+            size = _u(f.data, p[1] + 1 + i * n, n)
+            if not size:
+                sizes.append(rest)
+                rest = 0
+                break
+            if size >= rest:  # room must be left for the last layer
+                raise _Fail(UNIDENTIFIED)
+            sizes.append(size)
+            rest -= size
+        if rest:
+            sizes.append(rest)
+    p = item.prop(b"lsel")
+    layer = _u(f.data, p[1], 2) if p is not None else 0xFFFF
+    if layer == 0xFFFF:
+        return None, av1_dec_abi.HIGHEST, op
+    if sizes and layer >= len(sizes) or layer > 3:
+        raise _Fail(UNIDENTIFIED)
+    return (sum(sizes[:layer + 1]) if sizes else None), layer, op
+
+
+def _decode_one(f: _File, item: _Item, alpha: bool,
+                crop: Optional[Tuple[int, int]] = None, threads: int = 0):
+    """One AV1 item as libavif's codec gives it, at its own depth, scaled
+    to its ispe as avifDecoderDecodeTiles scales it (an alpha stream taken
+    to full range first); ``crop``: only that top-left part of the scaled
+    planes (the part of a grid's last cells the canvas keeps) -> (y, u, v,
+    StreamInfo of the scaled size)."""
+    from imagekit_tpu_torch.codecs.native import (
+        av1_dec_abi,
+        avif_scale,
+        avif_yuv_rgb,
+    )
 
     fail = _frame_error("Decoding of alpha plane failed" if alpha
                         else "Decoding of color planes failed")
+    cut, select, op = _layer_choice(f, item)
+    obu = f.payload(item)[:cut]
     try:
-        head = av1_dec_abi.probe(obu)
+        y, u, v, info = av1_dec_abi.decode_samples(obu, select=select, op=op)
     except av1_dec_abi.Av1NotPorted as e:
-        raise NotPortedError(f"AVIF sources with {e}", ROADMAP_ITEM) from None
+        raise NotPortedError(f"AVIF sources with {e}", INTER_ITEM) from None
     except ValueError:
         raise fail from None
-    if (head.width, head.height) != tuple(size):
-        raise NotPortedError(
-            "AVIF items whose ispe is not their stream's size (libavif "
-            "rescales them)", ROADMAP_ITEM)
+    if alpha:
+        u = v = None
+        if not info.full_range:
+            y = avif_yuv_rgb.limited_to_full(y, info.bitdepth)
+    size = _ispe(f, item)
+    if (info.width, info.height) == size and crop in (None, size):
+        return y, u, v, info
     try:
-        y, u, v, info = av1_dec_abi.decode_samples(obu)
-    except av1_dec_abi.Av1NotPorted as e:
-        raise NotPortedError(f"AVIF sources with {e}", ROADMAP_ITEM) from None
-    except ValueError:
+        avif_scale.check((info.width, info.height), size)
+    except avif_scale.Refused:
         raise fail from None
-    return y, u, v, info
+    w, h = size
+    cw, ch = crop or size
+    y = avif_scale.scale_plane(y, w, h, (cw, ch), threads)
+    if u is not None:
+        sx = 1 if info.layout in (_I420, _I422) else 0
+        sy = 1 if info.layout == _I420 else 0
+        dims = ((w + sx) >> sx, (h + sy) >> sy)
+        c = ((cw + sx) >> sx, (ch + sy) >> sy)
+        u = avif_scale.scale_plane(u, *dims, c, threads)
+        v = avif_scale.scale_plane(v, *dims, c, threads)
+    return y, u, v, info._replace(width=w, height=h)
 
 
 def _pool_map(fn, args: list, threads: int):
@@ -432,35 +553,43 @@ def _pool_map(fn, args: list, threads: int):
 
 
 def _picture(f: _File, item: _Item, alpha: bool, threads: int) -> _Picture:
-    """The item's samples: an av01 item decoded, or a grid's cells decoded
-    on threads and stitched (avifDecoderDataCopyTileToImage) into the
-    output canvas at the cells' depth and layout."""
+    """The item's samples: an av01 item decoded (and scaled to its ispe),
+    or a grid's cells decoded on threads, each scaled to its ispe, and
+    stitched (avifDecoderDataCopyTileToImage) into the output canvas at
+    the cells' depth and layout."""
     if item.type != b"grid":
-        y, u, v, info = _decode_one(f.payload(item), _ispe(f, item), alpha)
+        y, u, v, info = _decode_one(f, item, alpha, threads=threads)
         return _Picture(y, u, v, info.layout, info.bitdepth, info.full_range,
                         (info.primaries, info.transfer, info.matrix))
     g = _grid(f, item)
-    payloads = [f.payload(c) for c in g.cells]
     sizes = [_ispe(f, c) for c in g.cells]
     if len(set(sizes)) != 1:
         raise _frame_error(GRID)  # rescaled cells of several sizes
-    cells = _pool_map(lambda k: _decode_one(payloads[k], sizes[k], alpha),
-                      list(range(len(payloads))), threads)
+    tw, th = sizes[0]
+    # avifDecoderDataAllocateImagePlanes, on the first cell as scaled: the
+    # cells cover the canvas, the last row and column reach into it
+    if tw * g.cols < g.width or th * g.rows < g.height or \
+            tw * (g.cols - 1) >= g.width or th * (g.rows - 1) >= g.height:
+        _decode_one(f, g.cells[0], alpha, (1, 1))  # its failure comes first
+        raise _frame_error(GRID)
+    crops = [(min(tw, g.width - tw * (k % g.cols)),
+              min(th, g.height - th * (k // g.cols)))
+             for k in range(len(g.cells))]
+    cells = _pool_map(
+        lambda k: _decode_one(f, g.cells[k], alpha, crops[k]),
+        list(range(len(g.cells))), threads)
     keys = {(i.width, i.height, i.bitdepth, i.layout, i.full_range,
              i.primaries, i.transfer, i.matrix) for *_, i in cells}
     if len(keys) != 1:
         raise _frame_error(GRID)  # "Grid image contains mismatched tiles"
     info = cells[0][3]
-    tw, th, layout = info.width, info.height, info.layout
-    # avifDecoderDataAllocateImagePlanes: the cells cover the canvas, the
-    # last row and column reach into it, and avifAreGridDimensionsValid
-    if tw * g.cols < g.width or th * g.rows < g.height or \
-            tw * (g.cols - 1) >= g.width or th * (g.rows - 1) >= g.height:
-        raise _frame_error(GRID)
+    layout = info.layout
+    # avifAreGridDimensionsValid on the cells as scaled
     sx = 1 if layout in (_I420, _I422) else 0
     sy = 1 if layout == _I420 else 0
-    if layout != _I400 and ((sx and (g.width % 2 or tw % 2))
-                            or (sy and (g.height % 2 or th % 2))):
+    if tw < 64 or th < 64 or layout != _I400 and (
+            (sx and (g.width % 2 or tw % 2))
+            or (sy and (g.height % 2 or th % 2))):
         raise _frame_error(GRID)
     dt = cells[0][0].dtype
     y = np.empty((g.height, g.width), dt)
@@ -470,7 +599,7 @@ def _picture(f: _File, item: _Item, alpha: bool, threads: int) -> _Picture:
         u, v = np.empty(cshape, dt), np.empty(cshape, dt)
     for k, (cy, cu, cv, _) in enumerate(cells):
         x0, y0 = tw * (k % g.cols), th * (k // g.cols)
-        w, h = min(tw, g.width - x0), min(th, g.height - y0)
+        w, h = crops[k]
         y[y0:y0 + h, x0:x0 + w] = cy[:h, :w]
         if u is not None:
             cw, chh = (w + sx) >> sx, (h + sy) >> sy
@@ -484,20 +613,34 @@ def _picture(f: _File, item: _Item, alpha: bool, threads: int) -> _Picture:
 
 def _alpha_item(f: _File, colour: _Item) -> Optional[_Item]:
     """avifMetaFindAlphaItem: the first item, in libavif's order, that is
-    an auxiliary image of the colour item with an alpha auxC."""
+    an auxiliary image of the colour item with an alpha auxC; else, for a
+    colour grid, a grid libavif makes of the alpha items of its cells (one
+    each, in the cells' item order, on the colour grid's layout), where
+    every cell has one."""
     for it in f.items.values():
         if it.size == 0 or it.type not in (b"av01", b"grid"):
             continue
         if it.aux_for == colour.id and _is_alpha(f, it):
             return it
-    if colour.type == b"grid":
-        cells = {it.id for it in f.items.values()
-                 if it.dimg_for == colour.id}
-        if cells and all(any(a.aux_for == c and _is_alpha(f, a)
-                             for a in f.items.values()) for c in cells):
-            raise NotPortedError(
-                "AVIF grids whose alpha is one item a cell", ROADMAP_ITEM)
-    return None
+    if colour.type != b"grid":
+        return None
+    g = _grid(f, colour)
+    alphas: List[_Item] = []
+    for cell in f.items.values():
+        if cell.dimg_for != colour.id:
+            continue
+        mine = [a for a in f.items.values()
+                if a.aux_for == cell.id and _is_alpha(f, a)]
+        if not mine:
+            return None  # a cell without alpha: an image without alpha
+        if len(mine) > 1 or mine[0].dimg_for != 0 or \
+                len(alphas) >= g.rows * g.cols:
+            raise _open_error(GRID)
+        alphas.append(mine[0])
+    if len(alphas) != g.rows * g.cols:
+        raise _open_error(GRID)
+    return _Item(max(f.items) + 1, b"grid", size=1,
+                 synth=((g.rows, g.cols, g.width, g.height), alphas))
 
 
 # ---------------------------------------------------------------------------
@@ -556,8 +699,6 @@ def planes_of(data: bytes, threads: int = 0) -> Planes:
 
 
 def _planes(data: bytes, threads: int) -> Planes:
-    from imagekit_tpu_torch.codecs.native import avif_yuv_rgb
-
     try:
         f = _read(data)
     except (ValueError, IndexError, struct.error) as e:
@@ -578,6 +719,10 @@ def _planes(data: bytes, threads: int) -> Planes:
     alpha_item = _alpha_item(f, colour)
     if alpha_item is not None and alpha_item.type == b"grid":
         _grid(f, alpha_item)
+    for it in (colour, alpha_item):  # the codecs' inputs, filled at the open
+        if it is not None:
+            for c in _grid(f, it).cells if it.type == b"grid" else [it]:
+                _layer_choice(f, c)
     # Pillow's decompression-bomb check, once the file opened
     if width * height > 2 * PILLOW_MAX_PIXELS:
         raise _Fail(
@@ -592,9 +737,7 @@ def _planes(data: bytes, threads: int) -> Planes:
             raise _frame_error(
                 "Invalid argument" if alpha_item.type == b"grid"
                 else "Decoding of alpha plane failed")
-        a = ap.y
-        if not ap.full_range:
-            a = avif_yuv_rgb.limited_to_full(a, ap.depth)
+        a = ap.y  # full range already (_decode_one)
     if desc.nclx is not None:
         prim, _trc, mtx, full = desc.nclx
     else:

@@ -13,11 +13,15 @@ The return contract stays: the same planes, chroma factors, alpha and
 
 What differs, because the port has no host library behind it:
 
-- a stream that uses a tool the decoder does not build (inter or layered
-  frames) raises
+- a stream whose output frame (libdav1d's first picture, at its default
+  ``all_layers``) is an inter frame raises
   :class:`~imagekit_tpu_torch.errors.NotPortedError` naming ROADMAP queue 1
-  item 8 (the app's 501), where the reference decodes it with libdav1d or
-  Pillow;
+  item 12, inter prediction (the app's 501), where the reference decodes it
+  with libdav1d; a layered stream whose first picture is not the
+  container's size returns None, as the reference's ``_decode_obu`` does
+  once its ABI guard has passed (the guard, which turns the reference's
+  native path off for good where the first picture it validates has
+  another size, is libdav1d's state and has no counterpart here);
 - a file that the reference's native path declines (premultiplied or
   several alpha items, no ``nclx`` colour box, a matrix other than
   BT.601 / BT.709, a grid) returns None here as there; where the
@@ -38,8 +42,9 @@ import numpy as np
 from imagekit_tpu_torch.errors import NotPortedError
 
 _I400, _I420, _I422, _I444 = 0, 1, 2, 3
-#: the ROADMAP item of what the decoder does not build
-ROADMAP_ITEM = "queue 1 item 8"
+#: the ROADMAP item of what the decoder does not build: an output frame
+#: that is an inter frame (inter prediction)
+INTER_ITEM = "queue 1 item 12"
 
 
 # ---------------------------------------------------------------------------
@@ -414,13 +419,13 @@ def _decode_obu(obu: bytes, want_w: int, want_h: int):
     picture's size is not the container's (the reference rejects such a
     file too). A 10- or 12-bit stream's planes come rounded to 8 bits as
     the reference rounds libdav1d's (``av1_dec_abi.to_8bit``). Raises
-    NotPortedError for a tool the decoder does not build."""
+    NotPortedError where that frame is an inter frame."""
     from imagekit_tpu_torch.codecs.native import av1_dec_abi
 
     try:
         y, u, v, info = av1_dec_abi.decode(obu, expect=(want_w, want_h))
     except av1_dec_abi.Av1NotPorted as e:
-        raise NotPortedError(f"AVIF sources with {e}", ROADMAP_ITEM) from None
+        raise NotPortedError(f"AVIF sources with {e}", INTER_ITEM) from None
     except ValueError:
         return None
     return y, u, v, info.layout, 8

@@ -13,14 +13,17 @@ palette colour contexts and the quantizer matrices. The struct's size is checked
 library's, so a packing that drifts from the C declaration fails at load
 and never decodes.
 
-:func:`probe` parses the sequence header and the first frame header;
-:func:`decode_samples` returns the first frame's planes at the stream's
-depth (uint8 for 8-bit, uint16 for 10- and 12-bit streams), and
-:func:`decode` returns u8 planes, those of a high-bit-depth stream
-rounded to 8 bits as the reference's ``avif_native._decode_obu`` rounds
-libdav1d's. All raise :class:`Av1NotPorted` for a tool the decoder does
-not build (inter and layered streams) and :class:`ValueError`
-for a malformed stream. Two settings serve tests and timing only, never
+:func:`probe` parses the sequence header and the output frame's header
+(of the first temporal unit: the first shown frame, as libdav1d returns
+it by default, or the highest spatial layer's or one layer's, as libavif
+asks for it: ``select``); :func:`decode_samples` returns that frame's
+planes at the stream's depth (uint8 for 8-bit, uint16 for 10- and 12-bit
+streams), and :func:`decode` returns u8 planes, those of a
+high-bit-depth stream rounded to 8 bits as the reference's
+``avif_native._decode_obu`` rounds libdav1d's. All raise
+:class:`Av1NotPorted` where the output frame is an inter frame (inter
+prediction is not built) and :class:`ValueError` for a malformed
+stream. Two settings serve tests and timing only, never
 the engine: :func:`_decode_samples` can leave a stream's film grain out,
 and :func:`_set_threads` caps the decoder's threads.
 """
@@ -41,6 +44,13 @@ _lock = threading.Lock()
 _state: dict = {"lib": None}
 
 OK, BAD, NOT_PORTED = 0, -1, -2
+#: the output frame of a stream (``select`` of :func:`probe` and
+#: :func:`decode_samples`): libdav1d's first picture at its default
+#: ``all_layers`` 1 (the reference's native path); the one it returns at
+#: ``all_layers`` 0, libavif's setting: the first frame of the operating
+#: point's highest spatial layer, else the last shown; 0..3: the first
+#: frame of that spatial layer (libavif's ``lsel``)
+FIRST, HIGHEST = -1, -2
 #: the layouts of ``IkAv1dInfo.layout``
 I400, I420, I422, I444 = 0, 1, 2, 3
 #: the bits of ``StreamInfo.filters``
@@ -56,7 +66,8 @@ class _Info(ctypes.Structure):
         "width", "height", "layout", "bitdepth", "mono", "color_range",
         "matrix", "primaries", "transfer", "allow_sct", "allow_intrabc",
         "palette_blocks", "intrabc_blocks", "filters", "qmatrix",
-        "film_grain", "superres_denom")] + [
+        "film_grain", "superres_denom", "spatial_id", "shown_existing",
+        "frames")] + [
             ("reason", ctypes.c_char * 120)]
 
 
@@ -86,6 +97,12 @@ class StreamInfo(NamedTuple):
     #: (the tiles code a width of width * 8 / superres_denom, rounded;
     #: ``width`` is the upscaled one)
     superres_denom: int = 8
+    #: the output frame's spatial_id; whether a show_existing_frame header
+    #: showed it (a hidden KEY_FRAME); the frames of the temporal unit read
+    #: before it was known
+    spatial_id: int = 0
+    shown_existing: bool = False
+    frames: int = 1
 
 
 # (name in the npz files, C record shape per q context); coefficient
@@ -220,12 +237,13 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ik_av1d_set_tables.argtypes = [ctypes.c_char_p, ctypes.c_int]
     lib.ik_av1d_set_tables.restype = ctypes.c_int
     lib.ik_av1d_probe.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                  ctypes.c_int, ctypes.c_int,
                                   ctypes.POINTER(_Info)]
     lib.ik_av1d_probe.restype = ctypes.c_int
     lib.ik_av1d_decode.argtypes = [
         ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.POINTER(_Info)]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(_Info)]
     lib.ik_av1d_decode.restype = ctypes.c_int
     lib.ik_av1d_tx1d.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     lib.ik_av1d_set_threads.argtypes = [ctypes.c_int]
@@ -271,37 +289,43 @@ def _info(info: _Info) -> StreamInfo:
                       info.primaries, info.transfer, bool(info.allow_sct),
                       bool(info.allow_intrabc), info.palette_blocks,
                       info.intrabc_blocks, info.filters, bool(info.qmatrix),
-                      bool(info.film_grain), info.superres_denom)
+                      bool(info.film_grain), info.superres_denom,
+                      info.spatial_id, bool(info.shown_existing), info.frames)
 
 
-def probe(obu: bytes, lib: Optional[ctypes.CDLL] = None) -> StreamInfo:
-    """The stream's sequence and first frame header."""
+def probe(obu: bytes, lib: Optional[ctypes.CDLL] = None,
+          select: int = FIRST, op: int = 0) -> StreamInfo:
+    """The stream's sequence header and output frame's header (``select``
+    as :data:`FIRST`, ``op`` the operating point, libavif's ``a1op``)."""
     lib = lib or load()
     info = _Info()
-    rc = lib.ik_av1d_probe(obu, len(obu), ctypes.byref(info))
+    rc = lib.ik_av1d_probe(obu, len(obu), select, op, ctypes.byref(info))
     if rc != OK:
         _raise(rc, info)
     return _info(info)
 
 
 def decode_samples(obu: bytes, lib: Optional[ctypes.CDLL] = None,
-                   expect: Optional[tuple] = None):
-    """The first frame of an AV1 OBU stream at its own depth -> (y, u |
-    None, v | None, StreamInfo): uint8 planes for an 8-bit stream, uint16
-    for a 10- or 12-bit one, width x height luma, chroma rounded up by the
-    layout's subsampling (None for monochrome). ``expect``: the (width,
-    height) the container gives; a stream of another size raises
-    ValueError before anything is allocated for it."""
-    return _decode_samples(obu, lib, expect, True)
+                   expect: Optional[tuple] = None, select: int = FIRST,
+                   op: int = 0):
+    """The output frame of an AV1 OBU stream (``select`` and ``op`` as for
+    :func:`probe`) at its own depth -> (y, u | None, v | None,
+    StreamInfo): uint8 planes for an 8-bit stream, uint16 for a 10- or
+    12-bit one, width x height luma, chroma rounded up by the layout's
+    subsampling (None for monochrome). ``expect``: the (width, height) the
+    container gives; a frame of another size raises ValueError before
+    anything is allocated for it."""
+    return _decode_samples(obu, lib, expect, True, select, op)
 
 
 def _decode_samples(obu: bytes, lib: Optional[ctypes.CDLL] = None,
-                    expect: Optional[tuple] = None, apply_grain: bool = True):
+                    expect: Optional[tuple] = None, apply_grain: bool = True,
+                    select: int = FIRST, op: int = 0):
     """:func:`decode_samples`; ``apply_grain`` False leaves a stream's film
     grain out (libdav1d's setting of that name): the reconstruction alone,
     for diagnostics and timing."""
     lib = lib or load()
-    head = probe(obu, lib)
+    head = probe(obu, lib, select, op)
     w, h = head.width, head.height
     if expect is not None and (w, h) != tuple(expect):
         raise ValueError(f"AV1 stream of {w}x{h} in a {expect[0]}x"
@@ -317,7 +341,7 @@ def _decode_samples(obu: bytes, lib: Optional[ctypes.CDLL] = None,
     info = _Info()
     rc = lib.ik_av1d_decode(obu, len(obu), head.bitdepth, y.ctypes.data, w,
                             u.ctypes.data, v.ctypes.data, cw,
-                            int(apply_grain), ctypes.byref(info))
+                            int(apply_grain), select, op, ctypes.byref(info))
     if rc != OK:
         _raise(rc, info)
     if head.layout == I400:
@@ -336,9 +360,9 @@ def to_8bit(plane: Optional[np.ndarray], bitdepth: int):
 
 
 def decode(obu: bytes, lib: Optional[ctypes.CDLL] = None,
-           expect: Optional[tuple] = None):
+           expect: Optional[tuple] = None, select: int = FIRST, op: int = 0):
     """:func:`decode_samples` with u8 planes: a 10- or 12-bit stream's
     rounded by :func:`to_8bit`."""
-    y, u, v, info = decode_samples(obu, lib, expect)
+    y, u, v, info = decode_samples(obu, lib, expect, select, op)
     return (to_8bit(y, info.bitdepth), to_8bit(u, info.bitdepth),
             to_8bit(v, info.bitdepth), info)

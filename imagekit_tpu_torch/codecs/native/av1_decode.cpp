@@ -1,6 +1,7 @@
 // AV1 intra-frame decoder of the port's own: the still picture (or the
-// first frame of an image sequence) of an AVIF item, 8-, 10- or 12-bit, in
-// place of libdav1d, which the reference's avif_native.py calls over ctypes.
+// output frame of the first temporal unit of an image sequence or a
+// layered stream) of an AVIF item, 8-, 10- or 12-bit, in place of
+// libdav1d, which the reference's avif_native.py calls over ctypes.
 //
 // It follows the AV1 specification's decoding process section by section
 // (the names of its variables and processes are kept: decode_partition,
@@ -12,6 +13,11 @@
 //
 //   - OBUs: temporal delimiter, sequence header (reduced or full), frame
 //     header and tile groups, or frame OBUs; padding and metadata skipped;
+//     the layers an operating point leaves out dropped; the frames of the
+//     first temporal unit walked with their reference slots (hidden
+//     frames, show_existing_frame of a stored KEY_FRAME) to the output
+//     frame libdav1d returns (parse_stream): the first shown, or the
+//     highest spatial layer's, or one layer's;
 //   - frame header of a KEY_FRAME or INTRA_ONLY frame: frame size and
 //     superres params (the tiles code the downscaled width), tile
 //     info (uniform or explicit, several tiles and tile groups), quantizer
@@ -54,8 +60,8 @@
 // BitDepth-dependent steps (quantizer rows, clamps, edge base values,
 // deblocking limits, CDEF strengths, Wiener and self-guided rounding,
 // palette literals, grain ranges) follow the spec. Not built, answered
-// with IK_AV1D_NOT_PORTED and a reason (the caller's 501): inter frames,
-// layered streams. Tiles decode on threads of their own (decode_tiles),
+// with IK_AV1D_NOT_PORTED and a reason (the caller's 501): an output frame
+// that is an INTER or SWITCH frame (inter prediction). Tiles decode on threads of their own (decode_tiles),
 // and so do CDEF's rows of 64x64 units, the upscale's bands of 32 rows,
 // loop restoration's runs of rows (a stripe's rows in one row of units)
 // and film grain's stripes of 32 rows; deblocking runs on the calling
@@ -564,6 +570,9 @@ struct FilmGrain {
 
 struct FrameHdr {
   int frame_type = 0, show_frame = 1, showable = 0, error_resilient = 1;
+  // an INTER or SWITCH frame (read up to refresh_frame_flags), and the
+  // reference slots the frame refreshes
+  int inter = 0, refresh = 0xFF;
   int disable_cdf_update = 0, allow_sct = 0, allow_intrabc = 0;
   // FrameWidth (the coded width, downscaled where superres is used),
   // UpscaledWidth and SuperresDenom; use_superres where the two widths
@@ -662,6 +671,11 @@ inline int tile_log2(int blk, int target) {
   return k;
 }
 
+// uncompressed_header() of a frame that is not shown from a slot (the
+// caller reads show_existing_frame first). An INTER or SWITCH frame's
+// header is read up to refresh_frame_flags, which is all the walk over a
+// temporal unit needs of it (h.inter); the rest of it is inter
+// prediction's.
 void parse_frame_header(Bits& b, const SeqHdr& s, FrameHdr& h,
                         int temporal_id, int spatial_id) {
   int id_len = s.frame_id_numbers ? s.frame_id_len : 0;
@@ -669,17 +683,14 @@ void parse_frame_header(Bits& b, const SeqHdr& s, FrameHdr& h,
     h.frame_type = 0;
     h.show_frame = 1;
   } else {
-    if (b.f(1)) not_ported("a frame that shows an existing frame");
     h.frame_type = b.f(2);
-    if (h.frame_type != 0 && h.frame_type != 2)
-      not_ported("inter frames (an image sequence whose first frame is "
-                 "not intra)");
+    h.inter = h.frame_type == 1 || h.frame_type == 3;
     h.show_frame = b.f(1);
     if (h.show_frame && s.decoder_model_info && !s.equal_picture_interval)
       b.f(s.frame_presentation_time_len);
     if (!h.show_frame) h.showable = b.f(1);
     else h.showable = h.frame_type != 0;
-    if (h.frame_type == 0 && h.show_frame)
+    if (h.frame_type == 3 || (h.frame_type == 0 && h.show_frame))
       h.error_resilient = 1;
     else
       h.error_resilient = b.f(1);
@@ -689,9 +700,11 @@ void parse_frame_header(Bits& b, const SeqHdr& s, FrameHdr& h,
   if (h.allow_sct && s.force_integer_mv == 2) b.f(1);  // force_integer_mv
   if (s.frame_id_numbers) b.f(id_len);  // current_frame_id
   int size_override = 0;
-  if (!s.reduced) size_override = b.f(1);
+  if (h.frame_type == 3) size_override = 1;
+  else if (!s.reduced) size_override = b.f(1);
   if (s.order_hint_bits) b.f(s.order_hint_bits);
   // primary_ref_frame: none for intra frames and error resilient ones
+  if (h.inter && !h.error_resilient) b.f(3);
   if (s.decoder_model_info) {
     if (b.f(1)) {  // buffer_removal_time_present_flag
       for (int op = 0; op < s.op_cnt; ++op) {
@@ -704,7 +717,10 @@ void parse_frame_header(Bits& b, const SeqHdr& s, FrameHdr& h,
     }
   }
   int refresh = 0xFF;
-  if (!(h.frame_type == 0 && h.show_frame)) refresh = b.f(8);
+  if (!(h.frame_type == 3 || (h.frame_type == 0 && h.show_frame)))
+    refresh = b.f(8);
+  h.refresh = refresh;
+  if (h.inter) return;
   if (refresh != 0xFF && h.error_resilient && s.order_hint)
     for (int i = 0; i < 8; ++i) b.f(s.order_hint_bits);
   // frame_size
@@ -3956,7 +3972,7 @@ struct Restoration {
 // OBU walk and the frame
 
 struct Obu {
-  int type, temporal_id, spatial_id;
+  int type, ext, temporal_id, spatial_id;
   const uint8_t* p;
   size_t n;
 };
@@ -3968,6 +3984,7 @@ bool next_obu(const uint8_t*& p, const uint8_t* end, Obu& o) {
   if (hdr & 0x80) bad("OBU forbidden bit");
   o.type = (hdr >> 3) & 15;
   int ext = (hdr >> 2) & 1, has_size = (hdr >> 1) & 1;
+  o.ext = ext;
   o.temporal_id = o.spatial_id = 0;
   if (ext) {
     if (p >= end) bad("truncated OBU extension");
@@ -3999,7 +4016,8 @@ bool next_obu(const uint8_t*& p, const uint8_t* end, Obu& o) {
 struct Result {
   int width, height, layout, bitdepth, mono, color_range, matrix, primaries,
       transfer, allow_sct, allow_intrabc, palette_blocks, intrabc_blocks,
-      filters, qmatrix, film_grain, superres_denom;
+      filters, qmatrix, film_grain, superres_denom, spatial_id, shown_existing,
+      frames;
 };
 
 struct TileJob {
@@ -4008,7 +4026,14 @@ struct TileJob {
   int t;  // the tile's number, in raster order
 };
 
-// The headers and tiles of a stream's first frame
+// The frame a decode returns (ik_av1d_probe / ik_av1d_decode's `select`):
+// libdav1d's first picture at all_layers = 1, its default; the picture it
+// returns at all_layers = 0, which libavif asks for (the highest spatial
+// layer of the operating point); or, at 0..3, the first picture of that
+// spatial layer (libavif's 'lsel')
+enum { kSelectFirst = -1, kSelectHighest = -2 };
+
+// The headers and tiles of the stream's output frame
 struct Stream {
   SeqHdr seq;
   FrameHdr fh;
@@ -4065,58 +4090,129 @@ void decode_tiles(Decoder<Pixel>& d, const std::vector<TileJob>& jobs,
     if (codes[i] != IK_AV1D_OK) throw Fail{codes[i], whys[i]};
 }
 
-// Parses up to the first frame's header; collects its tiles when `tiles`.
-void parse_stream(const uint8_t* data, size_t n, Stream& st, bool tiles) {
+// A frame of the temporal unit's walk: its header, layer and tiles
+struct FrameRec {
+  FrameHdr fh;
+  int spatial_id = 0;
+  int num_tiles = 0, tiles_done = 0;
+  std::vector<TileJob> jobs;
+};
+
+// Walks the stream's first temporal unit as libdav1d does at operating
+// point `op` (the sequence header's first where it has no such point):
+// the OBUs of the layers the point leaves out are dropped, by their
+// extension's temporal_id and spatial_id (dav1d_parse_obus); each frame
+// header is read and its slots refreshed (the reference frame update
+// process, spec 7.20), a frame shown from a slot (show_existing_frame)
+// is the frame stored there, and a KEY_FRAME shown so refreshes every
+// slot (the frame loading process, spec 7.21). The output frame is the
+// one `select` names (kSelectFirst, kSelectHighest, or a spatial layer):
+// libdav1d returns, at all_layers = 0, the first shown frame of the
+// point's highest spatial layer, else the last frame shown before the
+// temporal unit ends. Its headers, and its tiles where `tiles` is set,
+// land in `st`. The OBUs after it are only split: one that runs past the
+// data fails the stream, as in libdav1d. Intra frames depend on no other frame, so only the output
+// frame is decoded; an INTER or SWITCH output frame is not ported.
+void parse_stream(const uint8_t* data, size_t n, Stream& st, bool tiles,
+                  int select = kSelectFirst, int op = 0) {
   const uint8_t* p = data;
   const uint8_t* end = data + n;
-  bool have_seq = false, have_frame = false;
-  int tiles_done = 0, num_tiles = 0;
-  Result& res = st.res;
+  bool have_seq = false, any_frame = false, shown_existing = false;
+  int op_idc = 0, max_sid = 0;
+  std::vector<std::unique_ptr<FrameRec>> recs;
+  int slot[8];
+  std::fill(slot, slot + 8, -1);
+  int cur = -1;        // the frame whose tile groups come next
+  int chosen = -1;     // the output frame, once known
+  int candidate = -1;  // kSelectHighest: the last frame shown
+  bool skipping = false;  // the tile groups of an INTER frame
+  // a frame shown: true once it settles the output
+  auto shown = [&](int k, bool existing) {
+    int sid = recs[k]->spatial_id;
+    bool first = select == kSelectFirst ||
+                 (select == kSelectHighest && max_sid == 0);
+    if (first || (select == kSelectHighest ? sid == max_sid : sid == select)) {
+      chosen = k;
+      shown_existing = existing;
+      return true;
+    }
+    if (select == kSelectHighest) {
+      candidate = k;
+      shown_existing = existing;
+    }
+    return false;
+  };
+  auto settled = [&]() {
+    if (chosen < 0) return false;
+    const FrameRec& r = *recs[chosen];
+    return !tiles || r.fh.inter || r.tiles_done == r.num_tiles;
+  };
   Obu o;
-  while (next_obu(p, end, o)) {
+  while (!settled() && next_obu(p, end, o)) {
+    if (o.type == 2) {  // temporal delimiter: a new temporal unit
+      if (any_frame) break;
+      continue;
+    }
     if (o.type == 1) {  // sequence header
-      if (have_frame) break;
+      if (any_frame) break;
       Bits b{o.p, o.n, 0};
       st.seq = SeqHdr();
       parse_seq(b, st.seq);
       have_seq = true;
+      op_idc = st.seq.op_idc[op < st.seq.op_cnt ? op : 0];
+      int spatial = op_idc >> 8;
+      max_sid = spatial ? floor_log2(spatial) : 0;
       continue;
     }
-    if (o.type == 3 || o.type == 6) {  // frame header / frame
-      if (have_frame) {
-        if (o.type == 3) continue;  // a redundant copy of the header
-        break;
+    if (o.ext && op_idc &&
+        (!((op_idc >> o.temporal_id) & 1) ||
+         !((op_idc >> (o.spatial_id + 8)) & 1)))
+      continue;  // a layer the operating point leaves out
+    if (o.type == 3 || o.type == 6 || o.type == 7) {  // frame (header)
+      if (cur >= 0 || skipping) {
+        if (o.type != 6 && !skipping) continue;  // a copy of the header
+        if (!skipping) bad("a frame before its last tile group");
+        skipping = false;
       }
+      if (o.type == 7) continue;  // a redundant header of no frame
       if (!have_seq) bad("frame before any sequence header");
-      if (st.seq.op_idc[0] != 0) not_ported("layered (scalable) streams");
+      any_frame = true;
       Bits b{o.p, o.n, 0};
-      st.fh = FrameHdr();
-      parse_frame_header(b, st.seq, st.fh, o.temporal_id, o.spatial_id);
-      have_frame = true;
-      res.width = st.fh.upscaled_width;
-      res.superres_denom = st.fh.superres_denom;
-      res.height = st.fh.height;
-      res.mono = st.seq.mono;
-      res.layout = st.seq.mono ? 0
-                   : (st.seq.ssx && st.seq.ssy) ? 1
-                   : st.seq.ssx                 ? 2
-                                                : 3;
-      res.bitdepth = st.seq.bitdepth;
-      res.color_range = st.seq.color_range;
-      res.matrix = st.seq.matrix;
-      res.primaries = st.seq.primaries;
-      res.transfer = st.seq.transfer;
-      res.allow_sct = st.fh.allow_sct;
-      res.allow_intrabc = st.fh.allow_intrabc;
-      res.filters = (st.fh.lf_level[0] || st.fh.lf_level[1]) |
-                    st.fh.cdef_on << 1 | st.fh.uses_lr << 2;
-      res.qmatrix = st.fh.using_qmatrix;
-      res.film_grain = st.fh.grain.apply;
-      if (!tiles) return;
-      if ((size_t)st.fh.upscaled_width * st.fh.height > ((size_t)1 << 28))
+      if (!st.seq.reduced && b.f(1)) {  // show_existing_frame
+        if (o.type == 6) bad("an OBU_FRAME that shows an existing frame");
+        int idx = b.f(3);
+        if (st.seq.decoder_model_info && !st.seq.equal_picture_interval)
+          b.f(st.seq.frame_presentation_time_len);
+        if (st.seq.frame_id_numbers) b.f(st.seq.frame_id_len);
+        int k = slot[idx];
+        if (k < 0) bad("a frame shown from an empty slot");
+        const FrameRec& r = *recs[k];
+        if (!r.fh.inter && r.tiles_done != r.num_tiles && tiles)
+          bad("missing tiles");
+        if (!r.fh.inter && r.fh.frame_type == 0)
+          std::fill(slot, slot + 8, k);  // a KEY_FRAME refreshes every slot
+        shown(k, true);
+        continue;
+      }
+      if (recs.size() >= 64) bad("too many frames in a temporal unit");
+      recs.emplace_back(new FrameRec());
+      int k = (int)recs.size() - 1;
+      FrameRec& r = *recs[k];
+      r.spatial_id = o.spatial_id;
+      parse_frame_header(b, st.seq, r.fh, o.temporal_id, o.spatial_id);
+      for (int i = 0; i < 8; ++i)
+        if ((r.fh.refresh >> i) & 1) slot[i] = k;
+      if (r.fh.show_frame) shown(k, false);
+      if (r.fh.inter) {
+        skipping = true;  // its tile groups are inter prediction's
+        continue;
+      }
+      if (tiles &&
+          (size_t)r.fh.upscaled_width * r.fh.height > ((size_t)1 << 28))
         bad("frame too large");
-      num_tiles = st.fh.tile_cols * st.fh.tile_rows;
-      if (o.type == 3) continue;
+      r.num_tiles = r.fh.tile_cols * r.fh.tile_rows;
+      cur = k;
+      if (o.type != 6) continue;
       b.byte_align();
       size_t hb = b.pos >> 3;
       if (hb > o.n) bad("frame header");
@@ -4125,19 +4221,19 @@ void parse_stream(const uint8_t* data, size_t n, Stream& st, bool tiles) {
       o.type = 4;
     }
     if (o.type == 4) {  // tile group
-      if (!have_frame || !tiles) {
-        if (!have_frame) bad("tile group before its frame header");
-        continue;
-      }
+      if (skipping) continue;
+      if (cur < 0) bad("tile group before its frame header");
+      FrameRec& r = *recs[cur];
       Bits b{o.p, o.n, 0};
-      int tg_start = 0, tg_end = num_tiles - 1;
-      if (num_tiles > 1 && b.f(1)) {
-        int bits = st.fh.tile_cols_log2 + st.fh.tile_rows_log2;
+      int tg_start = 0, tg_end = r.num_tiles - 1;
+      if (r.num_tiles > 1 && b.f(1)) {
+        int bits = r.fh.tile_cols_log2 + r.fh.tile_rows_log2;
         tg_start = b.f(bits);
         tg_end = b.f(bits);
       }
       b.byte_align();
-      if (tg_start != tiles_done || tg_end < tg_start || tg_end >= num_tiles)
+      if (tg_start != r.tiles_done || tg_end < tg_start ||
+          tg_end >= r.num_tiles)
         bad("tile group order");
       size_t pos = b.pos >> 3;
       for (int t = tg_start; t <= tg_end; ++t) {
@@ -4146,7 +4242,7 @@ void parse_stream(const uint8_t* data, size_t n, Stream& st, bool tiles) {
           if (pos > o.n) bad("tile data");
           tile_size = o.n - pos;
         } else {
-          int tsb = st.fh.tile_size_bytes;
+          int tsb = r.fh.tile_size_bytes;
           if (pos + tsb > o.n) bad("tile size");
           size_t v = 0;
           for (int i = 0; i < tsb; ++i) v |= (size_t)o.p[pos + i] << (8 * i);
@@ -4154,17 +4250,55 @@ void parse_stream(const uint8_t* data, size_t n, Stream& st, bool tiles) {
           tile_size = v + 1;
           if (tile_size > o.n - pos) bad("tile runs past its group");
         }
-        st.jobs.push_back(TileJob{o.p + pos, tile_size, t});
+        if (tiles) r.jobs.push_back(TileJob{o.p + pos, tile_size, t});
         pos += tile_size;
       }
-      tiles_done = tg_end + 1;
-      if (tiles_done == num_tiles) break;
+      r.tiles_done = tg_end + 1;
+      if (r.tiles_done == r.num_tiles) cur = -1;
       continue;
     }
-    // temporal delimiter, metadata, padding, tile list: skipped
+    // metadata, padding, tile list: skipped
   }
-  if (!have_frame) bad("no frame in the stream");
-  if (tiles && tiles_done != num_tiles) bad("missing tiles");
+  // libdav1d reads the whole of the data it is given before it returns a
+  // picture: an OBU cut short after the output frame fails the decode
+  while (next_obu(p, end, o)) {
+  }
+  if (chosen < 0) chosen = candidate;
+  if (chosen < 0) {
+    if (!any_frame) bad("no frame in the stream");
+    bad(select >= 0 ? "no shown frame of the selected spatial layer"
+                    : "no shown frame in the temporal unit");
+  }
+  FrameRec& r = *recs[chosen];
+  if (r.fh.inter)
+    not_ported("an inter frame as the output frame (inter prediction: "
+               "queue 1 item 12)");
+  if (tiles && r.tiles_done != r.num_tiles) bad("missing tiles");
+  st.fh = r.fh;
+  st.jobs = std::move(r.jobs);
+  Result& res = st.res;
+  res.width = st.fh.upscaled_width;
+  res.superres_denom = st.fh.superres_denom;
+  res.height = st.fh.height;
+  res.mono = st.seq.mono;
+  res.layout = st.seq.mono ? 0
+               : (st.seq.ssx && st.seq.ssy) ? 1
+               : st.seq.ssx                 ? 2
+                                            : 3;
+  res.bitdepth = st.seq.bitdepth;
+  res.color_range = st.seq.color_range;
+  res.matrix = st.seq.matrix;
+  res.primaries = st.seq.primaries;
+  res.transfer = st.seq.transfer;
+  res.allow_sct = st.fh.allow_sct;
+  res.allow_intrabc = st.fh.allow_intrabc;
+  res.filters = (st.fh.lf_level[0] || st.fh.lf_level[1]) |
+                st.fh.cdef_on << 1 | st.fh.uses_lr << 2;
+  res.qmatrix = st.fh.using_qmatrix;
+  res.film_grain = st.fh.grain.apply;
+  res.spatial_id = r.spatial_id;
+  res.shown_existing = shown_existing;
+  res.frames = (int)recs.size();
 }
 
 // ---------------------------------------------------------------------------
@@ -4569,6 +4703,9 @@ struct IkAv1dInfo {
   // SuperresDenom: 8 without superres, else 9..16 (the coded width is
   // width * 8 / superres_denom, rounded)
   int32_t superres_denom;
+  // the output frame's spatial_id, whether it was shown from a slot
+  // (show_existing_frame), and the frames read before it was known
+  int32_t spatial_id, shown_existing, frames;
   char reason[120];
 };
 
@@ -4598,6 +4735,9 @@ static void fill(const Result& r, IkAv1dInfo* info) {
   info->qmatrix = r.qmatrix;
   info->film_grain = r.film_grain;
   info->superres_denom = r.superres_denom;
+  info->spatial_id = r.spatial_id;
+  info->shown_existing = r.shown_existing;
+  info->frames = r.frames;
 }
 
 IK_EXPORT int ik_av1d_tables_size() { return (int)sizeof(Tables); }
@@ -4615,13 +4755,18 @@ IK_EXPORT int ik_av1d_set_tables(const void* blob, int size) {
   return IK_AV1D_OK;
 }
 
-// The sequence and first frame header: dimensions, layout, bit depth and
-// colour description, without decoding tiles.
-IK_EXPORT int ik_av1d_probe(const uint8_t* data, size_t n, IkAv1dInfo* info) {
+// The sequence header and the output frame's header (`select`: -1 the
+// first shown frame, -2 the highest spatial layer's, 0..3 that layer's;
+// `op` the operating point): dimensions, layout, bit depth and colour
+// description, without decoding tiles.
+IK_EXPORT int ik_av1d_probe(const uint8_t* data, size_t n, int select, int op,
+                            IkAv1dInfo* info) {
   memset(info, 0, sizeof(*info));
   try {
+    if (select < kSelectHighest || select > 3 || op < 0 || op > 31)
+      bad("frame selection");
     Stream st;
-    parse_stream(data, n, st, false);
+    parse_stream(data, n, st, false, select, op);
     fill(st.res, info);
     return IK_AV1D_OK;
   } catch (const Fail& f) {
@@ -4631,7 +4776,8 @@ IK_EXPORT int ik_av1d_probe(const uint8_t* data, size_t n, IkAv1dInfo* info) {
   }
 }
 
-// Decodes the first frame into y (ystride) and u, v (cstride), whose sizes
+// Decodes the output frame (`select` and `op` as for ik_av1d_probe) into y
+// (ystride) and u, v (cstride), whose sizes
 // the caller takes from ik_av1d_probe: width x height luma, chroma rounded
 // up by the layout's subsampling; u and v are unused for monochrome. The
 // samples are uint8_t for an 8-bit stream and uint16_t for a 10- or
@@ -4641,12 +4787,15 @@ IK_EXPORT int ik_av1d_probe(const uint8_t* data, size_t n, IkAv1dInfo* info) {
 // setting of that name): the frame as reconstructed, for diagnostics.
 IK_EXPORT int ik_av1d_decode(const uint8_t* data, size_t n, int bitdepth,
                              void* y, int ystride, void* u, void* v,
-                             int cstride, int apply_grain, IkAv1dInfo* info) {
+                             int cstride, int apply_grain, int select, int op,
+                             IkAv1dInfo* info) {
   memset(info, 0, sizeof(*info));
   if (!g_ready) return IK_AV1D_NO_TABLES;
+  if (select < kSelectHighest || select > 3 || op < 0 || op > 31)
+    return finish(Fail{IK_AV1D_BAD, "frame selection"}, info);
   try {
     Stream st;
-    parse_stream(data, n, st, true);
+    parse_stream(data, n, st, true, select, op);
     if (st.seq.bitdepth != bitdepth) bad("bit depth differs from the probe's");
     if (bitdepth == 8)
       decode_frame<uint8_t>(st, (uint8_t*)y, ystride, (uint8_t*)u,

@@ -12,7 +12,8 @@ baseline frames in several scans, arithmetic-coded and lossless frames;
 ``tiff_ext_decode.cpp``: the BMP and TIFF layouts the copies refuse;
 ``av1_decode.cpp``: AV1 intra frames, where the reference calls libdav1d;
 ``avif_yuv_rgb.cpp``: the YUV -> RGB of the AVIFs the reference hands to
-Pillow's libavif, in libavif's and libyuv's arithmetic) are
+Pillow's libavif, in libavif's and libyuv's arithmetic; ``avif_scale.cpp``:
+libyuv's plane scaling of the items libavif rescales to their ``ispe``) are
 compiled at first use, one ``g++ -c`` a source, all started
 together, then linked:
 
@@ -46,7 +47,8 @@ _SOURCES = ("jpeg_entropy.cpp", "vp8_encode.cpp", "vp8_decode.cpp",
             "vp8l_decode.cpp", "png_decode.cpp", "misc_decode.cpp",
             "tiff_decode.cpp", "av1_enc.cpp", "raster_decode.cpp",
             "jpeg4_decode.cpp", "bmp_ext_decode.cpp", "tiff_ext_decode.cpp",
-            "bcn_ext_decode.cpp", "av1_decode.cpp", "avif_yuv_rgb.cpp")
+            "bcn_ext_decode.cpp", "av1_decode.cpp", "avif_yuv_rgb.cpp",
+            "avif_scale.cpp")
 #: flags of one source beside the common ones: libavif's float path rounds
 #: every product on its own (no fused multiply-add)
 _SOURCE_FLAGS = {"avif_yuv_rgb.cpp": ["-ffp-contract=off"]}

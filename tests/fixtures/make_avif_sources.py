@@ -68,9 +68,19 @@ and wrapped by the port's container writer (:func:`av1_avif`): an 8-bit
 with film grain. Every entry of ``avif_planes.json`` records the
 stream's ``superres_denom`` (8 without superres).
 
+Phase 28's files of the last remainder (``--remainder``,
+:data:`REMAINDER_FILES`, digests in ``remainder_arrays.json``): an item
+coded at half its ``ispe``, the 12 MP grid with its cells coded at half
+their ``ispe`` (libavif rescales both), a grid whose alpha is one item a
+cell (:func:`per_cell_alpha`), and two streams of two spatial layers
+spliced from libaom's key frames (:func:`layered_stream`), one with its
+base at the full size (libdav1d's first picture: the reference's native
+path) and one with its base at half size (libavif's highest layer).
+
 Run from the repository root: ``python tests/fixtures/make_avif_sources.py``
 (phase 27's files), with ``--superres`` (its superres files alone, the
-others left as they are) or with ``--pillow`` (phase 28's).
+others left as they are), ``--pillow`` (phase 28's) or ``--remainder``
+(phase 28's last files).
 """
 
 import ctypes
@@ -415,7 +425,7 @@ def encode_avif_grid(cells, cols: int, rows: int, depth: int, layout: str,
 #: the ALL_INTRA usage, the encoder ABI version ``aom_codec_enc_init_ver``
 #: checks, the flag for 16-bit images, and the planar image formats
 #: (``AOM_IMG_FMT_HIGHBITDEPTH`` added for 16-bit samples)
-_AOM_USAGE_ALL_INTRA = 2
+_AOM_USAGE_GOOD_QUALITY, _AOM_USAGE_ALL_INTRA = 0, 2
 _AOM_ENCODER_ABI_VERSION = 25
 _AOM_CODEC_USE_HIGHBITDEPTH = 0x40000
 _AOM_IMG_FMT = {"420": 0x102, "400": 0x102, "422": 0x105, "444": 0x106}
@@ -473,7 +483,9 @@ def _obus(stream: bytes):
 
 
 def encode_av1_libaom(y, u, v, depth: int, layout: str, quantizer: int,
-                      superres_denom: int = 8, speed: int = 6, options=None):
+                      superres_denom: int = 8, speed: int = 6, options=None,
+                      limit: int = 1, forced_max=None, frames: int = 1,
+                      good: bool = False):
     """An AV1 still (sequence header and one key frame, the temporal
     delimiter dropped) of the planes, written by the system's libaom 3
     through ctypes with no headers: the ALL_INTRA usage with ``g_limit``
@@ -487,7 +499,13 @@ def encode_av1_libaom(y, u, v, depth: int, layout: str, quantizer: int,
     (``tile-columns``, ``enable-cdef``, ``enable-restoration``,
     ``film-grain-test``, ...), ``cpu-used`` from ``speed``. Neither
     Pillow's libavif nor the system's takes ``superres-mode``, so this is
-    how superres files are made. None where libaom is not installed.
+    how superres files are made. ``limit`` > 1 writes a full sequence
+    header (not a still picture), which the splices below need;
+    ``forced_max`` (width, height) sets the sequence header's largest frame
+    size, so a smaller picture codes its own (frame_size_override_flag);
+    ``frames`` submits the picture that many times, and ``good`` takes
+    libaom's GOOD usage with no lag, whose frames after the first are INTER
+    frames. None where libaom is not installed.
     libaom asserts and ends the process on a lossless request with
     superres (quantizer 0 for both bounds): ask for quantizer bounds of
     (0, 1) with ``cq-level`` 0 instead, which codes the frame at
@@ -498,12 +516,14 @@ def encode_av1_libaom(y, u, v, depth: int, layout: str, quantizer: int,
     h, w = y.shape
     iface = ctypes.c_void_p(lib.aom_codec_av1_cx())
     cfg = (ctypes.c_uint32 * 1024)()  # the struct is about 1.4 kB
-    if lib.aom_codec_enc_config_default(iface, cfg, _AOM_USAGE_ALL_INTRA):
+    if lib.aom_codec_enc_config_default(
+            iface, cfg, _AOM_USAGE_GOOD_QUALITY if good
+            else _AOM_USAGE_ALL_INTRA):
         return None
     profile = 2 if depth == 12 or layout == "422" else int(layout == "444")
     lo, hi = quantizer if isinstance(quantizer, tuple) else (quantizer,) * 2
     for key, val in (("g_profile", profile), ("g_w", w), ("g_h", h),
-                     ("g_limit", 1), ("g_bit_depth", depth),
+                     ("g_limit", limit), ("g_bit_depth", depth),
                      ("g_input_bit_depth", depth),
                      ("rc_superres_mode", int(superres_denom != 8)),
                      ("rc_superres_denominator", superres_denom),
@@ -511,6 +531,10 @@ def encode_av1_libaom(y, u, v, depth: int, layout: str, quantizer: int,
                      ("rc_min_quantizer", lo), ("rc_max_quantizer", hi),
                      ("monochrome", int(layout == "400"))):
         cfg[_CFG[key]] = val
+    if forced_max is not None:
+        cfg[6], cfg[7] = forced_max  # g_forced_max_frame_width / height
+    if good:
+        cfg[14] = 0  # g_lag_in_frames: each frame coded as it comes
     ctx = ctypes.create_string_buffer(256)
     hbd = depth > 8
     if lib.aom_codec_enc_init_ver(ctx, iface, cfg,
@@ -538,8 +562,8 @@ def encode_av1_libaom(y, u, v, depth: int, layout: str, quantizer: int,
                                src.ctypes.data + row * src.strides[0],
                                src.shape[1] * src.itemsize)
         out = b""
-        for frame in (img, None):  # the picture, then the flush
-            if lib.aom_codec_encode(ctx, frame, 0, 1, 0):
+        for pts, frame in enumerate([img] * frames + [None]):  # then flush
+            if lib.aom_codec_encode(ctx, frame, pts, 1, 0):
                 return None
             it = ctypes.c_void_p()
             while True:
@@ -555,6 +579,151 @@ def encode_av1_libaom(y, u, v, depth: int, layout: str, quantizer: int,
         if img:
             lib.aom_img_free(img)
         lib.aom_codec_destroy(ctx)
+
+
+# -- OBU splicing: layered streams and hidden key frames ----------------------
+
+
+def _bits(payload: bytes) -> str:
+    """An OBU payload's bits before its trailing one bit."""
+    b = "".join(f"{x:08b}" for x in payload)
+    return b[:b.rindex("1")]
+
+
+def obu_of(typ: int, bits: str, layer=None) -> bytes:
+    """An OBU of ``typ`` carrying ``bits`` then its trailing bits, with its
+    size, and with an extension header of (temporal_id, spatial_id) where
+    ``layer`` gives one."""
+    bits += "1" + "0" * ((-len(bits) - 1) % 8)
+    payload = int(bits, 2).to_bytes(len(bits) // 8, "big")
+    head = bytes([typ << 3 | 2 | (4 if layer is not None else 0)])
+    if layer is not None:
+        head += bytes([layer[0] << 5 | layer[1] << 3])
+    n, size = len(payload), b""
+    while True:
+        size += bytes([(n & 0x7F) | (0x80 if n > 0x7F else 0)])
+        n >>= 7
+        if not n:
+            break
+    return head + size + payload
+
+
+def _payload(obu: bytes) -> bytes:
+    j = 2 if obu[0] & 4 else 1
+    while obu[j] & 0x80:
+        j += 1
+    return obu[j + 1:]
+
+
+def with_layer(obu: bytes, temporal_id: int, spatial_id: int) -> bytes:
+    """An OBU with an extension header naming its layer (its size field
+    counts the payload alone, so it stays)."""
+    if obu[0] & 4:
+        raise ValueError("the OBU has an extension already")
+    return bytes([obu[0] | 4, temporal_id << 5 | spatial_id << 3]) + obu[1:]
+
+
+class SeqFields:
+    """The fields of a full (not reduced) sequence header (spec 5.5) that
+    the splices below need, and where its operating points lie."""
+
+    def __init__(self, payload: bytes):
+        self.bits = _bits(payload)
+        self.pos = 0
+        f = self.f
+        self.profile = f(3)
+        f(1)
+        if f(1):
+            raise ValueError("a reduced still-picture header")
+        if f(1) or f(1):
+            raise ValueError("timing or display-delay info: not spliced here")
+        self.op_at = self.pos
+        self.levels = []
+        for _ in range(f(5) + 1):
+            f(12)
+            self.levels.append(f(5))
+            if self.levels[-1] > 7:
+                f(1)
+        self.op_end = self.pos
+        self.wbits, self.hbits = f(4) + 1, f(4) + 1
+        f(self.wbits)
+        f(self.hbits)
+        self.frame_ids = f(1)
+        if self.frame_ids:
+            raise ValueError("frame ids: not spliced here")
+        f(3)   # 128x128 superblocks, filter intra, intra edge
+        f(4)   # interintra, masked compound, warped motion, dual filter
+        self.order_hint = f(1)
+        if self.order_hint:
+            f(2)
+        self.force_sct = 2 if f(1) else f(1)
+        self.force_integer_mv = 2
+        if self.force_sct > 0:
+            self.force_integer_mv = 2 if f(1) else f(1)
+        self.order_hint_bits = f(3) + 1 if self.order_hint else 0
+
+    def f(self, n: int) -> int:
+        v = int(self.bits[self.pos:self.pos + n] or "0", 2)
+        self.pos += n
+        return v
+
+
+def with_operating_points(seq_obu: bytes, idcs) -> bytes:
+    """The sequence header with operating points of these
+    operating_point_idc values, each at the first point's level."""
+    s = SeqFields(_payload(seq_obu))
+    ops = f"{len(idcs) - 1:05b}"
+    for idc in idcs:
+        ops += f"{idc:012b}{s.levels[0]:05b}" + ("0" if s.levels[0] > 7
+                                                  else "")
+    return obu_of(1, s.bits[:s.op_at] + ops + s.bits[s.op_end:])
+
+
+def layered_stream(base: bytes, top: bytes, idcs=(0x301, 0x101)) -> bytes:
+    """A stream of two spatial layers of one temporal unit: ``base``'s
+    frame as spatial layer 0 and ``top``'s as layer 1, under ``top``'s
+    sequence header with operating points ``idcs`` (by default point 0
+    decodes both layers, point 1 the base alone). Both streams must be
+    written with full sequence headers that agree but for their levels
+    (:func:`encode_av1_libaom` with ``limit`` 2 and the same
+    ``forced_max``): a base of another size then codes its own."""
+    bseq = next(o for t, o in _obus(base) if t == 1)
+    tseq = next(o for t, o in _obus(top) if t == 1)
+    sb, st = SeqFields(_payload(bseq)), SeqFields(_payload(tseq))
+    if sb.bits[sb.op_end:] != st.bits[st.op_end:]:
+        raise ValueError("the layers' sequence headers differ")
+    frames = [with_layer(o, 0, 0) for t, o in _obus(base) if t in (3, 4, 6)]
+    frames += [with_layer(o, 0, 1) for t, o in _obus(top) if t in (3, 4, 6)]
+    return with_operating_points(tseq, idcs) + b"".join(frames)
+
+
+def hidden_key_stream(stream: bytes) -> bytes:
+    """``stream``'s key frame made a hidden one (show_frame 0,
+    showable_frame 1, error resilient, refreshing every slot), then shown
+    by a show_existing_frame header of slot 0: one temporal unit whose
+    output frame is the same picture. ``stream`` must carry a full
+    sequence header and its frame header in an OBU of its own
+    (:func:`encode_av1_libaom` with ``limit`` 2 and libaom's
+    ``num-tile-groups`` 2)."""
+    obus = list(_obus(stream))
+    seq = next(o for t, o in obus if t == 1)
+    s = SeqFields(_payload(seq))
+    at = next(i for i, (t, _) in enumerate(obus) if t == 3)
+    h = _bits(_payload(obus[at][1]))
+    if h[:4] != "0001":
+        raise ValueError("not a shown KEY_FRAME header")
+    pos = 4
+    pos += 1  # disable_cdf_update
+    allow_sct = int(h[pos]) if s.force_sct == 2 else s.force_sct
+    pos += s.force_sct == 2
+    pos += allow_sct and s.force_integer_mv == 2
+    pos += 1  # frame_size_override_flag
+    pos += s.order_hint_bits
+    hidden = ("0000" + "11" + h[4:pos] + "11111111" + h[pos:])
+    show = "1" + "000"  # show_existing_frame of slot 0
+    return b"".join([seq, obu_of(3, hidden)]
+                    + [o for t, o in obus[at + 1:] if t == 4]
+                    + [obu_of(3, show)])
 
 
 def av1_avif(obu: bytes, w: int, h: int, depth: int, layout: str,
@@ -815,6 +984,25 @@ def add_alpha_item(data: bytes, obu: bytes, first: bool = False) -> bytes:
     at = doc["items"].index(old) + (0 if first else 1)
     doc["items"].insert(at, new)
     doc["refs"].append((b"auxl", new["id"], [doc["primary"]]))
+    return mux(doc)
+
+
+def per_cell_alpha(data: bytes) -> bytes:
+    """A grid file with an alpha grid (:func:`encode_avif_grid` with
+    ``alpha_cells``) whose alpha is one ``auxl`` item a colour cell
+    instead: the alpha grid item and its references dropped, each alpha
+    cell an auxiliary image of the colour cell at its place."""
+    doc = demux(data)
+    agrid = next(frm for t, frm, to in doc["refs"]
+                 if t == b"auxl" and doc["primary"] in to)
+    cells = next(to for t, frm, to in doc["refs"]
+                 if t == b"dimg" and frm == doc["primary"])
+    alphas = next(to for t, frm, to in doc["refs"]
+                  if t == b"dimg" and frm == agrid)
+    doc["items"] = [it for it in doc["items"] if it["id"] != agrid]
+    doc["refs"] = [r for r in doc["refs"] if agrid not in (r[1], *r[2])
+                   and r[0] != b"prem"]
+    doc["refs"] += [(b"auxl", a, [c]) for a, c in zip(alphas, cells)]
     return mux(doc)
 
 
@@ -1224,6 +1412,143 @@ def write_superres_files() -> None:
     write_table(table)
 
 
+#: phase 28's files of the last remainder (``--remainder``): name -> what
+#: the recipe in :func:`remainder_files` writes
+REMAINDER_FILES = {
+    "1080p_coded_540p": "8-bit 4:2:0 coded at 960 x 540 under a 1920 x 1080 "
+                        "ispe: libavif scales it up 2x",
+    "4032x3024_grid_half_cells": "the 12 MP grid, each 512 x 512 cell coded "
+                                 "at 256 x 256 under its ispe",
+    "1080p_grid_cell_alpha": "4 x 3 cells of 480 x 360 with one alpha item "
+                             "a cell, 8-bit 4:2:0",
+    "1080p_layered_full_base": "two spatial layers of 1920 x 1080, both key "
+                               "frames; libdav1d's first picture is the "
+                               "base",
+    "1080p_layered_half_base": "a 960 x 540 base and a 1920 x 1080 top "
+                               "layer, both key frames; libavif returns "
+                               "the top",
+}
+#: the files of :data:`REMAINDER_FILES` the reference decodes with
+#: libdav1d (its native path) rather than with Pillow
+REMAINDER_NATIVE = {"1080p_layered_full_base"}
+
+
+def set_ispe(data: bytes, iids, width: int, height: int) -> bytes:
+    """The file with the ``ispe`` of the items ``iids`` set to width x
+    height (the streams stay: libavif rescales them)."""
+    doc = demux(data)
+    for iid in iids:
+        it = item(doc, iid)
+        it["props"] = [
+            (_full(b"ispe", struct.pack(">II", width, height)), ess)
+            if box[4:8] == b"ispe" else (box, ess) for box, ess in it["props"]]
+    return mux(doc)
+
+
+def layered_pair(top_rgb: np.ndarray, base_rgb: np.ndarray, top_q: int,
+                 base_q: int) -> bytes:
+    """A two-layer stream (:func:`layered_stream`) of 8-bit 4:2:0 BT.601
+    key frames, the base coded at its own size under the top's."""
+    h, w = top_rgb.shape[:2]
+    opts = {"sb-size": "64"}
+    top = encode_av1_libaom(*yuv_planes(top_rgb, 8, "420", 0.299, 0.114), 8,
+                            "420", top_q, limit=2, forced_max=(w, h),
+                            options=opts)
+    base = encode_av1_libaom(*yuv_planes(base_rgb, 8, "420", 0.299, 0.114),
+                             8, "420", base_q, limit=2, forced_max=(w, h),
+                             options=opts)
+    return layered_stream(base, top)
+
+
+def remainder_files() -> dict:
+    """The files of :data:`REMAINDER_FILES`: ``chip_smoke``'s synthesized
+    photos, written by libavif 0.11.1 (items, grids) or libaom (the
+    layers) and edited: the ispe of items and cells, the alpha grid split
+    into one item a cell, the layers spliced."""
+    import chip_smoke
+
+    out = {}
+    small = chip_smoke.synth_image(2901, 960, 540)
+    f = encode_avif_hbd(*yuv_planes(small, 8, "420", 0.299, 0.114), 8,
+                        "420", 28)
+    out["1080p_coded_540p"] = set_ispe(f, [demux(f)["primary"]], 1920, 1080)
+    photo = chip_smoke.synth_image(2902, 2048, 1536)
+    y, u, v = yuv_planes(photo, 8, "420", 0.299, 0.114)
+    cells = [(y[r:r + 256, c:c + 256], u[r // 2:r // 2 + 128,
+                                         c // 2:c // 2 + 128],
+              v[r // 2:r // 2 + 128, c // 2:c // 2 + 128])
+             for r in range(0, 1536, 256) for c in range(0, 2048, 256)]
+    g = encode_avif_grid(cells, 8, 6, 8, "420", GRID_QUANTIZER)
+    doc = demux(g)
+    cell_ids = next(to for t, frm, to in doc["refs"]
+                    if t == b"dimg" and frm == doc["primary"])
+    g = set_ispe(g, cell_ids, 512, 512)
+    out["4032x3024_grid_half_cells"] = set_grid_output(g, 4032, 3024)
+    rgba = chip_smoke.ramp_alpha(chip_smoke.synth_image(2903))
+    y, u, v = yuv_planes(rgba[..., :3], 8, "420", 0.299, 0.114)
+    a = rgba[..., 3]
+    box = [(r, c) for r in range(0, 1080, 360) for c in range(0, 1920, 480)]
+    out["1080p_grid_cell_alpha"] = per_cell_alpha(encode_avif_grid(
+        [(y[r:r + 360, c:c + 480], u[r // 2:r // 2 + 180, c // 2:c // 2 + 240],
+          v[r // 2:r // 2 + 180, c // 2:c // 2 + 240]) for r, c in box],
+        4, 3, 8, "420", 28, alpha_cells=[a[r:r + 360, c:c + 480]
+                                         for r, c in box]))
+    top = chip_smoke.synth_image(2904)
+    out["1080p_layered_full_base"] = av1_avif(
+        layered_pair(top, top, 24, 44), 1920, 1080, 8, "420")
+    out["1080p_layered_half_base"] = av1_avif(
+        layered_pair(top, chip_smoke.synth_image(2905, 960, 540), 24, 40),
+        1920, 1080, 8, "420")
+    for name, data in out.items():
+        if data is None:
+            raise SystemExit(f"ABORT: no writer made {name}")
+    return out
+
+
+def write_remainder_files() -> None:
+    """:func:`remainder_files` into ``tests/fixtures/avif/`` with
+    ``remainder_arrays.json``: each file's name, recipe, size in bytes,
+    the path the reference takes (``native``: libdav1d, whose planes'
+    digest is ``planes_sha256``; ``pillow``) and the digest of the array
+    the reference's ``decode_bytes`` returns (:func:`pillow_digest`'s
+    fields)."""
+    from imagekit_tpu import codecs as ref_codecs
+    from imagekit_tpu.codecs import avif_native as ref_avif
+
+    files = remainder_files()
+    # the reference's native path validates libdav1d's ABI on its first
+    # picture, and turns itself off for good where that picture is not
+    # the container's size: give it a plain file first
+    plain = encode_avif_hbd(np.full((64, 64), 128, np.uint8),
+                            np.full((32, 32), 128, np.uint8),
+                            np.full((32, 32), 128, np.uint8), 8, "420", 30)
+    if ref_avif.decode_rgb(plain) is None:
+        raise SystemExit("ABORT: the reference's native path is off")
+    table = {}
+    for name, data in files.items():
+        native = name in REMAINDER_NATIVE
+        if (ref_avif.decode_rgb(data) is not None) != native:
+            raise SystemExit(f"ABORT: the reference's native path "
+                             f"{'declines' if native else 'decodes'} {name}")
+        with open(os.path.join(OUT, f"{name}.avif"), "wb") as f:
+            f.write(data)
+        arr, _ = ref_codecs.decode_bytes(data)
+        table[name] = {
+            "file": f"{name}.avif", "recipe": REMAINDER_FILES[name],
+            "bytes": len(data), "path": "native" if native else "pillow",
+            "mode": "RGBA" if arr.shape[2] == 4 else "RGB",
+            "width": int(arr.shape[1]), "height": int(arr.shape[0]),
+            "sha256": hashlib.sha256(np.ascontiguousarray(arr).tobytes())
+            .hexdigest()}
+        if native:
+            table[name]["planes_sha256"] = planes_digest(data)[2]
+        print(f"{name}: {len(data) / 1e3:.1f} kB, {table[name]['mode']} "
+              f"{table[name]['width']}x{table[name]['height']}")
+    with open(os.path.join(OUT, "remainder_arrays.json"), "w") as f:
+        json.dump(table, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
 if __name__ == "__main__":
     sys.path.insert(0, ROOT)
     if sys.argv[1:] == ["--pillow"]:
@@ -1231,5 +1556,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:] == ["--superres"]:
         write_superres_files()
+        sys.exit(0)
+    if sys.argv[1:] == ["--remainder"]:
+        write_remainder_files()
         sys.exit(0)
     sys.exit(main())

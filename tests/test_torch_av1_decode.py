@@ -355,13 +355,61 @@ def layered_stream(w: int = 64, h: int = 64) -> bytes:
     return obu(1, b.bytes()) + obu(3, f.bytes())
 
 
+def inter_stream(w: int = 64, h: int = 64) -> bytes:
+    """A stream of a full sequence header (not a still picture) whose first
+    frame is a shown INTER frame: the first bits of its header, up to
+    refresh_frame_flags, which is as far as the decoder reads before it
+    answers that inter prediction is not built."""
+    b = BitWriter()
+    b.f(0, 3)       # seq_profile
+    b.f(0, 1)       # still_picture
+    b.f(0, 1)       # reduced_still_picture_header
+    b.f(0, 1)       # timing_info_present_flag
+    b.f(0, 1)       # initial_display_delay_present_flag
+    b.f(0, 5)       # operating_points_cnt_minus_1
+    b.f(0, 12)      # operating_point_idc[0]
+    b.f(0, 5)       # seq_level_idx[0]
+    b.f(15, 4)
+    b.f(15, 4)      # frame width / height bits - 1
+    b.f(w - 1, 16)
+    b.f(h - 1, 16)
+    b.f(0, 1)       # frame_id_numbers_present_flag
+    b.f(0, 3)       # 128x128 superblocks, filter intra, intra edge filter
+    b.f(0, 4)       # interintra, masked compound, warped motion, dual filter
+    b.f(0, 1)       # enable_order_hint
+    b.f(0, 1)       # seq_choose_screen_content_tools
+    b.f(0, 1)       # seq_force_screen_content_tools
+    b.f(0, 3)       # superres, CDEF, restoration
+    b.f(0, 1)       # high_bitdepth
+    b.f(0, 1)       # mono_chrome
+    b.f(0, 1)       # color_description_present_flag
+    b.f(0, 1)       # color_range
+    b.f(0, 2)       # chroma_sample_position
+    b.f(0, 1)       # separate_uv_delta_q
+    b.f(0, 1)       # film_grain_params_present
+    b.trailing_bits()
+    f = BitWriter()
+    f.f(0, 1)     # show_existing_frame
+    f.f(1, 2)     # INTER_FRAME
+    f.f(1, 1)     # show_frame
+    f.f(0, 1)     # error_resilient_mode
+    f.f(0, 1)     # disable_cdf_update
+    f.f(0, 1)     # frame_size_override_flag
+    f.f(7, 3)     # primary_ref_frame: none
+    f.f(1, 8)     # refresh_frame_flags
+    f.f(0, 64)
+    f.trailing_bits()
+    return obu(1, b.bytes()) + obu(3, f.bytes())
+
+
 def remainder_avif(w: int = 64, h: int = 48) -> bytes:
-    """A whole AVIF file whose stream is layered (:func:`layered_stream`):
-    a source of the remainder, which the port answers with 501 (the
-    container is the port's first-party writer's)."""
+    """A whole AVIF file whose stream's output frame is an INTER frame
+    (:func:`inter_stream`): a source of the remainder, inter prediction,
+    which the port answers with 501 naming queue 1 item 12 (the container
+    is the port's first-party writer's)."""
     from imagekit_tpu_torch.codecs.av1_container import write_avif
 
-    return write_avif(layered_stream(w, h), w, h)
+    return write_avif(inter_stream(w, h), w, h)
 
 
 def intrabc_outside_tile() -> bytes:
@@ -403,14 +451,15 @@ def intrabc_outside_tile() -> bytes:
     (lambda: seq_header() + frame_header(allow_sct=1, allow_intrabc=1),
      None),
     (lambda: seq_header() + frame_header(qm=1), None),
-    (layered_stream, "layered"),
+    (layered_stream, None),
 ], ids=["10-bit", "superres", "intrabc", "quantizer matrices", "layered"])
 def test_remainder_from_headers(stream, reason):
-    """Tools gated at the headers answer before any tile decodes: a
-    layered stream. 10-bit streams, superres (here SuperresDenom 16 of a
-    64-wide frame: a coded width of 32), intra block copy and quantizer
-    matrices are built: their headers probe, and these streams, which
-    carry no tile, do not decode (as in libdav1d)."""
+    """10-bit streams, superres (here SuperresDenom 16 of a 64-wide frame:
+    a coded width of 32), intra block copy, quantizer matrices and layered
+    streams (operating point 0 of spatial layer 0) are built: their
+    headers probe, and these streams, which carry no tile, do not decode
+    (as in libdav1d). No tool of an intra frame is gated at the headers
+    any more: ``reason`` is kept for one that would be."""
     if reason is not None:
         with pytest.raises(av1_dec_abi.Av1NotPorted, match=reason):
             av1_dec_abi.probe(stream())
@@ -421,8 +470,9 @@ def test_remainder_from_headers(stream, reason):
     assert (head.bitdepth, head.screen_content, head.intrabc,
             head.qmatrix, head.superres_denom) in (
                 (10, False, False, False, 8), (8, False, False, False, 16),
-                (8, True, True, False, 8), (8, False, False, True, 8))
-    assert head.width == 64
+                (8, True, True, False, 8), (8, False, False, True, 8),
+                (8, False, False, False, 8))
+    assert head.width == 64 and head.spatial_id == 0
     with pytest.raises(ValueError, match="missing tiles"):
         av1_dec_abi.decode(stream())
     if ref_avif.decode_available():

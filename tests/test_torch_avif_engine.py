@@ -22,8 +22,8 @@ engine.
 - The HTTP app: a signed ``/img?...&f=avif`` answers 200 ``image/avif``
   with an ETag and a ``.avif`` disk-cache entry, then hits that entry; an
   AVIF source and a 10-bit one are served (200) and one of the AV1
-  decoder's remainder (a layered stream) answers 501 naming queue 1
-  item 8.
+  decoder's remainder (an inter frame as its output frame) answers 501
+  naming queue 1 item 12.
 """
 
 import asyncio
@@ -360,8 +360,8 @@ def test_http_avif_source_answers_501(tmp_path):
     """AVIF sources are served since the port decodes AV1 itself: the
     port's own AVIF and a 10-bit one by libavif (which answered 501 before
     the decoder built high bit depth) at w=32 are 200 WebPs, as the
-    reference serves them; a stream of the decoder's remainder (a layered
-    stream) still answers 501 naming queue 1 item 8."""
+    reference serves them; a stream of the decoder's remainder (an inter
+    frame as its output frame) still answers 501 naming queue 1 item 12."""
     if _ten_bit_avif() is None:
         pytest.skip("libavif's high-bit-depth encode unavailable")
 
@@ -379,6 +379,6 @@ def test_http_avif_source_answers_501(tmp_path):
                                              "sig": sign(params, SECRET)})
         text = await r.text()
         assert r.status == 501, text
-        assert "queue 1 item 8" in text and "layered" in text
+        assert "queue 1 item 12" in text and "inter" in text
 
     _serve(tmp_path, fn)

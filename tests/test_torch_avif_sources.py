@@ -168,7 +168,7 @@ def _premultiplied() -> bytes:
 
 def _rescaled() -> bytes:
     """A 64 x 48 stream in an item whose ispe says 96 x 64: libavif (and
-    so the reference, through Pillow) rescales it; the port does not."""
+    so the reference, through Pillow) rescales it, and so does the port."""
     from tests.fixtures.make_avif_sources import demux, mux
 
     doc = demux(pillow_avif(synth(64, 48), quality=60))
@@ -541,10 +541,10 @@ def test_img_and_upload_serve_as_the_reference(monkeypatch, tmp_path, name):
 @needs_oracles
 def test_the_remainder_and_hostile_files_over_http(tmp_path):
     """A palette AVIF is served through both apps alike (it answered 501
-    before the decoder built palettes); one whose stream is smaller than
-    its ispe answers 501 through the port (the reference serves it
-    through Pillow's libavif, which rescales it); a truncated one 400
-    through both apps, in the same words."""
+    before the decoder built palettes), and so is one whose stream is
+    smaller than its ispe (the reference serves it through Pillow's
+    libavif, which rescales it; the port answered 501 before its scaler);
+    a truncated one 400 through both apps, in the same words."""
     good = pillow_avif(synth(64, 48), quality=60)
     sources = {"pal": _palette(), "cut": good[:-20],
                "scaled": _rescaled()}
@@ -561,9 +561,8 @@ def test_the_remainder_and_hostile_files_over_http(tmp_path):
     if port[0][2] != ref[0][2]:
         assert psnr(_decoded(port[0][2]), _decoded(ref[0][2])) >= 45.0
     assert port[1] == ref[1] and port[1][0] == 400
-    assert ref[2][0] == 200 and port[2][0] == 501
-    assert b"queue 1 item 8" in port[2][2]
-    assert b"ispe" in port[2][2]
+    assert ref[2][:2] == port[2][:2] and port[2][0] == 200
+    assert port[2][2] == ref[2][2]
 
 
 def test_fetch_probes_avif_dimensions():

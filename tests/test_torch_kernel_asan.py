@@ -39,7 +39,12 @@ The YUV -> RGB of the AVIFs the reference hands to Pillow
 libyuv's rows at 8 bits, shifted down from 10 and 12, at 16 bits with
 alpha, I400, libavif's float path, identity, YCgCo and YCgCo-Re, odd
 sizes down to 1 x 1, alpha, premultiplied alpha on both unmultiplies,
-one thread and several; each output must equal the normal build's.
+one thread and several; each output must equal the normal build's. So
+do the AV1 decoder's walk over a temporal unit (layered streams, hidden
+key frames, an INTER top layer, every frame selection and operating
+point, cut short and flipped) and the plane scaler of the items libavif
+rescales (``avif_scale.cpp``: every path of libyuv's ScalePlane at 8 and
+16 bits, crops, thread counts).
 """
 
 import json
@@ -860,19 +865,33 @@ def _av1_cases():
     return good, hostile
 
 
-def test_av1_decoder_under_address_sanitizer(tmp_path):
+@pytest.fixture(scope="module")
+def av1_asan_lib(tmp_path_factory):
+    """``av1_decode.cpp`` and ``avif_scale.cpp`` built with ASan and UBSan
+    into one library, once for this file's tests (one g++ a source, both
+    at once, then the link)."""
+    native = ROOT / "imagekit_tpu_torch" / "codecs" / "native"
+    out = tmp_path_factory.mktemp("av1_asan")
+    flags = ["-std=c++17", "-O1", "-g", "-fPIC",
+             "-fsanitize=address,undefined", "-fno-sanitize-recover=undefined"]
+    objs = [out / f"{src}.o" for src in ("av1_decode", "avif_scale")]
+    procs = [subprocess.Popen(["g++", *flags, "-c",
+                               str(native / f"{o.stem}.cpp"), "-o", str(o)])
+             for o in objs]
+    assert all(p.wait(timeout=300) == 0 for p in procs)
+    so = out / "libav1d_asan.so"
+    subprocess.run(["g++", *flags, "-shared", *map(str, objs), "-o", str(so)],
+                   check=True, timeout=300)
+    return so
+
+
+def test_av1_decoder_under_address_sanitizer(av1_asan_lib):
     """``av1_decode.cpp`` under ASan and UBSan, each stream in a buffer of
     exactly its size: real streams (palette, intrabc and 10-bit ones
     among them) decode to the normal build's planes (digests), hostile
     ones (their truncations and byte flips, an intrabc vector outside its
     tile) decode or are refused, and the sanitizers report nothing."""
-    native = ROOT / "imagekit_tpu_torch" / "codecs" / "native"
-    so = tmp_path / "libav1d_asan.so"
-    subprocess.run(["g++", "-std=c++17", "-O1", "-g", "-fPIC", "-shared",
-                    "-fsanitize=address,undefined",
-                    "-fno-sanitize-recover=undefined",
-                    str(native / "av1_decode.cpp"), "-o", str(so)],
-                   check=True, timeout=300)
+    so = av1_asan_lib
     good, hostile = _av1_cases()
     cases = {**{k: v[0].hex() for k, v in good.items()},
              **{k: v.hex() for k, v in hostile.items()}}
@@ -998,6 +1017,140 @@ def test_yuv_rgb_under_address_sanitizer(tmp_path):
     assert got == want
     assert sum(v == "refused" for v in got.values()) >= 12
     assert len(got) == len(yuv_rgb_cases())
+
+
+_REMAINDER = textwrap.dedent("""
+    import ctypes, hashlib, json, sys
+    from imagekit_tpu_torch.codecs.native import av1_dec_abi, avif_scale
+    from tests.test_torch_kernel_asan import scale_cases
+
+    lib = ctypes.CDLL(sys.argv[1]) if len(sys.argv) > 1 else None
+    if lib is not None:
+        av1_dec_abi.load(lib)
+        avif_scale.load(lib)
+    out = {}
+    for name, hexdata in json.loads(sys.stdin.read()).items():
+        data = bytes.fromhex(hexdata)
+        buf = ctypes.create_string_buffer(data, len(data))  # exact size
+        for select, op in ((-1, 0), (-2, 0), (0, 0), (1, 0), (3, 0),
+                           (-2, 1), (-2, 7), (-1, 40)):
+            key = f"{name}/{select}/{op}"
+            try:
+                y, u, v, info = av1_dec_abi.decode_samples(
+                    buf.raw, lib, select=select, op=op)
+                h = hashlib.sha256(y.tobytes())
+                for p in (u, v):
+                    if p is not None:
+                        h.update(p.tobytes())
+                out[key] = h.hexdigest()
+            except av1_dec_abi.Av1NotPorted:
+                out[key] = "501"
+            except ValueError:
+                out[key] = "400"
+    for name, (plane, size, crop, threads) in scale_cases().items():
+        got = avif_scale.scale_plane(plane, *size, crop, threads, lib=lib)
+        out[name] = hashlib.sha256(got.tobytes()).hexdigest()
+    print(json.dumps(out))
+""")
+
+
+def scale_cases() -> dict:
+    """name -> (plane, (width, height), crop, threads): every path of
+    ``avif_scale.cpp`` at 8 and 16 bits, on seeded planes of odd and
+    one-sample sides, crops and thread counts."""
+    import numpy as np
+
+    rng = np.random.default_rng(24)
+    sizes = (((1, 1), (3, 2)), ((1, 7), (2, 9)), ((9, 1), (20, 1)),
+             ((37, 21), (37, 9)), ((37, 21), (37, 50)), ((48, 32), (36, 24)),
+             ((48, 32), (24, 16)), ((64, 32), (24, 12)), ((48, 32), (12, 8)),
+             ((50, 30), (13, 7)), ((24, 16), (47, 31)), ((24, 16), (47, 16)),
+             ((24, 16), (61, 39)), ((48, 32), (31, 21)), ((45, 30), (15, 30)),
+             ((45, 30), (60, 10)), ((333, 129), (1000, 7)))
+    cases = {}
+    for depth in (8, 12):
+        dt = np.uint8 if depth == 8 else np.uint16
+        for (sw, sh), (dw, dh) in sizes:
+            p = rng.integers(0, 1 << depth, (sh, sw)).astype(dt)
+            for crop, threads in ((None, 1), ((max(1, dw // 2), dh), 3),
+                                  ((dw, max(1, dh - 1)), 0)):
+                cases[f"{depth}_{sw}x{sh}_{dw}x{dh}_{crop}_{threads}"] = (
+                    p, (dw, dh), crop, threads)
+    return cases
+
+
+def _remainder_streams() -> dict:
+    """The streams of the last remainder with their cuts and byte flips:
+    layered (a full and a half base), a hidden key frame (with grain), a
+    progressive one whose top layer is an INTER frame."""
+    import numpy as np
+
+    from tests import test_torch_avif_remainder as R
+    from tests.fixtures import make_avif_sources as M
+
+    streams = {
+        "layered_full": M.demux(R.layered("full"))["items"][0]["payload"],
+        "layered_half": M.demux(R.layered("half"))["items"][0]["payload"],
+        "hidden_key": R.hidden_key(),
+        "hidden_key_grain": R.hidden_key(**{"film-grain-test": 4}),
+        "progressive": M.demux(R.progressive())["items"][0]["payload"],
+    }
+    rng = np.random.default_rng(25)
+    for name, data in list(streams.items()):
+        for i, cut in enumerate(rng.integers(1, len(data), 4)):
+            streams[f"{name}_cut{i}"] = data[:int(cut)]
+        for i in range(4):
+            m = bytearray(data)
+            m[int(rng.integers(0, min(len(data), 64)))] ^= \
+                int(rng.integers(1, 256))
+            streams[f"{name}_flip{i}"] = bytes(m)
+    return streams
+
+
+def test_obu_selection_and_scaler_under_address_sanitizer(av1_asan_lib):
+    """``av1_decode.cpp``'s walk over a temporal unit (layers, hidden
+    frames, show_existing_frame, every selection and operating point) and
+    ``avif_scale.cpp`` under ASan and UBSan: each stream in a buffer of
+    exactly its size, cut short or flipped, decodes to the normal build's
+    planes or answers as it does, every scaler case to the normal build's
+    samples, and the sanitizers report nothing."""
+    from tests.fixtures.make_avif_sources import _aom_lib
+
+    if _aom_lib() is None:
+        pytest.skip("libaom.so.3 (the streams' writer) unavailable")
+    so = av1_asan_lib
+    cases = json.dumps({k: v.hex() for k, v in _remainder_streams().items()})
+    normal = subprocess.run([sys.executable, "-c", _REMAINDER],
+                            input=cases, capture_output=True, text=True,
+                            timeout=600, cwd=ROOT)
+    assert normal.returncode == 0, normal.stderr[-6000:]
+    asan, cxx = (subprocess.run(["g++", f"-print-file-name={lib}"],
+                                capture_output=True, text=True).stdout.strip()
+                 for lib in ("libasan.so", "libstdc++.so.6"))
+    env = {**os.environ, "LD_PRELOAD": f"{asan} {cxx}",
+           "ASAN_OPTIONS": "detect_leaks=0:abort_on_error=1",
+           "UBSAN_OPTIONS": "print_stacktrace=1:halt_on_error=1"}
+    proc = subprocess.run([sys.executable, "-c", _REMAINDER, str(so)],
+                          input=cases, capture_output=True, text=True,
+                          env=env, timeout=900, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-6000:]
+    assert "Sanitizer" not in proc.stderr, proc.stderr[-6000:]
+    assert "runtime error" not in proc.stderr, proc.stderr[-6000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    want = json.loads(normal.stdout.strip().splitlines()[-1])
+    assert got == want
+    assert len(got) == 8 * len(json.loads(cases)) + len(scale_cases())
+    # the walk's answers: the base and the top of the layers, the hidden
+    # key frame, the INTER top layer's 501, an operating point past 31
+    assert got["layered_half/-1/0"] != got["layered_half/-2/0"]
+    assert got["layered_half/0/0"] == got["layered_half/-1/0"]
+    assert got["layered_half/1/0"] == got["layered_half/-2/0"]
+    assert got["layered_half/-2/1"] == got["layered_half/-1/0"]
+    assert got["layered_half/3/0"] == "400"
+    assert got["hidden_key/-1/0"] not in ("400", "501")
+    assert got["progressive/-2/0"] == "501"
+    assert got["progressive/-1/0"] not in ("400", "501")
+    assert got["layered_full/-1/40"] == "400"
 
 
 if __name__ == "__main__":

@@ -168,8 +168,8 @@ def test_cuda_device_is_never_implicit():
                                   "avif_src"])
 def test_off_slice_requests_raise_not_ported(case):
     """Each request outside the ported slices raises NotPortedError naming
-    its ROADMAP item (an AVIF source of the decoder's remainder, here a
-    layered stream, is what is left); an RGB PNG, a
+    its ROADMAP item (an AVIF source of the decoder's remainder, here an
+    inter frame as the stream's output frame, is what is left); an RGB PNG, a
     JPEG to JPEG, AVIF output, a downscale under 2x (k=8), a lossy WebP
     source, an RGBA PNG (the plain RGB head) and a request with no resize,
     once off the slice, are now served."""
@@ -216,7 +216,7 @@ def test_off_slice_requests_raise_not_ported(case):
         return
     with pytest.raises(NotPortedError, match="ROADMAP") as e:
         asyncio.run(run())
-    assert e.value.roadmap_item == "queue 1 item 8"
+    assert e.value.roadmap_item == "queue 1 item 12"
 
 
 # -- HTTP --------------------------------------------------------------------

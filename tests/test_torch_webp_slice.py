@@ -368,8 +368,8 @@ def test_yuv_batches_split_by_output_format():
 @pytest.mark.parametrize("case", ["rgba_lossless", "vp8x_alph", "avif_src",
                                   "avif_out", "no_resize"])
 def test_webp_requests_outside_the_slice_are_not_ported(case):
-    """An AVIF source of the decoder's remainder (a layered stream) is
-    what is left; WebPs with alpha (the plain RGB
+    """An AVIF source of the decoder's remainder (an inter frame as its
+    output frame) is what is left; WebPs with alpha (the plain RGB
     head), a request with no resize and AVIF output (the YUV head and the
     first-party AV1 encoder), once here, are served."""
     fmt, w, item = ImageFormat.webp, 32, "queue 1 item 9"
@@ -389,7 +389,7 @@ def test_webp_requests_outside_the_slice_are_not_ported(case):
         (out,) = _drive(engine, [data], [w], ImageFormat.avif)
         assert out[4:12] == b"ftypavif" and engine.metrics.batches == 1
         return
-    data, item = remainder_avif(), "queue 1 item 8"
+    data, item = remainder_avif(), "queue 1 item 12"
     with pytest.raises(NotPortedError, match="ROADMAP") as e:
         _drive(engine, [data], [w], fmt)
     assert e.value.roadmap_item == item
