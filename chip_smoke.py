@@ -273,6 +273,17 @@ decoded with Pillow: old-style, planar and extra-sample JPEG pages,
     file's captured batch against their plain versions, timed; rounds of 8
     requests (warmed by 4), counts reset before each, run once, traced,
     -> w=400 WebP or JPEG, the alpha files -> w=160 AVIF: requests/s,
+    p50/p99, host stages, idle share;
+28. the AVIFs the reference hands to Pillow (``phase_pillow_avifs``);
+29. AVIFs whose output frame is an INTER frame (``inter_arrays.json``:
+    progressive files, a half-size base key frame under a 1080p INTER
+    frame, at 8 bits 4:2:0 and 10 bits 4:4:4; three layers with compound
+    prediction; a hidden key frame under the INTER frame libdav1d returns
+    first): the port's AV1 decoder with inter prediction on the host, the
+    arrays, planes and raw samples held to the digests taken where the
+    files were made, the decode timed alone and 8 at once; K2 at each
+    file's batch against its plain version; rounds -> w=400 WebP (8 a
+    round), one -> w=400 JPEG (8) and one -> w=160 AVIF (2): requests/s,
     p50/p99, host stages, idle share.
 
 Rounds of phases 26 and 27 take 8 requests each (warmed by 4); every
@@ -5538,7 +5549,7 @@ def phase_avif_sources(card: str) -> dict:
     capture), against their plain versions and timed: the u8 entry with
     4:4:4 and 4:2:2 chroma, with the alpha plane as a fourth, and the f32
     entry's six resizes of a BT.709 batch; then the batch of each file of
-    this slice. Then rounds of 8 requests through one engine (4 for AVIF
+    this slice. Then rounds of 8 requests through one engine (2 for AVIF
     output, which its one encode thread bounds), counts reset before
     each, each run once, traced: the decode on the codec pool, ONE K2
     launch a batch, and the VP8, Huffman or first-party AV1 encode."""
@@ -5656,7 +5667,7 @@ def phase_avif_sources(card: str) -> dict:
          {"k2": "batch"}),
         ("1080p 4:2:2 AVIF -> w=400 WebP", src("1080p_422"), 8, 400, W, out,
          {"k2": "batch"}),
-        ("1080p RGBA AVIF -> w=160 AVIF, alpha kept", src("1080p_rgba"), 4,
+        ("1080p RGBA AVIF -> w=160 AVIF, alpha kept", src("1080p_rgba"), 2,
          160, A, small, {"k2": "batch"}),
         ("1080p BT.709 AVIF -> w=400 WebP", src("1080p_bt709"), 8, 400, W,
          out, {"k2": "batch"}),
@@ -5665,13 +5676,13 @@ def phase_avif_sources(card: str) -> dict:
         ("1080p CDEF AVIF -> w=400 JPEG", src("1080p_cdef"), 8, 400, J, out,
          {"k2": "batch"}),
         ("1080p speed-4 AVIF (loop restoration) -> w=160 AVIF",
-         src("1080p_speed4_lr"), 4, 160, A, small, {"k2": "batch"}),
+         src("1080p_speed4_lr"), 2, 160, A, small, {"k2": "batch"}),
         ("1080p UI screenshot AVIF (palette, intrabc) -> w=400 WebP",
          src("1080p_screenshot"), 8, 400, W, out, {"k2": "batch"}),
         ("1080p logo sheet AVIF (palette, intrabc) -> w=400 JPEG",
          src("1080p_logos"), 8, 400, J, out, {"k2": "batch"}),
         ("1080p RGBA logo AVIF (palettes in the alpha) -> w=160 AVIF",
-         src("1080p_rgba_logo"), 4, 160, A, small, {"k2": "batch"}),
+         src("1080p_rgba_logo"), 2, 160, A, small, {"k2": "batch"}),
         ("1080p 10-bit 4:2:0 AVIF -> w=400 WebP", src("1080p_10bit_420"), 8,
          400, W, out, {"k2": "batch"}),
         ("1080p 12-bit 4:4:4 AVIF -> w=400 JPEG", src("1080p_12bit_444"), 8,
@@ -6100,6 +6111,193 @@ def phase_pillow_avifs(card: str) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 29: AVIFs whose output frame is an INTER frame
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def inter_avif_sources() -> dict:
+    """Phase 29's committed AVIFs (``tests/fixtures/make_avif_sources.py
+    --inter``: libaom's GOOD usage over a texture in motion, spliced into
+    layers), with the path the reference takes for each (``native``:
+    libdav1d's first picture; ``pillow``: libavif's highest layer), the
+    digest of the array it decodes, of libdav1d's planes of the output
+    frame and of its raw samples, taken where they were made, and the
+    inter tools the decode uses: name -> (bytes, entry)."""
+    with open(os.path.join(AVIF_FIXTURES, "inter_arrays.json")) as f:
+        table = json.load(f)
+    out = {}
+    for name, entry in table.items():
+        with open(os.path.join(AVIF_FIXTURES, entry["file"]), "rb") as f:
+            out[name] = (f.read(), entry)
+    return out
+
+
+def inter_avif_case(data: bytes, entry: dict) -> dict:
+    """The port's decode of one inter file on the host: the array's digest
+    (``avif_native.decode_rgb`` on the native path, else
+    ``avif_libavif``) and that decode's ms alone; the output frame's
+    planes (8-bit and raw samples), frames and tools from the AV1 decoder
+    and its ms alone (every frame the output depends on, the base layer
+    included); the file's decode 8 at once on 8 threads (the engine's
+    codec pool decodes a batch's files so). One of each: a 1080p inter
+    file takes about a second on a host of the card (single-tile frames,
+    loop restoration)."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from imagekit_tpu_torch.codecs import avif_libavif, avif_native
+    from imagekit_tpu_torch.codecs.native import av1_dec_abi
+
+    native = entry["path"] == "native"
+    decode = (avif_native.decode_rgb if native
+              else avif_libavif.decode_pillow_rgb)
+    t0 = time.perf_counter()
+    arr = decode(data)
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    if arr is None:
+        raise RuntimeError("the port's native path declines a file it serves")
+    obu = avif_native.parse_container(data).obu
+    t0 = time.perf_counter()
+    y, u, v, info = av1_dec_abi.decode_samples(
+        obu, select=av1_dec_abi.FIRST if native else av1_dec_abi.HIGHEST)
+    av1_ms = (time.perf_counter() - t0) * 1e3
+    h8, hs = hashlib.sha256(), hashlib.sha256()
+    for p in (y, u, v):
+        h8.update(np.ascontiguousarray(
+            av1_dec_abi.to_8bit(p, info.bitdepth)).tobytes())
+        hs.update(np.ascontiguousarray(p).astype(
+            "<u2" if info.bitdepth > 8 else np.uint8).tobytes())
+    with ThreadPoolExecutor(8) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(decode, [data] * 8))
+        decode8_ms = (time.perf_counter() - t0) * 1e3
+    return {"sha256": hashlib.sha256(arr.tobytes()).hexdigest(),
+            "mode": "RGBA" if arr.shape[2] == 4 else "RGB",
+            "shape": arr.shape, "bytes": len(data),
+            "planes_sha256": h8.hexdigest(), "samples_sha256": hs.hexdigest(),
+            "frames": info.frames, "decoded": info.decoded,
+            "tools": {k: n for k, n in info.tools.items() if n},
+            "decode_ms": decode_ms, "decode8_ms": decode8_ms,
+            "av1_ms": av1_ms}
+
+
+def phase_inter_avifs(card: str) -> dict:
+    """AVIFs whose output frame is an INTER frame (``inter_arrays.json``):
+    a progressive 8-bit 4:2:0 file and a 10-bit 4:4:4 one, each a half-size
+    base key frame under a 1920x1080 INTER frame predicted across sizes
+    (libavif's highest layer, the Pillow path), a three-layer file whose
+    top frame uses compound prediction (no colr box: the Pillow path) and
+    a hidden key frame under the INTER frame libdav1d returns first (the
+    native path). Each decodes on the host through the port's AV1 decoder
+    (every frame the output depends on, inter prediction included): its
+    array, its output frame's planes and raw samples against the digests
+    taken where the files were made, its tools as recorded, decoded alone
+    and 8 at once. K2 against its plain version at each file's batch (the
+    RGB head of the Pillow path, to WebP and to JPEG, and the YUV head of
+    the native one). Then rounds through one engine: each file -> w=400
+    WebP (8 a round), one -> w=400 JPEG (8), one -> w=160 AVIF (2); counts
+    reset before each, each run once, traced: the decode on the codec pool,
+    ONE K2 launch a batch, the encode."""
+    from imagekit_tpu_torch.config import ImageFormat
+    from imagekit_tpu_torch.serving import engine_rgb, engine_yuv
+
+    W, J, A = ImageFormat.webp, ImageFormat.jpeg, ImageFormat.avif
+    t0 = time.perf_counter()
+    sources = inter_avif_sources()
+    steps = {"sources": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    decodes = {}
+    for name, (data, entry) in sources.items():
+        case = inter_avif_case(data, entry)
+        for key in ("sha256", "mode", "planes_sha256", "samples_sha256",
+                    "frames", "decoded", "tools"):
+            if case[key] != entry[key]:
+                raise RuntimeError(f"the port's decode of {name} differs from "
+                                   f"the recorded {key} ({case[key]} != "
+                                   f"{entry[key]})")
+        decodes[name] = case
+        how = ("libdav1d's first picture" if entry["path"] == "native"
+               else "libavif's highest layer")
+        log(f"    {name} ({entry['recipe']}; {case['bytes'] / 1e3:.1f} kB, "
+            f"{case['mode']} {case['shape'][1]}x{case['shape'][0]}, "
+            f"{entry['bitdepth']}-bit): {how}, array = the reference's "
+            f"(SHA-256 {case['sha256'][:16]}...), planes and raw samples = "
+            f"libdav1d's, {case['decoded']} of {case['frames']} frames "
+            f"decoded, tools {case['tools']}; decode {case['decode_ms']:.2f} "
+            f"ms alone, 8 at once {case['decode8_ms']:.2f} ms wall on 8 "
+            f"threads; the AV1 decode {case['av1_ms']:.2f} ms alone, on the "
+            f"host [{card}]")
+    steps["decode checks"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    k2 = {}
+    # the Pillow path's files share the RGB head's 1080p batch shape: one
+    # of them to WebP and to JPEG
+    captures = (("progressive", "1080p_inter_progressive", W,
+                 "resample_rgb_yuv_batch", "yuv",
+                 "progressive inter top layer, RGB"),
+                ("progressive_jpeg", "1080p_inter_progressive", J,
+                 "resample_rgb_jpeg_batch", "jpg",
+                 "progressive inter top layer, RGB to JPEG"))
+    for entry, name, fmt, fn_name, head, what in captures:
+        with quick_avif_encodes():
+            call = capture_batch([sources[name][0]], 400, 8, fn_name,
+                                 module=engine_rgb, fmt=fmt)
+        case = k2_pixels_case(call, head, what)
+        k2[entry] = case
+        log(f"  K2 vs plain, {what} (B={case['B']}: {case['shape']}): "
+            f"max|d|={case['max_abs_err']}; device time per call K2 "
+            f"{case['ms']:.4f} ms vs plain {case['plain_ms']:.4f} ms vs einsum "
+            f"{case['library_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
+            f"({case['bound_by']}), K2 at {case['bound_ms'] / case['ms']:.1%} "
+            f"of it [{card}]")
+    with quick_avif_encodes():
+        call = capture_batch([sources["1080p_inter_hidden_key"][0]], 400, 8,
+                             "resize_yuv420_batch", module=engine_yuv, fmt=W)
+    what = "hidden key frame's INTER frame (native path), 4:2:0"
+    case = k2_avif_case(call, what)
+    k2["hidden_key"] = case
+    log(f"  K2 vs plain, {what} (B={case['B']}: {case['planes']}): "
+        f"max|d|={case['max_abs_err']}; device time per call K2 "
+        f"{case['ms']:.4f} ms vs plain {case['plain_ms']:.4f} ms vs einsum "
+        f"{case['library_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
+        f"({case['bound_by']}), K2 at {case['bound_ms'] / case['ms']:.1%} "
+        f"of it [{card}]")
+    steps["K2 batches"] = time.perf_counter() - t0
+
+    def src(name):
+        return [sources[name][0]]
+
+    out = (400, 225)
+    rounds = [
+        ("1080p progressive AVIF, INTER top layer -> w=400 WebP",
+         src("1080p_inter_progressive"), 8, 400, W, out, {"k2": "batch"}),
+        ("1080p 10-bit 4:4:4 progressive AVIF, INTER top layer -> w=400 "
+         "WebP", src("1080p_inter_10bit_444_progressive"), 8, 400, W, out,
+         {"k2": "batch"}),
+        ("1080p three-layer AVIF, compound INTER top layer -> w=400 WebP",
+         src("1080p_inter_compound_3layer"), 8, 400, W, out, {"k2": "batch"}),
+        ("1080p AVIF, hidden key then INTER frame (native path) -> w=400 "
+         "WebP", src("1080p_inter_hidden_key"), 8, 400, W, out,
+         {"k2": "batch"}),
+        ("1080p progressive AVIF, INTER top layer -> w=400 JPEG",
+         src("1080p_inter_progressive"), 8, 400, J, out, {"k2": "batch"}),
+        ("1080p progressive AVIF, INTER top layer -> w=160 AVIF",
+         src("1080p_inter_progressive"), 2, 160, A, (160, 90),
+         {"k2": "batch"}),
+    ]
+    summary = drive_rounds(rounds, card, steps)
+    summary["decodes"] = decodes
+    summary["k2"] = k2
+    log("    seconds a step (a round's include its warm-up and trace): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in steps.items()))
+    summary["step_s"] = steps
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -6303,6 +6501,15 @@ def main() -> int:
           "against Pillow's digests), the RGB and YUV heads (K2), "
           "BatchedEngine(device='cuda').transform")
     avif28 = phase_pillow_avifs(card)
+
+    begin("[29] AVIFs whose output frame is an INTER frame: progressive "
+          "files (a half-size base under a 1080p INTER frame, 8-bit 4:2:0 "
+          "and 10-bit 4:4:4), three layers with compound prediction, a "
+          "hidden key frame under an INTER frame; the port's AV1 inter "
+          "prediction on the host (planes and raw samples against "
+          "libdav1d's digests), the RGB and YUV heads (K2), "
+          "BatchedEngine(device='cuda').transform")
+    inter29 = phase_inter_avifs(card)
     end_phase()
     log("    seconds a phase (heading to heading): " + ", ".join(
         f"[{k}] {v:.2f}" for k, v in PHASE_S.items()))
@@ -6345,6 +6552,12 @@ def main() -> int:
             "library_ms")} for entry in ("grid", "hdr_2020", "identity",
                                          "icc_only", "coded_540p",
                                          "grid_half_cells", "layered_half")},
+        # phase 29's (both heads' launches) and its RGB-head batches of
+        # INTER top layers (B=8)
+        "inter_avif_launches": inter29["k2_launches"],
+        **{f"inter_avif_{entry}": {key: inter29["k2"][entry][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")} for entry in ("progressive", "progressive_jpeg")},
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
@@ -6486,6 +6699,11 @@ def main() -> int:
                                  for key in ("max_abs_err", "ms", "plain_ms",
                                              "bound_ms", "bound_by",
                                              "library_ms")},
+        # phase 29's native-path INTER frame (a hidden key frame's)
+        "avif_inter_hidden_key_b8": {key: inter29["k2"]["hidden_key"][key]
+                                     for key in ("max_abs_err", "ms",
+                                                 "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms")},
     }, {
         "name": "rgba_resize (K2, 4 channels in one launch, interleaved out: "
                 "the plain RGB head of sources with alpha)",
@@ -6573,6 +6791,8 @@ def main() -> int:
         raise RuntimeError("a round of phase 26 launched no K2 or K3")
     if min(avif28[f"{k}_launches"] for k in ("k2", "k2_rgba")) <= 0:
         raise RuntimeError("a round of phase 28 launched no K2")
+    if inter29["k2_launches"] <= 0:
+        raise RuntimeError("a round of phase 29 launched no K2")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -37,9 +37,10 @@ module is the port's counterpart of that call, in four steps:
    this path, and Pillow turns the rotation into an EXIF orientation).
 
 Files libavif refuses raise TransformError with the words Pillow reports
-(the reference's 400). What the port does not build raises NotPortedError
-naming ROADMAP queue 1 item 12 (the app's 501): a stream whose output
-frame is an inter frame (inter prediction).
+(the reference's 400). A stream whose output frame is an inter frame
+(libavif's highest layer of a progressive file) decodes with the frames it
+depends on; a tool the port would not build raises NotPortedError naming
+ROADMAP queue 1 item 12 (the app's 501): none is left.
 """
 
 from __future__ import annotations

@@ -6,18 +6,15 @@ container layer (ftyp/meta/pitm/iinf/iloc/iprp walking, the clean
 aperture, the alpha auxiliary item, the colour tags) and the colour and
 range handling are the reference's, unchanged. Where the reference hands
 the AV1 OBU payload to libdav1d over ctypes (``_decode_obu``), the port
-decodes it with its own intra decoder, ``native/av1_decode.cpp`` (through
-:mod:`.native.av1_dec_abi`), whose planes are byte-equal to libdav1d's.
+decodes it with its own decoder, ``native/av1_decode.cpp`` (through
+:mod:`.native.av1_dec_abi`), whose planes are byte-equal to libdav1d's,
+intra and inter frames alike.
 The return contract stays: the same planes, chroma factors, alpha and
 ``bt709`` flag, and None where the reference's path returns None.
 
 What differs, because the port has no host library behind it:
 
-- a stream whose output frame (libdav1d's first picture, at its default
-  ``all_layers``) is an inter frame raises
-  :class:`~imagekit_tpu_torch.errors.NotPortedError` naming ROADMAP queue 1
-  item 12, inter prediction (the app's 501), where the reference decodes it
-  with libdav1d; a layered stream whose first picture is not the
+- a layered stream whose first picture is not the
   container's size returns None, as the reference's ``_decode_obu`` does
   once its ABI guard has passed (the guard, which turns the reference's
   native path off for good where the first picture it validates has
@@ -42,8 +39,8 @@ import numpy as np
 from imagekit_tpu_torch.errors import NotPortedError
 
 _I400, _I420, _I422, _I444 = 0, 1, 2, 3
-#: the ROADMAP item of what the decoder does not build: an output frame
-#: that is an inter frame (inter prediction)
+#: the ROADMAP item a tool the decoder would not build names (inter
+#: prediction's; none is left)
 INTER_ITEM = "queue 1 item 12"
 
 
@@ -418,8 +415,9 @@ def _decode_obu(obu: bytes, want_w: int, want_h: int):
     v|None, layout, 8), or None where the stream does not decode or its
     picture's size is not the container's (the reference rejects such a
     file too). A 10- or 12-bit stream's planes come rounded to 8 bits as
-    the reference rounds libdav1d's (``av1_dec_abi.to_8bit``). Raises
-    NotPortedError where that frame is an inter frame."""
+    the reference rounds libdav1d's (``av1_dec_abi.to_8bit``). An inter
+    frame decodes with the frames it depends on; NotPortedError would name a
+    tool the decoder does not build."""
     from imagekit_tpu_torch.codecs.native import av1_dec_abi
 
     try:

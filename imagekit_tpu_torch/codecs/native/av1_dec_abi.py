@@ -1,4 +1,5 @@
-"""ctypes binding of the port's AV1 intra decoder (``av1_decode.cpp``).
+"""ctypes binding of the port's AV1 decoder (``av1_decode.cpp``): intra
+and inter frames.
 
 The decoder takes its default tables once, packed here into the one
 struct it declares (``Tables`` in ``av1_decode.cpp``): the CDFs of
@@ -18,12 +19,15 @@ and never decodes.
 it by default, or the highest spatial layer's or one layer's, as libavif
 asks for it: ``select``); :func:`decode_samples` returns that frame's
 planes at the stream's depth (uint8 for 8-bit, uint16 for 10- and 12-bit
-streams), and :func:`decode` returns u8 planes, those of a
+streams), decoding first the frames it depends on where it is an inter
+frame, and :func:`decode` returns u8 planes, those of a
 high-bit-depth stream rounded to 8 bits as the reference's
 ``avif_native._decode_obu`` rounds libdav1d's. All raise
-:class:`Av1NotPorted` where the output frame is an inter frame (inter
-prediction is not built) and :class:`ValueError` for a malformed
-stream. Two settings serve tests and timing only, never
+:class:`ValueError` for a malformed stream (an inter frame of an empty
+reference slot among them), and would raise :class:`Av1NotPorted` for a
+tool the decoder does not build (none is left). The decode reports the
+inter tools its blocks used (``StreamInfo.tools``, :data:`TOOLS`). Two
+settings serve tests and timing only, never
 the engine: :func:`_decode_samples` can leave a stream's film grain out,
 and :func:`_set_threads` caps the decoder's threads.
 """
@@ -51,10 +55,31 @@ OK, BAD, NOT_PORTED = 0, -1, -2
 #: point's highest spatial layer, else the last shown; 0..3: the first
 #: frame of that spatial layer (libavif's ``lsel``)
 FIRST, HIGHEST = -1, -2
+#: the last frame shown in the first temporal unit (of a stream with no
+#: temporal delimiters, the last frame shown: for tests and diagnostics)
+LAST = -3
 #: the layouts of ``IkAv1dInfo.layout``
 I400, I420, I422, I444 = 0, 1, 2, 3
 #: the bits of ``StreamInfo.filters``
 FILTER_DEBLOCK, FILTER_CDEF, FILTER_LR = 1, 2, 4
+
+
+#: the inter tools whose blocks a decode counts (``ToolCounts.tools``, in
+#: the order of the decoder's TOOL_*): inter blocks, intra blocks of inter
+#: frames, NEWMV and GLOBALMV blocks, blocks predicted from a reference of
+#: another size, blocks that read their interpolation filter and those
+#: whose two filters differ, OBMC, local warp and global warp blocks,
+#: interintra (wedge too), the temporal candidates of the motion field,
+#: segment ids taken from the previous frame, compound blocks (skip mode,
+#: distance weights, wedge and difference-weighted masks among them), and
+#: two that only hostile streams show: blocks predicted wholly from
+#: outside their reference (the clamped edge), and local warps whose model
+#: is degenerate or whose shears are too large (predicted by translation)
+TOOLS = ("inter", "intra_in_inter", "newmv", "globalmv", "scaled",
+         "switchable_filter", "dual_filter", "obmc", "local_warp",
+         "global_warp", "interintra", "wedge_interintra", "temporal_mv",
+         "seg_temporal", "compound", "skip_mode", "compound_distance",
+         "compound_wedge", "compound_diffwtd", "mv_outside", "warp_invalid")
 
 
 class Av1NotPorted(Exception):
@@ -67,7 +92,8 @@ class _Info(ctypes.Structure):
         "matrix", "primaries", "transfer", "allow_sct", "allow_intrabc",
         "palette_blocks", "intrabc_blocks", "filters", "qmatrix",
         "film_grain", "superres_denom", "spatial_id", "shown_existing",
-        "frames")] + [
+        "frames", "inter", "decoded")] + [
+            ("tools", ctypes.c_int32 * len(TOOLS)),
             ("reason", ctypes.c_char * 120)]
 
 
@@ -103,6 +129,13 @@ class StreamInfo(NamedTuple):
     spatial_id: int = 0
     shown_existing: bool = False
     frames: int = 1
+    #: the output frame is an INTER or SWITCH frame; the frames of the
+    #: temporal unit decoded for it (itself included)
+    inter: bool = False
+    decoded: int = 1
+    #: after a decode, the blocks of those frames that used each inter
+    #: tool, by name (:data:`TOOLS`)
+    tools: Optional[dict] = None
 
 
 # (name in the npz files, C record shape per q context); coefficient
@@ -157,6 +190,40 @@ _CDF_LAYOUT = (
     ("inter_tx1", (2, 17), False),
     ("inter_tx2", (13,), False),
     ("inter_tx3", (4, 3), False),
+    ("y_mode", (4, 14), False),
+    ("is_inter", (4, 3), False),
+    ("seg_pred", (3, 3), False),
+    ("single_ref", (3, 6, 3), False),
+    ("new_mv", (6, 3), False),
+    ("zero_mv", (2, 3), False),
+    ("ref_mv", (6, 3), False),
+    ("drl_mode", (3, 3), False),
+    ("interp_filter", (16, 4), False),
+    ("motion_mode", (22, 4), False),
+    ("use_obmc", (22, 3), False),
+    ("interintra", (4, 3), False),
+    ("interintra_mode", (4, 5), False),
+    ("wedge_interintra", (22, 3), False),
+    ("wedge_index", (22, 17), False),
+    ("mv_joint", (5,), False),
+    ("mv_class", (2, 12), False),
+    ("mv_class0", (2, 3), False),
+    ("mv_bits", (2, 10, 3), False),
+    ("mv_sign", (2, 3), False),
+    ("mv_class0_fr", (2, 2, 5), False),
+    ("mv_fr", (2, 5), False),
+    ("mv_class0_hp", (2, 3), False),
+    ("mv_hp", (2, 3), False),
+    ("skip_mode", (3, 3), False),
+    ("comp_mode", (5, 3), False),
+    ("comp_ref_type", (5, 3), False),
+    ("uni_comp_ref", (3, 3, 3), False),
+    ("comp_ref", (3, 3, 3), False),
+    ("comp_bwd_ref", (3, 2, 3), False),
+    ("compound_mode", (8, 9), False),
+    ("comp_group_idx", (6, 3), False),
+    ("compound_idx", (6, 3), False),
+    ("compound_type", (22, 3), False),
 )
 _SCANS = ("4x4", "8x8", "16x16", "32x32", "4x8", "8x4", "8x16", "16x8",
           "16x32", "32x16", "4x16", "16x4", "8x32", "32x8")
@@ -190,7 +257,8 @@ def _cdf_arrays() -> dict:
             pal[t, n - 2, :, :n + 1] = out[f"pal_{plane}_color_{n}"]
     out["pal_color"] = pal
     # one copy of each motion vector CDF per component
-    for name in ("mv_class", "mv_class0", "mv_bits", "mv_sign"):
+    for name in ("mv_class", "mv_class0", "mv_bits", "mv_sign",
+                 "mv_class0_fr", "mv_fr", "mv_class0_hp", "mv_hp"):
         out[name] = np.stack([out[name]] * 2)
     return out
 
@@ -229,6 +297,24 @@ def tables_blob() -> bytes:
     parts.append(np.asarray(T["palette_hash_mult"], np.int8).tobytes())
     parts.append(b"\0")  # the struct's pad_ byte
     parts.append(np.asarray(T["quantizer_matrix"], np.uint8).tobytes())
+    parts.append(np.asarray(T["subpel_filters"], "<i2").tobytes())
+    parts.append(np.asarray(T["warped_filters"], "<i2").tobytes())
+    parts.append(np.asarray(T["div_lut"], "<i2").tobytes())
+    parts.append(b"\0\0")  # pad2_
+    for name in ("obmc_masks", "wedge_master", "wedge_codebook", "ii_weights",
+                 "quant_dist_weight", "quant_dist_lookup"):
+        parts.append(np.asarray(T[name], np.uint8).tobytes())
+    # where each CDF record keeps its counter: after the 0 that ends its
+    # inverse cdf (records padded to a wider kind end in more zeros)
+    mask = []
+    for name, shape, per_q in _CDF_LAYOUT:
+        a = np.asarray(T[name][0] if per_q else T[name], np.uint16)
+        for rec in a.reshape(-1, shape[-1]):
+            m = np.zeros(shape[-1], np.uint8)
+            m[int(np.flatnonzero(rec == 0)[0]) + 1] = 1
+            mask.append(m)
+    mask = np.concatenate(mask)
+    parts.append(mask.tobytes() + b"\0" * (len(mask) % 2))
     return b"".join(parts)
 
 
@@ -290,7 +376,9 @@ def _info(info: _Info) -> StreamInfo:
                       bool(info.allow_intrabc), info.palette_blocks,
                       info.intrabc_blocks, info.filters, bool(info.qmatrix),
                       bool(info.film_grain), info.superres_denom,
-                      info.spatial_id, bool(info.shown_existing), info.frames)
+                      info.spatial_id, bool(info.shown_existing), info.frames,
+                      bool(info.inter), info.decoded,
+                      dict(zip(TOOLS, info.tools)))
 
 
 def probe(obu: bytes, lib: Optional[ctypes.CDLL] = None,

@@ -1,15 +1,18 @@
-// AV1 intra-frame decoder of the port's own: the still picture (or the
-// output frame of the first temporal unit of an image sequence or a
-// layered stream) of an AVIF item, 8-, 10- or 12-bit, in place of
-// libdav1d, which the reference's avif_native.py calls over ctypes.
+// AV1 decoder of the port's own: the still picture (or the output frame
+// of the first temporal unit of an image sequence or a layered stream) of
+// an AVIF item, 8-, 10- or 12-bit, intra or inter, in place of libdav1d,
+// which the reference's avif_native.py calls over ctypes.
 //
 // It follows the AV1 specification's decoding process section by section
 // (the names of its variables and processes are kept: decode_partition,
-// intra_frame_mode_info, coeffs, predict_intra, edge_loop_filter,
-// cdef_block, ...), since reconstruction is normative: the planes must be
-// byte-equal to any conforming decoder's, libdav1d's included
-// (tests/test_torch_av1_decode.py and test_torch_av1_screen_hbd.py hold
-// them so). Tools:
+// intra_frame_mode_info, find_mv_stack, block_inter_prediction,
+// edge_loop_filter, cdef_block, ...), since reconstruction is normative:
+// the planes must be byte-equal to any conforming decoder's, libdav1d's
+// included (tests/test_torch_av1_decode.py, test_torch_av1_screen_hbd.py
+// and test_torch_av1_inter.py hold them so). Where the specification
+// leaves a choice of arithmetic to the decoder (the warp model's products,
+// the distance weights' comparison), libdav1d's and libaom's is taken.
+// Tools:
 //
 //   - OBUs: temporal delimiter, sequence header (reduced or full), frame
 //     header and tile groups, or frame OBUs; padding and metadata skipped;
@@ -17,40 +20,64 @@
 //     first temporal unit walked with their reference slots (hidden
 //     frames, show_existing_frame of a stored KEY_FRAME) to the output
 //     frame libdav1d returns (parse_stream): the first shown, or the
-//     highest spatial layer's, or one layer's;
-//   - frame header of a KEY_FRAME or INTRA_ONLY frame: frame size and
-//     superres params (the tiles code the downscaled width), tile
-//     info (uniform or explicit, several tiles and tile groups), quantizer
-//     params with DC/AC/U/V deltas, segmentation, delta q / lf, loop
-//     filter, CDEF and loop restoration params, allow_intrabc, tx mode,
-//     reduced tx set, quantizer matrices (using_qmatrix, qm_y, qm_u, qm_v)
-//     and film grain params;
+//     highest spatial layer's, or one layer's; the frames it depends on
+//     (its references, theirs, ...) decoded before it, in decode order,
+//     each kept in its slots (7.20: the frame after its filters, its
+//     header, frame-end CDFs, segment ids and the vectors of the motion
+//     field), and no other;
+//   - frame header of every frame type: frame size and superres params
+//     (the tiles code the downscaled width), of an inter frame its
+//     references (ref_frame_idx, or frame_refs_short_signaling and
+//     set_frame_refs), frame_size_with_refs, the vector precision, the
+//     interpolation filter, motion modes, use_ref_frame_mvs, the primary
+//     reference's CDFs, loop filter deltas, segmentation features and
+//     global motion (load_previous), reference_select, skip_mode_params,
+//     allow_warped_motion, global motion params and film grain loaded from
+//     a reference; tile info (uniform or explicit, several tiles and tile
+//     groups), quantizer params with DC/AC/U/V deltas, segmentation (with
+//     update_map and temporal_update), delta q / lf, loop filter, CDEF and
+//     loop restoration params, allow_intrabc, tx mode, reduced tx set,
+//     quantizer matrices (using_qmatrix, qm_y, qm_u, qm_v) and film grain
+//     params;
 //   - symbol decoder with CDF adaptation (spec 8.2), the default CDFs
 //     handed over by av1_dec_abi.py at load (av1_tables.npz and
 //     av1_dec_tables.npz);
 //   - block syntax of 64 and 128 superblocks, all 22 block sizes, the
 //     intra mode info (skip, cdef_idx, delta q and lf, segment ids with
 //     spatial prediction, y and uv modes, angle deltas, CfL alphas,
-//     palette mode info and colour index maps, filter intra), tx depth
-//     and the intra tx sets, coefficients of all 19 tx sizes,
-//     dequantisation, weighted by Quantizer_Matrix where the frame uses
-//     quantizer matrices;
-//   - intra block copy: use_intrabc, the spatial motion vector stack,
-//     read_mv under MV_INTRABC_CONTEXT, the var-tx tree and the inter
-//     transform sets, prediction from the frame's own unfiltered samples
-//     with the BILINEAR filter (a subsampled chroma vector may land on a
-//     half sample); a vector that reaches outside its tile or into samples
-//     not yet decoded is refused (the conformance rule is_mv_valid), so
-//     tiles stay on their threads;
+//     palette mode info and colour index maps, filter intra), the inter
+//     frame mode info (segment ids predicted from the previous frame,
+//     skip mode, is_inter, intra blocks of inter frames, single and
+//     compound references, the single and compound modes and drl, read_mv
+//     at high, quarter and integer precision, interintra, motion modes,
+//     compound types, switchable and dual interpolation filters), tx depth
+//     and the var-tx tree, the intra and inter tx sets, coefficients of all
+//     19 tx sizes, dequantisation, weighted by Quantizer_Matrix where the
+//     frame uses quantizer matrices;
+//   - motion vector prediction (7.10.2): the spatial candidates, the
+//     temporal ones from the motion field of the references (7.9,
+//     projected as libaom keeps it), the extra search, global motion's
+//     vectors, the contexts and clamping; intra block copy's stack;
+//   - inter prediction (7.11.3): the motion vector scaling of references
+//     of another size (a smaller base layer, a superres reference) and the
+//     8-tap and 4-tap Subpel_Filters, clamped to the reference's upscaled
+//     frame; local warp (find_warp_samples, the least-squares model,
+//     setupShear) and global motion by Warped_Filters; OBMC; interintra
+//     (smooth and wedge); compound average, distance weights, wedge and
+//     difference-weighted masks; intra block copy, a vector that reaches
+//     outside its tile or into samples not yet decoded refused (the
+//     conformance rule is_mv_valid), so tiles stay on their threads;
 //   - inverse DCT 4-64, ADST 4/8/16 (and flipped), identity 4-32 and the
 //     4x4 WHT of lossless blocks, rectangular scaling, intermediate clamps;
 //   - intra prediction: DC, V, H, Paeth, smooth, directional with edge
 //     filter and upsampling, CfL, recursive filter intra, palette;
-//   - deblocking (4, 6, 8 and 14 taps), CDEF, the upscaling process of
-//     superres (8-tap Upscale_Filter of 64 phases over the CDEF output and,
-//     for restoration's stripe edges, the deblocked frame), loop
-//     restoration (Wiener and self-guided, on the upscaled frame, stripes
-//     reading the deblocked rows);
+//   - deblocking (4, 6, 8 and 14 taps, the reference and mode deltas of
+//     inter blocks, only the block's edges inside an inter block with no
+//     residual), CDEF, the upscaling process of superres (8-tap
+//     Upscale_Filter of 64 phases over the CDEF output and, for
+//     restoration's stripe edges, the deblocked frame), loop restoration
+//     (Wiener and self-guided, on the upscaled frame, stripes reading the
+//     deblocked rows);
 //   - film grain synthesis (7.18.3) on the shown frame: grain templates
 //     with auto-regressive filtering, scaling lookups, noise stripes with
 //     overlap blending, chroma scaled from luma, clipping to the range.
@@ -58,16 +85,19 @@
 // Everything from the tiles on is a template over the sample type:
 // uint8_t for 8-bit streams, uint16_t for 10- and 12-bit ones, whose
 // BitDepth-dependent steps (quantizer rows, clamps, edge base values,
-// deblocking limits, CDEF strengths, Wiener and self-guided rounding,
-// palette literals, grain ranges) follow the spec. Not built, answered
-// with IK_AV1D_NOT_PORTED and a reason (the caller's 501): an output frame
-// that is an INTER or SWITCH frame (inter prediction). Tiles decode on threads of their own (decode_tiles),
-// and so do CDEF's rows of 64x64 units, the upscale's bands of 32 rows,
-// loop restoration's runs of rows (a stripe's rows in one row of units)
-// and film grain's stripes of 32 rows; deblocking runs on the calling
-// thread. Malformed streams answer IK_AV1D_BAD (400): every
-// read is bounds checked, and a symbol decoder that runs past its tile reads zeros as the
-// spec says, so a truncated tile decodes to something, as in libdav1d.
+// inter rounding, deblocking limits, CDEF strengths, Wiener and
+// self-guided rounding, palette literals, grain ranges) follow the spec.
+// Tiles decode on threads of their own (decode_tiles; an inter frame's
+// references are whole frames decoded before it, read only), and so do
+// CDEF's rows of 64x64 units, the upscale's bands of 32 rows, loop
+// restoration's runs of rows (a stripe's rows in one row of units) and
+// film grain's stripes of 32 rows; deblocking runs on the calling thread.
+// Malformed streams answer IK_AV1D_BAD (400): every read is bounds
+// checked, a reference slot that is empty or of a size out of the 2x / 16x
+// rule fails the stream (as in libdav1d), and a symbol decoder that runs
+// past its tile reads zeros as the spec says, so a truncated tile decodes
+// to something, as in libdav1d. IK_AV1D_NOT_PORTED (the caller's 501) is
+// kept for a tool the decoder would not build; none is left.
 
 #include <stdint.h>
 #include <string.h>
@@ -77,6 +107,7 @@
 #include <cmath>
 #include <cstdlib>
 #include <memory>
+#include <mutex>
 #include <new>
 #include <thread>
 #include <vector>
@@ -145,6 +176,46 @@ struct Cdfs {
   uint16_t inter_tx1[2][17];
   uint16_t inter_tx2[13];
   uint16_t inter_tx3[4][3];
+  // inter frames: the y mode of intra blocks by size group, is_inter,
+  // seg_id_predicted, the single references (p1 .. p6), the inter modes,
+  // drl_mode, the interpolation filters, motion modes, interintra
+  uint16_t y_mode[4][14];
+  uint16_t is_inter[4][3];
+  uint16_t seg_pred[3][3];
+  uint16_t single_ref[3][6][3];
+  uint16_t new_mv[6][3];
+  uint16_t zero_mv[2][3];
+  uint16_t ref_mv[6][3];
+  uint16_t drl_mode[3][3];
+  uint16_t interp_filter[16][4];
+  uint16_t motion_mode[22][4];
+  uint16_t use_obmc[22][3];
+  uint16_t interintra[4][3];
+  uint16_t interintra_mode[4][5];
+  uint16_t wedge_interintra[22][3];
+  uint16_t wedge_index[22][17];
+  // MvCtx 0's motion vector CDFs (those of intra block copy are above),
+  // [comp] row then column
+  uint16_t mv0_joint[5];
+  uint16_t mv0_class[2][12];
+  uint16_t mv0_class0[2][3];
+  uint16_t mv0_bits[2][10][3];
+  uint16_t mv0_sign[2][3];
+  uint16_t mv0_class0_fr[2][2][5];
+  uint16_t mv0_fr[2][5];
+  uint16_t mv0_class0_hp[2][3];
+  uint16_t mv0_hp[2][3];
+  // compound prediction
+  uint16_t skip_mode[3][3];
+  uint16_t comp_mode[5][3];
+  uint16_t comp_ref_type[5][3];
+  uint16_t uni_comp_ref[3][3][3];
+  uint16_t comp_ref[3][3][3];
+  uint16_t comp_bwd_ref[3][2][3];
+  uint16_t compound_mode[8][9];
+  uint16_t comp_group_idx[6][3];
+  uint16_t compound_idx[6][3];
+  uint16_t compound_type[22][3];
 };
 
 struct Tables {
@@ -169,10 +240,32 @@ struct Tables {
   int8_t palette_hash_mult[3];
   int8_t pad_[1];
   uint8_t qm[15][2][3344];  // Quantizer_Matrix [level][plane > 0]
+  // inter prediction
+  int16_t subpel[6][16][8];  // Subpel_Filters
+  int16_t warped[193][8];    // Warped_Filters
+  int16_t div_lut[257];      // Div_Lut
+  int16_t pad2_;
+  uint8_t obmc_mask[64];     // Obmc_Mask_N at [N .. 2N)
+  uint8_t wedge_master[3][64];  // oblique even, oblique odd, vertical
+  uint8_t wedge_codebook[3][16][3];  // [h > w, h < w, h == w]
+  uint8_t ii_weights[128];   // Ii_Weights_1d
+  uint8_t quant_dist_weight[4][2], quant_dist_lookup[4][2];
+  // 1 where a uint16 of Cdfs is a symbol counter (zeroed when a frame's
+  // CDFs are saved)
+  uint8_t cdf_counter[sizeof(Cdfs) / 2];
 };
+
+
 
 Tables g_tab;
 bool g_ready = false;
+
+// The frame-end CDFs as a slot keeps them: the counters zeroed
+inline void clear_counters(Cdfs& c) {
+  uint16_t* v = reinterpret_cast<uint16_t*>(&c);
+  for (size_t i = 0; i < sizeof(Cdfs) / 2; ++i)
+    if (g_tab.cdf_counter[i]) v[i] = 0;
+}
 int g_cos128[65];
 
 // ---------------------------------------------------------------------------
@@ -201,6 +294,22 @@ enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
 enum { TX_MODE_ONLY_4X4, TX_MODE_LARGEST, TX_MODE_SELECT };
 enum { SEG_LVL_ALT_Q, SEG_LVL_ALT_LF_Y_V, SEG_LVL_REF_FRAME = 5,
        SEG_LVL_SKIP = 6, SEG_LVL_MAX = 8 };
+
+enum { NEARESTMV = 13, NEARMV, GLOBALMV, NEWMV, NEAREST_NEARESTMV,
+       NEAR_NEARMV, NEAREST_NEWMV, NEW_NEARESTMV, NEAR_NEWMV, NEW_NEARMV,
+       GLOBAL_GLOBALMV, NEW_NEWMV };
+enum { SIMPLE, OBMC, LOCALWARP };
+enum { COMPOUND_WEDGE, COMPOUND_DIFFWTD, COMPOUND_AVERAGE, COMPOUND_INTRA,
+       COMPOUND_DISTANCE };
+enum { SEG_LVL_GLOBALMV = 7 };
+// the blocks that used each inter tool (IkAv1dInfo.tools)
+enum { TOOL_INTER, TOOL_INTRA_IN_INTER, TOOL_NEWMV, TOOL_GLOBALMV,
+       TOOL_SCALED, TOOL_SWITCHABLE, TOOL_DUAL_FILTER, TOOL_OBMC,
+       TOOL_LOCAL_WARP, TOOL_GLOBAL_WARP, TOOL_INTERINTRA,
+       TOOL_WEDGE_INTERINTRA, TOOL_TEMPORAL_MV, TOOL_SEG_TEMPORAL,
+       TOOL_COMPOUND, TOOL_SKIP_MODE, TOOL_COMPOUND_DISTANCE,
+       TOOL_COMPOUND_WEDGE, TOOL_COMPOUND_DIFFWTD, TOOL_MV_OUTSIDE,
+       TOOL_WARP_INVALID, kNumTools };
 
 const uint8_t kNum4x4W[22] = {1, 1, 2, 2, 2, 4, 4, 4, 8, 8, 8,
                               16, 16, 16, 32, 32, 1, 4, 2, 8, 4, 16};
@@ -265,6 +374,10 @@ const uint8_t kSsSize[22][2][2] = {
     {{BLOCK_16X64, BLOCK_16X32}, {BLOCK_INVALID, BLOCK_8X32}},
     {{BLOCK_64X16, BLOCK_INVALID}, {BLOCK_32X16, BLOCK_32X8}},
 };
+const uint8_t kSizeGroup[22] = {0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3,
+                                3, 3, 3, 3, 3, 0, 0, 1, 1, 2, 2};
+const uint8_t kWedgeBits[22] = {0, 0, 0, 4, 4, 4, 4, 4, 4, 4, 0,
+                                0, 0, 0, 0, 0, 0, 0, 4, 4, 0, 0};
 const uint8_t kMaxTxRect[22] = {
     TX_4X4,   TX_4X8,   TX_8X4,   TX_8X8,   TX_8X16,  TX_16X8,
     TX_16X16, TX_16X32, TX_32X16, TX_32X32, TX_32X64, TX_64X32,
@@ -362,9 +475,6 @@ struct Fail {
   const char* why;
 };
 [[noreturn]] void bad(const char* why) { throw Fail{IK_AV1D_BAD, why}; }
-[[noreturn]] void not_ported(const char* why) {
-  throw Fail{IK_AV1D_NOT_PORTED, why};
-}
 
 // The workers of parallel_for: 0 for one a core (ik_av1d_set_threads).
 std::atomic<int> g_threads{0};
@@ -438,6 +548,8 @@ struct SeqHdr {
   int wbits = 0, hbits = 0, max_w = 0, max_h = 0;
   int frame_id_numbers = 0, delta_frame_id_len = 0, frame_id_len = 0;
   int sb128 = 0, filter_intra = 0, intra_edge = 0;
+  int interintra = 0, masked_compound = 0, warped_motion = 0, dual_filter = 0;
+  int jnt_comp = 0, ref_frame_mvs = 0;
   int order_hint = 0, order_hint_bits = 0;
   int force_sct = 2, force_integer_mv = 2;
   int superres = 0, cdef = 0, restoration = 0;
@@ -498,9 +610,15 @@ void parse_seq(Bits& b, SeqHdr& s) {
   s.filter_intra = b.f(1);
   s.intra_edge = b.f(1);
   if (!s.reduced) {
-    b.f(4);  // interintra, masked compound, warped motion, dual filter
+    s.interintra = b.f(1);
+    s.masked_compound = b.f(1);
+    s.warped_motion = b.f(1);
+    s.dual_filter = b.f(1);
     s.order_hint = b.f(1);
-    if (s.order_hint) b.f(2);  // jnt_comp, ref_frame_mvs
+    if (s.order_hint) {
+      s.jnt_comp = b.f(1);
+      s.ref_frame_mvs = b.f(1);
+    }
     int choose_sct = b.f(1);
     s.force_sct = choose_sct ? 2 : (int)b.f(1);
     if (s.force_sct > 0) {
@@ -568,12 +686,36 @@ struct FilmGrain {
   int overlap = 0, clip_restricted = 0;
 };
 
+enum { INTRA_FRAME = 0, LAST_FRAME = 1, LAST2_FRAME, LAST3_FRAME,
+       GOLDEN_FRAME, BWDREF_FRAME, ALTREF2_FRAME, ALTREF_FRAME, NONE_FRAME = -1 };
+enum { GM_IDENTITY, GM_TRANSLATION, GM_ROTZOOM, GM_AFFINE };
+enum { PRIMARY_REF_NONE = 7 };
+constexpr int kWmBits = 16;  // WARPEDMODEL_PREC_BITS
+
 struct FrameHdr {
   int frame_type = 0, show_frame = 1, showable = 0, error_resilient = 1;
-  // an INTER or SWITCH frame (read up to refresh_frame_flags), and the
-  // reference slots the frame refreshes
+  // an INTER or SWITCH frame, and the reference slots the frame refreshes
   int inter = 0, refresh = 0xFF;
   int disable_cdf_update = 0, allow_sct = 0, allow_intrabc = 0;
+  int force_integer_mv = 0, disable_frame_end_update_cdf = 1;
+  int context_update_tile_id = 0;
+  // order hints: the frame's, and OrderHints[] of its references (saved
+  // with the frame for the motion field of later ones)
+  int order_hint = 0;
+  int order_hints[8] = {0};
+  // an inter frame's references: the slots of LAST_FRAME .. ALTREF_FRAME,
+  // the slot its CDFs and other context come from (7: none)
+  int primary_ref_frame = PRIMARY_REF_NONE;
+  int ref_frame_idx[7] = {0};
+  int ref_sign_bias[8] = {0};
+  int allow_high_precision_mv = 0, interp_filter = 0, motion_switchable = 0;
+  int use_ref_frame_mvs = 0, reference_select = 0, skip_mode_present = 0;
+  int skip_mode_frame[2] = {0, 0};
+  int allow_warped_motion = 0;
+  // global motion: GmType and gm_params of each reference
+  int gm_type[8] = {0};
+  int gm_params[8][6];
+  int seg_update_map = 1, seg_temporal_update = 0;
   // FrameWidth (the coded width, downscaled where superres is used),
   // UpscaledWidth and SuperresDenom; use_superres where the two widths
   // differ (a frame under 16 wide reads the flag and keeps its width: as in
@@ -619,13 +761,12 @@ struct FrameHdr {
   FilmGrain grain;
 };
 
-// film_grain_params() once apply_grain is read as 1, refusing what
+// film_grain_params() once apply_grain, grain_seed and (an INTER
+// frame's) update_grain are read, refusing what
 // libdav1d refuses: more than 14 luma or 10 chroma points, points whose
 // values do not increase, and Cb points without Cr points (or the
 // reverse) in 4:2:0.
 void parse_film_grain(Bits& b, const SeqHdr& s, FilmGrain& g) {
-  g.apply = 1;
-  g.seed = b.f(16);
   auto read_points = [&](int pl, int most) {
     g.num[pl] = b.f(4);
     if (g.num[pl] > most) bad("film grain: too many scaling points");
@@ -671,14 +812,124 @@ inline int tile_log2(int blk, int target) {
   return k;
 }
 
+inline int get_relative_dist(const SeqHdr& s, int a, int b) {
+  if (!s.order_hint) return 0;
+  int diff = a - b;
+  int m = 1 << (s.order_hint_bits - 1);
+  return (diff & (m - 1)) - (diff & m);
+}
+
+inline void reset_gm(int gm[8][6]) {
+  for (int r = 0; r < 8; ++r)
+    for (int i = 0; i < 6; ++i) gm[r][i] = (i % 3 == 2) ? 1 << kWmBits : 0;
+}
+
+int inverse_recenter(int r, int v) {
+  if (v > 2 * r) return v;
+  if (v & 1) return r - ((v + 1) >> 1);
+  return r + (v >> 1);
+}
+
+// decode_signed_subexp_with_ref of the global motion parameters (5.9.26,
+// 5.9.27), from the header's bits
+int header_subexp_with_ref(Bits& b, int low, int high, int r) {
+  int mx = high - low;
+  r -= low;
+  int v, i = 0, mk = 0;
+  const int k = 3;
+  for (;;) {
+    int b2 = i ? k + i - 1 : k;
+    int a = 1 << b2;
+    if (mx <= mk + 3 * a) {
+      v = (int)b.ns((uint32_t)(mx - mk)) + mk;
+      break;
+    }
+    if (b.f(1)) {
+      ++i;
+      mk += a;
+    } else {
+      v = (int)b.f(b2) + mk;
+      break;
+    }
+  }
+  int x = (r << 1) <= mx ? inverse_recenter(r, v)
+                         : mx - 1 - inverse_recenter(mx - 1 - r, v);
+  return x + low;
+}
+
+// set_frame_refs (7.8): the references of frame_refs_short_signaling from
+// the last and golden slots and the slots' order hints
+void set_frame_refs(const SeqHdr& s, FrameHdr& h, int last_idx, int gold_idx,
+                    const FrameHdr* const* slots) {
+  int used[8] = {0}, shifted[8];
+  for (int i = 0; i < 7; ++i) h.ref_frame_idx[i] = -1;
+  h.ref_frame_idx[0] = last_idx;
+  h.ref_frame_idx[GOLDEN_FRAME - LAST_FRAME] = gold_idx;
+  used[last_idx] = used[gold_idx] = 1;
+  int cur = 1 << (s.order_hint_bits - 1);
+  for (int i = 0; i < 8; ++i)
+    shifted[i] = cur + get_relative_dist(s, slots[i] ? slots[i]->order_hint : 0,
+                                         h.order_hint);
+  auto pick = [&](bool backward, bool latest) {
+    int ref = -1, best = 0;
+    for (int i = 0; i < 8; ++i) {
+      int hint = shifted[i];
+      if (used[i] || (backward ? hint < cur : hint >= cur)) continue;
+      if (ref < 0 || (latest ? hint >= best : hint < best)) {
+        ref = i;
+        best = hint;
+      }
+    }
+    return ref;
+  };
+  int ref = pick(true, true);
+  if (ref >= 0) {
+    h.ref_frame_idx[ALTREF_FRAME - LAST_FRAME] = ref;
+    used[ref] = 1;
+  }
+  ref = pick(true, false);
+  if (ref >= 0) {
+    h.ref_frame_idx[BWDREF_FRAME - LAST_FRAME] = ref;
+    used[ref] = 1;
+  }
+  ref = pick(true, false);
+  if (ref >= 0) {
+    h.ref_frame_idx[ALTREF2_FRAME - LAST_FRAME] = ref;
+    used[ref] = 1;
+  }
+  static const int kList[5] = {LAST2_FRAME, LAST3_FRAME, BWDREF_FRAME,
+                               ALTREF2_FRAME, ALTREF_FRAME};
+  for (int i = 0; i < 5; ++i) {
+    if (h.ref_frame_idx[kList[i] - LAST_FRAME] >= 0) continue;
+    ref = pick(false, true);
+    if (ref >= 0) {
+      h.ref_frame_idx[kList[i] - LAST_FRAME] = ref;
+      used[ref] = 1;
+    }
+  }
+  ref = -1;
+  int earliest = 0;
+  for (int i = 0; i < 8; ++i)
+    if (ref < 0 || shifted[i] < earliest) {
+      ref = i;
+      earliest = shifted[i];
+    }
+  for (int i = 0; i < 7; ++i)
+    if (h.ref_frame_idx[i] < 0) h.ref_frame_idx[i] = ref;
+}
+
 // uncompressed_header() of a frame that is not shown from a slot (the
-// caller reads show_existing_frame first). An INTER or SWITCH frame's
-// header is read up to refresh_frame_flags, which is all the walk over a
-// temporal unit needs of it (h.inter); the rest of it is inter
-// prediction's.
+// caller reads show_existing_frame first). `slots` are the headers of the
+// frames in the eight reference slots (null where a slot is empty), which
+// an inter frame's header reads: their sizes, order hints, loop filter
+// deltas, segmentation features, global motion and film grain. A
+// reference slot that is empty, or whose frame is over twice or under a
+// sixteenth of this one's size, fails the stream, as in libdav1d.
 void parse_frame_header(Bits& b, const SeqHdr& s, FrameHdr& h,
-                        int temporal_id, int spatial_id) {
+                        int temporal_id, int spatial_id,
+                        const FrameHdr* const* slots) {
   int id_len = s.frame_id_numbers ? s.frame_id_len : 0;
+  reset_gm(h.gm_params);
   if (s.reduced) {
     h.frame_type = 0;
     h.show_frame = 1;
@@ -697,14 +948,17 @@ void parse_frame_header(Bits& b, const SeqHdr& s, FrameHdr& h,
   }
   h.disable_cdf_update = b.f(1);
   h.allow_sct = s.force_sct == 2 ? (int)b.f(1) : s.force_sct;
-  if (h.allow_sct && s.force_integer_mv == 2) b.f(1);  // force_integer_mv
+  if (h.allow_sct)
+    h.force_integer_mv =
+        s.force_integer_mv == 2 ? (int)b.f(1) : s.force_integer_mv;
+  if (!h.inter) h.force_integer_mv = 1;
   if (s.frame_id_numbers) b.f(id_len);  // current_frame_id
   int size_override = 0;
   if (h.frame_type == 3) size_override = 1;
   else if (!s.reduced) size_override = b.f(1);
-  if (s.order_hint_bits) b.f(s.order_hint_bits);
+  if (s.order_hint_bits) h.order_hint = b.f(s.order_hint_bits);
   // primary_ref_frame: none for intra frames and error resilient ones
-  if (h.inter && !h.error_resilient) b.f(3);
+  if (h.inter && !h.error_resilient) h.primary_ref_frame = b.f(3);
   if (s.decoder_model_info) {
     if (b.f(1)) {  // buffer_removal_time_present_flag
       for (int op = 0; op < s.op_cnt; ++op) {
@@ -720,36 +974,102 @@ void parse_frame_header(Bits& b, const SeqHdr& s, FrameHdr& h,
   if (!(h.frame_type == 3 || (h.frame_type == 0 && h.show_frame)))
     refresh = b.f(8);
   h.refresh = refresh;
-  if (h.inter) return;
-  if (refresh != 0xFF && h.error_resilient && s.order_hint)
-    for (int i = 0; i < 8; ++i) b.f(s.order_hint_bits);
-  // frame_size
-  if (size_override) {
-    h.width = b.f(s.wbits) + 1;
-    h.height = b.f(s.hbits) + 1;
-  } else {
-    h.width = s.max_w;
-    h.height = s.max_h;
-  }
+  if ((h.inter || refresh != 0xFF) && h.error_resilient && s.order_hint)
+    for (int i = 0; i < 8; ++i) b.f(s.order_hint_bits);  // ref_order_hint
   // superres_params and compute_image_size (5.9.8, 5.9.9): the tiles code
   // the downscaled width, at least Min(16, UpscaledWidth) as libdav1d and
   // libaom have it
-  h.upscaled_width = h.width;
-  if (s.superres && b.f(1)) {
-    h.superres_denom = b.f(3) + 9;
-    h.width = std::max(
-        (h.upscaled_width * 8 + h.superres_denom / 2) / h.superres_denom,
-        std::min(16, h.upscaled_width));
-    h.use_superres = h.width != h.upscaled_width;
+  auto superres = [&]() {
+    h.width = h.upscaled_width;
+    if (s.superres && b.f(1)) {
+      h.superres_denom = b.f(3) + 9;
+      h.width = std::max(
+          (h.upscaled_width * 8 + h.superres_denom / 2) / h.superres_denom,
+          std::min(16, h.upscaled_width));
+      h.use_superres = h.width != h.upscaled_width;
+    }
+    h.mi_cols = 2 * ((h.width + 7) >> 3);
+    h.mi_rows = 2 * ((h.height + 7) >> 3);
+  };
+  auto frame_size = [&]() {
+    if (size_override) {
+      h.upscaled_width = b.f(s.wbits) + 1;
+      h.height = b.f(s.hbits) + 1;
+    } else {
+      h.upscaled_width = s.max_w;
+      h.height = s.max_h;
+    }
+    superres();
+    if (b.f(1)) {  // render_and_frame_size_different
+      b.f(16);
+      b.f(16);
+    }
+  };
+  if (!h.inter) {
+    frame_size();
+    if (h.allow_sct && h.upscaled_width == h.width) h.allow_intrabc = b.f(1);
+  } else {
+    int short_signaling = s.order_hint ? (int)b.f(1) : 0;
+    if (short_signaling) {
+      int last_idx = b.f(3), gold_idx = b.f(3);
+      set_frame_refs(s, h, last_idx, gold_idx, slots);
+    }
+    for (int i = 0; i < 7; ++i) {
+      if (!short_signaling) h.ref_frame_idx[i] = b.f(3);
+      if (s.frame_id_numbers) b.f(s.delta_frame_id_len);
+    }
+    for (int i = 0; i < 7; ++i)
+      if (!slots[h.ref_frame_idx[i]]) bad("a reference slot is empty");
+    int found = 0;
+    if (size_override && !h.error_resilient) {
+      for (int i = 0; i < 7 && !found; ++i) {
+        found = b.f(1);
+        if (found) {
+          const FrameHdr& r = *slots[h.ref_frame_idx[i]];
+          h.upscaled_width = r.upscaled_width;
+          h.height = r.height;
+        }
+      }
+    }
+    if (found)
+      superres();
+    else
+      frame_size();
+    h.allow_high_precision_mv = h.force_integer_mv ? 0 : (int)b.f(1);
+    h.interp_filter = b.f(1) ? 4 : (int)b.f(2);  // 4: SWITCHABLE
+    h.motion_switchable = b.f(1);
+    h.use_ref_frame_mvs =
+        (h.error_resilient || !s.ref_frame_mvs) ? 0 : (int)b.f(1);
+    for (int i = 0; i < 7; ++i) {
+      const FrameHdr& r = *slots[h.ref_frame_idx[i]];
+      h.order_hints[LAST_FRAME + i] = r.order_hint;
+      h.ref_sign_bias[LAST_FRAME + i] =
+          s.order_hint && get_relative_dist(s, r.order_hint, h.order_hint) > 0;
+      // each reference at most twice and at least a sixteenth of this
+      // frame's size (libdav1d's check: the coded width against the
+      // reference's upscaled one)
+      if (2 * h.width < r.upscaled_width || 2 * h.height < r.height ||
+          h.width > 16 * r.upscaled_width || h.height > 16 * r.height)
+        bad("a reference of a size out of the 2x / 16x range");
+    }
   }
-  h.mi_cols = 2 * ((h.width + 7) >> 3);
-  h.mi_rows = 2 * ((h.height + 7) >> 3);
-  if (b.f(1)) {  // render_and_frame_size_different
-    b.f(16);
-    b.f(16);
+  h.disable_frame_end_update_cdf =
+      (s.reduced || h.disable_cdf_update) ? 1 : (int)b.f(1);
+  // load_previous (the primary reference's loop filter deltas, segmentation
+  // features and global motion, which this header reads against), else
+  // setup_past_independence's defaults (those of FrameHdr)
+  int prev_gm[8][6];
+  reset_gm(prev_gm);
+  const FrameHdr* prev = nullptr;
+  if (h.primary_ref_frame != PRIMARY_REF_NONE) {
+    prev = slots[h.ref_frame_idx[h.primary_ref_frame]];
+    memcpy(h.lf_ref_deltas, prev->lf_ref_deltas, sizeof(h.lf_ref_deltas));
+    memcpy(h.lf_mode_deltas, prev->lf_mode_deltas, sizeof(h.lf_mode_deltas));
+    memcpy(h.feature_enabled, prev->feature_enabled,
+           sizeof(h.feature_enabled));
+    memcpy(h.feature_data, prev->feature_data, sizeof(h.feature_data));
+    memcpy(prev_gm, prev->gm_params, sizeof(prev_gm));
   }
-  if (h.allow_sct && h.upscaled_width == h.width) h.allow_intrabc = b.f(1);
-  if (!(s.reduced || h.disable_cdf_update)) b.f(1);  // end update cdf
   // tile_info
   int sb_cols = s.sb128 ? (h.mi_cols + 31) >> 5 : (h.mi_cols + 15) >> 4;
   int sb_rows = s.sb128 ? (h.mi_rows + 31) >> 5 : (h.mi_rows + 15) >> 4;
@@ -813,7 +1133,9 @@ void parse_frame_header(Bits& b, const SeqHdr& s, FrameHdr& h,
     h.tile_rows_log2 = tile_log2(1, h.tile_rows);
   }
   if (h.tile_cols_log2 > 0 || h.tile_rows_log2 > 0) {
-    b.f(h.tile_rows_log2 + h.tile_cols_log2);  // context_update_tile_id
+    h.context_update_tile_id = b.f(h.tile_rows_log2 + h.tile_cols_log2);
+    if (h.context_update_tile_id >= h.tile_cols * h.tile_rows)
+      bad("context_update_tile_id");
     h.tile_size_bytes = b.f(2) + 1;
   }
   // quantization_params
@@ -839,9 +1161,20 @@ void parse_frame_header(Bits& b, const SeqHdr& s, FrameHdr& h,
     h.qm_u = b.f(4);
     h.qm_v = s.separate_uv_delta_q ? (int)b.f(4) : h.qm_u;
   }
-  // segmentation_params
+  // segmentation_params: the map and the features are updated, or the
+  // primary reference's kept
   h.seg_enabled = b.f(1);
-  if (h.seg_enabled) {
+  int update_data = 1;
+  if (h.seg_enabled && h.primary_ref_frame != PRIMARY_REF_NONE) {
+    h.seg_update_map = b.f(1);
+    h.seg_temporal_update = h.seg_update_map ? (int)b.f(1) : 0;
+    update_data = b.f(1);
+  }
+  if (!h.seg_enabled || update_data) {
+    memset(h.feature_enabled, 0, sizeof(h.feature_enabled));
+    memset(h.feature_data, 0, sizeof(h.feature_data));
+  }
+  if (h.seg_enabled && update_data) {
     for (int i = 0; i < 8; ++i)
       for (int j = 0; j < SEG_LVL_MAX; ++j) {
         int v = 0;
@@ -855,13 +1188,14 @@ void parse_frame_header(Bits& b, const SeqHdr& s, FrameHdr& h,
         }
         h.feature_data[i][j] = v;
       }
+  }
+  if (h.seg_enabled)
     for (int i = 0; i < 8; ++i)
       for (int j = 0; j < SEG_LVL_MAX; ++j)
         if (h.feature_enabled[i][j]) {
           h.last_active_seg = i;
           if (j >= SEG_LVL_REF_FRAME) h.seg_preskip = 1;
         }
-  }
   // delta_q_params, delta_lf_params
   if (h.base_q_idx > 0) h.delta_q_present = b.f(1);
   if (h.delta_q_present) {
@@ -887,8 +1221,12 @@ void parse_frame_header(Bits& b, const SeqHdr& s, FrameHdr& h,
   }
   h.all_lossless = h.coded_lossless && h.width == h.upscaled_width;
   // loop_filter_params, cdef_params and lr_params: none with intra block
-  // copy, whose frames are not filtered
-  if (!h.coded_lossless && !h.allow_intrabc) {
+  // copy, whose frames are not filtered (and the deltas are the defaults)
+  if (h.coded_lossless || h.allow_intrabc) {
+    static const int kRefDeltas[8] = {1, 0, 0, 0, -1, 0, -1, -1};
+    memcpy(h.lf_ref_deltas, kRefDeltas, sizeof(kRefDeltas));
+    h.lf_mode_deltas[0] = h.lf_mode_deltas[1] = 0;
+  } else {
     h.lf_level[0] = b.f(6);
     h.lf_level[1] = b.f(6);
     if (planes > 1 && (h.lf_level[0] || h.lf_level[1])) {
@@ -950,11 +1288,119 @@ void parse_frame_header(Bits& b, const SeqHdr& s, FrameHdr& h,
     h.tx_mode = TX_MODE_ONLY_4X4;
   else
     h.tx_mode = b.f(1) ? TX_MODE_SELECT : TX_MODE_LARGEST;
-  // reference_select, skip_mode, warped motion: none for intra frames
+  if (h.inter) {
+    h.reference_select = b.f(1);
+    // skip_mode_params: the nearest forward reference and the nearest
+    // backward one (or the second nearest forward)
+    if (h.reference_select && s.order_hint) {
+      int fwd = -1, bwd = -1, fwd_hint = 0, bwd_hint = 0;
+      for (int i = 0; i < 7; ++i) {
+        int hint = h.order_hints[LAST_FRAME + i];
+        int d = get_relative_dist(s, hint, h.order_hint);
+        if (d < 0) {
+          if (fwd < 0 || get_relative_dist(s, hint, fwd_hint) > 0) {
+            fwd = i;
+            fwd_hint = hint;
+          }
+        } else if (d > 0) {
+          if (bwd < 0 || get_relative_dist(s, hint, bwd_hint) < 0) {
+            bwd = i;
+            bwd_hint = hint;
+          }
+        }
+      }
+      int allowed = 0;
+      if (fwd >= 0 && bwd >= 0) {
+        allowed = 1;
+        h.skip_mode_frame[0] = LAST_FRAME + std::min(fwd, bwd);
+        h.skip_mode_frame[1] = LAST_FRAME + std::max(fwd, bwd);
+      } else if (fwd >= 0) {
+        int fwd2 = -1, fwd2_hint = 0;
+        for (int i = 0; i < 7; ++i) {
+          int hint = h.order_hints[LAST_FRAME + i];
+          if (get_relative_dist(s, hint, fwd_hint) < 0 &&
+              (fwd2 < 0 || get_relative_dist(s, hint, fwd2_hint) > 0)) {
+            fwd2 = i;
+            fwd2_hint = hint;
+          }
+        }
+        if (fwd2 >= 0) {
+          allowed = 1;
+          h.skip_mode_frame[0] = LAST_FRAME + std::min(fwd, fwd2);
+          h.skip_mode_frame[1] = LAST_FRAME + std::max(fwd, fwd2);
+        }
+      }
+      if (allowed) h.skip_mode_present = b.f(1);
+    }
+    h.allow_warped_motion =
+        (h.error_resilient || !s.warped_motion) ? 0 : (int)b.f(1);
+  }
   h.reduced_tx_set = b.f(1);
-  // global motion: none for intra frames
-  if (s.film_grain && (h.show_frame || h.showable) && b.f(1))
-    parse_film_grain(b, s, h.grain);
+  // global_motion_params, each parameter read against the primary
+  // reference's
+  if (h.inter)
+    for (int ref = LAST_FRAME; ref <= ALTREF_FRAME; ++ref) {
+      int type = GM_IDENTITY;
+      if (b.f(1)) {
+        if (b.f(1))
+          type = GM_ROTZOOM;
+        else
+          type = b.f(1) ? GM_TRANSLATION : GM_AFFINE;
+      }
+      h.gm_type[ref] = type;
+      auto param = [&](int idx) {
+        int abs_bits = 12, prec_bits = 15;
+        if (idx < 2) {
+          if (type == GM_TRANSLATION) {
+            abs_bits = 9 - !h.allow_high_precision_mv;
+            prec_bits = 3 - !h.allow_high_precision_mv;
+          } else {
+            abs_bits = 12;
+            prec_bits = 6;
+          }
+        }
+        int prec_diff = kWmBits - prec_bits;
+        int round = (idx % 3) == 2 ? (1 << kWmBits) : 0;
+        int sub = (idx % 3) == 2 ? (1 << prec_bits) : 0;
+        int mx = 1 << abs_bits;
+        int r = (prev_gm[ref][idx] >> prec_diff) - sub;
+        h.gm_params[ref][idx] =
+            (header_subexp_with_ref(b, -mx, mx + 1, r) * (1 << prec_diff)) +
+            round;
+      };
+      if (type >= GM_ROTZOOM) {
+        param(2);
+        param(3);
+        if (type == GM_AFFINE) {
+          param(4);
+          param(5);
+        } else {
+          h.gm_params[ref][4] = -h.gm_params[ref][3];
+          h.gm_params[ref][5] = h.gm_params[ref][2];
+        }
+      }
+      if (type >= GM_TRANSLATION) {
+        param(0);
+        param(1);
+      }
+    }
+  // film_grain_params: an INTER frame may load a reference's
+  if (s.film_grain && (h.show_frame || h.showable) && b.f(1)) {
+    h.grain.apply = 1;
+    h.grain.seed = b.f(16);
+    if (h.frame_type == 1 && !b.f(1)) {  // update_grain 0
+      int idx = b.f(3);
+      bool listed = false;
+      for (int i = 0; i < 7; ++i) listed |= h.ref_frame_idx[i] == idx;
+      if (!listed || !slots[idx]) bad("film grain from a slot that is no reference");
+      int seed = h.grain.seed;
+      h.grain = slots[idx]->grain;
+      h.grain.apply = 1;
+      h.grain.seed = seed;
+    } else {
+      parse_film_grain(b, s, h.grain);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1337,16 +1783,66 @@ struct FrameInfo {
   int cdef_stride = 0;
   std::vector<LrUnit> lr[3];
   int lr_rows[3] = {0, 0, 0}, lr_cols[3] = {0, 0, 0};
+  // inter frames: each MI's references (RefFrames, INTRA_FRAME and
+  // NONE_FRAME for an intra block), vectors ([list][row, column]),
+  // interpolation filters ([0] vertical, [1] horizontal), skip_mode and
+  // seg_id_predicted
+  std::vector<int8_t> ref_frames;
+  std::vector<int32_t> mvs4;
+  std::vector<uint8_t> interp, skip_modes, seg_preds, comp_groups, comp_idxs;
+  // PrevSegmentIds (empty: all 0)
+  std::vector<uint8_t> prev_seg_ids;
+  // the projected motion field (7.9), per 8x8: the vector and its
+  // reference's distance (libaom's mfmv0 and ref_frame_offset; 0 where
+  // no vector lands)
+  std::vector<int32_t> tpl_mv;
+  std::vector<int8_t> tpl_off;
+  // the frame's CDFs at its start, and at its end (the
+  // context_update_tile_id tile's)
+  Cdfs init_cdf, end_cdf;
 
   uint8_t& MI(std::vector<uint8_t>& v, int r, int c) {
     return v[(size_t)r * mi_cols + c];
   }
 };
 
+// A frame in a reference slot (7.20): its planes after the in-loop
+// filters and before film grain, at the upscaled width; its header (sizes,
+// order hints, global motion, ...); its frame-end CDFs, segment ids and
+// the vectors the motion field of later frames projects (MfRefFrames,
+// MfMvs, 7.19; an intra frame has none)
+// get_mv_projection: a vector of the motion field scaled from the
+// distance `den` of its own reference to `num` (Div_Mult is 16384 / den)
+inline void mv_projection(const int32_t* mv, int num, int den, int* out) {
+  den = std::min(den, 31);
+  num = clip3(-31, 31, num);
+  for (int i = 0; i < 2; ++i) {
+    int64_t v = (int64_t)mv[i] * num * (16384 / den);
+    int64_t a = v < 0 ? -v : v;
+    int r = (int)((a + (1 << 13)) >> 14);
+    out[i] = clip3(-(1 << 14) + 1, (1 << 14) - 1, v < 0 ? -r : r);
+  }
+}
+
+template <typename Pixel>
+struct RefPic {
+  FrameHdr fh;
+  Plane<Pixel> planes[3];
+  Cdfs cdf;
+  int mi_rows = 0, mi_cols = 0;
+  std::vector<uint8_t> seg_ids;
+  std::vector<int8_t> mf_ref;
+  std::vector<int32_t> mf_mv;
+};
+
 template <typename Pixel>
 struct Decoder : FrameInfo {
   Plane<Pixel> cur[3];
   int pmax = 255;  // (1 << BitDepth) - 1
+  // an inter frame's references, by reference frame (LAST_FRAME ..
+  // ALTREF_FRAME), and their scale factors (xScale, yScale of 7.11.3.3)
+  const RefPic<Pixel>* refs[8] = {nullptr};
+  int x_scale[8] = {0}, y_scale[8] = {0};
 
   // Clip1 of the spec
   Pixel clip1(int v) const {
@@ -1373,6 +1869,16 @@ struct Decoder : FrameInfo {
     if (fh.allow_intrabc) {
       tx_types.assign(n, 0);
       mvs.assign(n * 2, 0);
+    }
+    if (fh.inter) {
+      tx_types.assign(n, 0);
+      ref_frames.assign(n * 2, 0);
+      mvs4.assign(n * 4, 0);
+      interp.assign(n * 2, 0);
+      skip_modes.assign(n, 0);
+      seg_preds.assign(n, 0);
+      comp_groups.assign(n, 0);
+      comp_idxs.assign(n, 0);
     }
     cdef_stride = (mi_cols + 15) >> 4;
     cdef_idx.assign((size_t)cdef_stride * ((mi_rows + 15) >> 4), -1);
@@ -1442,6 +1948,40 @@ struct Tile {
   int64_t resid[64 * 64];
   // intra block copy's horizontal pass, (128 + 1) x 128
   int32_t inter_buf[129 * 128];
+  // inter frames: the block's references, vectors ([list][row, column]),
+  // interpolation filters ([0] vertical, [1] horizontal), motion mode,
+  // interintra, skip_mode and seg_id_predicted; the neighbours'
+  // references
+  int ref_frame[2] = {0, -1};
+  int bmv[2][2];
+  int interp_filter[2];
+  int motion_mode = 0, interintra = 0, interintra_mode = 0;
+  int wedge_interintra = 0, wedge_index = 0, skip_mode = 0;
+  int seg_id_predicted = 0;
+  int left_ref[2], above_ref[2], left_intra, above_intra;
+  // compound prediction: the type, its mask's wedge or difference weights
+  int is_compound = 0, compound_type = 0, comp_group_idx = 0;
+  int compound_idx = 1, wedge_sign = 0, mask_type = 0;
+  uint8_t diff_mask[128 * 128];
+  // the motion vector stack (7.10.2) and its contexts, [idx][list]
+  int num_mv_found, new_mv_count, found_match;
+  int ref_stack[8][2][2];
+  int weight_stack[8], drl_ctx[8];
+  int global_mvs[2][2];
+  int new_mv_ctx, ref_mv_ctx, zero_mv_ctx, ref_mv_idx;
+  // local warp: the samples and the model
+  int num_samples, num_samples_scanned;
+  int cand_list[8][4];
+  int local_warp[6];
+  int local_valid = 0;
+  // the blocks of the tile that used each tool (ToolCounts), and the
+  // temporal candidates it found
+  int n_tool[kNumTools] = {0};
+  int n_temporal = 0;
+  // inter prediction scratch: predictions, the horizontal pass of a
+  // (scaled) block
+  int32_t preds[2][128 * 128];
+  int32_t inter_tmp[(2 * 128 + 16) * 128];
 
   Tile(Decoder<Pixel>& dd) : d(dd), fh(dd.fh) {}
 
@@ -1859,14 +2399,7 @@ struct Tile {
   void intra_frame_mode_info() {
     skip = 0;
     if (fh.seg_preskip) intra_segment_id();
-    // read_skip
-    if (fh.seg_preskip && seg_feature_active(SEG_LVL_SKIP)) {
-      skip = 1;
-    } else {
-      int ctx = (avail_u ? d.MI(d.skips, mi_row - 1, mi_col) : 0) +
-                (avail_l ? d.MI(d.skips, mi_row, mi_col - 1) : 0);
-      skip = ms.symbol(cdf.skip[ctx], 2);
-    }
+    read_skip();
     if (!fh.seg_preskip) intra_segment_id();
     read_cdef();
     read_delta_qindex();
@@ -1889,6 +2422,12 @@ struct Tile {
     int left = avail_l ? d.MI(d.y_modes, mi_row, mi_col - 1) : DC_PRED;
     y_mode = ms.symbol(
         cdf.kf_y_mode[kIntraModeCtx[above]][kIntraModeCtx[left]], 13);
+    intra_mode_rest();
+  }
+
+  // the mode info of an intra block after its y mode: angle deltas, the
+  // uv mode and CfL, palette and filter intra
+  void intra_mode_rest() {
     if (mi_sz >= BLOCK_8X8 && is_directional(y_mode))
       angle_delta_y = ms.symbol(cdf.angle_delta[y_mode - V_PRED], 7) - 3;
     if (has_chroma) {
@@ -2162,6 +2701,10 @@ struct Tile {
   }
 
   void add_ref_mv_candidate(int r, int c, int weight) {
+    if (fh.inter) {
+      add_inter_candidate(r, c, weight);
+      return;
+    }
     size_t i = (size_t)r * d.mi_cols + c;
     if (!d.is_inters[i]) return;
     int cand[2] = {d.mvs[2 * i], d.mvs[2 * i + 1]};
@@ -2391,6 +2934,1446 @@ struct Tile {
     }
   }
 
+  // -- inter frames: mode info (spec 5.11.7, 5.11.19 .. 5.11.33) ----------
+  int RF(int r, int c, int list) const {
+    return d.ref_frames[((size_t)r * d.mi_cols + c) * 2 + list];
+  }
+  const int32_t* MV4(int r, int c, int list) const {
+    return &d.mvs4[((size_t)r * d.mi_cols + c) * 4 + list * 2];
+  }
+
+  void read_skip() {
+    if (fh.seg_preskip && seg_feature_active(SEG_LVL_SKIP)) {
+      skip = 1;
+    } else {
+      int ctx = (avail_u ? d.MI(d.skips, mi_row - 1, mi_col) : 0) +
+                (avail_l ? d.MI(d.skips, mi_row, mi_col - 1) : 0);
+      skip = ms.symbol(cdf.skip[ctx], 2);
+    }
+  }
+
+  // get_segment_id: the least of PrevSegmentIds over the block
+  int predicted_segment_id() const {
+    if (d.prev_seg_ids.empty()) return 0;
+    int rows = std::min(bh4, d.mi_rows - mi_row);
+    int cols = std::min(bw4, d.mi_cols - mi_col);
+    int seg = 7;
+    for (int y = 0; y < rows; ++y)
+      for (int x = 0; x < cols; ++x)
+        seg = std::min(seg, (int)d.prev_seg_ids[(size_t)(mi_row + y) *
+                                                    d.mi_cols + mi_col + x]);
+    return seg;
+  }
+
+  void inter_segment_id(int pre_skip) {
+    if (!fh.seg_enabled) {
+      segment_id = 0;
+      return;
+    }
+    int pred = predicted_segment_id();
+    if (!fh.seg_update_map) {
+      segment_id = pred;
+      return;
+    }
+    if (pre_skip && !fh.seg_preskip) {
+      segment_id = 0;
+      return;
+    }
+    if (!pre_skip && skip) {
+      seg_id_predicted = 0;
+      read_segment_id();  // skip: the spatial prediction
+      return;
+    }
+    if (fh.seg_temporal_update) {
+      int ctx = (avail_l ? d.MI(d.seg_preds, mi_row, mi_col - 1) : 0) +
+                (avail_u ? d.MI(d.seg_preds, mi_row - 1, mi_col) : 0);
+      seg_id_predicted = ms.symbol(cdf.seg_pred[ctx], 2);
+      if (seg_id_predicted)
+        segment_id = pred;
+      else
+        read_segment_id();
+    } else {
+      read_segment_id();
+    }
+  }
+
+  void read_skip_mode() {
+    skip_mode = 0;
+    if (seg_feature_active(SEG_LVL_SKIP) ||
+        seg_feature_active(SEG_LVL_REF_FRAME) ||
+        seg_feature_active(SEG_LVL_GLOBALMV) || !fh.skip_mode_present ||
+        bw4 < 2 || bh4 < 2)
+      return;
+    int ctx = (avail_u ? d.MI(d.skip_modes, mi_row - 1, mi_col) : 0) +
+              (avail_l ? d.MI(d.skip_modes, mi_row, mi_col - 1) : 0);
+    skip_mode = ms.symbol(cdf.skip_mode[ctx], 2);
+  }
+
+  void read_is_inter() {
+    if (skip_mode) {
+      is_inter = 1;
+    } else if (seg_feature_active(SEG_LVL_REF_FRAME)) {
+      is_inter = fh.feature_data[segment_id][SEG_LVL_REF_FRAME] != INTRA_FRAME;
+    } else if (seg_feature_active(SEG_LVL_GLOBALMV)) {
+      is_inter = 1;
+    } else {
+      int ctx;
+      if (avail_u && avail_l)
+        ctx = (left_intra && above_intra) ? 3 : (left_intra || above_intra);
+      else if (avail_u || avail_l)
+        ctx = 2 * (avail_u ? above_intra : left_intra);
+      else
+        ctx = 0;
+      is_inter = ms.symbol(cdf.is_inter[ctx], 2);
+    }
+  }
+
+  void inter_frame_mode_info() {
+    use_intrabc = 0;
+    left_ref[0] = avail_l ? RF(mi_row, mi_col - 1, 0) : INTRA_FRAME;
+    above_ref[0] = avail_u ? RF(mi_row - 1, mi_col, 0) : INTRA_FRAME;
+    left_ref[1] = avail_l ? RF(mi_row, mi_col - 1, 1) : NONE_FRAME;
+    above_ref[1] = avail_u ? RF(mi_row - 1, mi_col, 1) : NONE_FRAME;
+    left_intra = left_ref[0] <= INTRA_FRAME;
+    above_intra = above_ref[0] <= INTRA_FRAME;
+    is_compound = 0;
+    skip = 0;
+    seg_id_predicted = 0;
+    inter_segment_id(1);
+    read_skip_mode();
+    if (skip_mode)
+      skip = 1;
+    else
+      read_skip();
+    if (!fh.seg_preskip) inter_segment_id(0);
+    lossless = fh.lossless[segment_id];
+    read_cdef();
+    read_delta_qindex();
+    read_delta_lf();
+    read_deltas = 0;
+    read_is_inter();
+    y_mode = uv_mode = DC_PRED;
+    angle_delta_y = angle_delta_uv = 0;
+    cfl_alpha_u = cfl_alpha_v = 0;
+    pal_size_y = pal_size_uv = 0;
+    use_filter_intra = 0;
+    motion_mode = 0;
+    interintra = wedge_interintra = 0;
+    interp_filter[0] = interp_filter[1] = 0;
+    bmv[0][0] = bmv[0][1] = bmv[1][0] = bmv[1][1] = 0;
+    if (is_inter) {
+      inter_block_mode_info();
+    } else {
+      ref_frame[0] = INTRA_FRAME;
+      ref_frame[1] = NONE_FRAME;
+      y_mode = ms.symbol(cdf.y_mode[kSizeGroup[mi_sz]], 13);
+      intra_mode_rest();
+    }
+  }
+
+  int count_refs(int type) const {
+    int c = 0;
+    if (avail_u) c += (above_ref[0] == type) + (above_ref[1] == type);
+    if (avail_l) c += (left_ref[0] == type) + (left_ref[1] == type);
+    return c;
+  }
+  static int ref_count_ctx(int c0, int c1) {
+    return c0 < c1 ? 0 : c0 == c1 ? 1 : 2;
+  }
+  int bit(uint16_t* c) { return ms.symbol(c, 2); }
+  static int backward(int ref) { return ref >= BWDREF_FRAME; }
+
+  // comp_mode's context (libaom's av1_get_reference_mode_context)
+  int comp_mode_ctx() const {
+    int as = above_ref[1] <= INTRA_FRAME, ls = left_ref[1] <= INTRA_FRAME;
+    if (avail_u && avail_l) {
+      if (as && ls) return backward(above_ref[0]) ^ backward(left_ref[0]);
+      if (as) return 2 + (backward(above_ref[0]) || above_intra);
+      if (ls) return 2 + (backward(left_ref[0]) || left_intra);
+      return 4;
+    }
+    if (avail_u) return as ? backward(above_ref[0]) : 3;
+    if (avail_l) return ls ? backward(left_ref[0]) : 3;
+    return 1;
+  }
+
+  // comp_ref_type's context (av1_get_comp_reference_type_context)
+  int comp_ref_type_ctx() const {
+    auto uni = [](const int* r) {
+      return r[1] > INTRA_FRAME && !(backward(r[0]) ^ backward(r[1]));
+    };
+    if (avail_u && avail_l) {
+      if (above_intra && left_intra) return 2;
+      if (above_intra || left_intra) {
+        const int* r = above_intra ? left_ref : above_ref;
+        return r[1] <= INTRA_FRAME ? 2 : 1 + 2 * uni(r);
+      }
+      int asg = above_ref[1] <= INTRA_FRAME, lsg = left_ref[1] <= INTRA_FRAME;
+      int fa = above_ref[0], fl = left_ref[0];
+      if (asg && lsg) return 1 + 2 * !(backward(fa) ^ backward(fl));
+      if (asg || lsg) {
+        if (!uni(asg ? left_ref : above_ref)) return 1;
+        return 3 + !(backward(fa) ^ backward(fl));
+      }
+      int au = uni(above_ref), lu = uni(left_ref);
+      if (!au && !lu) return 0;
+      if (!au || !lu) return 2;
+      return 3 + !((fa == BWDREF_FRAME) ^ (fl == BWDREF_FRAME));
+    }
+    if (avail_u || avail_l) {
+      const int* r = avail_u ? above_ref : left_ref;
+      if ((avail_u ? above_intra : left_intra) || r[1] <= INTRA_FRAME) return 2;
+      return 4 * uni(r);
+    }
+    return 2;
+  }
+
+  void read_ref_frames() {
+    ref_frame[1] = NONE_FRAME;
+    if (skip_mode) {
+      ref_frame[0] = fh.skip_mode_frame[0];
+      ref_frame[1] = fh.skip_mode_frame[1];
+      return;
+    }
+    if (seg_feature_active(SEG_LVL_REF_FRAME)) {
+      ref_frame[0] = fh.feature_data[segment_id][SEG_LVL_REF_FRAME];
+      return;
+    }
+    if (seg_feature_active(SEG_LVL_SKIP) ||
+        seg_feature_active(SEG_LVL_GLOBALMV)) {
+      ref_frame[0] = LAST_FRAME;
+      return;
+    }
+    int last = count_refs(LAST_FRAME), last2 = count_refs(LAST2_FRAME),
+        last3 = count_refs(LAST3_FRAME), gold = count_refs(GOLDEN_FRAME),
+        bwd = count_refs(BWDREF_FRAME), alt2 = count_refs(ALTREF2_FRAME),
+        alt = count_refs(ALTREF_FRAME);
+    int ctx_fb = ref_count_ctx(last + last2 + last3 + gold, bwd + alt2 + alt);
+    int ctx_bwd = ref_count_ctx(bwd + alt2, alt);
+    int ctx_bwd1 = ref_count_ctx(bwd, alt2);
+    int ctx_l12 = ref_count_ctx(last + last2, last3 + gold);
+    int ctx_l1 = ref_count_ctx(last, last2);
+    int ctx_l3g = ref_count_ctx(last3, gold);
+    int comp = fh.reference_select && std::min(bw4, bh4) >= 2 &&
+               bit(cdf.comp_mode[comp_mode_ctx()]);
+    if (comp) {
+      if (!bit(cdf.comp_ref_type[comp_ref_type_ctx()])) {
+        // UNIDIR_COMPOUND_REFERENCE
+        if (bit(cdf.uni_comp_ref[ctx_fb][0])) {
+          ref_frame[0] = BWDREF_FRAME;
+          ref_frame[1] = ALTREF_FRAME;
+        } else if (bit(cdf.uni_comp_ref[ref_count_ctx(last2, last3 + gold)]
+                                       [1])) {
+          ref_frame[0] = LAST_FRAME;
+          ref_frame[1] = bit(cdf.uni_comp_ref[ctx_l3g][2]) ? GOLDEN_FRAME
+                                                           : LAST3_FRAME;
+        } else {
+          ref_frame[0] = LAST_FRAME;
+          ref_frame[1] = LAST2_FRAME;
+        }
+      } else {
+        if (!bit(cdf.comp_ref[ctx_l12][0]))
+          ref_frame[0] = bit(cdf.comp_ref[ctx_l1][1]) ? LAST2_FRAME : LAST_FRAME;
+        else
+          ref_frame[0] = bit(cdf.comp_ref[ctx_l3g][2]) ? GOLDEN_FRAME
+                                                       : LAST3_FRAME;
+        if (!bit(cdf.comp_bwd_ref[ctx_bwd][0]))
+          ref_frame[1] = bit(cdf.comp_bwd_ref[ctx_bwd1][1]) ? ALTREF2_FRAME
+                                                            : BWDREF_FRAME;
+        else
+          ref_frame[1] = ALTREF_FRAME;
+      }
+      return;
+    }
+    if (bit(cdf.single_ref[ctx_fb][0])) {
+      if (!bit(cdf.single_ref[ctx_bwd][1]))
+        ref_frame[0] = bit(cdf.single_ref[ctx_bwd1][5]) ? ALTREF2_FRAME
+                                                         : BWDREF_FRAME;
+      else
+        ref_frame[0] = ALTREF_FRAME;
+    } else if (bit(cdf.single_ref[ctx_l12][2])) {
+      ref_frame[0] = bit(cdf.single_ref[ctx_l3g][4]) ? GOLDEN_FRAME
+                                                     : LAST3_FRAME;
+    } else {
+      ref_frame[0] = bit(cdf.single_ref[ctx_l1][3]) ? LAST2_FRAME : LAST_FRAME;
+    }
+  }
+
+  void lower_mv_precision(int* mv) const {
+    if (fh.allow_high_precision_mv) return;
+    for (int i = 0; i < 2; ++i) {
+      if (fh.force_integer_mv) {
+        int a = std::abs(mv[i]), a_int = (a + 3) >> 3;
+        mv[i] = mv[i] > 0 ? a_int << 3 : -(a_int << 3);
+      } else if (mv[i] & 1) {
+        mv[i] += mv[i] > 0 ? -1 : 1;
+      }
+    }
+  }
+  static int round2signed(int64_t x, int n) {
+    return (int)(x >= 0 ? round2l(x, n) : -round2l(-x, n));
+  }
+
+  void setup_global_mv(int list, int* mv) {
+    int ref = ref_frame[list];
+    int typ = ref > INTRA_FRAME ? fh.gm_type[ref] : GM_IDENTITY;
+    mv[0] = mv[1] = 0;
+    if (typ == GM_TRANSLATION) {
+      mv[0] = fh.gm_params[ref][0] >> (kWmBits - 3);
+      mv[1] = fh.gm_params[ref][1] >> (kWmBits - 3);
+    } else if (typ != GM_IDENTITY) {
+      const int* gm = fh.gm_params[ref];
+      int x = mi_col * 4 + bw4 * 2 - 1, y = mi_row * 4 + bh4 * 2 - 1;
+      int64_t xc = (int64_t)(gm[2] - (1 << kWmBits)) * x + (int64_t)gm[3] * y +
+                   gm[0];
+      int64_t yc = (int64_t)gm[4] * x +
+                   (int64_t)(gm[5] - (1 << kWmBits)) * y + gm[1];
+      if (fh.allow_high_precision_mv) {
+        mv[0] = round2signed(yc, kWmBits - 3);
+        mv[1] = round2signed(xc, kWmBits - 3);
+      } else {
+        mv[0] = round2signed(yc, kWmBits - 2) * 2;
+        mv[1] = round2signed(xc, kWmBits - 2) * 2;
+      }
+    }
+    lower_mv_precision(mv);
+  }
+
+  static int has_newmv(int mode) {
+    return mode == NEWMV || mode == NEW_NEWMV || mode == NEAR_NEWMV ||
+           mode == NEW_NEARMV || mode == NEAREST_NEWMV || mode == NEW_NEARESTMV;
+  }
+
+  // a candidate (one vector, or a compound block's two) added to the
+  // stack, or its weight to the same candidate's
+  void push_mv(const int* c0, const int* c1, int weight) {
+    int idx = 0;
+    for (; idx < num_mv_found; ++idx)
+      if (ref_stack[idx][0][0] == c0[0] && ref_stack[idx][0][1] == c0[1] &&
+          (!c1 || (ref_stack[idx][1][0] == c1[0] &&
+                   ref_stack[idx][1][1] == c1[1])))
+        break;
+    if (idx < num_mv_found) {
+      weight_stack[idx] += weight;
+    } else if (num_mv_found < 8) {
+      ref_stack[num_mv_found][0][0] = c0[0];
+      ref_stack[num_mv_found][0][1] = c0[1];
+      if (c1) {
+        ref_stack[num_mv_found][1][0] = c1[0];
+        ref_stack[num_mv_found][1][1] = c1[1];
+      }
+      weight_stack[num_mv_found] = weight;
+      ++num_mv_found;
+    }
+  }
+
+  // add_ref_mv_candidate of an inter frame (search_stack and
+  // compound_search_stack)
+  void add_inter_candidate(int r, int c, int weight) {
+    size_t i = (size_t)r * d.mi_cols + c;
+    if (!d.is_inters[i]) return;
+    int mode = d.y_modes[i], size = d.mi_size[i];
+    int large = std::min(kNum4x4W[size], kNum4x4H[size]) >= 2;
+    int global = (mode == GLOBALMV || mode == GLOBAL_GLOBALMV) && large;
+    if (!is_compound) {
+      for (int list = 0; list < 2; ++list) {
+        if (d.ref_frames[i * 2 + list] != ref_frame[0]) continue;
+        int cand[2];
+        if (global && fh.gm_type[ref_frame[0]] > GM_TRANSLATION) {
+          cand[0] = global_mvs[0][0];
+          cand[1] = global_mvs[0][1];
+        } else {
+          cand[0] = d.mvs4[i * 4 + list * 2];
+          cand[1] = d.mvs4[i * 4 + list * 2 + 1];
+        }
+        lower_mv_precision(cand);
+        if (has_newmv(mode)) ++new_mv_count;
+        found_match = 1;
+        push_mv(cand, nullptr, weight);
+      }
+      return;
+    }
+    if (d.ref_frames[i * 2] != ref_frame[0] ||
+        d.ref_frames[i * 2 + 1] != ref_frame[1])
+      return;
+    int cand[2][2];
+    for (int list = 0; list < 2; ++list) {
+      if (global && fh.gm_type[ref_frame[list]] > GM_TRANSLATION) {
+        cand[list][0] = global_mvs[list][0];
+        cand[list][1] = global_mvs[list][1];
+      } else {
+        cand[list][0] = d.mvs4[i * 4 + list * 2];
+        cand[list][1] = d.mvs4[i * 4 + list * 2 + 1];
+      }
+      lower_mv_precision(cand[list]);
+    }
+    found_match = 1;
+    push_mv(cand[0], cand[1], weight);
+    if (has_newmv(mode)) ++new_mv_count;
+  }
+
+  void add_tpl_ref_mv(int delta_row, int delta_col) {
+    int r = (mi_row + delta_row) | 1, c = (mi_col + delta_col) | 1;
+    if (!is_inside(r, c)) return;
+    size_t at = (size_t)(r >> 1) * (d.mi_cols >> 1) + (c >> 1);
+    if (delta_row == 0 && delta_col == 0) zero_mv_ctx = 1;
+    int off = d.tpl_off[at];
+    if (!off) return;
+    int cand[2][2];
+    for (int list = 0; list < 1 + is_compound; ++list) {
+      int cur_off = get_relative_dist(d.seq, fh.order_hint,
+                                      fh.order_hints[ref_frame[list]]);
+      mv_projection(&d.tpl_mv[at * 2], cur_off, off, cand[list]);
+      lower_mv_precision(cand[list]);
+    }
+    if (delta_row == 0 && delta_col == 0) {
+      zero_mv_ctx = 0;
+      for (int list = 0; list < 1 + is_compound; ++list)
+        if (std::abs(cand[list][0] - global_mvs[list][0]) >= 16 ||
+            std::abs(cand[list][1] - global_mvs[list][1]) >= 16)
+          zero_mv_ctx = 1;
+    }
+    ++n_temporal;
+    push_mv(cand[0], is_compound ? cand[1] : nullptr, 2);
+  }
+
+  void temporal_scan() {
+    int step_w = bw4 >= 16 ? 4 : 2, step_h = bh4 >= 16 ? 4 : 2;
+    for (int dr = 0; dr < std::min((int)bh4, 16); dr += step_h)
+      for (int dc = 0; dc < std::min((int)bw4, 16); dc += step_w)
+        add_tpl_ref_mv(dr, dc);
+    if (bh4 >= 2 && bh4 < 16 && bw4 >= 2 && bw4 < 16) {
+      const int pos[3][2] = {{bh4, -2}, {bh4, bw4}, {bh4 - 2, bw4}};
+      for (int i = 0; i < 3; ++i) {
+        int row = (mi_row & 15) + pos[i][0], col = (mi_col & 15) + pos[i][1];
+        if (row >= 0 && row < 16 && col >= 0 && col < 16)
+          add_tpl_ref_mv(pos[i][0], pos[i][1]);
+      }
+    }
+  }
+
+  // the extra search (7.10.2.12): the vectors of the neighbours' other
+  // references, sign-flipped across the current frame; a compound block's
+  // combined with the global vectors
+  void extra_search() {
+    int w4 = std::min(std::min(16, (int)bw4), d.mi_cols - mi_col);
+    int h4 = std::min(std::min(16, (int)bh4), d.mi_rows - mi_row);
+    int num4x4 = std::min(w4, h4);
+    int id_mvs[2][2][2], diff_mvs[2][2][2], id_n[2] = {0, 0},
+        diff_n[2] = {0, 0};
+    for (int pass = 0; pass < 2 && num_mv_found < 2; ++pass) {
+      int idx = 0;
+      while (idx < num4x4 && num_mv_found < 2) {
+        int r = pass == 0 ? mi_row - 1 : mi_row + idx;
+        int c = pass == 0 ? mi_col + idx : mi_col - 1;
+        if (!is_inside(r, c)) break;
+        size_t i = (size_t)r * d.mi_cols + c;
+        for (int cl = 0; cl < 2; ++cl) {
+          int cref = d.ref_frames[i * 2 + cl];
+          if (cref <= INTRA_FRAME) continue;
+          const int32_t* m = &d.mvs4[i * 4 + cl * 2];
+          if (is_compound) {
+            for (int list = 0; list < 2; ++list) {
+              int cand[2] = {m[0], m[1]};
+              if (cref == ref_frame[list] && id_n[list] < 2) {
+                id_mvs[list][id_n[list]][0] = cand[0];
+                id_mvs[list][id_n[list]][1] = cand[1];
+                ++id_n[list];
+              } else if (diff_n[list] < 2) {
+                if (fh.ref_sign_bias[cref] !=
+                    fh.ref_sign_bias[ref_frame[list]]) {
+                  cand[0] = -cand[0];
+                  cand[1] = -cand[1];
+                }
+                diff_mvs[list][diff_n[list]][0] = cand[0];
+                diff_mvs[list][diff_n[list]][1] = cand[1];
+                ++diff_n[list];
+              }
+            }
+            continue;
+          }
+          int cand[2] = {m[0], m[1]};
+          if (fh.ref_sign_bias[cref] != fh.ref_sign_bias[ref_frame[0]]) {
+            cand[0] = -cand[0];
+            cand[1] = -cand[1];
+          }
+          int k = 0;
+          for (; k < num_mv_found; ++k)
+            if (ref_stack[k][0][0] == cand[0] && ref_stack[k][0][1] == cand[1])
+              break;
+          if (k == num_mv_found) {
+            ref_stack[k][0][0] = cand[0];
+            ref_stack[k][0][1] = cand[1];
+            weight_stack[k] = 2;
+            ++num_mv_found;
+          }
+        }
+        idx += pass == 0 ? kNum4x4W[d.mi_size[i]] : kNum4x4H[d.mi_size[i]];
+      }
+    }
+    if (!is_compound) {
+      for (int k = num_mv_found; k < 2; ++k) {
+        ref_stack[k][0][0] = global_mvs[0][0];
+        ref_stack[k][0][1] = global_mvs[0][1];
+      }
+      return;
+    }
+    int comb[2][2][2];
+    for (int list = 0; list < 2; ++list) {
+      int n = 0;
+      for (int k = 0; k < id_n[list]; ++k, ++n) {
+        comb[n][list][0] = id_mvs[list][k][0];
+        comb[n][list][1] = id_mvs[list][k][1];
+      }
+      for (int k = 0; k < diff_n[list] && n < 2; ++k, ++n) {
+        comb[n][list][0] = diff_mvs[list][k][0];
+        comb[n][list][1] = diff_mvs[list][k][1];
+      }
+      for (; n < 2; ++n) {
+        comb[n][list][0] = global_mvs[list][0];
+        comb[n][list][1] = global_mvs[list][1];
+      }
+    }
+    if (num_mv_found == 1) {
+      int pick = (comb[0][0][0] == ref_stack[0][0][0] &&
+                  comb[0][0][1] == ref_stack[0][0][1] &&
+                  comb[0][1][0] == ref_stack[0][1][0] &&
+                  comb[0][1][1] == ref_stack[0][1][1]) ? 1 : 0;
+      memcpy(ref_stack[1], comb[pick], sizeof(comb[0]));
+      weight_stack[1] = 2;
+      num_mv_found = 2;
+    } else {
+      for (int k = 0; k < 2; ++k) {
+        memcpy(ref_stack[num_mv_found], comb[k], sizeof(comb[0]));
+        weight_stack[num_mv_found] = 2;
+        ++num_mv_found;
+      }
+    }
+  }
+
+  // find_mv_stack (7.10.2) of an inter block
+  void find_mv_stack_inter() {
+    num_mv_found = new_mv_count = 0;
+    setup_global_mv(0, global_mvs[0]);
+    if (is_compound) setup_global_mv(1, global_mvs[1]);
+    found_match = 0;
+    scan_row(-1);
+    int found_above = found_match;
+    found_match = 0;
+    scan_col(-1);
+    int found_left = found_match;
+    found_match = 0;
+    if (std::max(bw4, bh4) <= 16 && has_top_right()) scan_point(-1, bw4);
+    if (found_match) found_above = 1;
+    int close = found_above + found_left;
+    int num_nearest = num_mv_found, num_new = new_mv_count;
+    for (int i = 0; i < num_nearest; ++i) weight_stack[i] += 640;
+    zero_mv_ctx = 0;
+    if (fh.use_ref_frame_mvs) temporal_scan();
+    scan_point(-1, -1);
+    if (found_match) found_above = 1;
+    found_match = 0;
+    scan_row(-3);
+    if (found_match) found_above = 1;
+    found_match = 0;
+    scan_col(-3);
+    if (found_match) found_left = 1;
+    found_match = 0;
+    if (bh4 > 1) scan_row(-5);
+    if (found_match) found_above = 1;
+    found_match = 0;
+    if (bw4 > 1) scan_col(-5);
+    if (found_match) found_left = 1;
+    int total = found_above + found_left;
+    sort_stack_inter(0, num_nearest);
+    sort_stack_inter(num_nearest, num_mv_found);
+    if (num_mv_found < 2) extra_search();
+    // context_and_clamping
+    for (int i = 0; i < num_mv_found; ++i) {
+      int z = 0;
+      if (i + 1 < num_mv_found) {
+        int w0 = weight_stack[i], w1 = weight_stack[i + 1];
+        if (w0 >= 640) {
+          if (w1 < 640) z = 1;
+        } else {
+          z = 2;
+        }
+      }
+      drl_ctx[i] = z;
+    }
+    int top = -(mi_row * 32), bottom = (d.mi_rows - bh4 - mi_row) * 32;
+    int left = -(mi_col * 32), right = (d.mi_cols - bw4 - mi_col) * 32;
+    for (int list = 0; list < 1 + is_compound; ++list)
+      for (int i = 0; i < num_mv_found; ++i) {
+        int* m = ref_stack[i][list];
+        m[0] = clip3(top - 128 - bh4 * 32, bottom + 128 + bh4 * 32, m[0]);
+        m[1] = clip3(left - 128 - bw4 * 32, right + 128 + bw4 * 32, m[1]);
+      }
+    if (close == 0) {
+      new_mv_ctx = std::min(total, 1);
+      ref_mv_ctx = total;
+    } else if (close == 1) {
+      new_mv_ctx = 3 - std::min(num_new, 1);
+      ref_mv_ctx = 2 + total;
+    } else {
+      new_mv_ctx = 5 - std::min(num_new, 1);
+      ref_mv_ctx = 5;
+    }
+  }
+
+  void sort_stack_inter(int start, int end) {
+    while (end > start) {
+      int new_end = start;
+      for (int idx = start + 1; idx < end; ++idx)
+        if (weight_stack[idx - 1] < weight_stack[idx]) {
+          std::swap(weight_stack[idx - 1], weight_stack[idx]);
+          int t[2][2];
+          memcpy(t, ref_stack[idx - 1], sizeof(t));
+          memcpy(ref_stack[idx - 1], ref_stack[idx], sizeof(t));
+          memcpy(ref_stack[idx], t, sizeof(t));
+          new_end = idx;
+        }
+      end = new_end;
+    }
+  }
+
+  int read_mv_component0(int comp) {
+    int sign = ms.symbol(cdf.mv0_sign[comp], 2);
+    int cls = ms.symbol(cdf.mv0_class[comp], 11);
+    int mag;
+    if (cls == 0) {
+      int bit = ms.symbol(cdf.mv0_class0[comp], 2);
+      int fr = fh.force_integer_mv ? 3
+                                   : ms.symbol(cdf.mv0_class0_fr[comp][bit], 4);
+      int hp = fh.allow_high_precision_mv
+                   ? ms.symbol(cdf.mv0_class0_hp[comp], 2)
+                   : 1;
+      mag = ((bit << 3) | (fr << 1) | hp) + 1;
+    } else {
+      int dd = 0;
+      for (int i = 0; i < cls; ++i)
+        dd |= ms.symbol(cdf.mv0_bits[comp][i], 2) << i;
+      mag = 2 << (cls + 2);
+      int fr = fh.force_integer_mv ? 3 : ms.symbol(cdf.mv0_fr[comp], 4);
+      int hp = fh.allow_high_precision_mv ? ms.symbol(cdf.mv0_hp[comp], 2)
+                                          : 1;
+      mag += ((dd << 3) | (fr << 1) | hp) + 1;
+    }
+    return sign ? -mag : mag;
+  }
+
+  // get_mode: the single mode of each reference of a compound mode
+  int get_mode(int list) const {
+    if (y_mode < NEAREST_NEARESTMV) return y_mode;
+    switch (y_mode) {
+      case NEW_NEWMV: return NEWMV;
+      case NEAREST_NEARESTMV: return NEARESTMV;
+      case NEAR_NEARMV: return NEARMV;
+      case GLOBAL_GLOBALMV: return GLOBALMV;
+      case NEAREST_NEWMV: return list ? NEWMV : NEARESTMV;
+      case NEW_NEARESTMV: return list ? NEARESTMV : NEWMV;
+      case NEAR_NEWMV: return list ? NEWMV : NEARMV;
+      default: return list ? NEARMV : NEWMV;  // NEW_NEARMV
+    }
+  }
+  static int has_nearmv(int mode) {
+    return mode == NEARMV || mode == NEAR_NEARMV || mode == NEAR_NEWMV ||
+           mode == NEW_NEARMV;
+  }
+
+  void inter_block_mode_info() {
+    read_ref_frames();
+    is_compound = ref_frame[1] > INTRA_FRAME;
+    find_mv_stack_inter();
+    if (skip_mode) {
+      y_mode = NEAREST_NEARESTMV;
+    } else if (seg_feature_active(SEG_LVL_SKIP) ||
+               seg_feature_active(SEG_LVL_GLOBALMV)) {
+      y_mode = GLOBALMV;
+    } else if (is_compound) {
+      static const int kMap[3][5] = {
+          {0, 1, 1, 1, 1}, {1, 2, 3, 4, 4}, {4, 4, 5, 6, 7}};
+      int ctx = kMap[ref_mv_ctx >> 1][std::min(new_mv_ctx, 4)];
+      y_mode = NEAREST_NEARESTMV + ms.symbol(cdf.compound_mode[ctx], 8);
+    } else if (!ms.symbol(cdf.new_mv[new_mv_ctx], 2)) {
+      y_mode = NEWMV;
+    } else if (!ms.symbol(cdf.zero_mv[zero_mv_ctx], 2)) {
+      y_mode = GLOBALMV;
+    } else {
+      y_mode = ms.symbol(cdf.ref_mv[ref_mv_ctx], 2) ? NEARMV : NEARESTMV;
+    }
+    ref_mv_idx = 0;
+    if (y_mode == NEWMV || y_mode == NEW_NEWMV) {
+      for (int idx = 0; idx < 2; ++idx)
+        if (num_mv_found > idx + 1) {
+          if (!ms.symbol(cdf.drl_mode[drl_ctx[idx]], 2)) {
+            ref_mv_idx = idx;
+            break;
+          }
+          ref_mv_idx = idx + 1;
+        }
+    } else if (has_nearmv(y_mode)) {
+      ref_mv_idx = 1;
+      for (int idx = 1; idx < 3; ++idx)
+        if (num_mv_found > idx + 1) {
+          if (!ms.symbol(cdf.drl_mode[drl_ctx[idx]], 2)) {
+            ref_mv_idx = idx;
+            break;
+          }
+          ref_mv_idx = idx + 1;
+        }
+    }
+    // assign_mv
+    for (int list = 0; list < 1 + is_compound; ++list) {
+      int mode = get_mode(list);
+      int pred[2];
+      if (mode == GLOBALMV) {
+        pred[0] = global_mvs[list][0];
+        pred[1] = global_mvs[list][1];
+      } else {
+        int pos = mode == NEARESTMV ? 0 : ref_mv_idx;
+        if (mode == NEWMV && num_mv_found <= 1) pos = 0;
+        pred[0] = ref_stack[pos][list][0];
+        pred[1] = ref_stack[pos][list][1];
+      }
+      bmv[list][0] = pred[0];
+      bmv[list][1] = pred[1];
+      if (mode == NEWMV) {
+        int joint = ms.symbol(cdf.mv0_joint, 4);
+        if (joint == 2 || joint == 3) bmv[list][0] += read_mv_component0(0);
+        if (joint == 1 || joint == 3) bmv[list][1] += read_mv_component0(1);
+      }
+    }
+    // read_interintra_mode
+    if (!skip_mode && d.seq.interintra && !is_compound &&
+        mi_sz >= BLOCK_8X8 && mi_sz <= BLOCK_32X32) {
+      int g = kSizeGroup[mi_sz];
+      interintra = ms.symbol(cdf.interintra[g], 2);
+      if (interintra) {
+        interintra_mode = ms.symbol(cdf.interintra_mode[g], 4);
+        ref_frame[1] = INTRA_FRAME;
+        wedge_interintra = ms.symbol(cdf.wedge_interintra[mi_sz], 2);
+        if (wedge_interintra)
+          wedge_index = ms.symbol(cdf.wedge_index[mi_sz], 16);
+      }
+    }
+    // read_motion_mode
+    motion_mode = SIMPLE;
+    num_samples = 0;
+    if (!skip_mode && fh.motion_switchable && std::min(bw4, bh4) >= 2 &&
+        !(!fh.force_integer_mv &&
+          (y_mode == GLOBALMV || y_mode == GLOBAL_GLOBALMV) &&
+          fh.gm_type[ref_frame[0]] > GM_TRANSLATION) &&
+        !is_compound && ref_frame[1] != INTRA_FRAME &&
+        has_overlappable_candidates()) {
+      find_warp_samples();
+      if (fh.force_integer_mv || num_samples == 0 ||
+          !fh.allow_warped_motion || is_scaled(ref_frame[0]))
+        motion_mode = ms.symbol(cdf.use_obmc[mi_sz], 2) ? OBMC : SIMPLE;
+      else
+        motion_mode = ms.symbol(cdf.motion_mode[mi_sz], 3);
+    }
+    // read_compound_type
+    comp_group_idx = 0;
+    compound_idx = 1;
+    compound_type = COMPOUND_AVERAGE;
+    if (is_compound && !skip_mode) {
+      if (d.seq.masked_compound) {
+        int ac = 0, lc = 0;
+        if (avail_u) {
+          size_t i = (size_t)(mi_row - 1) * d.mi_cols + mi_col;
+          if (above_ref[1] > INTRA_FRAME) ac = d.comp_groups[i];
+          else if (above_ref[0] == ALTREF_FRAME) ac = 3;
+        }
+        if (avail_l) {
+          size_t i = (size_t)mi_row * d.mi_cols + mi_col - 1;
+          if (left_ref[1] > INTRA_FRAME) lc = d.comp_groups[i];
+          else if (left_ref[0] == ALTREF_FRAME) lc = 3;
+        }
+        comp_group_idx = ms.symbol(cdf.comp_group_idx[std::min(5, ac + lc)], 2);
+      }
+      if (comp_group_idx == 0) {
+        if (d.seq.jnt_comp) {
+          int fwd = std::abs(get_relative_dist(
+              d.seq, fh.order_hints[ref_frame[1]], fh.order_hint));
+          int bck = std::abs(get_relative_dist(
+              d.seq, fh.order_hint, fh.order_hints[ref_frame[0]]));
+          int ac = 0, lc = 0;
+          if (avail_u) {
+            size_t i = (size_t)(mi_row - 1) * d.mi_cols + mi_col;
+            if (above_ref[1] > INTRA_FRAME) ac = d.comp_idxs[i];
+            else if (above_ref[0] == ALTREF_FRAME) ac = 1;
+          }
+          if (avail_l) {
+            size_t i = (size_t)mi_row * d.mi_cols + mi_col - 1;
+            if (left_ref[1] > INTRA_FRAME) lc = d.comp_idxs[i];
+            else if (left_ref[0] == ALTREF_FRAME) lc = 1;
+          }
+          compound_idx =
+              ms.symbol(cdf.compound_idx[ac + lc + 3 * (fwd == bck)], 2);
+          compound_type = compound_idx ? COMPOUND_AVERAGE : COMPOUND_DISTANCE;
+        }
+      } else if (!kWedgeBits[mi_sz]) {
+        compound_type = COMPOUND_DIFFWTD;
+      } else {
+        compound_type = ms.symbol(cdf.compound_type[mi_sz], 2)
+                            ? COMPOUND_DIFFWTD
+                            : COMPOUND_WEDGE;
+      }
+      if (compound_type == COMPOUND_WEDGE) {
+        wedge_index = ms.symbol(cdf.wedge_index[mi_sz], 16);
+        wedge_sign = ms.literal(1);
+      } else if (compound_type == COMPOUND_DIFFWTD) {
+        mask_type = ms.literal(1);
+      }
+    }
+    // the interpolation filters
+    if (fh.interp_filter == 4) {
+      for (int dir = 0; dir < (d.seq.dual_filter ? 2 : 1); ++dir) {
+        interp_filter[dir] = 0;
+        int large = std::min(bw4, bh4) >= 2;
+        bool needed = !skip_mode && motion_mode != LOCALWARP;
+        if (needed && large && (y_mode == GLOBALMV || y_mode == GLOBAL_GLOBALMV)) {
+          needed = fh.gm_type[ref_frame[0]] == GM_TRANSLATION ||
+                   (is_compound && fh.gm_type[ref_frame[1]] == GM_TRANSLATION);
+        }
+        if (!needed) continue;
+        int ctx = ((dir & 1) * 2 + is_compound) * 4;
+        int lt = 3, at = 3;
+        if (avail_l && (RF(mi_row, mi_col - 1, 0) == ref_frame[0] ||
+                        RF(mi_row, mi_col - 1, 1) == ref_frame[0]))
+          lt = d.interp[((size_t)mi_row * d.mi_cols + mi_col - 1) * 2 + dir];
+        if (avail_u && (RF(mi_row - 1, mi_col, 0) == ref_frame[0] ||
+                        RF(mi_row - 1, mi_col, 1) == ref_frame[0]))
+          at = d.interp[((size_t)(mi_row - 1) * d.mi_cols + mi_col) * 2 + dir];
+        if (lt == at)
+          ctx += lt;
+        else if (lt == 3)
+          ctx += at;
+        else if (at == 3)
+          ctx += lt;
+        else
+          ctx += 3;
+        interp_filter[dir] = ms.symbol(cdf.interp_filter[ctx], 3);
+      }
+      if (!d.seq.dual_filter) interp_filter[1] = interp_filter[0];
+    } else {
+      interp_filter[0] = interp_filter[1] = fh.interp_filter;
+    }
+  }
+
+  int has_overlappable_candidates() const {
+    if (avail_u)
+      for (int x = mi_col; x < std::min(d.mi_cols, mi_col + bw4); x += 2) {
+        int x5 = std::min(x | 1, d.mi_cols - 1);
+        if (RF(mi_row - 1, x5, 0) > INTRA_FRAME) return 1;
+      }
+    if (avail_l)
+      for (int y = mi_row; y < std::min(d.mi_rows, mi_row + bh4); y += 2) {
+        int y5 = std::min(y | 1, d.mi_rows - 1);
+        if (RF(y5, mi_col - 1, 0) > INTRA_FRAME) return 1;
+      }
+    return 0;
+  }
+
+  int is_scaled(int ref) const {
+    return d.x_scale[ref] != (1 << 14) || d.y_scale[ref] != (1 << 14);
+  }
+
+  // find_warp_samples (7.10.4), as libaom and libdav1d walk the
+  // neighbours (a row or column of smaller blocks by their own steps)
+  void add_sample(int dr, int dc) {
+    if (num_samples_scanned >= 8) return;
+    int r = mi_row + dr, c = mi_col + dc;
+    if (!is_inside(r, c)) return;
+    if (RF(r, c, 0) != ref_frame[0] || RF(r, c, 1) != NONE_FRAME) return;
+    int sz = d.MI(d.mi_size, r, c);
+    int w4 = kNum4x4W[sz], h4 = kNum4x4H[sz];
+    int cand_row = r & ~(h4 - 1), cand_col = c & ~(w4 - 1);
+    int mid_y = cand_row * 4 + h4 * 2 - 1, mid_x = cand_col * 4 + w4 * 2 - 1;
+    int threshold = clip3(16, 112, std::max(bw4, bh4) * 4);
+    const int32_t* mv = MV4(r, c, 0);
+    int diff = std::abs(mv[0] - bmv[0][0]) + std::abs(mv[1] - bmv[0][1]);
+    int valid = diff <= threshold;
+    ++num_samples_scanned;
+    if (!valid && num_samples_scanned > 1) return;
+    cand_list[num_samples][0] = mid_y * 8;
+    cand_list[num_samples][1] = mid_x * 8;
+    cand_list[num_samples][2] = mid_y * 8 + mv[0];
+    cand_list[num_samples][3] = mid_x * 8 + mv[1];
+    if (valid) ++num_samples;
+  }
+
+  void find_warp_samples() {
+    num_samples = num_samples_scanned = 0;
+    int do_top_left = 1, do_top_right = 1;
+    if (avail_u) {
+      int src_w = kNum4x4W[d.MI(d.mi_size, mi_row - 1, mi_col)];
+      if (bw4 <= src_w) {
+        int col_offset = -(mi_col & (src_w - 1));
+        if (col_offset < 0) do_top_left = 0;
+        if (col_offset + src_w > bw4) do_top_right = 0;
+        add_sample(-1, 0);
+      } else {
+        for (int i = 0; i < std::min((int)bw4, d.mi_cols - mi_col);) {
+          int step = kNum4x4W[d.MI(d.mi_size, mi_row - 1, mi_col + i)];
+          add_sample(-1, i);
+          i += step;
+        }
+      }
+    }
+    if (avail_l) {
+      int src_h = kNum4x4H[d.MI(d.mi_size, mi_row, mi_col - 1)];
+      if (bh4 <= src_h) {
+        int row_offset = -(mi_row & (src_h - 1));
+        if (row_offset < 0) do_top_left = 0;
+        add_sample(0, -1);
+      } else {
+        for (int i = 0; i < std::min((int)bh4, d.mi_rows - mi_row);) {
+          int step = kNum4x4H[d.MI(d.mi_size, mi_row + i, mi_col - 1)];
+          add_sample(i, -1);
+          i += step;
+        }
+      }
+    }
+    if (do_top_left) add_sample(-1, -1);
+    if (do_top_right && std::max(bw4, bh4) <= 16 && has_top_right())
+      add_sample(-1, bw4);
+    if (num_samples == 0 && num_samples_scanned > 0) num_samples = 1;
+  }
+
+  // -- inter prediction (spec 7.11.3) --------------------------------------
+  // the rounding variables (7.11.3.2) of a prediction with one reference
+  int round0() const { return d.bitdepth == 12 ? 5 : 3; }
+  int round1() const { return d.bitdepth == 12 ? 9 : 11; }
+
+  // motion_vector_scaling (7.11.3.3): the prediction's first position and
+  // steps in 1/1024 of a sample of the reference
+  void mv_scaling(int plane, int ref, int x, int y, const int* mv,
+                  int& start_x, int& start_y, int& step_x, int& step_y) const {
+    int sx = plane ? d.ssx : 0, sy = plane ? d.ssy : 0;
+    int64_t orig_x = ((int64_t)x << 4) + ((2 * mv[1]) >> sx) + 8;
+    int64_t orig_y = ((int64_t)y << 4) + ((2 * mv[0]) >> sy) + 8;
+    int64_t base_x = orig_x * d.x_scale[ref] - ((int64_t)8 << 14);
+    int64_t base_y = orig_y * d.y_scale[ref] - ((int64_t)8 << 14);
+    start_x = round2signed(base_x, 14 + 4 - 10) + 32;
+    start_y = round2signed(base_y, 14 + 4 - 10) + 32;
+    step_x = round2signed(d.x_scale[ref], 14 - 10);
+    step_y = round2signed(d.y_scale[ref], 14 - 10);
+  }
+
+  // block_inter_prediction (7.11.3.4): the reference's samples (clamped to
+  // its upscaled frame) through the filters of the block at (cand_row,
+  // cand_col), 4-tap where the prediction is 4 wide or high
+  void block_inter(int ref, int plane, int x, int y, int step_x, int step_y,
+                   int w, int h, int cand_row, int cand_col, int r1,
+                   int32_t* out) {
+    const RefPic<Pixel>& R = *d.refs[ref];
+    int sx = plane ? d.ssx : 0, sy = plane ? d.ssy : 0;
+    const Plane<Pixel>& P = R.planes[plane];
+    int last_x = ((R.fh.upscaled_width + sx) >> sx) - 1;
+    int last_y = ((R.fh.height + sy) >> sy) - 1;
+    int ih = (((h - 1) * step_y + (1 << 10) - 1) >> 10) + 8;
+    size_t at = ((size_t)cand_row * d.mi_cols + cand_col) * 2;
+    int fh_idx = d.interp[at + 1], fv_idx = d.interp[at];
+    if (w <= 4) fh_idx = (fh_idx == 0 || fh_idx == 2) ? 4 : fh_idx == 1 ? 5 : fh_idx;
+    if (h <= 4) fv_idx = (fv_idx == 0 || fv_idx == 2) ? 4 : fv_idx == 1 ? 5 : fv_idx;
+    int r0 = round0();
+    int32_t* tmp = inter_tmp;
+    for (int r = 0; r < ih; ++r) {
+      const Pixel* row =
+          P.buf.data() + (size_t)clip3(0, last_y, (y >> 10) + r - 3) * P.stride;
+      for (int c = 0; c < w; ++c) {
+        int p = x + step_x * c;
+        const int16_t* f = g_tab.subpel[fh_idx][(p >> 6) & 15];
+        int base = (p >> 10) - 3;
+        int s = 0;
+        if (base >= 0 && base + 7 <= last_x) {
+          for (int t = 0; t < 8; ++t) s += f[t] * row[base + t];
+        } else {
+          for (int t = 0; t < 8; ++t) s += f[t] * row[clip3(0, last_x, base + t)];
+        }
+        tmp[r * w + c] = round2(s, r0);
+      }
+    }
+    for (int r = 0; r < h; ++r) {
+      int p = (y & 1023) + step_y * r;
+      const int16_t* f = g_tab.subpel[fv_idx][(p >> 6) & 15];
+      const int32_t* col = tmp + (p >> 10) * w;
+      for (int c = 0; c < w; ++c) {
+        int s = 0;
+        for (int t = 0; t < 8; ++t) s += f[t] * col[t * w + c];
+        out[r * w + c] = round2(s, r1);
+      }
+    }
+  }
+
+  // resolve_divisor (7.11.3.7): Div_Lut's factor and shift of d
+  static int resolve_divisor(int64_t dv, int* shift) {
+    int n = 63 - __builtin_clzll((uint64_t)dv);
+    int64_t e = dv - ((int64_t)1 << n);
+    int64_t f = n > 8 ? round2l(e, n - 8) : e << (8 - n);
+    *shift = n + 14;
+    return g_tab.div_lut[f];
+  }
+
+  // setupShear (7.11.3.6): the warp's shears, false where they are too
+  // large for the filter (or the model degenerate)
+  static bool setup_shear(const int* wm, int* abcd) {
+    if (wm[2] <= 0) return false;
+    auto reduce = [](int64_t v) {
+      int c = (int)clip3l(-32768, 32767, v);
+      int a = (std::abs(c) + 32) >> 6;
+      return (c < 0 ? -a : a) * 64;
+    };
+    int alpha = reduce(wm[2] - (1 << kWmBits));
+    int beta = reduce(wm[3]);
+    int shift;
+    int64_t y = resolve_divisor(wm[2], &shift);
+    int64_t v1 = (int64_t)wm[4] * (1 << kWmBits) * y;
+    int gamma = reduce(round2signed64(v1, shift));
+    int64_t v2 = ((int64_t)wm[3] * wm[4]) * y;
+    int delta = reduce(wm[5] - round2signed64(v2, shift) - (1 << kWmBits));
+    abcd[0] = alpha;
+    abcd[1] = beta;
+    abcd[2] = gamma;
+    abcd[3] = delta;
+    return 4 * std::abs(alpha) + 7 * std::abs(beta) < (1 << kWmBits) &&
+           4 * std::abs(gamma) + 4 * std::abs(delta) < (1 << kWmBits);
+  }
+  // Round2Signed of a 64-bit product, its magnitude taken as an int as
+  // libdav1d takes it
+  static int64_t round2signed64(int64_t x, int n) {
+    uint64_t a = x < 0 ? (uint64_t)0 - (uint64_t)x : (uint64_t)x;
+    int v = (int)(uint32_t)((a + (((uint64_t)1 << n) >> 1)) >> n);
+    return x < 0 ? -(int64_t)v : v;
+  }
+
+  // warpEstimation (7.11.3.8): the local warp's least-squares model from
+  // the samples, false where it is degenerate or its shears invalid
+  bool warp_estimation() {
+    int64_t A[2][2] = {{0, 0}, {0, 0}}, Bx[2] = {0, 0}, By[2] = {0, 0};
+    int mid_y = mi_row * 4 + bh4 * 2 - 1, mid_x = mi_col * 4 + bw4 * 2 - 1;
+    int suy = mid_y * 8, sux = mid_x * 8;
+    int duy = suy + bmv[0][0], dux = sux + bmv[0][1];
+    auto ls = [](int64_t a, int64_t b) { return ((a * b) >> 2) + (a + b); };
+    for (int i = 0; i < num_samples; ++i) {
+      int sy = cand_list[i][0] - suy, sx = cand_list[i][1] - sux;
+      int dy = cand_list[i][2] - duy, dx = cand_list[i][3] - dux;
+      if (std::abs(sx - dx) < 256 && std::abs(sy - dy) < 256) {
+        A[0][0] += ls(sx, sx) + 8;
+        A[0][1] += ls(sx, sy) + 4;
+        A[1][1] += ls(sy, sy) + 8;
+        Bx[0] += ls(sx, dx) + 8;
+        Bx[1] += ls(sy, dx) + 4;
+        By[0] += ls(sx, dy) + 4;
+        By[1] += ls(sy, dy) + 8;
+      }
+    }
+    int64_t det = A[0][0] * A[1][1] - A[0][1] * A[0][1];
+    if (det == 0) return false;
+    int shift;
+    int64_t div = resolve_divisor(det < 0 ? -det : det, &shift);
+    if (det < 0) div = -div;
+    shift -= kWmBits;
+    if (shift < 0) {
+      div *= (int64_t)1 << -shift;
+      shift = 0;
+    }
+    auto diag = [&](int64_t v) {
+      return (int)clip3l((1 << kWmBits) - (1 << 13) + 1,
+                         (1 << kWmBits) + (1 << 13) - 1,
+                         round2signed64(v * div, shift));
+    };
+    auto nondiag = [&](int64_t v) {
+      return (int)clip3l(-(1 << 13) + 1, (1 << 13) - 1,
+                         round2signed64(v * div, shift));
+    };
+    int* wm = local_warp;
+    wm[2] = diag(A[1][1] * Bx[0] - A[0][1] * Bx[1]);
+    wm[3] = nondiag(-A[0][1] * Bx[0] + A[0][0] * Bx[1]);
+    wm[4] = nondiag(A[1][1] * By[0] - A[0][1] * By[1]);
+    wm[5] = diag(-A[0][1] * By[0] + A[0][0] * By[1]);
+    int vx = bmv[0][1] * (1 << (kWmBits - 3)) -
+             (mid_x * (wm[2] - (1 << kWmBits)) + mid_y * wm[3]);
+    int vy = bmv[0][0] * (1 << (kWmBits - 3)) -
+             (mid_x * wm[4] + mid_y * (wm[5] - (1 << kWmBits)));
+    wm[0] = clip3(-(1 << 23), (1 << 23) - 1, vx);
+    wm[1] = clip3(-(1 << 23), (1 << 23) - 1, vy);
+    int abcd[4];
+    return setup_shear(wm, abcd);
+  }
+
+  // block_warp (7.11.3.5): the 8x8 block (i8, j8) of a warped prediction,
+  // the filters' positions on libaom's 64-step grid
+  void block_warp(const int* wm, int ref, int plane, int x, int y, int i8,
+                  int j8, int w, int h, int r1, int32_t* out) {
+    const RefPic<Pixel>& R = *d.refs[ref];
+    int sx = plane ? d.ssx : 0, sy = plane ? d.ssy : 0;
+    const Plane<Pixel>& P = R.planes[plane];
+    int last_x = ((R.fh.upscaled_width + sx) >> sx) - 1;
+    int last_y = ((R.fh.height + sy) >> sy) - 1;
+    int abcd[4];
+    setup_shear(wm, abcd);
+    int64_t src_x = (x + j8 * 8 + 4) << sx;
+    int64_t src_y = (y + i8 * 8 + 4) << sy;
+    int64_t dst_x = (int64_t)wm[2] * src_x + (int64_t)wm[3] * src_y + wm[0];
+    int64_t dst_y = (int64_t)wm[4] * src_x + (int64_t)wm[5] * src_y + wm[1];
+    int64_t x4 = dst_x >> sx, y4 = dst_y >> sy;
+    int ix4 = (int)(x4 >> kWmBits), iy4 = (int)(y4 >> kWmBits);
+    int sx4 = (int)(x4 & ((1 << kWmBits) - 1)) & ~63;
+    int sy4 = (int)(y4 & ((1 << kWmBits) - 1)) & ~63;
+    int r0 = round0();
+    int tmp[15][8];
+    for (int i1 = -7; i1 < 8; ++i1) {
+      const Pixel* row = P.buf.data() +
+                         (size_t)clip3(0, last_y, iy4 + i1) * P.stride;
+      for (int i2 = -4; i2 < 4; ++i2) {
+        int s4 = sx4 + abcd[0] * i2 + abcd[1] * i1;
+        const int16_t* f = g_tab.warped[((s4 + 512) >> 10) + 64];
+        int s = 0;
+        for (int i3 = 0; i3 < 8; ++i3)
+          s += f[i3] * row[clip3(0, last_x, ix4 + i2 - 3 + i3)];
+        tmp[i1 + 7][i2 + 4] = round2(s, r0);
+      }
+    }
+    for (int i1 = -4; i1 < std::min(4, h - i8 * 8 - 4); ++i1)
+      for (int i2 = -4; i2 < std::min(4, w - j8 * 8 - 4); ++i2) {
+        int s4 = sy4 + abcd[2] * i2 + abcd[3] * i1;
+        const int16_t* f = g_tab.warped[((s4 + 512) >> 10) + 64];
+        int s = 0;
+        for (int i3 = 0; i3 < 8; ++i3) s += f[i3] * tmp[i1 + i3 + 4][i2 + 4];
+        out[(i8 * 8 + i1 + 4) * w + j8 * 8 + i2 + 4] = round2(s, r1);
+      }
+  }
+
+  // predict_inter (7.11.3.1): each reference's prediction from the
+  // block's (or, for chroma of a small block, its neighbour's) vector,
+  // warped where the local or global model allows, then the compound
+  // average, distance weights or mask, or interintra's blend
+  void predict_inter(int plane, int base_x, int base_y, int w, int h,
+                     int cand_row, int cand_col) {
+    int compound = RF(cand_row, cand_col, 1) > INTRA_FRAME;
+    int r1 = compound ? 7 : round1();
+    int post = 14 - round0() - r1;  // InterPostRound
+    for (int list = 0; list < 1 + compound; ++list) {
+      int ref = RF(cand_row, cand_col, list);
+      const int32_t* mvp = MV4(cand_row, cand_col, list);
+      int mv[2] = {mvp[0], mvp[1]};
+      int32_t* pred = preds[list];
+      int use_warp = 0, abcd[4];
+      int global = (y_mode == GLOBALMV || y_mode == GLOBAL_GLOBALMV) &&
+                   fh.gm_type[ref] > GM_TRANSLATION;
+      if (w >= 8 && h >= 8 && !fh.force_integer_mv) {
+        if (motion_mode == LOCALWARP && local_valid)
+          use_warp = 1;
+        else if (global && !is_scaled(ref) &&
+                 setup_shear(fh.gm_params[ref], abcd))
+          use_warp = 2;
+      }
+      if (use_warp) {
+        const int* wm = use_warp == 1 ? local_warp : fh.gm_params[ref];
+        for (int i8 = 0; i8 <= ((h - 1) >> 3); ++i8)
+          for (int j8 = 0; j8 <= ((w - 1) >> 3); ++j8)
+            block_warp(wm, ref, plane, base_x, base_y, i8, j8, w, h, r1, pred);
+        if (plane == 0 && list == 0)
+          ++n_tool[use_warp == 1 ? TOOL_LOCAL_WARP : TOOL_GLOBAL_WARP];
+      } else {
+        int x0, y0, stx, sty;
+        mv_scaling(plane, ref, base_x, base_y, mv, x0, y0, stx, sty);
+        block_inter(ref, plane, x0, y0, stx, sty, w, h, cand_row, cand_col,
+                    r1, pred);
+        // a block predicted wholly from outside its reference (the clamped
+        // edge samples)
+        if (plane == 0 && list == 0) {
+          int64_t left = x0 >> 10, top = y0 >> 10;
+          int64_t right = (x0 + (int64_t)(w - 1) * stx) >> 10;
+          int64_t bottom = (y0 + (int64_t)(h - 1) * sty) >> 10;
+          const FrameHdr& rh = d.refs[ref]->fh;
+          n_tool[TOOL_MV_OUTSIDE] += right + 4 < 0 || bottom + 4 < 0 ||
+                                     left - 3 >= rh.upscaled_width ||
+                                     top - 3 >= rh.height;
+        }
+      }
+    }
+    auto& P = d.cur[plane];
+    const int32_t* p0 = preds[0];
+    const int32_t* p1 = preds[1];
+    int sx = plane ? d.ssx : 0, sy = plane ? d.ssy : 0;
+    if (compound) {
+      if (compound_type == COMPOUND_AVERAGE) {
+        for (int i = 0; i < h; ++i) {
+          Pixel* dst = P.row(base_y + i) + base_x;
+          for (int j = 0; j < w; ++j)
+            dst[j] = d.clip1(round2(p0[i * w + j] + p1[i * w + j], 1 + post));
+        }
+        return;
+      }
+      if (compound_type == COMPOUND_DISTANCE) {
+        int fwd, bck;
+        distance_weights(&fwd, &bck);
+        for (int i = 0; i < h; ++i) {
+          Pixel* dst = P.row(base_y + i) + base_x;
+          for (int j = 0; j < w; ++j)
+            dst[j] = d.clip1(
+                round2(fwd * p0[i * w + j] + bck * p1[i * w + j], 4 + post));
+        }
+        return;
+      }
+      // the masks of the luma block, subsampled for chroma
+      int mw = bw4 * 4;
+      const uint8_t* mk;
+      if (compound_type == COMPOUND_WEDGE) {
+        mk = wedge_mask(mi_sz, wedge_sign, wedge_index);
+      } else {
+        if (plane == 0)
+          for (int i = 0; i < h * w; ++i) {
+            int diff = round2(std::abs(p0[i] - p1[i]), d.bitdepth - 8 + post);
+            int m = clip3(0, 64, 38 + diff / 16);
+            diff_mask[i] = (uint8_t)(mask_type ? 64 - m : m);
+          }
+        mk = diff_mask;
+      }
+      for (int i = 0; i < h; ++i) {
+        Pixel* dst = P.row(base_y + i) + base_x;
+        for (int j = 0; j < w; ++j) {
+          int m = sub_mask(mk, mw, i, j, sx, sy);
+          dst[j] = d.clip1(round2(m * p0[i * w + j] + (64 - m) * p1[i * w + j],
+                                  6 + post));
+        }
+      }
+      return;
+    }
+    if (!(interintra && is_inter)) {
+      for (int i = 0; i < h; ++i) {
+        Pixel* dst = P.row(base_y + i) + base_x;
+        for (int j = 0; j < w; ++j) dst[j] = d.clip1(p0[i * w + j]);
+      }
+      return;
+    }
+    // interintra: the intra prediction is in the frame, blended by the
+    // smooth mask of its mode at the plane's size, or the wedge's of the
+    // luma block, subsampled for chroma
+    const uint8_t* mk = wedge_interintra ? wedge_mask(mi_sz, 0, wedge_index)
+                                         : nullptr;
+    int scale = 128 / std::max(h, w);
+    for (int i = 0; i < h; ++i)
+      for (int j = 0; j < w; ++j) {
+        int m = 32;
+        if (mk)
+          m = sub_mask(mk, bw4 * 4, i, j, sx, sy);
+        else if (interintra_mode == 1)
+          m = g_tab.ii_weights[i * scale];
+        else if (interintra_mode == 2)
+          m = g_tab.ii_weights[j * scale];
+        else if (interintra_mode == 3)
+          m = g_tab.ii_weights[std::min(i, j) * scale];
+        Pixel& px = P.at(base_x + j, base_y + i);
+        px = (Pixel)round2(m * px + (64 - m) * d.clip1(p0[i * w + j]), 6);
+      }
+  }
+
+  // a luma mask at a plane's position (7.11.3.14)
+  static int sub_mask(const uint8_t* mk, int mw, int i, int j, int sx,
+                      int sy) {
+    const uint8_t* a = mk + (size_t)(i << sy) * mw + (j << sx);
+    if (!sx && !sy) return a[0];
+    if (sx && !sy) return round2(a[0] + a[1], 1);
+    if (!sx && sy) return round2(a[0] + a[mw], 1);
+    return round2(a[0] + a[1] + a[mw] + a[mw + 1], 2);
+  }
+
+  // the distance weights (7.11.3.15) of a COMPOUND_DISTANCE block, as
+  // libaom's av1_dist_wtd_comp_weight_assign compares the distances
+  void distance_weights(int* fwd, int* bck) const {
+    int d0 = clip3(0, 31, std::abs(get_relative_dist(
+                              d.seq, fh.order_hints[ref_frame[1]],
+                              fh.order_hint)));
+    int d1 = clip3(0, 31, std::abs(get_relative_dist(
+                              d.seq, fh.order_hint,
+                              fh.order_hints[ref_frame[0]])));
+    int order = d0 <= d1;
+    int i = 3;
+    if (d0 && d1)
+      for (i = 0; i < 3; ++i) {
+        int c0 = g_tab.quant_dist_weight[i][order];
+        int c1 = g_tab.quant_dist_weight[i][!order];
+        if ((d0 > d1 && d0 * c0 < d1 * c1) || (d0 <= d1 && d0 * c0 > d1 * c1))
+          break;
+      }
+    *fwd = g_tab.quant_dist_lookup[i][order];
+    *bck = g_tab.quant_dist_lookup[i][1 - order];
+  }
+
+  // the wedge masks (7.11.3.11): MasterMask built once, then
+  // WedgeMasks[bsize][sign][index]
+  static const uint8_t* wedge_mask(int bsize, int sign, int index) {
+    static std::once_flag once;
+    static std::vector<uint8_t> masks[22][2][16];
+    std::call_once(once, []() {
+      static uint8_t master[6][64][64];
+      enum { HORZ, VERT, O27, O63, O117, O153 };
+      for (int j = 0; j < 64; ++j) {
+        int shift = 16;
+        for (int i = 0; i < 64; i += 2) {
+          master[O63][i][j] = g_tab.wedge_master[0][clip3(0, 63, j - shift)];
+          --shift;
+          master[O63][i + 1][j] = g_tab.wedge_master[1][clip3(0, 63, j - shift)];
+          master[VERT][i][j] = g_tab.wedge_master[2][j];
+          master[VERT][i + 1][j] = g_tab.wedge_master[2][j];
+        }
+      }
+      for (int i = 0; i < 64; ++i)
+        for (int j = 0; j < 64; ++j) {
+          int msk = master[O63][i][j];
+          master[O27][j][i] = (uint8_t)msk;
+          master[O117][i][63 - j] = (uint8_t)(64 - msk);
+          master[O153][63 - j][i] = (uint8_t)(64 - msk);
+          master[HORZ][j][i] = master[VERT][i][j];
+        }
+      for (int bs = BLOCK_8X8; bs < 22; ++bs) {
+        if (!kWedgeBits[bs]) continue;
+        int w = kNum4x4W[bs] * 4, h = kNum4x4H[bs] * 4;
+        int shape = h > w ? 0 : h < w ? 1 : 2;
+        for (int wedge = 0; wedge < 16; ++wedge) {
+          const uint8_t* code = g_tab.wedge_codebook[shape][wedge];
+          int dir = code[0];
+          int xoff = 32 - ((code[1] * w) >> 3);
+          int yoff = 32 - ((code[2] * h) >> 3);
+          int sum = 0;
+          for (int i = 0; i < w; ++i) sum += master[dir][yoff][xoff + i];
+          for (int i = 1; i < h; ++i) sum += master[dir][yoff + i][xoff];
+          int avg = (sum + (w + h - 1) / 2) / (w + h - 1);
+          int flip = avg < 32;
+          masks[bs][flip][wedge].resize((size_t)w * h);
+          masks[bs][!flip][wedge].resize((size_t)w * h);
+          for (int i = 0; i < h; ++i)
+            for (int j = 0; j < w; ++j) {
+              int m = master[dir][yoff + i][xoff + j];
+              masks[bs][flip][wedge][(size_t)i * w + j] = (uint8_t)m;
+              masks[bs][!flip][wedge][(size_t)i * w + j] = (uint8_t)(64 - m);
+            }
+        }
+      }
+    });
+    return masks[bsize][sign][index].data();
+  }
+
+  // overlapped motion compensation (7.11.3.10): the above and left
+  // neighbours' predictions blended into the block's edges
+  void obmc(int plane, int w, int h) {
+    int sx = plane ? d.ssx : 0, sy = plane ? d.ssy : 0;
+    auto& P = d.cur[plane];
+    int32_t* pred = preds[1];
+    if (avail_u && kSsSize[mi_sz][sx][sy] >= BLOCK_8X8) {
+      int n = 0, limit = std::min(4, (int)kMiWLog2[mi_sz]);
+      for (int x4 = mi_col; n < limit && x4 < std::min(d.mi_cols, mi_col + bw4);) {
+        int cand_row = mi_row - 1, cand_col = x4 | 1;
+        int step = clip3(2, 16, (int)kNum4x4W[d.MI(d.mi_size, cand_row, cand_col)]);
+        if (RF(cand_row, cand_col, 0) > INTRA_FRAME) {
+          ++n;
+          int pw = std::min(w, (step * 4) >> sx);
+          int ph = std::min(h >> 1, 32 >> sy);
+          overlap(plane, cand_row, cand_col, x4, mi_row, pw, ph, pred);
+          const uint8_t* mask = g_tab.obmc_mask + ph;
+          int px = (x4 * 4) >> sx, py = (mi_row * 4) >> sy;
+          for (int i = 0; i < ph; ++i)
+            for (int j = 0; j < pw; ++j) {
+              Pixel& v = P.at(px + j, py + i);
+              v = (Pixel)round2(mask[i] * v + (64 - mask[i]) * pred[i * pw + j], 6);
+            }
+        }
+        x4 += step;
+      }
+    }
+    if (avail_l) {
+      int n = 0, limit = std::min(4, (int)kMiHLog2[mi_sz]);
+      for (int y4 = mi_row; n < limit && y4 < std::min(d.mi_rows, mi_row + bh4);) {
+        int cand_col = mi_col - 1, cand_row = y4 | 1;
+        int step = clip3(2, 16, (int)kNum4x4H[d.MI(d.mi_size, cand_row, cand_col)]);
+        if (RF(cand_row, cand_col, 0) > INTRA_FRAME) {
+          ++n;
+          int pw = std::min(w >> 1, 32 >> sx);
+          int ph = std::min(h, (step * 4) >> sy);
+          overlap(plane, cand_row, cand_col, mi_col, y4, pw, ph, pred);
+          const uint8_t* mask = g_tab.obmc_mask + pw;
+          int px = (mi_col * 4) >> sx, py = (y4 * 4) >> sy;
+          for (int i = 0; i < ph; ++i)
+            for (int j = 0; j < pw; ++j) {
+              Pixel& v = P.at(px + j, py + i);
+              v = (Pixel)round2(mask[j] * v + (64 - mask[j]) * pred[i * pw + j], 6);
+            }
+        }
+        y4 += step;
+      }
+    }
+  }
+
+  // predict_overlap: the neighbour's prediction over the block's edge
+  void overlap(int plane, int cand_row, int cand_col, int x4, int y4, int w,
+               int h, int32_t* out) {
+    int sx = plane ? d.ssx : 0, sy = plane ? d.ssy : 0;
+    int ref = RF(cand_row, cand_col, 0);
+    const int32_t* mvp = MV4(cand_row, cand_col, 0);
+    int mv[2] = {mvp[0], mvp[1]};
+    int px = (x4 * 4) >> sx, py = (y4 * 4) >> sy;
+    int x0, y0, stx, sty;
+    mv_scaling(plane, ref, px, py, mv, x0, y0, stx, sty);
+    block_inter(ref, plane, x0, y0, stx, sty, w, h, cand_row, cand_col,
+                round1(), out);
+    for (int i = 0; i < w * h; ++i) out[i] = d.clip1(out[i]);
+  }
+
+  // compute_prediction of an inter frame's inter block: interintra's intra
+  // prediction first, then each plane's inter prediction (a chroma block
+  // that covers several small luma blocks takes each one's vector, unless
+  // one of them is intra), then OBMC
+  void predict_inter_block() {
+    int sb_mask = d.seq.sb128 ? 31 : 15;
+    int sub_r = mi_row & sb_mask, sub_c = mi_col & sb_mask;
+    local_valid = motion_mode == LOCALWARP && warp_estimation();
+    n_tool[TOOL_WARP_INVALID] += motion_mode == LOCALWARP && !local_valid;
+    for (int p = 0; p < 1 + 2 * has_chroma; ++p) {
+      int sx = p ? d.ssx : 0, sy = p ? d.ssy : 0;
+      int psz = kSsSize[mi_sz][sx][sy];
+      int n4w = kNum4x4W[psz], n4h = kNum4x4H[psz];
+      int base_x = (mi_col >> sx) * 4, base_y = (mi_row >> sy) * 4;
+      int cand_row = (mi_row >> sy) << sy, cand_col = (mi_col >> sx) << sx;
+      if (interintra) {
+        static const int kIiMode[4] = {DC_PRED, V_PRED, H_PRED, SMOOTH_PRED};
+        int have_ar = bd(p, (sub_r >> sy) - 1, (sub_c >> sx) + n4w);
+        int have_bl = bd(p, (sub_r >> sy) + n4h, (sub_c >> sx) - 1);
+        predict_intra(p, base_x, base_y, p == 0 ? avail_l : avail_l_chroma,
+                      p == 0 ? avail_u : avail_u_chroma, have_ar, have_bl,
+                      kIiMode[interintra_mode], kMiWLog2[psz] + 2,
+                      kMiHLog2[psz] + 2);
+      }
+      int pred_w = bw4 * 4 >> sx, pred_h = bh4 * 4 >> sy;
+      // (a block that crosses the frame's edge: the MIs past it are those
+      // of the blocks at its last row and column)
+      int some_intra = 0;
+      for (int r = 0; r < (n4h << sy); ++r)
+        for (int c = 0; c < (n4w << sx); ++c)
+          if (RF(std::min(cand_row + r, d.mi_rows - 1),
+                 std::min(cand_col + c, d.mi_cols - 1), 0) == INTRA_FRAME)
+            some_intra = 1;
+      if (some_intra) {
+        pred_w = n4w * 4;
+        pred_h = n4h * 4;
+        cand_row = mi_row;
+        cand_col = mi_col;
+      }
+      int r = 0;
+      for (int y = 0; y < n4h * 4; y += pred_h, ++r) {
+        int c = 0;
+        for (int x = 0; x < n4w * 4; x += pred_w, ++c)
+          predict_inter(p, base_x + x, base_y + y, pred_w, pred_h,
+                        cand_row + r, cand_col + c);
+      }
+      if (motion_mode == OBMC) obmc(p, n4w * 4, n4h * 4);
+    }
+  }
+
   // -- tx size -------------------------------------------------------------
   int get_above_tx_width(int row, int col) {
     if (row == mi_row) {
@@ -2527,7 +4510,10 @@ struct Tile {
     } else {
       avail_u_chroma = avail_l_chroma = 0;
     }
-    intra_frame_mode_info();
+    if (fh.inter)
+      inter_frame_mode_info();
+    else
+      intra_frame_mode_info();
     if (pal_size_y || pal_size_uv) palette_tokens();
     read_block_tx_size();
     if (skip) reset_block_context();
@@ -2546,11 +4532,52 @@ struct Tile {
           d.mvs[2 * i] = (int16_t)(is_inter ? mv[0] : 0);
           d.mvs[2 * i + 1] = (int16_t)(is_inter ? mv[1] : 0);
         }
+        if (fh.inter) {
+          d.ref_frames[i * 2] = (int8_t)ref_frame[0];
+          d.ref_frames[i * 2 + 1] = (int8_t)ref_frame[1];
+          d.mvs4[i * 4] = bmv[0][0];
+          d.mvs4[i * 4 + 1] = bmv[0][1];
+          d.mvs4[i * 4 + 2] = bmv[1][0];
+          d.mvs4[i * 4 + 3] = bmv[1][1];
+          d.interp[i * 2] = (uint8_t)interp_filter[0];
+          d.interp[i * 2 + 1] = (uint8_t)interp_filter[1];
+          d.skip_modes[i] = (uint8_t)skip_mode;
+          d.seg_preds[i] = (uint8_t)seg_id_predicted;
+          d.comp_groups[i] = (uint8_t)comp_group_idx;
+          d.comp_idxs[i] = (uint8_t)compound_idx;
+        }
       }
     if (fh.allow_sct) store_palette();
     n_palette += pal_size_y || pal_size_uv;
     n_intrabc += use_intrabc;
-    if (is_inter) compute_prediction();
+    if (fh.inter) {
+      n_tool[TOOL_INTER] += is_inter;
+      n_tool[TOOL_INTRA_IN_INTER] += !is_inter;
+      n_tool[TOOL_SEG_TEMPORAL] += seg_id_predicted;
+      if (is_inter) {
+        n_tool[TOOL_NEWMV] += y_mode == NEWMV;
+        n_tool[TOOL_GLOBALMV] += y_mode == GLOBALMV;
+        n_tool[TOOL_SCALED] += is_scaled(ref_frame[0]);
+        n_tool[TOOL_SWITCHABLE] += fh.interp_filter == 4;
+        n_tool[TOOL_DUAL_FILTER] += interp_filter[0] != interp_filter[1];
+        n_tool[TOOL_OBMC] += motion_mode == OBMC;
+        n_tool[TOOL_INTERINTRA] += interintra;
+        n_tool[TOOL_WEDGE_INTERINTRA] += interintra && wedge_interintra;
+        n_tool[TOOL_COMPOUND] += is_compound;
+        n_tool[TOOL_SKIP_MODE] += skip_mode;
+        if (is_compound) {
+          n_tool[TOOL_COMPOUND_DISTANCE] += compound_type == COMPOUND_DISTANCE;
+          n_tool[TOOL_COMPOUND_WEDGE] += compound_type == COMPOUND_WEDGE;
+          n_tool[TOOL_COMPOUND_DIFFWTD] += compound_type == COMPOUND_DIFFWTD;
+        }
+      }
+    }
+    if (is_inter) {
+      if (fh.inter)
+        predict_inter_block();
+      else
+        compute_prediction();
+    }
     residual();
   }
 
@@ -2877,7 +4904,7 @@ struct Tile {
       }
       cul_level = std::min(63, cul_level);
     }
-    if (plane == 0 && fh.allow_intrabc)
+    if (plane == 0 && (fh.allow_intrabc || fh.inter))
       for (int i = 0; i < h4 && y4 + i < max_y4; ++i)
         for (int j = 0; j < w4 && x4 + j < max_x4; ++j)
           d.MI(d.tx_types, y4 + i, x4 + j) = (uint8_t)tx_type;
@@ -3437,7 +5464,18 @@ struct LoopFilter {
       lvl = clip3(0, 63, lvl + fh.feature_data[segment][feature]);
     if (fh.lf_delta_enabled) {
       int nshift = lvl >> 5;
-      lvl = clip3(0, 63, lvl + fh.lf_ref_deltas[0] * (1 << nshift));
+      // an inter block's reference and mode deltas (7.14.4)
+      int ref = fh.inter ? d.ref_frames[i * 2] : INTRA_FRAME;
+      if (ref <= INTRA_FRAME) {
+        lvl += fh.lf_ref_deltas[INTRA_FRAME] * (1 << nshift);
+      } else {
+        int mode = d.y_modes[i];
+        int mode_type = mode >= NEARESTMV && mode != GLOBALMV &&
+                        mode != GLOBAL_GLOBALMV;
+        lvl += (fh.lf_ref_deltas[ref] + fh.lf_mode_deltas[mode_type]) *
+               (1 << nshift);
+      }
+      lvl = clip3(0, 63, lvl);
     }
     return lvl;
   }
@@ -3457,9 +5495,15 @@ struct LoopFilter {
     int ls = d.lf_tx_stride[plane];
     int txsz = lt[(size_t)(row >> sy) * ls + (col >> sx)];
     int prev_tx = lt[(size_t)(prev_row >> sy) * ls + (prev_col >> sx)];
-    // every transform edge of an intra block is filtered (the spec's
-    // skip and block-edge terms matter to inter blocks only)
     if (pass == 0 ? xp % kTxW[txsz] : yp % kTxH[txsz]) return;
+    // inside an inter block that codes no residual only the block's own
+    // edges are filtered
+    size_t mi = (size_t)row * d.mi_cols + col;
+    if (fh.inter && d.skips[mi] && d.is_inters[mi]) {
+      int psz = kSsSize[d.mi_size[mi]][sx][sy];
+      if (pass == 0 ? xp % (kNum4x4W[psz] * 4) : yp % (kNum4x4H[psz] * 4))
+        return;
+    }
     int base = pass == 0 ? std::min(kTxW[prev_tx], kTxW[txsz])
                          : std::min(kTxH[prev_tx], kTxH[txsz]);
     int filter_size = plane == 0 ? std::min(16, base) : std::min(8, base);
@@ -4018,6 +6062,10 @@ struct Result {
       transfer, allow_sct, allow_intrabc, palette_blocks, intrabc_blocks,
       filters, qmatrix, film_grain, superres_denom, spatial_id, shown_existing,
       frames;
+  // the output frame is an INTER or SWITCH frame; the frames decoded for
+  // it (itself included); the tools its decode met (ToolCounts)
+  int inter, decoded;
+  int tools[kNumTools];
 };
 
 struct TileJob {
@@ -4031,29 +6079,49 @@ struct TileJob {
 // returns at all_layers = 0, which libavif asks for (the highest spatial
 // layer of the operating point); or, at 0..3, the first picture of that
 // spatial layer (libavif's 'lsel')
-enum { kSelectFirst = -1, kSelectHighest = -2 };
+// ; or, at kSelectLast, the last frame shown in the temporal unit (every
+// frame of a stream that carries no temporal delimiters: for tests)
+enum { kSelectFirst = -1, kSelectHighest = -2, kSelectLast = -3 };
 
-// The headers and tiles of the stream's output frame
+// A frame of the temporal unit's walk: its header, layer and tiles, and
+// the frames in its reference slots (LAST_FRAME .. ALTREF_FRAME) when its
+// header was read
+struct FrameRec {
+  FrameHdr fh;
+  int spatial_id = 0;
+  int num_tiles = 0, tiles_done = 0;
+  std::vector<TileJob> jobs;
+  int refs[7] = {-1, -1, -1, -1, -1, -1, -1};
+};
+
+// The frames of the stream's first temporal unit, in decode order; the
+// output frame's headers; which frames it depends on (itself included)
 struct Stream {
   SeqHdr seq;
   FrameHdr fh;
   Result res{};
-  std::vector<TileJob> jobs;
+  std::vector<std::unique_ptr<FrameRec>> recs;
+  std::vector<char> needed;
+  int chosen = -1;
 };
 
 // the tiles' counts of palette and intrabc blocks
+// the tiles' counts of palette and intrabc blocks and of the inter tools
+// (the output frame's and those of the frames it depends on)
 struct ToolCounts {
   std::atomic<int> palette{0}, intrabc{0};
+  std::atomic<int> tools[kNumTools];
+  ToolCounts() {
+    for (auto& t : tools) t = 0;
+  }
 };
 
 template <typename Pixel>
 void decode_tile(Decoder<Pixel>& d, const TileJob& job, ToolCounts& counts) {
   const FrameHdr& fh = d.fh;
-  int qctx = fh.base_q_idx <= 20 ? 0 : fh.base_q_idx <= 60 ? 1
-             : fh.base_q_idx <= 120 ? 2 : 3;
   int tr = job.t / fh.tile_cols, tc = job.t % fh.tile_cols;
   std::unique_ptr<Tile<Pixel>> tile(new Tile<Pixel>(d));
-  tile->cdf = g_tab.cdf[qctx];
+  tile->cdf = d.init_cdf;
   tile->mi_row_start = fh.mi_row_starts[tr];
   tile->mi_row_end = fh.mi_row_starts[tr + 1];
   tile->mi_col_start = fh.mi_col_starts[tc];
@@ -4061,8 +6129,11 @@ void decode_tile(Decoder<Pixel>& d, const TileJob& job, ToolCounts& counts) {
   tile->current_q = fh.base_q_idx;
   tile->ms.init(job.p, job.n, fh.disable_cdf_update);
   tile->decode();
+  if (job.t == fh.context_update_tile_id) d.end_cdf = tile->cdf;
   counts.palette += tile->n_palette;
   counts.intrabc += tile->n_intrabc;
+  for (int i = 0; i < kNumTools; ++i) counts.tools[i] += tile->n_tool[i];
+  counts.tools[TOOL_TEMPORAL_MV] += tile->n_temporal;
 }
 
 // Tiles share no state but the frame's arrays, each writing its own
@@ -4090,44 +6161,41 @@ void decode_tiles(Decoder<Pixel>& d, const std::vector<TileJob>& jobs,
     if (codes[i] != IK_AV1D_OK) throw Fail{codes[i], whys[i]};
 }
 
-// A frame of the temporal unit's walk: its header, layer and tiles
-struct FrameRec {
-  FrameHdr fh;
-  int spatial_id = 0;
-  int num_tiles = 0, tiles_done = 0;
-  std::vector<TileJob> jobs;
-};
-
 // Walks the stream's first temporal unit as libdav1d does at operating
 // point `op` (the sequence header's first where it has no such point):
 // the OBUs of the layers the point leaves out are dropped, by their
 // extension's temporal_id and spatial_id (dav1d_parse_obus); each frame
-// header is read and its slots refreshed (the reference frame update
-// process, spec 7.20), a frame shown from a slot (show_existing_frame)
-// is the frame stored there, and a KEY_FRAME shown so refreshes every
-// slot (the frame loading process, spec 7.21). The output frame is the
-// one `select` names (kSelectFirst, kSelectHighest, or a spatial layer):
-// libdav1d returns, at all_layers = 0, the first shown frame of the
-// point's highest spatial layer, else the last frame shown before the
-// temporal unit ends. Its headers, and its tiles where `tiles` is set,
-// land in `st`. The OBUs after it are only split: one that runs past the
-// data fails the stream, as in libdav1d. Intra frames depend on no other frame, so only the output
-// frame is decoded; an INTER or SWITCH output frame is not ported.
+// header is read against the frames in its slots, which the reference
+// frame update process (spec 7.20) refreshes; a frame shown from a slot
+// (show_existing_frame) is the frame stored there, and a KEY_FRAME shown
+// so refreshes every slot (the frame loading process, spec 7.21). The
+// output frame is the one `select` names (kSelectFirst, kSelectHighest,
+// or a spatial layer): libdav1d returns, at all_layers = 0, the first
+// shown frame of the point's highest spatial layer, else the last frame
+// shown before the temporal unit ends. The frames it depends on are its
+// references, theirs, and so on: those, and no others, are decoded
+// (`st.needed`). Their headers, and their tiles where `tiles` is set,
+// land in `st`. The OBUs after the output frame are only split: one that
+// runs past the data fails the stream, as in libdav1d.
 void parse_stream(const uint8_t* data, size_t n, Stream& st, bool tiles,
                   int select = kSelectFirst, int op = 0) {
   const uint8_t* p = data;
   const uint8_t* end = data + n;
   bool have_seq = false, any_frame = false, shown_existing = false;
   int op_idc = 0, max_sid = 0;
-  std::vector<std::unique_ptr<FrameRec>> recs;
+  std::vector<std::unique_ptr<FrameRec>>& recs = st.recs;
   int slot[8];
   std::fill(slot, slot + 8, -1);
   int cur = -1;        // the frame whose tile groups come next
   int chosen = -1;     // the output frame, once known
   int candidate = -1;  // kSelectHighest: the last frame shown
-  bool skipping = false;  // the tile groups of an INTER frame
   // a frame shown: true once it settles the output
   auto shown = [&](int k, bool existing) {
+    if (select == kSelectLast) {
+      candidate = k;
+      shown_existing = existing;
+      return false;
+    }
     int sid = recs[k]->spatial_id;
     bool first = select == kSelectFirst ||
                  (select == kSelectHighest && max_sid == 0);
@@ -4145,7 +6213,7 @@ void parse_stream(const uint8_t* data, size_t n, Stream& st, bool tiles,
   auto settled = [&]() {
     if (chosen < 0) return false;
     const FrameRec& r = *recs[chosen];
-    return !tiles || r.fh.inter || r.tiles_done == r.num_tiles;
+    return !tiles || r.tiles_done == r.num_tiles;
   };
   Obu o;
   while (!settled() && next_obu(p, end, o)) {
@@ -4169,10 +6237,9 @@ void parse_stream(const uint8_t* data, size_t n, Stream& st, bool tiles,
          !((op_idc >> (o.spatial_id + 8)) & 1)))
       continue;  // a layer the operating point leaves out
     if (o.type == 3 || o.type == 6 || o.type == 7) {  // frame (header)
-      if (cur >= 0 || skipping) {
-        if (o.type != 6 && !skipping) continue;  // a copy of the header
-        if (!skipping) bad("a frame before its last tile group");
-        skipping = false;
+      if (cur >= 0) {
+        if (o.type != 6) continue;  // a copy of the header
+        bad("a frame before its last tile group");
       }
       if (o.type == 7) continue;  // a redundant header of no frame
       if (!have_seq) bad("frame before any sequence header");
@@ -4187,9 +6254,8 @@ void parse_stream(const uint8_t* data, size_t n, Stream& st, bool tiles,
         int k = slot[idx];
         if (k < 0) bad("a frame shown from an empty slot");
         const FrameRec& r = *recs[k];
-        if (!r.fh.inter && r.tiles_done != r.num_tiles && tiles)
-          bad("missing tiles");
-        if (!r.fh.inter && r.fh.frame_type == 0)
+        if (r.tiles_done != r.num_tiles && tiles) bad("missing tiles");
+        if (r.fh.frame_type == 0)
           std::fill(slot, slot + 8, k);  // a KEY_FRAME refreshes every slot
         shown(k, true);
         continue;
@@ -4199,14 +6265,16 @@ void parse_stream(const uint8_t* data, size_t n, Stream& st, bool tiles,
       int k = (int)recs.size() - 1;
       FrameRec& r = *recs[k];
       r.spatial_id = o.spatial_id;
-      parse_frame_header(b, st.seq, r.fh, o.temporal_id, o.spatial_id);
+      const FrameHdr* slot_hdr[8];
+      for (int i = 0; i < 8; ++i)
+        slot_hdr[i] = slot[i] < 0 ? nullptr : &recs[slot[i]]->fh;
+      parse_frame_header(b, st.seq, r.fh, o.temporal_id, o.spatial_id,
+                         slot_hdr);
+      if (r.fh.inter)
+        for (int i = 0; i < 7; ++i) r.refs[i] = slot[r.fh.ref_frame_idx[i]];
       for (int i = 0; i < 8; ++i)
         if ((r.fh.refresh >> i) & 1) slot[i] = k;
       if (r.fh.show_frame) shown(k, false);
-      if (r.fh.inter) {
-        skipping = true;  // its tile groups are inter prediction's
-        continue;
-      }
       if (tiles &&
           (size_t)r.fh.upscaled_width * r.fh.height > ((size_t)1 << 28))
         bad("frame too large");
@@ -4221,7 +6289,6 @@ void parse_stream(const uint8_t* data, size_t n, Stream& st, bool tiles,
       o.type = 4;
     }
     if (o.type == 4) {  // tile group
-      if (skipping) continue;
       if (cur < 0) bad("tile group before its frame header");
       FrameRec& r = *recs[cur];
       Bits b{o.p, o.n, 0};
@@ -4269,13 +6336,20 @@ void parse_stream(const uint8_t* data, size_t n, Stream& st, bool tiles,
     bad(select >= 0 ? "no shown frame of the selected spatial layer"
                     : "no shown frame in the temporal unit");
   }
+  // the frames the output depends on: its references, transitively (each
+  // earlier in decode order)
+  st.needed.assign(recs.size(), 0);
+  st.needed[chosen] = 1;
+  for (int k = chosen; k >= 0; --k) {
+    if (!st.needed[k]) continue;
+    const FrameRec& r = *recs[k];
+    if (tiles && r.tiles_done != r.num_tiles) bad("missing tiles");
+    for (int i = 0; i < 7; ++i)
+      if (r.refs[i] >= 0) st.needed[r.refs[i]] = 1;
+  }
+  st.chosen = chosen;
   FrameRec& r = *recs[chosen];
-  if (r.fh.inter)
-    not_ported("an inter frame as the output frame (inter prediction: "
-               "queue 1 item 12)");
-  if (tiles && r.tiles_done != r.num_tiles) bad("missing tiles");
   st.fh = r.fh;
-  st.jobs = std::move(r.jobs);
   Result& res = st.res;
   res.width = st.fh.upscaled_width;
   res.superres_denom = st.fh.superres_denom;
@@ -4299,6 +6373,8 @@ void parse_stream(const uint8_t* data, size_t n, Stream& st, bool tiles,
   res.spatial_id = r.spatial_id;
   res.shown_existing = shown_existing;
   res.frames = (int)recs.size();
+  res.inter = st.fh.inter;
+  for (size_t k = 0; k < recs.size(); ++k) res.decoded += st.needed[k];
 }
 
 // ---------------------------------------------------------------------------
@@ -4638,49 +6714,197 @@ inline bool grain_applies(const FilmGrain& g) {
   return g.apply && (g.num[0] || g.num[1] || g.num[2]);
 }
 
-// Decodes the stream's first frame into the caller's planes: samples of
-// type Pixel, strides in samples.
+// The motion field estimation process (7.9): the vectors the references'
+// frames kept (MfMvs) projected onto this frame, per 8x8, as libaom keeps
+// them (the vector and its own reference's distance; a later projection
+// overwrites an earlier one). LAST_FRAME unless it is an overlay of
+// GOLDEN_FRAME, the backward references, then LAST2_FRAME while fewer
+// than three have been projected.
 template <typename Pixel>
-void decode_frame(Stream& st, Pixel* y, int ystride, Pixel* u, Pixel* v,
-                  int cstride, bool apply_grain) {
+void motion_field(Decoder<Pixel>& d) {
+  const FrameHdr& fh = d.fh;
+  const SeqHdr& s = d.seq;
+  int w8 = d.mi_cols >> 1, h8 = d.mi_rows >> 1;
+  d.tpl_mv.assign((size_t)w8 * h8 * 2, 0);
+  d.tpl_off.assign((size_t)w8 * h8, 0);
+  auto project = [&](int src, int dir) -> bool {
+    const RefPic<Pixel>& R = *d.refs[src];
+    if (R.mf_ref.empty() || R.mi_rows != d.mi_rows || R.mi_cols != d.mi_cols)
+      return false;
+    int to_cur = get_relative_dist(s, R.fh.order_hint, fh.order_hint);
+    if (dir == 2) to_cur = -to_cur;
+    int ref_offset[8] = {0};
+    for (int rf = LAST_FRAME; rf <= ALTREF_FRAME; ++rf)
+      ref_offset[rf] =
+          get_relative_dist(s, R.fh.order_hint, R.fh.order_hints[rf]);
+    for (int y8 = 0; y8 < h8; ++y8)
+      for (int x8 = 0; x8 < w8; ++x8) {
+        size_t mi = (size_t)(2 * y8 + 1) * d.mi_cols + 2 * x8 + 1;
+        int rf = R.mf_ref[mi];
+        if (rf <= INTRA_FRAME) continue;
+        int off = ref_offset[rf];
+        if (off <= 0 || off > 31 || std::abs(to_cur) > 31) continue;
+        const int32_t* mv = &R.mf_mv[mi * 2];
+        int proj[2];
+        mv_projection(mv, to_cur, off, proj);
+        int ro = proj[0] >= 0 ? proj[0] >> 6 : -((-proj[0]) >> 6);
+        int co = proj[1] >= 0 ? proj[1] >> 6 : -((-proj[1]) >> 6);
+        int row = dir == 2 ? y8 - ro : y8 + ro;
+        int col = dir == 2 ? x8 - co : x8 + co;
+        int base_r = (y8 >> 3) << 3, base_c = (x8 >> 3) << 3;
+        if (row < 0 || row >= h8 || col < 0 || col >= w8) continue;
+        if (row < base_r || row >= base_r + 8 || col < base_c - 8 ||
+            col >= base_c + 16)
+          continue;
+        size_t at = (size_t)row * w8 + col;
+        d.tpl_mv[at * 2] = mv[0];
+        d.tpl_mv[at * 2 + 1] = mv[1];
+        d.tpl_off[at] = (int8_t)off;
+      }
+    return true;
+  };
+  int stamp = 2;
+  if (d.refs[LAST_FRAME]->fh.order_hints[ALTREF_FRAME] !=
+      fh.order_hints[GOLDEN_FRAME])
+    project(LAST_FRAME, 2);
+  --stamp;
+  auto ahead = [&](int rf) {
+    return get_relative_dist(s, fh.order_hints[rf], fh.order_hint) > 0;
+  };
+  if (ahead(BWDREF_FRAME) && project(BWDREF_FRAME, 0)) --stamp;
+  if (ahead(ALTREF2_FRAME) && project(ALTREF2_FRAME, 0)) --stamp;
+  if (ahead(ALTREF_FRAME) && stamp >= 0 && project(ALTREF_FRAME, 0)) --stamp;
+  if (stamp >= 0) project(LAST2_FRAME, 2);
+}
+
+// Decodes frame k of the walk (its references decoded before it, in
+// `pics`) into the picture its slots keep: the tiles from the frame's
+// starting CDFs (the defaults of its q context, or the primary
+// reference's), then the in-loop filters; then its frame-end CDFs,
+// segment ids and the vectors later frames project (7.19).
+template <typename Pixel>
+std::shared_ptr<RefPic<Pixel>> decode_one(
+    Stream& st, int k, std::vector<std::shared_ptr<RefPic<Pixel>>>& pics,
+    ToolCounts& counts) {
+  const FrameRec& r = *st.recs[k];
   std::unique_ptr<Decoder<Pixel>> dp(new Decoder<Pixel>());
   Decoder<Pixel>& d = *dp;
   d.seq = st.seq;
-  d.fh = st.fh;
+  d.fh = r.fh;
+  const FrameHdr& fh = d.fh;
   d.alloc();
   for (int pl = 0; pl < d.planes; ++pl) {
     int sx = pl ? d.ssx : 0, sy = pl ? d.ssy : 0;
-    if (d.fh.lr_type[pl] != RESTORE_NONE) {
-      int unit = d.fh.lr_size[pl];
-      d.lr_rows[pl] = count_units(unit, round2(d.fh.height, sy));
-      d.lr_cols[pl] = count_units(unit, round2(d.fh.upscaled_width, sx));
+    if (fh.lr_type[pl] != RESTORE_NONE) {
+      int unit = fh.lr_size[pl];
+      d.lr_rows[pl] = count_units(unit, round2(fh.height, sy));
+      d.lr_cols[pl] = count_units(unit, round2(fh.upscaled_width, sx));
       d.lr[pl].assign((size_t)d.lr_rows[pl] * d.lr_cols[pl], LrUnit{});
     }
   }
+  if (fh.inter)
+    for (int i = 0; i < 7; ++i) {
+      const RefPic<Pixel>* ref = pics[r.refs[i]].get();
+      if (!ref) bad("a reference frame is not decoded");
+      d.refs[LAST_FRAME + i] = ref;
+      d.x_scale[LAST_FRAME + i] =
+          ((ref->fh.upscaled_width << 14) + fh.width / 2) / fh.width;
+      d.y_scale[LAST_FRAME + i] =
+          ((ref->fh.height << 14) + fh.height / 2) / fh.height;
+    }
+  const RefPic<Pixel>* prev =
+      fh.primary_ref_frame == PRIMARY_REF_NONE
+          ? nullptr
+          : d.refs[LAST_FRAME + fh.primary_ref_frame];
+  if (prev) {
+    d.init_cdf = prev->cdf;
+  } else {
+    int qctx = fh.base_q_idx <= 20 ? 0 : fh.base_q_idx <= 60 ? 1
+               : fh.base_q_idx <= 120 ? 2 : 3;
+    d.init_cdf = g_tab.cdf[qctx];
+  }
+  d.end_cdf = d.init_cdf;
+  if (prev && fh.seg_enabled && prev->mi_rows == d.mi_rows &&
+      prev->mi_cols == d.mi_cols)
+    d.prev_seg_ids = prev->seg_ids;
+  if (fh.use_ref_frame_mvs) motion_field(d);
+  decode_tiles(d, r.jobs, counts);
+  postfilter(d);
+  std::shared_ptr<RefPic<Pixel>> pic(new RefPic<Pixel>());
+  pic->fh = fh;
+  for (int p = 0; p < d.planes; ++p) pic->planes[p] = std::move(d.cur[p]);
+  pic->cdf = fh.disable_frame_end_update_cdf ? d.init_cdf : d.end_cdf;
+  clear_counters(pic->cdf);
+  pic->mi_rows = d.mi_rows;
+  pic->mi_cols = d.mi_cols;
+  if (fh.seg_enabled)
+    pic->seg_ids = fh.seg_update_map ? std::move(d.seg_ids) : d.prev_seg_ids;
+  if (fh.inter) {
+    size_t n = (size_t)d.mi_rows * d.mi_cols;
+    pic->mf_ref.assign(n, NONE_FRAME);
+    pic->mf_mv.assign(n * 2, 0);
+    for (size_t i = 0; i < n; ++i)
+      for (int list = 0; list < 2; ++list) {
+        int rf = d.ref_frames[i * 2 + list];
+        if (rf <= INTRA_FRAME) continue;
+        if (get_relative_dist(d.seq, fh.order_hints[rf], fh.order_hint) >= 0)
+          continue;
+        int mr = d.mvs4[i * 4 + list * 2], mc = d.mvs4[i * 4 + list * 2 + 1];
+        if (std::abs(mr) > 4095 || std::abs(mc) > 4095) continue;
+        pic->mf_ref[i] = (int8_t)rf;
+        pic->mf_mv[i * 2] = mr;
+        pic->mf_mv[i * 2 + 1] = mc;
+      }
+  }
+  return pic;
+}
+
+// Decodes the stream's output frame into the caller's planes (samples of
+// type Pixel, strides in samples): the frames it depends on first, in
+// decode order, each kept while a later one may reference it.
+template <typename Pixel>
+void decode_frame(Stream& st, Pixel* y, int ystride, Pixel* u, Pixel* v,
+                  int cstride, bool apply_grain) {
+  int n = (int)st.recs.size();
+  std::vector<std::shared_ptr<RefPic<Pixel>>> pics(n);
+  // the last needed frame that references each one
+  std::vector<int> last_use(n, -1);
+  for (int k = 0; k < n; ++k)
+    if (st.needed[k])
+      for (int i = 0; i < 7; ++i)
+        if (st.recs[k]->refs[i] >= 0) last_use[st.recs[k]->refs[i]] = k;
   ToolCounts counts;
-  decode_tiles(d, st.jobs, counts);
+  for (int k = 0; k <= st.chosen; ++k) {
+    if (!st.needed[k]) continue;
+    pics[k] = decode_one<Pixel>(st, k, pics, counts);
+    for (int j = 0; j < k; ++j)
+      if (pics[j] && last_use[j] <= k && j != st.chosen) pics[j].reset();
+  }
   st.res.palette_blocks = counts.palette;
   st.res.intrabc_blocks = counts.intrabc;
-  postfilter(d);
-  int w = d.fh.upscaled_width, h = d.fh.height;
-  if (apply_grain && grain_applies(d.fh.grain)) {
-    std::unique_ptr<GrainSynth> gs(
-        new GrainSynth(d.fh.grain, d.bitdepth, d.ssx, d.ssy, d.planes, w, h,
-                       d.seq.matrix));
-    Pixel* out[3] = {y, u, v};
+  for (int i = 0; i < kNumTools; ++i) st.res.tools[i] = counts.tools[i];
+  RefPic<Pixel>& out = *pics[st.chosen];
+  const FrameHdr& fh = out.fh;
+  int planes = st.seq.mono ? 1 : 3, ssx = st.seq.ssx, ssy = st.seq.ssy;
+  int w = fh.upscaled_width, h = fh.height;
+  Plane<Pixel>* cur = out.planes;
+  if (apply_grain && grain_applies(fh.grain)) {
+    std::unique_ptr<GrainSynth> gs(new GrainSynth(
+        fh.grain, st.seq.bitdepth, ssx, ssy, planes, w, h, st.seq.matrix));
+    Pixel* outp[3] = {y, u, v};
     int ostride[3] = {ystride, cstride, cstride};
     int stripes = ((h + 1) / 2 + 15) / 16;
     parallel_for(stripes,
-                 [&](int i) { gs->add_noise(i, d.cur, out, ostride); });
+                 [&](int i) { gs->add_noise(i, cur, outp, ostride); });
     return;
   }
   for (int i = 0; i < h; ++i)
-    memcpy(y + (size_t)i * ystride, d.cur[0].row(i), w * sizeof(Pixel));
-  if (!d.seq.mono) {
-    int cw = (w + d.ssx) >> d.ssx, ch = (h + d.ssy) >> d.ssy;
+    memcpy(y + (size_t)i * ystride, cur[0].row(i), w * sizeof(Pixel));
+  if (!st.seq.mono) {
+    int cw = (w + ssx) >> ssx, ch = (h + ssy) >> ssy;
     for (int i = 0; i < ch; ++i) {
-      memcpy(u + (size_t)i * cstride, d.cur[1].row(i), cw * sizeof(Pixel));
-      memcpy(v + (size_t)i * cstride, d.cur[2].row(i), cw * sizeof(Pixel));
+      memcpy(u + (size_t)i * cstride, cur[1].row(i), cw * sizeof(Pixel));
+      memcpy(v + (size_t)i * cstride, cur[2].row(i), cw * sizeof(Pixel));
     }
   }
 }
@@ -4706,6 +6930,11 @@ struct IkAv1dInfo {
   // the output frame's spatial_id, whether it was shown from a slot
   // (show_existing_frame), and the frames read before it was known
   int32_t spatial_id, shown_existing, frames;
+  // the output frame is an INTER or SWITCH frame; the frames decoded for
+  // it; after a decode, the blocks of those frames that used each inter
+  // tool (TOOL_*)
+  int32_t inter, decoded;
+  int32_t tools[kNumTools];
   char reason[120];
 };
 
@@ -4738,6 +6967,9 @@ static void fill(const Result& r, IkAv1dInfo* info) {
   info->spatial_id = r.spatial_id;
   info->shown_existing = r.shown_existing;
   info->frames = r.frames;
+  info->inter = r.inter;
+  info->decoded = r.decoded;
+  for (int i = 0; i < kNumTools; ++i) info->tools[i] = r.tools[i];
 }
 
 IK_EXPORT int ik_av1d_tables_size() { return (int)sizeof(Tables); }
@@ -4763,7 +6995,7 @@ IK_EXPORT int ik_av1d_probe(const uint8_t* data, size_t n, int select, int op,
                             IkAv1dInfo* info) {
   memset(info, 0, sizeof(*info));
   try {
-    if (select < kSelectHighest || select > 3 || op < 0 || op > 31)
+    if (select < kSelectLast || select > 3 || op < 0 || op > 31)
       bad("frame selection");
     Stream st;
     parse_stream(data, n, st, false, select, op);
@@ -4791,7 +7023,7 @@ IK_EXPORT int ik_av1d_decode(const uint8_t* data, size_t n, int bitdepth,
                              IkAv1dInfo* info) {
   memset(info, 0, sizeof(*info));
   if (!g_ready) return IK_AV1D_NO_TABLES;
-  if (select < kSelectHighest || select > 3 || op < 0 || op > 31)
+  if (select < kSelectLast || select > 3 || op < 0 || op > 31)
     return finish(Fail{IK_AV1D_BAD, "frame selection"}, info);
   try {
     Stream st;

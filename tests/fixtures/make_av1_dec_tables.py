@@ -1,6 +1,6 @@
 """Write ``imagekit_tpu_torch/codecs/av1_dec_tables.npz``: the AV1 default
-tables that an intra frame's decoder needs beyond the encoder's
-``av1_tables.npz``.
+tables that the decoder of intra and inter frames needs beyond the
+encoder's ``av1_tables.npz``.
 
 The tables are the AV1 specification's constants. No copy of the
 specification or of any codec's sources is at hand, so each table below
@@ -87,6 +87,34 @@ counter]`` (N + 1 entries, the layout of ``av1_tables.npz``):
   +128 of the first) and whole in SVT-AV1's (int16). Each row must sum
   to 128 and row 64 - k be row k reversed.
 
+- inter frames' CDFs: ``y_mode`` (4 size groups, 13 symbols),
+  ``is_inter``, ``seg_pred``, ``single_ref`` (3 contexts x p1..p6),
+  ``new_mv``, ``zero_mv``, ``ref_mv``, ``drl_mode``, ``interp_filter``
+  (16 contexts, 3 symbols), ``motion_mode`` and ``use_obmc`` (22 block
+  sizes), ``interintra`` and ``interintra_mode`` (4 size groups, the
+  first unused: libdav1d keeps no record of it, so it is left out of the
+  search; libdav1d holds the first two entries of each other record),
+  ``wedge_interintra`` and ``wedge_index`` (22 sizes), the vector CDFs
+  MV_INTRABC_CONTEXT does not read (``mv_class0_fr``, ``mv_fr``,
+  ``mv_class0_hp``, ``mv_hp``), and compound prediction's ``skip_mode``,
+  ``comp_mode``, ``comp_ref_type``, ``uni_comp_ref``, ``comp_ref``,
+  ``comp_bwd_ref``, ``compound_mode`` (8 contexts, 8 symbols),
+  ``comp_group_idx``, ``compound_idx`` and ``compound_type``. Tables of one
+  record a block size (or context) whose order or layout differs in a
+  library (libdav1d orders block sizes from the largest down) are found
+  record by record (``BY_RECORD``).
+- inter prediction's constants, read from libaom by the specification's
+  first entries and found in a second library (:func:`inter_tables`):
+  ``subpel_filters`` (Subpel_Filters, 6 x 16 x 8: REGULAR, SMOOTH, SHARP,
+  BILINEAR and the 4-tap REGULAR and SMOOTH; in SVT-AV1, or halved in
+  libdav1d), ``warped_filters`` (193 x 8, libdav1d's int8 copy),
+  ``div_lut`` (257), ``obmc_masks`` (Obmc_Mask_2 .. 32 at [N, 2N);
+  libaom from the longest down, libdav1d 64 less each), ``wedge_master``
+  (the oblique even and odd and the vertical master rows), the three
+  ``wedge_codebook`` tables (blocks taller than wide, wider, square),
+  ``ii_weights`` (Ii_Weights_1d, 128) and ``quant_dist_weight`` /
+  ``quant_dist_lookup`` (the distance weights' tables).
+
 Run from the repository root: ``python tests/fixtures/make_av1_dec_tables.py``.
 """
 
@@ -104,6 +132,9 @@ LIBS = {
     "rav1e": "/lib/x86_64-linux-gnu/librav1e.so.0",
     "svt": "/lib/x86_64-linux-gnu/libSvtAv1Enc.so.1",
 }
+
+# a uniform CDF of 16 symbols (the wedge index of a size with no wedges)
+_U16 = [2048 * i for i in range(1, 16)]
 
 # The specification's CDFs (cdf form, the last entry 32768 left out).
 CDFS = {
@@ -230,6 +261,93 @@ CDFS = {
     "inter_tx2": [770, 2421, 5225, 12907, 15819, 18927, 21561, 24089, 26595,
                   28526, 30529],
     "inter_tx3": [[16384], [4167], [1998], [748]],
+    # inter frames
+    "y_mode": [[22801, 23489, 24293, 24756, 25601, 26123, 26606, 27418, 27945,
+                29228, 29685, 30349],
+               [18673, 19845, 22631, 23318, 23950, 24649, 25527, 27364, 28152,
+                29701, 29984, 30852],
+               [19770, 20979, 23396, 23939, 24241, 24654, 25136, 27073, 27830,
+                29360, 29730, 30659],
+               [20155, 21301, 22838, 23178, 23261, 23533, 23703, 24804, 25352,
+                26575, 27016, 28049]],
+    "is_inter": [[806], [16662], [20186], [26538]],
+    "seg_pred": [[16384]] * 3,
+    "single_ref": [[[4897], [1555], [4236], [8650], [904], [1444]],
+                   [[16973], [16751], [19647], [24773], [11014], [15087]],
+                   [[29744], [30279], [31194], [31895], [26875], [30304]]],
+    "new_mv": [[24035], [16630], [15339], [8386], [12222], [4676]],
+    "zero_mv": [[2175], [1054]],
+    "ref_mv": [[23974], [24188], [17848], [28622], [24312], [19923]],
+    "drl_mode": [[13104], [24560], [18945]],
+    "interp_filter": [[31935, 32720], [5568, 32719], [422, 2938],
+                      [28244, 32608], [31206, 31953], [4862, 32121],
+                      [770, 1152], [20889, 25637], [31910, 32724],
+                      [4120, 32712], [305, 2247], [27403, 32636],
+                      [31022, 32009], [2963, 32093], [601, 943],
+                      [14969, 21398]],
+    "motion_mode": [[16384, 24576]] * 3 + [
+        [7651, 24760], [4738, 24765], [5391, 25528], [19419, 26810],
+        [5123, 23606], [11606, 24308], [26260, 29116], [20360, 28062],
+        [21679, 26830], [29516, 30701], [28898, 30397], [30878, 31335],
+        [32507, 32558], [16384, 24576], [16384, 24576], [28799, 31390],
+        [26431, 30774], [28973, 31594], [29742, 31203]],
+    "use_obmc": [[16384]] * 3 + [
+        [10437], [9371], [9301], [17432], [14423], [15142], [25817], [22823],
+        [22083], [30128], [31014], [31560], [32638], [16384], [16384],
+        [23664], [20901], [24008], [26879]],
+    "interintra": [[16384], [26887], [27597], [30237]],
+    "interintra_mode": [[8192, 16384, 24576], [1875, 11082, 27332],
+                        [2473, 9996, 26388], [4238, 11537, 25926]],
+    "wedge_interintra": [[16384]] * 3 + [
+        [20036], [24957], [26704], [27530], [29564], [29444], [26872]] + [
+        [16384]] * 12,
+    "wedge_index": [_U16] * 3 + [
+        [2438, 4440, 6599, 8663, 11005, 12874, 15751, 18094, 20359, 22362,
+         24127, 25702, 27752, 29450, 31171],
+        [806, 3266, 6005, 6738, 7218, 7367, 7771, 14588, 16323, 17367,
+         18452, 19422, 22839, 26127, 29629],
+        [2779, 3738, 4683, 7213, 7775, 8017, 8655, 14357, 17939, 21332,
+         24520, 27470, 29456, 30529, 31656],
+        [1684, 3625, 5675, 7108, 9302, 11274, 14429, 17144, 19163, 20961,
+         22884, 24471, 26719, 28714, 30877],
+        [1142, 3491, 6277, 7314, 8089, 8355, 9023, 13624, 15369, 16730,
+         18114, 19313, 22521, 26012, 29550],
+        [2742, 4195, 5727, 8035, 8980, 9336, 10146, 14124, 17270, 20533,
+         23434, 25972, 27944, 29570, 31416],
+        [1727, 3948, 6101, 7796, 9841, 12344, 15766, 18944, 20638, 22038,
+         23963, 25311, 26988, 28766, 31012]] + [_U16] * 8 + [
+        [154, 987, 1925, 2051, 2088, 2111, 2151, 23033, 23703, 24284, 24985,
+         25684, 27259, 28883, 30911],
+        [1135, 1322, 1493, 2635, 2696, 2737, 2770, 21016, 22935, 25057,
+         27251, 29173, 30089, 30960, 31933]] + [_U16] * 2,
+    "mv_class0_fr": [[16384, 24576, 26624], [12288, 21248, 24128]],
+    "mv_fr": [8192, 17408, 21248],
+    "mv_class0_hp": [20480],
+    "mv_hp": [16384],
+    # compound prediction
+    "skip_mode": [[32621], [20708], [8127]],
+    "comp_mode": [[26828], [24035], [12031], [10640], [2901]],
+    "comp_ref_type": [[1198], [2070], [9166], [7499], [22475]],
+    "uni_comp_ref": [[[5284], [3865], [3128]], [[23152], [14173], [15270]],
+                     [[31774], [25120], [26710]]],
+    "comp_ref": [[[4946], [9468], [1503]], [[19891], [22441], [15160]],
+                 [[30731], [31059], [27544]]],
+    "comp_bwd_ref": [[[2235], [1423]], [[17182], [15175]],
+                     [[30606], [30489]]],
+    "compound_mode": [[7760, 13823, 15808, 17641, 19156, 20666, 26891],
+                      [10730, 19452, 21145, 22749, 24039, 25131, 28724],
+                      [10664, 20221, 21588, 22906, 24295, 25387, 28436],
+                      [13298, 16984, 20471, 24182, 25067, 25736, 26422],
+                      [18904, 23325, 25242, 27432, 27898, 28258, 30758],
+                      [10725, 17454, 20124, 22820, 24195, 25168, 26046],
+                      [17125, 24273, 25814, 27492, 28214, 28704, 30592],
+                      [13046, 23214, 24505, 25942, 27435, 28442, 29330]],
+    "comp_group_idx": [[26607], [22891], [18840], [24594], [19934],
+                       [22674]],
+    "compound_idx": [[18244], [12865], [7053], [13259], [9334], [4644]],
+    "compound_type": [[16384]] * 3 + [
+        [23431], [13171], [11470], [9770], [9100], [8233], [6172]] + [
+        [16384]] * 8 + [[11820], [7701], [16384], [16384]],
 }
 # CDFs of two symbols are one value: a run of one u16 proves nothing, so
 # these are searched as whole tables (value, 0 [, counter]) in the
@@ -237,7 +355,18 @@ CDFS = {
 WHOLE = {"pal_y_mode", "pal_uv_mode", "tx_8x8", "wiener_restore",
          "sgrproj_restore", "use_filter_intra", "pal_y_color_2",
          "pal_uv_color_2", "intrabc", "mv_class0", "mv_bits", "mv_sign",
-         "txfm_split", "inter_tx3"}
+         "txfm_split", "inter_tx3", "is_inter", "seg_pred", "single_ref",
+         "new_mv", "zero_mv", "ref_mv", "drl_mode", "use_obmc",
+         "interintra", "wedge_interintra", "mv_class0_hp", "mv_hp",
+         "skip_mode", "comp_mode", "comp_ref_type", "uni_comp_ref",
+         "comp_ref", "comp_bwd_ref", "comp_group_idx", "compound_idx",
+         "compound_type"}
+# tables whose records a library keeps in another order or layout (libdav1d
+# orders its block sizes from the largest down)
+BY_RECORD = {"use_obmc", "wedge_interintra", "compound_type", "interintra",
+             "skip_mode", "comp_mode", "comp_ref_type", "uni_comp_ref",
+             "comp_ref", "comp_bwd_ref", "comp_group_idx", "compound_idx"}
+UNUSED_FIRST = {"interintra", "interintra_mode"}
 # a library may pad a record to the width of the largest of its kind (the
 # colour-index CDFs to 8 symbols, the inter transform types to 16)
 MAX_PAD = 16
@@ -425,12 +554,161 @@ def upscale_filter(img: dict) -> np.ndarray:
     return f.astype(np.int16)
 
 
+# Subpel_Filters: each kernel's first two rows (REGULAR, SMOOTH, SHARP,
+# BILINEAR, the 4-tap REGULAR and the 4-tap SMOOTH of blocks 4 wide or
+# high); the rest of each is read from libaom
+SUBPEL_ANCHORS = [[0, 2, -6, 126, 8, -2, 0, 0], [0, 2, 28, 62, 34, 2, 0, 0],
+                  [-2, 2, -6, 126, 8, -2, 2, 0], [0, 0, 0, 120, 8, 0, 0, 0],
+                  [0, 0, -4, 126, 8, -2, 0, 0], [0, 0, 30, 62, 34, 2, 0, 0]]
+WARPED_FIRST = [[0, 0, 127, 1, 0, 0, 0, 0], [0, -1, 127, 2, 0, 0, 0, 0]]
+DIV_LUT_FIRST = [16384, 16320, 16257, 16194, 16132, 16070, 16009, 15948]
+OBMC_MASKS = {2: [45, 64], 4: [39, 50, 59, 64],
+              8: [36, 42, 48, 53, 57, 61, 64, 64],
+              16: [34, 37, 40, 43, 46, 49, 52, 54, 56, 58, 60, 61, 64, 64, 64,
+                   64],
+              32: [33, 35, 36, 38, 40, 41, 43, 44, 45, 47, 48, 50, 51, 52, 53,
+                   55, 56, 57, 58, 59, 60, 60, 61, 62, 64, 64, 64, 64, 64, 64,
+                   64, 64]}
+# Wedge_Master_Oblique_Even, _Odd and Wedge_Master_Vertical: 28 entries of
+# 0, these eight, then 28 of 64
+WEDGE_LINES = {"even": [1, 4, 11, 27, 46, 58, 62, 63],
+               "odd": [1, 2, 6, 18, 37, 53, 60, 63],
+               "vertical": [0, 2, 7, 21, 43, 57, 62, 64]}
+# Wedge_Codebook of blocks taller than wide, wider than tall and square:
+# (direction, x offset, y offset); directions HORIZONTAL 0, VERTICAL 1,
+# OBLIQUE27 2, OBLIQUE63 3, OBLIQUE117 4, OBLIQUE153 5
+_WEDGE_TAIL = [(2, 4, 2), (2, 4, 6), (5, 4, 2), (5, 4, 6), (3, 2, 4),
+               (3, 6, 4), (4, 2, 4), (4, 6, 4)]
+WEDGE_CODEBOOK = [
+    [(2, 4, 4), (3, 4, 4), (4, 4, 4), (5, 4, 4), (0, 4, 2), (0, 4, 4),
+     (0, 4, 6), (1, 4, 4)] + _WEDGE_TAIL,
+    [(2, 4, 4), (3, 4, 4), (4, 4, 4), (5, 4, 4), (1, 2, 4), (1, 4, 4),
+     (1, 6, 4), (0, 4, 4)] + _WEDGE_TAIL,
+    [(2, 4, 4), (3, 4, 4), (4, 4, 4), (5, 4, 4), (0, 4, 2), (0, 4, 6),
+     (1, 2, 4), (1, 6, 4)] + _WEDGE_TAIL]
+II_WEIGHTS_FIRST = [60, 58, 56, 54, 52, 50, 48, 47, 45, 44, 42, 41, 39, 38,
+                    37, 35]
+# Quant_Dist_Weight and Quant_Dist_Lookup of the distance weights
+QUANT_DIST_WEIGHT = [[2, 3], [2, 5], [2, 7], [1, 31]]
+QUANT_DIST_LOOKUP = [[9, 7], [11, 5], [12, 4], [13, 3]]
+
+
+def _once(img, lib, raw: bytes, what: str) -> int:
+    at = img[lib].find(raw)
+    if at < 0:
+        fail(f"{what}: not in {lib}")
+    return at
+
+
+def inter_tables(img: dict) -> dict:
+    """The constants of inter prediction, read from libaom by the
+    specification's first entries and found in a second library."""
+    out = {}
+    kernels = []
+    for k, row1 in enumerate(SUBPEL_ANCHORS):
+        if k == 3:  # BILINEAR: av1_dec_tables' own row
+            kernels.append(np.array(BILINEAR, np.int16))
+            continue
+        first = np.array([[0, 0, 0, 128, 0, 0, 0, 0], row1], "<i2").tobytes()
+        at = _once(img, "aom", first, f"subpel filter {k}")
+        f = np.frombuffer(img["aom"][at:at + 256], "<i2").reshape(16, 8)
+        if np.any(f.astype(np.int64).sum(1) != 128):
+            fail(f"subpel filter {k}: a row does not sum to 128")
+        if f.tobytes() not in img["svt"] and (f[1:] // 2).astype(
+                "<i1").tobytes() not in img["dav1d"]:
+            fail(f"subpel filter {k}: not in SVT-AV1 nor halved in libdav1d")
+        kernels.append(f.astype(np.int16))
+    out["subpel_filters"] = np.stack(kernels)
+    print("subpel_filters        found in ['aom', 'svt' or 'dav1d']")
+
+    at = _once(img, "aom", np.array(WARPED_FIRST, "<i2").tobytes(),
+               "warped filters")
+    wf = np.frombuffer(img["aom"][at:at + 193 * 16], "<i2").reshape(193, 8)
+    if np.any(wf.astype(np.int64).sum(1) != 128):
+        fail("warped filters: a row does not sum to 128")
+    if wf.astype("<i1").tobytes() not in img["dav1d"]:
+        fail("warped filters: not in libdav1d")
+    out["warped_filters"] = wf.astype(np.int16)
+    print("warped_filters        found in ['aom', 'dav1d']")
+
+    at = _once(img, "aom", np.array(DIV_LUT_FIRST, "<i2").tobytes(),
+               "div lut")
+    dl = np.frombuffer(img["aom"][at:at + 257 * 2], "<i2")
+    if int(dl[-1]) != 8192 or np.any(np.diff(dl.astype(np.int64)) > 0):
+        fail("div lut: not the specification's")
+    if dl.astype("<u2").tobytes() not in img["dav1d"]:
+        fail("div lut: not in libdav1d")
+    out["div_lut"] = dl.astype(np.int16)
+    print("div_lut               found in ['aom', 'dav1d']")
+
+    obmc = np.zeros(64, np.uint8)
+    for n, m in OBMC_MASKS.items():
+        obmc[n:2 * n] = m
+    # libaom keeps them from the longest down
+    if b"".join(bytes(OBMC_MASKS[n]) for n in (32, 16, 8, 4, 2)) not in img[
+            "aom"]:
+        fail("obmc masks: not in libaom")
+    if bytes((64 - obmc[2:]) % 64) not in img["dav1d"] and bytes(
+            64 - obmc[2:]) not in img["dav1d"]:
+        fail("obmc masks: 64 less each not in libdav1d")
+    out["obmc_masks"] = obmc
+    print("obmc_masks            found in ['aom', 'dav1d']")
+
+    masters = []
+    for name in ("even", "odd", "vertical"):
+        line = WEDGE_LINES[name]
+        m = np.array([0] * 28 + line + [64] * 28, np.uint8)
+        # libaom keeps the obliques whole, libdav1d each line of eight
+        if name != "vertical" and m.tobytes() not in img["aom"]:
+            fail(f"wedge master {name}: not in libaom")
+        if name == "vertical" and bytes([0] * 8 + line[1:7] + [64] * 8) \
+                not in img["aom"]:
+            fail("wedge master vertical: its ramp is not in libaom")
+        if bytes(line) not in img["dav1d"]:
+            fail(f"wedge master {name}: its line is not in libdav1d")
+        masters.append(m)
+    out["wedge_master"] = np.stack(masters)
+    cb = np.array(WEDGE_CODEBOOK, np.uint8)
+    for shape in cb:
+        if shape.astype("<i4").tobytes() not in img["aom"]:
+            fail("wedge codebook: not in libaom")
+        if shape.astype(np.uint8).tobytes() not in img["dav1d"]:
+            fail("wedge codebook: not in libdav1d")
+    out["wedge_codebook"] = cb
+    print("wedge_master/codebook found in ['aom', 'dav1d']")
+
+    at = _once(img, "aom", bytes(II_WEIGHTS_FIRST), "interintra weights")
+    ii = np.frombuffer(img["aom"][at:at + 128], np.uint8)
+    if np.any(np.diff(ii.astype(np.int64)) > 0) or int(ii[-1]) < 1:
+        fail("interintra weights: not decreasing")
+    if ii.tobytes() not in img["svt"]:
+        fail("interintra weights: not in SVT-AV1")
+    out["ii_weights"] = ii.copy()
+    print("ii_weights            found in ['aom', 'svt']")
+
+    for name, t in (("quant_dist_weight", QUANT_DIST_WEIGHT),
+                    ("quant_dist_lookup", QUANT_DIST_LOOKUP)):
+        a = np.array(t)
+        where = [k for k, b in img.items()
+                 if a.astype("<i4").tobytes() in b
+                 or a.astype(np.uint8).tobytes() in b]
+        if len(where) < 2:
+            fail(f"{name}: found in {where} only")
+        out[name] = a.astype(np.uint8)
+        print(f"{name:21s} found in {sorted(where)}")
+    return out
+
+
 def main() -> int:
     img = {k: open(p, "rb").read() for k, p in LIBS.items()}
     out = {}
     for name, cdf in CDFS.items():
         recs = np.array(cdf, dtype=np.int64)
         flat = recs.reshape(-1, recs.shape[-1])
+        if name in UNUSED_FIRST:
+            # size group 0 codes no interintra: libdav1d keeps no record of
+            # it, so it is left out of the search (it ships as uniform)
+            flat = flat[1:]
         if name in WHOLE:
             icdf = (32768 - flat).astype("<u2")
             forms = [np.concatenate([np.r_[r, np.zeros(k, "<u2")]
@@ -438,6 +716,13 @@ def main() -> int:
                      for k in range(1, MAX_PAD + 1)]
             where = sorted(k for k, b in img.items()
                            if any(f in b for f in forms))
+            if len(where) < 2 and name in BY_RECORD:
+                # libdav1d orders its block sizes from the largest down:
+                # each record (inverse cdf, counter 0) found on its own
+                where = sorted(set(where) | {
+                    k for k, b in img.items()
+                    if all(np.r_[r, 0].astype("<u2").tobytes() in b
+                           for r in icdf)})
         else:
             where = None
             for r in flat:
@@ -445,11 +730,17 @@ def main() -> int:
                 here = {k for k, b in img.items() if run in b}
                 where = here if where is None else where & here
             where = sorted(where)
+            if name == "interintra_mode" and (32768 - flat[:, :2]).astype(
+                    "<u2").tobytes() in img["dav1d"]:
+                # libdav1d keeps the first two entries of each record in a
+                # row (the rows of its three size groups one after another)
+                where = sorted(set(where) | {"dav1d"})
         if len(where) < 2:
             fail(f"{name}: found in {where} only")
         print(f"{name:20s} {flat.shape[0]:3d} records, found in {where}")
         shape = recs.shape[:-1] + (recs.shape[-1] + 2,)
-        out[name] = np.stack([icdf_record(r) for r in flat]).reshape(shape)
+        out[name] = np.stack([icdf_record(r) for r in recs.reshape(
+            -1, recs.shape[-1])]).reshape(shape)
 
     for w, h in RECT:
         s = scan(w, h)
@@ -557,6 +848,8 @@ def main() -> int:
 
     out["upscale_filter"] = upscale_filter(img)
     print("upscale_filter        found in ['aom', 'dav1d', 'svt']")
+
+    out.update(inter_tables(img))
 
     old = np.load(OUT) if os.path.exists(OUT) else None
     if old is not None:

@@ -77,10 +77,22 @@ spliced from libaom's key frames (:func:`layered_stream`), one with its
 base at the full size (libdav1d's first picture: the reference's native
 path) and one with its base at half size (libavif's highest layer).
 
+Phase 29's files (``--inter``, :data:`INTER_FILES`, digests in
+``inter_arrays.json``) have an INTER frame as their output frame: libaom's
+GOOD usage through ctypes (:func:`inter_obu`) over a texture in motion
+(:func:`moving_planes`), spliced into spatial layers (:func:`as_layers`):
+two progressive files whose base key frame is coded at half size
+(libaom's fixed resize mode), 8-bit 4:2:0 and 10-bit 4:4:4, a
+three-layer file whose top frame uses compound prediction, and a hidden
+key frame under the INTER frame it predicts (:func:`hidden_key_inter`,
+the native path). :data:`INTER_CASES` are the small streams of
+``tests/test_torch_av1_inter.py``, one a tool, and
+:func:`dav1d_pictures` every picture libdav1d returns, their oracle.
+
 Run from the repository root: ``python tests/fixtures/make_avif_sources.py``
 (phase 27's files), with ``--superres`` (its superres files alone, the
-others left as they are), ``--pillow`` (phase 28's) or ``--remainder``
-(phase 28's last files).
+others left as they are), ``--pillow`` (phase 28's), ``--remainder``
+(phase 28's last files) or ``--inter`` (phase 29's).
 """
 
 import ctypes
@@ -432,9 +444,61 @@ _AOM_IMG_FMT = {"420": 0x102, "400": 0x102, "422": 0x105, "444": 0x106}
 _AOM_IMG_FMT_HIGHBITDEPTH = 0x800
 #: indices of ``aom_codec_enc_cfg_t`` read as uint32
 _CFG = {"g_profile": 2, "g_w": 3, "g_h": 4, "g_limit": 5, "g_bit_depth": 8,
-        "g_input_bit_depth": 9, "rc_superres_mode": 19,
+        "g_input_bit_depth": 9, "rc_resize_mode": 16,
+        "rc_resize_denominator": 17, "rc_resize_kf_denominator": 18,
+        "rc_superres_mode": 19,
         "rc_superres_denominator": 20, "rc_superres_kf_denominator": 21,
         "rc_min_quantizer": 35, "rc_max_quantizer": 36, "monochrome": 52}
+
+
+def moving_planes(w: int, h: int, depth: int, layout: str, seed: int,
+                  frames: int, shift=(0.0, 0.0), zoom: float = 1.0,
+                  turn: float = 0.0):
+    """``frames`` pictures of one texture that moves: frame k samples it at
+    the points of frame 0 shifted by k * ``shift`` (x, y) pixels, scaled
+    by ``zoom`` ** k and turned by k * ``turn`` degrees about the centre.
+    The texture is a function of the position (waves, a grid of soft
+    discs and hard-edged bars, seeded), so each frame is drawn exactly,
+    not resampled. -> [(y, u, v)] at ``depth`` (uint8 or uint16), chroma
+    at the ``layout``'s size."""
+    rng = np.random.default_rng(seed)
+    waves = rng.uniform(-1, 1, (6, 4))
+    discs = rng.uniform(0, 1, (24, 3))
+    top = (1 << depth) - 1
+    sx, sy = {"420": (2, 2), "422": (2, 1), "444": (1, 1),
+              "400": (2, 2)}[layout]
+
+    def texture(x, y):
+        v = np.zeros_like(x)
+        for a, b, c, d in waves:
+            v += 0.15 * np.sin((a * x + b * y) * 0.35 + 6 * c) * (0.6 + 0.4 * d)
+        for cx, cy, r in discs:
+            dd = np.hypot(x - cx * w, y - cy * h) / (4 + 10 * r)
+            v += 0.5 * np.exp(-dd * dd)
+        v += 0.3 * (np.floor(x / 11 + np.floor(y / 9)) % 2)
+        return v
+
+    out = []
+    for k in range(frames):
+        ang = np.deg2rad(turn * k)
+        z = zoom ** k
+        cos, sin = np.cos(ang) / z, np.sin(ang) / z
+
+        def sample(ww, hh, step_x, step_y, phase):
+            yy, xx = np.mgrid[0:hh, 0:ww].astype(np.float64)
+            xx = xx * step_x + (step_x - 1) / 2 - w / 2
+            yy = yy * step_y + (step_y - 1) / 2 - h / 2
+            px = cos * xx - sin * yy + w / 2 + shift[0] * k
+            py = sin * xx + cos * yy + h / 2 + shift[1] * k
+            t = texture(px + phase, py - phase)
+            return np.clip(np.round((0.2 + 0.6 * t / 1.6) * top), 0,
+                           top).astype(np.uint8 if depth == 8 else np.uint16)
+
+        yp = sample(w, h, 1, 1, 0.0)
+        cw, ch = -(-w // sx), -(-h // sy)
+        out.append((yp, sample(cw, ch, sx, sy, 7.0),
+                    sample(cw, ch, sx, sy, -5.0)))
+    return out
 
 
 def _aom_lib():
@@ -485,7 +549,8 @@ def _obus(stream: bytes):
 def encode_av1_libaom(y, u, v, depth: int, layout: str, quantizer: int,
                       superres_denom: int = 8, speed: int = 6, options=None,
                       limit: int = 1, forced_max=None, frames: int = 1,
-                      good: bool = False):
+                      good: bool = False, later=(), resize_denom: int = 8,
+                      resize_kf_denom: int = 8, lag: int = 0):
     """An AV1 still (sequence header and one key frame, the temporal
     delimiter dropped) of the planes, written by the system's libaom 3
     through ctypes with no headers: the ALL_INTRA usage with ``g_limit``
@@ -505,7 +570,15 @@ def encode_av1_libaom(y, u, v, depth: int, layout: str, quantizer: int,
     size, so a smaller picture codes its own (frame_size_override_flag);
     ``frames`` submits the picture that many times, and ``good`` takes
     libaom's GOOD usage with no lag, whose frames after the first are INTER
-    frames. None where libaom is not installed.
+    frames; ``later`` are the (y, u, v) planes of the last frames (content
+    that moves: they take the place of the picture's repeats);
+    ``lag`` frames of look-ahead (GOOD usage) let libaom code hidden
+    alt-ref frames, shown later by show_existing_frame, and predict from
+    both sides; ``resize_denom`` and ``resize_kf_denom`` (9..16) turn libaom's fixed
+    resize mode on, which codes inter and key frames at width and height *
+    8 / denominator (a key frame at half size and its inter frames at the
+    full size are the progressive layout of a downscaled base). None where
+    libaom is not installed.
     libaom asserts and ends the process on a lossless request with
     superres (quantizer 0 for both bounds): ask for quantizer bounds of
     (0, 1) with ``cq-level`` 0 instead, which codes the frame at
@@ -528,13 +601,17 @@ def encode_av1_libaom(y, u, v, depth: int, layout: str, quantizer: int,
                      ("rc_superres_mode", int(superres_denom != 8)),
                      ("rc_superres_denominator", superres_denom),
                      ("rc_superres_kf_denominator", superres_denom),
+                     ("rc_resize_mode",
+                      int(resize_denom != 8 or resize_kf_denom != 8)),
+                     ("rc_resize_denominator", resize_denom),
+                     ("rc_resize_kf_denominator", resize_kf_denom),
                      ("rc_min_quantizer", lo), ("rc_max_quantizer", hi),
                      ("monochrome", int(layout == "400"))):
         cfg[_CFG[key]] = val
     if forced_max is not None:
         cfg[6], cfg[7] = forced_max  # g_forced_max_frame_width / height
     if good:
-        cfg[14] = 0  # g_lag_in_frames: each frame coded as it comes
+        cfg[14] = lag  # g_lag_in_frames (0: each frame coded as it comes)
     ctx = ctypes.create_string_buffer(256)
     hbd = depth > 8
     if lib.aom_codec_enc_init_ver(ctx, iface, cfg,
@@ -550,19 +627,27 @@ def encode_av1_libaom(y, u, v, depth: int, layout: str, quantizer: int,
         img = lib.aom_img_alloc(None, fmt, w, h, 16)
         planes = (ctypes.c_void_p * 3).from_address(img + 64)
         strides = (ctypes.c_int * 3).from_address(img + 88)
-        if layout == "400":
-            mid = 1 << (depth - 1)
-            c = np.full(((h + 1) // 2, (w + 1) // 2), mid,
-                        np.uint16 if hbd else np.uint8)
-            u = v = c
-        for i, arr in enumerate((y, u, v)):
-            src = np.ascontiguousarray(arr, np.uint16 if hbd else np.uint8)
-            for row in range(src.shape[0]):
-                ctypes.memmove(planes[i] + row * strides[i],
-                               src.ctypes.data + row * src.strides[0],
-                               src.shape[1] * src.itemsize)
+
+        def put(y, u, v):
+            if layout == "400":
+                mid = 1 << (depth - 1)
+                u = v = np.full(((h + 1) // 2, (w + 1) // 2), mid,
+                                np.uint16 if hbd else np.uint8)
+            for i, arr in enumerate((y, u, v)):
+                src = np.ascontiguousarray(arr, np.uint16 if hbd else np.uint8)
+                for row in range(src.shape[0]):
+                    ctypes.memmove(planes[i] + row * strides[i],
+                                   src.ctypes.data + row * src.strides[0],
+                                   src.shape[1] * src.itemsize)
+
+        pictures = [(y, u, v)] * (frames - len(later)) + list(later)
         out = b""
-        for pts, frame in enumerate([img] * frames + [None]):  # then flush
+        # then flush, once a frame of look-ahead more
+        for pts in range(len(pictures) + 1 + (lag if good else 0)):
+            frame = None
+            if pts < len(pictures):
+                put(*pictures[pts])
+                frame = img
             if lib.aom_codec_encode(ctx, frame, pts, 1, 0):
                 return None
             it = ctypes.c_void_p()
@@ -579,6 +664,115 @@ def encode_av1_libaom(y, u, v, depth: int, layout: str, quantizer: int,
         if img:
             lib.aom_img_free(img)
         lib.aom_codec_destroy(ctx)
+
+
+# -- inter frames ---------------------------------------------------------------
+
+
+def inter_obu(w: int, h: int, depth: int, layout: str, seed: int,
+              frames: int, quantizer: int = 30, speed: int = 6,
+              options=None, lag: int = 0, resize_kf_denom: int = 8,
+              superres_denom: int = 8, shift=(0.0, 0.0), zoom: float = 1.0,
+              turn: float = 0.0):
+    """A stream of ``frames`` frames of :func:`moving_planes`' texture in
+    motion, by libaom's GOOD usage (:func:`encode_av1_libaom`): a key
+    frame, then INTER frames predicted from it and from each other, 64 x 64
+    superblocks; ``resize_kf_denom`` 16 codes the key frame at half size
+    (libaom's fixed resize mode), so the inter frames predict across
+    sizes; ``options`` are libaom's keys (``enable-obmc``,
+    ``enable-warped-motion``, ``enable-global-motion``,
+    ``enable-dual-filter``, ``enable-interintra-comp``,
+    ``enable-masked-comp``, ``enable-dist-wtd-comp``,
+    ``enable-onesided-comp``, ``enable-ref-frame-mvs``, ...)."""
+    pics = moving_planes(w, h, depth, layout, seed, frames, shift, zoom, turn)
+    return encode_av1_libaom(
+        *pics[0], depth, layout, quantizer, superres_denom=superres_denom,
+        speed=speed, options={"sb-size": "64", **(options or {})},
+        limit=max(2, frames), frames=frames, good=True, later=pics[1:],
+        lag=lag, resize_kf_denom=resize_kf_denom)
+
+
+def as_layers(obu: bytes) -> bytes:
+    """The frames of a stream (at most four) as spatial layers 0, 1, ...
+    of one temporal unit, under its sequence header with operating points
+    of all of them, then of one fewer, and so on: a progressive AVIF's
+    layout, whose highest layer libavif returns."""
+    seq = next(o for t, o in _obus(obu) if t == 1)
+    frames = [o for t, o in _obus(obu) if t in (3, 4, 6)]
+    n = len(frames)
+    if not 2 <= n <= 4:
+        raise ValueError("two to four frames make layers")
+    idcs = [((1 << k) - 1) << 8 | 1 for k in range(n, 0, -1)]
+    return with_operating_points(seq, idcs) + b"".join(
+        with_layer(f, 0, i) for i, f in enumerate(frames))
+
+
+#: the streams of ``tests/test_torch_av1_inter.py``: name -> (the
+#: arguments of :func:`inter_obu`, the inter tools (``av1_dec_abi.TOOLS``)
+#: the stream must use). Each is 64..192 px, its frames spliced into
+#: layers (:func:`as_layers`) or, past four frames, decoded whole.
+INTER_CASES = {
+    "shift_8bit_420": (dict(w=96, h=64, depth=8, layout="420", seed=1,
+                            frames=2, shift=(2.3, -1.6)), ("newmv",)),
+    "shift_10bit_444": (dict(w=96, h=64, depth=10, layout="444", seed=2,
+                             frames=2, shift=(1.7, 0.9)), ("newmv",)),
+    "shift_12bit_422": (dict(w=96, h=64, depth=12, layout="422", seed=3,
+                             frames=2, shift=(-1.2, 2.1)), ("local_warp",)),
+    "mono": (dict(w=96, h=64, depth=8, layout="400", seed=6, frames=2,
+                  shift=(3.1, 0.4)), ("newmv",)),
+    "zoom_local_warp": (dict(w=128, h=96, depth=8, layout="420", seed=4,
+                             frames=2, zoom=1.04), ("local_warp",)),
+    "turn_local_warp": (dict(w=128, h=96, depth=8, layout="420", seed=5,
+                             frames=2, turn=3.0), ("local_warp",)),
+    "global_motion": (dict(w=160, h=128, depth=8, layout="420", seed=14,
+                           frames=2, zoom=1.05, turn=2.0, speed=2,
+                           options={"enable-global-motion": 1,
+                                    "enable-warped-motion": 0}),
+                      ("global_warp", "globalmv", "obmc")),
+    "dual_filter": (dict(w=192, h=128, depth=8, layout="420", seed=23,
+                         frames=3, quantizer=20, speed=1, shift=(1.37, 2.71),
+                         options={"enable-dual-filter": 1}),
+                    ("dual_filter", "switchable_filter")),
+    "obmc_compound": (dict(w=192, h=128, depth=8, layout="420", seed=21,
+                           frames=3, quantizer=40, speed=1, shift=(3.3, 1.7),
+                           turn=1.0, options={"enable-warped-motion": 0}),
+                      ("obmc", "compound", "compound_distance",
+                       "compound_wedge", "interintra")),
+    "interintra_diffwtd": (dict(w=192, h=128, depth=8, layout="420",
+                                seed=22, frames=3, quantizer=40, speed=1,
+                                shift=(2.2, 1.3), zoom=1.02,
+                                options={"enable-interintra-comp": 1,
+                                         "enable-warped-motion": 0,
+                                         "enable-obmc": 0}),
+                           ("interintra", "wedge_interintra",
+                            "compound_diffwtd")),
+    "ref_frame_mvs": (dict(w=128, h=96, depth=8, layout="420", seed=16,
+                           frames=4, shift=(2.1, 1.1),
+                           options={"enable-ref-frame-mvs": 1}),
+                      ("temporal_mv",)),
+    "skip_mode": (dict(w=128, h=96, depth=8, layout="420", seed=52,
+                       frames=6, quantizer=45, speed=0, shift=(0.5, 0.25)),
+                  ("skip_mode", "compound")),
+    "half_size_base": (dict(w=128, h=96, depth=8, layout="420", seed=17,
+                            frames=2, shift=(1.5, 0.5), resize_kf_denom=16),
+                       ("scaled",)),
+    "half_size_base_10bit_444": (dict(w=128, h=96, depth=10, layout="444",
+                                      seed=20, frames=2, shift=(1.5, 0.5),
+                                      resize_kf_denom=16), ("scaled",)),
+    "superres_reference": (dict(w=128, h=96, depth=8, layout="420",
+                                seed=36, frames=3, superres_denom=12,
+                                shift=(1.0, 2.0)), ("scaled",)),
+    "tiles": (dict(w=192, h=128, depth=8, layout="420", seed=18, frames=2,
+                   shift=(2.5, -1.5),
+                   options={"tile-columns": 1, "tile-rows": 1}),
+              ("inter", "newmv")),
+    "film_grain": (dict(w=96, h=64, depth=8, layout="420", seed=19,
+                        frames=2, shift=(1.5, 0.5),
+                        options={"film-grain-test": 4}), ("inter",)),
+    "twelve_bit_chain": (dict(w=96, h=64, depth=12, layout="444", seed=33,
+                              frames=7, shift=(1.1, -0.6), zoom=1.01),
+                         ("temporal_mv", "local_warp")),
+}
 
 
 # -- OBU splicing: layered streams and hidden key frames ----------------------
@@ -707,9 +901,18 @@ def hidden_key_stream(stream: bytes) -> bytes:
     ``num-tile-groups`` 2)."""
     obus = list(_obus(stream))
     seq = next(o for t, o in obus if t == 1)
-    s = SeqFields(_payload(seq))
     at = next(i for i, (t, _) in enumerate(obus) if t == 3)
-    h = _bits(_payload(obus[at][1]))
+    show = "1" + "000"  # show_existing_frame of slot 0
+    return b"".join([seq, _hidden_key(seq, obus[at][1])]
+                    + [o for t, o in obus[at + 1:] if t == 4]
+                    + [obu_of(3, show)])
+
+
+def _hidden_key(seq: bytes, header: bytes) -> bytes:
+    """A shown KEY_FRAME's frame header OBU made a hidden one (show_frame 0,
+    showable_frame 1, error resilient, refresh_frame_flags 0xFF)."""
+    s = SeqFields(_payload(seq))
+    h = _bits(_payload(header))
     if h[:4] != "0001":
         raise ValueError("not a shown KEY_FRAME header")
     pos = 4
@@ -719,11 +922,21 @@ def hidden_key_stream(stream: bytes) -> bytes:
     pos += allow_sct and s.force_integer_mv == 2
     pos += 1  # frame_size_override_flag
     pos += s.order_hint_bits
-    hidden = ("0000" + "11" + h[4:pos] + "11111111" + h[pos:])
-    show = "1" + "000"  # show_existing_frame of slot 0
-    return b"".join([seq, obu_of(3, hidden)]
-                    + [o for t, o in obus[at + 1:] if t == 4]
-                    + [obu_of(3, show)])
+    return obu_of(3, "0000" + "11" + h[4:pos] + "11111111" + h[pos:])
+
+
+def hidden_key_inter(stream: bytes) -> bytes:
+    """``stream``'s key frame made a hidden one (:func:`_hidden_key`), the
+    frames after it kept: one temporal unit whose first shown frame, the
+    picture libdav1d returns first, is the INTER frame that follows (the
+    reference's native path then serves an inter frame). ``stream`` must
+    carry its frame headers in OBUs of their own (libaom's
+    ``num-tile-groups`` 2)."""
+    obus = list(_obus(stream))
+    seq = next(o for t, o in obus if t == 1)
+    at = next(i for i, (t, _) in enumerate(obus) if t == 3)
+    return b"".join([seq, _hidden_key(seq, obus[at][1])]
+                    + [o for t, o in obus[at + 1:] if t != 1])
 
 
 def av1_avif(obu: bytes, w: int, h: int, depth: int, layout: str,
@@ -1004,6 +1217,79 @@ def per_cell_alpha(data: bytes) -> bytes:
                    and r[0] != b"prem"]
     doc["refs"] += [(b"auxl", a, [c]) for a, c in zip(alphas, cells)]
     return mux(doc)
+
+
+def dav1d_pictures(obu: bytes):
+    """Every picture libdav1d returns for ``obu`` at its defaults
+    (``all_layers`` 1: each shown frame, each layer's too), one thread and
+    no frame delay -> [(y, u | None, v | None, bitdepth)], None where
+    libdav1d is absent, [] where it fails the stream."""
+    from imagekit_tpu.codecs import avif_native as ref_avif
+
+    lib = ref_avif._dav1d()
+    if lib is None:
+        return None
+    settings = ctypes.create_string_buffer(256)
+    lib.dav1d_default_settings(settings)
+    struct.pack_into("<ii", settings, 0, 1, 1)  # n_threads, max_frame_delay
+    ctx = ctypes.c_void_p()
+    if lib.dav1d_open(ctypes.byref(ctx), settings) != 0:
+        return None
+    out = []
+    try:
+        dd = ctypes.create_string_buffer(128)
+        buf = (ctypes.c_uint8 * len(obu)).from_buffer_copy(obu)
+        if lib.dav1d_data_wrap(dd, buf, len(obu), ref_avif._NOFREE,
+                               None) != 0:
+            return None
+        pic = ctypes.create_string_buffer(512)
+        sent = False
+        for _ in range(1000):
+            if not sent:
+                rc = lib.dav1d_send_data(ctx, dd)
+                if rc == 0:
+                    sent = True
+                elif rc != -11:
+                    return []
+            rc = lib.dav1d_get_picture(ctx, pic)
+            if rc == -11 and sent:
+                break
+            if rc == -11:
+                continue
+            if rc != 0:
+                return []
+            try:
+                out.append(_dav1d_planes(pic))
+            finally:
+                lib.dav1d_picture_unref(pic)
+        return out
+    finally:
+        lib.dav1d_close(ctypes.byref(ctx))
+
+
+def _dav1d_planes(pic):
+    """(y, u | None, v | None, bitdepth) of a Dav1dPicture, read with the
+    reference's ``_PIC_*`` offsets."""
+    from imagekit_tpu.codecs import avif_native as ref_avif
+
+    datap = struct.unpack_from("<3Q", pic, ref_avif._PIC_DATA_OFF)
+    stride = struct.unpack_from("<2q", pic, ref_avif._PIC_STRIDE_OFF)
+    w, h, layout, bpc = struct.unpack_from("<4i", pic, ref_avif._PIC_P_OFF)
+    ct = ctypes.c_uint8 if bpc == 8 else ctypes.c_uint16
+
+    def plane(addr, st, ph, pw):
+        n = st // ctypes.sizeof(ct)
+        a = np.ctypeslib.as_array((ct * (n * ph)).from_address(addr))
+        return a.reshape(ph, n)[:, :pw].copy()
+
+    y = plane(datap[0], stride[0], h, w)
+    u = v = None
+    if layout != 0:
+        cw = (w + 1) // 2 if layout in (1, 2) else w
+        ch = (h + 1) // 2 if layout == 1 else h
+        u = plane(datap[1], stride[1], ch, cw)
+        v = plane(datap[2], stride[1], ch, cw)
+    return y, u, v, bpc
 
 
 def dav1d_samples(obu: bytes, apply_grain: bool = True):
@@ -1549,6 +1835,116 @@ def write_remainder_files() -> None:
         f.write("\n")
 
 
+# -- phase 29: inter frames at 1080p ----------------------------------------------
+
+#: the files of ``chip_smoke.py``'s phase 29 (``--inter``): name -> recipe
+INTER_FILES = {
+    "1080p_inter_progressive":
+        "8-bit 4:2:0, two spatial layers: a key frame coded at half size "
+        "(libaom's fixed resize mode), then an INTER frame at 1920x1080 "
+        "predicted across sizes (libavif's progressive layout); nclx, "
+        "whose first picture is not the ispe's size: the Pillow path",
+    "1080p_inter_10bit_444_progressive":
+        "10-bit 4:4:4, the same layout: the Pillow path",
+    "1080p_inter_compound_3layer":
+        "8-bit 4:2:0, three spatial layers of 1920x1080: a key frame, then "
+        "two INTER frames, the last with compound prediction (libaom "
+        "speed 2); no colr box, so the Pillow path",
+    "1080p_inter_hidden_key":
+        "8-bit 4:2:0, a hidden key frame then the INTER frame it predicts, "
+        "shown: libdav1d's first picture is the inter frame, the native "
+        "path",
+}
+#: the files the reference serves on its native path (libdav1d)
+INTER_NATIVE = {"1080p_inter_hidden_key"}
+
+
+def inter_files() -> dict:
+    """:data:`INTER_FILES` by :func:`inter_obu` over :func:`moving_planes`'
+    texture, shifted, zoomed and turned between the frames."""
+    out = {}
+    move = dict(shift=(6.5, 3.25), zoom=1.01, turn=0.5)
+    obu = inter_obu(1920, 1080, 8, "420", 2911, 2, quantizer=32,
+                    resize_kf_denom=16, **move)
+    out["1080p_inter_progressive"] = av1_avif(as_layers(obu), 1920, 1080, 8,
+                                              "420")
+    obu = inter_obu(1920, 1080, 10, "444", 2912, 2, quantizer=32,
+                    resize_kf_denom=16, **move)
+    out["1080p_inter_10bit_444_progressive"] = av1_avif(
+        as_layers(obu), 1920, 1080, 10, "444")
+    obu = inter_obu(1920, 1080, 8, "420", 2913, 3, quantizer=36, speed=2,
+                    **move)
+    out["1080p_inter_compound_3layer"] = set_colr(
+        av1_avif(as_layers(obu), 1920, 1080, 8, "420"), [])
+    obu = inter_obu(1920, 1080, 8, "420", 2914, 2, quantizer=32,
+                    options={"num-tile-groups": 2}, **move)
+    out["1080p_inter_hidden_key"] = av1_avif(hidden_key_inter(obu), 1920,
+                                             1080, 8, "420")
+    return out
+
+
+def write_inter_files() -> None:
+    """:func:`inter_files` into ``tests/fixtures/avif/`` with
+    ``inter_arrays.json``: each file's name, recipe, size in bytes, path
+    (``native`` or ``pillow``), the digest of the array the reference's
+    ``decode_bytes`` returns (:func:`write_remainder_files`' fields), the
+    digest of libdav1d's planes of the output frame rounded to 8 bits as
+    the reference rounds them (``planes_sha256``) and of its raw samples
+    (``samples_sha256``, little-endian 16-bit for 10 bits), and the inter
+    tools its decode uses (``tools``: blocks of each, by the port's
+    decoder, whose planes must equal libdav1d's before they are
+    recorded)."""
+    from imagekit_tpu import codecs as ref_codecs
+    from imagekit_tpu.codecs import avif_native as ref_avif
+    from imagekit_tpu_torch.codecs.native import av1_dec_abi
+
+    files = inter_files()
+    plain = encode_avif_hbd(np.full((64, 64), 128, np.uint8),
+                            np.full((32, 32), 128, np.uint8),
+                            np.full((32, 32), 128, np.uint8), 8, "420", 30)
+    if ref_avif.decode_rgb(plain) is None:
+        raise SystemExit("ABORT: the reference's native path is off")
+    table = {}
+    for name, data in files.items():
+        native = name in INTER_NATIVE
+        if (ref_avif.decode_rgb(data) is not None) != native:
+            raise SystemExit(f"ABORT: the reference's native path "
+                             f"{'declines' if native else 'decodes'} {name}")
+        obu = ref_avif.parse_container(data).obu
+        select = av1_dec_abi.FIRST if native else av1_dec_abi.HIGHEST
+        pics = dav1d_pictures(obu)
+        want = pics[0] if native else pics[-1]
+        y, u, v, info = av1_dec_abi.decode_samples(obu, select=select)
+        if not (info.inter and all(np.array_equal(p, q) for p, q in zip(
+                (y, u, v), want[:3]))):
+            raise SystemExit(f"ABORT: the port's planes of {name} are not "
+                             "libdav1d's")
+        with open(os.path.join(OUT, f"{name}.avif"), "wb") as f:
+            f.write(data)
+        arr, _ = ref_codecs.decode_bytes(data)
+        h8, hs = hashlib.sha256(), hashlib.sha256()
+        for p in want[:3]:
+            h8.update(np.ascontiguousarray(
+                av1_dec_abi.to_8bit(p, want[3])).tobytes())
+            hs.update(np.ascontiguousarray(p).astype(
+                "<u2" if want[3] > 8 else np.uint8).tobytes())
+        table[name] = {
+            "file": f"{name}.avif", "recipe": INTER_FILES[name],
+            "bytes": len(data), "path": "native" if native else "pillow",
+            "mode": "RGBA" if arr.shape[2] == 4 else "RGB",
+            "width": int(arr.shape[1]), "height": int(arr.shape[0]),
+            "bitdepth": int(want[3]),
+            "sha256": hashlib.sha256(np.ascontiguousarray(arr).tobytes())
+            .hexdigest(),
+            "planes_sha256": h8.hexdigest(), "samples_sha256": hs.hexdigest(),
+            "frames": info.frames, "decoded": info.decoded,
+            "tools": {k: v for k, v in info.tools.items() if v}}
+        print(f"{name}: {len(data) / 1e3:.1f} kB, {table[name]['tools']}")
+    with open(os.path.join(OUT, "inter_arrays.json"), "w") as f:
+        json.dump(table, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
 if __name__ == "__main__":
     sys.path.insert(0, ROOT)
     if sys.argv[1:] == ["--pillow"]:
@@ -1559,5 +1955,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:] == ["--remainder"]:
         write_remainder_files()
+        sys.exit(0)
+    if sys.argv[1:] == ["--inter"]:
+        write_inter_files()
         sys.exit(0)
     sys.exit(main())

@@ -11,9 +11,10 @@ encoder, and true monochrome streams as the JAX package's own tests make
 them (``tests/test_avif_native.py::_mono_avif``); the sweeps of palette
 blocks, intra block copy and 10- and 12-bit streams are in
 ``test_torch_av1_screen_hbd.py``, those of quantizer matrices and film
-grain in ``test_torch_av1_qm_grain.py``. A stream that uses a tool the
-decoder does not build answers ``Av1NotPorted`` (the app's 501): a layered
-stream, from headers written here bit by bit (superres, the 501 of
+grain in ``test_torch_av1_qm_grain.py``, those of inter frames in
+``test_torch_av1_inter.py``. A stream that uses a tool the decoder does
+not build would answer ``Av1NotPorted`` (the app's 501); none is left. A
+layered stream, from headers written here bit by bit (superres, the 501 of
 these headers before the decoder built it, now probes and wants its
 tiles; its streams are in ``test_torch_av1_superres.py``); a
 quantizer-matrix and a film-grain
@@ -358,8 +359,8 @@ def layered_stream(w: int = 64, h: int = 64) -> bytes:
 def inter_stream(w: int = 64, h: int = 64) -> bytes:
     """A stream of a full sequence header (not a still picture) whose first
     frame is a shown INTER frame: the first bits of its header, up to
-    refresh_frame_flags, which is as far as the decoder reads before it
-    answers that inter prediction is not built."""
+    refresh_frame_flags, then its reference slots, all empty, which fail
+    the stream (as they fail libdav1d's) before the rest is read."""
     b = BitWriter()
     b.f(0, 3)       # seq_profile
     b.f(0, 1)       # still_picture
@@ -403,10 +404,11 @@ def inter_stream(w: int = 64, h: int = 64) -> bytes:
 
 
 def remainder_avif(w: int = 64, h: int = 48) -> bytes:
-    """A whole AVIF file whose stream's output frame is an INTER frame
-    (:func:`inter_stream`): a source of the remainder, inter prediction,
-    which the port answers with 501 naming queue 1 item 12 (the container
-    is the port's first-party writer's)."""
+    """A whole AVIF file whose stream's output frame is an INTER frame of
+    no reference (:func:`inter_stream`), once the source of the remainder
+    (inter prediction, a 501): now a stream that does not decode, which
+    the port answers as the reference answers it, with libavif's words (a
+    400). The container is the port's first-party writer's."""
     from imagekit_tpu_torch.codecs.av1_container import write_avif
 
     return write_avif(inter_stream(w, h), w, h)

@@ -21,9 +21,8 @@ engine.
   rgbyuv head.
 - The HTTP app: a signed ``/img?...&f=avif`` answers 200 ``image/avif``
   with an ETag and a ``.avif`` disk-cache entry, then hits that entry; an
-  AVIF source and a 10-bit one are served (200) and one of the AV1
-  decoder's remainder (an inter frame as its output frame) answers 501
-  naming queue 1 item 12.
+  AVIF source and a 10-bit one are served (200) and one whose output
+  frame is an INTER frame of no reference answers the reference's 400.
 """
 
 import asyncio
@@ -35,8 +34,10 @@ import pytest
 from aiohttp.test_utils import TestClient, TestServer
 from PIL import Image
 
+from imagekit_tpu import codecs as ref_codecs
 from imagekit_tpu import config as ref_config
 from imagekit_tpu.codecs import avif_native
+from imagekit_tpu.errors import TransformError as RefTransformError
 from imagekit_tpu.serving.metrics import Metrics as RefMetrics
 from imagekit_tpu_torch.codecs import avif_encode, vp8
 from imagekit_tpu_torch.config import ImageFormat, ImageKitConfig
@@ -360,8 +361,10 @@ def test_http_avif_source_answers_501(tmp_path):
     """AVIF sources are served since the port decodes AV1 itself: the
     port's own AVIF and a 10-bit one by libavif (which answered 501 before
     the decoder built high bit depth) at w=32 are 200 WebPs, as the
-    reference serves them; a stream of the decoder's remainder (an inter
-    frame as its output frame) still answers 501 naming queue 1 item 12."""
+    reference serves them; the stream that stood for the decoder's last
+    remainder (an INTER frame as its output frame, one of no reference)
+    now fails as it fails the reference: 400 in libavif's words, no
+    501."""
     if _ten_bit_avif() is None:
         pytest.skip("libavif's high-bit-depth encode unavailable")
 
@@ -378,7 +381,9 @@ def test_http_avif_source_answers_501(tmp_path):
         r = await client.get("/img", params={**params,
                                              "sig": sign(params, SECRET)})
         text = await r.text()
-        assert r.status == 501, text
-        assert "queue 1 item 12" in text and "inter" in text
+        assert r.status == 400, text
+        with pytest.raises(RefTransformError) as want:
+            ref_codecs.decode_bytes(remainder_avif())
+        assert str(want.value) in text and "ROADMAP" not in text
 
     _serve(tmp_path, fn)

@@ -18,8 +18,10 @@ their oracles (CPU tests; no card needed):
 - a hidden key frame shown by ``show_existing_frame``
   (``make_avif_sources.hidden_key_stream``), against libdav1d's planes
   through the reference's ``_decode_obu``;
-- what is left: a stream whose output frame is an INTER frame answers 501
-  naming queue 1 item 12;
+- what was left, a stream whose output frame is an INTER frame, now
+  served: the top layer of a same-size layered file through the Pillow
+  path equals Pillow's array (``test_torch_av1_inter.py`` and
+  ``test_torch_avif_inter.py`` hold inter frames to libdav1d and Pillow);
 - ``/img`` and ``/upload`` through both apps, and the committed files of
   ``chip_smoke.py``'s phase 28 (``remainder_arrays.json``).
 """
@@ -40,9 +42,9 @@ from imagekit_tpu import codecs as ref_codecs
 from imagekit_tpu.codecs import avif_native as ref_avif
 from imagekit_tpu_torch import codecs as port_codecs
 from imagekit_tpu_torch.codecs.native import av1_dec_abi, avif_scale
-from imagekit_tpu_torch.errors import NotPortedError
 from tests.fixtures import make_avif_sources as M
 from tests.test_torch_avif_libavif import assert_same, decode_both, grid, planes
+from tests.test_torch_av1_decode import remainder_avif
 from tests.test_torch_avif_sources import _upload
 from tests.test_torch_jxc_slice import _ref_native_lib
 from tests.test_torch_pillow_sources import _img, _serve, _url
@@ -535,7 +537,7 @@ def test_hidden_key_frame_equals_libdav1d(case):
     assert_same(M.av1_avif(obu, 96, 64, depth, layout))
 
 
-# -- what is left: an inter frame as the output ------------------------------
+# -- what was left: an inter frame as the output -------------------------------
 
 
 def progressive(nclx: bool = True) -> bytes:
@@ -555,18 +557,20 @@ def progressive(nclx: bool = True) -> bytes:
 
 @needs_libs
 def test_an_inter_output_frame_is_the_remainder():
-    """The native path's first picture is the key frame: served as the
-    reference serves it. Where the reference hands the file to Pillow (no
-    nclx), libavif returns the top layer, an INTER frame: the port
-    answers 501 naming queue 1 item 12, the reference serves it."""
+    """What was left is served: the native path's first picture is the key
+    frame, served as the reference serves it; where the reference hands
+    the file to Pillow (no nclx), libavif returns the top layer, an INTER
+    frame, which the port now decodes to Pillow's array. An INTER frame of
+    no reference fails in the reference's words, with no 501."""
     assert_same(progressive())
     data = progressive(nclx=False)
-    want, got = decode_both(data)
-    assert isinstance(want, np.ndarray)
-    with pytest.raises(NotPortedError, match="inter") as e:
-        port_codecs.decode_bytes(data, device="cpu")
-    assert e.value.roadmap_item == "queue 1 item 12"
-    assert got.startswith("501")
+    want = assert_same(data)
+    assert isinstance(want, np.ndarray) and want.shape == (64, 96, 3)
+    info = av1_dec_abi.probe(ref_avif.parse_container(data).obu,
+                             select=av1_dec_abi.HIGHEST)
+    assert info.inter and info.spatial_id == 1
+    want, got = decode_both(remainder_avif())
+    assert isinstance(want, str) and want == got
 
 
 # -- the apps --------------------------------------------------------------------

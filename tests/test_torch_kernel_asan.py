@@ -26,7 +26,8 @@ that overflows, ``JPEGTables`` of 0, 2 or too many bytes), each copied into
 a buffer of its exact size so that a read past it is caught.
 
 The port's AV1 decoder (``av1_decode.cpp``) runs under the same sanitizers
-on real streams (Pillow's and the port's encoders: 4:2:0, 4:2:2, 4:4:4,
+on inter streams of every tool and hostile ones (``_INTER``), and on real
+streams (Pillow's and the port's encoders: 4:2:0, 4:2:2, 4:4:4,
 loop restoration, CDEF, alpha, odd sizes, quantizer matrices and film
 grain at 8 and 10 bits, superres from libaom), whose planes must equal
 the normal build's, and on hostile ones (truncations, byte flips,
@@ -1141,16 +1142,90 @@ def test_obu_selection_and_scaler_under_address_sanitizer(av1_asan_lib):
     assert got == want
     assert len(got) == 8 * len(json.loads(cases)) + len(scale_cases())
     # the walk's answers: the base and the top of the layers, the hidden
-    # key frame, the INTER top layer's 501, an operating point past 31
+    # key frame, the INTER top layer (decoded since inter prediction is
+    # built), an operating point past 31
     assert got["layered_half/-1/0"] != got["layered_half/-2/0"]
     assert got["layered_half/0/0"] == got["layered_half/-1/0"]
     assert got["layered_half/1/0"] == got["layered_half/-2/0"]
     assert got["layered_half/-2/1"] == got["layered_half/-1/0"]
     assert got["layered_half/3/0"] == "400"
     assert got["hidden_key/-1/0"] not in ("400", "501")
-    assert got["progressive/-2/0"] == "501"
+    assert got["progressive/-2/0"] not in ("400", "501")
     assert got["progressive/-1/0"] not in ("400", "501")
     assert got["layered_full/-1/40"] == "400"
+
+
+_INTER = textwrap.dedent("""
+    import ctypes, hashlib, json, sys
+    from imagekit_tpu_torch.codecs.native import av1_dec_abi
+
+    lib = ctypes.CDLL(sys.argv[1]) if len(sys.argv) > 1 else None
+    if lib is not None:
+        av1_dec_abi.load(lib)
+    out = {}
+    for name, hexdata in json.loads(sys.stdin.read()).items():
+        data = bytes.fromhex(hexdata)
+        buf = ctypes.create_string_buffer(data, len(data))  # exact size
+        try:
+            y, u, v, info = av1_dec_abi.decode_samples(
+                buf.raw, lib, select=av1_dec_abi.LAST)
+            h = hashlib.sha256(y.tobytes())
+            for p in (u, v):
+                if p is not None:
+                    h.update(p.tobytes())
+            out[name] = [h.hexdigest(), info.tools]
+        except ValueError:
+            out[name] = ["400", {}]
+    print(json.dumps(out))
+""")
+
+
+def test_inter_decoder_under_address_sanitizer(av1_asan_lib):
+    """``av1_decode.cpp``'s inter prediction under ASan and UBSan, each
+    stream in a buffer of exactly its size: streams of every inter tool
+    (``make_avif_sources.INTER_CASES``, all frames to the last) decode to
+    the normal build's planes; hostile ones
+    (``test_torch_av1_inter.hostile_inter_streams``: references at and
+    past the 2x / 16x rule, empty slots, tiles cut short, byte flips that
+    send vectors far outside the frame and give local warps invalid
+    shears) decode as the normal build does or are refused as it refuses
+    them; the sanitizers report nothing."""
+    from tests.fixtures.make_avif_sources import INTER_CASES, _aom_lib
+
+    if _aom_lib() is None:
+        pytest.skip("libaom.so.3 (the streams' writer) unavailable")
+    from tests.test_torch_av1_inter import hostile_inter_streams, stream
+
+    cases = {f"good/{k}": stream(k)[0] for k in INTER_CASES}
+    cases.update({f"hostile/{k}": v
+                  for k, v in hostile_inter_streams().items()})
+    cases = json.dumps({k: v.hex() for k, v in cases.items()})
+    normal = subprocess.run([sys.executable, "-c", _INTER],
+                            input=cases, capture_output=True, text=True,
+                            timeout=600, cwd=ROOT)
+    assert normal.returncode == 0, normal.stderr[-6000:]
+    asan, cxx = (subprocess.run(["g++", f"-print-file-name={lib}"],
+                                capture_output=True, text=True).stdout.strip()
+                 for lib in ("libasan.so", "libstdc++.so.6"))
+    env = {**os.environ, "LD_PRELOAD": f"{asan} {cxx}",
+           "ASAN_OPTIONS": "detect_leaks=0:abort_on_error=1",
+           "UBSAN_OPTIONS": "print_stacktrace=1:halt_on_error=1"}
+    proc = subprocess.run([sys.executable, "-c", _INTER, str(av1_asan_lib)],
+                          input=cases, capture_output=True, text=True,
+                          env=env, timeout=900, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-6000:]
+    assert "Sanitizer" not in proc.stderr, proc.stderr[-6000:]
+    assert "runtime error" not in proc.stderr, proc.stderr[-6000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    want = json.loads(normal.stdout.strip().splitlines()[-1])
+    assert got == want
+    assert all(got[f"good/{k}"][0] != "400" for k in INTER_CASES)
+    assert got["hostile/size_past_2x"][0] == "400"
+    assert got["hostile/size_past_16x"][0] == "400"
+    assert got["hostile/empty_slots"][0] == "400"
+    assert got["hostile/size_16x_smaller"][1]["scaled"] > 0
+    for tool in ("mv_outside", "warp_invalid"):
+        assert sum(t.get(tool, 0) for _, t in got.values()), tool
 
 
 if __name__ == "__main__":

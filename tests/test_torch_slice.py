@@ -8,8 +8,8 @@ against the JAX engine in ``test_torch_rgb_slice.py``).
   on at most 0.1% of pixels; expected exact, since both heads sum fp32 in
   almost the same order) and the WebP dimensions are equal.
 - The port's HTTP app: ``/sign`` -> ``/img`` -> 200 ``image/webp`` with the
-  reference's cache headers for JPEG and PNG sources, and 501 for requests
-  outside the ported slices.
+  reference's cache headers for JPEG and PNG sources, and the reference's
+  400 for an AVIF that does not decode.
 
 The 1080p flagship geometry runs on the card in ``chip_smoke.py``; its
 weight stacks are pinned here in ``test_torch_weights.py``.
@@ -22,14 +22,16 @@ import numpy as np
 import pytest
 from aiohttp.test_utils import TestClient, TestServer
 
+from imagekit_tpu import codecs as ref_codecs
 from imagekit_tpu import config as ref_config
 from imagekit_tpu.codecs import vp8 as ref_vp8
+from imagekit_tpu.errors import TransformError as RefTransformError
 from imagekit_tpu.serving.metrics import Metrics as RefMetrics
 from imagekit_tpu_torch.cache import cloudflare_cache_headers
 from imagekit_tpu_torch.codecs import vp8
 from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
 from imagekit_tpu_torch.config import BatchConfig, ImageFormat, ImageKitConfig
-from imagekit_tpu_torch.errors import NotPortedError
+from imagekit_tpu_torch.errors import NotPortedError, TransformError
 from imagekit_tpu_torch.fetch import Fetcher, _BodyStream
 from imagekit_tpu_torch.serving import jpeg_transport
 from imagekit_tpu_torch.serving.app import create_app
@@ -167,12 +169,13 @@ def test_cuda_device_is_never_implicit():
                                   "upscale_k8", "webp_src", "rgba_png",
                                   "avif_src"])
 def test_off_slice_requests_raise_not_ported(case):
-    """Each request outside the ported slices raises NotPortedError naming
-    its ROADMAP item (an AVIF source of the decoder's remainder, here an
-    inter frame as the stream's output frame, is what is left); an RGB PNG, a
+    """Requests that were once outside the ported slices: an RGB PNG, a
     JPEG to JPEG, AVIF output, a downscale under 2x (k=8), a lossy WebP
-    source, an RGBA PNG (the plain RGB head) and a request with no resize,
-    once off the slice, are now served."""
+    source, an RGBA PNG (the plain RGB head) and a request with no resize
+    are now served; an AVIF source whose output frame is an INTER frame,
+    the decoder's last remainder, decodes since inter prediction is built,
+    so the one kept here, an INTER frame of no reference, fails as the
+    reference fails it (a TransformError in the same words, not a 501)."""
     img = make_test_image(320, 240)
     data, fmt, w = encode_jpeg_pil(img), ImageFormat.webp, 64
     if case == "png":
@@ -214,9 +217,12 @@ def test_off_slice_requests_raise_not_ported(case):
         out = asyncio.run(run())
         assert out[4:12] == b"ftypavif" and engine.metrics.batches == 1
         return
-    with pytest.raises(NotPortedError, match="ROADMAP") as e:
+    with pytest.raises(TransformError) as e:
         asyncio.run(run())
-    assert e.value.roadmap_item == "queue 1 item 12"
+    assert not isinstance(e.value, NotPortedError)
+    with pytest.raises(RefTransformError) as want:
+        ref_codecs.decode_bytes(data)
+    assert str(e.value) == str(want.value)
 
 
 # -- HTTP --------------------------------------------------------------------
@@ -319,7 +325,7 @@ def test_http_sign_then_img_serves_webp_then_hits_cache(tmp_path):
     ({"url": BMP, "w": "64"}, 200),          # BMP source: served
     ({"url": JPG, "w": "256", "f": "jpeg"}, 200),  # JPEG -> JPEG: served
     ({"url": JPG}, 200),                      # no resize: served
-    ({"url": AVIF, "w": "256"}, 501),        # AVIF with QMs: not ported
+    ({"url": AVIF, "w": "256"}, 400),        # AVIF of no reference: 400
     ({"url": JPG, "w": "256", "q": "0"}, 400),  # the reference's own 400
     ({"url": PNG, "w": "64"}, 200),          # RGB PNG source: served
 ])

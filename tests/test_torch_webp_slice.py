@@ -15,8 +15,8 @@ the CPU, against the JAX package.
   k = 8 on the int16 transport. What each engine hands its host encoder is
   compared.
 - The HTTP contract: ``/img`` and ``/upload`` serve WebP sources; a PNG
-  whose data is damaged answers ``/img`` with the reference's body; what
-  is still outside the slices answers 501 naming its ROADMAP item.
+  whose data is damaged answers ``/img`` with the reference's body; an
+  AVIF that does not decode fails in the reference's words.
 
 Tolerance: u8 planes and the int16 levels of WebP -> JPEG within max |d|
 <= 1 on at most 0.1% of elements, the reference's band
@@ -35,9 +35,11 @@ from aiohttp import FormData
 from aiohttp.test_utils import TestClient, TestServer
 from PIL import Image
 
+from imagekit_tpu import codecs as ref_codecs
 from imagekit_tpu import config as ref_config
 from imagekit_tpu.codecs import vp8 as ref_vp8
 from imagekit_tpu.codecs.native import loader as ref_loader
+from imagekit_tpu.errors import TransformError as RefTransformError
 from imagekit_tpu.serving.metrics import Metrics as RefMetrics
 from imagekit_tpu_torch.codecs import vp8
 from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
@@ -368,11 +370,12 @@ def test_yuv_batches_split_by_output_format():
 @pytest.mark.parametrize("case", ["rgba_lossless", "vp8x_alph", "avif_src",
                                   "avif_out", "no_resize"])
 def test_webp_requests_outside_the_slice_are_not_ported(case):
-    """An AVIF source of the decoder's remainder (an inter frame as its
-    output frame) is what is left; WebPs with alpha (the plain RGB
-    head), a request with no resize and AVIF output (the YUV head and the
-    first-party AV1 encoder), once here, are served."""
-    fmt, w, item = ImageFormat.webp, 32, "queue 1 item 9"
+    """WebPs with alpha (the plain RGB head), a request with no resize and
+    AVIF output (the YUV head and the first-party AV1 encoder), once here,
+    are served; the AVIF source once left (an INTER frame as its output
+    frame, here one of no reference) fails as the reference fails it, a
+    TransformError in the same words, not a 501."""
+    fmt, w = ImageFormat.webp, 32
     engine = PortEngine(_cfg(1), metrics=Metrics(), device="cpu")
     if case in EXTENDED or case == "no_resize":
         data = (EXTENDED[case]() if case in EXTENDED
@@ -389,10 +392,13 @@ def test_webp_requests_outside_the_slice_are_not_ported(case):
         (out,) = _drive(engine, [data], [w], ImageFormat.avif)
         assert out[4:12] == b"ftypavif" and engine.metrics.batches == 1
         return
-    data, item = remainder_avif(), "queue 1 item 12"
-    with pytest.raises(NotPortedError, match="ROADMAP") as e:
+    data = remainder_avif()
+    with pytest.raises(TransformError) as e:
         _drive(engine, [data], [w], fmt)
-    assert e.value.roadmap_item == item
+    assert not isinstance(e.value, NotPortedError)
+    with pytest.raises(RefTransformError) as want:
+        ref_codecs.decode_bytes(data)
+    assert str(e.value) == str(want.value)
 
 
 def test_corrupt_lossy_webp_is_a_transform_error():
