@@ -285,6 +285,19 @@ decoded with Pillow: old-style, planar and extra-sample JPEG pages,
     file's batch against its plain version; rounds -> w=400 WebP (8 a
     round), one -> w=400 JPEG (8) and one -> w=160 AVIF (2): requests/s,
     p50/p99, host stages, idle share.
+30. several devices (``imagekit_tpu_torch/parallel``): ``parallel.dryrun.
+    dryrun_multichip`` on every visible card, or on four replicas of
+    ``cuda:0`` where there is one (each shard on its own stream); then one
+    full batch of each kernel's head through ``BatchedEngine`` on that grid
+    (data parallel: 1080p JPEG -> w=400 WebP on K1, PNG -> WebP and lossy
+    WebP -> WebP on K2, escape-dense JPEG -> JPEG on K3, JPEG -> w=1280
+    WebP on K4) against the
+    engine on the grid's first device: the bodies byte for byte, one launch
+    a shard a batch, each batch's device step replayed on both; a 9600x2400
+    RGB image -> 1280x320 with its height over four shards (K2's f32 entry
+    on each shard's channels as planes, the partials summed on the first
+    device) against one-device K2, the partials against their plain
+    version, timed.
 
 Rounds of phases 26 and 27 take 8 requests each (warmed by 4); every
 phase's sources are made while nvcc builds the kernels.
@@ -6298,6 +6311,291 @@ def phase_inter_avifs(card: str) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 30: several devices (the engine's batches over a device grid, an
+# oversized image's height over space shards)
+# ---------------------------------------------------------------------------
+
+
+#: each kernel's launch counter: (module name under imagekit_tpu_torch.ops,
+#: attribute)
+KERNEL_COUNTERS = {"k1": ("jpeg8", "LAUNCHES"),
+                   "k2": ("resize_strip", "LAUNCHES"),
+                   "k3": ("resize_planes", "LAUNCHES"),
+                   "k4": ("resize_planes", "LAUNCHES_F32")}
+
+
+def kernel_counter(kern: str):
+    import importlib
+
+    mod, name = KERNEL_COUNTERS[kern]
+    return importlib.import_module(f"imagekit_tpu_torch.ops.{mod}"), name
+
+
+def grid_round(engine, datas, width: int, fmt, steps: dict, key: str):
+    """One full batch of ``datas`` through ``engine``; the batch's device
+    step is kept in ``steps[key]`` as (run_shards, nb, step, engine) for
+    a replay, which closes the engine after it (:func:`step_ms`: a grid's
+    step runs on the engine's shard threads)."""
+    real = engine._run_shards
+
+    def keep(nb, step):
+        steps[key] = (real, nb, step, engine)
+        return real(nb, step)
+
+    engine._run_shards = keep
+
+    async def run():
+        return await asyncio.gather(*(
+            engine.transform(d, width, None, fmt, 80) for d in datas))
+
+    try:
+        return asyncio.run(run())
+    except BaseException:
+        asyncio.run(engine.close())
+        raise
+
+
+def step_ms(steps: dict, key: str, reps: int = 10) -> tuple:
+    """(device ms, host wall ms) of one replay of a kept batch step: the
+    device's kernels and copies summed by ``torch.profiler`` (or CUDA
+    events, :func:`device_ms`), and the median wall time of ``reps`` calls
+    (pinning, copies, launches and readback); closes the round's
+    engine."""
+    real, nb, step, engine = steps[key]
+    try:
+        dev = device_ms(lambda: real(nb, step), reps=reps)
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            real(nb, step)
+            walls.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        asyncio.run(engine.close())
+    return dev, statistics.median(walls)
+
+
+def device_top(fn, reps: int = 5, n: int = 6) -> list:
+    """The ``n`` device activities (kernels, copies) of ``fn`` that take
+    the most time, as (name, ms a call), from the raw records of one
+    ``torch.profiler`` trace over ``reps`` calls; empty where the trace
+    holds no device record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    total: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            total[e.name()] = total.get(e.name(), 0) + (
+                e.end_ns() - e.start_ns()) / 1e6 / reps
+    return sorted(total.items(), key=lambda kv: -kv[1])[:n]
+
+
+def phase_mesh(jpegs, dense, pngs, webps, card: str) -> dict:
+    """``parallel.dryrun.dryrun_multichip`` on the grid of
+    ``parallel.mesh.grid_devices``; then one full batch of each kernel's head through
+    the engine on that grid (data parallel) and through the engine on its
+    first device: the bodies byte for byte, one launch a shard a batch
+    (the counts set to 0 just before the grid's round and read just
+    after), and each batch's device step replayed on both; then a
+    9600x2400 RGB image -> 1280x320 with its height over four shards (K2's
+    f32 entry on each shard's channels as planes, over the output rows
+    with a tap in the shard) against one-device K2, the partials against
+    their plain version."""
+    from imagekit_tpu_torch.config import BatchConfig, ImageFormat, ImageKitConfig
+    from imagekit_tpu_torch.ops import resize_strip, weights
+    from imagekit_tpu_torch.parallel import dryrun, make_mesh, sharding
+    from imagekit_tpu_torch.parallel.mesh import grid_devices
+    from imagekit_tpu_torch.parallel.tiling import resize_oversized
+    from imagekit_tpu_torch.serving.batcher import BatchedEngine
+    from imagekit_tpu_torch.serving.metrics import Metrics
+
+    devices = grid_devices()
+    t0 = time.perf_counter()
+    report = dryrun.dryrun_multichip(len(devices), devices)
+    eng = report["engine"]
+    log(f"  dryrun_multichip over {len(devices)} devices ({report['devices']},"
+        f" grid {report['grid']}): sharded resample data parallel max|d|="
+        f"{report['data_parallel']['max_abs_err']} over "
+        f"{report['data_parallel']['shards']} shards, spatial max|d|="
+        f"{report['spatial']['max_abs_err']} "
+        f"({report['spatial']['values_differ']} values differ) over "
+        f"{report['spatial']['shards']}; engine JPEG -> "
+        f"WebP {eng['requests']} requests over {eng['shards']} shards of "
+        f"{eng['items_a_shard']}: bodies equal {eng['bodies_equal']}, "
+        f"{eng['arrays_a_shard']} arrays placed a shard, each on its device "
+        f"({time.perf_counter() - t0:.2f} s)")
+    grid = make_mesh(devices=devices)
+    ndev = grid.size
+    W, J = ImageFormat.webp, ImageFormat.jpeg
+    # (case, kernel, what, sources, width, format, requests: one batch)
+    cases = (
+        ("k1", "k1", "1080p JPEG -> w=400 WebP (K1, split int8, k=2)", jpegs,
+         400, W, 32),
+        ("k2", "k2", "1080p RGB PNG -> w=400 WebP (K2, rgbyuv)", pngs, 400,
+         W, 32),
+        ("k2_yuv", "k2", "1080p lossy WebP -> w=400 WebP (K2, Y + Cb + Cr)",
+         webps, 400, W, 8),
+        ("k3", "k3", "escape-dense JPEG -> w=400 JPEG (K3, the demoted RGB "
+         "head)", dense, 400, J, 8),
+        ("k4", "k4", "1080p JPEG -> w=1280 WebP (K4, k=8)", jpegs, 1280, W,
+         32),
+    )
+    out = {"devices": [str(d) for d in devices], "shards": ndev,
+           "dryrun": report}
+    for case, kern, what, srcs, width, fmt, n in cases:
+        datas = [srcs[i % len(srcs)] for i in range(n)]
+        cfg = ImageKitConfig(secret=SECRET, batch=BatchConfig(
+            max_batch=n, max_delay_ms=60_000.0, hard_delay_ms=60_000.0))
+        steps: dict = {}
+        mod, name = kernel_counter(kern)
+        on_grid = BatchedEngine(cfg, metrics=Metrics(), mesh=grid)
+        if not on_grid._use_mesh(n):
+            raise RuntimeError(f"a batch of {n} does not split over {ndev}")
+        for other in KERNEL_COUNTERS:
+            setattr(*kernel_counter(other), 0)
+        t1 = time.perf_counter()
+        sharded = grid_round(on_grid, datas, width, fmt, steps, "grid")
+        grid_s = time.perf_counter() - t1
+        launches = getattr(mod, name)
+        batches = on_grid.metrics.batches
+        t1 = time.perf_counter()
+        one = grid_round(BatchedEngine(cfg, metrics=Metrics(),
+                                       device=devices[0]),
+                         datas, width, fmt, steps, "one")
+        one_s = time.perf_counter() - t1
+        if batches != 1 or launches != ndev * batches:
+            raise RuntimeError(f"{what}: {launches} launches for {batches} "
+                               f"batches over {ndev} shards")
+        if sharded != one:
+            raise RuntimeError(f"{what}: the grid's bodies differ from one "
+                               f"device's")
+        ms_grid, wall_grid = step_ms(steps, "grid")
+        ms_one, wall_one = step_ms(steps, "one")
+        log(f"  {what}, B={n}: {ndev} shards of {n // ndev}, {launches} "
+            f"launches for {batches} batch; bodies equal to one device's "
+            f"({len(one)} requests; rounds {grid_s:.2f} s on the grid, "
+            f"{one_s:.2f} s on one device); the batch's device step "
+            f"(kernels and copies, torch.profiler over 10): grid "
+            f"{ms_grid:.4f} ms, one device {ms_one:.4f} ms; host wall a "
+            f"step {wall_grid:.2f} / {wall_one:.2f} ms [{card}]")
+        out[case] = {"launches": launches, "batches": batches, "batch": n,
+                     "grid_step_ms": ms_grid, "one_device_step_ms": ms_one,
+                     "grid_wall_ms": wall_grid, "one_device_wall_ms": wall_one}
+
+    # -- the height over space shards: 9600x2400 RGB -> 1280x320
+    pw, ph = PANORAMA
+    img = synth_image(7, pw, ph)
+    ow, oh = weights.target_dimensions(pw, ph, 1280, None)
+    space = min(ndev, 4)
+    sgrid = make_mesh(space, space=space, devices=devices)
+    before = (resize_strip.LAUNCHES, resize_strip.LAUNCHES_STRIPS)
+    got = resize_oversized(img, oh, ow, mesh=sgrid)
+    torch.cuda.synchronize()
+    launches = resize_strip.LAUNCHES - before[0]
+    strips = resize_strip.LAUNCHES_STRIPS - before[1]
+    if launches != space:
+        raise RuntimeError(f"the height split made {launches} K2 launches, "
+                           f"not {space}")
+    one = resize_oversized(img, oh, ow, device=devices[0])
+    mx, share1, over_band = compare(torch.from_numpy(got),
+                                    torch.from_numpy(one))
+    differ = int((got != one).sum())
+    if mx > MAX_ABS or share1 > MAX_SHARE or over_band:
+        raise RuntimeError(f"the height split disagrees with one device: "
+                           f"max|d|={mx}, share(|d|=1)={share1:.3e}")
+    wv = weights.resample_weights(ph, oh)[None]
+    wh = weights.resample_weights(pw, ow)[None]
+    xs = sharding.shard_batch(img[None], sgrid, spatial=True)
+    wvs = sharding.shard_batch(wv, sgrid, spatial=True)
+    whs = sharding.shard_batch(wh, sgrid)
+    spans = sharding.row_spans(wv, space)
+    shard_wvs = [w[:, r0:r1].contiguous() for w, (r0, r1) in zip(wvs[0],
+                                                                  spans)]
+    # each shard's partials against K2's plain f32 version
+    f32_err, part_bytes = 0.0, 0
+    for x, wv_s, wh_s in zip(xs[0], shard_wvs, whs[0]):
+        part = sharding.shard_partials(x, wv_s, wh_s)
+        part_bytes += part.numel() * 4
+        vidx = torch.zeros(1, dtype=torch.int32, device=x.device)
+        plain = torch.stack([resize_strip.resize_plain_f32(
+            x[..., c].contiguous(), wv_s, wh_s, vidx) for c in range(3)])
+        f32_err = max(f32_err, float((part - plain).abs().max()))
+        if not torch.allclose(part, plain, rtol=1e-5, atol=1e-2):
+            raise RuntimeError("a shard's f32 partials disagree with K2's "
+                               "plain version")
+    first = devices[0]
+    split = functools.partial(sharding.resample_pieces, xs, wvs, whs, first,
+                              spans)
+    ms = device_ms(split)
+    top = device_top(split)
+    # the four launches that write the partials, apart from the sum, the
+    # rounding and the tables
+    launches_ms = (sum(t for name, t in top if "band_resize_kernel" in name)
+                   if top else None)
+
+    def plain_pieces():
+        acc = torch.zeros((3, 1, oh, ow), device=first)
+        for x, wv_s, wh_s, (r0, r1) in zip(xs[0], shard_wvs, whs[0], spans):
+            vidx = torch.zeros(1, dtype=torch.int32, device=x.device)
+            acc[:, :, r0:r1] += torch.stack([resize_strip.resize_plain_f32(
+                x[..., c].contiguous(), wv_s, wh_s, vidx)
+                for c in range(3)]).to(first)
+        return acc
+
+    plain_ms = device_ms(plain_pieces, reps=3)
+    x1 = torch.from_numpy(img.reshape(1, ph, -1)).to(first)
+    wv1, wh1 = (torch.from_numpy(a).to(first) for a in (wv, wh))
+    idx = torch.zeros(1, dtype=torch.int32, device=first)
+    tabs = resize_strip.resize_tables(wv1, wh1)
+    one_ms = device_ms(lambda: resize_strip.rgb_resize(
+        x1, wv1, wh1, idx, idx, bands=tabs))
+    # as the split runs: its tables built in the call
+    one_tables_ms = device_ms(lambda: resize_strip.rgb_resize(
+        x1, wv1, wh1, idx, idx))
+    chans = [x1.reshape(1, ph, pw, 3)[..., c].float() for c in range(3)]
+    library_ms = device_ms(lambda: [torch.einsum(
+        "boh,bhw,bpw->bop", wv1, x_, wh1) for x_ in chans], reps=3)
+    del chans
+    # the function's own bytes: the image in, the u8 result out
+    nbytes, flops = resize_bound(
+        x1.numel(), 3 * oh * ow, wv1, tabs.band_v,
+        resize_strip.band_table(wh1), idx, idx, pw)
+    bound_ms, bound_by = bound(nbytes, 3 * flops)
+    log(f"  {pw}x{ph} RGB -> {ow}x{oh}, height over {space} shards of "
+        f"{ph // space} rows, output rows {spans} ({launches} f32 K2 "
+        f"launches, {strips} in column strips; {part_bytes} bytes of "
+        f"partials summed on {first}): against one-device K2 max|d|={mx}, "
+        f"{differ} of {got.size} values differ; partials vs plain "
+        f"max|d|={f32_err:.3e}; device ms (torch.profiler) split {ms:.4f} "
+        f"(tables, launches, sum, rounding), of it the {launches} launches "
+        f"{'not measured' if launches_ms is None else f'{launches_ms:.4f}'};"
+        f" one device {one_ms:.4f} (tables built: "
+        f"{one_tables_ms:.4f}), plain {plain_ms:.4f}, library "
+        f"{library_ms:.4f}; bound {bound_ms:.4f} ({bound_by}, the image in "
+        f"and the u8 result out) [{card}]")
+    log("    where the split's device time goes (torch.profiler, 5 calls, ms "
+        "a call): " + ("; ".join(f"{name[:60]} {t:.4f}" for name, t in top)
+                       or "not measured (no device record)"))
+    out["spatial"] = {"launches": launches, "strip_launches": strips,
+                      "max_abs_err": mx,
+                      "values_differ": differ, "f32_max_abs_err": f32_err,
+                      "ms": ms, "launches_ms": launches_ms,
+                      "partial_bytes": part_bytes, "one_device_ms": one_ms,
+                      "one_device_tables_ms": one_tables_ms,
+                      "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": library_ms}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -6510,6 +6808,13 @@ def main() -> int:
           "libdav1d's digests), the RGB and YUV heads (K2), "
           "BatchedEngine(device='cuda').transform")
     inter29 = phase_inter_avifs(card)
+
+    begin("[30] several devices: parallel.dryrun.dryrun_multichip, then one "
+          "batch of each kernel's head through BatchedEngine on a device grid"
+          " (every card, or four replicas of cuda:0 where there is one) "
+          "against the engine on one device, and a 9600x2400 image's height "
+          "over four shards")
+    mesh30 = phase_mesh(jpegs, dense, pngs, webps, card)
     end_phase()
     log("    seconds a phase (heading to heading): " + ", ".join(
         f"[{k}] {v:.2f}" for k, v in PHASE_S.items()))
@@ -6523,6 +6828,11 @@ def main() -> int:
         "replaces": "imagekit_tpu/ops/pallas_jpeg8.py:159",
         "launches": eng["launches"],
         "avif_launches": avif_n["decode_resize_yuv_lowfreq_i8_batch"],
+        # phase 30: the engine's batch over the device grid, one launch a
+        # shard, and its device step against one device's
+        "grid_launches": mesh30["k1"]["launches"],
+        "grid": {key: mesh30["k1"][key] for key in (
+            "batch", "batches", "grid_step_ms", "one_device_step_ms")},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],
@@ -6536,6 +6846,11 @@ def main() -> int:
         "replaces": "imagekit_tpu/ops/pallas_resize.py:155",
         "launches": png_eng["launches"],
         "avif_launches": avif_n["resample_rgb_yuv_batch"],
+        # phase 30: the engine's batch over the device grid, one launch a
+        # shard, and its device step against one device's
+        "grid_launches": mesh30["k2"]["launches"],
+        "grid": {key: mesh30["k2"][key] for key in (
+            "batch", "batches", "grid_step_ms", "one_device_step_ms")},
         "pillow_source_launches": pillow["k2_launches"],
         "pillow_fallback_launches": fallbacks["k2_launches"],
         "tiff_jpeg_launches": tiffj["k2_launches"],
@@ -6571,6 +6886,11 @@ def main() -> int:
         "replaces": "imagekit_tpu/ops/pallas/resize_kernel.py:157",
         "launches": jxc["k3_launches"],
         "avif_launches": avif_n["decode_resize_rgb_batch"],
+        # phase 30: the engine's batch over the device grid, one launch a
+        # shard, and its device step against one device's
+        "grid_launches": mesh30["k3"]["launches"],
+        "grid": {key: mesh30["k3"][key] for key in (
+            "batch", "batches", "grid_step_ms", "one_device_step_ms")},
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"],
         "plain_ms": k3["plain_ms"],
@@ -6653,6 +6973,11 @@ def main() -> int:
         "launches": (paths["decode_resize_yuv_i8_batch"]["launches"]
                      + paths["decode_resize_yuv_batch"]["launches"]),
         "avif_launches": avif_n["decode_resize_yuv_i8_batch"],
+        # phase 30: the engine's batch over the device grid, one launch a
+        # shard, and its device step against one device's
+        "grid_launches": mesh30["k4"]["launches"],
+        "grid": {key: mesh30["k4"][key] for key in (
+            "batch", "batches", "grid_step_ms", "one_device_step_ms")},
         "max_abs_err": max(k4_u8["max_abs_err"], k3["max_abs_err_f32"]),
         **{key: k4_u8[key] for key in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")},
@@ -6682,6 +7007,10 @@ def main() -> int:
         "launches": (paths["resize_yuv420_batch"]["launches"]
                      + paths["resize_yuv_jpeg_batch"]["launches"]),
         "avif_launches": avif_n["resize_yuv420_batch"],
+        # phase 30: a WebP-source batch over the device grid
+        "grid_launches": mesh30["k2_yuv"]["launches"],
+        "grid": {key: mesh30["k2_yuv"][key] for key in (
+            "batch", "batches", "grid_step_ms", "one_device_step_ms")},
         **{key: k2_yuv[key] for key in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by", "library_ms")},
         # phase 27's AVIF batches at B=8: 4:2:0 (screen content, 10-bit,
@@ -6738,6 +7067,13 @@ def main() -> int:
         "rgba_8192_bucket": {key: over["rgba_8192"][key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
+        # phase 30: the same rows' height over four shards, K2's f32 entry
+        # a shard on its channels as planes over its output rows, the
+        # partials summed on the first device
+        "grid_spatial": {key: mesh30["spatial"][key] for key in (
+            "launches", "max_abs_err", "values_differ", "ms", "launches_ms",
+            "partial_bytes", "one_device_ms", "one_device_tables_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "flagship_strips_of_128": {
             f"{ch}ch": {key: over[f"flagship_{ch}ch"][key] for key in (
                 "ms", "bound_ms", "library_ms")} for ch in (3, 4)},

@@ -127,8 +127,15 @@ def resolve(device) -> torch.device:
     return resolve_device("cuda" if device is None else device)
 
 
-def to_host(flat: torch.Tensor, device: torch.device):
-    """Wait for the head's kernels on this stream, then copy out to numpy."""
+def to_host(flat: torch.Tensor, device: torch.device, host: bool = True):
+    """Wait for the head's kernels on this stream, then copy out to numpy.
+    With ``host`` False, ``flat`` itself: the heads take ``host`` for a
+    caller that reads their results back itself, and whose heads' tails
+    (slices and reshapes) then give device views
+    (``serving/batcher.py::_run_shards`` launches every shard of a batch
+    before it reads any back)."""
+    if not host:
+        return flat
     if device.type == "cuda":
         torch.cuda.current_stream(device).synchronize()
     return flat.cpu().numpy()
@@ -153,15 +160,17 @@ def split_yuv(flat, obh: int, obw: int, block: int = 1):
 
 
 def resample_rgb_yuv_batch(imgs_flat, weights, vidx, hidx, out_shape,
-                           bands=None, device: Optional[torch.device] = None):
+                           bands=None, device: Optional[torch.device] = None,
+                           host: bool = True):
     """Run the rgbyuv head; returns (Y, U, V) u8 numpy planes of shapes
-    (B, OHb, OWb) and (B, OHb/2, OWb/2) x2 (cropped by the caller)."""
+    (B, OHb, OWb) and (B, OHb/2, OWb/2) x2 (cropped by the caller); with
+    ``host`` False, device views (:func:`to_host`)."""
     wv, wh = weights
     obh, obw = out_shape
     device = resolve(device)
     x, wv, wh, vidx, hidx = on_device((imgs_flat, wv, wh, vidx, hidx), device)
     flat = to_host(rgb_yuv_head(x, wv, wh, vidx, hidx,
-                                tables_on(bands, device)), device)
+                                tables_on(bands, device)), device, host)
     return split_yuv(flat, obh, obw)
 
 

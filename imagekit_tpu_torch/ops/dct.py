@@ -143,9 +143,11 @@ def decode_resize_yuv_lowfreq_i8_batch(
     k: int,
     bands=None,
     device: Optional[torch.device] = None,
+    host: bool = True,
 ):
     """Run the split-int8 truncated head (``dct.py:711``); returns (Y, Cb,
     Cr) u8 numpy planes of shapes (B, obh, obw) and (B, obh/2, obw/2) x2.
+    With ``host`` False, device views (:func:`~.color.to_host`).
 
     Inputs are numpy arrays or tensors; they are moved to ``device``, the
     card unless the caller names another. One K1 launch on CUDA, its plain
@@ -159,7 +161,7 @@ def decode_resize_yuv_lowfreq_i8_batch(
     if bands is not None:
         bands = tuple(on_device(bands, device))
     flat = jpeg8.folded_planes_i8(dcs, acs, escs, qt, stacks, bands, vidx, k)
-    return split_yuv(to_host(flat, device), obh, obw)
+    return split_yuv(to_host(flat, device, host), obh, obw)
 
 
 def _split_on_device(dc_arrays, ac_arrays, escapes, qtabs, weights, vidx,
@@ -313,11 +315,12 @@ def decode_resize_rgb(y_flat, cb_flat, cr_flat, qtabs, wv_y, wh_y, wv_c,
 def decode_resize_rgb_batch(y_flat, cb_flat, cr_flat, qtabs, weights, vidx,
                             block_dims, out_shape, bands=None,
                             device: Optional[torch.device] = None,
-                            ycc: bool = True):
+                            ycc: bool = True, host: bool = True):
     """Run the RGB-output head (``dct.py:1717``); returns (B, OHb, OWb, 3)
     u8 numpy (crop on the host). One K3 launch on CUDA, K3's plain
     version on the CPU. ``ycc`` False: planes coded as RGB, no colour
-    step (the JPEG pixel decode of such a frame)."""
+    step (the JPEG pixel decode of such a frame). With ``host`` False, a
+    device view (:func:`~.color.to_host`)."""
     wv_y, wh_y, wv_c, wh_c = weights
     obh, obw = out_shape
     device = resolve(device)
@@ -325,7 +328,7 @@ def decode_resize_rgb_batch(y_flat, cb_flat, cr_flat, qtabs, weights, vidx,
                       wh_c, vidx), device)
     flat = to_host(decode_resize_rgb(*args, *block_dims,
                                      bands=tables_on(bands, device), ycc=ycc),
-                   device)
+                   device, host)
     return flat.reshape(flat.shape[0], obh, obw, 3)
 
 
@@ -366,12 +369,14 @@ def transcode_i8(dcs, acs, escs, qt_in, qt_out, stacks, vidx, block_dims,
 
 def transcode_i8_batch(dc_arrays, ac_arrays, escapes, qt_in, qt_out,
                        weights, vidx, block_dims, out_shape, k: int,
-                       bands=None, device: Optional[torch.device] = None):
+                       bands=None, device: Optional[torch.device] = None,
+                       host: bool = True):
     """Run the jxc transcode (``dct.py:1036``); returns (y, cb, cr) int16
     numpy levels of shapes (B, OHb/8, OWb/8, 64) and (B, OHb/16, OWb/16,
     64) x2, natural order: slice to the true MCU grid and hand them to the
     host Huffman encoder. ``bands`` is the folded stacks' band tables for
-    k < 8, or None."""
+    k < 8, or None. With ``host`` False, device views
+    (:func:`~.color.to_host`)."""
     obh, obw = out_shape
     device = resolve(device)
     dcs, acs, escs, qt, stacks, vidx = _split_on_device(
@@ -381,22 +386,24 @@ def transcode_i8_batch(dc_arrays, ac_arrays, escapes, qt_in, qt_out,
         bands = tuple(on_device(bands, device))
     flat = transcode_i8(dcs, acs, escs, qt, qt_out, stacks, vidx, block_dims,
                         k, bands)
-    return split_yuv(to_host(flat, device), obh, obw, block=8)
+    return split_yuv(to_host(flat, device, host), obh, obw, block=8)
 
 
 def resample_rgb_jpeg_batch(imgs_flat, weights, vidx, hidx, qt_out,
                             out_shape, bands=None,
-                            device: Optional[torch.device] = None):
+                            device: Optional[torch.device] = None,
+                            host: bool = True):
     """Run the rgbjpg head; returns (y, cb, cr) int16 numpy levels of
     shapes (B, OHb/8, OWb/8, 64) and (B, OHb/16, OWb/16, 64) x2, natural
-    order, for the host Huffman encoder."""
+    order, for the host Huffman encoder. With ``host`` False, device views
+    (:func:`~.color.to_host`)."""
     wv, wh = weights
     obh, obw = out_shape
     device = resolve(device)
     x, wv, wh, vidx, hidx, qt_out = on_device(
         (imgs_flat, wv, wh, vidx, hidx, qt_out), device)
     flat = to_host(rgb_jpeg_head(x, wv, wh, vidx, hidx, qt_out,
-                                 tables_on(bands, device)), device)
+                                 tables_on(bands, device)), device, host)
     return split_yuv(flat, obh, obw, block=8)
 
 
@@ -449,42 +456,48 @@ def decode_resize_yuv_i8(dcs, acs, escs, qtabs, stacks, vidx, block_dims,
 
 def decode_resize_yuv_i8_batch(dc_arrays, ac_arrays, escapes, qtabs, weights,
                                vidx, block_dims, out_shape, bands=None,
-                               device: Optional[torch.device] = None):
+                               device: Optional[torch.device] = None,
+                               host: bool = True):
     """Run the k = 8 split-transport YUV head (``dct.py:1094``); returns
     (Y, Cb, Cr) u8 numpy planes of shapes (B, obh, obw) and (B, obh/2,
-    obw/2) x2. One K4 launch on CUDA, K4's plain version on the CPU."""
+    obw/2) x2. One K4 launch on CUDA, K4's plain version on the CPU. With
+    ``host`` False, device views (:func:`~.color.to_host`)."""
     obh, obw = out_shape
     device = resolve(device)
     dcs, acs, escs, qt, stacks, vidx = _split_on_device(
         dc_arrays, ac_arrays, escapes, qtabs, weights, vidx, device)
     flat = decode_resize_yuv_i8(dcs, acs, escs, qt, stacks, vidx, block_dims,
                                 tables_on(bands, device))
-    return split_yuv(to_host(flat, device), obh, obw)
+    return split_yuv(to_host(flat, device, host), obh, obw)
 
 
 def decode_resize_yuv_batch(y_flat, cb_flat, cr_flat, qtabs, weights, vidx,
                             block_dims, out_shape, bands=None,
-                            device: Optional[torch.device] = None):
+                            device: Optional[torch.device] = None,
+                            host: bool = True):
     """Run the k = 8 int16-transport YUV head (``dct.py:329``); returns
-    the planes as :func:`decode_resize_yuv_i8_batch`."""
+    the planes as :func:`decode_resize_yuv_i8_batch` (with ``host``
+    False, device views)."""
     obh, obw = out_shape
     device = resolve(device)
     y, cb, cr, qt, vidx = on_device((y_flat, cb_flat, cr_flat, qtabs, vidx),
                                     device)
     flat = decode_resize_yuv(y, cb, cr, qt, tuple(on_device(weights, device)),
                              vidx, block_dims, tables_on(bands, device))
-    return split_yuv(to_host(flat, device), obh, obw)
+    return split_yuv(to_host(flat, device, host), obh, obw)
 
 
 def decode_resize_yuv_lowfreq_batch(y_flat, cb_flat, cr_flat, qtabs, weights,
                                     vidx, block_dims, out_shape, k: int,
                                     bands=None,
-                                    device: Optional[torch.device] = None):
+                                    device: Optional[torch.device] = None,
+                                    host: bool = True):
     """Run the truncated head on the int16 transport (``dct.py:669``):
     (B, by, pad128(bx*k*k)) block-grouped levels per plane -> (Y, Cb, Cr)
-    u8 numpy planes. One K1 launch (its int16 entry) on CUDA, its plain
-    version on the CPU. ``bands`` is the four folded stacks' band tables,
-    or None."""
+    u8 numpy planes (with ``host`` False, device views,
+    :func:`~.color.to_host`). One K1 launch (its int16 entry) on CUDA, its
+    plain version on the CPU. ``bands`` is the four folded stacks' band
+    tables, or None."""
     del block_dims
     obh, obw = out_shape
     device = resolve(device)
@@ -495,7 +508,7 @@ def decode_resize_yuv_lowfreq_batch(y_flat, cb_flat, cr_flat, qtabs, weights,
     flat = jpeg8.folded_planes_i16(flats, qt,
                                    tuple(on_device(weights, device)), bands,
                                    vidx, k)
-    return split_yuv(to_host(flat, device), obh, obw)
+    return split_yuv(to_host(flat, device, host), obh, obw)
 
 
 # -- the YUV-source heads (decoded lossy WebP and AVIF) ----------------------
@@ -597,14 +610,16 @@ def resize_yuv_jpeg(flat, stacks, qt_out, vidx, in_shape, bands=None,
 
 def resize_yuv420_batch(flat, weights, vidx, in_shape, out_shape,
                         chroma_sub=(2, 2), mix=False, alpha=False,
-                        bands=None, device: Optional[torch.device] = None):
+                        bands=None, device: Optional[torch.device] = None,
+                        host: bool = True):
     """Run the YUV-domain resize (``dct.py:1436``): ``flat`` is the (B,
     pad128(bh*bw + 2*(bh/csy)*(bw/csx) [+ bh*bw])) u8 batch, Y, Cb, Cr
     [and alpha]; returns (Y, Cb, Cr[, A]) u8 numpy planes at bucket output
     shapes. ``weights`` is (wv_y, wh_y, wv_c, wh_c), plus the full-grid
     chroma stacks (wv_cf, wh_cf) with ``mix``; ``bands`` the matching
     (luma, chroma[, chroma full]) tables or None. One K2 launch on CUDA:
-    the u8 entry, or with ``mix`` the f32 one."""
+    the u8 entry, or with ``mix`` the f32 one. With ``host`` False, device
+    views (:func:`~.color.to_host`)."""
     obh, obw = out_shape
     device = resolve(device)
     flat, vidx = on_device((flat, vidx), device)
@@ -612,20 +627,22 @@ def resize_yuv420_batch(flat, weights, vidx, in_shape, out_shape,
                                               device)),
                         vidx, in_shape, tables_on(bands, device),
                         chroma_sub=tuple(chroma_sub), alpha=alpha, mix=mix)
-    host = to_host(out, device)
-    planes = split_yuv(host[:, :host.shape[1] - (obh * obw if alpha else 0)],
+    out = to_host(out, device, host)
+    planes = split_yuv(out[:, :out.shape[1] - (obh * obw if alpha else 0)],
                        obh, obw)
     if alpha:
-        return planes + (host[:, -obh * obw:].reshape(-1, obh, obw),)
+        return planes + (out[:, -obh * obw:].reshape(-1, obh, obw),)
     return planes
 
 
 def resize_yuv_jpeg_batch(flat, weights, qt_out, vidx, in_shape, out_shape,
                           mix=False, bands=None,
-                          device: Optional[torch.device] = None):
+                          device: Optional[torch.device] = None,
+                          host: bool = True):
     """Run the YUV -> JPEG head (``dct.py:1377``); returns (y, cb, cr)
     int16 numpy levels of shapes (B, OHb/8, OWb/8, 64) and (B, OHb/16,
-    OWb/16, 64) x2 for the host Huffman encoder. 4:2:0 sources only, as the
+    OWb/16, 64) x2 for the host Huffman encoder (with ``host`` False,
+    device views, :func:`~.color.to_host`). 4:2:0 sources only, as the
     reference's. One K2 launch on CUDA (the f32 entry with ``mix``)."""
     obh, obw = out_shape
     device = resolve(device)
@@ -634,7 +651,7 @@ def resize_yuv_jpeg_batch(flat, weights, qt_out, vidx, in_shape, out_shape,
                                                 device)),
                           qt_out, vidx, in_shape, tables_on(bands, device),
                           mix=mix)
-    return split_yuv(to_host(out, device), obh, obw, block=8)
+    return split_yuv(to_host(out, device, host), obh, obw, block=8)
 
 
 # -- the single-image JPEG codec entries --------------------------------------

@@ -65,9 +65,11 @@ def resample_flat(imgs, wv, wh, vidx, hidx, channels: int = 3, bands=None,
 
 def resample_bucketed_flat(imgs_flat, wv_unique, wh_unique, vidx, hidx,
                            channels: int = 3, bands=None,
-                           device: Optional[torch.device] = None) -> np.ndarray:
+                           device: Optional[torch.device] = None,
+                           host: bool = True) -> np.ndarray:
     """Run the plain head; returns (B, OHb*OWb*C) u8 numpy, one contiguous
-    readback (reshape and crop on the host). Inputs are numpy arrays or
+    readback (reshape and crop on the host), or with ``host`` False the
+    device tensor (:func:`~.color.to_host`). Inputs are numpy arrays or
     tensors; they are moved to ``device``, the card unless the caller names
     another."""
     device = resolve(device)
@@ -75,7 +77,7 @@ def resample_bucketed_flat(imgs_flat, wv_unique, wh_unique, vidx, hidx,
         (imgs_flat, wv_unique, wh_unique, vidx, hidx), device)
     flat = resample_flat(x, wv, wh, vidx, hidx, channels,
                          tables_on(bands, device))
-    return to_host(flat.contiguous(), device)
+    return to_host(flat.contiguous(), device, host)
 
 
 def resize_batch(imgs, out_h: int, out_w: int, filter_name: str = "lanczos3",

@@ -13,7 +13,7 @@ shares with K3 (``csrc/resize_band.cuh``); its plain PyTorch versions,
 :func:`plane_resize_plain`, :func:`rgb_resize_plain` and
 :func:`rgba_resize_plain`, sit beside it.
 
-Five entries launch it:
+Six entries launch it:
 
 - :func:`rgb_resize`, the RGB heads' main path: the interleaved (B, H,
   W*3) u8 batch -> the three rounded u8 planes (B, 3, OH, OW), one launch
@@ -37,7 +37,11 @@ Five entries launch it:
   (``dct.py:1129-1148``, which the reference runs as XLA einsums): Y,
   both chroma planes to the half and the full output grid and the alpha
   plane, up to six planes in one launch of K2's f32 entry, unrounded for
-  the 709 -> 601 mix that follows as torch ops.
+  the 709 -> 601 mix that follows as torch ops;
+- :func:`planes_resize_f32`, a height shard's partial products
+  (``imagekit_tpu/parallel/sharding.py``, which the reference leaves to
+  XLA's einsums and psum): an image's channels over the shard's rows, as
+  planes, through the same f32 entry.
 
 The Lanczos stacks are banded: a row of ``Wv`` has about 27 nonzero taps
 out of 1088 at the 1080p -> 240 bucket, a row of ``Wh`` about 29 out of
@@ -62,9 +66,10 @@ import torch
 
 from imagekit_tpu_torch.ops import _build
 
-#: kernel launches made by :func:`rgb_resize`, :func:`plane_resize` and
-#: :func:`yuv_resize` (read and reset by callers that must show the main
-#: path went through the kernel)
+#: kernel launches made by :func:`rgb_resize`, :func:`plane_resize`,
+#: :func:`yuv_resize`, :func:`yuv_mix_resize` and :func:`planes_resize_f32`
+#: (read and reset by callers that must show the main path went through
+#: the kernel)
 LAUNCHES = 0
 #: kernel launches made by :func:`rgba_resize`, counted apart
 LAUNCHES_RGBA = 0
@@ -498,6 +503,37 @@ def yuv_mix_resize(planes, stacks, vidx: torch.Tensor, *, bands=None):
                        True)
     _count_yuv(yuv_entry(planes, mix=True))
     return outs
+
+
+#: planes one launch of the band body takes (``kBandPlanes``,
+#: ``csrc/resize_band.cuh``)
+BAND_PLANES = 6
+
+
+def planes_resize_f32(planes, wv: torch.Tensor, wh: torch.Tensor,
+                      vidx: torch.Tensor, *, bands=None):
+    """Up to :data:`BAND_PLANES` contiguous (B, IH, IW) u8 planes, each
+    resized with the one (wv, wh) stack pair picked by ``vidx``, in one
+    launch of K2's f32 entry: unrounded f32 (B, OH, OW) each, in column
+    strips where a row is too wide for a tile of whole rows. The channels
+    of an image, fed as planes, give the partial products of a height
+    shard (:func:`imagekit_tpu_torch.parallel.sharding.sharded_resample`:
+    each shard resizes its own rows with its slice of ``Wv``)."""
+    planes = list(planes)
+    if not 1 <= len(planes) <= BAND_PLANES:
+        raise ValueError(f"{len(planes)} planes: one launch takes 1 to "
+                         f"{BAND_PLANES}")
+    for x in planes:
+        on_device_with_kernel(x, "K2")
+        if not x.is_contiguous():
+            raise ValueError("planes must be contiguous")
+    t = tables(wv, wh, bands)
+    n = len(planes)
+    tabs = _check_yuv(planes, [(wv, wh)] * n, vidx, [t] * n)
+    if planes[0].device.type == "cpu":
+        return tuple(resize_plain_f32(x, wv, wh, vidx) for x in planes)
+    return _launch_yuv(planes, [(wv, wh)] * n, tabs, vidx, [{}] * n, False,
+                       True)
 
 
 def plane_resize_plain(x, wv, wh, vidx, hidx, *, scale: float = 1.0,

@@ -6,7 +6,9 @@ default engine. Routes, middleware, query parsing, status mapping, cache
 keys, ETags and headers are the reference's; they are host code, so the
 HTTP contract holds by construction. What differs:
 
-- ``/health`` reports the device as ``cuda:<card name>`` (or ``cpu``);
+- ``/health`` reports the device as ``cuda:<card name>`` (or ``cpu``):
+  the engine's first device where it runs on a grid, as the reference
+  reports ``jax.devices()[0]``;
 - ``/debug/trace`` records a ``torch.profiler`` trace instead of a
   ``jax.profiler`` one;
 - :class:`~imagekit_tpu_torch.errors.NotPortedError` (a request outside the
@@ -560,7 +562,9 @@ def create_app(
     device: str = "cuda",
 ) -> web.Application:
     """Assemble the application. Without an injected ``engine`` it builds
-    the port's BatchedEngine on ``device``."""
+    the port's BatchedEngine on ``device``: with ``"cuda"`` and several
+    visible cards, on a grid over them all, as the reference's engine
+    builds its mesh."""
     config = config or ImageKitConfig.from_env()
     config.validate()
     state = AppState(

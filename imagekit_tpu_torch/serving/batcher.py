@@ -24,28 +24,41 @@ What differs is device placement. The engine holds an explicit
 of the two dispatch threads owns a CUDA stream; a batch's arrays go through
 pinned host memory with a non-blocking copy on that stream, its kernels
 launch on it, and the stream is synchronised before the planes are read
-back. A single image's device steps (the JPEG pixel decode, the colour
-mix and fDCT of a JPEG encode) go to the same two dispatch threads, not to
-the codec-pool thread that holds the image as in the reference: each is
+back. With a device grid (``mesh``, :func:`imagekit_tpu_torch.parallel.
+mesh.make_mesh`; built over every card where ``"cuda"`` names no index and
+more than one is visible, as the reference's ``__init__`` builds its mesh)
+a batch whose size splits evenly over the grid's devices runs its head once
+per device on its share of the items (``_run_shards``): each dispatch
+thread keeps one stream for each place of the grid, every shard is launched
+(its head asked for device results, ``host=False``) before any is read
+back, and the outputs are gathered in item order. The weight stacks are
+built once and cached on each device, under each device's own byte
+budget. Other batches, and single images, run on the first device; so
+does an image beyond the bucket ladder unless it does not fit there
+(``_exact_path``). A
+single image's device steps (the JPEG pixel decode, the colour mix and
+fDCT of a JPEG encode) go to the same two dispatch threads, not to the
+codec-pool thread that holds the image as in the reference: each is
 some hundred small device operations issued from Python, and issued from
 many threads at once they slow each other down (32 thumbnail fDCTs take
 0.15 s from one thread and 0.85 s from sixteen on an H100,
 ``tools/single_image_probe.py``). Their host halves, the entropy decode
-and the Huffman encode, stay on the codec pool. There is no mesh, no
-compile set and no cold-shape host fallback: a hand-written kernel has no
-per-shape compile.
+and the Huffman encode, stay on the codec pool. There is no compile set
+and no cold-shape host fallback: a hand-written kernel has no per-shape
+compile.
 """
 
 from __future__ import annotations
 
 import asyncio
 import contextlib
+import functools
 import os
 import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -66,7 +79,8 @@ from imagekit_tpu_torch.errors import (
     TransformError,
 )
 from imagekit_tpu_torch.ops.weights import target_dimensions
-from imagekit_tpu_torch.parallel.tiling import resize_oversized
+from imagekit_tpu_torch.parallel.mesh import Mesh, make_mesh, visible_devices
+from imagekit_tpu_torch.parallel.tiling import resize_oversized, split_grid
 from imagekit_tpu_torch.transform import encode_image
 from imagekit_tpu_torch.serving.batch_types import (
     _BucketKey,
@@ -82,6 +96,52 @@ from imagekit_tpu_torch.utils.bucketing import bucket_for
 from imagekit_tpu_torch.utils.sized_cache import SizedArrayCache
 
 
+class _Shard(NamedTuple):
+    """One device's share of a batch (:meth:`BatchedEngine._run_shards`)."""
+
+    index: int     # its place on the grid, 0 for a batch run unsharded
+    rows: slice    # its items of the batch axis
+    device: torch.device
+    host: bool     # the head reads its result back (False: _run_shards)
+
+
+def _all_cards(device) -> bool:
+    """Does ``device`` ask for every card (``"cuda"`` with no index) on a
+    host with more than one?"""
+    dev = torch.device(device)
+    return (dev.type == "cuda" and dev.index is None
+            and torch.cuda.is_available() and len(visible_devices()) > 1)
+
+
+def _moved(tree, dev: torch.device):
+    """A weight tree (tensors, :class:`ResizeTables` and tuples of them,
+    None) with every tensor on ``dev``."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    moved = [_moved(t, dev) for t in tree]
+    return type(tree)(*moved) if hasattr(tree, "_fields") else tuple(moved)
+
+
+def _copy_out(out):
+    """A shard's device results (tensors, or tuples of them) copied into
+    pinned host memory on the current stream, without waiting: read them
+    once the stream is synchronised."""
+    if isinstance(out, tuple):
+        return tuple(_copy_out(o) for o in out)
+    return out.to("cpu", non_blocking=True)
+
+
+def _gather(outs):
+    """The shards' read-back outputs (CPU tensors, or tuples of them)
+    concatenated along the batch axis, as numpy."""
+    if isinstance(outs[0], tuple):
+        return tuple(_gather([o[i] for o in outs])
+                     for i in range(len(outs[0])))
+    return np.concatenate([o.numpy() for o in outs])
+
+
 class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
                     TransformEngine):
     MAX_UNIQUE = 4  # fixed unique-geometry slots per device call
@@ -92,8 +152,16 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
         metrics: Metrics = METRICS,
         codec_workers: Optional[int] = None,
         device: "str | torch.device" = "cuda",
+        mesh: Optional[Mesh] = None,
     ) -> None:
-        self.device = resolve_device(device)
+        if mesh is None and _all_cards(device):
+            mesh = make_mesh()  # data parallel over every visible card
+        # a grid's first device is the engine's: single images run there
+        self.device = (resolve_device(device) if mesh is None
+                       else mesh.devices[0][0])
+        self._mesh = mesh
+        self._grid = (self.device,) if mesh is None else mesh.flat
+        self._mesh_ndev = len(self._grid)
         self.config = config or ImageKitConfig()
         self.metrics = metrics
         bc = self.config.batch
@@ -131,12 +199,13 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
         self._jqueues: Dict[tuple, list] = {}
         self._yqueues: Dict[tuple, list] = {}
         # folded weight stacks are identical batch to batch for steady
-        # traffic: keep them on the device (byte-budgeted; tensors report
+        # traffic: keep them on each device (byte-budgeted per device, as
+        # the reference's replicated arrays count once; tensors report
         # .nbytes like arrays)
-        self._dweights = SizedArrayCache(
-            int(os.environ.get("IMAGEKIT_DEVICE_WEIGHT_CACHE_MB", "64"))
-            * 1024 * 1024
-        )
+        budget = int(os.environ.get("IMAGEKIT_DEVICE_WEIGHT_CACHE_MB",
+                                    "64")) * 1024 * 1024
+        self._dweights = {dev: SizedArrayCache(budget)
+                          for dev in dict.fromkeys(self._grid)}
         self._inflight = 0  # device calls dispatched but not finished
         self._flusher: Optional[asyncio.Task] = None
         self._loop: Optional[asyncio.AbstractEventLoop] = None
@@ -144,26 +213,86 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
 
     # -- device placement --------------------------------------------------
 
+    def _stream(self, place: int):
+        """This dispatch thread's CUDA stream for place ``place`` of the
+        grid (0: the engine's device), made on first use."""
+        streams = getattr(self._tls, "streams", None)
+        if streams is None:
+            streams = self._tls.streams = {}
+        if place not in streams:
+            streams[place] = torch.cuda.Stream(self._grid[place])
+        return streams[place]
+
     @contextlib.contextmanager
-    def _placement(self):
-        """Yield ``put(np_array) -> tensor`` on the engine's device. On
-        CUDA the copy goes through pinned memory, non-blocking, on this
-        dispatch thread's own stream, which stays current for the kernels
-        launched inside the block."""
-        if self.device.type != "cuda":
+    def _placement(self, place: int = 0):
+        """Yield ``put(np_array) -> tensor`` on the device at place
+        ``place`` of the grid (0: the engine's device). On CUDA the copy
+        goes through pinned memory, non-blocking, on this dispatch
+        thread's own stream for that place, which stays current for the
+        kernels launched inside the block."""
+        dev = self._grid[place]
+        if dev.type != "cuda":
             yield torch.from_numpy
             return
-        stream = getattr(self._tls, "stream", None)
-        if stream is None:
-            stream = self._tls.stream = torch.cuda.Stream(self.device)
 
         def put(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(a).pin_memory().to(
-                self.device, non_blocking=True
-            )
+            return torch.from_numpy(a).pin_memory().to(dev, non_blocking=True)
 
-        with torch.cuda.stream(stream):
+        with torch.cuda.stream(self._stream(place)):
             yield put
+
+    def _use_mesh(self, nb: int) -> bool:
+        """Split this batch over the grid? Only where its ``nb`` items
+        split evenly over the grid's devices (the reference's rule: a
+        sharding needs the axis divisible by the mesh's extent)."""
+        return self._mesh is not None and nb % self._mesh_ndev == 0
+
+    def _shard_devices(self, nb: int) -> tuple:
+        """The device of each shard of a batch of ``nb``: the grid's, in
+        order, or the engine's device alone."""
+        return self._grid if self._use_mesh(nb) else (self.device,)
+
+    def _on_device(self, wkey, device: Optional[torch.device], build):
+        """``build()`` (CPU tensors, :class:`ResizeTables` and tuples of
+        them) on ``device`` (the engine's by default), kept in that
+        device's weight cache under ``wkey``. It is built once, on the
+        engine's device; another device of the grid takes a copy of that
+        tree."""
+        home = self._dweights[self.device].get_or_build(
+            wkey, lambda: _moved(build(), self.device))
+        dev = device or self.device
+        if dev == self.device:
+            return home
+        return self._dweights[dev].get_or_build(wkey,
+                                                lambda: _moved(home, dev))
+
+    def _run_shards(self, nb: int, step):
+        """A batch's device step on a dispatch thread: ``step(put,
+        shard)`` once per :class:`_Shard` of the batch, with ``put``
+        placing a host array on the shard's device (its stream current).
+        Unsharded, one call on the engine's device with every row, whose
+        head reads its result back (``shard.host``). Sharded, each shard's
+        head returns device tensors (or tuples of them) and is launched
+        before any is read back: each shard's copies are queued
+        on its stream, the streams are synchronised, and the outputs are
+        concatenated in item order. A shard that raises fails the whole
+        batch; it is never run again unsharded."""
+        devices = self._shard_devices(nb)
+        if len(devices) == 1:
+            with self._placement() as put:
+                return step(put, _Shard(0, slice(None), self.device, True))
+        m = nb // len(devices)
+        outs = []
+        try:
+            for j, dev in enumerate(devices):
+                with self._placement(j) as put:
+                    outs.append(_copy_out(step(put, _Shard(
+                        j, slice(j * m, (j + 1) * m), dev, False))))
+        finally:
+            for j, dev in enumerate(devices[:len(outs) + 1]):
+                if dev.type == "cuda":
+                    self._stream(j).synchronize()
+        return _gather(outs)
 
     # -- decode ------------------------------------------------------------
 
@@ -538,10 +667,14 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
     async def _exact_path(self, img: np.ndarray, out_h: int, out_w: int,
                           fmt: ImageFormat, quality: int) -> bytes:
         """An image beyond the bucket ladder: resized at its exact shape
-        (one K2 launch on CUDA) on a dispatch thread, then encoded as one
-        image (:meth:`_encode`)."""
+        on a dispatch thread (one K2 launch on CUDA; its height split over
+        up to 4 of the grid's devices only where it does not fit the
+        engine's device, :func:`~imagekit_tpu_torch.parallel.tiling.
+        split_grid`), then encoded as one image (:meth:`_encode`)."""
+        grid = split_grid(img, out_h, out_w, self._grid)
         resized = await self._device_run(
-            "exact_resize", resize_oversized, img, out_h, out_w)
+            "exact_resize", functools.partial(resize_oversized, mesh=grid),
+            img, out_h, out_w)
         return await self._encode(resized, fmt, quality)
 
     async def warmup(self) -> None:

@@ -25,8 +25,11 @@ resize:
   launch on CUDA) -> RGB -> host JPEG encode.
 
 The C++ Huffman decoder and the batch layouts are the reference's, and the
-weight stacks live on the device. As the reference does, the head turns
-away (``_NativeUnsupported``) a source that is neither 4:2:0 with shared
+weight stacks live on the device (on each device of the engine's grid,
+where a batch splits over one: the head then runs once a shard, on the
+shard's items, its escape lists split by ``jpeg_transport._pack_split``).
+As the reference does, the head turns away (``_NativeUnsupported``) a
+source that is neither 4:2:0 with shared
 Cb/Cr tables nor grayscale, a CMYK or YCCK JPEG among them (to the JPEG
 pixel decode and the batched RGB head), a source or target beyond the
 bucket ladder (to the pixel decode and the engine's exact-shape path), and
@@ -55,7 +58,7 @@ from imagekit_tpu_torch.ops.dct import (
     transcode_i8_batch,
 )
 from imagekit_tpu_torch.ops.jpeg8 import folded_bands
-from imagekit_tpu_torch.ops.resize_strip import ResizeTables, resize_tables
+from imagekit_tpu_torch.ops.resize_strip import resize_tables
 from imagekit_tpu_torch.ops.weights import (
     combined_chroma_half_weights,
     combined_chroma_weights,
@@ -241,8 +244,11 @@ class JpegPathMixin:
                 )
                 return
             nb = batch_bucket(len(items), self.max_batch)
+            devices = self._shard_devices(nb)
             if t8:
-                dcs, acs, escs = _pack_split(items, nb, *block_dims, k)
+                # one set of escape lists a shard (jpeg_transport)
+                dcs, acs, escs = _pack_split(items, nb, *block_dims, k,
+                                             shards=len(devices))
             else:
                 planes = _pack_int16(items, nb, *block_dims, k)
             qt = np.zeros((nb, 128), np.float32)
@@ -268,45 +274,50 @@ class JpegPathMixin:
                 if kind == "jxc":
                     qto[i, :64], qto[i, 64:] = quality_tables(it.quality)
                 vidx[i] = u_keys[(it.hdr.width, it.hdr.height, it.out_w, it.out_h)]
-            weights, bands = self._jpeg_weights(key, items, u_keys)
+            trees = {dev: self._jpeg_weights(key, items, u_keys, dev)
+                     for dev in set(devices)}
             t1 = time.perf_counter()
 
-            def device_step():
-                with self._placement() as put:
-                    if not t8:
-                        args = (*(put(p) for p in planes), put(qt), weights,
-                                put(vidx), block_dims, (obh, obw))
-                        if kind == "yuv" and k < 8:
-                            return decode_resize_yuv_lowfreq_batch(
-                                *args, k, bands=bands, device=self.device)
-                        head = (decode_resize_rgb_batch if kind == "rgb"
-                                else decode_resize_yuv_batch)
-                        return head(*args, bands=bands, device=self.device)
-                    split = (
-                        tuple(put(a) for a in dcs),
-                        tuple(put(a) for a in acs),
-                        tuple((put(i_), put(v_)) for i_, v_ in escs),
-                        put(qt),
+            def device_step(put, shard):
+                weights, bands = trees[shard.device]
+                rows, dev = shard.rows, shard.device
+                vi = put(vidx[rows])
+                if not t8:
+                    args = (*(put(p[rows]) for p in planes), put(qt[rows]),
+                            weights, vi, block_dims, (obh, obw))
+                    if kind == "yuv" and k < 8:
+                        return decode_resize_yuv_lowfreq_batch(
+                            *args, k, bands=bands, device=dev, host=shard.host)
+                    head = (decode_resize_rgb_batch if kind == "rgb"
+                            else decode_resize_yuv_batch)
+                    return head(*args, bands=bands, device=dev,
+                                host=shard.host)
+                split = (
+                    tuple(put(a[rows]) for a in dcs),
+                    tuple(put(a[rows]) for a in acs),
+                    tuple((put(i_), put(v_)) for i_, v_ in escs[shard.index]),
+                    put(qt[rows]),
+                )
+                if kind == "jxc":
+                    return transcode_i8_batch(
+                        *split, put(qto[rows]), weights, vi, block_dims,
+                        (obh, obw), k, bands=bands, device=dev,
+                        host=shard.host,
                     )
-                    if kind == "jxc":
-                        return transcode_i8_batch(
-                            *split, put(qto), weights, put(vidx),
-                            block_dims, (obh, obw), k, bands=bands,
-                            device=self.device,
-                        )
-                    if k == 8:
-                        return decode_resize_yuv_i8_batch(
-                            *split, weights, put(vidx), block_dims,
-                            (obh, obw), bands=bands, device=self.device,
-                        )
-                    return decode_resize_yuv_lowfreq_i8_batch(
-                        *split, weights, put(vidx), block_dims, (obh, obw),
-                        k, bands=bands, device=self.device,
+                if k == 8:
+                    return decode_resize_yuv_i8_batch(
+                        *split, weights, vi, block_dims, (obh, obw),
+                        bands=bands, device=dev, host=shard.host,
                     )
+                return decode_resize_yuv_lowfreq_i8_batch(
+                    *split, weights, vi, block_dims, (obh, obw), k,
+                    bands=bands, device=dev, host=shard.host,
+                )
 
             self._inflight += 1
             try:
-                out = await loop.run_in_executor(self._device_pool, device_step)
+                out = await loop.run_in_executor(
+                    self._device_pool, self._run_shards, nb, device_step)
             finally:
                 self._inflight -= 1
             t2 = time.perf_counter()
@@ -350,9 +361,10 @@ class JpegPathMixin:
 
         await _settle(it, self._pool_run("encode", run))
 
-    def _jpeg_weights(self, key, items, u_keys):
-        """The weight stacks for this set of geometries, kept on the
-        engine's device across batches (``engine_jpeg.py:366-452``), with
+    def _jpeg_weights(self, key, items, u_keys, device=None):
+        """The weight stacks for this set of geometries, kept on ``device``
+        (the engine's by default) across batches
+        (``engine_jpeg.py:366-452``), with
         their band tables for K1 (k < 8, :func:`jpeg8.folded_bands`), the
         (luma, chroma) :class:`ResizeTables` for the RGB head's K3 and the
         k = 8 YUV head's K4 (band tables and compact ``Wh``), else None:
@@ -365,12 +377,14 @@ class JpegPathMixin:
         For ``"jxc"`` the rows past the true output replicate the last true
         row up to the MCU grid (the staged encoder's ``np.pad(mode="edge")``),
         before folding."""
+        wkey = (key, self.MAX_UNIQUE, tuple(sorted(u_keys)))
+        return self._on_device(wkey, device, functools.partial(
+            self._jpeg_stacks, key, items, u_keys))
+
+    def _jpeg_stacks(self, key, items, u_keys):
+        """:meth:`_jpeg_weights`' stacks and bands, on the CPU."""
         yb_h, yb_w, obh, obw, kind, k, _t8 = key
         nu = self.MAX_UNIQUE
-        wkey = (key, nu, tuple(sorted(u_keys)))
-        cached = self._dweights.get(wkey)
-        if cached is not None:
-            return cached
         chroma_dims = {}
         for it in items:
             ukey = (it.hdr.width, it.hdr.height, it.out_w, it.out_h)
@@ -427,18 +441,15 @@ class JpegPathMixin:
             # folding acts on the column axis only, so the replicated
             # OUTPUT rows stay valid
             stacks = [fold_lowfreq_weights(w_, k) for w_ in stacks]
-        stacks = [torch.from_numpy(w_) for w_ in stacks]
+        stacks = tuple(torch.from_numpy(w_) for w_ in stacks)
         if k < 8:
-            bands = tuple(folded_bands(s).to(self.device) for s in stacks)
+            bands = tuple(folded_bands(s) for s in stacks)
         elif kind in ("rgb", "yuv"):
-            bands = tuple(ResizeTables(*(t.to(self.device)
-                                         for t in resize_tables(*pair)))
+            bands = tuple(resize_tables(*pair)
                           for pair in (stacks[:2], stacks[2:]))
         else:
             bands = None
-        cached = (tuple(s.to(self.device) for s in stacks), bands)
-        self._dweights.put(wkey, cached)
-        return cached
+        return stacks, bands
 
     async def _encode_yuv(self, y, cb, cr, q: int, fmt: ImageFormat,
                           alpha=None) -> bytes:

@@ -14,13 +14,16 @@ compact tables; one call of
 :func:`imagekit_tpu_torch.ops.color.resample_rgb_yuv_batch`,
 :func:`imagekit_tpu_torch.ops.dct.resample_rgb_jpeg_batch` or
 :func:`imagekit_tpu_torch.ops.resize.resample_bucketed_flat` (one K2
-launch on CUDA) produces what the host encoders take. There is no compile
+launch on CUDA; once a shard where the batch splits over the engine's
+device grid, ``batcher._run_shards``) produces what the host encoders
+take. There is no compile
 set and no cold-shape host fallback.
 """
 
 from __future__ import annotations
 
 import asyncio
+import functools
 import time
 from typing import Dict, List, Tuple
 
@@ -30,7 +33,7 @@ import torch
 from imagekit_tpu_torch.ops.color import resample_rgb_yuv_batch
 from imagekit_tpu_torch.ops.dct import resample_rgb_jpeg_batch
 from imagekit_tpu_torch.ops.resize import resample_bucketed_flat
-from imagekit_tpu_torch.ops.resize_strip import ResizeTables, resize_tables
+from imagekit_tpu_torch.ops.resize_strip import resize_tables
 from imagekit_tpu_torch.ops.weights import quality_tables
 from imagekit_tpu_torch.serving.batch_types import (
     _BucketKey,
@@ -80,31 +83,34 @@ class RgbPathMixin:
                 hidx[i] = h_keys[(w_i, it.out_w)]
                 if jq:
                     qto[i, :64], qto[i, 64:] = quality_tables(it.quality)
-            wv, wh, tabs = self._rgb_weights(key, v_keys, h_keys)
+            weights = {dev: self._rgb_weights(key, v_keys, h_keys, dev)
+                       for dev in set(self._shard_devices(nb))}
             t1 = time.perf_counter()
 
-            def device_step():
-                with self._placement() as put:
-                    if wy:
-                        return resample_rgb_yuv_batch(
-                            put(batch), (wv, wh), put(vidx), put(hidx),
-                            (obh, obw), bands=tabs, device=self.device,
-                        )
-                    if jq:
-                        return resample_rgb_jpeg_batch(
-                            put(batch), (wv, wh), put(vidx), put(hidx),
-                            put(qto), (obh, obw), bands=tabs,
-                            device=self.device,
-                        )
-                    flat = resample_bucketed_flat(
-                        put(batch), wv, wh, put(vidx), put(hidx), ch,
-                        bands=tabs, device=self.device,
+            def device_step(put, shard):
+                wv, wh, tabs = weights[shard.device]
+                rows, dev = shard.rows, shard.device
+                x, vi, hi = (put(a[rows]) for a in (batch, vidx, hidx))
+                if wy:
+                    return resample_rgb_yuv_batch(
+                        x, (wv, wh), vi, hi, (obh, obw), bands=tabs,
+                        device=dev, host=shard.host,
                     )
-                    return flat.reshape(nb, obh, obw, ch)
+                if jq:
+                    return resample_rgb_jpeg_batch(
+                        x, (wv, wh), vi, hi, put(qto[rows]), (obh, obw),
+                        bands=tabs, device=dev, host=shard.host,
+                    )
+                flat = resample_bucketed_flat(
+                    x, wv, wh, vi, hi, ch, bands=tabs, device=dev,
+                    host=shard.host,
+                )
+                return flat.reshape(-1, obh, obw, ch)
 
             self._inflight += 1
             try:
-                out = await loop.run_in_executor(self._device_pool, device_step)
+                out = await loop.run_in_executor(
+                    self._device_pool, self._run_shards, nb, device_step)
             finally:
                 self._inflight -= 1
             t2 = time.perf_counter()
@@ -149,19 +155,21 @@ class RgbPathMixin:
         await _settle(it, self._encode(
             out[i, : it.out_h, : it.out_w], it.fmt, it.quality))
 
-    def _rgb_weights(self, key: _BucketKey, v_keys, h_keys):
+    def _rgb_weights(self, key: _BucketKey, v_keys, h_keys, device=None):
         """The (U, obh, bh) / (U, obw, bw) stacks and their
         :class:`ResizeTables` (band tables and K2's compact ``Wh``) for
-        this set of geometries, kept on the engine's device across
-        batches. Rows past the true output replicate the last true row
-        (the staged paths' ``np.pad(mode="edge")``): to even for the 2x2
-        chroma box of WebP, to the MCU grid for JPEG; the plain kind crops
-        at the true output and replicates nothing."""
-        bh, bw, obh, obw, _ch, okind = key
+        this set of geometries, kept on ``device`` (the engine's by
+        default) across batches. Rows past the true output replicate the
+        last true row (the staged paths' ``np.pad(mode="edge")``): to even
+        for the 2x2 chroma box of WebP, to the MCU grid for JPEG; the plain
+        kind crops at the true output and replicates nothing."""
         wkey = (key, tuple(sorted(v_keys)), tuple(sorted(h_keys)))
-        cached = self._dweights.get(wkey)
-        if cached is not None:
-            return cached
+        return self._on_device(wkey, device, functools.partial(
+            self._rgb_stacks, key, v_keys, h_keys))
+
+    def _rgb_stacks(self, key: _BucketKey, v_keys, h_keys):
+        """:meth:`_rgb_weights`' stacks and tables, on the CPU."""
+        bh, bw, obh, obw, _ch, okind = key
         if okind == "yuv":
             def rep_to(to):
                 return to + (to & 1)
@@ -180,9 +188,5 @@ class RgbPathMixin:
             wh[u] = _cached_weights(ti, to, bw, obw)
             wh[u, to: min(rep_to(to), obw)] = wh[u, to - 1]
         stacks = [torch.from_numpy(w_) for w_ in (wv, wh)]
-        tabs = ResizeTables(*(t.to(self.device)
-                              for t in resize_tables(*stacks)))
-        cached = (*(t.to(self.device) for t in stacks), tabs)
-        self._dweights.put(wkey, cached)
-        return cached
+        return (*stacks, resize_tables(*stacks))
 

@@ -17,9 +17,10 @@ Huffman encoder takes (WebP and AVIF items share a batch). No RGB
 anywhere. Only AVIF output keeps an alpha plane; WebP output drops it, and
 JPEG output of chroma factors other than 4:2:0 takes the pixel decode, as
 at the reference's ``engine_yuv.py:96-106``. The weight stacks live on the
-device with their band and compact tables. Planes beyond the bucket ladder
-are turned away (``_NativeUnsupported``) to the pixel decode and the
-engine's exact-shape path, as the reference turns them away.
+device with their band and compact tables (on each device of the engine's
+grid, where a batch splits over one: one call a shard). Planes beyond the
+bucket ladder are turned away (``_NativeUnsupported``) to the pixel decode
+and the engine's exact-shape path, as the reference turns them away.
 
 Not ported, by design: the compile kick and the host fallback for cold
 shapes (a hand-written kernel has no per-shape compile).
@@ -28,6 +29,7 @@ shapes (a hand-written kernel has no per-shape compile).
 from __future__ import annotations
 
 import asyncio
+import functools
 import time
 from typing import Dict, Tuple
 
@@ -36,7 +38,7 @@ import torch
 
 from imagekit_tpu_torch.config import ImageFormat
 from imagekit_tpu_torch.ops.dct import resize_yuv420_batch, resize_yuv_jpeg_batch
-from imagekit_tpu_torch.ops.resize_strip import ResizeTables, resize_tables
+from imagekit_tpu_torch.ops.resize_strip import resize_tables
 from imagekit_tpu_torch.ops.weights import (
     combined_chroma_half_weights,
     combined_chroma_weights,
@@ -188,26 +190,29 @@ class YuvPathMixin:
                 vidx[i] = u_keys[(iww, ihh, it.out_w, it.out_h)]
                 if jq:
                     qto[i, :64], qto[i, 64:] = quality_tables(it.quality)
-            weights, bands = self._yuv_weights(key, u_keys)
+            trees = {dev: self._yuv_weights(key, u_keys, dev)
+                     for dev in set(self._shard_devices(nb))}
             t1 = time.perf_counter()
 
-            def device_step():
-                with self._placement() as put:
-                    if jq:
-                        return resize_yuv_jpeg_batch(
-                            put(flat), weights, put(qto), put(vidx),
-                            (bh, bw), (obh, obw), mix=mix, bands=bands,
-                            device=self.device,
-                        )
-                    return resize_yuv420_batch(
-                        put(flat), weights, put(vidx), (bh, bw), (obh, obw),
-                        chroma_sub=(csy, csx), mix=mix, alpha=al,
-                        bands=bands, device=self.device,
+            def device_step(put, shard):
+                weights, bands = trees[shard.device]
+                rows, dev = shard.rows, shard.device
+                if jq:
+                    return resize_yuv_jpeg_batch(
+                        put(flat[rows]), weights, put(qto[rows]),
+                        put(vidx[rows]), (bh, bw), (obh, obw), mix=mix,
+                        bands=bands, device=dev, host=shard.host,
                     )
+                return resize_yuv420_batch(
+                    put(flat[rows]), weights, put(vidx[rows]), (bh, bw),
+                    (obh, obw), chroma_sub=(csy, csx), mix=mix, alpha=al,
+                    bands=bands, device=dev, host=shard.host,
+                )
 
             self._inflight += 1
             try:
-                out = await loop.run_in_executor(self._device_pool, device_step)
+                out = await loop.run_in_executor(
+                    self._device_pool, self._run_shards, nb, device_step)
             finally:
                 self._inflight -= 1
             t2 = time.perf_counter()
@@ -224,23 +229,25 @@ class YuvPathMixin:
         finally:
             self.metrics.queue_depth = self._total_queued()
 
-    def _yuv_weights(self, key, u_keys):
+    def _yuv_weights(self, key, u_keys, device=None):
         """The (wv_y, wh_y, wv_c, wh_c[, wv_cf, wh_cf]) stacks for this set
         of geometries and their (luma, chroma[, chroma full])
-        :class:`ResizeTables`, kept on the engine's device across batches
-        (``engine_yuv.py:223-279``): luma Lanczos stacks, chroma with
-        subsample, resize and upsample (the identity on an axis the source
-        does not subsample) folded to HALF output resolution, and for a
-        BT.709 batch to the FULL output grid too. For JPEG output the rows
-        past the true output replicate the last true row up to the MCU
-        grid (the staged encoder's ``np.pad(mode="edge")``); the tables
-        are built after that."""
+        :class:`ResizeTables`, kept on ``device`` (the engine's by default)
+        across batches (``engine_yuv.py:223-279``): luma Lanczos stacks,
+        chroma with subsample, resize and upsample (the identity on an axis
+        the source does not subsample) folded to HALF output resolution,
+        and for a BT.709 batch to the FULL output grid too. For JPEG output
+        the rows past the true output replicate the last true row up to
+        the MCU grid (the staged encoder's ``np.pad(mode="edge")``); the
+        tables are built after that."""
+        wkey = ("yuvsrc", key, tuple(sorted(u_keys)))
+        return self._on_device(wkey, device, functools.partial(
+            self._yuv_stacks, key, u_keys))
+
+    def _yuv_stacks(self, key, u_keys):
+        """:meth:`_yuv_weights`' stacks and tables, on the CPU."""
         bh, bw, obh, obw, jq, csy, csx, mix, _al = key
         ch_b, cw_b = bh // csy, bw // csx
-        wkey = ("yuvsrc", key, tuple(sorted(u_keys)))
-        cached = self._dweights.get(wkey)
-        if cached is not None:
-            return cached
         nu = self.MAX_UNIQUE
         wv_y = np.zeros((nu, obh, bh), np.float32)
         wh_y = np.zeros((nu, obw, bw), np.float32)
@@ -274,11 +281,8 @@ class YuvPathMixin:
                     wv_cf[u, oh_:m_h] = wv_cf[u, oh_ - 1]
                     wh_cf[u, ow_:m_w] = wh_cf[u, ow_ - 1]
         arrays = (wv_y, wh_y, wv_c, wh_c) + ((wv_cf, wh_cf) if mix else ())
-        stacks = [torch.from_numpy(w_) for w_ in arrays]
-        bands = tuple(ResizeTables(*(t.to(self.device)
-                                     for t in resize_tables(*pair)))
+        stacks = tuple(torch.from_numpy(w_) for w_ in arrays)
+        bands = tuple(resize_tables(*pair)
                       for pair in (stacks[0:2], stacks[2:4], stacks[4:6])
                       if pair)
-        cached = (tuple(s.to(self.device) for s in stacks), bands)
-        self._dweights.put(wkey, cached)
-        return cached
+        return stacks, bands

@@ -135,11 +135,17 @@ def _pad_esc(idx_parts, val_parts, cap: int):
 
 
 def _pack_split(items, nb: int, by_b: int, bx_b: int, cy_b: int, cx_b: int,
-                k: int):
+                k: int, shards: int = 1):
     """Split-int8 batch arrays: ((y, cb, cr) i16 DC, (y, cb, cr) i8 AC,
-    three padded escape lists). The AC layout is PLANAR for k < 8 (one
-    128-aligned slice per coefficient plane) and block-grouped for k = 8
-    (``engine_jpeg.py:285-352``)."""
+    [the three padded escape lists of each of ``shards`` equal shards of
+    the batch]). The AC layout is PLANAR for k < 8 (one 128-aligned slice
+    per coefficient plane) and block-grouped for k = 8
+    (``engine_jpeg.py:285-352``). The reference replicates one set of
+    escape lists over its mesh and lets GSPMD split the scatter
+    (``engine_jpeg.py:470-474``); here each escape goes to the lists of
+    the shard that holds its item, the item index rebased to the shard's
+    first item, and each shard's lists are padded to the head's caps
+    (``_esc_within_batch_budget`` bounds the whole batch first)."""
     na = k * k - 1
     pads = (pad128(bx_b), pad128(cx_b)) if k < 8 else None
     y_dc = np.zeros((nb, by_b, pad128(bx_b)), np.int16)
@@ -152,8 +158,9 @@ def _pack_split(items, nb: int, by_b: int, bx_b: int, cy_b: int, cx_b: int,
         cb_ac = np.zeros((nb, cy_b, pad128(cx_b * na)), np.int8)
     cr_dc = np.zeros_like(cb_dc)
     cr_ac = np.zeros_like(cb_ac)
-    esc_idx: list = [[], [], []]
-    esc_val: list = [[], [], []]
+    m = nb // shards
+    esc_idx = [[[], [], []] for _ in range(shards)]
+    esc_val = [[[], [], []] for _ in range(shards)]
     for i, it in enumerate(items):
         dc, ac, esc = it.split
         byi, bxi = dc[0].shape
@@ -171,16 +178,15 @@ def _pack_split(items, nb: int, by_b: int, bx_b: int, cy_b: int, cx_b: int,
             cb_ac[i, :cyi, : cxi * na] = ac[1].reshape(cyi, -1)
             cr_ac[i, :cyi, : cxi * na] = ac[2].reshape(cyi, -1)
         if len(esc):
+            j = i // m
             for c, (ei, ev) in enumerate(
-                _esc_batch_rows(esc, i, bxi, cxi, na, pads)
+                _esc_batch_rows(esc, i - j * m, bxi, cxi, na, pads)
             ):
-                esc_idx[c].append(ei)
-                esc_val[c].append(ev)
-    escs = (
-        _pad_esc(esc_idx[0], esc_val[0], LOWFREQ_ESC_Y),
-        _pad_esc(esc_idx[1], esc_val[1], LOWFREQ_ESC_C),
-        _pad_esc(esc_idx[2], esc_val[2], LOWFREQ_ESC_C),
-    )
+                esc_idx[j][c].append(ei)
+                esc_val[j][c].append(ev)
+    caps = (LOWFREQ_ESC_Y, LOWFREQ_ESC_C, LOWFREQ_ESC_C)
+    escs = [tuple(_pad_esc(idx[c], val[c], caps[c]) for c in range(3))
+            for idx, val in zip(esc_idx, esc_val)]
     return (y_dc, cb_dc, cr_dc), (y_ac, cb_ac, cr_ac), escs
 
 

@@ -1726,3 +1726,78 @@ def test_av1_decoder_gives_libdav1d_planes_on_the_cards_host():
     before = resize_strip.YUV_LAUNCHES.get("444", 0)
     assert vp8.dimensions(asyncio.run(run())) == (400, 225)
     assert resize_strip.YUV_LAUNCHES["444"] == before + 1
+
+
+# -- several devices: the grid on the card ------------------------------------
+
+
+def _grid_devices(kind: str):
+    """Four replicas of ``cuda:0`` (each shard on its own stream in the
+    engine), or every card where there are two or more."""
+    if kind == "replicas":
+        return [torch.device("cuda", 0)] * 4
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+@needs_card
+@pytest.mark.parametrize("kind", ["replicas", "cards"])
+@pytest.mark.parametrize("channels", [3, 4])
+def test_sharded_resample_data_parallel_on_the_card(kind, channels):
+    """One K2 launch a data shard, each on its device; the gathered batch
+    against the numpy golden of the reference's product."""
+    from imagekit_tpu_torch.ops.weights import padded_weights
+    from imagekit_tpu_torch.parallel import make_mesh, sharded_resample
+
+    devices = _grid_devices(kind)
+    grid = make_mesh(devices=devices)
+    B = 2 * grid.size
+    rng = np.random.default_rng(channels)
+    imgs = rng.integers(0, 256, (B, 272, 480, channels), dtype=np.uint8)
+    wv = np.stack([padded_weights(270, 60, 272, 64)] * B)
+    wh = np.stack([padded_weights(480, 107, 480, 112)] * B)
+    counter = "LAUNCHES" if channels == 3 else "LAUNCHES_RGBA"
+    before = getattr(resize_strip, counter)
+    out = sharded_resample(imgs, wv, wh, grid)
+    assert getattr(resize_strip, counter) == before + grid.size
+    assert out.device == devices[0]
+    x = np.einsum("boh,bhwc->bowc", wv, imgs.astype(np.float32))
+    x = np.einsum("bpw,bowc->bopc", wh, x)
+    want = np.floor(np.clip(x, 0, 255) + 0.5).astype(np.uint8)
+    assert_band(out, torch.from_numpy(want))
+
+
+@needs_card
+@pytest.mark.parametrize("kind", ["replicas", "cards"])
+def test_oversized_height_split_on_the_card(kind):
+    """A 9600x2400 RGB image -> 1280x320 with its height over four
+    shards (one f32 K2 launch each, in column strips) against the
+    one-device K2 resize."""
+    from imagekit_tpu_torch.parallel import make_mesh, resize_oversized
+
+    devices = _grid_devices(kind)
+    space = min(len(devices), 4)
+    grid = make_mesh(space, space=space, devices=devices)
+    rng = np.random.default_rng(5)
+    img = rng.integers(0, 256, (9600, 2400, 3), dtype=np.uint8)
+    before = resize_strip.LAUNCHES
+    got = resize_oversized(img, 1280, 320, mesh=grid)
+    assert resize_strip.LAUNCHES == before + space
+    one = resize_oversized(img, 1280, 320, device=devices[0])
+    assert_band(torch.from_numpy(got), torch.from_numpy(one))
+
+
+@needs_card
+def test_engine_on_four_replicas_matches_one_card():
+    """JPEG -> WebP through the engine on ``[cuda:0] * 4``: the bodies of
+    the one-card engine, byte for byte, and one K1 launch a shard."""
+    from imagekit_tpu_torch.config import ImageFormat
+    from imagekit_tpu_torch.parallel import dryrun, make_mesh
+
+    jpegs = [dryrun.synth_jpeg(seed) for seed in range(8)]
+    grid = make_mesh(devices=[torch.device("cuda", 0)] * 4)
+    before = jpeg8.LAUNCHES
+    report = dryrun.engine_case(grid, jpegs, 160, ImageFormat.webp)
+    assert report["bodies_equal"] and report["shards"] == 4
+    assert jpeg8.LAUNCHES == before + 4 + 1  # four shards, then one card

@@ -4,9 +4,10 @@ JAX package's, on the CPU.
 The JAX package resizes them at their exact shape
 (``imagekit_tpu/parallel/tiling.py::resize_oversized``), over a mesh where
 it has more than one device. Here (``tests/conftest.py``) it has eight
-virtual CPU devices, so every call below names a one-device mesh: the port
-has the one-device branch only. Sizes are small, with one side past the
-ladder's top of 8192 (24x8400, 8400x24).
+virtual CPU devices, so every call below names a one-device mesh and the
+port's one-device branch; the mesh branch, the height split over a device
+grid, is held in ``tests/test_torch_parallel.py``. Sizes are small, with
+one side past the ladder's top of 8192 (24x8400, 8400x24).
 
 - ``parallel.tiling.resize_oversized`` and ``ops.resize.resize_batch`` at
   exact shapes for RGB, RGBA and gray; ``weights.exact_stacks`` byte-equal
