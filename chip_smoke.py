@@ -297,7 +297,20 @@ decoded with Pillow: old-style, planar and extra-sample JPEG pages,
     RGB image -> 1280x320 with its height over four shards (K2's f32 entry
     on each shard's channels as planes, the partials summed on the first
     device) against one-device K2, the partials against their plain
-    version, timed.
+    version, timed;
+31. the last of the JAX package (``phase_last_slice``): the RGB head on the
+    k=8 split transport (``dct.decode_resize_rgb_i8_batch``, which no
+    engine path takes) on the B=32 batch the engine packs from the 1080p
+    JPEGs for w=1280, with the RGB head's stacks: one K3 launch, the
+    output byte for byte the int16 head's on the same levels and within
+    +-2 of its plain version, K3 at these planes timed with CUDA events
+    beside its plain version, an einsum yardstick and the bound; true
+    monochrome AVIFs written here by the port's encoder through the
+    engine to WebP, JPEG and w=160 AVIF (sizes, decodes, gray pixels);
+    and ``tools/soak.py`` against the app on ``cuda`` in this process:
+    48 ``/sign`` -> ``/img`` requests, then 48 ``/upload`` ones, at
+    concurrency 8, every source class written here and the committed
+    1080p 4:4:4 and 4:2:2 AVIFs; any miss fails the run.
 
 Rounds of phases 26 and 27 take 8 requests each (warmed by 4); every
 phase's sources are made while nvcc builds the kernels.
@@ -381,46 +394,32 @@ def nvidia_smi() -> str:
 
 
 # ---------------------------------------------------------------------------
-# inputs
+# inputs (the writers of every source class: tools/sources.py)
 # ---------------------------------------------------------------------------
 
-
-def synth_image(seed: int, w: int = 1920, h: int = 1080,
-                noise: bool = True) -> np.ndarray:
-    """Seeded RGB image: a smooth gradient, hard-edged rectangles (their
-    edges give low-frequency AC levels beyond int8 at high quality, i.e.
-    escapes) and, unless ``noise`` is False, mild noise."""
-    rng = np.random.default_rng(seed)
-    x = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :, None]
-    y = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None, None]
-    phase = rng.random(3).astype(np.float32)
-    img = 127.5 + 100.0 * np.sin(
-        2 * np.pi * (x * (1 + phase) + y * (1.5 - phase))
-    )
-    img = np.broadcast_to(img, (h, w, 3)).copy()
-    for _ in range(24):
-        x0, y0 = rng.integers(0, w - 64), rng.integers(0, h - 64)
-        x1 = x0 + rng.integers(32, 400)
-        y1 = y0 + rng.integers(32, 300)
-        img[y0:y1, x0:x1] = rng.integers(0, 256, 3)
-    if noise:
-        img += rng.normal(0.0, 6.0, img.shape).astype(np.float32)
-    return np.clip(img, 0, 255).astype(np.uint8)
-
-
-def make_jpeg(seed: int, quality: int, image=synth_image, samp=(2, 2),
-              gray: bool = False) -> bytes:
-    """JPEG without Pillow: the port's numpy fDCT + the native Huffman
-    encoder. ``samp`` is the luma's (h, v) sampling factors against the
-    chroma's 1: (2, 2) 4:2:0, (2, 1) 4:2:2, (1, 2) 4:4:0, (1, 1) 4:4:4;
-    ``gray`` writes the luma alone."""
-    from imagekit_tpu_torch.codecs.native import loader
-    from imagekit_tpu_torch.ops.weights import host_encode_rgb_to_coefficients
-
-    img = image(seed)
-    planes, qt = host_encode_rgb_to_coefficients(img, quality, samp)
-    return loader.encode_jpeg(planes[:1] if gray else planes, qt,
-                              img.shape[1], img.shape[0], samp)
+from imagekit_tpu_torch.tools.sources import (  # noqa: E402
+    _bc3_alpha,
+    _blocks4,
+    _unblocks4,
+    dds_file,
+    make_bilevel_tiff,
+    make_bmp,
+    make_bmp_fields,
+    make_cmyk_tiff,
+    make_dds,
+    make_gif,
+    make_ico,
+    make_jpeg,
+    make_jpeg_tiff,
+    make_png,
+    make_pnm,
+    make_qoi,
+    make_tiff,
+    make_webp,
+    split_jpeg,
+    synth_image,
+    tiff_file,
+)
 
 
 def dense_image(seed: int, w: int = 1920, h: int = 1080) -> np.ndarray:
@@ -437,22 +436,6 @@ def dense_image(seed: int, w: int = 1920, h: int = 1080) -> np.ndarray:
     blk[flip] = blk[flip].transpose(0, 2, 1, 3)
     img = blk.transpose(0, 2, 1, 3, 4).reshape(h, w, 3)
     return np.clip(img + rng.normal(0.0, 8.0, img.shape), 0, 255).astype(np.uint8)
-
-
-def make_png(img: np.ndarray) -> bytes:
-    """RGB or RGBA PNG (colour type 2 or 6, by the channel count) without
-    Pillow: filter 0 on every row, zlib level 1."""
-    h, w = img.shape[:2]
-    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
-
-    def chunk(tag, body):
-        return (struct.pack(">I", len(body)) + tag + body
-                + struct.pack(">I", zlib.crc32(tag + body)))
-
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 6 if img.shape[2] == 4 else 2,
-                       0, 0, 0)
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
-            + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
 
 
 def with_alpha(img: np.ndarray, seed: int) -> np.ndarray:
@@ -473,82 +456,6 @@ def ramp_alpha(img: np.ndarray) -> np.ndarray:
     h, w = img.shape[:2]
     ramp = np.add.outer(np.arange(h), np.arange(w)) * 255 // (h + w - 2)
     return np.dstack([img, ramp.astype(np.uint8)])
-
-
-def make_bmp(img: np.ndarray) -> bytes:
-    """24 bpp bottom-up BI_RGB BMP, written with ``struct``."""
-    h, w = img.shape[:2]
-    pad = (-3 * w) % 4
-    rows = np.zeros((h, 3 * w + pad), np.uint8)
-    rows[:, :3 * w] = img[::-1, :, ::-1].reshape(h, 3 * w)
-    body = rows.tobytes()
-    return (b"BM" + struct.pack("<IHHI", 54 + len(body), 0, 0, 54)
-            + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, len(body), 2835,
-                          2835, 0, 0) + body)
-
-
-def make_tiff(img: np.ndarray) -> bytes:
-    """Uncompressed little-endian RGB TIFF, one strip, written with
-    ``struct``."""
-    h, w = img.shape[:2]
-    body = img.tobytes()
-    bits_off = 8 + len(body)
-    ifd_off = bits_off + 6
-    entries = [(256, 3, 1, w), (257, 3, 1, h), (258, 3, 3, bits_off),
-               (259, 3, 1, 1), (262, 3, 1, 2), (273, 4, 1, 8), (277, 3, 1, 3),
-               (278, 3, 1, h), (279, 4, 1, len(body)), (284, 3, 1, 1)]
-    ifd = struct.pack("<H", len(entries)) + b"".join(
-        struct.pack("<HHII", *e) for e in entries) + struct.pack("<I", 0)
-    return (b"II*\x00" + struct.pack("<I", ifd_off) + body
-            + struct.pack("<HHH", 8, 8, 8) + ifd)
-
-
-def make_gif(img: np.ndarray) -> bytes:
-    """GIF87a without Pillow: a 3-3-2 bit RGB palette and LZW with a clear
-    code before the table can grow (every code stays 9 bits wide, so the
-    stream packs with numpy)."""
-    h, w = img.shape[:2]
-    idx = ((img[..., 0] >> 5) << 5 | (img[..., 1] >> 5) << 2
-           | img[..., 2] >> 6).astype(np.uint16).ravel()
-    pal = np.array([[(i >> 5) * 255 // 7, ((i >> 2) & 7) * 255 // 7,
-                     (i & 3) * 255 // 3] for i in range(256)], np.uint8)
-    run = 250  # data codes between clear codes: 258 + run < 512
-    n = len(idx)
-    groups = -(-n // run)
-    codes = np.full((groups, run + 1), 256, np.uint16)  # 256: clear
-    padded = np.full(groups * run, 257, np.uint16)
-    padded[:n] = idx
-    codes[:, 1:] = padded.reshape(groups, run)
-    codes = np.concatenate([codes.ravel()[: groups + n], [257]])  # 257: end
-    bits = ((codes[:, None] >> np.arange(9)) & 1).astype(np.uint8).ravel()
-    data = np.packbits(bits, bitorder="little").tobytes()
-    blocks = b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
-                      for i in range(0, len(data), 255))
-    return (b"GIF87a" + struct.pack("<HHBBB", w, h, 0xF7, 0, 0) + pal.tobytes()
-            + b"," + struct.pack("<HHHHB", 0, 0, w, h, 0) + b"\x08" + blocks
-            + b"\x00;")
-
-
-def make_webp(img: np.ndarray, quality: int) -> bytes:
-    """Lossy WebP without Pillow: BT.601 studio-range planes (a 2x2 box for
-    the chroma) through the port's own VP8 encoder."""
-    from imagekit_tpu_torch.codecs import vp8
-
-    rgb = img.astype(np.float32)
-    h, w = rgb.shape[:2]
-    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
-    y = 16.0 + (65.481 * r + 128.553 * g + 24.966 * b) / 255.0
-    cb = 128.0 + (-37.797 * r - 74.203 * g + 112.0 * b) / 255.0
-    cr = 128.0 + (112.0 * r - 93.786 * g - 18.214 * b) / 255.0
-
-    def half(c):
-        c = np.pad(c, ((0, h & 1), (0, w & 1)), mode="edge")
-        return c.reshape(c.shape[0] // 2, 2, c.shape[1] // 2, 2).mean((1, 3))
-
-    def q8(p):
-        return np.clip(np.floor(p + 0.5), 0, 255).astype(np.uint8)
-
-    return vp8.encode_yuv420(q8(y), q8(half(cb)), q8(half(cr)), quality)
 
 
 def native_codecs() -> str:
@@ -3268,150 +3175,6 @@ CMYK_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "cmyk_1080p_q80.jpg")
 CMYK_SEED = 500  # the fixture is synth_image(500, noise=False) in CMYK, q80
 
 
-def make_pnm(img: np.ndarray) -> bytes:
-    """Binary PPM (P6, maxval 255)."""
-    h, w = img.shape[:2]
-    return b"P6\n%d %d\n255\n" % (w, h) + img.tobytes()
-
-
-def make_qoi(img: np.ndarray) -> bytes:
-    """RGBA QOI without Pillow: a QOI_OP_RUN (62 pixels at most) for each
-    stretch of repeats, else QOI_OP_RGB where the alpha is the previous
-    pixel's and QOI_OP_RGBA where it is not, built with numpy."""
-    h, w = img.shape[:2]
-    px = np.ascontiguousarray(img).reshape(-1, 4)
-    prev = np.vstack([np.array([[0, 0, 0, 255]], np.uint8), px[:-1]])
-    same = (px == prev).all(axis=1)
-    edge = np.diff(np.concatenate([[0], same.astype(np.int8), [0]]))
-    starts, ends = np.flatnonzero(edge == 1), np.flatnonzero(edge == -1)
-    lens = ends - starts
-    k = (lens + 61) // 62
-    rid = np.repeat(np.arange(len(starts)), k)
-    j = np.arange(int(k.sum())) - np.repeat(np.cumsum(k) - k, k)
-    run_pos = starts[rid] + 62 * j
-    run_len = np.minimum(62, lens[rid] - 62 * j)
-    lit = np.flatnonzero(~same)
-    rgba = px[lit, 3] != prev[lit, 3]
-    rows = np.zeros((len(lit) + len(run_pos), 5), np.uint8)
-    size = np.ones(len(rows), np.int64)
-    rows[:len(lit), 0] = np.where(rgba, 0xFF, 0xFE)
-    rows[:len(lit), 1:] = px[lit]
-    size[:len(lit)] = np.where(rgba, 5, 4)
-    rows[len(lit):, 0] = 0xC0 | (run_len - 1)
-    order = np.argsort(np.concatenate([lit, run_pos]), kind="stable")
-    rows, size = rows[order], size[order]
-    body = rows[np.arange(5)[None, :] < size[:, None]].tobytes()
-    return (b"qoif" + struct.pack(">IIBB", w, h, 4, 0) + body
-            + b"\0" * 7 + b"\1")
-
-
-def _blocks4(img: np.ndarray) -> np.ndarray:
-    """(H, W, C) -> (H/4 * W/4, 16, C): 4x4 blocks, row-major."""
-    h, w, c = img.shape
-    return (img.reshape(h // 4, 4, w // 4, 4, c).transpose(0, 2, 1, 3, 4)
-            .reshape(-1, 16, c))
-
-
-def _unblocks4(blocks: np.ndarray, h: int, w: int) -> np.ndarray:
-    c = blocks.shape[-1]
-    return (blocks.reshape(h // 4, w // 4, 4, 4, c).transpose(0, 2, 1, 3, 4)
-            .reshape(h, w, c))
-
-
-def _bc1_colour(rgb: np.ndarray, four: bool):
-    """A numpy BC1 colour encoder: the block's channel-wise max and min as
-    565 endpoints, each texel the palette entry (bit-replicated 565, thirds
-    truncated toward zero, as a decoder makes them) nearest its projection
-    on the line between them. ``four`` is the block's mode: always four
-    colours in BC3; in BC1 where c0 > c1 (equal endpoints take index 0).
-    Returns (the 8-byte blocks, what a decoder gives: (N, 16, 3))."""
-    def to565(c):
-        c = c.astype(np.uint16)
-        return (c[..., 0] >> 3) << 11 | (c[..., 1] >> 2) << 5 | c[..., 2] >> 3
-
-    def from565(v):
-        v = v.astype(np.int32)
-        r, g, b = (v & 0xF800) >> 8, (v & 0x7E0) >> 3, (v & 0x1F) << 3
-        return np.stack([r | r >> 5, g | g >> 6, b | b >> 5], axis=-1)
-
-    a, b = to565(rgb.max(axis=1)), to565(rgb.min(axis=1))
-    c0, c1 = np.maximum(a, b), np.minimum(a, b)
-    e0, e1 = from565(c0), from565(c1)
-    pal = np.stack([e0, e1, (2 * e0 + e1) // 3, (e0 + 2 * e1) // 3], axis=1)
-    d = (e0 - e1).astype(np.float32)
-    t = ((rgb - e1[:, None]) * d[:, None]).sum(-1) / np.maximum(
-        (d * d).sum(-1), 1.0)[:, None]  # 0 at e1, 1 at e0
-    idx = np.array([1, 3, 2, 0])[np.clip(np.rint(3 * t), 0, 3).astype(int)]
-    if not four:
-        idx[c0 == c1] = 0
-    lut = (idx.astype(np.uint32) << (2 * np.arange(16, dtype=np.uint32))).sum(
-        axis=1, dtype=np.uint32)
-    out = np.zeros((len(rgb), 8), np.uint8)
-    out[:, 0:2] = c0.astype("<u2").view(np.uint8).reshape(-1, 2)
-    out[:, 2:4] = c1.astype("<u2").view(np.uint8).reshape(-1, 2)
-    out[:, 4:8] = lut.astype("<u4").view(np.uint8).reshape(-1, 4)
-    return out, np.take_along_axis(pal, idx[:, :, None], axis=1)
-
-
-def _bc3_alpha(alpha: np.ndarray):
-    """A numpy BC3 alpha encoder: max and min as endpoints, each texel the
-    nearest step of the eight-level ramp (index 0 where they are equal).
-    Returns (the 8-byte blocks, the decoded (N, 16) alpha)."""
-    a0 = alpha.max(axis=1).astype(np.int32)
-    a1 = alpha.min(axis=1).astype(np.int32)
-    i = np.arange(1, 7)
-    ramp = ((7 - i) * a0[:, None] + i * a1[:, None]) // 7
-    pal = np.concatenate([a0[:, None], a1[:, None], ramp], axis=1)
-    step = np.rint((a0[:, None] - alpha) * 7 / np.maximum(a0 - a1, 1)[:, None])
-    idx = np.array([0, 2, 3, 4, 5, 6, 7, 1])[np.clip(step, 0, 7).astype(int)]
-    idx[a0 == a1] = 0
-    bits = (idx.astype(np.uint64) << (3 * np.arange(16, dtype=np.uint64))).sum(
-        axis=1, dtype=np.uint64)
-    out = np.zeros((len(alpha), 8), np.uint8)
-    out[:, 0], out[:, 1] = a0, a1
-    out[:, 2:] = bits.astype("<u8").view(np.uint8).reshape(-1, 8)[:, :6]
-    return out, np.take_along_axis(pal, idx, axis=1)
-
-
-def make_dds(img: np.ndarray, fourcc: bytes):
-    """DXT1 or DXT5 DDS without Pillow (sides multiples of 4): the header
-    from :func:`dds_file`, the blocks from :func:`_bc1_colour` and
-    :func:`_bc3_alpha`. Returns (the file, the RGBA pixels a decoder must
-    give)."""
-    h, w = img.shape[:2]
-    blocks = _blocks4(img)
-    colour, rgb = _bc1_colour(blocks[..., :3], fourcc != b"DXT1")
-    if fourcc == b"DXT1":
-        data, alpha = colour, np.full(rgb.shape[:2], 255)
-    else:
-        abytes, alpha = _bc3_alpha(blocks[..., 3])
-        data = np.concatenate([abytes, colour], axis=1)
-    want = _unblocks4(np.concatenate([rgb, alpha[..., None]], axis=2), h, w)
-    return (dds_file(w, h, data.tobytes(), fourcc=fourcc),
-            want.astype(np.uint8))
-
-
-def make_ico(big: np.ndarray, small: np.ndarray, with_big: bool = True):
-    """ICO without Pillow: a PNG entry of ``big`` (RGBA, 256x256) and a
-    32 bpp BMP entry of ``small`` (RGBA, 48x48: a DIB of twice the height,
-    BGRA rows bottom-up, then an all-clear AND mask)."""
-    h, w = small.shape[:2]
-    rows = small[::-1][:, :, [2, 1, 0, 3]].tobytes()
-    mask = bytes((w + 31) // 32 * 4 * h)
-    dib = struct.pack("<IiiHHIIiiII", 40, w, 2 * h, 1, 32, 0,
-                      len(rows) + len(mask), 0, 0, 0, 0) + rows + mask
-    images = ([(big.shape[1], big.shape[0], make_png(big))] if with_big
-              else []) + [(w, h, dib)]
-    out = b"\x00\x00\x01\x00" + struct.pack("<H", len(images))
-    offset = 6 + 16 * len(images)
-    body = b""
-    for iw, ih, data in images:
-        out += struct.pack("<BBBBHHII", iw % 256, ih % 256, 0, 0, 1, 32,
-                           len(data), offset + len(body))
-        body += data
-    return out + body
-
-
 def ycck_of(cmyk: bytes) -> bytes:
     """The same JPEG read as YCCK: its Adobe APP14 transform flag set to 2."""
     at = cmyk.index(b"Adobe") + 11
@@ -3734,81 +3497,6 @@ def text_page(seed: int, w: int = A4[0], h: int = A4[1]) -> np.ndarray:
     return ~ink
 
 
-def tiff_ifd(w: int, h: int, entries, body: bytes, tail: bytes = b"") -> bytes:
-    """A little-endian TIFF of one strip, ``body``, with the IFD entries
-    (tag, type, count, value) besides the size and strip tags, and ``tail``
-    after the IFD: a value of None is the offset of the tail."""
-    entries = sorted(entries + [
-        (256, 4, 1, w), (257, 4, 1, h), (273, 4, 1, 8), (278, 4, 1, h),
-        (279, 4, 1, len(body))])
-    ifd_off = 8 + len(body)
-    tail_off = ifd_off + 2 + 12 * len(entries) + 4
-    ifd = struct.pack("<H", len(entries)) + b"".join(
-        struct.pack("<HHII", t, k, n, tail_off if v is None else v)
-        for t, k, n, v in entries) + struct.pack("<I", 0)
-    return b"II*\x00" + struct.pack("<I", ifd_off) + body + ifd + tail
-
-
-def make_bilevel_tiff(page: np.ndarray) -> bytes:
-    """Uncompressed 1-bit TIFF (BlackIsZero, BitsPerSample 1), by numpy."""
-    h, w = page.shape
-    return tiff_ifd(w, h, [(258, 3, 1, 1), (259, 3, 1, 1), (262, 3, 1, 1),
-                           (277, 3, 1, 1)], np.packbits(page, axis=1).tobytes())
-
-
-def packbits(rows: np.ndarray) -> bytes:
-    """PackBits of each row of (h, n) u8, as literal packets of at most 128
-    bytes: a valid stream that decodes through the literal arm."""
-    h, n = rows.shape
-    out = []
-    for at in range(0, n, 128):
-        chunk = rows[:, at:at + 128]
-        head = np.full((h, 1), chunk.shape[1] - 1, np.uint8)
-        out.append(np.concatenate([head, chunk], axis=1))
-    return np.concatenate(out, axis=1).tobytes()
-
-
-def make_cmyk_tiff(img: np.ndarray) -> bytes:
-    """8-bit CMYK TIFF (photometric 5, chunky, PackBits) of an RGB image, as
-    Pillow converts RGB to CMYK (C, M, Y = 255 - R, G, B; K = 0), so that
-    the decode gives the image back exactly."""
-    h, w = img.shape[:2]
-    cmyk = np.concatenate([255 - img, np.zeros((h, w, 1), np.uint8)], 2)
-    return tiff_ifd(w, h, [(258, 3, 4, None), (259, 3, 1, 32773),
-                           (262, 3, 1, 5), (277, 3, 1, 4)],
-                    packbits(cmyk.reshape(h, 4 * w)),
-                    struct.pack("<HHHH", 8, 8, 8, 8))
-
-
-def make_bmp_fields(img: np.ndarray, kind: str) -> bytes:
-    """A BMP of an RGB or RGBA image, by ``struct`` and numpy: "v5_bgra" (32
-    bpp BI_BITFIELDS, BGRA masks in a 124-byte header), "565" (16 bpp
-    BI_BITFIELDS 5-6-5 after a 40-byte header) or "core24" (a 12-byte
-    BITMAPCOREHEADER, 24 bpp)."""
-    h, w = img.shape[:2]
-    if kind == "v5_bgra":
-        px = img[..., [2, 1, 0, 3]].reshape(h, 4 * w)
-        header = struct.pack("<IiiHHIIiiII", 124, w, h, 1, 32, 3, px.size,
-                             2835, 2835, 0, 0) + struct.pack(
-            "<IIII", 0xFF0000, 0xFF00, 0xFF, 0xFF000000) + bytes(68)
-    elif kind == "565":
-        v = ((img[..., 0].astype(np.uint16) >> 3) << 11
-             | (img[..., 1].astype(np.uint16) >> 2) << 5
-             | img[..., 2].astype(np.uint16) >> 3)
-        px = v.astype("<u2").view(np.uint8).reshape(h, 2 * w)
-        header = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 16, 3, 0, 2835,
-                             2835, 0, 0) + struct.pack(
-            "<III", 0xF800, 0x7E0, 0x1F)
-    else:
-        px = img[..., ::-1].reshape(h, 3 * w)
-        header = struct.pack("<IHHHH", 12, w, h, 1, 24)
-    pad = (-px.shape[1]) % 4
-    body = np.pad(px[::-1], ((0, 0), (0, pad))).tobytes()
-    off = 14 + len(header)
-    return b"BM" + struct.pack("<IHHI", off + len(body), 0, 0, off) + \
-        header + body
-
-
 def widened_565(img: np.ndarray) -> np.ndarray:
     """What a 5-6-5 BMP of ``img`` decodes to: Pillow's v * 255 / 31 and
     v * 255 / 63."""
@@ -3952,110 +3640,6 @@ TIFF_JPEG_RGB_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
 TIFF_JPEG_CMYK_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                                       "tiff_jpeg_cmyk_1080p_q80.tif")
 TIFF_JPEG_SEED = 800  # the fixtures are synth_image(800, noise=False)
-
-
-def tiff_file(w: int, h: int, tags: dict, chunks, tile: int = 0) -> bytes:
-    """A little-endian TIFF of one IFD: ``chunks`` (strips, or ``tile``-px
-    square tiles row by row) after the header, then the IFD of ``tags``
-    {tag: (type, values)} (3 SHORT, 4 LONG, 7 UNDEFINED with the values as
-    bytes) with the size and chunk tags added, then the values that do not
-    fit in their entries."""
-    body, offs = b"", []
-    for c in chunks:
-        offs.append(8 + len(body))
-        body += c + b"\0" * (len(c) % 2)
-    lens = [len(c) for c in chunks]
-    tags = {256: (4, [w]), 257: (4, [h]), **tags}
-    if tile:
-        tags.update({322: (3, [tile]), 323: (3, [tile]), 324: (4, offs),
-                     325: (4, lens)})
-    else:
-        tags.update({273: (4, offs), 279: (4, lens)})
-    ifd_off = 8 + len(body)
-    tail_off = ifd_off + 2 + 12 * len(tags) + 4
-    ifd, tail = struct.pack("<H", len(tags)), b""
-    for t in sorted(tags):
-        typ, vals = tags[t]
-        raw = bytes(vals) if typ == 7 else b"".join(
-            struct.pack("<" + {3: "H", 4: "I"}[typ], v) for v in vals)
-        ifd += struct.pack("<HHI", t, typ, len(raw) if typ == 7 else len(vals))
-        if len(raw) <= 4:
-            ifd += raw.ljust(4, b"\0")
-        else:
-            ifd += struct.pack("<I", tail_off + len(tail))
-            tail += raw + b"\0" * (len(raw) % 2)
-    return (b"II*\x00" + struct.pack("<I", ifd_off) + body + ifd
-            + struct.pack("<I", 0) + tail)
-
-
-def split_jpeg(data: bytes, moved=(0xDB, 0xC4)):
-    """A whole baseline JPEG -> (tables, segment) as a JPEG TIFF holds them:
-    SOI, its segments of the ``moved`` markers (DQT and DHT), EOI
-    (``JPEGTables``); SOI, its other segments but the APPn ones, the scan,
-    EOI (a strip or a tile)."""
-    tables, rest, at = [], [], 2
-    while data[at + 1] != 0xDA:
-        n = struct.unpack(">H", data[at + 2:at + 4])[0]
-        seg = data[at:at + 2 + n]
-        if data[at + 1] in moved:
-            tables.append(seg)
-        elif not 0xE0 <= data[at + 1] <= 0xEF:
-            rest.append(seg)
-        at += 2 + n
-    return (b"\xff\xd8" + b"".join(tables) + b"\xff\xd9",
-            b"\xff\xd8" + b"".join(rest) + data[at:])
-
-
-def make_jpeg_tiff(img: np.ndarray, quality: int = 80, samp=(2, 2),
-                   rows: int = 16, tile: int = 0, gray: bool = False,
-                   tables: bool = True) -> bytes:
-    """A JPEG-compressed TIFF of an RGB image without Pillow: YCbCr
-    (photometric 6, ``samp`` the YCbCrSubSampling), or gray (photometric 1)
-    where ``gray``; in strips of ``rows`` rows (a multiple of the MCU
-    height), or in ``tile``-px square tiles, the edge tiles padded by
-    replicating the image's edge. The image is encoded once by the port's
-    encoder (``make_jpeg``'s); each strip or tile is then the JPEG of its
-    blocks (an MCU does not straddle a segment, so these are the segment's
-    own JPEG's coefficients), its DQT moved into ``JPEGTables`` (tag 347)
-    unless ``tables`` is False. The encoder's Huffman tables are optimised
-    for each segment, so each keeps its DHT."""
-    from imagekit_tpu_torch.codecs.native import loader
-    from imagekit_tpu_torch.ops.weights import host_encode_rgb_to_coefficients
-
-    h, w = img.shape[:2]
-    sh, sv = (1, 1) if gray else samp
-    if tile:
-        gh, gw = -(-h // tile), -(-w // tile)
-        img = np.pad(img, ((0, gh * tile - h), (0, gw * tile - w), (0, 0)),
-                     mode="edge")
-        seg_w, seg_h = tile, tile
-    else:
-        gh, gw, seg_w, seg_h = -(-h // rows), 1, w, rows
-    planes, qt = host_encode_rgb_to_coefficients(img, quality, (sh, sv))
-    factors = [(sh, sv), (1, 1), (1, 1)]
-    if gray:
-        planes, factors = planes[:1], factors[:1]
-    tab, segs = None, []
-    for i in range(gh):
-        sh_px = seg_h if tile else min(rows, h - i * rows)
-        for j in range(gw):
-            my, mx = i * seg_h // (8 * sv), j * seg_w // (8 * sh)
-            ny, nx = -(-sh_px // (8 * sv)), -(-seg_w // (8 * sh))
-            part = [p[my * fv:(my + ny) * fv, mx * fh:(mx + nx) * fh]
-                    for p, (fh, fv) in zip(planes, factors)]
-            tab, seg = split_jpeg(loader.encode_jpeg(part, qt, seg_w, sh_px,
-                                                     (sh, sv)), (0xDB,))
-            segs.append(seg if tables else tab[:-2] + seg[2:])
-    n = 1 if gray else 3
-    tags = {258: (3, [8] * n), 259: (3, [7]), 262: (3, [1 if gray else 6]),
-            277: (3, [n]), 284: (3, [1])}
-    if not gray:
-        tags[530] = (3, [sh, sv])
-    if not tile:
-        tags[278] = (4, [rows])
-    if tables:
-        tags[347] = (7, tab)
-    return tiff_file(w, h, tags, segs, tile)
 
 
 def phase_tiff_jpeg(card: str) -> dict:
@@ -4466,21 +4050,6 @@ def jpeg_writer(name: str = "jpeg_writer"):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
-
-
-def dds_file(w: int, h: int, body: bytes, fourcc: bytes = b"DX10",
-             dxgi: int = 0, pfflags: int = 0x4, bitcount: int = 0,
-             extra: bytes = b"") -> bytes:
-    """A DDS header (and a DX10 one for ``fourcc`` DX10) before ``extra``
-    (a palette) and the body."""
-    head = (b"DDS " + struct.pack("<7I", 124, 0x81007, h, w, len(body), 0, 0)
-            + bytes(44) + struct.pack("<4I", 32, pfflags,
-                                      struct.unpack("<I", fourcc)[0],
-                                      bitcount)
-            + bytes(16) + struct.pack("<5I", 0x1000, 0, 0, 0, 0))
-    if fourcc == b"DX10":
-        head += struct.pack("<5I", dxgi, 3, 0, 1, 0)
-    return head + extra + body
 
 
 def _pack_bits(fields, n: int) -> np.ndarray:
@@ -6596,6 +6165,264 @@ def phase_mesh(jpegs, dense, pngs, webps, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 31: the split-transport RGB head, Y400 AVIFs, the soak
+# ---------------------------------------------------------------------------
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count, by kernel."""
+    from imagekit_tpu_torch.ops import jpeg8, resize_strip
+    from imagekit_tpu_torch.ops import resize_planes as rp
+
+    return {"k1": jpeg8.LAUNCHES, "k2": resize_strip.LAUNCHES,
+            "k2_rgba": resize_strip.LAUNCHES_RGBA, "k3": rp.LAUNCHES,
+            "k4": rp.LAUNCHES_F32}
+
+
+def zero_counts() -> None:
+    from imagekit_tpu_torch.ops import jpeg8, resize_strip
+    from imagekit_tpu_torch.ops import resize_planes as rp
+
+    jpeg8.LAUNCHES = resize_strip.LAUNCHES = resize_strip.LAUNCHES_RGBA = 0
+    rp.LAUNCHES = rp.LAUNCHES_F32 = 0
+
+
+def rgb_i8_case(jpegs) -> dict:
+    """``dct.decode_resize_rgb_i8_batch`` (the reference's
+    ``decode_resize_rgb_i8_batch``, which no engine path takes) on the B=32
+    k=8 split batch the engine packs from the 1080p JPEGs for w=1280, with
+    the RGB head's stacks (chroma to the full 720x1280 grid): one K3 launch
+    (the counts set to 0 just before, read just after), the output byte for
+    byte that of ``decode_resize_rgb_batch`` on the same images' int16
+    levels, and within +-2 on <= 0.1% of its plain version (K3's +-1 through
+    the YCbCr -> RGB matrix). K3's own launch at these planes timed with CUDA
+    events (queued behind a spin kernel), its plain version and one fp32
+    einsum a plane beside it, the bound; the whole head's time too."""
+    from imagekit_tpu_torch.ops import dct
+    from imagekit_tpu_torch.ops import resize_planes as rp
+    from imagekit_tpu_torch.ops.resize_strip import resize_tables
+    from imagekit_tpu_torch.ops.weights import combined_chroma_weights
+    from imagekit_tpu_torch.serving.batch_types import _cached_weights
+
+    args, _, _ = capture_batch(jpegs, 1280, 32, "decode_resize_yuv_i8_batch")
+    dcs, acs, escs, qt, _, vidx, block_dims, out_shape = args
+    if int(vidx.max()) != 0:
+        raise RuntimeError("the 1080p batch holds more than one geometry")
+    by, bx, cy, cx = block_dims
+    obh, obw = out_shape
+    stacks = tuple(torch.from_numpy(w[None]).cuda() for w in (
+        _cached_weights(1080, 720, by * 8, obh),
+        _cached_weights(1920, 1280, bx * 8, obw),
+        combined_chroma_weights(540, 1080, 720, cy * 8, obh),
+        combined_chroma_weights(960, 1920, 1280, cx * 8, obw)))
+    bands = tuple(resize_tables(*pair) for pair in (stacks[:2], stacks[2:]))
+    split = (dcs, acs, escs, qt, stacks, vidx, block_dims, out_shape)
+    zero_counts()
+    got = dct.decode_resize_rgb_i8_batch(*split, bands=bands, device="cuda",
+                                         host=False)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if launches["k3"] != 1 or sum(launches.values()) != 1:
+        raise RuntimeError(f"the split RGB head launched {launches}, not one "
+                           f"K3")
+    dims = ((by, bx), (cy, cx), (cy, cx))
+    levels = [dct._widen_split_levels(dcs[p], acs[p], *escs[p], *dims[p])
+              .to(torch.int16) for p in range(3)]
+    if int(escs[0][1].abs().sum()) == 0:
+        raise RuntimeError("the batch carries no escape")
+    int16 = dct.decode_resize_rgb_batch(*levels, qt, stacks, vidx,
+                                        block_dims, out_shape, bands=bands,
+                                        device="cuda", host=False)
+    if not torch.equal(got, int16):
+        raise RuntimeError("the split RGB head differs from the int16 head "
+                           "on the same levels")
+    plain = dct.decode_resize_rgb_i8(dcs, acs, escs, qt, *stacks, vidx,
+                                     block_dims, bands,
+                                     resize=rp.resize_planes3_plain)
+    d = (got.reshape(plain.shape).int() - plain.int()).abs()
+    mx, share = int(d.max()), float((d > 0).float().mean())
+    if mx > 2 or share > MAX_SHARE:
+        raise RuntimeError(f"the split RGB head (K3) disagrees with its plain "
+                           f"version: max|d|={mx}, share={share:.3e}")
+    planes = [dct._blocks_to_plane(levels[0], by, bx, qt[:, :64]),
+              dct._blocks_to_plane(levels[1], cy, cx, qt[:, 64:]),
+              dct._blocks_to_plane(levels[2], cy, cx, qt[:, 64:])]
+    case = {"batch": int(vidx.shape[0]), "launches": launches["k3"],
+            "max_abs_err": mx, "share_differ": share,
+            "planes": [tuple(p.shape[1:]) for p in planes],
+            "out": [obh, obw]}
+    case["ms"] = queued_ms(lambda: rp.resize_planes3(planes, stacks, vidx,
+                                                     bands=bands))
+    case["plain_ms"] = queued_ms(
+        lambda: rp.resize_planes3_plain(planes, stacks, vidx))
+    case["library_ms"] = queued_ms(planes_einsums(planes, stacks, vidx))
+    case["bound_ms"], case["bound_by"] = planes_bound(planes, 1, stacks,
+                                                      bands, vidx)
+    case["head_ms"] = queued_ms(lambda: dct.decode_resize_rgb_i8(
+        dcs, acs, escs, qt, *stacks, vidx, block_dims, bands))
+    log(f"  split RGB head, B={case['batch']} 1080p k=8 -> {obh}x{obw} RGB: "
+        f"1 K3 launch, equal to the int16 head on the same levels, max|d| "
+        f"{mx} (share {share:.3e}) against its plain version; K3 "
+        f"{case['ms']:.4f} ms (CUDA events), plain {case['plain_ms']:.4f}, "
+        f"einsums {case['library_ms']:.4f}, bound {case['bound_ms']:.4f} "
+        f"({case['bound_by']}); the whole head {case['head_ms']:.4f} ms")
+    return case
+
+
+def y400_round(card: str) -> dict:
+    """True monochrome AVIFs written here by the port's encoder (480x270
+    and 95x69 planes) through ``BatchedEngine(device="cuda")`` to w=400
+    WebP and JPEG and w=160 AVIF: each output parsed to its format and
+    size, decoded by the port's own decoders to pixels whose channels agree
+    (a Y400 source has neutral chroma), and the launches (the counts set to
+    0 just before, read just after)."""
+    from imagekit_tpu_torch.codecs import decode_bytes
+    from imagekit_tpu_torch.codecs.avif_encode import encode_y400_studio
+    from imagekit_tpu_torch.codecs.avif_native import parse_container
+    from imagekit_tpu_torch.config import (BatchConfig, ImageFormat,
+                                           ImageKitConfig)
+    from imagekit_tpu_torch.ops.weights import target_dimensions
+    from imagekit_tpu_torch.serving.batcher import BatchedEngine
+    from imagekit_tpu_torch.serving.metrics import Metrics
+
+    t0 = time.perf_counter()
+    planes = [synth_image(3100, 480, 270)[..., 1],
+              synth_image(3101, 95, 69)[..., 0]]
+    files = [encode_y400_studio(p, 80) for p in planes]
+    made_s = time.perf_counter() - t0
+    for f in files:
+        if not parse_container(f).monochrome:
+            raise RuntimeError("the Y400 writer wrote a colour AVIF")
+    engine = BatchedEngine(ImageKitConfig(
+        secret=SECRET, batch=BatchConfig(max_queue_latency_s=0.0)),
+        metrics=Metrics(), device="cuda")
+    wanted = [(i, w, fmt) for i in range(len(files))
+              for w, fmt in ((400, ImageFormat.webp), (400, ImageFormat.jpeg),
+                             (160, ImageFormat.avif))]
+
+    async def drive():
+        try:
+            return await asyncio.gather(*(
+                engine.transform(files[i], w, None, fmt, 80)
+                for i, w, fmt in wanted))
+        finally:
+            await engine.close()
+
+    zero_counts()
+    t0 = time.perf_counter()
+    outs = asyncio.run(drive())
+    secs = time.perf_counter() - t0
+    launches = launch_counts()
+    spread = 0
+    for (i, w, fmt), out in zip(wanted, outs):
+        h, wd = planes[i].shape
+        want = (fmt.value, *target_dimensions(wd, h, w, None))
+        if out_dims(out) != want:
+            raise RuntimeError(f"Y400 -> {fmt.value} gave {out_dims(out)}, "
+                               f"want {want}")
+        arr, _ = decode_bytes(out, device="cpu")
+        if arr.shape[:2] != (want[2], want[1]):
+            raise RuntimeError(f"Y400 -> {fmt.value} decodes to {arr.shape}")
+        c = arr[..., :3].astype(np.int16)
+        spread = max(spread, int((c.max(axis=2) - c.min(axis=2)).max()))
+    if spread > 3 or launches["k2"] <= 0:
+        raise RuntimeError(f"Y400 outputs' channels spread by {spread}, or no "
+                           f"K2 launched ({launches})")
+    log(f"  Y400 AVIFs (480x270, 95x69; written in {made_s:.2f} s) -> w=400 "
+        f"WebP, JPEG, w=160 AVIF: {len(outs)} outputs in {secs:.2f} s, sizes "
+        f"and decodes checked, channels within {spread}; launches {launches} "
+        f"on {card}")
+    return {"launches": launches, "outputs": len(outs), "seconds": secs,
+            "channel_spread": spread}
+
+
+def soak_round(card: str, n_upload: int = 48, n_img: int = 48,
+               concurrency: int = 8) -> dict:
+    """``tools/soak.py`` against the port's app on ``cuda`` in this process
+    (on a local port): ``n_img`` requests of the reference's /sign -> /img
+    mix, then ``n_upload`` of its /upload mix (whose AVIF outputs upscaled
+    to w=1200 take the first-party encoder tens of seconds), at
+    ``concurrency``, over every
+    source class written here and the committed 1080p 4:4:4 and 4:2:2
+    AVIFs; one small AVIF upload first, so that the AVIF lane's admission
+    has an encode to reckon with, as a running server has. Any miss
+    (a 5xx, a 501, a status outside the soak's rules, a body of the wrong
+    format or size) fails the run; the launches of each kernel over the
+    soak (the counts set to 0 just before, read just after)."""
+    import shutil
+
+    import aiohttp
+    from aiohttp import web
+
+    from imagekit_tpu_torch.config import ImageKitConfig
+    from imagekit_tpu_torch.fetch import Fetcher
+    from imagekit_tpu_torch.ops._build import BUILD_DIR
+    from imagekit_tpu_torch.serving.app import create_app
+    from imagekit_tpu_torch.serving.metrics import Metrics
+    from imagekit_tpu_torch.tools import soak
+
+    fixtures = [os.path.join(ROOT, "tests", "fixtures", "avif", name)
+                for name in ("1080p_444.avif", "1080p_422.avif")]
+    t0 = time.perf_counter()
+    sources, skipped = soak.make_sources(fixtures)
+    made_s = time.perf_counter() - t0
+    cache_dir = BUILD_DIR / "soak_cache"
+    shutil.rmtree(cache_dir, ignore_errors=True)
+
+    async def run():
+        app = create_app(ImageKitConfig(secret=SECRET, cache_dir=cache_dir),
+                         fetcher=Fetcher(), metrics=Metrics(),
+                         rate_limit=False, device="cuda")
+        runner = web.AppRunner(app)
+        await runner.setup()
+        site = web.TCPSite(runner, "127.0.0.1", 0)
+        await site.start()
+        base = f"http://127.0.0.1:{runner.addresses[0][1]}"
+        try:
+            async with aiohttp.ClientSession() as s:
+                form = aiohttp.FormData()
+                form.add_field("file", sources[0].data, filename="x")
+                form.add_field("w", "64")
+                form.add_field("f", "avif")
+                async with s.post(base + "/upload", data=form) as r:
+                    await r.read()
+                    if r.status != 200:
+                        raise RuntimeError(f"warm-up AVIF upload: {r.status}")
+            zero_counts()
+            img = await soak.run_img(base, n_img, concurrency, sources)
+            up = await soak.run(base, n_upload, concurrency, sources)
+            return up, img, launch_counts()
+        finally:
+            await runner.cleanup()
+
+    t0 = time.perf_counter()
+    up, img, launches = asyncio.run(run())
+    secs = time.perf_counter() - t0
+    log(f"  soak corpus: {len(sources)} classes in {made_s:.2f} s (skipped, "
+        f"no writer here: {', '.join(skipped)})")
+    for report in (img, up):
+        for line in report.lines():
+            log("    " + line)
+    log(f"  soak launches {launches}; {secs:.2f} s with the warm-up, on "
+        f"{card}")
+    misses = up.misses + img.misses
+    if misses:
+        raise RuntimeError(f"the soak missed {len(misses)} times: "
+                           f"{misses[:5]}")
+    if launches["k2"] <= 0:
+        raise RuntimeError(f"the soak launched no K2: {launches}")
+    return {"upload": up.summary(), "img": img.summary(),
+            "launches": launches, "seconds": secs}
+
+
+def phase_last_slice(jpegs, card: str) -> dict:
+    """Phase 31: :func:`rgb_i8_case`, :func:`y400_round`,
+    :func:`soak_round`."""
+    return {"rgb_i8": rgb_i8_case(jpegs), "y400": y400_round(card),
+            "soak": soak_round(card)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -6815,6 +6642,11 @@ def main() -> int:
           "against the engine on one device, and a 9600x2400 image's height "
           "over four shards")
     mesh30 = phase_mesh(jpegs, dense, pngs, webps, card)
+
+    begin("[31] the last of the JAX package: the RGB head on the split "
+          "transport (one K3 a batch), Y400 AVIFs through the engine, and "
+          "the soak over /upload and /img against the app on cuda")
+    last31 = phase_last_slice(jpegs, card)
     end_phase()
     log("    seconds a phase (heading to heading): " + ", ".join(
         f"[{k}] {v:.2f}" for k, v in PHASE_S.items()))
@@ -6823,6 +6655,8 @@ def main() -> int:
     avif_n = {head: r["launches"] for head, r in avif.items()}
     kernels = [{
         "name": "jpeg8_folded_planes (K1)",
+        # phase 31: launches over the soak (/upload and /img, every class)
+        "soak_launches": last31["soak"]["launches"]["k1"],
         "route": "cuda",
         "source": "imagekit_tpu_torch/csrc/jpeg8_folded.cu",
         "replaces": "imagekit_tpu/ops/pallas_jpeg8.py:159",
@@ -6841,6 +6675,8 @@ def main() -> int:
         "library_ms": kern["library_ms"],
     }, {
         "name": "rgb_resize (K2, 3 channels in one launch)",
+        # phase 31: launches over the soak (/upload and /img, every class)
+        "soak_launches": last31["soak"]["launches"]["k2"],
         "route": "cuda",
         "source": "imagekit_tpu_torch/csrc/resize_strip.cu",
         "replaces": "imagekit_tpu/ops/pallas_resize.py:155",
@@ -6881,6 +6717,8 @@ def main() -> int:
         "library_ms": k2["library_ms"],
     }, {
         "name": "resize_planes3 (K3, Y + Cb + Cr in one launch)",
+        # phase 31: launches over the soak (/upload and /img, every class)
+        "soak_launches": last31["soak"]["launches"]["k3"],
         "route": "cuda",
         "source": "imagekit_tpu_torch/csrc/resize_planes.cu",
         "replaces": "imagekit_tpu/ops/pallas/resize_kernel.py:157",
@@ -6897,6 +6735,11 @@ def main() -> int:
         "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"],
         "library_ms": k3["library_ms"],
+        # phase 31: the RGB head on the k=8 split transport (B=32, 1080p ->
+        # 720x1280 RGB), no engine path's; one launch a batch
+        "rgb_i8_head": {key: last31["rgb_i8"][key] for key in (
+            "batch", "launches", "max_abs_err", "share_differ", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "head_ms")},
         # the JPEG pixel decode beyond 4:2:0 (phase 17): launches on its
         # rounds, and K3 at its two new geometries (B=1)
         "layout_launches": layouts["k3_launches"],
@@ -6967,6 +6810,8 @@ def main() -> int:
     }, {
         "name": "resize_planes3_f32 (K4, Y + Cb + Cr in one launch; u8 planes "
                 "in, f32 out on the k=8 JPEG -> WebP heads)",
+        # phase 31: launches over the soak (/upload and /img, every class)
+        "soak_launches": last31["soak"]["launches"]["k4"],
         "route": "cuda",
         "source": "imagekit_tpu_torch/csrc/resize_planes.cu",
         "replaces": "imagekit_tpu/ops/pallas/resize_kernel.py:235",
@@ -7001,6 +6846,8 @@ def main() -> int:
     }, {
         "name": "yuv_resize (K2, Y + Cb + Cr of a YUV-source batch in one "
                 "launch, per-plane epilogue)",
+        # phase 31: the Y400 AVIFs' round (neutral chroma, this entry)
+        "y400_launches": last31["y400"]["launches"]["k2"],
         "route": "cuda",
         "source": "imagekit_tpu_torch/csrc/resize_strip.cu",
         "replaces": "imagekit_tpu/ops/pallas_resize.py:155",
@@ -7129,6 +6976,7 @@ def main() -> int:
         raise RuntimeError("a round of phase 28 launched no K2")
     if inter29["k2_launches"] <= 0:
         raise RuntimeError("a round of phase 29 launched no K2")
+
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -37,9 +37,11 @@ Design (final round-5 state):
     from the certified inverse.
 
 The port's copy of ``imagekit_tpu/codecs/av1_image.py`` without the dav1d
-decode oracle (``_OracleRecon``), which the default path never takes: the
-port has no AV1 decoder. ``encode_superblock`` still takes an ``oracle``
-callable; :func:`encode_frame` and :func:`encode_avif` are unchanged.
+decode oracle (``_OracleRecon``), which the default path never takes.
+``encode_superblock`` still takes an ``oracle`` callable. Beside the
+reference: a monochrome (YUV400) mode of :func:`encode_frame` and
+:func:`encode_avif_y400`, which the reference writes through libavif; its
+4:2:0 streams are unchanged, byte for byte.
 """
 
 from __future__ import annotations
@@ -358,9 +360,10 @@ def _rd_block(te: TileEncoder, planes, recs, mi_r: int, mi_c: int,
     """Encode the RD-best partition tree for the block at (mi_r, mi_c)
     into `te`, writing its reconstruction into `recs`.  Returns the
     block's cost D + lam*R (R in exact MSAC bits via the encoder's
-    renormalization counter; D = SSE over Y+U+V).  Candidates at each
-    node: NONE-coded, NONE-forced-skip, SPLIT (recursive); leaves stop
-    at 8 (4:2:0 chroma pairing keeps luma >= 8)."""
+    renormalization counter; D = SSE over Y+U+V, or over Y alone where
+    `planes` holds the luma only: a monochrome frame).  Candidates at
+    each node: NONE-coded, NONE-forced-skip, SPLIT (recursive); leaves
+    stop at 8 (4:2:0 chroma pairing keeps luma >= 8)."""
     entry = te.snapshot()
     nb0 = te.msac.nbits
     pr, pc = mi_r * 4, mi_c * 4
@@ -371,8 +374,7 @@ def _rd_block(te: TileEncoder, planes, recs, mi_r: int, mi_c: int,
     # chroma: DC-pred only (shared by every luma mode candidate)
     c_preds, c_quants, c_rbs = [], [], []
     dc_skip = dc_coded = 0.0
-    for plane, src_p, rec_p in ((1, planes[1], recs[1]),
-                                (2, planes[2], recs[2])):
+    for src_p, rec_p in zip(planes[1:], recs[1:]):
         p = dc_pred(rec_p, cr, cc, cb, cb, ha, hl)
         src = src_p[cr:cr + cb, cc:cc + cb]
         pa = np.full((cb, cb), p, np.uint8)
@@ -410,8 +412,7 @@ def _rd_block(te: TileEncoder, planes, recs, mi_r: int, mi_c: int,
         qd, rb, sse_c, qd_nz = _eval_candidate(src_y, pa, dcq, acq, "DCT")
         if qd_nz or c_nz:
             trials.append((sse_c + dc_coded, mode,
-                           (qd, c_quants[0], c_quants[1]),
-                           [rb, c_rbs[0], c_rbs[1]], 1))
+                           (qd, *c_quants), [rb, *c_rbs], 1))
             # eob-trim candidate: trailing |level|==1 runs extend the
             # eob, which is the most expensive way to spend half-step
             # distortion — offer the truncated block and let the exact
@@ -428,10 +429,8 @@ def _rd_block(te: TileEncoder, planes, recs, mi_r: int, mi_c: int,
                     rb_t = (_recon_candidate(qd_t, pa, dcq, acq)
                             if qd_t.any() else pa)
                     trials.append((_sse(src_y, rb_t) + dc_coded, mode,
-                                   (qd_t, c_quants[0], c_quants[1]),
-                                   [rb_t, c_rbs[0], c_rbs[1]], 1))
-        trials.append((dy_skip + dc_skip, mode, None,
-                       [pa, c_preds[0], c_preds[1]], 1))
+                                   (qd_t, *c_quants), [rb_t, *c_rbs], 1))
+        trials.append((dy_skip + dc_skip, mode, None, [pa, *c_preds], 1))
         if size <= 16 and (np.abs(res) <= 2).mean() >= 0.5:
             # IDTX (identity transform, TX_SET_INTRA_2 symbol 0): the
             # forward transform IS the residual — the per-pass identity
@@ -447,8 +446,7 @@ def _rd_block(te: TileEncoder, planes, recs, mi_r: int, mi_c: int,
                 src_y, pa, dcq, acq, "IDTX")
             if qi_nz:
                 trials.append((sse_i + dc_coded, mode,
-                               (qd_i, c_quants[0], c_quants[1]),
-                               [rb_i, c_rbs[0], c_rbs[1]], 0))
+                               (qd_i, *c_quants), [rb_i, *c_rbs], 0))
     # entropy-code trials best-distortion-first; cost >= dist, so once a
     # trial's dist exceeds the best full cost it cannot win (admissible
     # prune — bits are nonnegative)
@@ -523,8 +521,8 @@ def _rd_partition(te: TileEncoder, planes, recs, mi_r: int, mi_c: int,
     return cost
 
 
-def encode_superblock_rd(sb_y: np.ndarray, sb_u: np.ndarray,
-                         sb_v: np.ndarray, qindex: int,
+def encode_superblock_rd(sb_y: np.ndarray, sb_u: np.ndarray | None,
+                         sb_v: np.ndarray | None, qindex: int,
                          lam: float | None = None,
                          tw: int = 64, th: int = 64,
                          adapt: bool = False) -> tuple:
@@ -533,33 +531,40 @@ def encode_superblock_rd(sb_y: np.ndarray, sb_u: np.ndarray,
     minimizes D + lam*R with exact MSAC bit counts and av1_itx
     reconstructions.  ``tw``/``th`` are the tile's VISIBLE pixel dims
     (any size >= 1); the sb_* planes carry the 8-px coding grid
-    (edge-replicated by the caller).
+    (edge-replicated by the caller).  ``sb_u`` and ``sb_v`` None: a
+    monochrome tile, luma only.
 
-    Returns (tile_bytes, recon planes at the grid geometry).
+    Returns (tile_bytes, recon planes at the grid geometry; None for
+    the chroma of a monochrome tile).
     """
     T = tables()
     dcq = int(T["dc_qlookup"][qindex])
     acq = int(T["ac_qlookup"][qindex])
     if lam is None:
         lam = RD_LAMBDA_C * (acq / 8.0) ** 2
-    te = TileEncoder(tw, th, qctx=q_ctx(qindex), adapt=adapt)
-    ry = np.zeros_like(sb_y)
-    ru = np.zeros_like(sb_u)
-    rv = np.zeros_like(sb_v)
-    recs = [ry, ru, rv]
-    _rd_partition(te, (sb_y, sb_u, sb_v), recs, 0, 0, 64, dcq, acq, lam)
-    return te.msac.done(), ry, ru, rv
+    mono = sb_u is None
+    te = TileEncoder(tw, th, qctx=q_ctx(qindex), adapt=adapt, mono=mono)
+    planes = (sb_y,) if mono else (sb_y, sb_u, sb_v)
+    recs = [np.zeros_like(p) for p in planes]
+    _rd_partition(te, planes, recs, 0, 0, 64, dcq, acq, lam)
+    if mono:
+        return te.msac.done(), recs[0], None, None
+    return (te.msac.done(), *recs)
 
 
 # ---------------------------------------------------------------------------
 # Frame encoder
 
 
-def encode_frame(y: np.ndarray, u: np.ndarray, v: np.ndarray,
+def encode_frame(y: np.ndarray, u: np.ndarray | None = None,
+                 v: np.ndarray | None = None,
                  qindex: int = 60, full_range: bool = False,
                  rd: bool = True, adapt: bool = True) -> tuple:
     """Encode 4:2:0 planes (ANY dims >= 1, <= 4096) to a full OBU
-    stream.  Non-multiple-of-8 dims are edge-replicated onto the spec's
+    stream; with ``u`` and ``v`` None, the luma alone as a monochrome
+    (mono_chrome = 1) frame, whose blocks code no chroma and whose RD
+    search counts the luma's cost only.  Non-multiple-of-8 dims are
+    edge-replicated onto the spec's
     8-px mi grid and the bitstream signals the true frame size (the
     decoder crops — no container CleanAperture needed); edge
     superblocks use the forced-split partition syntax certified by
@@ -568,11 +573,16 @@ def encode_frame(y: np.ndarray, u: np.ndarray, v: np.ndarray,
 
     Returns (obu_bytes, recon_y, recon_u, recon_v) at the VISIBLE dims —
     the byte-true decoder output (av1_itx model), usable for PSNR and
-    for the conformance gate (dav1d must reproduce it bit-exactly).
+    for the conformance gate (dav1d must reproduce it bit-exactly);
+    recon_u and recon_v are None for a monochrome frame.
     """
     h, w = y.shape
     ch, cw = (h + 1) // 2, (w + 1) // 2
-    if u.shape != (ch, cw) or v.shape != (ch, cw):
+    mono = u is None and v is None
+    if mono and not rd:
+        raise ValueError("the fixed-tree path codes 4:2:0 only")
+    if not mono and (u is None or v is None or u.shape != (ch, cw)
+                     or v.shape != (ch, cw)):
         raise ValueError("u/v must be 4:2:0 planes of the luma geometry")
     if not 1 <= qindex <= 255:
         raise ValueError("qindex must be in 1..255")
@@ -586,12 +596,12 @@ def encode_frame(y: np.ndarray, u: np.ndarray, v: np.ndarray,
     adapt = adapt and rd
     gw, gh = ((w + 7) >> 3) << 3, ((h + 7) >> 3) << 3
     yp = _pad_grid(y, gh, gw)
-    up = _pad_grid(u, gh // 2, gw // 2)
-    vp = _pad_grid(v, gh // 2, gw // 2)
+    up = None if mono else _pad_grid(u, gh // 2, gw // 2)
+    vp = None if mono else _pad_grid(v, gh // 2, gw // 2)
     sb_cols, sb_rows = (w + 63) // 64, (h + 63) // 64
     recon_y = np.zeros_like(yp)
-    recon_u = np.zeros_like(up)
-    recon_v = np.zeros_like(vp)
+    recon_u = None if mono else np.zeros_like(up)
+    recon_v = None if mono else np.zeros_like(vp)
     tiles = []
     for tr in range(sb_rows):
         for tc in range(sb_cols):
@@ -599,7 +609,11 @@ def encode_frame(y: np.ndarray, u: np.ndarray, v: np.ndarray,
             cy, cx = py // 2, px // 2
             tw, th = min(64, w - px), min(64, h - py)
             tgw, tgh = ((tw + 7) >> 3) << 3, ((th + 7) >> 3) << 3
-            if rd:
+            if mono:
+                tile, ty, _, _ = encode_superblock_rd(
+                    yp[py:py + tgh, px:px + tgw], None, None, qindex,
+                    tw=tw, th=th, adapt=adapt)
+            elif rd:
                 tile, ty, tu, tv = encode_superblock_rd(
                     yp[py:py + tgh, px:px + tgw],
                     up[cy:cy + tgh // 2, cx:cx + tgw // 2],
@@ -611,12 +625,14 @@ def encode_frame(y: np.ndarray, u: np.ndarray, v: np.ndarray,
                     up[cy:cy + 32, cx:cx + 32],
                     vp[cy:cy + 32, cx:cx + 32], qindex)
             recon_y[py:py + tgh, px:px + tgw] = ty
-            recon_u[cy:cy + tgh // 2, cx:cx + tgw // 2] = tu
-            recon_v[cy:cy + tgh // 2, cx:cx + tgw // 2] = tv
+            if not mono:
+                recon_u[cy:cy + tgh // 2, cx:cx + tgw // 2] = tu
+                recon_v[cy:cy + tgh // 2, cx:cx + tgw // 2] = tv
             tiles.append(tile)
     recon_y = recon_y[:h, :w]
-    recon_u = recon_u[:ch, :cw]
-    recon_v = recon_v[:ch, :cw]
+    if not mono:
+        recon_u = recon_u[:ch, :cw]
+        recon_v = recon_v[:ch, :cw]
     tg = bytearray()
     if len(tiles) > 1:
         tg.append(0x00)  # tile_start_and_end_present_flag=0 + alignment
@@ -624,8 +640,8 @@ def encode_frame(y: np.ndarray, u: np.ndarray, v: np.ndarray,
         if i < len(tiles) - 1:
             tg += (len(t) - 1).to_bytes(4, "little")
         tg += t
-    seq = obu(OBU_SEQUENCE_HEADER, sequence_header(w, h, full_range))
-    hdr = frame_header_bits(qindex, w, h, adapt=adapt)
+    seq = obu(OBU_SEQUENCE_HEADER, sequence_header(w, h, full_range, mono))
+    hdr = frame_header_bits(qindex, w, h, adapt=adapt, mono=mono)
     hdr.byte_align()
     stream = seq + obu(OBU_FRAME, hdr.bytes() + bytes(tg))
     return stream, recon_y, recon_u, recon_v
@@ -679,3 +695,19 @@ def encode_avif(y: np.ndarray, u: np.ndarray, v: np.ndarray,
                     sequence_header(w, h, full_range=True))
     return write_avif(stream, w, h, seq_obu=seq_obu,
                       alpha_obu_stream=a_stream, alpha_seq_obu=a_seq)
+
+
+def encode_avif_y400(y: np.ndarray, qindex: int = 60,
+                     full_range: bool = False) -> bytes:
+    """Complete first-party monochrome AVIF: one u8 plane (ANY dims
+    1..4096) -> a YUV400 (mono_chrome = 1) AV1 item with a one-channel
+    ``pixi``, the ``av1C`` mono bit and CICP (1, 13, 6) at ``full_range``
+    (the sequence header's color_range too)."""
+    from .av1_container import write_avif
+
+    h, w = y.shape
+    stream, _, _, _ = encode_frame(y, qindex=qindex, full_range=full_range)
+    seq_obu = obu(OBU_SEQUENCE_HEADER,
+                  sequence_header(w, h, full_range, mono=True))
+    return write_avif(stream, w, h, seq_obu=seq_obu, mono=True,
+                      full_range=full_range)

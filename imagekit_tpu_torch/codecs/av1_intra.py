@@ -17,7 +17,11 @@ module's own predicted reconstruction — a single wrong CDF entry or
 context derails the arithmetic decode, so agreement on varied content
 certifies the tables (imagekit_tpu/codecs/av1_tables.npz) and contexts.
 
-The port's copy of ``imagekit_tpu/codecs/av1_intra.py``, unchanged.
+The port's copy of ``imagekit_tpu/codecs/av1_intra.py``, with a
+monochrome mode beside it (``mono``: mono_chrome = 1 in the sequence
+header, no chroma delta-q flags in the frame header, blocks with no
+uv_mode and no chroma residual), which the reference gets from libavif;
+the 4:2:0 streams are unchanged, byte for byte.
 """
 
 from __future__ import annotations
@@ -54,9 +58,13 @@ def _nsyms_partition(size: int) -> int:
 # Headers
 
 
-def sequence_header(w: int, h: int, full_range: bool = False) -> bytes:
+def sequence_header(w: int, h: int, full_range: bool = False,
+                    mono: bool = False) -> bytes:
+    """The reduced still-picture sequence header; ``mono`` writes
+    mono_chrome = 1 (one plane: no subsampling bits, no chroma sample
+    position, no separate_uv_delta_q)."""
     b = BitWriter()
-    b.f(0, 3)            # seq_profile = 0 (8-bit 4:2:0)
+    b.f(0, 3)            # seq_profile = 0 (8-bit 4:2:0 or monochrome)
     b.f(1, 1)            # still_picture
     b.f(1, 1)            # reduced_still_picture_header
     b.f(0, 5)            # seq_level_idx[0]
@@ -74,11 +82,12 @@ def sequence_header(w: int, h: int, full_range: bool = False) -> bytes:
     b.f(0, 1)            # enable_restoration
     # color_config
     b.f(0, 1)            # high_bitdepth
-    b.f(0, 1)            # mono_chrome
+    b.f(int(mono), 1)    # mono_chrome
     b.f(0, 1)            # color_description_present_flag
     b.f(int(full_range), 1)  # color_range (full for alpha streams)
-    b.f(0, 2)            # chroma_sample_position = unknown
-    b.f(0, 1)            # separate_uv_delta_q
+    if not mono:
+        b.f(0, 2)        # chroma_sample_position = unknown
+        b.f(0, 1)        # separate_uv_delta_q
     b.f(0, 1)            # film_grain_params_present
     b.trailing_bits()
     return b.bytes()
@@ -92,11 +101,11 @@ def _tile_log2(blk: int, target: int) -> int:
 
 
 def frame_header_bits(qindex: int, w: int, h: int,
-                      adapt: bool = False) -> BitWriter:
+                      adapt: bool = False, mono: bool = False) -> BitWriter:
     """Uncompressed frame header under reduced_still_picture_header
     (frame_type=KEY, show_frame=1 implied).  Validated bit-for-bit
     against a libaom still-picture frame header (tools/av1_validate.py
-    parses one live)."""
+    parses one live).  ``mono``: one plane, so no chroma delta-q flags."""
     b = BitWriter()
     # disable_cdf_update: 0 = per-tile CDF adaptation from the defaults
     # (each tile resets — matching our tile-per-superblock regime), 1 =
@@ -140,8 +149,9 @@ def frame_header_bits(qindex: int, w: int, h: int,
     # quantization_params
     b.f(qindex, 8)       # base_q_idx
     b.f(0, 1)            # DeltaQYDc coded flag
-    b.f(0, 1)            # DeltaQUDc
-    b.f(0, 1)            # DeltaQUAc
+    if not mono:
+        b.f(0, 1)        # DeltaQUDc
+        b.f(0, 1)        # DeltaQUAc
     b.f(0, 1)            # using_qmatrix
     b.f(0, 1)            # segmentation_enabled
     b.f(0, 1)            # delta_q_present
@@ -203,9 +213,12 @@ class TileEncoder:
 
     def __init__(self, w: int, h: int, qctx: int = 1,
                  split_gather: str = "A", skip_idx: int = 0,
-                 adapt: bool = False):
+                 adapt: bool = False, mono: bool = False):
         self.w, self.h = w, h
         self.qctx = qctx
+        # monochrome (mono_chrome = 1): blocks code no uv_mode and no
+        # chroma residual (spec HasChroma = 0)
+        self.mono = mono
         # spec 5.9.9: the mi grid rounds to 8-px multiples (MiCols =
         # 2*((width+7)>>3)), so 8x8 nodes are always fully inside the
         # grid and the partition tree never needs 4x4 leaves
@@ -540,7 +553,8 @@ class TileEncoder:
         the three planes' quantized coefficients (dicts pos->level or
         2-D arrays; all-empty coefficients may also be passed — the
         block is then coded not-skip with three all_zero txbs, which is
-        what aom itself emits); txbs=None codes a skip block."""
+        what aom itself emits); txbs=None codes a skip block.  A
+        monochrome tile takes `txbs=(qy,)` and codes no uv_mode."""
         n4 = size >> 2
         skip = 0 if txbs is not None else 1
         # skip symbol = the skip flag; neighbor ctx sums neighbor skips
@@ -559,24 +573,26 @@ class TileEncoder:
             self._sym(self.cdf["angle_delta"][ymode - 1], 7, 3)
         # uv_mode: CFL-flavoured 14-symbol CDF when cfl is allowed
         # (w and h <= 32 — includes 32x32; Rosetta-certified)
-        if size <= 32:
-            self._sym(self.cdf["uv_mode"][1][ymode], 14, uvmode)
-        else:
-            self._sym(self.cdf["uv_mode"][0][ymode], 13, uvmode)
-        if 1 <= uvmode <= 8 and size >= 8:
-            self._sym(self.cdf["angle_delta"][uvmode - 1], 7, 3)
+        if not self.mono:
+            if size <= 32:
+                self._sym(self.cdf["uv_mode"][1][ymode], 14, uvmode)
+            else:
+                self._sym(self.cdf["uv_mode"][0][ymode], 13, uvmode)
+            if 1 <= uvmode <= 8 and size >= 8:
+                self._sym(self.cdf["angle_delta"][uvmode - 1], 7, 3)
         # use_filter_intra: only coded when the sequence header enables
         # filter intra; ours sets enable_filter_intra=0, so never coded.
         if txbs is not None:
             # residual: luma tx = block size (TX_MODE_LARGEST, <= 32),
             # then U, then V at half size (4:2:0)
-            qy, qu, qv = txbs
             y_txl = size.bit_length() - 1
-            self.encode_txb(0, mi_r * 4, mi_c * 4, y_txl, qy, ymode=ymode,
-                            txtype_sym=txtype_sym)
-            uv_txl = y_txl - 1
-            self.encode_txb(1, mi_r * 2, mi_c * 2, uv_txl, qu)
-            self.encode_txb(2, mi_r * 2, mi_c * 2, uv_txl, qv)
+            self.encode_txb(0, mi_r * 4, mi_c * 4, y_txl, txbs[0],
+                            ymode=ymode, txtype_sym=txtype_sym)
+            if not self.mono:
+                _, qu, qv = txbs
+                uv_txl = y_txl - 1
+                self.encode_txb(1, mi_r * 2, mi_c * 2, uv_txl, qu)
+                self.encode_txb(2, mi_r * 2, mi_c * 2, uv_txl, qv)
         else:
             # skip blocks clear the coefficient entropy contexts
             self.above_ent[0][mi_c:mi_c + n4] = 0

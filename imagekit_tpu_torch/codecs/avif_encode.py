@@ -18,10 +18,15 @@ wait on each other and take together several times their serial sum
 (``python -m imagekit_tpu_torch.tools.avif_probe``). The engine runs them
 one at a time, on a thread of their own.
 
-Not ported: the reference's libavif ABI arm (``_load``, ``_bind``,
-``_selftest``, ``_encode_planes``), whose self-check decodes through
-libdav1d, and the monochrome encode :func:`encode_y400_studio` that needs
-it. They answer :class:`~imagekit_tpu_torch.errors.NotPortedError`.
+Monochrome: :func:`encode_y400_studio` writes a true YUV400 AVIF
+(mono_chrome = 1) with the same encoder's luma-only mode, where the
+reference calls libavif.
+
+Left out, and kept so: the reference's libavif ABI arm (``_load``,
+``_bind``, ``_selftest``, ``_encode_planes``), whose self-check decodes
+through libdav1d. Where libavif loads, the reference's AVIF bodies are
+libaom's; the port's are always the first-party encoder's, as the
+reference's are where libavif is absent.
 """
 
 from __future__ import annotations
@@ -29,8 +34,6 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
-
-from imagekit_tpu_torch.errors import NotPortedError
 
 
 def available() -> bool:
@@ -92,11 +95,28 @@ def encode_yuv420_studio(
     return encode_firstparty(y, cb, cr, quality, alpha=alpha)
 
 
-def encode_y400_studio(y: np.ndarray, quality: int) -> bytes:
-    """Monochrome (YUV400) AVIF: the reference encodes it through libavif
-    only, as a fixture of the mono AVIF sources it decodes."""
-    raise NotPortedError(
-        "a monochrome (Y400) AVIF encode (the libavif arm)", "queue 1 item 8")
+def encode_y400_studio(
+    y: np.ndarray,
+    quality: int,
+    speed: Optional[int] = None,
+    full_range: bool = False,
+) -> bytes:
+    """Single Y plane -> true monochrome (YUV400, mono_chrome=1) AVIF
+    through the first-party encoder's luma-only mode: the mono source
+    class that ``avif_native.decode_yuv_studio`` serves with neutral
+    chroma (Pillow writes mode-L images as colour). CICP (1, 13, 6),
+    limited range unless ``full_range``. ``speed`` is the reference's
+    libavif knob; the first-party encoder has no speed setting, so it is
+    accepted and unused. Raises ValueError for a plane that is not a
+    2-D uint8 array."""
+    del speed
+    if y.dtype != np.uint8 or y.ndim != 2:
+        raise ValueError("y must be a 2-D uint8 plane")
+    from .av1_image import encode_avif_y400
+
+    return encode_avif_y400(
+        y, qindex=quantizer_to_qindex(quality_to_quantizer(quality)),
+        full_range=full_range)
 
 
 def _split_rgba(img: np.ndarray):

@@ -39,8 +39,7 @@ module is the port's counterpart of that call, in four steps:
 Files libavif refuses raise TransformError with the words Pillow reports
 (the reference's 400). A stream whose output frame is an inter frame
 (libavif's highest layer of a progressive file) decodes with the frames it
-depends on; a tool the port would not build raises NotPortedError naming
-ROADMAP queue 1 item 12 (the app's 501): none is left.
+depends on.
 """
 
 from __future__ import annotations
@@ -53,7 +52,6 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 
 from imagekit_tpu_torch.codecs.avif_native import (
-    INTER_ITEM,
     _boxes,
     undecodable_message,
 )
@@ -61,7 +59,7 @@ from imagekit_tpu_torch.codecs.native.avif_scale import (
     DIMENSION_LIMIT,
     SIZE_LIMIT,
 )
-from imagekit_tpu_torch.errors import NotPortedError, TransformError
+from imagekit_tpu_torch.errors import TransformError
 
 #: Pillow's ``Image.MAX_IMAGE_PIXELS``: twice this is its ceiling
 PILLOW_MAX_PIXELS = 89_478_485
@@ -439,7 +437,7 @@ def _coded_size(f: _File, item: _Item) -> Tuple[int, int]:
     try:
         cut, select, op = _layer_choice(f, item)
         head = av1_dec_abi.probe(f.payload(item)[:cut], select=select, op=op)
-    except (av1_dec_abi.Av1NotPorted, ValueError, _Fail):
+    except (ValueError, _Fail):
         return _ispe(f, item)
     return head.width, head.height
 
@@ -515,8 +513,6 @@ def _decode_one(f: _File, item: _Item, alpha: bool,
     obu = f.payload(item)[:cut]
     try:
         y, u, v, info = av1_dec_abi.decode_samples(obu, select=select, op=op)
-    except av1_dec_abi.Av1NotPorted as e:
-        raise NotPortedError(f"AVIF sources with {e}", INTER_ITEM) from None
     except ValueError:
         raise fail from None
     if alpha:
@@ -670,7 +666,7 @@ def decode_pillow_rgb(data: bytes, threads: int = 0) -> np.ndarray:
     """The file as the reference's ``pil_backend.decode`` returns it: HWC
     u8, RGBA where libavif finds an alpha item, RGB otherwise. Raises
     TransformError with Pillow's words where libavif or Pillow refuses the
-    file, NotPortedError for what the port does not build. ``threads``
+    file. ``threads``
     (tests and timing): the workers of the cells and of the colour step,
     0 for one a core."""
     from imagekit_tpu_torch.codecs.native import avif_yuv_rgb

@@ -36,12 +36,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
-from imagekit_tpu_torch.errors import NotPortedError
-
 _I400, _I420, _I422, _I444 = 0, 1, 2, 3
-#: the ROADMAP item a tool the decoder would not build names (inter
-#: prediction's; none is left)
-INTER_ITEM = "queue 1 item 12"
 
 
 # ---------------------------------------------------------------------------
@@ -416,14 +411,11 @@ def _decode_obu(obu: bytes, want_w: int, want_h: int):
     picture's size is not the container's (the reference rejects such a
     file too). A 10- or 12-bit stream's planes come rounded to 8 bits as
     the reference rounds libdav1d's (``av1_dec_abi.to_8bit``). An inter
-    frame decodes with the frames it depends on; NotPortedError would name a
-    tool the decoder does not build."""
+    frame decodes with the frames it depends on."""
     from imagekit_tpu_torch.codecs.native import av1_dec_abi
 
     try:
         y, u, v, info = av1_dec_abi.decode(obu, expect=(want_w, want_h))
-    except av1_dec_abi.Av1NotPorted as e:
-        raise NotPortedError(f"AVIF sources with {e}", INTER_ITEM) from None
     except ValueError:
         return None
     return y, u, v, info.layout, 8
@@ -482,8 +474,7 @@ def decode_rgb(data: bytes) -> Optional[np.ndarray]:
     whenever the reference's native path returns None: a file the
     decoder cannot read, or one the reference hands to Pillow (its caller
     takes both to :func:`.avif_libavif.decode_pillow_rgb`). Raises
-    ValueError only for the decompression-bomb ceiling, NotPortedError
-    for a tool the decoder does not build."""
+    ValueError only for the decompression-bomb ceiling."""
     try:
         info = parse_container(data)
     except ValueError:
@@ -771,8 +762,7 @@ def decode_yuv_studio(
     plane (full-range, luma geometry) for the head's fourth plane, and
     BT.709-tagged sources return ``bt709=True`` for the head's 709->601
     mix. Returns None when this file can't take the direct path (as the
-    reference's, whose caller then decodes pixels); raises
-    NotPortedError for a tool the decoder does not build."""
+    reference's, whose caller then decodes pixels)."""
     try:
         info = parse_container(data)
     except ValueError:

@@ -104,6 +104,11 @@ class FrameMarkers(NamedTuple):
     jfif: bool
     adobe: Optional[int]
     factors: tuple = ()
+    #: every SOFn before the first SOS, DHP (0xDE) among them as Pillow
+    #: counts it: (marker, precision, component count as its byte 5 states
+    #: it, Pillow's ``layers``, which ``ids`` falls short of where the
+    #: segment does), None for a field the segment is too short to hold
+    sofs: tuple = ()
 
 
 def frame_markers(data: bytes) -> FrameMarkers:
@@ -113,7 +118,7 @@ def frame_markers(data: bytes) -> FrameMarkers:
     (``examine_app0``), an Adobe APP14 of at least 12 starting ``Adobe``
     (``examine_app14``)."""
     sof = precision = adobe = None
-    ids, factors, jfif = (), (), False
+    ids, factors, jfif, sofs = (), (), False, []
     i, n = 2, len(data)
     while i + 4 <= n:
         if data[i] != 0xFF:
@@ -128,6 +133,9 @@ def frame_markers(data: bytes) -> FrameMarkers:
         if m in (0xD9, 0xDA):
             break
         seg = data[i + 4:i + 2 + ((data[i + 2] << 8) | data[i + 3])]
+        if m == 0xDE or 0xC0 <= m <= 0xCF and m not in (0xC4, 0xC8, 0xCC):
+            sofs.append((m, seg[0] if seg else None,
+                         seg[5] if len(seg) >= 6 else None))
         if 0xC0 <= m <= 0xCF and m not in (0xC4, 0xC8, 0xCC):
             if sof is None:
                 sof = m
@@ -141,7 +149,8 @@ def frame_markers(data: bytes) -> FrameMarkers:
         elif m == 0xEE and len(seg) >= 12 and seg[:5] == b"Adobe":
             adobe = seg[11]
         i += 2 + ((data[i + 2] << 8) | data[i + 3])
-    return FrameMarkers(sof, precision, ids, jfif, adobe, factors)
+    return FrameMarkers(sof, precision, ids, jfif, adobe, factors,
+                        tuple(sofs))
 
 
 def colour_space(data: bytes, ncomp: int, lossless: bool = False) -> str:
@@ -176,10 +185,13 @@ def source_header(lib, data: bytes):
       frames of 1, 3 or 4 components only): a frame the decoders refuse
       (-3) whose precision is not 8 bits, and a frame of another component
       count (two, which the port's decoder takes for a JPEG TIFF's gray +
-      alpha segments; five or more, which both refuse);
+      alpha segments; five or more, which both refuse), the count as the
+      SOFn states it, whatever the segment's length; Pillow reads every
+      SOFn (and DHP) before the first scan, so any of them;
     - Pillow's "broken data stream" (libjpeg refuses the frame Pillow has
       opened), a :class:`~imagekit_tpu_torch.errors.SourceDecodeError`:
       hierarchical and lossless arithmetic frames (both decoders' -3), a
+      second frame header before the first scan (both decoders' -3), a
       frame with a sampling factor outside 1-4 (both decoders' -3), a
       frame only the port's decoder takes whose sampling libjpeg refuses
       (:func:`sampling_refused`), a lossless frame whose colour space
@@ -199,10 +211,12 @@ def source_header(lib, data: bytes):
             raise SourceDecodeError(BROKEN_STREAM) from None
         if e.code != -3:
             raise
-        if mk.precision not in (None, 8) or (
-                mk.sof is not None and len(mk.ids) not in (1, 3, 4)):
+        if any(p != 8 or n not in (1, 3, 4) for _, p, n in mk.sofs):
             raise TransformError(UNIDENTIFIED) from None
-        if mk.sof in _LIBJPEG_REFUSES:
+        if len(mk.sofs) > 1 or any(m in _LIBJPEG_REFUSES or m == 0xDE
+                                   for m, _, _ in mk.sofs):
+            # a second frame header: libjpeg's "Invalid JPEG file
+            # structure: two SOF markers"
             raise SourceDecodeError(BROKEN_STREAM) from None
         raise
     if hdr.ncomp == 2:
@@ -285,6 +299,11 @@ def decode_to_coefficients(data: bytes):
         else:
             out = jpeg_abi.decode(lib, data)[1:]
     except jpeg_abi.NativeJpegError as e:
+        if e.code == -3 and hdr.port_decoder:
+            # a marker libjpeg refuses between the scans of a frame it
+            # opened (a hierarchical SOFn, a reserved code): its error,
+            # Pillow's "broken data stream"
+            raise SourceDecodeError(BROKEN_STREAM) from e
         if e.code == -3:
             raise decode_error(e) from e
         failed = e

@@ -24,8 +24,7 @@ frame, and :func:`decode` returns u8 planes, those of a
 high-bit-depth stream rounded to 8 bits as the reference's
 ``avif_native._decode_obu`` rounds libdav1d's. All raise
 :class:`ValueError` for a malformed stream (an inter frame of an empty
-reference slot among them), and would raise :class:`Av1NotPorted` for a
-tool the decoder does not build (none is left). The decode reports the
+reference slot among them). The decode reports the
 inter tools its blocks used (``StreamInfo.tools``, :data:`TOOLS`). Two
 settings serve tests and timing only, never
 the engine: :func:`_decode_samples` can leave a stream's film grain out,
@@ -47,7 +46,7 @@ _HERE = Path(__file__).resolve().parent
 _lock = threading.Lock()
 _state: dict = {"lib": None}
 
-OK, BAD, NOT_PORTED = 0, -1, -2
+OK, BAD = 0, -1
 #: the output frame of a stream (``select`` of :func:`probe` and
 #: :func:`decode_samples`): libdav1d's first picture at its default
 #: ``all_layers`` 1 (the reference's native path); the one it returns at
@@ -80,10 +79,6 @@ TOOLS = ("inter", "intra_in_inter", "newmv", "globalmv", "scaled",
          "global_warp", "interintra", "wedge_interintra", "temporal_mv",
          "seg_temporal", "compound", "skip_mode", "compound_distance",
          "compound_wedge", "compound_diffwtd", "mv_outside", "warp_invalid")
-
-
-class Av1NotPorted(Exception):
-    """A stream that uses a tool the decoder does not build."""
 
 
 class _Info(ctypes.Structure):
@@ -364,8 +359,6 @@ def _set_threads(n: int, lib: Optional[ctypes.CDLL] = None) -> None:
 
 def _raise(rc: int, info: _Info) -> None:
     why = info.reason.decode("ascii", "replace")
-    if rc == NOT_PORTED:
-        raise Av1NotPorted(why)
     raise ValueError(f"AV1 stream does not decode: {why}")
 
 

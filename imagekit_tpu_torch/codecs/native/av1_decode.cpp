@@ -96,8 +96,7 @@
 // checked, a reference slot that is empty or of a size out of the 2x / 16x
 // rule fails the stream (as in libdav1d), and a symbol decoder that runs
 // past its tile reads zeros as the spec says, so a truncated tile decodes
-// to something, as in libdav1d. IK_AV1D_NOT_PORTED (the caller's 501) is
-// kept for a tool the decoder would not build; none is left.
+// to something, as in libdav1d.
 
 #include <stdint.h>
 #include <string.h>
@@ -116,8 +115,7 @@
 
 namespace {
 
-enum { IK_AV1D_OK = 0, IK_AV1D_BAD = -1, IK_AV1D_NOT_PORTED = -2,
-       IK_AV1D_NO_TABLES = -3 };
+enum { IK_AV1D_OK = 0, IK_AV1D_BAD = -1, IK_AV1D_NO_TABLES = -3 };
 
 // ---------------------------------------------------------------------------
 // Default tables, as av1_dec_abi.py packs them (one struct of uint16 CDF

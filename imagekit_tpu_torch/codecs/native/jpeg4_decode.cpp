@@ -292,10 +292,20 @@ struct Huffman {
   int32_t valptr[17];
   int32_t mincode[17];
   uint8_t vals[256];
+  int nvals = 0;
+
+  // jpeg_make_d_derived_tbl's check of a table a scan takes as its DC
+  // table: every symbol, a magnitude category, at most 15
+  bool DcSymbolsOk() const {
+    for (int i = 0; i < nvals; ++i)
+      if (vals[i] > 15) return false;
+    return true;
+  }
 
   int Build(const uint8_t* counts, const uint8_t* symbols, int n) {
     if (n > 256) return kBadHuffman;
     std::memcpy(vals, symbols, n);
+    nvals = n;
     std::memset(fast, 0, sizeof(fast));
     int code = 0, k = 0;
     for (int l = 1; l <= 16; ++l) {
@@ -1663,6 +1673,10 @@ struct Lj {
       if (dc ? si.Ah == 0 && !f.dc[C.td].present
              : !f.ac[C.ta].present)
         return kBadHuffman;
+      // libjpeg derives a DC first scan's tables with their symbols
+      // checked (JERR_BAD_HUFF_TABLE): a category past 15 would shift by
+      // more than the bit buffer holds
+      if (dc && si.Ah == 0 && !f.dc[C.td].DcSymbolsOk()) return kBadHuffman;
       if (!f.progressive && !f.ac[C.ta].present) return kBadHuffman;
       const int nb = ncomp == 1 ? 1 : C.h * C.v;
       for (int k = 0; k < nb && blocks_in_mcu < 10; ++k)
@@ -1909,4 +1923,131 @@ IK_EXPORT int ik_jpeg4_decode_lossless(const uint8_t* data, size_t len,
   if (rc != kOk) return rc;
   if (f.coding != kLossless) return kUnsupported;
   return f.DecodeLossless(planes);
+}
+
+// ---------------------------------------------------------------------------
+// The guard of the pinned decoder's Huffman tables.
+//
+// jpeg_entropy.cpp (a byte-equal copy of the reference's decoder) fills the
+// 8-bit lookup of each table from its codes without checking that a
+// length's codes fit that length: a DHT whose counts oversubscribe a length
+// of 8 bits or fewer (a code of l bits at 2^l or more) writes past the
+// lookup's 256 entries, and past the decoder's own object. libjpeg refuses
+// such a table ("Bogus Huffman table definition"). The port calls this
+// guard before each call into the pinned decoder (jpeg_abi.py; the JPEG
+// TIFF splices, tiff_ext_decode.cpp). It walks the stream as the pinned
+// Parse walks it, and stops where Parse returns: at an error of a DQT, a
+// DHT, a frame or a scan header, at a frame Parse refuses (not 8-bit, not
+// one or three components, a sampling factor outside 1-4, another SOFn),
+// at the first SOS of a sequential frame, and at the EOI; in a progressive
+// frame it skips each scan's data to the next marker, as Parse does after
+// decoding it. It returns kBadHuffman, the pinned decoder's answer for a
+// bad table, where a DHT that Parse would build is oversubscribed at 8 bits
+// or fewer; else 0. (A progressive scan whose data the pinned decoder
+// refuses before a later bad DHT is refused here with -4 instead of its
+// own error: a 400 either way.)
+
+namespace {
+
+bool Oversubscribed(const uint8_t* counts) {  // counts[1..16]
+  int code = 0;
+  for (int l = 1; l <= 8; ++l) {
+    code += counts[l];
+    if (code > (1 << l)) return true;
+    code <<= 1;
+  }
+  return false;
+}
+
+}  // namespace
+
+IK_EXPORT int ik_jpeg4_huffman_guard(const uint8_t* data, size_t len) {
+  const uint8_t* p = data;
+  const uint8_t* end = data + len;
+  if (len < 4 || p[0] != 0xFF || p[1] != 0xD8) return kOk;
+  p += 2;
+  bool progressive = false;
+  int ncomp = 0;
+  uint8_t ids[4] = {0, 0, 0, 0};
+  while (p + 2 <= end) {
+    if (p[0] != 0xFF) return kOk;
+    const uint8_t m = p[1];
+    p += 2;
+    if (m == 0xD8 || (m >= 0xD0 && m <= 0xD7)) continue;
+    if (m == 0xD9 || p + 2 > end) return kOk;
+    const int seglen = (p[0] << 8) | p[1];
+    if (seglen < 2 || p + seglen > end) return kOk;
+    const uint8_t* seg = p + 2;
+    int segrem = seglen - 2;
+    switch (m) {
+      case 0xDB:
+        while (segrem > 0) {
+          const int pq = seg[0] >> 4, tq = seg[0] & 15, n = pq ? 128 : 64;
+          ++seg;
+          --segrem;
+          if (tq > 3 || segrem < n) return kOk;
+          seg += n;
+          segrem -= n;
+        }
+        break;
+      case 0xC4:
+        while (segrem >= 17) {
+          if ((seg[0] & 15) > 3) return kOk;
+          int total = 0;
+          for (int l = 1; l <= 16; ++l) total += seg[l];
+          if (segrem < 17 + total || total > 256) return kOk;
+          if (Oversubscribed(seg)) return kBadHuffman;
+          seg += 17 + total;
+          segrem -= 17 + total;
+        }
+        break;
+      case 0xC2:
+        progressive = true;
+        [[fallthrough]];
+      case 0xC0:
+      case 0xC1:
+        if (segrem < 6 || seg[0] != 8) return kOk;
+        if (((seg[1] << 8) | seg[2]) <= 0 || ((seg[3] << 8) | seg[4]) <= 0)
+          return kOk;
+        ncomp = seg[5];
+        if ((ncomp != 1 && ncomp != 3) || segrem < 6 + 3 * ncomp) return kOk;
+        for (int c = 0; c < ncomp; ++c) {
+          const int h = seg[7 + 3 * c] >> 4, v = seg[7 + 3 * c] & 15;
+          if (seg[8 + 3 * c] > 3 || h < 1 || h > 4 || v < 1 || v > 4)
+            return kOk;
+          ids[c] = seg[6 + 3 * c];
+        }
+        break;
+      case 0xC3: case 0xC5: case 0xC6: case 0xC7: case 0xC9: case 0xCA:
+      case 0xCB: case 0xCD: case 0xCE: case 0xCF:
+        return kOk;
+      case 0xDD:
+        if (segrem < 2) return kOk;
+        break;
+      case 0xDA: {
+        if (segrem < 1) return kOk;
+        const int ns = seg[0];
+        if (ns < 1 || ns > 4 || segrem < 1 + 2 * ns + 3) return kOk;
+        for (int s = 0; s < ns; ++s) {
+          const int tabs = seg[2 + 2 * s];
+          if ((tabs >> 4) > 3 || (tabs & 15) > 3) return kOk;
+          bool found = false;
+          for (int c = 0; c < ncomp; ++c) found |= ids[c] == seg[1 + 2 * s];
+          if (!found) return kOk;
+        }
+        const uint8_t* sp = seg + 1 + 2 * ns;
+        if (sp[0] > 63 || sp[1] > 63 || sp[0] > sp[1]) return kOk;
+        if (!progressive) return kOk;  // Parse stops at a sequential SOS
+        p += seglen;
+        while (p + 1 < end && !(p[0] == 0xFF && p[1] != 0x00 &&
+                                !(p[1] >= 0xD0 && p[1] <= 0xD7)))
+          ++p;
+        continue;
+      }
+      default:
+        break;
+    }
+    p += seglen;
+  }
+  return kOk;
 }

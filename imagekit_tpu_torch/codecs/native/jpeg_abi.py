@@ -166,6 +166,19 @@ def configure(lib: ctypes.CDLL) -> None:
         ctypes.POINTER(ctypes.c_void_p),
     ]
     lib.ik_jpeg4_decode_lossless.restype = ctypes.c_int
+    lib.ik_jpeg4_huffman_guard.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
+    lib.ik_jpeg4_huffman_guard.restype = ctypes.c_int
+
+
+def _guard(lib: ctypes.CDLL, data: bytes) -> None:
+    """Refuse (-4, a bad Huffman table) a stream with a DHT that would
+    overrun the pinned decoder's 8-bit lookup (``jpeg4_decode.cpp``'s
+    ``ik_jpeg4_huffman_guard``), before the pinned decoder reads it: every
+    path into ``jpeg_entropy.cpp`` from here passes through :func:`parse`
+    or this."""
+    rc = lib.ik_jpeg4_huffman_guard(data, len(data))
+    if rc != 0:
+        raise NativeJpegError(rc)
 
 
 @dataclass
@@ -218,6 +231,7 @@ def _header(info: IkJpegInfo, **extra) -> JpegHeader:
 
 
 def parse(lib: ctypes.CDLL, data: bytes) -> JpegHeader:
+    _guard(lib, data)
     info = IkJpegInfo()
     rc = lib.ik_jpeg_parse(data, len(data), ctypes.byref(info))
     if rc != 0:
@@ -421,6 +435,8 @@ def decode_lowfreq(
     (blocks_h, blocks_w, k*k) i16 natural order."""
     if hdr is None:
         hdr = parse(lib, data)
+    else:
+        _guard(lib, data)
     coeffs = [
         np.zeros((hdr.blocks_h[c], hdr.blocks_w[c], k * k), np.int16)
         for c in range(hdr.ncomp)
@@ -464,6 +480,8 @@ def decode_lowfreq_i8(
     """
     if hdr is None:
         hdr = parse(lib, data)
+    else:
+        _guard(lib, data)
     dc = [
         np.zeros((hdr.blocks_h[c], hdr.blocks_w[c]), np.int16)
         for c in range(hdr.ncomp)

@@ -24,7 +24,11 @@ together, then linked:
 into ``build/imagekit_tpu_torch/`` under the checkout (a directory
 ``.gitignore`` lists), never into the package, and rebuilt when a source
 is newer than the library. Concurrent processes serialise on a lock file
-there, so one builds and the others load its result. The library links
+there, so one builds and the others load its result. The same sources
+under AddressSanitizer and UBSan (:data:`SANITIZE_FLAGS`) build into
+``libik_native_asan.so`` beside it (:func:`sanitizer_build`, for the
+sanitizer tests and ``tools/fuzz_codecs.py``; never loaded by the
+engine). The library links
 no liblzma: LZMA TIFF strips go through Python's ``lzma``, which it calls
 back (:func:`_xz_strip`, registered at load). Where the library
 cannot be built or loaded, :func:`load` raises with the compiler's
@@ -53,44 +57,80 @@ _SOURCES = ("jpeg_entropy.cpp", "vp8_encode.cpp", "vp8_decode.cpp",
 #: every product on its own (no fused multiply-add)
 _SOURCE_FLAGS = {"avif_yuv_rgb.cpp": ["-ffp-contract=off"]}
 _HEADERS = ("vp8_common.h", "vp8_tables.h")
+#: the optimised build's flags
+_FLAGS = ["-O3", "-march=native", "-funroll-loops", "-std=c++17", "-fPIC",
+         "-fvisibility=hidden"]
+#: a sanitizer build's: ASan and UBSan, UBSan's reports fatal
+SANITIZE_FLAGS = ["-O1", "-g", "-std=c++17", "-fPIC",
+                  "-fsanitize=address,undefined",
+                  "-fno-sanitize-recover=undefined"]
 BUILD_DIR = _HERE.parents[2] / "build" / "imagekit_tpu_torch"
 _LIB = BUILD_DIR / "libik_native.so"
+_ASAN_LIB = BUILD_DIR / "libik_native_asan.so"
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _stale() -> bool:
-    if not _LIB.exists():
+def _stale(lib: Path = _LIB) -> bool:
+    if not lib.exists():
         return True
-    built = _LIB.stat().st_mtime
+    built = lib.stat().st_mtime
     return any((_HERE / s).stat().st_mtime > built
                for s in _SOURCES + _HEADERS)
 
 
-def _build() -> None:
+def _build(lib: Path = _LIB, flags=_FLAGS) -> None:
+    """Build ``lib`` with ``flags`` unless it is fresh, under the build
+    directory's lock."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "libik_native.lock", "w") as lockf:
+    with open(lib.with_suffix(".lock"), "w") as lockf:
         fcntl.flock(lockf, fcntl.LOCK_EX)  # released when the file closes
-        if not _stale():
+        if not _stale(lib):
             return  # another process built it while this one waited
         tag = f"{os.getpid()}.tmp"
-        tmp = _LIB.with_suffix(f".{tag}.so")
-        objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in _SOURCES]
-        flags = ["-O3", "-march=native", "-funroll-loops", "-std=c++17",
-                 "-fPIC", "-fvisibility=hidden"]
+        tmp = lib.with_suffix(f".{tag}.so")
+        objs = [BUILD_DIR / f"{Path(s).stem}.{lib.stem}.{tag}.o"
+                for s in _SOURCES]
         try:
             _run([["g++", *flags, *_SOURCE_FLAGS.get(s, []), "-c",
                    str(_HERE / s), "-o", str(o)]
                   for s, o in zip(_SOURCES, objs)])
             # png_decode.cpp and tiff_decode.cpp inflate via zlib
-            _run([["g++", "-shared", *map(str, objs), "-o", str(tmp),
-                   "-lz"]])
-            os.replace(tmp, _LIB)  # atomic: a loader sees old or new
+            _run([["g++", "-shared", *flags, *map(str, objs), "-o",
+                   str(tmp), "-lz"]])
+            os.replace(tmp, lib)  # atomic: a loader sees old or new
         finally:
             tmp.unlink(missing_ok=True)
             for o in objs:
                 o.unlink(missing_ok=True)
+
+
+def sanitizer_env() -> dict:
+    """This process's environment for a Python process that loads
+    :func:`sanitizer_build`: the ASan runtime and ``libstdc++`` preloaded
+    (ASan's interceptor of the AV1 decoder's C++ throw needs it at
+    start-up), leaks not reported, the first report fatal, and Python's
+    allocations through ``malloc`` so that ASan sees the bounds of the
+    buffers handed to the decoders."""
+    pre = [subprocess.run(["g++", f"-print-file-name={name}"],
+                          capture_output=True, text=True,
+                          check=True).stdout.strip()
+           for name in ("libasan.so", "libstdc++.so.6")]
+    return {**os.environ,
+            "LD_PRELOAD": " ".join(pre),
+            "ASAN_OPTIONS": "detect_leaks=0:abort_on_error=1",
+            "UBSAN_OPTIONS": "print_stacktrace=1:halt_on_error=1",
+            "PYTHONMALLOC": "malloc"}
+
+
+def sanitizer_build() -> Path:
+    """The path of the library built with :data:`SANITIZE_FLAGS`, built
+    first if a source is newer. A process loads it with the ASan runtime
+    (and ``libstdc++``: the AV1 decoder throws) preloaded."""
+    if _stale(_ASAN_LIB):
+        _build(_ASAN_LIB, SANITIZE_FLAGS)
+    return _ASAN_LIB
 
 
 def _run(cmds) -> None:
@@ -99,7 +139,7 @@ def _run(cmds) -> None:
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True, cwd=_HERE)
              for c in cmds]
-    outs = [p.communicate(timeout=300)[1] for p in procs]
+    outs = [p.communicate(timeout=600)[1] for p in procs]
     for c, p, err in zip(cmds, procs, outs):
         if p.returncode != 0:
             raise RuntimeError(
@@ -129,17 +169,21 @@ def _xz_strip(src, n, dst, want):
     return 0
 
 
-def load() -> ctypes.CDLL:
-    """Build (if stale) and load the codec library; raises on failure."""
+def load(path: Optional[Path] = None) -> ctypes.CDLL:
+    """Build (if stale) and load the codec library; raises on failure.
+    ``path``: load another build of the same sources in its place (the
+    sanitizer build, :func:`sanitizer_build`), before the first load."""
     global _lib
     with _lock:
         if _lib is None:
-            if _stale():
+            if path is None and _stale():
                 _build()
-            lib = ctypes.CDLL(str(_LIB))
+            lib = ctypes.CDLL(str(path or _LIB))
             lib.ik_tiffx_set_xz(_xz_strip)
             _configure(lib)
             _lib = lib
+        elif path is not None and _lib._name != str(path):
+            raise RuntimeError(f"{_lib._name} is loaded already")
         return _lib
 
 

@@ -2662,6 +2662,7 @@ int ik_jpeg_decode_coeffs(const uint8_t* data, size_t len, int16_t** coeffs,
 struct IkSegExtra {  // jpeg4_decode.cpp's Ik4Extra
   int32_t adobe_transform, coding;
 };
+int ik_jpeg4_huffman_guard(const uint8_t* data, size_t len);
 int ik_jpeg4_parse(const uint8_t* data, size_t len, IkSegInfo* info,
                    IkSegExtra* extra);
 int ik_jpeg4_decode_coeffs(const uint8_t* data, size_t len, int16_t** coeffs,
@@ -2704,7 +2705,9 @@ int Splice(const IkTiffxSplice& s, int32_t i, std::vector<uint8_t>* buf) {
 }
 
 // The header of a spliced segment as jpeg_abi.parse_any reads it: the
-// pinned parser, then, where it says -3, the port's (jpeg4_decode.cpp).
+// Huffman guard of jpeg4_decode.cpp (-4 for a table that would overrun the
+// pinned decoder's lookup), the pinned parser, then, where it says -3, the
+// port's (jpeg4_decode.cpp).
 // Returns 0 or the failing parser's code (the pinned parser's -3 where
 // both refuse the frame as unsupported, and where the segment is lossless,
 // which a JPEG TIFF page does not take); `four` is 1 where the port's
@@ -2713,7 +2716,9 @@ int Splice(const IkTiffxSplice& s, int32_t i, std::vector<uint8_t>* buf) {
 int ParseAny(const std::vector<uint8_t>& buf, IkSegInfo* info,
              int32_t* four) {
   *four = 0;
-  int rc = ik_jpeg_parse(buf.data(), buf.size(), info);
+  int rc = ik_jpeg4_huffman_guard(buf.data(), buf.size());
+  if (rc != kOk) return rc;
+  rc = ik_jpeg_parse(buf.data(), buf.size(), info);
   if (rc == kUnsupported) {
     IkSegExtra extra = {-1, 0};
     const int rc4 = ik_jpeg4_parse(buf.data(), buf.size(), info, &extra);

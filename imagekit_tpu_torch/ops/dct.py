@@ -24,7 +24,9 @@ plain two-``bmm`` resize; then :func:`_fdct_quant_flat`. A JPEG whose
 escapes overflow the split transport is demoted to the RGB-output head,
 :func:`decode_resize_rgb_batch` (``dct.py:206-268,1717``): 8x8 IDCT of the
 int16 levels to u8 planes, then one K3 launch for Y, Cb and Cr
-(:func:`_rgb_tail`) and the JFIF YCbCr -> RGB matrix.
+(:func:`_rgb_tail`) and the JFIF YCbCr -> RGB matrix. Its twin on the
+split-int8 transport, :func:`decode_resize_rgb_i8_batch` (``dct.py:869``),
+widens first; no engine path takes it.
 
 The other WebP outputs of JPEG sources. A downscale under 2x keeps every
 coefficient (k = 8): :func:`decode_resize_yuv_i8_batch` (``dct.py:1094``,
@@ -328,6 +330,47 @@ def decode_resize_rgb_batch(y_flat, cb_flat, cr_flat, qtabs, weights, vidx,
                       wh_c, vidx), device)
     flat = to_host(decode_resize_rgb(*args, *block_dims,
                                      bands=tables_on(bands, device), ycc=ycc),
+                   device, host)
+    return flat.reshape(flat.shape[0], obh, obw, 3)
+
+
+def decode_resize_rgb_i8(dcs, acs, escs, qtabs, wv_y, wh_y, wv_c, wh_c, vidx,
+                         block_dims, bands=None,
+                         resize=resize_planes3) -> torch.Tensor:
+    """The RGB-output head on the k = 8 split-int8 transport
+    (``_decode_resize_i8_kernel(rgb=True)``, ``dct.py:812``): widen the AC
+    planes and scatter the escapes (:func:`_widen_split_levels`), then
+    :func:`decode_resize_rgb`'s IDCT and :func:`_rgb_tail` (one K3 launch;
+    ``resize`` its plain version for a comparison). Flat (B, OH*OW*3) u8,
+    equal to :func:`decode_resize_rgb` on the same images' int16 levels."""
+    by_y, bx_y, by_c, bx_c = block_dims
+    dims = ((by_y, bx_y), (by_c, bx_c), (by_c, bx_c))
+    levels = [_widen_split_levels(dcs[p], acs[p], *escs[p], *dims[p])
+              for p in range(3)]
+    return decode_resize_rgb(*levels, qtabs, wv_y, wh_y, wv_c, wh_c, vidx,
+                             *block_dims, bands=bands, resize=resize)
+
+
+def decode_resize_rgb_i8_batch(dc_arrays, ac_arrays, escapes, qtabs, weights,
+                               vidx, block_dims, out_shape, bands=None,
+                               device: Optional[torch.device] = None,
+                               host: bool = True):
+    """Run the split-transport RGB head (``dct.py:869``); returns (B, OHb,
+    OWb, 3) u8 numpy, equal to :func:`decode_resize_rgb_batch` on the same
+    images' int16 levels. One K3 launch on CUDA, K3's plain version on the
+    CPU. With ``host`` False, a device view (:func:`~.color.to_host`).
+
+    No engine path reaches it: the reference takes it only where its
+    native VP8 encoder or the split entropy entry is missing
+    (``imagekit_tpu/serving/engine_jpeg.py:72-84``), and the port's loader
+    raises in that case; the port demotes to RGB on the int16 transport.
+    Tests and ``chip_smoke.py`` hold it."""
+    obh, obw = out_shape
+    device = resolve(device)
+    dcs, acs, escs, qt, stacks, vidx = _split_on_device(
+        dc_arrays, ac_arrays, escapes, qtabs, weights, vidx, device)
+    flat = to_host(decode_resize_rgb_i8(dcs, acs, escs, qt, *stacks, vidx,
+                                        block_dims, tables_on(bands, device)),
                    device, host)
     return flat.reshape(flat.shape[0], obh, obw, 3)
 

@@ -12,8 +12,8 @@ them (``tests/test_avif_native.py::_mono_avif``); the sweeps of palette
 blocks, intra block copy and 10- and 12-bit streams are in
 ``test_torch_av1_screen_hbd.py``, those of quantizer matrices and film
 grain in ``test_torch_av1_qm_grain.py``, those of inter frames in
-``test_torch_av1_inter.py``. A stream that uses a tool the decoder does
-not build would answer ``Av1NotPorted`` (the app's 501); none is left. A
+``test_torch_av1_inter.py``. The decoder builds every tool of a still
+and an inter frame: it has no "not ported" answer. A
 layered stream, from headers written here bit by bit (superres, the 501 of
 these headers before the decoder built it, now probes and wants its
 tiles; its streams are in ``test_torch_av1_superres.py``); a
@@ -447,27 +447,19 @@ def intrabc_outside_tile() -> bytes:
             + obu(4, ms.done()))
 
 
-@pytest.mark.parametrize("stream, reason", [
-    (lambda: seq_header(high_bitdepth=1) + frame_header(), None),
-    (lambda: seq_header(superres=1) + frame_header(use_superres=1), None),
-    (lambda: seq_header() + frame_header(allow_sct=1, allow_intrabc=1),
-     None),
-    (lambda: seq_header() + frame_header(qm=1), None),
-    (layered_stream, None),
+@pytest.mark.parametrize("stream", [
+    lambda: seq_header(high_bitdepth=1) + frame_header(),
+    lambda: seq_header(superres=1) + frame_header(use_superres=1),
+    lambda: seq_header() + frame_header(allow_sct=1, allow_intrabc=1),
+    lambda: seq_header() + frame_header(qm=1),
+    layered_stream,
 ], ids=["10-bit", "superres", "intrabc", "quantizer matrices", "layered"])
-def test_remainder_from_headers(stream, reason):
+def test_remainder_from_headers(stream):
     """10-bit streams, superres (here SuperresDenom 16 of a 64-wide frame:
     a coded width of 32), intra block copy, quantizer matrices and layered
     streams (operating point 0 of spatial layer 0) are built: their
     headers probe, and these streams, which carry no tile, do not decode
-    (as in libdav1d). No tool of an intra frame is gated at the headers
-    any more: ``reason`` is kept for one that would be."""
-    if reason is not None:
-        with pytest.raises(av1_dec_abi.Av1NotPorted, match=reason):
-            av1_dec_abi.probe(stream())
-        with pytest.raises(av1_dec_abi.Av1NotPorted, match=reason):
-            av1_dec_abi.decode(stream())
-        return
+    (as in libdav1d). No tool of an intra frame is gated at the headers."""
     head = av1_dec_abi.probe(stream())
     assert (head.bitdepth, head.screen_content, head.intrabc,
             head.qmatrix, head.superres_denom) in (
@@ -556,7 +548,7 @@ def test_hostile_streams_never_crash():
         try:
             y, _u, _v, info = av1_dec_abi.decode(s)
             assert y.shape == (info.height, info.width)
-        except (ValueError, av1_dec_abi.Av1NotPorted):
+        except ValueError:
             pass
 
 

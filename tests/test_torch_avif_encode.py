@@ -36,7 +36,6 @@ from imagekit_tpu_torch.codecs import av1_entropy, av1_image, av1_intra
 from imagekit_tpu_torch.codecs import avif_encode
 from imagekit_tpu_torch.codecs.av1_container import write_avif
 from imagekit_tpu_torch.codecs.native import av1_abi
-from imagekit_tpu_torch.errors import NotPortedError
 from tests.test_torch_jxc_slice import _ref_native_lib
 
 
@@ -185,9 +184,10 @@ def test_plane_contract_and_what_is_not_ported():
         avif_encode.encode_yuv420_studio(y, cb[:4], cr, 80)
     with pytest.raises(ValueError, match="alpha"):
         avif_encode.encode_yuv420_studio(y, cb, cr, 80, alpha=y[:4])
-    with pytest.raises(NotPortedError, match="Y400") as e:
-        avif_encode.encode_y400_studio(y, 80)
-    assert e.value.roadmap_item == "queue 1 item 8"
+    # the monochrome encode is served (test_torch_y400.py holds its output)
+    mono = avif_encode.encode_y400_studio(y, 80)
+    assert mono[4:12] == b"ftypavif"
+    assert avif_native.parse_container(mono).monochrome
 
 
 # -- decodability (libdav1d as the oracle) ----------------------------------------

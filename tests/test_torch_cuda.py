@@ -1801,3 +1801,55 @@ def test_engine_on_four_replicas_matches_one_card():
     report = dryrun.engine_case(grid, jpegs, 160, ImageFormat.webp)
     assert report["bodies_equal"] and report["shards"] == 4
     assert jpeg8.LAUNCHES == before + 4 + 1  # four shards, then one card
+
+
+@needs_card
+def test_split_rgb_head_on_card_equals_int16_head():
+    """``dct.decode_resize_rgb_i8_batch`` (the RGB head on the k = 8 split
+    transport) on the card: one K3 launch; the output equal to
+    ``decode_resize_rgb_batch`` on the same levels, and within +-2 on <=
+    0.1% of the head on the CPU (K3's plain version)."""
+    from imagekit_tpu_torch.ops import dct
+    from imagekit_tpu_torch.ops import resize_planes as rp
+
+    rng = np.random.default_rng(31)
+    B, U, by, bx, obh, obw = 3, 2, 16, 32, 96, 192
+    cy, cx = by // 2, bx // 2
+    dcs = tuple(rng.integers(-300, 300, (B, r, pad128(c))).astype(np.int16)
+                for r, c in ((by, bx), (cy, cx), (cy, cx)))
+    acs = tuple(rng.integers(-20, 20, (B, r, pad128(c * 63))).astype(np.int8)
+                for r, c in ((by, bx), (cy, cx), (cy, cx)))
+    escs = []
+    for cap, rows in ((LOWFREQ_ESC_Y, [[0, 2, 3], [1, 5, 70], [2, 0, 0]]),
+                      (LOWFREQ_ESC_C, [[0, 1, 2], [2, cy - 1, 64]]),
+                      (LOWFREQ_ESC_C, [])):
+        idx = np.zeros((cap, 3), np.int32)
+        val = np.zeros(cap, np.int32)
+        if rows:
+            idx[:len(rows)] = rows
+            val[:len(rows)] = [300, -250, 128][:len(rows)]
+        escs.append((idx, val))
+    qt = (rng.random((B, 128)) * 8 + 1).astype(np.float32)
+
+    def w(o, n):
+        m = rng.random((U, o, n * 8)).astype(np.float32)
+        return m / m.sum(axis=2, keepdims=True)
+
+    stacks = (w(obh, by), w(obw, bx), w(obh, cy), w(obw, cx))
+    vidx = (np.arange(B) % U).astype(np.int32)
+    args = (dcs, acs, tuple(escs), qt, stacks, vidx, (by, bx, cy, cx),
+            (obh, obw))
+    before = rp.LAUNCHES
+    got = dct.decode_resize_rgb_i8_batch(*args, device="cuda")
+    assert rp.LAUNCHES == before + 1
+    dims = ((by, bx), (cy, cx), (cy, cx))
+    levels = [dct._widen_split_levels(
+        *(torch.from_numpy(a) for a in (dcs[p], acs[p], *escs[p])), *dims[p])
+        .to(torch.int16).numpy() for p in range(3)]
+    int16 = dct.decode_resize_rgb_batch(*levels, qt, stacks, vidx,
+                                        (by, bx, cy, cx), (obh, obw),
+                                        device="cuda")
+    assert np.array_equal(got, int16)
+    cpu = dct.decode_resize_rgb_i8_batch(*args, device="cpu")
+    d = np.abs(got.astype(np.int32) - cpu.astype(np.int32))
+    assert d.max() <= 2 and (d > 0).mean() <= MAX_SHARE
