@@ -4,8 +4,8 @@ Counterpart of ``imagekit_tpu/codecs/jpeg.py``: the serial entropy stages
 run on the host in native C++ (Huffman decode of scans into quantised DCT
 coefficient planes, Huffman encode of quantised levels into a baseline
 JPEG), the parallel math on the device
-(:func:`imagekit_tpu_torch.ops.dct.decode_components_to_rgb`, one K3 launch
-on CUDA, and :func:`~imagekit_tpu_torch.ops.dct.encode_rgb_to_coefficients`).
+(:func:`imagekit_tpu_torch.ops.dct.decode_components_to_rgb`, K6's two
+launches on CUDA, Pillow's libjpeg-turbo decode byte for byte, and :func:`~imagekit_tpu_torch.ops.dct.encode_rgb_to_coefficients`).
 ``device`` is the card unless the caller names another.
 
 The reference's serving path decodes JPEG pixels with Pillow; the port has
@@ -273,6 +273,10 @@ def decode_to_coefficients(data: bytes):
       (an EOB run past a progressive scan's last block) takes libjpeg's
       coefficients.
 
+    A progressive frame whose scans left some of the first AC coefficients
+    unrefined gets libjpeg's block smoothing
+    (:mod:`~imagekit_tpu_torch.codecs.jpeg_smoothing`).
+
     Errors as :func:`decode_error` maps them, a frame's as
     :func:`source_header` refuses it, Pillow's as a
     :class:`~imagekit_tpu_torch.errors.SourceDecodeError` for a frame only
@@ -320,6 +324,12 @@ def decode_to_coefficients(data: bytes):
             out, failed = (coeffs, qtabs), None
     if failed is not None:
         raise decode_error(failed) from failed
+    if hdr.progressive:
+        from imagekit_tpu_torch.codecs import jpeg_smoothing
+
+        coeffs, qtabs = out
+        bits = jpeg_smoothing.scan_bits(data, frame_markers(data).ids)
+        out = jpeg_smoothing.smooth_blocks(hdr, coeffs, qtabs, bits), qtabs
     return (hdr, *out)
 
 

@@ -41,7 +41,8 @@ libjpeg decodes it under libtiff's fake EOI, its MCU in flight from zero
 bits and the rest zero), checks each header against the IFD as libtiff
 does, and assembles the segments' coefficients into one plane a component
 (:class:`JpegPage`); the device half is ``ops/dct.py::decode_tiff_page``
-(one K3 launch a page, two for four components). The colour step follows
+(K6, two launches a page, libjpeg's upsample restarting at every strip
+and tile). The colour step follows
 the TIFF photometric, never the JPEG stream; a planar gray + alpha page's
 alpha is 0, as Pillow reads it. Old-style JPEG (compression 6), which
 Pillow reads as YCbCr through libtiff's RGBA interface (one sample: gray),
@@ -382,6 +383,11 @@ class JpegPage:
     #: a planar page: Pillow's bands of it hold CIELab's a* and b*
     #: unsigned
     planar: bool = False
+    #: the image height each row of segments' JPEG states, and the width
+    #: of each column of them (libjpeg's upsample stops at their edges; a
+    #: tile is a JPEG of its whole size, a last strip may be coded taller
+    #: than its rows); None: one segment of the page's size
+    coded: Optional[Tuple[Tuple[int, ...], Tuple[int, ...]]] = None
 
 
 def segments(data: bytes) -> Tuple[_JpegInfo, np.ndarray, np.ndarray]:
@@ -702,6 +708,8 @@ def entropy_decode(data: bytes) -> JpegPage:
     rows = [tuple(heads[i].blocks_h[k] for i, k in (
         held(c, r * info.cols) for r in range(info.rows)))
         for c in range(ncomp)]
+    coded = (tuple(heads[r * info.cols].height for r in range(info.rows)),
+             tuple(heads[x].width for x in range(info.cols)))
     cols = [tuple(heads[i].blocks_w[k] for i, k in (
         held(c, x) for x in range(info.cols))) for c in range(ncomp)]
     coeffs = [np.zeros((sum(rows[c]), sum(cols[c]), 64), np.int16)
@@ -737,7 +745,7 @@ def entropy_decode(data: bytes) -> JpegPage:
     if regular and same:
         return JpegPage(W, H, info.photometric, coeffs, page_q, rows, cols,
                         extra=info.extra, ycbcr=ycbcr, zero_alpha=zero_alpha,
-                        palette=palette, planar=planar)
+                        palette=palette, planar=planar, coded=coded)
     # each place of the grid alone: a chunky segment's components, or the
     # segments of every plane at that place
     if planar:
@@ -751,8 +759,9 @@ def entropy_decode(data: bytes) -> JpegPage:
                   [np.ascontiguousarray(v) for v in vs], q,
                   [(v.shape[0],) for v in vs], [(v.shape[1],) for v in vs],
                   extra=info.extra, ycbcr=ycbcr, zero_alpha=zero_alpha,
-                  palette=palette, planar=planar),
+                  palette=palette, planar=planar,
+                  coded=((heads[g].height,), (heads[g].width,))),
          y0, x0)
-        for vs, q, (y0, x0, w, h) in groups],
+        for g, (vs, q, (y0, x0, w, h)) in enumerate(groups)],
         extra=info.extra, ycbcr=ycbcr, zero_alpha=zero_alpha,
         palette=palette, planar=planar)

@@ -133,6 +133,15 @@ def launch_band(fn, planes, B: int, *args) -> BandInfo:
 def _configure(lib: ctypes.CDLL) -> None:
     configure_folded(lib)
     configure_band(lib)
+    configure_pixels(lib)
+
+
+def configure_pixels(lib: ctypes.CDLL) -> None:
+    """argtypes of K6's two entries (also used by the CPU build of its
+    source in the tests): the record's address and the stream."""
+    for fn in (lib.ik_jpeg_idct, lib.ik_jpeg_upcolour):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
 
 
 def configure_folded(lib: ctypes.CDLL) -> None:

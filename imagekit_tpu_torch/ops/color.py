@@ -174,44 +174,16 @@ def resample_rgb_yuv_batch(imgs_flat, weights, vidx, hidx, out_shape,
     return split_yuv(flat, obh, obw)
 
 
-# -- CMYK and YCCK JPEGs -> RGB (the four-component JPEG pixel decode) ---------
+# -- CMYK -> RGB, as Pillow converts it ---------------------------------------
 
 
-def _fix16(x: float) -> int:
-    return int(x * 65536 + 0.5)
-
-
-# libjpeg's YCC -> RGB tables (jdcolor.c ``build_ycc_rgb_table``), 16-bit
-# fixed point, indexed by the u8 sample; the green ones keep their scale
-_X = np.arange(256, dtype=np.int64) - 128
-_CR_R = (_fix16(1.40200) * _X + (1 << 15)) >> 16
-_CB_B = (_fix16(1.77200) * _X + (1 << 15)) >> 16
-_CR_G = -_fix16(0.71414) * _X
-_CB_G = -_fix16(0.34414) * _X + (1 << 15)
-
-
-def ycck_to_cmyk(y, cb, cr):
-    """libjpeg's ``ycck_cmyk_convert`` on int64 tensors: the inverse of
-    the YCC -> RGB mix, subtracted from 255 and clipped: (C, M, Y); K
-    passes through."""
-    def tab(t):
-        return torch.as_tensor(t, device=y.device)
-
-    c = 255 - (y + tab(_CR_R)[cr])
-    m = 255 - (y + ((tab(_CB_G)[cb] + tab(_CR_G)[cr]) >> 16))
-    yy = 255 - (y + tab(_CB_B)[cb])
-    return tuple(torch.clamp(p, 0, 255) for p in (c, m, yy))
-
-
-def cmyk_to_rgb(c, m, y, k, ycck: bool = False) -> torch.Tensor:
-    """Four u8 planes as a CMYK or YCCK JPEG stores them -> (H, W, 3) u8
-    RGB, as Pillow serves such a JPEG: libjpeg's YCCK -> CMYK first where
-    ``ycck``; then the Adobe inversion (Pillow reads four-component JPEGs
-    with rawmode ``CMYK;I``) and ``convert("RGB")``'s ``cmyk2rgb``,
+def cmyk_to_rgb(c, m, y, k) -> torch.Tensor:
+    """Four u8 planes as libjpeg hands a CMYK JPEG to Pillow (a YCCK one
+    after its ``ycck_cmyk_convert``, K6's colour step) -> (H, W, 3) u8 RGB,
+    as Pillow serves it: the Adobe inversion (Pillow reads four-component
+    JPEGs with rawmode ``CMYK;I``) and ``convert("RGB")``'s ``cmyk2rgb``,
     ``nk - MULDIV255(x, nk)`` with ``nk = 255 - k``, in integers."""
     c, m, y, k = (p.to(torch.int64) for p in (c, m, y, k))
-    if ycck:
-        c, m, y = ycck_to_cmyk(c, m, y)
     nk = k  # 255 - (255 - k): K after the inversion
 
     def muldiv255(a, b):

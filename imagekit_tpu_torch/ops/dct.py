@@ -57,34 +57,30 @@ The single-image entries of the JPEG codec (``codecs/jpeg.py``):
 :func:`encode_rgb_to_coefficients` (``dct.py:1793``, ``_encode_kernel``
 :1758: the JFIF mix, the 4:2:0 box and :func:`_fdct_quant_flat` on one
 image, for requests with no resize and for the plain RGB head's JPEG
-outputs) and :func:`decode_components_to_rgb` (``dct.py:1938``: the JPEG
-pixel decode, :func:`decode_resize_rgb_batch` with identity luma stacks
-and, per axis, the 2x triangle upsample or the identity as chroma stacks,
-so ONE K3 launch on CUDA, for 4:2:0, 4:2:2, 4:4:0, 4:4:4 and grayscale
-JPEGs; for three components in any other integer sampling (4:1:1, Cb and
-Cr sampled differently, ...), :func:`decode_sampled_components`: each
-component's own stacks by libjpeg's choice of upsample, ONE K3 launch; for
-CMYK and YCCK JPEGs in any integer sampling, which the reference decodes
-with Pillow, :func:`decode_four_components`: the same IDCT and each
-component's stacks by libjpeg's choice, TWO K3 launches, then libjpeg's and
-Pillow's integer colour steps, :func:`~imagekit_tpu_torch.ops.color.
-cmyk_to_rgb`).
+outputs) and :func:`decode_components_to_rgb`, the JPEG pixel decode of
+every JPEG the reference decodes with Pillow: K6
+(:mod:`imagekit_tpu_torch.ops.jpeg_pixels`, two launches on CUDA), equal to
+Pillow's libjpeg-turbo (its islow IDCT, its choice of upsampler for each
+component's sampling, its YCbCr -> RGB and YCCK -> CMYK tables), then for
+CMYK and YCCK JPEGs Pillow's integer CMYK step,
+:func:`~imagekit_tpu_torch.ops.color.cmyk_to_rgb`. A JPEG coded as RGB
+(``hdr.rgb``: an Adobe transform of 0, or the ids 'R', 'G', 'B' with no
+marker) skips the YCbCr step.
 
-A JPEG coded as RGB (``hdr.rgb``: an Adobe transform of 0, or the ids
-'R', 'G', 'B' with no marker) skips the YCbCr step in the pixel decode.
 A lossless JPEG's samples need no IDCT: :func:`decode_lossless_planes`
 takes gray and alike-sampled frames as they are, and runs K3 with
 replication stacks where the components are sampled differently (one
-launch for three components, two for four); four components are CMYK.
+launch for three components, two for four; exact on u8, as libjpeg
+replicates a lossless frame's samples); four components are CMYK.
 
 The pixel decode of a JPEG-compressed TIFF page, which the reference
 decodes with Pillow: :func:`decode_tiff_page` takes the coefficient planes
-``codecs/tiff.py`` assembles from the page's strips or tiles, with
-block-diagonal chroma stacks (libjpeg upsamples each segment alone), ONE
-K3 launch a page (two for four components) and the colour step of the
-TIFF photometric. An old-style JPEG page (compression 6) takes
-replication stacks for its chroma and libtiff's ``TIFFYCbCrToRGB``, as
-Pillow reads it through libtiff's RGBA interface.
+``codecs/tiff.py`` assembles from the page's strips or tiles and runs K6
+on them with :func:`page_plan`'s maps (libjpeg's upsample restarts at every
+strip and tile), then the colour step of the TIFF photometric. An
+old-style JPEG page (compression 6) and a planar YCbCr one replicate their
+chroma and take libtiff's ``TIFFYCbCrToRGB``, as Pillow reads them through
+libtiff's RGBA interface.
 """
 
 from __future__ import annotations
@@ -94,7 +90,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from imagekit_tpu_torch.ops import jpeg8
+from imagekit_tpu_torch.ops import jpeg8, jpeg_pixels
 from imagekit_tpu_torch.ops.color import (
     box2,
     cmyk_to_rgb,
@@ -120,16 +116,11 @@ from imagekit_tpu_torch.ops.resize_strip import (
     yuv_resize,
 )
 from imagekit_tpu_torch.ops.weights import (
-    TRIANGLE_AXES,
-    chroma_axis_weights,
     component_stacks,
     idct_basis,
     libtiff_ycbcr_tables,
     quality_tables,
-    replication_axis_weights,
-    segment_axis_weights,
     upsample_method,
-    upsample_weights,
 )
 
 
@@ -740,130 +731,49 @@ def gray_chroma(luma: np.ndarray) -> np.ndarray:
                     luma.dtype)
 
 
-def _batched_head_layout(hdr) -> bool:
-    """Three components in a layout of the batched RGB head: Cb and Cr
-    sampled alike, each 1x or 2x below the luma on each axis."""
-    if hdr.ncomp != 3 or (hdr.comp_h[1], hdr.comp_v[1]) != (
-            hdr.comp_h[2], hdr.comp_v[2]):
-        return False
-    return all(f0 in (f1, 2 * f1) for f0, f1 in (
-        (hdr.comp_h[0], hdr.comp_h[1]), (hdr.comp_v[0], hdr.comp_v[1])))
+def frame_colour(hdr) -> int:
+    """K6's colour step for a JPEG frame, as libjpeg converts it for
+    Pillow: YCbCr -> RGB for three components unless coded as RGB
+    (``hdr.rgb``), YCCK -> CMYK for four with an Adobe transform flag
+    other than 0, none otherwise."""
+    if hdr.ncomp == 3 and not hdr.rgb:
+        return jpeg_pixels.YCC
+    if hdr.ncomp == 4 and hdr.adobe_transform > 0:
+        return jpeg_pixels.YCCK
+    return jpeg_pixels.NONE
+
+
+def frame_pixels(decoded, device: torch.device) -> torch.Tensor:
+    """K6 on one JPEG frame (``decoded`` as ``jpeg_abi.decode`` or
+    ``decode4`` returns it) -> (H, W, C) u8 on ``device``, C its
+    components: gray, RGB, or CMYK (after libjpeg's YCCK -> CMYK), as
+    libjpeg hands them to Pillow. Two launches on CUDA."""
+    hdr, coeffs, qtabs = decoded
+    if hdr.ncomp not in (1, 3, 4):
+        raise ValueError(
+            f"{hdr.ncomp} components sampled {tuple(hdr.comp_h)} x "
+            f"{tuple(hdr.comp_v)}: not grayscale, three or four components")
+    return jpeg_pixels.decode(
+        jpeg_pixels.frame_plan(hdr, coeffs, qtabs, frame_colour(hdr)), device)
 
 
 def decode_components_to_rgb(decoded, device: Optional[torch.device] = None
                              ) -> np.ndarray:
-    """The JPEG pixel decode of one image: entropy output -> IDCT, chroma
-    upsample and colour on ``device`` -> (H, W, 3) u8 RGB at full
-    resolution. ``decoded`` is the (header, coeff_planes, qtabs) tuple of
-    ``jpeg_abi.decode``. Three components whose Cb and Cr share one
-    sampling 1x or 2x below the luma's on each axis (4:2:0, 4:2:2, 4:4:0,
-    4:4:4), each with its own table, or grayscale, with
-    :func:`gray_chroma`'s planes, take the batched RGB head: identity for
-    luma and, per axis, libjpeg's triangle 2x upsample or the identity for
-    chroma (:func:`~imagekit_tpu_torch.ops.weights.chroma_axis_weights`),
-    ONE K3 launch on CUDA. Three components in any other integer sampling
-    take :func:`decode_sampled_components` (one K3 launch too); four
-    components (CMYK, YCCK) :func:`decode_four_components`. A frame coded
-    as RGB (``hdr.rgb``) skips the colour step. Anything else raises
-    ValueError."""
-    hdr, coeffs, qtabs = decoded
-    if hdr.ncomp == 4:
-        return decode_four_components(decoded, device=device)
-    if hdr.ncomp == 3 and not _batched_head_layout(hdr):
-        return decode_sampled_components(decoded, device=device)
-    if hdr.ncomp == 1:
-        cz = gray_chroma(coeffs[0])
-        coeffs, tq = [coeffs[0], cz, cz], (hdr.comp_tq[0],) * 3
-    elif hdr.ncomp == 3:
-        tq = tuple(hdr.comp_tq[:3])
-    else:
-        raise ValueError(
-            f"{hdr.ncomp} components sampled {tuple(hdr.comp_h)} x "
-            f"{tuple(hdr.comp_v)}: not grayscale, three or four components")
-    by_y, bx_y = coeffs[0].shape[:2]
-    by_c, bx_c = coeffs[1].shape[:2]
-    # the stacks: identity for luma, one axis of the upsample each for chroma
-    wv_c = chroma_axis_weights(by_y, by_c)[None]
-    wh_c = chroma_axis_weights(bx_y, bx_c)[None]
-    wv_y = upsample_weights(by_y * 8, by_y * 8)[None]
-    wh_y = upsample_weights(bx_y * 8, bx_y * 8)[None]
-    # Y, Cb, Cr tables by the SOF selectors: decode_resize_rgb's 192 wide
-    qt = np.concatenate([qtabs[t] for t in tq]).astype(np.float32)[None]
-    out = decode_resize_rgb_batch(
-        coeffs[0].reshape(1, by_y, -1),
-        coeffs[1].reshape(1, by_c, -1),
-        coeffs[2].reshape(1, by_c, -1),
-        qt,
-        (wv_y, wh_y, wv_c, wh_c),
-        np.zeros(1, np.int32),
-        (by_y, bx_y, by_c, bx_c),
-        (by_y * 8, bx_y * 8),
-        device=device,
-        ycc=not hdr.rgb,
-    )
-    return out[0, :hdr.height, :hdr.width]
-
-
-def sampled_inputs(decoded, device: torch.device):
-    """:func:`plane_inputs` of a JPEG of three or four components in any
-    integer sampling: each component's stacks to the grid of the largest
-    factors (:func:`~imagekit_tpu_torch.ops.weights.component_stacks`), by
-    the method libjpeg picks from the pair of its ratios to those factors
-    (:func:`~imagekit_tpu_torch.ops.weights.upsample_method`: the
-    identity, a triangle 2x on one or both axes, or replication on both),
-    each stopping at the component's real size; the first component is
-    upsampled too where its factors are not the largest. A ratio that is
-    not an integer raises ValueError."""
-    hdr, coeffs, qtabs = decoded
-    grids = [c.shape[:2] for c in coeffs]
-    full = (max(g[0] for g in grids), max(g[1] for g in grids))
-    keys = []
-    for c, grid in enumerate(grids):
-        h, v = hdr.comp_h[c], hdr.comp_v[c]
-        if hdr.hmax % h or hdr.vmax % v:
-            raise ValueError(f"component {c} sampled {h}x{v} under "
-                             f"{hdr.hmax}x{hdr.vmax}: a fractional ratio")
-        method = upsample_method((hdr.hmax // h, hdr.vmax // v),
-                                 hdr.comp_width[c])
-        keys.append((grid, (hdr.comp_height[c], hdr.comp_width[c]), method))
-    return plane_inputs(
-        coeffs, np.stack([qtabs[t] for t in hdr.comp_tq]), keys,
-        lambda k: component_stacks(full, *k), device)
-
-
-def decode_sampled_components(decoded, device: Optional[torch.device] = None
-                              ) -> np.ndarray:
-    """The JPEG pixel decode of three components in a sampling outside the
-    batched head's (4:1:1, 4:1:0, a ratio of 3, Cb and Cr sampled
-    differently, a luma below the largest factors): each component's IDCT,
-    then its own stacks (:func:`sampled_inputs`) to the full grid in ONE
-    K3 launch on CUDA, crop, YCbCr -> RGB as the batched head does (none
-    for a frame coded as RGB) -> (H, W, 3) u8, on ``device`` (the card
-    unless named)."""
-    hdr = decoded[0]
+    """The JPEG pixel decode of one image: entropy output -> dequant, islow
+    IDCT, libjpeg's upsample of each component and its colour step on
+    ``device`` (the card unless named), K6 (:func:`frame_pixels`), equal to
+    Pillow's decode -> (H, W, 3) u8 RGB at full resolution. ``decoded`` is
+    the (header, coeff_planes, qtabs) tuple of ``jpeg_abi.decode`` (or
+    ``decode4``): grayscale (R = G = B), three components in any integer
+    sampling, YCbCr or coded as RGB (``hdr.rgb``), and CMYK or YCCK
+    (Pillow's ``CMYK;I`` read and ``cmyk2rgb``, :func:`~imagekit_tpu_torch.
+    ops.color.cmyk_to_rgb`). Anything else raises ValueError."""
     device = resolve(device)
-    planes = resize_components(*sampled_inputs(decoded, device))
-    h, w = hdr.height, hdr.width
-    planes = [p[0, :h, :w] for p in planes]
-    return to_host(torch.stack(planes, dim=-1) if hdr.rgb
-                   else _ycc_to_rgb(*planes), device)
-
-
-def plane_inputs(coeffs, qt, keys, stacks_of, device: torch.device):
-    """K3's inputs in a pixel decode of independent components, on
-    ``device``: component c's u8 plane after dequantisation (table
-    ``qt[c]``) and the 8x8 IDCT (:func:`_blocks_to_plane`), (1, by*8,
-    bx*8) at its own block grid; its (wv, wh) stacks, ``stacks_of(keys[c])``
-    as numpy, and their band tables (components of one key share them,
-    made once); the index."""
-    grids = [c.shape[:2] for c in coeffs]
-    qt, vidx, *levels = on_device(
-        (np.asarray(qt, np.float32), np.zeros(1, np.int32),
-         *(c.reshape(1, by, -1) for c, (by, _) in zip(coeffs, grids))),
-        device)
-    planes = [_blocks_to_plane(lv, by, bx, qt[i:i + 1])
-              for i, (lv, (by, bx)) in enumerate(zip(levels, grids))]
-    return (planes, *_stack_inputs(keys, stacks_of, device), vidx)
+    px = frame_pixels(decoded, device)
+    if px.shape[-1] == 4:
+        px = cmyk_to_rgb(*px.unbind(-1))
+    out = to_host(px, device)
+    return np.repeat(out, 3, axis=2) if out.shape[-1] == 1 else out
 
 
 def _stack_inputs(keys, stacks_of, device: torch.device):
@@ -877,38 +787,14 @@ def _stack_inputs(keys, stacks_of, device: torch.device):
 
 
 def resize_components(planes, stacks, tabs, vidx):
-    """K3 on the planes of a pixel decode, three at a time: one launch for
-    one to three components, two for four."""
+    """K3 on the sample planes of a lossless JPEG or an uncompressed YCbCr
+    TIFF page, three at a time: one launch for one to three components,
+    two for four."""
     out = []
     for i in range(0, len(planes), 3):
         out += resize_planes_u8(planes[i:i + 3], stacks[i:i + 3], vidx,
                                 bands=tabs[i:i + 3])
     return out
-
-
-def four_component_planes(decoded, device: torch.device):
-    """The four u8 planes of a CMYK or YCCK JPEG at the full grid, (1,
-    by*8, bx*8) each, uncropped: :func:`sampled_inputs` (any integer
-    sampling, each component by libjpeg's upsampling), then TWO K3
-    launches on CUDA (:func:`resize_components`: C, M and Y, then K)."""
-    return resize_components(*sampled_inputs(decoded, device))
-
-
-def decode_four_components(decoded, device: Optional[torch.device] = None
-                           ) -> np.ndarray:
-    """The JPEG pixel decode of a CMYK or YCCK JPEG: ``decoded`` is
-    ``jpeg_abi.decode4``'s (header, four coefficient planes, qtabs) ->
-    :func:`four_component_planes` (two K3 launches on CUDA) -> crop ->
-    :func:`~imagekit_tpu_torch.ops.color.cmyk_to_rgb` (YCCK where the Adobe
-    transform flag is not 0) -> (H, W, 3) u8 RGB, on ``device`` (the card
-    unless named)."""
-    hdr = decoded[0]
-    device = resolve(device)
-    planes = four_component_planes(decoded, device)
-    h, w = hdr.height, hdr.width
-    rgb = cmyk_to_rgb(*(p[0, :h, :w] for p in planes),
-                      ycck=hdr.adobe_transform > 0)
-    return to_host(rgb, device)
 
 
 # -- lossless JPEGs ------------------------------------------------------------
@@ -975,32 +861,63 @@ def decode_lossless_planes(decoded, device: Optional[torch.device] = None
 # -- JPEG-compressed TIFF pages ----------------------------------------------
 
 
-def tiff_page_inputs(page, device: torch.device):
-    """:func:`plane_inputs` of a JPEG TIFF page (``codecs/tiff.py::
-    JpegPage``): component c's coefficient plane assembled from the
-    segments; its stacks per axis :func:`~imagekit_tpu_torch.ops.weights.
-    segment_axis_weights`, block-diagonal over the segments along the axis
-    against component 0's (the largest) grid: the triangle on the axes
-    libjpeg's choice for the pair of ratios takes it (:func:`~imagekit_
-    tpu_torch.ops.weights.upsample_method`), replication on the others (a
-    ratio of 4 on either axis); an old-style page's (one segment)
-    :func:`~imagekit_tpu_torch.ops.weights.replication_axis_weights`,
-    chroma replicated over each subsampling block."""
-    keys = list(zip(page.rows, page.cols))
-    if page.ycbcr is not None:
-        def stacks_of(k):
-            return (replication_axis_weights(sum(page.rows[0]), sum(k[0])),
-                    replication_axis_weights(sum(page.cols[0]), sum(k[1])))
-    else:
-        def stacks_of(k):
-            rv = page.rows[0][0] // k[0][0]
-            rh = page.cols[0][0] // k[1][0]
-            width = -(-min(page.width, page.cols[0][0] * 8) // rh)
-            tri = TRIANGLE_AXES.get(upsample_method((rh, rv), width),
-                                    (False, False))
-            return (segment_axis_weights(page.rows[0], k[0], not tri[0]),
-                    segment_axis_weights(page.cols[0], k[1], not tri[1]))
-    return plane_inputs(page.coeffs, page.qtabs, keys, stacks_of, device)
+def _page_spans(luma, blocks, coded, ratio: int):
+    """:func:`~imagekit_tpu_torch.ops.jpeg_pixels.axis_map`'s spans of one
+    axis of a page component: one a row (column) of segments, ``luma`` and
+    ``blocks`` the block counts of component 0 and of this one along the
+    axis, ``coded`` the size each row's (column's) JPEG states, whose
+    component holds ceil(coded / ratio) real samples. Grids of different
+    lengths raise ValueError."""
+    if not len(luma) == len(blocks) == len(coded):
+        raise ValueError(f"segment grids of {len(luma)}, {len(blocks)} and "
+                         f"{len(coded)} entries")
+    spans, out0, first = [], 0, 0
+    for lb, cb, n in zip(luma, blocks, coded):
+        spans.append((out0, first, -(-n // ratio)))
+        out0, first = out0 + lb * 8, first + cb * 8
+    return spans
+
+
+def page_plan(page) -> jpeg_pixels.Plan:
+    """K6's :class:`~imagekit_tpu_torch.ops.jpeg_pixels.Plan` of a JPEG
+    TIFF page (``codecs/tiff.py::JpegPage``): component c's coefficient
+    plane assembled from the segments; on each axis libjpeg's choice for
+    its pair of ratios to component 0 (the largest), its context
+    restarting at every segment (libjpeg decodes each strip or tile
+    alone) and stopping at the real size of the segment's JPEG (a tile's
+    whole, past the image; a last strip's as coded, which libjpeg's
+    context rows follow even where libtiff stops at the image's last row);
+    YCbCr -> RGB where
+    libtiff asks libjpeg for it (a chunky YCbCr page). An old-style or
+    planar YCbCr page (``page.ycbcr``) replicates its chroma over each
+    subsampling block of the whole plane, no colour step (libtiff's
+    ``TIFFYCbCrToRGB`` follows)."""
+    H, W = page.height, page.width
+    heights, widths = page.coded or ((H,), (W,))
+    rows, cols, fancy = [], [], []
+    for c in range(len(page.coeffs)):
+        if page.ycbcr is not None:
+            rv = sum(page.rows[0]) // sum(page.rows[c])
+            rh = sum(page.cols[0]) // sum(page.cols[c])
+            bits = 0
+            rspan = [(0, 0, sum(page.rows[c]) * 8)]
+            cspan = [(0, 0, sum(page.cols[c]) * 8)]
+        else:
+            rv = page.rows[0][0] // page.rows[c][0]
+            rh = page.cols[0][0] // page.cols[c][0]
+            rspan = _page_spans(page.rows[0], page.rows[c], heights, rv)
+            cspan = _page_spans(page.cols[0], page.cols[c], widths, rh)
+            bits = jpeg_pixels.fancy_bits(upsample_method((rh, rv),
+                                                          cspan[0][2]))
+        rows.append(jpeg_pixels.axis_map(H, rv, bool(bits & jpeg_pixels.ROWS),
+                                         rspan))
+        cols.append(jpeg_pixels.axis_map(W, rh, bool(bits & jpeg_pixels.COLS),
+                                         cspan))
+        fancy.append(bits)
+    colour = (jpeg_pixels.YCC if page.photometric == 6 and page.ycbcr is None
+              else jpeg_pixels.NONE)
+    return jpeg_pixels.Plan(list(page.coeffs), np.asarray(page.qtabs), rows,
+                            cols, tuple(fancy), colour, H, W)
 
 
 def libtiff_ycbcr_to_rgb(y, cb, cr, luma, refbw) -> torch.Tensor:
@@ -1033,8 +950,8 @@ def _tiff_colour(planes, page) -> torch.Tensor:
     """The page's cropped u8 planes -> (H, W, 3 or 4) u8, by the TIFF
     photometric, not by the JPEG stream (libtiff asks libjpeg for colour
     only for YCbCr): an old-style page by libtiff's ``TIFFYCbCrtoRGB``
-    (:func:`libtiff_ycbcr_to_rgb`); YCbCr -> RGB as the JPEG pixel decode
-    does; CMYK as an 8-bit CMYK TIFF (:func:`~imagekit_tpu_torch.ops.
+    (:func:`libtiff_ycbcr_to_rgb`); a chunky YCbCr page's planes are RGB
+    already (K6's colour step, as libjpeg converts it for libtiff); CMYK as an 8-bit CMYK TIFF (:func:`~imagekit_tpu_torch.ops.
     color.cmyk_to_rgb` on the inverted planes); gray (R = G = B), with its
     alpha; palette, the ColorMap at each index, with its alpha (PA) or
     without its unspecified sample (PX); RGB with an extra sample as Pillow
@@ -1043,8 +960,6 @@ def _tiff_colour(planes, page) -> torch.Tensor:
     :func:`unpremultiply`), kept where unassociated (2)."""
     if page.ycbcr is not None:
         return libtiff_ycbcr_to_rgb(*planes, *page.ycbcr)
-    if page.photometric == 6:
-        return _ycc_to_rgb(*planes)
     if page.photometric == 5:
         return cmyk_to_rgb(*(255 - p for p in planes))
     if page.photometric == 8:  # CIELab: Pillow's LAB unpacker and convert
@@ -1088,9 +1003,8 @@ def _tiff_page_pixels(page, device: torch.device) -> torch.Tensor:
     if page.samples is not None:  # lossless segments: samples, no IDCT
         return _tiff_colour(list(on_device(tuple(page.samples), device)),
                             page)
-    h, w = page.height, page.width
-    planes = resize_components(*tiff_page_inputs(page, device))
-    return _tiff_colour([p[0, :h, :w] for p in planes], page)
+    px = jpeg_pixels.decode(page_plan(page), device)
+    return _tiff_colour(list(px.unbind(-1)), page)
 
 
 def decode_tiff_page(page, device: Optional[torch.device] = None,
@@ -1098,18 +1012,17 @@ def decode_tiff_page(page, device: Optional[torch.device] = None,
     """The pixel decode of a JPEG-compressed TIFF page on ``device`` (the
     card unless named): ``page`` is ``codecs/tiff.py``'s host entropy
     decode, its segments' coefficient planes assembled into one plane a
-    component. IDCT and, per axis, block-diagonal chroma stacks (libjpeg's
-    triangle upsample stops at every strip and tile edge), so ONE K3 launch
-    a page for one or three components and TWO for four; crop; the colour
-    step of the photometric -> (H, W, 3) u8, or (H, W, 4) with alpha. An
-    old-style page (``page.ycbcr``) takes replication stacks and libtiff's
-    ``TIFFYCbCrToRGB`` instead (one K3 launch); a planar page's components
-    are its planes (one launch for three). An irregular page (its
-    segments' tables differ, or a strip that is not a whole number of MCUs
-    ends before the last) carries its segments
-    instead, each decoded alone (K3 once or twice a segment), cropped and
-    stitched. Then the page's TIFF ``orientation``, as Pillow applies it
-    (:func:`~imagekit_tpu_torch.ops.color.orient`)."""
+    component. K6 with :func:`page_plan`'s maps (two launches a page:
+    libjpeg's IDCT, its upsample stopping at every strip and tile edge,
+    and YCbCr -> RGB for a chunky YCbCr page), then the colour step of
+    the photometric -> (H, W, 3) u8, or (H, W, 4) with alpha. An
+    old-style or planar YCbCr page (``page.ycbcr``) replicates its chroma
+    and takes libtiff's ``TIFFYCbCrToRGB`` instead. An irregular page
+    (its segments' tables differ, or a strip that is not a whole number of
+    MCUs ends before the last) carries its segments instead, each decoded
+    alone (K6 twice a segment) and stitched. Then the page's TIFF
+    ``orientation``, as Pillow applies it (:func:`~imagekit_tpu_torch.ops.
+    color.orient`)."""
     device = resolve(device)
     return to_host(orient(_tiff_page_pixels(page, device), orientation),
                    device)

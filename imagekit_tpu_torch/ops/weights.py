@@ -328,54 +328,17 @@ def upsample_weights(half, full):
 
 
 def chroma_axis_weights(luma_blocks: int, chroma_blocks: int) -> np.ndarray:
-    """The (luma_blocks*8, chroma_blocks*8) chroma stack of one axis of the
-    JPEG pixel decode, from the components' block grids (which the MCU grid
-    makes exact ratios): libjpeg's triangle 2x upsample where the luma grid
-    is twice the chroma grid (Pillow's libjpeg-turbo applies it to h2v1,
-    h1v2 and h2v2), the identity where the grids are equal. A luma grid one
-    block short of twice is a grayscale source's zero chroma
-    (``ops/dct.py::gray_chroma``), whose upsample stops at the edge. Any
+    """The (luma_blocks*8, chroma_blocks*8) chroma stack of one axis, from
+    the components' block grids: the triangle 2x upsample where the luma
+    grid is twice the chroma grid (to the block grid's edge), the identity
+    where the grids are equal. A luma grid one block short of twice is a
+    grayscale source's zero chroma (``ops/dct.py::gray_chroma``). Any
     other ratio raises ValueError."""
     if luma_blocks not in (chroma_blocks, 2 * chroma_blocks,
                            2 * chroma_blocks - 1):
         raise ValueError(f"chroma grid of {chroma_blocks} blocks against "
                          f"{luma_blocks} luma blocks: not 1x or 2x")
     return upsample_weights(chroma_blocks * 8, luma_blocks * 8)
-
-
-def _segment_axis_weights_impl(luma_blocks, chroma_blocks,
-                               replicate: bool) -> np.ndarray:
-    out = np.zeros((sum(luma_blocks) * 8, sum(chroma_blocks) * 8), np.float32)
-    o = i = 0
-    for lb, cb in zip(luma_blocks, chroma_blocks):
-        out[o:o + lb * 8, i:i + cb * 8] = (
-            replication_axis_weights(lb, cb) if replicate
-            else chroma_axis_weights(lb, cb))
-        o, i = o + lb * 8, i + cb * 8
-    return out
-
-
-def segment_axis_weights(luma_blocks, chroma_blocks,
-                         replicate: bool = False) -> np.ndarray:
-    """One axis's stack of a page assembled from independent JPEG segments
-    (the strips or tiles of a JPEG-compressed TIFF): block-diagonal, the
-    :func:`chroma_axis_weights` block of each segment along the axis, whose
-    block counts are ``luma_blocks[i]`` and ``chroma_blocks[i]``, or with
-    ``replicate`` its :func:`replication_axis_weights` block (libjpeg's
-    ``int_upsample``, where the pair of ratios is not one its triangles
-    take). libjpeg upsamples each segment alone, so the triangle stops at
-    every segment edge. Where every segment's grids are equal (luma, and
-    chroma on an axis it is not subsampled on) it is the identity."""
-    luma_blocks, chroma_blocks = tuple(luma_blocks), tuple(chroma_blocks)
-    if len(luma_blocks) != len(chroma_blocks):
-        raise ValueError(f"{len(luma_blocks)} luma segments against "
-                         f"{len(chroma_blocks)} chroma segments")
-    if luma_blocks == chroma_blocks:
-        n = sum(luma_blocks) * 8
-        return upsample_weights(n, n)
-    return _chroma_cached(("seg", luma_blocks, chroma_blocks, replicate),
-                          lambda: _segment_axis_weights_impl(
-                              luma_blocks, chroma_blocks, replicate))
 
 
 def _replication_axis_weights_impl(luma_blocks: int, chroma_blocks: int,

@@ -300,8 +300,8 @@ class BatchedEngine(RgbPathMixin, JpegPathMixin, YuvPathMixin,
         """Every source the port has a decoder for -> pixels, on the codec
         pool, without Pillow (:func:`imagekit_tpu_torch.codecs.
         decode_bytes`). A JPEG is entropy-decoded there, and its IDCT,
-        chroma upsample and colour stages run on the engine's device (one
-        K3 launch on CUDA) from a dispatch thread, as do a JPEG-compressed
+        chroma upsample and colour stages run on the engine's device (K6's
+        two launches on CUDA) from a dispatch thread, as do a JPEG-compressed
         TIFF's page (its strips or tiles entropy-decoded on the pool) and
         a CMYK TIFF's colour step. A source that the reference decodes in
         full at its

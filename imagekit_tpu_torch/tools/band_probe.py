@@ -5,8 +5,7 @@ kernel taken out or one choice changed, next to the committed body, and
 times K2's three channels of the flagship RGB batch (B=32, 1088x1920 ->
 240x400), its four channels of the same batch as RGBA, and K3's three
 planes of the demoted head (Y 1088x1920, Cb and Cr 544x960, all ->
-240x400) and of the JPEG pixel decode of one 1080p 4:4:4 and 4:2:2 source
-(to 1080x1920) through the port's own wrappers on each, with ``--strips``
+240x400) through the port's own wrappers on each, with ``--strips``
 K2's RGB and RGBA batches in column strips of the widths named, and the
 rows too wide for whole rows that K2 always takes in strips (a 9600x2400
 RGB image at its exact shape, the RGBA 8192 bucket). A
@@ -27,7 +26,7 @@ fails.
 With ``--sanitize`` it only runs the committed body once on small cases,
 for a run under ``compute-sanitizer`` (``--tool memcheck`` or
 ``racecheck``): K2 with three and four channels at B=2, in whole rows and
-in column strips of 128, and K3's two launches of the four-component
+in column strips of 128, and K6's two launches on the four-component
 pixel decode of the committed progressive CMYK fixture:
 
     compute-sanitizer --tool memcheck python -m imagekit_tpu_torch.tools.band_probe --sanitize
@@ -256,39 +255,15 @@ def k3_case(dev="cuda"):
     return lambda: rp.resize_planes3(planes, stacks, vidx, bands=tabs)
 
 
-def pixel_decode_case(layout: str, dev="cuda"):
-    """K3 as the JPEG pixel decode of one 1080p source (B=1): 4:4:4, three
-    1080x1920 planes with identity stacks, or 4:2:2, chroma 1080x960 ->
-    1080x1920 (the 2x upsample on the horizontal axis); smooth planes, as
-    an IDCT makes them. Returns a call of ``resize_planes3``."""
-    from imagekit_tpu_torch.ops import resize_planes as rp
-    from imagekit_tpu_torch.ops.resize_strip import resize_tables
-    from imagekit_tpu_torch.ops.weights import chroma_axis_weights
-
-    cx = {"4:4:4": 240, "4:2:2": 120}[layout]  # chroma blocks a row
-    stacks = [torch.from_numpy(chroma_axis_weights(l, c)[None]).to(dev)
-              for l, c in ((135, 135), (240, 240), (135, 135), (240, cx))]
-    g = torch.Generator(device=dev).manual_seed(3)
-    planes = []
-    for w in (1920, cx * 8, cx * 8):
-        ramp = torch.linspace(0, 200, w, device=dev)
-        planes.append((ramp + 8 * torch.randn((1, 1080, w), generator=g,
-                                              device=dev)).clamp(0, 255).to(
-            torch.uint8))
-    vidx = torch.zeros(1, dtype=torch.int32, device=dev)
-    tabs = (resize_tables(*stacks[:2]), resize_tables(*stacks[2:]))
-    return lambda: rp.resize_planes3(planes, stacks, vidx, bands=tabs)
-
-
 def cmyk_case(dev="cuda"):
-    """K3's two launches of the four-component pixel decode (C, M, Y, then
-    K) of the committed progressive 1080p CMYK fixture."""
+    """K6's two launches on the four-component pixel decode of the
+    committed progressive 1080p CMYK fixture."""
     from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
     from imagekit_tpu_torch.ops import dct
 
     data = (Path(__file__).resolve().parents[2] / "tests" / "fixtures"
             / "cmyk_1080p_q80_progressive.jpg").read_bytes()
-    return lambda: dct.four_component_planes(
+    return lambda: dct.frame_pixels(
         jpeg_abi.decode4(loader.load(), data), torch.device(dev))
 
 
@@ -300,7 +275,7 @@ def sanitize_cases() -> int:
              "K2 rgb B=2 strips of 128": k2_case(strip=128, batch=2),
              "K2 rgba B=2 strips of 128": k2_case(channels=4, strip=128,
                                                   batch=2),
-             "K3 CMYK pixel decode (two launches)": cmyk_case()}
+             "K6 CMYK pixel decode (two launches)": cmyk_case()}
     for name, fn in cases.items():
         fn()
         torch.cuda.synchronize()
@@ -344,9 +319,7 @@ def main(argv=None) -> int:
     smooth = args.smooth
     cases = {"K2 rgb B=32": k2_case(smooth=smooth),
              "K2 rgba B=32": k2_case(channels=4, smooth=smooth),
-             "K3 Y+Cb+Cr B=32": k3_case(),
-             "K3 4:4:4 pixel decode B=1": pixel_decode_case("4:4:4"),
-             "K3 4:2:2 pixel decode B=1": pixel_decode_case("4:2:2")}
+             "K3 Y+Cb+Cr B=32": k3_case()}
     for sw in filter(None, args.strips.split(",")):
         cases[f"K2 rgb B=32 strips of {sw}"] = k2_case(strip=int(sw),
                                                        smooth=smooth)

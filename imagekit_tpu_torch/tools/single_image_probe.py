@@ -2,15 +2,16 @@
 
 A request with no resize, and every output of the plain RGB head, encodes
 one image at a time; a JPEG encode runs its colour mix and 8x8 fDCT on the
-device, and a JPEG source with no resize runs its pixel decode there (one
-K3 launch; two for a CMYK JPEG). Each is some hundred small device
+device, and a JPEG source with no resize runs its pixel decode there (K6:
+two launches). Each is some hundred small device
 operations issued from Python. This times N such calls (a 400x225 encode, a
 1920x1080 encode, a 1920x1080 pixel decode, the pixel decode of the
 committed 1920x1080 CMYK JPEG) issued from 1, 2, 4 and 16 threads, each
 thread on a CUDA stream of its own, as the engine's pools would issue
 them: the wall time of the N calls and the median time of one. Then the
-CMYK decode step by step, one thread, each step ended by a synchronise
-(the median of 10).
+``device_decode`` stage of a 1080p 4:2:0 and of the CMYK source step by
+step, one thread (entropy decode, K6's maps, upload, K6, readback; the
+device steps by CUDA events; the median of 10).
 
 Run from the root of a checkout, on a machine with one card and nvcc:
 
@@ -65,55 +66,53 @@ def run(fn, n: int, threads: int) -> dict:
             "median_call_ms": statistics.median(times) * 1e3}
 
 
-def cmyk_steps(data: bytes, reps: int = 10) -> dict:
-    """Median ms of each step of the pixel decode of a CMYK JPEG
-    (``dct.decode_four_components``), each ended by a synchronise."""
-    from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
-    from imagekit_tpu_torch.ops import color, dct, resize_planes
-    from imagekit_tpu_torch.ops.resize_strip import resize_tables
-    from imagekit_tpu_torch.ops.weights import (
-        component_stacks,
-        upsample_method,
-    )
+def decode_steps(data: bytes, reps: int = 10) -> dict:
+    """Median ms of each step of one pixel-decoded request's
+    ``device_decode`` stage (``codecs/jpeg.py::decode_to_coefficients``
+    then ``components_to_rgb``), one thread: the host entropy decode, the
+    host plan of K6's maps, the upload of the levels and maps, K6's two
+    launches, the colour tail (Pillow's CMYK step for a CMYK source), the
+    readback; the device steps timed with CUDA events on the stream, each
+    step ended by a synchronise. Then the whole stage as the engine calls
+    it, on the host's clock."""
+    from imagekit_tpu_torch.codecs import jpeg
+    from imagekit_tpu_torch.ops import color, dct, jpeg_pixels
 
     dev = torch.device("cuda")
     steps = {}
 
-    def step(name, fn):
+    def host(name, fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
-        torch.cuda.synchronize()
         steps.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
         return out
 
+    def device(name, fn):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        steps.setdefault(name, []).append(start.elapsed_time(end))
+        return out
+
     for _ in range(reps):
-        hdr, coeffs, qtabs = step("entropy decode (host)",
-                                  lambda: jpeg_abi.decode4(loader.load(), data))
-        grids = [c.shape[:2] for c in coeffs]
-        full = max(g[0] for g in grids), max(g[1] for g in grids)
-        keys = list(dict.fromkeys(
-            (g, (hdr.comp_height[c], hdr.comp_width[c]),
-             upsample_method((hdr.hmax // hdr.comp_h[c],
-                              hdr.vmax // hdr.comp_v[c]), hdr.comp_width[c]))
-            for c, g in enumerate(grids)))
-        host = step("stacks, host (LRU)", lambda: [
-            tuple(a[None] for a in component_stacks(full, *k)) for k in keys])
-        dev_stacks = step("stacks, upload", lambda: [
-            tuple(torch.as_tensor(a, device=dev) for a in st) for st in host])
-        step("band tables", lambda: [resize_tables(*st) for st in dev_stacks])
-        planes, stacks, tabs, vidx = step(
-            "all of the above + levels' upload + IDCT (sampled_inputs)",
-            lambda: dct.sampled_inputs((hdr, coeffs, qtabs), dev))
-        out = step("K3, two launches", lambda: (
-            resize_planes.resize_planes_u8(planes[:3], stacks[:3], vidx,
-                                           bands=tabs[:3])
-            + resize_planes.resize_planes_u8(planes[3:], stacks[3:], vidx,
-                                             bands=tabs[3:])))
-        step("colour + readback", lambda: color.to_host(color.cmyk_to_rgb(
-            *(p[0, :hdr.height, :hdr.width] for p in out)), dev))
-        step("whole device part (decode_four_components)",
-             lambda: dct.decode_four_components((hdr, coeffs, qtabs), dev))
+        decoded = host("entropy decode (host)",
+                       lambda: jpeg.decode_to_coefficients(data))
+        hdr = decoded[0]
+        plan = host("K6 maps (host)", lambda: jpeg_pixels.frame_plan(
+            *decoded, dct.frame_colour(hdr)))
+        x = device("upload", lambda: jpeg_pixels.upload(plan, dev))
+        px = device("K6, two launches", lambda: jpeg_pixels.decode_pixels(x))
+        if hdr.ncomp == 4:
+            px = device("CMYK step", lambda: color.cmyk_to_rgb(
+                *px.unbind(-1)))
+        device("readback", lambda: color.to_host(px, dev))
+        host("whole device_decode stage (components_to_rgb, host clock)",
+             lambda: jpeg.components_to_rgb(decoded, device=dev))
     return {k: statistics.median(v) for k, v in steps.items()}
 
 
@@ -147,8 +146,8 @@ def main(argv=None) -> int:
             lambda: jpeg.encode_rgb(large, 80, device="cuda"),
         "1920x1080 pixel decode, device part (decode_components_to_rgb)":
             lambda: dct.decode_components_to_rgb(decoded, device="cuda"),
-        "1920x1080 CMYK pixel decode, device part (decode_four_components)":
-            lambda: dct.decode_four_components(cmyk_decoded, device="cuda"),
+        "1920x1080 CMYK pixel decode, device part (decode_components_to_rgb)":
+            lambda: dct.decode_components_to_rgb(cmyk_decoded, device="cuda"),
     }
     print(f"card: {card()}", flush=True)
     rows = []
@@ -157,12 +156,12 @@ def main(argv=None) -> int:
             row = {"case": name, "calls": 32, **run(fn, 32, threads)}
             rows.append(row)
             print(json.dumps(row), flush=True)
-    steps = cmyk_steps(cmyk)
-    print(json.dumps({"cmyk_steps_ms": steps}), flush=True)
+    steps = {"420": decode_steps(source), "cmyk": decode_steps(cmyk)}
+    print(json.dumps({"decode_steps_ms": steps}), flush=True)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({"card": card(), "rows": rows,
-                               "cmyk_steps_ms": steps}, indent=1))
+                               "decode_steps_ms": steps}, indent=1))
     return 0
 
 

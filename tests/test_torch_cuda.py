@@ -48,6 +48,19 @@ def assert_band(a, b):
     assert float((d > 0).float().mean()) <= MAX_SHARE
 
 
+def _launches():
+    """The (K3, K6) launch counters."""
+    from imagekit_tpu_torch.ops import jpeg_pixels, resize_planes
+
+    return resize_planes.LAUNCHES, jpeg_pixels.LAUNCHES
+
+
+def _moved(before):
+    """(K3, K6) launches since ``before``."""
+    now = _launches()
+    return now[0] - before[0], now[1] - before[1]
+
+
 def _inputs(k, B=3, U=4, by=16, bx=32, cy=8, cx=16, obh=64, obw=128, seed=0):
     """Seeded batch in the split-int8 layout, escapes live (the shapes of
     tests/test_pallas_jpeg8.py::_mk, with weights that keep the output
@@ -669,11 +682,10 @@ def native_jpeg(img: np.ndarray, quality: int, samp=(2, 2)) -> bytes:
                          ids=["444", "422", "440", "gray"])
 def test_pixel_decode_layouts_on_card_match_cpu(samp):
     """The JPEG pixel decode of a 4:4:4, 4:2:2, 4:4:0 and grayscale JPEG on
-    the card (one K3 launch) against the CPU (K3's plain version): RGB
-    within the pixel decode's band, +-2 on at most 0.1% of values."""
+    the card (K6: two launches, no K3) against the CPU (K6's plain
+    version): the same bytes."""
     from imagekit_tpu_torch.codecs import jpeg
     from imagekit_tpu_torch.codecs.native import loader
-    from imagekit_tpu_torch.ops import resize_planes
     from imagekit_tpu_torch.ops.weights import host_encode_rgb_to_coefficients
 
     imgs, *_ = _k2_inputs(B=1, bh=544, bw=960)
@@ -683,13 +695,12 @@ def test_pixel_decode_layouts_on_card_match_cpu(samp):
         data = loader.encode_jpeg(planes[:1], qt, 957, 539, (1, 1))
     else:
         data = native_jpeg(img, 90, samp)
-    before = resize_planes.LAUNCHES
+    before = _launches()
     got = jpeg.decode_rgb(data, device="cuda")
-    assert resize_planes.LAUNCHES == before + 1
+    assert _moved(before) == (0, 2)
     want = jpeg.decode_rgb(data, device="cpu")
     assert got.shape == want.shape == (539, 957, 3)
-    d = np.abs(got.astype(int) - want.astype(int))
-    assert d.max() <= 2 and (d > 0).mean() <= MAX_SHARE
+    assert np.array_equal(got, want)
 
 
 @needs_card
@@ -1050,13 +1061,13 @@ def test_k2_rgba_refuses_what_it_does_not_take():
                                   "png_no_resize_jpeg"])
 def test_alpha_and_single_image_paths_on_card_match_cpu(monkeypatch, case):
     """An RGBA PNG -> w=200 (the plain RGB head: one launch of K2's
-    four-channel entry), and requests with no resize (from a JPEG: one K3
-    launch, the pixel decode), through the engine on the card and on the
-    CPU: what the host encoder gets agrees within the band."""
+    four-channel entry), and requests with no resize (from a JPEG: K6's two
+    launches, the pixel decode, equal to the CPU's), through the engine on
+    the card and on the CPU: what the host encoder gets agrees within the
+    band."""
     from imagekit_tpu_torch.codecs import vp8
     from imagekit_tpu_torch.codecs.native import loader
     from imagekit_tpu_torch.config import ImageFormat, ImageKitConfig
-    from imagekit_tpu_torch.ops import resize_planes
     from imagekit_tpu_torch.serving.batcher import BatchedEngine
     from imagekit_tpu_torch.serving.metrics import Metrics
 
@@ -1092,18 +1103,17 @@ def test_alpha_and_single_image_paths_on_card_match_cpu(monkeypatch, case):
             finally:
                 await engine.close()
 
-        before = (resize_strip.LAUNCHES_RGBA, resize_planes.LAUNCHES)
+        before = (resize_strip.LAUNCHES_RGBA, _launches())
         asyncio.run(run())
-        after = (resize_strip.LAUNCHES_RGBA, resize_planes.LAUNCHES)
         on_card = device == "cuda"
-        assert after[0] - before[0] == int(on_card and case.startswith("rgba"))
-        assert after[1] - before[1] == int(on_card and case == "jpeg_no_resize")
+        assert resize_strip.LAUNCHES_RGBA - before[0] == int(
+            on_card and case.startswith("rgba"))
+        assert _moved(before[1]) == (
+            0, 2 * int(on_card and case == "jpeg_no_resize"))
     assert len(seen) == 2
     for a, b in zip(*seen):
         d = (torch.from_numpy(a).int() - torch.from_numpy(b).int()).abs()
-        # the pixel decode's band: a chroma step times 1.772 (+-2 in RGB)
-        # reaches the encoder's planes as at most +-1 after the colour mix
-        assert int(d.max()) <= (2 if case == "jpeg_no_resize" else 1)
+        assert int(d.max()) <= 1
         assert float((d > 0).float().mean()) <= MAX_SHARE
 
 
@@ -1137,25 +1147,23 @@ def test_k3_planes_with_their_own_stacks_match_plain(n):
 @pytest.mark.parametrize("ycck", [False, True], ids=["cmyk", "ycck"])
 def test_four_component_pixel_decode_on_card_matches_cpu(ycck):
     """The committed 1080p CMYK JPEG (and the same bytes read as YCCK) on
-    the card: two K3 launches, and RGB within +-2 on at most 0.1% of the
-    CPU's plain decode."""
+    the card: K6's two launches, no K3, and the CPU's plain decode's
+    bytes."""
     from pathlib import Path
 
     from imagekit_tpu_torch.codecs import jpeg
-    from imagekit_tpu_torch.ops import resize_planes
 
     data = (Path(__file__).parent / "fixtures" / "cmyk_1080p_q80.jpg"
             ).read_bytes()
     if ycck:
         at = data.index(b"Adobe") + 11
         data = data[:at] + b"\x02" + data[at + 1:]
-    before = resize_planes.LAUNCHES
+    before = _launches()
     got = jpeg.decode_rgb(data, device="cuda")
-    assert resize_planes.LAUNCHES == before + 2
+    assert _moved(before) == (0, 2)
     want = jpeg.decode_rgb(data, device="cpu")
     assert got.shape == want.shape == (1080, 1920, 3)
-    d = np.abs(got.astype(int) - want.astype(int))
-    assert d.max() <= 2 and (d > 0).mean() <= MAX_SHARE
+    assert np.array_equal(got, want)
 
 
 @needs_card
@@ -1211,25 +1219,23 @@ def test_pillow_sources_on_card_match_cpu(monkeypatch, case):
 @pytest.mark.parametrize("ycck", [False, True], ids=["cmyk", "ycck"])
 def test_progressive_four_component_decode_on_card_matches_cpu(ycck):
     """The committed progressive 1080p CMYK JPEG (and the same bytes read as
-    YCCK) on the card: two K3 launches, and RGB within +-2 on at most 0.1%
-    of the CPU's plain decode."""
+    YCCK) on the card: K6's two launches, no K3, and the CPU's plain
+    decode's bytes."""
     from pathlib import Path
 
     from imagekit_tpu_torch.codecs import jpeg
-    from imagekit_tpu_torch.ops import resize_planes
 
     data = (Path(__file__).parent / "fixtures"
             / "cmyk_1080p_q80_progressive.jpg").read_bytes()
     if ycck:
         at = data.index(b"Adobe") + 11
         data = data[:at] + b"\x02" + data[at + 1:]
-    before = resize_planes.LAUNCHES
+    before = _launches()
     got = jpeg.decode_rgb(data, device="cuda")
-    assert resize_planes.LAUNCHES == before + 2
+    assert _moved(before) == (0, 2)
     want = jpeg.decode_rgb(data, device="cpu")
     assert got.shape == want.shape == (1080, 1920, 3)
-    d = np.abs(got.astype(int) - want.astype(int))
-    assert d.max() <= 2 and (d > 0).mean() <= MAX_SHARE
+    assert np.array_equal(got, want)
 
 
 @needs_card
@@ -1240,14 +1246,13 @@ def test_pillow_fallbacks_on_card_match_cpu(monkeypatch, case):
     """Phase 20's sources (``chip_smoke.py``'s writers and the committed
     fixtures) in one batch of two requests -> w=200 WebP through the engine
     on the card and on the CPU: one K2 launch for the batch (four channels
-    for the BGRA BMP), two K3 launches a progressive CMYK request, and the
-    planes handed to the VP8 encoder within the band."""
+    for the BGRA BMP), K6's two launches a progressive CMYK request (no
+    K3), and the planes handed to the VP8 encoder within the band."""
     from pathlib import Path
 
     import chip_smoke
     from imagekit_tpu_torch.codecs import vp8
     from imagekit_tpu_torch.config import BatchConfig, ImageFormat, ImageKitConfig
-    from imagekit_tpu_torch.ops import resize_planes
     from imagekit_tpu_torch.serving.batcher import BatchedEngine
     from imagekit_tpu_torch.serving.metrics import Metrics
 
@@ -1286,13 +1291,13 @@ def test_pillow_fallbacks_on_card_match_cpu(monkeypatch, case):
                 await engine.close()
 
         k2 = resize_strip.LAUNCHES + resize_strip.LAUNCHES_RGBA
-        k3 = resize_planes.LAUNCHES
+        before = _launches()
         asyncio.run(run())
         on_card = int(device == "cuda")
         assert engine.metrics.batches == 1
         assert resize_strip.LAUNCHES + resize_strip.LAUNCHES_RGBA - k2 == on_card
-        assert resize_planes.LAUNCHES - k3 == on_card * (
-            4 if case == "progressive_cmyk" else 0)
+        assert _moved(before) == (0, on_card * (
+            4 if case == "progressive_cmyk" else 0))
     assert len(seen) == 4
     for a, b in zip(seen[:2], seen[2:]):  # the same source, card vs CPU
         for p, q in zip(a, b):
@@ -1307,14 +1312,12 @@ def test_pillow_fallbacks_on_card_match_cpu(monkeypatch, case):
 def test_tiff_jpeg_pages_on_card_match_cpu(case):
     """JPEG-compressed TIFFs (the committed Pillow-written 1080p RGB and
     CMYK files; YCbCr and gray files from ``chip_smoke.make_jpeg_tiff``) on
-    the card: one K3 launch a page, two for CMYK, whatever the number of
-    strips or tiles, and pixels within +-2 on at most 0.1% of the CPU's
-    plain decode."""
+    the card: K6's two launches a page, whatever the number of strips or
+    tiles, no K3, and the CPU's plain decode's bytes."""
     from pathlib import Path
 
     import chip_smoke
     from imagekit_tpu_torch import codecs
-    from imagekit_tpu_torch.ops import resize_planes
 
     fixtures = Path(__file__).parent / "fixtures"
     img = chip_smoke.synth_image(11, 640, 360, noise=False)
@@ -1329,14 +1332,11 @@ def test_tiff_jpeg_pages_on_card_match_cpu(case):
         "strips_12": lambda: chip_smoke.make_jpeg_tiff(img, 80, samp=(1, 2)),
         "gray": lambda: chip_smoke.make_jpeg_tiff(img, 80, gray=True),
     }[case]()
-    before = resize_planes.LAUNCHES
+    before = _launches()
     got = codecs.decode_bytes(data, device="cuda")[0]
-    assert resize_planes.LAUNCHES - before == (2 if case == "cmyk_fixture"
-                                               else 1)
+    assert _moved(before) == (0, 2)
     want = codecs.decode_bytes(data, device="cpu")[0]
-    assert got.shape == want.shape
-    d = np.abs(got.astype(int) - want.astype(int))
-    assert d.max() <= 2 and (d > 0).mean() <= MAX_SHARE
+    assert got.shape == want.shape and np.array_equal(got, want)
 
 
 @needs_card
@@ -1344,16 +1344,14 @@ def test_tiff_jpeg_pages_on_card_match_cpu(case):
                                   "cmyk16", "float32"])
 def test_tiff_remainder_pages_on_card_match_cpu(case):
     """The TIFF layouts the reference decoded with Pillow, written by
-    ``chip_smoke``'s writers, on the card: one K3 launch an old-style or
-    planar page (identity and replication stacks for the old-style one),
-    two for an RGB page with an extra sample, none for the sample layouts;
-    pixels within +-2 on at most 0.1% of the CPU's plain decode (exact for
-    the sample layouts)."""
+    ``chip_smoke``'s writers, on the card: K6's two launches an old-style,
+    planar or RGB-with-an-extra-sample page (replication for the old-style
+    chroma), none for the sample layouts, K3 never; the CPU's plain
+    decode's bytes."""
     from pathlib import Path
 
     import chip_smoke
     from imagekit_tpu_torch import codecs
-    from imagekit_tpu_torch.ops import resize_planes
 
     fixtures = Path(__file__).parent / "fixtures"
     img = chip_smoke.synth_image(12, 640, 360, noise=False)
@@ -1366,17 +1364,11 @@ def test_tiff_remainder_pages_on_card_match_cpu(case):
         "float32": lambda: chip_smoke.make_float_tiff(
             chip_smoke.elevation(3, 640, 360)),
     }[case]()
-    before = resize_planes.LAUNCHES
+    before = _launches()
     got = codecs.decode_bytes(data, device="cuda")[0]
-    assert resize_planes.LAUNCHES - before == {"rgb_extra": 2, "cmyk16": 0,
-                                               "float32": 0}.get(case, 1)
+    assert _moved(before) == (0, 0 if case in ("cmyk16", "float32") else 2)
     want = codecs.decode_bytes(data, device="cpu")[0]
-    assert got.shape == want.shape
-    d = np.abs(got.astype(int) - want.astype(int))
-    if case in ("cmyk16", "float32"):
-        assert d.max() == 0
-    else:
-        assert d.max() <= 2 and (d > 0).mean() <= MAX_SHARE
+    assert got.shape == want.shape and np.array_equal(got, want)
 
 
 @needs_card
@@ -1386,12 +1378,11 @@ def test_tiff_remainder_pages_on_card_match_cpu(case):
 def test_arith_lossless_on_card_match_cpu(case):
     """Arithmetic-coded and lossless JPEGs written by the numpy writers of
     ``tests/fixtures/`` (``chip_smoke.jpeg_writer`` loads them by path), on
-    the card: one K3 launch a DCT frame (two for CMYK) and a lossless frame
-    of subsampled components, none for lossless gray; pixels within +-2 on
-    at most 0.1% of the CPU's plain decode (exact for lossless)."""
+    the card: K6's two launches a DCT frame (no K3), one K3 launch a
+    lossless frame of subsampled components, none for lossless gray; the
+    CPU's plain decode's bytes."""
     import chip_smoke
     from imagekit_tpu_torch import codecs
-    from imagekit_tpu_torch.ops import resize_planes
 
     jw, aw, lw = (chip_smoke.jpeg_writer(n) for n in (
         "jpeg_writer", "jpeg_arith_writer", "jpeg_lossless_writer"))
@@ -1411,17 +1402,13 @@ def test_arith_lossless_on_card_match_cpu(case):
         samp = ((1, 1),) if case == "lossless_gray" else s420
         data = lw.write(lw.subsample(img[:, :, :len(samp)], samp), 640, 360,
                         samp, predictor=5)
-    before = resize_planes.LAUNCHES
+    before = _launches()
     got = codecs.decode_bytes(data, device="cuda")[0]
-    assert resize_planes.LAUNCHES - before == {
-        "arith_cmyk": 2, "lossless_gray": 0}.get(case, 1)
+    assert _moved(before) == {"lossless_gray": (0, 0),
+                              "lossless_rgb_420": (1, 0)}.get(case, (0, 2))
     want = codecs.decode_bytes(data, device="cpu")[0]
     assert got.shape == want.shape == (360, 640, 3)
-    d = np.abs(got.astype(int) - want.astype(int))
-    if case.startswith("lossless"):
-        assert d.max() == 0
-    else:
-        assert d.max() <= 2 and (d > 0).mean() <= MAX_SHARE
+    assert np.array_equal(got, want)
 
 
 @needs_card
@@ -1431,13 +1418,12 @@ def test_arith_lossless_on_card_match_cpu(case):
 def test_cmyk_and_tiff_remainder_on_card_match_cpu(case):
     """CMYK JPEGs at ratios of 4 and 3, lossless CMYK and the JPEG TIFF
     pages of the last slice (``chip_smoke.make_remainder_sources``' kinds,
-    640x360), on the card: two K3 launches a CMYK request and a lossless
-    CMYK one sampled differently, none sampled alike, one an arithmetic
-    TIFF page, one a strip of the planar page; pixels within +-2 on at most
-    0.1% of the CPU's plain decode (exact for lossless)."""
+    640x360), on the card: K6's two launches a CMYK request and an
+    arithmetic TIFF page, two a strip of the planar page; two K3 launches a
+    lossless CMYK one sampled differently, none sampled alike; the CPU's
+    plain decode's bytes."""
     import chip_smoke
     from imagekit_tpu_torch import codecs
-    from imagekit_tpu_torch.ops import resize_planes
 
     jw, aw, lw = (chip_smoke.jpeg_writer(n) for n in (
         "jpeg_writer", "jpeg_arith_writer", "jpeg_lossless_writer"))
@@ -1450,10 +1436,10 @@ def test_cmyk_and_tiff_remainder_on_card_match_cpu(case):
         planes, tabs, tq = jw.coefficients(four, 80, samp, colour="raw")
         data = jw.write(planes, tabs, 640, 360, samp, tq,
                         adobe_transform=2 if case == "ycck_411" else 0)
-        launches = 2
+        launches = (0, 2)
     elif case.startswith("lossless"):
         data = lw.write(lw.subsample(four, samp), 640, 360, samp)
-        launches = 0 if case == "lossless_cmyk" else 2
+        launches = (0 if case == "lossless_cmyk" else 2, 0)
     elif case == "arith_tiff":
         segs = []
         for y in range(0, 360, 16):
@@ -1464,7 +1450,7 @@ def test_cmyk_and_tiff_remainder_on_card_match_cpu(case):
         data = chip_smoke.tiff_file(640, 360, {
             258: (3, [8] * 3), 259: (3, [7]), 262: (3, [6]), 277: (3, [3]),
             278: (4, [16]), 284: (3, [1]), 530: (3, [2, 2])}, segs)
-        launches = 1
+        launches = (0, 2)
     else:
         segs = []
         for c in range(3):
@@ -1475,17 +1461,13 @@ def test_cmyk_and_tiff_remainder_on_card_match_cpu(case):
         data = chip_smoke.tiff_file(640, 360, {
             258: (3, [8] * 3), 259: (3, [7]), 262: (3, [2]), 277: (3, [3]),
             278: (4, [36]), 284: (3, [2])}, segs)
-        launches = 10
-    before = resize_planes.LAUNCHES
+        launches = (0, 20)
+    before = _launches()
     got = codecs.decode_bytes(data, device="cuda")[0]
-    assert resize_planes.LAUNCHES - before == launches
+    assert _moved(before) == launches
     want = codecs.decode_bytes(data, device="cpu")[0]
     assert got.shape == want.shape == (360, 640, 3)
-    d = np.abs(got.astype(int) - want.astype(int))
-    if case.startswith("lossless"):
-        assert d.max() == 0
-    else:
-        assert d.max() <= 2 and (d > 0).mean() <= MAX_SHARE
+    assert np.array_equal(got, want)
 
 
 @needs_card
@@ -1496,37 +1478,33 @@ def test_lab_ycbcr_sources_on_card_match_cpu(case):
     """CIELab, YCbCr without JPEG, planar 16-bit CMYK, the Orientation and
     the gray 4 bpp BMP (``chip_smoke.make_lab_ycbcr_sources``' kinds,
     640x360) on the card: one K3 launch a subsampled YCbCr page (none where
-    its strips restart the blocks: the chroma comes at full resolution)
-    and a JPEG TIFF page; pixels equal to the CPU's plain decode (the JPEG
-    page within +-2 on at most 0.1%)."""
+    its strips restart the blocks: the chroma comes at full resolution),
+    K6's two a JPEG TIFF page; pixels equal to the CPU's plain decode."""
     import chip_smoke
     from imagekit_tpu_torch import codecs
-    from imagekit_tpu_torch.ops import resize_planes
 
     img = chip_smoke.synth_image(18, 640, 360, noise=False)
     data, launches = {
-        "cielab": lambda: (chip_smoke.make_lab_tiff(img), 0),
-        "ycbcr_420": lambda: (chip_smoke.make_ycbcr_tiff(img), 1),
-        "ycbcr_42_rows_5": lambda: (_ycbcr_rows_not_blocks(img), 0),
-        "cmyk16_planar": lambda: (chip_smoke.make_cmyk16_planar_tiff(img), 0),
+        "cielab": lambda: (chip_smoke.make_lab_tiff(img), (0, 0)),
+        "ycbcr_420": lambda: (chip_smoke.make_ycbcr_tiff(img), (1, 0)),
+        "ycbcr_42_rows_5": lambda: (_ycbcr_rows_not_blocks(img), (0, 0)),
+        "cmyk16_planar": lambda: (chip_smoke.make_cmyk16_planar_tiff(img),
+                                  (0, 0)),
         "orientation_6_jpeg": lambda: (chip_smoke.tiff_with_tag(
-            chip_smoke.make_jpeg_tiff(img, 90), 274, 6), 1),
+            chip_smoke.make_jpeg_tiff(img, 90), 274, 6), (0, 2)),
         "orientation_7_cmyk16": lambda: (chip_smoke.tiff_with_tag(
-            chip_smoke.make_cmyk16_planar_tiff(img), 274, 7), 0),
+            chip_smoke.make_cmyk16_planar_tiff(img), 274, 7), (0, 0)),
         "gray4_bmp": lambda: (chip_smoke.make_gray4_bmp(np.arange(
-            12, dtype=np.uint8).reshape(3, 4)), 0),
+            12, dtype=np.uint8).reshape(3, 4)), (0, 0)),
     }[case]()
-    before = resize_planes.LAUNCHES
+    before = _launches()
     got = codecs.decode_bytes(data, device="cuda")[0]
-    assert resize_planes.LAUNCHES - before == launches
+    assert _moved(before) == launches
     want = codecs.decode_bytes(data, device="cpu")[0]
     assert got.shape == want.shape
-    d = np.abs(got.astype(int) - want.astype(int))
     if case == "orientation_6_jpeg":
         assert got.shape == (640, 360, 3)
-        assert d.max() <= 2 and (d > 0).mean() <= MAX_SHARE
-    else:
-        assert d.max() == 0
+    assert np.array_equal(got, want)
 
 
 def _ycbcr_rows_not_blocks(img):
@@ -1853,3 +1831,117 @@ def test_split_rgb_head_on_card_equals_int16_head():
     cpu = dct.decode_resize_rgb_i8_batch(*args, device="cpu")
     d = np.abs(got.astype(np.int32) - cpu.astype(np.int32))
     assert d.max() <= 2 and (d > 0).mean() <= MAX_SHARE
+
+
+# -- K6: the JPEG pixel decode equal to Pillow's libjpeg-turbo -------------------
+
+
+def _k6_inputs(case):
+    """K6's inputs at a 1080p pixel-decode geometry, on the card."""
+    from pathlib import Path
+
+    import chip_smoke
+    from imagekit_tpu_torch.codecs import jpeg, tiff
+    from imagekit_tpu_torch.ops import dct, jpeg_pixels
+
+    fixtures = Path(__file__).parent / "fixtures"
+    img = chip_smoke.synth_image(21, 1920, 1080, noise=True)
+    if case == "tiff_page":
+        page = tiff.entropy_decode((fixtures / "tiff_jpeg_rgb_1080p_q80.tif")
+                                   .read_bytes())
+        return jpeg_pixels.upload(dct.page_plan(page), torch.device("cuda"))
+    data = {"444": lambda: native_jpeg(img, 90, (1, 1)),
+            "422": lambda: native_jpeg(img, 90, (2, 1)),
+            "420": lambda: native_jpeg(img, 90, (2, 2)),
+            "cmyk": lambda: (fixtures / "cmyk_1080p_q80.jpg").read_bytes(),
+            }[case]()
+    hdr, coeffs, qtabs = jpeg.decode_to_coefficients(data)
+    return jpeg_pixels.upload(jpeg_pixels.frame_plan(
+        hdr, coeffs, qtabs, dct.frame_colour(hdr)), torch.device("cuda"))
+
+
+@needs_card
+@pytest.mark.parametrize("case", ["444", "422", "420", "cmyk", "tiff_page"])
+def test_k6_matches_plain_at_the_1080p_geometries(case):
+    """K6's two launches against its plain version on the same tensors on
+    the card: 0 values differ."""
+    from imagekit_tpu_torch.ops import jpeg_pixels
+
+    x = _k6_inputs(case)
+    before = jpeg_pixels.LAUNCHES
+    got = jpeg_pixels.decode_pixels(x)
+    torch.cuda.synchronize()
+    assert jpeg_pixels.LAUNCHES == before + 2
+    want = jpeg_pixels.decode_pixels_plain(x)
+    assert got.shape == want.shape == (1080, 1920, len(x.coeffs))
+    assert torch.equal(got, want)
+
+
+@needs_card
+def test_k6_takes_hostile_levels():
+    """Levels past what 8-bit samples give (16-bit wraps and saturation in
+    both passes) on the card: the plain version's bytes."""
+    from imagekit_tpu_torch.ops import jpeg_pixels
+
+    rng = np.random.default_rng(3)
+    lv = np.zeros((34, 60, 64), np.int16)
+    mask = rng.random(lv.shape) < 0.5
+    lv[mask] = rng.integers(-1023, 1024, mask.sum())
+    lv[:4, :, 1:] = 0  # pass 1's all-AC-zero shortcut
+    lv[:4, :, 0] = rng.integers(-2047, 2048, (4, 60))
+    plan = jpeg_pixels.Plan(
+        [lv], rng.integers(1, 65536, (1, 64)),
+        [jpeg_pixels.axis_map(272, 1, False, [(0, 0, 272)])],
+        [jpeg_pixels.axis_map(480, 1, False, [(0, 0, 480)])], (0,),
+        jpeg_pixels.NONE, 272, 480)
+    x = jpeg_pixels.upload(plan, torch.device("cuda"))
+    assert torch.equal(jpeg_pixels.decode_pixels(x),
+                       jpeg_pixels.decode_pixels_plain(x))
+
+
+@needs_card
+def test_k6_refuses_what_it_does_not_take():
+    import dataclasses
+
+    from imagekit_tpu_torch.ops import jpeg_pixels
+
+    x = _k6_inputs("420")
+    bad = [dataclasses.replace(x, coeffs=[c.float() for c in x.coeffs]),
+           dataclasses.replace(x, colour=jpeg_pixels.YCCK),
+           dataclasses.replace(x, rows=[r[:, :-1] for r in x.rows]),
+           dataclasses.replace(x, qt=x.qt.cpu())]
+    before = jpeg_pixels.LAUNCHES
+    for b in bad:
+        with pytest.raises((TypeError, ValueError)):
+            jpeg_pixels.decode_pixels(b)
+    assert jpeg_pixels.LAUNCHES == before
+
+
+@needs_card
+def test_k6_launches_twice_a_pixel_decoded_request(monkeypatch):
+    """A 4:2:2 JPEG with no resize and a CMYK JPEG at w=200 through the
+    engine on the card: K6 twice a request, K3 never."""
+    from pathlib import Path
+
+    import chip_smoke
+    from imagekit_tpu_torch.config import ImageFormat, ImageKitConfig
+    from imagekit_tpu_torch.serving.batcher import BatchedEngine
+    from imagekit_tpu_torch.serving.metrics import Metrics
+
+    img = chip_smoke.synth_image(22, 640, 360, noise=False)
+    cmyk = (Path(__file__).parent / "fixtures" / "cmyk_1080p_q80.jpg"
+            ).read_bytes()
+    for data, w in ((native_jpeg(img, 90, (2, 1)), None), (cmyk, 200)):
+        engine = BatchedEngine(ImageKitConfig(secret="s"), metrics=Metrics(),
+                               device="cuda")
+
+        async def run():
+            try:
+                return await engine.transform(data, w, None,
+                                              ImageFormat.webp, 80)
+            finally:
+                await engine.close()
+
+        before = _launches()
+        asyncio.run(run())
+        assert _moved(before) == (0, 2)

@@ -75,7 +75,7 @@ from tests.test_torch_pillow_fallbacks import (
 )
 from tests.test_torch_pillow_sources import (
     _decoded,
-    _jax_planes,
+    _pillow_cmyk,
     _save,
     _serve,
     psnr,
@@ -136,10 +136,12 @@ def _assert_parity(ref, port, statuses=None):
             assert pbody == rbody
 
 
-def _band(got, want, db=40.0, most=12):
+def _band(got, want):
+    """The JPEG pixel decode against Pillow's: byte for byte (K6 is
+    libjpeg-turbo's integer decode; the band it replaced was >= 40 dB and
+    max |d| <= 12)."""
     assert got.shape == want.shape
-    assert psnr(got, want) >= db
-    assert np.abs(got.astype(int) - want).max() <= most
+    assert np.array_equal(got, want)
 
 
 # -- 1. arithmetic scans past Pillow's read block -------------------------------------
@@ -631,30 +633,28 @@ def _count_k3(monkeypatch):
 
 @pytest.mark.parametrize("case", CMYK_CASES, ids=_cmyk_id)
 def test_cmyk_samplings_decode_as_pillow(case, monkeypatch):
-    """Each component's stacks by libjpeg's upsampling (replication at
-    ratios of 3 and 4, and for chroma of at most two samples at a ratio of
-    2), two K3 launches (C, M and Y, then K), then the CMYK or YCCK colour
-    step: within the JPEG pixel decode's band of Pillow's pixels."""
+    """Each component by libjpeg's upsampling (replication at ratios of 3
+    and 4, and for chroma of at most two samples at a ratio of 2) and the
+    CMYK or YCCK colour step in one K6 decode of the four components, K3
+    not at all: Pillow's pixels exactly."""
+    from tests.test_torch_jpeg_pixels import count_k6
+
     name, adobe, size = case
     data = _cmyk_file(CMYK_SAMPLINGS[name], size, adobe)
-    calls = _count_k3(monkeypatch)
+    calls, k6 = _count_k3(monkeypatch), count_k6(monkeypatch)
     got = codecs.decode_bytes(data, device="cpu")[0]
-    assert len(calls) == 2
+    assert calls == [] and k6 == [4]
     _band(got, ref_codecs.decode_bytes(data)[0])
 
 
 @pytest.mark.parametrize("name", sorted(CMYK_SAMPLINGS))
 def test_cmyk_planes_match_jax_under_k3(name):
-    """The four planes against the JAX package's IDCT and K3-semantic
-    resize with the same libjpeg stacks: +-2 on at most 0.1%."""
-    decoded = jpeg.decode_to_coefficients(
-        _cmyk_file(CMYK_SAMPLINGS[name], (77, 53)))
-    want = _jax_planes(decoded)
-    got = dct.four_component_planes(decoded, "cpu")
-    for g, w in zip(got, want):
-        d = np.abs(g.numpy().astype(int) - w.astype(int))
-        assert g.shape == w.shape and d.max() <= 2
-        assert (d > 0).mean() <= MAX_SHARE
+    """The four planes K6 hands the CMYK step against libjpeg's, which
+    Pillow reads inverted (``CMYK;I``): exactly (the name is kept from when
+    the target was the JAX package's IDCT and a K3-semantic resize)."""
+    data = _cmyk_file(CMYK_SAMPLINGS[name], (77, 53))
+    got = dct.frame_pixels(jpeg.decode_to_coefficients(data), "cpu")
+    assert np.array_equal(got.numpy(), _pillow_cmyk(data))
 
 
 def test_cmyk_over_ten_blocks_is_refused_as_pillow_refuses_it():

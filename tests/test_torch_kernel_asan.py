@@ -1,4 +1,4 @@
-"""K2 and K3 under AddressSanitizer, on the CPU.
+"""K2, K3 and K6 under AddressSanitizer, on the CPU.
 
 ``compute-sanitizer`` does not run on the card's machine: its memcheck and
 racecheck stop at "Device not supported" before the first kernel (PERF.md).
@@ -7,10 +7,12 @@ In their place, the kernels' sources are built under the shim of
 ``-fsanitize=address,undefined`` and launched, in a subprocess with the ASan
 runtime preloaded, on the cases the BMP, TIFF and CMYK paths give them at
 small sizes: K2 with three and four channels a pixel, in whole rows and in
-column strips (the RGB and RGBA heads), and K3's two launches of the
-four-component pixel decode (C, M and Y with their own stacks, then K) on
-the inputs ``dct.sampled_inputs`` makes from a progressive CMYK JPEG and
-from a CMYK JPEG at ratios of 4 and 2 (replication stacks). Every output is held against the plain version. This checks the
+column strips (the RGB and RGBA heads), K3's two launches on three and
+one planes with their own stacks (libjpeg's upsampling of a progressive
+CMYK JPEG and of a CMYK JPEG at ratios of 4 and 2, replication stacks),
+and K6's two entries on those two files and on three YCbCr JPEGs (4:4:4,
+4:2:2, 4:2:0, 37x23). Every output is held against the plain version
+(K6's exactly). This checks the
 indexing of the global and shared memory the body touches; races it cannot
 see.
 
@@ -67,7 +69,8 @@ _SCRIPT = textwrap.dedent("""
     from PIL import Image
 
     from imagekit_tpu_torch.codecs.native import jpeg_abi, loader
-    from imagekit_tpu_torch.ops import _build, dct
+    from imagekit_tpu_torch.ops import _build, weights
+    from imagekit_tpu_torch.ops import jpeg_pixels as jp
     from imagekit_tpu_torch.ops import resize_planes as rp
     from imagekit_tpu_torch.ops import resize_strip as rs
     from imagekit_tpu_torch.ops.resize_strip import plane_record
@@ -77,6 +80,7 @@ _SCRIPT = textwrap.dedent("""
 
     lib = ctypes.CDLL(sys.argv[1])
     _build.configure_band(lib)
+    _build.configure_pixels(lib)
     worst = {}
 
     def note(name, got, want):
@@ -97,9 +101,44 @@ _SCRIPT = textwrap.dedent("""
                 got = _strip_launch(lib, x, wv, wh, v, h, C, strip=strip)
                 note(f"K2 {case} C={C} strip={strip}", got, want)
 
+    def sampled_inputs(decoded):
+        # each component's islow plane and its stacks by libjpeg's choice
+        # to the largest grid, as K3 took them in the four-component decode
+        hdr, coeffs, qtabs = decoded
+        grids = [c.shape[:2] for c in coeffs]
+        full = (max(g[0] for g in grids), max(g[1] for g in grids))
+        planes, stacks, tabs = [], [], []
+        for c, grid in enumerate(grids):
+            method = weights.upsample_method(
+                (hdr.hmax // hdr.comp_h[c], hdr.vmax // hdr.comp_v[c]),
+                hdr.comp_width[c])
+            wv, wh = (torch.from_numpy(a[None]) for a in
+                      weights.component_stacks(
+                          full, grid, (hdr.comp_height[c], hdr.comp_width[c]),
+                          method))
+            qt = torch.from_numpy(qtabs[hdr.comp_tq[c]].astype(np.int16))
+            planes.append(jp.idct_plain(torch.from_numpy(coeffs[c]),
+                                        qt)[None].contiguous())
+            stacks.append((wv, wh))
+            tabs.append(rs.resize_tables(wv, wh))
+        return planes, stacks, tabs, torch.zeros(1, dtype=torch.int32)
+
+    def k6(decoded, label):
+        # K6's two entries on the frame, against its plain version
+        x = jp.upload(jp.frame_plan(*decoded, jp.YCCK if decoded[0].ncomp
+                                    == 4 else jp.YCC), torch.device("cpu"))
+        planes = [torch.empty((c.shape[0] * 8, c.shape[1] * 8),
+                              dtype=torch.uint8) for c in x.coeffs]
+        out = torch.empty((x.height, x.width, len(x.coeffs)),
+                          dtype=torch.uint8)
+        rec = jp.record(x, planes, out)
+        for fn in (lib.ik_jpeg_idct, lib.ik_jpeg_upcolour):
+            assert fn(ctypes.byref(rec), None) == 0
+        note(f"K6 {label}", out, jp.decode_pixels_plain(x))
+
     def cmyk_planes(decoded, label):
-        planes, stacks, tabs, vidx = dct.sampled_inputs(decoded,
-                                                       torch.device("cpu"))
+        k6(decoded, f"CMYK {label}")
+        planes, stacks, tabs, vidx = sampled_inputs(decoded)
         for part in (slice(0, 3), slice(3, 4)):  # the two launches
             recs, outs = [], []
             for p, (wv, wh), t in zip(planes[part], stacks[part], tabs[part]):
@@ -126,6 +165,11 @@ _SCRIPT = textwrap.dedent("""
                         ("ratios_4_2", jpeg_writer.write(q, tabs4, 83, 61,
                                                          samp, tq))):
         cmyk_planes(jpeg_abi.decode4(loader.load(), data), label)
+    for samp in (0, 1, 2):
+        buf = io.BytesIO()
+        Image.fromarray(make_test_image(37, 23)).save(
+            buf, "JPEG", quality=90, subsampling=samp)
+        k6(jpeg_abi.decode(loader.load(), buf.getvalue()), f"YCC {samp}")
     print(json.dumps(worst))
 """)
 
@@ -137,12 +181,13 @@ def test_k2_and_k3_under_address_sanitizer(tmp_path):
     so = tmp_path / "libik_band_asan.so"
     san = ["-fsanitize=address,undefined", "-fno-sanitize-recover=undefined"]
     objs = [tmp_path / f"{name}.o" for name in ("resize_strip",
-                                                "resize_planes")]
+                                                "resize_planes",
+                                                "jpeg_pixels")]
     builds = [subprocess.Popen(
         ["g++", "-std=c++17", "-O0", "-g", "-ffp-contract=off", "-fPIC",
          *san, "-I", str(tmp_path), "-x", "c++", "-c",
          str(CSRC / f"{o.stem}.cu"), "-o", str(o)]) for o in objs]
-    assert [b.wait(timeout=600) for b in builds] == [0, 0]
+    assert [b.wait(timeout=600) for b in builds] == [0, 0, 0]
     subprocess.run(["g++", "-shared", *san, *map(str, objs), "-o", str(so)],
                    check=True, timeout=300)
     asan = subprocess.run(["g++", "-print-file-name=libasan.so"],
@@ -159,9 +204,11 @@ def test_k2_and_k3_under_address_sanitizer(tmp_path):
     assert "Sanitizer" not in proc.stderr, proc.stderr[-6000:]
     assert "runtime error" not in proc.stderr, proc.stderr[-6000:]
     worst = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert len(worst) == 4 * 2 * 2 + 2 * 4  # K2 cases, two CMYK files
+    # K2 cases, two CMYK files through K3 and K6, three YCbCr files
+    assert len(worst) == 4 * 2 * 2 + 2 * 4 + 2 + 3
     for name, (mx, share) in worst.items():
-        assert mx <= 1 and share <= 1e-3, (name, mx, share)
+        assert mx <= (0 if name.startswith("K6") else 1), (name, mx, share)
+        assert share <= 1e-3, (name, mx, share)
 
 
 _TIFFX = textwrap.dedent("""

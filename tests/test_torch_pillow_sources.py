@@ -5,7 +5,7 @@ The reference hands them to ``pil_backend.decode`` (at its fetch stage for
 ``/img``); the port decodes them with its own modules (``codecs/ico.py``,
 ``pnm.py``, ``qoi.py``, ``dds.py`` on ``native/raster_decode.cpp``; CMYK and
 YCCK through ``native/jpeg4_decode.cpp``, ``ops/dct.py::
-decode_four_components`` and ``ops/color.py::cmyk_to_rgb``) and hands the
+decode_components_to_rgb`` (K6) and ``ops/color.py::cmyk_to_rgb``) and hands the
 pixels to the batched RGB head (three channels) or its four-channel entry.
 The inputs are made from numpy seeds and written by Pillow, or by hand
 where Pillow writes no such file (plain PNM, a maxval other than 255 or
@@ -15,15 +15,13 @@ where Pillow writes no such file (plain PNM, a maxval other than 255 or
   package's ``decode_bytes`` (Pillow), and the header parse gives the
   decoded geometry.
 - CMYK and YCCK, at Pillow's default sampling (all 1x1), C at 2x2 and C at
-  2x1: (a) the four planes before colour within +-1 on at most 0.1% of
-  values of the JAX package's ``_blocks_to_plane`` and its K3-semantic
-  resize (``_resize_planes_einsum``) on the same coefficients, with the
-  JAX package's upsample stacks; (b) the colour step exactly Pillow's
-  ``Image.frombytes("CMYK", ..., "CMYK;I").convert("RGB")`` on the same u8
-  planes, and YCCK exactly libjpeg's ``ycck_cmyk_convert`` before it; (c)
-  the whole decode at >= 40 dB and |d| <= 12 against Pillow, the recorded
-  decision for the JPEG pixel decode. The committed 1080p fixture the card
-  run reads is checked against its recipe.
+  2x1: (a) the four planes K6 hands the colour step exactly libjpeg's
+  (Pillow's ``CMYK;I`` read, inverted back); (b) the colour step exactly
+  Pillow's ``Image.frombytes("CMYK", ..., "CMYK;I").convert("RGB")`` on
+  the same u8 planes, and YCCK exactly libjpeg's ``ycck_cmyk_convert``
+  before it; (c) the whole decode byte for byte against Pillow. The
+  committed 1080p fixture the card run reads is checked against its
+  recipe.
 - Both engines and both apps, at w=64 WebP and JPEG and with no resize:
   statuses, content types and output sizes equal, outputs decoded at
   >= 38 dB; the port's metrics show the RGB head's batch and, for CMYK,
@@ -45,8 +43,6 @@ from PIL import Image
 
 from imagekit_tpu import codecs as ref_codecs
 from imagekit_tpu import config as ref_config
-from imagekit_tpu.ops import dct as ref_dct
-from imagekit_tpu.ops.pallas import resize_kernel as ref_resize_kernel
 from imagekit_tpu.serving.metrics import Metrics as RefMetrics
 from imagekit_tpu.utils.bucketing import bucket_for
 from imagekit_tpu_torch import codecs, fetch, transform
@@ -60,7 +56,7 @@ from imagekit_tpu_torch.errors import (
     SourceDecodeError,
     TransformError,
 )
-from imagekit_tpu_torch.ops import color, dct, resize_planes, weights
+from imagekit_tpu_torch.ops import color, dct, jpeg_pixels, weights
 from imagekit_tpu_torch.serving.batcher import BatchedEngine as PortEngine
 from imagekit_tpu_torch.serving.metrics import Metrics
 from imagekit_tpu_torch.signature import sign
@@ -495,59 +491,28 @@ def test_cmyk_fixtures_have_the_layouts_they_name():
     assert jpeg_abi.parse4(lib, _cmyk(app14=False)).adobe_transform == -1
 
 
-def _jax_planes(decoded, libjpeg: bool = True):
-    """The JAX package's 8x8 IDCT (``_blocks_to_plane``) of each component
-    and its K3-semantic resize (``_resize_planes_einsum``) against the
-    largest block grid, with the component's stacks by libjpeg's
-    upsampling: the port's ``weights.component_stacks`` of
-    ``weights.upsample_method``'s choice (held to their numpy mirrors in
-    ``tests/test_torch_jpeg_sampling.py``; libjpeg's triangle stops at the
-    component's real size, its replication repeats the last sample past
-    it). Without ``libjpeg``, the JAX package's ``upsample_weights``: the
-    triangle of a 2x ratio up to the block grid's edge, the identity where
-    the grids are equal (a JPEG TIFF page's planes of one sampling)."""
-    import jax.numpy as jnp
-
-    hdr, coeffs, qtabs = decoded
-    grids = [c.shape[:2] for c in coeffs]
-    full = (max(g[0] for g in grids), max(g[1] for g in grids))
-    A = jnp.asarray(ref_dct.idct_basis())
-    out = []
-    for c, ((by, bx), t) in enumerate(zip(grids, hdr.comp_tq)):
-        p = ref_dct._blocks_to_plane(jnp.asarray(coeffs[c].reshape(1, by, -1)),
-                                     by, bx,
-                                     jnp.asarray(qtabs[t][None], jnp.float32),
-                                     A).astype(jnp.uint8)
-        if libjpeg:
-            method = weights.upsample_method(
-                (hdr.hmax // hdr.comp_h[c], hdr.vmax // hdr.comp_v[c]),
-                hdr.comp_width[c])
-            wv, wh = weights.component_stacks(
-                full, (by, bx), (hdr.comp_height[c], hdr.comp_width[c]),
-                method)
-        else:
-            wv = ref_dct.upsample_weights(by * 8, full[0] * 8)
-            wh = ref_dct.upsample_weights(bx * 8, full[1] * 8)
-        out.append(np.asarray(ref_resize_kernel._resize_planes_einsum(
-            p, jnp.asarray(wv)[None], jnp.asarray(wh)[None],
-            jnp.zeros(1, jnp.int32))))
-    return out
+def _pillow_cmyk(data: bytes) -> np.ndarray:
+    """libjpeg's four planes of a CMYK or YCCK JPEG (after its YCCK ->
+    CMYK step), (H, W, 4) u8: Pillow's CMYK image, which it reads inverted
+    (``CMYK;I``), inverted back."""
+    with Image.open(io.BytesIO(data)) as im:
+        assert im.mode == "CMYK"
+        return 255 - np.asarray(im)
 
 
 @pytest.mark.parametrize("case", CMYK_CASES, ids=_case_id)
 def test_four_planes_match_jax_under_k3(case):
-    decoded = jpeg_abi.decode4(loader.load(), _cmyk_case(case))
-    want = _jax_planes(decoded)
-    before = resize_planes.LAUNCHES
-    got = dct.four_component_planes(decoded, torch.device("cpu"))
-    assert resize_planes.LAUNCHES == before  # the plain version on the CPU
-    for i, (g, w) in enumerate(zip(got, want)):
-        g = g.numpy()
-        assert g.dtype == np.uint8 and g.shape == w.shape
-        d = np.abs(g.astype(int) - w.astype(int))
-        print(f"{_case_id(case)} plane {i}: max |d| {d.max()}, "
-              f"{(d > 0).sum()} of {d.size} differ")
-        assert d.max() <= 1 and (d > 0).mean() <= MAX_SHARE
+    """The four planes K6 hands the CMYK step against libjpeg's (Pillow's
+    ``CMYK;I`` read, inverted back): exactly (the name is kept from when
+    the target was the JAX package's IDCT and a K3-semantic resize)."""
+    data = _cmyk_case(case)
+    before = jpeg_pixels.LAUNCHES
+    got = dct.frame_pixels(jpeg_abi.decode4(loader.load(), data),
+                           torch.device("cpu")).numpy()
+    assert jpeg_pixels.LAUNCHES == before  # the plain version on the CPU
+    want = _pillow_cmyk(data)
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    assert np.array_equal(got, want)
 
 
 def _pillow_cmyk_rgb(planes) -> np.ndarray:
@@ -582,9 +547,12 @@ def test_colour_step_is_pillow_exactly(seed):
     planes[3][0], planes[3][1] = 0, 255  # the ends of K
     got = color.cmyk_to_rgb(*(torch.from_numpy(p) for p in planes)).numpy()
     assert np.array_equal(got, _pillow_cmyk_rgb(planes))
-    # YCCK: libjpeg's conversion to CMYK, then the same
-    got = color.cmyk_to_rgb(*(torch.from_numpy(p) for p in planes),
-                            ycck=True).numpy()
+    # YCCK: libjpeg's conversion to CMYK (K6's colour step, its plain
+    # version here), then the same
+    four = jpeg_pixels.colour_plain(
+        [torch.from_numpy(p.astype(np.int32)) for p in planes],
+        jpeg_pixels.YCCK)
+    got = color.cmyk_to_rgb(*four.unbind(-1)).numpy()
     cmy = _libjpeg_ycck(*planes[:3])
     assert np.array_equal(got, _pillow_cmyk_rgb([*cmy, planes[3]]))
 
@@ -598,9 +566,7 @@ def test_cmyk_decode_matches_pillow(case):
     data = _cmyk_case(case)
     got = jpeg.decode_rgb(data, device="cpu")
     pil = _pil_rgb(data)
-    d = np.abs(got.astype(int) - pil.astype(int))
-    print(f"{_case_id(case)}: PSNR {psnr(got, pil):.2f} dB, max |d| {d.max()}")
-    assert got.shape == pil.shape and psnr(got, pil) >= 40.0 and d.max() <= 12
+    assert got.shape == pil.shape and np.array_equal(got, pil)
     arr, fmt = codecs.decode_bytes(data, device="cpu")
     ref_arr, _ = ref_codecs.decode_bytes(data)
     assert fmt == codecs.SourceFormat.jpeg and np.array_equal(arr, got)
@@ -610,7 +576,8 @@ def test_cmyk_decode_matches_pillow(case):
 
 def test_cmyk_without_adobe_segment_is_cmyk():
     data = _cmyk(app14=False)
-    assert psnr(jpeg.decode_rgb(data, device="cpu"), _pil_rgb(data)) >= 40.0
+    assert np.array_equal(jpeg.decode_rgb(data, device="cpu"),
+                          _pil_rgb(data))
 
 
 def test_committed_fixture_is_its_recipe():
@@ -628,7 +595,7 @@ def test_committed_fixture_is_its_recipe():
     assert (hdr.width, hdr.height, hdr.comp_h, hdr.comp_v,
             hdr.adobe_transform) == (1920, 1080, (2, 1, 1, 1), (2, 1, 1, 1), 0)
     got = jpeg.decode_rgb(data, device="cpu")
-    assert psnr(got, _pil_rgb(data)) >= 40.0 and psnr(got, img) >= 30.0
+    assert np.array_equal(got, _pil_rgb(data)) and psnr(got, img) >= 30.0
 
 
 def test_progressive_cmyk_stays_not_ported():
@@ -648,8 +615,7 @@ def test_progressive_cmyk_stays_not_ported():
     got = jpeg.decode_rgb(data, device="cpu")
     want = _pil_rgb(data)
     assert got.shape == want.shape == (48, 64, 3)
-    assert psnr(got, want) >= 40.0
-    assert np.abs(got.astype(int) - want).max() <= 12
+    assert np.array_equal(got, want)
     img = make_test_image(64, 48)
     planes = jpeg_lossless_writer.subsample(
         np.dstack([img, img[:, :, 1]]), [(1, 1)] * 4)

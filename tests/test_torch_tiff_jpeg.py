@@ -8,8 +8,8 @@ RGB, RGB with alpha, gray and CMYK. The port reads the segment grid with
 ``native/tiff_ext_decode.cpp::ik_tiffx_jpeg_segments``, entropy-decodes the
 segments on the host (``codecs/tiff.py::entropy_decode``), assembles one
 coefficient plane a component and decodes the page on the device
-(``ops/dct.py::decode_tiff_page``: one K3 launch, two for four components,
-with block-diagonal chroma stacks, ``weights.segment_axis_weights``).
+(``ops/dct.py::decode_tiff_page``: one K6 decode, its upsample restarting
+at every segment edge, ``dct.page_plan``).
 
 Fixtures: the five layouts Pillow writes (``compression="jpeg"``), and
 YCbCr files made by hand (``chip_smoke.make_jpeg_tiff``: the port's encoder
@@ -20,12 +20,9 @@ whole number of MCUs, segments with their own tables of two qualities).
 
 - Coefficients: the page's planes are the segments' ``decode_any`` planes
   placed at their grid positions, exactly.
-- Planes: photometric 6 against the JAX package's ``decode_resize_rgb_batch``
-  under K3's semantics a segment, stitched (+-2 on at most 0.1%);
-  photometric 1, 2 and 5 against its ``_blocks_to_plane`` a segment (+-1 on
-  at most 0.1%).
+- Planes: photometric 1, 2 and 5 exactly libjpeg's islow a segment.
 - Against Pillow (the JAX package's ``decode_bytes``): the same shape and
-  channels, PSNR >= 40 dB and |d| <= 12.
+  channels, byte for byte.
 - Both engines and both apps: outputs within 38 dB; ``/img`` statuses and
   bodies equal for the corrupt files the reference refuses; what stays 501.
 """
@@ -56,17 +53,15 @@ from imagekit_tpu_torch.errors import (
     SourceDecodeError,
     TransformError,
 )
-from imagekit_tpu_torch.ops import dct, resize_planes, weights
+from imagekit_tpu_torch.ops import dct, jpeg_pixels, weights
 from imagekit_tpu_torch.serving.batcher import BatchedEngine as PortEngine
 from imagekit_tpu_torch.serving.metrics import Metrics
 from tests.conftest import make_test_image
-from tests.test_torch_jpeg_layouts import _jax_pixel_decode
-from tests.test_torch_jxc_slice import _ref_native_lib, k3_semantics  # noqa: F401
+from tests.test_torch_jxc_slice import _ref_native_lib
 from tests.test_torch_pillow_sources import (
     MODES,
     _decoded,
     _img,
-    _jax_planes,
     _mode_id,
     _run_engines,
     _save,
@@ -288,7 +283,7 @@ def test_default_huffman_tables_are_annex_k():
     assert tiff.tables_defined(data)[0] == {0, 1}
 
 
-# -- ops/weights.py -----------------------------------------------------------------
+# -- the upsample's segments (ops/dct.py::_page_spans) ------------------------------
 
 
 @pytest.mark.parametrize("luma,chroma", [((2, 2, 1), (1, 1, 1)),
@@ -296,17 +291,38 @@ def test_default_huffman_tables_are_annex_k():
                                          ((2, 2, 2), (1, 1, 1)),
                                          ((4, 3), (2, 2))])
 def test_segment_axis_weights_are_block_diagonal(luma, chroma):
-    got = weights.segment_axis_weights(luma, chroma).copy()  # cached
-    assert got.shape == (sum(luma) * 8, sum(chroma) * 8)
+    """One axis of a page component whose segments hold ``luma`` and
+    ``chroma`` blocks each (a segment coded as tall as its luma blocks):
+    K6's row map never reaches across a segment edge, each segment's part
+    is the map of that segment decoded alone, its support is that of the
+    JAX package's upsample stack over the segment's real samples, and
+    equal grids are the identity. (The name is kept from when the axis was
+    a block-diagonal weight matrix.)"""
+    ratio = luma[0] // chroma[0]
+    coded = [lb * 8 for lb in luma]
+    spans = dct._page_spans(luma, chroma, coded, ratio)
+    near, far, odd = got = jpeg_pixels.axis_map(sum(luma) * 8, ratio,
+                                                ratio == 2, spans)
+    assert got.shape == (3, sum(luma) * 8)
     o = i = 0
-    for lb, cb in zip(luma, chroma):
-        block = ref_dct.upsample_weights(cb * 8, lb * 8)
-        assert np.array_equal(got[o:o + lb * 8, i:i + cb * 8], block)
-        got[o:o + lb * 8, i:i + cb * 8] = 0
+    for lb, cb, n in zip(luma, chroma, coded):
+        real = -(-n // ratio)
+        assert real <= cb * 8
+        part = got[:, o:o + lb * 8]
+        assert ((part[:2] >= i) & (part[:2] < i + real)).all()
+        alone = jpeg_pixels.axis_map(lb * 8, ratio, ratio == 2,
+                                     [(0, 0, real)])
+        assert np.array_equal(part, alone + np.array([[i], [i], [0]]))
+        block = ref_dct.upsample_weights(real, lb * 8)
+        for r in range(lb * 8):
+            assert set(np.flatnonzero(block[r])) == {part[0, r] - i,
+                                                     part[1, r] - i}
         o, i = o + lb * 8, i + cb * 8
-    assert not got.any()  # nothing off the blocks
+    if luma == chroma:
+        assert np.array_equal(near, np.arange(sum(luma) * 8))
+        assert np.array_equal(far, near)
     with pytest.raises(ValueError):
-        weights.segment_axis_weights((2, 2), (1,))
+        dct._page_spans((2, 2), (1,), (16, 16), 2)
 
 
 # -- the planes against the JAX package ---------------------------------------------
@@ -323,43 +339,48 @@ def _stitched(segs, page_shape, channels, decode):
 
 
 @pytest.mark.parametrize("name", [n for n in CASES if _photometric(n) == 6])
-def test_ycbcr_page_matches_jax_under_k3(k3_semantics, name):
-    """One K3 (plain, here) over the page's block-diagonal stacks against
-    the JAX RGB-output head a segment, with its own identity and upsample
-    stacks, stitched: the upsample stops at every segment edge."""
+def test_ycbcr_page_matches_jax_under_k3(name, monkeypatch):
+    """K6 (plain, here) on the page's coefficient planes, its upsample
+    restarting at every segment edge, against the JAX package's served
+    decode (Pillow's libtiff and libjpeg-turbo): byte for byte, and no K3
+    (the name is kept from when the target was the JAX RGB head under K3's
+    semantics a segment, stitched)."""
     data = CASES[name]()
-    info, segs = _segments(data)
-    want = _stitched(segs, (info.height, info.width), 3, _jax_pixel_decode)
-    before = resize_planes.LAUNCHES
+    want = ref_codecs.decode_bytes(data)[0]
+    calls = _count_k3(monkeypatch)
+    before = jpeg_pixels.LAUNCHES
     got = dct.decode_tiff_page(tiff.entropy_decode(data), device="cpu")
-    assert resize_planes.LAUNCHES == before  # the plain version on the CPU
-    assert got.shape == want.shape
-    d = np.abs(got.astype(int) - want.astype(int))
-    print(f"{name}: max |d| {d.max()}, {(d > 0).sum()} of {d.size} differ")
-    assert d.max() <= 2 and (d > 0).mean() <= MAX_SHARE
+    assert jpeg_pixels.LAUNCHES == before  # the plain version on the CPU
+    assert calls == [] and got.shape == want.shape
+    assert np.array_equal(got, want)
 
 
 @pytest.mark.parametrize("name", [n for n in REGULAR if _photometric(n) != 6])
 def test_planes_match_jax_blocks_to_plane(name):
-    """Photometric 1, 2 and 5 have no colour step before the planes: K3's
-    identity stacks (plain, here) against the JAX package's 8x8 IDCT a
-    segment, placed at the segment's block offset."""
+    """Photometric 1, 2 and 5 have no colour step before the planes: K6's
+    IDCT planes of the page (plain, here) exactly libjpeg's islow of each
+    segment's levels (``tests/test_torch_jpeg_pixels.py::
+    idct_plane_reference``, a segment's at its block offset), and its
+    output those planes cropped (the identity upsample). The name is kept
+    from when the target was the JAX package's float IDCT."""
+    from tests.test_torch_jpeg_pixels import idct_plane_reference
+
     data = CASES[name]()
     page = tiff.entropy_decode(data)
-    got = dct.resize_components(*dct.tiff_page_inputs(page, torch.device(
-        "cpu")))
+    x = jpeg_pixels.upload(dct.page_plan(page), torch.device("cpu"))
+    out = jpeg_pixels.decode_pixels(x).numpy()
     info, segs = _segments(data)
-    for c, plane in enumerate(got):
-        plane = plane[0].numpy()
+    for c in range(len(page.coeffs)):
+        plane = jpeg_pixels.idct_plain(x.coeffs[c], x.qt[c]).numpy()
         assert plane.shape == (sum(page.rows[c]) * 8, sum(page.cols[c]) * 8)
         want = np.zeros_like(plane)
-        for dec, y0, x0 in segs:
-            p = _jax_planes(dec, libjpeg=False)[c]
+        for (hdr, coeffs, qtabs), y0, x0 in segs:
+            p = idct_plane_reference(coeffs[c], qtabs[hdr.comp_tq[c]])
             by = sum(page.rows[c][:y0 // info.seg_h]) * 8
             bx = sum(page.cols[c][:x0 // info.seg_w]) * 8
-            want[by:by + p.shape[1], bx:bx + p.shape[2]] = p[0]
-        d = np.abs(plane.astype(int) - want.astype(int))
-        assert d.max() <= 1 and (d > 0).mean() <= MAX_SHARE, (name, c)
+            want[by:by + p.shape[0], bx:bx + p.shape[1]] = p
+        assert np.array_equal(plane, want), (name, c)
+        assert np.array_equal(out[..., c], plane[:page.height, :page.width])
 
 
 # -- against Pillow ------------------------------------------------------------------
@@ -372,12 +393,8 @@ def test_decode_matches_pillow(name):
     got, fmt = codecs.decode_bytes(data, device="cpu")
     assert fmt.value == ref_fmt.value == "tiff"
     assert got.shape == want.shape and got.dtype == np.uint8
-    d = np.abs(got.astype(int) - want.astype(int))
-    print(f"{name}: PSNR {psnr(got, want):.2f} dB, max |d| {d.max()}")
-    assert psnr(got, want) >= 40.0 and d.max() <= 12
+    assert np.array_equal(got, want)  # the alpha of pil_rgba too
     assert np.array_equal(transform.decode_image(data, device="cpu")[0], got)
-    if name == "pil_rgba":  # the alpha is the stored fourth component
-        assert psnr(got[..., 3], want[..., 3]) >= 40.0
 
 
 def test_gray_is_r_equals_g_equals_b():
@@ -399,15 +416,17 @@ def _count_k3(monkeypatch):
 
 @pytest.mark.parametrize("name,want", [
     ("pil_ycbcr", [3]), ("pil_rgb", [3]), ("pil_gray", [1]),
-    ("pil_cmyk", [3, 1]), ("pil_rgba", [3, 1]), ("ycbcr_22_tiles", [3]),
+    ("pil_cmyk", [4]), ("pil_rgba", [4]), ("ycbcr_22_tiles", [3]),
     ("irregular_strip_of_24_rows", [3] * 6), ("irregular_tables", [3] * 9)])
 def test_one_k3_launch_a_page(monkeypatch, name, want):
-    """K3's wrapper once a page for one or three components, twice for four,
-    whatever the number of segments; an irregular page once (or twice) a
-    segment."""
-    calls = _count_k3(monkeypatch)
+    """One K6 decode a page (two launches on a card), its components
+    together, whatever the number of segments; an irregular page one a
+    segment; K3 never (the name is kept from when K3 ran the upsample)."""
+    from tests.test_torch_jpeg_pixels import count_k6
+
+    calls, k6 = _count_k3(monkeypatch), count_k6(monkeypatch)
     codecs.decode_bytes(CASES[name](), device="cpu")
-    assert calls == want
+    assert calls == [] and k6 == want
 
 
 def test_last_strip_coded_at_full_height_is_cropped():
@@ -422,7 +441,7 @@ def test_last_strip_coded_at_full_height_is_cropped():
     want = ref_codecs.decode_bytes(data)[0]
     got = codecs.decode_bytes(data, device="cpu")[0]
     assert got.shape == want.shape == (40, 64, 3)
-    assert psnr(got, want) >= 40.0
+    assert np.array_equal(got, want)
 
 
 # -- what the reference refuses, and what stays 501 ---------------------------------
@@ -547,8 +566,7 @@ def test_entropy_data_cut_short_is_refused_where_libjpeg_fills_gray():
     want = ref_codecs.decode_bytes(data)[0]
     got = codecs.decode_bytes(data, device="cpu")[0]
     assert got.shape == want.shape == (72, 64, 3)
-    assert psnr(got, want) >= 40.0
-    assert np.abs(got.astype(int) - want).max() <= 12
+    assert np.array_equal(got, want)
     page = tiff.entropy_decode(data)
     full = tiff.entropy_decode(chip_smoke.tiff_file(64, 72, tags, whole))
     # the cut strip's luma: one row of four 2x2-block MCUs, the first
@@ -637,7 +655,7 @@ def test_jpeg_layouts_no_decoder_takes_stay_not_ported(name):
     want = ref_codecs.decode_bytes(data)[0]
     if name in SERVED_NOW:
         got = codecs.decode_bytes(data, device="cpu")[0]
-        assert got.shape == want.shape and psnr(got, want) >= 40.0
+        assert got.shape == want.shape and np.array_equal(got, want)
         assert np.abs(got.astype(int) - want).max() <= 12
         return
     with pytest.raises(NotPortedError, match="queue 1 item 9"):
@@ -672,8 +690,7 @@ def test_segment_the_jpeg_decoders_refuse_stays_not_ported():
     data = chip_smoke.tiff_file(64, 72, tags, segs)
     want = ref_codecs.decode_bytes(data)[0]
     got = codecs.decode_bytes(data, device="cpu")[0]
-    assert got.shape == want.shape and psnr(got, want) >= 40.0
-    assert np.abs(got.astype(int) - want).max() <= 12
+    assert got.shape == want.shape and np.array_equal(got, want)
 
 
 def test_tiles_far_larger_than_the_image_are_refused():
@@ -730,14 +747,17 @@ def test_engine_matches_jax_engine(monkeypatch, name, mode):
 
 
 def test_engine_launches_k3_once_a_page(monkeypatch):
-    """Two requests of a 4:2:0 page in strips and one CMYK page: K3's
-    wrapper once a YCbCr page, twice a CMYK one; the RGB head one batch."""
-    calls = _count_k3(monkeypatch)
+    """Two requests of a 4:2:0 page in strips and one CMYK page: one K6
+    decode a page, K3 never (the name is kept from when K3 ran the
+    upsample); the RGB head one batch."""
+    from tests.test_torch_jpeg_pixels import count_k6
+
+    calls, k6 = _count_k3(monkeypatch), count_k6(monkeypatch)
     engine = PortEngine(_cfg(port_config, 3), metrics=Metrics(), device="cpu")
     datas = [ENGINE_SOURCES[n]() for n in ("ycbcr_22_strips",
                                            "ycbcr_22_strips", "pil_cmyk")]
     outs = _drive(engine, datas, [48] * 3, ImageFormat.webp)
-    assert sorted(calls) == [1, 3, 3, 3]
+    assert calls == [] and sorted(k6) == [3, 3, 4]
     assert engine.metrics.batches == 1
     assert [_out_size(o) for o in outs] == [(48, 36)] * 3
 
@@ -873,5 +893,5 @@ def test_chip_smoke_writer_decodes_as_pillow(kw):
     want = ref_codecs.decode_bytes(data)[0]
     got = codecs.decode_bytes(data, device="cpu")[0]
     assert got.shape == want.shape == (96, 160, 3)
-    assert psnr(got, want) >= 40.0
+    assert np.array_equal(got, want)
     assert psnr(got, img if not kw.get("gray") else got) >= 30.0

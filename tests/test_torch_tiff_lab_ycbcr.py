@@ -198,42 +198,37 @@ def test_cielab_pages_are_pillows(name):
 @pytest.mark.parametrize("quality", [75, 95])
 def test_cielab_jpeg_page_is_within_the_band(quality):
     """A JPEG-compressed CIELab page (Pillow's): its bands as libjpeg
-    decodes them, then the lattice, within the JPEG TIFF pixel decode's
-    band of Pillow's pixels."""
+    decodes them, then the lattice: Pillow's pixels exactly (the name is
+    kept from when the JPEG TIFF pixel decode was held to a band)."""
     data = _save(Image.fromarray(_picture(64, 48)).convert("LAB"), "TIFF",
                  compression="jpeg", quality=quality)
     want = ref_codecs.decode_bytes(data)[0]
     got = codecs.decode_bytes(data, device="cpu")[0]
-    assert got.shape == want.shape and psnr(got, want) >= 40.0
-    assert np.abs(got.astype(int) - want).max() <= 12
+    assert got.shape == want.shape and np.array_equal(got, want)
 
 
-def test_cielab_jpeg_of_neutral_chroma_is_a_known_difference(tmp_path):
-    """A known difference (ROADMAP, "Known differences"): an RGB JPEG
-    segment labelled CIELab, whose Cb and Cr bands lie near 128. A chunky
-    CIELab page's a* and b* bytes are signed, so 127 is a* = +127 and 128
-    is a* = -128: where the port's pixel decode and libjpeg's differ by 1
-    there (the JPEG band), the colour flips. The port decodes and serves
-    the page (200 in both apps), its pixels 34 dB from Pillow's and its
-    outputs 37.8 dB from the reference's, under the 38 dB contract; every
-    pixel more than 12 off is one whose a* or b* byte, as Pillow decodes
-    it, is 127 or 128."""
+def test_cielab_jpeg_of_neutral_chroma_meets_the_contract(tmp_path):
+    """Once a known difference (34.13 dB from Pillow's pixels and 37.78 dB
+    served, under the 38 dB contract), now closed: an RGB JPEG segment
+    labelled CIELab, whose Cb and Cr bands lie near 128. A chunky CIELab
+    page's a* and b* bytes are signed, so 127 is a* = +127 and 128 is a* =
+    -128, and a decode one off libjpeg's there flipped the colour. K6 is
+    libjpeg's decode: the pixels are Pillow's byte for byte, and both apps
+    serve the page (200) with outputs at >= 38 dB of each other."""
     from tests.test_torch_tiff_jpeg import _one_segment
 
     data = _one_segment(8, 0, None)
     want = ref_codecs.decode_bytes(data)[0]
     got = codecs.decode_bytes(data, device="cpu")[0]
-    assert got.shape == want.shape
-    assert 34.0 <= psnr(got, want) < 38.0
+    assert got.shape == want.shape and np.array_equal(got, want)
     bands = np.asarray(Image.open(io.BytesIO(data)))
-    off = np.abs(got.astype(int) - want).max(-1) > 12
-    assert off.any()
-    assert np.isin(bands[off][:, 1:], (127, 128)).any(-1).all()
+    assert np.isin(bands[..., 1:], (127, 128)).any()  # the flip's bytes
     ref, port = _both_apps(tmp_path, data)
     assert [p[:2] for p in port] == [r[:2] for r in ref]
     assert {p[0] for p in port} == {200}
     served = [psnr(_decoded(p[2]), _decoded(r[2])) for p, r in zip(port, ref)]
-    assert all(37.5 <= db < 38.0 for db in served), served
+    print("served dB:", served)
+    assert all(db >= 38.0 for db in served), served
 
 
 LAB_REFUSED = {
@@ -500,16 +495,14 @@ def test_orientation_on_every_layout_of_the_ports_decoder(layout,
                                                           orientation):
     """The Orientation on the port's other layouts, JPEG and old-style JPEG
     pages among them (libtiff's RGBA interface reads the latter): the same
-    transpose of Pillow's, exactly, or within the JPEG pixel decode's band
-    of Pillow's pixels."""
+    transpose of Pillow's, exactly (the JPEG pages too, since K6)."""
     data = _oriented(_orientation_sources()[layout], orientation)
     if "jpeg" not in layout:
         _same(data)
         return
     want = ref_codecs.decode_bytes(data)[0]
     got = codecs.decode_bytes(data, device="cpu")[0]
-    assert got.shape == want.shape and psnr(got, want) >= 40.0
-    assert np.abs(got.astype(int) - want).max() <= 12
+    assert got.shape == want.shape and np.array_equal(got, want)
 
 
 @pytest.mark.parametrize("orientation", [3, 6])
@@ -693,7 +686,7 @@ JPEG_FRAMES = {
 def test_jpeg_frames_both_native_parsers_refused(name):
     """A sequential scan's spectral band, whatever it states, is libjpeg's
     warning (JWRN_NOT_SEQUENTIAL) and every block decodes whole: Pillow's
-    pixels, within the pixel decode's band; a sampling factor outside 1-4
+    pixels exactly; a sampling factor outside 1-4
     is libjpeg's refusal, "broken data stream" in both."""
     data = JPEG_FRAMES[name]()
     if name.startswith("factor"):
@@ -702,7 +695,7 @@ def test_jpeg_frames_both_native_parsers_refused(name):
         return
     want = ref_codecs.decode_bytes(data)[0]
     got = codecs.decode_bytes(data, device="cpu")[0]
-    assert got.shape == want.shape and psnr(got, want) >= 40.0
+    assert got.shape == want.shape and np.array_equal(got, want)
 
 
 # -- CCITT: libtiff's recovery ------------------------------------------------------
@@ -1129,7 +1122,7 @@ RESIDUAL = {
 def test_layouts_past_the_last_501s_answer_as_the_reference(name):
     """Layouts that reached the port's 501 through the TIFF decoder's
     "unsupported" (found by probing Pillow): each decodes to Pillow's
-    pixels (the JPEG pages within the pixel decode's band), or is refused
+    pixels exactly (the JPEG pages too), or is refused
     with Pillow's message ("cannot identify image file", "decoder error
     -2", "unknown raw mode for given image mode")."""
     data = RESIDUAL[name]()
@@ -1140,10 +1133,7 @@ def test_layouts_past_the_last_501s_answer_as_the_reference(name):
         return
     got = codecs.decode_bytes(data, device="cpu")[0]
     assert got.shape == want.shape
-    if "jpeg" in name:
-        assert psnr(got, want) >= 40.0
-    else:
-        assert np.array_equal(got, want)
+    assert np.array_equal(got, want)
 
 
 @pytest.mark.parametrize("tiles", [False, True])
@@ -1170,8 +1160,7 @@ def test_palette_jpeg_page_is_pillows(tiles):
     want = ref_codecs.decode_bytes(data)[0]
     got = codecs.decode_bytes(data, device="cpu")[0]
     assert got.shape == want.shape == (48, 64, 3)
-    assert psnr(got, want) >= 40.0
-    assert np.abs(got.astype(int) - want).max() <= 12
+    assert np.array_equal(got, want)
 
 
 # -- the guards no input reaches ----------------------------------------------------------
@@ -1405,7 +1394,7 @@ def test_no_pillow_jpeg_tiff_mode_reaches_the_501():
             continue
         got = codecs.decode_bytes(data, device="cpu")[0]
         assert got.shape == want.shape, key
-        assert np.abs(got.astype(int) - want).max() <= 12, key
+        assert np.array_equal(got, want), key
     assert count > 50
 
 
@@ -1432,14 +1421,13 @@ def test_jpeg_layouts_past_the_last_501s_are_pillows(name):
     interface reads it), palette with alpha (PA; planar, an alpha of 0) or
     an unspecified sample (PX, dropped), planar YCbCr without subsampling
     (libtiff's ``TIFFYCbCrToRGB``); and planar CIELab, whose a* and b*
-    bands Pillow holds unsigned: within the JPEG band of Pillow's pixels,
-    and the header's geometry."""
+    bands Pillow holds unsigned: Pillow's pixels exactly, and the header's
+    geometry."""
     data = _JPEG_LAYOUTS[name]()
     want = ref_codecs.decode_bytes(data)[0]
     got = codecs.decode_bytes(data, device="cpu")[0]
     assert got.shape == want.shape
-    assert psnr(got, want) >= 40.0
-    assert np.abs(got.astype(int) - want).max() <= 12
+    assert np.array_equal(got, want)
     assert tiff.parse(data) == (want.shape[1], want.shape[0], want.shape[2])
 
 

@@ -14,16 +14,14 @@ reference decodes them with Pillow; the port's own
   ``decode_bytes`` (Pillow).
 - old-style JPEG (compression 6), read as libtiff's RGBA interface reads
   it: the JPEGInterchangeFormat stream (or the strip's, or the
-  tables-in-tags form's) entropy-decoded on the host; on the device the
-  8x8 IDCT, ONE K3 launch with the identity for luma and replication
-  stacks for chroma (``weights.replication_axis_weights``), and libtiff's
-  ``TIFFYCbCrToRGB`` (``weights.libtiff_ycbcr_tables``). Held to: the
-  coefficient planes exactly those of the pinned decoder on the whole
-  stream; the IDCT planes within +-1 on at most 0.1% of the JAX package's
-  ``_blocks_to_plane``; the replicated planes and the colour step exactly
-  numpy mirrors (a transcription of libtiff's ``tif_color.c``, itself
-  exactly Pillow on 4:4:4 pages); the page >= 40 dB and |d| <= 12 against
-  Pillow.
+  tables-in-tags form's) entropy-decoded on the host; on the device K6:
+  libjpeg's islow IDCT, the identity for luma and replication for chroma,
+  then libtiff's ``TIFFYCbCrToRGB`` (``weights.libtiff_ycbcr_tables``).
+  Held to: the coefficient planes exactly those of the pinned decoder on
+  the whole stream; the IDCT planes exactly libjpeg's islow; the
+  replicated planes and the colour step exactly numpy mirrors (a
+  transcription of libtiff's ``tif_color.c``, itself exactly Pillow on
+  4:4:4 pages); the page byte for byte Pillow's.
 - planar JPEG pages (one-component segments a plane), gray with alpha and
   RGB with an unspecified or associated extra sample: the same bars;
   Pillow's ``RGBa`` un-premultiply exactly a mirror of ``unpackRGBa``.
@@ -55,7 +53,6 @@ from PIL import Image, TiffImagePlugin
 import chip_smoke
 from imagekit_tpu import codecs as ref_codecs
 from imagekit_tpu.codecs import tiff as ref_tiff
-from imagekit_tpu.ops import dct as ref_dct
 from imagekit_tpu_torch import codecs, fetch, transform
 from imagekit_tpu_torch import config as port_config
 from imagekit_tpu_torch.codecs import jpeg, tiff
@@ -66,7 +63,7 @@ from imagekit_tpu_torch.errors import (
     NotPortedError,
     TransformError,
 )
-from imagekit_tpu_torch.ops import dct, resize_planes, weights
+from imagekit_tpu_torch.ops import dct, jpeg_pixels, weights
 from imagekit_tpu_torch.serving.batcher import BatchedEngine as PortEngine
 from imagekit_tpu_torch.serving.metrics import Metrics
 from tests.conftest import make_test_image
@@ -580,45 +577,39 @@ def test_old_style_coefficients_are_the_whole_streams(name):
         assert np.array_equal(page.qtabs[c], qtabs[hdr.comp_tq[c]])
 
 
-def _jax_idct(coeffs, qtab) -> np.ndarray:
-    """The JAX package's 8x8 IDCT of one component (``_blocks_to_plane``),
-    u8."""
-    import jax.numpy as jnp
-
-    by, bx = coeffs.shape[:2]
-    return np.asarray(ref_dct._blocks_to_plane(
-        jnp.asarray(coeffs.reshape(1, by, -1)), by, bx,
-        jnp.asarray(qtab[None], jnp.float32),
-        jnp.asarray(ref_dct.idct_basis())).astype(jnp.uint8))[0]
-
-
 def _page_planes(page):
-    """The port's IDCT planes and K3's planes (its plain version, here)."""
-    planes, stacks, tabs, vidx = dct.tiff_page_inputs(page,
-                                                      torch.device("cpu"))
-    before = resize_planes.LAUNCHES
-    out = dct.resize_components(planes, stacks, tabs, vidx)
-    assert resize_planes.LAUNCHES == before  # the plain version on the CPU
-    return ([p[0].numpy() for p in planes], [p[0].numpy() for p in out])
+    """K6's IDCT planes of the page and its output planes before the colour
+    step of the photometric (its plain version, here), each (H, W)."""
+    x = jpeg_pixels.upload(dct.page_plan(page), torch.device("cpu"))
+    before = jpeg_pixels.LAUNCHES
+    out = jpeg_pixels.decode_pixels(x).numpy()
+    assert jpeg_pixels.LAUNCHES == before  # the plain version on the CPU
+    return ([jpeg_pixels.idct_plain(c, x.qt[i]).numpy()
+             for i, c in enumerate(x.coeffs)],
+            [out[..., c] for c in range(out.shape[-1])])
 
 
 @pytest.mark.parametrize("name", ["jif_420", "jif_422", "jif_444",
                                   "jif_odd_size", "tables_in_tags"])
 def test_old_style_planes(name):
-    """The IDCT planes within +-1 on at most 0.1% of the JAX package's;
-    K3's planes (identity and replication stacks) exactly the IDCT planes
-    with chroma replicated over each subsampling block (np.repeat)."""
+    """The IDCT planes exactly libjpeg's islow (``tests/
+    test_torch_jpeg_pixels.py::idct_plane_reference``; within +-1 of the
+    JAX package's float IDCT before); the planes after the upsample exactly
+    the IDCT planes with chroma replicated over each subsampling block
+    (np.repeat), cropped to the page."""
+    from tests.test_torch_jpeg_pixels import idct_plane_reference
+
     page = tiff.entropy_decode(OLD_STYLE[name]())
     idct, out = _page_planes(page)
     for c in range(3):
-        want = _jax_idct(page.coeffs[c], page.qtabs[c])
-        d = np.abs(idct[c].astype(int) - want.astype(int))
-        assert d.max() <= 1 and (d > 0).mean() <= MAX_SHARE, (name, c)
+        want = idct_plane_reference(page.coeffs[c], page.qtabs[c])
+        assert np.array_equal(idct[c], want), (name, c)
     full = idct[0].shape
+    h, w = page.height, page.width
     for c in range(3):
         sv, sh = full[0] // idct[c].shape[0], full[1] // idct[c].shape[1]
-        want = np.repeat(np.repeat(idct[c], sv, 0), sh, 1)
-        assert out[c].shape == full and np.array_equal(out[c], want), c
+        want = np.repeat(np.repeat(idct[c], sv, 0), sh, 1)[:h, :w]
+        assert out[c].shape == (h, w) and np.array_equal(out[c], want), c
 
 
 @pytest.mark.parametrize("luma,chroma", [(4, 2), (3, 3), (34, 17), (1, 1)])
@@ -730,9 +721,9 @@ def test_libtiff_colour_step(name):
 
 @pytest.mark.parametrize("name", sorted(OLD_STYLE))
 def test_old_style_page_matches_pillow(name):
-    """The page (K3's plain version, then libtiff's colour step on the
+    """The page (K6's plain version, then libtiff's colour step on the
     replicated planes, exactly the mirror) against Pillow: the same shape,
-    >= 40 dB, |d| <= 12."""
+    byte for byte."""
     data = OLD_STYLE[name]()
     page = tiff.entropy_decode(data)
     _, out = _page_planes(page)
@@ -742,9 +733,7 @@ def test_old_style_page_matches_pillow(name):
     assert np.array_equal(got, mirror)
     want = ref_codecs.decode_bytes(data)[0]
     assert got.shape == want.shape == (h, w, 3)
-    d = np.abs(got.astype(int) - want.astype(int))
-    print(f"{name}: PSNR {psnr(got, want):.2f} dB, max |d| {d.max()}")
-    assert psnr(got, want) >= 40.0 and d.max() <= 12
+    assert np.array_equal(got, want)
     assert tiff.parse(data) == (w, h, 3) and tiff.layout(data) == tiff.JPEG
 
 
@@ -758,20 +747,19 @@ def test_old_style_1080p_page_matches_pillow():
     got = codecs.decode_bytes(data, device="cpu")[0]
     want = ref_codecs.decode_bytes(data)[0]
     assert got.shape == want.shape == (1080, 1920, 3)
-    d = np.abs(got.astype(int) - want.astype(int))
-    print(f"1080p: PSNR {psnr(got, want):.2f} dB, max |d| {d.max()}")
-    assert psnr(got, want) >= 40.0 and d.max() <= 12
+    assert np.array_equal(got, want)
 
 
 def test_chip_smoke_old_style_writer_decodes_as_pillow():
     """Phase 22's writer, without Pillow (the port's encoder, JFIF behind
-    513/514): Pillow reads its file, and the port decodes it within the
-    page's bars of that."""
+    513/514): Pillow reads its file, and the port decodes it to Pillow's
+    pixels exactly."""
     img = chip_smoke.synth_image(3, 160, 96, noise=False)
     data = chip_smoke.make_old_style_tiff(img, 80)
     want = ref_codecs.decode_bytes(data)[0]
     got = codecs.decode_bytes(data, device="cpu")[0]
     assert got.shape == want.shape == (96, 160, 3)
+    assert np.array_equal(got, want)
     d = np.abs(got.astype(int) - want.astype(int))
     assert psnr(got, want) >= 40.0 and d.max() <= 12
 
@@ -912,8 +900,11 @@ def test_two_component_jpeg_source_stays_not_ported():
 @pytest.mark.parametrize("name", sorted(JPEG_PAGES))
 def test_jpeg_page_coefficients_and_planes(name):
     """The page's planes are its segments' levels at their places, exactly;
-    the IDCT planes within +-1 on at most 0.1% of the JAX package's; K3's
-    (identity stacks) exactly the IDCT planes."""
+    the IDCT planes exactly libjpeg's islow (within +-1 of the JAX
+    package's float IDCT before); K6's output (the identity upsample)
+    exactly the IDCT planes, cropped."""
+    from tests.test_torch_jpeg_pixels import idct_plane_reference
+
     data = JPEG_PAGES[name]()
     assert ref_tiff.decode(data) is None
     page = tiff.entropy_decode(data)
@@ -928,35 +919,28 @@ def test_jpeg_page_coefficients_and_planes(name):
             assert np.array_equal(page.qtabs[c], qtabs[hdr.comp_tq[k]])
     idct, out = _page_planes(page)
     for c, (p, o) in enumerate(zip(idct, out)):
-        want = _jax_idct(page.coeffs[c], page.qtabs[c])
-        d = np.abs(p.astype(int) - want.astype(int))
-        assert d.max() <= 1 and (d > 0).mean() <= MAX_SHARE, (name, c)
-        assert np.array_equal(o, p), (name, c)
+        want = idct_plane_reference(page.coeffs[c], page.qtabs[c])
+        assert np.array_equal(p, want), (name, c)
+        assert np.array_equal(o, p[:page.height, :page.width]), (name, c)
 
 
 @pytest.mark.parametrize("name", sorted(JPEG_PAGES))
 def test_jpeg_page_matches_pillow(name):
-    """Against Pillow: the same shape and channels, >= 40 dB, |d| <= 12 (on
-    the colour where the alpha is at least 32 for the associated alpha,
-    whose un-premultiply multiplies an IDCT step by up to 255 / alpha);
-    the associated alpha's colour exactly the mirror of ``unpackRGBa`` on
-    the port's planes."""
+    """Against Pillow: the same shape and channels, byte for byte (the
+    associated alpha's colour too, whose un-premultiply multiplies an IDCT
+    step by up to 255 / alpha); the associated alpha's colour exactly the
+    mirror of ``unpackRGBa`` on the port's planes."""
     data = JPEG_PAGES[name]()
     want = ref_codecs.decode_bytes(data)[0]
     got = codecs.decode_bytes(data, device="cpu")[0]
     assert got.shape == want.shape == (48, 64, 4 if name in ALPHA else 3)
     assert tiff.parse(data) == (64, 48, got.shape[2])
-    keep = np.ones(got.shape[:2], bool)
     if "associated" in name:
         page = tiff.entropy_decode(data)
         _, out = _page_planes(page)
         planes = np.stack([p[:48, :64] for p in out], -1)
         assert np.array_equal(got, _unpremultiply(planes))
-        keep = want[..., 3] >= 32
-    g, w = got[keep].astype(int), want[keep].astype(int)
-    d = np.abs(g - w)
-    print(f"{name}: PSNR {psnr(g, w):.2f} dB, max |d| {d.max()}")
-    assert psnr(g, w) >= 40.0 and d.max() <= 12
+    assert np.array_equal(got, want)
 
 
 def _count_k3(monkeypatch):
@@ -975,17 +959,20 @@ def _count_k3(monkeypatch):
     (lambda: OLD_STYLE["jif_420"](), [3]),
     (lambda: OLD_STYLE["tables_in_tags"](), [3]),
     (lambda: JPEG_PAGES["planar_rgb"](), [3]),
-    (lambda: JPEG_PAGES["planar_rgba"](), [3, 1]),
+    (lambda: JPEG_PAGES["planar_rgba"](), [4]),
     (lambda: JPEG_PAGES["gray_with_alpha"](), [2]),
-    (lambda: JPEG_PAGES["rgb_unspecified_extra"](), [3, 1]),
+    (lambda: JPEG_PAGES["rgb_unspecified_extra"](), [4]),
 ], ids=["old_style", "old_style_tables", "planar", "planar_rgba", "la",
         "rgbx"])
 def test_one_k3_launch_a_page(monkeypatch, source, want):
-    """K3's wrapper once a page of up to three components (the old-style
-    page's luma and replicated chroma together), twice for four."""
-    calls = _count_k3(monkeypatch)
+    """One K6 decode a page, its components together (the old-style page's
+    luma and replicated chroma too; two launches on a card), and K3 never
+    (the name is kept from when K3 ran the upsample)."""
+    from tests.test_torch_jpeg_pixels import count_k6
+
+    calls, k6 = _count_k3(monkeypatch), count_k6(monkeypatch)
     codecs.decode_bytes(source(), device="cpu")
-    assert calls == want
+    assert calls == [] and k6 == want
 
 
 # -- what Pillow refuses, and corrupt data --------------------------------------------
@@ -1177,20 +1164,23 @@ def test_engine_matches_jax_engine(monkeypatch, name, mode):
 
 def test_engine_launches_k3_once_a_page(monkeypatch):
     """An old-style page, a planar page and an RGB page with associated
-    alpha: K3's wrapper once, once and twice; the RGB heads one batch for
-    the two pages without alpha."""
-    calls = _count_k3(monkeypatch)
+    alpha: one K6 decode each, K3 never (the name is kept from when K3 ran
+    the upsample); the RGB heads one batch for the two pages without
+    alpha."""
+    from tests.test_torch_jpeg_pixels import count_k6
+
+    calls, k6 = _count_k3(monkeypatch), count_k6(monkeypatch)
     engine = PortEngine(_cfg(port_config, 2), metrics=Metrics(), device="cpu")
     datas = [ENGINE_SOURCES[n]() for n in ("old_style", "planar_rgb")]
     outs = _drive(engine, datas, [48, 48], ImageFormat.webp)
-    assert sorted(calls) == [3, 3]
+    assert calls == [] and k6 == [3, 3]
     assert engine.metrics.batches == 1
     assert [_out_size(o) for o in outs] == [(48, 36)] * 2
-    calls.clear()
+    k6.clear()
     engine = PortEngine(_cfg(port_config, 1), metrics=Metrics(), device="cpu")
     _drive(engine, [ENGINE_SOURCES["rgb_associated_alpha"]()], [48],
            ImageFormat.webp)
-    assert calls == [3, 1]
+    assert calls == [] and k6 == [4]
 
 
 HTTP_SOURCES = ("fill_order_2_g4", "float32_elevation", "old_style",
